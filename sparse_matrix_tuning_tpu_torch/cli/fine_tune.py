@@ -1,0 +1,70 @@
+"""Training entry point (PyTorch port) — the `deepspeed fine_tune.py
+--flags` equivalent (reference deepspeed/fine_tune.py:867-1081):
+
+  python -m sparse_matrix_tuning_tpu_torch.cli.fine_tune \
+      --model_name_or_path /path/to/TinyLlama-1.1B \
+      --data_path /path/to/commonsense_170k.json \
+      --matrix_sparsity --full_ft_steps 100 \
+      --downsample_attention_blocks_ratio 0.0084 \
+      --downsample_mlp_blocks_ratio 0.0084 \
+      --output_dir /path/to/out
+
+model_name_or_path must be a local HF checkpoint dir. Runs on the first
+CUDA device when there is one, else on the CPU.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+
+def main(argv=None):
+    from sparse_matrix_tuning_tpu_torch.config import parse_args
+    cfg = parse_args(argv)
+
+    import torch
+    from sparse_matrix_tuning_tpu_torch.data.sft import make_supervised_data, num_batches
+    from sparse_matrix_tuning_tpu_torch.models.hf_io import (
+        load_hf_config, load_hf_params, load_hf_tokenizer,
+    )
+    from sparse_matrix_tuning_tpu_torch.train.trainer import SMTTrainer
+    from sparse_matrix_tuning_tpu_torch.utils.logging import print_rank_0, set_random_seed
+
+    set_random_seed(cfg.seed)
+    print_rank_0(f"[config]\n{cfg.to_json()}")
+
+    if not os.path.isdir(cfg.model_name_or_path):
+        raise FileNotFoundError(
+            f"{cfg.model_name_or_path}: model_name_or_path must be a local "
+            "HF checkpoint directory")
+
+    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    print_rank_0(f"[device] {device}")
+    tokenizer = load_hf_tokenizer(cfg.model_name_or_path, cfg.max_seq_len,
+                                  cfg.add_eot_token)
+    model_cfg = load_hf_config(cfg.model_name_or_path)
+    params = load_hf_params(cfg.model_name_or_path, model_cfg,
+                            dtype=cfg.param_dtype, device=device)
+
+    train_ds, eval_ds = make_supervised_data(
+        cfg.data_path[0], tokenizer, cfg.max_seq_len, cfg.eval_set_ratio, cfg.seed)
+    print_rank_0(f"Training data size {len(train_ds)}, "
+                 f"validation data set {len(eval_ds)}")
+
+    global_bs = cfg.per_device_ft_batch_size * cfg.gradient_accumulation_steps
+    steps_per_epoch = num_batches(len(train_ds), global_bs)
+    total_steps = cfg.num_ft_epochs * steps_per_epoch
+
+    trainer = SMTTrainer(cfg, model_cfg, params, total_steps, device=device)
+    del params
+    history = trainer.fit(train_ds, eval_ds, tokenizer.pad_token_id,
+                          tokenizer=tokenizer)
+    print_rank_0(f"training_loss_list: {history['train_loss'][-20:]}")
+    print_rank_0(f"eval_loss_list: {history['eval_loss']}")
+    print_rank_0(f"ppl_list: {history['ppl']}")
+    return history
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -1,0 +1,329 @@
+"""Llama-family decoder, training forward, in PyTorch (plain dicts of
+tensors + functions).
+
+Twin of `sparse_matrix_tuning_tpu.models.llama` (training path only):
+RMSNorm, HF-convention rotary embeddings, grouped-query masked attention,
+SiLU gate/up/down MLP, optional Qwen2 QKV biases, untied or tied head.
+Parameters keep the JAX tree layout: {"embed_tokens", "norm", "lm_head",
+"layers": {"<i>": {module: (out, in) weight}}}, so both packages compute
+the same thing on the same weights (models/from_jax.py).
+
+The six SMT target linears route through the `linear(x, w, module,
+layer)` dispatch hook; after conversion the planned ones compute through
+the block-sparse autograd Function (ops/sparse_linear.py).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+ATTN_TARGETS = ("q_proj", "k_proj", "v_proj")
+MLP_TARGETS = ("gate_proj", "up_proj", "down_proj")
+TARGET_MODULES = ATTN_TARGETS + MLP_TARGETS
+
+IGNORE_INDEX = -100  # reference helper.py:23
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 2048
+    intermediate_size: int = 5632
+    num_hidden_layers: int = 22
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 4
+    max_position_embeddings: int = 2048
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    tie_word_embeddings: bool = False
+    attention_dropout: float = 0.0
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @classmethod
+    def tiny(cls, vocab_size: int = 512) -> "LlamaConfig":
+        """A block-divisible toy config for tests (all linears >= 256x256)."""
+        return cls(vocab_size=vocab_size, hidden_size=256, intermediate_size=512,
+                   num_hidden_layers=2, num_attention_heads=4,
+                   num_key_value_heads=2, max_position_embeddings=512)
+
+    @classmethod
+    def from_hf(cls, hf_cfg: Mapping[str, Any]) -> "LlamaConfig":
+        return cls(
+            vocab_size=hf_cfg["vocab_size"],
+            hidden_size=hf_cfg["hidden_size"],
+            intermediate_size=hf_cfg["intermediate_size"],
+            num_hidden_layers=hf_cfg["num_hidden_layers"],
+            num_attention_heads=hf_cfg["num_attention_heads"],
+            num_key_value_heads=hf_cfg.get("num_key_value_heads",
+                                           hf_cfg["num_attention_heads"]),
+            max_position_embeddings=hf_cfg.get("max_position_embeddings", 2048),
+            rms_norm_eps=hf_cfg.get("rms_norm_eps", 1e-5),
+            rope_theta=hf_cfg.get("rope_theta", 10000.0),
+            tie_word_embeddings=hf_cfg.get("tie_word_embeddings", False),
+        )
+
+    def to_hf(self) -> Dict[str, Any]:
+        return {
+            "architectures": ["LlamaForCausalLM"],
+            "model_type": "llama",
+            "vocab_size": self.vocab_size,
+            "hidden_size": self.hidden_size,
+            "intermediate_size": self.intermediate_size,
+            "num_hidden_layers": self.num_hidden_layers,
+            "num_attention_heads": self.num_attention_heads,
+            "num_key_value_heads": self.num_key_value_heads,
+            "max_position_embeddings": self.max_position_embeddings,
+            "rms_norm_eps": self.rms_norm_eps,
+            "rope_theta": self.rope_theta,
+            "tie_word_embeddings": self.tie_word_embeddings,
+            "hidden_act": "silu",
+            "torch_dtype": "bfloat16",
+        }
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: LlamaConfig, seed: int = 0, dtype=torch.float32,
+                device=None) -> Dict:
+    """Random init from a numpy seed (tests / synthetic runs). Same scales
+    as the JAX init (N(0,1)/sqrt(in) linears, N(0,0.02) embeddings, unit
+    norms); the random numbers differ, so parity tests carry JAX weights
+    across with models/from_jax.py instead."""
+    d, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    kv = cfg.num_key_value_heads * cfg.head_dim
+    rng = np.random.default_rng(seed)
+
+    def normal(shape, scale):
+        a = rng.standard_normal(shape, dtype=np.float32)
+        a *= np.float32(scale)
+        return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+    def dense(out_dim, in_dim):
+        return normal((out_dim, in_dim), 1.0 / np.sqrt(in_dim))
+
+    def ones(n):
+        return torch.ones((n,), dtype=dtype, device=device)
+
+    params: Dict[str, Any] = {
+        "embed_tokens": normal((v, d), 0.02),
+        "norm": ones(d),
+        "layers": {},
+    }
+    for i in range(cfg.num_hidden_layers):
+        params["layers"][str(i)] = {
+            "input_layernorm": ones(d),
+            "post_attention_layernorm": ones(d),
+            "q_proj": dense(d, d),
+            "k_proj": dense(kv, d),
+            "v_proj": dense(kv, d),
+            "o_proj": dense(d, d),
+            "gate_proj": dense(f, d),
+            "up_proj": dense(f, d),
+            "down_proj": dense(d, f),
+        }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = normal((v, d), 0.02)
+    return params
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def flatten_tree(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """{"a/b/c": leaf} with the JAX optimizer's "/"-joined key paths
+    (smt/optimizer.py _flatten), which the param-group policies read."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(flatten_tree(v, key))
+        else:
+            out[key] = v
+    return out
+
+
+def target_module_dims(params: Mapping[str, Any]) -> Dict[str, tuple]:
+    """{module_name: (out_dim, in_dim)} for the six SMT targets."""
+    layer0 = params["layers"]["0"]
+    return {m: tuple(layer0[m].shape) for m in TARGET_MODULES}
+
+
+def all_2d_param_shapes(params: Mapping[str, Any]) -> list:
+    """Shapes of every 2-D param (the total-block denominator quirk,
+    reference fine_tune.py:231-241 — includes embeddings and lm_head)."""
+    return [tuple(p.shape) for p in flatten_tree(params).values() if p.dim() == 2]
+
+
+# ---------------------------------------------------------------------------
+# Building blocks
+# ---------------------------------------------------------------------------
+
+def _rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * weight.float()).to(dt)
+
+
+def _rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
+    """HF convention: inv_freq over even dims, cos/sin tiled twice."""
+    inv_freq = 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
+    inv_freq = torch.from_numpy(np.asarray(inv_freq, np.float32)).to(positions.device)
+    freqs = positions.float()[..., None] * inv_freq[None, :]  # (..., S, hd/2)
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return torch.cos(emb), torch.sin(emb)
+
+
+def _rotate_half(x: torch.Tensor) -> torch.Tensor:
+    half = x.shape[-1] // 2
+    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+
+
+def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    # x: (B, S, H, hd); cos/sin: (B, S, hd)
+    cos = cos[:, :, None, :].to(x.dtype)
+    sin = sin[:, :, None, :].to(x.dtype)
+    return x * cos + _rotate_half(x) * sin
+
+
+def default_linear(x: torch.Tensor, w: torch.Tensor, module: str, layer: int) -> torch.Tensor:
+    """Dense linear y = x @ W.T (weights stored HF-style as (out, in))."""
+    return torch.matmul(x, w.t())
+
+
+def _attention(q, k, v, mask_bias):
+    """Masked einsum attention. q: (B,S,Hq,hd); k/v: (B,S,Hkv,hd); GQA via
+    head grouping; mask_bias: (B,1,S,S) additive fp32 bias (0 / min)."""
+    b, s, hq, hd = q.shape
+    hkv = k.shape[2]
+    groups = hq // hkv
+    q = q.reshape(b, s, hkv, groups, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", q, k).float()
+    scores = scores / float(np.sqrt(hd))
+    scores = scores + mask_bias[:, :, None, :, :]
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    return out.reshape(b, s, hq * hd)
+
+
+def _lin(lp: Mapping[str, torch.Tensor], h: torch.Tensor, name: str, linear,
+         layer_idx: int) -> torch.Tensor:
+    """Linear via the dispatch hook, plus bias when the checkpoint has one
+    (Qwen2-style QKV biases; never SMT-selected, frozen after conversion)."""
+    y = linear(h, lp[name], name, layer_idx)
+    bias = lp.get(f"{name}_bias")
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y
+
+
+def _decoder_layer(lp: Mapping[str, torch.Tensor], x: torch.Tensor, mask_bias,
+                   cos, sin, cfg: LlamaConfig, linear, layer_idx: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    h = _rms_norm(x, lp["input_layernorm"], cfg.rms_norm_eps)
+    q = _lin(lp, h, "q_proj", linear, layer_idx)
+    k = _lin(lp, h, "k_proj", linear, layer_idx)
+    v = _lin(lp, h, "v_proj", linear, layer_idx)
+    hd = cfg.head_dim
+    q = q.reshape(b, s, cfg.num_attention_heads, hd)
+    k = k.reshape(b, s, cfg.num_key_value_heads, hd)
+    v = v.reshape(b, s, cfg.num_key_value_heads, hd)
+    q = _apply_rope(q, cos, sin)
+    k = _apply_rope(k, cos, sin)
+    attn = _attention(q, k, v, mask_bias)
+    x = x + _lin(lp, attn, "o_proj", linear, layer_idx)
+
+    h = _rms_norm(x, lp["post_attention_layernorm"], cfg.rms_norm_eps)
+    gate = _lin(lp, h, "gate_proj", linear, layer_idx)
+    up = _lin(lp, h, "up_proj", linear, layer_idx)
+    x = x + _lin(lp, F.silu(gate) * up, "down_proj", linear, layer_idx)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def forward(params: Mapping[str, Any], input_ids: torch.Tensor, cfg: LlamaConfig,
+            attention_mask: Optional[torch.Tensor] = None,
+            linear=default_linear,
+            remat: bool = True,
+            stop_grad_below_layer: Optional[int] = None,
+            attn_impl: str = "einsum") -> torch.Tensor:
+    """Run the decoder; returns logits (B, S, V) in fp32.
+
+    remat: recompute each layer in the backward pass
+    (torch.utils.checkpoint, non-reentrant, so closures over trainable
+    blocks in `linear` still receive gradients). stop_grad_below_layer:
+    detach the residual stream at the input of this layer, as the JAX
+    twin's stop_gradient; autograd then never visits the frozen layers
+    below it."""
+    if attn_impl != "einsum":
+        raise NotImplementedError(
+            f"attn_impl={attn_impl!r}: only the masked einsum attention is "
+            "ported (the training attention kernel is the next port)")
+    b, s = input_ids.shape
+    if attention_mask is None:
+        attention_mask = torch.ones((b, s), dtype=torch.int32, device=input_ids.device)
+    positions = torch.clamp(torch.cumsum(attention_mask, dim=-1) - 1, min=0)
+
+    x = F.embedding(input_ids, params["embed_tokens"])
+
+    causal = torch.tril(torch.ones((s, s), dtype=torch.bool, device=input_ids.device))
+    keep = causal[None, :, :] & (attention_mask[:, None, :] > 0)
+    zero = torch.zeros((), dtype=torch.float32, device=input_ids.device)
+    neg = torch.full((), torch.finfo(torch.float32).min, dtype=torch.float32,
+                     device=input_ids.device)
+    mask_bias = torch.where(keep, zero, neg)[:, None, :, :]
+
+    cos, sin = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+
+    use_remat = remat and torch.is_grad_enabled()
+    for i in range(cfg.num_hidden_layers):
+        if stop_grad_below_layer is not None and i == stop_grad_below_layer:
+            x = x.detach()
+        lp = params["layers"][str(i)]
+        if use_remat:
+            x = checkpoint(_decoder_layer, lp, x, mask_bias, cos, sin, cfg,
+                           linear, i, use_reentrant=False)
+        else:
+            x = _decoder_layer(lp, x, mask_bias, cos, sin, cfg, linear, i)
+
+    x = _rms_norm(x, params["norm"], cfg.rms_norm_eps)
+    head = lm_head_weight(params, cfg)
+    return torch.matmul(x, head.t()).float()
+
+
+def lm_head_weight(params: Mapping[str, Any], cfg: LlamaConfig) -> torch.Tensor:
+    return params["embed_tokens"] if cfg.tie_word_embeddings else params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """HF-style shifted cross-entropy, mean over non-ignored tokens, fp32."""
+    logits = logits[:, :-1, :].float()
+    targets = labels[:, 1:].long()
+    valid = targets != IGNORE_INDEX
+    safe = torch.where(valid, targets, torch.zeros_like(targets))
+    logp = torch.log_softmax(logits, dim=-1)
+    tok_loss = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    tok_loss = torch.where(valid, tok_loss, torch.zeros_like(tok_loss))
+    denom = torch.clamp(valid.sum(), min=1)
+    return tok_loss.sum() / denom

@@ -1,0 +1,334 @@
+"""Training/eval step functions for both SMT phases (PyTorch twin of
+`sparse_matrix_tuning_tpu.train.steps`).
+
+Phase 1 (warm-up, reference fine_tune.py:710-773): full fine-tuning with
+fp32 master weights; every step also accumulates saliency of the six
+target linears from the UNCLIPPED gradients into on-device accumulators.
+
+Phase 2 (sparse): gradients exist only for the gathered blocks via the
+block-sparse autograd Function; Adam state is proportional to the selected
+fraction; the updated blocks are scattered once per step into the dense
+weights.
+
+A state is a plain dict of tensors. The steps update it IN PLACE (params,
+optimizer state, counters) where the JAX twin donated its buffers, and
+return it with a dict of 0-dim metric tensors; nothing waits on the device.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+
+from sparse_matrix_tuning_tpu_torch.config import SMTConfig
+from sparse_matrix_tuning_tpu_torch.models.llama import (
+    ATTN_TARGETS, TARGET_MODULES, LlamaConfig, causal_lm_loss, default_linear,
+    flatten_tree, forward, tree_map,
+)
+from sparse_matrix_tuning_tpu_torch.ops.cuda.masked_adam import masked_adam
+from sparse_matrix_tuning_tpu_torch.ops.sparse_linear import (
+    _resolve_impl, make_sparse_linear_dispatch)
+from sparse_matrix_tuning_tpu_torch.smt.optimizer import (
+    AdamConfig, adam_step, clip_by_global_norm, full_ft_wd_mask,
+    make_qk_lr_scale,
+)
+from sparse_matrix_tuning_tpu_torch.smt.plan import SMTPlan
+
+
+def _cast_tree(tree, dtype):
+    return tree_map(lambda p: p.to(dtype), tree)
+
+
+def accumulated_value_and_grad(loss_of, accum_steps: int):
+    """Microbatch gradient accumulation (the reference delegates this to the
+    DeepSpeed engine). Returns vag(params, batch) -> (mean loss, grads):
+    `params` is a flat {key: leaf tensor requiring grad}; the global batch's
+    leading dim is split into `accum_steps` microbatches, each backward adds
+    into .grad, and loss and grads are scaled by 1/accum_steps at the end —
+    the JAX twin's sum-then-scale order. Each microbatch loss is a mean over
+    its own valid tokens and microbatches weigh equally (DeepSpeed
+    semantics)."""
+
+    def vag(params: Dict[str, torch.Tensor], batch):
+        for p in params.values():
+            p.grad = None
+        if accum_steps <= 1:
+            micro = [batch]
+        else:
+            micro = [{k: v.reshape(accum_steps, -1, *v.shape[1:])[i]
+                      for k, v in batch.items()} for i in range(accum_steps)]
+        total = None
+        for mb in micro:
+            loss = loss_of(params, mb)
+            loss.backward()
+            total = loss.detach() if total is None else total + loss.detach()
+        grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+                 for k, p in params.items()}
+        if accum_steps > 1:
+            inv = 1.0 / accum_steps
+            total = total * inv
+            grads = {k: g.mul_(inv) for k, g in grads.items()}
+        return total, grads
+
+    return vag
+
+
+def compute_loss(params, batch, cfg: SMTConfig, model_cfg: LlamaConfig,
+                 linear=None, remat=True, stop_grad_below_layer=None):
+    """Full logits + CE (the only loss path ported; loss_impl resolves to
+    "full")."""
+    logits = forward(params, batch["input_ids"], model_cfg,
+                     attention_mask=batch.get("attention_mask"),
+                     linear=linear or default_linear, remat=remat,
+                     stop_grad_below_layer=stop_grad_below_layer,
+                     attn_impl=cfg.attn_impl)
+    return causal_lm_loss(logits, batch["labels"])
+
+
+# ---------------------------------------------------------------------------
+# Warm-up (full fine-tuning) step
+# ---------------------------------------------------------------------------
+
+# "auto" saliency accumulation switches to per_step_stats once the grad_sum
+# accumulators would exceed this many bytes of fp32 device memory.
+SALIENCY_AUTO_GRAD_SUM_LIMIT = 2 * 1024 ** 3
+
+
+def _grad_sum_accumulator_bytes(master, cfg: SMTConfig) -> int:
+    total = 0
+    for layer in master["layers"].values():
+        for mod in TARGET_MODULES:
+            shape = tuple(layer[mod].shape)
+            if cfg.matrix_sparsity and _wants_saliency(cfg, mod) \
+                    and not (shape[0] % 256 or shape[1] % 256):
+                total += shape[0] * shape[1] * 4
+    return total
+
+
+def resolve_saliency_accumulation(cfg: SMTConfig, master) -> str:
+    """Resolve saliency_accumulation="auto": reference-exact grad_sum while
+    the accumulators stay small, per_step_stats at scale (exact for the
+    matrix mean_abs reducer — signed-mean accumulation,
+    select.block_stats_step). Mutates cfg so later consumers agree."""
+    if cfg.saliency_accumulation == "auto":
+        over = _grad_sum_accumulator_bytes(master, cfg) > SALIENCY_AUTO_GRAD_SUM_LIMIT
+        cfg.saliency_accumulation = "per_step_stats" if over else "grad_sum"
+        if over:
+            from sparse_matrix_tuning_tpu_torch.utils.logging import print_rank_0
+            print_rank_0(
+                "[smt] saliency_accumulation=auto -> per_step_stats "
+                "(grad_sum accumulators would exceed "
+                f"{SALIENCY_AUTO_GRAD_SUM_LIMIT >> 30} GiB; exact vs grad_sum "
+                "for mean_abs, approximate for the abs-inside reducers)")
+    return cfg.saliency_accumulation
+
+
+def init_warmup_state(master, cfg: SMTConfig, device=None) -> Dict:
+    """fp32 master copies (leaf tensors requiring grad), zero Adam moments,
+    step counters and the saliency accumulators, on `device` (default: the
+    params' device)."""
+    resolve_saliency_accumulation(cfg, master)
+    if device is None:
+        device = master["embed_tokens"].device
+
+    def to_master(p):
+        return p.detach().to(device=device, dtype=torch.float32, copy=True).requires_grad_(True)
+
+    state = {
+        "master": tree_map(to_master, master),
+        "count": torch.zeros((), dtype=torch.int32, device=device),
+        "step": torch.zeros((), dtype=torch.int32, device=device),
+    }
+    state["m"] = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=device),
+                          state["master"])
+    state["v"] = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=device),
+                          state["master"])
+    if cfg.matrix_sparsity:
+        acc = {}
+        for li, layer in master["layers"].items():
+            for mod in TARGET_MODULES:
+                shape = tuple(layer[mod].shape)
+                if not _wants_saliency(cfg, mod):
+                    continue
+                if shape[0] % 256 or shape[1] % 256:
+                    continue  # excluded from selection (reference would crash)
+                if cfg.saliency_accumulation == "per_step_stats":
+                    shape = (shape[0] // 256, shape[1] // 256)
+                acc[f"{li}.{mod}"] = torch.zeros(shape, dtype=torch.float32, device=device)
+        state["acc"] = acc
+    return state
+
+
+def _wants_saliency(cfg: SMTConfig, module: str) -> bool:
+    if module in ATTN_TARGETS:
+        return cfg.downsample_attention_blocks_ratio > 0 or cfg.no_limit_mixture
+    return cfg.downsample_mlp_blocks_ratio > 0 or cfg.no_limit_mixture
+
+
+def _target_grad(grads: Dict[str, torch.Tensor], ks: str) -> torch.Tensor:
+    layer, module = ks.split(".", 1)
+    return grads[f"layers/{layer}/{module}"].float()
+
+
+def build_warmup_step(cfg: SMTConfig, model_cfg: LlamaConfig,
+                      lr_sched: Callable) -> Callable:
+    adam_cfg = AdamConfig(betas=tuple(cfg.warmup_adam_betas), eps=cfg.adam_eps,
+                          weight_decay=cfg.w_decay, grad_clip=cfg.grad_clip)
+    param_dtype = cfg.param_dtype
+    # --qk_scheduler boosts q/k_proj LR during warm-up too (fine_tune.py:160-163)
+    lr_scale = make_qk_lr_scale(cfg.qk_lr_times) if cfg.qk_scheduler else None
+
+    def step(state: Dict, batch: Dict) -> tuple:
+        master = state["master"]
+
+        def loss_of(flat_master, mb):
+            params = _cast_tree(master, param_dtype)
+            return compute_loss(params, mb, cfg, model_cfg,
+                                remat=cfg.gradient_checkpointing)
+
+        flat = flatten_tree(master)
+        vag = accumulated_value_and_grad(loss_of, cfg.gradient_accumulation_steps)
+        loss, grads = vag(flat, batch)
+
+        with torch.no_grad():
+            if "acc" in state:
+                # saliency accumulates the UNCLIPPED averaged grad, as the
+                # reference harvests before optimizer clipping (fine_tune.py:716)
+                if cfg.saliency_accumulation == "per_step_stats":
+                    from sparse_matrix_tuning_tpu_torch.smt.select import block_stats_step
+                    from sparse_matrix_tuning_tpu_torch.train.convert import harvest_strategy
+                    for ks, acc in state["acc"].items():
+                        strat = harvest_strategy(cfg, ks.split(".", 1)[1])
+                        acc.add_(block_stats_step(_target_grad(grads, ks), strat))
+                else:
+                    for ks, acc in state["acc"].items():
+                        acc.add_(_target_grad(grads, ks))
+
+            grads, gnorm = clip_by_global_norm(grads, adam_cfg.grad_clip)
+            lr = lr_sched(state["step"])
+            opt_state = {"m": flatten_tree(state["m"]), "v": flatten_tree(state["v"]),
+                         "count": state["count"]}
+            adam_step(grads, opt_state, flat, lr, adam_cfg, lr_scale=lr_scale,
+                      wd_mask=full_ft_wd_mask)
+            del grads
+            for p in flat.values():
+                p.grad = None  # the fp32 grads are model-sized: free them now
+            state["step"].add_(1)
+        return state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Sparse (post-conversion) step
+# ---------------------------------------------------------------------------
+
+def init_sparse_state(params, trainable, step: int) -> Dict:
+    device = next(iter(trainable.values())).device
+    for t in trainable.values():
+        t.requires_grad_(True)
+    return {
+        "params": params,
+        "trainable": trainable,
+        "m": {k: torch.zeros(p.shape, dtype=torch.float32, device=device)
+              for k, p in trainable.items()},
+        "v": {k: torch.zeros(p.shape, dtype=torch.float32, device=device)
+              for k, p in trainable.items()},
+        "count": torch.zeros((), dtype=torch.int32, device=device),
+        "step": torch.full((), int(step), dtype=torch.int32, device=device),
+    }
+
+
+def build_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan,
+                      lr_sched: Callable) -> Callable:
+    if plan.mode != "matrix":
+        raise NotImplementedError(f"plan mode {plan.mode!r}: only matrix mode is ported")
+    adam_cfg = AdamConfig(betas=tuple(cfg.matrix_adam_betas), eps=cfg.adam_eps,
+                          weight_decay=cfg.w_decay, grad_clip=cfg.grad_clip)
+    lr_scale = make_qk_lr_scale(cfg.qk_lr_times) if cfg.qk_scheduler else None
+    # autograd parity: no backward below the lowest trainable layer
+    lowest_layer = min(lp.layer for lp in plan.linears.values())
+    consts: Dict[str, torch.Tensor] = {}  # device -> [b1, b2, eps, wd], made once
+
+    def step(state: Dict, batch: Dict) -> tuple:
+        params = state["params"]
+        trainable = state["trainable"]
+        device = next(iter(trainable.values())).device
+        impl = _resolve_impl(cfg.sparse_impl, device)
+
+        def loss_of(tr, mb):
+            linear = make_sparse_linear_dispatch(plan, tr, impl)
+            return compute_loss(params, mb, cfg, model_cfg, linear=linear,
+                                remat=cfg.sparse_remat,
+                                stop_grad_below_layer=lowest_layer)
+
+        vag = accumulated_value_and_grad(loss_of, cfg.gradient_accumulation_steps)
+        loss, grads = vag(trainable, batch)
+        with torch.no_grad():
+            grads, gnorm = clip_by_global_norm(grads, adam_cfg.grad_clip)
+            lr = lr_sched(state["count"])
+            opt_state = {"m": state["m"], "v": state["v"], "count": state["count"]}
+            if impl == "kernel":
+                key = str(device)
+                if key not in consts:
+                    b1, b2 = adam_cfg.betas
+                    consts[key] = torch.tensor(
+                        [b1, b2, adam_cfg.eps, adam_cfg.weight_decay],
+                        dtype=torch.float32, device=device)
+                _fused_block_adam_update(grads, opt_state, trainable, lr,
+                                         adam_cfg, lr_scale, consts[key])
+            else:
+                adam_step(grads, opt_state, trainable, lr, adam_cfg,
+                          lr_scale=lr_scale)
+            del grads
+            for p in trainable.values():
+                p.grad = None
+            # scatter-at-update: the dense weights absorb the new block values
+            # once per step, in place
+            plan.scatter(params["layers"], trainable)
+            state["step"].add_(1)
+        return state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
+
+    return step
+
+
+def _fused_block_adam_update(grads, opt_state, trainable, lr, adam_cfg,
+                             lr_scale, consts):
+    """K2 over every trainable linear (one launch each, as the JAX twin's
+    per-tensor Pallas loop). The scalars stay on the device: bias
+    corrections come from the device step count in fp32, and a linear's LR
+    scale (make_qk_lr_scale) is folded into its lr."""
+    b1, b2 = adam_cfg.betas
+    opt_state["count"].add_(1)
+    c = opt_state["count"].float()
+    bc = torch.stack([1.0 - torch.pow(b1, c), 1.0 - torch.pow(b2, c)])
+    scalars_by_scale: Dict[float, torch.Tensor] = {}
+    for ks, p in trainable.items():
+        s = lr_scale(ks) if lr_scale is not None else 1.0
+        if s not in scalars_by_scale:
+            scalars_by_scale[s] = torch.cat([(lr * s).reshape(1).float(), consts, bc])
+        masked_adam(p, grads[ks], opt_state["m"][ks], opt_state["v"][ks],
+                    scalars_by_scale[s])
+    return trainable, opt_state
+
+
+# ---------------------------------------------------------------------------
+# Eval loss
+# ---------------------------------------------------------------------------
+
+def build_eval_step(cfg: SMTConfig, model_cfg: LlamaConfig) -> Callable:
+    """Forward-only loss (reference helpers/helper.py:210-245). In the
+    sparse phase the dense weights already contain the current block values
+    (scatter-at-update), so eval is a plain dense forward."""
+    param_dtype = cfg.param_dtype
+
+    @torch.no_grad()
+    def step(state, batch) -> torch.Tensor:
+        if "master" in state:
+            params = _cast_tree(state["master"], param_dtype)
+        else:
+            params = state["params"]
+        return compute_loss(params, batch, cfg, model_cfg, remat=False)
+
+    return step
