@@ -8,15 +8,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
   1. device: require CUDA, print the card's name and power limit, TF32 off;
   2. build the CUDA kernels (csrc/*.cu) with nvcc for sm_90a, timed;
   3. each kernel against its plain PyTorch version at the main path's
-     shapes (the two widest TinyLlama linears), with its time beside the
-     plain version's and a library path's;
+     shapes, with its time beside the plain version's and a library
+     path's: K1/K2 at the two widest TinyLlama linears; K3 (attention
+     forward, delta, dK/dV, dQ) at five shapes (K3_SHAPES), timed at the
+     first two beside torch SDPA, with each path's fwd+bwd peak memory;
   4. a small-input reference: a tiny fp32 two-phase run on the GPU (CUDA
-     kernels) against the same run on the CPU (plain versions);
-  5. the main path at TinyLlama-1.1B width and depth (random weights from
-     a seed, synthetic right-padded batches): SMTTrainer.fit runs the
-     full-FT warm-up, selection + conversion, sparse steps, eval loss and
-     the final HF export. The kernels' launch counts are zeroed just before
-     and read just after; frozen weights and the export are checked.
+     kernels, attention through K3) against the same run on the CPU
+     (plain versions, einsum attention);
+  5. three trainer runs (random weights from a seed, synthetic
+     right-padded batches), each SMTTrainer.fit through the full-FT
+     warm-up, selection + conversion, sparse steps and eval loss, with the
+     kernels' launch counts zeroed just before and read just after, and
+     frozen weights checked: A, the main path, TinyLlama-1.1B width and
+     depth at bs 4 x seq 512, attention "auto" (K3), with the final HF
+     export checked; B, the same at the recipe's seq 2048, bs 2; C, as A
+     with the einsum attention (no K3 launch allowed).
 The line before the last is a JSON object of the kernels' numbers; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -45,6 +51,21 @@ K1_N = 24
 K1_RTOL, K1_ATOL = 2e-2, 2e-1       # the JAX suite's bf16 block-grad tolerance
 K1_F32_RTOL, K1_F32_ATOL = 1e-5, 1e-4  # and its fp32 one
 K2_RTOL, K2_ATOL = 1e-6, 1e-9       # both compute in fp32, operation for operation
+# K3 shapes (b, s, hq, hkv, hd, dtype, what); the first two are timed
+K3_SHAPES = [
+    (4, 512, 32, 4, 64, "bf16", "TinyLlama, the main path"),
+    (2, 2048, 32, 4, 64, "bf16", "TinyLlama at the recipe's length"),
+    (1, 2048, 32, 8, 128, "bf16", "Llama-3-8B attention geometry"),
+    (2, 1000, 32, 4, 64, "bf16", "ragged"),
+    (2, 700, 8, 2, 64, "fp32", "fp32"),
+]
+K3_TIMED = 2
+# (fwd rtol, atol), (grads rtol, atol). bf16: the JAX suite's
+# (tests/test_attention_kernel.py:40, 67). fp32: looser than the CPU
+# suite's 2e-6 because the order of the sums over up to 2048 keys and the
+# online-softmax rescaling differ from the plain version's.
+K3_TOL = {"bf16": ((2e-2, 1e-1), (4e-2, 4e-1)), "fp32": ((1e-5, 1e-5), (1e-4, 1e-4))}
+K3_KERNELS = ("attn_fwd", "attn_bwd_delta", "attn_bwd_dkdv", "attn_bwd_dq")
 
 
 def log(msg):
@@ -227,9 +248,165 @@ def check_masked_adam():
     return worst, timing
 
 
+def _k3_case(b, s, hq, hkv, hd, dtype, rng):
+    """One K3 shape: every kernel against its plain version on the same
+    inputs. Returns ({tensor: max abs err}, {kernel: max abs err}, the
+    inputs of _k3_times)."""
+    import numpy as np
+    import torch
+    from sparse_matrix_tuning_tpu_torch.ops.cuda import attention as k3
+
+    dev, dt = torch.device("cuda"), {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype]
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dt)
+
+    q, k, v, do = rand(b, s, hq, hd), rand(b, s, hkv, hd), rand(b, s, hkv, hd), rand(b, s, hq, hd)
+    sm = 1.0 / float(np.sqrt(hd))
+    (f_rtol, f_atol), (g_rtol, g_atol) = K3_TOL[dtype]
+    o, lse = k3.attn_fwd(q, k, v, sm)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = k3.attn_fwd_plain(q, k, v, sm)
+    # the backward kernels take the plain forward's o and lse, as the plain
+    # backward does
+    delta = k3.attn_bwd_delta(o_ref, do)
+    dk, dv = k3.attn_bwd_dkdv(q, k, v, do, lse_ref, delta, sm)
+    dq = k3.attn_bwd_dq(q, k, v, do, lse_ref, delta, sm)
+    torch.cuda.synchronize()
+    delta_ref = k3.attn_bwd_delta_plain(o_ref, do)
+    dk_ref, dv_ref = k3.attn_bwd_dkdv_plain(q, k, v, do, lse_ref, delta_ref, sm)
+    dq_ref = k3.attn_bwd_dq_plain(q, k, v, do, lse_ref, delta_ref, sm)
+    errs = {}
+    for name, got, want, (rtol, atol) in (
+            ("o", o, o_ref, (f_rtol, f_atol)), ("lse", lse, lse_ref, (f_rtol, f_atol)),
+            ("delta", delta, delta_ref, (f_rtol, f_atol)),
+            ("dq", dq, dq_ref, (g_rtol, g_atol)), ("dk", dk, dk_ref, (g_rtol, g_atol)),
+            ("dv", dv, dv_ref, (g_rtol, g_atol))):
+        assert got.shape == want.shape and got.dtype == want.dtype, name
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol,
+                                   msg=lambda m, name=name: f"K3 {name}: {m}")
+        errs[name] = float((got.float() - want.float()).abs().max())
+    per_kernel = {"attn_fwd": max(errs["o"], errs["lse"]), "attn_bwd_delta": errs["delta"],
+                  "attn_bwd_dkdv": max(errs["dk"], errs["dv"]), "attn_bwd_dq": errs["dq"]}
+    return errs, per_kernel, (q, k, v, do, sm, o_ref, lse_ref, delta)
+
+
+def _peak_gib(fn):
+    """Peak device memory of fn(), GiB (inputs included)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 1024 ** 3
+
+
+def _k3_times(q, k, v, do, sm, o, lse, delta):
+    """Each kernel against its plain version, the sum of the backward
+    kernels, and torch SDPA (a library reference for the time only), with
+    the peak memory of each path's forward + backward."""
+    import torch
+    import torch.nn.functional as F
+    from sparse_matrix_tuning_tpu_torch.ops.attention import fullk_attention
+    from sparse_matrix_tuning_tpu_torch.ops.cuda import attention as k3
+
+    t = {
+        "attn_fwd": (time_ms(lambda: k3.attn_fwd(q, k, v, sm)),
+                     time_ms(lambda: k3.attn_fwd_plain(q, k, v, sm))),
+        "attn_bwd_delta": (time_ms(lambda: k3.attn_bwd_delta(o, do)),
+                           time_ms(lambda: k3.attn_bwd_delta_plain(o, do))),
+        "attn_bwd_dkdv": (time_ms(lambda: k3.attn_bwd_dkdv(q, k, v, do, lse, delta, sm)),
+                          time_ms(lambda: k3.attn_bwd_dkdv_plain(q, k, v, do, lse, delta, sm))),
+        "attn_bwd_dq": (time_ms(lambda: k3.attn_bwd_dq(q, k, v, do, lse, delta, sm)),
+                        time_ms(lambda: k3.attn_bwd_dq_plain(q, k, v, do, lse, delta, sm))),
+    }
+    t["bwd_kernels_sum"] = tuple(sum(t[n][i] for n in K3_KERNELS[1:]) for i in (0, 1))
+    t["attn_fwd_repeat"] = time_ms(lambda: k3.attn_fwd(q, k, v, sm))
+    qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))  # SDPA's (B, H, S, hd)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+
+    t["sdpa_fwd"] = time_ms(sdpa)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def fwd_bwd(attn):
+        def run():
+            for x in leaves:
+                x.grad = None
+            attn(*leaves).backward(do)
+        return run
+
+    def sdpa_path(a, b_, c):
+        return F.scaled_dot_product_attention(
+            a.transpose(1, 2), b_.transpose(1, 2), c.transpose(1, 2), is_causal=True,
+            enable_gqa=True).transpose(1, 2)
+
+    def plain_path(a, b_, c):  # autograd through the plain forward
+        return k3.attn_fwd_plain(a, b_, c, sm)[0]
+
+    paths = {"kernels": lambda a, b_, c: fullk_attention(a, b_, c, sm),
+             "plain": plain_path, "sdpa": sdpa_path}
+    t["fwd_bwd_ms"] = {n: time_ms(fwd_bwd(f), reps=10) for n, f in paths.items()}
+    t["fwd_bwd_peak_gib"] = {n: _peak_gib(fwd_bwd(f)) for n, f in paths.items()}
+    for x in leaves:
+        x.grad = None
+    return t
+
+
+def check_attention():
+    """K3 at K3_SHAPES: o, lse, delta, dq, dk, dv against the plain versions;
+    times at the first K3_TIMED shapes. Returns ({kernel: worst err},
+    {kernel: (ms, plain_ms)} at the main shape)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(3)
+    worst = {n: 0.0 for n in K3_KERNELS}
+    main_times = None
+    for i, (b, s, hq, hkv, hd, dtype, what) in enumerate(K3_SHAPES):
+        errs, per_kernel, args = _k3_case(b, s, hq, hkv, hd, dtype, rng)
+        for n, e in per_kernel.items():
+            worst[n] = max(worst[n], e)
+        shape = f"b{b} s{s} hq{hq} hkv{hkv} hd{hd} {dtype}"
+        log(f"[K3 attention] {shape} ({what}): max_abs_err " + ", ".join(
+            f"{n} {e:.3e}" for n, e in errs.items()))
+        if i < K3_TIMED:
+            t = _k3_times(*args)
+            log(f"[K3 attention] time at {shape}: " + "; ".join(
+                f"{n} {t[n][0]:.4f} ms (plain {t[n][1]:.4f})"
+                for n in (*K3_KERNELS, "bwd_kernels_sum")) +
+                f"; fwd repeat {t['attn_fwd_repeat']:.4f}; torch SDPA fwd {t['sdpa_fwd']:.4f}")
+            log(f"[K3 attention] fwd+bwd at {shape}: " + "; ".join(
+                f"{n} {t['fwd_bwd_ms'][n]:.4f} ms, peak {t['fwd_bwd_peak_gib'][n]:.3f} GiB"
+                for n in t["fwd_bwd_ms"]))
+            if main_times is None:
+                main_times = {n: t[n] for n in K3_KERNELS}
+        del args
+        torch.cuda.empty_cache()
+    return worst, main_times
+
+
 # ---------------------------------------------------------------------------
 # the main path
 # ---------------------------------------------------------------------------
+
+def reset_launches():
+    from sparse_matrix_tuning_tpu_torch.ops.cuda import attention as k3
+    from sparse_matrix_tuning_tpu_torch.ops.cuda import block_grad as k1
+    from sparse_matrix_tuning_tpu_torch.ops.cuda import masked_adam as k2
+    k1.LAUNCHES = 0
+    k2.LAUNCHES = 0
+    for name in k3.LAUNCHES:
+        k3.LAUNCHES[name] = 0
+
+
+def launches():
+    """Every kernel's launch count since the last reset_launches()."""
+    from sparse_matrix_tuning_tpu_torch.ops.cuda import attention as k3
+    from sparse_matrix_tuning_tpu_torch.ops.cuda import block_grad as k1
+    from sparse_matrix_tuning_tpu_torch.ops.cuda import masked_adam as k2
+    return {"block_grad": k1.LAUNCHES, "masked_adam": k2.LAUNCHES, **k3.LAUNCHES}
+
 
 def synthetic_sft(n, seq, vocab, seed):
     """SFT examples (right-padded by the batch iterator): random token ids,
@@ -252,7 +429,7 @@ def synthetic_sft(n, seq, vocab, seed):
 
 def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
                   full_ft_steps=3, sparse_steps=4, eval_batches=2,
-                  ratios=(0.0084, 0.0084), out_dir=None, log_fn=log):
+                  ratios=(0.0084, 0.0084), attn_impl="auto", out_dir=None, log_fn=log):
     """SMTTrainer.fit through warm-up -> conversion -> sparse -> eval ->
     final export, with per-phase step times and peak memory. Checks
     finiteness, a non-empty plan, frozen weights outside the selected
@@ -262,8 +439,6 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
     from sparse_matrix_tuning_tpu_torch.config import SMTConfig
     from sparse_matrix_tuning_tpu_torch.models.hf_io import load_hf_params
     from sparse_matrix_tuning_tpu_torch.models.llama import flatten_tree, init_params
-    from sparse_matrix_tuning_tpu_torch.ops.cuda import block_grad as k1
-    from sparse_matrix_tuning_tpu_torch.ops.cuda import masked_adam as k2
     from sparse_matrix_tuning_tpu_torch.smt.plan import BLOCK
     from sparse_matrix_tuning_tpu_torch.train.trainer import SMTTrainer
 
@@ -280,7 +455,7 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
         per_device_ft_batch_size=bs, per_device_eval_batch_size=bs,
         max_seq_len=seq, seq_buckets=[seq], num_ft_epochs=1, eval_step=0,
         save_steps=0, log_steps=1, throughput_steps=10 ** 9, seed=1234,
-        output_dir=out_dir)
+        attn_impl=attn_impl, output_dir=out_dir)
     n_steps = full_ft_steps + sparse_steps
     train_ds = synthetic_sft(n_steps * bs, seq, model_cfg.vocab_size, 1)
     eval_ds = synthetic_sft(eval_batches * bs, seq, model_cfg.vocab_size, 2)
@@ -306,8 +481,7 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
            f"saliency_accumulation={cfg.saliency_accumulation}")
 
     summary = {"n_params": n_params, "step_ms": [], "phase": [], "loss": [], "peak": {}}
-    k1.LAUNCHES = 0
-    k2.LAUNCHES = 0
+    reset_launches()
     marks = {"exit": 0.0}
     snap = {}
 
@@ -318,8 +492,7 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
         summary["loss"].append(float(metrics["loss"]))
         if step == full_ft_steps:
             summary["peak"]["warmup"] = peak_and_reset()
-            summary["launches_warmup"] = {"block_grad": k1.LAUNCHES,
-                                          "masked_adam": k2.LAUNCHES}
+            summary["launches_warmup"] = launches()
             # dense weights at conversion: the master cast to the param dtype
             snap["params"] = {li: {m: w.to("cpu") for m, w in layer.items()}
                               for li, layer in trainer.merged_params()["layers"].items()}
@@ -337,7 +510,7 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
     history = trainer.fit(train_ds, eval_ds, pad_token_id=0, on_metrics=on_metrics)
     sync()
     t_fit_end = time.perf_counter()
-    summary["launches"] = {"block_grad": k1.LAUNCHES, "masked_adam": k2.LAUNCHES}
+    summary["launches"] = launches()
     summary["eval_and_export_s"] = t_fit_end - marks["exit"]
     summary["peak"]["eval_and_export"] = peak_and_reset()
     summary["eval_loss"] = history["eval_loss"][-1]
@@ -406,8 +579,9 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
 
 
 def check_small_reference():
-    """Tiny fp32 two-phase run on the GPU against the same run on the CPU
-    (plain versions): losses and plan must agree."""
+    """Tiny fp32 two-phase run on the GPU (attn_impl "auto": K3) against the
+    same run on the CPU (plain versions, einsum attention): losses and plan
+    must agree, and every kernel must have launched on the GPU."""
     import numpy as np
     import torch
     from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
@@ -420,15 +594,37 @@ def check_small_reference():
     np.testing.assert_allclose(gpu["loss"], cpu["loss"], rtol=1e-4)
     if gpu["plan"]["fingerprint"] != cpu["plan"]["fingerprint"]:
         raise AssertionError("tiny run: GPU and CPU plans differ")
-    if gpu["launches"]["block_grad"] == 0 or gpu["launches"]["masked_adam"] == 0:
-        raise AssertionError(f"tiny GPU run did not launch the kernels: {gpu['launches']}")
+    if not all(n > 0 for n in gpu["launches"].values()):
+        raise AssertionError(f"tiny GPU run did not launch every kernel: {gpu['launches']}")
     worst = float(np.max(np.abs(np.array(gpu["loss"]) - np.array(cpu["loss"]))
                          / np.abs(np.array(cpu["loss"]))))
     log(f"[reference] tiny fp32 run, GPU kernels vs CPU plain: losses {gpu['loss']} "
-        f"(worst rel diff {worst:.2e}), same plan {gpu['plan']['fingerprint'][:16]}")
+        f"(worst rel diff {worst:.2e}), same plan {gpu['plan']['fingerprint'][:16]}, "
+        f"GPU launches {gpu['launches']}")
+
+
+def report_run(tag, what, s, n_warmup):
+    """Per-phase ms/step, peak memory and launches of one trainer run."""
+    gib = 1024 ** 3
+    warm, sparse = s["step_ms"][:n_warmup], s["step_ms"][n_warmup:]
+    log(f"[{tag}] {what}: losses {s['loss']}, eval loss {s['eval_loss']:.4f}")
+    log(f"[{tag}] plan: {s['plan']}")
+    log(f"[{tag}] warm-up ms/step {[round(x, 1) for x in warm]} (median "
+        f"{statistics.median(warm[1:]):.1f} over steps 2-{n_warmup}); sparse ms/step "
+        f"{[round(x, 1) for x in sparse]} (step {n_warmup + 1} includes conversion; median "
+        f"{statistics.median(sparse[1:]):.1f} over steps {n_warmup + 2}-{len(s['step_ms'])})")
+    log(f"[{tag}] peak device memory (GiB): " + ", ".join(
+        f"{k} {v / gib:.2f}" for k, v in s["peak"].items() if v is not None))
+    log(f"[{tag}] eval{' + export' if s['export_tensors_equal'] else ''} "
+        f"{s['eval_and_export_s']:.1f} s; export tensors equal to merged_params(): "
+        f"{s['export_tensors_equal']}; frozen weights checked {s['frozen_checked']}; "
+        f"selected elements changed {s['selected_elems_changed'][0]}/"
+        f"{s['selected_elems_changed'][1]}")
+    log(f"[{tag}] kernel launches: {s['launches']} (warm-up: {s['launches_warmup']})")
 
 
 def main():
+    t_start = time.time()
     check_device()
     import torch
     sys.path.insert(0, REPO)
@@ -448,51 +644,51 @@ def main():
 
     k1_err, k1_time = check_block_grad()
     k2_err, k2_time = check_masked_adam()
+    k3_err, k3_time = check_attention()
     check_small_reference()
 
+    # A: the main path, attn_impl "auto" (K3), with the final export
     model_cfg = LlamaConfig(**TINYLLAMA)
     build_dir = os.path.join(REPO, "build")
     os.makedirs(build_dir, exist_ok=True)
     out_dir = tempfile.mkdtemp(prefix="smoke_export_", dir=build_dir)
     try:
-        s = run_main_path(model_cfg, "cuda", out_dir=out_dir)
+        run_a = run_main_path(model_cfg, "cuda", out_dir=out_dir)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+    report_run("A", "TinyLlama-1.1B bf16, bs 4 x seq 512, remat, attn auto (K3)", run_a, 3)
+    torch.cuda.empty_cache()
+    # B: the recipe's max_seq_len 2048, bs 2
+    run_b = run_main_path(model_cfg, "cuda", bs=2, seq=2048)
+    report_run("B", "TinyLlama-1.1B bf16, bs 2 x seq 2048, remat, attn auto (K3)", run_b, 3)
+    torch.cuda.empty_cache()
+    # C: the einsum path kept alive, otherwise as A
+    run_c = run_main_path(model_cfg, "cuda", attn_impl="einsum")
+    report_run("C", "TinyLlama-1.1B bf16, bs 4 x seq 512, remat, attn einsum", run_c, 3)
 
-    launches = s["launches"]
-    if launches["block_grad"] <= 0 or launches["masked_adam"] <= 0:
-        raise AssertionError(f"the main path did not launch every kernel: {launches}")
-    gib = 1024 ** 3
-    n_w = 3
-    warm, sparse = s["step_ms"][:n_w], s["step_ms"][n_w:]
-    log(f"[main] TinyLlama-1.1B bf16, bs 4 x seq 512, remat: losses {s['loss']}, "
-        f"eval loss {s['eval_loss']:.4f}")
-    log(f"[main] plan: {s['plan']}")
-    log(f"[main] warm-up ms/step {[round(x, 1) for x in warm]} (median "
-        f"{statistics.median(warm[1:]):.1f} over steps 2-3); sparse ms/step "
-        f"{[round(x, 1) for x in sparse]} (step 4 includes conversion; median "
-        f"{statistics.median(sparse[1:]):.1f} over steps 5-7)")
-    log("[main] peak device memory (GiB): " + ", ".join(
-        f"{k} {v / gib:.2f}" for k, v in s["peak"].items() if v is not None))
-    log(f"[main] eval + export {s['eval_and_export_s']:.1f} s; export tensors "
-        f"equal to merged_params(): {s['export_tensors_equal']}; frozen weights "
-        f"checked {s['frozen_checked']}; selected elements changed "
-        f"{s['selected_elems_changed'][0]}/{s['selected_elems_changed'][1]}")
-    log(f"[main] kernel launches in the main path: {launches} "
-        f"(warm-up: {s.get('launches_warmup', 'n/a')})")
+    for tag, run in (("A", run_a), ("B", run_b)):
+        if not all(n > 0 for n in run["launches"].values()):
+            raise AssertionError(f"run {tag} did not launch every kernel: {run['launches']}")
+    c = run_c["launches"]
+    if any(c[n] for n in K3_KERNELS) or c["block_grad"] <= 0 or c["masked_adam"] <= 0:
+        raise AssertionError(f"run C (einsum) launches: {c}")
+
+    def entry(name, source, replaces, err, ms, plain_ms):
+        return {"name": name, "route": "cuda",
+                "source": f"sparse_matrix_tuning_tpu_torch/csrc/{source}",
+                "replaces": f"sparse_matrix_tuning_tpu/ops/pallas/{replaces}",
+                "launches": run_a["launches"][name], "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms}
 
     kernels = [
-        {"name": "block_grad", "route": "cuda",
-         "source": "sparse_matrix_tuning_tpu_torch/csrc/block_grad.cu",
-         "replaces": "sparse_matrix_tuning_tpu/ops/pallas/block_grad.py:56",
-         "launches": launches["block_grad"], "max_abs_err": k1_err,
-         "ms": k1_time["ms"], "plain_ms": k1_time["plain_ms"]},
-        {"name": "masked_adam", "route": "cuda",
-         "source": "sparse_matrix_tuning_tpu_torch/csrc/masked_adam.cu",
-         "replaces": "sparse_matrix_tuning_tpu/ops/pallas/masked_adam.py:35",
-         "launches": launches["masked_adam"], "max_abs_err": k2_err,
-         "ms": k2_time["ms"], "plain_ms": k2_time["plain_ms"]},
-    ]
+        entry("block_grad", "block_grad.cu", "block_grad.py:56", k1_err,
+              k1_time["ms"], k1_time["plain_ms"]),
+        entry("masked_adam", "masked_adam.cu", "masked_adam.py:35", k2_err,
+              k2_time["ms"], k2_time["plain_ms"]),
+    ] + [entry(name, "attention.cu",
+               "attention.py:154" if name == "attn_fwd" else "attention.py:188",
+               k3_err[name], *k3_time[name]) for name in K3_KERNELS]
+    log(f"[smoke] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

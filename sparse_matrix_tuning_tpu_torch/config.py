@@ -6,7 +6,9 @@ paths this port implements:
 
   sparse_impl   auto -> "kernel" for CUDA tensors, "oracle" for CPU tensors
                 (resolved per tensor in ops/sparse_linear.py)
-  attn_impl     auto -> "einsum" (the masked attention of models/llama.py)
+  attn_impl     auto -> "fullk" (the K3 attention kernels) for CUDA tensors
+                with head_dim 64 or 128, "einsum" otherwise; "flash" runs
+                fullk (resolved per call in models/llama.py)
   frozen_quant  auto -> "none";  head_quant auto -> "none"
   scan_layers   auto -> "off"  (eager loop over layers)
   loss_impl     auto -> "full" (materialised fp32 logits)
@@ -133,8 +135,7 @@ class SMTConfig:
         _check_choice("loss_impl", self.loss_impl, ("full", "chunked", "auto"))
         self._refuse_unported()
         # resolve the "auto" policies to what this port implements
-        if self.attn_impl == "auto":
-            self.attn_impl = "einsum"
+        # (attn_impl stays "auto": models/llama.py resolves it per call)
         if self.frozen_quant == "auto":
             self.frozen_quant = "none"
         if self.head_quant == "auto":
@@ -146,9 +147,6 @@ class SMTConfig:
 
     def _refuse_unported(self):
         unported = []
-        if self.attn_impl in ("fullk", "flash"):
-            unported.append(f"attn_impl={self.attn_impl} (needs the training "
-                            "attention kernel port, ops/pallas/attention.py)")
         if self.frozen_quant == "int8":
             unported.append("frozen_quant=int8 (int8 frozen base)")
         if self.head_quant == "int8":

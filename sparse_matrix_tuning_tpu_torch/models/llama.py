@@ -2,8 +2,9 @@
 tensors + functions).
 
 Twin of `sparse_matrix_tuning_tpu.models.llama` (training path only):
-RMSNorm, HF-convention rotary embeddings, grouped-query masked attention,
-SiLU gate/up/down MLP, optional Qwen2 QKV biases, untied or tied head.
+RMSNorm, HF-convention rotary embeddings, grouped-query attention (the
+masked einsum, or the fused causal K3 kernel, ops/attention.py), SiLU
+gate/up/down MLP, optional Qwen2 QKV biases, untied or tied head.
 Parameters keep the JAX tree layout: {"embed_tokens", "norm", "lm_head",
 "layers": {"<i>": {module: (out, in) weight}}}, so both packages compute
 the same thing on the same weights (models/from_jax.py).
@@ -22,6 +23,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from sparse_matrix_tuning_tpu_torch.ops.attention import fullk_attention
+from sparse_matrix_tuning_tpu_torch.ops.cuda.attention import HEAD_DIMS
 
 ATTN_TARGETS = ("q_proj", "k_proj", "v_proj")
 MLP_TARGETS = ("gate_proj", "up_proj", "down_proj")
@@ -220,6 +224,31 @@ def _attention(q, k, v, mask_bias):
     return out.reshape(b, s, hq * hd)
 
 
+def resolve_attn_impl(attn_impl: str, head_dim: int, device) -> str:
+    """The attention a forward runs (twin of the JAX resolve_attn_impl).
+
+    "auto" is the JAX rule, fused kernel on the accelerator and einsum off
+    it: "fullk" on CUDA tensors when the K3 kernels take the head dim
+    (ops/cuda/attention.HEAD_DIMS), "einsum" everywhere else. The kernels
+    tile the keys, so there is no sequence-length bound (the JAX kernel's
+    VMEM-resident K/V row capped it at 4096). Explicit "fullk" and "flash"
+    (K3', the stock Pallas flash attention on the TPU, the same causal
+    attention) both run K3 on any device, its plain versions on CPU
+    tensors; a head dim the kernels do not take raises."""
+    if attn_impl == "auto":
+        cuda = torch.device(device).type == "cuda"
+        return "fullk" if cuda and head_dim in HEAD_DIMS else "einsum"
+    if attn_impl in ("fullk", "flash"):
+        if head_dim not in HEAD_DIMS:
+            raise ValueError(f"attn_impl={attn_impl!r}: the fused attention kernel "
+                             f"takes head_dim in {HEAD_DIMS}, not {head_dim}; use "
+                             "attn_impl='einsum'")
+        return "fullk"
+    if attn_impl == "einsum":
+        return attn_impl
+    raise ValueError(f"unknown attn_impl {attn_impl!r}")
+
+
 def _lin(lp: Mapping[str, torch.Tensor], h: torch.Tensor, name: str, linear,
          layer_idx: int) -> torch.Tensor:
     """Linear via the dispatch hook, plus bias when the checkpoint has one
@@ -232,7 +261,8 @@ def _lin(lp: Mapping[str, torch.Tensor], h: torch.Tensor, name: str, linear,
 
 
 def _decoder_layer(lp: Mapping[str, torch.Tensor], x: torch.Tensor, mask_bias,
-                   cos, sin, cfg: LlamaConfig, linear, layer_idx: int) -> torch.Tensor:
+                   cos, sin, cfg: LlamaConfig, linear, layer_idx: int,
+                   attn_impl: str = "einsum") -> torch.Tensor:
     b, s, _ = x.shape
     h = _rms_norm(x, lp["input_layernorm"], cfg.rms_norm_eps)
     q = _lin(lp, h, "q_proj", linear, layer_idx)
@@ -244,7 +274,14 @@ def _decoder_layer(lp: Mapping[str, torch.Tensor], x: torch.Tensor, mask_bias,
     v = v.reshape(b, s, cfg.num_key_value_heads, hd)
     q = _apply_rope(q, cos, sin)
     k = _apply_rope(k, cos, sin)
-    attn = _attention(q, k, v, mask_bias)
+    # INVARIANT (fullk): the fused kernel ignores mask_bias and is exact only
+    # for causal attention over RIGHT-padded batches (pad keys sit causally
+    # after every real query; the loss drops pad-query rows). The trainer
+    # checks the batches (trainer._check_right_padding).
+    if attn_impl == "fullk":
+        attn = fullk_attention(q, k, v, 1.0 / float(np.sqrt(hd))).reshape(b, s, -1)
+    else:
+        attn = _attention(q, k, v, mask_bias)
     x = x + _lin(lp, attn, "o_proj", linear, layer_idx)
 
     h = _rms_norm(x, lp["post_attention_layernorm"], cfg.rms_norm_eps)
@@ -266,29 +303,31 @@ def forward(params: Mapping[str, Any], input_ids: torch.Tensor, cfg: LlamaConfig
             attn_impl: str = "einsum") -> torch.Tensor:
     """Run the decoder; returns logits (B, S, V) in fp32.
 
+    attn_impl: "einsum" | "fullk" | "flash" | "auto", resolved per call
+    from the ids' device and the head dim (resolve_attn_impl).
+
     remat: recompute each layer in the backward pass
     (torch.utils.checkpoint, non-reentrant, so closures over trainable
     blocks in `linear` still receive gradients). stop_grad_below_layer:
     detach the residual stream at the input of this layer, as the JAX
     twin's stop_gradient; autograd then never visits the frozen layers
     below it."""
-    if attn_impl != "einsum":
-        raise NotImplementedError(
-            f"attn_impl={attn_impl!r}: only the masked einsum attention is "
-            "ported (the training attention kernel is the next port)")
     b, s = input_ids.shape
+    attn_impl = resolve_attn_impl(attn_impl, cfg.head_dim, input_ids.device)
     if attention_mask is None:
         attention_mask = torch.ones((b, s), dtype=torch.int32, device=input_ids.device)
     positions = torch.clamp(torch.cumsum(attention_mask, dim=-1) - 1, min=0)
 
     x = F.embedding(input_ids, params["embed_tokens"])
 
-    causal = torch.tril(torch.ones((s, s), dtype=torch.bool, device=input_ids.device))
-    keep = causal[None, :, :] & (attention_mask[:, None, :] > 0)
-    zero = torch.zeros((), dtype=torch.float32, device=input_ids.device)
-    neg = torch.full((), torch.finfo(torch.float32).min, dtype=torch.float32,
-                     device=input_ids.device)
-    mask_bias = torch.where(keep, zero, neg)[:, None, :, :]
+    mask_bias = None  # the fused kernel takes no mask
+    if attn_impl == "einsum":
+        causal = torch.tril(torch.ones((s, s), dtype=torch.bool, device=input_ids.device))
+        keep = causal[None, :, :] & (attention_mask[:, None, :] > 0)
+        zero = torch.zeros((), dtype=torch.float32, device=input_ids.device)
+        neg = torch.full((), torch.finfo(torch.float32).min, dtype=torch.float32,
+                         device=input_ids.device)
+        mask_bias = torch.where(keep, zero, neg)[:, None, :, :]
 
     cos, sin = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
@@ -299,9 +338,9 @@ def forward(params: Mapping[str, Any], input_ids: torch.Tensor, cfg: LlamaConfig
         lp = params["layers"][str(i)]
         if use_remat:
             x = checkpoint(_decoder_layer, lp, x, mask_bias, cos, sin, cfg,
-                           linear, i, use_reentrant=False)
+                           linear, i, attn_impl, use_reentrant=False)
         else:
-            x = _decoder_layer(lp, x, mask_bias, cos, sin, cfg, linear, i)
+            x = _decoder_layer(lp, x, mask_bias, cos, sin, cfg, linear, i, attn_impl)
 
     x = _rms_norm(x, params["norm"], cfg.rms_norm_eps)
     head = lm_head_weight(params, cfg)

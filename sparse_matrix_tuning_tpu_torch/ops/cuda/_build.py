@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) as one shared library.
 
-One `nvcc` call compiles every source for sm_90a into
-build/torch_kernels/libsmt_kernels_<hash>.so at first use, where <hash>
-covers the sources and the flags, so an edit rebuilds and an unchanged
-tree reuses the library. The kernels export a plain C interface (no
+At first use, one `nvcc -c` per source, all started together, compiles
+the sources for sm_90a, and one more links them into
+build/torch_kernels/libsmt_kernels_<hash>.so, where <hash> covers the
+sources and the flags, so an edit rebuilds and an unchanged tree reuses
+the library. The kernels export a plain C interface (no
 PyTorch headers, so the build takes seconds); `load()` binds it with
 ctypes. Nothing here runs at import time.
 """
@@ -21,17 +22,27 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
-# C entry point -> argtypes; every entry point returns cudaGetLastError()
+F = ctypes.c_float
+# C entry point -> argtypes; every entry point returns cudaGetLastError().
+# dtype codes: 0 fp32, 1 bf16
 SIGNATURES = {
-    # g2, x2, rb, cb, out, T, O, I, n, dtype (0 fp32, 1 bf16), stream
+    # g2, x2, rb, cb, out, T, O, I, n, dtype, stream
     "smt_block_grad": (P, P, P, P, P, I, I, I, I, I, P),
     # p, g, m, v, scalars, numel, stream
     "smt_masked_adam": (P, P, P, P, P, I, P),
+    # q, k, v, o, lse, B, S, Hq, Hkv, hd, sm_scale, dtype, stream
+    "smt_attn_fwd": (P, P, P, P, P, I, I, I, I, I, F, I, P),
+    # o, do, delta, B, S, Hq, hd, dtype, stream
+    "smt_attn_bwd_delta": (P, P, P, I, I, I, I, I, P),
+    # q, k, v, do, lse, delta, dk, dv, B, S, Hq, Hkv, hd, sm_scale, dtype, stream
+    "smt_attn_bwd_dkdv": (P, P, P, P, P, P, P, P, I, I, I, I, I, F, I, P),
+    # q, k, v, do, lse, delta, dq, B, S, Hq, Hkv, hd, sm_scale, dtype, stream
+    "smt_attn_bwd_dq": (P, P, P, P, P, P, P, I, I, I, I, I, F, I, P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -69,16 +80,35 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-           *[str(s) for s in sources()]]
+    tag = f"{out.stem}.{os.getpid()}"
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    jobs = []
+    for src in sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for cmd, _, proc in jobs:
+        log = proc.communicate()[0]
+        logs.append(log)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{log}")
+    objs = [obj for _, obj, _ in jobs]
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        cmd = [_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     last_build_seconds = time.time() - t0
-    (BUILD_DIR / f"{out.stem}.ptxas.txt").write_text(proc.stdout + proc.stderr)
+    (BUILD_DIR / f"{out.stem}.ptxas.txt").write_text("".join(logs))
     os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     return out
 

@@ -18,7 +18,7 @@ import torch
 
 from sparse_matrix_tuning_tpu_torch.config import SMTConfig
 from sparse_matrix_tuning_tpu_torch.models.llama import (
-    LlamaConfig, all_2d_param_shapes, flatten_tree, tree_map)
+    LlamaConfig, all_2d_param_shapes, flatten_tree, resolve_attn_impl, tree_map)
 from sparse_matrix_tuning_tpu_torch.smt.optimizer import make_lr_schedule
 from sparse_matrix_tuning_tpu_torch.smt.plan import SMTPlan
 from sparse_matrix_tuning_tpu_torch.train import convert as convert_mod
@@ -45,6 +45,7 @@ class SMTTrainer:
                                    else params["embed_tokens"].device)
         self.plan: Optional[SMTPlan] = None
         self.phase = "warmup"
+        self._padding_checked = False
         self._all_2d_shapes = all_2d_param_shapes(params)
 
         self.state = init_warmup_state(params, cfg, device=self.device)
@@ -105,9 +106,34 @@ class SMTTrainer:
         return {k: torch.as_tensor(np.asarray(v)).to(self.device, torch.int64)
                 for k, v in batch.items()}
 
+    def _check_right_padding(self, batch: Dict[str, np.ndarray]):
+        """One-time (per trainer) invariant check: the fused attention
+        kernel (fullk, which also serves flash) ignores the attention mask
+        and is exact only for causal + RIGHT-padded batches
+        (models/llama.py _decoder_layer). The data pipeline right-pads by
+        construction; a left-padded or packed batch must fail loudly here
+        rather than train on silently wrong attention."""
+        if self._padding_checked:
+            return
+        self._padding_checked = True
+        mask = batch.get("attention_mask")
+        if mask is None:
+            return
+        if resolve_attn_impl(self.cfg.attn_impl, self.model_cfg.head_dim,
+                             self.device) == "einsum":
+            return
+        m = np.asarray(mask)
+        if not (m[:, :-1] >= m[:, 1:]).all():
+            raise ValueError(
+                "batch attention_mask is not right-padded (monotone non-"
+                "increasing rows); the fused attention kernel requires "
+                "right padding — use attn_impl='einsum' for left-padded "
+                "or packed batches")
+
     def train_step(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """One global-batch step, dispatching on phase (reference loop body
         fine_tune.py:248-844). Returns 0-dim metric tensors."""
+        self._check_right_padding(batch)
         self.maybe_convert()
         batch = self._to_device(batch)
         if self.phase == "sparse":

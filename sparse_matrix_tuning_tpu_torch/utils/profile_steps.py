@@ -3,21 +3,25 @@
     python -m sparse_matrix_tuning_tpu_torch.utils.profile_steps
 
 TinyLlama-1.1B geometry (random weights from a seed, synthetic batches,
-bs 4 x seq 512, bf16, remat), the trainer's own steps: each phase's step
-is timed once unprofiled, then once under torch.profiler, which gives the
+bs 4 x seq 512, bf16, remat, attention "auto": the K3 kernels on the
+card), the trainer's own steps: each phase's step is timed three times
+unprofiled (median), then once under torch.profiler, which gives the
 device's busy time (summed kernel time), its idle share, and the ops and
 kernels with the most device time.
 """
 
 from __future__ import annotations
 
+import statistics
 import time
 
 import numpy as np
 import torch
 from torch.autograd import DeviceType
 
-BS, SEQ, FULL_FT_STEPS, TOP = 4, 512, 4, 25
+BS, SEQ, TOP = 4, 512, 25
+TIMED = 3  # unprofiled steps per phase, before the profiled one
+FULL_FT_STEPS = 2 + TIMED + 1
 
 
 def _device_us(evt) -> float:
@@ -28,17 +32,20 @@ def _device_us(evt) -> float:
 
 
 def _profile_step(trainer, batches, label):
-    """Time batches[0] unprofiled, then profile batches[1]."""
+    """Time batches[:-1] unprofiled, then profile batches[-1]."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    float(trainer.train_step(batches[0])["loss"])
-    torch.cuda.synchronize()
-    print(f"[profile] {label}: wall {(time.perf_counter() - t0) * 1e3:.1f} ms "
-          f"(not profiled)", flush=True)
+    walls = []
+    for b in batches[:-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(trainer.train_step(b)["loss"])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    print(f"[profile] {label}: wall {statistics.median(walls):.1f} ms median of "
+          f"{[round(w, 1) for w in walls]} (not profiled)", flush=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        float(trainer.train_step(batches[1])["loss"])
+        float(trainer.train_step(batches[-1])["loss"])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -58,7 +65,8 @@ def _profile_step(trainer, batches, label):
 
 def main():
     from sparse_matrix_tuning_tpu_torch.config import SMTConfig
-    from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig, init_params
+    from sparse_matrix_tuning_tpu_torch.models.llama import (
+        LlamaConfig, init_params, resolve_attn_impl)
     from sparse_matrix_tuning_tpu_torch.train.trainer import SMTTrainer
 
     if not torch.cuda.is_available():
@@ -86,16 +94,17 @@ def main():
     trainer = SMTTrainer(cfg, model_cfg,
                          init_params(model_cfg, seed=0, dtype=torch.bfloat16, device=device),
                          total_steps=100, device=device)
+    attn = resolve_attn_impl(cfg.attn_impl, model_cfg.head_dim, device)
     print(f"[profile] {torch.cuda.get_device_name(0)}, TinyLlama-1.1B geometry, "
-          f"bs {BS} x seq {SEQ}, bf16, remat", flush=True)
-    for _ in range(FULL_FT_STEPS - 2):
+          f"bs {BS} x seq {SEQ}, bf16, remat, attention {attn}", flush=True)
+    for _ in range(FULL_FT_STEPS - TIMED - 1):
         trainer.train_step(batch())
-    _profile_step(trainer, [batch(), batch()], "warmup_step")
+    _profile_step(trainer, [batch() for _ in range(TIMED + 1)], "warmup_step")
     for _ in range(2):  # conversion + the first sparse step, then another
         trainer.train_step(batch())
     if trainer.phase != "sparse":
         raise RuntimeError("the trainer did not convert")
-    _profile_step(trainer, [batch(), batch()], "sparse_step")
+    _profile_step(trainer, [batch() for _ in range(TIMED + 1)], "sparse_step")
 
 
 if __name__ == "__main__":

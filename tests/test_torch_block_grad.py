@@ -2,6 +2,9 @@
 tensors) against the JAX Pallas kernel (interpret mode) and the JAX XLA
 oracle, on the same seeded inputs. Tolerances are the JAX suite's
 (tests/test_pallas_kernels.py): 1e-5 fp32, 2e-2 bf16, atol 10x."""
+import ctypes
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -73,13 +76,20 @@ def test_output_orientation():
 
 
 def test_kernel_sources_export_the_bound_entry_points():
-    """Every ctypes binding names an extern "C" entry of csrc/*.cu, and the
-    library path is keyed by the sources (an edit rebuilds)."""
+    """Every ctypes binding names an extern "C" entry of csrc/*.cu with the
+    same parameters (pointers, int, float), and the library path is keyed
+    by the sources (an edit rebuilds)."""
     srcs = {p.name: p.read_text() for p in _build.sources()}
-    assert set(srcs) == {"block_grad.cu", "masked_adam.cu"}
+    assert set(srcs) == {"attention.cu", "block_grad.cu", "masked_adam.cu"}
     text = "\n".join(srcs.values())
     for name, argtypes in _build.SIGNATURES.items():
-        assert f'extern "C" int {name}(' in text
+        m = re.search(rf'extern "C" int {name}\(([^)]*)\)', text)
+        assert m, name
+        params = [p.strip() for p in m.group(1).split(",")]
+        want = [ctypes.c_void_p if "*" in p else
+                ctypes.c_float if p.startswith("float ") else
+                ctypes.c_int if p.startswith("int ") else None for p in params]
+        assert want == list(argtypes), name
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR and path == _build.library_path()

@@ -1,6 +1,6 @@
 """The port's config and CLI: the JAX package's flag surface, the "auto"
-policies resolved to what the port implements, a loud NotImplementedError
-for every option not yet ported, and the fine-tune CLI end to end on a
+policies resolved to what the port implements, the fused attention
+options, a loud NotImplementedError for every option not yet ported, and the fine-tune CLI end to end on a
 tiny HF checkpoint (whose safetensors the port reads by hand) on CPU."""
 import dataclasses
 import json
@@ -42,16 +42,26 @@ def test_recipe_flags_parse_like_jax():
 def test_auto_policies_resolve_to_ported_paths():
     cfg = SMTConfig()
     assert (cfg.sparse_impl, cfg.attn_impl, cfg.frozen_quant, cfg.head_quant,
-            cfg.scan_layers, cfg.loss_impl) == ("auto", "einsum", "none", "none",
+            cfg.scan_layers, cfg.loss_impl) == ("auto", "auto", "none", "none",
                                                  "off", "full")
     assert SMTConfig.from_json(cfg.to_json()).to_json() == cfg.to_json()
     assert {f.name for f in dataclasses.fields(SMTConfig)} == \
         {f.name for f in dataclasses.fields(JaxSMTConfig)}
 
 
+@pytest.mark.parametrize("impl", ["fullk", "flash"])
+def test_fused_attention_options_construct(impl):
+    """--attn_impl fullk|flash build, keep their value (resolved per call
+    by the model) and resolve to the K3 kernel path."""
+    from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig, resolve_attn_impl
+    cfg = parse_args(RECIPE + ["--attn_impl", impl])
+    assert cfg.attn_impl == impl
+    assert resolve_attn_impl(cfg.attn_impl, LlamaConfig().head_dim, "cuda") == "fullk"
+    assert resolve_attn_impl(cfg.attn_impl, LlamaConfig().head_dim, "cpu") == "fullk"
+
+
 @pytest.mark.parametrize("kw", [
-    dict(attn_impl="fullk"), dict(attn_impl="flash"), dict(frozen_quant="int8"),
-    dict(head_quant="int8"), dict(scan_layers="on"), dict(loss_impl="chunked"),
+    dict(frozen_quant="int8"), dict(head_quant="int8"), dict(scan_layers="on"), dict(loss_impl="chunked"),
     dict(channel_sparsity=True), dict(dtype="fp16"), dict(resume_from="ckpt"),
     dict(sparse_from_plan="plan.json"), dict(dropout=0.1), dict(mesh_shape=[1, 2, 1]),
     dict(profile_dir="prof"), dict(do_gradient_distribution_analysis=True),

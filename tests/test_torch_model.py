@@ -1,6 +1,8 @@
 """The port's Llama training forward and loss against the JAX model on
 LlamaConfig.tiny, with the JAX weights carried across by params_from_jax,
-right-padded masks, fp32 — at tests/test_model.py's tolerance (2e-4)."""
+right-padded masks, fp32 — at tests/test_model.py's tolerance (2e-4) —
+with the einsum attention and with the fused fullk attention, and the
+attention policy's resolution."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -107,3 +109,43 @@ def test_param_shapes_match_jax(weights):
     assert {k: tuple(v.shape) for k, v in mine["layers"]["1"].items()} == \
         {k: tuple(v.shape) for k, v in pp["layers"]["1"].items()}
     assert torch.equal(llama.init_params(CFG, seed=0)["lm_head"], mine["lm_head"])
+
+
+def test_fullk_forward_matches_jax_fullk_and_einsum(weights):
+    """attn_impl="fullk": the port (K3's plain versions on the CPU) against
+    the JAX fullk forward (Pallas in interpret mode) on every row, and
+    against the JAX einsum forward on the rows the loss keeps (the fused
+    kernel ignores the mask, so pad rows differ from the masked einsum)."""
+    jp, pp = weights
+    ids, mask, _ = _inputs(seed=4)
+    got = llama.forward(pp, torch.from_numpy(ids).long(), CFG,
+                        attention_mask=torch.from_numpy(mask), attn_impl="fullk")
+    want = jllama.forward(jp, jnp.asarray(ids), JAX_CFG, attention_mask=jnp.asarray(mask),
+                          attn_impl="fullk")
+    tp.assert_close(got, want, TOL, TOL)
+    einsum = jllama.forward(jp, jnp.asarray(ids), JAX_CFG, attention_mask=jnp.asarray(mask))
+    tp.assert_close(got[0], einsum[0], TOL, TOL)
+    tp.assert_close(got[1, :9], einsum[1, :9], TOL, TOL)
+
+
+@pytest.mark.parametrize("impl,head_dim,device,want", [
+    ("auto", 64, "cpu", "einsum"), ("auto", 64, "cuda", "fullk"),
+    ("auto", 128, "cuda", "fullk"), ("auto", 96, "cuda", "einsum"),
+    ("fullk", 64, "cpu", "fullk"), ("flash", 128, "cpu", "fullk"),
+    ("einsum", 64, "cuda", "einsum"),
+])
+def test_resolve_attn_impl(impl, head_dim, device, want):
+    """"auto": the kernel on CUDA tensors with a head dim it takes, einsum
+    elsewhere; "flash" is served by fullk on any device."""
+    assert llama.resolve_attn_impl(impl, head_dim, torch.device(device)) == want
+
+
+@pytest.mark.parametrize("impl", ["fullk", "flash"])
+def test_explicit_fused_attention_with_unsupported_head_dim_raises(impl):
+    cfg = llama.LlamaConfig(**{**CFG.__dict__, "hidden_size": 384})  # head_dim 96
+    assert cfg.head_dim == 96
+    params = llama.init_params(cfg, seed=0)
+    ids = torch.zeros((1, 8), dtype=torch.long)
+    with pytest.raises(ValueError, match="head_dim"):
+        llama.forward(params, ids, cfg, attn_impl=impl)
+    assert llama.forward(params, ids, cfg, attn_impl="auto").shape == (1, 8, cfg.vocab_size)

@@ -142,10 +142,13 @@ def test_eval_loss_matches_jax(pair):
     dict(saliency_accumulation="per_step_stats", qk_scheduler=True, w_decay=0.1),
     dict(gradient_accumulation_steps=2, calculate_strategy="L2",
          lr_scheduler_type="cosine", gradient_checkpointing=True),
-], ids=["per_step_stats-qk-wd", "accum2-L2-cosine-remat"])
+    dict(attn_impl="fullk"),
+], ids=["per_step_stats-qk-wd", "accum2-L2-cosine-remat", "fullk"])
 def test_variants_match_jax(kw):
     """Param groups (q/k LR boost, weight decay), per-step saliency,
-    microbatch accumulation, another reducer, a decaying schedule, remat."""
+    microbatch accumulation, another reducer, a decaying schedule, remat;
+    the fused fullk attention on both sides (Pallas in interpret mode, the
+    port's K3 plain versions) over right-padded batches."""
     p = _run_pair(**kw)
     np.testing.assert_allclose(p["port_losses"], p["jax_losses"], rtol=LOSS_RTOL, atol=0)
     assert p["port"].plan.fingerprint() == p["jax"].plan.fingerprint()
