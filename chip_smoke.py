@@ -12,9 +12,16 @@ Phases, in order; any failure raises and the exit code is non-zero:
      path's: K1/K2 at the two widest TinyLlama linears; K3 (attention
      forward, delta, dK/dV, dQ) at five shapes (K3_SHAPES), timed at the
      first two beside torch SDPA, with each path's fwd+bwd peak memory;
-  4. a small-input reference: a tiny fp32 two-phase run on the GPU (CUDA
+     K7 (cached attention, bf16/fp32 and int8 caches) at eight shapes
+     (K7_SHAPES), each with planted faults the check must reject, timed at
+     five beside torch SDPA with a boolean mask; each
+     timed kernel beside its bound (bytes over the HBM rate or operations
+     over the peak rate, from the H100 data sheet);
+  4. small-input references: a tiny fp32 two-phase run on the GPU (CUDA
      kernels, attention through K3) against the same run on the CPU
-     (plain versions, einsum attention);
+     (plain versions, einsum attention); tiny fp32 generation, greedy and
+     beam-4 over fp32, bf16 and int8 caches, on the GPU (K7) against the
+     CPU (its plain version), tokens identical;
   5. three trainer runs (random weights from a seed, synthetic
      right-padded batches), each SMTTrainer.fit through the full-FT
      warm-up, selection + conversion, sparse steps and eval loss, with the
@@ -22,7 +29,16 @@ Phases, in order; any failure raises and the exit code is non-zero:
      frozen weights checked: A, the main path, TinyLlama-1.1B width and
      depth at bs 4 x seq 512, attention "auto" (K3), with the final HF
      export checked; B, the same at the recipe's seq 2048, bs 2; C, as A
-     with the einsum attention (no K3 launch allowed).
+     with the einsum attention (no K3 launch allowed);
+  6. run D (between A and B), the generation eval of A's fine-tuned
+     weights through the harness (make_generate_fn + run_dataset_eval) with
+     the CLI's defaults (batch 16, beam-4, repetition penalty 1.1, 256 new
+     tokens) on 16 synthetic prompts of 60..256 ids (S = 512): D1 bf16
+     cache, D2 greedy,
+     D3 int8 cache (each must launch K7), D4 as D1 with the einsum
+     attention at 64 new tokens (no K7 launch allowed); per leg prefill ms,
+     decode ms/step, tokens/s, peak memory and launches; D1's and D4's
+     prefill logits against the same prefill with fp32 attention.
 The line before the last is a JSON object of the kernels' numbers; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -66,10 +82,48 @@ K3_TIMED = 2
 # online-softmax rescaling differ from the plain version's.
 K3_TOL = {"bf16": ((2e-2, 1e-1), (4e-2, 4e-1)), "fp32": ((1e-5, 1e-5), (1e-4, 1e-4))}
 K3_KERNELS = ("attn_fwd", "attn_bwd_delta", "attn_bwd_dkdv", "attn_bwd_dq")
+TRAIN_KERNELS = ("block_grad", "masked_adam") + K3_KERNELS
+# K7 shapes (b, t, hq, hkv, hd, s, cache_index, q dtype, cache dtype, what, timed)
+K7_SHAPES = [
+    (64, 1, 32, 4, 64, 512, 300, "bf16", "bf16", "TinyLlama eval decode, 16 prompts x 4 beams",
+     True),
+    (64, 1, 32, 4, 64, 512, 300, "bf16", "int8", "TinyLlama eval decode, int8 cache", True),
+    (16, 256, 32, 4, 64, 512, 0, "bf16", "bf16", "TinyLlama eval prefill", True),
+    (16, 1, 32, 8, 128, 4096, 3840, "bf16", "bf16", "Llama-3-8B geometry decode", True),
+    (16, 1, 32, 8, 128, 4096, 3840, "bf16", "int8", "Llama-3-8B geometry decode, int8 cache", True),
+    (4, 512, 32, 8, 128, 4096, 1024, "bf16", "bf16", "Llama-3-8B geometry prefill chunk", False),
+    (2, 9, 8, 2, 64, 700, 687, "fp32", "fp32", "fp32, ragged S", False),
+    (2, 9, 8, 2, 64, 700, 687, "fp32", "int8", "int8 cache on fp32", False),
+]
+# fp32 and int8-on-fp32: (rtol, atol) of the JAX suite
+# (tests/test_cached_attention.py:85). bf16: max |kernel - plain| at most
+# K7_BF16_REL x max |plain| over the shape. Both round the output to bf16
+# from fp32 values that differ by the rounding of P (the kernel rounds the
+# unnormalised P to bf16, the plain version the normalised one: 2^-9 of a
+# slot's share), far below an ulp of the large outputs, so they differ by at
+# most one bf16 ulp, <= 2^-7 = 0.78e-2 of the largest |o|. A fixed atol
+# would not do: decode rows average hundreds to thousands of slots, and
+# their typical |o| is sqrt(e / slots), 0.03 at the 8B geometry's 3840.
+K7_TOL = {"fp32": (2e-3, 2e-3)}
+K7_BF16_REL = 1e-2
+K7_KERNELS = ("cached_attn", "cached_attn_q8")
+# H100 SXM data sheet: HBM bytes/s and dense peak operations/s by type
+# (bf16 on the tensor cores; fp32 outside them)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def bound(nbytes, ops, dtype):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the larger of the bytes over the HBM rate and the operations over the
+    peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -100,22 +154,55 @@ def check_device():
 # timing
 # ---------------------------------------------------------------------------
 
+_L2_SCRUB = []  # a buffer larger than the H100's 50 MB L2, made at first use
+TIMER_COUNTS = {"timings": 0, "retries": 0}  # time_ms calls, and re-timings behind a longer spin
+
+
 def time_ms(fn, reps=20, warmup=3):
-    """Median of `reps` single-call CUDA-event timings."""
+    """Device time of one call, the median over `reps` calls. The calls are
+    enqueued behind a spin kernel that lasts past their enqueueing, so the
+    host's own time per call (the wrapper's checks, Python) opens no gap on
+    the device; each call sits between its own pair of CUDA events, after a
+    write over a 128 MB buffer that evicts its inputs from L2, as the main
+    path finds them (a layer's weights, cache and optimizer state were last
+    touched a whole step earlier). If the spin had ended by the time the
+    last call was enqueued, the device may have waited on the host: the
+    timing is taken again behind a spin twice as long, and raises after
+    three tries (an fn that synchronises always ends the spin)."""
     import torch
+    if not _L2_SCRUB:
+        _L2_SCRUB.append(torch.empty(32 * 1024 * 1024, dtype=torch.float32, device="cuda"))
+    scrub = _L2_SCRUB[0]
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    t0 = time.perf_counter()  # one warm call's enqueueing, on an idle queue
+    scrub.zero_()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    # the first spin lasts about twice the enqueueing at up to 2 GHz
+    spin_ms = min(2 * reps * host_ms + 1, 1000.0)
+    TIMER_COUNTS["timings"] += 1
+    for attempt in range(3):
+        TIMER_COUNTS["retries"] += attempt > 0
+        starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+        ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+        spun = torch.cuda.Event()
+        torch.cuda._sleep(int(spin_ms * 2e6))
+        spun.record()
+        for start, end in zip(starts, ends):
+            scrub.zero_()
+            start.record()
+            fn()
+            end.record()
+        drained = spun.query()  # the spin had ended before the last call was enqueued
+        ends[-1].synchronize()
+        if not drained:
+            return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+        spin_ms *= 2
+    raise RuntimeError("time_ms: the device caught up with the host in three tries; fn "
+                       "synchronises or enqueues more than the launch queue holds")
 
 
 # ---------------------------------------------------------------------------
@@ -166,9 +253,13 @@ def check_block_grad():
             lib_ms = time_ms(lib)
             ms2 = time_ms(lambda: block_grad(g2, x2, rb, cb))
             flop = 2.0 * K1_N * t * 256 * 256
+            # the row / column panels of the selected blocks, read once, and
+            # the fp32 blocks written
+            nbytes = (len(set(rb_np)) + len(set(cb_np))) * t * 256 * 2 + K1_N * 256 * 256 * 4
             timing = dict(ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, ms_repeat=ms2,
                           shape=f"T={t} (O,I)=({o},{i}) n={K1_N} bf16",
-                          tflops=flop / (min(ms, ms2) * 1e-3) / 1e12)
+                          tflops=flop / (min(ms, ms2) * 1e-3) / 1e12,
+                          bound=bound(nbytes, flop, "bf16"))
     # the fp32 variant (taken by --dtype fp32 runs)
     t, o, i = K1_SHAPES[3]
     g2 = torch.from_numpy(rng.standard_normal((t, o), dtype=np.float32)).to(dev)
@@ -184,7 +275,8 @@ def check_block_grad():
     log(f"[K1 block_grad] time at {timing['shape']}: kernel {timing['ms']:.4f} ms "
         f"(repeat {timing['ms_repeat']:.4f}), plain {timing['plain_ms']:.4f} ms, "
         f"library bmm on gathered bf16 panels {timing['lib_ms']:.4f} ms; "
-        f"kernel {timing['tflops']:.1f} TFLOP/s")
+        f"kernel {timing['tflops']:.1f} TFLOP/s; bound {timing['bound'][0]:.4f} ms "
+        f"({timing['bound'][1]})")
     return worst, timing
 
 
@@ -238,13 +330,15 @@ def check_masked_adam():
     plain_ms = time_ms(lambda: masked_adam_plain(p, g, m, v, scalars))
     lib_ms = time_ms(lib)
     ms2 = time_ms(lambda: masked_adam(p, g, m, v, scalars))
-    nbytes = 7 * 4 * p.numel()
+    nbytes = 7 * 4 * p.numel()  # p, g, m, v read; p, m, v written
     timing = dict(ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, ms_repeat=ms2,
                   shape=f"n={n} (n,256,256) fp32",
-                  gbps=nbytes / (min(ms, ms2) * 1e-3) / 1e9)
+                  gbps=nbytes / (min(ms, ms2) * 1e-3) / 1e9,
+                  bound=bound(nbytes, 12 * p.numel(), "fp32"))  # ~12 flops per element
     log(f"[K2 masked_adam] time at {timing['shape']}: kernel {ms:.4f} ms "
         f"(repeat {ms2:.4f}), plain {plain_ms:.4f} ms, library torch._foreach "
-        f"{lib_ms:.4f} ms; kernel {timing['gbps']:.0f} GB/s of 28 B/element")
+        f"{lib_ms:.4f} ms; kernel {timing['gbps']:.0f} GB/s of 28 B/element; bound "
+        f"{timing['bound'][0]:.4f} ms ({timing['bound'][1]})")
     return worst, timing
 
 
@@ -354,10 +448,24 @@ def _k3_times(q, k, v, do, sm, o, lse, delta):
     return t
 
 
+def _k3_bounds(b, s, hq, hkv, hd, dtype):
+    """{kernel: bound()} from the shapes: causal (query, key) pairs, each
+    input read once and each output written once."""
+    e = 2 if dtype == "bf16" else 4
+    pairs = b * hq * s * (s + 1) / 2
+    qb, kvb, vec = b * s * hq * hd * e, b * s * hkv * hd * e, b * hq * s * 4
+    return {
+        "attn_fwd": bound(2 * qb + 2 * kvb + vec, 4 * hd * pairs, dtype),
+        "attn_bwd_delta": bound(2 * qb + vec, 2 * b * s * hq * hd, dtype),
+        "attn_bwd_dkdv": bound(2 * qb + 4 * kvb + 2 * vec, 8 * hd * pairs, dtype),
+        "attn_bwd_dq": bound(3 * qb + 2 * kvb + 2 * vec, 6 * hd * pairs, dtype),
+    }
+
+
 def check_attention():
     """K3 at K3_SHAPES: o, lse, delta, dq, dk, dv against the plain versions;
     times at the first K3_TIMED shapes. Returns ({kernel: worst err},
-    {kernel: (ms, plain_ms)} at the main shape)."""
+    {kernel: (ms, plain_ms, bound, library ms or None)} at the main shape)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(3)
@@ -379,11 +487,153 @@ def check_attention():
             log(f"[K3 attention] fwd+bwd at {shape}: " + "; ".join(
                 f"{n} {t['fwd_bwd_ms'][n]:.4f} ms, peak {t['fwd_bwd_peak_gib'][n]:.3f} GiB"
                 for n in t["fwd_bwd_ms"]))
+            bounds = _k3_bounds(b, s, hq, hkv, hd, dtype)
+            log(f"[K3 attention] bound at {shape}: " + "; ".join(
+                f"{n} {ms:.4f} ms ({by})" for n, (ms, by) in bounds.items()))
             if main_times is None:
-                main_times = {n: t[n] for n in K3_KERNELS}
+                main_times = {n: (*t[n], bounds[n], t["sdpa_fwd"] if n == "attn_fwd" else None)
+                              for n in K3_KERNELS}
         del args
         torch.cuda.empty_cache()
     return worst, main_times
+
+
+def _k7_inputs(b, t, hq, hkv, hd, s, ci, qdt, cdt, rng):
+    """q, a cache with its slots written, and a slot mask with a ragged left
+    pad (up to 64 slots; in a prefill, pad query rows that see no slot) and,
+    in decode, a few masked slots in between (the greedy loop's finished
+    rows)."""
+    import numpy as np
+    import torch
+    dev, dt = torch.device("cuda"), {"bf16": torch.bfloat16, "fp32": torch.float32}
+    q = torch.from_numpy(rng.standard_normal((b, t, hq, hd), dtype=np.float32)).to(dev, dt[qdt])
+    kf = rng.standard_normal((b, hkv, s, hd), dtype=np.float32)
+    vf = rng.standard_normal((b, hkv, s, hd), dtype=np.float32)
+    if cdt == "int8":
+        ks = np.abs(kf).max(-1) / 127.0 + 1e-10
+        vs = np.abs(vf).max(-1) / 127.0 + 1e-10
+        kv = {"k": np.round(kf / ks[..., None]).astype(np.int8),
+              "v": np.round(vf / vs[..., None]).astype(np.int8),
+              "ks": ks[:, :, None, :].astype(np.float32),
+              "vs": vs[:, :, None, :].astype(np.float32)}
+        kv = {n: torch.from_numpy(a).to(dev) for n, a in kv.items()}
+    else:
+        kv = {"k": torch.from_numpy(kf).to(dev, dt[cdt]),
+              "v": torch.from_numpy(vf).to(dev, dt[cdt])}
+    sm = np.zeros((b, s), np.int32)
+    for i in range(b):
+        start = int(rng.integers(0, min(64, ci + t)))
+        sm[i, start:ci + t] = 1
+        if t == 1:
+            sm[i, start:ci][rng.random(ci - start) < 0.05] = 0
+    return q, kv, torch.from_numpy(sm).to(dev)
+
+
+def _k7_bound(q, kv, sm, ci):
+    """bound() of one call from its inputs: the query rows' visible
+    (slot, head) pairs for the operations; q read and o written once, and
+    of the cache only the slots some token of the row sees (K, V and an
+    int8 cache's scales), plus the slot mask up to the last new token."""
+    from sparse_matrix_tuning_tpu_torch.ops.cuda.cached_attention import visible_slots
+    b, t, hq, hd = q.shape
+    hkv = kv["k"].shape[1]
+    vis = visible_slots(sm, ci, t)                      # (B, T, S)
+    pairs = float(vis.sum()) * hq
+    slots = float(vis.any(1).sum()) * hkv             # (b, kv-head, slot) read
+    nbytes = 2 * q.numel() * q.element_size() + 2 * slots * hd * kv["k"].element_size() \
+        + (2 * slots * 4 if "ks" in kv else 0) + b * (ci + t) * 4
+    return bound(nbytes, 4 * hd * pairs, "bf16" if q.element_size() == 2 else "fp32")
+
+
+def _k7_close(got, want, qdt):
+    """(within the tolerance, max abs err, the limit in words): K7_TOL's
+    rtol/atol for an fp32 q, K7_BF16_REL x max |want| for a bf16 q."""
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    if qdt == "bf16":
+        limit = K7_BF16_REL * float(want.float().abs().max())
+        return err <= limit, err, f"limit {K7_BF16_REL} x max |o| = {limit:.3e}"
+    rtol, atol = K7_TOL[qdt]
+    return bool((diff <= atol + rtol * want.float().abs()).all()), err, f"rtol {rtol}, atol {atol}"
+
+
+def _k7_faults(args, want):
+    """Planted faults, which the check must reject, as the plain version
+    computes them: half the output; the last 64-slot key tile of the visible
+    range skipped; in a decode step, the masked slots between a row's first
+    visible slot and the new token attended."""
+    import torch
+    from sparse_matrix_tuning_tpu_torch.ops.cuda.cached_attention import cached_attention_plain
+    q, k, v, ks, vs, sm, ci, scale = args
+    end = ci + q.shape[1]
+    skipped = sm.clone()
+    skipped[:, (end - 1) // 64 * 64:end] = 0
+    faults = {"half the output": 0.5 * want.float(),
+              "last key tile skipped": cached_attention_plain(q, k, v, ks, vs, skipped, ci, scale)}
+    if q.shape[1] == 1:
+        slots = torch.arange(sm.shape[1], device=sm.device)
+        opened = ((sm.cumsum(1) > 0) & (slots < end)).to(sm.dtype)
+        faults["masked slots attended"] = cached_attention_plain(q, k, v, ks, vs, opened, ci,
+                                                                 scale)
+    return faults
+
+
+def check_cached_attention():
+    """K7 at K7_SHAPES against its plain version; times at the timed shapes
+    beside the plain version, torch SDPA with a boolean mask (a library
+    reference for the time only; a float cache of q's dtype) and the bound.
+    Returns ({kernel: worst err}, {kernel: (ms, plain_ms, bound, library ms)}
+    at the first shape of each body, the eval decode)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from sparse_matrix_tuning_tpu_torch.ops.cuda import cached_attention as k7
+
+    rng = np.random.default_rng(7)
+    worst = {n: 0.0 for n in K7_KERNELS}
+    main = {}
+    for b, t, hq, hkv, hd, s, ci, qdt, cdt, what, timed in K7_SHAPES:
+        q, kv, sm = _k7_inputs(b, t, hq, hkv, hd, s, ci, qdt, cdt, rng)
+        name = "cached_attn_q8" if cdt == "int8" else "cached_attn"
+        args = (q, kv["k"], kv["v"], kv.get("ks"), kv.get("vs"), sm, ci, 1.0 / hd ** 0.5)
+        got = k7.cached_attention_kernel(*args)
+        torch.cuda.synchronize()
+        want = k7.cached_attention_plain(*args)
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"K7 {what}: non-finite output")
+        ok, err, limit = _k7_close(got, want, qdt)
+        if not ok:
+            raise AssertionError(f"K7 {what}: max abs err {err:.3e} against the plain "
+                                 f"version, over the limit ({limit})")
+        rejected = {}
+        for fault, out in _k7_faults(args, want).items():
+            if _k7_close(out, want, qdt)[0]:
+                raise AssertionError(f"K7 {what}: the check passes a planted fault, {fault}")
+            rejected[fault] = float((out.float() - want.float()).abs().max())
+        worst[name] = max(worst[name], err)
+        shape = f"b{b} t{t} hq{hq} hkv{hkv} hd{hd} s{s} ci{ci} {qdt} q, {cdt} cache"
+        log(f"[K7 cached_attn] {shape} ({what}): max_abs_err {err:.3e}, max |o| "
+            f"{float(want.float().abs().max()):.3e} ({limit}); planted faults rejected: "
+            + ", ".join(f"{n} (max abs err {e:.3e})" for n, e in rejected.items()))
+        if timed:
+            ms = time_ms(lambda: k7.cached_attention_kernel(*args))
+            plain_ms = time_ms(lambda: k7.cached_attention_plain(*args), reps=5)
+            lib_ms = None
+            if cdt != "int8":
+                mask = k7.visible_slots(sm, ci, t)[:, None]   # (B, 1, T, S)
+                qs = q.transpose(1, 2)
+                lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                    qs, kv["k"], kv["v"], attn_mask=mask, enable_gqa=True))
+            ms2 = time_ms(lambda: k7.cached_attention_kernel(*args))
+            bnd = _k7_bound(q, kv, sm, ci)
+            log(f"[K7 cached_attn] time at {shape}: kernel {ms:.4f} ms (repeat {ms2:.4f}), "
+                f"plain {plain_ms:.4f} ms, torch SDPA with a boolean mask "
+                f"{'n/a (int8 cache)' if lib_ms is None else f'{lib_ms:.4f} ms'}; "
+                f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+            main.setdefault(name, (ms, plain_ms, bnd, lib_ms))
+        del q, kv, sm, args, got, want
+        torch.cuda.empty_cache()
+    return worst, main
 
 
 # ---------------------------------------------------------------------------
@@ -393,19 +643,23 @@ def check_attention():
 def reset_launches():
     from sparse_matrix_tuning_tpu_torch.ops.cuda import attention as k3
     from sparse_matrix_tuning_tpu_torch.ops.cuda import block_grad as k1
+    from sparse_matrix_tuning_tpu_torch.ops.cuda import cached_attention as k7
     from sparse_matrix_tuning_tpu_torch.ops.cuda import masked_adam as k2
     k1.LAUNCHES = 0
     k2.LAUNCHES = 0
-    for name in k3.LAUNCHES:
-        k3.LAUNCHES[name] = 0
+    for counts in (k3.LAUNCHES, k7.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def launches():
     """Every kernel's launch count since the last reset_launches()."""
     from sparse_matrix_tuning_tpu_torch.ops.cuda import attention as k3
     from sparse_matrix_tuning_tpu_torch.ops.cuda import block_grad as k1
+    from sparse_matrix_tuning_tpu_torch.ops.cuda import cached_attention as k7
     from sparse_matrix_tuning_tpu_torch.ops.cuda import masked_adam as k2
-    return {"block_grad": k1.LAUNCHES, "masked_adam": k2.LAUNCHES, **k3.LAUNCHES}
+    return {"block_grad": k1.LAUNCHES, "masked_adam": k2.LAUNCHES, **k3.LAUNCHES,
+            **k7.LAUNCHES}
 
 
 def synthetic_sft(n, seq, vocab, seed):
@@ -429,11 +683,13 @@ def synthetic_sft(n, seq, vocab, seed):
 
 def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
                   full_ft_steps=3, sparse_steps=4, eval_batches=2,
-                  ratios=(0.0084, 0.0084), attn_impl="auto", out_dir=None, log_fn=log):
+                  ratios=(0.0084, 0.0084), attn_impl="auto", out_dir=None, log_fn=log,
+                  keep_decode_params=False):
     """SMTTrainer.fit through warm-up -> conversion -> sparse -> eval ->
     final export, with per-phase step times and peak memory. Checks
     finiteness, a non-empty plan, frozen weights outside the selected
-    blocks, and the export against merged_params(). Returns a summary."""
+    blocks, and the export against merged_params(). Returns a summary, with
+    trainer.decode_params() under "decode_params" if asked for."""
     import numpy as np
     import torch
     from sparse_matrix_tuning_tpu_torch.config import SMTConfig
@@ -575,6 +831,8 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
                 raise AssertionError("exported smt_plan.json differs")
         export = exported
     summary["export_tensors_equal"] = export
+    if keep_decode_params:
+        summary["decode_params"] = trainer.decode_params()
     return summary
 
 
@@ -594,7 +852,7 @@ def check_small_reference():
     np.testing.assert_allclose(gpu["loss"], cpu["loss"], rtol=1e-4)
     if gpu["plan"]["fingerprint"] != cpu["plan"]["fingerprint"]:
         raise AssertionError("tiny run: GPU and CPU plans differ")
-    if not all(n > 0 for n in gpu["launches"].values()):
+    if not all(gpu["launches"][n] > 0 for n in TRAIN_KERNELS):
         raise AssertionError(f"tiny GPU run did not launch every kernel: {gpu['launches']}")
     worst = float(np.max(np.abs(np.array(gpu["loss"]) - np.array(cpu["loss"]))
                          / np.abs(np.array(cpu["loss"]))))
@@ -623,6 +881,267 @@ def report_run(tag, what, s, n_warmup):
     log(f"[{tag}] kernel launches: {s['launches']} (warm-up: {s['launches_warmup']})")
 
 
+# ---------------------------------------------------------------------------
+# generation eval
+# ---------------------------------------------------------------------------
+
+def check_small_generation():
+    """Tiny fp32 model, left-padded ragged prompts: greedy and beam-4 with
+    repetition penalty 1.1 over an fp32, a bf16 and an int8 cache, on the
+    GPU (K7) and on the CPU (its plain version): the tokens must be
+    identical, and the GPU runs must launch K7."""
+    import numpy as np
+    import torch
+    from sparse_matrix_tuning_tpu_torch.eval.generate import GenerationConfig, generate
+    from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig, init_params, tree_map
+
+    cfg = LlamaConfig.tiny(vocab_size=512)
+    cpu_params = init_params(cfg, seed=0)
+    gpu_params = tree_map(lambda p: p.to("cuda"), cpu_params)
+    rng = np.random.default_rng(5)
+    lens = (5, 17, 30, 9)
+    ids = np.zeros((len(lens), 32), np.int32)
+    mask = np.zeros_like(ids)
+    for i, n in enumerate(lens):
+        ids[i, 32 - n:] = rng.integers(3, cfg.vocab_size, n)
+        mask[i, 32 - n:] = 1
+    os.environ["SMT_CACHED_ATTN"] = "on"  # K7 on the GPU, its plain version on the CPU
+    try:
+        for cache in ("float32", "bfloat16", "int8"):
+            for beams in (1, 4):
+                gen = GenerationConfig(max_new_tokens=16, num_beams=beams,
+                                       repetition_penalty=1.1, cache_dtype=cache)
+                reset_launches()
+                got = generate(gpu_params, cfg, ids, mask, gen, device="cuda")
+                n = launches()["cached_attn_q8" if cache == "int8" else "cached_attn"]
+                want = generate(cpu_params, cfg, ids, mask, gen, device="cpu")
+                if n <= 0 or not np.array_equal(got, want):
+                    raise AssertionError(f"tiny generation, {cache} cache, beams {beams}: "
+                                         f"K7 launches {n}, GPU {got.tolist()} vs CPU "
+                                         f"{want.tolist()}")
+                log(f"[reference] tiny fp32 generation, {cache} cache, beams {beams}: "
+                    f"GPU (K7, {n} launches) and CPU (plain) tokens identical, "
+                    f"first row {got[0].tolist()}")
+    finally:
+        os.environ.pop("SMT_CACHED_ATTN", None)
+
+
+class StandInTokenizer:
+    """ids <-> text for run D (the card has no `transformers`): one id per
+    whitespace word, w<id> words back to their ids, other words hashed into
+    the vocabulary; <s> = 1 first, pad 0 and eos 2 are special. It keeps
+    the token arrays it decoded, for the comparisons between legs."""
+    pad_token_id, bos_token_id, eos_token_id = 0, 1, 2
+
+    def __init__(self, vocab_size):
+        self.vocab_size = vocab_size
+        self.decoded = []
+
+    def _id(self, word):
+        import zlib
+        if word[:1] == "w" and word[1:].isdigit():
+            return int(word[1:])
+        return 3 + zlib.crc32(word.encode()) % (self.vocab_size - 3)
+
+    def __call__(self, texts, truncation=True, max_length=None, return_attention_mask=True):
+        ids = [[self.bos_token_id] + [self._id(w) for w in t.split()] for t in texts]
+        if truncation and max_length:
+            ids = [x[:max_length] for x in ids]
+        return {"input_ids": ids, "attention_mask": [[1] * len(x) for x in ids]}
+
+    def batch_decode(self, rows, skip_special_tokens=True):
+        import numpy as np
+        rows = np.asarray(rows)
+        self.decoded.append(rows)
+        return [" ".join(f"w{int(i)}" for i in row if not (skip_special_tokens and i < 3))
+                for row in rows]
+
+
+def synthetic_eval_examples(n, tok, seed):
+    """n boolq-style examples whose prompts tokenize to 60..256 ids (the
+    longest 256, so the harness pads to the 256 bucket)."""
+    import numpy as np
+    from sparse_matrix_tuning_tpu_torch.data.prompts import EVAL_PROMPT
+    rng = np.random.default_rng(seed)
+    base = len(tok([EVAL_PROMPT.format_map({"instruction": ""})])["input_ids"][0])
+    lengths = rng.integers(60, 257, n)
+    lengths[0] = 256
+    return [{"instruction": " ".join(f"x{int(v)}" for v in rng.integers(0, 10 ** 6, int(L) - base)),
+             "answer": "true" if i % 2 else "false"} for i, L in enumerate(lengths)]
+
+
+class StepClock:
+    """Wraps forward_with_cache in the generation modules: a prefill call
+    (more than one new token) is timed between two synchronisations and its
+    last-position logits kept, with the inputs of the first; a decode call
+    records the host time at its start, with no synchronisation, so the
+    intervals are whole steps."""
+
+    def __init__(self):
+        self.prefill_ms, self.prefill_logits, self.starts = [], [], []
+        self.prefill_inputs = None  # (input_ids, cache_index, slot_mask, positions, max_len)
+
+    def __enter__(self):
+        from sparse_matrix_tuning_tpu_torch.eval import _beam_impl, generate
+        self._mods = (generate, _beam_impl)
+        self._orig = generate.forward_with_cache
+        orig = self._orig
+
+        def timed(params, input_ids, *args, **kw):
+            import torch
+            if input_ids.shape[1] == 1:
+                self.starts.append(time.perf_counter())
+                return orig(params, input_ids, *args, **kw)
+            if self.prefill_inputs is None:
+                _, cache, cache_index, slot_mask, positions = args
+                self.prefill_inputs = (input_ids.clone(), cache_index, slot_mask.clone(),
+                                       positions.clone(), cache["0"]["k"].shape[2])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(params, input_ids, *args, **kw)
+            torch.cuda.synchronize()
+            self.prefill_ms.append((time.perf_counter() - t0) * 1e3)
+            self.prefill_logits.append(out[0][:, -1].float().cpu())
+            return out
+
+        for m in self._mods:
+            m.forward_with_cache = timed
+        return self
+
+    def __exit__(self, *exc):
+        for m in self._mods:
+            m.forward_with_cache = self._orig
+
+
+def eval_leg(tag, what, params, cfg, examples, *, num_beams=4, cache_dtype="bfloat16",
+             attn="auto", max_new_tokens=256):
+    """One pass of the eval harness (make_generate_fn + run_dataset_eval, the
+    CLI's batch 16 and repetition penalty 1.1) with the launch counts zeroed
+    just before and read just after. Returns a summary."""
+    import numpy as np
+    import torch
+    from sparse_matrix_tuning_tpu_torch.eval.generate import GenerationConfig
+    from sparse_matrix_tuning_tpu_torch.eval.harness import make_generate_fn, run_dataset_eval
+
+    tok = StandInTokenizer(cfg.vocab_size)
+    gen = GenerationConfig(max_new_tokens=max_new_tokens, num_beams=num_beams,
+                           repetition_penalty=1.1, eos_token_id=tok.eos_token_id,
+                           pad_token_id=tok.pad_token_id, cache_dtype=cache_dtype)
+    fn = make_generate_fn(params, cfg, tok, gen, batch_size=16)
+    os.environ["SMT_CACHED_ATTN"] = attn
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with StepClock() as clock:
+            t0 = time.perf_counter()
+            res = run_dataset_eval("boolq", examples, fn)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = launches()
+    finally:
+        os.environ.pop("SMT_CACHED_ATTN", None)
+    tokens = np.concatenate(tok.decoded)
+    steps = np.diff(clock.starts) * 1e3
+    s = {"tokens": tokens, "launches": counts, "wall_s": wall,
+         # the real rows (the harness pads a batch with empty rows)
+         "prefill_ms": clock.prefill_ms, "prefill_logits": clock.prefill_logits[0][:len(examples)],
+         "prefill_inputs": clock.prefill_inputs,
+         "decode_ms": float(np.median(steps)), "decode_ms_p90": float(np.percentile(steps, 90)),
+         "tokens_per_s": len(examples) * max_new_tokens / wall,
+         "peak_gib": torch.cuda.max_memory_allocated() / 1024 ** 3,
+         "in_vocab": bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+         "accuracy": res["accuracy"]}
+    log(f"[{tag}] {what}: prefill {s['prefill_ms'][0]:.1f} ms; decode median "
+        f"{s['decode_ms']:.2f} ms/step (p90 {s['decode_ms_p90']:.2f}) over {len(steps)} "
+        f"intervals; {wall:.2f} s for {len(examples)} prompts x {max_new_tokens} new tokens = "
+        f"{s['tokens_per_s']:.1f} tokens/s; peak {s['peak_gib']:.2f} GiB; K7 launches "
+        f"{{cached_attn: {counts['cached_attn']}, cached_attn_q8: {counts['cached_attn_q8']}}}; "
+        f"tokens {tokens.shape}, all in the vocab: {s['in_vocab']}; accuracy "
+        f"{res['accuracy']:.3f} (random weights)")
+    if not s["in_vocab"]:
+        raise AssertionError(f"run {tag}: tokens outside the vocabulary")
+    return s
+
+
+def fp32_attention_prefill_logits(params, cfg, prefill_inputs, n_rows):
+    """The last-position logits of a prefill with its cached attention all in
+    fp32 (K7's plain version on fp32 copies of q and the bf16 cache: fp32
+    scores, softmax and P.V), everything else as in the run: the reference
+    that D1 (K7, fp32 scores, bf16 P) and D4 (the einsum, bf16 scores) are
+    held against. Its own cache, so the run's is untouched."""
+    import torch
+    from sparse_matrix_tuning_tpu_torch.models import llama
+    from sparse_matrix_tuning_tpu_torch.ops.cuda.cached_attention import cached_attention_plain
+
+    def fp32_attention(q, kv, slot_mask, cache_index):
+        return cached_attention_plain(q.float(), kv["k"], kv["v"], None, None, slot_mask,
+                                      cache_index, 1.0 / q.shape[3] ** 0.5).to(q.dtype)
+
+    input_ids, cache_index, slot_mask, positions, max_len = prefill_inputs
+    cache = llama.init_cache(cfg, input_ids.shape[0], max_len, dtype=torch.bfloat16,
+                             device=input_ids.device)
+    orig = llama.cached_attention
+    llama.cached_attention = fp32_attention
+    os.environ["SMT_CACHED_ATTN"] = "on"
+    try:
+        logits, _ = llama.forward_with_cache(params, input_ids, cfg, cache, cache_index,
+                                             slot_mask, positions, last_only=True)
+    finally:
+        llama.cached_attention = orig
+        os.environ.pop("SMT_CACHED_ATTN", None)
+    return logits[:n_rows, -1].float().cpu()
+
+
+def run_eval(params, cfg):
+    """Run D: the eval harness at TinyLlama-1.1B width and depth on 16
+    prompts (60..256 ids, left-padded to 256, so S = 512). D1 bf16 cache,
+    beam-4 (the CLI's defaults), D2 greedy, D3 int8 cache, beam-4, D4 as D1
+    with the einsum attention at 64 new tokens; D1's and D4's prefill logits
+    against an fp32-attention prefill. Returns {leg: summary}."""
+    import numpy as np
+    import torch
+    examples = synthetic_eval_examples(16, StandInTokenizer(cfg.vocab_size), seed=11)
+    legs = {
+        "D1": eval_leg("D1", "bf16 cache, beam-4, K7", params, cfg, examples),
+        "D2": eval_leg("D2", "bf16 cache, greedy, K7", params, cfg, examples, num_beams=1),
+        "D3": eval_leg("D3", "int8 cache, beam-4, K7", params, cfg, examples,
+                       cache_dtype="int8"),
+        "D4": eval_leg("D4", "bf16 cache, beam-4, einsum attention", params, cfg, examples,
+                       attn="off", max_new_tokens=64),
+    }
+    for tag in ("D1", "D2"):
+        if legs[tag]["launches"]["cached_attn"] <= 0:
+            raise AssertionError(f"run {tag} did not launch K7: {legs[tag]['launches']}")
+    if legs["D3"]["launches"]["cached_attn_q8"] <= 0:
+        raise AssertionError(f"run D3 did not launch K7's int8 body: {legs['D3']['launches']}")
+    if any(legs["D4"]["launches"][n] for n in K7_KERNELS):
+        raise AssertionError(f"run D4 (einsum) launched K7: {legs['D4']['launches']}")
+    d1, d4 = legs["D1"], legs["D4"]
+    agree = float(np.mean(d1["tokens"][:, :64] == d4["tokens"]))
+    diff = float((d1["prefill_logits"] - d4["prefill_logits"]).abs().max())
+    scale = float(d4["prefill_logits"].abs().max())
+    log(f"[D] D1 (K7) vs D4 (einsum): token agreement over the first 64 tokens {agree:.4f}; "
+        f"prefill last-position logits max abs diff {diff:.4e} (max |logit| {scale:.3f})")
+    # the same prompts; D4's cache is shorter (64 new tokens), but a prefill
+    # from slot 0 sees only the prompt's slots
+    ids1, _, sm1, pos1, _ = d1["prefill_inputs"]
+    ids4, _, sm4, pos4, _ = d4["prefill_inputs"]
+    t = ids1.shape[1]
+    if not (torch.equal(ids1, ids4) and torch.equal(pos1, pos4)
+            and torch.equal(sm1[:, :t], sm4[:, :t])):
+        raise AssertionError("runs D1 and D4 prefilled different inputs")
+    ref = fp32_attention_prefill_logits(params, cfg, d1["prefill_inputs"],
+                                        len(d1["prefill_logits"]))
+    for tag, leg in (("D1", d1), ("D4", d4)):
+        dist = (leg["prefill_logits"] - ref).abs()
+        top = float((leg["prefill_logits"].argmax(-1) == ref.argmax(-1)).float().mean())
+        log(f"[D] {tag} vs the fp32-attention prefill: last-position logits max abs diff "
+            f"{float(dist.max()):.4e}, mean {float(dist.mean()):.4e}; argmax agreement "
+            f"{top:.4f}")
+    return legs
+
+
 def main():
     t_start = time.time()
     check_device()
@@ -641,53 +1160,77 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"[ptxas] {line.strip()}")
     _build.load()
+    marks = [("build", time.time())]
 
     k1_err, k1_time = check_block_grad()
     k2_err, k2_time = check_masked_adam()
     k3_err, k3_time = check_attention()
+    k7_err, k7_time = check_cached_attention()
+    marks.append(("kernels", time.time()))
     check_small_reference()
+    check_small_generation()
+    marks.append(("references", time.time()))
 
-    # A: the main path, attn_impl "auto" (K3), with the final export
+    # A: the main path, attn_impl "auto" (K3), with the final export; its
+    # fine-tuned weights are run D's
     model_cfg = LlamaConfig(**TINYLLAMA)
     build_dir = os.path.join(REPO, "build")
     os.makedirs(build_dir, exist_ok=True)
     out_dir = tempfile.mkdtemp(prefix="smoke_export_", dir=build_dir)
     try:
-        run_a = run_main_path(model_cfg, "cuda", out_dir=out_dir)
+        run_a = run_main_path(model_cfg, "cuda", out_dir=out_dir, keep_decode_params=True)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+    decode_params = run_a.pop("decode_params")
     report_run("A", "TinyLlama-1.1B bf16, bs 4 x seq 512, remat, attn auto (K3)", run_a, 3)
     torch.cuda.empty_cache()
+    marks.append(("A", time.time()))
+    # D: the generation eval of A's fine-tuned weights, freed before B and C
+    run_d = run_eval(decode_params, model_cfg)
+    del decode_params
+    torch.cuda.empty_cache()
+    marks.append(("D", time.time()))
     # B: the recipe's max_seq_len 2048, bs 2
     run_b = run_main_path(model_cfg, "cuda", bs=2, seq=2048)
     report_run("B", "TinyLlama-1.1B bf16, bs 2 x seq 2048, remat, attn auto (K3)", run_b, 3)
     torch.cuda.empty_cache()
+    marks.append(("B", time.time()))
     # C: the einsum path kept alive, otherwise as A
     run_c = run_main_path(model_cfg, "cuda", attn_impl="einsum")
     report_run("C", "TinyLlama-1.1B bf16, bs 4 x seq 512, remat, attn einsum", run_c, 3)
+    marks.append(("C", time.time()))
 
     for tag, run in (("A", run_a), ("B", run_b)):
-        if not all(n > 0 for n in run["launches"].values()):
+        if not all(run["launches"][n] > 0 for n in TRAIN_KERNELS):
             raise AssertionError(f"run {tag} did not launch every kernel: {run['launches']}")
     c = run_c["launches"]
     if any(c[n] for n in K3_KERNELS) or c["block_grad"] <= 0 or c["masked_adam"] <= 0:
         raise AssertionError(f"run C (einsum) launches: {c}")
 
-    def entry(name, source, replaces, err, ms, plain_ms):
+    def entry(name, source, replaces, n_launches, err, ms, plain_ms, bnd, lib_ms):
         return {"name": name, "route": "cuda",
                 "source": f"sparse_matrix_tuning_tpu_torch/csrc/{source}",
                 "replaces": f"sparse_matrix_tuning_tpu/ops/pallas/{replaces}",
-                "launches": run_a["launches"][name], "max_abs_err": err,
-                "ms": ms, "plain_ms": plain_ms}
+                "launches": n_launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms}
 
     kernels = [
-        entry("block_grad", "block_grad.cu", "block_grad.py:56", k1_err,
-              k1_time["ms"], k1_time["plain_ms"]),
-        entry("masked_adam", "masked_adam.cu", "masked_adam.py:35", k2_err,
-              k2_time["ms"], k2_time["plain_ms"]),
+        entry("block_grad", "block_grad.cu", "block_grad.py:56",
+              run_a["launches"]["block_grad"], k1_err, k1_time["ms"], k1_time["plain_ms"],
+              k1_time["bound"], k1_time["lib_ms"]),
+        entry("masked_adam", "masked_adam.cu", "masked_adam.py:35",
+              run_a["launches"]["masked_adam"], k2_err, k2_time["ms"], k2_time["plain_ms"],
+              k2_time["bound"], k2_time["lib_ms"]),
     ] + [entry(name, "attention.cu",
                "attention.py:154" if name == "attn_fwd" else "attention.py:188",
-               k3_err[name], *k3_time[name]) for name in K3_KERNELS]
+               run_a["launches"][name], k3_err[name], *k3_time[name]) for name in K3_KERNELS
+         ] + [entry(name, "cached_attention.cu", "cached_attention.py:123",
+                    run_d[leg]["launches"][name], k7_err[name], *k7_time[name])
+              for name, leg in (("cached_attn", "D1"), ("cached_attn_q8", "D3"))]
+    log("[smoke] seconds by phase: " + ", ".join(
+        f"{name} {t - prev:.1f}" for (name, t), (_, prev) in zip(marks, [("", t_start)] + marks)))
+    log(f"[smoke] time_ms: {TIMER_COUNTS['timings']} timings, {TIMER_COUNTS['retries']} "
+        "re-timed behind a longer spin")
     log(f"[smoke] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

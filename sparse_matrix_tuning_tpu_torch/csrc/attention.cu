@@ -48,22 +48,13 @@
 //   fp32: CUDA-core FMAs, 256 threads, four threads per row.
 // Not yet: wgmma/TMA, cp.async pipelining, splitting dK/dV over q-heads.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "tiles.cuh"
+
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int T64 = 64;          // rows per tile (queries or keys), bf16
-constexpr int SLD = T64 + 4;     // fp32 64-wide tile pitch (floats)
-constexpr int PLD = T64 + 8;     // bf16 64-wide tile pitch (elements)
-constexpr int NT_BF16 = 128;     // 4 warps x 16 rows
-constexpr int NT_F32 = 256;      // 4 threads per row
-constexpr int F32_BK = 32;       // keys per tile (fp32 fwd / dq)
 constexpr int F32_BQ = 32;       // queries per tile (fp32 dkdv)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -142,12 +133,6 @@ __device__ __forceinline__ void store_warp_rows(T* dst, size_t row_stride, const
 // bf16: WMMA
 // ---------------------------------------------------------------------------
 
-using namespace nvcuda;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
 template <int HD>
 struct Bf16Smem {
   static constexpr int LD = HD + 8;                            // bf16 row pitch
@@ -163,25 +148,6 @@ struct Bf16Smem {
   static constexpr size_t dkdv = 4 * kTile + 2 * kF32 + 2 * kBf + 2 * T64 * 4;
   static_assert(2 * kF32 >= kOut, "staging must fit in the two fp32 score tiles");
 };
-
-// S_w (16 x 64) = A_w (16 x hd, cached fragments) . B^T, B rows = 64 keys in
-// shared memory (pitch LD); stored to st (pitch SLD) at the warp's rows.
-template <int HD>
-__device__ __forceinline__ void scores_16x64(float* st, const FragA* a, const bf16* bs) {
-  constexpr int LD = HD + 8;
-#pragma unroll
-  for (int n = 0; n < 4; ++n) {
-    FragC c;
-    wmma::fill_fragment(c, 0.0f);
-#pragma unroll
-    for (int d = 0; d < HD / 16; ++d) {
-      FragBc b;
-      wmma::load_matrix_sync(b, bs + n * 16 * LD + d * 16, LD);
-      wmma::mma_sync(c, a[d], b, c);
-    }
-    wmma::store_matrix_sync(st + n * 16, c, SLD, wmma::mem_row_major);
-  }
-}
 
 template <int HD>
 __global__ void __launch_bounds__(NT_BF16)
@@ -520,19 +486,6 @@ struct F32Smem {
       ((size_t)2 * T64 * LD + 2 * F32_BQ * LD + 2 * T64 * PL + 2 * F32_BQ) * 4;
 };
 
-// out[j] = a . b[j * stride .. +HD] over HD, for the N rows b, b + stride, ..
-template <int N, int HD>
-__device__ __forceinline__ void dots(float (&out)[N], const float* a, const float* b,
-                                     int stride) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) out[j] = 0.f;
-  for (int d = 0; d < HD; ++d) {
-    const float x = a[d];
-#pragma unroll
-    for (int j = 0; j < N; ++j) out[j] = fmaf(x, b[j * stride + d], out[j]);
-  }
-}
-
 template <int HD>
 __global__ void __launch_bounds__(NT_F32)
 attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
@@ -781,15 +734,6 @@ attn_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
     const int b = bs / S, s = bs % S;
     delta[((size_t)b * Hq + h) * S + s] = acc;
   }
-}
-
-// Raise the dynamic shared-memory limit above 48 KB where needed; the
-// launch is refused otherwise.
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
 }
 
 template <int HD>

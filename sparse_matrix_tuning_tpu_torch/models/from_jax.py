@@ -3,8 +3,9 @@
 `params_from_jax` takes the JAX parameter tree as numpy arrays (bf16 as
 ml_dtypes.bfloat16, e.g. `jax.tree.map(np.asarray, params)`) and returns
 the port's param dict with the same layout, so both packages compute the
-same thing on the same weights. `plan_from_jax` reads an
-`SMTPlan.to_json()`. Neither function imports jax.
+same thing on the same weights; `cache_from_jax` does the same for a
+decode KV cache. `plan_from_jax` reads an `SMTPlan.to_json()`. None of
+them imports jax.
 """
 
 from __future__ import annotations
@@ -37,6 +38,14 @@ def params_from_jax(tree: Mapping[str, Any], device=None, dtype=None) -> Dict[st
         else:
             out[k] = tensor_from_numpy(v, device=device, dtype=dtype)
     return out
+
+
+def cache_from_jax(cache, device=None) -> Dict[str, Any]:
+    """A JAX per-layer KV cache (models.llama.init_cache, as numpy arrays)
+    -> the port's: the same {"<i>": {"k", "v"[, "ks", "vs"]}} layout,
+    (B, Hkv, S, hd) K/V and (B, Hkv, 1, S) scales, dtypes kept (int8
+    included), so both packages can decode from one cache."""
+    return params_from_jax(cache, device=device)
 
 
 def plan_from_jax(plan) -> SMTPlan:

@@ -1,9 +1,10 @@
-"""Llama-family decoder, training forward, in PyTorch (plain dicts of
-tensors + functions).
+"""Llama-family decoder in PyTorch (plain dicts of tensors + functions):
+the training forward and the KV-cache forward of generation.
 
-Twin of `sparse_matrix_tuning_tpu.models.llama` (training path only):
+Twin of `sparse_matrix_tuning_tpu.models.llama` (per-layer params):
 RMSNorm, HF-convention rotary embeddings, grouped-query attention (the
-masked einsum, or the fused causal K3 kernel, ops/attention.py), SiLU
+masked einsum, the fused causal K3 kernel, ops/attention.py, or over the
+decode cache the K7 kernel, ops/cuda/cached_attention.py), SiLU
 gate/up/down MLP, optional Qwen2 QKV biases, untied or tied head.
 Parameters keep the JAX tree layout: {"embed_tokens", "norm", "lm_head",
 "layers": {"<i>": {module: (out, in) weight}}}, so both packages compute
@@ -16,6 +17,8 @@ the block-sparse autograd Function (ops/sparse_linear.py).
 
 from __future__ import annotations
 
+import os
+import warnings
 from dataclasses import dataclass
 from typing import Any, Dict, Mapping, Optional
 
@@ -26,6 +29,8 @@ from torch.utils.checkpoint import checkpoint
 
 from sparse_matrix_tuning_tpu_torch.ops.attention import fullk_attention
 from sparse_matrix_tuning_tpu_torch.ops.cuda.attention import HEAD_DIMS
+from sparse_matrix_tuning_tpu_torch.ops.cuda.cached_attention import (
+    HEAD_DIMS as CACHED_HEAD_DIMS, cached_attention, visible_slots)
 
 ATTN_TARGETS = ("q_proj", "k_proj", "v_proj")
 MLP_TARGETS = ("gate_proj", "up_proj", "down_proj")
@@ -349,6 +354,181 @@ def forward(params: Mapping[str, Any], input_ids: torch.Tensor, cfg: LlamaConfig
 
 def lm_head_weight(params: Mapping[str, Any], cfg: LlamaConfig) -> torch.Tensor:
     return params["embed_tokens"] if cfg.tie_word_embeddings else params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# KV-cache forward (generation)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: LlamaConfig, batch_size: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Per-layer K/V buffers {"<i>": {"k", "v"}}, each (B, Hkv, max_len, hd).
+
+    dtype torch.int8 gives the quantized layout: int8 k/v plus fp32
+    per-(slot, head) scales "ks"/"vs" of shape (B, Hkv, 1, max_len); new
+    slots are quantized at write time (_kv_write) and dequantized in the
+    attention. Zeros, never uninitialised memory: slots not written yet
+    are read (with probability 0) by P.V, and a NaN there poisons every
+    row."""
+    shape = (batch_size, cfg.num_key_value_heads, max_len, cfg.head_dim)
+    sshape = (batch_size, cfg.num_key_value_heads, 1, max_len)
+
+    def one():
+        if dtype == torch.int8:
+            return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "ks": torch.zeros(sshape, dtype=torch.float32, device=device),
+                    "vs": torch.zeros(sshape, dtype=torch.float32, device=device)}
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    return {str(i): one() for i in range(cfg.num_hidden_layers)}
+
+
+def cache_batch_axis(params: Mapping[str, Any]) -> int:
+    """Axis of the batch dim in KV-cache leaves (beam search reorders along
+    it): always 0, the port has no layer-stacked cache."""
+    return 0
+
+
+def _quant_kv(t: torch.Tensor):
+    """Symmetric per-(slot, head) int8 quantization of a K/V slice in cache
+    axes (B, Hkv, S_new, hd) -> (int8 values, fp32 scales (B, Hkv, 1, S_new))."""
+    t32 = t.float()
+    s = torch.clamp(t32.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-10)
+    return torch.round(t32 / s).to(torch.int8), s[..., 0][:, :, None, :]
+
+
+def _kv_write(kv: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor,
+              cache_index: int) -> Dict[str, torch.Tensor]:
+    """Write the new tokens' K/V (B, S_new, Hkv, hd) into slots
+    [cache_index, cache_index + S_new) of the layer's buffers, in place
+    (quantizing when the cache is int8). Returns kv."""
+    at = slice(cache_index, cache_index + k.shape[1])
+    k = k.transpose(1, 2)  # cache axes (B, Hkv, S_new, hd)
+    v = v.transpose(1, 2)
+    if "ks" in kv:
+        kv["k"][:, :, at], kv["ks"][..., at] = _quant_kv(k)
+        kv["v"][:, :, at], kv["vs"][..., at] = _quant_kv(v)
+    else:
+        kv["k"][:, :, at] = k
+        kv["v"][:, :, at] = v
+    return kv
+
+
+def _kv_read(kv: Mapping[str, torch.Tensor], q_dtype, x_dtype):
+    """The whole cache as (k_all, v_all) (B, Hkv, S, hd) for the einsum
+    attention, dequantized in q's / x's dtype for an int8 cache."""
+    k_all = kv["k"].to(q_dtype)
+    v_all = kv["v"].to(x_dtype)
+    if "ks" in kv:
+        k_all = k_all * kv["ks"][..., 0, :][..., None].to(q_dtype)
+        v_all = v_all * kv["vs"][..., 0, :][..., None].to(x_dtype)
+    return k_all, v_all
+
+
+def use_cached_attn(cfg: LlamaConfig, device) -> bool:
+    """Whether the cached attention runs K7 (twin of the JAX
+    _use_cached_attn), from SMT_CACHED_ATTN:
+
+    "off": the masked einsum. "on": K7 on CUDA tensors, its plain version
+    on CPU tensors (a head dim K7 does not take raises there). "auto"
+    (default): K7 on CUDA tensors whose head dim it takes (64, 128), the
+    einsum elsewhere, with a warning on CUDA.
+
+    Not carried over from the JAX rule: the 2048-slot threshold
+    (CACHED_ATTN_MIN_SLOTS, an A/B result of the TPU kernel's per-program
+    overhead) and supported()'s hd % 128 and max_len % 128 (Mosaic lane
+    tiling); K7 masks the ragged tail of S itself."""
+    mode = os.environ.get("SMT_CACHED_ATTN", "auto")
+    if mode == "off":
+        return False
+    if mode == "on":
+        return True
+    if mode == "auto":
+        if torch.device(device).type != "cuda":
+            return False
+        if cfg.head_dim in CACHED_HEAD_DIMS:
+            return True
+        warnings.warn(f"SMT_CACHED_ATTN=auto: K7 takes head_dim in {CACHED_HEAD_DIMS}, not "
+                      f"{cfg.head_dim}; the cached attention runs the masked einsum on "
+                      f"{device} (SMT_CACHED_ATTN=off selects it without this warning)",
+                      stacklevel=2)
+        return False
+    raise ValueError(f"SMT_CACHED_ATTN={mode!r}: want auto, on or off")
+
+
+def _cached_layer(lp: Mapping[str, torch.Tensor], x: torch.Tensor, kv, cache_index: int,
+                  mask_bias, cos, sin, cfg: LlamaConfig, linear, layer_idx: int,
+                  slot_mask: torch.Tensor):
+    """One decoder layer in incremental-decode form; returns (x, kv).
+    Attention runs K7 when mask_bias is None, else the masked einsum over
+    the dequantized cache."""
+    b, s_new, _ = x.shape
+    hd = cfg.head_dim
+    h = _rms_norm(x, lp["input_layernorm"], cfg.rms_norm_eps)
+    q = _lin(lp, h, "q_proj", linear, layer_idx).reshape(b, s_new, cfg.num_attention_heads, hd)
+    k = _lin(lp, h, "k_proj", linear, layer_idx).reshape(b, s_new, cfg.num_key_value_heads, hd)
+    v = _lin(lp, h, "v_proj", linear, layer_idx).reshape(b, s_new, cfg.num_key_value_heads, hd)
+    q = _apply_rope(q, cos, sin)
+    k = _apply_rope(k, cos, sin)
+    kv = _kv_write(kv, k, v, cache_index)
+
+    if mask_bias is None:
+        attn = cached_attention(q, kv, slot_mask, cache_index).to(x.dtype).reshape(b, s_new, -1)
+    else:
+        k_all, v_all = _kv_read(kv, q.dtype, x.dtype)
+        hkv = cfg.num_key_value_heads
+        qg = q.reshape(b, s_new, hkv, cfg.num_attention_heads // hkv, hd)
+        scores = torch.einsum("bqkgd,bksd->bkgqs", qg, k_all).float()
+        scores = scores / float(np.sqrt(hd)) + mask_bias[:, None, None, :, :]
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        attn = torch.einsum("bkgqs,bksd->bqkgd", probs, v_all).reshape(b, s_new, -1)
+    x = x + _lin(lp, attn, "o_proj", linear, layer_idx)
+
+    h = _rms_norm(x, lp["post_attention_layernorm"], cfg.rms_norm_eps)
+    gate = _lin(lp, h, "gate_proj", linear, layer_idx)
+    up = _lin(lp, h, "up_proj", linear, layer_idx)
+    x = x + _lin(lp, F.silu(gate) * up, "down_proj", linear, layer_idx)
+    return x, kv
+
+
+@torch.no_grad()
+def forward_with_cache(params: Mapping[str, Any], input_ids: torch.Tensor,
+                       cfg: LlamaConfig, cache, cache_index: int,
+                       slot_mask: torch.Tensor, positions: torch.Tensor,
+                       linear=default_linear, last_only: bool = False):
+    """Incremental forward: write K/V for `input_ids` (B, S_new) at slots
+    [cache_index, cache_index + S_new) of `cache` (in place), attend over
+    the whole cache gated by `slot_mask` (B, max_len; must already include
+    the new tokens' slots), with RoPE at per-example `positions` (B, S_new).
+    Returns (logits fp32, cache).
+
+    last_only=True emits logits for the last position only, (B, 1, V): the
+    prefill case (left padding puts the last real token last)."""
+    if "layers_q8" in params or "layers_stacked" in params:
+        raise NotImplementedError(
+            "forward_with_cache: int8/int4 scan decode params (layers_q8) need the int8 "
+            "frozen base and the scan state (ROADMAP slices 2 and 3), and the layer-"
+            "stacked form is not ported; pass per-layer params")
+    b, s_new = input_ids.shape
+    x = F.embedding(input_ids, params["embed_tokens"])
+    cos, sin = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+
+    mask_bias = None  # K7 computes visibility itself
+    if not use_cached_attn(cfg, input_ids.device):
+        # (B, S_new, max_len): 0 where visible, the finite fp32 minimum elsewhere
+        mask_bias = torch.where(visible_slots(slot_mask, cache_index, s_new), 0.0,
+                                torch.finfo(torch.float32).min)
+
+    for i in range(cfg.num_hidden_layers):
+        li = str(i)
+        x, cache[li] = _cached_layer(params["layers"][li], x, cache[li], cache_index,
+                                     mask_bias, cos, sin, cfg, linear, i, slot_mask)
+    if last_only:
+        x = x[:, -1:, :]
+    x = _rms_norm(x, params["norm"], cfg.rms_norm_eps)
+    return torch.matmul(x, lm_head_weight(params, cfg).t()).float(), cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,12 @@
-"""Build and load the port's CUDA kernels (csrc/*.cu) as one shared library.
+"""Build and load the port's CUDA kernels (csrc/*.cu, which include
+csrc/*.cuh) as one shared library.
 
 At first use, one `nvcc -c` per source, all started together, compiles
 the sources for sm_90a, and one more links them into
 build/torch_kernels/libsmt_kernels_<hash>.so, where <hash> covers the
-sources and the flags, so an edit rebuilds and an unchanged tree reuses
-the library. The kernels export a plain C interface (no
-PyTorch headers, so the build takes seconds); `load()` binds it with
+sources, their headers and the flags, so an edit rebuilds and an
+unchanged tree reuses the library. The kernels export a plain C interface
+(no PyTorch headers, so the build takes seconds); `load()` binds it with
 ctypes. Nothing here runs at import time.
 """
 
@@ -43,6 +44,9 @@ SIGNATURES = {
     "smt_attn_bwd_dkdv": (P, P, P, P, P, P, P, P, I, I, I, I, I, F, I, P),
     # q, k, v, do, lse, delta, dq, B, S, Hq, Hkv, hd, sm_scale, dtype, stream
     "smt_attn_bwd_dq": (P, P, P, P, P, P, P, I, I, I, I, I, F, I, P),
+    # q, k, v, ks, vs, slot_mask, o, B, T, S, Hq, Hkv, hd, cache_index,
+    # sm_scale, q dtype, cache dtype (2 = int8), stream
+    "smt_cached_attn": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -67,7 +71,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libsmt_kernels_{h.hexdigest()[:16]}.so"

@@ -245,6 +245,13 @@ class SMTTrainer:
         dt = self.cfg.param_dtype
         return tree_map(lambda p: p.detach().to(dt, copy=True), self.state["master"])
 
+    def decode_params(self):
+        """Params for eval/generate.generate: the exact merged dense params
+        (the JAX trainer decodes scan+int8 states from the int8 base
+        instead; the port has neither yet)."""
+        from sparse_matrix_tuning_tpu_torch.eval.generate import prepare_decode_params
+        return prepare_decode_params(self.merged_params(), self.model_cfg)
+
     def _log_metrics(self, step: int, metrics: Dict):
         """One JSON line per step into {output_dir}/metrics.jsonl."""
         if not self.cfg.output_dir:

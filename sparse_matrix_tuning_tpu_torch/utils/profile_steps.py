@@ -1,13 +1,19 @@
-"""Profile one warm-up and one sparse training step on a CUDA device.
+"""Profile one warm-up and one sparse training step, and one prefill and
+one decode step of the generation eval, on a CUDA device.
 
     python -m sparse_matrix_tuning_tpu_torch.utils.profile_steps
 
-TinyLlama-1.1B geometry (random weights from a seed, synthetic batches,
-bs 4 x seq 512, bf16, remat, attention "auto": the K3 kernels on the
-card), the trainer's own steps: each phase's step is timed three times
-unprofiled (median), then once under torch.profiler, which gives the
+TinyLlama-1.1B geometry, random weights from a seed, bf16. Training: the
+trainer's own steps on synthetic batches, bs 4 x seq 512, remat, attention
+"auto" (the K3 kernels on the card); each phase's step is timed three
+times unprofiled (median), then once under torch.profiler, which gives the
 device's busy time (summed kernel time), its idle share, and the ops and
-kernels with the most device time.
+kernels with the most device time. Decode: eval/generate.generate with the
+eval CLI's settings (beam-4, repetition penalty 1.1, bf16 cache, attention
+through K7) on 16 prompts left-padded to 256 tokens; a call with one new
+token is the prefill (and one beam selection), and a call with 1 +
+DECODE_STEPS new tokens adds DECODE_STEPS decode steps, so a decode step is
+the difference over DECODE_STEPS.
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ from torch.autograd import DeviceType
 
 BS, SEQ, TOP = 4, 512, 25
 TIMED = 3  # unprofiled steps per phase, before the profiled one
+EVAL_BATCH, PROMPT = 16, 256  # the eval CLI's batch, the 256-token prompt bucket
+DECODE_STEPS = 8
 FULL_FT_STEPS = 2 + TIMED + 1
 
 
@@ -31,36 +39,86 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _profile_step(trainer, batches, label):
-    """Time batches[:-1] unprofiled, then profile batches[-1]."""
+def _wall_ms(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _profiled(fn):
+    """fn() once under torch.profiler: (wall ms, device busy ms, kernel
+    launches, kernel rows, op rows). Kernel rows carry the device time; op
+    rows repeat it as the time of the kernels they launched, so each is
+    summed on its own."""
     from torch.profiler import ProfilerActivity, profile
-    walls = []
-    for b in batches[:-1]:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        float(trainer.train_step(b)["loss"])
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    print(f"[profile] {label}: wall {statistics.median(walls):.1f} ms median of "
-          f"{[round(w, 1) for w in walls]} (not profiled)", flush=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        float(trainer.train_step(batches[-1])["loss"])
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = _wall_ms(fn)
     events = prof.key_averages()
-    # kernel rows carry the device time; op rows repeat it as the time of
-    # the kernels they launched, so each is summed on its own
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     ops = [e for e in events if e.device_type == DeviceType.CPU and _device_us(e) > 0]
     busy_ms = sum(_device_us(e) for e in kernels) / 1e3
-    print(f"[profile] {label}: wall {wall_ms:.1f} ms (profiled), device busy "
-          f"{busy_ms:.1f} ms in {sum(e.count for e in kernels)} kernels, idle share "
-          f"{max(0.0, 1 - busy_ms / wall_ms):.3f}", flush=True)
-    for kind, rows in (("op", ops), ("kernel", kernels)):
+    return wall_ms, busy_ms, sum(e.count for e in kernels), kernels, ops
+
+
+def _print_top(label, rows_by_kind):
+    for kind, rows in rows_by_kind:
         for e in sorted(rows, key=_device_us, reverse=True)[:TOP]:
             print(f"[profile] {label} {kind:6s} {_device_us(e) / 1e3:9.3f} ms "
                   f"{e.count:6d}x  {e.key[:100]}", flush=True)
+
+
+def _profile_step(trainer, batches, label):
+    """Time batches[:-1] unprofiled, then profile batches[-1]."""
+    walls = [_wall_ms(lambda b=b: float(trainer.train_step(b)["loss"])) for b in batches[:-1]]
+    print(f"[profile] {label}: wall {statistics.median(walls):.1f} ms median of "
+          f"{[round(w, 1) for w in walls]} (not profiled)", flush=True)
+    wall_ms, busy_ms, n, kernels, ops = _profiled(
+        lambda: float(trainer.train_step(batches[-1])["loss"]))
+    print(f"[profile] {label}: wall {wall_ms:.1f} ms (profiled), device busy "
+          f"{busy_ms:.1f} ms in {n} kernels, idle share "
+          f"{max(0.0, 1 - busy_ms / wall_ms):.3f}", flush=True)
+    _print_top(label, (("op", ops), ("kernel", kernels)))
+
+
+def profile_decode(model_cfg, device):
+    """The decode leg (module docstring)."""
+    from sparse_matrix_tuning_tpu_torch.eval.generate import GenerationConfig, generate
+    from sparse_matrix_tuning_tpu_torch.models.llama import init_params
+    from sparse_matrix_tuning_tpu_torch.ops.cuda import cached_attention as k7
+
+    params = init_params(model_cfg, seed=0, dtype=torch.bfloat16, device=device)
+    rng = np.random.default_rng(1)
+    ids = np.zeros((EVAL_BATCH, PROMPT), np.int32)
+    mask = np.zeros_like(ids)
+    for i, n in enumerate(rng.integers(60, PROMPT + 1, EVAL_BATCH)):
+        ids[i, PROMPT - n:] = rng.integers(3, model_cfg.vocab_size, n)
+        mask[i, PROMPT - n:] = 1
+
+    def run(new_tokens):
+        gen = GenerationConfig(max_new_tokens=new_tokens, num_beams=4, repetition_penalty=1.1)
+        return lambda: generate(params, model_cfg, ids, mask, gen, device=device)
+
+    n = 1 + DECODE_STEPS
+    run(n)()  # warm-up
+    walls = {m: statistics.median(_wall_ms(run(m)) for _ in range(TIMED)) for m in (1, n)}
+    launches0 = dict(k7.LAUNCHES)
+    p1 = _profiled(run(1))
+    pn = _profiled(run(n))
+    k7_launches = k7.LAUNCHES["cached_attn"] - launches0["cached_attn"]
+    print(f"[profile] decode: {torch.cuda.get_device_name(0)}, TinyLlama-1.1B geometry, "
+          f"{EVAL_BATCH} prompts x 4 beams, prompt bucket {PROMPT}, bf16 cache, K7", flush=True)
+    print(f"[profile] prefill (+ one beam selection): wall {walls[1]:.1f} ms not profiled "
+          f"(median of {TIMED}), {p1[0]:.1f} ms profiled; device busy {p1[1]:.2f} ms in "
+          f"{p1[2]} kernels, idle share {max(0.0, 1 - p1[1] / p1[0]):.3f}", flush=True)
+    step = [(a - b) / DECODE_STEPS for a, b in zip(pn[:3], p1[:3])]
+    wall = (walls[n] - walls[1]) / DECODE_STEPS
+    print(f"[profile] decode step: wall {wall:.1f} ms not profiled, {step[0]:.1f} ms "
+          f"profiled; device busy {step[1]:.2f} ms in {step[2]:.0f} kernels, idle share "
+          f"of the unprofiled wall {max(0.0, 1 - step[1] / wall):.3f}; K7 launches over the "
+          f"two profiled calls {k7_launches}", flush=True)
+    _print_top(f"generate({n} new tokens)", (("kernel", pn[3]),))
 
 
 def main():
@@ -105,6 +163,9 @@ def main():
     if trainer.phase != "sparse":
         raise RuntimeError("the trainer did not convert")
     _profile_step(trainer, [batch() for _ in range(TIMED + 1)], "sparse_step")
+    del trainer
+    torch.cuda.empty_cache()
+    profile_decode(model_cfg, device)
 
 
 if __name__ == "__main__":

@@ -80,7 +80,8 @@ def test_kernel_sources_export_the_bound_entry_points():
     same parameters (pointers, int, float), and the library path is keyed
     by the sources (an edit rebuilds)."""
     srcs = {p.name: p.read_text() for p in _build.sources()}
-    assert set(srcs) == {"attention.cu", "block_grad.cu", "masked_adam.cu"}
+    assert set(srcs) == {"attention.cu", "block_grad.cu", "cached_attention.cu",
+                         "masked_adam.cu"}
     text = "\n".join(srcs.values())
     for name, argtypes in _build.SIGNATURES.items():
         m = re.search(rf'extern "C" int {name}\(([^)]*)\)', text)
@@ -93,3 +94,15 @@ def test_kernel_sources_export_the_bound_entry_points():
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR and path == _build.library_path()
+
+
+def test_library_path_is_keyed_by_the_shared_header(tmp_path, monkeypatch):
+    """csrc/tiles.cuh is compiled into attention.cu and cached_attention.cu:
+    an edit to it must rebuild the library too."""
+    for p in sorted(_build.CSRC.glob("*.cu")) + sorted(_build.CSRC.glob("*.cuh")):
+        (tmp_path / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path()
+    header = tmp_path / "tiles.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build.library_path() != before

@@ -16,6 +16,7 @@ from sparse_matrix_tuning_tpu_torch.config import SMTConfig
 from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig, init_params
 from sparse_matrix_tuning_tpu_torch.ops import sparse_linear
 from sparse_matrix_tuning_tpu_torch.ops.cuda import block_grad as k1
+from sparse_matrix_tuning_tpu_torch.ops.cuda import cached_attention as k7
 from sparse_matrix_tuning_tpu_torch.ops.cuda import masked_adam as k2
 from sparse_matrix_tuning_tpu_torch.smt.plan import LinearPlan, SMTPlan
 from sparse_matrix_tuning_tpu_torch.train.trainer import SMTTrainer
@@ -89,3 +90,9 @@ def test_wrappers_refuse_devices_without_a_kernel():
     blk = torch.empty((1, 256, 256), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         k2.masked_adam(blk, blk, blk, blk, torch.empty(7, device="meta"))
+    q = torch.empty((2, 1, 8, 64), device="meta")
+    cache = torch.empty((2, 4, 16, 64), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        k7.cached_attention(q, {"k": cache, "v": cache},
+                            torch.ones((2, 16), dtype=torch.int32, device="meta"), 3)
+    assert k7.LAUNCHES == {"cached_attn": 0, "cached_attn_q8": 0}
