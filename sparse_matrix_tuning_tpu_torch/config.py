@@ -9,9 +9,14 @@ paths this port implements:
   attn_impl     auto -> "fullk" (the K3 attention kernels) for CUDA tensors
                 with head_dim 64 or 128, "einsum" otherwise; "flash" runs
                 fullk (resolved per call in models/llama.py)
-  frozen_quant  auto -> "none";  head_quant auto -> "none"
+  frozen_quant  auto -> "none" (int8, the K4/K5 kernels, only on request,
+                until a measurement on the card says it pays)
+  head_quant    auto -> "int8" iff frozen_quant is int8, else "none"
   scan_layers   auto -> "off"  (eager loop over layers)
-  loss_impl     auto -> "full" (materialised fp32 logits)
+  loss_impl     stays "auto": resolved per phase in train/steps.py
+                (_use_chunked_loss), chunked in the warm-up at a
+                vocabulary >= 16384, full in the sparse phase while the
+                fp32 logits fit 2 GiB
 
 Options whose implementation has not been ported raise NotImplementedError
 when the config is built; none of them silently runs another path.
@@ -135,26 +140,19 @@ class SMTConfig:
         _check_choice("loss_impl", self.loss_impl, ("full", "chunked", "auto"))
         self._refuse_unported()
         # resolve the "auto" policies to what this port implements
-        # (attn_impl stays "auto": models/llama.py resolves it per call)
+        # (attn_impl and loss_impl stay "auto": models/llama.py resolves the
+        # one per call, train/steps.py the other per phase)
         if self.frozen_quant == "auto":
             self.frozen_quant = "none"
         if self.head_quant == "auto":
-            self.head_quant = "none"
+            self.head_quant = "int8" if self.frozen_quant == "int8" else "none"
         if self.scan_layers == "auto":
             self.scan_layers = "off"
-        if self.loss_impl == "auto":
-            self.loss_impl = "full"
 
     def _refuse_unported(self):
         unported = []
-        if self.frozen_quant == "int8":
-            unported.append("frozen_quant=int8 (int8 frozen base)")
-        if self.head_quant == "int8":
-            unported.append("head_quant=int8 (int8 lm-head)")
         if self.scan_layers == "on":
             unported.append("scan_layers=on (the port loops over layers eagerly)")
-        if self.loss_impl == "chunked":
-            unported.append("loss_impl=chunked (ops/loss.py)")
         if self.channel_sparsity:
             unported.append("--channel_sparsity (channel mode)")
         if self.dtype == "fp16":
@@ -265,7 +263,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    choices=["none", "int8", "auto"])
     p.add_argument("--no_frozen_host_offload", dest="frozen_host_offload",
                    action="store_false")
-    p.add_argument("--head_quant", type=str, default=d.head_quant,
+    # "auto", not the resolved default of d: it follows --frozen_quant
+    p.add_argument("--head_quant", type=str, default="auto",
                    choices=["none", "int8", "auto"])
     p.add_argument("--scan_layers", type=str, default=d.scan_layers,
                    choices=["off", "on", "auto"])

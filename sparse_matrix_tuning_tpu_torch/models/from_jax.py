@@ -4,8 +4,9 @@
 ml_dtypes.bfloat16, e.g. `jax.tree.map(np.asarray, params)`) and returns
 the port's param dict with the same layout, so both packages compute the
 same thing on the same weights; `cache_from_jax` does the same for a
-decode KV cache. `plan_from_jax` reads an `SMTPlan.to_json()`. None of
-them imports jax.
+decode KV cache, and `qstate_from_jax` for the int8 frozen base of a
+converted state. `plan_from_jax` reads an `SMTPlan.to_json()`. None of them
+imports jax.
 """
 
 from __future__ import annotations
@@ -46,6 +47,14 @@ def cache_from_jax(cache, device=None) -> Dict[str, Any]:
     (B, Hkv, S, hd) K/V and (B, Hkv, 1, S) scales, dtypes kept (int8
     included), so both packages can decode from one cache."""
     return params_from_jax(cache, device=device)
+
+
+def qstate_from_jax(state, device=None) -> Dict[str, Any]:
+    """The int8 frozen base of a JAX sparse state (as numpy arrays) -> the
+    port's: {"q": {"{layer}.{module}": {"wq" int8, "sw" fp32[, "base"
+    fp32]}}, "q_head": {"wq", "sw"}}, whichever of the two keys the state
+    has, dtypes kept (params_from_jax with a dtype would cast the int8)."""
+    return {k: params_from_jax(state[k], device=device) for k in ("q", "q_head") if k in state}
 
 
 def plan_from_jax(plan) -> SMTPlan:

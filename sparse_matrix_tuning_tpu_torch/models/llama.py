@@ -305,8 +305,11 @@ def forward(params: Mapping[str, Any], input_ids: torch.Tensor, cfg: LlamaConfig
             linear=default_linear,
             remat: bool = True,
             stop_grad_below_layer: Optional[int] = None,
-            attn_impl: str = "einsum") -> torch.Tensor:
-    """Run the decoder; returns logits (B, S, V) in fp32.
+            attn_impl: str = "einsum",
+            return_hidden: bool = False) -> torch.Tensor:
+    """Run the decoder; returns logits (B, S, V) in fp32, or with
+    return_hidden the final normed states (B, S, D) before the head (for
+    the chunked-vocab loss and the int8 head).
 
     attn_impl: "einsum" | "fullk" | "flash" | "auto", resolved per call
     from the ids' device and the head dim (resolve_attn_impl).
@@ -348,6 +351,8 @@ def forward(params: Mapping[str, Any], input_ids: torch.Tensor, cfg: LlamaConfig
             x = _decoder_layer(lp, x, mask_bias, cos, sin, cfg, linear, i, attn_impl)
 
     x = _rms_norm(x, params["norm"], cfg.rms_norm_eps)
+    if return_hidden:
+        return x
     head = lm_head_weight(params, cfg)
     return torch.matmul(x, head.t()).float()
 

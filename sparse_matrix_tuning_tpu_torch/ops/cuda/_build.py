@@ -47,6 +47,13 @@ SIGNATURES = {
     # q, k, v, ks, vs, slot_mask, o, B, T, S, Hq, Hkv, hd, cache_index,
     # sm_scale, q dtype, cache dtype (2 = int8), stream
     "smt_cached_attn": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, P),
+    # xq, sx, wq, sw, out, T, O, K, out dtype, stream
+    "smt_q8mm_t": (P, P, P, P, P, I, I, I, I, P),
+    # gq, sg, wq, out, T, O, K, out dtype, stream
+    "smt_q8mm_g": (P, P, P, P, I, I, I, I, P),
+    # out, src, delta, run_o, run_start, run_j, idx_in, T, O, I, runs,
+    # transpose, dtype, stream
+    "smt_block_correction": (P, P, P, P, P, P, P, I, I, I, I, I, I, P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

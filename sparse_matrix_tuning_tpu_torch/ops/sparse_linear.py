@@ -11,6 +11,20 @@ fp32) — twin of `sparse_matrix_tuning_tpu.ops.sparse_linear.smt_linear`.
   * grad-blocks implementations: "kernel" (K1, ops/cuda/block_grad.py, on
     CUDA tensors) or "oracle" (its plain PyTorch version); "auto" picks by
     the tensor's device.
+
+Over an int8 frozen base (`smt_linear_q8`, `frozen_q8_linear`; twins of
+the JAX functions of the same names) the dense weight is quantized once
+(ops/quant.py) and the sparse phase computes
+
+    y      = q8(x) @ Wq.T * sx * sw  +  sum_j  x[:, cb_j] @ delta_j.T
+    grad_x = q8(g*sw) @ Wq * sg      +  sum_j  g[:, rb_j] @ delta_j
+    delta_j = blocks_j - base_j,   base_j = dequant(Wq)[rb_j, cb_j]
+
+so the SELECTED blocks see zero quantization error (W_eff[rb, cb] =
+blocks exactly) and only the frozen rest carries int8 noise. The base
+products are K4 (ops/cuda/q8_matmul.py), both corrections K5
+(ops/cuda/correction.py), each on CUDA tensors, their plain versions on
+CPU tensors; the block gradient is the same K1 formula as above.
 """
 
 from __future__ import annotations
@@ -21,6 +35,9 @@ import torch
 
 from sparse_matrix_tuning_tpu_torch.ops.cuda.block_grad import (
     block_grad, block_grad_plain as _block_grad_weight_plain)
+from sparse_matrix_tuning_tpu_torch.ops.cuda.correction import (
+    CorrectionSchedule, block_correction)
+from sparse_matrix_tuning_tpu_torch.ops.quant import q8_matmul, q8_matmul_t
 from sparse_matrix_tuning_tpu_torch.smt.plan import LinearPlan, key_str
 
 
@@ -39,6 +56,14 @@ def _resolve_impl(impl: str, device) -> str:
     raise ValueError(f"unknown sparse_impl {impl!r}")
 
 
+def _grad_blocks(g, x, rb, cb, impl: str, dtype) -> torch.Tensor:
+    """grad_blocks[j] = g[:, rb_j]^T @ x[:, cb_j], (n, 256, 256) in `dtype`."""
+    g2 = g.reshape(-1, g.shape[-1]).contiguous()
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    fn = block_grad if impl == "kernel" else _block_grad_weight_plain
+    return fn(g2, x2, rb, cb).to(dtype)
+
+
 class _SMTLinear(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, blocks, w, rb, cb, impl: str):
@@ -53,13 +78,7 @@ class _SMTLinear(torch.autograd.Function):
         grad_x = torch.matmul(g, w) if ctx.needs_input_grad[0] else None
         grad_blocks = None
         if ctx.needs_input_grad[1]:
-            g2 = g.reshape(-1, g.shape[-1]).contiguous()
-            x2 = x.reshape(-1, x.shape[-1]).contiguous()
-            if ctx.impl == "kernel":
-                grad_blocks = block_grad(g2, x2, rb, cb)
-            else:
-                grad_blocks = _block_grad_weight_plain(g2, x2, rb, cb)
-            grad_blocks = grad_blocks.to(ctx.blocks_dtype)
+            grad_blocks = _grad_blocks(g, x, rb, cb, ctx.impl, ctx.blocks_dtype)
         return grad_x, grad_blocks, None, None, None, None
 
 
@@ -80,19 +99,108 @@ def smt_linear(x: torch.Tensor, blocks: torch.Tensor, w: torch.Tensor,
     return _SMTLinear.apply(x, blocks, w, rb, cb, impl)
 
 
+# ---------------------------------------------------------------------------
+# Matrix sparsity over an int8 frozen base
+# ---------------------------------------------------------------------------
+
+class _SMTLinearQ8(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, blocks, wq, sw, base, rb, cb, fwd_sched, bwd_sched, impl: str):
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        y2 = q8_matmul_t(x2, wq, sw)                      # (T, O), a new tensor
+        delta = (blocks - base).to(x.dtype)               # (n, 256, 256)
+        # y[:, rb] += x[:, cb] @ delta.T, in place
+        block_correction(y2, x2, delta, fwd_sched, transpose=True)
+        ctx.save_for_backward(x, wq, sw, delta, rb, cb)
+        ctx.bwd_sched = bwd_sched
+        ctx.impl = impl
+        ctx.blocks_dtype = blocks.dtype
+        return y2.reshape(*x.shape[:-1], wq.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wq, sw, delta, rb, cb = ctx.saved_tensors
+        grad_x = grad_blocks = None
+        if ctx.needs_input_grad[0]:
+            g2 = g.reshape(-1, g.shape[-1]).contiguous()
+            gx2 = q8_matmul(g2, wq, sw)                   # (T, I), a new tensor
+            # grad_x[:, cb] += g[:, rb] @ delta, in place
+            block_correction(gx2, g2, delta, ctx.bwd_sched)
+            grad_x = gx2.reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            grad_blocks = _grad_blocks(g, x, rb, cb, ctx.impl, ctx.blocks_dtype)
+        return grad_x, grad_blocks, None, None, None, None, None, None, None, None
+
+
+def smt_linear_q8(x: torch.Tensor, blocks: torch.Tensor, wq: torch.Tensor,
+                  sw: torch.Tensor, base_blocks: torch.Tensor, lp: LinearPlan,
+                  impl: str = "auto",
+                  index: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                  schedules: Optional[Tuple[CorrectionSchedule, CorrectionSchedule]] = None
+                  ) -> torch.Tensor:
+    """Block-sparse linear over an int8 frozen base (module notes).
+
+    wq (O, I) int8, sw (O,) fp32, base_blocks (n, 256, 256) fp32: the
+    dequantized frozen values of the selected blocks; all three frozen (no
+    gradient). index / schedules: the plan's cached (rb, cb) int32 tensors
+    and K5 schedules on x's device (built from lp when omitted)."""
+    impl = _resolve_impl(impl, x.device)
+    if index is None:
+        index = (torch.as_tensor(lp.row_blocks(), device=x.device),
+                 torch.as_tensor(lp.col_blocks(), device=x.device))
+    if schedules is None:
+        schedules = lp.q8_schedules(x.device)
+    return _SMTLinearQ8.apply(x, blocks, wq, sw, base_blocks, *index, *schedules, impl)
+
+
+class _FrozenQ8Linear(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, wq, sw):
+        ctx.save_for_backward(wq, sw)
+        return q8_matmul_t(x, wq, sw)
+
+    @staticmethod
+    def backward(ctx, g):
+        wq, sw = ctx.saved_tensors
+        return (q8_matmul(g, wq, sw) if ctx.needs_input_grad[0] else None), None, None
+
+
+def frozen_q8_linear(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor) -> torch.Tensor:
+    """y = x @ dequant(Wq).T for a fully-frozen linear (no selected blocks,
+    e.g. o_proj, or the lm-head): int8 forward, int8 grad_input, no weight
+    gradient. Straight-through: autograd through round/clip would give zero
+    input gradients."""
+    return _FrozenQ8Linear.apply(x, wq, sw)
+
+
+# ---------------------------------------------------------------------------
+# Model dispatch
+# ---------------------------------------------------------------------------
+
 def make_sparse_linear_dispatch(plan, trainable: Mapping[str, torch.Tensor],
-                                impl: str = "auto"):
+                                impl: str = "auto", qweights=None):
     """The `linear(x, w, module, layer)` hook for models.llama.forward:
     planned linears compute through smt_linear, everything else is a plain
-    dense matmul."""
+    dense matmul.
+
+    qweights (int8 frozen base): {"{layer}.{module}": {"wq", "sw"[,
+    "base"]}} for every layer linear; planned linears then run the
+    block-corrected q8 path, unplanned frozen ones the plain q8 path, and
+    `w` is not read (it may be the offloaded weight's placeholder)."""
     if plan.mode != "matrix":
         raise NotImplementedError(f"plan mode {plan.mode!r}: only matrix mode is ported")
 
     def linear(x, w, module: str, layer_idx: int):
         ks = key_str(module, layer_idx)
         lp = plan.linears.get(ks)
+        qw = qweights.get(ks) if qweights is not None else None
         if lp is None:
+            if qw is not None:
+                return frozen_q8_linear(x, qw["wq"], qw["sw"])
             return torch.matmul(x, w.t())
-        return smt_linear(x, trainable[ks], w, lp, impl,
-                          index=plan.block_index(ks, x.device, torch.int32))
+        index = plan.block_index(ks, x.device, torch.int32)
+        if qw is not None:
+            return smt_linear_q8(x, trainable[ks], qw["wq"], qw["sw"], qw["base"], lp, impl,
+                                 index=index, schedules=plan.q8_schedules(ks, x.device))
+        return smt_linear(x, trainable[ks], w, lp, impl, index=index)
     return linear

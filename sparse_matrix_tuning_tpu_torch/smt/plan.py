@@ -79,13 +79,22 @@ class LinearPlan:
     def col_blocks(self) -> np.ndarray:
         return np.array([cb for _, cb in self.blocks], dtype=np.int32)
 
+    def q8_schedules(self, device):
+        """The block-correction schedules of the int8 path on `device`
+        (ops/cuda/correction.py): forward (out = row block, in = column
+        block) and grad_input (the other way round)."""
+        from sparse_matrix_tuning_tpu_torch.ops.cuda.correction import correction_schedule
+        rb, cb = self.row_blocks(), self.col_blocks()
+        return correction_schedule(rb, cb, device), correction_schedule(cb, rb, device)
+
 
 @dataclass
 class SMTPlan:
     """mode: 'matrix' (256x256 blocks) or 'channel' (input channels)."""
     mode: str
     linears: Dict[str, LinearPlan] = field(default_factory=dict)
-    # (key, device) -> (rb, cb) int64 index tensors, built once per plan
+    # (key, device, kind) -> (rb, cb) index tensors or the int8 path's
+    # correction schedules, built once per plan
     _index_cache: Dict = field(default_factory=dict, repr=False, compare=False)
 
     # -- construction ---------------------------------------------------------
@@ -137,6 +146,15 @@ class SMTPlan:
             self._index_cache[cache_key] = idx
         return idx
 
+    def q8_schedules(self, ks: str, device):
+        """LinearPlan.q8_schedules of linear `ks` on `device`, built once
+        per plan."""
+        cache_key = (ks, str(torch.device(device)), "q8_schedules")
+        sched = self._index_cache.get(cache_key)
+        if sched is None:
+            sched = self._index_cache[cache_key] = self.linears[ks].q8_schedules(device)
+        return sched
+
     def _check_matrix(self):
         if self.mode != "matrix":
             raise NotImplementedError(
@@ -160,10 +178,14 @@ class SMTPlan:
     @torch.no_grad()
     def scatter(self, layer_params, trainable: Mapping[str, torch.Tensor]):
         """Write trainable values back into the dense weights, in place.
-        Returns layer_params (the same dicts and tensors)."""
+        Returns layer_params (the same dicts and tensors). A weight that
+        left the device (train/convert.py offload_frozen_to_host leaves a
+        1-element placeholder) is skipped: nothing to keep current."""
         self._check_matrix()
         for ks, lp in self.linears.items():
             w = layer_params[str(lp.layer)][lp.module]
+            if w.dim() != 2:
+                continue
             w4 = w.view(lp.out_dim // BLOCK, BLOCK, lp.in_dim // BLOCK, BLOCK)
             rb, cb = self.block_index(ks, w.device)
             w4[rb, :, cb, :] = trainable[ks].to(w.dtype)

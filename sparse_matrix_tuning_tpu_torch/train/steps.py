@@ -17,18 +17,20 @@ return it with a dict of 0-dim metric tensors; nothing waits on the device.
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
 from sparse_matrix_tuning_tpu_torch.config import SMTConfig
 from sparse_matrix_tuning_tpu_torch.models.llama import (
     ATTN_TARGETS, TARGET_MODULES, LlamaConfig, causal_lm_loss, default_linear,
-    flatten_tree, forward, tree_map,
+    flatten_tree, forward, lm_head_weight, tree_map,
 )
 from sparse_matrix_tuning_tpu_torch.ops.cuda.masked_adam import masked_adam
+from sparse_matrix_tuning_tpu_torch.ops.loss import (
+    chunked_causal_lm_loss, chunked_causal_lm_loss_q8)
 from sparse_matrix_tuning_tpu_torch.ops.sparse_linear import (
-    _resolve_impl, make_sparse_linear_dispatch)
+    _resolve_impl, frozen_q8_linear, make_sparse_linear_dispatch)
 from sparse_matrix_tuning_tpu_torch.smt.optimizer import (
     AdamConfig, adam_step, clip_by_global_norm, full_ft_wd_mask,
     make_qk_lr_scale,
@@ -74,15 +76,57 @@ def accumulated_value_and_grad(loss_of, accum_steps: int):
     return vag
 
 
+# fp32 logits budget for the "auto" loss policy in the sparse phase: what
+# the dense CE keeps for its backward.
+_SPARSE_DENSE_LOSS_BUDGET = 2 * 1024**3
+
+
+def _use_chunked_loss(cfg: SMTConfig, model_cfg: LlamaConfig, sparse: bool = False,
+                      batch_tokens: Optional[int] = None) -> bool:
+    """Loss-path policy (the JAX twin's). The chunked form (ops/loss.py)
+    never materialises the (T, V) fp32 logits but recomputes each chunk's
+    logits in its backward. Memory-tight phases (the full-FT warm-up at a
+    large vocabulary) take it; the SPARSE phase's live set is small, so
+    when the logits fit the budget the dense form's fewer operations win."""
+    if cfg.loss_impl == "chunked":
+        return True
+    if cfg.loss_impl == "full":
+        return False
+    if sparse and batch_tokens is not None:
+        return batch_tokens * model_cfg.vocab_size * 4 > _SPARSE_DENSE_LOSS_BUDGET
+    return model_cfg.vocab_size >= 16384  # "auto"
+
+
 def compute_loss(params, batch, cfg: SMTConfig, model_cfg: LlamaConfig,
-                 linear=None, remat=True, stop_grad_below_layer=None):
-    """Full logits + CE (the only loss path ported; loss_impl resolves to
-    "full")."""
-    logits = forward(params, batch["input_ids"], model_cfg,
-                     attention_mask=batch.get("attention_mask"),
-                     linear=linear or default_linear, remat=remat,
-                     stop_grad_below_layer=stop_grad_below_layer,
-                     attn_impl=cfg.attn_impl)
+                 linear=None, remat=True, stop_grad_below_layer=None,
+                 sparse=False, q_head=None):
+    """Shared loss path of all steps: full logits + CE, or the chunked-vocab
+    CE (ops/loss.py), by the _use_chunked_loss policy (sparse-phase steps
+    pass sparse=True).
+
+    q_head: optional {"wq" int8 (V, D), "sw" fp32 (V,)} frozen int8 lm-head
+    (train/convert.py build_q_head): the head matmul is then K4 in BOTH
+    loss forms (the head is frozen in the sparse phase: int8 forward,
+    straight-through int8 grad_hidden, no weight gradient), dense via
+    frozen_q8_linear over the full logits, chunked via
+    chunked_causal_lm_loss_q8."""
+    kw = dict(attention_mask=batch.get("attention_mask"),
+              linear=linear or default_linear, remat=remat,
+              stop_grad_below_layer=stop_grad_below_layer, attn_impl=cfg.attn_impl)
+    b, sq = batch["input_ids"].shape
+    if _use_chunked_loss(cfg, model_cfg, sparse=sparse, batch_tokens=b * (sq - 1)):
+        hidden = forward(params, batch["input_ids"], model_cfg, return_hidden=True, **kw)
+        if q_head is not None:
+            return chunked_causal_lm_loss_q8(hidden, q_head["wq"], q_head["sw"],
+                                             batch["labels"], cfg.vocab_chunk)
+        return chunked_causal_lm_loss(hidden, lm_head_weight(params, model_cfg),
+                                      batch["labels"], cfg.vocab_chunk)
+    if q_head is not None:
+        hidden = forward(params, batch["input_ids"], model_cfg, return_hidden=True, **kw)
+        # fp32 input -> fp32 logits straight from the int32 product
+        logits = frozen_q8_linear(hidden.float(), q_head["wq"], q_head["sw"])
+        return causal_lm_loss(logits, batch["labels"])
+    logits = forward(params, batch["input_ids"], model_cfg, **kw)
     return causal_lm_loss(logits, batch["labels"])
 
 
@@ -258,10 +302,11 @@ def build_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan,
         impl = _resolve_impl(cfg.sparse_impl, device)
 
         def loss_of(tr, mb):
-            linear = make_sparse_linear_dispatch(plan, tr, impl)
+            linear = make_sparse_linear_dispatch(plan, tr, impl, qweights=state.get("q"))
             return compute_loss(params, mb, cfg, model_cfg, linear=linear,
                                 remat=cfg.sparse_remat,
-                                stop_grad_below_layer=lowest_layer)
+                                stop_grad_below_layer=lowest_layer, sparse=True,
+                                q_head=state.get("q_head"))
 
         vag = accumulated_value_and_grad(loss_of, cfg.gradient_accumulation_steps)
         loss, grads = vag(trainable, batch)
@@ -285,7 +330,8 @@ def build_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan,
             for p in trainable.values():
                 p.grad = None
             # scatter-at-update: the dense weights absorb the new block values
-            # once per step, in place
+            # once per step, in place (weights offloaded to the host are
+            # skipped: the int8 path reads the trainable blocks directly)
             plan.scatter(params["layers"], trainable)
             state["step"].add_(1)
         return state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
@@ -317,18 +363,29 @@ def _fused_block_adam_update(grads, opt_state, trainable, lr, adam_cfg,
 # Eval loss
 # ---------------------------------------------------------------------------
 
-def build_eval_step(cfg: SMTConfig, model_cfg: LlamaConfig) -> Callable:
+def build_eval_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan=None) -> Callable:
     """Forward-only loss (reference helpers/helper.py:210-245). In the
     sparse phase the dense weights already contain the current block values
-    (scatter-at-update), so eval is a plain dense forward."""
+    (scatter-at-update), so eval is a plain dense forward.
+
+    plan: needed only when the dense weights were offloaded to the host
+    (train/convert.py offload_frozen_to_host): eval then runs the same
+    q8-corrected sparse dispatch as the training forward."""
     param_dtype = cfg.param_dtype
 
     @torch.no_grad()
     def step(state, batch) -> torch.Tensor:
+        linear = None
         if "master" in state:
             params = _cast_tree(state["master"], param_dtype)
         else:
             params = state["params"]
-        return compute_loss(params, batch, cfg, model_cfg, remat=False)
+            if plan is not None and "q" in state:
+                linear = make_sparse_linear_dispatch(plan, state["trainable"],
+                                                     cfg.sparse_impl, qweights=state["q"])
+        # sparse-phase eval mirrors the training forward, int8 head included,
+        # so the eval loss tracks the trained objective
+        return compute_loss(params, batch, cfg, model_cfg, linear=linear, remat=False,
+                            sparse="master" not in state, q_head=state.get("q_head"))
 
     return step

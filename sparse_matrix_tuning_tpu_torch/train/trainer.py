@@ -20,7 +20,7 @@ from sparse_matrix_tuning_tpu_torch.config import SMTConfig
 from sparse_matrix_tuning_tpu_torch.models.llama import (
     LlamaConfig, all_2d_param_shapes, flatten_tree, resolve_attn_impl, tree_map)
 from sparse_matrix_tuning_tpu_torch.smt.optimizer import make_lr_schedule
-from sparse_matrix_tuning_tpu_torch.smt.plan import SMTPlan
+from sparse_matrix_tuning_tpu_torch.smt.plan import BLOCK, SMTPlan
 from sparse_matrix_tuning_tpu_torch.train import convert as convert_mod
 from sparse_matrix_tuning_tpu_torch.train.steps import (
     build_eval_step, build_sparse_step, build_warmup_step, init_warmup_state,
@@ -44,6 +44,7 @@ class SMTTrainer:
         self.device = torch.device(device if device is not None
                                    else params["embed_tokens"].device)
         self.plan: Optional[SMTPlan] = None
+        self._host_frozen: Optional[Dict[str, torch.Tensor]] = None
         self.phase = "warmup"
         self._padding_checked = False
         self._all_2d_shapes = all_2d_param_shapes(params)
@@ -76,11 +77,14 @@ class SMTTrainer:
             return
         t0 = time.time()
         self.plan, sparse_state = convert_mod.convert(
-            self.cfg, self.state, self._all_2d_shapes)
+            self.cfg, self.state, self._all_2d_shapes, model_cfg=self.model_cfg)
         self.state = sparse_state  # drops the warm-up master, moments, accumulators
+        if convert_mod.frozen_offload_active(self.cfg, self.plan.mode):
+            self.state, self._host_frozen = convert_mod.offload_frozen_to_host(self.state)
         self.install_sparse_phase()
 
         total = sum(p.numel() for p in flatten_tree(self.state["params"]).values())
+        total += sum(w.numel() for w in (self._host_frozen or {}).values())
         sel = self.plan.trainable_params
         print_rank_0(
             f"[smt] converted at step {self.step} in {time.time() - t0:.1f}s: "
@@ -99,6 +103,10 @@ class SMTTrainer:
             max(self.total_steps - conversion_step, 1))
         self._sparse_step = build_sparse_step(self.cfg, self.model_cfg, self.plan,
                                               sparse_sched)
+        if self._host_frozen is not None:
+            # dense weights left the device: the eval loss must run the same
+            # q8-corrected dispatch as the training forward
+            self._eval_step = build_eval_step(self.cfg, self.model_cfg, plan=self.plan)
 
     # -- steps ------------------------------------------------------------------------
 
@@ -239,18 +247,43 @@ class SMTTrainer:
         """Dense params with the current trainables merged (reference
         convert_matrix_sparsity_to_linear_layer, smt.py:416-457): in the
         sparse phase the dense weights are already current; in warm-up the
-        master, cast to the param dtype, is the truth."""
+        master, cast to the param dtype, is the truth. With the int8 host
+        offload the frozen weights come back from the host store with the
+        trained blocks scattered in (those tensors stay on the CPU): the
+        export is exact, whatever the int8 compute path did."""
         if self.phase == "sparse":
+            if self._host_frozen is not None:
+                return self._merged_from_host()
             return self.state["params"]
         dt = self.cfg.param_dtype
         return tree_map(lambda p: p.detach().to(dt, copy=True), self.state["master"])
 
+    def _merged_from_host(self):
+        params = dict(self.state["params"])
+        layers = {k: dict(v) for k, v in params["layers"].items()}
+        for ks, w in self._host_frozen.items():
+            if ks == "lm_head":  # offloaded untied head (head_quant)
+                params["lm_head"] = w
+                continue
+            li, mod = ks.split(".", 1)
+            layers[li][mod] = w
+        for ks, lp in self.plan.linears.items():  # every planned linear was offloaded
+            w = layers[str(lp.layer)][lp.module].clone()
+            w4 = w.view(lp.out_dim // BLOCK, BLOCK, lp.in_dim // BLOCK, BLOCK)
+            rb, cb = self.plan.block_index(ks, "cpu")
+            w4[rb, :, cb, :] = self.state["trainable"][ks].detach().to("cpu", w.dtype)
+            layers[str(lp.layer)][lp.module] = w
+        params["layers"] = layers
+        return params
+
     def decode_params(self):
-        """Params for eval/generate.generate: the exact merged dense params
-        (the JAX trainer decodes scan+int8 states from the int8 base
-        instead; the port has neither yet)."""
+        """Params for eval/generate.generate: the exact merged dense params,
+        on the trainer's device (weights offloaded to the host come back;
+        the JAX trainer decodes scan+int8 states from the int8 base
+        instead, which the port does not have yet)."""
         from sparse_matrix_tuning_tpu_torch.eval.generate import prepare_decode_params
-        return prepare_decode_params(self.merged_params(), self.model_cfg)
+        merged = tree_map(lambda p: p.to(self.device), self.merged_params())
+        return prepare_decode_params(merged, self.model_cfg)
 
     def _log_metrics(self, step: int, metrics: Dict):
         """One JSON line per step into {output_dir}/metrics.jsonl."""

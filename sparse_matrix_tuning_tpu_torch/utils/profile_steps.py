@@ -8,7 +8,10 @@ trainer's own steps on synthetic batches, bs 4 x seq 512, remat, attention
 "auto" (the K3 kernels on the card); each phase's step is timed three
 times unprofiled (median), then once under torch.profiler, which gives the
 device's busy time (summed kernel time), its idle share, and the ops and
-kernels with the most device time. Decode: eval/generate.generate with the
+kernels with the most device time. A second trainer over the int8 frozen
+base (--frozen_quant int8: K4, K5, int8 head, host offload) gives the same
+for its sparse step, with the share of device time in K4, K5 and K1.
+Decode: eval/generate.generate with the
 eval CLI's settings (beam-4, repetition penalty 1.1, bf16 cache, attention
 through K7) on 16 prompts left-padded to 256 tokens; a call with one new
 token is the prefill (and one beam selection), and a call with 1 +
@@ -80,6 +83,7 @@ def _profile_step(trainer, batches, label):
           f"{busy_ms:.1f} ms in {n} kernels, idle share "
           f"{max(0.0, 1 - busy_ms / wall_ms):.3f}", flush=True)
     _print_top(label, (("op", ops), ("kernel", kernels)))
+    return busy_ms, kernels
 
 
 def profile_decode(model_cfg, device):
@@ -121,25 +125,28 @@ def profile_decode(model_cfg, device):
     _print_top(f"generate({n} new tokens)", (("kernel", pn[3]),))
 
 
-def main():
+# device kernels of the port's own, by a part of their name
+OWN_KERNELS = {"K4 q8_matmul": "q8mm_kernel", "K5 block_correction": "correction_",
+               "K1 block_grad": "block_grad_", "K2 masked_adam": "masked_adam",
+               "K3 attention": "attn_"}
+
+
+def profile_training(model_cfg, device, frozen_quant: str):
+    """Warm-up and sparse step of one trainer (module docstring); the int8
+    trainer takes a short warm-up and profiles its sparse step only."""
     from sparse_matrix_tuning_tpu_torch.config import SMTConfig
-    from sparse_matrix_tuning_tpu_torch.models.llama import (
-        LlamaConfig, init_params, resolve_attn_impl)
+    from sparse_matrix_tuning_tpu_torch.models.llama import init_params, resolve_attn_impl
     from sparse_matrix_tuning_tpu_torch.train.trainer import SMTTrainer
 
-    if not torch.cuda.is_available():
-        raise RuntimeError("profile_steps needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    model_cfg = LlamaConfig()  # TinyLlama-1.1B geometry
+    int8 = frozen_quant == "int8"
+    full_ft_steps = 2 if int8 else FULL_FT_STEPS
     cfg = SMTConfig(data_path=["synthetic"], model_name_or_path="random-init",
-                    dtype="bf16", matrix_sparsity=True, full_ft_steps=FULL_FT_STEPS,
+                    dtype="bf16", matrix_sparsity=True, full_ft_steps=full_ft_steps,
                     downsample_attention_blocks_ratio=0.0084,
                     downsample_mlp_blocks_ratio=0.0084, ft_learning_rate=9.865e-6,
                     smt_lr=9.865e-6, calculate_strategy="abs_mean",
                     per_device_ft_batch_size=BS, max_seq_len=SEQ, seq_buckets=[SEQ],
-                    seed=1234)
+                    seed=1234, frozen_quant=frozen_quant)
     rng = np.random.default_rng(0)
 
     def batch():
@@ -148,23 +155,47 @@ def main():
         labels[:, : SEQ // 8] = -100
         return {"input_ids": ids, "labels": labels, "attention_mask": np.ones_like(ids)}
 
-    device = torch.device("cuda")
     trainer = SMTTrainer(cfg, model_cfg,
                          init_params(model_cfg, seed=0, dtype=torch.bfloat16, device=device),
                          total_steps=100, device=device)
     attn = resolve_attn_impl(cfg.attn_impl, model_cfg.head_dim, device)
     print(f"[profile] {torch.cuda.get_device_name(0)}, TinyLlama-1.1B geometry, "
-          f"bs {BS} x seq {SEQ}, bf16, remat, attention {attn}", flush=True)
-    for _ in range(FULL_FT_STEPS - TIMED - 1):
-        trainer.train_step(batch())
-    _profile_step(trainer, [batch() for _ in range(TIMED + 1)], "warmup_step")
+          f"bs {BS} x seq {SEQ}, bf16, remat, attention {attn}, frozen_quant {frozen_quant}",
+          flush=True)
+    tag = "int8 " if int8 else ""
+    if int8:
+        for _ in range(full_ft_steps):
+            trainer.train_step(batch())
+    else:
+        for _ in range(full_ft_steps - TIMED - 1):
+            trainer.train_step(batch())
+        _profile_step(trainer, [batch() for _ in range(TIMED + 1)], "warmup_step")
     for _ in range(2):  # conversion + the first sparse step, then another
         trainer.train_step(batch())
     if trainer.phase != "sparse":
         raise RuntimeError("the trainer did not convert")
-    _profile_step(trainer, [batch() for _ in range(TIMED + 1)], "sparse_step")
-    del trainer
-    torch.cuda.empty_cache()
+    busy_ms, kernels = _profile_step(trainer, [batch() for _ in range(TIMED + 1)],
+                                     f"{tag}sparse_step")
+    own = {name: sum(_device_us(e) for e in kernels if part in e.key) / 1e3
+           for name, part in OWN_KERNELS.items()}
+    print(f"[profile] {tag}sparse_step: device time in the port's kernels, ms (share of "
+          f"{busy_ms:.1f} ms busy): " + ", ".join(
+              f"{name} {ms:.2f} ({ms / busy_ms:.3f})" for name, ms in own.items()), flush=True)
+
+
+def main():
+    from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_steps needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    model_cfg = LlamaConfig()  # TinyLlama-1.1B geometry
+    device = torch.device("cuda")
+    for frozen_quant in ("none", "int8"):
+        profile_training(model_cfg, device, frozen_quant)
+        torch.cuda.empty_cache()
     profile_decode(model_cfg, device)
 
 

@@ -1,7 +1,8 @@
 """The port's config and CLI: the JAX package's flag surface, the "auto"
-policies resolved to what the port implements, the fused attention
-options, a loud NotImplementedError for every option not yet ported, and the fine-tune CLI end to end on a
-tiny HF checkpoint (whose safetensors the port reads by hand) on CPU."""
+policies resolved to what the port implements, the fused attention and
+int8 options, a loud NotImplementedError for every option not yet ported,
+and the fine-tune CLI end to end on a tiny HF checkpoint (whose safetensors
+the port reads by hand) on CPU, over the dense and the int8 frozen base."""
 import dataclasses
 import json
 
@@ -43,7 +44,7 @@ def test_auto_policies_resolve_to_ported_paths():
     cfg = SMTConfig()
     assert (cfg.sparse_impl, cfg.attn_impl, cfg.frozen_quant, cfg.head_quant,
             cfg.scan_layers, cfg.loss_impl) == ("auto", "auto", "none", "none",
-                                                 "off", "full")
+                                                 "off", "auto")
     assert SMTConfig.from_json(cfg.to_json()).to_json() == cfg.to_json()
     assert {f.name for f in dataclasses.fields(SMTConfig)} == \
         {f.name for f in dataclasses.fields(JaxSMTConfig)}
@@ -60,8 +61,23 @@ def test_fused_attention_options_construct(impl):
     assert resolve_attn_impl(cfg.attn_impl, LlamaConfig().head_dim, "cpu") == "fullk"
 
 
+@pytest.mark.parametrize("flags,want", [
+    (["--frozen_quant", "int8"], ("int8", "int8", True, "auto")),
+    (["--frozen_quant", "int8", "--no_frozen_host_offload", "--head_quant", "none"],
+     ("int8", "none", False, "auto")),
+    (["--head_quant", "int8"], ("none", "int8", True, "auto")),
+    (["--loss_impl", "chunked", "--vocab_chunk", "1024"], ("none", "none", True, "chunked")),
+], ids=["int8", "int8-resident-dense-head", "q8-head", "chunked"])
+def test_int8_and_loss_options_construct(flags, want):
+    """--frozen_quant int8 (K4, K5), --head_quant int8 and --loss_impl
+    chunked build; head_quant "auto" follows the frozen base."""
+    cfg = parse_args(RECIPE + flags)
+    assert (cfg.frozen_quant, cfg.head_quant, cfg.frozen_host_offload, cfg.loss_impl) == want
+    assert SMTConfig.from_json(cfg.to_json()).to_json() == cfg.to_json()
+
+
 @pytest.mark.parametrize("kw", [
-    dict(frozen_quant="int8"), dict(head_quant="int8"), dict(scan_layers="on"), dict(loss_impl="chunked"),
+    dict(scan_layers="on"),
     dict(channel_sparsity=True), dict(dtype="fp16"), dict(resume_from="ckpt"),
     dict(sparse_from_plan="plan.json"), dict(dropout=0.1), dict(mesh_shape=[1, 2, 1]),
     dict(profile_dir="prof"), dict(do_gradient_distribution_analysis=True),
@@ -126,11 +142,12 @@ def test_forward_matches_hf_transformers(tiny_hf):
     tp.assert_close(got[1, :9], ref[1, :9], rtol=2e-4, atol=2e-4)
 
 
-def test_fine_tune_cli_end_to_end(tiny_hf, tmp_path):
+@pytest.mark.parametrize("extra", [[], ["--frozen_quant", "int8"]], ids=["dense", "int8"])
+def test_fine_tune_cli_end_to_end(tiny_hf, tmp_path, extra):
     from sparse_matrix_tuning_tpu_torch.cli.fine_tune import main
     _, d, data = tiny_hf
     out = tmp_path / "out"
-    history = main([
+    history = main(extra + [
         "--model_name_or_path", d, "--data_path", data, "--output_dir", str(out),
         "--matrix_sparsity", "--full_ft_steps", "1",
         "--downsample_attention_blocks_ratio", "0.2",
@@ -146,3 +163,8 @@ def test_fine_tune_cli_end_to_end(tiny_hf, tmp_path):
     phases = [json.loads(line)["phase"] for line in
               (out / "metrics.jsonl").read_text().splitlines()]
     assert phases[0] == "warmup" and phases[-1] == "sparse"
+    # the export is a whole dense checkpoint, from the int8 run too
+    from sparse_matrix_tuning_tpu_torch.models.hf_io import load_hf_config, load_hf_params
+    back = load_hf_params(str(out / "final"), load_hf_config(str(out / "final")),
+                          dtype=torch.float32)
+    assert back["layers"]["0"]["q_proj"].shape == (256, 256) and back["lm_head"].shape == (512, 256)

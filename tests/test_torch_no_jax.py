@@ -33,7 +33,9 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "sparse_matrix_tuning_tpu" or m.startswith("sparse_matrix_tuning_tpu."))
 print(len(names), bad)
-sys.exit(1 if bad or len(names) < 20 else 0)
+need = {pkg.__name__ + m for m in (".ops.quant", ".ops.loss", ".ops.cuda.q8_matmul",
+                                   ".ops.cuda.correction")}
+sys.exit(1 if bad or len(names) < 20 or not need <= set(names) else 0)
 """
 
 
