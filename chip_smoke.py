@@ -49,10 +49,27 @@ Phases, in order; any failure raises and the exit code is non-zero:
      D3 int8 cache (each must launch K7), D4 as D1 with the einsum
      attention at 64 new tokens (no K7 launch allowed); per leg prefill ms,
      decode ms/step, tokens/s, peak memory and launches; D1's and D4's
-     prefill logits against the same prefill with fp32 attention.
+     prefill logits against the same prefill with fp32 attention;
+  7. run F (after D), the same eval over a quantized frozen base, each
+     leg's params quantized while loading A's HF export by the eval CLI's
+     load_decode_params: F1 the int4 base, empty plan (--frozen_quant int4;
+     K6 on every linear), F2 the int8 base (K4), F3 the int4 base with A's
+     plan (K5 corrects the trained blocks; prefill logits against a dense
+     oracle); conversion time and peak, no dense layer weight left on the
+     device.
+Before the references, K6 (the int4 unpack-matmul) runs at eight shapes
+(K6_SHAPES: the TinyLlama linears at the eval decode's 64 rows, 16 and a
+ragged 7, Llama-3-8B's gate) and on the layer views of a stack (K6s),
+against its plain version within a limit derived from the two fp32
+summation orders, with two planted faults the check must reject, timed
+beside cuBLAS bf16 on the dequantized weight; and a tiny fp32 generation
+over the int8 and int4 bases (planned and empty plan, bf16 and int8
+cache, greedy and beam-4) on the GPU against the CPU, tokens identical.
 The line before the last is a JSON object of the kernels' numbers; the
 last line is {"ok": true, "device": {...}}. `--only q8` stops after the
-build, the K4 / K5 checks and the tiny int8 reference, and prints no result.
+build, the K4 / K5 checks and the tiny int8 reference; `--only q4` after
+the build, the K6 checks and the tiny quantized generation; neither prints
+a result.
 """
 
 from __future__ import annotations
@@ -147,6 +164,27 @@ K5_SHAPES = [
 # JAX suite's correction tolerance (tests/test_scan_ops.py:147).
 K5_TOL = {"bf16": (2.0 ** -7, 1e-4), "fp32": (1e-5, 1e-5)}
 Q8_KERNELS = K4_KERNELS + ("block_correction",)
+# K6 shapes (T, I, O, out dtype, what, timed): out (T, O) = x (T, I) bf16 . the
+# int4 weight (O, I/2 packed, one fp32 scale per 128 columns)
+K6_SHAPES = [
+    (64, 2048, 5632, "bf16", "TinyLlama gate/up at the eval decode (16 prompts x 4 beams), the "
+     "main path", True),
+    (64, 2048, 2048, "bf16", "TinyLlama q/o at the eval decode", False),
+    (64, 2048, 256, "bf16", "TinyLlama k/v at the eval decode", False),
+    (64, 5632, 2048, "bf16", "TinyLlama down at the eval decode", False),
+    (16, 2048, 5632, "bf16", "TinyLlama gate/up at greedy decode", False),
+    (7, 5632, 2048, "bf16", "ragged T", False),
+    (7, 2048, 256, "fp32", "ragged T, fp32 out (an fp32 model's k/v)", False),
+    (64, 4096, 14336, "bf16", "Llama-3-8B gate at the eval decode", True),
+]
+K6_STACK = (3, 64, 2048, 2048)  # K6s: layers, T, I, O; K6 on the views of layers 1 and 2
+# tiny quantized generation, GPU against CPU: logits of each forward call
+# before the decodes part, relative to the call's largest |logit|. Flipped
+# int8 steps and bf16 roundings of K6 inputs, carried through the cache,
+# moved them by up to 2.9e-2 over 16 steps on the int8 base and 6.1e-3 on
+# the int4 base (PERF.md, section 6); a wrong kernel moves them by tens of
+# percent
+QUANT_DECODE_REL = 2.0 ** -3
 # H100 SXM data sheet: HBM bytes/s and dense peak operations/s by type
 # (bf16 on the tensor cores; fp32 outside them)
 HBM_BYTES_PER_S = 3.35e12
@@ -864,6 +902,123 @@ def check_block_correction():
     return worst, main
 
 
+def _k6_limit(x, w4, s4, splits, want):
+    """Elementwise limit on |K6 - plain| at one shape. Both sum the same
+    exact products (a bf16 value times a small integer) in fp32 in another
+    order: the 128 of a group, the n_groups scaled partials and, in the
+    kernel, the splits. Recursive summation of n terms errs by at most
+    (n - 1) u sum |terms| to first order, so the two differ by at most
+    2 n u S, S = sum_g |s_g| sum_c |x_c q_c|, n = 128 + n_groups + splits,
+    with u = 2^-23 (not 2^-24: the tensor cores' adder may truncate). A bf16
+    output adds one rounding of each: one bf16 ulp, 2^-7 |want|."""
+    import torch
+    from sparse_matrix_tuning_tpu_torch.ops.cuda.q4_matmul import unpack_planes
+    t, (o, _), n_groups = x.shape[0], w4.shape, s4.shape[1]
+    qa = torch.cat(unpack_planes(w4), dim=1).abs().float()
+    mag = torch.einsum("tgc,ogc->tgo", x.float().abs().reshape(t, n_groups, -1),
+                       qa.reshape(o, n_groups, -1))
+    mag = (mag * s4.abs().t()[None]).sum(dim=1)
+    limit = 2 * (128 + n_groups + splits) * 2.0 ** -23 * mag
+    if want.dtype == torch.bfloat16:
+        limit = limit + 2.0 ** -7 * want.float().abs()
+    return limit
+
+
+def check_q4_matmul():
+    """K6 at K6_SHAPES against its plain version within _k6_limit, with two
+    planted faults the check must reject (the low and high nibble planes
+    swapped; the last group's scale dropped); K6s, K6 on the layer views of
+    a stack, against the plain version of each layer; times at the timed
+    shapes beside the plain version, cuBLAS bf16 on the dequantized weight
+    (the library call), dequantize + matmul (the int4 path without the
+    kernel) and the bound. Returns (worst max abs err, (ms, plain_ms, bound,
+    library ms) at the first timed shape)."""
+    import torch
+    from sparse_matrix_tuning_tpu_torch.ops.cuda import q4_matmul as k6
+    from sparse_matrix_tuning_tpu_torch.ops.quant import (
+        dequantize_weight_int4, quantize_weight_int4)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    worst, main = 0.0, None
+
+    def held(got, want, x, w4, s4):
+        limit = _k6_limit(x, w4, s4, k6.splits_for(w4.shape[0], w4.shape[1], n_sm), want)
+        diff = (got.float() - want.float()).abs()
+        return bool((diff <= limit).all()), float(diff.max()), float((diff / limit).max())
+
+    for t, i, o, dtype, what, timed in K6_SHAPES:
+        dt = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype]
+        w4, s4 = quantize_weight_int4(torch.randn((o, i), generator=gen, device="cuda") / i ** 0.5)
+        x = torch.randn((t, i), generator=gen, device="cuda").to(torch.bfloat16)
+        got = k6.q4mm_t(x, w4, s4, dt)
+        torch.cuda.synchronize()
+        want = k6.q4mm_t_plain(x, w4, s4, dt)
+        ok, err, ratio = held(got, want, x, w4, s4)
+        if got.shape != (t, o) or got.dtype != dt or not torch.isfinite(got).all() or not ok:
+            raise AssertionError(f"K6 T={t} I={i} O={o} {dtype}: max abs err {err:.3e}, "
+                                 f"{ratio:.2f} x the limit, output {tuple(got.shape)} {got.dtype}")
+        p = w4.view(torch.uint8)
+        swapped = (((p & 0x0F) << 4) | (p >> 4)).view(torch.int8)
+        no_last = s4.clone()
+        no_last[:, -1] = 0
+        for fault, args in (("planes swapped", (swapped, s4)), ("last group's scale dropped",
+                                                                (w4, no_last))):
+            f_ok, f_err, _ = held(k6.q4mm_t_plain(x, *args, dt), want, x, w4, s4)
+            if f_ok:
+                raise AssertionError(f"K6 T={t} I={i} O={o}: the check passes a planted fault "
+                                     f"({fault})")
+        worst = max(worst, err)
+        shape = f"T={t} I={i} O={o} {dtype} out"
+        log(f"[K6 q4_matmul] {shape} ({what}): max_abs_err {err:.3e} ({ratio:.3f} of the "
+            f"summation-order limit), splits {k6.splits_for(o, i // 2, n_sm)}; planted faults "
+            "rejected (planes swapped, last group's scale dropped)")
+        if timed:
+            wdq = dequantize_weight_int4(w4, s4, torch.bfloat16)
+            kernel = lambda: k6.q4mm_t(x, w4, s4, dt)
+            ms = time_ms(kernel)
+            plain_ms = time_ms(lambda: k6.q4mm_t_plain(x, w4, s4, dt), reps=5)
+            lib_ms = time_ms(lambda: torch.matmul(x, wdq.t()))
+            deq_ms = time_ms(lambda: torch.matmul(x, dequantize_weight_int4(w4, s4,
+                                                                            torch.bfloat16).t()))
+            ms2 = time_ms(kernel)
+            e = 2 if dtype == "bf16" else 4
+            nbytes = 2 * t * i + w4.numel() + 4 * s4.numel() + e * t * o
+            bnd = bound(nbytes, 2.0 * t * o * i, "bf16")
+            log(f"[K6 q4_matmul] time at {shape}: kernel {ms:.4f} ms (repeat {ms2:.4f}, "
+                f"{nbytes / (min(ms, ms2) * 1e-3) / 1e9:.0f} GB/s of {nbytes / 1e6:.2f} MB), "
+                f"plain {plain_ms:.4f} ms, library cuBLAS bf16 on the dequantized weight "
+                f"{lib_ms:.4f} ms, dequantize + matmul {deq_ms:.4f} ms; bound {bnd[0]:.4f} ms "
+                f"({bnd[1]})")
+            if main is None:
+                main = (ms, plain_ms, bnd, lib_ms)
+            del wdq, kernel
+        del w4, s4, x, got, want, swapped, no_last
+        torch.cuda.empty_cache()
+
+    # K6s: the kernel on contiguous layer views of an (L, O, I/2) stack
+    n_layers, t, i, o = K6_STACK
+    per_layer = [quantize_weight_int4(torch.randn((o, i), generator=gen, device="cuda") / i ** 0.5)
+                 for _ in range(n_layers)]
+    w4s = torch.stack([w for w, _ in per_layer])
+    s4s = torch.stack([s for _, s in per_layer])
+    x = torch.randn((t, i), generator=gen, device="cuda").to(torch.bfloat16)
+    for l in range(1, n_layers):
+        got = k6.q4mm_t(x, w4s[l], s4s[l], torch.bfloat16)
+        torch.cuda.synchronize()
+        want = k6.q4mm_t_plain(x, *per_layer[l], torch.bfloat16)
+        ok, err, ratio = held(got, want, x, *per_layer[l])
+        other = k6.q4mm_t_plain(x, *per_layer[l - 1], torch.bfloat16)
+        if not ok or held(other, want, x, *per_layer[l])[0]:
+            raise AssertionError(f"K6s layer {l}: max abs err {err:.3e} against the layer's plain "
+                                 "version (or the check cannot tell the layers apart)")
+        worst = max(worst, err)
+        log(f"[K6s q4_matmul on a layer view] stack {tuple(w4s.shape)}, layer {l}, T={t}: "
+            f"max_abs_err {err:.3e} ({ratio:.3f} of the limit); layer {l - 1}'s weights rejected")
+    return worst, main
+
+
 # ---------------------------------------------------------------------------
 # the main path
 # ---------------------------------------------------------------------------
@@ -874,10 +1029,12 @@ def reset_launches():
     from sparse_matrix_tuning_tpu_torch.ops.cuda import cached_attention as k7
     from sparse_matrix_tuning_tpu_torch.ops.cuda import masked_adam as k2
     from sparse_matrix_tuning_tpu_torch.ops.cuda import correction as k5
+    from sparse_matrix_tuning_tpu_torch.ops.cuda import q4_matmul as k6
     from sparse_matrix_tuning_tpu_torch.ops.cuda import q8_matmul as k4
     k1.LAUNCHES = 0
     k2.LAUNCHES = 0
     k5.LAUNCHES = 0
+    k6.LAUNCHES = 0
     for counts in (k3.LAUNCHES, k7.LAUNCHES, k4.LAUNCHES):
         for name in counts:
             counts[name] = 0
@@ -890,9 +1047,11 @@ def launches():
     from sparse_matrix_tuning_tpu_torch.ops.cuda import cached_attention as k7
     from sparse_matrix_tuning_tpu_torch.ops.cuda import masked_adam as k2
     from sparse_matrix_tuning_tpu_torch.ops.cuda import correction as k5
+    from sparse_matrix_tuning_tpu_torch.ops.cuda import q4_matmul as k6
     from sparse_matrix_tuning_tpu_torch.ops.cuda import q8_matmul as k4
     return {"block_grad": k1.LAUNCHES, "masked_adam": k2.LAUNCHES, **k3.LAUNCHES,
-            **k7.LAUNCHES, **k4.LAUNCHES, "block_correction": k5.LAUNCHES}
+            **k7.LAUNCHES, **k4.LAUNCHES, "block_correction": k5.LAUNCHES,
+            "q4_matmul": k6.LAUNCHES}
 
 
 def synthetic_sft(n, seq, vocab, seed):
@@ -1206,6 +1365,142 @@ def check_small_generation():
         os.environ.pop("SMT_CACHED_ATTN", None)
 
 
+class DecodeRecorder:
+    """Wraps forward_with_cache and the beam search's top-k in the
+    generation modules: records each forward call's last-position logits
+    and each top-k's indices, on the host."""
+
+    def __enter__(self):
+        from sparse_matrix_tuning_tpu_torch.eval import _beam_impl, generate
+        self.logits, self.topk = [], []
+        self._mods = (generate, _beam_impl)
+        self._orig = (generate.forward_with_cache, _beam_impl._top_k)
+        forward, top_k = self._orig
+
+        def recorded_forward(*args, **kw):
+            out = forward(*args, **kw)
+            self.logits.append(out[0][:, -1].float().cpu())
+            return out
+
+        def recorded_top_k(x, k):
+            values, indices = top_k(x, k)
+            self.topk.append(indices.cpu())
+            return values, indices
+
+        for m in self._mods:
+            m.forward_with_cache = recorded_forward
+        _beam_impl._top_k = recorded_top_k
+        return self
+
+    def __exit__(self, *exc):
+        from sparse_matrix_tuning_tpu_torch.eval import _beam_impl
+        for m in self._mods:
+            m.forward_with_cache = self._orig[0]
+        _beam_impl._top_k = self._orig[1]
+
+
+def first_divergence(got, want, gpu, cpu, beams):
+    """The first decision step at which two decodes of the same prompts
+    chose differently (None if none): the first differing token column
+    (greedy), or the step of the first beam-search top-k that picked other
+    candidates (two a step: the continuations, then the hypotheses)."""
+    import numpy as np
+    if beams == 1:
+        cols = np.nonzero((got != want).any(axis=0))[0]
+        return int(cols[0]) if len(cols) else None
+    for c, (a, b) in enumerate(zip(gpu.topk, cpu.topk)):
+        if not np.array_equal(a.numpy(), b.numpy()):
+            return c // 2
+    return None
+
+
+def check_small_quant_generation():
+    """Tiny fp32 model written as an HF checkpoint, read back by the eval
+    CLI's load_decode_params over the int8 and the int4 frozen base, with
+    a plan of three linears (K5 corrects their blocks) and with the empty
+    plan: greedy and beam-4 with repetition penalty 1.1 over a bf16 and an
+    int8 cache, on the GPU (K4 or K6, K5, K7) and on the CPU (their plain
+    versions). The GPU runs must launch the path's kernels; the tokens must
+    be identical, or differ only after a decision that last-bit
+    differences decide: every forward call up to that decision (identical
+    inputs, identical earlier decisions) must give logits within
+    QUANT_DECODE_REL of the largest. Quantized linears are not continuous
+    in their input (int8 steps; K6 rounds its input to bf16), so the
+    card's and the CPU's sums, which differ in their last bits, can move a
+    logit by a step, and a random tiny model's next-token scores sit close
+    to a tie at many steps."""
+    import numpy as np
+    from sparse_matrix_tuning_tpu_torch.cli.run_commonsense import load_decode_params
+    from sparse_matrix_tuning_tpu_torch.eval.generate import GenerationConfig, generate
+    from sparse_matrix_tuning_tpu_torch.models.hf_io import save_hf_format
+    from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig, init_params
+    from sparse_matrix_tuning_tpu_torch.smt.plan import LinearPlan, SMTPlan
+
+    cfg = LlamaConfig.tiny(vocab_size=512)
+    plan = SMTPlan("matrix", {
+        "0.q_proj": LinearPlan("q_proj", 0, 256, 256, blocks=((0, 0),)),
+        "1.gate_proj": LinearPlan("gate_proj", 1, 512, 256, blocks=((1, 0), (0, 0))),
+        "0.down_proj": LinearPlan("down_proj", 0, 256, 512, blocks=((0, 1),))})
+    rng = np.random.default_rng(7)
+    lens = (5, 17, 30, 9)
+    ids = np.zeros((len(lens), 32), np.int32)
+    mask = np.zeros_like(ids)
+    for i, n in enumerate(lens):
+        ids[i, 32 - n:] = rng.integers(3, cfg.vocab_size, n)
+        mask[i, 32 - n:] = 1
+    build_dir = os.path.join(REPO, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="smoke_tiny_ckpt_", dir=build_dir)
+    os.environ["SMT_CACHED_ATTN"] = "on"  # K7 on the GPU, its plain version on the CPU
+    n_identical = n_cases = 0
+    try:
+        save_hf_format(init_params(cfg, seed=0), cfg, ckpt)
+        for fq in ("int8", "int4"):
+            for leg_plan in (plan, None):
+                gpu_params, _ = load_decode_params(ckpt, fq, "fp32", "cuda", leg_plan)
+                cpu_params, _ = load_decode_params(ckpt, fq, "fp32", "cpu", leg_plan)
+                for cache in ("bfloat16", "int8"):
+                    for beams in (1, 4):
+                        gen = GenerationConfig(max_new_tokens=16, num_beams=beams,
+                                               repetition_penalty=1.1, cache_dtype=cache)
+                        reset_launches()
+                        with DecodeRecorder() as gpu:
+                            got = generate(gpu_params, cfg, ids, mask, gen, device="cuda")
+                        counts = launches()
+                        with DecodeRecorder() as cpu:
+                            want = generate(cpu_params, cfg, ids, mask, gen, device="cpu")
+                        need = ["cached_attn_q8" if cache == "int8" else "cached_attn",
+                                "q4_matmul" if fq == "int4" else "q8mm_t"]
+                        need += ["block_correction"] if leg_plan else []
+                        what = (f"{fq} base, {'3 planned linears' if leg_plan else 'empty plan'}"
+                                f", {cache} cache, beams {beams}")
+                        step = first_divergence(got, want, gpu, cpu, beams)
+                        n_calls = len(gpu.logits) if step is None else step + 1
+                        rel = max(float((a - b).abs().max() / b.abs().max())
+                                  for a, b in zip(gpu.logits[:n_calls], cpu.logits[:n_calls]))
+                        identical = np.array_equal(got, want)
+                        if (not all(counts[n] > 0 for n in need) or rel > QUANT_DECODE_REL
+                                or (step is None and not identical)):
+                            raise AssertionError(
+                                f"tiny quantized generation, {what}: launches {counts}; logits "
+                                f"{rel:.3e} apart (relative) over the first {n_calls} forward "
+                                f"calls; GPU {got.tolist()} vs CPU {want.tolist()}")
+                        log(f"[reference] tiny fp32 generation, {what}: " + (
+                            "GPU and CPU tokens identical" if identical else
+                            f"GPU and CPU tokens part at decision {step} of "
+                            f"{gen.max_new_tokens}, a near-tie") + f"; logits up to there "
+                            f"{rel:.2e} apart (relative, limit {QUANT_DECODE_REL:.2e}); GPU "
+                            f"launches " + ", ".join(f"{n} {counts[n]}" for n in need))
+                        n_identical += identical
+                        n_cases += 1
+                del gpu_params, cpu_params
+    finally:
+        os.environ.pop("SMT_CACHED_ATTN", None)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    log(f"[reference] tiny quantized generation: tokens identical in {n_identical} of "
+        f"{n_cases} cases, the rest parting at a near-tie")
+
+
 class StandInTokenizer:
     """ids <-> text for run D (the card has no `transformers`): one id per
     whitespace word, w<id> words back to their ids, other words hashed into
@@ -1422,6 +1717,144 @@ def run_eval(params, cfg):
     return legs
 
 
+def int4_dense_oracle(params, cfg, blocks=True):
+    """Per-layer dense bf16 params equal to int4 decode params' weights: each
+    linear the fp32-dequantized int4 base with the trained blocks scattered
+    in (unless not `blocks`), rounded to bf16 (the JAX suite's oracle,
+    tests/test_q4.py:176-248)."""
+    import torch
+    from sparse_matrix_tuning_tpu_torch.ops.quant import dequantize_weight_int4
+    from sparse_matrix_tuning_tpu_torch.smt.plan import BLOCK
+
+    dense = {k: params[k] for k in ("embed_tokens", "norm", "lm_head")}
+    dense["layers"] = {}
+    for l, ex in enumerate(params["layers_q8"]["layers"]):
+        layer = {n: w for n, w in ex["params"].items() if w.numel() > 1}  # norms, biases
+        for mod, q in ex["q"].items():
+            w = dequantize_weight_int4(q["w4"], q["s4"], torch.float32)
+            if blocks and mod in ex["t"]:
+                meta = ex["idx"][mod]
+                keep = meta["valid"]
+                w.view(w.shape[0] // BLOCK, BLOCK, w.shape[1] // BLOCK, BLOCK)[
+                    meta["rb"][keep].long(), :, meta["cb"][keep].long(), :] = ex["t"][mod][keep]
+            layer[mod] = w.to(torch.bfloat16)
+        dense["layers"][str(l)] = layer
+    return dense
+
+
+def dense_prefill_logits(params, cfg, prefill_inputs, n_rows):
+    """Last-position logits of a prefill of per-layer params on the recorded
+    inputs of a run's prefill, with its own bf16 cache."""
+    import torch
+    from sparse_matrix_tuning_tpu_torch.models import llama
+    input_ids, cache_index, slot_mask, positions, max_len = prefill_inputs
+    cache = llama.init_cache(cfg, input_ids.shape[0], max_len, dtype=torch.bfloat16,
+                             device=input_ids.device)
+    logits, _ = llama.forward_with_cache(params, input_ids, cfg, cache, cache_index, slot_mask,
+                                         positions, last_only=True)
+    return logits[:n_rows, -1].float().cpu()
+
+
+def run_quantized_eval(export_dir, cfg, d1):
+    """Run F: the eval over a quantized frozen base, each leg's params built
+    by the eval CLI's load_decode_params from run A's HF export
+    (quantize-on-load), then the harness as in run D (16 prompts, beam-4,
+    repetition penalty 1.1, bf16 cache, K7): F1 the int4 base with the
+    empty plan (the CLI's --frozen_quant int4), 256 new tokens; F2 the int8
+    base, 64; F3 the int4 base with run A's smt_plan.json (K5 corrects the
+    trained blocks), 64, its prefill logits held against int4_dense_oracle.
+    Each: conversion time and peak, resident bytes, no dense layer weight on
+    the device, and the launches of its path. Returns {leg: summary}."""
+    import gc
+
+    import torch
+    from sparse_matrix_tuning_tpu_torch.cli.run_commonsense import load_decode_params
+    from sparse_matrix_tuning_tpu_torch.smt.plan import SMTPlan
+    from sparse_matrix_tuning_tpu_torch.train.convert import LAYER_LINEARS
+
+    gib = 1024 ** 3
+    examples = synthetic_eval_examples(16, StandInTokenizer(cfg.vocab_size), seed=11)
+    with open(os.path.join(export_dir, "smt_plan.json")) as f:
+        plan = SMTPlan.from_json(f.read())
+    legs = {}
+    for tag, fq, leg_plan, new_tokens, need, forbid in (
+            ("F1", "int4", None, 256, ("q4_matmul", "cached_attn"),
+             ("q8mm_t", "block_correction")),
+            ("F2", "int8", None, 64, ("q8mm_t", "cached_attn"), ("q4_matmul", "block_correction")),
+            ("F3", "int4", plan, 64, ("q4_matmul", "block_correction", "cached_attn"),
+             ("q8mm_t",))):
+        gc.collect()  # what earlier runs left in reference cycles (the trainers)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, _ = load_decode_params(export_dir, fq, "bf16", "cuda", leg_plan)
+        torch.cuda.synchronize()
+        conv_s = time.perf_counter() - t0
+        conv_peak = (torch.cuda.max_memory_allocated() - before) / gib
+        resident = (torch.cuda.memory_allocated() - before) / gib
+        stacked = params["layers_stacked"]
+        dense = [m for m in LAYER_LINEARS if tuple(stacked[m].shape) != (cfg.num_hidden_layers, 1)]
+        if dense or "layers" in params:
+            raise AssertionError(f"run {tag}: dense layer weights on the device: {dense}")
+        which = f"run A plan ({len(plan.linears)} linears)" if leg_plan else "empty plan"
+        what = f"{fq} frozen base, {which}, bf16 cache, beam-4, {new_tokens} new tokens"
+        log(f"[{tag}] load_decode_params({fq}) from run A's export: {conv_s:.2f} s, peak "
+            f"{conv_peak:.2f} GiB above the {before / gib:.2f} GiB already allocated, resident "
+            f"{resident:.3f} GiB; the {len(LAYER_LINEARS)} layer linears x "
+            f"{cfg.num_hidden_layers} layers are {fq} only (placeholders (L, 1) on the device)")
+        leg = eval_leg(tag, what, params, cfg, examples, max_new_tokens=new_tokens)
+        leg.update(conversion_s=conv_s, conversion_peak_gib=conv_peak, resident_gib=resident)
+        log(f"[{tag}] eval peak {leg['peak_gib'] - before / gib:.2f} GiB above the "
+            f"{before / gib:.2f} GiB allocated before the conversion")
+        bad = [n for n in need if leg["launches"][n] <= 0] + [n for n in forbid
+                                                               if leg["launches"][n]]
+        if bad:
+            raise AssertionError(f"run {tag} launches {leg['launches']}: wrong for {bad}")
+        log(f"[{tag}] launches of the path: " + ", ".join(
+            f"{n} {leg['launches'][n]}" for n in need + forbid))
+        if tag == "F3":
+            # F3's prefill (more than 64 rows: each linear the bf16-dequantized
+            # base and a bf16 matmul, then K5) against the dense oracle's on
+            # the same inputs. They are the same bf16 computation except at
+            # the planned linears: F3 rounds their output to bf16 twice (after
+            # the base product, then after K5 adds x . delta^T) and holds the
+            # trained blocks as bf16(base) + bf16(t - base) against the
+            # oracle's bf16(t). Each is one bf16 rounding (2^-9 relative) of
+            # the kind every stage of both forwards carries, which run D
+            # measured at 1.6% of the largest logit (D1 against an
+            # fp32-attention prefill); held to 2^-4 of the largest logit, and
+            # on average closer to the oracle than the int4 base without the
+            # trained blocks (what F3 would be if the corrections did nothing)
+            prefill = leg["prefill_inputs"]
+            n_rows = len(leg["prefill_logits"])
+            want = dense_prefill_logits(int4_dense_oracle(params, cfg), cfg, prefill, n_rows)
+            bare = dense_prefill_logits(int4_dense_oracle(params, cfg, blocks=False), cfg,
+                                        prefill, n_rows)
+            diff = (leg["prefill_logits"] - want).abs()
+            bare_diff = (bare - want).abs()
+            top = float((leg["prefill_logits"].argmax(-1) == want.argmax(-1)).float().mean())
+            limit = 2.0 ** -4 * float(want.abs().max())
+            log(f"[F3] prefill last-position logits against the dense oracle (the int4 base "
+                f"with the trained blocks scattered in, bf16 dense path): max abs diff "
+                f"{float(diff.max()):.4e} (limit {limit:.4e}), mean {float(diff.mean()):.4e}, "
+                f"argmax agreement {top:.4f}; the int4 base without the blocks: max "
+                f"{float(bare_diff.max()):.4e}, mean {float(bare_diff.mean()):.4e}")
+            if float(diff.max()) > limit or float(diff.mean()) >= float(bare_diff.mean()):
+                raise AssertionError("run F3 leaves the dense oracle's bound")
+        legs[tag] = leg
+        del params
+    agree = float((legs["F1"]["tokens"][:, :64] == d1["tokens"][:, :64]).mean())
+    diff = float((legs["F1"]["prefill_logits"] - d1["prefill_logits"]).abs().max())
+    log(f"[F] F1 (int4 base) against D1 (bf16 weights): token agreement over the first 64 "
+        f"tokens {agree:.4f}; prefill last-position logits max abs diff {diff:.4e} (max |logit| "
+        f"{float(d1['prefill_logits'].abs().max()):.3f}); decode ms/step "
+        f"{legs['F1']['decode_ms']:.2f} vs {d1['decode_ms']:.2f}; peak "
+        f"{legs['F1']['peak_gib']:.2f} vs {d1['peak_gib']:.2f} GiB")
+    return legs
+
+
 def compare_int8_run(run_a, run_e, n_warmup):
     """Run E against run A: the same warm-up (int8 is a sparse-phase
     policy), sparse and eval losses inside the JAX suite's 5% band
@@ -1451,12 +1884,14 @@ def compare_int8_run(run_a, run_e, n_warmup):
 
 def main(argv=None):
     """`--only q8` stops after the build, the K4 / K5 checks and the tiny
-    int8 references (a short first call for a new kernel); it prints no
-    result line. With no arguments every phase runs."""
+    int8 references; `--only q4` after the build, the K6 checks and the tiny
+    quantized generation (short first calls for a new kernel); neither
+    prints a result line. With no arguments every phase runs."""
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--only", "q8"]):
-        raise SystemExit("usage: python3 chip_smoke.py [--only q8]")
-    only_q8 = bool(argv)
+    if argv not in ([], ["--only", "q8"], ["--only", "q4"]):
+        raise SystemExit("usage: python3 chip_smoke.py [--only q8|q4]")
+    only = argv[1] if argv else None
+    only_q8 = only == "q8"
     t_start = time.time()
     check_device()
     import dataclasses
@@ -1477,6 +1912,15 @@ def main(argv=None):
     _build.load()
     marks = [("build", time.time())]
 
+    if only == "q4":
+        check_q4_matmul()
+        marks.append(("kernels", time.time()))
+        check_small_quant_generation()
+        marks.append(("references", time.time()))
+        log("[smoke] --only q4: seconds by phase: " + ", ".join(
+            f"{name} {t - prev:.1f}" for (name, t), (_, prev)
+            in zip(marks, [("", t_start)] + marks)))
+        return
     if not only_q8:
         k1_err, k1_time = check_block_grad()
         k2_err, k2_time = check_masked_adam()
@@ -1484,10 +1928,13 @@ def main(argv=None):
         k7_err, k7_time = check_cached_attention()
     k4_err, k4_time = check_q8_matmul()
     k5_err, k5_time = check_block_correction()
+    if not only_q8:
+        k6_err, k6_time = check_q4_matmul()
     marks.append(("kernels", time.time()))
     if not only_q8:
         check_small_reference()
         check_small_generation()
+        check_small_quant_generation()
     check_small_reference(frozen_quant="int8", loss_impl="chunked")
     marks.append(("references", time.time()))
     if only_q8:
@@ -1504,17 +1951,22 @@ def main(argv=None):
     out_dir = tempfile.mkdtemp(prefix="smoke_export_", dir=build_dir)
     try:
         run_a = run_main_path(model_cfg, "cuda", out_dir=out_dir, keep_decode_params=True)
+        decode_params = run_a.pop("decode_params")
+        report_run("A", "TinyLlama-1.1B bf16, bs 4 x seq 512, remat, attn auto (K3)", run_a, 3)
+        torch.cuda.empty_cache()
+        marks.append(("A", time.time()))
+        # D: the generation eval of A's fine-tuned weights, freed before the rest
+        run_d = run_eval(decode_params, model_cfg)
+        del decode_params
+        torch.cuda.empty_cache()
+        marks.append(("D", time.time()))
+        # F: the eval over the int4 / int8 frozen base, quantized while
+        # loading A's export
+        run_f = run_quantized_eval(os.path.join(out_dir, "final"), model_cfg, run_d["D1"])
+        torch.cuda.empty_cache()
+        marks.append(("F", time.time()))
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
-    decode_params = run_a.pop("decode_params")
-    report_run("A", "TinyLlama-1.1B bf16, bs 4 x seq 512, remat, attn auto (K3)", run_a, 3)
-    torch.cuda.empty_cache()
-    marks.append(("A", time.time()))
-    # D: the generation eval of A's fine-tuned weights, freed before the rest
-    run_d = run_eval(decode_params, model_cfg)
-    del decode_params
-    torch.cuda.empty_cache()
-    marks.append(("D", time.time()))
     # E: as A over the int8 frozen base (K4, K5; int8 head, host offload),
     # with the final export
     out_dir = tempfile.mkdtemp(prefix="smoke_export_", dir=build_dir)
@@ -1560,8 +2012,8 @@ def main(argv=None):
     for tag, run in (("A", run_a), ("B", run_b)):
         if not all(run["launches"][n] > 0 for n in TRAIN_KERNELS):
             raise AssertionError(f"run {tag} did not launch every kernel: {run['launches']}")
-        if any(run["launches"][n] for n in Q8_KERNELS):
-            raise AssertionError(f"run {tag} (bf16 base) launched an int8 kernel: "
+        if any(run["launches"][n] for n in Q8_KERNELS + ("q4_matmul",)):
+            raise AssertionError(f"run {tag} (bf16 base) launched an int8 or int4 kernel: "
                                  f"{run['launches']}")
     if not all(run_e["launches"][n] > 0 for n in TRAIN_KERNELS + Q8_KERNELS):
         raise AssertionError(f"run E did not launch every kernel: {run_e['launches']}")
@@ -1596,7 +2048,9 @@ def main(argv=None):
                          run_e["launches"][name], k4_err[name], *k4_time[name])
                    for name, line in (("q8mm_t", 104), ("q8mm_g", 133))
                    ] + [entry("block_correction", "correction.cu", "correction.py:69",
-                              run_e["launches"]["block_correction"], k5_err, *k5_time)]
+                              run_e["launches"]["block_correction"], k5_err, *k5_time),
+                        entry("q4_matmul", "q4_matmul.cu", "q4_matmul.py:94",
+                              run_f["F1"]["launches"]["q4_matmul"], k6_err, *k6_time)]
     log("[smoke] seconds by phase: " + ", ".join(
         f"{name} {t - prev:.1f}" for (name, t), (_, prev) in zip(marks, [("", t_start)] + marks)))
     log(f"[smoke] time_ms: {TIMER_COUNTS['timings']} timings, {TIMER_COUNTS['retries']} "

@@ -6,9 +6,11 @@ the reference): a full fine-tuning warm-up gathers gradient saliency, the
 most salient 256x256 blocks of q/k/v/gate/up/down are selected, and the
 sparse phase gives gradients and Adam state to those blocks only. The
 module layout and function names mirror the JAX package, so each module's
-counterpart is found by path. Matrix mode, bf16/fp32, one device; the
-selected-block weight gradient (K1) and the block-masked Adam (K2) run as
-CUDA kernels built from csrc/ at first use.
+counterpart is found by path. Matrix mode, bf16/fp32, one device, over a
+dense or int8 frozen base; the generation eval over the dense weights or
+an int8 / int4 frozen base quantized while loading. Each Pallas kernel of
+the JAX package has a hand-written CUDA counterpart, built from csrc/ at
+first use.
 
 This package imports torch and numpy only — never jax.
 """

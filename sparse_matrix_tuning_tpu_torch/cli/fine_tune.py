@@ -9,8 +9,9 @@
       --downsample_mlp_blocks_ratio 0.0084 \
       --output_dir /path/to/out
 
-model_name_or_path must be a local HF checkpoint dir. Runs on the first
-CUDA device when there is one, else on the CPU.
+model_name_or_path must be a local HF checkpoint dir. Runs on the card
+(--device cuda, the default, raises when there is none); --device cpu runs
+the plain versions of the kernels on the CPU.
 """
 
 from __future__ import annotations
@@ -20,10 +21,13 @@ import sys
 
 
 def main(argv=None):
-    from sparse_matrix_tuning_tpu_torch.config import parse_args
-    cfg = parse_args(argv)
+    from sparse_matrix_tuning_tpu_torch.config import build_arg_parser, config_from_args
+    args = build_arg_parser().parse_args(argv)
+    cfg = config_from_args(args)
 
     import torch
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device; pass --device cpu to run on the CPU")
     from sparse_matrix_tuning_tpu_torch.data.sft import make_supervised_data, num_batches
     from sparse_matrix_tuning_tpu_torch.models.hf_io import (
         load_hf_config, load_hf_params, load_hf_tokenizer,
@@ -39,7 +43,7 @@ def main(argv=None):
             f"{cfg.model_name_or_path}: model_name_or_path must be a local "
             "HF checkpoint directory")
 
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = torch.device(args.device)
     print_rank_0(f"[device] {device}")
     tokenizer = load_hf_tokenizer(cfg.model_name_or_path, cfg.max_seq_len,
                                   cfg.add_eot_token)

@@ -13,6 +13,9 @@ Expects {data_path}/{dataset}/test.json with instruction/answer fields
 (reference :270-276). Defaults mirror the reference GenerationConfig:
 beam-4, no sampling, repetition_penalty 1.1, max_new_tokens 256. Runs on
 the card; `--device cpu` runs the plain versions of the kernels on the CPU.
+`--frozen_quant int8|int4` quantizes the checkpoint while loading it and
+decodes over the int8 base (K4) or its int4 requantization (K6), with no
+dense layer weight on the device (load_decode_params).
 """
 
 from __future__ import annotations
@@ -40,8 +43,9 @@ def build_parser():
     p.add_argument("--dtype", type=str, default="bf16", choices=["bf16", "fp32"])
     p.add_argument("--frozen_quant", type=str, default="none",
                    choices=["none", "int8", "int4"],
-                   help="int8/int4 frozen bases are not ported yet; none "
-                        "(default) keeps the exact forward")
+                   help="int8/int4: quantize-on-load, decode over the int8 or "
+                        "int4 frozen base (exact bf16 embeddings and head); "
+                        "none (default) keeps the exact forward")
     p.add_argument("--kv_cache", type=str, default="auto",
                    choices=["auto", "exact", "int8"],
                    help="int8: quantized KV cache (per-slot-per-head scales), "
@@ -61,15 +65,41 @@ def build_parser():
     return p
 
 
+def load_decode_params(model_dir: str, frozen_quant: str = "none", dtype: str = "bf16",
+                       device="cuda", plan=None):
+    """(decode params, LlamaConfig) of a local HF checkpoint on `device`.
+    frozen_quant "none": the dense params in `dtype` ("bf16" or "fp32").
+    "int8" / "int4": quantize-on-load into the int8 scan state, one tensor
+    at a time (train/scan_phase.build_scan_state_from_hf, exact head, no
+    host copies), then decode params over the int8 base or its int4
+    requantization, each int8 module freed as its int4 twin is built.
+    plan: an SMTPlan whose selected blocks the decode keeps exact (the eval
+    CLI passes none: the empty plan)."""
+    from sparse_matrix_tuning_tpu_torch.config import SMTConfig
+    from sparse_matrix_tuning_tpu_torch.eval.generate import decode_params_from_scan
+    from sparse_matrix_tuning_tpu_torch.models.hf_io import load_hf_config, load_hf_params
+    from sparse_matrix_tuning_tpu_torch.smt.plan import SMTPlan
+    from sparse_matrix_tuning_tpu_torch.train.scan_phase import build_scan_state_from_hf
+
+    model_cfg = load_hf_config(model_dir)
+    cfg = SMTConfig(model_name_or_path=model_dir, dtype=dtype, frozen_quant="int8",
+                    head_quant="none")  # decode keeps the exact head
+    if frozen_quant == "none":
+        return load_hf_params(model_dir, model_cfg, dtype=cfg.param_dtype,
+                              device=device), model_cfg
+    state, _ = build_scan_state_from_hf(cfg, model_dir, plan or SMTPlan(mode="matrix"),
+                                        model_cfg, keep_host=False, device=device)
+    return decode_params_from_scan(state, model_cfg, frozen_quant=frozen_quant,
+                                   consume=True), model_cfg
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
 
     import torch
     from sparse_matrix_tuning_tpu_torch.eval.generate import GenerationConfig
     from sparse_matrix_tuning_tpu_torch.eval.harness import make_generate_fn, run_dataset_eval
-    from sparse_matrix_tuning_tpu_torch.models.hf_io import (
-        load_hf_config, load_hf_params, load_hf_tokenizer,
-    )
+    from sparse_matrix_tuning_tpu_torch.models.hf_io import load_hf_tokenizer
     from sparse_matrix_tuning_tpu_torch.utils.logging import print_rank_0, set_random_seed
 
     set_random_seed(args.seed)
@@ -83,17 +113,11 @@ def main(argv=None):
             raise SystemExit(
                 f"{', '.join(knobs)} set but --do_sample is off — sampling knobs have no "
                 "effect on greedy/beam decoding; pass --do_sample or drop them")
-    if args.frozen_quant != "none":
-        raise NotImplementedError(
-            f"--frozen_quant {args.frozen_quant}: decoding from an int8/int4 frozen base "
-            "needs the int8 base (ROADMAP slice 2), the scan training state (slice 3) "
-            "and, for int4, the q4 matmul kernel (slice 5); use --frozen_quant none")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device; pass --device cpu to run on the CPU")
     device = torch.device(args.device)
-    model_cfg = load_hf_config(args.model_name_or_path)
-    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
-    params = load_hf_params(args.model_name_or_path, model_cfg, dtype=dtype, device=device)
+    params, model_cfg = load_decode_params(args.model_name_or_path, args.frozen_quant,
+                                           args.dtype, device)
     # reference tokenizer setup for eval (:228-235): left padding, long cap
     tokenizer = load_hf_tokenizer(args.model_name_or_path, args.max_seq_len)
     tokenizer.padding_side = "left"

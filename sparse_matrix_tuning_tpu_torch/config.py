@@ -212,7 +212,7 @@ def _default_buckets(max_seq_len: int) -> List[int]:
 
 def build_arg_parser() -> argparse.ArgumentParser:
     """The JAX package's CLI flags (config.py build_arg_parser), with
-    sparse_impl choices {oracle, kernel, auto}."""
+    sparse_impl choices {oracle, kernel, auto}, plus --device."""
     p = argparse.ArgumentParser(description="SMT fine-tuning (PyTorch)")
     d = SMTConfig()
     p.add_argument("--data_path", action="append", type=str, required=True)
@@ -280,6 +280,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile_steps", type=int, default=3)
     p.add_argument("--no_gradient_checkpointing", dest="gradient_checkpointing",
                    action="store_false")
+    p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
+                   help="where training runs (cuda: the CUDA kernels; cpu: their plain "
+                        "versions)")
     # launcher-compatibility flags, parsed and ignored
     p.add_argument("--local_rank", type=int, default=-1, help="ignored")
     p.add_argument("--zero_stage", type=int, default=0, help="ignored")
@@ -290,8 +293,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
-def parse_args(argv: Optional[Sequence[str]] = None) -> SMTConfig:
-    ns = build_arg_parser().parse_args(argv)
+def config_from_args(ns: argparse.Namespace) -> SMTConfig:
+    """The SMTConfig of parsed flags (flags that are not config fields, such
+    as --device, are left to the caller)."""
     known = {f.name for f in dataclasses.fields(SMTConfig)}
     kwargs = {k: v for k, v in vars(ns).items() if k in known and v is not None}
     # store_true defaults (False) must not override dataclass defaults of True
@@ -299,3 +303,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> SMTConfig:
         kwargs.pop("compute_fp32_loss")
     return SMTConfig(**kwargs)
 
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> SMTConfig:
+    return config_from_args(build_arg_parser().parse_args(argv))

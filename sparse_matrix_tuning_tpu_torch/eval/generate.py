@@ -188,8 +188,57 @@ def prepare_decode_params(params, model_cfg: LlamaConfig):
 
 def decode_params_from_scan(state, model_cfg: LlamaConfig, host_frozen=None,
                             frozen_quant: str = "int8", consume: bool = False):
-    """Decode params from the int8 scan training state: not ported."""
-    raise NotImplementedError(
-        "decode_params_from_scan needs the int8 scan training state (ROADMAP slice 3, "
-        "on the int8 frozen base of slice 2); decode from trainer.decode_params() "
-        "(the merged dense params) instead")
+    """Decode params straight from the int8 scan state (train/scan_phase.py)
+    with no dense layer weight on the device: the frozen base stays int8
+    (K4), or is requantized to int4 (frozen_quant="int4": K6, half the
+    weight bytes of every decode step), and the selected blocks get their
+    exact trained values through the same delta corrections as the
+    training forward (K5). consume=True frees each int8 module as its int4
+    twin is built (the state becomes decode-only). host_frozen: the
+    host-offload dict, needed to restore an offloaded untied lm_head; decode
+    keeps the exact head, as exports do.
+
+    Returns the params with "layers_q8" = {"q", "t", "idx", "base"} (the
+    JAX layout) and "layers": one dict per layer of views of those leaves
+    and of params["layers_stacked"] ("params"), plus "corr", each planned
+    module's delta and K5 schedule (sparse_linear.dyn_correction): built
+    once here, constant over a decode. No Mosaic layout artifacts (padded
+    packs, transposed scale strips): K6 takes w4 and s4 as they are."""
+    from sparse_matrix_tuning_tpu_torch.ops.sparse_linear import dyn_correction
+    from sparse_matrix_tuning_tpu_torch.train.scan_phase import requantize_scan_base_int4
+
+    if "q" not in state:
+        raise ValueError("decode_params_from_scan needs an int8 scan state (state['q'] missing "
+                         "— frozen_quant=none trainers decode from merged params instead)")
+    p = dict(state["params"])
+    dev = p["embed_tokens"].device
+    if not model_cfg.tie_word_embeddings:
+        head = p.get("lm_head")
+        if head is None or head.dim() != 2:
+            if host_frozen is None or "lm_head" not in host_frozen:
+                raise ValueError("untied lm_head was host-offloaded; pass host_frozen so the "
+                                 "exact head can be restored for decoding")
+            p["lm_head"] = host_frozen["lm_head"].to(dev)
+    if frozen_quant == "int4":
+        q, base = requantize_scan_base_int4(state, consume=consume)
+    elif frozen_quant == "int8":
+        q, base = state["q"], state.get("base", {})
+    else:
+        raise ValueError(f"frozen_quant {frozen_quant!r}: decode supports 'int8' (exact base) "
+                         "or 'int4' (packed)")
+    t, idx = state.get("trainable", {}), state.get("idx", {})
+    dtype = p["embed_tokens"].dtype
+    layers = []
+    for l in range(model_cfg.num_hidden_layers):
+        layers.append({
+            "params": {name: w[l] for name, w in p["layers_stacked"].items()},
+            "q": {mod: {k: v[l] for k, v in qm.items()} for mod, qm in q.items()},
+            "t": {mod: v[l] for mod, v in t.items()},
+            "idx": {mod: {k: v[l] for k, v in meta.items()} for mod, meta in idx.items()},
+            "base": {mod: v[l] for mod, v in base.items()},
+            "corr": {mod: dyn_correction(t[mod][l], base[mod][l], idx[mod]["rb"][l],
+                                         idx[mod]["cb"][l], idx[mod]["valid"][l], dtype, dev)
+                     for mod in t},
+        })
+    p["layers_q8"] = {"q": q, "t": t, "idx": idx, "base": base, "layers": layers}
+    return p

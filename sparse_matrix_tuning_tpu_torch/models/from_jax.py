@@ -4,9 +4,10 @@
 ml_dtypes.bfloat16, e.g. `jax.tree.map(np.asarray, params)`) and returns
 the port's param dict with the same layout, so both packages compute the
 same thing on the same weights; `cache_from_jax` does the same for a
-decode KV cache, and `qstate_from_jax` for the int8 frozen base of a
-converted state. `plan_from_jax` reads an `SMTPlan.to_json()`. None of them
-imports jax.
+decode KV cache, `qstate_from_jax` for the int8 frozen base of a
+converted state, and `scan_state_from_jax` for the int8 scan state
+(train/scan_phase.py). `plan_from_jax` reads an `SMTPlan.to_json()`. None
+of them imports jax.
 """
 
 from __future__ import annotations
@@ -55,6 +56,15 @@ def qstate_from_jax(state, device=None) -> Dict[str, Any]:
     fp32]}}, "q_head": {"wq", "sw"}}, whichever of the two keys the state
     has, dtypes kept (params_from_jax with a dtype would cast the int8)."""
     return {k: params_from_jax(state[k], device=device) for k in ("q", "q_head") if k in state}
+
+
+def scan_state_from_jax(state, device=None) -> Dict[str, Any]:
+    """A JAX int8 scan state (train/scan_phase.py, as numpy arrays) -> the
+    port's: its "params", "q", "trainable", "base" and "idx", leaf for leaf,
+    dtypes kept (int8, int32 and bool included), so both packages decode
+    from one state."""
+    return {k: params_from_jax(state[k], device=device)
+            for k in ("params", "q", "trainable", "base", "idx") if k in state}
 
 
 def plan_from_jax(plan) -> SMTPlan:

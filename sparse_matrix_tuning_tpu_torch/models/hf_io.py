@@ -14,7 +14,7 @@ from __future__ import annotations
 import json
 import os
 import struct
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -35,28 +35,36 @@ _ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
 # safetensors, by hand
 # ---------------------------------------------------------------------------
 
-def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
-    """{name: CPU tensor} from one .safetensors file."""
-    out: Dict[str, torch.Tensor] = {}
+def safetensors_header(path: str) -> Tuple[int, Dict[str, Any]]:
+    """(offset of the data, {name: {"dtype", "shape", "data_offsets"}}) of
+    one .safetensors file, reading only its header."""
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(n))
-        base = 8 + n
-        for name, info in header.items():
-            if name == "__metadata__":
-                continue
-            dtype = _ST_DTYPES[info["dtype"]]
-            shape = tuple(info["shape"])
-            begin, end = info["data_offsets"]
-            if end == begin:
-                out[name] = torch.empty(shape, dtype=dtype)
-                continue
-            buf = bytearray(end - begin)
-            f.seek(base + begin)
-            if f.readinto(buf) != len(buf):
-                raise ValueError(f"{path}: truncated data for {name!r}")
-            out[name] = torch.frombuffer(buf, dtype=dtype).reshape(shape)
-    return out
+    header.pop("__metadata__", None)
+    return 8 + n, header
+
+
+def read_safetensor(path: str, base: int, info: Mapping[str, Any], name: str = "") -> torch.Tensor:
+    """One tensor of a .safetensors file as a CPU tensor, given the file's
+    data offset and the tensor's header entry (safetensors_header)."""
+    dtype = _ST_DTYPES[info["dtype"]]
+    shape = tuple(info["shape"])
+    begin, end = info["data_offsets"]
+    if end == begin:
+        return torch.empty(shape, dtype=dtype)
+    buf = bytearray(end - begin)
+    with open(path, "rb") as f:
+        f.seek(base + begin)
+        if f.readinto(buf) != len(buf):
+            raise ValueError(f"{path}: truncated data for {name!r}")
+    return torch.frombuffer(buf, dtype=dtype).reshape(shape)
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """{name: CPU tensor} from one .safetensors file."""
+    base, header = safetensors_header(path)
+    return {name: read_safetensor(path, base, info, name) for name, info in header.items()}
 
 
 def write_safetensors(tensors: Mapping[str, torch.Tensor], path: str,

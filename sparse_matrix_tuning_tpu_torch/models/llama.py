@@ -510,12 +510,16 @@ def forward_with_cache(params: Mapping[str, Any], input_ids: torch.Tensor,
     Returns (logits fp32, cache).
 
     last_only=True emits logits for the last position only, (B, 1, V): the
-    prefill case (left padding puts the last real token last)."""
-    if "layers_q8" in params or "layers_stacked" in params:
+    prefill case (left padding puts the last real token last).
+
+    params are per-layer ({"layers": ...}, linears through `linear`) or
+    decode params over the int8 / int4 scan state ({"layers_q8": ...},
+    eval/generate.decode_params_from_scan; linears through the scan
+    dispatch, `linear` unused)."""
+    if "layers_stacked" in params and "layers_q8" not in params:
         raise NotImplementedError(
-            "forward_with_cache: int8/int4 scan decode params (layers_q8) need the int8 "
-            "frozen base and the scan state (ROADMAP slices 2 and 3), and the layer-"
-            "stacked form is not ported; pass per-layer params")
+            "forward_with_cache: the dense layer-stacked form is not ported; pass per-layer "
+            "params or eval/generate.decode_params_from_scan's")
     b, s_new = input_ids.shape
     x = F.embedding(input_ids, params["embed_tokens"])
     cos, sin = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
@@ -526,10 +530,25 @@ def forward_with_cache(params: Mapping[str, Any], input_ids: torch.Tensor,
         mask_bias = torch.where(visible_slots(slot_mask, cache_index, s_new), 0.0,
                                 torch.finfo(torch.float32).min)
 
-    for i in range(cfg.num_hidden_layers):
-        li = str(i)
-        x, cache[li] = _cached_layer(params["layers"][li], x, cache[li], cache_index,
-                                     mask_bias, cos, sin, cfg, linear, i, slot_mask)
+    if "layers_q8" in params:
+        # decode over the int8 / int4 frozen base of the scan state
+        # (eval/generate.decode_params_from_scan): each layer's linears go
+        # through the scan dispatch with that layer's views
+        from sparse_matrix_tuning_tpu_torch.train.scan_phase import make_scan_dispatch
+        linear_scan = make_scan_dispatch()
+        for i, ex in enumerate(params["layers_q8"]["layers"]):
+            li = str(i)
+
+            def layer_linear(h, w, module, layer, ex=ex):
+                return linear_scan(h, w, module, ex)
+
+            x, cache[li] = _cached_layer(ex["params"], x, cache[li], cache_index, mask_bias, cos,
+                                         sin, cfg, layer_linear, i, slot_mask)
+    else:
+        for i in range(cfg.num_hidden_layers):
+            li = str(i)
+            x, cache[li] = _cached_layer(params["layers"][li], x, cache[li], cache_index,
+                                         mask_bias, cos, sin, cfg, linear, i, slot_mask)
     if last_only:
         x = x[:, -1:, :]
     x = _rms_norm(x, params["norm"], cfg.rms_norm_eps)

@@ -54,6 +54,8 @@ SIGNATURES = {
     # out, src, delta, run_o, run_start, run_j, idx_in, T, O, I, runs,
     # transpose, dtype, stream
     "smt_block_correction": (P, P, P, P, P, P, P, I, I, I, I, I, I, P),
+    # x, w4, s4, ws, out, T, O, K, splits, out dtype, stream
+    "smt_q4mm": (P, P, P, P, P, I, I, I, I, I, P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

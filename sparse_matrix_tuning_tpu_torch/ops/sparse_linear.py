@@ -25,6 +25,21 @@ blocks exactly) and only the frozen rest carries int8 noise. The base
 products are K4 (ops/cuda/q8_matmul.py), both corrections K5
 (ops/cuda/correction.py), each on CUDA tensors, their plain versions on
 CPU tensors; the block gradient is the same K1 formula as above.
+
+Decode over the stacked scan state (`smt_linear_dyn`, forward only; twin
+of the JAX function of that name) takes the block coordinates of one
+layer, padded to the module's largest count with `valid` marking the real
+ones, and a frozen base that is int4 ({"w4", "s4"}: K6 through
+ops/quant.q4_matmul_t), int8 ({"wq", "sw"}: K4) or dense ({"w"}):
+
+    y = base(x) + sum_j x[:, cb_j] @ delta_j^T   at rows rb_j
+    delta_j = (blocks_j - base_j) * valid_j, in x's dtype
+
+The correction is K5 over the valid entries only (a padded entry's delta
+is 0). JAX's decode adds the entries one by one, rounding to the output
+dtype after each (its "oracle" chain, `_dyn_correction`); K5 rounds once
+per out block. In fp32 the two differ by a few ulps of the output, far
+below the tests' tolerances.
 """
 
 from __future__ import annotations
@@ -36,8 +51,9 @@ import torch
 from sparse_matrix_tuning_tpu_torch.ops.cuda.block_grad import (
     block_grad, block_grad_plain as _block_grad_weight_plain)
 from sparse_matrix_tuning_tpu_torch.ops.cuda.correction import (
-    CorrectionSchedule, block_correction)
-from sparse_matrix_tuning_tpu_torch.ops.quant import q8_matmul, q8_matmul_t
+    CorrectionSchedule, block_correction, correction_schedule)
+from sparse_matrix_tuning_tpu_torch.ops.quant import (
+    dequantize_weight_int4, q4_matmul_t, q8_matmul, q8_matmul_t)
 from sparse_matrix_tuning_tpu_torch.smt.plan import LinearPlan, key_str
 
 
@@ -171,6 +187,80 @@ def frozen_q8_linear(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor) -> tor
     gradient. Straight-through: autograd through round/clip would give zero
     input gradients."""
     return _FrozenQ8Linear.apply(x, wq, sw)
+
+
+class _FrozenQ4Linear(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w4, s4):
+        ctx.save_for_backward(w4, s4)
+        return q4_matmul_t(x, w4, s4)
+
+    @staticmethod
+    def backward(ctx, g):
+        w4, s4 = ctx.saved_tensors
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        return torch.matmul(g, dequantize_weight_int4(w4, s4, g.dtype)), None, None
+
+
+def frozen_q4_linear(x: torch.Tensor, w4: torch.Tensor, s4: torch.Tensor) -> torch.Tensor:
+    """y = x @ dequant4(W).T for a fully-frozen linear over the int4 base
+    (decode; ops/quant.py int4 notes). Straight-through input gradient
+    against the dequantized weight, as in JAX; no weight gradient. The
+    stacked form (JAX's frozen_q4_linear_stacked) is this function on the
+    layer views w4s[l], s4s[l]."""
+    return _FrozenQ4Linear.apply(x, w4, s4)
+
+
+# ---------------------------------------------------------------------------
+# Decode over the stacked scan state (forward of smt_linear_dyn)
+# ---------------------------------------------------------------------------
+
+def _base_matmul(x: torch.Tensor, frozen: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """The frozen base's product: {"w4", "s4"} int4, {"wq", "sw"} int8,
+    {"w"} dense."""
+    if "w4" in frozen:
+        return q4_matmul_t(x, frozen["w4"], frozen["s4"])
+    if "wq" in frozen:
+        return q8_matmul_t(x, frozen["wq"], frozen["sw"])
+    return torch.matmul(x, frozen["w"].t())
+
+
+def _dyn_delta(blocks, base_blocks, valid, dtype) -> torch.Tensor:
+    return ((blocks - base_blocks) * valid.to(blocks.dtype)[:, None, None]).to(dtype)
+
+
+def dyn_correction(blocks, base_blocks, rb, cb, valid, dtype, device
+                   ) -> Tuple[torch.Tensor, CorrectionSchedule]:
+    """One layer's forward correction: (delta of the valid entries, in
+    `dtype`, contiguous; K5's schedule for them on `device`). Constant over
+    a decode, so eval/generate.decode_params_from_scan builds it once."""
+    keep = torch.nonzero(valid.to("cpu")).reshape(-1)
+    delta = _dyn_delta(blocks, base_blocks, valid, dtype)[keep.to(blocks.device)]
+    sched = correction_schedule(rb.to("cpu")[keep].numpy(), cb.to("cpu")[keep].numpy(), device)
+    return delta.contiguous(), sched
+
+
+def _dyn_forward(x, frozen, delta, sched) -> torch.Tensor:
+    y = _base_matmul(x, frozen)
+    y2 = y.reshape(-1, y.shape[-1])
+    # y[:, rb] += x[:, cb] @ delta^T, in place (y is a new tensor)
+    block_correction(y2, x.reshape(-1, x.shape[-1]).contiguous(), delta, sched, transpose=True)
+    return y
+
+
+def smt_linear_dyn(x, blocks, rb, cb, valid, frozen, base_blocks, correction=None):
+    """Block-sparse linear over a frozen base with one layer's padded block
+    coordinates (module notes), forward only: blocks / base_blocks (n,
+    256, 256), rb / cb (n,) int, valid (n,) bool. correction: the
+    precomputed `dyn_correction(...)` pair (built here when omitted).
+    The backward waits for the continuation-training slice."""
+    if torch.is_grad_enabled() and (x.requires_grad or blocks.requires_grad):
+        raise NotImplementedError("smt_linear_dyn: the backward (continuation training from "
+                                  "the scan state) is not ported; call it under no_grad")
+    if correction is None:
+        correction = dyn_correction(blocks, base_blocks, rb, cb, valid, x.dtype, x.device)
+    return _dyn_forward(x, frozen, *correction)
 
 
 # ---------------------------------------------------------------------------

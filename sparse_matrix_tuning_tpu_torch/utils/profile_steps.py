@@ -16,12 +16,19 @@ eval CLI's settings (beam-4, repetition penalty 1.1, bf16 cache, attention
 through K7) on 16 prompts left-padded to 256 tokens; a call with one new
 token is the prefill (and one beam selection), and a call with 1 +
 DECODE_STEPS new tokens adds DECODE_STEPS decode steps, so a decode step is
-the difference over DECODE_STEPS.
+the difference over DECODE_STEPS. The decode is profiled twice: over the
+dense bf16 weights, and over the int4 frozen base (the same weights
+written as an HF checkpoint under build/ and loaded by the eval CLI's
+load_decode_params with --frozen_quant int4: K6 on every linear), with the
+share of device time in K6 and K7.
 """
 
 from __future__ import annotations
 
+import os
+import shutil
 import statistics
+import tempfile
 import time
 
 import numpy as np
@@ -86,13 +93,26 @@ def _profile_step(trainer, batches, label):
     return busy_ms, kernels
 
 
-def profile_decode(model_cfg, device):
-    """The decode leg (module docstring)."""
+def profile_decode(model_cfg, device, frozen_quant: str = "none"):
+    """The decode leg (module docstring), over the dense weights or
+    (frozen_quant "int4") over the int4 frozen base."""
     from sparse_matrix_tuning_tpu_torch.eval.generate import GenerationConfig, generate
     from sparse_matrix_tuning_tpu_torch.models.llama import init_params
     from sparse_matrix_tuning_tpu_torch.ops.cuda import cached_attention as k7
 
     params = init_params(model_cfg, seed=0, dtype=torch.bfloat16, device=device)
+    if frozen_quant != "none":
+        from sparse_matrix_tuning_tpu_torch.cli.run_commonsense import load_decode_params
+        from sparse_matrix_tuning_tpu_torch.models.hf_io import save_hf_format
+        build = os.path.join(os.path.dirname(__file__), "..", "..", "build")
+        os.makedirs(build, exist_ok=True)
+        ckpt = tempfile.mkdtemp(prefix="profile_ckpt_", dir=build)
+        try:
+            save_hf_format(params, model_cfg, ckpt)
+            del params
+            params, _ = load_decode_params(ckpt, frozen_quant, "bf16", device)
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
     rng = np.random.default_rng(1)
     ids = np.zeros((EVAL_BATCH, PROMPT), np.int32)
     mask = np.zeros_like(ids)
@@ -111,8 +131,10 @@ def profile_decode(model_cfg, device):
     p1 = _profiled(run(1))
     pn = _profiled(run(n))
     k7_launches = k7.LAUNCHES["cached_attn"] - launches0["cached_attn"]
+    base = "bf16 weights" if frozen_quant == "none" else f"{frozen_quant} frozen base"
     print(f"[profile] decode: {torch.cuda.get_device_name(0)}, TinyLlama-1.1B geometry, "
-          f"{EVAL_BATCH} prompts x 4 beams, prompt bucket {PROMPT}, bf16 cache, K7", flush=True)
+          f"{base}, {EVAL_BATCH} prompts x 4 beams, prompt bucket {PROMPT}, bf16 cache, K7",
+          flush=True)
     print(f"[profile] prefill (+ one beam selection): wall {walls[1]:.1f} ms not profiled "
           f"(median of {TIMED}), {p1[0]:.1f} ms profiled; device busy {p1[1]:.2f} ms in "
           f"{p1[2]} kernels, idle share {max(0.0, 1 - p1[1] / p1[0]):.3f}", flush=True)
@@ -122,13 +144,21 @@ def profile_decode(model_cfg, device):
           f"profiled; device busy {step[1]:.2f} ms in {step[2]:.0f} kernels, idle share "
           f"of the unprofiled wall {max(0.0, 1 - step[1] / wall):.3f}; K7 launches over the "
           f"two profiled calls {k7_launches}", flush=True)
-    _print_top(f"generate({n} new tokens)", (("kernel", pn[3]),))
+    own = {name: (sum(_device_us(e) for e in pn[3] if part in e.key)
+                  - sum(_device_us(e) for e in p1[3] if part in e.key)) / 1e3 / DECODE_STEPS
+           for name, part in OWN_KERNELS.items() if name.startswith(("K6", "K7"))}
+    print(f"[profile] decode step ({base}): device time in the port's kernels, ms (share of "
+          f"{step[1]:.2f} ms busy): " + ", ".join(
+              f"{name} {ms:.3f} ({ms / max(step[1], 1e-9):.3f})" for name, ms in own.items()),
+          flush=True)
+    _print_top(f"generate({n} new tokens, {base})", (("kernel", pn[3]),))
 
 
 # device kernels of the port's own, by a part of their name
 OWN_KERNELS = {"K4 q8_matmul": "q8mm_kernel", "K5 block_correction": "correction_",
                "K1 block_grad": "block_grad_", "K2 masked_adam": "masked_adam",
-               "K3 attention": "attn_"}
+               "K3 attention": "attn_", "K6 q4_matmul": "q4mm_",
+               "K7 cached_attention": "cached_attn"}
 
 
 def profile_training(model_cfg, device, frozen_quant: str):
@@ -196,7 +226,9 @@ def main():
     for frozen_quant in ("none", "int8"):
         profile_training(model_cfg, device, frozen_quant)
         torch.cuda.empty_cache()
-    profile_decode(model_cfg, device)
+    for frozen_quant in ("none", "int4"):
+        profile_decode(model_cfg, device, frozen_quant)
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -267,8 +267,11 @@ def test_cached_attn_policy_warns_only_on_a_hidden_einsum(monkeypatch):
 
 
 def test_scan_decode_params_are_refused(weights):
+    """The dense layer-stacked decode form is not ported (the quantized
+    scan form, layers_q8, is: tests/test_torch_q4_decode.py)."""
     _, pp = weights
-    with pytest.raises(NotImplementedError, match="slices 2 and 3"):
-        llama.forward_with_cache({**pp, "layers_q8": {}}, torch.zeros((1, 1), dtype=torch.long),
+    with pytest.raises(NotImplementedError, match="layer-stacked form is not ported"):
+        llama.forward_with_cache({**pp, "layers_stacked": {}},
+                                 torch.zeros((1, 1), dtype=torch.long),
                                  PCFG, {}, 0, torch.ones((1, 4), dtype=torch.int32),
                                  torch.zeros((1, 1), dtype=torch.long))

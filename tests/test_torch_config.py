@@ -149,6 +149,7 @@ def test_fine_tune_cli_end_to_end(tiny_hf, tmp_path, extra):
     out = tmp_path / "out"
     history = main(extra + [
         "--model_name_or_path", d, "--data_path", data, "--output_dir", str(out),
+        "--device", "cpu",
         "--matrix_sparsity", "--full_ft_steps", "1",
         "--downsample_attention_blocks_ratio", "0.2",
         "--downsample_mlp_blocks_ratio", "0.2",
@@ -168,3 +169,20 @@ def test_fine_tune_cli_end_to_end(tiny_hf, tmp_path, extra):
     back = load_hf_params(str(out / "final"), load_hf_config(str(out / "final")),
                           dtype=torch.float32)
     assert back["layers"]["0"]["q_proj"].shape == (256, 256) and back["lm_head"].shape == (512, 256)
+
+
+def test_fine_tune_cli_cuda_without_a_card_raises(tiny_hf, tmp_path, monkeypatch):
+    """The trainer runs on the card unless --device cpu is given: without
+    CUDA, the default raises before any step and never falls back."""
+    from sparse_matrix_tuning_tpu_torch.cli.fine_tune import main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from sparse_matrix_tuning_tpu_torch.config import build_arg_parser
+    _, d, data = tiny_hf
+    out = tmp_path / "out"
+    args = ["--model_name_or_path", d, "--data_path", data, "--output_dir", str(out),
+            "--matrix_sparsity", "--full_ft_steps", "1", "--dtype", "fp32"]
+    assert build_arg_parser().parse_args(args).device == "cuda"
+    for extra in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(args + extra)
+    assert not out.exists()

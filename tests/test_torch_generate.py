@@ -157,8 +157,8 @@ def test_generate_refuses_bad_requests(weights):
                       pgen.GenerationConfig(do_sample=True, temperature=0.0), device="cpu")
     with pytest.raises(ValueError, match="params are on cpu"):
         pgen.generate(pp, PCFG, ids, mask, pgen.GenerationConfig())  # default: the card
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        pgen.decode_params_from_scan({}, PCFG)
+    with pytest.raises(ValueError, match="int8 scan state"):
+        pgen.decode_params_from_scan({}, PCFG)  # no int8 base to decode from
 
 
 def test_trainer_decode_params_feed_generate():
@@ -248,8 +248,12 @@ def tiny_hf_dir(tmp_path_factory):
     return str(d)
 
 
-@pytest.mark.parametrize("beams", [4, 1])
-def test_cli_matches_jax(tiny_hf_dir, tmp_path, beams):
+@pytest.mark.parametrize("beams,quant", [
+    pytest.param(4, "none", id="4"), pytest.param(1, "none", id="1"),
+    pytest.param(4, "int8", id="4-int8"), pytest.param(4, "int4", id="4-int4")])
+def test_cli_matches_jax(tiny_hf_dir, tmp_path, beams, quant):
+    """--frozen_quant int8 / int4: quantize-on-load and the decode over the
+    int8 base (K4's plain version) or the int4 base (K6's)."""
     from sparse_matrix_tuning_tpu.cli.run_commonsense import main as jax_main
     from sparse_matrix_tuning_tpu_torch.cli.run_commonsense import main
 
@@ -261,7 +265,8 @@ def test_cli_matches_jax(tiny_hf_dir, tmp_path, beams):
         (data / ds / "test.json").write_text(json.dumps(examples))
     args = ["--model_name_or_path", tiny_hf_dir, "--data_path", str(data),
             "--datasets", "boolq", "gsm8k", "--per_device_eval_batch_size", "3",
-            "--max_new_tokens", "6", "--num_beams", str(beams), "--dtype", "fp32"]
+            "--max_new_tokens", "6", "--num_beams", str(beams), "--dtype", "fp32",
+            "--frozen_quant", quant]
     want = jax_main(args + ["--output_dir", str(tmp_path / "jax")])
     got = main(args + ["--output_dir", str(tmp_path / "port"), "--device", "cpu"])
     assert got == want
@@ -275,10 +280,8 @@ def test_cli_matches_jax(tiny_hf_dir, tmp_path, beams):
 def test_cli_refuses_what_is_not_ported(tmp_path):
     from sparse_matrix_tuning_tpu_torch.cli.run_commonsense import build_parser, main
     base = ["--model_name_or_path", str(tmp_path), "--data_path", str(tmp_path)]
-    for quant in ("int8", "int4"):
-        with pytest.raises(NotImplementedError, match="slice 2"):
-            main(base + ["--frozen_quant", quant, "--device", "cpu"])
     with pytest.raises(SystemExit):
         main(base + ["--top_k", "5", "--device", "cpu"])  # sampling knob without --do_sample
     assert build_parser().parse_args(base + ["--kv_cache", "int8"]).kv_cache == "int8"
     assert build_parser().parse_args(base).device == "cuda"
+    assert build_parser().parse_args(base + ["--frozen_quant", "int4"]).frozen_quant == "int4"

@@ -34,7 +34,8 @@ bad = sorted(m for m in sys.modules
              or m == "sparse_matrix_tuning_tpu" or m.startswith("sparse_matrix_tuning_tpu."))
 print(len(names), bad)
 need = {pkg.__name__ + m for m in (".ops.quant", ".ops.loss", ".ops.cuda.q8_matmul",
-                                   ".ops.cuda.correction")}
+                                   ".ops.cuda.correction", ".ops.cuda.q4_matmul",
+                                   ".train.scan_phase")}
 sys.exit(1 if bad or len(names) < 20 or not need <= set(names) else 0)
 """
 
