@@ -10,11 +10,16 @@ Phases, in order; any failure raises and the exit code is non-zero:
   3. each kernel against its plain PyTorch version at the main path's
      shapes, with its time beside the plain version's and a library
      path's: K1/K2 at the two widest TinyLlama linears; K3 (attention
-     forward, delta, dK/dV, dQ) at five shapes (K3_SHAPES), timed at the
-     first two beside torch SDPA, with each path's fwd+bwd peak memory;
-     K7 (cached attention, bf16/fp32 and int8 caches) at eight shapes
-     (K7_SHAPES), each with planted faults the check must reject, timed at
-     five beside torch SDPA with a boolean mask; K4 (the int8 matmul
+     forward, delta, dK/dV over the planned q-head partitions with its
+     reduce, dQ) at five shapes (K3_SHAPES), with a dropped partition the
+     check must reject and two dK/dV launches equal bit for bit, timed at
+     the first three beside torch SDPA's forward and backward, dK/dV at
+     every partition count, with each path's fwd+bwd peak memory; K7
+     (cached attention, bf16/fp32 and int8 caches) at eleven shapes
+     (K7_SHAPES), each with planted faults the check must reject, split
+     over the cache and combined where the rows fit one CTA (a dropped
+     split rejected, repeat launches equal), timed at eight beside torch
+     SDPA with a boolean mask and at several split counts; K4 (the int8 matmul
      with fused scales, t and g forms) at six shapes (K4_SHAPES: the
      TinyLlama linears and head, a ragged chunk, Llama-3-8B's gate), equal
      to its plain version bit for bit, with a planted fault, timed at four
@@ -47,7 +52,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
      tokens) on 16 synthetic prompts of 60..256 ids (S = 512): D1 bf16
      cache, D2 greedy,
      D3 int8 cache (each must launch K7), D4 as D1 with the einsum
-     attention at 64 new tokens (no K7 launch allowed); per leg prefill ms,
+     attention at 64 new tokens (no K7 launch allowed), D5 one 1900-token
+     prompt, greedy, 64 new tokens, through eval/generate (K7 split over
+     the cache: cached_attn_combine must launch), against the same with one
+     split; per leg prefill ms,
      decode ms/step, tokens/s, peak memory and launches; D1's and D4's
      prefill logits against the same prefill with fp32 attention;
   7. run F (after D), the same eval over a quantized frozen base, each
@@ -68,8 +76,8 @@ cache, greedy and beam-4) on the GPU against the CPU, tokens identical.
 The line before the last is a JSON object of the kernels' numbers; the
 last line is {"ok": true, "device": {...}}. `--only q8` stops after the
 build, the K4 / K5 checks and the tiny int8 reference; `--only q4` after
-the build, the K6 checks and the tiny quantized generation; neither prints
-a result.
+the build, the K6 checks and the tiny quantized generation; `--only attn`
+after the build and the K3 / K7 checks; none of them prints a result.
 """
 
 from __future__ import annotations
@@ -96,7 +104,7 @@ K1_N = 24
 K1_RTOL, K1_ATOL = 2e-2, 2e-1       # the JAX suite's bf16 block-grad tolerance
 K1_F32_RTOL, K1_F32_ATOL = 1e-5, 1e-4  # and its fp32 one
 K2_RTOL, K2_ATOL = 1e-6, 1e-9       # both compute in fp32, operation for operation
-# K3 shapes (b, s, hq, hkv, hd, dtype, what); the first two are timed
+# K3 shapes (b, s, hq, hkv, hd, dtype, what); the first three are timed
 K3_SHAPES = [
     (4, 512, 32, 4, 64, "bf16", "TinyLlama, the main path"),
     (2, 2048, 32, 4, 64, "bf16", "TinyLlama at the recipe's length"),
@@ -104,25 +112,30 @@ K3_SHAPES = [
     (2, 1000, 32, 4, 64, "bf16", "ragged"),
     (2, 700, 8, 2, 64, "fp32", "fp32"),
 ]
-K3_TIMED = 2
+K3_TIMED = 3
 # (fwd rtol, atol), (grads rtol, atol). bf16: the JAX suite's
 # (tests/test_attention_kernel.py:40, 67). fp32: looser than the CPU
 # suite's 2e-6 because the order of the sums over up to 2048 keys and the
 # online-softmax rescaling differ from the plain version's.
 K3_TOL = {"bf16": ((2e-2, 1e-1), (4e-2, 4e-1)), "fp32": ((1e-5, 1e-5), (1e-4, 1e-4))}
-K3_KERNELS = ("attn_fwd", "attn_bwd_delta", "attn_bwd_dkdv", "attn_bwd_dq")
+K3_KERNELS = ("attn_fwd", "attn_bwd_delta", "attn_bwd_dkdv", "attn_bwd_dkdv_reduce", "attn_bwd_dq")
 TRAIN_KERNELS = ("block_grad", "masked_adam") + K3_KERNELS
 # K7 shapes (b, t, hq, hkv, hd, s, cache_index, q dtype, cache dtype, what, timed)
 K7_SHAPES = [
     (64, 1, 32, 4, 64, 512, 300, "bf16", "bf16", "TinyLlama eval decode, 16 prompts x 4 beams",
      True),
     (64, 1, 32, 4, 64, 512, 300, "bf16", "int8", "TinyLlama eval decode, int8 cache", True),
+    (16, 1, 32, 4, 64, 512, 300, "bf16", "bf16", "TinyLlama greedy decode, 16 prompts", True),
+    (1, 1, 32, 4, 64, 2048, 1900, "bf16", "bf16", "TinyLlama decode of one 1.9k-token prompt (D5)",
+     True),
     (16, 256, 32, 4, 64, 512, 0, "bf16", "bf16", "TinyLlama eval prefill", True),
     (16, 1, 32, 8, 128, 4096, 3840, "bf16", "bf16", "Llama-3-8B geometry decode", True),
     (16, 1, 32, 8, 128, 4096, 3840, "bf16", "int8", "Llama-3-8B geometry decode, int8 cache", True),
     (4, 512, 32, 8, 128, 4096, 1024, "bf16", "bf16", "Llama-3-8B geometry prefill chunk", False),
     (2, 9, 8, 2, 64, 700, 687, "fp32", "fp32", "fp32, ragged S", False),
     (2, 9, 8, 2, 64, 700, 687, "fp32", "int8", "int8 cache on fp32", False),
+    (1, 1, 32, 8, 128, 16384, 16000, "bf16", "bf16",
+     "many splits: Llama-3-8B geometry decode, one sequence, 16k cache", True),
 ]
 # fp32 and int8-on-fp32: (rtol, atol) of the JAX suite
 # (tests/test_cached_attention.py:85). bf16: max |kernel - plain| at most
@@ -135,7 +148,7 @@ K7_SHAPES = [
 # their typical |o| is sqrt(e / slots), 0.03 at the 8B geometry's 3840.
 K7_TOL = {"fp32": (2e-3, 2e-3)}
 K7_BF16_REL = 1e-2
-K7_KERNELS = ("cached_attn", "cached_attn_q8")
+K7_KERNELS = ("cached_attn", "cached_attn_q8", "cached_attn_combine")
 # K4 shapes (T, K, O, out dtype, what, timed); each runs the t form
 # (T, K) x (O, K)^T -> (T, O) and the g form (T, O) x (O, K) -> (T, K)
 K4_SHAPES = [
@@ -449,18 +462,52 @@ def _k3_case(b, s, hq, hkv, hd, dtype, rng):
     dk_ref, dv_ref = k3.attn_bwd_dkdv_plain(q, k, v, do, lse_ref, delta_ref, sm)
     dq_ref = k3.attn_bwd_dq_plain(q, k, v, do, lse_ref, delta_ref, sm)
     errs = {}
-    for name, got, want, (rtol, atol) in (
-            ("o", o, o_ref, (f_rtol, f_atol)), ("lse", lse, lse_ref, (f_rtol, f_atol)),
-            ("delta", delta, delta_ref, (f_rtol, f_atol)),
-            ("dq", dq, dq_ref, (g_rtol, g_atol)), ("dk", dk, dk_ref, (g_rtol, g_atol)),
-            ("dv", dv, dv_ref, (g_rtol, g_atol))):
+    checks = [("o", o, o_ref, (f_rtol, f_atol)), ("lse", lse, lse_ref, (f_rtol, f_atol)),
+              ("delta", delta, delta_ref, (f_rtol, f_atol)),
+              ("dq", dq, dq_ref, (g_rtol, g_atol)), ("dk", dk, dk_ref, (g_rtol, g_atol)),
+              ("dv", dv, dv_ref, (g_rtol, g_atol))]
+    g = hq // hkv
+    plan = k3.plan_partitions(b, s, hq, hkv) if dtype == "bf16" else 1
+    info = {"P": plan}
+    if dtype == "bf16" and g > 1:
+        # the partials at a P > 1 (the plan's, else 2), the reduce alone
+        # against its plain version, the whole against the plain dK/dV;
+        # a dropped q-head partition must be rejected; two launches equal
+        # bit for bit
+        pf = plan if plan > 1 else min(p for p in range(2, g + 1) if g % p == 0)
+        ws = k3.attn_bwd_dkdv_partials(q, k, v, do, lse_ref, delta, sm, pf)
+        dk_p, dv_p = k3.attn_bwd_dkdv_reduce(ws, k.dtype)
+        red_ref = k3.attn_bwd_dkdv_reduce_plain(ws, k.dtype)
+        torch.cuda.synchronize()
+        errs["reduce"] = max(float((x.float() - y.float()).abs().max())
+                             for x, y in zip((dk_p, dv_p), red_ref))
+        # both round the same fp32 sum (in another order) to bf16 once
+        if errs["reduce"] > 2.0 ** -7 * max(float(y.float().abs().max()) for y in red_ref):
+            raise AssertionError(f"K3 attn_bwd_dkdv_reduce: max abs err {errs['reduce']:.3e}")
+        checks += [(f"dk P={pf}", dk_p, dk_ref, (g_rtol, g_atol)),
+                   (f"dv P={pf}", dv_p, dv_ref, (g_rtol, g_atol))]
+        dropped = ws.clone()
+        dropped[:, 0] = 0
+        for name, got, want in zip(("dk", "dv"), k3.attn_bwd_dkdv_reduce(dropped, k.dtype),
+                                   (dk_ref, dv_ref)):
+            if torch.allclose(got.float(), want.float(), rtol=g_rtol, atol=g_atol):
+                raise AssertionError(f"K3 {name}: the check passes a planted fault, q-head "
+                                     f"partition 0 of {pf} dropped")
+        info["fault_P"] = pf
+        again = k3.attn_bwd_dkdv(q, k, v, do, lse_ref, delta, sm)
+        if not (torch.equal(again[0], dk) and torch.equal(again[1], dv)):
+            raise AssertionError("K3 attn_bwd_dkdv: two launches differ")
+        info["repeat_equal"] = True
+        del ws, dropped, again
+    for name, got, want, (rtol, atol) in checks:
         assert got.shape == want.shape and got.dtype == want.dtype, name
         torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol,
                                    msg=lambda m, name=name: f"K3 {name}: {m}")
         errs[name] = float((got.float() - want.float()).abs().max())
     per_kernel = {"attn_fwd": max(errs["o"], errs["lse"]), "attn_bwd_delta": errs["delta"],
-                  "attn_bwd_dkdv": max(errs["dk"], errs["dv"]), "attn_bwd_dq": errs["dq"]}
-    return errs, per_kernel, (q, k, v, do, sm, o_ref, lse_ref, delta)
+                  "attn_bwd_dkdv": max(v_ for n, v_ in errs.items() if n[:2] in ("dk", "dv")),
+                  "attn_bwd_dkdv_reduce": errs.get("reduce", 0.0), "attn_bwd_dq": errs["dq"]}
+    return errs, per_kernel, info, (q, k, v, do, sm, o_ref, lse_ref, delta)
 
 
 def _peak_gib(fn):
@@ -492,14 +539,36 @@ def _k3_times(q, k, v, do, sm, o, lse, delta):
         "attn_bwd_dq": (time_ms(lambda: k3.attn_bwd_dq(q, k, v, do, lse, delta, sm)),
                         time_ms(lambda: k3.attn_bwd_dq_plain(q, k, v, do, lse, delta, sm))),
     }
-    t["bwd_kernels_sum"] = tuple(sum(t[n][i] for n in K3_KERNELS[1:]) for i in (0, 1))
+    t["bwd_kernels_sum"] = tuple(sum(t[n][i] for n in ("attn_bwd_delta", "attn_bwd_dkdv",
+                                                       "attn_bwd_dq")) for i in (0, 1))
     t["attn_fwd_repeat"] = time_ms(lambda: k3.attn_fwd(q, k, v, sm))
+    b, s, hq, _ = q.shape
+    g = hq // k.shape[2]
+    plan = k3.plan_partitions(b, s, hq, k.shape[2])
+    # dK/dV with its reduce at every partition count; the reduce alone
+    t["dkdv_by_P"] = {p: time_ms(lambda p=p: k3.attn_bwd_dkdv(q, k, v, do, lse, delta, sm,
+                                                              partitions=p))
+                      for p in range(1, g + 1) if g % p == 0}
+    if plan > 1:
+        ws = k3.attn_bwd_dkdv_partials(q, k, v, do, lse, delta, sm, plan)
+        t["attn_bwd_dkdv_reduce"] = (time_ms(lambda: k3.attn_bwd_dkdv_reduce(ws, k.dtype)),
+                                     time_ms(lambda: k3.attn_bwd_dkdv_reduce_plain(ws, k.dtype)))
+        del ws
+    else:
+        t["attn_bwd_dkdv_reduce"] = (None, None)
     qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))  # SDPA's (B, H, S, hd)
 
     def sdpa():
         return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
 
     t["sdpa_fwd"] = time_ms(sdpa)
+    # SDPA's backward alone, on a retained graph
+    sq, sk, sv = (x.detach().requires_grad_() for x in (qs, ks, vs))
+    out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True, enable_gqa=True)
+    dos = do.transpose(1, 2)
+    t["sdpa_bwd"] = time_ms(lambda: torch.autograd.grad(out, (sq, sk, sv), dos,
+                                                        retain_graph=True))
+    del out, sq, sk, sv
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
 
     def fwd_bwd(attn):
@@ -526,18 +595,23 @@ def _k3_times(q, k, v, do, sm, o, lse, delta):
     return t
 
 
-def _k3_bounds(b, s, hq, hkv, hd, dtype):
+def _k3_bounds(b, s, hq, hkv, hd, dtype, partitions=1):
     """{kernel: bound()} from the shapes: causal (query, key) pairs, each
     input read once and each output written once."""
     e = 2 if dtype == "bf16" else 4
     pairs = b * hq * s * (s + 1) / 2
     qb, kvb, vec = b * s * hq * hd * e, b * s * hkv * hd * e, b * hq * s * 4
-    return {
+    out = {
         "attn_fwd": bound(2 * qb + 2 * kvb + vec, 4 * hd * pairs, dtype),
         "attn_bwd_delta": bound(2 * qb + vec, 2 * b * s * hq * hd, dtype),
         "attn_bwd_dkdv": bound(2 * qb + 4 * kvb + 2 * vec, 8 * hd * pairs, dtype),
         "attn_bwd_dq": bound(3 * qb + 2 * kvb + 2 * vec, 6 * hd * pairs, dtype),
     }
+    if partitions > 1:  # the reduce: P fp32 partials of dK and dV read, dK and dV written
+        n = b * s * hkv * hd
+        out["attn_bwd_dkdv_reduce"] = bound(2 * partitions * n * 4 + 2 * kvb,
+                                            2 * (partitions - 1) * n, "fp32")
+    return out
 
 
 def check_attention():
@@ -550,27 +624,36 @@ def check_attention():
     worst = {n: 0.0 for n in K3_KERNELS}
     main_times = None
     for i, (b, s, hq, hkv, hd, dtype, what) in enumerate(K3_SHAPES):
-        errs, per_kernel, args = _k3_case(b, s, hq, hkv, hd, dtype, rng)
+        errs, per_kernel, info, args = _k3_case(b, s, hq, hkv, hd, dtype, rng)
         for n, e in per_kernel.items():
             worst[n] = max(worst[n], e)
         shape = f"b{b} s{s} hq{hq} hkv{hkv} hd{hd} {dtype}"
-        log(f"[K3 attention] {shape} ({what}): max_abs_err " + ", ".join(
-            f"{n} {e:.3e}" for n, e in errs.items()))
+        log(f"[K3 attention] {shape} ({what}): planned partitions P={info['P']}; max_abs_err "
+            + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+            + (f"; planted fault rejected: q-head partition 0 of {info['fault_P']} dropped; "
+               f"two launches equal bit for bit" if "fault_P" in info else ""))
         if i < K3_TIMED:
             t = _k3_times(*args)
+            red = t["attn_bwd_dkdv_reduce"]
             log(f"[K3 attention] time at {shape}: " + "; ".join(
                 f"{n} {t[n][0]:.4f} ms (plain {t[n][1]:.4f})"
-                for n in (*K3_KERNELS, "bwd_kernels_sum")) +
-                f"; fwd repeat {t['attn_fwd_repeat']:.4f}; torch SDPA fwd {t['sdpa_fwd']:.4f}")
+                for n in ("attn_fwd", "attn_bwd_delta", "attn_bwd_dkdv", "attn_bwd_dq",
+                          "bwd_kernels_sum")) +
+                (f"; attn_bwd_dkdv_reduce alone {red[0]:.4f} ms (plain {red[1]:.4f})"
+                 if red[0] is not None else "") +
+                f"; fwd repeat {t['attn_fwd_repeat']:.4f}; torch SDPA fwd {t['sdpa_fwd']:.4f}, "
+                f"bwd {t['sdpa_bwd']:.4f}")
+            log(f"[K3 attention] dK/dV with its reduce by partitions at {shape}: " + ", ".join(
+                f"P={p} {ms:.4f} ms" for p, ms in t["dkdv_by_P"].items()))
             log(f"[K3 attention] fwd+bwd at {shape}: " + "; ".join(
                 f"{n} {t['fwd_bwd_ms'][n]:.4f} ms, peak {t['fwd_bwd_peak_gib'][n]:.3f} GiB"
                 for n in t["fwd_bwd_ms"]))
-            bounds = _k3_bounds(b, s, hq, hkv, hd, dtype)
+            bounds = _k3_bounds(b, s, hq, hkv, hd, dtype, info["P"])
             log(f"[K3 attention] bound at {shape}: " + "; ".join(
                 f"{n} {ms:.4f} ms ({by})" for n, (ms, by) in bounds.items()))
             if main_times is None:
                 main_times = {n: (*t[n], bounds[n], t["sdpa_fwd"] if n == "attn_fwd" else None)
-                              for n in K3_KERNELS}
+                              for n in K3_KERNELS if t[n][0] is not None}
         del args
         torch.cuda.empty_cache()
     return worst, main_times
@@ -684,16 +767,65 @@ def check_cached_attention():
             raise AssertionError(f"K7 {what}: max abs err {err:.3e} against the plain "
                                  f"version, over the limit ({limit})")
         rejected = {}
-        for fault, out in _k7_faults(args, want).items():
+        faults = _k7_faults(args, want)
+        rows, kend = t * (hq // hkv), k7.visible_end(t, ci, s)
+        plan = k7.plan_splits(b, hkv, rows, hd, kend, q.dtype)
+        max_splits = -(-kend // k7.cta_slots(hd, rows))
+        split_note = f"planned splits {plan}"
+        if qdt == "bf16" and rows <= k7.cta_rows(rows) and max_splits > 1:
+            # the split kernel at a count > 1 (the plan's, else 2): the
+            # combine alone against its plain version, the whole against
+            # the plain attention; a dropped split must be rejected; two
+            # launches equal bit for bit
+            sf = plan if plan > 1 else 2
+            ws = k7.cached_attention_partials(*args, splits=sf)
+            got_s = k7.cached_attn_combine(*ws, q.dtype)
+            comb_ref = k7.cached_attn_combine_plain(*ws, q.dtype)
+            torch.cuda.synchronize()
+            comb_err = float((got_s.float() - comb_ref.float()).abs().max())
+            ok_c, _, _ = _k7_close(got_s, comb_ref, qdt)
+            ok_s, err_s, _ = _k7_close(got_s, want, qdt)
+            if not (ok_c and ok_s):
+                raise AssertionError(f"K7 {what}: at {sf} splits, max abs err {err_s:.3e} "
+                                     f"against the plain version, combine {comb_err:.3e} "
+                                     f"against its plain version ({limit})")
+            worst["cached_attn_combine"] = max(worst["cached_attn_combine"], comb_err)
+            err = max(err, err_s)
+            dropped = tuple(x.clone() for x in ws)
+            dropped[0][0], dropped[1][0], dropped[2][0] = 0.0, float("-inf"), 0.0
+            faults[f"split 0 of {sf} dropped"] = k7.cached_attn_combine(*dropped, q.dtype)
+            again = k7.cached_attention_kernel(*args, splits=sf)
+            if not torch.equal(again, got_s):
+                raise AssertionError(f"K7 {what}: two launches at {sf} splits differ")
+            split_note += (f"; at {sf} splits max_abs_err {err_s:.3e}, combine {comb_err:.3e}, "
+                           "two launches equal bit for bit")
+            del ws, dropped, again, got_s
+        for fault, out in faults.items():
             if _k7_close(out, want, qdt)[0]:
                 raise AssertionError(f"K7 {what}: the check passes a planted fault, {fault}")
             rejected[fault] = float((out.float() - want.float()).abs().max())
         worst[name] = max(worst[name], err)
         shape = f"b{b} t{t} hq{hq} hkv{hkv} hd{hd} s{s} ci{ci} {qdt} q, {cdt} cache"
         log(f"[K7 cached_attn] {shape} ({what}): max_abs_err {err:.3e}, max |o| "
-            f"{float(want.float().abs().max()):.3e} ({limit}); planted faults rejected: "
-            + ", ".join(f"{n} (max abs err {e:.3e})" for n, e in rejected.items()))
+            f"{float(want.float().abs().max()):.3e} ({limit}); {split_note}; planted faults "
+            "rejected: " + ", ".join(f"{n} (max abs err {e:.3e})" for n, e in rejected.items()))
         if timed:
+            if plan > 1 or (qdt == "bf16" and rows <= k7.cta_rows(rows) and max_splits > 1):
+                by_split = {n: time_ms(lambda n=n: k7.cached_attention_kernel(*args, splits=n))
+                            for n in sorted({1, 2, 4, 8, plan}) if n <= max_splits}
+                log(f"[K7 cached_attn] time by splits at {shape}: " + ", ".join(
+                    f"{n} {ms:.4f} ms" for n, ms in by_split.items()))
+            if plan > 1 and "cached_attn_combine" not in main:
+                ws = k7.cached_attention_partials(*args, splits=plan)
+                comb = (time_ms(lambda: k7.cached_attn_combine(*ws, q.dtype)),
+                        time_ms(lambda: k7.cached_attn_combine_plain(*ws, q.dtype)))
+                nbytes = sum(x.numel() * 4 for x in ws) + q.numel() * q.element_size()
+                comb_bnd = bound(nbytes, 3 * ws[0].numel(), "fp32")
+                log(f"[K7 cached_attn_combine] time at {shape}, {plan} splits: kernel "
+                    f"{comb[0]:.4f} ms, plain {comb[1]:.4f} ms; bound {comb_bnd[0]:.4f} ms "
+                    f"({comb_bnd[1]})")
+                main.setdefault("cached_attn_combine", (*comb, comb_bnd, None))
+                del ws
             ms = time_ms(lambda: k7.cached_attention_kernel(*args))
             plain_ms = time_ms(lambda: k7.cached_attention_plain(*args), reps=5)
             lib_ms = None
@@ -1286,7 +1418,9 @@ def check_small_reference(frozen_quant="none", loss_impl="auto"):
                                rtol=1e-3 if int8 else 1e-4)
     if gpu["plan"]["fingerprint"] != cpu["plan"]["fingerprint"]:
         raise AssertionError("tiny run: GPU and CPU plans differ")
-    needed = TRAIN_KERNELS + (Q8_KERNELS if int8 else ())
+    # fp32 attention walks each group whole: no partitions, no reduce
+    needed = tuple(n for n in TRAIN_KERNELS if n != "attn_bwd_dkdv_reduce") + (
+        Q8_KERNELS if int8 else ())
     if not all(gpu["launches"][n] > 0 for n in needed):
         raise AssertionError(f"tiny GPU run did not launch every kernel: {gpu['launches']}")
     worst = float(np.max(np.abs(np.array(gpu["loss"]) - np.array(cpu["loss"]))
@@ -1631,12 +1765,67 @@ def eval_leg(tag, what, params, cfg, examples, *, num_beams=4, cache_dtype="bflo
         f"{s['decode_ms']:.2f} ms/step (p90 {s['decode_ms_p90']:.2f}) over {len(steps)} "
         f"intervals; {wall:.2f} s for {len(examples)} prompts x {max_new_tokens} new tokens = "
         f"{s['tokens_per_s']:.1f} tokens/s; peak {s['peak_gib']:.2f} GiB; K7 launches "
-        f"{{cached_attn: {counts['cached_attn']}, cached_attn_q8: {counts['cached_attn_q8']}}}; "
+        f"{{cached_attn: {counts['cached_attn']}, cached_attn_q8: {counts['cached_attn_q8']}, "
+        f"cached_attn_combine: {counts['cached_attn_combine']}}}; "
         f"tokens {tokens.shape}, all in the vocab: {s['in_vocab']}; accuracy "
         f"{res['accuracy']:.3f} (random weights)")
     if not s["in_vocab"]:
         raise AssertionError(f"run {tag}: tokens outside the vocabulary")
     return s
+
+
+def long_prompt_leg(params, cfg, prompt=1900, new_tokens=64):
+    """Run D5: one prompt of `prompt` random ids, greedy with repetition
+    penalty 1.1, `new_tokens` new tokens, through eval/generate.generate. One
+    sequence of 4 kv-heads gives K7 4 CTAs, so the planner splits the cache
+    (flash-decoding; cached_attn_combine must launch); the same leg with the
+    planner held to one split, for its time and tokens, in turns (one
+    split, planned, planned, one split). Returns the planned legs' summary,
+    launches from the first."""
+    import numpy as np
+    import torch
+    from sparse_matrix_tuning_tpu_torch.eval.generate import GenerationConfig, generate
+    from sparse_matrix_tuning_tpu_torch.ops.cuda import cached_attention as k7
+
+    ids = np.random.default_rng(13).integers(3, cfg.vocab_size, (1, prompt)).astype(np.int64)
+    mask = np.ones(ids.shape, np.int32)
+    gen = GenerationConfig(max_new_tokens=new_tokens, repetition_penalty=1.1)
+    planner, legs = k7.plan_splits, {"planned": [], "one split": []}
+    for name in ("one split", "planned", "planned", "one split"):
+        k7.plan_splits = planner if name == "planned" else (lambda *a, **kw: 1)
+        try:
+            torch.cuda.synchronize()
+            reset_launches()
+            with StepClock() as clock:
+                t0 = time.perf_counter()
+                tokens = generate(params, cfg, ids, mask, gen)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            legs[name].append({"tokens": np.asarray(tokens), "launches": launches(),
+                               "wall_s": wall,
+                               "decode_ms": float(np.median(np.diff(clock.starts) * 1e3))})
+        finally:
+            k7.plan_splits = planner
+    got, one = ({**runs[0], "decode_ms": float(np.mean([r["decode_ms"] for r in runs])),
+                 "wall_s": float(np.mean([r["wall_s"] for r in runs])),
+                 "decode_ms_each": [r["decode_ms"] for r in runs]}
+                for runs in (legs["planned"], legs["one split"]))
+    splits = planner(1, cfg.num_key_value_heads, cfg.num_attention_heads // cfg.num_key_value_heads,
+                     cfg.head_dim, prompt + new_tokens - 1)
+    agree = float(np.mean(got["tokens"] == one["tokens"]))
+    log(f"[D5] one {prompt}-token prompt, greedy, {new_tokens} new tokens, bf16 cache, K7 "
+        f"split {splits} ways at the last step: decode median ms/step "
+        f"{got['decode_ms_each']} (one split {one['decode_ms_each']}, in turns one, planned, "
+        f"planned, one), mean wall {got['wall_s']:.2f} s ({one['wall_s']:.2f}); K7 launches {{cached_attn: {got['launches']['cached_attn']}, "
+        f"cached_attn_combine: {got['launches']['cached_attn_combine']}}} (one split: "
+        f"{one['launches']['cached_attn']}, {one['launches']['cached_attn_combine']}); tokens "
+        f"equal to the one-split leg's: {agree:.4f}")
+    if got["launches"]["cached_attn_combine"] <= 0 or one["launches"]["cached_attn_combine"]:
+        raise AssertionError(f"run D5: the planned leg must combine splits and the one-split "
+                             f"leg must not: {got['launches']}, {one['launches']}")
+    if not ((got["tokens"] >= 0) & (got["tokens"] < cfg.vocab_size)).all():
+        raise AssertionError("run D5: tokens outside the vocabulary")
+    return got
 
 
 def fp32_attention_prefill_logits(params, cfg, prefill_inputs, n_rows):
@@ -1685,6 +1874,7 @@ def run_eval(params, cfg):
         "D4": eval_leg("D4", "bf16 cache, beam-4, einsum attention", params, cfg, examples,
                        attn="off", max_new_tokens=64),
     }
+    legs["D5"] = long_prompt_leg(params, cfg)
     for tag in ("D1", "D2"):
         if legs[tag]["launches"]["cached_attn"] <= 0:
             raise AssertionError(f"run {tag} did not launch K7: {legs[tag]['launches']}")
@@ -1885,11 +2075,12 @@ def compare_int8_run(run_a, run_e, n_warmup):
 def main(argv=None):
     """`--only q8` stops after the build, the K4 / K5 checks and the tiny
     int8 references; `--only q4` after the build, the K6 checks and the tiny
-    quantized generation (short first calls for a new kernel); neither
-    prints a result line. With no arguments every phase runs."""
+    quantized generation; `--only attn` after the build and the K3 / K7
+    checks (short first calls for a new kernel); none prints a result
+    line. With no arguments every phase runs."""
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--only", "q8"], ["--only", "q4"]):
-        raise SystemExit("usage: python3 chip_smoke.py [--only q8|q4]")
+    if argv not in ([], ["--only", "q8"], ["--only", "q4"], ["--only", "attn"]):
+        raise SystemExit("usage: python3 chip_smoke.py [--only q8|q4|attn]")
     only = argv[1] if argv else None
     only_q8 = only == "q8"
     t_start = time.time()
@@ -1912,6 +2103,14 @@ def main(argv=None):
     _build.load()
     marks = [("build", time.time())]
 
+    if only == "attn":
+        check_attention()
+        check_cached_attention()
+        marks.append(("kernels", time.time()))
+        log("[smoke] --only attn: seconds by phase: " + ", ".join(
+            f"{name} {t - prev:.1f}" for (name, t), (_, prev)
+            in zip(marks, [("", t_start)] + marks)))
+        return
     if only == "q4":
         check_q4_matmul()
         marks.append(("kernels", time.time()))
@@ -2043,7 +2242,8 @@ def main(argv=None):
                run_a["launches"][name], k3_err[name], *k3_time[name]) for name in K3_KERNELS
          ] + [entry(name, "cached_attention.cu", "cached_attention.py:123",
                     run_d[leg]["launches"][name], k7_err[name], *k7_time[name])
-              for name, leg in (("cached_attn", "D1"), ("cached_attn_q8", "D3"))
+              for name, leg in (("cached_attn", "D1"), ("cached_attn_q8", "D3"),
+                                ("cached_attn_combine", "D5"))
               ] + [entry(name, "q8_matmul.cu", f"q8_matmul.py:{line}",
                          run_e["launches"][name], k4_err[name], *k4_time[name])
                    for name, line in (("q8mm_t", 104), ("q8mm_g", 133))

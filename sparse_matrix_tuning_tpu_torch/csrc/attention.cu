@@ -17,36 +17,46 @@
 // Neither carries over: at S = 2048, hd = 64, K and V of one row are 512 KiB
 // against 227 KB of shared memory, and CTAs run in parallel in no order.
 //
-// What bounds it on the H100: the score matrix. The einsum path writes and
-// re-reads b*hq*S*S fp32 scores and probabilities in device memory; here
-// they live only in shared memory, 64x64 tiles at a time, so device traffic
-// is O(S*hd) per (batch, head) and the kernels are bound by tensor-core
-// instruction throughput, the exp of the softmax and the shared-memory
-// round trips of WMMA.
-// Design (FlashAttention-2 style, simple first):
+// What bounds it on the H100: the causal score matrix's products on the
+// tensor cores (4 hd flops per (query, key) pair forward, 8 for dK/dV, 6
+// for dQ) and the softmax's exp; device traffic is O(S * hd) per (batch,
+// head), since scores never leave the SM. At the training shapes the
+// bound is bytes (each input read once), but the time goes to issuing
+// mma/exp instructions and to keeping enough of them in flight.
+// Design (FlashAttention-2 style, bf16):
+//   * Everything between two products stays in registers: mma.sync
+//     m16n8k16 bf16 with fp32 accumulation, operands loaded by ldmatrix
+//     from shared tiles padded by 16 bytes a row (conflict-free); the score
+//     accumulator of one product is repacked in registers as the A operand
+//     of the next (P for P.V, P^T and dS^T for dV and dK, dS for dQ), so
+//     no score, probability or output tile goes through shared memory.
+//   * The tiles a CTA walks (K/V in the forward and dQ, Q/dO/lse/delta in
+//     dK/dV) are double-buffered with cp.async: tile i+1 loads while tile i
+//     computes, one barrier per tile.
 //   * attn_fwd: one CTA per (64-query tile, q-head, batch), 4 warps of 16
-//     query rows. It loops over 64-key tiles up to the causal diagonal
-//     (tiles wholly above it are skipped), keeps an online softmax (running
-//     max m and sum l per row, fp32) and an fp32 O tile in shared memory,
-//     casts P to the input dtype before P.V (as attention.py:83), and
-//     writes O and lse = m + log l.
+//     query rows; each thread holds its rows' running max m and partial sum
+//     l (log2 units, exp2) beside its O fragment; P is cast to the input
+//     dtype before P.V (as attention.py:83); it writes O / l and lse.
 //   * attn_bwd_delta: delta = rowsum(dO * O) in fp32, one warp per row.
-//   * attn_bwd_dkdv: one CTA per (64-key tile, kv-head, batch). It loops
-//     over the g q-heads of its group and the q tiles from the diagonal to
-//     the end, recomputes P = exp(S*sm - lse), and accumulates dV += P^T dO
-//     and dK += dS^T Q in fp32, dS = P (dP - delta) sm cast to the input
-//     dtype (attention.py:112). It writes dK and dV once.
+//   * attn_bwd_dkdv: one CTA per (64-key tile, q-head partition, batch);
+//     its 4 warps own 16 keys each and walk the partition's g / P heads
+//     and, for each, the query tiles from the diagonal to the end,
+//     recomputing P = exp(S*sm - lse) and dS = P (dP - delta) sm (cast to
+//     the input dtype, attention.py:112), with dK and dV accumulated in
+//     registers. P = 1 writes dK and dV; P > 1 writes fp32 partials to a
+//     workspace (2, P, B, S, Hkv, hd) and attn_bwd_dkdv_reduce sums them
+//     in partition order. The wrapper's planner picks P; the grid launches
+//     the longest columns (key tile 0) first.
 //   * attn_bwd_dq: one CTA per (64-query tile, q-head, batch), dQ += dS K
-//     over the key tiles up to the diagonal.
-//   Every CTA owns its outputs: no atomics, and the result is the same bit
-//   for bit from run to run. Ragged S is masked in the loads (zero rows)
-//   and in the scores; nothing is padded or transposed in device memory.
-//   The attention mask is ignored, as in the JAX kernel: pad keys of a
-//   right-padded batch are masked by causality alone.
-//   bf16: tensor cores through WMMA 16x16x16 fragments with fp32
-//   accumulation, scores staged in shared memory for the row-wise softmax.
-//   fp32: CUDA-core FMAs, 256 threads, four threads per row.
-// Not yet: wgmma/TMA, cp.async pipelining, splitting dK/dV over q-heads.
+//     over the key tiles up to the diagonal, dQ in registers.
+//   No atomics: every output element is written by one CTA (or summed in a
+//   fixed order), so the result is the same bit for bit from run to run.
+//   Ragged S is masked in the loads (zero rows) and in the scores; nothing
+//   is padded or transposed in device memory. The attention mask is
+//   ignored, as in the JAX kernel: pad keys of a right-padded batch are
+//   masked by causality alone.
+//   fp32: CUDA-core FMAs, 256 threads, four threads per row (unchanged).
+// Not yet: wgmma/TMA, warp specialisation.
 
 #include <math.h>
 #include <stdint.h>
@@ -66,23 +76,462 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Rows pos0 .. pos0+rows-1 of one (batch, head) slice into shared memory
-// with pitch ld; rows at or past S are zero. src points at position 0 of the
-// slice; consecutive positions are row_stride elements apart.
-template <int HD>
-__device__ __forceinline__ void load_rows_bf16(bf16* dst, int ld, const bf16* src,
-                                               size_t row_stride, int pos0, int rows,
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// lse / delta of positions pos0 .. pos0+n-1 (n a multiple of 4) into shared
+// memory by cp.async; positions at or past S read 0.
+__device__ __forceinline__ void load_vec_async(float* dst, const float* src, int pos0, int n,
                                                int S) {
-  constexpr int VPR = HD / 8;  // uint4 = 8 bf16
-  for (int i = threadIdx.x; i < rows * VPR; i += blockDim.x) {
-    const int r = i / VPR;
-    const int c = (i % VPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (pos0 + r < S)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(pos0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const bool in = pos0 + i < S;
+    cp_async4(dst + i, in ? src + pos0 + i : src, in);
   }
 }
+
+// One 16 x HD accumulator (the warp's rows) times row_scale, cast and
+// written to positions pos + 0..7 (c[.][0..1]) and pos + 8..15 (c[.][2..3])
+// of a slice whose positions are row_stride elements apart.
+template <int HD>
+__device__ __forceinline__ void store_acc(bf16* dst, size_t row_stride, const float (&c)[HD / 8][4],
+                                          int pos, int S, float scale0, float scale1) {
+  const int lane = threadIdx.x % 32;
+  const int r = pos + lane / 4, col = 2 * (lane % 4);
+#pragma unroll
+  for (int nd = 0; nd < HD / 8; ++nd) {
+    if (r < S)
+      *reinterpret_cast<uint32_t*>(dst + (size_t)r * row_stride + nd * 8 + col) =
+          pack_bf16(c[nd][0] * scale0, c[nd][1] * scale0);
+    if (r + 8 < S)
+      *reinterpret_cast<uint32_t*>(dst + (size_t)(r + 8) * row_stride + nd * 8 + col) =
+          pack_bf16(c[nd][2] * scale1, c[nd][3] * scale1);
+  }
+}
+
+template <int HD>
+__device__ __forceinline__ void store_acc(float* dst, size_t row_stride, const float (&c)[HD / 8][4],
+                                          int pos, int S) {
+  const int lane = threadIdx.x % 32;
+  const int r = pos + lane / 4, col = 2 * (lane % 4);
+#pragma unroll
+  for (int nd = 0; nd < HD / 8; ++nd) {
+    if (r < S)
+      *reinterpret_cast<float2*>(dst + (size_t)r * row_stride + nd * 8 + col) =
+          make_float2(c[nd][0], c[nd][1]);
+    if (r + 8 < S)
+      *reinterpret_cast<float2*>(dst + (size_t)(r + 8) * row_stride + nd * 8 + col) =
+          make_float2(c[nd][2], c[nd][3]);
+  }
+}
+
+// c[n] (16 x 8 each, n < 2 * NP) = A (16 rows x HD, rows a_r0.. of tile
+// a, pitch LD) . B^T for the 16 * NP rows of tile bt (stored [n][hd]).
+template <int HD, int NP>
+__device__ __forceinline__ void product_nk(float (&c)[2 * NP][4], const bf16* a, int a_r0,
+                                           const bf16* bt) {
+  constexpr int LD = HD + 8;
+#pragma unroll
+  for (int n = 0; n < 2 * NP; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
+#pragma unroll
+  for (int d = 0; d < HD / 16; ++d) {
+    uint32_t af[4];
+    ld_a(af, a, LD, a_r0, d * 16);
+#pragma unroll
+    for (int np = 0; np < NP; ++np) {
+      uint32_t bf[4];
+      ld_b_nk(bf, bt, LD, np * 16, d * 16);
+      mma_bf16(c[2 * np], af, bf[0], bf[1]);
+      mma_bf16(c[2 * np + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc (16 x HD) += P (16 x 16 * KC, the accumulator tiles p) . the KC * 16
+// rows of tile bt (stored [k][hd]).
+template <int HD, int KC>
+__device__ __forceinline__ void product_kn(float (&acc)[HD / 8][4], const float (&p)[2 * KC][4],
+                                           const bf16* bt) {
+  constexpr int LD = HD + 8;
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc) {
+    uint32_t af[4];
+    acc_to_a(af, p[2 * kc], p[2 * kc + 1]);
+#pragma unroll
+    for (int np = 0; np < HD / 16; ++np) {
+      uint32_t bf[4];
+      ld_b_kn(bf, bt, LD, kc * 16, np * 16);
+      mma_bf16(acc[2 * np], af, bf[0], bf[1]);
+      mma_bf16(acc[2 * np + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16: mma.sync
+// ---------------------------------------------------------------------------
+
+template <int HD>
+struct Bf16Smem {
+  static constexpr int LD = HD + 8;                        // bf16 row pitch
+  static constexpr size_t kTile = (size_t)T64 * LD * 2;    // 64 x hd bf16
+  static constexpr int BQ = HD == 64 ? 64 : 32;            // dkdv query tile
+  static constexpr size_t kQTile = (size_t)BQ * LD * 2;
+  // fwd: Q | K[2] V[2]
+  static constexpr size_t fwd = 5 * kTile;
+  // dq: Q dO | K[2] V[2]
+  static constexpr size_t dq = 6 * kTile;
+  // dkdv: K V | Q[2] dO[2] | lse[2] delta[2]
+  static constexpr size_t dkdv = 2 * kTile + 4 * kQTile + 4 * (size_t)BQ * 4;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(NT_BF16)
+attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+              int S, int Hq, int Hkv, float sm) {
+  constexpr int LD = HD + 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + T64 * LD;       // [2][64][LD]
+  bf16* Vs = Ks + 2 * T64 * LD;   // [2][64][LD]
+
+  const int nq = (S + T64 - 1) / T64;
+  const int qt = nq - 1 - blockIdx.z;  // the longest rows first
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int hk = h / (Hq / Hkv);
+  const int q0 = qt * T64;
+  const size_t qrs = (size_t)Hq * HD, krs = (size_t)Hkv * HD;
+  const bf16* kb = k + ((size_t)b * S * Hkv + hk) * HD;
+  const bf16* vb = v + ((size_t)b * S * Hkv + hk) * HD;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = q0 + warp * 16 + lane / 4;  // this thread's rows: row, row + 8
+  const float sl2 = sm * LOG2E;
+
+  load_rows_async<HD>(Qs, q + ((size_t)b * S * Hq + h) * HD, qrs, q0, T64, S);
+  load_rows_async<HD>(Ks, kb, krs, 0, T64, S);
+  load_rows_async<HD>(Vs, vb, krs, 0, T64, S);
+  cp_async_commit();
+
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  uint32_t qf[HD / 16][4];
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    const int st = kt & 1;
+    if (kt < qt) {
+      load_rows_async<HD>(Ks + (st ^ 1) * T64 * LD, kb, krs, (kt + 1) * T64, T64, S);
+      load_rows_async<HD>(Vs + (st ^ 1) * T64 * LD, vb, krs, (kt + 1) * T64, T64, S);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kt == 0) {
+#pragma unroll
+      for (int d = 0; d < HD / 16; ++d) ld_a(qf[d], Qs, LD, warp * 16, d * 16);
+    }
+    const bf16* Kt = Ks + st * T64 * LD;
+    const bf16* Vt = Vs + st * T64 * LD;
+
+    // S = Q K^T, 16 rows x 64 keys a warp
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int d = 0; d < HD / 16; ++d) {
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bf[4];
+        ld_b_nk(bf, Kt, LD, np * 16, d * 16);
+        mma_bf16(s[2 * np], qf[d], bf[0], bf[1]);
+        mma_bf16(s[2 * np + 1], qf[d], bf[2], bf[3]);
+      }
+    }
+    // online softmax in log2 units; only the diagonal tile (the last, and
+    // the only one that can reach past S) is masked. A masked score is
+    // -inf and contributes exactly 0.
+    const int k0 = kt * T64;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * sl2;
+        if (kt == qt) {
+          const int kpos = k0 + n * 8 + 2 * (lane % 4) + (e & 1);
+          if (kpos > row + (e >> 1) * 8 || kpos >= S) x = -INFINITY;
+        }
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float muse[2], alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      muse[r] = mx[r] == -INFINITY ? 0.f : mx[r];
+      alpha[r] = exp2f(m[r] - muse[r]);
+      m[r] = mx[r];
+    }
+    float ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = exp2f(s[n][e] - muse[e >> 1]);
+        ps[e >> 1] += s[n][e];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ps[r];  // this thread's columns
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+    product_kn<HD, 4>(acc, s, Vt);  // O += P V, P cast to bf16
+    __syncthreads();                // the stage is reloaded next
+  }
+
+  // key 0 is causal for every row, so l > 0
+  const float l0 = quad_sum(l[0]), l1 = quad_sum(l[1]);
+  store_acc<HD>(o + ((size_t)b * S * Hq + h) * HD, qrs, acc, q0 + warp * 16, S, 1.f / l0,
+                1.f / l1);
+  if (lane % 4 == 0) {
+    float* lrow = lse + ((size_t)b * Hq + h) * S;
+    if (row < S) lrow[row] = (m[0] + log2f(l0)) * LN2;
+    if (row + 8 < S) lrow[row + 8] = (m[1] + log2f(l1)) * LN2;
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(NT_BF16)
+attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 bf16* __restrict__ dq, int S, int Hq, int Hkv, float sm) {
+  constexpr int LD = HD + 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* dOs = Qs + T64 * LD;
+  bf16* Ks = dOs + T64 * LD;      // [2][64][LD]
+  bf16* Vs = Ks + 2 * T64 * LD;   // [2][64][LD]
+
+  const int nq = (S + T64 - 1) / T64;
+  const int qt = nq - 1 - blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int hk = h / (Hq / Hkv);
+  const int q0 = qt * T64;
+  const size_t qrs = (size_t)Hq * HD, krs = (size_t)Hkv * HD;
+  const size_t qoff = ((size_t)b * S * Hq + h) * HD;
+  const bf16* kb = k + ((size_t)b * S * Hkv + hk) * HD;
+  const bf16* vb = v + ((size_t)b * S * Hkv + hk) * HD;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = q0 + warp * 16 + lane / 4;
+  const size_t vec = ((size_t)b * Hq + h) * S;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int p = row + 8 * r;
+    lse2[r] = p < S ? lse[vec + p] * LOG2E : 0.f;
+    dl[r] = p < S ? delta[vec + p] : 0.f;
+  }
+  const float sl2 = sm * LOG2E;
+
+  load_rows_async<HD>(Qs, q + qoff, qrs, q0, T64, S);
+  load_rows_async<HD>(dOs, dout + qoff, qrs, q0, T64, S);
+  load_rows_async<HD>(Ks, kb, krs, 0, T64, S);
+  load_rows_async<HD>(Vs, vb, krs, 0, T64, S);
+  cp_async_commit();
+
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    const int st = kt & 1;
+    if (kt < qt) {
+      load_rows_async<HD>(Ks + (st ^ 1) * T64 * LD, kb, krs, (kt + 1) * T64, T64, S);
+      load_rows_async<HD>(Vs + (st ^ 1) * T64 * LD, vb, krs, (kt + 1) * T64, T64, S);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Kt = Ks + st * T64 * LD;
+    const bf16* Vt = Vs + st * T64 * LD;
+    float s[8][4], dp[8][4];
+    product_nk<HD, 4>(s, Qs, warp * 16, Kt);    // S = Q K^T
+    product_nk<HD, 4>(dp, dOs, warp * 16, Vt);  // dP = dO V^T
+    const int k0 = kt * T64;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float p = exp2f(s[n][e] * sl2 - lse2[r]);
+        if (kt == qt) {
+          const int kpos = k0 + n * 8 + 2 * (lane % 4) + (e & 1);
+          const int qpos = row + 8 * r;
+          if (kpos > qpos || kpos >= S || qpos >= S) p = 0.f;
+        }
+        s[n][e] = p * (dp[n][e] - dl[r]) * sm;  // dS
+      }
+    }
+    product_kn<HD, 4>(acc, s, Kt);  // dQ += dS K, dS cast to bf16
+    __syncthreads();
+  }
+  store_acc<HD>(dq + qoff, qrs, acc, q0 + warp * 16, S, 1.f, 1.f);
+}
+
+// grid (Hkv * P, B, key tiles): CTA (hk * P + part, b, kt) serves key tile kt
+// of kv-head hk for the q-heads hk * g + part * g / P .. + g / P - 1.
+template <int HD>
+__global__ void __launch_bounds__(NT_BF16)
+attn_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ ws,
+                   int B, int S, int Hq, int Hkv, int P, float sm) {
+  using L = Bf16Smem<HD>;
+  constexpr int LD = HD + 8, BQ = L::BQ, NQ8 = BQ / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + T64 * LD;
+  bf16* Qs = Vs + T64 * LD;        // [2][BQ][LD]
+  bf16* dOs = Qs + 2 * BQ * LD;    // [2][BQ][LD]
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ * LD);  // [2][BQ]
+  float* d_s = lse_s + 2 * BQ;                                 // [2][BQ]
+
+  const int kt = blockIdx.z;  // key tile 0 has the most query tiles: launched first
+  const int hk = blockIdx.x / P, part = blockIdx.x % P, b = blockIdx.y;
+  const int g = Hq / Hkv, hp = g / P;
+  const int k0 = kt * T64;
+  const size_t qrs = (size_t)Hq * HD, krs = (size_t)Hkv * HD;
+  const size_t koff = ((size_t)b * S * Hkv + hk) * HD;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int krow = k0 + warp * 16 + lane / 4;  // this thread's keys: krow, krow + 8
+  const int qt0 = k0 / BQ, per_head = (S + BQ - 1) / BQ - qt0, items = hp * per_head;
+  const float sl2 = sm * LOG2E;
+
+  // item i: q-head h0 + i / per_head, query tile qt0 + i % per_head
+  auto issue = [&](int i, int st) {
+    const int h = hk * g + part * hp + i / per_head;
+    const int q0 = (qt0 + i % per_head) * BQ;
+    const size_t qoff = ((size_t)b * S * Hq + h) * HD;
+    const size_t vec = ((size_t)b * Hq + h) * S;
+    load_rows_async<HD>(Qs + st * BQ * LD, q + qoff, qrs, q0, BQ, S);
+    load_rows_async<HD>(dOs + st * BQ * LD, dout + qoff, qrs, q0, BQ, S);
+    load_vec_async(lse_s + st * BQ, lse + vec, q0, BQ, S);
+    load_vec_async(d_s + st * BQ, delta + vec, q0, BQ, S);
+  };
+
+  load_rows_async<HD>(Ks, k + koff, krs, k0, T64, S);
+  load_rows_async<HD>(Vs, v + koff, krs, k0, T64, S);
+  issue(0, 0);
+  cp_async_commit();
+
+  float dka[HD / 8][4], dva[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
+    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
+  }
+
+  for (int i = 0; i < items; ++i) {
+    const int st = i & 1;
+    if (i + 1 < items) {
+      issue(i + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Qt = Qs + st * BQ * LD;
+    const bf16* dOt = dOs + st * BQ * LD;
+    const float* lt = lse_s + st * BQ;
+    const float* dt = d_s + st * BQ;
+    const int q0 = (qt0 + i % per_head) * BQ;
+    // S^T = K Q^T and dP^T = V dO^T for the warp's 16 keys x BQ queries
+    float s[NQ8][4], dp[NQ8][4];
+    product_nk<HD, BQ / 16>(s, Ks, warp * 16, Qt);
+    product_nk<HD, BQ / 16>(dp, Vs, warp * 16, dOt);
+    const bool edge = q0 < k0 + T64 - 1 || q0 + BQ > S || k0 + T64 > S;
+#pragma unroll
+    for (int n = 0; n < NQ8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = n * 8 + 2 * (lane % 4) + (e & 1);
+        float p = exp2f(s[n][e] * sl2 - lt[c] * LOG2E);
+        if (edge) {
+          const int qpos = q0 + c, kpos = krow + (e >> 1) * 8;
+          if (kpos > qpos || qpos >= S || kpos >= S) p = 0.f;
+        }
+        s[n][e] = p;                           // P^T
+        dp[n][e] = p * (dp[n][e] - dt[c]) * sm;  // dS^T
+      }
+    }
+    product_kn<HD, BQ / 16>(dva, s, dOt);  // dV += P^T dO
+    product_kn<HD, BQ / 16>(dka, dp, Qt);  // dK += dS^T Q
+    __syncthreads();
+  }
+
+  if (P == 1) {
+    store_acc<HD>(dk + koff, krs, dka, k0 + warp * 16, S, 1.f, 1.f);
+    store_acc<HD>(dv + koff, krs, dva, k0 + warp * 16, S, 1.f, 1.f);
+  } else {
+    // workspace (2, P, B, S, Hkv, hd): dK partials, then dV partials
+    const size_t n = (size_t)B * S * Hkv * HD;
+    float* wk = ws + (size_t)part * n + koff;
+    store_acc<HD>(wk, krs, dka, k0 + warp * 16, S);
+    store_acc<HD>(wk + (size_t)P * n, krs, dva, k0 + warp * 16, S);
+  }
+}
+
+// dk, dv = the sums over p = 0, 1, .., P - 1, in that order, of the
+// workspace's partials, cast to the output dtype; n = B * S * Hkv * hd
+// elements each, four a thread.
+template <typename T>
+__global__ void __launch_bounds__(256)
+attn_bwd_dkdv_reduce_kernel(const float* __restrict__ ws, T* __restrict__ dk,
+                            T* __restrict__ dv, size_t n, int P) {
+  const size_t i4 = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i4 >= 2 * n) return;
+  const int which = i4 >= n;  // 0 dK, 1 dV
+  const size_t i = i4 - which * n;
+  const float* src = ws + (size_t)which * P * n + i;
+  float4 acc = *reinterpret_cast<const float4*>(src);
+  for (int p = 1; p < P; ++p) {
+    const float4 x = *reinterpret_cast<const float4*>(src + (size_t)p * n);
+    acc.x += x.x; acc.y += x.y; acc.z += x.z; acc.w += x.w;
+  }
+  T* out = (which ? dv : dk) + i;
+  if constexpr (sizeof(T) == 2) {
+    uint2 u = make_uint2(pack_bf16(acc.x, acc.y), pack_bf16(acc.z, acc.w));
+    *reinterpret_cast<uint2*>(out) = u;
+  } else {
+    *reinterpret_cast<float4*>(out) = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32 helpers
+// ---------------------------------------------------------------------------
+
 
 template <int HD>
 __device__ __forceinline__ void load_rows_f32(float* dst, int ld, const float* src,
@@ -108,364 +557,6 @@ __device__ __forceinline__ void load_vec(float* dst, const float* src, int pos0,
     dst[i] = (pos0 + i < S) ? src[pos0 + i] : 0.f;
 }
 
-__device__ __forceinline__ void put(bf16* p, float x) { *p = __float2bfloat16(x); }
-__device__ __forceinline__ void put(float* p, float x) { *p = x; }
-
-// One warp's 16 rows of an fp32 staging tile (pitch HD + 4), times
-// row_scale[row] when given, cast to the output dtype and written to
-// positions pos0 + row0 .. of one slice.
-template <int HD, typename T>
-__device__ __forceinline__ void store_warp_rows(T* dst, size_t row_stride, const float* st,
-                                                int row0, int pos0, int S,
-                                                const float* row_scale) {
-  const int lane = threadIdx.x % 32;
-  for (int i = lane; i < 16 * HD; i += 32) {
-    const int r = row0 + i / HD;
-    const int c = i % HD;
-    if (pos0 + r < S) {
-      const float x = st[r * (HD + 4) + c];
-      put(dst + (size_t)(pos0 + r) * row_stride + c, row_scale ? x * row_scale[r] : x);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16: WMMA
-// ---------------------------------------------------------------------------
-
-template <int HD>
-struct Bf16Smem {
-  static constexpr int LD = HD + 8;                            // bf16 row pitch
-  static constexpr size_t kTile = (size_t)T64 * LD * 2;        // 64 x hd bf16
-  static constexpr size_t kF32 = (size_t)T64 * SLD * 4;        // 64 x 64 fp32
-  static constexpr size_t kBf = (size_t)T64 * PLD * 2;         // 64 x 64 bf16
-  static constexpr size_t kOut = (size_t)T64 * (HD + 4) * 4;   // 64 x hd fp32
-  // fwd: Q K V | S | P | O | 1/l
-  static constexpr size_t fwd = 3 * kTile + kF32 + kBf + kOut + T64 * 4;
-  // dq: Q dO K V | S dP (also the dQ staging) | dS
-  static constexpr size_t dq = 4 * kTile + 2 * kF32 + kBf;
-  // dkdv: K V Q dO | S^T dP^T (also the dK/dV staging) | P^T dS^T | lse delta
-  static constexpr size_t dkdv = 4 * kTile + 2 * kF32 + 2 * kBf + 2 * T64 * 4;
-  static_assert(2 * kF32 >= kOut, "staging must fit in the two fp32 score tiles");
-};
-
-template <int HD>
-__global__ void __launch_bounds__(NT_BF16)
-attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-              int S, int Hq, int Hkv, float sm) {
-  using L = Bf16Smem<HD>;
-  constexpr int LD = L::LD, OLD = HD + 4;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + T64 * LD;
-  bf16* Vs = Ks + T64 * LD;
-  float* Ss = reinterpret_cast<float*>(Vs + T64 * LD);
-  bf16* Ps = reinterpret_cast<bf16*>(Ss + T64 * SLD);
-  float* Os = reinterpret_cast<float*>(Ps + T64 * PLD);
-  float* inv_l = Os + T64 * OLD;
-
-  const int nq = (S + T64 - 1) / T64;
-  const int qt = nq - 1 - blockIdx.x;  // the longest rows first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int q0 = qt * T64;
-  const size_t qrs = (size_t)Hq * HD, krs = (size_t)Hkv * HD;
-  const bf16* qb = q + ((size_t)b * S * Hq + h) * HD;
-  const bf16* kb = k + ((size_t)b * S * Hkv + hk) * HD;
-  const bf16* vb = v + ((size_t)b * S * Hkv + hk) * HD;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = warp * 16 + lane / 2, half = lane & 1;
-  const int qpos = q0 + row;
-
-  load_rows_bf16<HD>(Qs, LD, qb, qrs, q0, T64, S);
-  for (int i = threadIdx.x; i < T64 * OLD; i += NT_BF16) Os[i] = 0.f;
-  __syncthreads();
-  FragA qf[HD / 16];
-#pragma unroll
-  for (int d = 0; d < HD / 16; ++d)
-    wmma::load_matrix_sync(qf[d], Qs + warp * 16 * LD + d * 16, LD);
-
-  float m = -INFINITY, l = 0.f;
-  float* srow = Ss + row * SLD;
-  bf16* prow = Ps + row * PLD;
-  float* orow = Os + row * OLD;
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * T64;
-    load_rows_bf16<HD>(Ks, LD, kb, krs, k0, T64, S);
-    load_rows_bf16<HD>(Vs, LD, vb, krs, k0, T64, S);
-    __syncthreads();
-    scores_16x64<HD>(Ss + warp * 16 * SLD, qf, Ks);
-    __syncwarp();
-
-    // online softmax over this tile; lanes 2r, 2r+1 share row r, columns
-    // interleaved. A masked score is -inf, so a tile wholly masked for a
-    // row contributes exactly 0 and leaves m and l as they were.
-    float sv[T64 / 2];
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < T64 / 2; ++j) {
-      const int kpos = k0 + 2 * j + half;
-      float x = srow[2 * j + half] * sm;
-      if (kpos > qpos || kpos >= S) x = -INFINITY;
-      sv[j] = x;
-      tmax = fmaxf(tmax, x);
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    const float mnew = fmaxf(m, tmax);
-    const float muse = (mnew == -INFINITY) ? 0.f : mnew;
-    const float alpha = expf(m - muse);
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < T64 / 2; ++j) {
-      const float p = expf(sv[j] - muse);
-      psum += p;
-      prow[2 * j + half] = __float2bfloat16(p);
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l = l * alpha + psum;
-    m = mnew;
-#pragma unroll 8
-    for (int j = 0; j < HD / 2; ++j) orow[2 * j + half] *= alpha;
-    __syncwarp();
-
-    // O_w += P_w V
-#pragma unroll
-    for (int n = 0; n < HD / 16; ++n) {
-      FragC c;
-      float* optr = Os + warp * 16 * OLD + n * 16;
-      wmma::load_matrix_sync(c, optr, OLD, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < T64 / 16; ++kk) {
-        FragA a;
-        FragBr bv;
-        wmma::load_matrix_sync(a, Ps + warp * 16 * PLD + kk * 16, PLD);
-        wmma::load_matrix_sync(bv, Vs + kk * 16 * LD + n * 16, LD);
-        wmma::mma_sync(c, a, bv, c);
-      }
-      wmma::store_matrix_sync(optr, c, OLD, wmma::mem_row_major);
-    }
-    __syncthreads();  // Ks / Vs are reloaded
-  }
-
-  // key 0 is causal for every row, so l > 0
-  if (half == 0) {
-    inv_l[row] = 1.f / l;
-    if (qpos < S) lse[((size_t)b * Hq + h) * S + qpos] = m + logf(l);
-  }
-  __syncwarp();
-  store_warp_rows<HD>(o + ((size_t)b * S * Hq + h) * HD, qrs, Os, warp * 16, q0, S, inv_l);
-}
-
-template <int HD>
-__global__ void __launch_bounds__(NT_BF16)
-attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 bf16* __restrict__ dq, int S, int Hq, int Hkv, float sm) {
-  using L = Bf16Smem<HD>;
-  constexpr int LD = L::LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + T64 * LD;
-  bf16* Ks = dOs + T64 * LD;
-  bf16* Vs = Ks + T64 * LD;
-  float* Ss = reinterpret_cast<float*>(Vs + T64 * LD);
-  float* dPs = Ss + T64 * SLD;
-  bf16* dSs = reinterpret_cast<bf16*>(dPs + T64 * SLD);
-
-  const int nq = (S + T64 - 1) / T64;
-  const int qt = nq - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int q0 = qt * T64;
-  const size_t qrs = (size_t)Hq * HD, krs = (size_t)Hkv * HD;
-  const size_t qoff = ((size_t)b * S * Hq + h) * HD;
-  const bf16* kb = k + ((size_t)b * S * Hkv + hk) * HD;
-  const bf16* vb = v + ((size_t)b * S * Hkv + hk) * HD;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = warp * 16 + lane / 2, half = lane & 1;
-  const int qpos = q0 + row;
-  const size_t vec = ((size_t)b * Hq + h) * S;
-  const float lse_r = qpos < S ? lse[vec + qpos] : 0.f;
-  const float d_r = qpos < S ? delta[vec + qpos] : 0.f;
-
-  load_rows_bf16<HD>(Qs, LD, q + qoff, qrs, q0, T64, S);
-  load_rows_bf16<HD>(dOs, LD, dout + qoff, qrs, q0, T64, S);
-  __syncthreads();
-  FragA qf[HD / 16], df[HD / 16];
-  FragC acc[HD / 16];
-#pragma unroll
-  for (int d = 0; d < HD / 16; ++d) {
-    wmma::load_matrix_sync(qf[d], Qs + warp * 16 * LD + d * 16, LD);
-    wmma::load_matrix_sync(df[d], dOs + warp * 16 * LD + d * 16, LD);
-    wmma::fill_fragment(acc[d], 0.0f);
-  }
-
-  const float* srow = Ss + row * SLD;
-  const float* dprow = dPs + row * SLD;
-  bf16* dsrow = dSs + row * PLD;
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * T64;
-    load_rows_bf16<HD>(Ks, LD, kb, krs, k0, T64, S);
-    load_rows_bf16<HD>(Vs, LD, vb, krs, k0, T64, S);
-    __syncthreads();
-    scores_16x64<HD>(Ss + warp * 16 * SLD, qf, Ks);   // S = Q K^T
-    scores_16x64<HD>(dPs + warp * 16 * SLD, df, Vs);  // dP = dO V^T
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < T64 / 2; ++j) {
-      const int c = 2 * j + half;
-      const int kpos = k0 + c;
-      const bool ok = kpos <= qpos && kpos < S && qpos < S;
-      const float p = ok ? expf(srow[c] * sm - lse_r) : 0.f;
-      dsrow[c] = __float2bfloat16(p * (dprow[c] - d_r) * sm);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int n = 0; n < HD / 16; ++n) {
-#pragma unroll
-      for (int kk = 0; kk < T64 / 16; ++kk) {
-        FragA a;
-        FragBr bk;
-        wmma::load_matrix_sync(a, dSs + warp * 16 * PLD + kk * 16, PLD);
-        wmma::load_matrix_sync(bk, Ks + kk * 16 * LD + n * 16, LD);
-        wmma::mma_sync(acc[n], a, bk, acc[n]);
-      }
-    }
-    __syncthreads();
-  }
-
-  float* st = Ss;  // staging, pitch HD + 4, over the two fp32 tiles
-#pragma unroll
-  for (int n = 0; n < HD / 16; ++n)
-    wmma::store_matrix_sync(st + warp * 16 * (HD + 4) + n * 16, acc[n], HD + 4,
-                            wmma::mem_row_major);
-  __syncwarp();
-  store_warp_rows<HD>(dq + qoff, qrs, st, warp * 16, q0, S, nullptr);
-}
-
-template <int HD>
-__global__ void __launch_bounds__(NT_BF16)
-attn_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int Hq, int Hkv,
-                   float sm) {
-  using L = Bf16Smem<HD>;
-  constexpr int LD = L::LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + T64 * LD;
-  bf16* Qs = Vs + T64 * LD;
-  bf16* dOs = Qs + T64 * LD;
-  float* STs = reinterpret_cast<float*>(dOs + T64 * LD);
-  float* dPTs = STs + T64 * SLD;
-  bf16* PTs = reinterpret_cast<bf16*>(dPTs + T64 * SLD);
-  bf16* dSTs = PTs + T64 * PLD;
-  float* lse_s = reinterpret_cast<float*>(dSTs + T64 * PLD);
-  float* d_s = lse_s + T64;
-
-  const int nq = (S + T64 - 1) / T64;
-  const int kt = blockIdx.x;  // the longest columns first
-  const int hk = blockIdx.y, b = blockIdx.z;
-  const int g = Hq / Hkv;
-  const int k0 = kt * T64;
-  const size_t qrs = (size_t)Hq * HD, krs = (size_t)Hkv * HD;
-  const size_t koff = ((size_t)b * S * Hkv + hk) * HD;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int krow = warp * 16 + lane / 2, half = lane & 1;
-  const int kpos = k0 + krow;
-
-  load_rows_bf16<HD>(Ks, LD, k + koff, krs, k0, T64, S);
-  load_rows_bf16<HD>(Vs, LD, v + koff, krs, k0, T64, S);
-  FragC dkacc[HD / 16], dvacc[HD / 16];
-#pragma unroll
-  for (int n = 0; n < HD / 16; ++n) {
-    wmma::fill_fragment(dkacc[n], 0.0f);
-    wmma::fill_fragment(dvacc[n], 0.0f);
-  }
-
-  const float* strow = STs + krow * SLD;
-  const float* dptrow = dPTs + krow * SLD;
-  bf16* ptrow = PTs + krow * PLD;
-  bf16* dstrow = dSTs + krow * PLD;
-  for (int j = 0; j < g; ++j) {
-    const int h = hk * g + j;
-    const size_t qoff = ((size_t)b * S * Hq + h) * HD;
-    const size_t vec = ((size_t)b * Hq + h) * S;
-    for (int qt = kt; qt < nq; ++qt) {
-      const int q0 = qt * T64;
-      load_rows_bf16<HD>(Qs, LD, q + qoff, qrs, q0, T64, S);
-      load_rows_bf16<HD>(dOs, LD, dout + qoff, qrs, q0, T64, S);
-      load_vec(lse_s, lse + vec, q0, T64, S);
-      load_vec(d_s, delta + vec, q0, T64, S);
-      __syncthreads();
-      // S^T = K Q^T and dP^T = V dO^T for the warp's 16 keys x 64 queries
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        FragC c, e;
-        wmma::fill_fragment(c, 0.0f);
-        wmma::fill_fragment(e, 0.0f);
-#pragma unroll
-        for (int d = 0; d < HD / 16; ++d) {
-          FragA a;
-          FragBc bq;
-          wmma::load_matrix_sync(a, Ks + warp * 16 * LD + d * 16, LD);
-          wmma::load_matrix_sync(bq, Qs + n * 16 * LD + d * 16, LD);
-          wmma::mma_sync(c, a, bq, c);
-          wmma::load_matrix_sync(a, Vs + warp * 16 * LD + d * 16, LD);
-          wmma::load_matrix_sync(bq, dOs + n * 16 * LD + d * 16, LD);
-          wmma::mma_sync(e, a, bq, e);
-        }
-        wmma::store_matrix_sync(STs + warp * 16 * SLD + n * 16, c, SLD, wmma::mem_row_major);
-        wmma::store_matrix_sync(dPTs + warp * 16 * SLD + n * 16, e, SLD, wmma::mem_row_major);
-      }
-      __syncwarp();
-#pragma unroll
-      for (int jj = 0; jj < T64 / 2; ++jj) {
-        const int c = 2 * jj + half;
-        const int qpos = q0 + c;
-        const bool ok = kpos <= qpos && qpos < S && kpos < S;
-        const float p = ok ? expf(strow[c] * sm - lse_s[c]) : 0.f;
-        ptrow[c] = __float2bfloat16(p);
-        dstrow[c] = __float2bfloat16(p * (dptrow[c] - d_s[c]) * sm);
-      }
-      __syncwarp();
-      // dV += P^T dO, dK += dS^T Q
-#pragma unroll
-      for (int n = 0; n < HD / 16; ++n) {
-#pragma unroll
-        for (int kk = 0; kk < T64 / 16; ++kk) {
-          FragA a;
-          FragBr bm;
-          wmma::load_matrix_sync(a, PTs + warp * 16 * PLD + kk * 16, PLD);
-          wmma::load_matrix_sync(bm, dOs + kk * 16 * LD + n * 16, LD);
-          wmma::mma_sync(dvacc[n], a, bm, dvacc[n]);
-          wmma::load_matrix_sync(a, dSTs + warp * 16 * PLD + kk * 16, PLD);
-          wmma::load_matrix_sync(bm, Qs + kk * 16 * LD + n * 16, LD);
-          wmma::mma_sync(dkacc[n], a, bm, dkacc[n]);
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  float* st = STs;  // staging, pitch HD + 4, over the two fp32 tiles
-#pragma unroll
-  for (int n = 0; n < HD / 16; ++n)
-    wmma::store_matrix_sync(st + warp * 16 * (HD + 4) + n * 16, dkacc[n], HD + 4,
-                            wmma::mem_row_major);
-  __syncwarp();
-  store_warp_rows<HD>(dk + koff, krs, st, warp * 16, k0, S, nullptr);
-  __syncwarp();
-#pragma unroll
-  for (int n = 0; n < HD / 16; ++n)
-    wmma::store_matrix_sync(st + warp * 16 * (HD + 4) + n * 16, dvacc[n], HD + 4,
-                            wmma::mem_row_major);
-  __syncwarp();
-  store_warp_rows<HD>(dv + koff, krs, st, warp * 16, k0, S, nullptr);
-}
 
 // ---------------------------------------------------------------------------
 // fp32: CUDA-core FMAs. Thread t owns tile row t / 4; the four threads of a
@@ -739,18 +830,18 @@ attn_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 template <int HD>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                        int B, int S, int Hq, int Hkv, float sm, int dtype, cudaStream_t s) {
-  const dim3 grid((S + T64 - 1) / T64, Hq, B);
+  const int nq = (S + T64 - 1) / T64;
   cudaError_t err;
   if (dtype == 1) {
     const size_t bytes = Bf16Smem<HD>::fwd;
     if ((err = allow_smem(attn_fwd_bf16<HD>, bytes)) != cudaSuccess) return err;
-    attn_fwd_bf16<HD><<<grid, NT_BF16, bytes, s>>>(
+    attn_fwd_bf16<HD><<<dim3(Hq, B, nq), NT_BF16, bytes, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<bf16*>(o), static_cast<float*>(lse), S, Hq, Hkv, sm);
   } else {
     const size_t bytes = F32Smem<HD>::fwd;
     if ((err = allow_smem(attn_fwd_f32<HD>, bytes)) != cudaSuccess) return err;
-    attn_fwd_f32<HD><<<grid, NT_F32, bytes, s>>>(
+    attn_fwd_f32<HD><<<dim3(nq, Hq, B), NT_F32, bytes, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), S,
         Hq, Hkv, sm);
@@ -762,19 +853,19 @@ template <int HD>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int B, int S, int Hq,
                       int Hkv, float sm, int dtype, cudaStream_t s) {
-  const dim3 grid((S + T64 - 1) / T64, Hq, B);
+  const int nq = (S + T64 - 1) / T64;
   cudaError_t err;
   if (dtype == 1) {
     const size_t bytes = Bf16Smem<HD>::dq;
     if ((err = allow_smem(attn_bwd_dq_bf16<HD>, bytes)) != cudaSuccess) return err;
-    attn_bwd_dq_bf16<HD><<<grid, NT_BF16, bytes, s>>>(
+    attn_bwd_dq_bf16<HD><<<dim3(Hq, B, nq), NT_BF16, bytes, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<const bf16*>(dout), static_cast<const float*>(lse),
         static_cast<const float*>(delta), static_cast<bf16*>(dq), S, Hq, Hkv, sm);
   } else {
     const size_t bytes = F32Smem<HD>::dq;
     if ((err = allow_smem(attn_bwd_dq_f32<HD>, bytes)) != cudaSuccess) return err;
-    attn_bwd_dq_f32<HD><<<grid, NT_F32, bytes, s>>>(
+    attn_bwd_dq_f32<HD><<<dim3(nq, Hq, B), NT_F32, bytes, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -785,22 +876,23 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
 
 template <int HD>
 cudaError_t launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
-                        const void* lse, const void* delta, void* dk, void* dv, int B, int S,
-                        int Hq, int Hkv, float sm, int dtype, cudaStream_t s) {
-  const dim3 grid((S + T64 - 1) / T64, Hkv, B);
+                        const void* lse, const void* delta, void* dk, void* dv, void* ws,
+                        int B, int S, int Hq, int Hkv, int P, float sm, int dtype,
+                        cudaStream_t s) {
+  const int nk = (S + T64 - 1) / T64;
   cudaError_t err;
   if (dtype == 1) {
     const size_t bytes = Bf16Smem<HD>::dkdv;
     if ((err = allow_smem(attn_bwd_dkdv_bf16<HD>, bytes)) != cudaSuccess) return err;
-    attn_bwd_dkdv_bf16<HD><<<grid, NT_BF16, bytes, s>>>(
+    attn_bwd_dkdv_bf16<HD><<<dim3(Hkv * P, B, nk), NT_BF16, bytes, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), S,
-        Hq, Hkv, sm);
+        static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+        static_cast<float*>(ws), B, S, Hq, Hkv, P, sm);
   } else {
     const size_t bytes = F32Smem<HD>::dkdv;
     if ((err = allow_smem(attn_bwd_dkdv_f32<HD>, bytes)) != cudaSuccess) return err;
-    attn_bwd_dkdv_f32<HD><<<grid, NT_F32, bytes, s>>>(
+    attn_bwd_dkdv_f32<HD><<<dim3(nk, Hkv, B), NT_F32, bytes, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -844,17 +936,42 @@ extern "C" int smt_attn_bwd_delta(const void* o, const void* dout, void* delta, 
   return (int)cudaGetLastError();
 }
 
+// P q-head partitions (bf16: 1 <= P <= Hq / Hkv, P dividing it; fp32: 1).
+// P == 1 writes dk, dv; P > 1 writes the fp32 workspace ws (2, P, B, S,
+// Hkv, hd) for smt_attn_bwd_dkdv_reduce.
 extern "C" int smt_attn_bwd_dkdv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse, const void* delta,
-                                 void* dk, void* dv, int B, int S, int Hq, int Hkv, int hd,
-                                 float sm, int dtype, void* stream) {
-  if (bad_args(B, S, Hq, Hkv, hd, dtype)) return (int)cudaErrorInvalidValue;
+                                 void* dk, void* dv, void* ws, int B, int S, int Hq, int Hkv,
+                                 int hd, int P, float sm, int dtype, void* stream) {
+  if (bad_args(B, S, Hq, Hkv, hd, dtype) || P < 1 || (Hq / Hkv) % P != 0 ||
+      (dtype == 0 && P != 1) || (P > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(hd == 64
-                   ? launch_dkdv<64>(q, k, v, dout, lse, delta, dk, dv, B, S, Hq, Hkv, sm,
-                                     dtype, s)
-                   : launch_dkdv<128>(q, k, v, dout, lse, delta, dk, dv, B, S, Hq, Hkv, sm,
-                                      dtype, s));
+                   ? launch_dkdv<64>(q, k, v, dout, lse, delta, dk, dv, ws, B, S, Hq, Hkv, P,
+                                     sm, dtype, s)
+                   : launch_dkdv<128>(q, k, v, dout, lse, delta, dk, dv, ws, B, S, Hq, Hkv, P,
+                                      sm, dtype, s));
+}
+
+// dk, dv (n elements each, n a multiple of 4) = the P partials of ws summed
+// in partition order, in dtype (0 fp32, 1 bf16).
+extern "C" int smt_attn_bwd_dkdv_reduce(const void* ws, void* dk, void* dv, int n, int P,
+                                        int dtype, void* stream) {
+  if (n <= 0 || n % 4 != 0 || P < 1 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t threads = (2 * (size_t)n) / 4;
+  const dim3 grid((unsigned)((threads + 255) / 256));
+  if (dtype == 1)
+    attn_bwd_dkdv_reduce_kernel<bf16><<<grid, 256, 0, s>>>(
+        static_cast<const float*>(ws), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+        (size_t)n, P);
+  else
+    attn_bwd_dkdv_reduce_kernel<float><<<grid, 256, 0, s>>>(
+        static_cast<const float*>(ws), static_cast<float*>(dk), static_cast<float*>(dv),
+        (size_t)n, P);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int smt_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout,

@@ -31,6 +31,7 @@ from sparse_matrix_tuning_tpu_torch.ops.attention import fullk_attention
 from sparse_matrix_tuning_tpu_torch.ops.cuda.attention import HEAD_DIMS
 from sparse_matrix_tuning_tpu_torch.ops.cuda.cached_attention import (
     HEAD_DIMS as CACHED_HEAD_DIMS, cached_attention, visible_slots)
+from sparse_matrix_tuning_tpu_torch.ops.quant import _over
 
 ATTN_TARGETS = ("q_proj", "k_proj", "v_proj")
 MLP_TARGETS = ("gate_proj", "up_proj", "down_proj")
@@ -398,9 +399,12 @@ def cache_batch_axis(params: Mapping[str, Any]) -> int:
 
 def _quant_kv(t: torch.Tensor):
     """Symmetric per-(slot, head) int8 quantization of a K/V slice in cache
-    axes (B, Hkv, S_new, hd) -> (int8 values, fp32 scales (B, Hkv, 1, S_new))."""
+    axes (B, Hkv, S_new, hd) -> (int8 values, fp32 scales (B, Hkv, 1, S_new)).
+    The scale is amax times fp32(1/127), then floored, as XLA compiles the
+    JAX package's amax / 127 inside its jitted generate programs."""
     t32 = t.float()
-    s = torch.clamp(t32.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-10)
+    s = torch.clamp(_over(t32.abs().amax(dim=-1, keepdim=True), 127.0, reciprocal=True),
+                    min=1e-10)
     return torch.round(t32 / s).to(torch.int8), s[..., 0][:, :, None, :]
 
 

@@ -40,13 +40,18 @@ SIGNATURES = {
     "smt_attn_fwd": (P, P, P, P, P, I, I, I, I, I, F, I, P),
     # o, do, delta, B, S, Hq, hd, dtype, stream
     "smt_attn_bwd_delta": (P, P, P, I, I, I, I, I, P),
-    # q, k, v, do, lse, delta, dk, dv, B, S, Hq, Hkv, hd, sm_scale, dtype, stream
-    "smt_attn_bwd_dkdv": (P, P, P, P, P, P, P, P, I, I, I, I, I, F, I, P),
+    # q, k, v, do, lse, delta, dk, dv, workspace, B, S, Hq, Hkv, hd,
+    # partitions, sm_scale, dtype, stream
+    "smt_attn_bwd_dkdv": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, P),
+    # workspace, dk, dv, n, partitions, dtype, stream
+    "smt_attn_bwd_dkdv_reduce": (P, P, P, I, I, I, P),
     # q, k, v, do, lse, delta, dq, B, S, Hq, Hkv, hd, sm_scale, dtype, stream
     "smt_attn_bwd_dq": (P, P, P, P, P, P, P, I, I, I, I, I, F, I, P),
-    # q, k, v, ks, vs, slot_mask, o, B, T, S, Hq, Hkv, hd, cache_index,
-    # sm_scale, q dtype, cache dtype (2 = int8), stream
-    "smt_cached_attn": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, P),
+    # q, k, v, ks, vs, slot_mask, o, ws_o, ws_m, ws_l, B, T, S, Hq, Hkv, hd,
+    # cache_index, sm_scale, q dtype, cache dtype (2 = int8), splits, stream
+    "smt_cached_attn": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, I, P),
+    # ws_o, ws_m, ws_l, o, rows, hd, splits, dtype, stream
+    "smt_cached_attn_combine": (P, P, P, P, I, I, I, I, P),
     # xq, sx, wq, sw, out, T, O, K, out dtype, stream
     "smt_q8mm_t": (P, P, P, P, P, I, I, I, I, P),
     # gq, sg, wq, out, T, O, K, out dtype, stream

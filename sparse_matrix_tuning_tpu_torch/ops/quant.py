@@ -33,10 +33,12 @@ def row_quant(x: torch.Tensor):
     """Per-row symmetric int8 quantization over the last dim.
 
     Returns (xq int8, sx fp32 with shape (..., 1)); x / sx rounded (half to
-    even) to [-127, 127]."""
+    even) to [-127, 127]. The scale is amax times fp32(1/127), as XLA
+    compiles the JAX package's division by 127 inside its jitted trainer
+    and eval steps; x / sx stays a division, as it does there."""
     x32 = x.float()
     amax = x32.abs().amax(dim=-1, keepdim=True)
-    sx = torch.clamp(amax, min=1e-8) / 127.0
+    sx = _over(torch.clamp(amax, min=1e-8), 127.0, reciprocal=True)
     xq = torch.clamp(torch.round(x32 / sx), -127, 127).to(torch.int8)
     return xq, sx
 

@@ -98,4 +98,4 @@ def test_wrappers_refuse_devices_without_a_kernel():
     with pytest.raises(ValueError, match="no kernel"):
         k7.cached_attention(q, {"k": cache, "v": cache},
                             torch.ones((2, 16), dtype=torch.int32, device="meta"), 3)
-    assert k7.LAUNCHES == {"cached_attn": 0, "cached_attn_q8": 0}
+    assert k7.LAUNCHES == {"cached_attn": 0, "cached_attn_q8": 0, "cached_attn_combine": 0}

@@ -4,6 +4,7 @@ the JAX package on the same numpy inputs: quantization must give the same
 int8 values and scales, the int8 products are integer-exact, and the block
 correction agrees with the Pallas kernel (interpret mode) and the XLA
 formulations."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -37,12 +38,25 @@ def _int8(x) -> np.ndarray:
 def test_row_quant_equals_jax(shape, dtype):
     x = tp.seeded_normal(shape, seed=1, scale=0.3)
     x[..., 0, :] = 0.0  # an all-zero row takes the 1e-8 clamp
-    xq_j, sx_j = jq.row_quant(tp.to_jax(x, dtype))
+    # jitted, as the JAX package runs it (inside its trainer and eval steps)
+    xq_j, sx_j = jax.jit(jq.row_quant)(tp.to_jax(x, dtype))
     xq_p, sx_p = pq.row_quant(tp.to_torch(x, dtype))
     assert sx_p.shape == sx_j.shape == (*shape[:-1], 1) and sx_p.dtype == torch.float32
     np.testing.assert_array_equal(_int8(xq_p), _int8(xq_j))
     np.testing.assert_array_equal(sx_p.numpy(), np.asarray(sx_j))
     assert np.abs(_int8(xq_p)).max() == 127
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_row_quant_scales_equal_jitted_jax_at_every_magnitude(dtype):
+    """Rows scaled 0.01 .. 10: the scales and int8 values equal jax.jit's
+    bit for bit. Eager JAX divides by 127 and parts from jit in the last
+    bit of some scales (29 of these 512 rows in fp32)."""
+    x = tp.rows_scaled_normal((512, 256), seed=0)
+    xq_j, sx_j = jax.jit(jq.row_quant)(tp.to_jax(x, dtype))
+    xq_p, sx_p = pq.row_quant(tp.to_torch(x, dtype))
+    np.testing.assert_array_equal(sx_p.numpy(), np.asarray(sx_j))
+    np.testing.assert_array_equal(_int8(xq_p), _int8(xq_j))
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
@@ -98,16 +112,18 @@ def test_k4_plain_equals_pallas_kernel_interpret(tile_data, dtype):
     """K4's plain version against the JAX Pallas kernels in interpret mode:
     the int32 accumulation is exact and the epilogue is the same fp32
     expression, so every bit agrees (as tests/test_q8_matmul_kernel.py
-    holds the Pallas kernel to the XLA form)."""
+    holds the Pallas kernel to the XLA form). The JAX side is jitted, as
+    the JAX package's sparse step runs it: the activation row scales are
+    then amax * fp32(1/127)."""
     x, w = tile_data
     wq_j, sw_j = jq.quantize_weight(tp.to_jax(w, dtype))
     wq_p, sw_p = pq.quantize_weight(tp.to_torch(w, dtype))
-    y_j = q8_matmul_t_fused(tp.to_jax(x, dtype), wq_j, sw_j)
+    y_j = jax.jit(q8_matmul_t_fused)(tp.to_jax(x, dtype), wq_j, sw_j)
     y_p = pq.q8_matmul_t(tp.to_torch(x, dtype), wq_p, sw_p)
     assert y_p.dtype == tp.TORCH_DTYPES[dtype]
     np.testing.assert_array_equal(tp.np32(y_p), tp.np32(y_j))
     g = x[:, :512]
-    g_j = q8_matmul_fused(tp.to_jax(g, dtype), wq_j, sw_j)
+    g_j = jax.jit(q8_matmul_fused)(tp.to_jax(g, dtype), wq_j, sw_j)
     g_p = pq.q8_matmul(tp.to_torch(g, dtype), wq_p, sw_p)
     np.testing.assert_array_equal(tp.np32(g_p), tp.np32(g_j))
 

@@ -308,3 +308,14 @@ def test_int8_and_loss_variants_match_jax(kw, rtol):
     assert ("q" in p["port"].state) == (kw.get("frozen_quant") == "int8")
     assert ("q_head" in p["port"].state) == ("int8" in (kw.get("frozen_quant"), kw.get("head_quant")))
     assert ("q_head" in p["jax"].state) == ("q_head" in p["port"].state)
+
+
+if __name__ == "__main__":
+    # The int8 run's drift from the JAX trainer: the largest relative loss
+    # difference over the two phases, at INT8_KW's rate and at 1e-2 (CPU,
+    # fp32): JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_train_e2e.py
+    for lr in (INT8_KW["smt_lr"], 1e-2):
+        p = _run_pair(**{**INT8_KW, "smt_lr": lr})
+        rel = np.abs(np.subtract(p["port_losses"], p["jax_losses"])) / np.abs(p["jax_losses"])
+        print(f"int8, smt_lr {lr}: largest relative loss difference {rel.max():.3e} "
+              f"(bound INT8_LOSS_RTOL {INT8_LOSS_RTOL})")

@@ -25,6 +25,16 @@ def seeded_normal(shape, seed: int, scale: float = 1.0) -> np.ndarray:
     return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
 
 
+def rows_scaled_normal(shape, seed: int) -> np.ndarray:
+    """Normal values whose rows (over the last dim) are scaled by factors
+    log-uniform in 0.01 .. 10: scales of every magnitude, so that the last
+    bit of amax / 127 and of amax * fp32(1/127) part on some rows."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape, dtype=np.float32)
+    f = np.exp(rng.uniform(np.log(0.01), np.log(10.0), (*shape[:-1], 1)))
+    return (x * f.astype(np.float32)).astype(np.float32)
+
+
 def to_jax(a: np.ndarray, dtype: str = "fp32"):
     return jnp.asarray(a, JAX_DTYPES[dtype])
 
