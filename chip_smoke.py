@@ -19,11 +19,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
      (K7_SHAPES), each with planted faults the check must reject, split
      over the cache and combined where the rows fit one CTA (a dropped
      split rejected, repeat launches equal), timed at eight beside torch
-     SDPA with a boolean mask and at several split counts; K4 (the int8 matmul
-     with fused scales, t and g forms) at six shapes (K4_SHAPES: the
-     TinyLlama linears and head, a ragged chunk, Llama-3-8B's gate), equal
-     to its plain version bit for bit, with a planted fault, timed at four
-     beside torch._int_mm plus the scale pass and beside cuBLAS bf16; K5
+     SDPA with a boolean mask and at several split counts; the row
+     quantization in front of K4 at six shapes (RQ_SHAPES: bf16 / fp32,
+     with and without the g form's fold of the weight scales, rows of
+     zeros, ragged T, rows on .5 ties, magnitudes 1e-2 to 10), equal to its
+     plain version bit for bit, with a planted fault (the scale as amax /
+     127), timed at two; the int8 paths' quantization and matmuls under
+     set_sync_debug_mode("error"); K4 (the int8 matmul with fused scales, t
+     and g forms) at nine shapes (K4_SHAPES: the TinyLlama linears and
+     head, a ragged chunk, Llama-3-8B's gate, the int8 eval decode's gate/up
+     and k/v at 64 rows, ragged decode rows), equal to its plain version
+     bit for bit, with a planted fault, timed at six beside torch._int_mm
+     plus the scale pass and beside cuBLAS bf16; K5
      (the block correction) at six cases (K5_SHAPES: both orientations,
      ragged T, bf16 and fp32, unsorted coordinates with repeats), with a
      planted fault, timed at two beside bmm + index_add_; each timed kernel
@@ -69,13 +76,15 @@ Before the references, K6 (the int4 unpack-matmul) runs at eight shapes
 (K6_SHAPES: the TinyLlama linears at the eval decode's 64 rows, 16 and a
 ragged 7, Llama-3-8B's gate) and on the layer views of a stack (K6s),
 against its plain version within a limit derived from the two fp32
-summation orders, with two planted faults the check must reject, timed
+summation orders, one launch a call, two launches equal bit for bit, with
+two planted faults the check must reject, timed
 beside cuBLAS bf16 on the dequantized weight; and a tiny fp32 generation
 over the int8 and int4 bases (planned and empty plan, bf16 and int8
 cache, greedy and beam-4) on the GPU against the CPU, tokens identical.
 The line before the last is a JSON object of the kernels' numbers; the
 last line is {"ok": true, "device": {...}}. `--only q8` stops after the
-build, the K4 / K5 checks and the tiny int8 reference; `--only q4` after
+build, the row quantization and no-synchronisation checks, the K4 / K5
+checks and the tiny int8 reference; `--only q4` after
 the build, the K6 checks and the tiny quantized generation; `--only attn`
 after the build and the K3 / K7 checks; none of them prints a result.
 """
@@ -158,6 +167,10 @@ K4_SHAPES = [
     (2048, 2048, 32000, "fp32", "TinyLlama head, fp32 logits", True),
     (2044, 2048, 4096, "fp32", "a chunk of the chunked q8 loss, ragged T", False),
     (2048, 4096, 14336, "bf16", "Llama-3-8B gate", True),
+    (64, 2048, 5632, "bf16", "TinyLlama gate/up at the int8 eval decode (F2: 16 prompts x 4 "
+     "beams)", True),
+    (64, 2048, 256, "bf16", "TinyLlama k/v at the int8 eval decode", True),
+    (37, 2048, 2048, "bf16", "ragged decode rows, q/o", False),
 ]
 K4_KERNELS = ("q8mm_t", "q8mm_g")
 # K5 cases (T, O, I, dtype, transpose, what, timed): out (T, O) += src (T, I)
@@ -176,7 +189,17 @@ K5_SHAPES = [
 # |diff| <= 2^-7 |want|, plus an absolute term for sums near zero. fp32: the
 # JAX suite's correction tolerance (tests/test_scan_ops.py:147).
 K5_TOL = {"bf16": (2.0 ** -7, 1e-4), "fp32": (1e-5, 1e-5)}
-Q8_KERNELS = K4_KERNELS + ("block_correction",)
+Q8_KERNELS = K4_KERNELS + ("row_quant", "block_correction")
+# the row quantization in front of K4 (T, K, x dtype, fold the weight scales,
+# what, timed): bit for bit against the plain version
+RQ_SHAPES = [
+    (2048, 2048, "bf16", False, "TinyLlama gate/up input, the main path", True),
+    (2048, 5632, "bf16", True, "the g form's fold over gate/up's output gradient", True),
+    (2044, 2048, "fp32", False, "the q8 loss's hidden states, ragged T", False),
+    (37, 2048, "bf16", False, "ragged decode rows", False),
+    (64, 4096, "fp32", True, "fp32 fold over a head chunk", False),
+    (9, 100, "bf16", True, "a row length off the 16-byte vectors", False),
+]
 # K6 shapes (T, I, O, out dtype, what, timed): out (T, O) = x (T, I) bf16 . the
 # int4 weight (O, I/2 packed, one fp32 scale per 128 columns)
 K6_SHAPES = [
@@ -366,7 +389,7 @@ def check_block_grad():
     log(f"[K1 block_grad] time at {timing['shape']}: kernel {timing['ms']:.4f} ms "
         f"(repeat {timing['ms_repeat']:.4f}), plain {timing['plain_ms']:.4f} ms, "
         f"library bmm on gathered bf16 panels {timing['lib_ms']:.4f} ms; "
-        f"kernel {timing['tflops']:.1f} TFLOP/s; bound {timing['bound'][0]:.4f} ms "
+        f"kernel {timing['tflops']:.1f} TFLOP/s; bound {timing['bound'][0]:.3e} ms "
         f"({timing['bound'][1]})")
     return worst, timing
 
@@ -429,7 +452,7 @@ def check_masked_adam():
     log(f"[K2 masked_adam] time at {timing['shape']}: kernel {ms:.4f} ms "
         f"(repeat {ms2:.4f}), plain {plain_ms:.4f} ms, library torch._foreach "
         f"{lib_ms:.4f} ms; kernel {timing['gbps']:.0f} GB/s of 28 B/element; bound "
-        f"{timing['bound'][0]:.4f} ms ({timing['bound'][1]})")
+        f"{timing['bound'][0]:.3e} ms ({timing['bound'][1]})")
     return worst, timing
 
 
@@ -650,7 +673,7 @@ def check_attention():
                 for n in t["fwd_bwd_ms"]))
             bounds = _k3_bounds(b, s, hq, hkv, hd, dtype, info["P"])
             log(f"[K3 attention] bound at {shape}: " + "; ".join(
-                f"{n} {ms:.4f} ms ({by})" for n, (ms, by) in bounds.items()))
+                f"{n} {ms:.3e} ms ({by})" for n, (ms, by) in bounds.items()))
             if main_times is None:
                 main_times = {n: (*t[n], bounds[n], t["sdpa_fwd"] if n == "attn_fwd" else None)
                               for n in K3_KERNELS if t[n][0] is not None}
@@ -822,7 +845,7 @@ def check_cached_attention():
                 nbytes = sum(x.numel() * 4 for x in ws) + q.numel() * q.element_size()
                 comb_bnd = bound(nbytes, 3 * ws[0].numel(), "fp32")
                 log(f"[K7 cached_attn_combine] time at {shape}, {plan} splits: kernel "
-                    f"{comb[0]:.4f} ms, plain {comb[1]:.4f} ms; bound {comb_bnd[0]:.4f} ms "
+                    f"{comb[0]:.4f} ms, plain {comb[1]:.4f} ms; bound {comb_bnd[0]:.3e} ms "
                     f"({comb_bnd[1]})")
                 main.setdefault("cached_attn_combine", (*comb, comb_bnd, None))
                 del ws
@@ -839,7 +862,7 @@ def check_cached_attention():
             log(f"[K7 cached_attn] time at {shape}: kernel {ms:.4f} ms (repeat {ms2:.4f}), "
                 f"plain {plain_ms:.4f} ms, torch SDPA with a boolean mask "
                 f"{'n/a (int8 cache)' if lib_ms is None else f'{lib_ms:.4f} ms'}; "
-                f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+                f"bound {bnd[0]:.3e} ms ({bnd[1]})")
             main.setdefault(name, (ms, plain_ms, bnd, lib_ms))
         del q, kv, sm, args, got, want
         torch.cuda.empty_cache()
@@ -862,12 +885,14 @@ def _k4_case(form, w, wq, sw, t, dtype, gen):
     if t_form:
         aq, sa = row_quant(act)
         kernel = lambda: k4.q8mm_t(aq, sa, wq, sw, dt)
+        split_call = lambda sp: k4.q8mm_t(aq, sa, wq, sw, dt, splits=sp)
         plain = lambda a=aq: k4.q8mm_t_plain(a, sa, wq, sw, dt)
         lib = lambda: ((torch._int_mm(aq, wq.t()).float() * sa) * sw).to(dt)
         cublas = lambda: torch.matmul(ab, wb.t())
     else:
-        aq, sa = row_quant(act.float() * sw)
+        aq, sa = row_quant(act, sw)
         kernel = lambda: k4.q8mm_g(aq, sa, wq, dt)
+        split_call = lambda sp: k4.q8mm_g(aq, sa, wq, dt, splits=sp)
         plain = lambda a=aq: k4.q8mm_g_plain(a, sa, wq, dt)
         lib = lambda: (torch._int_mm(aq, wq).float() * sa).to(dt)
         cublas = lambda: torch.matmul(ab, wb)
@@ -895,7 +920,7 @@ def _k4_case(form, w, wq, sw, t, dtype, gen):
         swapped = ((acc * sw) * sa).to(dt)
         info += (f"; sw applied before sx changes {int((swapped != want).sum())} of "
                  f"{want.numel()} elements")
-    return err, info, (kernel, plain, lib, cublas)
+    return err, info, (kernel, plain, lib, cublas, split_call)
 
 
 def check_q8_matmul():
@@ -906,6 +931,7 @@ def check_q8_matmul():
     Returns ({kernel: worst err}, {kernel: (ms, plain_ms, bound, library ms)}
     at the first shape)."""
     import torch
+    from sparse_matrix_tuning_tpu_torch.ops.cuda import q8_matmul as k4
     from sparse_matrix_tuning_tpu_torch.ops.quant import quantize_weight
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
@@ -916,7 +942,8 @@ def check_q8_matmul():
         w = torch.randn((o, k), generator=gen, device="cuda") / k ** 0.5
         wq, sw = quantize_weight(w)
         for form in K4_KERNELS:
-            err, info, (kernel, plain, lib, cublas) = _k4_case(form, w, wq, sw, t, dtype, gen)
+            err, info, (kernel, plain, lib, cublas, split_call) = _k4_case(form, w, wq, sw, t,
+                                                                           dtype, gen)
             worst[form] = max(worst[form], err)
             shape = f"T={t} K={k} O={o} {dtype} out"
             log(f"[K4 {form}] {shape} ({what}): equal to the plain version bit for bit; {info}")
@@ -934,14 +961,147 @@ def check_q8_matmul():
                 tops = 2.0 * t * o * k / (min(ms, ms2) * 1e-3) / 1e12
                 log(f"[K4 {form}] time at {shape}: kernel {ms:.4f} ms (repeat {ms2:.4f}, "
                     f"{tops:.0f} TOP/s), plain {plain_ms:.4f} ms, library torch._int_mm + "
-                    f"scale pass {lib_ms:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]})")
+                    f"scale pass {lib_ms:.4f} ms; bound {bnd[0]:.3e} ms ({bnd[1]})")
                 log(f"[K4 {form}] cuBLAS bf16 matmul of the unquantized operands at {shape}: "
                     f"{bf16_ms:.4f} ms")
+                if t <= k4.DECODE_ROWS:  # the decode plan's split of the contraction
+                    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+                    p = k4.plan(form[-1], t, n_out, n_act, n_sm)
+                    by = {sp: time_ms(lambda sp=sp: split_call(sp))
+                          for sp in sorted({1, 2, 4, 8, 16, p.splits}) if sp * 128 <= n_act}
+                    log(f"[K4 {form}] at {shape} by split count (planned {p.splits}): " + ", ".join(
+                        f"{sp} {ms_:.4f} ms" for sp, ms_ in by.items()))
                 main.setdefault(form, (ms, plain_ms, bnd, lib_ms))
-            del kernel, plain, lib, cublas
+            del kernel, plain, lib, cublas, split_call
         del w, wq, sw
         torch.cuda.empty_cache()
     return worst, main
+
+
+def _rq_rows(t, k, dt, fold, gen):
+    """x (T, K) for the row quantization check (and sw (K,) with `fold`):
+    rows of magnitudes 1e-2 to 10, the first row zeros, and from the fourth
+    on every fourth row built so that its values over the scale sit exactly
+    on .5 ties (the row's max 127 * 2^e, the others (j + 0.5) * 2^e; with
+    the fold, sw a power of two, so the products stay exact)."""
+    import torch
+    dev = "cuda"
+    sw = None
+    if fold:
+        sw = torch.exp2(torch.randint(-10, -4, (k,), generator=gen, device=dev).float())
+    mag = torch.pow(10.0, torch.rand((t, 1), generator=gen, device=dev) * 3 - 2)
+    v = torch.randn((t, k), generator=gen, device=dev) * mag
+    ties = torch.arange(3, t, 4, device=dev)
+    if len(ties):
+        e = torch.randint(-12, -2, (len(ties), 1), generator=gen, device=dev).float()
+        j = torch.randint(-127, 127, (len(ties), k), generator=gen, device=dev).float()
+        row = (j + 0.5) * torch.exp2(e)
+        row[:, 0] = 127 * torch.exp2(e[:, 0])
+        v[ties] = row / (sw if fold else 1.0)
+    v[0] = 0
+    return v.to(dt), sw
+
+
+def check_row_quant():
+    """K4's prologue, the row quantization kernel, at RQ_SHAPES: xq and sx
+    equal to the plain version bit for bit (rows of zeros, ragged T, rows
+    on .5 ties, magnitudes 1e-2 to 10, with and without the fold of sw);
+    the planted fault (the scale as amax / 127, a division) rejected; times
+    beside the plain version and the bound (no single PyTorch call computes
+    it). Then row_quant, _quant_kv and the int8 / int4 matmuls on CUDA
+    tensors run under torch.cuda.set_sync_debug_mode("error"): no call
+    makes the host wait for the device. Returns (worst err, (ms, plain_ms,
+    bound, None) at the first shape)."""
+    import torch
+    from sparse_matrix_tuning_tpu_torch.ops.cuda import row_quant as rq
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    main = None
+    for t, k, dtype, fold, what, timed in RQ_SHAPES:
+        dt = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype]
+        x, sw = _rq_rows(t, k, dt, fold, gen)
+        before = rq.LAUNCHES
+        xq, sx = rq.row_quant(x, sw)
+        torch.cuda.synchronize()
+        if rq.LAUNCHES != before + 1:
+            raise AssertionError("row_quant: not one launch per call")
+        xq_p, sx_p = rq.row_quant_plain(x, sw)
+        if not (torch.equal(xq, xq_p) and torch.equal(sx, sx_p)):
+            raise AssertionError(
+                f"row_quant T={t} K={k} {dtype} fold={fold}: {int((xq != xq_p).sum())} values and "
+                f"{int((sx != sx_p).sum())} scales differ from the plain version")
+        x32 = x.float() * (sw if fold else 1.0)
+        n_ties = int(((x32 / sx_p).abs().frac() == 0.5).sum())
+        info = f"{n_ties} values on .5 ties"
+        if main is None:
+            # the planted fault: the scale as a division by 127 (by a tensor:
+            # PyTorch's CUDA division by a Python scalar multiplies by its
+            # reciprocal)
+            amax = torch.clamp(x32.abs().amax(dim=-1, keepdim=True), min=1e-8)
+            sx_f = amax / torch.full_like(amax, 127.0)
+            if torch.equal(sx_f, sx):
+                raise AssertionError("row_quant: the check passes a planted fault (amax / 127)")
+            info += (f"; planted fault (amax / 127) rejected: {int((sx_f != sx).sum())} of {t} "
+                     "scales differ")
+        log(f"[row_quant] T={t} K={k} {dtype} x{', sw folded' if fold else ''} ({what}): xq and "
+            f"sx equal to the plain version bit for bit; {info}")
+        if timed:
+            e = x.element_size()
+            nbytes = t * k * e + t * k + 4 * t + (4 * k if fold else 0)
+            bnd = bound(nbytes, (5 if fold else 4) * t * k, "fp32")
+            ms = time_ms(lambda: rq.row_quant(x, sw))
+            plain_ms = time_ms(lambda: rq.row_quant_plain(x, sw), reps=5)
+            ms2 = time_ms(lambda: rq.row_quant(x, sw))
+            log(f"[row_quant] time at T={t} K={k} {dtype}{' fold' if fold else ''}: kernel "
+                f"{ms:.4f} ms (repeat {ms2:.4f}, {nbytes / (min(ms, ms2) * 1e-3) / 1e9:.0f} GB/s "
+                f"of {nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms; bound {bnd[0]:.3e} ms "
+                f"({bnd[1]})")
+            if main is None:
+                main = (ms, plain_ms, bnd, None)
+    check_no_sync()
+    return 0.0, main
+
+
+def check_no_sync():
+    """The int8 paths' host-side code makes no host-device synchronisation:
+    row_quant (kernel route, plain and folded), the KV quantization of an
+    int8 cache, the int8 matmuls (training and decode plans) and the int4
+    decode matmul, each once warm, then again under
+    set_sync_debug_mode("error"), which raises on a synchronising call."""
+    import torch
+    from sparse_matrix_tuning_tpu_torch.models.llama import _quant_kv
+    from sparse_matrix_tuning_tpu_torch.ops import quant
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    x = torch.randn((64, 2048), generator=gen, device="cuda").to(torch.bfloat16)
+    xt = torch.randn((512, 2048), generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn((64, 5632), generator=gen, device="cuda").to(torch.bfloat16)
+    kv = torch.randn((16, 4, 1, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    wq, sw = quant.quantize_weight(torch.randn((5632, 2048), generator=gen, device="cuda"))
+    w4, s4 = quant.quantize_weight_int4(torch.randn((5632, 2048), generator=gen, device="cuda"))
+    calls = {
+        "row_quant": lambda: quant.row_quant(x),
+        "row_quant with sw folded": lambda: quant.row_quant(g, sw),
+        "_quant_kv": lambda: _quant_kv(kv),
+        "q8_matmul_t, decode rows": lambda: quant.q8_matmul_t(x, wq, sw),
+        "q8_matmul_t, 512 rows": lambda: quant.q8_matmul_t(xt, wq, sw),
+        "q8_matmul (g form), decode rows": lambda: quant.q8_matmul(g, wq, sw),
+        "q4_matmul_t": lambda: quant.q4_matmul_t(x, w4, s4),
+    }
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for fn in calls.values():
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("[sync] no host-device synchronisation under set_sync_debug_mode('error') in: "
+        + ", ".join(calls))
 
 
 def _k5_close(got, want, dtype):
@@ -1027,37 +1187,15 @@ def check_block_correction():
             log(f"[K5 block_correction] time at {shape}: kernel {ms:.4f} ms (repeat {ms2:.4f}, "
                 f"{flop / (min(ms, ms2) * 1e-3) / 1e12:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
                 f"library bmm on gathered panels + index_add_ {lib_ms:.4f} ms; bound "
-                f"{bnd[0]:.4f} ms ({bnd[1]})")
+                f"{bnd[0]:.3e} ms ({bnd[1]})")
             if main is None:
                 main = (ms, plain_ms, bnd, lib_ms)
         torch.cuda.empty_cache()
     return worst, main
 
 
-def _k6_limit(x, w4, s4, splits, want):
-    """Elementwise limit on |K6 - plain| at one shape. Both sum the same
-    exact products (a bf16 value times a small integer) in fp32 in another
-    order: the 128 of a group, the n_groups scaled partials and, in the
-    kernel, the splits. Recursive summation of n terms errs by at most
-    (n - 1) u sum |terms| to first order, so the two differ by at most
-    2 n u S, S = sum_g |s_g| sum_c |x_c q_c|, n = 128 + n_groups + splits,
-    with u = 2^-23 (not 2^-24: the tensor cores' adder may truncate). A bf16
-    output adds one rounding of each: one bf16 ulp, 2^-7 |want|."""
-    import torch
-    from sparse_matrix_tuning_tpu_torch.ops.cuda.q4_matmul import unpack_planes
-    t, (o, _), n_groups = x.shape[0], w4.shape, s4.shape[1]
-    qa = torch.cat(unpack_planes(w4), dim=1).abs().float()
-    mag = torch.einsum("tgc,ogc->tgo", x.float().abs().reshape(t, n_groups, -1),
-                       qa.reshape(o, n_groups, -1))
-    mag = (mag * s4.abs().t()[None]).sum(dim=1)
-    limit = 2 * (128 + n_groups + splits) * 2.0 ** -23 * mag
-    if want.dtype == torch.bfloat16:
-        limit = limit + 2.0 ** -7 * want.float().abs()
-    return limit
-
-
 def check_q4_matmul():
-    """K6 at K6_SHAPES against its plain version within _k6_limit, with two
+    """K6 at K6_SHAPES against its plain version within the summation-order limit (q4_matmul.order_limit), with two
     planted faults the check must reject (the low and high nibble planes
     swapped; the last group's scale dropped); K6s, K6 on the layer views of
     a stack, against the plain version of each layer; times at the timed
@@ -1076,7 +1214,8 @@ def check_q4_matmul():
     worst, main = 0.0, None
 
     def held(got, want, x, w4, s4):
-        limit = _k6_limit(x, w4, s4, k6.splits_for(w4.shape[0], w4.shape[1], n_sm), want)
+        # the two fp32 summation orders' first-order bound
+        limit = k6.order_limit(x, w4, s4, k6.splits_for(w4.shape[0], w4.shape[1], n_sm), want)
         diff = (got.float() - want.float()).abs()
         return bool((diff <= limit).all()), float(diff.max()), float((diff / limit).max())
 
@@ -1084,8 +1223,14 @@ def check_q4_matmul():
         dt = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype]
         w4, s4 = quantize_weight_int4(torch.randn((o, i), generator=gen, device="cuda") / i ** 0.5)
         x = torch.randn((t, i), generator=gen, device="cuda").to(torch.bfloat16)
+        before = k6.LAUNCHES
         got = k6.q4mm_t(x, w4, s4, dt)
+        again = k6.q4mm_t(x, w4, s4, dt)
         torch.cuda.synchronize()
+        if k6.LAUNCHES != before + 2:
+            raise AssertionError(f"K6 T={t} I={i} O={o}: not one launch per call")
+        if not torch.equal(got, again):
+            raise AssertionError(f"K6 T={t} I={i} O={o}: two launches on the same inputs differ")
         want = k6.q4mm_t_plain(x, w4, s4, dt)
         ok, err, ratio = held(got, want, x, w4, s4)
         if got.shape != (t, o) or got.dtype != dt or not torch.isfinite(got).all() or not ok:
@@ -1104,8 +1249,9 @@ def check_q4_matmul():
         worst = max(worst, err)
         shape = f"T={t} I={i} O={o} {dtype} out"
         log(f"[K6 q4_matmul] {shape} ({what}): max_abs_err {err:.3e} ({ratio:.3f} of the "
-            f"summation-order limit), splits {k6.splits_for(o, i // 2, n_sm)}; planted faults "
-            "rejected (planes swapped, last group's scale dropped)")
+            f"summation-order limit), splits {k6.splits_for(o, i // 2, n_sm)}, one launch a call, "
+            "two launches equal bit for bit; planted faults rejected (planes swapped, last "
+            "group's scale dropped)")
         if timed:
             wdq = dequantize_weight_int4(w4, s4, torch.bfloat16)
             kernel = lambda: k6.q4mm_t(x, w4, s4, dt)
@@ -1121,11 +1267,17 @@ def check_q4_matmul():
             log(f"[K6 q4_matmul] time at {shape}: kernel {ms:.4f} ms (repeat {ms2:.4f}, "
                 f"{nbytes / (min(ms, ms2) * 1e-3) / 1e9:.0f} GB/s of {nbytes / 1e6:.2f} MB), "
                 f"plain {plain_ms:.4f} ms, library cuBLAS bf16 on the dequantized weight "
-                f"{lib_ms:.4f} ms, dequantize + matmul {deq_ms:.4f} ms; bound {bnd[0]:.4f} ms "
+                f"{lib_ms:.4f} ms, dequantize + matmul {deq_ms:.4f} ms; bound {bnd[0]:.3e} ms "
                 f"({bnd[1]})")
             if main is None:
                 main = (ms, plain_ms, bnd, lib_ms)
             del wdq, kernel
+        if t == k6.MAX_ROWS:  # the decode's shapes: times by split count
+            planned = k6.splits_for(o, i // 2, n_sm)
+            by = {sp: time_ms(lambda sp=sp: k6.q4mm_t(x, w4, s4, dt, splits=sp))
+                  for sp in sorted({1, 2, 4, 8, 16, planned}) if sp <= i // 256}
+            log(f"[K6 q4_matmul] at {shape} by split count (planned {planned}): " + ", ".join(
+                f"{sp} {ms_:.4f} ms" for sp, ms_ in by.items()))
         del w4, s4, x, got, want, swapped, no_last
         torch.cuda.empty_cache()
 
@@ -1163,10 +1315,12 @@ def reset_launches():
     from sparse_matrix_tuning_tpu_torch.ops.cuda import correction as k5
     from sparse_matrix_tuning_tpu_torch.ops.cuda import q4_matmul as k6
     from sparse_matrix_tuning_tpu_torch.ops.cuda import q8_matmul as k4
+    from sparse_matrix_tuning_tpu_torch.ops.cuda import row_quant as rq
     k1.LAUNCHES = 0
     k2.LAUNCHES = 0
     k5.LAUNCHES = 0
     k6.LAUNCHES = 0
+    rq.LAUNCHES = 0
     for counts in (k3.LAUNCHES, k7.LAUNCHES, k4.LAUNCHES):
         for name in counts:
             counts[name] = 0
@@ -1181,9 +1335,10 @@ def launches():
     from sparse_matrix_tuning_tpu_torch.ops.cuda import correction as k5
     from sparse_matrix_tuning_tpu_torch.ops.cuda import q4_matmul as k6
     from sparse_matrix_tuning_tpu_torch.ops.cuda import q8_matmul as k4
+    from sparse_matrix_tuning_tpu_torch.ops.cuda import row_quant as rq
     return {"block_grad": k1.LAUNCHES, "masked_adam": k2.LAUNCHES, **k3.LAUNCHES,
-            **k7.LAUNCHES, **k4.LAUNCHES, "block_correction": k5.LAUNCHES,
-            "q4_matmul": k6.LAUNCHES}
+            **k7.LAUNCHES, **k4.LAUNCHES, "row_quant": rq.LAUNCHES,
+            "block_correction": k5.LAUNCHES, "q4_matmul": k6.LAUNCHES}
 
 
 def synthetic_sft(n, seq, vocab, seed):
@@ -1969,10 +2124,11 @@ def run_quantized_eval(export_dir, cfg, d1):
     legs = {}
     for tag, fq, leg_plan, new_tokens, need, forbid in (
             ("F1", "int4", None, 256, ("q4_matmul", "cached_attn"),
-             ("q8mm_t", "block_correction")),
-            ("F2", "int8", None, 64, ("q8mm_t", "cached_attn"), ("q4_matmul", "block_correction")),
+             ("q8mm_t", "row_quant", "block_correction")),
+            ("F2", "int8", None, 64, ("q8mm_t", "row_quant", "cached_attn"),
+             ("q4_matmul", "block_correction")),
             ("F3", "int4", plan, 64, ("q4_matmul", "block_correction", "cached_attn"),
-             ("q8mm_t",))):
+             ("q8mm_t", "row_quant"))):
         gc.collect()  # what earlier runs left in reference cycles (the trainers)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -2073,8 +2229,8 @@ def compare_int8_run(run_a, run_e, n_warmup):
 
 
 def main(argv=None):
-    """`--only q8` stops after the build, the K4 / K5 checks and the tiny
-    int8 references; `--only q4` after the build, the K6 checks and the tiny
+    """`--only q8` stops after the build, the row quantization, K4 / K5
+    checks and the tiny int8 references; `--only q4` after the build, the K6 checks and the tiny
     quantized generation; `--only attn` after the build and the K3 / K7
     checks (short first calls for a new kernel); none prints a result
     line. With no arguments every phase runs."""
@@ -2125,6 +2281,7 @@ def main(argv=None):
         k2_err, k2_time = check_masked_adam()
         k3_err, k3_time = check_attention()
         k7_err, k7_time = check_cached_attention()
+    rq_err, rq_time = check_row_quant()
     k4_err, k4_time = check_q8_matmul()
     k5_err, k5_time = check_block_correction()
     if not only_q8:
@@ -2216,6 +2373,12 @@ def main(argv=None):
                                  f"{run['launches']}")
     if not all(run_e["launches"][n] > 0 for n in TRAIN_KERNELS + Q8_KERNELS):
         raise AssertionError(f"run E did not launch every kernel: {run_e['launches']}")
+    le = run_e["launches"]
+    if le["row_quant"] != le["q8mm_t"] + le["q8mm_g"]:  # every int8 linear and the q8 head
+        raise AssertionError(f"run E: not one row quantization launch per K4 call: {le}")
+    f2 = run_f["F2"]["launches"]
+    if f2["row_quant"] != f2["q8mm_t"]:
+        raise AssertionError(f"run F2: not one row quantization launch per K4 call: {f2}")
     if any(run_e["launches_warmup"][n] for n in Q8_KERNELS):
         raise AssertionError(f"run E's warm-up launched an int8 kernel: "
                              f"{run_e['launches_warmup']}")
@@ -2247,7 +2410,14 @@ def main(argv=None):
               ] + [entry(name, "q8_matmul.cu", f"q8_matmul.py:{line}",
                          run_e["launches"][name], k4_err[name], *k4_time[name])
                    for name, line in (("q8mm_t", 104), ("q8mm_g", 133))
-                   ] + [entry("block_correction", "correction.cu", "correction.py:69",
+                   ] + [dict(entry("row_quant", "row_quant.cu", "",
+                                   run_e["launches"]["row_quant"], rq_err, *rq_time),
+                             # not a Pallas kernel: the row quantization XLA fuses in
+                             # front of q8mm_t_core / q8mm_g_core (q8_matmul.py:159-177)
+                             replaces="sparse_matrix_tuning_tpu/ops/quant.py:32",
+                             launches_by_run={"E": run_e["launches"]["row_quant"],
+                                              "F2": run_f["F2"]["launches"]["row_quant"]}),
+                        entry("block_correction", "correction.cu", "correction.py:69",
                               run_e["launches"]["block_correction"], k5_err, *k5_time),
                         entry("q4_matmul", "q4_matmul.cu", "q4_matmul.py:94",
                               run_f["F1"]["launches"]["q4_matmul"], k6_err, *k6_time)]

@@ -23,15 +23,26 @@
 // is read once (O * K bytes, 5.8 MB at TinyLlama's gate/up), x and the
 // output are small, and 2*T*O*I operations at T <= 64 stay under the bf16
 // tensor cores' rate for those bytes. Design:
-//   * One CTA owns 128 output columns (8 warps, each two 8-wide n-tiles) and
-//     a range of scale groups. Few output tiles (k/v projections: O = 256)
-//     would leave most SMs idle, so the groups are split over CTAs (split-K)
-//     and a second kernel sums the fp32 partials over the splits in a fixed
-//     order: deterministic, no atomics. The Pallas grid's sequential K axis
-//     becomes the group loop inside the CTA plus that reduction.
-//   * The packed bytes stream once, in 16-byte loads (4 lanes cover 64
-//     contiguous bytes of a row), with the next group's loads in flight
-//     while the current group computes.
+//   * One CTA owns 128 output columns (8 warps, each two 8-wide n-tiles)
+//     and a range of scale groups. (256 columns, which halve the re-reads
+//     of x, were slower at every decode shape on the card: half the CTAs,
+//     and two accumulator sets of twice the size spill; PERF.md.) Few output
+//     tiles (k/v: O = 256) would leave most SMs idle, so the groups are
+//     split over CTAs (split-K); the splits are summed in the same launch:
+//     each writes its fp32 partial to a workspace (small enough to stay in
+//     L2; thread-major, so written and read in coalesced 16-byte vectors),
+//     and the last CTA of a tile to arrive (a per-tile counter, which it
+//     resets for the next call) adds the partials in split order 0, 1, ...
+//     and rounds once: deterministic, no atomics on the data, one launch.
+//   * Thread 0 keeps TMA loads in flight: the packed weight through a ring
+//     of 4 stages of 16 KB (a group's 128 packed columns x 128 rows: 48 KB
+//     in flight while one stage is computed), x through a ring of 2 stages
+//     (the group's 2 x 128 columns of both planes, T rows, from L2), each
+//     stage with a "full" mbarrier (transaction bytes); after a group, one
+//     __syncthreads frees its stages and thread 0 refills them. Both are
+//     written with the 128-byte swizzle, so the fragment loads below see few
+//     or no bank conflicts. Rows past T or O arrive as zeros. The group's
+//     scales are loaded while its tiles land.
 //   * Products through mma.sync m16n8k16 bf16 with fp32 accumulators, in the
 //     explicit fragment layout, so each thread knows the output columns of
 //     its accumulators and applies their scales from registers: one
@@ -43,24 +54,34 @@
 //   * Nibbles become bf16 without a conversion instruction: (n ^ 8) sits in
 //     the mantissa of 128.0 (0x4300 | (n ^ 8)), and subtracting 136 leaves
 //     (n ^ 8) - 8, the signed value, exactly.
-//   * x is staged per group (both planes, T x 256 bf16 = 32 KB at T = 64) in
-//     shared memory with a padded pitch, so the A-fragment loads are free of
-//     bank conflicts. Rows past T are zeros and never stored (ragged T).
-// Simple first: no cp.async/TMA ring, no wgmma, one x buffer.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
+using namespace hopper;
+
 constexpr int GROUP = 128;             // columns of one scale group (and packed columns)
-constexpr int NW = 8;                  // warps per CTA
+constexpr int NW = 8;                  // warps
 constexpr int NTH = NW * 32;
+constexpr int MAX_MT = 4;              // 16-row m-tiles: T <= 64
+constexpr int W_STAGES = 4;
+constexpr int X_STAGES = 2;
 constexpr int NT = 2;                  // 8-wide n-tiles per warp
 constexpr int BO = NW * NT * 8;        // 128 output columns per CTA
-constexpr int XPITCH = GROUP + 8;      // bf16 per staged x row: 272 bytes
-constexpr int MAX_MT = 4;              // 16-row m-tiles: T <= 64
+constexpr int W_BYTES = BO * GROUP;    // one group of the packed weight tile
+
+template <int MT>
+struct Cfg {
+  static constexpr int X_TILE = MT * 16 * 128;  // one plane's half group: 64 bf16 x MT*16 rows
+  static constexpr int X_BYTES = 4 * X_TILE;    // 2 planes x 2 halves
+  static constexpr int SMEM = W_STAGES * W_BYTES + X_STAGES * X_BYTES + 1024 + 256;
+};
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
@@ -89,31 +110,57 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float v0, float v1) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
 }
 
-// grid (O / 128, splits). splits == 1: out (T, O) in OutT; else the split's
-// fp32 partial sums to ws[split] (T, O).
+// grid tiles * splits: CTA b takes split b % splits of output tile b / splits
 template <int MT, typename OutT>
-__global__ void __launch_bounds__(NTH)
-q4mm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w4,
-            const float* __restrict__ s4, float* __restrict__ ws, OutT* __restrict__ out,
-            int T, int O, int K, int splits) {
-  __shared__ __align__(16) __nv_bfloat16 xs[2][MT * 16][XPITCH];  // [plane][row][col]
+__global__ void __launch_bounds__(NTH, 1)
+q4mm_kernel(const __grid_constant__ CUtensorMap tmW, const __grid_constant__ CUtensorMap tmX,
+            const float* __restrict__ s4, float* __restrict__ ws,
+            unsigned* __restrict__ counters, OutT* __restrict__ out, int T, int O, int K,
+            int splits) {
+  using C = Cfg<MT>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ int s_last;
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* sW = smem;
+  uint8_t* sX = sW + W_STAGES * W_BYTES;
+  uint64_t* w_full = reinterpret_cast<uint64_t*>(sX + X_STAGES * C::X_BYTES);
+  uint64_t* x_full = w_full + W_STAGES;
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
-  const int gid = lane / 4, tig = lane % 4;
   const int kg = K / GROUP;            // groups per plane
   const int n_groups = 2 * kg;         // scale columns
-  const int split = blockIdx.y;
+  const int split = blockIdx.x % splits, tile = blockIdx.x / splits;
   const int g0 = (int)((long long)split * kg / splits);
   const int g1 = (int)((long long)(split + 1) * kg / splits);
-  const int o_warp = blockIdx.x * BO + warp * NT * 8;
 
-  // rows of w4 this thread loads (B fragments: n = gid) and the output
-  // columns its accumulators hold (C fragments: 2 * tig, 2 * tig + 1)
-  const int8_t* wrow[NT];
+  // group gi's weight goes to stage (gi - g0) % W_STAGES, its x to stage
+  // (gi - g0) % X_STAGES
+  auto load_w = [&](int gi) {
+    const int st = (gi - g0) % W_STAGES;
+    mbar_expect_tx(&w_full[st], W_BYTES);
+    tma_load_2d(sW + st * W_BYTES, &tmW, &w_full[st], gi * GROUP, tile * BO);
+  };
+  auto load_x = [&](int gi) {
+    const int st = (gi - g0) % X_STAGES;
+    mbar_expect_tx(&x_full[st], C::X_BYTES);
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-    wrow[nt] = w4 + (size_t)(o_warp + nt * 8 + gid) * K + tig * 16;
+    for (int h = 0; h < 4; ++h)  // (plane, half) = (h / 2, h % 2)
+      tma_load_2d(sX + st * C::X_BYTES + h * C::X_TILE, &tmX, &x_full[st],
+                  (h / 2) * K + gi * GROUP + (h % 2) * 64, 0);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < W_STAGES; ++s) mbar_init(&w_full[s], 1);
+    for (int s = 0; s < X_STAGES; ++s) mbar_init(&x_full[s], 1);
+    mbar_init_fence();
+    for (int gi = g0; gi < g1 && gi < g0 + W_STAGES; ++gi) load_w(gi);
+    for (int gi = g0; gi < g1 && gi < g0 + X_STAGES; ++gi) load_x(gi);
+  }
+  __syncthreads();
+
+  const int gid = lane / 4, tig = lane % 4;
+  const int o_warp = tile * BO + warp * NT * 8;
 
   float acc[MT][NT][4];
 #pragma unroll
@@ -123,32 +170,25 @@ q4mm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w4,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
 
-  // one group's packed bytes: per n-tile, two 64-column steps of 16 bytes
-  uint4 wcur[NT][2], wnext[NT][2];
-  auto load_w = [&](int gi, uint4 (&w)[NT][2]) {
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int st = 0; st < 2; ++st)
-        w[nt][st] = __ldg(reinterpret_cast<const uint4*>(wrow[nt] + gi * GROUP + st * 64));
-  };
-
-  if (g0 < g1) load_w(g0, wcur);
+  int wst = 0, xst = 0;
+  uint32_t wph = 0, xph = 0;
   for (int gi = g0; gi < g1; ++gi) {
-    if (gi + 1 < g1) load_w(gi + 1, wnext);
-    __syncthreads();  // the previous group's reads of xs are done
-    // stage x's columns of group gi, both planes: MT*16 rows x 2 x 16 vectors
-    for (int idx = tid; idx < MT * 16 * 2 * 16; idx += NTH) {
-      const int c = idx % 16;
-      const int p = (idx / 16) % 2;
-      const int r = idx / 32;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (r < T)
-        v = *reinterpret_cast<const uint4*>(x + (size_t)r * (2 * K) + p * K + gi * GROUP + c * 8);
-      *reinterpret_cast<uint4*>(&xs[p][r][c * 8]) = v;
-    }
-    __syncthreads();
-
+    // the group's scales of this thread's columns, both planes, loaded while
+    // the tiles land
+    float sc[2][NT][2];
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int o = o_warp + nt * 8 + tig * 2 + e;
+          sc[p][nt][e] = o < O ? __ldg(s4 + (size_t)o * n_groups + p * kg + gi) : 0.f;
+        }
+    mbar_wait(&w_full[wst], wph);
+    mbar_wait(&x_full[xst], xph);
+    const uint8_t* wt = sW + wst * W_BYTES;
+    const uint8_t* xt = sX + xst * C::X_BYTES;
 #pragma unroll
     for (int p = 0; p < 2; ++p) {       // plane: low nibbles, then high nibbles
       float part[MT][NT][4];
@@ -166,8 +206,9 @@ q4mm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w4,
         uint32_t b[NT][4][2];
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
-          const uint32_t words[4] = {wcur[nt][st].x, wcur[nt][st].y, wcur[nt][st].z,
-                                     wcur[nt][st].w};
+          const uint4 wv = *reinterpret_cast<const uint4*>(
+              wt + sw128(warp * NT * 8 + nt * 8 + gid, st * 64 + tig * 16));
+          const uint32_t words[4] = {wv.x, wv.y, wv.z, wv.w};
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             const uint32_t v = words[j] ^ 0x88888888u;
@@ -175,15 +216,15 @@ q4mm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w4,
             b[nt][j][1] = nibbles_to_bf16x2(__byte_perm(v, 0u, 0x4342), p * 4);
           }
         }
+        const uint8_t* xp = xt + (p * 2 + st) * C::X_TILE;
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           // A fragments: rows gid and gid + 8, the same 16 columns
-          const __nv_bfloat16* r0 = &xs[p][mt * 16 + gid][st * 64 + tig * 16];
-          const __nv_bfloat16* r8 = r0 + 8 * XPITCH;
-          const uint4 a0 = *reinterpret_cast<const uint4*>(r0);
-          const uint4 a1 = *reinterpret_cast<const uint4*>(r0 + 8);
-          const uint4 c0 = *reinterpret_cast<const uint4*>(r8);
-          const uint4 c1 = *reinterpret_cast<const uint4*>(r8 + 8);
+          const int r0 = mt * 16 + gid;
+          const uint4 a0 = *reinterpret_cast<const uint4*>(xp + sw128(r0, tig * 32));
+          const uint4 a1 = *reinterpret_cast<const uint4*>(xp + sw128(r0, tig * 32 + 16));
+          const uint4 c0 = *reinterpret_cast<const uint4*>(xp + sw128(r0 + 8, tig * 32));
+          const uint4 c1 = *reinterpret_cast<const uint4*>(xp + sw128(r0 + 8, tig * 32 + 16));
           const uint32_t lo[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
           const uint32_t hi[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
 #pragma unroll
@@ -197,27 +238,78 @@ q4mm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w4,
       // the group's scale times its partial, added to the sum
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
-        const int o = o_warp + nt * 8 + tig * 2;
-        const float sc0 = __ldg(s4 + (size_t)o * n_groups + p * kg + gi);
-        const float sc1 = __ldg(s4 + (size_t)(o + 1) * n_groups + p * kg + gi);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          acc[mt][nt][0] += part[mt][nt][0] * sc0;
-          acc[mt][nt][1] += part[mt][nt][1] * sc1;
-          acc[mt][nt][2] += part[mt][nt][2] * sc0;
-          acc[mt][nt][3] += part[mt][nt][3] * sc1;
+          acc[mt][nt][0] += part[mt][nt][0] * sc[p][nt][0];
+          acc[mt][nt][1] += part[mt][nt][1] * sc[p][nt][1];
+          acc[mt][nt][2] += part[mt][nt][2] * sc[p][nt][0];
+          acc[mt][nt][3] += part[mt][nt][3] * sc[p][nt][1];
         }
       }
     }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      wcur[nt][0] = wnext[nt][0];
-      wcur[nt][1] = wnext[nt][1];
+    __syncthreads();  // every warp is done with the group's stages: refill them
+    if (tid == 0) {
+      if (gi + W_STAGES < g1) load_w(gi + W_STAGES);
+      if (gi + X_STAGES < g1) load_x(gi + X_STAGES);
+    }
+    if (++wst == W_STAGES) {
+      wst = 0;
+      wph ^= 1;
+    }
+    if (++xst == X_STAGES) {
+      xst = 0;
+      xph ^= 1;
     }
   }
 
+  // C fragments: thread (gid, tig) holds rows gid, gid + 8 of each m-tile
+  // and columns 2 tig, 2 tig + 1 of each n-tile (O is a multiple of 128, so
+  // a pair is inside or outside)
+  if (splits > 1) {
+    // each thread's accumulators as MT * NT float4, thread-major: the
+    // partial of (split, tile) is written and read coalesced
+    const int n_tiles = gridDim.x / splits;
+    float4* mine = reinterpret_cast<float4*>(ws) + ((size_t)split * n_tiles + tile) * MT * NT * NTH;
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        mine[(size_t)(mt * NT + nt) * NTH + tid] =
+            make_float4(acc[mt][nt][0], acc[mt][nt][1], acc[mt][nt][2], acc[mt][nt][3]);
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) s_last = atomicAdd(&counters[tile], 1u) == (unsigned)(splits - 1);
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();
+    // the last split to arrive sums every split's partial in split order
+    // 0, 1, ..., one split's loads in flight together
+#pragma unroll 2
+    for (int s = 0; s < splits; ++s) {
+      const float4* src =
+          reinterpret_cast<const float4*>(ws) + ((size_t)s * n_tiles + tile) * MT * NT * NTH;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const float4 w = __ldcg(src + (size_t)(mt * NT + nt) * NTH + tid);
+          if (s == 0) {
+            acc[mt][nt][0] = w.x;
+            acc[mt][nt][1] = w.y;
+            acc[mt][nt][2] = w.z;
+            acc[mt][nt][3] = w.w;
+          } else {
+            acc[mt][nt][0] += w.x;
+            acc[mt][nt][1] += w.y;
+            acc[mt][nt][2] += w.z;
+            acc[mt][nt][3] += w.w;
+          }
+        }
+    }
+    if (tid == 0) counters[tile] = 0;  // every split has arrived: ready for the next call
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int t = mt * 16 + gid + h * 8;
@@ -225,78 +317,58 @@ q4mm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w4,
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const int o = o_warp + nt * 8 + tig * 2;
-        const float v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
-        if (splits == 1)
-          store2(out + (size_t)t * O + o, v0, v1);
-        else
-          store2(ws + ((size_t)split * T + t) * O + o, v0, v1);
+        if (o < O) store2(out + (size_t)t * O + o, acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
       }
     }
-  }
-}
-
-// out[i] = sum over s of ws[s][i], in the order s = 0, 1, ..., rounded once;
-// four elements a thread (T * O is a multiple of 128)
-template <typename OutT>
-__global__ void q4mm_reduce(const float* __restrict__ ws, OutT* __restrict__ out, int n,
-                            int splits) {
-  const int i = (blockIdx.x * blockDim.x + threadIdx.x) * 4;
-  if (i >= n) return;
-  float4 acc = *reinterpret_cast<const float4*>(ws + i);
-  for (int s = 1; s < splits; ++s) {
-    const float4 v = *reinterpret_cast<const float4*>(ws + (size_t)s * n + i);
-    acc.x += v.x;
-    acc.y += v.y;
-    acc.z += v.z;
-    acc.w += v.w;
-  }
-  store2(out + i, acc.x, acc.y);
-  store2(out + i + 2, acc.z, acc.w);
 }
 
 template <int MT, typename OutT>
-void launch_main(const void* x, const void* w4, const void* s4, void* ws, void* out, int T,
-                 int O, int K, int splits, cudaStream_t s) {
-  const dim3 grid(O / BO, splits);
-  q4mm_kernel<MT, OutT><<<grid, NTH, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w4),
-      static_cast<const float*>(s4), static_cast<float*>(ws), static_cast<OutT*>(out), T, O, K,
-      splits);
+int launch_mt(const void* x, const void* w4, const void* s4, void* ws, void* counters, void* out,
+              int T, int O, int K, int splits, cudaStream_t s) {
+  CUtensorMap mw, mx;
+  if (!make_map(&mw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w4, K, O, GROUP, BO) ||
+      !make_map(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, 2 * K, T, 64, MT * 16))
+    return (int)cudaErrorInvalidValue;
+  auto kern = q4mm_kernel<MT, OutT>;
+  static bool smem_set[64] = {};
+  const cudaError_t e =
+      allow_smem(reinterpret_cast<const void*>(kern), Cfg<MT>::SMEM, smem_set);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = (O + BO - 1) / BO;
+  kern<<<tiles * splits, NTH, Cfg<MT>::SMEM, s>>>(
+      mw, mx, static_cast<const float*>(s4), static_cast<float*>(ws),
+      static_cast<unsigned*>(counters), static_cast<OutT*>(out), T, O, K, splits);
+  return (int)cudaGetLastError();
 }
 
 template <typename OutT>
-int launch(const void* x, const void* w4, const void* s4, void* ws, void* out, int T, int O,
-           int K, int splits, cudaStream_t s) {
+int launch(const void* x, const void* w4, const void* s4, void* ws, void* counters, void* out,
+           int T, int O, int K, int splits, cudaStream_t s) {
   switch ((T + 15) / 16) {
-    case 1: launch_main<1, OutT>(x, w4, s4, ws, out, T, O, K, splits, s); break;
-    case 2: launch_main<2, OutT>(x, w4, s4, ws, out, T, O, K, splits, s); break;
-    case 3: launch_main<3, OutT>(x, w4, s4, ws, out, T, O, K, splits, s); break;
-    default: launch_main<MAX_MT, OutT>(x, w4, s4, ws, out, T, O, K, splits, s); break;
+    case 1: return launch_mt<1, OutT>(x, w4, s4, ws, counters, out, T, O, K, splits, s);
+    case 2: return launch_mt<2, OutT>(x, w4, s4, ws, counters, out, T, O, K, splits, s);
+    case 3: return launch_mt<3, OutT>(x, w4, s4, ws, counters, out, T, O, K, splits, s);
+    default: return launch_mt<MAX_MT, OutT>(x, w4, s4, ws, counters, out, T, O, K, splits, s);
   }
-  if (splits > 1) {
-    const int err = (int)cudaGetLastError();
-    if (err != 0) return err;
-    const int n = T * O;
-    const int threads = 256;
-    q4mm_reduce<OutT><<<(n / 4 + threads - 1) / threads, threads, 0, s>>>(
-        static_cast<const float*>(ws), static_cast<OutT*>(out), n, splits);
-  }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // out (T, O) = x (T, 2K) bf16 . dequant4(w4 (O, K), s4 (O, 2K / 128))^T, in
 // out_dtype (0 = fp32, 1 = bf16). 1 <= T <= 64; O and K multiples of 128;
-// 1 <= splits <= K / 128, and with splits > 1 a workspace ws of splits * T * O
-// fp32. Returns cudaGetLastError() after the launches.
-extern "C" int smt_q4mm(const void* x, const void* w4, const void* s4, void* ws, void* out,
-                        int T, int O, int K, int splits, int out_dtype, void* stream) {
-  if (T < 1 || T > MAX_MT * 16 || O <= 0 || O % BO || K <= 0 || K % GROUP || splits < 1 ||
-      splits > K / GROUP || (splits > 1 && ws == nullptr))
+// 1 <= splits <= K / 128, and with splits > 1 a workspace ws of
+// splits * (O / 128) * 16 ceil(T / 16) * 128 fp32 (16-byte aligned) and
+// counters, one zeroed unsigned per 128-column output tile (left zeroed).
+// One launch; returns cudaGetLastError() after it.
+extern "C" int smt_q4mm(const void* x, const void* w4, const void* s4, void* ws, void* counters,
+                        void* out, int T, int O, int K, int splits, int out_dtype,
+                        void* stream) {
+  if (T < 1 || T > MAX_MT * 16 || O <= 0 || O % GROUP || K <= 0 || K % GROUP || splits < 1 ||
+      splits > K / GROUP || (splits > 1 && (ws == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (out_dtype == 1) return launch<__nv_bfloat16>(x, w4, s4, ws, out, T, O, K, splits, s);
-  if (out_dtype == 0) return launch<float>(x, w4, s4, ws, out, T, O, K, splits, s);
+  if (out_dtype == 1)
+    return launch<__nv_bfloat16>(x, w4, s4, ws, counters, out, T, O, K, splits, s);
+  if (out_dtype == 0) return launch<float>(x, w4, s4, ws, counters, out, T, O, K, splits, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,61 +1,157 @@
 // K4 q8_matmul: the int8 frozen-base matmul with the scales fused into its
-// epilogue.
+// epilogue, redesigned for Hopper (wgmma, TMA, mbarrier ring, persistent
+// CTAs).
 //
 //   t form (forward):     out[t][o] = (sum_k xq[t][k] * wq[o][k]) * sx[t] * sw[o]
 //   g form (grad_input):  out[t][i] = (sum_o gq[t][o] * wq[o][i]) * sg[t]
-//   xq (T, K) / gq (T, O) int8 row-quantized activations, sx / sg (T,) fp32;
-//   wq (O, K) int8 row-major (ONE copy serves both forms), sw (O,) fp32;
-//   out bf16 or fp32. The int32 sum is exact; the scales are applied to it
-//   in fp32 in the order (acc * sx) * sw, rounded once to the output type.
+//   xq (T, K) / gq (T, O) int8 row-quantized activations (csrc/row_quant.cu),
+//   sx / sg (T,) fp32; wq (O, K) int8 row-major (ONE copy serves both forms),
+//   sw (O,) fp32; out bf16 or fp32. The int32 sum is exact; the scales are
+//   applied to it in fp32 in the order (acc * sx) * sw, rounded once to the
+//   output type, so the result equals the plain version bit for bit.
 //
 // Replaces the Pallas TPU kernels
 //   sparse_matrix_tuning_tpu/ops/pallas/q8_matmul.py q8mm_t_core (_kernel_t)
 //   and q8mm_g_core (_kernel_g), whose sequential grid comes back to one
 //   VMEM accumulator block K step after K step.
 //
-// What bounds it on the H100: operations (2*T*O*K int8 operations against
-// T*K + O*K + 2*T*O bytes: ~1000 operations per byte at the TinyLlama MLP
-// shapes, far above the card's ~590 for int8). What the kernel exists for
-// is the epilogue: the (T, O) int32 product never goes to device memory.
-// Design:
-//   * CTAs run in parallel and in no order, so the K reduction is a loop
-//     inside one CTA: one CTA owns a 128 x 128 output tile, 8 warps each a
-//     64 x 32 part of it, int32 accumulators in registers (no split-K, no
-//     atomics), and writes the tile once, scaled.
-//   * Tensor cores through mma.sync m16n8k32 s8 (legacy path; wgmma later).
-//     Its operands must have the contraction index contiguous. The t form's
-//     tiles are copied to shared memory as they lie (16-byte vectors). The
-//     g form contracts over O, the SLOW axis of wq: its tile is read as
-//     4 x 4 byte blocks and transposed in registers (__byte_perm) on the way
-//     to shared memory, so both forms run the same inner loop and no
-//     transposed copy of wq ever exists in device memory.
-//   * The next K tile's global loads are started into registers before the
-//     current tile's products, so they overlap; one shared-memory buffer.
-//   * Ragged T and O (t) / T and I (g) are masked: zero rows on load, no
-//     write outside. The contraction length must be a multiple of 16 (whole
-//     16-byte vectors); the wrapper checks it.
-// Simple first: no ldmatrix, no cp.async/TMA ring, no wgmma.
+// What bounds it on the H100: operations at the training shapes (2*T*O*K
+// int8 operations against T*K + O*K + 2*T*O bytes, ~1000 a byte at the
+// TinyLlama MLP, over the card's ~590 for int8); bytes at the decode shapes
+// (T <= 64: the weight streams once). Design:
+//   * The product is wgmma.mma_async m64nNk32 s32.s8.s8, both operands read
+//     from shared memory in the K-major 128-byte-swizzled layout, int32
+//     accumulators in registers; 8-bit wgmma takes only K-major operands.
+//   * One producer thread keeps TMA loads (cp.async.bulk.tensor, 128-byte
+//     swizzle, zero fill past the edges: ragged T, O and K need no masks on
+//     load) in flight over a ring of 4-8 stages of 128 contraction bytes,
+//     each stage with a "full" mbarrier (transaction bytes) and an "empty"
+//     one (released by each consumer warpgroup once its wgmma has read it).
+//     One or two consumer warpgroups of 64 rows each issue the wgmma and
+//     keep one group in flight (wait_group 1) while the next stage lands.
+//   * Persistent CTAs (at most one per SM) walk the work units; the producer
+//     runs ahead into the next unit, so a unit's epilogue overlaps the next
+//     unit's loads.
+//   * t form: xq and wq are both K-major as they lie; 128 x 256 tiles at
+//     training rows.
+//   * g form: the contraction runs over O, wq's SLOW axis. Each landed wq
+//     tile (128 rows of O x 128 columns) is transposed once in shared memory
+//     by the consumer threads into the K-major swizzled layout (4 x 4 byte
+//     blocks, __byte_perm), into one of three buffers, so a buffer is
+//     rewritten only after both warpgroups' wgmma on it are done (one named
+//     barrier per stage orders it). The lane -> block map makes both the
+//     reads of the landed tile and the writes of the transposed one free of
+//     bank conflicts. No transposed copy of wq exists in device memory.
+//   * Decode rows (T <= 64): 64-row tiles, 128 columns, and the contraction
+//     split over CTAs (split-K) so that the weight stream covers the SMs.
+//     Each split writes its int32 partial to a workspace; the last CTA of a
+//     tile to arrive (a per-tile counter, which it resets for the next call)
+//     adds the other splits' partials in split order and runs the epilogue.
+//     Integer sums are exact, so the result does not depend on the order.
+//   * The launch plan (tile, splits, grid) is chosen by the wrapper
+//     (ops/cuda/q8_matmul.py plan) from T, the output width and K.
+// The contraction length must be a multiple of 16 (TMA row strides); the
+// wrapper checks it.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int BM = 128;          // output rows per CTA
-constexpr int BN = 128;          // output columns per CTA
-constexpr int BK = 64;           // contraction bytes per shared-memory pass
-constexpr int PITCH = BK + 16;   // shared row pitch, bytes: 20 words, so the
-                                 // fragment loads below hit 32 distinct banks
-constexpr int NT = 256;          // 8 warps: 2 along M x 4 along N
+using namespace hopper;
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
+constexpr int BK = 128;                    // contraction bytes per stage: one swizzle row
+constexpr int SMEM_BUDGET = 200 * 1024;    // ring and transposed buffers
+constexpr int SMEM_SLACK = 1024 + 256;     // 1024-byte alignment of the tiles, the mbarriers
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving reads or writes of the accumulators across
+// the wgmma fences and waits
+template <int R>
+__device__ __forceinline__ void fence_acc(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// shared-memory matrix descriptor: K-major, 128-byte swizzle, 8-row groups
+// 1024 bytes apart; the start address advances by 32 bytes (2 units) per k32
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFFull) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_n256(int (&d)[128], uint64_t da, uint64_t db) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n128(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(int (&d)[BN / 2], uint64_t da, uint64_t db) {
+  if constexpr (BN == 256)
+    wgmma_n256(d, da, db);
+  else
+    wgmma_n128(d, da, db);
 }
 
 __device__ __forceinline__ void store2(float* p, float v0, float v1, bool pair, bool second) {
@@ -77,156 +173,211 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float v0, float v1, boo
   }
 }
 
-// out (M, N) = A (M, Kc) . B, scaled. A: row-major, pitch Kc.
-//   G == false (t form): W is (N, Kc) row-major, B(k, n) = W[n][k];
-//                        out = (acc * srow[m]) * scol[n].
-//   G == true  (g form): W is (Kc, N) row-major, B(k, n) = W[k][n];
-//                        out = acc * srow[m].
-template <bool G, typename OutT>
-__global__ void __launch_bounds__(NT)
-q8mm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W,
+// the 4 x 4 byte transpose: r[i] holds bytes (i, 0..3); w[c] gets bytes (0..3, c)
+__device__ __forceinline__ void transpose4x4(const uint32_t (&r)[4], uint32_t (&w)[4]) {
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
+  const uint32_t t1 = __byte_perm(r[2], r[3], 0x5140);
+  const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
+  w[0] = __byte_perm(t0, t1, 0x5410);
+  w[1] = __byte_perm(t0, t1, 0x7632);
+  w[2] = __byte_perm(t2, t3, 0x5410);
+  w[3] = __byte_perm(t2, t3, 0x7632);
+}
+
+template <bool G, int NWG, int BN>
+struct Cfg {
+  static constexpr int BM = 64 * NWG;                  // output rows per tile
+  static constexpr int NC = 128 * NWG;                 // consumer threads
+  static constexpr int A_BYTES = BM * BK;
+  static constexpr int B_BYTES = BN * BK;              // t: wq tile; g: the landed wq tile
+  static constexpr int T_BYTES = G ? BN * BK : 0;      // g: one transposed buffer (x 3)
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int FIT = (SMEM_BUDGET - 3 * T_BYTES) / STAGE;
+  static constexpr int STAGES = FIT < 8 ? FIT : 8;
+  static constexpr int SMEM = STAGES * STAGE + 3 * T_BYTES + SMEM_SLACK;
+  static_assert(STAGES >= 3, "the ring needs at least 3 stages");
+  static_assert(!G || BN == 128, "the g form transposes 128 x 128 tiles");
+};
+
+// One kernel for both forms. out (M, N) = A (M, Kc) . B, scaled; A is
+// row-major (tmA over (Kc, M)). t form: tmB over wq (N, Kc), B(k, n) =
+// wq[n][k]. g form: tmB over wq (Kc, N), B(k, n) = wq[k][n]. Work unit u:
+// split u % splits of tile u / splits, tiles m-fastest (neighbouring CTAs
+// share a weight tile in L2).
+template <bool G, int NWG, int BN, typename OutT>
+__global__ void __launch_bounds__((NWG + 1) * 128, 1)
+q8mm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmB,
             const float* __restrict__ srow, const float* __restrict__ scol,
-            OutT* __restrict__ out, int M, int N, int Kc) {
-  __shared__ __align__(16) int8_t As[BM * PITCH];  // [m][k]
-  __shared__ __align__(16) int8_t Bs[BN * PITCH];  // [n][k]
+            OutT* __restrict__ out, int* __restrict__ ws, unsigned* __restrict__ counters,
+            int M, int N, int Kc, int splits) {
+  using C = Cfg<G, NWG, BN>;
+  constexpr int BM = C::BM, NC = C::NC, STAGES = C::STAGES, R = BN / 2;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ int s_last;
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* sA = smem;
+  uint8_t* sB = sA + STAGES * C::A_BYTES;
+  uint8_t* sT = sB + STAGES * C::B_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sT + 3 * C::T_BYTES);
+  uint64_t* empty = full + STAGES;
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int gid = lane / 4, tig = lane % 4;
-  const int wm = (warp / 4) * 64;
-  const int wn = (warp % 4) * 32;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
+  const int tiles_m = (M + BM - 1) / BM;
+  const int tiles_n = (N + BN - 1) / BN;
+  const int units = tiles_m * tiles_n * splits;
+  const int nkb = (Kc + BK - 1) / BK;
 
-  int acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
-
-  // staging registers of one K tile: A and (t form) W as 16-byte vectors,
-  // (g form) W as two transposed 4 x 4 byte blocks
-  uint4 ra[2];
-  uint4 rb[2];
-  uint32_t rw[2][4];
-
-  auto load_tile = [&](int k0) {
-#pragma unroll
-    for (int v = 0; v < 2; ++v) {
-      const int idx = tid + v * NT;       // 512 vectors: 128 rows x 4
-      const int r = idx / 4, c = (idx % 4) * 16;
-      const int m = m0 + r, k = k0 + c;
-      ra[v] = make_uint4(0u, 0u, 0u, 0u);
-      if (m < M && k < Kc)
-        ra[v] = *reinterpret_cast<const uint4*>(A + (size_t)m * Kc + k);
-      if (!G) {
-        const int n = n0 + r;
-        rb[v] = make_uint4(0u, 0u, 0u, 0u);
-        if (n < N && k < Kc)
-          rb[v] = *reinterpret_cast<const uint4*>(W + (size_t)n * Kc + k);
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NWG);
     }
-    if (G) {
-#pragma unroll
-      for (int v = 0; v < 2; ++v) {
-        // 16 x 32 blocks of 4 (k) x 4 (n) bytes; a warp takes 4 x 8 of them,
-        // so each of its loads covers whole 32-byte sectors of 4 rows
-        const int task = warp + v * 8;
-        const int kb = (task / 4) * 4 + lane / 8;
-        const int nb = (task % 4) * 8 + lane % 8;
-        const int n = n0 + nb * 4;
-        uint32_t r[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int k = k0 + kb * 4 + i;
-          r[i] = 0u;
-          if (k < Kc && n < N)  // N % 4 == 0: a word is inside or outside
-            r[i] = *reinterpret_cast<const uint32_t*>(W + (size_t)k * N + n);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer warpgroup: one thread issues every load
+    // two consumer warpgroups take the producer's registers (128 int32
+    // accumulators a thread at 256 columns)
+    if constexpr (NWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int split = u % splits, tile = u / splits;
+        const int tm = tile % tiles_m, tn = tile / tiles_m;
+        const int kb0 = (int)((long long)split * nkb / splits);
+        const int kb1 = (int)((long long)(split + 1) * nkb / splits);
+        for (int kb = kb0; kb < kb1; ++kb) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], C::STAGE);
+          tma_load_2d(sA + stage * C::A_BYTES, &tmA, &full[stage], kb * BK, tm * BM);
+          if (G)
+            tma_load_2d(sB + stage * C::B_BYTES, &tmB, &full[stage], tn * BN, kb * BK);
+          else
+            tma_load_2d(sB + stage * C::B_BYTES, &tmB, &full[stage], kb * BK, tn * BN);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
         }
-        // transpose the 4 x 4 bytes: word c holds column n + c over k..k+3
-        const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
-        const uint32_t t1 = __byte_perm(r[2], r[3], 0x5140);
-        const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362);
-        const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
-        rw[v][0] = __byte_perm(t0, t1, 0x5410);
-        rw[v][1] = __byte_perm(t0, t1, 0x7632);
-        rw[v][2] = __byte_perm(t2, t3, 0x5410);
-        rw[v][3] = __byte_perm(t2, t3, 0x7632);
       }
     }
-  };
-
-  auto store_tile = [&]() {
-#pragma unroll
-    for (int v = 0; v < 2; ++v) {
-      const int idx = tid + v * NT;
-      const int r = idx / 4, c = (idx % 4) * 16;
-      *reinterpret_cast<uint4*>(&As[r * PITCH + c]) = ra[v];
-      if (!G) *reinterpret_cast<uint4*>(&Bs[r * PITCH + c]) = rb[v];
-    }
-    if (G) {
-#pragma unroll
-      for (int v = 0; v < 2; ++v) {
-        const int task = warp + v * 8;
-        const int kb = (task / 4) * 4 + lane / 8;
-        const int nb = (task % 4) * 8 + lane % 8;
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          *reinterpret_cast<uint32_t*>(&Bs[(nb * 4 + c) * PITCH + kb * 4]) = rw[v][c];
-      }
-    }
-  };
-
-  const int nk = (Kc + BK - 1) / BK;
-  load_tile(0);
-  for (int kt = 0; kt < nk; ++kt) {
-    store_tile();
-    __syncthreads();
-    if (kt + 1 < nk) load_tile((kt + 1) * BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t af[4][4], bf[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int8_t* p = &As[(wm + mi * 16 + gid) * PITCH + kk + tig * 4];
-        af[mi][0] = *reinterpret_cast<const uint32_t*>(p);
-        af[mi][1] = *reinterpret_cast<const uint32_t*>(p + 8 * PITCH);
-        af[mi][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-        af[mi][3] = *reinterpret_cast<const uint32_t*>(p + 8 * PITCH + 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int8_t* p = &Bs[(wn + ni * 8 + gid) * PITCH + kk + tig * 4];
-        bf[ni][0] = *reinterpret_cast<const uint32_t*>(p);
-        bf[ni][1] = *reinterpret_cast<const uint32_t*>(p + 16);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
-    }
-    __syncthreads();
+    return;
   }
 
-  // epilogue from the accumulator registers: thread (gid, tig) of a
-  // 16 x 8 fragment holds rows gid, gid + 8 and columns 2*tig, 2*tig + 1
+  // consumer warpgroups
+  if constexpr (NWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int ct = threadIdx.x - 128;
+  const int cwg = ct / 128;
+  const int warp = (ct % 128) / 32, lane = ct % 32;
   const bool even = (N % 2) == 0;
+  int stage = 0, it = 0;
+  uint32_t phase = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int split = u % splits, tile = u / splits;
+    const int tm = tile % tiles_m, tn = tile / tiles_m;
+    const int kb0 = (int)((long long)split * nkb / splits);
+    const int kb1 = (int)((long long)(split + 1) * nkb / splits);
+    int acc[R];
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
+    for (int i = 0; i < R; ++i) acc[i] = 0;
+    fence_acc(acc);
+    int prev = -1;
+    for (int kb = kb0; kb < kb1; ++kb, ++it) {
+      mbar_wait(&full[stage], phase);
+      const uint8_t* b_tile = sB + stage * C::B_BYTES;
+      if constexpr (G) {
+        // transpose the landed (o, n) tile into the K-major (n, o) buffer:
+        // thread block (ob, nb) = 4 rows of o x 4 columns of n
+        const uint8_t* raw = b_tile;
+        uint8_t* bt = sT + (it % 3) * C::T_BYTES;
+        constexpr int TPW = 32 / (NWG * 4);  // 4 x 4 blocks per thread
+        const int ob = ((lane & 15) << 1) | (lane >> 4);
+        const int cw = ct / 32;
+#pragma unroll
+        for (int j = 0; j < TPW; ++j) {
+          const int nb = (lane & 15) ^ (cw * TPW + j);
+          uint32_t r[4], w[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            r[i] = *reinterpret_cast<const uint32_t*>(raw + sw128(4 * ob + i, 4 * nb));
+          transpose4x4(r, w);
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            *reinterpret_cast<uint32_t*>(bt + sw128(4 * nb + c, 4 * ob)) = w[c];
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        named_sync(1, NC);
+        b_tile = bt;
+      }
+      const uint64_t da = desc_sw128(sA + stage * C::A_BYTES + cwg * 64 * BK);
+      const uint64_t db = desc_sw128(b_tile);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 32; ++kk) wgmma_tile<BN>(acc, da + 2 * kk, db + 2 * kk);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_acc(acc);
+      if (prev >= 0 && ct % 128 == 0) mbar_arrive(&empty[prev]);
+      prev = stage;
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (prev >= 0 && ct % 128 == 0) mbar_arrive(&empty[prev]);
+
+    // accumulator layout: register 4j + 2h + e holds row 16 warp + lane/4 + 8h,
+    // column 8j + 2 (lane % 4) + e of the warpgroup's 64 x BN tile
+    const int m_base = tm * BM + cwg * 64 + warp * 16 + lane / 4;
+    const int n_base = tn * BN + 2 * (lane % 4);
+    if (splits > 1) {
+      // each thread's accumulators as R / 4 int4, thread-major: the
+      // partial of (split, tile) is NC * R ints, written and read coalesced
+      const int n_tiles = tiles_m * tiles_n;
+      int4* mine = reinterpret_cast<int4*>(ws) + ((size_t)split * n_tiles + tile) * (R / 4) * NC;
+#pragma unroll
+      for (int v = 0; v < R / 4; ++v)
+        mine[(size_t)v * NC + ct] =
+            make_int4(acc[4 * v], acc[4 * v + 1], acc[4 * v + 2], acc[4 * v + 3]);
+      __threadfence();
+      named_sync(1, NC);
+      if (ct == 0) s_last = atomicAdd(&counters[tile], 1u) == (unsigned)(splits - 1);
+      named_sync(1, NC);
+      if (!s_last) continue;
+      __threadfence();
+#pragma unroll 2
+      for (int s = 0; s < splits; ++s) {  // integer sums: exact in any order
+        if (s == split) continue;
+        const int4* other =
+            reinterpret_cast<const int4*>(ws) + ((size_t)s * n_tiles + tile) * (R / 4) * NC;
+#pragma unroll
+        for (int v = 0; v < R / 4; ++v) {
+          const int4 w = __ldcg(other + (size_t)v * NC + ct);
+          acc[4 * v] += w.x;
+          acc[4 * v + 1] += w.y;
+          acc[4 * v + 2] += w.z;
+          acc[4 * v + 3] += w.w;
+        }
+      }
+      if (ct == 0) counters[tile] = 0;  // every split has arrived: ready for the next call
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wm + mi * 16 + gid + h * 8;
+      const int m = m_base + 8 * h;
       if (m >= M) continue;
       const float sr = srow[m];
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = n0 + wn + ni * 8 + tig * 2;
+      for (int j = 0; j < BN / 8; ++j) {
+        const int n = n_base + 8 * j;
         if (n >= N) continue;
         const bool second = n + 1 < N;
-        float v0 = (float)acc[mi][ni][h * 2] * sr;
-        float v1 = (float)acc[mi][ni][h * 2 + 1] * sr;
+        float v0 = (float)acc[4 * j + 2 * h] * sr;
+        float v1 = (float)acc[4 * j + 2 * h + 1] * sr;
         if (!G) {
           v0 *= scol[n];
           if (second) v1 *= scol[n + 1];
@@ -237,39 +388,86 @@ q8mm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W,
   }
 }
 
+template <bool G, int NWG, int BN, typename OutT>
+int launch_cfg(const CUtensorMap& ma, const CUtensorMap& mb, const float* sr, const float* sc,
+               void* out, int* ws, unsigned* counters, int M, int N, int Kc, int splits,
+               int grid, cudaStream_t s) {
+  using C = Cfg<G, NWG, BN>;
+  auto kern = q8mm_kernel<G, NWG, BN, OutT>;
+  static bool smem_set[64] = {};
+  const cudaError_t e = allow_smem(reinterpret_cast<const void*>(kern), C::SMEM, smem_set);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<grid, (NWG + 1) * 128, C::SMEM, s>>>(ma, mb, sr, sc, static_cast<OutT*>(out), ws,
+                                               counters, M, N, Kc, splits);
+  return (int)cudaGetLastError();
+}
+
+template <bool G, typename OutT>
+int launch_form(const CUtensorMap& ma, const CUtensorMap& mb, const float* sr, const float* sc,
+                void* out, int* ws, unsigned* counters, int M, int N, int Kc, int bm, int bn,
+                int splits, int grid, cudaStream_t s) {
+  if (bm == 64 && bn == 128)
+    return launch_cfg<G, 1, 128, OutT>(ma, mb, sr, sc, out, ws, counters, M, N, Kc, splits, grid,
+                                       s);
+  if constexpr (G) {
+    if (bm == 128 && bn == 128)
+      return launch_cfg<G, 2, 128, OutT>(ma, mb, sr, sc, out, ws, counters, M, N, Kc, splits,
+                                         grid, s);
+  } else {
+    if (bm == 128 && bn == 256)
+      return launch_cfg<G, 2, 256, OutT>(ma, mb, sr, sc, out, ws, counters, M, N, Kc, splits,
+                                         grid, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// A (M, Kc) int8; t form: W (N, Kc); g form: W (Kc, N)
 template <bool G>
-int launch(const void* a, const void* w, const void* srow, const void* scol, void* out,
-           int M, int N, int Kc, int out_dtype, void* stream) {
+int launch(const void* a, const void* w, const void* srow, const void* scol, void* out, void* ws,
+           void* counters, int M, int N, int Kc, int out_dtype, int bm, int bn, int splits,
+           int grid, void* stream) {
   if (M <= 0 || N <= 0) return (int)cudaGetLastError();
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  if (Kc <= 0 || Kc % 16 || (G && N % 16) || splits < 1 || grid < 1 ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)) || (bm != 64 && bm != 128))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap ma, mb;
+  constexpr CUtensorMapDataType U8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  if (!make_map(&ma, U8, 1, a, Kc, M, BK, bm)) return (int)cudaErrorInvalidValue;
+  if (!(G ? make_map(&mb, U8, 1, w, N, Kc, BK, BK) : make_map(&mb, U8, 1, w, Kc, N, BK, bn)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int8_t* A = static_cast<const int8_t*>(a);
-  const int8_t* W = static_cast<const int8_t*>(w);
   const float* sr = static_cast<const float*>(srow);
   const float* sc = static_cast<const float*>(scol);
-  if (out_dtype == 1) {
-    q8mm_kernel<G, __nv_bfloat16><<<grid, NT, 0, s>>>(
-        A, W, sr, sc, static_cast<__nv_bfloat16*>(out), M, N, Kc);
-  } else if (out_dtype == 0) {
-    q8mm_kernel<G, float><<<grid, NT, 0, s>>>(A, W, sr, sc, static_cast<float*>(out), M, N, Kc);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  int* wsp = static_cast<int*>(ws);
+  unsigned* cnt = static_cast<unsigned*>(counters);
+  if (out_dtype == 1)
+    return launch_form<G, __nv_bfloat16>(ma, mb, sr, sc, out, wsp, cnt, M, N, Kc, bm, bn, splits,
+                                         grid, s);
+  if (out_dtype == 0)
+    return launch_form<G, float>(ma, mb, sr, sc, out, wsp, cnt, M, N, Kc, bm, bn, splits, grid,
+                                 s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// out_dtype: 0 = fp32, 1 = bf16. Both return cudaGetLastError() after the launch.
+// out_dtype: 0 = fp32, 1 = bf16. The plan (bm x bn tiles, splits of the
+// contraction, grid CTAs) comes from the wrapper; with splits > 1, ws holds
+// splits * tiles * bm * bn int32 (16-byte aligned) and counters one zeroed
+// unsigned per output tile (left zeroed). Both return cudaGetLastError() after the launch.
 
 // out (T, O) = ((xq (T, K) . wq (O, K)^T) * sx (T,)) * sw (O,); K % 16 == 0.
 extern "C" int smt_q8mm_t(const void* xq, const void* sx, const void* wq, const void* sw,
-                          void* out, int T, int O, int K, int out_dtype, void* stream) {
-  return launch<false>(xq, wq, sx, sw, out, T, O, K, out_dtype, stream);
+                          void* out, void* ws, void* counters, int T, int O, int K,
+                          int out_dtype, int bm, int bn, int splits, int grid, void* stream) {
+  return launch<false>(xq, wq, sx, sw, out, ws, counters, T, O, K, out_dtype, bm, bn, splits,
+                       grid, stream);
 }
 
 // out (T, K) = (gq (T, O) . wq (O, K)) * sg (T,); O % 16 == 0 and K % 16 == 0.
-extern "C" int smt_q8mm_g(const void* gq, const void* sg, const void* wq, void* out, int T,
-                          int O, int K, int out_dtype, void* stream) {
-  return launch<true>(gq, wq, sg, nullptr, out, T, K, O, out_dtype, stream);
+extern "C" int smt_q8mm_g(const void* gq, const void* sg, const void* wq, void* out, void* ws,
+                          void* counters, int T, int O, int K, int out_dtype, int bm, int bn,
+                          int splits, int grid, void* stream) {
+  return launch<true>(gq, wq, sg, nullptr, out, ws, counters, T, K, O, out_dtype, bm, bn,
+                      splits, grid, stream);
 }

@@ -52,15 +52,19 @@ SIGNATURES = {
     "smt_cached_attn": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, I, P),
     # ws_o, ws_m, ws_l, o, rows, hd, splits, dtype, stream
     "smt_cached_attn_combine": (P, P, P, P, I, I, I, I, P),
-    # xq, sx, wq, sw, out, T, O, K, out dtype, stream
-    "smt_q8mm_t": (P, P, P, P, P, I, I, I, I, P),
-    # gq, sg, wq, out, T, O, K, out dtype, stream
-    "smt_q8mm_g": (P, P, P, P, I, I, I, I, P),
+    # x, sw (or null), xq, sx, T, K, x dtype, stream
+    "smt_row_quant": (P, P, P, P, I, I, I, P),
+    # xq, sx, wq, sw, out, ws, counters, T, O, K, out dtype, bm, bn, splits,
+    # grid, stream
+    "smt_q8mm_t": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P),
+    # gq, sg, wq, out, ws, counters, T, O, K, out dtype, bm, bn, splits, grid,
+    # stream
+    "smt_q8mm_g": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, P),
     # out, src, delta, run_o, run_start, run_j, idx_in, T, O, I, runs,
     # transpose, dtype, stream
     "smt_block_correction": (P, P, P, P, P, P, P, I, I, I, I, I, I, P),
-    # x, w4, s4, ws, out, T, O, K, splits, out dtype, stream
-    "smt_q4mm": (P, P, P, P, P, I, I, I, I, I, P),
+    # x, w4, s4, ws, counters, out, T, O, K, splits, out dtype, stream
+    "smt_q4mm": (P, P, P, P, P, P, I, I, I, I, I, P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -142,6 +146,22 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+_COUNTERS = {}  # device index -> zeroed int32 tile counters
+
+
+def tile_counters(device, n: int):
+    """At least n zeroed int32 counters on `device`, for the kernels whose
+    last CTA of a tile to arrive sums the split-K partials (K4's decode
+    plan, K6). Every launch leaves the counters it used at zero, so one
+    buffer serves every call in stream order."""
+    import torch
+    buf = _COUNTERS.get(device.index)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device.index] = buf
+    return buf
 
 
 def check(err: int, what: str):

@@ -14,9 +14,9 @@ Scales:
   * g @ W (grad_input) folds sw into g BEFORE quantization:
       (g @ W)[t,i] = sum_o g[t,o] sw[o] Wq[o,i] = (rowquant(g*sw) @ Wq) * sg
 
-Row quantization is plain PyTorch ops and stays outside the kernel, as in
-the JAX package: a row's scale needs the whole row before any tile of it
-can be quantized.
+Row quantization is its own kernel in front of K4 (ops/cuda/row_quant.py),
+as XLA fuses it into one pass in front of the JAX package's kernel: a
+row's scale needs the whole row before any tile of it can be quantized.
 """
 
 from __future__ import annotations
@@ -27,28 +27,32 @@ import torch
 
 from sparse_matrix_tuning_tpu_torch.ops.cuda.q4_matmul import GROUP, q4mm_t, unpack_planes
 from sparse_matrix_tuning_tpu_torch.ops.cuda.q8_matmul import q8mm_g, q8mm_t
+from sparse_matrix_tuning_tpu_torch.ops.cuda.row_quant import reciprocal as _reciprocal
+from sparse_matrix_tuning_tpu_torch.ops.cuda.row_quant import row_quant as _row_quant_2d
 
 
-def row_quant(x: torch.Tensor):
-    """Per-row symmetric int8 quantization over the last dim.
+def row_quant(x: torch.Tensor, sw: torch.Tensor | None = None):
+    """Per-row symmetric int8 quantization over the last dim (of x * sw
+    when sw is given: the g form's fold of the weight scales).
 
     Returns (xq int8, sx fp32 with shape (..., 1)); x / sx rounded (half to
     even) to [-127, 127]. The scale is amax times fp32(1/127), as XLA
     compiles the JAX package's division by 127 inside its jitted trainer
-    and eval steps; x / sx stays a division, as it does there."""
-    x32 = x.float()
-    amax = x32.abs().amax(dim=-1, keepdim=True)
-    sx = _over(torch.clamp(amax, min=1e-8), 127.0, reciprocal=True)
-    xq = torch.clamp(torch.round(x32 / sx), -127, 127).to(torch.int8)
-    return xq, sx
+    and eval steps; x / sx stays a division, as it does there. On a CUDA
+    tensor one kernel launch computes both (ops/cuda/row_quant.py); on
+    the CPU its plain version."""
+    k = x.shape[-1]
+    xq, sx = _row_quant_2d(x.reshape(-1, k).contiguous(), sw)
+    return xq.reshape(x.shape), sx.reshape(*x.shape[:-1], 1)
 
 
 def _over(x: torch.Tensor, divisor: float, reciprocal: bool) -> torch.Tensor:
     """x / divisor, or x times the fp32 reciprocal of the constant divisor:
     what XLA compiles a division by a constant into under jit, so the
-    port's values equal those JAX computes inside jit-compiled code."""
+    port's values equal those JAX computes inside jit-compiled code. The
+    reciprocal is made once per device, not copied to the device per call."""
     if reciprocal:
-        return x * torch.tensor(1.0 / divisor, dtype=torch.float32, device=x.device)
+        return x * _reciprocal(divisor, x.device)
     return x / divisor
 
 
@@ -88,7 +92,7 @@ def q8_matmul(g: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor) -> torch.Tens
     int8 contraction is exact w.r.t. the folded values. g: (..., O);
     returns (..., I) in g.dtype."""
     g2 = g.reshape(-1, g.shape[-1])
-    gq, sg = row_quant(g2.float() * sw)
+    gq, sg = row_quant(g2, sw)
     y = q8mm_g(gq, sg, wq, out_dtype=g.dtype)
     return y.reshape(*g.shape[:-1], wq.shape[1])
 

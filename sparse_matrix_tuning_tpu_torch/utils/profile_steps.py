@@ -8,7 +8,9 @@ trainer's own steps on synthetic batches, bs 4 x seq 512, remat, attention
 "auto" (the K3 kernels on the card); each phase's step is timed three
 times unprofiled (median), then once under torch.profiler, which gives the
 device's busy time (summed kernel time), its idle share, and the ops and
-kernels with the most device time. A second trainer over the int8 frozen
+kernels with the most device time; one more step runs under
+torch.cuda.set_sync_debug_mode("warn"), which counts the host-device
+synchronisations it makes. A second trainer over the int8 frozen
 base (--frozen_quant int8: K4, K5, int8 head, host offload) gives the same
 for its sparse step, with the share of device time in K4, K5 and K1.
 Decode: eval/generate.generate with the
@@ -16,11 +18,12 @@ eval CLI's settings (beam-4, repetition penalty 1.1, bf16 cache, attention
 through K7) on 16 prompts left-padded to 256 tokens; a call with one new
 token is the prefill (and one beam selection), and a call with 1 +
 DECODE_STEPS new tokens adds DECODE_STEPS decode steps, so a decode step is
-the difference over DECODE_STEPS. The decode is profiled twice: over the
-dense bf16 weights, and over the int4 frozen base (the same weights
-written as an HF checkpoint under build/ and loaded by the eval CLI's
-load_decode_params with --frozen_quant int4: K6 on every linear), with the
-share of device time in K6 and K7.
+the difference over DECODE_STEPS (its synchronisations likewise). The
+decode is profiled four times: over the dense bf16 weights with a bf16
+and with an int8 KV cache, and over the int4 and the int8 frozen base
+(the same weights written as an HF checkpoint under build/ and loaded by
+the eval CLI's load_decode_params with --frozen_quant int4 / int8: K6 or
+K4 on every linear), with the share of device time in K4, K6 and K7.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ BS, SEQ, TOP = 4, 512, 25
 TIMED = 3  # unprofiled steps per phase, before the profiled one
 EVAL_BATCH, PROMPT = 16, 256  # the eval CLI's batch, the 256-token prompt bucket
 DECODE_STEPS = 8
-FULL_FT_STEPS = 2 + TIMED + 1
+FULL_FT_STEPS = 2 + TIMED + 2
 
 
 def _device_us(evt) -> float:
@@ -55,6 +58,23 @@ def _wall_ms(fn) -> float:
     fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3
+
+
+def _syncs(fn) -> int:
+    """fn() once under torch.cuda.set_sync_debug_mode("warn"): the number of
+    operations that synchronised the host with the device (a blocking copy,
+    .item(), a host read of a device value), each of which PyTorch reports
+    as a warning."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
 
 
 def _profiled(fn):
@@ -80,22 +100,26 @@ def _print_top(label, rows_by_kind):
 
 
 def _profile_step(trainer, batches, label):
-    """Time batches[:-1] unprofiled, then profile batches[-1]."""
-    walls = [_wall_ms(lambda b=b: float(trainer.train_step(b)["loss"])) for b in batches[:-1]]
+    """Time batches[:-2] unprofiled, profile batches[-2], then count the
+    host-device synchronisations of a step on batches[-1]."""
+    walls = [_wall_ms(lambda b=b: float(trainer.train_step(b)["loss"])) for b in batches[:-2]]
     print(f"[profile] {label}: wall {statistics.median(walls):.1f} ms median of "
           f"{[round(w, 1) for w in walls]} (not profiled)", flush=True)
     wall_ms, busy_ms, n, kernels, ops = _profiled(
-        lambda: float(trainer.train_step(batches[-1])["loss"]))
+        lambda: float(trainer.train_step(batches[-2])["loss"]))
+    n_sync = _syncs(lambda: float(trainer.train_step(batches[-1])["loss"]))
     print(f"[profile] {label}: wall {wall_ms:.1f} ms (profiled), device busy "
           f"{busy_ms:.1f} ms in {n} kernels, idle share "
-          f"{max(0.0, 1 - busy_ms / wall_ms):.3f}", flush=True)
+          f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; {n_sync} host-device synchronisations "
+          "in a step (the loss's .item() included)", flush=True)
     _print_top(label, (("op", ops), ("kernel", kernels)))
     return busy_ms, kernels
 
 
-def profile_decode(model_cfg, device, frozen_quant: str = "none"):
+def profile_decode(model_cfg, device, frozen_quant: str = "none", cache_dtype: str = "bfloat16"):
     """The decode leg (module docstring), over the dense weights or
-    (frozen_quant "int4") over the int4 frozen base."""
+    (frozen_quant "int4" / "int8") over a quantized frozen base, with a
+    bf16 or (cache_dtype "int8") an int8 KV cache."""
     from sparse_matrix_tuning_tpu_torch.eval.generate import GenerationConfig, generate
     from sparse_matrix_tuning_tpu_torch.models.llama import init_params
     from sparse_matrix_tuning_tpu_torch.ops.cuda import cached_attention as k7
@@ -121,7 +145,8 @@ def profile_decode(model_cfg, device, frozen_quant: str = "none"):
         mask[i, PROMPT - n:] = 1
 
     def run(new_tokens):
-        gen = GenerationConfig(max_new_tokens=new_tokens, num_beams=4, repetition_penalty=1.1)
+        gen = GenerationConfig(max_new_tokens=new_tokens, num_beams=4, repetition_penalty=1.1,
+                               cache_dtype=cache_dtype)
         return lambda: generate(params, model_cfg, ids, mask, gen, device=device)
 
     n = 1 + DECODE_STEPS
@@ -130,11 +155,13 @@ def profile_decode(model_cfg, device, frozen_quant: str = "none"):
     launches0 = dict(k7.LAUNCHES)
     p1 = _profiled(run(1))
     pn = _profiled(run(n))
-    k7_launches = k7.LAUNCHES["cached_attn"] - launches0["cached_attn"]
+    k7_launches = sum(k7.LAUNCHES.values()) - sum(launches0.values())
+    sync_step = (_syncs(run(n)) - _syncs(run(1))) / DECODE_STEPS
     base = "bf16 weights" if frozen_quant == "none" else f"{frozen_quant} frozen base"
+    cache = "bf16" if cache_dtype == "bfloat16" else cache_dtype
+    base = f"{base}, {cache} cache"
     print(f"[profile] decode: {torch.cuda.get_device_name(0)}, TinyLlama-1.1B geometry, "
-          f"{base}, {EVAL_BATCH} prompts x 4 beams, prompt bucket {PROMPT}, bf16 cache, K7",
-          flush=True)
+          f"{base}, {EVAL_BATCH} prompts x 4 beams, prompt bucket {PROMPT}, K7", flush=True)
     print(f"[profile] prefill (+ one beam selection): wall {walls[1]:.1f} ms not profiled "
           f"(median of {TIMED}), {p1[0]:.1f} ms profiled; device busy {p1[1]:.2f} ms in "
           f"{p1[2]} kernels, idle share {max(0.0, 1 - p1[1] / p1[0]):.3f}", flush=True)
@@ -143,10 +170,11 @@ def profile_decode(model_cfg, device, frozen_quant: str = "none"):
     print(f"[profile] decode step: wall {wall:.1f} ms not profiled, {step[0]:.1f} ms "
           f"profiled; device busy {step[1]:.2f} ms in {step[2]:.0f} kernels, idle share "
           f"of the unprofiled wall {max(0.0, 1 - step[1] / wall):.3f}; K7 launches over the "
-          f"two profiled calls {k7_launches}", flush=True)
+          f"two profiled calls {k7_launches}; {sync_step:.1f} host-device synchronisations "
+          "a decode step", flush=True)
     own = {name: (sum(_device_us(e) for e in pn[3] if part in e.key)
                   - sum(_device_us(e) for e in p1[3] if part in e.key)) / 1e3 / DECODE_STEPS
-           for name, part in OWN_KERNELS.items() if name.startswith(("K6", "K7"))}
+           for name, part in OWN_KERNELS.items() if name.startswith(("K4", "K6", "K7", "row"))}
     print(f"[profile] decode step ({base}): device time in the port's kernels, ms (share of "
           f"{step[1]:.2f} ms busy): " + ", ".join(
               f"{name} {ms:.3f} ({ms / max(step[1], 1e-9):.3f})" for name, ms in own.items()),
@@ -155,7 +183,8 @@ def profile_decode(model_cfg, device, frozen_quant: str = "none"):
 
 
 # device kernels of the port's own, by a part of their name
-OWN_KERNELS = {"K4 q8_matmul": "q8mm_kernel", "K5 block_correction": "correction_",
+OWN_KERNELS = {"K4 q8_matmul": "q8mm_kernel", "row_quant (K4's prologue)": "row_quant_kernel",
+               "K5 block_correction": "correction_",
                "K1 block_grad": "block_grad_", "K2 masked_adam": "masked_adam",
                "K3 attention": "attn_", "K6 q4_matmul": "q4mm_",
                "K7 cached_attention": "cached_attn"}
@@ -199,12 +228,12 @@ def profile_training(model_cfg, device, frozen_quant: str):
     else:
         for _ in range(full_ft_steps - TIMED - 1):
             trainer.train_step(batch())
-        _profile_step(trainer, [batch() for _ in range(TIMED + 1)], "warmup_step")
+        _profile_step(trainer, [batch() for _ in range(TIMED + 2)], "warmup_step")
     for _ in range(2):  # conversion + the first sparse step, then another
         trainer.train_step(batch())
     if trainer.phase != "sparse":
         raise RuntimeError("the trainer did not convert")
-    busy_ms, kernels = _profile_step(trainer, [batch() for _ in range(TIMED + 1)],
+    busy_ms, kernels = _profile_step(trainer, [batch() for _ in range(TIMED + 2)],
                                      f"{tag}sparse_step")
     own = {name: sum(_device_us(e) for e in kernels if part in e.key) / 1e3
            for name, part in OWN_KERNELS.items()}
@@ -226,8 +255,9 @@ def main():
     for frozen_quant in ("none", "int8"):
         profile_training(model_cfg, device, frozen_quant)
         torch.cuda.empty_cache()
-    for frozen_quant in ("none", "int4"):
-        profile_decode(model_cfg, device, frozen_quant)
+    for frozen_quant, cache_dtype in (("none", "bfloat16"), ("none", "int8"),
+                                      ("int4", "bfloat16"), ("int8", "bfloat16")):
+        profile_decode(model_cfg, device, frozen_quant, cache_dtype)
         torch.cuda.empty_cache()
 
 

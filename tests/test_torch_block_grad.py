@@ -81,7 +81,8 @@ def test_kernel_sources_export_the_bound_entry_points():
     by the sources (an edit rebuilds)."""
     srcs = {p.name: p.read_text() for p in _build.sources()}
     assert set(srcs) == {"attention.cu", "block_grad.cu", "cached_attention.cu",
-                         "correction.cu", "masked_adam.cu", "q4_matmul.cu", "q8_matmul.cu"}
+                         "correction.cu", "masked_adam.cu", "q4_matmul.cu", "q8_matmul.cu",
+                         "row_quant.cu"}
     text = "\n".join(srcs.values())
     for name, argtypes in _build.SIGNATURES.items():
         m = re.search(rf'extern "C" int {name}\(([^)]*)\)', text)

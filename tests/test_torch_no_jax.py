@@ -99,3 +99,22 @@ def test_wrappers_refuse_devices_without_a_kernel():
         k7.cached_attention(q, {"k": cache, "v": cache},
                             torch.ones((2, 16), dtype=torch.int32, device="meta"), 3)
     assert k7.LAUNCHES == {"cached_attn": 0, "cached_attn_q8": 0, "cached_attn_combine": 0}
+
+
+def test_int8_path_on_cpu_launches_no_row_quant_kernel():
+    """The int8 base's row quantization (K4's prologue) runs its plain
+    version on CPU tensors: forward, grad_input and the q8 loss launch
+    nothing."""
+    from sparse_matrix_tuning_tpu_torch.ops import quant
+    from sparse_matrix_tuning_tpu_torch.ops.cuda import q8_matmul as k4
+    from sparse_matrix_tuning_tpu_torch.ops.cuda import row_quant as rq
+    from sparse_matrix_tuning_tpu_torch.ops.loss import chunked_causal_lm_loss_q8
+
+    wq, sw = quant.quantize_weight(torch.randn(48, 32))
+    x = torch.randn(6, 32, dtype=torch.bfloat16)
+    assert quant.q8_matmul_t(x, wq, sw).shape == (6, 48)
+    assert quant.q8_matmul(torch.randn(6, 48), wq, sw).shape == (6, 32)
+    hidden = torch.randn(2, 5, 32, requires_grad=True)
+    labels = torch.randint(0, 48, (2, 5))
+    chunked_causal_lm_loss_q8(hidden, wq, sw, labels, vocab_chunk=16).backward()
+    assert rq.LAUNCHES == 0 and k4.LAUNCHES == {"q8mm_t": 0, "q8mm_g": 0}

@@ -186,12 +186,15 @@ def test_frozen_q4_linear_and_grad_match_jax():
 
 def test_k6_splits_and_refusals():
     """The group split over CTAs at the TinyLlama and Llama-3-8B shapes on a
-    132-SM card, and a device without a kernel refused."""
+    132-SM card (128-column output tiles; tiles x splits at most the SMs,
+    at least one group a split), and a device without a kernel refused."""
     n_sm = 132
-    for (o, k), want in {(5632, 1024): 4, (2048, 1024): 8, (256, 1024): 8, (2048, 2816): 11,
-                         (14336, 2048): 2, (128, 128): 1}.items():
+    for (o, k), want in {(5632, 1024): 3, (2048, 1024): 8, (256, 1024): 8, (2048, 2816): 8,
+                         (14336, 2048): 1, (128, 128): 1, (384, 1024): 8}.items():
         got = k6.splits_for(o, k, n_sm)
-        assert got == want and (k // 128) % got == 0, (o, k, got)
+        tiles = -(-o // k6.TILE_O)
+        assert got == want and 1 <= got <= k // 128, (o, k, got)
+        assert tiles * got <= max(n_sm, tiles), (o, k, got)
     meta = torch.empty((4, 256), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         k6.q4mm_t(meta, torch.empty((128, 128), dtype=torch.int8, device="meta"),
