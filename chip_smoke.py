@@ -22,14 +22,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
      SDPA with a boolean mask and at several split counts; the row
      quantization in front of K4 at six shapes (RQ_SHAPES: bf16 / fp32,
      with and without the g form's fold of the weight scales, rows of
-     zeros, ragged T, rows on .5 ties, magnitudes 1e-2 to 10), equal to its
-     plain version bit for bit, with a planted fault (the scale as amax /
-     127), timed at two; the int8 paths' quantization and matmuls under
-     set_sync_debug_mode("error"); K4 (the int8 matmul with fused scales, t
-     and g forms) at nine shapes (K4_SHAPES: the TinyLlama linears and
-     head, a ragged chunk, Llama-3-8B's gate, the int8 eval decode's gate/up
-     and k/v at 64 rows, ragged decode rows), equal to its plain version
-     bit for bit, with a planted fault, timed at six beside torch._int_mm
+     zeros, ragged T, rows on .5 ties, magnitudes 1e-2 to 10, rows holding
+     a NaN or an inf), equal to its plain version bit for bit, with a
+     planted fault (the scale as amax / 127), timed at two; the int8 paths'
+     quantization and matmuls under set_sync_debug_mode("error"); K4 (the
+     int8 matmul with fused scales, t and g forms) at eleven shapes
+     (K4_SHAPES: the TinyLlama linears and head, a ragged chunk, Llama-3-8B's
+     gate, the int8 eval decode's gate/up, k/v, q/o and down at 64 rows,
+     ragged decode rows), equal to its plain version
+     bit for bit, with a planted fault, timed at eight beside torch._int_mm
      plus the scale pass and beside cuBLAS bf16; K5
      (the block correction) at six cases (K5_SHAPES: both orientations,
      ragged T, bf16 and fp32, unsorted coordinates with repeats), with a
@@ -170,6 +171,8 @@ K4_SHAPES = [
     (64, 2048, 5632, "bf16", "TinyLlama gate/up at the int8 eval decode (F2: 16 prompts x 4 "
      "beams)", True),
     (64, 2048, 256, "bf16", "TinyLlama k/v at the int8 eval decode", True),
+    (64, 2048, 2048, "bf16", "TinyLlama q/o at the int8 eval decode", True),
+    (64, 5632, 2048, "bf16", "TinyLlama down at the int8 eval decode", True),
     (37, 2048, 2048, "bf16", "ragged decode rows, q/o", False),
 ]
 K4_KERNELS = ("q8mm_t", "q8mm_g")
@@ -885,14 +888,12 @@ def _k4_case(form, w, wq, sw, t, dtype, gen):
     if t_form:
         aq, sa = row_quant(act)
         kernel = lambda: k4.q8mm_t(aq, sa, wq, sw, dt)
-        split_call = lambda sp: k4.q8mm_t(aq, sa, wq, sw, dt, splits=sp)
         plain = lambda a=aq: k4.q8mm_t_plain(a, sa, wq, sw, dt)
         lib = lambda: ((torch._int_mm(aq, wq.t()).float() * sa) * sw).to(dt)
         cublas = lambda: torch.matmul(ab, wb.t())
     else:
         aq, sa = row_quant(act, sw)
         kernel = lambda: k4.q8mm_g(aq, sa, wq, dt)
-        split_call = lambda sp: k4.q8mm_g(aq, sa, wq, dt, splits=sp)
         plain = lambda a=aq: k4.q8mm_g_plain(a, sa, wq, dt)
         lib = lambda: (torch._int_mm(aq, wq).float() * sa).to(dt)
         cublas = lambda: torch.matmul(ab, wb)
@@ -920,7 +921,7 @@ def _k4_case(form, w, wq, sw, t, dtype, gen):
         swapped = ((acc * sw) * sa).to(dt)
         info += (f"; sw applied before sx changes {int((swapped != want).sum())} of "
                  f"{want.numel()} elements")
-    return err, info, (kernel, plain, lib, cublas, split_call)
+    return err, info, (kernel, plain, lib, cublas)
 
 
 def check_q8_matmul():
@@ -942,8 +943,7 @@ def check_q8_matmul():
         w = torch.randn((o, k), generator=gen, device="cuda") / k ** 0.5
         wq, sw = quantize_weight(w)
         for form in K4_KERNELS:
-            err, info, (kernel, plain, lib, cublas, split_call) = _k4_case(form, w, wq, sw, t,
-                                                                           dtype, gen)
+            err, info, (kernel, plain, lib, cublas) = _k4_case(form, w, wq, sw, t, dtype, gen)
             worst[form] = max(worst[form], err)
             shape = f"T={t} K={k} O={o} {dtype} out"
             log(f"[K4 {form}] {shape} ({what}): equal to the plain version bit for bit; {info}")
@@ -964,15 +964,8 @@ def check_q8_matmul():
                     f"scale pass {lib_ms:.4f} ms; bound {bnd[0]:.3e} ms ({bnd[1]})")
                 log(f"[K4 {form}] cuBLAS bf16 matmul of the unquantized operands at {shape}: "
                     f"{bf16_ms:.4f} ms")
-                if t <= k4.DECODE_ROWS:  # the decode plan's split of the contraction
-                    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-                    p = k4.plan(form[-1], t, n_out, n_act, n_sm)
-                    by = {sp: time_ms(lambda sp=sp: split_call(sp))
-                          for sp in sorted({1, 2, 4, 8, 16, p.splits}) if sp * 128 <= n_act}
-                    log(f"[K4 {form}] at {shape} by split count (planned {p.splits}): " + ", ".join(
-                        f"{sp} {ms_:.4f} ms" for sp, ms_ in by.items()))
                 main.setdefault(form, (ms, plain_ms, bnd, lib_ms))
-            del kernel, plain, lib, cublas, split_call
+            del kernel, plain, lib, cublas
         del w, wq, sw
         torch.cuda.empty_cache()
     return worst, main
@@ -983,7 +976,8 @@ def _rq_rows(t, k, dt, fold, gen):
     rows of magnitudes 1e-2 to 10, the first row zeros, and from the fourth
     on every fourth row built so that its values over the scale sit exactly
     on .5 ties (the row's max 127 * 2^e, the others (j + 0.5) * 2^e; with
-    the fold, sw a power of two, so the products stay exact)."""
+    the fold, sw a power of two, so the products stay exact); rows 1, 2
+    and 5 hold a NaN, an inf and a -inf."""
     import torch
     dev = "cuda"
     sw = None
@@ -999,13 +993,25 @@ def _rq_rows(t, k, dt, fold, gen):
         row[:, 0] = 127 * torch.exp2(e[:, 0])
         v[ties] = row / (sw if fold else 1.0)
     v[0] = 0
+    if t > 5:  # a NaN in row 1, an inf in row 2 and a -inf in row 5
+        v[1, k // 3], v[2, k // 2], v[5, k - 1] = float("nan"), float("inf"), float("-inf")
     return v.to(dt), sw
+
+
+def _nan_diff(a, b):
+    """The largest |a - b| over elements, where NaN against NaN and an inf
+    against the same inf count 0 (a NaN against a number gives NaN)."""
+    import torch
+    a, b = a.float(), b.float()
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    return float(torch.where(same, torch.zeros_like(a), (a - b).abs()).max())
 
 
 def check_row_quant():
     """K4's prologue, the row quantization kernel, at RQ_SHAPES: xq and sx
     equal to the plain version bit for bit (rows of zeros, ragged T, rows
-    on .5 ties, magnitudes 1e-2 to 10, with and without the fold of sw);
+    on .5 ties, magnitudes 1e-2 to 10, rows holding a NaN or an inf, with
+    and without the fold of sw);
     the planted fault (the scale as amax / 127, a division) rejected; times
     beside the plain version and the bound (no single PyTorch call computes
     it). Then row_quant, _quant_kv and the int8 / int4 matmuls on CUDA
@@ -1018,6 +1024,7 @@ def check_row_quant():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
     main = None
+    worst = 0.0
     for t, k, dtype, fold, what, timed in RQ_SHAPES:
         dt = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype]
         x, sw = _rq_rows(t, k, dt, fold, gen)
@@ -1027,25 +1034,33 @@ def check_row_quant():
         if rq.LAUNCHES != before + 1:
             raise AssertionError("row_quant: not one launch per call")
         xq_p, sx_p = rq.row_quant_plain(x, sw)
-        if not (torch.equal(xq, xq_p) and torch.equal(sx, sx_p)):
+        # bit for bit, a NaN scale against a NaN scale
+        err = max(_nan_diff(xq, xq_p), _nan_diff(sx, sx_p))
+        if not err == 0:
             raise AssertionError(
                 f"row_quant T={t} K={k} {dtype} fold={fold}: {int((xq != xq_p).sum())} values and "
-                f"{int((sx != sx_p).sum())} scales differ from the plain version")
+                f"{int((sx != sx_p).sum())} scales differ from the plain version (max abs err "
+                f"{err:.3e})")
+        worst = max(worst, err)
         x32 = x.float() * (sw if fold else 1.0)
         n_ties = int(((x32 / sx_p).abs().frac() == 0.5).sum())
-        info = f"{n_ties} values on .5 ties"
+        n_nan, n_inf = int(torch.isnan(sx).sum()), int(torch.isinf(sx).sum())
+        if t > 5 and (n_nan != 1 or n_inf != 2 or (xq[[1, 2, 5]] != 0).any()):
+            raise AssertionError(f"row_quant: want the NaN row's scale NaN, the inf rows' inf and "
+                                 f"their values 0; got {n_nan} NaN and {n_inf} inf scales")
+        info = f"{n_ties} values on .5 ties, {n_nan} NaN and {n_inf} inf rows"
         if main is None:
             # the planted fault: the scale as a division by 127 (by a tensor:
             # PyTorch's CUDA division by a Python scalar multiplies by its
             # reciprocal)
             amax = torch.clamp(x32.abs().amax(dim=-1, keepdim=True), min=1e-8)
             sx_f = amax / torch.full_like(amax, 127.0)
-            if torch.equal(sx_f, sx):
+            if _nan_diff(sx_f, sx) == 0:
                 raise AssertionError("row_quant: the check passes a planted fault (amax / 127)")
             info += (f"; planted fault (amax / 127) rejected: {int((sx_f != sx).sum())} of {t} "
                      "scales differ")
         log(f"[row_quant] T={t} K={k} {dtype} x{', sw folded' if fold else ''} ({what}): xq and "
-            f"sx equal to the plain version bit for bit; {info}")
+            f"sx equal to the plain version bit for bit (max abs err {err:.3e}); {info}")
         if timed:
             e = x.element_size()
             nbytes = t * k * e + t * k + 4 * t + (4 * k if fold else 0)
@@ -1060,7 +1075,7 @@ def check_row_quant():
             if main is None:
                 main = (ms, plain_ms, bnd, None)
     check_no_sync()
-    return 0.0, main
+    return worst, main
 
 
 def check_no_sync():
@@ -1274,7 +1289,7 @@ def check_q4_matmul():
             del wdq, kernel
         if t == k6.MAX_ROWS:  # the decode's shapes: times by split count
             planned = k6.splits_for(o, i // 2, n_sm)
-            by = {sp: time_ms(lambda sp=sp: k6.q4mm_t(x, w4, s4, dt, splits=sp))
+            by = {sp: time_ms(lambda sp=sp: k6._launch(x, w4, s4, dt, sp))
                   for sp in sorted({1, 2, 4, 8, 16, planned}) if sp <= i // 256}
             log(f"[K6 q4_matmul] at {shape} by split count (planned {planned}): " + ", ".join(
                 f"{sp} {ms_:.4f} ms" for sp, ms_ in by.items()))

@@ -15,6 +15,15 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// p (in shared memory) advanced to the next multiple of 1024 bytes, by
+// pointer arithmetic on p itself: the compiler still knows that the result
+// points to shared memory and reads and writes through it with LDS / STS.
+// (Rounding through an integer loses that, and every access becomes a
+// generic LD / ST.)
+__device__ __forceinline__ uint8_t* align_smem_1024(uint8_t* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
                : "memory");

@@ -120,8 +120,7 @@ q4mm_kernel(const __grid_constant__ CUtensorMap tmW, const __grid_constant__ CUt
   using C = Cfg<MT>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ int s_last;
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* smem = align_smem_1024(smem_raw);
   uint8_t* sW = smem;
   uint8_t* sX = sW + W_STAGES * W_BYTES;
   uint64_t* w_full = reinterpret_cast<uint64_t*>(sX + X_STAGES * C::X_BYTES);

@@ -29,9 +29,9 @@
 //     one (released by each consumer warpgroup once its wgmma has read it).
 //     One or two consumer warpgroups of 64 rows each issue the wgmma and
 //     keep one group in flight (wait_group 1) while the next stage lands.
-//   * Persistent CTAs (at most one per SM) walk the work units; the producer
-//     runs ahead into the next unit, so a unit's epilogue overlaps the next
-//     unit's loads.
+//   * Persistent CTAs (at most one per SM) walk the output tiles; the producer
+//     runs ahead into the next tile, so a tile's epilogue overlaps the next
+//     tile's loads.
 //   * t form: xq and wq are both K-major as they lie; 128 x 256 tiles at
 //     training rows.
 //   * g form: the contraction runs over O, wq's SLOW axis. Each landed wq
@@ -42,14 +42,12 @@
 //     barrier per stage orders it). The lane -> block map makes both the
 //     reads of the landed tile and the writes of the transposed one free of
 //     bank conflicts. No transposed copy of wq exists in device memory.
-//   * Decode rows (T <= 64): 64-row tiles, 128 columns, and the contraction
-//     split over CTAs (split-K) so that the weight stream covers the SMs.
-//     Each split writes its int32 partial to a workspace; the last CTA of a
-//     tile to arrive (a per-tile counter, which it resets for the next call)
-//     adds the other splits' partials in split order and runs the epilogue.
-//     Integer sums are exact, so the result does not depend on the order.
-//   * The launch plan (tile, splits, grid) is chosen by the wrapper
-//     (ops/cuda/q8_matmul.py plan) from T, the output width and K.
+//   * Decode rows (T <= 64): 64-row tiles, 128 columns, each CTA streaming
+//     its tile's whole contraction. (The contraction split over CTAs, with
+//     the partials summed in the launch, was timed at the four TinyLlama
+//     decode shapes on the card and lost at three of them, PERF.md.)
+//   * The launch plan (tile, grid) is chosen by the wrapper
+//     (ops/cuda/q8_matmul.py plan) from T and the output width.
 // The contraction length must be a multiple of 16 (TMA row strides); the
 // wrapper checks it.
 
@@ -202,21 +200,17 @@ struct Cfg {
 
 // One kernel for both forms. out (M, N) = A (M, Kc) . B, scaled; A is
 // row-major (tmA over (Kc, M)). t form: tmB over wq (N, Kc), B(k, n) =
-// wq[n][k]. g form: tmB over wq (Kc, N), B(k, n) = wq[k][n]. Work unit u:
-// split u % splits of tile u / splits, tiles m-fastest (neighbouring CTAs
-// share a weight tile in L2).
+// wq[n][k]. g form: tmB over wq (Kc, N), B(k, n) = wq[k][n]. Tiles are
+// walked m-fastest (neighbouring CTAs share a weight tile in L2).
 template <bool G, int NWG, int BN, typename OutT>
 __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 q8mm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmB,
             const float* __restrict__ srow, const float* __restrict__ scol,
-            OutT* __restrict__ out, int* __restrict__ ws, unsigned* __restrict__ counters,
-            int M, int N, int Kc, int splits) {
+            OutT* __restrict__ out, int M, int N, int Kc) {
   using C = Cfg<G, NWG, BN>;
   constexpr int BM = C::BM, NC = C::NC, STAGES = C::STAGES, R = BN / 2;
   extern __shared__ uint8_t smem_raw[];
-  __shared__ int s_last;
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* smem = align_smem_1024(smem_raw);
   uint8_t* sA = smem;
   uint8_t* sB = sA + STAGES * C::A_BYTES;
   uint8_t* sT = sB + STAGES * C::B_BYTES;
@@ -225,7 +219,7 @@ q8mm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUt
 
   const int tiles_m = (M + BM - 1) / BM;
   const int tiles_n = (N + BN - 1) / BN;
-  const int units = tiles_m * tiles_n * splits;
+  const int tiles = tiles_m * tiles_n;
   const int nkb = (Kc + BK - 1) / BK;
 
   if (threadIdx.x == 0) {
@@ -244,12 +238,9 @@ q8mm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUt
     if (threadIdx.x == 0) {
       int stage = 0;
       uint32_t phase = 0;
-      for (int u = blockIdx.x; u < units; u += gridDim.x) {
-        const int split = u % splits, tile = u / splits;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
         const int tm = tile % tiles_m, tn = tile / tiles_m;
-        const int kb0 = (int)((long long)split * nkb / splits);
-        const int kb1 = (int)((long long)(split + 1) * nkb / splits);
-        for (int kb = kb0; kb < kb1; ++kb) {
+        for (int kb = 0; kb < nkb; ++kb) {
           mbar_wait(&empty[stage], phase ^ 1);
           mbar_expect_tx(&full[stage], C::STAGE);
           tma_load_2d(sA + stage * C::A_BYTES, &tmA, &full[stage], kb * BK, tm * BM);
@@ -275,17 +266,14 @@ q8mm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUt
   const bool even = (N % 2) == 0;
   int stage = 0, it = 0;
   uint32_t phase = 0;
-  for (int u = blockIdx.x; u < units; u += gridDim.x) {
-    const int split = u % splits, tile = u / splits;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int tm = tile % tiles_m, tn = tile / tiles_m;
-    const int kb0 = (int)((long long)split * nkb / splits);
-    const int kb1 = (int)((long long)(split + 1) * nkb / splits);
     int acc[R];
 #pragma unroll
     for (int i = 0; i < R; ++i) acc[i] = 0;
     fence_acc(acc);
     int prev = -1;
-    for (int kb = kb0; kb < kb1; ++kb, ++it) {
+    for (int kb = 0; kb < nkb; ++kb, ++it) {
       mbar_wait(&full[stage], phase);
       const uint8_t* b_tile = sB + stage * C::B_BYTES;
       if constexpr (G) {
@@ -335,37 +323,6 @@ q8mm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUt
     // column 8j + 2 (lane % 4) + e of the warpgroup's 64 x BN tile
     const int m_base = tm * BM + cwg * 64 + warp * 16 + lane / 4;
     const int n_base = tn * BN + 2 * (lane % 4);
-    if (splits > 1) {
-      // each thread's accumulators as R / 4 int4, thread-major: the
-      // partial of (split, tile) is NC * R ints, written and read coalesced
-      const int n_tiles = tiles_m * tiles_n;
-      int4* mine = reinterpret_cast<int4*>(ws) + ((size_t)split * n_tiles + tile) * (R / 4) * NC;
-#pragma unroll
-      for (int v = 0; v < R / 4; ++v)
-        mine[(size_t)v * NC + ct] =
-            make_int4(acc[4 * v], acc[4 * v + 1], acc[4 * v + 2], acc[4 * v + 3]);
-      __threadfence();
-      named_sync(1, NC);
-      if (ct == 0) s_last = atomicAdd(&counters[tile], 1u) == (unsigned)(splits - 1);
-      named_sync(1, NC);
-      if (!s_last) continue;
-      __threadfence();
-#pragma unroll 2
-      for (int s = 0; s < splits; ++s) {  // integer sums: exact in any order
-        if (s == split) continue;
-        const int4* other =
-            reinterpret_cast<const int4*>(ws) + ((size_t)s * n_tiles + tile) * (R / 4) * NC;
-#pragma unroll
-        for (int v = 0; v < R / 4; ++v) {
-          const int4 w = __ldcg(other + (size_t)v * NC + ct);
-          acc[4 * v] += w.x;
-          acc[4 * v + 1] += w.y;
-          acc[4 * v + 2] += w.z;
-          acc[4 * v + 3] += w.w;
-        }
-      }
-      if (ct == 0) counters[tile] = 0;  // every split has arrived: ready for the next call
-    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int m = m_base + 8 * h;
@@ -390,45 +347,38 @@ q8mm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUt
 
 template <bool G, int NWG, int BN, typename OutT>
 int launch_cfg(const CUtensorMap& ma, const CUtensorMap& mb, const float* sr, const float* sc,
-               void* out, int* ws, unsigned* counters, int M, int N, int Kc, int splits,
-               int grid, cudaStream_t s) {
+               void* out, int M, int N, int Kc, int grid, cudaStream_t s) {
   using C = Cfg<G, NWG, BN>;
   auto kern = q8mm_kernel<G, NWG, BN, OutT>;
   static bool smem_set[64] = {};
   const cudaError_t e = allow_smem(reinterpret_cast<const void*>(kern), C::SMEM, smem_set);
   if (e != cudaSuccess) return (int)e;
-  kern<<<grid, (NWG + 1) * 128, C::SMEM, s>>>(ma, mb, sr, sc, static_cast<OutT*>(out), ws,
-                                               counters, M, N, Kc, splits);
+  kern<<<grid, (NWG + 1) * 128, C::SMEM, s>>>(ma, mb, sr, sc, static_cast<OutT*>(out), M, N,
+                                               Kc);
   return (int)cudaGetLastError();
 }
 
 template <bool G, typename OutT>
 int launch_form(const CUtensorMap& ma, const CUtensorMap& mb, const float* sr, const float* sc,
-                void* out, int* ws, unsigned* counters, int M, int N, int Kc, int bm, int bn,
-                int splits, int grid, cudaStream_t s) {
+                void* out, int M, int N, int Kc, int bm, int bn, int grid, cudaStream_t s) {
   if (bm == 64 && bn == 128)
-    return launch_cfg<G, 1, 128, OutT>(ma, mb, sr, sc, out, ws, counters, M, N, Kc, splits, grid,
-                                       s);
+    return launch_cfg<G, 1, 128, OutT>(ma, mb, sr, sc, out, M, N, Kc, grid, s);
   if constexpr (G) {
     if (bm == 128 && bn == 128)
-      return launch_cfg<G, 2, 128, OutT>(ma, mb, sr, sc, out, ws, counters, M, N, Kc, splits,
-                                         grid, s);
+      return launch_cfg<G, 2, 128, OutT>(ma, mb, sr, sc, out, M, N, Kc, grid, s);
   } else {
     if (bm == 128 && bn == 256)
-      return launch_cfg<G, 2, 256, OutT>(ma, mb, sr, sc, out, ws, counters, M, N, Kc, splits,
-                                         grid, s);
+      return launch_cfg<G, 2, 256, OutT>(ma, mb, sr, sc, out, M, N, Kc, grid, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // A (M, Kc) int8; t form: W (N, Kc); g form: W (Kc, N)
 template <bool G>
-int launch(const void* a, const void* w, const void* srow, const void* scol, void* out, void* ws,
-           void* counters, int M, int N, int Kc, int out_dtype, int bm, int bn, int splits,
-           int grid, void* stream) {
+int launch(const void* a, const void* w, const void* srow, const void* scol, void* out, int M,
+           int N, int Kc, int out_dtype, int bm, int bn, int grid, void* stream) {
   if (M <= 0 || N <= 0) return (int)cudaGetLastError();
-  if (Kc <= 0 || Kc % 16 || (G && N % 16) || splits < 1 || grid < 1 ||
-      (splits > 1 && (ws == nullptr || counters == nullptr)) || (bm != 64 && bm != 128))
+  if (Kc <= 0 || Kc % 16 || (G && N % 16) || grid < 1 || (bm != 64 && bm != 128))
     return (int)cudaErrorInvalidValue;
   CUtensorMap ma, mb;
   constexpr CUtensorMapDataType U8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
@@ -438,36 +388,27 @@ int launch(const void* a, const void* w, const void* srow, const void* scol, voi
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sr = static_cast<const float*>(srow);
   const float* sc = static_cast<const float*>(scol);
-  int* wsp = static_cast<int*>(ws);
-  unsigned* cnt = static_cast<unsigned*>(counters);
   if (out_dtype == 1)
-    return launch_form<G, __nv_bfloat16>(ma, mb, sr, sc, out, wsp, cnt, M, N, Kc, bm, bn, splits,
-                                         grid, s);
+    return launch_form<G, __nv_bfloat16>(ma, mb, sr, sc, out, M, N, Kc, bm, bn, grid, s);
   if (out_dtype == 0)
-    return launch_form<G, float>(ma, mb, sr, sc, out, wsp, cnt, M, N, Kc, bm, bn, splits, grid,
-                                 s);
+    return launch_form<G, float>(ma, mb, sr, sc, out, M, N, Kc, bm, bn, grid, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// out_dtype: 0 = fp32, 1 = bf16. The plan (bm x bn tiles, splits of the
-// contraction, grid CTAs) comes from the wrapper; with splits > 1, ws holds
-// splits * tiles * bm * bn int32 (16-byte aligned) and counters one zeroed
-// unsigned per output tile (left zeroed). Both return cudaGetLastError() after the launch.
+// out_dtype: 0 = fp32, 1 = bf16. The plan (bm x bn tiles, grid CTAs) comes
+// from the wrapper. Both return cudaGetLastError() after the launch.
 
 // out (T, O) = ((xq (T, K) . wq (O, K)^T) * sx (T,)) * sw (O,); K % 16 == 0.
 extern "C" int smt_q8mm_t(const void* xq, const void* sx, const void* wq, const void* sw,
-                          void* out, void* ws, void* counters, int T, int O, int K,
-                          int out_dtype, int bm, int bn, int splits, int grid, void* stream) {
-  return launch<false>(xq, wq, sx, sw, out, ws, counters, T, O, K, out_dtype, bm, bn, splits,
-                       grid, stream);
+                          void* out, int T, int O, int K, int out_dtype, int bm, int bn,
+                          int grid, void* stream) {
+  return launch<false>(xq, wq, sx, sw, out, T, O, K, out_dtype, bm, bn, grid, stream);
 }
 
 // out (T, K) = (gq (T, O) . wq (O, K)) * sg (T,); O % 16 == 0 and K % 16 == 0.
-extern "C" int smt_q8mm_g(const void* gq, const void* sg, const void* wq, void* out, void* ws,
-                          void* counters, int T, int O, int K, int out_dtype, int bm, int bn,
-                          int splits, int grid, void* stream) {
-  return launch<true>(gq, wq, sg, nullptr, out, ws, counters, T, K, O, out_dtype, bm, bn,
-                      splits, grid, stream);
+extern "C" int smt_q8mm_g(const void* gq, const void* sg, const void* wq, void* out, int T,
+                          int O, int K, int out_dtype, int bm, int bn, int grid, void* stream) {
+  return launch<true>(gq, wq, sg, nullptr, out, T, K, O, out_dtype, bm, bn, grid, stream);
 }

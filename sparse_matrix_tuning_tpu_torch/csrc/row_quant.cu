@@ -15,7 +15,8 @@
 // the scale is a product with the fp32 reciprocal, as XLA compiles the
 // division by the constant 127; the quantization stays a division; every
 // operation is a single IEEE-rounded fp32 operation (no fast math, no FMA
-// contraction: __fmul_rn / __fdiv_rn).
+// contraction: __fmul_rn / __fdiv_rn). A NaN in a row makes its scale NaN
+// (an inf makes it inf) and its int8 values 0, as in the plain version.
 //
 // What bounds it on the H100: bytes (x read once, xq and sx written once;
 // a few operations per element). Design: one CTA per row; 16-byte loads
@@ -50,9 +51,15 @@ __device__ __forceinline__ void load_vec(const T* p, float (&f)[Vec<T>::N]) {
   for (int i = 0; i < Vec<T>::N; ++i) f[i] = to_f32(v[i]);
 }
 
+// max that carries a NaN through, as torch.amax / clamp and XLA's max do
+// (fmaxf drops it)
+__device__ __forceinline__ float nan_max(float a, float b) { return (a > b || a != a) ? a : b; }
+
+// a NaN quotient (a NaN in the row, or inf / inf) converts to 0, as the
+// plain version's clamp then cast to int8 gives it
 __device__ __forceinline__ int8_t quant(float v, float s) {
   const float q = rintf(__fdiv_rn(v, s));
-  return static_cast<int8_t>(fminf(fmaxf(q, -127.f), 127.f));
+  return q != q ? int8_t(0) : static_cast<int8_t>(fminf(fmaxf(q, -127.f), 127.f));
 }
 
 template <typename T, bool FOLD, int HELD>
@@ -81,7 +88,7 @@ row_quant_kernel(const T* __restrict__ x, const float* __restrict__ sw, int8_t* 
 #pragma unroll
         for (int i = 0; i < V; ++i) {
           if (FOLD) f[h][i] = __fmul_rn(f[h][i], __ldg(sw + c + i));
-          amax = fmaxf(amax, fabsf(f[h][i]));
+          amax = nan_max(amax, fabsf(f[h][i]));
         }
       }
     }
@@ -90,23 +97,23 @@ row_quant_kernel(const T* __restrict__ x, const float* __restrict__ sw, int8_t* 
       load_vec(xr + c, g);
 #pragma unroll
       for (int i = 0; i < V; ++i)
-        amax = fmaxf(amax, fabsf(FOLD ? __fmul_rn(g[i], __ldg(sw + c + i)) : g[i]));
+        amax = nan_max(amax, fabsf(FOLD ? __fmul_rn(g[i], __ldg(sw + c + i)) : g[i]));
     }
   } else {
     for (int c = tid; c < K; c += NT) {
       const float v = FOLD ? __fmul_rn(to_f32(xr[c]), __ldg(sw + c)) : to_f32(xr[c]);
-      amax = fmaxf(amax, fabsf(v));
+      amax = nan_max(amax, fabsf(v));
     }
   }
 #pragma unroll
-  for (int off = 16; off > 0; off /= 2) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  for (int off = 16; off > 0; off /= 2) amax = nan_max(amax, __shfl_xor_sync(0xffffffffu, amax, off));
   if (tid % 32 == 0) warp_max[tid / 32] = amax;
   __syncthreads();
   if (tid == 0) {
     float m = warp_max[0];
 #pragma unroll
-    for (int w = 1; w < NT / 32; ++w) m = fmaxf(m, warp_max[w]);
-    const float s = __fmul_rn(fmaxf(m, 1e-8f), kInv127);
+    for (int w = 1; w < NT / 32; ++w) m = nan_max(m, warp_max[w]);
+    const float s = __fmul_rn(nan_max(m, 1e-8f), kInv127);
     s_scale = s;
     sx[blockIdx.x] = s;
   }

@@ -54,12 +54,10 @@ SIGNATURES = {
     "smt_cached_attn_combine": (P, P, P, P, I, I, I, I, P),
     # x, sw (or null), xq, sx, T, K, x dtype, stream
     "smt_row_quant": (P, P, P, P, I, I, I, P),
-    # xq, sx, wq, sw, out, ws, counters, T, O, K, out dtype, bm, bn, splits,
-    # grid, stream
-    "smt_q8mm_t": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P),
-    # gq, sg, wq, out, ws, counters, T, O, K, out dtype, bm, bn, splits, grid,
-    # stream
-    "smt_q8mm_g": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, P),
+    # xq, sx, wq, sw, out, T, O, K, out dtype, bm, bn, grid, stream
+    "smt_q8mm_t": (P, P, P, P, P, I, I, I, I, I, I, I, P),
+    # gq, sg, wq, out, T, O, K, out dtype, bm, bn, grid, stream
+    "smt_q8mm_g": (P, P, P, P, I, I, I, I, I, I, I, P),
     # out, src, delta, run_o, run_start, run_j, idx_in, T, O, I, runs,
     # transpose, dtype, stream
     "smt_block_correction": (P, P, P, P, P, P, P, I, I, I, I, I, I, P),
@@ -152,10 +150,10 @@ _COUNTERS = {}  # device index -> zeroed int32 tile counters
 
 
 def tile_counters(device, n: int):
-    """At least n zeroed int32 counters on `device`, for the kernels whose
-    last CTA of a tile to arrive sums the split-K partials (K4's decode
-    plan, K6). Every launch leaves the counters it used at zero, so one
-    buffer serves every call in stream order."""
+    """At least n zeroed int32 counters on `device`, for a kernel whose
+    last CTA of a tile to arrive sums the split-K partials (K6). Every
+    launch leaves the counters it used at zero, so one buffer serves every
+    call in stream order."""
     import torch
     buf = _COUNTERS.get(device.index)
     if buf is None or buf.numel() < n:

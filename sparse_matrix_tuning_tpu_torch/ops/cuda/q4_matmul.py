@@ -142,11 +142,9 @@ def _validate(x, w4, s4, out_dtype):
         raise ValueError("q4mm_t: sizes must fit in int32")
 
 
-def q4mm_t(x, w4, s4, out_dtype=torch.float32, splits=None) -> torch.Tensor:
+def q4mm_t(x, w4, s4, out_dtype=torch.float32) -> torch.Tensor:
     """x (T, I) bf16, T <= 64; w4 (O, I/2) int8; s4 (O, I/128) fp32 ->
-    (T, O) out_dtype. O and I/2 multiples of 128. splits overrides
-    splits_for (the card's timings by split count)."""
-    global LAUNCHES
+    (T, O) out_dtype. O and I/2 multiples of 128."""
     if x.device.type == "cpu":
         return q4mm_t_plain(x, w4, s4, out_dtype)
     if x.device.type != "cuda":
@@ -155,13 +153,19 @@ def q4mm_t(x, w4, s4, out_dtype=torch.float32, splits=None) -> torch.Tensor:
     if x.device.index != torch.cuda.current_device():
         raise ValueError(f"q4mm_t: tensors on {x.device}, current device is "
                          f"cuda:{torch.cuda.current_device()}")
+    return _launch(x, w4, s4, out_dtype, splits_for(*w4.shape, _sm_count(x.device.index)))
+
+
+def _launch(x, w4, s4, out_dtype, splits: int) -> torch.Tensor:
+    """Allocate out (and the split workspace), launch with `splits`, count.
+    The arguments as q4mm_t has checked them; chip_smoke.py also calls it
+    with other split counts, to time the plan against them."""
+    global LAUNCHES
     (t, _), (o, k) = x.shape, w4.shape
     out = torch.empty((t, o), dtype=out_dtype, device=x.device)
     if t == 0:
         return out
-    if splits is None:
-        splits = splits_for(o, k, _sm_count(x.device.index))
-    elif not 1 <= splits <= k // GROUP:
+    if not 1 <= splits <= k // GROUP:
         raise ValueError(f"q4mm_t: splits must be in [1, {k // GROUP}], got {splits}")
     ws = cnt = None
     if splits > 1:

@@ -7,9 +7,8 @@
 Replaces the Pallas kernels `q8mm_t_core` / `q8mm_g_core` of the JAX
 package (ops/pallas/q8_matmul.py). The row quantization in front of them
 is its own kernel (ops/cuda/row_quant.py). `q8mm_t` / `q8mm_g` launch the
-CUDA kernel on CUDA tensors, with the launch `plan` picked from T, the
-output width and the contraction length, and raise on what it does not
-take; on CPU tensors they run the plain versions, which compute the same
+CUDA kernel on CUDA tensors, with the launch `plan` picked from T and
+the output width, and raise on what it does not take; on CPU tensors they run the plain versions, which compute the same
 integer-exact product.
 """
 
@@ -24,9 +23,7 @@ from sparse_matrix_tuning_tpu_torch.ops.cuda import _build
 
 LAUNCHES = {"q8mm_t": 0, "q8mm_g": 0}  # kernel launches in this process
 
-DECODE_ROWS = 64   # up to this many rows, the decode plan (64-row tiles, split-K)
-BK = 128           # contraction bytes per pipeline stage
-SPLIT_MIN_BLOCKS = 8  # contraction blocks (of BK bytes) a split takes at least
+DECODE_ROWS = 64   # up to this many rows, the decode plan's 64-row tiles
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # an fp32 product of int8 values is exact while 127^2 * K < 2^24
@@ -71,28 +68,23 @@ def q8mm_g_plain(gq, sg, wq, out_dtype=torch.bfloat16) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class Q8Plan:
     """One launch: bm x bn output tiles (64 or 128 rows: one or two consumer
-    warpgroups), the contraction split over `splits` CTAs per tile, and
-    `grid` persistent CTAs walking the tiles x splits work units."""
+    warpgroups) and `grid` persistent CTAs walking them."""
     bm: int
     bn: int
-    splits: int
     tiles: int
     grid: int
 
 
-def plan(form: str, t: int, n_out: int, contract: int, n_sm: int) -> Q8Plan:
+def plan(form: str, t: int, n_out: int, n_sm: int) -> Q8Plan:
     """The launch plan of one call. form "t" or "g"; t rows, n_out output
-    columns, `contract` the contraction length (bytes of int8).
+    columns.
       * Training rows: 128 x 256 tiles (t form) or 128 x 128 (g form: the
         transposed weight tile is 128 x 128); 64 x 128 where the large tiles
         would leave more than half the SMs idle (k/v's 256 outputs).
-      * Decode rows (t <= DECODE_ROWS): 64 x 128 tiles, and the contraction
-        split so that tiles x splits fill at most the SMs, with at least
-        SPLIT_MIN_BLOCKS 128-byte blocks a split (a split's partial and the
-        last CTA's sum cost more than a shorter stream saves below that:
-        the card's times by split count, PERF.md); the last CTA of a tile
-        adds the int32 partials, so the result does not depend on the split.
-      * grid: one CTA per work unit, at most one per SM."""
+      * Decode rows (t <= DECODE_ROWS): 64 x 128 tiles, each CTA over its
+        tile's whole contraction (splitting it over CTAs lost at three of
+        the four TinyLlama decode shapes on the card, PERF.md).
+      * grid: one CTA per tile, at most one per SM."""
     cdiv = lambda a, b: -(-a // b)
     if t <= DECODE_ROWS:
         bm, bn = 64, 128
@@ -101,9 +93,7 @@ def plan(form: str, t: int, n_out: int, contract: int, n_sm: int) -> Q8Plan:
         if cdiv(t, bm) * cdiv(n_out, bn) < n_sm // 2:
             bm, bn = 64, 128
     tiles = cdiv(t, bm) * cdiv(n_out, bn)
-    splits = max(1, min(cdiv(contract, BK) // SPLIT_MIN_BLOCKS, n_sm // tiles)) \
-        if t <= DECODE_ROWS else 1
-    return Q8Plan(bm, bn, splits, tiles, min(tiles * splits, n_sm))
+    return Q8Plan(bm, bn, tiles, min(tiles, n_sm))
 
 
 @functools.lru_cache(maxsize=None)
@@ -142,39 +132,27 @@ def _validate(name, aq, srow, wq, sw, out_dtype, contract, n_out):
         raise ValueError(f"{name}: dimensions must fit in int32")
 
 
-def _launch(name, fn, ptrs, t, o, k, out_dtype, device, splits):
-    """Allocate out (and the split-K workspace), launch, count. The t form
-    gives (T, O) and contracts over K; the g form gives (T, K) over O.
-    splits: the plan's split count, unless given."""
-    n_out, contract = (o, k) if name == "q8mm_t" else (k, o)
+def _launch(name, fn, ptrs, t, o, k, out_dtype, device):
+    """Allocate out, launch, count. The t form gives (T, O) and contracts
+    over K; the g form gives (T, K) over O."""
+    n_out = o if name == "q8mm_t" else k
     if device.index != torch.cuda.current_device():
         raise ValueError(f"{name}: tensors on {device}, current device is "
                          f"cuda:{torch.cuda.current_device()}")
     out = torch.empty((t, n_out), dtype=out_dtype, device=device)
     if t == 0:
         return out
-    n_sm = _sm_count(device.index)
-    p = plan(name[-1], t, n_out, contract, n_sm)
-    if splits is not None:
-        if not 1 <= splits <= -(-contract // BK):
-            raise ValueError(f"{name}: splits must be in [1, {-(-contract // BK)}], got {splits}")
-        p = dataclasses.replace(p, splits=splits, grid=min(p.tiles * splits, n_sm))
-    ws = cnt = None
-    if p.splits > 1:
-        ws = torch.empty((p.splits, p.tiles, p.bm * p.bn), dtype=torch.int32, device=device)
-        cnt = _build.tile_counters(device, p.tiles)
-    err = fn(*ptrs, out.data_ptr(), None if ws is None else ws.data_ptr(),
-             None if cnt is None else cnt.data_ptr(), t, o, k, _DTYPE_CODE[out_dtype], p.bm,
-             p.bn, p.splits, p.grid, torch.cuda.current_stream(device).cuda_stream)
+    p = plan(name[-1], t, n_out, _sm_count(device.index))
+    err = fn(*ptrs, out.data_ptr(), t, o, k, _DTYPE_CODE[out_dtype], p.bm, p.bn, p.grid,
+             torch.cuda.current_stream(device).cuda_stream)
     _build.check(err, name)
     LAUNCHES[name] += 1
     return out
 
 
-def q8mm_t(xq, sx, wq, sw, out_dtype=torch.bfloat16, splits=None) -> torch.Tensor:
+def q8mm_t(xq, sx, wq, sw, out_dtype=torch.bfloat16) -> torch.Tensor:
     """xq (T, K) int8, sx (T, 1) fp32, wq (O, K) int8, sw (O,) fp32 ->
-    (T, O) out_dtype. Any T and O; K a multiple of 16. splits overrides
-    the plan's split of the contraction (the card's timings by split)."""
+    (T, O) out_dtype. Any T and O; K a multiple of 16."""
     if xq.device.type == "cpu":
         return q8mm_t_plain(xq, sx, wq, sw, out_dtype)
     if xq.device.type != "cuda":
@@ -182,12 +160,12 @@ def q8mm_t(xq, sx, wq, sw, out_dtype=torch.bfloat16, splits=None) -> torch.Tenso
     _validate("q8mm_t", xq, sx, wq, sw, out_dtype, wq.shape[1], wq.shape[0])
     return _launch("q8mm_t", _build.load().smt_q8mm_t,
                    (xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), sw.data_ptr()),
-                   xq.shape[0], *wq.shape, out_dtype, xq.device, splits)
+                   xq.shape[0], *wq.shape, out_dtype, xq.device)
 
 
-def q8mm_g(gq, sg, wq, out_dtype=torch.bfloat16, splits=None) -> torch.Tensor:
+def q8mm_g(gq, sg, wq, out_dtype=torch.bfloat16) -> torch.Tensor:
     """gq (T, O) int8, sg (T, 1) fp32, wq (O, K) int8 -> (T, K) out_dtype.
-    Any T; O and K multiples of 16. splits as in q8mm_t."""
+    Any T; O and K multiples of 16."""
     if gq.device.type == "cpu":
         return q8mm_g_plain(gq, sg, wq, out_dtype)
     if gq.device.type != "cuda":
@@ -196,4 +174,4 @@ def q8mm_g(gq, sg, wq, out_dtype=torch.bfloat16, splits=None) -> torch.Tensor:
     _validate("q8mm_g", gq, sg, wq, None, out_dtype, o, k)
     return _launch("q8mm_g", _build.load().smt_q8mm_g,
                    (gq.data_ptr(), sg.data_ptr(), wq.data_ptr()),
-                   gq.shape[0], o, k, out_dtype, gq.device, splits)
+                   gq.shape[0], o, k, out_dtype, gq.device)

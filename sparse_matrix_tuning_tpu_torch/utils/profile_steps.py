@@ -226,7 +226,7 @@ def profile_training(model_cfg, device, frozen_quant: str):
         for _ in range(full_ft_steps):
             trainer.train_step(batch())
     else:
-        for _ in range(full_ft_steps - TIMED - 1):
+        for _ in range(full_ft_steps - TIMED - 2):  # _profile_step takes the last TIMED + 2
             trainer.train_step(batch())
         _profile_step(trainer, [batch() for _ in range(TIMED + 2)], "warmup_step")
     for _ in range(2):  # conversion + the first sparse step, then another

@@ -1,12 +1,10 @@
 """The launch plans of the redesigned K4 (ops/cuda/q8_matmul.plan) and K6
 (ops/cuda/q4_matmul.splits_for), pinned at the main path's shapes on a
-132-SM card with their invariants over a sweep; the split-K arithmetic of
-both in plain PyTorch (K4: int32 partials over the plan's contraction
-ranges sum to the plain product bit for bit; K6: the kernel's summation
-order, `q4mm_t_split_model`, against the plain version within the
-summation-order limit and against the JAX Pallas kernel in interpret
-mode); and the wrappers' refusals, which the CUDA path raises before any
-launch."""
+132-SM card with their invariants over a sweep; K6's split arithmetic in
+plain PyTorch (the kernel's summation order, `q4mm_t_split_model`,
+against the plain version within the summation-order limit and against
+the JAX Pallas kernel in interpret mode); and the wrappers' refusals,
+which the CUDA path raises before any launch."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,30 +21,33 @@ from sparse_matrix_tuning_tpu_torch.ops.cuda import q8_matmul as k4
 N_SM = 132
 FP32_TOL = 1e-5  # tests/test_torch_q4.py: the same exact products, fp32 sums in another order
 
-# (form, T, output width, contraction) -> (bm, bn, splits, tiles, grid)
+# (form, T, output width, contraction) -> (bm, bn, tiles, grid); the plan
+# does not depend on the contraction: each CTA streams its tile's whole
+# contraction (split-K lost at three of the four decode shapes on the card)
 K4_PLANS = {
-    ("t", 2048, 5632, 2048): (128, 256, 1, 352, 132),   # gate/up, the main path
-    ("g", 2048, 2048, 5632): (128, 128, 1, 256, 132),
-    ("t", 2048, 2048, 5632): (128, 256, 1, 128, 128),   # down
-    ("g", 2048, 5632, 2048): (128, 128, 1, 704, 132),
-    ("t", 2048, 256, 2048): (64, 128, 1, 64, 64),       # k/v: the large tiles leave SMs idle
-    ("t", 2048, 32000, 2048): (128, 256, 1, 2000, 132),  # the head
-    ("t", 2044, 4096, 2048): (128, 256, 1, 256, 132),   # a chunk of the q8 loss
-    ("t", 65, 5632, 2048): (64, 128, 1, 88, 88),
-    ("t", 64, 5632, 2048): (64, 128, 2, 44, 88),        # the int8 eval decode (F2)
-    ("g", 64, 2048, 5632): (64, 128, 5, 16, 80),
-    ("t", 64, 256, 2048): (64, 128, 2, 2, 4),           # k/v at decode
-    ("t", 64, 2048, 2048): (64, 128, 2, 16, 32),        # q/o
-    ("t", 64, 2048, 5632): (64, 128, 5, 16, 80),        # down
-    ("t", 37, 2048, 2048): (64, 128, 2, 16, 32),        # ragged decode rows
+    ("t", 2048, 5632, 2048): (128, 256, 352, 132),   # gate/up, the main path
+    ("g", 2048, 2048, 5632): (128, 128, 256, 132),
+    ("t", 2048, 2048, 5632): (128, 256, 128, 128),   # down
+    ("g", 2048, 5632, 2048): (128, 128, 704, 132),
+    ("t", 2048, 256, 2048): (64, 128, 64, 64),       # k/v: the large tiles leave SMs idle
+    ("t", 2048, 32000, 2048): (128, 256, 2000, 132),  # the head
+    ("t", 2044, 4096, 2048): (128, 256, 256, 132),   # a chunk of the q8 loss
+    ("t", 65, 5632, 2048): (64, 128, 88, 88),
+    ("t", 64, 5632, 2048): (64, 128, 44, 44),        # the int8 eval decode (F2)
+    ("g", 64, 2048, 5632): (64, 128, 16, 16),
+    ("t", 64, 256, 2048): (64, 128, 2, 2),           # k/v at decode
+    ("t", 64, 2048, 2048): (64, 128, 16, 16),        # q/o
+    ("t", 64, 2048, 5632): (64, 128, 16, 16),        # down
+    ("t", 37, 2048, 2048): (64, 128, 16, 16),        # ragged decode rows
 }
 
 
 @pytest.mark.parametrize("key", list(K4_PLANS), ids=[f"{f}-T{t}-N{n}-K{k}"
                                                     for f, t, n, k in K4_PLANS])
 def test_k4_plan_at_the_main_path_shapes(key):
-    p = k4.plan(*key, N_SM)
-    assert (p.bm, p.bn, p.splits, p.tiles, p.grid) == K4_PLANS[key]
+    form, t, n, _ = key
+    p = k4.plan(form, t, n, N_SM)
+    assert (p.bm, p.bn, p.tiles, p.grid) == K4_PLANS[key]
 
 
 def test_k4_plan_invariants():
@@ -54,34 +55,12 @@ def test_k4_plan_invariants():
     for form in ("t", "g"):
         for t in (1, 7, 16, 37, 64, 65, 128, 700, 2044, 2048, 8192):
             for n in (16, 256, 2048, 5632, 14336, 32000):
-                for c in (16, 64, 2048, 5632):
-                    p = k4.plan(form, t, n, c, N_SM)
-                    assert p.tiles == cdiv(t, p.bm) * cdiv(n, p.bn)
-                    assert 1 <= p.splits <= max(1, cdiv(c, k4.BK) // k4.SPLIT_MIN_BLOCKS)
-                    assert p.grid == min(p.tiles * p.splits, N_SM) and p.grid >= 1
-                    assert p.bn in (128, 256) and (p.bn == 128 or form == "t")
-                    if t <= k4.DECODE_ROWS:
-                        assert p.bm == 64 and p.tiles * p.splits <= max(N_SM, p.tiles)
-                    else:
-                        assert p.splits == 1
-
-
-@pytest.mark.parametrize("splits", [1, 3, 8, 16])
-def test_k4_split_partials_sum_to_the_plain_product(splits):
-    """The decode plan's int32 partials over the splits' contraction ranges
-    (128-byte blocks, split s taking [s * nkb // splits, (s + 1) * nkb //
-    splits)) add up to the plain product: the epilogue sees the same int32."""
-    rng = np.random.default_rng(splits)
-    t, o, k = 37, 96, 2048
-    xq = torch.from_numpy(rng.integers(-127, 128, (t, k)).astype(np.int8))
-    wq = torch.from_numpy(rng.integers(-127, 128, (o, k)).astype(np.int8))
-    nkb = k // k4.BK
-    total = torch.zeros((t, o), dtype=torch.int32)
-    for s in range(splits):
-        lo, hi = s * nkb // splits * k4.BK, (s + 1) * nkb // splits * k4.BK
-        total += k4._exact_int_product(xq[:, lo:hi].contiguous(), wq[:, lo:hi].contiguous(),
-                                       contract_rows=False)
-    assert torch.equal(total, k4._exact_int_product(xq, wq, contract_rows=False))
+                p = k4.plan(form, t, n, N_SM)
+                assert p.tiles == cdiv(t, p.bm) * cdiv(n, p.bn)
+                assert p.grid == min(p.tiles, N_SM) and p.grid >= 1
+                assert p.bn in (128, 256) and (p.bn == 128 or form == "t")
+                if t <= k4.DECODE_ROWS:
+                    assert (p.bm, p.bn) == (64, 128)
 
 
 def test_k4_validation_refusals():
@@ -170,6 +149,9 @@ def test_k6_validation_refusals():
     for args, err in cases:
         with pytest.raises(err):
             k6._validate(*args)
+    for splits in (0, 3):  # the launcher's own split count: 1 to the groups of a plane
+        with pytest.raises(ValueError, match="splits"):
+            k6._launch(x, w4, s4, torch.bfloat16, splits)
     assert k6.LAUNCHES == 0
 
 

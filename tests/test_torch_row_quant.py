@@ -3,8 +3,8 @@ its plain version, which the CUDA kernel equals bit for bit on the card
 (chip_smoke.py), against `jax.jit` of the JAX package's row_quant, in both
 forms: row_quant(x) and the g form's fold row_quant(g.astype(f32) * sw),
 bf16 and fp32, row magnitudes 1e-2 to 10, rows of zeros and rows whose
-values over the scale sit exactly on .5 ties (round half to even in both).
-Also the cached reciprocal (no device copy per call) and the wrapper's
+values over the scale sit exactly on .5 ties (round half to even in both),
+and rows holding a NaN or an inf. Also the cached reciprocal (no device copy per call) and the wrapper's
 refusals."""
 import jax
 import jax.numpy as jnp
@@ -68,6 +68,28 @@ def test_ties_round_half_to_even_as_jitted_jax(dtype):
     np.testing.assert_array_equal(sx_p.numpy(), np.asarray(sx_j))
     assert _ties(x, None, np.asarray(sx_j)) > 100
     assert (xq_p[0] == 0).all() and float(sx_p[0]) == np.float32(1e-8) * np.float32(1 / 127)
+
+
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+def test_nan_and_inf_rows_as_jitted_jax(dtype, fold):
+    """A NaN in a row makes its scale NaN and an inf makes it inf, and the
+    row's int8 values 0, as jax.jit of the JAX twin gives them (the card's
+    kernel is held to the plain version on such rows, chip_smoke.py)."""
+    x, sw = _rows(12, 96, dtype, seed=5, fold=fold)
+    x[1, 40], x[2, 7], x[5, 95] = np.nan, np.inf, -np.inf
+    if fold:
+        fn = jax.jit(lambda g, s: jq.row_quant(g.astype(jnp.float32) * s))
+        xq_j, sx_j = fn(tp.to_jax(x, dtype), jnp.asarray(sw))
+        xq_p, sx_p = rq.row_quant(tp.to_torch(x, dtype), torch.from_numpy(sw))
+    else:
+        xq_j, sx_j = jax.jit(jq.row_quant)(tp.to_jax(x, dtype))
+        xq_p, sx_p = rq.row_quant(tp.to_torch(x, dtype))
+    np.testing.assert_array_equal(xq_p.numpy(), np.asarray(xq_j))
+    np.testing.assert_array_equal(sx_p.numpy(), np.asarray(sx_j))  # NaN matches NaN
+    assert np.isnan(sx_p[1, 0].item()) and np.isinf(sx_p[[2, 5], 0].numpy()).all()
+    assert np.isfinite(np.delete(sx_p.numpy(), [1, 2, 5], axis=0)).all()
+    assert (xq_p[[1, 2, 5]] == 0).all()
 
 
 def test_division_scale_is_not_the_jitted_one():
