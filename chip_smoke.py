@@ -9,7 +9,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
   2. build the CUDA kernels (csrc/*.cu) with nvcc for sm_90a, timed;
   3. each kernel against its plain PyTorch version at the main path's
      shapes, with its time beside the plain version's and a library
-     path's: K1/K2 at the two widest TinyLlama linears; K3 (attention
+     path's: K1/K2 at the two widest TinyLlama linears (K1 through its
+     plan and at seven forced plans of tile rows and T splits, two launches
+     equal bit for bit, a planted fault: one split dropped from the sum);
+     K3 (attention
      forward, delta, dK/dV over the planned q-head partitions with its
      reduce, dQ) at five shapes (K3_SHAPES), with a dropped partition the
      check must reject and two dK/dV launches equal bit for bit, timed at
@@ -32,9 +35,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
      ragged decode rows), equal to its plain version
      bit for bit, with a planted fault, timed at eight beside torch._int_mm
      plus the scale pass and beside cuBLAS bf16; K5
-     (the block correction) at six cases (K5_SHAPES: both orientations,
-     ragged T, bf16 and fp32, unsorted coordinates with repeats), with a
-     planted fault, timed at two beside bmm + index_add_; each timed kernel
+     (the block correction) at nine cases (K5_SHAPES: both orientations,
+     ragged T, bf16 and fp32, unsorted coordinates with repeats, one run
+     of 24, F3's decode rows), each bf16 case at every tile shape of
+     K5_PLANS, two launches equal bit for bit, with a planted fault, timed
+     at three by tile shape beside bmm + index_add_; each timed kernel
      beside its bound (bytes over the HBM rate or operations over the peak
      rate, from the H100 data sheet);
   4. small-input references: a tiny fp32 two-phase run on the GPU (CUDA
@@ -48,7 +53,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
      + conversion, sparse steps and eval loss, with the kernels' launch
      counts zeroed just before and read just after, and the merged weights
      checked: A, the main path, TinyLlama-1.1B width and depth at bs 4 x
-     seq 512, attention "auto" (K3), with the final HF export checked; E,
+     seq 512, attention "auto" (K3), with the final HF export checked (its
+     smt_plan.json gives the blocks per linear: K1 and K5 are timed at the
+     min, median and max, utils/time_sparse.py's cases); E,
      as A with --frozen_quant int8 (K4 and K5 carry every layer linear and
      the head; the dense weights leave the device; the export must still
      be exact), held against A, and E2, its chunked q8 loss at 2 layers;
@@ -87,7 +94,8 @@ last line is {"ok": true, "device": {...}}. `--only q8` stops after the
 build, the row quantization and no-synchronisation checks, the K4 / K5
 checks and the tiny int8 reference; `--only q4` after
 the build, the K6 checks and the tiny quantized generation; `--only attn`
-after the build and the K3 / K7 checks; none of them prints a result.
+after the build and the K3 / K7 checks; `--only sparse` after the build and
+the K1 / K2 / K5 checks; none of them prints a result.
 """
 
 from __future__ import annotations
@@ -112,6 +120,9 @@ TINYLLAMA = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
 K1_SHAPES = [(2048, 5632, 2048), (700, 5632, 2048), (2048, 2048, 5632), (700, 2048, 5632)]
 K1_N = 24
 K1_RTOL, K1_ATOL = 2e-2, 2e-1       # the JAX suite's bf16 block-grad tolerance
+# forced bf16 K1 plans (rows of a block per CTA, T splits; the splits capped
+# at the chunks of T), checked at every K1 shape and timed at the first
+K1_PLANS = [(128, 1), (128, 2), (128, 4), (64, 1), (64, 2), (64, 4), (64, 8)]
 K1_F32_RTOL, K1_F32_ATOL = 1e-5, 1e-4  # and its fp32 one
 K2_RTOL, K2_ATOL = 1e-6, 1e-9       # both compute in fp32, operation for operation
 # K3 shapes (b, s, hq, hkv, hd, dtype, what); the first three are timed
@@ -186,7 +197,14 @@ K5_SHAPES = [
     (2044, 2048, 5632, "bf16", False, "ragged T, grad_input", False),
     (2044, 2048, 2048, "fp32", True, "fp32, ragged T, forward", False),
     (2048, 2048, 2048, "fp32", False, "fp32 grad_input", False),
+    (2048, 256, 2048, "bf16", True, "TinyLlama k/v forward: one run of 24", False),
+    (64, 5632, 2048, "bf16", True, "F3's decode rows (16 prompts x 4 beams), gate/up forward",
+     True),
+    (37, 2048, 5632, "bf16", False, "ragged decode rows, grad_input", False),
 ]
+# the bf16 K5 tile shapes (token rows, out columns per CTA), each checked at
+# every bf16 case and timed at the timed ones
+K5_PLANS = [(128, 256), (64, 256), (64, 128), (64, 64)]
 # K5 against its plain version. Both sum the same products in fp32 in another
 # order and round once, so in bf16 they are equal or one bf16 ulp apart:
 # |diff| <= 2^-7 |want|, plus an absolute term for sums near zero. fp32: the
@@ -339,12 +357,21 @@ def _coords(rng, n, n_row, n_col):
 
 
 def check_block_grad():
+    """K1 at K1_SHAPES (bf16) and one fp32 shape, n = 24 coordinates with
+    repeats, through the wrapper (its plan), against the plain version at
+    the JAX suite's tolerance; two launches equal bit for bit; every bf16
+    shape also at the forced plans of K1_PLANS (the split sum in the
+    launch at 1 to 8 splits, 64- and 128-row tiles); a planted fault (one
+    split's partial dropped from the sum, in the kernel's order) the check
+    must reject; times at the main shape by plan beside the plain version,
+    the library (bmm on gathered panels) and the bound."""
     import numpy as np
     import torch
-    from sparse_matrix_tuning_tpu_torch.ops.cuda.block_grad import block_grad, block_grad_plain
+    from sparse_matrix_tuning_tpu_torch.ops.cuda import block_grad as k1
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     worst, timing = 0.0, None
     for t, o, i in K1_SHAPES:
         g2 = torch.from_numpy(rng.standard_normal((t, o), dtype=np.float32)).to(dev, torch.bfloat16)
@@ -352,23 +379,49 @@ def check_block_grad():
         rb_np, cb_np = _coords(rng, K1_N, o // 256, i // 256)
         rb = torch.from_numpy(rb_np).to(dev)
         cb = torch.from_numpy(cb_np).to(dev)
-        got = block_grad(g2, x2, rb, cb)
+        p = k1.plan(K1_N, t, n_sm)
+        got = k1.block_grad(g2, x2, rb, cb)
+        again = k1.block_grad(g2, x2, rb, cb)
         torch.cuda.synchronize()
-        want = block_grad_plain(g2, x2, rb, cb)  # fp32 products of the same bf16 values
+        want = k1.block_grad_plain(g2, x2, rb, cb)  # fp32 products of the same bf16 values
         assert got.shape == (K1_N, 256, 256) and got.dtype == torch.float32
         torch.testing.assert_close(got, want, rtol=K1_RTOL, atol=K1_ATOL)
+        if not torch.equal(got, again):
+            raise AssertionError(f"K1 T={t}: two launches differ ({p})")
         err = float((got - want).abs().max())
         worst = max(worst, err)
-        log(f"[K1 block_grad] bf16 T={t} (O,I)=({o},{i}) n={K1_N}: max_abs_err {err:.3e}")
+        forced = []
+        for bm, splits in K1_PLANS:
+            splits = min(splits, -(-t // 64))
+            f1 = k1._launch(g2, x2, rb, cb, bm, splits)
+            f2 = k1._launch(g2, x2, rb, cb, bm, splits)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(f1, want, rtol=K1_RTOL, atol=K1_ATOL)
+            if not torch.equal(f1, f2):
+                raise AssertionError(f"K1 T={t}: two launches at bm {bm}, {splits} splits differ")
+            worst = max(worst, float((f1 - want).abs().max()))
+            forced.append(f"{bm}x256/{splits}")
+        # the planted fault: one split's partial left out of the sum
+        f_splits = max(2, p.splits)
+        fault = k1.block_grad_split_model(g2, x2, rb, cb, f_splits, drop=f_splits - 1)
+        if torch.allclose(fault, want, rtol=K1_RTOL, atol=K1_ATOL):
+            raise AssertionError(f"K1 T={t}: the check passes a planted fault (a split dropped)")
+        log(f"[K1 block_grad] bf16 T={t} (O,I)=({o},{i}) n={K1_N}: max_abs_err {err:.3e}; plan "
+            f"{p.bm}x256 tiles, {p.splits} splits, {p.grid} CTAs; two launches equal; forced "
+            f"plans {', '.join(forced)} within tolerance and repeatable; planted fault "
+            f"(split {f_splits - 1} of {f_splits} dropped) rejected, max abs err "
+            f"{float((fault - want).abs().max()):.3e}")
         if timing is None:  # the main shape: T=2048, (5632, 2048)
             def lib():
                 g_rows = g2.reshape(t, -1, 256).index_select(1, rb.long()).transpose(0, 1)
                 x_cols = x2.reshape(t, -1, 256).index_select(1, cb.long()).transpose(0, 1)
                 return torch.bmm(g_rows.transpose(1, 2), x_cols)
-            ms = time_ms(lambda: block_grad(g2, x2, rb, cb))
-            plain_ms = time_ms(lambda: block_grad_plain(g2, x2, rb, cb))
+            ms = time_ms(lambda: k1.block_grad(g2, x2, rb, cb))
+            plain_ms = time_ms(lambda: k1.block_grad_plain(g2, x2, rb, cb))
             lib_ms = time_ms(lib)
-            ms2 = time_ms(lambda: block_grad(g2, x2, rb, cb))
+            ms2 = time_ms(lambda: k1.block_grad(g2, x2, rb, cb))
+            by_plan = {f"{bm}x256/{sp}": time_ms(lambda: k1._launch(g2, x2, rb, cb, bm, sp))
+                       for bm, sp in K1_PLANS}
             flop = 2.0 * K1_N * t * 256 * 256
             # the row / column panels of the selected blocks, read once, and
             # the fp32 blocks written
@@ -376,16 +429,16 @@ def check_block_grad():
             timing = dict(ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, ms_repeat=ms2,
                           shape=f"T={t} (O,I)=({o},{i}) n={K1_N} bf16",
                           tflops=flop / (min(ms, ms2) * 1e-3) / 1e12,
-                          bound=bound(nbytes, flop, "bf16"))
+                          bound=bound(nbytes, flop, "bf16"), by_plan=by_plan)
     # the fp32 variant (taken by --dtype fp32 runs)
     t, o, i = K1_SHAPES[3]
     g2 = torch.from_numpy(rng.standard_normal((t, o), dtype=np.float32)).to(dev)
     x2 = torch.from_numpy(rng.standard_normal((t, i), dtype=np.float32)).to(dev)
     rb_np, cb_np = _coords(rng, K1_N, o // 256, i // 256)
     rb, cb = torch.from_numpy(rb_np).to(dev), torch.from_numpy(cb_np).to(dev)
-    got = block_grad(g2, x2, rb, cb)
+    got = k1.block_grad(g2, x2, rb, cb)
     torch.cuda.synchronize()
-    want = block_grad_plain(g2, x2, rb, cb)
+    want = k1.block_grad_plain(g2, x2, rb, cb)
     torch.testing.assert_close(got, want, rtol=K1_F32_RTOL, atol=K1_F32_ATOL)
     log(f"[K1 block_grad] fp32 T={t} (O,I)=({o},{i}) n={K1_N}: "
         f"max_abs_err {float((got - want).abs().max()):.3e}")
@@ -393,7 +446,8 @@ def check_block_grad():
         f"(repeat {timing['ms_repeat']:.4f}), plain {timing['plain_ms']:.4f} ms, "
         f"library bmm on gathered bf16 panels {timing['lib_ms']:.4f} ms; "
         f"kernel {timing['tflops']:.1f} TFLOP/s; bound {timing['bound'][0]:.3e} ms "
-        f"({timing['bound'][1]})")
+        f"({timing['bound'][1]}); by plan (tile/splits): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in timing["by_plan"].items()))
     return worst, timing
 
 
@@ -1127,19 +1181,22 @@ def _k5_close(got, want, dtype):
 
 def check_block_correction():
     """K5 at K5_SHAPES: n = 24 unsorted coordinates with repeated out
-    blocks, repeated in blocks and a repeated pair, through the wrapper,
-    against the plain version on a copy; a planted fault (the last j of one
-    run dropped) the check must reject; n = 0 leaves out untouched; times
-    beside the plain version, the library (bmm on gathered panels, then
-    index_add_) and the bound. Returns (worst err, (ms, plain_ms, bound,
-    library ms) at the first shape)."""
+    blocks, repeated in blocks and a repeated pair, through the wrapper
+    (its plan), against the plain version on a copy; two launches equal bit
+    for bit; bf16 cases also at every tile shape of K5_PLANS; a planted
+    fault (the last j of one run dropped) the check must reject; n = 0
+    leaves out untouched; times by tile shape beside the plain version,
+    the library (bmm on gathered panels, then index_add_) and the bound.
+    Returns (worst err, (ms, plain_ms, bound, library ms) at the first
+    shape, {case: ms at the plan} of the timed cases)."""
     import numpy as np
     import torch
     from sparse_matrix_tuning_tpu_torch.ops.cuda import correction as k5
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(5)
-    worst, main = 0.0, None
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    worst, main, timed_ms = 0.0, None, {}
     for t, o, i, dtype, transpose, what, timed in K5_SHAPES:
         dt = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype]
         out0 = torch.from_numpy(rng.standard_normal((t, o), dtype=np.float32)).to(dev, dt)
@@ -1149,17 +1206,31 @@ def check_block_correction():
         io, ii = _coords(rng, K5_N, o // 256, i // 256)
         sched = k5.correction_schedule(io, ii, dev)
         got = k5.block_correction(out0.clone(), src, delta, sched, transpose)
+        again = k5.block_correction(out0.clone(), src, delta, sched, transpose)
         torch.cuda.synchronize()
         want = k5.block_correction_plain(out0.clone(), src, delta, io, ii, transpose)
         ok, err = _k5_close(got, want, dtype)
         if not ok or not torch.isfinite(got).all():
             raise AssertionError(f"K5 {what}: max abs err {err:.3e} against the plain version, "
                                  f"over rtol/atol {K5_TOL[dtype]}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"K5 {what}: two launches differ")
         untouched = torch.ones(o // 256, dtype=torch.bool)
         untouched[torch.from_numpy(io).long()] = False
         cols = untouched.repeat_interleave(256).to(dev)
         if not torch.equal(got[:, cols], out0[:, cols]):
             raise AssertionError(f"K5 {what}: an out block no coordinate names changed")
+        forced = []
+        for bm, bn in (K5_PLANS if dtype == "bf16" else []):
+            f1 = k5._launch(out0.clone(), src, delta, sched, transpose, bm, bn)
+            f2 = k5._launch(out0.clone(), src, delta, sched, transpose, bm, bn)
+            torch.cuda.synchronize()
+            f_ok, f_err = _k5_close(f1, want, dtype)
+            if not f_ok or not torch.equal(f1, f2):
+                raise AssertionError(f"K5 {what}: {bm} x {bn} tiles: max abs err {f_err:.3e}, "
+                                     f"repeat equal {torch.equal(f1, f2)}")
+            err = max(err, f_err)
+            forced.append(f"{bm}x{bn}")
         # the planted fault: the run of the first coordinate's out block
         # loses its last j
         last = max(j for j in range(K5_N) if io[j] == io[0])
@@ -1176,9 +1247,13 @@ def check_block_correction():
             raise AssertionError(f"K5 {what}: n = 0 changed out")
         worst = max(worst, err)
         shape = f"T={t} out {o} src {i} n={K5_N} {dtype} {'D^T' if transpose else 'D'}"
+        p = k5.plan(sched.n_runs, t, n_sm) if dtype == "bf16" else None
         log(f"[K5 block_correction] {shape} ({what}): max_abs_err {err:.3e} (rtol/atol "
-            f"{K5_TOL[dtype]}), {sched.n_runs} runs; planted fault rejected (max abs err "
-            f"{f_err:.3e}); n = 0 leaves out untouched")
+            f"{K5_TOL[dtype]}), {sched.n_runs} runs" +
+            (f", plan {p.bm}x{p.bn} tiles, {p.grid} CTAs; forced tiles {', '.join(forced)} "
+             "within tolerance and repeatable" if p else "") +
+            f"; two launches equal; planted fault rejected (max abs err {f_err:.3e}); n = 0 "
+            "leaves out untouched")
         if timed:
             buf = out0.clone()
             io_t = torch.from_numpy(io).long().to(dev)
@@ -1194,6 +1269,9 @@ def check_block_correction():
                                                                  transpose), reps=5)
             lib_ms = time_ms(lib)
             ms2 = time_ms(lambda: k5.block_correction(buf, src, delta, sched, transpose))
+            by_plan = {f"{bm}x{bn}": time_ms(
+                lambda: k5._launch(buf, src, delta, sched, transpose, bm, bn))
+                for bm, bn in K5_PLANS}
             e = 2 if dtype == "bf16" else 4
             # touched out tiles read and written, source panels and delta read
             nbytes = (2 * len(set(io)) + len(set(ii))) * t * 256 * e + K5_N * 65536 * e
@@ -1202,11 +1280,13 @@ def check_block_correction():
             log(f"[K5 block_correction] time at {shape}: kernel {ms:.4f} ms (repeat {ms2:.4f}, "
                 f"{flop / (min(ms, ms2) * 1e-3) / 1e12:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
                 f"library bmm on gathered panels + index_add_ {lib_ms:.4f} ms; bound "
-                f"{bnd[0]:.3e} ms ({bnd[1]})")
+                f"{bnd[0]:.3e} ms ({bnd[1]}); by tile shape: " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in by_plan.items()))
             if main is None:
                 main = (ms, plain_ms, bnd, lib_ms)
+            timed_ms[what] = ms
         torch.cuda.empty_cache()
-    return worst, main
+    return worst, main, timed_ms
 
 
 def check_q4_matmul():
@@ -2216,6 +2296,34 @@ def run_quantized_eval(export_dir, cfg, d1):
     return legs
 
 
+def time_at_plan_n(plan_path):
+    """The blocks per linear of run A's exported plan (smt_plan.json): the
+    min, median and max n over the attention and the MLP linears, logged;
+    then K1 and K5 timed at those n (utils/time_sparse.py's cases: K1 at
+    A's T on gate/up and q, K5 at E's gate/up forward and grad_input and at
+    F3's decode rows). Returns {"n": {...}, "times": [...]}."""
+    from sparse_matrix_tuning_tpu_torch.smt.plan import SMTPlan
+    from sparse_matrix_tuning_tpu_torch.utils.time_sparse import time_cases
+
+    with open(plan_path) as f:
+        plan = SMTPlan.from_json(f.read())
+    stats = {}
+    for group, mods in (("attention", ("q_proj", "k_proj", "v_proj")),
+                        ("mlp", ("gate_proj", "up_proj", "down_proj"))):
+        ns = sorted(lp.n_blocks for lp in plan.linears.values() if lp.module in mods)
+        if ns:
+            stats[group] = dict(linears=len(ns), blocks=sum(ns), min=ns[0],
+                                median=statistics.median_low(ns), max=ns[-1])
+    ns = sorted(lp.n_blocks for lp in plan.linears.values())
+    stats["all"] = dict(linears=len(ns), blocks=sum(ns), min=ns[0],
+                        median=statistics.median_low(ns), max=ns[-1])
+    log(f"[plan n] run A's smt_plan.json, blocks per planned linear: " + "; ".join(
+        f"{g} {v['linears']} linears, {v['blocks']} blocks, min {v['min']}, median "
+        f"{v['median']}, max {v['max']}" for g, v in stats.items()))
+    n_values = sorted({stats["all"]["min"], stats["all"]["median"], stats["all"]["max"]})
+    return {"n": stats, "times": time_cases(n_values, time_ms, bound, log)}
+
+
 def compare_int8_run(run_a, run_e, n_warmup):
     """Run E against run A: the same warm-up (int8 is a sparse-phase
     policy), sparse and eval losses inside the JAX suite's 5% band
@@ -2247,11 +2355,13 @@ def main(argv=None):
     """`--only q8` stops after the build, the row quantization, K4 / K5
     checks and the tiny int8 references; `--only q4` after the build, the K6 checks and the tiny
     quantized generation; `--only attn` after the build and the K3 / K7
-    checks (short first calls for a new kernel); none prints a result
-    line. With no arguments every phase runs."""
+    checks; `--only sparse` after the build and the K1 / K2 / K5 checks
+    (short first calls for a new kernel); none prints a result line. With
+    no arguments every phase runs."""
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--only", "q8"], ["--only", "q4"], ["--only", "attn"]):
-        raise SystemExit("usage: python3 chip_smoke.py [--only q8|q4|attn]")
+    if argv not in ([], ["--only", "q8"], ["--only", "q4"], ["--only", "attn"],
+                    ["--only", "sparse"]):
+        raise SystemExit("usage: python3 chip_smoke.py [--only q8|q4|attn|sparse]")
     only = argv[1] if argv else None
     only_q8 = only == "q8"
     t_start = time.time()
@@ -2282,6 +2392,15 @@ def main(argv=None):
             f"{name} {t - prev:.1f}" for (name, t), (_, prev)
             in zip(marks, [("", t_start)] + marks)))
         return
+    if only == "sparse":
+        check_block_grad()
+        check_masked_adam()
+        check_block_correction()
+        marks.append(("kernels", time.time()))
+        log("[smoke] --only sparse: seconds by phase: " + ", ".join(
+            f"{name} {t - prev:.1f}" for (name, t), (_, prev)
+            in zip(marks, [("", t_start)] + marks)))
+        return
     if only == "q4":
         check_q4_matmul()
         marks.append(("kernels", time.time()))
@@ -2298,7 +2417,7 @@ def main(argv=None):
         k7_err, k7_time = check_cached_attention()
     rq_err, rq_time = check_row_quant()
     k4_err, k4_time = check_q8_matmul()
-    k5_err, k5_time = check_block_correction()
+    k5_err, k5_time, k5_timed = check_block_correction()
     if not only_q8:
         k6_err, k6_time = check_q4_matmul()
     marks.append(("kernels", time.time()))
@@ -2325,6 +2444,7 @@ def main(argv=None):
         decode_params = run_a.pop("decode_params")
         report_run("A", "TinyLlama-1.1B bf16, bs 4 x seq 512, remat, attn auto (K3)", run_a, 3)
         torch.cuda.empty_cache()
+        sparse_times = time_at_plan_n(os.path.join(out_dir, "final", "smt_plan.json"))
         marks.append(("A", time.time()))
         # D: the generation eval of A's fine-tuned weights, freed before the rest
         run_d = run_eval(decode_params, model_cfg)
@@ -2408,10 +2528,16 @@ def main(argv=None):
                 "launches": n_launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms}
 
+    def at_plan_n(kernel):  # ms by case and n at run A's plan n (time_at_plan_n)
+        return {f"{r['what']} n={r['n']}": r["ms"] for r in sparse_times["times"]
+                if r["kernel"].startswith(kernel)}
+
     kernels = [
-        entry("block_grad", "block_grad.cu", "block_grad.py:56",
-              run_a["launches"]["block_grad"], k1_err, k1_time["ms"], k1_time["plain_ms"],
-              k1_time["bound"], k1_time["lib_ms"]),
+        dict(entry("block_grad", "block_grad.cu", "block_grad.py:56",
+                   run_a["launches"]["block_grad"], k1_err, k1_time["ms"], k1_time["plain_ms"],
+                   k1_time["bound"], k1_time["lib_ms"]),
+             ms_by_plan=k1_time["by_plan"], ms_at_plan_n=at_plan_n("K1"),
+             plan_n=sparse_times["n"]["all"]),
         entry("masked_adam", "masked_adam.cu", "masked_adam.py:35",
               run_a["launches"]["masked_adam"], k2_err, k2_time["ms"], k2_time["plain_ms"],
               k2_time["bound"], k2_time["lib_ms"]),
@@ -2432,8 +2558,11 @@ def main(argv=None):
                              replaces="sparse_matrix_tuning_tpu/ops/quant.py:32",
                              launches_by_run={"E": run_e["launches"]["row_quant"],
                                               "F2": run_f["F2"]["launches"]["row_quant"]}),
-                        entry("block_correction", "correction.cu", "correction.py:69",
-                              run_e["launches"]["block_correction"], k5_err, *k5_time),
+                        dict(entry("block_correction", "correction.cu", "correction.py:69",
+                                   run_e["launches"]["block_correction"], k5_err, *k5_time),
+                             launches_by_run={"E": run_e["launches"]["block_correction"],
+                                              "F3": run_f["F3"]["launches"]["block_correction"]},
+                             ms_timed_cases=k5_timed, ms_at_plan_n=at_plan_n("K5")),
                         entry("q4_matmul", "q4_matmul.cu", "q4_matmul.py:94",
                               run_f["F1"]["launches"]["q4_matmul"], k6_err, *k6_time)]
     log("[smoke] seconds by phase: " + ", ".join(

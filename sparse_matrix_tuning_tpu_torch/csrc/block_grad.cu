@@ -9,106 +9,236 @@
 //   (_kernel), whose sequential grid zeroes the output block at
 //   program_id(1) == 0 and accumulates over T tiles in VMEM.
 //
-// What bounds it on the H100: arithmetic (2*n*T*65536 FLOP for n*T*512
-// bf16 input elements read, ~128 FLOP/byte per 64x64 tile pass) and the
-// small grid (n is tens of blocks per linear). Design:
-//   * CTAs run in parallel and in no order, so nothing carries over between
-//     them: one CTA owns one (block i, 64x64 output tile) pair, n*16 CTAs,
-//     and loops over all of T itself, accumulating in registers; it writes
-//     its tile once. No atomics, so repeated coordinates are just two CTAs
-//     reading the same panels.
-//   * Each CTA reads rb[i]/cb[i] from device memory itself (the Pallas
-//     kernel's scalar prefetch); no host sync, no per-step index upload.
-//   * The ragged T edge is masked in the load (zero rows), instead of the
-//     JAX wrapper's padded copies of g and x.
-//   * bf16: tensor cores through WMMA 16x16x16 fragments, fp32 accumulate;
-//     4 warps, each a 32x32 quarter of the tile. fp32: CUDA-core FMA, 256
-//     threads each holding a 4x4 sub-tile. Both stage 16-byte vector loads
-//     of the g and x panels in shared memory.
-// Simple first: no cp.async/TMA pipelining, no wgmma, no split-T.
+// What bounds it on the H100: bytes at small n (the selected row and
+// column panels of g and x read once, the fp32 blocks written: ~200 FLOP a
+// byte at n 24, under the bf16 tensor cores' ~295), operations at large n
+// (140 blocks of one panel pair); and a grid that the main path's small n
+// (a median of 4 blocks a linear) leaves short of the 132 SMs. Design:
+//   * bf16: one CTA owns (block i, 64 or 128 of its rows, a split of T): a
+//     64 x 256 or 128 x 256 fp32 tile in one or two consumer warpgroups of
+//     wgmma.mma_async m64n256k16 f32.bf16.bf16, accumulators in registers.
+//     A CTA's products, not its loads, set its pace: the 64-row tiles
+//     spread a block over four SMs and win while they fit one wave; past
+//     that the 128-row tiles, whose two warpgroups keep an SM's tensor
+//     cores busier, win (timed on the card, PERF.md; the wrapper's plan).
+//     The contraction runs down the rows of g and x, so both operands are
+//     MN-major as they lie: A = g panel^T (M-major) and B = x panel
+//     (N-major), read from 128-byte-swizzled 64 x 64 TMA boxes through the
+//     descriptors' transpose bits; nothing is transposed, in memory or in
+//     registers.
+//   * One producer thread keeps TMA loads in flight over a ring of 64-token
+//     stages ("full" mbarrier with transaction bytes, "empty" released by
+//     each consumer warpgroup once its wgmma has read the stage; one group
+//     of wgmma stays in flight while the next stage is waited for); it reads
+//     rb[i] / cb[i] from device memory itself (the Pallas kernel's scalar
+//     prefetch), so there is no host sync. Rows past T arrive as zeros (no
+//     padded copies, no masks).
+//   * Split T: at small n the (block, rows) tiles leave SMs idle, so the
+//     wrapper's plan (ops/cuda/block_grad.py) splits the 64-token chunks
+//     over 2 or 4 CTAs. Each split writes its fp32 partial to a workspace
+//     (thread-major, coalesced), and the last CTA of a tile to arrive (a
+//     per-tile counter, which it resets for the next launch) adds the
+//     partials in split order 0, 1, ... and writes the block: one launch,
+//     no atomics on the data, the same bits from every launch.
+//   * fp32 (--dtype fp32 runs only): CUDA-core FMA, 256 threads each holding
+//     a 4x4 part of a 64x64 tile, 16-byte vector loads staged in shared
+//     memory, every CTA looping over all of T.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
+using namespace hopper;
+
 constexpr int BLOCK = 256;  // SMT block edge
-constexpr int TILE = 64;    // output tile edge owned by one CTA
-constexpr int TK = 64;      // tokens staged per shared-memory pass (bf16)
-constexpr int LDS = TILE + 8;  // padded shared row, in bf16 elements
-constexpr int TK32 = 32;    // tokens staged per pass (fp32)
 
-__global__ void __launch_bounds__(128)
-block_grad_bf16_kernel(const __nv_bfloat16* __restrict__ g,
-                       const __nv_bfloat16* __restrict__ x,
-                       const int* __restrict__ rb, const int* __restrict__ cb,
-                       float* __restrict__ out, int T, int O, int I) {
-  using namespace nvcuda;
-  __shared__ __align__(128) __nv_bfloat16 gs[TK * LDS];
-  __shared__ __align__(128) __nv_bfloat16 xs[TK * LDS];
+// ---- bf16 -----------------------------------------------------------------
+constexpr int TK = 64;                   // tokens per stage, and per unit of a T split
+constexpr int BOX = 64 * TK * 2;         // one 64-column x 64-token bf16 TMA box, 8 KB
+constexpr int SMEM_BUDGET = 220 * 1024;  // the ring
+constexpr int SMEM_SLACK = 1024 + 256;   // 1024-byte alignment of the tiles, the mbarriers
 
-  const int i = blockIdx.y;
-  const int tr = blockIdx.x / (BLOCK / TILE);
-  const int tc = blockIdx.x % (BLOCK / TILE);
-  const int g_col0 = rb[i] * BLOCK + tr * TILE;
-  const int x_col0 = cb[i] * BLOCK + tc * TILE;
-  const int warp = threadIdx.x / 32;
-  const int wr = (warp / 2) * 32;  // warp's rows within the tile
-  const int wc = (warp % 2) * 32;  // warp's cols within the tile
+template <int NWG>
+struct Cfg {
+  static constexpr int BM = 64 * NWG;           // rows of the block per CTA
+  static constexpr int NC = 128 * NWG;          // consumer threads
+  static constexpr int A_BYTES = BM * TK * 2;   // g: NWG boxes of 64 rows x 64 tokens
+  static constexpr int B_BYTES = BLOCK * TK * 2;  // x: 4 boxes of 64 columns x 64 tokens
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int FIT = SMEM_BUDGET / STAGE;
+  static constexpr int STAGES = FIT < 8 ? FIT : 8;
+  static constexpr int SMEM = STAGES * STAGE + SMEM_SLACK;
+  static_assert(STAGES >= 3, "the ring needs at least 3 stages");
+};
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+// grid n * (256 / BM) * splits: CTA b takes split b % splits of tile
+// b / splits = (block i, row part h)
+template <int NWG>
+__global__ void __launch_bounds__((NWG + 1) * 128, 1)
+block_grad_wgmma_kernel(const __grid_constant__ CUtensorMap tmG,
+                        const __grid_constant__ CUtensorMap tmX, const int* __restrict__ rb,
+                        const int* __restrict__ cb, float* __restrict__ out,
+                        float* __restrict__ ws, unsigned* __restrict__ counters, int T,
+                        int splits) {
+  using C = Cfg<NWG>;
+  constexpr int BM = C::BM, NC = C::NC, STAGES = C::STAGES, PARTS = BLOCK / BM;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ int s_last;
+  uint8_t* smem = align_smem_1024(smem_raw);
+  uint8_t* sA = smem;
+  uint8_t* sB = sA + STAGES * C::A_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sB + STAGES * C::B_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  const int split = blockIdx.x % splits, tile = blockIdx.x / splits;
+  const int i = tile / PARTS, part = tile % PARTS;
+  const int chunks = (T + TK - 1) / TK;
+  const int c_begin = (int)((long long)split * chunks / splits);
+  const int c_end = (int)((long long)(split + 1) * chunks / splits);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NWG);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer warpgroup: one thread issues every load
+    if constexpr (NWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      const int g_col = rb[i] * BLOCK + part * BM;
+      const int x_col = cb[i] * BLOCK;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int c = c_begin; c < c_end; ++c) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], C::STAGE);
 #pragma unroll
-  for (int a = 0; a < 2; ++a)
+        for (int w = 0; w < NWG; ++w)
+          tma_load_2d(sA + stage * C::A_BYTES + w * BOX, &tmG, &full[stage], g_col + 64 * w,
+                      c * TK);
 #pragma unroll
-    for (int b = 0; b < 2; ++b) wmma::fill_fragment(acc[a][b], 0.0f);
-
-  constexpr int VEC_PER_ROW = TILE / 8;  // uint4 = 8 bf16
-  for (int t0 = 0; t0 < T; t0 += TK) {
-    for (int v = threadIdx.x; v < TK * VEC_PER_ROW; v += blockDim.x) {
-      const int r = v / VEC_PER_ROW;
-      const int c8 = (v % VEC_PER_ROW) * 8;
-      const int t = t0 + r;
-      uint4 gv = make_uint4(0u, 0u, 0u, 0u);
-      uint4 xv = make_uint4(0u, 0u, 0u, 0u);
-      if (t < T) {
-        gv = *reinterpret_cast<const uint4*>(g + (size_t)t * O + g_col0 + c8);
-        xv = *reinterpret_cast<const uint4*>(x + (size_t)t * I + x_col0 + c8);
+        for (int q = 0; q < BLOCK / 64; ++q)
+          tma_load_2d(sB + stage * C::B_BYTES + q * BOX, &tmX, &full[stage], x_col + 64 * q,
+                      c * TK);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
-      *reinterpret_cast<uint4*>(&gs[r * LDS + c8]) = gv;
-      *reinterpret_cast<uint4*>(&xs[r * LDS + c8]) = xv;
     }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < TK; k += 16) {
-      // A = g-panel^T: A(r, t) = gs[t][r], i.e. column-major with ld LDS
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> af[2];
-      // B = x-panel: B(t, c) = xs[t][c], row-major with ld LDS
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf[2];
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-        wmma::load_matrix_sync(af[a], gs + k * LDS + wr + a * 16, LDS);
-#pragma unroll
-      for (int b = 0; b < 2; ++b)
-        wmma::load_matrix_sync(bf[b], xs + k * LDS + wc + b * 16, LDS);
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int b = 0; b < 2; ++b) wmma::mma_sync(acc[a][b], af[a], bf[b], acc[a][b]);
-    }
-    __syncthreads();
+    return;
   }
 
-  float* o = out + (size_t)i * BLOCK * BLOCK + (size_t)(tr * TILE + wr) * BLOCK
-             + tc * TILE + wc;
+  // consumer warpgroups
+  if constexpr (NWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int ct = threadIdx.x - 128;
+  const int cwg = ct / 128;
+  const int warp = (ct % 128) / 32, lane = ct % 32;
+  float acc[128];
 #pragma unroll
-  for (int a = 0; a < 2; ++a)
+  for (int r = 0; r < 128; ++r) acc[r] = 0.f;
+  fence_acc(acc);
+  int stage = 0, prev = -1;
+  uint32_t phase = 0;
+  for (int c = c_begin; c < c_end; ++c) {
+    mbar_wait(&full[stage], phase);
+    // A = g^T: M-major, one 64-row box; B = x: N-major, 4 boxes of 64 columns
+    // BOX bytes apart; 8-token groups 1024 bytes apart in both
+    const uint64_t da = gmma_desc(sA + stage * C::A_BYTES + cwg * BOX, BOX, 1024);
+    const uint64_t db = gmma_desc(sB + stage * C::B_BYTES, BOX, 1024);
+    wgmma_fence();
 #pragma unroll
-    for (int b = 0; b < 2; ++b)
-      wmma::store_matrix_sync(o + a * 16 * BLOCK + b * 16, acc[a][b], BLOCK,
-                              wmma::mem_row_major);
+    for (int kk = 0; kk < TK / 16; ++kk)  // 16 tokens: 16 rows of 128 bytes, 2048 bytes
+      wgmma_bf16<256, 1, 1>(acc, da + 128 * kk, db + 128 * kk);
+    wgmma_commit();
+    // one group stays in flight while the next stage is waited for; the
+    // stage before is then read and released
+    wgmma_wait<1>();
+    fence_acc(acc);
+    if (prev >= 0 && ct % 128 == 0) mbar_arrive(&empty[prev]);
+    prev = stage;
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+
+  if (splits > 1) {
+    // each thread's 128 accumulators as 32 float4, thread-major: the partial
+    // of (split, tile) is written and read in coalesced 16-byte vectors
+    const int tiles = gridDim.x / splits;
+    float4* mine = reinterpret_cast<float4*>(ws) + ((size_t)split * tiles + tile) * 32 * NC;
+#pragma unroll
+    for (int r4 = 0; r4 < 32; ++r4)
+      mine[(size_t)r4 * NC + ct] =
+          make_float4(acc[4 * r4], acc[4 * r4 + 1], acc[4 * r4 + 2], acc[4 * r4 + 3]);
+    __threadfence();
+    named_sync(1, NC);
+    if (ct == 0) s_last = atomicAdd(&counters[tile], 1u) == (unsigned)(splits - 1);
+    named_sync(1, NC);
+    if (!s_last) return;
+    __threadfence();
+    // the last split to arrive sums every split's partial in split order
+    for (int s = 0; s < splits; ++s) {
+      const float4* src = reinterpret_cast<const float4*>(ws) + ((size_t)s * tiles + tile) * 32 * NC;
+#pragma unroll
+      for (int r4 = 0; r4 < 32; ++r4) {
+        const float4 w = __ldcg(src + (size_t)r4 * NC + ct);
+        if (s == 0) {
+          acc[4 * r4] = w.x;
+          acc[4 * r4 + 1] = w.y;
+          acc[4 * r4 + 2] = w.z;
+          acc[4 * r4 + 3] = w.w;
+        } else {
+          acc[4 * r4] += w.x;
+          acc[4 * r4 + 1] += w.y;
+          acc[4 * r4 + 2] += w.z;
+          acc[4 * r4 + 3] += w.w;
+        }
+      }
+    }
+    if (ct == 0) counters[tile] = 0;  // every split has arrived: ready for the next launch
+  }
+
+  // accumulator register 4j + 2h + e: row 16 warp + lane/4 + 8h of the
+  // warpgroup's 64, column 8j + 2 (lane % 4) + e
+  float* o = out + (size_t)i * BLOCK * BLOCK +
+             (size_t)(part * BM + cwg * 64 + warp * 16 + lane / 4) * BLOCK + 2 * (lane % 4);
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      *reinterpret_cast<float2*>(o + 8 * h * BLOCK + 8 * j) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
 }
+
+template <int NWG>
+int launch_bf16(const CUtensorMap& mg, const CUtensorMap& mx, const int* rb, const int* cb,
+                float* out, float* ws, unsigned* counters, int T, int n, int splits,
+                cudaStream_t s) {
+  using C = Cfg<NWG>;
+  auto kern = block_grad_wgmma_kernel<NWG>;
+  static bool smem_set[64] = {};
+  const cudaError_t e = allow_smem(reinterpret_cast<const void*>(kern), C::SMEM, smem_set);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<n * (BLOCK / C::BM) * splits, (NWG + 1) * 128, C::SMEM, s>>>(mg, mx, rb, cb, out, ws,
+                                                                       counters, T, splits);
+  return (int)cudaGetLastError();
+}
+
+// ---- fp32 -----------------------------------------------------------------
+constexpr int TILE = 64;    // output tile edge owned by one CTA
+constexpr int TK32 = 32;    // tokens staged per pass
 
 __global__ void __launch_bounds__(256)
 block_grad_f32_kernel(const float* __restrict__ g, const float* __restrict__ x,
@@ -171,25 +301,39 @@ block_grad_f32_kernel(const float* __restrict__ g, const float* __restrict__ x,
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16. Returns cudaGetLastError() after the launch.
-extern "C" int smt_block_grad(const void* g, const void* x, const void* rb,
-                              const void* cb, void* out, int T, int O, int I,
-                              int n, int dtype, void* stream) {
+// dtype: 0 = fp32, 1 = bf16. bf16: bm (64 or 128) rows of a block per CTA,
+// T split over `splits` CTAs (1 to ceil(T / 64)); with splits > 1 a
+// workspace ws of splits * n * 256 * 256 fp32 (16-byte aligned) and
+// counters, one zeroed unsigned per (block, bm rows) tile (left zeroed).
+// fp32 ignores bm, splits, ws and counters. Returns cudaGetLastError()
+// after the launch.
+extern "C" int smt_block_grad(const void* g, const void* x, const void* rb, const void* cb,
+                              void* out, void* ws, void* counters, int T, int O, int I, int n,
+                              int bm, int splits, int dtype, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  const dim3 grid((BLOCK / TILE) * (BLOCK / TILE), n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* r = static_cast<const int*>(rb);
+  const int* c = static_cast<const int*>(cb);
+  float* o = static_cast<float*>(out);
   if (dtype == 1) {
-    block_grad_bf16_kernel<<<grid, 128, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(g), static_cast<const __nv_bfloat16*>(x),
-        static_cast<const int*>(rb), static_cast<const int*>(cb),
-        static_cast<float*>(out), T, O, I);
-  } else if (dtype == 0) {
-    block_grad_f32_kernel<<<grid, 256, 0, s>>>(
-        static_cast<const float*>(g), static_cast<const float*>(x),
-        static_cast<const int*>(rb), static_cast<const int*>(cb),
-        static_cast<float*>(out), T, O, I);
-  } else {
+    if (T <= 0 || splits < 1 || splits > (T + TK - 1) / TK ||
+        (splits > 1 && (ws == nullptr || counters == nullptr)))
+      return (int)cudaErrorInvalidValue;
+    CUtensorMap mg, mx;
+    constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    if (!make_map(&mg, BF16, 2, g, O, T, 64, TK) || !make_map(&mx, BF16, 2, x, I, T, 64, TK))
+      return (int)cudaErrorInvalidValue;
+    float* w = static_cast<float*>(ws);
+    unsigned* k = static_cast<unsigned*>(counters);
+    if (bm == 128) return launch_bf16<2>(mg, mx, r, c, o, w, k, T, n, splits, s);
+    if (bm == 64) return launch_bf16<1>(mg, mx, r, c, o, w, k, T, n, splits, s);
     return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  if (dtype == 0) {
+    const dim3 grid((BLOCK / TILE) * (BLOCK / TILE), n);
+    block_grad_f32_kernel<<<grid, 256, 0, s>>>(
+        static_cast<const float*>(g), static_cast<const float*>(x), r, c, o, T, O, I);
+    return (int)cudaGetLastError();
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -66,31 +66,6 @@ constexpr int BK = 128;                    // contraction bytes per stage: one s
 constexpr int SMEM_BUDGET = 200 * 1024;    // ring and transposed buffers
 constexpr int SMEM_SLACK = 1024 + 256;     // 1024-byte alignment of the tiles, the mbarriers
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving reads or writes of the accumulators across
-// the wgmma fences and waits
-template <int R>
-__device__ __forceinline__ void fence_acc(int (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-// shared-memory matrix descriptor: K-major, 128-byte swizzle, 8-row groups
-// 1024 bytes apart; the start address advances by 32 bytes (2 units) per k32
-__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
-  const uint64_t a = smem_u32(p);
-  return ((a & 0x3FFFFull) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
 __device__ __forceinline__ void wgmma_n256(int (&d)[128], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -296,12 +271,13 @@ q8mm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUt
           for (int c = 0; c < 4; ++c)
             *reinterpret_cast<uint32_t*>(bt + sw128(4 * nb + c, 4 * ob)) = w[c];
         }
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        fence_proxy_async_smem();
         named_sync(1, NC);
         b_tile = bt;
       }
-      const uint64_t da = desc_sw128(sA + stage * C::A_BYTES + cwg * 64 * BK);
-      const uint64_t db = desc_sw128(b_tile);
+      // K-major descriptors; the start address advances by 32 bytes (2 units) per k32
+      const uint64_t da = gmma_desc(sA + stage * C::A_BYTES + cwg * 64 * BK, 16, 1024);
+      const uint64_t db = gmma_desc(b_tile, 16, 1024);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 32; ++kk) wgmma_tile<BN>(acc, da + 2 * kk, db + 2 * kk);

@@ -32,8 +32,8 @@ F = ctypes.c_float
 # C entry point -> argtypes; every entry point returns cudaGetLastError().
 # dtype codes: 0 fp32, 1 bf16
 SIGNATURES = {
-    # g2, x2, rb, cb, out, T, O, I, n, dtype, stream
-    "smt_block_grad": (P, P, P, P, P, I, I, I, I, I, P),
+    # g2, x2, rb, cb, out, ws, counters, T, O, I, n, bm, splits, dtype, stream
+    "smt_block_grad": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, P),
     # p, g, m, v, scalars, numel, stream
     "smt_masked_adam": (P, P, P, P, P, I, P),
     # q, k, v, o, lse, B, S, Hq, Hkv, hd, sm_scale, dtype, stream
@@ -58,9 +58,9 @@ SIGNATURES = {
     "smt_q8mm_t": (P, P, P, P, P, I, I, I, I, I, I, I, P),
     # gq, sg, wq, out, T, O, K, out dtype, bm, bn, grid, stream
     "smt_q8mm_g": (P, P, P, P, I, I, I, I, I, I, I, P),
-    # out, src, delta, run_o, run_start, run_j, idx_in, T, O, I, runs,
-    # transpose, dtype, stream
-    "smt_block_correction": (P, P, P, P, P, P, P, I, I, I, I, I, I, P),
+    # out, src, delta, run_o, run_start, run_j, idx_in, T, O, I, runs, n,
+    # transpose, dtype, bm, bn, stream
+    "smt_block_correction": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
     # x, w4, s4, ws, counters, out, T, O, K, splits, out dtype, stream
     "smt_q4mm": (P, P, P, P, P, P, I, I, I, I, I, P),
 }
@@ -146,19 +146,20 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
-_COUNTERS = {}  # device index -> zeroed int32 tile counters
+_COUNTERS = {}  # (owner, device index) -> zeroed int32 tile counters
 
 
-def tile_counters(device, n: int):
-    """At least n zeroed int32 counters on `device`, for a kernel whose
-    last CTA of a tile to arrive sums the split-K partials (K6). Every
-    launch leaves the counters it used at zero, so one buffer serves every
-    call in stream order."""
+def tile_counters(device, n: int, owner: str):
+    """At least n zeroed int32 counters on `device` for the kernel `owner`,
+    whose last CTA of a tile to arrive sums the split partials (K1, K6).
+    Every launch leaves the counters it used at zero, so one buffer per
+    kernel serves every call in stream order."""
     import torch
-    buf = _COUNTERS.get(device.index)
+    key = (owner, device.index)
+    buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _COUNTERS[device.index] = buf
+        _COUNTERS[key] = buf
     return buf
 
 

@@ -172,7 +172,7 @@ def _launch(x, w4, s4, out_dtype, splits: int) -> torch.Tensor:
         tiles = o // TILE_O
         ws = torch.empty((splits, tiles, -(-t // 16) * 16 * TILE_O), dtype=torch.float32,
                          device=x.device)
-        cnt = _build.tile_counters(x.device, tiles)
+        cnt = _build.tile_counters(x.device, tiles, "q4_matmul")
     err = _build.load().smt_q4mm(
         x.data_ptr(), w4.data_ptr(), s4.data_ptr(), None if ws is None else ws.data_ptr(),
         None if cnt is None else cnt.data_ptr(), out.data_ptr(), t, o, k, splits,

@@ -181,9 +181,9 @@ def _correction_inputs(t, dtype, seed=9):
 
 def test_correction_schedule_groups_by_out_block():
     s = k5.correction_schedule(IDX_OUT, IDX_IN, "cpu")
-    assert s.n_runs == 3 and s.run_o.tolist() == [0, 1, 2]
-    assert s.run_start.tolist() == [0, 2, 3, 6]
-    assert s.run_j.tolist() == [1, 4, 3, 0, 2, 5]      # stable within a run
+    assert s.n_runs == 3 and s.run_o.tolist() == [2, 0, 1]   # the longest run first
+    assert s.run_start.tolist() == [0, 3, 5, 6]
+    assert s.run_j.tolist() == [0, 2, 5, 1, 4, 3]      # stable within a run
     assert s.idx_in_dev.tolist() == list(IDX_IN) and s.run_o.dtype == torch.int32
     empty = k5.correction_schedule([], [], "cpu")
     assert empty.n_runs == 0 and empty.run_start.tolist() == [0]
