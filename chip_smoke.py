@@ -79,7 +79,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
      K6 on every linear), F2 the int8 base (K4), F3 the int4 base with A's
      plan (K5 corrects the trained blocks; prefill logits against a dense
      oracle); conversion time and peak, no dense layer weight left on the
-     device.
+     device;
+  8. run G (after F, before E), continuation training over the int8 scan
+     state, as `cli.fine_tune --frozen_quant int8 --sparse_from_plan`
+     runs it: A's export quantized while it loads, A's smt_plan.json,
+     SMTTrainer.sparse_scan_from_hf and fit, 4 sparse steps at bs 4 x seq
+     512, 2 eval batches, the final export; quantize-on-load seconds, its
+     peak and what stays resident, the peak over fit, sparse ms/step, eval
+     ms and host-device syncs in a sparse step, each against run E's (no
+     more syncs than E's), every kernel of the path launched (K1, K2, K3,
+     K4 t and g, one row quantization per K4 call, K5), no dense layer
+     weight or head on the device, and the export bit for bit A's but for
+     the trained blocks, which equal the trainables; each line beside the
+     card's name and power limit. Among the references, the same path at
+     a tiny fp32 size (a padded plan with a module absent from one layer)
+     on the GPU against the CPU, losses within 1e-3.
 Before the references, K6 (the int4 unpack-matmul) runs at eight shapes
 (K6_SHAPES: the TinyLlama linears at the eval decode's 64 rows, 16 and a
 ragged 7, Llama-3-8B's gate) and on the layer views of a stack (K6s),
@@ -265,6 +279,9 @@ def bound(nbytes, ops, dtype):
 # 1. device
 # ---------------------------------------------------------------------------
 
+CARD = {"smi": "nvidia-smi not available"}  # name and power limit, beside run G's numbers
+
+
 def check_device():
     import torch
     if not torch.cuda.is_available():
@@ -278,6 +295,7 @@ def check_device():
                              capture_output=True, text=True, timeout=60)
         line = out.stdout.strip().splitlines()[0] if out.stdout.strip() else out.stderr.strip()
         log(f"[nvidia-smi] {line}")
+        CARD["smi"] = line
     else:
         log("[nvidia-smi] not available")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -451,26 +469,35 @@ def check_block_grad():
     return worst, timing
 
 
-def check_masked_adam():
-    import numpy as np
+def _k2_case(n, seed, zero_every=0):
+    """K2 at (n, 256, 256) fp32 against its plain version over 3 steps from
+    one state, at K2_RTOL / K2_ATOL; with zero_every > 0 every
+    zero_every-th block's grad is 0, as a padded entry's is in the scan
+    state's stacks (only the weight decay moves it). Then the kernel, the
+    plain version and torch._foreach timed on the same tensors. Returns
+    (max_abs_err, timing)."""
     import torch
     from sparse_matrix_tuning_tpu_torch.ops.cuda.masked_adam import masked_adam, masked_adam_plain
 
     dev = torch.device("cuda")
-    rng = np.random.default_rng(1)
-    n = K1_N
+    gen = torch.Generator(device=dev).manual_seed(seed)
     shape = (n, 256, 256)
 
     def rand(scale):
-        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)).to(dev)
+        return torch.randn(shape, generator=gen, device=dev).mul_(scale)
 
-    p0 = rand(0.02)
-    kernel_state = [p0.clone(), torch.zeros(shape, device=dev), torch.zeros(shape, device=dev)]
-    plain_state = [p0.clone(), torch.zeros(shape, device=dev), torch.zeros(shape, device=dev)]
+    def grad():
+        g = rand(0.1)
+        if zero_every:
+            g[::zero_every] = 0.0
+        return g
+
+    kernel_state = [rand(0.02), torch.zeros(shape, device=dev), torch.zeros(shape, device=dev)]
+    plain_state = [t.clone() for t in kernel_state]
     b1, b2, eps, wd, lr = 0.9, 0.95, 1e-8, 0.1, 1e-3
     worst = 0.0
     for step in range(1, 4):
-        g = rand(0.1)
+        g = grad()
         c = torch.tensor(float(step), device=dev)
         scalars = torch.stack([torch.tensor(lr, device=dev), torch.tensor(b1, device=dev),
                                torch.tensor(b2, device=dev), torch.tensor(eps, device=dev),
@@ -479,13 +506,15 @@ def check_masked_adam():
         masked_adam(*kernel_state[:1], g, *kernel_state[1:], scalars)
         torch.cuda.synchronize()
         masked_adam_plain(plain_state[0], g, plain_state[1], plain_state[2], scalars)
-        for got, want, what in zip(kernel_state, plain_state, "pmv"):
+        for got, want in zip(kernel_state, plain_state):
             torch.testing.assert_close(got, want, rtol=K2_RTOL, atol=K2_ATOL)
             worst = max(worst, float((got - want).abs().max()))
-        log(f"[K2 masked_adam] step {step}: p/m/v max_abs_err {worst:.3e}")
+        log(f"[K2 masked_adam] n={n}{f', every {zero_every}th grad 0' if zero_every else ''} "
+            f"step {step}: p/m/v max_abs_err {worst:.3e}")
+    del plain_state
 
     p, m, v = kernel_state
-    g = rand(0.1)
+    g = grad()
 
     def lib():  # torch._foreach Adam ops over the same tensors
         torch._foreach_mul_([m], b1)
@@ -497,10 +526,13 @@ def check_masked_adam():
         torch._foreach_mul_([p], 1 - lr * wd)
         torch._foreach_addcdiv_([p], [m], denom, value=-lr / (1 - b1 ** 3))
 
-    ms = time_ms(lambda: masked_adam(p, g, m, v, scalars))
-    plain_ms = time_ms(lambda: masked_adam_plain(p, g, m, v, scalars))
-    lib_ms = time_ms(lib)
-    ms2 = time_ms(lambda: masked_adam(p, g, m, v, scalars))
+    # torch._foreach splits a large tensor over many launches: at n 3,080,
+    # 20 calls outran the launch queue (time_ms raised)
+    reps = 20 if n <= 1024 else 5
+    ms = time_ms(lambda: masked_adam(p, g, m, v, scalars), reps=reps)
+    plain_ms = time_ms(lambda: masked_adam_plain(p, g, m, v, scalars), reps=reps)
+    lib_ms = time_ms(lib, reps=reps)
+    ms2 = time_ms(lambda: masked_adam(p, g, m, v, scalars), reps=reps)
     nbytes = 7 * 4 * p.numel()  # p, g, m, v read; p, m, v written
     timing = dict(ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, ms_repeat=ms2,
                   shape=f"n={n} (n,256,256) fp32",
@@ -511,6 +543,30 @@ def check_masked_adam():
         f"{lib_ms:.4f} ms; kernel {timing['gbps']:.0f} GB/s of 28 B/element; bound "
         f"{timing['bound'][0]:.3e} ms ({timing['bound'][1]})")
     return worst, timing
+
+
+def check_masked_adam():
+    return _k2_case(K1_N, 1)
+
+
+def check_masked_adam_stacks(stacked_blocks):
+    """K2 at run G's shapes: one launch over a module's whole padded stack,
+    (L * n_max, 256, 256), for each distinct size in
+    run G's stacked_blocks, every 4th block's grad 0 (the padding). Returns
+    [{"n", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+    "bound_by"}] (the card beside them in the log)."""
+    import torch
+    out = []
+    for n in sorted({shape[0] * shape[1] for shape in stacked_blocks.values()}):
+        err, t = _k2_case(n, 2, zero_every=4)
+        out.append(dict(n=n, max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
+                        library_ms=t["lib_ms"], bound_ms=t["bound"][0], bound_by=t["bound"][1]))
+        torch.cuda.empty_cache()
+    log(f"[K2 masked_adam] at run G's stacks: " + "; ".join(
+        f"n={r['n']} err {r['max_abs_err']:.1e} kernel {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f}, torch._foreach {r['library_ms']:.4f}, bound {r['bound_ms']:.4f}"
+        for r in out) + f" ({CARD['smi']})")
+    return out
 
 
 def _k3_case(b, s, hq, hkv, hd, dtype, rng):
@@ -1458,7 +1514,8 @@ def synthetic_sft(n, seq, vocab, seed):
 def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
                   full_ft_steps=3, sparse_steps=4, eval_batches=2,
                   ratios=(0.0084, 0.0084), attn_impl="auto", out_dir=None, log_fn=log,
-                  keep_decode_params=False, frozen_quant="none", loss_impl="auto"):
+                  keep_decode_params=False, frozen_quant="none", loss_impl="auto",
+                  count_syncs=False):
     """SMTTrainer.fit through warm-up -> conversion -> sparse -> eval ->
     final export, with per-phase step times and peak memory. Checks
     finiteness, a non-empty plan, the merged weights (frozen ones bitwise
@@ -1466,7 +1523,9 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
     export against merged_params(), and, with frozen_quant="int8" (host
     offload and the int8 head follow), that no dense layer weight or head
     is left on the device. Returns a summary, with trainer.decode_params()
-    under "decode_params" if asked for."""
+    under "decode_params" if asked for, and with count_syncs the eval ms
+    (eval_ms) and the host-device syncs of one more sparse step
+    (sparse_step_syncs), both after the checks."""
     import numpy as np
     import torch
     from sparse_matrix_tuning_tpu_torch.config import SMTConfig
@@ -1641,7 +1700,30 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
     summary["export_tensors_equal"] = export
     if keep_decode_params:
         summary["decode_params"] = trainer.decode_params()
+    if count_syncs:
+        summary.update(eval_and_syncs(trainer, train_ds, eval_ds, bs, seq))
     return summary
+
+
+def eval_and_syncs(trainer, train_ds, eval_ds, bs, seq):
+    """The eval loss over eval_ds, timed ({"eval_ms"}: all its batches), and
+    the host-device syncs of one more sparse step on the first training
+    batch ({"sparse_step_syncs"}, counted as utils/profile_steps._syncs
+    counts them, the loss's read included)."""
+    import torch
+    from sparse_matrix_tuning_tpu_torch.data.sft import batch_iterator
+    from sparse_matrix_tuning_tpu_torch.utils.profile_steps import _syncs
+
+    batches = list(batch_iterator(eval_ds, bs, 0, [seq], 1234, 0, shuffle=False,
+                                  drop_last=False))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.evaluate(batches)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    batch = next(batch_iterator(train_ds, bs, 0, [seq], 1234, 0))
+    syncs = _syncs(lambda: float(trainer.train_step(batch)["loss"]))
+    return {"eval_ms": eval_ms, "eval_batches": len(batches), "sparse_step_syncs": syncs}
 
 
 def check_small_reference(frozen_quant="none", loss_impl="auto"):
@@ -2351,6 +2433,278 @@ def compare_int8_run(run_a, run_e, n_warmup):
         f"{run_a['peak']['later_sparse_steps'] / 1024 ** 3:.2f} GiB")
 
 
+# ---------------------------------------------------------------------------
+# continuation training over the int8 scan state (--sparse_from_plan)
+# ---------------------------------------------------------------------------
+
+SCAN_KERNELS = TRAIN_KERNELS + Q8_KERNELS  # every kernel run G must launch
+
+
+def run_scan_continuation(model_dir, plan_path, model_cfg, device, *, dtype="bf16", bs=4,
+                          seq=512, sparse_steps=4, eval_batches=2, out_dir=None,
+                          count_syncs=False, keep_state=False):
+    """Run G: what `cli.fine_tune --frozen_quant int8 --sparse_from_plan`
+    runs, SMTTrainer.sparse_scan_from_hf (the checkpoint in model_dir
+    quantized while it loads into the int8 scan state, the plan from
+    plan_path) then fit: `sparse_steps` sparse steps, the eval loss, the
+    final export. Recipe learning rate, remat, attention "auto", int8 head.
+    Checks: finite losses, no dense layer weight or head on the device, and
+    the export against the checkpoint it was loaded from: every tensor bit
+    for bit but the valid trained blocks, which equal the trainables.
+    Returns a summary (launches zeroed just before fit, read just after;
+    losses and grad norms by step; with keep_state, on the host, each
+    module's trainables' change over fit and its Adam moment m)."""
+    import numpy as np
+    import torch
+    from sparse_matrix_tuning_tpu_torch.config import SMTConfig
+    from sparse_matrix_tuning_tpu_torch.models.hf_io import load_hf_params
+    from sparse_matrix_tuning_tpu_torch.smt.plan import BLOCK, SMTPlan
+    from sparse_matrix_tuning_tpu_torch.train.convert import LAYER_LINEARS
+    from sparse_matrix_tuning_tpu_torch.train.trainer import SMTTrainer
+
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    cfg = SMTConfig(
+        data_path=["synthetic"], model_name_or_path=model_dir, dtype=dtype,
+        gradient_checkpointing=True, matrix_sparsity=True, frozen_quant="int8",
+        sparse_from_plan=plan_path, ft_learning_rate=9.865e-6, smt_lr=9.865e-6,
+        per_device_ft_batch_size=bs, per_device_eval_batch_size=bs, max_seq_len=seq,
+        seq_buckets=[seq], num_ft_epochs=1, eval_step=0, save_steps=0, log_steps=1,
+        throughput_steps=10 ** 9, seed=1234, output_dir=out_dir)
+    train_ds = synthetic_sft(sparse_steps * bs, seq, model_cfg.vocab_size, 1)
+    eval_ds = synthetic_sft(eval_batches * bs, seq, model_cfg.vocab_size, 2)
+    with open(plan_path) as f:
+        plan = SMTPlan.from_json(f.read())
+    gib = 1024 ** 3
+    summary = {"step_ms": [], "loss": [], "grad_norm": []}
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = SMTTrainer.sparse_scan_from_hf(cfg, model_dir, plan, total_steps=sparse_steps,
+                                             model_cfg=model_cfg, device=device)
+    if cuda:
+        torch.cuda.synchronize()
+        summary["load_peak_gib"] = (torch.cuda.max_memory_allocated() - before) / gib
+        summary["resident_gib"] = (torch.cuda.memory_allocated() - before) / gib
+        torch.cuda.reset_peak_memory_stats()
+    summary["load_s"] = time.perf_counter() - t0
+    state = trainer.state
+    stacked = state["params"]["layers_stacked"]
+    dense = [m for m in LAYER_LINEARS
+             if m in stacked and tuple(stacked[m].shape) != (model_cfg.num_hidden_layers, 1)]
+    if dense or state["params"]["lm_head"].dim() == 2 or "q_head" not in state:
+        raise AssertionError(f"run G: dense layer weights {dense} or a dense head on the device, "
+                             f"or no int8 head")
+    summary["stacked_blocks"] = {m: tuple(t.shape) for m, t in state["trainable"].items()}
+
+    marks = {"exit": 0.0}
+
+    def on_metrics(step, metrics):
+        summary["step_ms"].append((time.perf_counter() - marks["exit"]) * 1e3)
+        summary["loss"].append(float(metrics["loss"]))
+        summary["grad_norm"].append(float(metrics["grad_norm"]))
+        marks["exit"] = time.perf_counter()
+
+    start = ({m: t.detach().to("cpu", copy=True) for m, t in state["trainable"].items()}
+             if keep_state else None)
+    reset_launches()
+    if cuda:
+        torch.cuda.synchronize()
+    marks["exit"] = time.perf_counter()
+    history = trainer.fit(train_ds, eval_ds, pad_token_id=0, on_metrics=on_metrics)
+    if cuda:
+        torch.cuda.synchronize()
+    summary["launches"] = launches()
+    summary["eval_and_export_s"] = time.perf_counter() - marks["exit"]
+    summary["eval_loss"] = history["eval_loss"][-1]
+    if cuda:
+        summary["peak_gib"] = (torch.cuda.max_memory_allocated() - before) / gib
+    if not all(np.isfinite(summary["loss"] + [summary["eval_loss"]])):
+        raise AssertionError(f"run G: non-finite loss {summary['loss']}, "
+                             f"{summary['eval_loss']}")
+    if keep_state:
+        summary["change"] = {m: state["trainable"][m].detach().to("cpu") - t
+                             for m, t in start.items()}
+        summary["m"] = {m: t.to("cpu") for m, t in state["m"].items()}
+
+    # the export against the checkpoint it was loaded from
+    if out_dir:
+        src = load_hf_params(model_dir, model_cfg, dtype=cfg.param_dtype, device="cpu")
+        got = load_hf_params(os.path.join(out_dir, "final"), model_cfg, dtype=cfg.param_dtype,
+                             device="cpu")
+        equal, blocks = 0, 0
+        for top in ("embed_tokens", "norm", "lm_head"):
+            if not torch.equal(got[top], src[top]):
+                raise AssertionError(f"run G's export changed {top}")
+            equal += 1
+        for li, layer in src["layers"].items():
+            for mod, w in layer.items():
+                g = got["layers"][li][mod]
+                meta = state["idx"].get(mod)
+                keep = [] if meta is None else torch.nonzero(meta["valid"][int(li)]).reshape(-1)
+                if not len(keep):
+                    if not torch.equal(g, w):
+                        raise AssertionError(f"run G's export changed unplanned {li}.{mod}")
+                    equal += 1
+                    continue
+                mask = torch.zeros(w.shape, dtype=torch.bool)
+                g4 = g.view(w.shape[0] // BLOCK, BLOCK, w.shape[1] // BLOCK, BLOCK)
+                t = state["trainable"][mod][int(li)].detach().to("cpu", g.dtype)
+                for j in keep.tolist():
+                    rb, cb = int(meta["rb"][int(li), j]), int(meta["cb"][int(li), j])
+                    mask[rb * BLOCK:(rb + 1) * BLOCK, cb * BLOCK:(cb + 1) * BLOCK] = True
+                    if not torch.equal(g4[rb, :, cb, :], t[j]):
+                        raise AssertionError(f"run G's export: {li}.{mod} block ({rb}, {cb}) "
+                                             "differs from the trainable")
+                    blocks += 1
+                if not torch.equal(g[~mask], w[~mask]):
+                    raise AssertionError(f"run G's export changed {li}.{mod} outside its blocks")
+        summary["export_equal_tensors"], summary["export_blocks"] = equal, blocks
+        del src, got
+    if count_syncs:
+        summary.update(eval_and_syncs(trainer, train_ds, eval_ds, bs, seq))
+    return summary
+
+
+# What the tiny continuation's steps did, per module, as a share of the
+# CPU run's: the norm of (GPU - CPU) over the trainables' change and over
+# Adam's first moment m (linear in the grads: it holds the backward, K1
+# and K5's grad_input form, which the losses at the recipe's rate cannot
+# show; zeroed block grads move the losses by under 1e-4). An activation
+# one fp32 bit apart can take the other int8 step, and Adam's sign-like
+# first updates spread that: on an H100 the GPU run reads up to 7.9e-2
+# and 2.7e-2 (q_proj, one block; the other modules 3.2-4.8e-2 and
+# 1.5-1.9e-2), the port against JAX on the CPU 4.1e-2 and 1.1e-2
+# (tests/test_torch_scan_train.py); zeroed block grads read 1.0.
+SCAN_CHANGE_RTOL, SCAN_M_RTOL = 0.2, 0.1
+
+
+def _scan_reference_faults(gpu, cpu):
+    """The tiny continuation's GPU run against its CPU run: losses, eval
+    loss and grad norms within 1e-3 (the int8 base's bound,
+    check_small_reference), and per module the trainables' change and m
+    within SCAN_CHANGE_RTOL / SCAN_M_RTOL. Returns (faults, the shares by
+    leaf and module)."""
+    import numpy as np
+    faults, worst = [], {"change": {}, "m": {}}
+    for what, got, want in (("losses", gpu["loss"] + [gpu["eval_loss"]],
+                             cpu["loss"] + [cpu["eval_loss"]]),
+                            ("grad norms", gpu["grad_norm"], cpu["grad_norm"])):
+        if not np.allclose(got, want, rtol=1e-3, atol=0):
+            faults.append(f"{what} {got} vs {want}")
+    for leaf, rtol in (("change", SCAN_CHANGE_RTOL), ("m", SCAN_M_RTOL)):
+        for mod, want in cpu[leaf].items():
+            share = float((gpu[leaf][mod] - want).norm() / want.norm())
+            worst[leaf][mod] = share
+            if not share <= rtol:
+                faults.append(f"{mod} {leaf}: {share:.3e} of the CPU run's norm (limit {rtol})")
+    return faults, worst
+
+
+def _shares(by_mod):
+    return "{" + ", ".join(f"{mod} {x:.3e}" for mod, x in by_mod.items()) + "}"
+
+
+def check_small_scan_reference():
+    """Tiny fp32 continuation over the int8 scan state, the kernels on the
+    GPU against their plain versions on the CPU: a random tiny checkpoint
+    and a plan with padded modules and a module absent from one layer, run
+    G's path on both devices; _scan_reference_faults finds none, and every
+    kernel of the path launched. Then a planted fault, K1's block grads
+    zeroed on the GPU, must be found."""
+    import numpy as np
+    import torch
+    from sparse_matrix_tuning_tpu_torch.models.hf_io import save_hf_format
+    from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig, init_params
+    from sparse_matrix_tuning_tpu_torch.ops import sparse_linear
+    from sparse_matrix_tuning_tpu_torch.smt.plan import LinearPlan, SMTPlan
+
+    cfg = LlamaConfig.tiny(vocab_size=512)
+    shapes = {"q_proj": (256, 256), "gate_proj": (512, 256), "up_proj": (512, 256),
+              "down_proj": (256, 512)}
+    picks = {("q_proj", 0): ((0, 0),), ("gate_proj", 0): ((0, 0), (1, 0)),
+             ("gate_proj", 1): ((1, 0),), ("up_proj", 0): ((0, 0),), ("up_proj", 1): ((1, 0),),
+             ("down_proj", 1): ((0, 0), (0, 1))}
+    plan = SMTPlan("matrix", {f"{l}.{m}": LinearPlan(m, l, *shapes[m], blocks)
+                              for (m, l), blocks in picks.items()})
+    d = tempfile.mkdtemp(prefix="smoke_scan_ref_", dir=os.path.join(REPO, "build"))
+    real_block_grad = sparse_linear.block_grad
+    try:
+        save_hf_format(init_params(cfg, seed=0, dtype=torch.float32), cfg, d)
+        plan_path = os.path.join(d, "smt_plan.json")
+        with open(plan_path, "w") as f:
+            f.write(plan.to_json())
+        kw = dict(dtype="fp32", bs=4, seq=64, sparse_steps=4, eval_batches=1, keep_state=True)
+        gpu = run_scan_continuation(d, plan_path, cfg, "cuda", **kw)
+        cpu = run_scan_continuation(d, plan_path, cfg, "cpu", **kw)
+        sparse_linear.block_grad = lambda g, x, rb, cb: torch.zeros_like(
+            real_block_grad(g, x, rb, cb))
+        planted = run_scan_continuation(d, plan_path, cfg, "cuda", **kw)
+    finally:
+        sparse_linear.block_grad = real_block_grad
+        shutil.rmtree(d, ignore_errors=True)
+    faults, worst = _scan_reference_faults(gpu, cpu)
+    if faults:
+        raise AssertionError("tiny scan continuation, GPU vs CPU: " + "; ".join(faults))
+    planted_faults, planted_worst = _scan_reference_faults(planted, cpu)
+    if not planted_faults:
+        raise AssertionError("tiny scan continuation: zeroed block grads were not found")
+    # fp32 attention walks each group whole: no partitions, no reduce
+    needed = tuple(n for n in SCAN_KERNELS if n != "attn_bwd_dkdv_reduce")
+    if not all(gpu["launches"][n] > 0 for n in needed):
+        raise AssertionError(f"tiny scan run did not launch every kernel: {gpu['launches']}")
+    rel = lambda a, b: float(np.max(np.abs(np.array(a) - np.array(b)) / np.abs(np.array(b))))
+    log(f"[reference] tiny fp32 continuation over the int8 scan state (padded plan), GPU "
+        f"kernels vs CPU plain: losses {gpu['loss']} (worst rel diff "
+        f"{rel(gpu['loss'], cpu['loss']):.2e}), grad norms {gpu['grad_norm']} (worst rel diff "
+        f"{rel(gpu['grad_norm'], cpu['grad_norm']):.2e}), eval loss {gpu['eval_loss']:.6f} vs "
+        f"{cpu['eval_loss']:.6f}; per module, (GPU - CPU) as a share of the CPU's norm: "
+        f"trainables' change {_shares(worst['change'])} (limit {SCAN_CHANGE_RTOL}), m "
+        f"{_shares(worst['m'])} (limit {SCAN_M_RTOL}); GPU launches {gpu['launches']}")
+    log(f"[reference] planted fault, K1's block grads zeroed: found ({len(planted_faults)} "
+        f"faults; change {_shares(planted_worst['change'])}, m {_shares(planted_worst['m'])}; "
+        f"first: {planted_faults[0]}); its losses within "
+        f"{rel(planted['loss'], gpu['loss']):.2e} of the true GPU run's")
+
+
+def report_scan_run(g, e, n_warmup):
+    """Run G's numbers, each beside the card, and held against run E's."""
+    gib = 1024 ** 3
+    card = f"({CARD['smi']})"
+    g_ms = statistics.median(g["step_ms"][1:])
+    e_ms = statistics.median(e["step_ms"][n_warmup + 1:])
+    log(f"[G] TinyLlama-1.1B, A's export quantized while loading into the int8 scan state, A's "
+        f"plan (stacked blocks {g['stacked_blocks']}), bs 4 x seq 512, remat, attn auto (K3), "
+        f"int8 head: losses {g['loss']}, eval loss {g['eval_loss']:.4f} {card}")
+    log(f"[G] quantize-on-load {g['load_s']:.2f} s, its peak {g['load_peak_gib']:.2f} GiB, "
+        f"resident {g['resident_gib']:.3f} GiB; peak over fit {g['peak_gib']:.2f} GiB "
+        f"(E's later sparse steps {e['peak']['later_sparse_steps'] / gib:.2f} GiB) {card}")
+    log(f"[G] sparse ms/step {[round(x, 1) for x in g['step_ms']]} (median {g_ms:.1f} over steps "
+        f"2-{len(g['step_ms'])}) vs E's median {e_ms:.1f}; eval {g['eval_ms']:.1f} ms for "
+        f"{g['eval_batches']} batches vs E's {e['eval_ms']:.1f}; host-device syncs in a sparse "
+        f"step {g['sparse_step_syncs']} vs E's {e['sparse_step_syncs']} {card}")
+    log(f"[G] eval + 2 exports {g['eval_and_export_s']:.1f} s; export: {g['export_equal_tensors']} "
+        f"tensors bit-equal to A's export, {g['export_blocks']} trained blocks equal to the "
+        f"trainables; kernel launches {g['launches']} {card}")
+
+
+def check_scan_run(g, e):
+    """Run G's launches: every kernel of its path, one row quantization per
+    K4 call, no int4 kernel; and no more syncs a sparse step than E's."""
+    lg = g["launches"]
+    bad = [n for n in SCAN_KERNELS if lg[n] <= 0]
+    if bad or lg["q4_matmul"]:
+        raise AssertionError(f"run G launches {lg}: missing {bad}")
+    if lg["row_quant"] != lg["q8mm_t"] + lg["q8mm_g"]:
+        raise AssertionError(f"run G: not one row quantization launch per K4 call: {lg}")
+    if g["sparse_step_syncs"] > e["sparse_step_syncs"]:
+        raise AssertionError(f"run G syncs {g['sparse_step_syncs']} times a sparse step, run E "
+                             f"{e['sparse_step_syncs']}")
+
+
 def main(argv=None):
     """`--only q8` stops after the build, the row quantization, K4 / K5
     checks and the tiny int8 references; `--only q4` after the build, the K6 checks and the tiny
@@ -2425,6 +2779,7 @@ def main(argv=None):
         check_small_reference()
         check_small_generation()
         check_small_quant_generation()
+        check_small_scan_reference()
     check_small_reference(frozen_quant="int8", loss_impl="chunked")
     marks.append(("references", time.time()))
     if only_q8:
@@ -2456,19 +2811,34 @@ def main(argv=None):
         run_f = run_quantized_eval(os.path.join(out_dir, "final"), model_cfg, run_d["D1"])
         torch.cuda.empty_cache()
         marks.append(("F", time.time()))
+        # G: continuation training over the int8 scan state from A's export
+        # and A's plan (--sparse_from_plan), with its own final export
+        g_dir = tempfile.mkdtemp(prefix="smoke_export_", dir=build_dir)
+        try:
+            run_g = run_scan_continuation(os.path.join(out_dir, "final"),
+                                          os.path.join(out_dir, "final", "smt_plan.json"),
+                                          model_cfg, "cuda", out_dir=g_dir, count_syncs=True)
+        finally:
+            shutil.rmtree(g_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+        marks.append(("G", time.time()))
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     # E: as A over the int8 frozen base (K4, K5; int8 head, host offload),
     # with the final export
     out_dir = tempfile.mkdtemp(prefix="smoke_export_", dir=build_dir)
     try:
-        run_e = run_main_path(model_cfg, "cuda", out_dir=out_dir, frozen_quant="int8")
+        run_e = run_main_path(model_cfg, "cuda", out_dir=out_dir, frozen_quant="int8",
+                              count_syncs=True)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     report_run("E", "TinyLlama-1.1B bf16 over the int8 frozen base, bs 4 x seq 512, remat, "
                "attn auto (K3)", run_e, 3)
     compare_int8_run(run_a, run_e, 3)
+    report_scan_run(run_g, run_e, 3)
+    check_scan_run(run_g, run_e)
     torch.cuda.empty_cache()
+    k2_stacks = check_masked_adam_stacks(run_g["stacked_blocks"])
     # E2: the chunked q8 loss at full width and vocabulary, depth cut to 2
     # layers: K4 on the loss's ragged T = bs * (seq - 1) rows, against the
     # same leg with the dense q8 loss (the same logits bit for bit, so the
@@ -2532,15 +2902,19 @@ def main(argv=None):
         return {f"{r['what']} n={r['n']}": r["ms"] for r in sparse_times["times"]
                 if r["kernel"].startswith(kernel)}
 
+    lg = run_g["launches"]
     kernels = [
         dict(entry("block_grad", "block_grad.cu", "block_grad.py:56",
                    run_a["launches"]["block_grad"], k1_err, k1_time["ms"], k1_time["plain_ms"],
                    k1_time["bound"], k1_time["lib_ms"]),
              ms_by_plan=k1_time["by_plan"], ms_at_plan_n=at_plan_n("K1"),
-             plan_n=sparse_times["n"]["all"]),
-        entry("masked_adam", "masked_adam.cu", "masked_adam.py:35",
-              run_a["launches"]["masked_adam"], k2_err, k2_time["ms"], k2_time["plain_ms"],
-              k2_time["bound"], k2_time["lib_ms"]),
+             plan_n=sparse_times["n"]["all"],
+             launches_by_run={"A": run_a["launches"]["block_grad"], "G": lg["block_grad"]}),
+        dict(entry("masked_adam", "masked_adam.cu", "masked_adam.py:35",
+                   run_a["launches"]["masked_adam"], k2_err, k2_time["ms"], k2_time["plain_ms"],
+                   k2_time["bound"], k2_time["lib_ms"]),
+             launches_by_run={"A": run_a["launches"]["masked_adam"], "G": lg["masked_adam"]},
+             at_g_stacks=k2_stacks),
     ] + [entry(name, "attention.cu",
                "attention.py:154" if name == "attn_fwd" else "attention.py:188",
                run_a["launches"][name], k3_err[name], *k3_time[name]) for name in K3_KERNELS
@@ -2548,8 +2922,9 @@ def main(argv=None):
                     run_d[leg]["launches"][name], k7_err[name], *k7_time[name])
               for name, leg in (("cached_attn", "D1"), ("cached_attn_q8", "D3"),
                                 ("cached_attn_combine", "D5"))
-              ] + [entry(name, "q8_matmul.cu", f"q8_matmul.py:{line}",
-                         run_e["launches"][name], k4_err[name], *k4_time[name])
+              ] + [dict(entry(name, "q8_matmul.cu", f"q8_matmul.py:{line}",
+                              run_e["launches"][name], k4_err[name], *k4_time[name]),
+                        launches_by_run={"E": run_e["launches"][name], "G": lg[name]})
                    for name, line in (("q8mm_t", 104), ("q8mm_g", 133))
                    ] + [dict(entry("row_quant", "row_quant.cu", "",
                                    run_e["launches"]["row_quant"], rq_err, *rq_time),
@@ -2557,11 +2932,13 @@ def main(argv=None):
                              # front of q8mm_t_core / q8mm_g_core (q8_matmul.py:159-177)
                              replaces="sparse_matrix_tuning_tpu/ops/quant.py:32",
                              launches_by_run={"E": run_e["launches"]["row_quant"],
-                                              "F2": run_f["F2"]["launches"]["row_quant"]}),
+                                              "F2": run_f["F2"]["launches"]["row_quant"],
+                                              "G": lg["row_quant"]}),
                         dict(entry("block_correction", "correction.cu", "correction.py:69",
                                    run_e["launches"]["block_correction"], k5_err, *k5_time),
                              launches_by_run={"E": run_e["launches"]["block_correction"],
-                                              "F3": run_f["F3"]["launches"]["block_correction"]},
+                                              "F3": run_f["F3"]["launches"]["block_correction"],
+                                              "G": lg["block_correction"]},
                              ms_timed_cases=k5_timed, ms_at_plan_n=at_plan_n("K5")),
                         entry("q4_matmul", "q4_matmul.cu", "q4_matmul.py:94",
                               run_f["F1"]["launches"]["q4_matmul"], k6_err, *k6_time)]

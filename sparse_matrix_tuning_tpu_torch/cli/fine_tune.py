@@ -9,6 +9,16 @@
       --downsample_mlp_blocks_ratio 0.0084 \
       --output_dir /path/to/out
 
+Sparse-only continuation from a plan made elsewhere (smt_plan.json of an
+earlier run): the checkpoint is quantized to int8 while it loads and only
+the planned blocks train over it:
+
+  python -m sparse_matrix_tuning_tpu_torch.cli.fine_tune \
+      --model_name_or_path /path/to/TinyLlama-1.1B \
+      --data_path /path/to/commonsense_170k.json \
+      --matrix_sparsity --frozen_quant int8 \
+      --sparse_from_plan /path/to/smt_plan.json --output_dir /path/to/out
+
 model_name_or_path must be a local HF checkpoint dir. Runs on the card
 (--device cuda, the default, raises when there is none); --device cpu runs
 the plain versions of the kernels on the CPU.
@@ -48,8 +58,10 @@ def main(argv=None):
     tokenizer = load_hf_tokenizer(cfg.model_name_or_path, cfg.max_seq_len,
                                   cfg.add_eot_token)
     model_cfg = load_hf_config(cfg.model_name_or_path)
-    params = load_hf_params(cfg.model_name_or_path, model_cfg,
-                            dtype=cfg.param_dtype, device=device)
+    params = None
+    if not cfg.sparse_from_plan:
+        params = load_hf_params(cfg.model_name_or_path, model_cfg,
+                                dtype=cfg.param_dtype, device=device)
 
     train_ds, eval_ds = make_supervised_data(
         cfg.data_path[0], tokenizer, cfg.max_seq_len, cfg.eval_set_ratio, cfg.seed)
@@ -60,8 +72,19 @@ def main(argv=None):
     steps_per_epoch = num_batches(len(train_ds), global_bs)
     total_steps = cfg.num_ft_epochs * steps_per_epoch
 
-    trainer = SMTTrainer(cfg, model_cfg, params, total_steps, device=device)
-    del params
+    if cfg.sparse_from_plan:
+        # sparse-only continuation: warm-up and selection ran elsewhere and
+        # produced this plan; the base checkpoint is quantized while it loads
+        # into the int8 scan state
+        from sparse_matrix_tuning_tpu_torch.smt.plan import SMTPlan
+        with open(cfg.sparse_from_plan) as f:
+            plan = SMTPlan.from_json(f.read())
+        trainer = SMTTrainer.sparse_scan_from_hf(cfg, cfg.model_name_or_path, plan,
+                                                 total_steps, model_cfg=model_cfg,
+                                                 device=device)
+    else:
+        trainer = SMTTrainer(cfg, model_cfg, params, total_steps, device=device)
+        del params
     history = trainer.fit(train_ds, eval_ds, tokenizer.pad_token_id,
                           tokenizer=tokenizer)
     print_rank_0(f"training_loss_list: {history['train_loss'][-20:]}")

@@ -159,8 +159,6 @@ class SMTConfig:
             unported.append("--dtype fp16 (dynamic loss scaling)")
         if self.resume_from:
             unported.append("--resume_from (checkpoint resume)")
-        if self.sparse_from_plan:
-            unported.append("--sparse_from_plan (quantize-on-load continuation)")
         if self.dropout > 0:
             unported.append("--dropout > 0 (attention dropout)")
         if self.mesh_shape:

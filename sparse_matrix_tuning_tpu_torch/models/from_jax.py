@@ -60,11 +60,17 @@ def qstate_from_jax(state, device=None) -> Dict[str, Any]:
 
 def scan_state_from_jax(state, device=None) -> Dict[str, Any]:
     """A JAX int8 scan state (train/scan_phase.py, as numpy arrays) -> the
-    port's: its "params", "q", "trainable", "base" and "idx", leaf for leaf,
-    dtypes kept (int8, int32 and bool included), so both packages decode
-    from one state."""
-    return {k: params_from_jax(state[k], device=device)
-            for k in ("params", "q", "trainable", "base", "idx") if k in state}
+    port's: its "params", "q", "q_head", "trainable", "base", "idx", Adam
+    moments "m" / "v" and counters "count" / "step", leaf for leaf, dtypes
+    kept (int8, int32 and bool included), so both packages train and decode
+    from one state (training also needs the port's "sched":
+    train/scan_phase.attach_schedules)."""
+    out = {k: params_from_jax(state[k], device=device)
+           for k in ("params", "q", "q_head", "trainable", "base", "idx", "m", "v")
+           if k in state}
+    out.update({k: tensor_from_numpy(state[k], device=device)
+                for k in ("count", "step") if k in state})
+    return out
 
 
 def plan_from_jax(plan) -> SMTPlan:

@@ -12,7 +12,9 @@ the same thing on the same weights (models/from_jax.py).
 
 The six SMT target linears route through the `linear(x, w, module,
 layer)` dispatch hook; after conversion the planned ones compute through
-the block-sparse autograd Function (ops/sparse_linear.py).
+the block-sparse autograd Function (ops/sparse_linear.py). `forward_scan`
+runs the same decoder over the stacked layout of the scan state
+(train/scan_phase.py), an eager loop over layer views.
 """
 
 from __future__ import annotations
@@ -321,6 +323,58 @@ def forward(params: Mapping[str, Any], input_ids: torch.Tensor, cfg: LlamaConfig
     detach the residual stream at the input of this layer, as the JAX
     twin's stop_gradient; autograd then never visits the frozen layers
     below it."""
+    layers = ((params["layers"][str(i)], linear) for i in range(cfg.num_hidden_layers))
+    return _run(params, layers, input_ids, cfg, attention_mask, remat,
+                stop_grad_below_layer, attn_impl, return_hidden)
+
+
+def _unbind_layers(tree):
+    """{..: (L, ...) tensor} -> the same nesting of length-L lists of layer
+    views, one unbind per leaf (whose backward stacks the L grads once;
+    indexing t[l] L times would make L backward nodes, each allocating a
+    zero tensor the size of the whole stack). Lists pass through."""
+    if isinstance(tree, Mapping):
+        return {k: _unbind_layers(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.unbind(0)
+    return tree
+
+
+def _layer(tree, l: int):
+    if isinstance(tree, Mapping):
+        return {k: _layer(v, l) for k, v in tree.items()}
+    return tree[l]
+
+
+def forward_scan(params: Mapping[str, Any], input_ids: torch.Tensor, cfg: LlamaConfig, *,
+                 layer_xs, linear_scan,
+                 attention_mask: Optional[torch.Tensor] = None,
+                 remat: bool = True,
+                 stop_grad_below_layer: Optional[int] = None,
+                 attn_impl: str = "einsum",
+                 return_hidden: bool = False) -> torch.Tensor:
+    """forward() over the stacked (scan-layout) params, the twin of the JAX
+    forward_scan as an eager loop: params["layers_stacked"] {name: (L,
+    ...)} and layer_xs (a tree of (L, ...) tensors, or of length-L lists)
+    are taken as layer views, and every linear of layer l runs
+    `linear_scan(x, w, module, ex_l)` with ex_l layer l's slice of
+    layer_xs. Remat, stop_grad_below_layer and the rest as forward()."""
+    stacked = _unbind_layers(params["layers_stacked"])
+    xs = _unbind_layers(layer_xs)
+
+    def layer(l):
+        ex = _layer(xs, l)
+        return _layer(stacked, l), lambda h, w, module, idx: linear_scan(h, w, module, ex)
+
+    layers = (layer(l) for l in range(cfg.num_hidden_layers))
+    return _run(params, layers, input_ids, cfg, attention_mask, remat,
+                stop_grad_below_layer, attn_impl, return_hidden)
+
+
+def _run(params, layers, input_ids, cfg: LlamaConfig, attention_mask, remat,
+         stop_grad_below_layer, attn_impl, return_hidden):
+    """The decoder around its layers: `layers` yields each layer's (params,
+    linear) in order."""
     b, s = input_ids.shape
     attn_impl = resolve_attn_impl(attn_impl, cfg.head_dim, input_ids.device)
     if attention_mask is None:
@@ -341,10 +395,9 @@ def forward(params: Mapping[str, Any], input_ids: torch.Tensor, cfg: LlamaConfig
     cos, sin = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
     use_remat = remat and torch.is_grad_enabled()
-    for i in range(cfg.num_hidden_layers):
+    for i, (lp, linear) in enumerate(layers):
         if stop_grad_below_layer is not None and i == stop_grad_below_layer:
             x = x.detach()
-        lp = params["layers"][str(i)]
         if use_remat:
             x = checkpoint(_decoder_layer, lp, x, mask_bias, cos, sin, cfg,
                            linear, i, attn_impl, use_reentrant=False)

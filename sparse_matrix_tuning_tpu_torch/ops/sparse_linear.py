@@ -26,25 +26,29 @@ products are K4 (ops/cuda/q8_matmul.py), both corrections K5
 (ops/cuda/correction.py), each on CUDA tensors, their plain versions on
 CPU tensors; the block gradient is the same K1 formula as above.
 
-Decode over the stacked scan state (`smt_linear_dyn`, forward only; twin
-of the JAX function of that name) takes the block coordinates of one
-layer, padded to the module's largest count with `valid` marking the real
-ones, and a frozen base that is int4 ({"w4", "s4"}: K6 through
-ops/quant.q4_matmul_t), int8 ({"wq", "sw"}: K4) or dense ({"w"}):
+Over the stacked scan state (`smt_linear_dyn`, twin of the JAX custom
+VJP of that name: continuation training and decode) a linear takes the
+block coordinates of one layer, padded to the module's largest count with
+`valid` marking the real ones, and a frozen base that is int4 ({"w4",
+"s4"}: K6 through ops/quant.q4_matmul_t), int8 ({"wq", "sw"}: K4) or dense
+({"w"}), which is never updated:
 
-    y = base(x) + sum_j x[:, cb_j] @ delta_j^T   at rows rb_j
-    delta_j = (blocks_j - base_j) * valid_j, in x's dtype
+    y          = base(x) + sum_j x[:, cb_j] @ delta_j^T   at rows rb_j
+    grad_x     = base_T(g) + sum_j g[:, rb_j] @ delta_j   at cols cb_j
+    grad_j     = g[:, rb_j]^T @ x[:, cb_j] if valid_j, else 0
+    delta_j    = (blocks_j - base_j) * valid_j, in x's dtype
 
-The correction is K5 over the valid entries only (a padded entry's delta
-is 0). JAX's decode adds the entries one by one, rounding to the output
-dtype after each (its "oracle" chain, `_dyn_correction`); K5 rounds once
-per out block. In fp32 the two differ by a few ulps of the output, far
-below the tests' tolerances.
+Both corrections are K5 and the block grads K1, each over the valid entries
+only (a padded entry's delta and grad are 0), from a schedule built once
+per layer (`dyn_schedule`). JAX adds the entries one by one, rounding to
+the output dtype after each (its "oracle" chain, `_dyn_correction`); K5
+rounds once per out block. In fp32 the two differ by a few ulps of the
+output, far below the tests' tolerances.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Tuple
+from typing import Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -213,7 +217,7 @@ def frozen_q4_linear(x: torch.Tensor, w4: torch.Tensor, s4: torch.Tensor) -> tor
 
 
 # ---------------------------------------------------------------------------
-# Decode over the stacked scan state (forward of smt_linear_dyn)
+# The stacked scan state: smt_linear_dyn
 # ---------------------------------------------------------------------------
 
 def _base_matmul(x: torch.Tensor, frozen: Mapping[str, torch.Tensor]) -> torch.Tensor:
@@ -226,41 +230,126 @@ def _base_matmul(x: torch.Tensor, frozen: Mapping[str, torch.Tensor]) -> torch.T
     return torch.matmul(x, frozen["w"].t())
 
 
-def _dyn_delta(blocks, base_blocks, valid, dtype) -> torch.Tensor:
-    return ((blocks - base_blocks) * valid.to(blocks.dtype)[:, None, None]).to(dtype)
+def _base_matmul_T(g: torch.Tensor, frozen: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """grad_x of the frozen base: K4's g form over int8; over int4 (a decode
+    base) and a dense base, a matmul with the (dequantized) weight."""
+    if "w4" in frozen:
+        return torch.matmul(g, dequantize_weight_int4(frozen["w4"], frozen["s4"], g.dtype))
+    if "wq" in frozen:
+        return q8_matmul(g, frozen["wq"], frozen["sw"])
+    return torch.matmul(g, frozen["w"])
 
 
+class DynSchedule(NamedTuple):
+    """What one layer's padded block coordinates give the kernels, built once
+    (a host sync) and reused every step: the positions of the valid entries
+    and their coordinates on the device, K5's forward schedule (out = rb,
+    in = cb) and its grad_input schedule (out = cb, in = rb)."""
+    n: int                 # padded count
+    keep: torch.Tensor     # (k,) int64, the valid entries' positions
+    rb: torch.Tensor       # (k,) int32
+    cb: torch.Tensor       # (k,) int32
+    fwd: CorrectionSchedule
+    bwd: CorrectionSchedule
+
+
+def _valid_coords(rb, cb, valid):
+    """The valid entries' positions and coordinates, on the host."""
+    keep = torch.nonzero(valid.to("cpu")).reshape(-1)
+    return keep, rb.to("cpu")[keep], cb.to("cpu")[keep]
+
+
+def dyn_schedule(rb, cb, valid, device) -> DynSchedule:
+    """The DynSchedule of one layer's (n,) rb / cb / valid on `device`."""
+    keep, rbk, cbk = _valid_coords(rb, cb, valid)
+    return DynSchedule(int(valid.shape[0]), keep.to(device),
+                       rbk.to(device, torch.int32), cbk.to(device, torch.int32),
+                       correction_schedule(rbk.numpy(), cbk.numpy(), device),
+                       correction_schedule(cbk.numpy(), rbk.numpy(), device))
+
+
+def _dyn_delta(blocks, base_blocks, keep, dtype) -> torch.Tensor:
+    """(blocks - base) of the valid entries, in `dtype`, contiguous: the
+    padded entries' deltas are 0 and are left out."""
+    if not keep.numel():   # no launch for a layer without blocks of this module
+        return blocks.new_empty((0, *blocks.shape[1:]), dtype=dtype)
+    return (blocks.index_select(0, keep) - base_blocks.index_select(0, keep)).to(dtype)
+
+
+@torch.no_grad()
 def dyn_correction(blocks, base_blocks, rb, cb, valid, dtype, device
                    ) -> Tuple[torch.Tensor, CorrectionSchedule]:
     """One layer's forward correction: (delta of the valid entries, in
     `dtype`, contiguous; K5's schedule for them on `device`). Constant over
     a decode, so eval/generate.decode_params_from_scan builds it once."""
-    keep = torch.nonzero(valid.to("cpu")).reshape(-1)
-    delta = _dyn_delta(blocks, base_blocks, valid, dtype)[keep.to(blocks.device)]
-    sched = correction_schedule(rb.to("cpu")[keep].numpy(), cb.to("cpu")[keep].numpy(), device)
-    return delta.contiguous(), sched
+    keep, rbk, cbk = _valid_coords(rb, cb, valid)
+    return (_dyn_delta(blocks, base_blocks, keep.to(blocks.device), dtype),
+            correction_schedule(rbk.numpy(), cbk.numpy(), device))
 
 
-def _dyn_forward(x, frozen, delta, sched) -> torch.Tensor:
-    y = _base_matmul(x, frozen)
-    y2 = y.reshape(-1, y.shape[-1])
+def _dyn_forward(x2, frozen, delta, sched) -> torch.Tensor:
+    y = _base_matmul(x2, frozen)
     # y[:, rb] += x[:, cb] @ delta^T, in place (y is a new tensor)
-    block_correction(y2, x.reshape(-1, x.shape[-1]).contiguous(), delta, sched, transpose=True)
-    return y
+    return block_correction(y, x2, delta, sched, transpose=True)
 
 
-def smt_linear_dyn(x, blocks, rb, cb, valid, frozen, base_blocks, correction=None):
+class _SMTLinearDyn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, blocks, base_blocks, frozen, sched: DynSchedule):
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        delta = _dyn_delta(blocks, base_blocks, sched.keep, x.dtype)
+        y = _dyn_forward(x2, frozen, delta, sched.fwd)
+        keys = tuple(sorted(frozen))
+        ctx.save_for_backward(x2, delta, *(frozen[k] for k in keys))
+        ctx.keys, ctx.sched, ctx.x_shape = keys, sched, x.shape
+        ctx.blocks_dtype = blocks.dtype
+        return y.reshape(*x.shape[:-1], y.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, delta, *frozen = ctx.saved_tensors
+        sched = ctx.sched
+        g2 = g.reshape(-1, g.shape[-1]).contiguous()
+        grad_x = grad_blocks = None
+        if ctx.needs_input_grad[0]:
+            gx2 = _base_matmul_T(g2, dict(zip(ctx.keys, frozen)))   # a new tensor
+            # grad_x[:, cb] += g[:, rb] @ delta, in place
+            block_correction(gx2, g2, delta, sched.bwd)
+            grad_x = gx2.reshape(ctx.x_shape)
+        if ctx.needs_input_grad[1] and sched.keep.numel():
+            # K1 over the valid entries only; the padded ones' grads are 0
+            # (and None, autograd's zero, where no entry is valid)
+            gb = block_grad(g2, x2, sched.rb, sched.cb).to(ctx.blocks_dtype)
+            if gb.shape[0] == sched.n:   # every entry valid: keep is 0..n-1
+                grad_blocks = gb
+            else:
+                grad_blocks = gb.new_zeros((sched.n, *gb.shape[1:])).index_copy_(
+                    0, sched.keep, gb)
+        return grad_x, grad_blocks, None, None, None
+
+
+def smt_linear_dyn(x, blocks, rb, cb, valid, frozen, base_blocks, correction=None,
+                   schedule: Optional[DynSchedule] = None):
     """Block-sparse linear over a frozen base with one layer's padded block
-    coordinates (module notes), forward only: blocks / base_blocks (n,
-    256, 256), rb / cb (n,) int, valid (n,) bool. correction: the
-    precomputed `dyn_correction(...)` pair (built here when omitted).
-    The backward waits for the continuation-training slice."""
-    if torch.is_grad_enabled() and (x.requires_grad or blocks.requires_grad):
-        raise NotImplementedError("smt_linear_dyn: the backward (continuation training from "
-                                  "the scan state) is not ported; call it under no_grad")
-    if correction is None:
-        correction = dyn_correction(blocks, base_blocks, rb, cb, valid, x.dtype, x.device)
-    return _dyn_forward(x, frozen, *correction)
+    coordinates (module notes): blocks / base_blocks (n, 256, 256), rb / cb
+    (n,) int, valid (n,) bool; frozen {"w4", "s4"}, {"wq", "sw"} or {"w"}.
+    Gradients go to x and blocks (a padded entry's is 0), as JAX's custom
+    VJP gives them: grad_x = base_T(g) + K5 with rb / cb swapped, the block
+    grads K1 over the valid entries.
+
+    schedule: the layer's DynSchedule (built here when omitted, which costs
+    a host sync: a training step passes the one its state holds).
+    correction: a decode's precomputed `dyn_correction(...)` pair, in
+    place of the schedule; it has no backward."""
+    if correction is not None:
+        if torch.is_grad_enabled() and (x.requires_grad or blocks.requires_grad):
+            raise ValueError("smt_linear_dyn: a precomputed decode correction has no "
+                             "backward; pass the layer's DynSchedule to train")
+        return _dyn_forward(x.reshape(-1, x.shape[-1]).contiguous(), frozen,
+                            *correction).reshape(*x.shape[:-1], -1)
+    if schedule is None:
+        schedule = dyn_schedule(rb, cb, valid, x.device)
+    return _SMTLinearDyn.apply(x, blocks, base_blocks, frozen, schedule)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""The stacked (scan-layout) state of the SMT sparse phase, for decoding
-from a quantized frozen base: twin of the state half of
+"""The stacked (scan-layout) state of the SMT sparse phase over a quantized
+frozen base, and the continuation training and decode over it: twin of
 `sparse_matrix_tuning_tpu.train.scan_phase` (matrix mode).
 
 The JAX package runs its deep-model sparse phase as one `lax.scan` over
@@ -13,19 +13,28 @@ layers, so its state is keyed per MODULE with stacked (L, ...) leaves:
   trainable[mod] (L, n_max, 256, 256) fp32 selected blocks
   base[mod]      (L, n_max, 256, 256) fp32 dequantized frozen values there
   idx[mod]       {"rb", "cb": (L, n_max) int32, "valid": (L, n_max) bool}
+  m, v           Adam moments like trainable; count, step: int32 scalars
+  sched[mod]     (port only) [DynSchedule of layer l], see attach_schedules
 
 The port keeps that layout, so a JAX state carries across leaf for leaf
 (models/from_jax.scan_state_from_jax), and loops over layers eagerly with
-layer-l views (w4[l] is free). Ported: quantize-on-load
-(build_scan_state_from_hf), the int4 requantization of decoding and the
-forward dispatch of the decode (make_scan_dispatch). The scan sparse
-training step, its backward and channel mode are not.
+layer-l views (models/llama.forward_scan). Ported: quantize-on-load
+(build_scan_state_from_hf), the sparse step over that state
+(build_scan_sparse_step: the int8 base is never updated, each planned
+linear adds its delta through ops/sparse_linear.smt_linear_dyn), its eval
+loss, the exact export (merged_params_from_scan), and the int4
+requantization of decoding. The port adds one non-JAX entry, "sched": each
+planned module's per-layer DynSchedules (attach_schedules), built once when
+the trainer installs the sparse phase, so that no step syncs the host on the
+block coordinates. Channel mode, the
+scan warm-up and the conversion of a warm-up into this state are not
+ported.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -33,11 +42,13 @@ import torch
 from sparse_matrix_tuning_tpu_torch.config import SMTConfig
 from sparse_matrix_tuning_tpu_torch.models.hf_io import (
     _hf_to_tree_name, load_hf_config, read_safetensor, safetensors_header)
-from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
+from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig, forward_scan
 from sparse_matrix_tuning_tpu_torch.ops.quant import (
     dequantize_weight, dequantize_weight_int4, quantize_weight, quantize_weight_int4)
 from sparse_matrix_tuning_tpu_torch.ops.sparse_linear import (
-    frozen_q4_linear, frozen_q8_linear, smt_linear_dyn)
+    _resolve_impl, dyn_schedule, frozen_q4_linear, frozen_q8_linear, smt_linear_dyn)
+from sparse_matrix_tuning_tpu_torch.smt.optimizer import (
+    AdamConfig, clip_by_global_norm, make_qk_lr_scale)
 from sparse_matrix_tuning_tpu_torch.smt.plan import BLOCK, SMTPlan
 from sparse_matrix_tuning_tpu_torch.train.convert import (
     LAYER_LINEARS, build_q_head, offload_lm_head, resolve_head_quant)
@@ -172,10 +183,11 @@ def build_scan_state_from_hf(cfg: SMTConfig, model_dir: str, plan: SMTPlan,
         raise ValueError(f"checkpoint {model_dir} has no lm_head tensor but "
                          "tie_word_embeddings is False — malformed or mis-configured checkpoint")
 
-    # the JAX state's Adam moments and counters ("m", "v", "count", "step")
-    # belong to the scan sparse step, which is not ported: no device memory
-    # for them here
-    state = {"params": params, "trainable": trainable, "base": base, "idx": idx, "q": q}
+    state = {"params": params, "trainable": trainable, "base": base, "idx": idx,
+             "m": {k: torch.zeros_like(t) for k, t in trainable.items()},
+             "v": {k: torch.zeros_like(t) for k, t in trainable.items()},
+             "count": torch.zeros((), dtype=torch.int32, device=device),
+             "step": torch.zeros((), dtype=torch.int32, device=device), "q": q}
     if resolve_head_quant(cfg, model_cfg, "int8") == "int8":
         state["q_head"] = build_q_head(params, model_cfg)
         state["params"] = offload_lm_head(params, host)
@@ -222,12 +234,14 @@ def requantize_scan_base_int4(state: Dict, consume: bool = False):
 
 
 def make_scan_dispatch(mode: str = "matrix"):
-    """The linear hook of the decode over layer-l views of the scan state:
-    `linear_scan(x, w, module, ex)` with ex = {"q", "t", "idx", "base"[,
-    "corr"]} of one layer. Planned modules run smt_linear_dyn over their
-    frozen base (int4, int8, or the dense `w`), other quantized modules the
-    plain int4 or int8 linear, everything else a dense matmul. Forward
-    only; matrix mode."""
+    """The linear hook of models/llama.forward_scan and of the decode over
+    layer-l views of the scan state: `linear_scan(x, w, module, ex)` with ex
+    = {"q", "t", "idx", "base"[, "sched"][, "corr"]} of one layer. Planned
+    modules run smt_linear_dyn over their frozen base (int4, int8, or the
+    dense `w`; gradients to x and the blocks), with the layer's DynSchedule
+    from "sched" (training) or its precomputed correction from "corr"
+    (decode); other quantized modules the plain int4 or int8 linear,
+    everything else a dense matmul. Matrix mode."""
     _matrix_only(mode)
 
     def linear_scan(x, w, module: str, ex):
@@ -237,10 +251,144 @@ def make_scan_dispatch(mode: str = "matrix"):
             meta = ex["idx"][module]
             frozen = dict(qmod) if qmod is not None else {"w": w}
             return smt_linear_dyn(x, t, meta["rb"], meta["cb"], meta["valid"], frozen,
-                                  ex["base"][module], ex.get("corr", {}).get(module))
+                                  ex["base"][module], ex.get("corr", {}).get(module),
+                                  ex.get("sched", {}).get(module))
         if qmod is not None:
             if "w4" in qmod:
                 return frozen_q4_linear(x, qmod["w4"], qmod["s4"])
             return frozen_q8_linear(x, qmod["wq"], qmod["sw"])
         return torch.matmul(x, w.t())
     return linear_scan
+
+
+# ---------------------------------------------------------------------------
+# Training over the scan state
+# ---------------------------------------------------------------------------
+
+def attach_schedules(state: Dict) -> Dict:
+    """state["sched"] = {mod: [DynSchedule of layer l]}: the valid entries'
+    positions and K5's forward and grad_input schedules of every planned
+    (module, layer), on the trainables' device. Built once, before the
+    first step (it reads the block coordinates on the host: the trainer
+    calls it when it installs the sparse phase); the steps and the eval
+    read it. Returns state."""
+    state["sched"] = {
+        mod: [dyn_schedule(rb, cb, valid, state["trainable"][mod].device)
+              for rb, cb, valid in zip(meta["rb"], meta["cb"], meta["valid"])]
+        for mod, meta in state["idx"].items()}
+    return state
+
+
+def _scan_loss(state: Dict, batch: Dict, trainable, cfg: SMTConfig,
+               model_cfg: LlamaConfig, lowest_layer: Optional[int]) -> torch.Tensor:
+    """The JAX _scan_loss: forward_scan with the scan dispatch, then the
+    loss path and head of steps.head_loss (sparse phase; the int8 head
+    over hidden.float() on the dense path)."""
+    from sparse_matrix_tuning_tpu_torch.train.steps import head_loss
+    layer_xs = {"t": trainable, "idx": state["idx"], "base": state["base"],
+                "sched": state["sched"]}
+    if "q" in state:
+        layer_xs["q"] = state["q"]
+    kw = dict(layer_xs=layer_xs, linear_scan=make_scan_dispatch(),
+              attention_mask=batch.get("attention_mask"), remat=cfg.sparse_remat,
+              stop_grad_below_layer=lowest_layer, attn_impl=cfg.attn_impl)
+    params = state["params"]
+    return head_loss(lambda hidden: forward_scan(params, batch["input_ids"], model_cfg,
+                                                 return_hidden=hidden, **kw),
+                     params, batch, cfg, model_cfg, sparse=True, q_head=state.get("q_head"))
+
+
+def build_scan_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan,
+                           lr_sched: Callable) -> Callable:
+    """Twin of the JAX build_scan_sparse_step: step(state, batch) ->
+    (state, {"loss", "grad_norm", "lr"}), the state updated in place (as
+    steps.build_sparse_step). The grads of the stacked trainables are
+    clipped on their global norm and Adam updates every entry (K2 once per
+    module on CUDA tensors). A padded entry's grad is 0 as smt_linear_dyn's
+    backward gives it (JAX masks by `valid` to the same effect), so only
+    the weight decay moves it. The qk LR boost is keyed by module name. No
+    scatter: the base stays int8 and the delta corrects it. The state
+    carries its "sched" (attach_schedules)."""
+    from sparse_matrix_tuning_tpu_torch.train.steps import (
+        accumulated_value_and_grad, block_adam)
+    _matrix_only(plan.mode)
+    adam_cfg = AdamConfig(betas=tuple(cfg.matrix_adam_betas), eps=cfg.adam_eps,
+                          weight_decay=cfg.w_decay, grad_clip=cfg.grad_clip)
+    adam = block_adam(adam_cfg, make_qk_lr_scale(cfg.qk_lr_times) if cfg.qk_scheduler else None)
+    lowest_layer = min(lp.layer for lp in plan.linears.values())
+
+    def step(state: Dict, batch: Dict) -> tuple:
+        trainable = state["trainable"]
+        for t in trainable.values():
+            t.requires_grad_(True)
+        impl = _resolve_impl(cfg.sparse_impl, state["count"].device)
+
+        def loss_of(tr, mb):
+            return _scan_loss(state, mb, tr, cfg, model_cfg, lowest_layer)
+
+        vag = accumulated_value_and_grad(loss_of, cfg.gradient_accumulation_steps)
+        loss, grads = vag(trainable, batch)
+        with torch.no_grad():
+            grads, gnorm = clip_by_global_norm(grads, adam_cfg.grad_clip)
+            lr = lr_sched(state["count"])
+            adam(impl, grads, state, trainable, lr)
+            del grads
+            for p in trainable.values():
+                p.grad = None
+            state["step"].add_(1)
+        return state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
+
+    return step
+
+
+def build_scan_eval_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan) -> Callable:
+    """The eval loss: the sparse step's forward and loss, no gradient."""
+    _matrix_only(plan.mode)
+
+    @torch.no_grad()
+    def step(state, batch) -> torch.Tensor:
+        return _scan_loss(state, batch, state["trainable"], cfg, model_cfg, lowest_layer=None)
+
+    return step
+
+
+def _scatter_trained_layer(w: torch.Tensor, meta_host: Dict, l: int) -> None:
+    """Layer l's valid trained blocks into its (O, I) host weight, in place,
+    in w's dtype."""
+    j = torch.nonzero(meta_host["valid"][l]).reshape(-1)
+    if not j.numel():
+        return
+    w4 = w.view(w.shape[0] // BLOCK, BLOCK, w.shape[1] // BLOCK, BLOCK)
+    w4[meta_host["rb"][l, j].long(), :, meta_host["cb"][l, j].long(), :] = \
+        meta_host["t"][l, j].to(w.dtype)
+
+
+@torch.no_grad()
+def merged_params_from_scan(state: Dict, plan: SMTPlan, model_cfg: LlamaConfig,
+                            host_frozen: Optional[Dict] = None) -> Dict:
+    """The per-layer HF-layout params of the scan state on the host, with the
+    trained blocks scattered in: an exact export whatever the int8 compute
+    did (twin of the JAX merged_params_from_scan, one process). The frozen
+    and unplanned layer weights come from host_frozen (the checkpoint's, as
+    loaded) unchanged, or from the device stacks; only the valid blocks of
+    planned modules are written, into copies."""
+    _matrix_only(plan.mode)
+    stacked = state["params"]["layers_stacked"]
+    meta_host = {mod: {**{k: v.to("cpu") for k, v in meta.items()},
+                       "t": state["trainable"][mod].detach().to("cpu")}
+                 for mod, meta in state["idx"].items()}
+    layers: Dict[str, Dict] = {str(l): {} for l in range(model_cfg.num_hidden_layers)}
+    for mod, src in stacked.items():
+        entry = host_frozen.get(mod) if host_frozen is not None else None
+        planned = mod in meta_host
+        for l in range(model_cfg.num_hidden_layers):
+            w = (entry if entry is not None else src)[l]
+            if planned and w.dim() == 2:
+                w = w.to("cpu", copy=True)   # the scatter must not touch the store
+                _scatter_trained_layer(w, meta_host[mod], l)
+            layers[str(l)][mod] = w.to("cpu")
+    params = {k: v.to("cpu") for k, v in state["params"].items() if k != "layers_stacked"}
+    if host_frozen is not None and "lm_head" in host_frozen:
+        params["lm_head"] = host_frozen["lm_head"]
+    params["layers"] = layers
+    return params

@@ -113,21 +113,29 @@ def compute_loss(params, batch, cfg: SMTConfig, model_cfg: LlamaConfig,
     kw = dict(attention_mask=batch.get("attention_mask"),
               linear=linear or default_linear, remat=remat,
               stop_grad_below_layer=stop_grad_below_layer, attn_impl=cfg.attn_impl)
+    return head_loss(lambda hidden: forward(params, batch["input_ids"], model_cfg,
+                                            return_hidden=hidden, **kw),
+                     params, batch, cfg, model_cfg, sparse, q_head)
+
+
+def head_loss(run, params, batch, cfg: SMTConfig, model_cfg: LlamaConfig, sparse: bool,
+              q_head=None):
+    """The loss of compute_loss over a decoder `run(return_hidden)` (forward
+    or, for the scan state, forward_scan): the loss path and the head as
+    compute_loss describes them."""
     b, sq = batch["input_ids"].shape
     if _use_chunked_loss(cfg, model_cfg, sparse=sparse, batch_tokens=b * (sq - 1)):
-        hidden = forward(params, batch["input_ids"], model_cfg, return_hidden=True, **kw)
+        hidden = run(True)
         if q_head is not None:
             return chunked_causal_lm_loss_q8(hidden, q_head["wq"], q_head["sw"],
                                              batch["labels"], cfg.vocab_chunk)
         return chunked_causal_lm_loss(hidden, lm_head_weight(params, model_cfg),
                                       batch["labels"], cfg.vocab_chunk)
     if q_head is not None:
-        hidden = forward(params, batch["input_ids"], model_cfg, return_hidden=True, **kw)
         # fp32 input -> fp32 logits straight from the int32 product
-        logits = frozen_q8_linear(hidden.float(), q_head["wq"], q_head["sw"])
+        logits = frozen_q8_linear(run(True).float(), q_head["wq"], q_head["sw"])
         return causal_lm_loss(logits, batch["labels"])
-    logits = forward(params, batch["input_ids"], model_cfg, **kw)
-    return causal_lm_loss(logits, batch["labels"])
+    return causal_lm_loss(run(False), batch["labels"])
 
 
 # ---------------------------------------------------------------------------
@@ -293,7 +301,7 @@ def build_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan,
     lr_scale = make_qk_lr_scale(cfg.qk_lr_times) if cfg.qk_scheduler else None
     # autograd parity: no backward below the lowest trainable layer
     lowest_layer = min(lp.layer for lp in plan.linears.values())
-    consts: Dict[str, torch.Tensor] = {}  # device -> [b1, b2, eps, wd], made once
+    adam = block_adam(adam_cfg, lr_scale)
 
     def step(state: Dict, batch: Dict) -> tuple:
         params = state["params"]
@@ -313,19 +321,7 @@ def build_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan,
         with torch.no_grad():
             grads, gnorm = clip_by_global_norm(grads, adam_cfg.grad_clip)
             lr = lr_sched(state["count"])
-            opt_state = {"m": state["m"], "v": state["v"], "count": state["count"]}
-            if impl == "kernel":
-                key = str(device)
-                if key not in consts:
-                    b1, b2 = adam_cfg.betas
-                    consts[key] = torch.tensor(
-                        [b1, b2, adam_cfg.eps, adam_cfg.weight_decay],
-                        dtype=torch.float32, device=device)
-                _fused_block_adam_update(grads, opt_state, trainable, lr,
-                                         adam_cfg, lr_scale, consts[key])
-            else:
-                adam_step(grads, opt_state, trainable, lr, adam_cfg,
-                          lr_scale=lr_scale)
+            adam(impl, grads, state, trainable, lr)
             del grads
             for p in trainable.values():
                 p.grad = None
@@ -339,12 +335,35 @@ def build_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan,
     return step
 
 
+def block_adam(adam_cfg: AdamConfig, lr_scale) -> Callable:
+    """The sparse phases' Adam update, in place: adam(impl, grads, state,
+    trainable, lr) over state's "m", "v" and "count". K2 on impl "kernel",
+    with the scalars on the device (made once per device); else
+    smt/optimizer.adam_step."""
+    consts: Dict[str, torch.Tensor] = {}  # device -> [b1, b2, eps, wd]
+
+    def adam(impl: str, grads, state, trainable, lr):
+        opt_state = {"m": state["m"], "v": state["v"], "count": state["count"]}
+        if impl != "kernel":
+            return adam_step(grads, opt_state, trainable, lr, adam_cfg, lr_scale=lr_scale)
+        device = state["count"].device
+        key = str(device)
+        if key not in consts:
+            b1, b2 = adam_cfg.betas
+            consts[key] = torch.tensor([b1, b2, adam_cfg.eps, adam_cfg.weight_decay],
+                                       dtype=torch.float32, device=device)
+        return _fused_block_adam_update(grads, opt_state, trainable, lr, adam_cfg,
+                                        lr_scale, consts[key])
+    return adam
+
+
 def _fused_block_adam_update(grads, opt_state, trainable, lr, adam_cfg,
                              lr_scale, consts):
-    """K2 over every trainable linear (one launch each, as the JAX twin's
-    per-tensor Pallas loop). The scalars stay on the device: bias
-    corrections come from the device step count in fp32, and a linear's LR
-    scale (make_qk_lr_scale) is folded into its lr."""
+    """K2 over every trainable linear, or every stacked module of the scan
+    state (one launch each, as the JAX twin's per-tensor Pallas loop). The
+    scalars stay on the device: bias corrections come from the device step
+    count in fp32, and a linear's LR scale (make_qk_lr_scale) is folded
+    into its lr."""
     b1, b2 = adam_cfg.betas
     opt_state["count"].add_(1)
     c = opt_state["count"].float()

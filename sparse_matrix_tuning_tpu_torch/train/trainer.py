@@ -38,15 +38,9 @@ class SMTTrainer:
 
     def __init__(self, cfg: SMTConfig, model_cfg: LlamaConfig, params,
                  total_steps: int, device=None):
-        self.cfg = cfg
-        self.model_cfg = model_cfg
-        self.total_steps = int(total_steps)
-        self.device = torch.device(device if device is not None
-                                   else params["embed_tokens"].device)
-        self.plan: Optional[SMTPlan] = None
-        self._host_frozen: Optional[Dict[str, torch.Tensor]] = None
+        self._init_common(cfg, model_cfg, total_steps,
+                          device if device is not None else params["embed_tokens"].device)
         self.phase = "warmup"
-        self._padding_checked = False
         self._all_2d_shapes = all_2d_param_shapes(params)
 
         self.state = init_warmup_state(params, cfg, device=self.device)
@@ -56,9 +50,46 @@ class SMTTrainer:
         self._sparse_step = None  # built at conversion
         self._eval_step = build_eval_step(cfg, model_cfg)
 
+    def _init_common(self, cfg: SMTConfig, model_cfg: LlamaConfig, total_steps: int, device):
+        self.cfg = cfg
+        self.model_cfg = model_cfg
+        self.total_steps = int(total_steps)
+        self.device = torch.device(device)
+        self.plan: Optional[SMTPlan] = None
+        self._host_frozen: Optional[Dict[str, torch.Tensor]] = None
+        self._scan = False  # the stacked scan state (sparse_scan_from_hf)
+        self._padding_checked = False
         self.history: Dict[str, list] = {"train_loss": [], "eval_loss": [], "ppl": []}
         self.best_eval_loss = float("inf")
         self.reporter: Optional[ThroughputReporter] = None
+
+    @classmethod
+    def sparse_scan_from_hf(cls, cfg: SMTConfig, model_dir: str, plan: SMTPlan,
+                            total_steps: int, model_cfg: Optional[LlamaConfig] = None,
+                            device="cuda") -> "SMTTrainer":
+        """A sparse-phase-only trainer over the int8 scan state, quantized
+        while the local HF checkpoint loads (train/scan_phase.
+        build_scan_state_from_hf): warm-up and selection ran elsewhere and
+        produced `plan`, and the full-precision weights never co-reside on
+        `device` (the JAX trainer's entry of the same name). There is no
+        warm-up state."""
+        from sparse_matrix_tuning_tpu_torch.models.hf_io import load_hf_config
+        from sparse_matrix_tuning_tpu_torch.train.scan_phase import build_scan_state_from_hf
+
+        model_cfg = model_cfg or load_hf_config(model_dir)
+        if plan.mode == "channel":
+            raise NotImplementedError("sparse_scan_from_hf: channel mode is not ported")
+        if plan.mode != "matrix" or cfg.dtype == "fp16":
+            raise ValueError("sparse_scan_from_hf requires matrix or channel mode and dtype != "
+                             "fp16 (the fp16 loss-scale state is created by the warm-up phase, "
+                             "which this entry skips)")
+        self = cls.__new__(cls)
+        self._init_common(cfg, model_cfg, total_steps, device)
+        self.plan, self._scan, self.phase = plan, True, "sparse"
+        self.state, self._host_frozen = build_scan_state_from_hf(cfg, model_dir, plan,
+                                                                 model_cfg, device=self.device)
+        self.install_sparse_phase()
+        return self
 
     # -- conversion ---------------------------------------------------------------
 
@@ -101,6 +132,14 @@ class SMTTrainer:
             self.cfg.lr_scheduler_type, self.cfg.smt_lr,
             self.cfg.smt_lr_warmup_steps,
             max(self.total_steps - conversion_step, 1))
+        if self._scan:
+            from sparse_matrix_tuning_tpu_torch.train import scan_phase
+            scan_phase.attach_schedules(self.state)
+            self._sparse_step = scan_phase.build_scan_sparse_step(
+                self.cfg, self.model_cfg, self.plan, sparse_sched)
+            self._eval_step = scan_phase.build_scan_eval_step(self.cfg, self.model_cfg,
+                                                              self.plan)
+            return
         self._sparse_step = build_sparse_step(self.cfg, self.model_cfg, self.plan,
                                               sparse_sched)
         if self._host_frozen is not None:
@@ -252,6 +291,11 @@ class SMTTrainer:
         trained blocks scattered in (those tensors stay on the CPU): the
         export is exact, whatever the int8 compute path did."""
         if self.phase == "sparse":
+            if self._scan:
+                from sparse_matrix_tuning_tpu_torch.train.scan_phase import (
+                    merged_params_from_scan)
+                return merged_params_from_scan(self.state, self.plan, self.model_cfg,
+                                               self._host_frozen)
             if self._host_frozen is not None:
                 return self._merged_from_host()
             return self.state["params"]
@@ -277,11 +321,15 @@ class SMTTrainer:
         return params
 
     def decode_params(self):
-        """Params for eval/generate.generate: the exact merged dense params,
-        on the trainer's device (weights offloaded to the host come back;
-        the JAX trainer decodes scan+int8 states from the int8 base
-        instead, which the port does not have yet)."""
-        from sparse_matrix_tuning_tpu_torch.eval.generate import prepare_decode_params
+        """Params for eval/generate.generate. The scan trainer decodes from its
+        int8 state, with no dense layer weight on the device
+        (eval/generate.decode_params_from_scan); the others from the exact
+        merged dense params, on the trainer's device (weights offloaded to
+        the host come back)."""
+        from sparse_matrix_tuning_tpu_torch.eval.generate import (
+            decode_params_from_scan, prepare_decode_params)
+        if self.phase == "sparse" and self._scan:
+            return decode_params_from_scan(self.state, self.model_cfg, self._host_frozen)
         merged = tree_map(lambda p: p.to(self.device), self.merged_params())
         return prepare_decode_params(merged, self.model_cfg)
 

@@ -12,7 +12,9 @@ kernels with the most device time; one more step runs under
 torch.cuda.set_sync_debug_mode("warn"), which counts the host-device
 synchronisations it makes. A second trainer over the int8 frozen
 base (--frozen_quant int8: K4, K5, int8 head, host offload) gives the same
-for its sparse step, with the share of device time in K4, K5 and K1.
+for its sparse step, with the share of device time in K4, K5 and K1, and
+so does the continuation over the int8 scan state (--sparse_from_plan)
+from that trainer's weights and plan.
 Decode: eval/generate.generate with the
 eval CLI's settings (beam-4, repetition penalty 1.1, bf16 cache, attention
 through K7) on 16 prompts left-padded to 256 tokens; a call with one new
@@ -64,7 +66,8 @@ def _syncs(fn) -> int:
     """fn() once under torch.cuda.set_sync_debug_mode("warn"): the number of
     operations that synchronised the host with the device (a blocking copy,
     .item(), a host read of a device value), each of which PyTorch reports
-    as a warning."""
+    as a warning. The one-time notice that the debug mode is a prototype
+    is not counted."""
     import warnings
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
@@ -74,7 +77,7 @@ def _syncs(fn) -> int:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return sum("called a synchronizing" in str(w.message) for w in caught)
 
 
 def _profiled(fn):
@@ -233,13 +236,40 @@ def profile_training(model_cfg, device, frozen_quant: str):
         trainer.train_step(batch())
     if trainer.phase != "sparse":
         raise RuntimeError("the trainer did not convert")
-    busy_ms, kernels = _profile_step(trainer, [batch() for _ in range(TIMED + 2)],
-                                     f"{tag}sparse_step")
+    _print_own(f"{tag}sparse_step",
+               *_profile_step(trainer, [batch() for _ in range(TIMED + 2)], f"{tag}sparse_step"))
+    if int8:
+        profile_scan_continuation(trainer, model_cfg, device, batch)
+
+
+def _print_own(label, busy_ms, kernels):
     own = {name: sum(_device_us(e) for e in kernels if part in e.key) / 1e3
            for name, part in OWN_KERNELS.items()}
-    print(f"[profile] {tag}sparse_step: device time in the port's kernels, ms (share of "
+    print(f"[profile] {label}: device time in the port's kernels, ms (share of "
           f"{busy_ms:.1f} ms busy): " + ", ".join(
               f"{name} {ms:.2f} ({ms / busy_ms:.3f})" for name, ms in own.items()), flush=True)
+
+
+def profile_scan_continuation(trainer, model_cfg, device, batch):
+    """The continuation over the int8 scan state (--sparse_from_plan): the
+    int8 trainer's merged weights written as an HF checkpoint under build/
+    with its plan, quantized while loading by SMTTrainer.sparse_scan_from_hf,
+    and its sparse step profiled as the int8 trainer's was."""
+    from sparse_matrix_tuning_tpu_torch.models.hf_io import save_hf_format
+    from sparse_matrix_tuning_tpu_torch.train.trainer import SMTTrainer
+
+    build = os.path.join(os.path.dirname(__file__), "..", "..", "build")
+    os.makedirs(build, exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="profile_ckpt_", dir=build)
+    try:
+        save_hf_format(trainer.merged_params(), model_cfg, ckpt)
+        scan = SMTTrainer.sparse_scan_from_hf(trainer.cfg, ckpt, trainer.plan, total_steps=100,
+                                              model_cfg=model_cfg, device=device)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    scan.train_step(batch())
+    _print_own("scan_sparse_step",
+               *_profile_step(scan, [batch() for _ in range(TIMED + 2)], "scan_sparse_step"))
 
 
 def main():

@@ -79,12 +79,45 @@ def test_int8_and_loss_options_construct(flags, want):
 @pytest.mark.parametrize("kw", [
     dict(scan_layers="on"),
     dict(channel_sparsity=True), dict(dtype="fp16"), dict(resume_from="ckpt"),
-    dict(sparse_from_plan="plan.json"), dict(dropout=0.1), dict(mesh_shape=[1, 2, 1]),
+    dict(dropout=0.1), dict(mesh_shape=[1, 2, 1]),
     dict(profile_dir="prof"), dict(do_gradient_distribution_analysis=True),
 ], ids=lambda kw: next(iter(kw)) + "=" + str(next(iter(kw.values()))))
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         SMTConfig(**kw)
+
+
+def test_sparse_from_plan_parses_and_dispatches(tiny_hf, tmp_path, monkeypatch):
+    """--sparse_from_plan builds (as in JAX) and sends the CLI to
+    SMTTrainer.sparse_scan_from_hf with the plan read from the file; the
+    dense params are never loaded."""
+    from sparse_matrix_tuning_tpu_torch.cli import fine_tune
+    from sparse_matrix_tuning_tpu_torch.models import hf_io
+    from sparse_matrix_tuning_tpu_torch.smt.plan import LinearPlan, SMTPlan
+    from sparse_matrix_tuning_tpu_torch.train.trainer import SMTTrainer
+    flags = ["--frozen_quant", "int8", "--sparse_from_plan", "p.json"]
+    assert parse_args(RECIPE + flags).sparse_from_plan == "p.json" == \
+        jax_parse_args(RECIPE + flags).sparse_from_plan
+
+    plan = SMTPlan("matrix", {"1.q_proj": LinearPlan("q_proj", 1, 256, 256, ((0, 0),))})
+    (tmp_path / "plan.json").write_text(plan.to_json())
+    seen = {}
+
+    def entry(cfg, model_dir, got_plan, total_steps, model_cfg=None, device=None):
+        seen.update(plan=got_plan.to_json(), model_dir=model_dir, device=str(device))
+        raise StopIteration
+
+    def no_dense_load(*a, **k):
+        raise AssertionError("the dense params were loaded")
+
+    monkeypatch.setattr(SMTTrainer, "sparse_scan_from_hf", staticmethod(entry))
+    monkeypatch.setattr(hf_io, "load_hf_params", no_dense_load)
+    _, d, data = tiny_hf
+    with pytest.raises(StopIteration):
+        fine_tune.main(["--model_name_or_path", d, "--data_path", data, "--device", "cpu",
+                        "--matrix_sparsity", "--frozen_quant", "int8", "--dtype", "fp32",
+                        "--sparse_from_plan", str(tmp_path / "plan.json")])
+    assert seen == {"plan": plan.to_json(), "model_dir": d, "device": "cpu"}
 
 
 def test_bad_values_raise_value_error():

@@ -28,7 +28,6 @@ from sparse_matrix_tuning_tpu_torch.models import llama
 from sparse_matrix_tuning_tpu_torch.models.from_jax import plan_from_jax, scan_state_from_jax
 from sparse_matrix_tuning_tpu_torch.models.hf_io import write_safetensors
 from sparse_matrix_tuning_tpu_torch.ops.quant import dequantize_weight_int4
-from sparse_matrix_tuning_tpu_torch.ops.sparse_linear import smt_linear_dyn
 from sparse_matrix_tuning_tpu_torch.smt.plan import BLOCK
 from sparse_matrix_tuning_tpu_torch.train import scan_phase
 
@@ -113,19 +112,6 @@ def decode_params(carried):
     return out
 
 
-def _assert_same_tree(port, want, path=""):
-    """Equal keys, shapes, dtypes and values, bit for bit."""
-    assert set(port) == set(want), (path, sorted(port), sorted(want))
-    for k, v in port.items():
-        if isinstance(v, dict):
-            _assert_same_tree(v, want[k], f"{path}.{k}")
-            continue
-        w = np.asarray(want[k])
-        assert str(v.dtype).replace("torch.", "") == w.dtype.name, (f"{path}.{k}", v.dtype)
-        assert tuple(v.shape) == w.shape, (f"{path}.{k}", tuple(v.shape), w.shape)
-        np.testing.assert_array_equal(tp.np32(v), w.astype(np.float32), err_msg=f"{path}.{k}")
-
-
 # ---------------------------------------------------------------------------
 # the state: bit for bit
 # ---------------------------------------------------------------------------
@@ -133,7 +119,7 @@ def _assert_same_tree(port, want, path=""):
 def test_stack_plan_indices_equal_jax():
     jplan = _jax_plan()
     got = scan_phase.stack_plan_indices(plan_from_jax(jplan), 2)
-    _assert_same_tree(got, tp.numpy_tree(jscan.stack_plan_indices(jplan, 2)))
+    tp.assert_same_leaves(got, tp.numpy_tree(jscan.stack_plan_indices(jplan, 2)))
     assert got["down_proj"]["valid"].tolist() == [[False, False], [True, True]]
 
 
@@ -150,12 +136,10 @@ def test_quantize_on_load_equals_jax(ckpt, tmp_path, case):
     pstate, phost = scan_phase.build_scan_state_from_hf(pcfg, d, plan_from_jax(jplan),
                                                         model_cfgs[1], device="cpu")
     jstate = tp.numpy_tree(jstate)
-    # every leaf but the scan sparse step's Adam state (not ported)
-    _assert_same_tree(pstate, {k: v for k, v in jstate.items()
-                               if k not in ("m", "v", "count", "step")})
-    _assert_same_tree(phost, tp.numpy_tree(jhost))
-    _assert_same_tree(scan_state_from_jax(jstate), {k: jstate[k] for k in
-                                                    ("params", "q", "trainable", "base", "idx")})
+    # every leaf, the scan sparse step's Adam moments and counters included
+    tp.assert_same_leaves(pstate, jstate)
+    tp.assert_same_leaves(phost, tp.numpy_tree(jhost))
+    tp.assert_same_leaves(scan_state_from_jax(jstate), jstate)
     assert ("lm_head" in pstate["params"]) == (case != "tied-head")
     assert ("q_head" in pstate) == ("lm_head" in phost) == (case == "int8-head")
     assert bool(pstate["trainable"]) == (case != "empty-plan")
@@ -184,8 +168,8 @@ def test_requantize_int4_equals_jax(carried, jax_int4, consume):
     _, pstate = carried
     pstate = dict(pstate, q=dict(pstate["q"]))
     q4, base4 = scan_phase.requantize_scan_base_int4(pstate, consume=consume)
-    _assert_same_tree(q4, jax_int4[0])
-    _assert_same_tree(base4, jax_int4[1])
+    tp.assert_same_leaves(q4, jax_int4[0])
+    tp.assert_same_leaves(base4, jax_int4[1])
     assert pstate["q"] == {} if consume else set(pstate["q"]) == set(q4)
 
 
@@ -321,16 +305,3 @@ def test_decode_params_refusals(carried, fault):
              "fp8": "int4"}[fault]
     with pytest.raises(ValueError, match=match):
         pgen.decode_params_from_scan(state, PCFG, **kw)
-
-
-def test_smt_linear_dyn_has_no_backward(carried):
-    _, pstate = carried
-    blocks = pstate["trainable"]["gate_proj"][0].clone().requires_grad_(True)
-    meta = {k: v[0] for k, v in pstate["idx"]["gate_proj"].items()}
-    frozen = {k: v[0] for k, v in pstate["q"]["gate_proj"].items()}
-    args = (torch.zeros((2, 256)), blocks, meta["rb"], meta["cb"], meta["valid"], frozen,
-            pstate["base"]["gate_proj"][0])
-    with pytest.raises(NotImplementedError, match="backward"):
-        smt_linear_dyn(*args)
-    with torch.no_grad():
-        assert smt_linear_dyn(*args).shape == (2, 512)

@@ -73,6 +73,19 @@ def assert_trees_equal(port_tree, jax_tree):
             np.testing.assert_array_equal(np32(v), np32(jax_tree[k]), err_msg=k)
 
 
+def assert_same_leaves(port, want, path=""):
+    """Equal keys, shapes, dtypes and values, bit for bit."""
+    assert set(port) == set(want), (path, sorted(port), sorted(want))
+    for k, v in port.items():
+        if isinstance(v, dict):
+            assert_same_leaves(v, want[k], f"{path}.{k}")
+            continue
+        w = np.asarray(want[k])
+        assert str(v.dtype).replace("torch.", "") == w.dtype.name, (f"{path}.{k}", v.dtype)
+        assert tuple(v.shape) == w.shape, (f"{path}.{k}", tuple(v.shape), w.shape)
+        np.testing.assert_array_equal(np32(v), w.astype(np.float32), err_msg=f"{path}.{k}")
+
+
 def lm_batches(n, bsz=4, seq=32, vocab=256, seed=0, pad_from=None):
     """Token batches of tests/test_train_e2e.py's learnable pattern, with
     optional right padding from position `pad_from` in the last row."""
