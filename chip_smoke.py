@@ -93,7 +93,20 @@ Phases, in order; any failure raises and the exit code is non-zero:
      the trained blocks, which equal the trainables; each line beside the
      card's name and power limit. Among the references, the same path at
      a tiny fp32 size (a padded plan with a module absent from one layer)
-     on the GPU against the CPU, losses within 1e-3.
+     on the GPU against the CPU, losses within 1e-3;
+  9. runs H and I (after E, before B), channel mode: H as A with
+     --channel_sparsity at the CLI's 30 attention and 30 MLP channels (a
+     warm-up that only harvests |activation| saliency: K3 forward, no K3
+     backward, no K2; the sparse steps K3 and K2 on the (O, n) columns, no
+     K1, K5, K4 or K6), with its export checked as A's (the frozen weights
+     bit for bit, the selected columns the trainables); I, H's export and
+     channel plan under --frozen_quant int8 --sparse_from_plan, as G (K4 t
+     and g, one row quantization per K4 call, K2, no K1 or K5; no more
+     syncs a sparse step than E's; the export bit for bit H's but for the
+     trained columns), then two greedy decode legs over I's trained state
+     (I8 the int8 base, K4; I4 the base requantized to int4, K6), 16
+     prompts, 32 new tokens. Among the references, H's path and I's at
+     the tiny fp32 size, GPU against CPU.
 Before the references, K6 (the int4 unpack-matmul) runs at eight shapes
 (K6_SHAPES: the TinyLlama linears at the eval decode's 64 rows, 16 and a
 ragged 7, Llama-3-8B's gate) and on the layer views of a stack (K6s),
@@ -1515,12 +1528,15 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
                   full_ft_steps=3, sparse_steps=4, eval_batches=2,
                   ratios=(0.0084, 0.0084), attn_impl="auto", out_dir=None, log_fn=log,
                   keep_decode_params=False, frozen_quant="none", loss_impl="auto",
-                  count_syncs=False):
+                  count_syncs=False, mode="matrix"):
     """SMTTrainer.fit through warm-up -> conversion -> sparse -> eval ->
-    final export, with per-phase step times and peak memory. Checks
-    finiteness, a non-empty plan, the merged weights (frozen ones bitwise
-    the conversion-time weights, selected blocks the trainables), the
-    export against merged_params(), and, with frozen_quant="int8" (host
+    final export, with per-phase step times and peak memory; mode "matrix"
+    (the block ratios) or "channel" (--channel_sparsity at the CLI's 30
+    attention and 30 MLP channels: a warm-up that only harvests
+    activations, then whole input columns train). Checks finiteness, a
+    non-empty plan, the merged weights (frozen ones bitwise the
+    conversion-time weights, selected blocks or columns the trainables),
+    the export against merged_params(), and, with frozen_quant="int8" (host
     offload and the int8 head follow), that no dense layer weight or head
     is left on the device. Returns a summary, with trainer.decode_params()
     under "decode_params" if asked for, and with count_syncs the eval ms
@@ -1539,8 +1555,8 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
     cuda = device.type == "cuda"
     cfg = SMTConfig(
         data_path=["synthetic"], model_name_or_path="random-init", dtype=dtype,
-        gradient_checkpointing=True, matrix_sparsity=True,
-        full_ft_steps=full_ft_steps,
+        gradient_checkpointing=True, matrix_sparsity=mode == "matrix",
+        channel_sparsity=mode == "channel", full_ft_steps=full_ft_steps,
         downsample_attention_blocks_ratio=ratios[0],
         downsample_mlp_blocks_ratio=ratios[1],
         # recipes/smt_commonsense.sh hyper-parameters
@@ -1624,8 +1640,9 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
         raise AssertionError("the plan is empty")
     if summary["phase"][full_ft_steps - 1] != "warmup" or summary["phase"][-1] != "sparse":
         raise AssertionError(f"phases {summary['phase']}")
-    summary["plan"] = {"linears": len(plan.linears), "blocks": sum(
-        lp.n_blocks for lp in plan.linears.values()),
+    summary["plan"] = {"mode": plan.mode, "linears": len(plan.linears), "blocks": sum(
+        lp.n_blocks for lp in plan.linears.values()), "channels": sum(
+        lp.n_channels for lp in plan.linears.values()),
         "trainable_params": plan.trainable_params, "fingerprint": plan.fingerprint()}
 
     # int8 frozen base with host offload: no dense (O, I) layer weight and
@@ -1658,15 +1675,23 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
                     raise AssertionError(f"frozen weight {li}.{mod} changed")
             else:
                 mask = torch.zeros(before.shape, dtype=torch.bool)
-                for rb, cb in lp.blocks:
-                    mask[rb * BLOCK:(rb + 1) * BLOCK, cb * BLOCK:(cb + 1) * BLOCK] = True
+                trained = trainer.state["trainable"][ks].detach().to("cpu", w.dtype)
+                if plan.mode == "channel":
+                    mask[:, list(lp.channels)] = True
+                    if not torch.equal(w[:, plan.channel_index(ks, "cpu")], trained):
+                        raise AssertionError(f"{li}.{mod}: selected columns differ from the "
+                                             "trainables")
+                else:
+                    for rb, cb in lp.blocks:
+                        mask[rb * BLOCK:(rb + 1) * BLOCK, cb * BLOCK:(cb + 1) * BLOCK] = True
+                    w4 = w.view(lp.out_dim // BLOCK, BLOCK, lp.in_dim // BLOCK, BLOCK)
+                    rbs, cbs = plan.block_index(ks, "cpu")
+                    if not torch.equal(w4[rbs, :, cbs, :], trained):
+                        raise AssertionError(f"{li}.{mod}: selected blocks differ from the "
+                                             "trainables")
                 if not torch.equal(w[~mask], before[~mask]):
-                    raise AssertionError(f"{li}.{mod} changed outside its selected blocks")
-                w4 = w.view(lp.out_dim // BLOCK, BLOCK, lp.in_dim // BLOCK, BLOCK)
-                rbs, cbs = plan.block_index(ks, "cpu")
-                blocks = trainer.state["trainable"][ks].detach().to("cpu", w.dtype)
-                if not torch.equal(w4[rbs, :, cbs, :], blocks):
-                    raise AssertionError(f"{li}.{mod}: selected blocks differ from the trainables")
+                    raise AssertionError(f"{li}.{mod} changed outside its selected "
+                                         f"{'columns' if plan.mode == 'channel' else 'blocks'}")
                 changed_in_blocks += int((w[mask] != before[mask]).sum())
                 block_elems += int(mask.sum())
             checked += 1
@@ -1726,7 +1751,7 @@ def eval_and_syncs(trainer, train_ds, eval_ds, bs, seq):
     return {"eval_ms": eval_ms, "eval_batches": len(batches), "sparse_step_syncs": syncs}
 
 
-def check_small_reference(frozen_quant="none", loss_impl="auto"):
+def check_small_reference(frozen_quant="none", loss_impl="auto", mode="matrix"):
     """Tiny fp32 two-phase run on the GPU (attn_impl "auto": K3) against the
     same run on the CPU (plain versions, einsum attention): losses and plan
     must agree, and every kernel of the path must have launched on the GPU.
@@ -1734,7 +1759,8 @@ def check_small_reference(frozen_quant="none", loss_impl="auto"):
     loss_impl="chunked", K4 also on the loss's ragged T = bs * (seq - 1)). The bf16 base holds
     the losses to rtol 1e-4. The int8 base to 1e-3: its integer products are
     exact on both devices, but an activation that differs in its last fp32
-    bit between them can round to the neighbouring int8 step."""
+    bit between them can round to the neighbouring int8 step. mode
+    "channel": run H's path (K3 and K2, no K1)."""
     import numpy as np
     import torch
     from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
@@ -1742,7 +1768,7 @@ def check_small_reference(frozen_quant="none", loss_impl="auto"):
     cfg = LlamaConfig.tiny(vocab_size=512)
     kw = dict(dtype="fp32", bs=4, seq=64, full_ft_steps=2, sparse_steps=4,
               eval_batches=1, ratios=(0.05, 0.05), log_fn=lambda m: None,
-              frozen_quant=frozen_quant, loss_impl=loss_impl)
+              frozen_quant=frozen_quant, loss_impl=loss_impl, mode=mode)
     gpu = run_main_path(cfg, "cuda", **kw)
     cpu = run_main_path(cfg, "cpu", **kw)
     int8 = frozen_quant == "int8"
@@ -1753,11 +1779,16 @@ def check_small_reference(frozen_quant="none", loss_impl="auto"):
     # fp32 attention walks each group whole: no partitions, no reduce
     needed = tuple(n for n in TRAIN_KERNELS if n != "attn_bwd_dkdv_reduce") + (
         Q8_KERNELS if int8 else ())
+    if mode == "channel":
+        needed = tuple(n for n in needed if n != "block_grad")
+        if gpu["launches"]["block_grad"]:
+            raise AssertionError(f"tiny channel run launched K1: {gpu['launches']}")
     if not all(gpu["launches"][n] > 0 for n in needed):
         raise AssertionError(f"tiny GPU run did not launch every kernel: {gpu['launches']}")
     worst = float(np.max(np.abs(np.array(gpu["loss"]) - np.array(cpu["loss"]))
                          / np.abs(np.array(cpu["loss"]))))
-    log(f"[reference] tiny fp32 run, frozen_quant {frozen_quant}, loss {gpu['loss_path']}, GPU "
+    log(f"[reference] tiny fp32 {mode} run, frozen_quant {frozen_quant}, loss "
+        f"{gpu['loss_path']}, GPU "
         f"kernels vs CPU plain: losses {gpu['loss']} (worst rel diff {worst:.2e}), eval loss "
         f"{gpu['eval_loss']:.6f} vs {cpu['eval_loss']:.6f}, same plan "
         f"{gpu['plan']['fingerprint'][:16]}, GPU launches {gpu['launches']}")
@@ -1780,10 +1811,14 @@ def report_run(tag, what, s, n_warmup):
         f"{s['eval_and_export_s']:.1f} s; export tensors equal to merged_params(): "
         f"{s['export_tensors_equal']}; frozen weights checked {s['frozen_checked']}; "
         f"selected elements changed {s['selected_elems_changed'][0]}/"
-        f"{s['selected_elems_changed'][1]}, selected blocks equal to the trainables"
+        f"{s['selected_elems_changed'][1]}, selected {'columns' if s['plan']['mode'] == 'channel' else 'blocks'} "
+        "equal to the trainables"
         + (f"; {s['offloaded']} dense weights offloaded to the host, none left on the device"
            if s["offloaded"] is not None else ""))
     log(f"[{tag}] kernel launches: {s['launches']} (warm-up: {s['launches_warmup']})")
+    if "sparse_step_syncs" in s:
+        log(f"[{tag}] eval {s['eval_ms']:.1f} ms for {s['eval_batches']} batches; host-device "
+            f"syncs in a sparse step {s['sparse_step_syncs']} ({CARD['smi']})")
 
 
 # ---------------------------------------------------------------------------
@@ -2442,18 +2477,20 @@ SCAN_KERNELS = TRAIN_KERNELS + Q8_KERNELS  # every kernel run G must launch
 
 def run_scan_continuation(model_dir, plan_path, model_cfg, device, *, dtype="bf16", bs=4,
                           seq=512, sparse_steps=4, eval_batches=2, out_dir=None,
-                          count_syncs=False, keep_state=False):
-    """Run G: what `cli.fine_tune --frozen_quant int8 --sparse_from_plan`
-    runs, SMTTrainer.sparse_scan_from_hf (the checkpoint in model_dir
-    quantized while it loads into the int8 scan state, the plan from
-    plan_path) then fit: `sparse_steps` sparse steps, the eval loss, the
-    final export. Recipe learning rate, remat, attention "auto", int8 head.
-    Checks: finite losses, no dense layer weight or head on the device, and
-    the export against the checkpoint it was loaded from: every tensor bit
-    for bit but the valid trained blocks, which equal the trainables.
-    Returns a summary (launches zeroed just before fit, read just after;
-    losses and grad norms by step; with keep_state, on the host, each
-    module's trainables' change over fit and its Adam moment m)."""
+                          count_syncs=False, keep_state=False, decode_legs=False):
+    """Runs G and I: what `cli.fine_tune --frozen_quant int8
+    --sparse_from_plan` runs, SMTTrainer.sparse_scan_from_hf (the checkpoint
+    in model_dir quantized while it loads into the int8 scan state, the
+    plan from plan_path, matrix or channel) then fit: `sparse_steps` sparse
+    steps, the eval loss, the final export. Recipe learning rate, remat,
+    attention "auto", int8 head. Checks: finite losses, no dense layer
+    weight or head on the device, and the export against the checkpoint it
+    was loaded from: every tensor bit for bit but the valid trained blocks
+    (or columns), which equal the trainables. Returns a summary (launches
+    zeroed just before fit, read just after; losses and grad norms by step;
+    with keep_state, on the host, each module's trainables' change over fit
+    and its Adam moment m; with decode_legs, run_scan_decode's legs over
+    the trained state, last, as they consume it)."""
     import numpy as np
     import torch
     from sparse_matrix_tuning_tpu_torch.config import SMTConfig
@@ -2464,17 +2501,19 @@ def run_scan_continuation(model_dir, plan_path, model_cfg, device, *, dtype="bf1
 
     device = torch.device(device)
     cuda = device.type == "cuda"
+    with open(plan_path) as f:
+        plan = SMTPlan.from_json(f.read())
     cfg = SMTConfig(
         data_path=["synthetic"], model_name_or_path=model_dir, dtype=dtype,
-        gradient_checkpointing=True, matrix_sparsity=True, frozen_quant="int8",
+        gradient_checkpointing=True, matrix_sparsity=plan.mode == "matrix",
+        channel_sparsity=plan.mode == "channel", frozen_quant="int8",
         sparse_from_plan=plan_path, ft_learning_rate=9.865e-6, smt_lr=9.865e-6,
         per_device_ft_batch_size=bs, per_device_eval_batch_size=bs, max_seq_len=seq,
         seq_buckets=[seq], num_ft_epochs=1, eval_step=0, save_steps=0, log_steps=1,
         throughput_steps=10 ** 9, seed=1234, output_dir=out_dir)
     train_ds = synthetic_sft(sparse_steps * bs, seq, model_cfg.vocab_size, 1)
     eval_ds = synthetic_sft(eval_batches * bs, seq, model_cfg.vocab_size, 2)
-    with open(plan_path) as f:
-        plan = SMTPlan.from_json(f.read())
+    tag = "I" if plan.mode == "channel" else "G"
     gib = 1024 ** 3
     summary = {"step_ms": [], "loss": [], "grad_norm": []}
     if cuda:
@@ -2496,8 +2535,8 @@ def run_scan_continuation(model_dir, plan_path, model_cfg, device, *, dtype="bf1
     dense = [m for m in LAYER_LINEARS
              if m in stacked and tuple(stacked[m].shape) != (model_cfg.num_hidden_layers, 1)]
     if dense or state["params"]["lm_head"].dim() == 2 or "q_head" not in state:
-        raise AssertionError(f"run G: dense layer weights {dense} or a dense head on the device, "
-                             f"or no int8 head")
+        raise AssertionError(f"run {tag}: dense layer weights {dense} or a dense head on the "
+                             "device, or no int8 head")
     summary["stacked_blocks"] = {m: tuple(t.shape) for m, t in state["trainable"].items()}
 
     marks = {"exit": 0.0}
@@ -2523,7 +2562,7 @@ def run_scan_continuation(model_dir, plan_path, model_cfg, device, *, dtype="bf1
     if cuda:
         summary["peak_gib"] = (torch.cuda.max_memory_allocated() - before) / gib
     if not all(np.isfinite(summary["loss"] + [summary["eval_loss"]])):
-        raise AssertionError(f"run G: non-finite loss {summary['loss']}, "
+        raise AssertionError(f"run {tag}: non-finite loss {summary['loss']}, "
                              f"{summary['eval_loss']}")
     if keep_state:
         summary["change"] = {m: state["trainable"][m].detach().to("cpu") - t
@@ -2538,7 +2577,7 @@ def run_scan_continuation(model_dir, plan_path, model_cfg, device, *, dtype="bf1
         equal, blocks = 0, 0
         for top in ("embed_tokens", "norm", "lm_head"):
             if not torch.equal(got[top], src[top]):
-                raise AssertionError(f"run G's export changed {top}")
+                raise AssertionError(f"run {tag}'s export changed {top}")
             equal += 1
         for li, layer in src["layers"].items():
             for mod, w in layer.items():
@@ -2547,26 +2586,87 @@ def run_scan_continuation(model_dir, plan_path, model_cfg, device, *, dtype="bf1
                 keep = [] if meta is None else torch.nonzero(meta["valid"][int(li)]).reshape(-1)
                 if not len(keep):
                     if not torch.equal(g, w):
-                        raise AssertionError(f"run G's export changed unplanned {li}.{mod}")
+                        raise AssertionError(f"run {tag}'s export changed unplanned {li}.{mod}")
                     equal += 1
                     continue
                 mask = torch.zeros(w.shape, dtype=torch.bool)
-                g4 = g.view(w.shape[0] // BLOCK, BLOCK, w.shape[1] // BLOCK, BLOCK)
                 t = state["trainable"][mod][int(li)].detach().to("cpu", g.dtype)
-                for j in keep.tolist():
-                    rb, cb = int(meta["rb"][int(li), j]), int(meta["cb"][int(li), j])
-                    mask[rb * BLOCK:(rb + 1) * BLOCK, cb * BLOCK:(cb + 1) * BLOCK] = True
-                    if not torch.equal(g4[rb, :, cb, :], t[j]):
-                        raise AssertionError(f"run G's export: {li}.{mod} block ({rb}, {cb}) "
-                                             "differs from the trainable")
-                    blocks += 1
+                if "ci" in meta:   # the valid trained columns
+                    ci = meta["ci"][int(li)].to("cpu")[keep.to("cpu")].long()
+                    mask[:, ci] = True
+                    if not torch.equal(g[:, ci], t[:, keep.to("cpu")]):
+                        raise AssertionError(f"run {tag}'s export: {li}.{mod} columns differ "
+                                             "from the trainables")
+                    blocks += len(keep)
+                else:
+                    g4 = g.view(w.shape[0] // BLOCK, BLOCK, w.shape[1] // BLOCK, BLOCK)
+                    for j in keep.tolist():
+                        rb, cb = int(meta["rb"][int(li), j]), int(meta["cb"][int(li), j])
+                        mask[rb * BLOCK:(rb + 1) * BLOCK, cb * BLOCK:(cb + 1) * BLOCK] = True
+                        if not torch.equal(g4[rb, :, cb, :], t[j]):
+                            raise AssertionError(f"run {tag}'s export: {li}.{mod} block ({rb}, "
+                                                 f"{cb}) differs from the trainable")
+                        blocks += 1
                 if not torch.equal(g[~mask], w[~mask]):
-                    raise AssertionError(f"run G's export changed {li}.{mod} outside its blocks")
+                    raise AssertionError(f"run {tag}'s export changed {li}.{mod} outside its "
+                                         "trained entries")
         summary["export_equal_tensors"], summary["export_blocks"] = equal, blocks
         del src, got
     if count_syncs:
         summary.update(eval_and_syncs(trainer, train_ds, eval_ds, bs, seq))
+    if decode_legs:
+        summary["decode"] = run_scan_decode(trainer, model_cfg)
     return summary
+
+
+# the decode legs over run I's channel scan state: (tag, frozen base, the
+# kernels each must launch, those it must not)
+SCAN_DECODE_LEGS = (
+    ("I8", "int8", ("q8mm_t", "row_quant", "cached_attn"),
+     ("q4_matmul", "block_correction", "block_grad", "masked_adam")),
+    ("I4", "int4", ("q4_matmul", "cached_attn"),
+     ("q8mm_t", "row_quant", "block_correction", "block_grad", "masked_adam")))
+
+
+def run_scan_decode(trainer, cfg, new_tokens=32):
+    """The decode legs of run I over its trained scan state, as the eval CLI
+    decodes a quantized base: eval/generate.decode_params_from_scan (each
+    planned module's column delta built once, the exact bf16 head back from
+    the host) through the harness, 16 prompts, greedy, bf16 cache,
+    `new_tokens` new tokens; I8 over the int8 base (K4), then I4 over the
+    base requantized to int4 (K6 at the decode rows), which consumes the
+    int8 base. Each: conversion s, the launches of its path. Returns {leg:
+    summary}."""
+    import gc
+
+    import torch
+    from sparse_matrix_tuning_tpu_torch.eval.generate import decode_params_from_scan
+
+    examples = synthetic_eval_examples(16, StandInTokenizer(cfg.vocab_size), seed=11)
+    legs = {}
+    for tag, fq, need, forbid in SCAN_DECODE_LEGS:
+        gc.collect()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = decode_params_from_scan(trainer.state, cfg, trainer._host_frozen,
+                                         frozen_quant=fq, consume=fq == "int4")
+        torch.cuda.synchronize()
+        conv_s = time.perf_counter() - t0
+        leg = eval_leg(tag, f"run I's channel scan state, {fq} base, greedy, {new_tokens} new "
+                       f"tokens (decode params built in {conv_s:.2f} s)", params, cfg, examples,
+                       num_beams=1, max_new_tokens=new_tokens)
+        bad = [n for n in need if leg["launches"][n] <= 0] + [n for n in forbid
+                                                               if leg["launches"][n]]
+        if bad:
+            raise AssertionError(f"run {tag} launches {leg['launches']}: wrong for {bad}")
+        leg["conversion_s"] = conv_s
+        legs[tag] = leg
+        del params
+    agree = float((legs["I8"]["tokens"] == legs["I4"]["tokens"]).mean())
+    log(f"[I] decode legs: I8 {legs['I8']['decode_ms']:.2f} ms/step, I4 "
+        f"{legs['I4']['decode_ms']:.2f} ms/step; token agreement I4 vs I8 {agree:.4f} (random "
+        "weights, int4 against int8 noise)")
+    return legs
 
 
 # What the tiny continuation's steps did, per module, as a share of the
@@ -2608,12 +2708,13 @@ def _shares(by_mod):
     return "{" + ", ".join(f"{mod} {x:.3e}" for mod, x in by_mod.items()) + "}"
 
 
-def check_small_scan_reference():
+def check_small_scan_reference(mode="matrix"):
     """Tiny fp32 continuation over the int8 scan state, the kernels on the
     GPU against their plain versions on the CPU: a random tiny checkpoint
     and a plan with padded modules and a module absent from one layer, run
-    G's path on both devices; _scan_reference_faults finds none, and every
-    kernel of the path launched. Then a planted fault, K1's block grads
+    G's path (mode "channel": run I's, a channel plan) on both devices;
+    _scan_reference_faults finds none, and every kernel of the path
+    launched. Then, in matrix mode, a planted fault, K1's block grads
     zeroed on the GPU, must be found."""
     import numpy as np
     import torch
@@ -2625,11 +2726,18 @@ def check_small_scan_reference():
     cfg = LlamaConfig.tiny(vocab_size=512)
     shapes = {"q_proj": (256, 256), "gate_proj": (512, 256), "up_proj": (512, 256),
               "down_proj": (256, 512)}
-    picks = {("q_proj", 0): ((0, 0),), ("gate_proj", 0): ((0, 0), (1, 0)),
-             ("gate_proj", 1): ((1, 0),), ("up_proj", 0): ((0, 0),), ("up_proj", 1): ((1, 0),),
-             ("down_proj", 1): ((0, 0), (0, 1))}
-    plan = SMTPlan("matrix", {f"{l}.{m}": LinearPlan(m, l, *shapes[m], blocks)
-                              for (m, l), blocks in picks.items()})
+    if mode == "channel":
+        picks = {("q_proj", 0): (3, 17, 200), ("gate_proj", 0): (1, 255),
+                 ("gate_proj", 1): (100, 7, 8), ("up_proj", 0): (1,), ("up_proj", 1): (2,),
+                 ("down_proj", 1): (511, 0, 300)}
+        plan = SMTPlan("channel", {f"{l}.{m}": LinearPlan(m, l, *shapes[m], channels=ch)
+                                   for (m, l), ch in picks.items()})
+    else:
+        picks = {("q_proj", 0): ((0, 0),), ("gate_proj", 0): ((0, 0), (1, 0)),
+                 ("gate_proj", 1): ((1, 0),), ("up_proj", 0): ((0, 0),),
+                 ("up_proj", 1): ((1, 0),), ("down_proj", 1): ((0, 0), (0, 1))}
+        plan = SMTPlan("matrix", {f"{l}.{m}": LinearPlan(m, l, *shapes[m], blocks)
+                                  for (m, l), blocks in picks.items()})
     d = tempfile.mkdtemp(prefix="smoke_scan_ref_", dir=os.path.join(REPO, "build"))
     real_block_grad = sparse_linear.block_grad
     try:
@@ -2640,23 +2748,38 @@ def check_small_scan_reference():
         kw = dict(dtype="fp32", bs=4, seq=64, sparse_steps=4, eval_batches=1, keep_state=True)
         gpu = run_scan_continuation(d, plan_path, cfg, "cuda", **kw)
         cpu = run_scan_continuation(d, plan_path, cfg, "cpu", **kw)
-        sparse_linear.block_grad = lambda g, x, rb, cb: torch.zeros_like(
-            real_block_grad(g, x, rb, cb))
-        planted = run_scan_continuation(d, plan_path, cfg, "cuda", **kw)
+        if mode == "matrix":
+            sparse_linear.block_grad = lambda g, x, rb, cb: torch.zeros_like(
+                real_block_grad(g, x, rb, cb))
+            planted = run_scan_continuation(d, plan_path, cfg, "cuda", **kw)
     finally:
         sparse_linear.block_grad = real_block_grad
         shutil.rmtree(d, ignore_errors=True)
     faults, worst = _scan_reference_faults(gpu, cpu)
     if faults:
-        raise AssertionError("tiny scan continuation, GPU vs CPU: " + "; ".join(faults))
-    planted_faults, planted_worst = _scan_reference_faults(planted, cpu)
-    if not planted_faults:
-        raise AssertionError("tiny scan continuation: zeroed block grads were not found")
-    # fp32 attention walks each group whole: no partitions, no reduce
-    needed = tuple(n for n in SCAN_KERNELS if n != "attn_bwd_dkdv_reduce")
+        raise AssertionError(f"tiny {mode} scan continuation, GPU vs CPU: " + "; ".join(faults))
+    # fp32 attention walks each group whole: no partitions, no reduce; the
+    # channel path has no block grad or block correction
+    needed = tuple(n for n in SCAN_KERNELS if n != "attn_bwd_dkdv_reduce" and not (
+        mode == "channel" and n in ("block_grad", "block_correction")))
     if not all(gpu["launches"][n] > 0 for n in needed):
         raise AssertionError(f"tiny scan run did not launch every kernel: {gpu['launches']}")
     rel = lambda a, b: float(np.max(np.abs(np.array(a) - np.array(b)) / np.abs(np.array(b))))
+    if mode == "channel":
+        if gpu["launches"]["block_grad"] or gpu["launches"]["block_correction"]:
+            raise AssertionError(f"tiny channel scan run launched K1 or K5: {gpu['launches']}")
+        log(f"[reference] tiny fp32 channel continuation over the int8 scan state (padded "
+            f"plan), GPU kernels vs CPU plain: losses {gpu['loss']} (worst rel diff "
+            f"{rel(gpu['loss'], cpu['loss']):.2e}), grad norms {gpu['grad_norm']} (worst rel "
+            f"diff {rel(gpu['grad_norm'], cpu['grad_norm']):.2e}), eval loss "
+            f"{gpu['eval_loss']:.6f} vs {cpu['eval_loss']:.6f}; per module, (GPU - CPU) as a "
+            f"share of the CPU's norm: trainables' change {_shares(worst['change'])} (limit "
+            f"{SCAN_CHANGE_RTOL}), m {_shares(worst['m'])} (limit {SCAN_M_RTOL}); GPU launches "
+            f"{gpu['launches']}")
+        return
+    planted_faults, planted_worst = _scan_reference_faults(planted, cpu)
+    if not planted_faults:
+        raise AssertionError("tiny scan continuation: zeroed block grads were not found")
     log(f"[reference] tiny fp32 continuation over the int8 scan state (padded plan), GPU "
         f"kernels vs CPU plain: losses {gpu['loss']} (worst rel diff "
         f"{rel(gpu['loss'], cpu['loss']):.2e}), grad norms {gpu['grad_norm']} (worst rel diff "
@@ -2670,39 +2793,61 @@ def check_small_scan_reference():
         f"{rel(planted['loss'], gpu['loss']):.2e} of the true GPU run's")
 
 
-def report_scan_run(g, e, n_warmup):
-    """Run G's numbers, each beside the card, and held against run E's."""
+def report_scan_run(g, e, n_warmup, tag="G", src="A"):
+    """Run G's (or I's) numbers, each beside the card, and held against run
+    E's; src names the run whose export and plan it continues."""
     gib = 1024 ** 3
     card = f"({CARD['smi']})"
     g_ms = statistics.median(g["step_ms"][1:])
     e_ms = statistics.median(e["step_ms"][n_warmup + 1:])
-    log(f"[G] TinyLlama-1.1B, A's export quantized while loading into the int8 scan state, A's "
-        f"plan (stacked blocks {g['stacked_blocks']}), bs 4 x seq 512, remat, attn auto (K3), "
-        f"int8 head: losses {g['loss']}, eval loss {g['eval_loss']:.4f} {card}")
-    log(f"[G] quantize-on-load {g['load_s']:.2f} s, its peak {g['load_peak_gib']:.2f} GiB, "
+    entries = "columns" if tag == "I" else "blocks"
+    log(f"[{tag}] TinyLlama-1.1B, {src}'s export quantized while loading into the int8 scan "
+        f"state, {src}'s plan (stacked {entries} {g['stacked_blocks']}), bs 4 x seq 512, remat, "
+        f"attn auto (K3), int8 head: losses {g['loss']}, eval loss {g['eval_loss']:.4f} {card}")
+    log(f"[{tag}] quantize-on-load {g['load_s']:.2f} s, its peak {g['load_peak_gib']:.2f} GiB, "
         f"resident {g['resident_gib']:.3f} GiB; peak over fit {g['peak_gib']:.2f} GiB "
         f"(E's later sparse steps {e['peak']['later_sparse_steps'] / gib:.2f} GiB) {card}")
-    log(f"[G] sparse ms/step {[round(x, 1) for x in g['step_ms']]} (median {g_ms:.1f} over steps "
-        f"2-{len(g['step_ms'])}) vs E's median {e_ms:.1f}; eval {g['eval_ms']:.1f} ms for "
+    log(f"[{tag}] sparse ms/step {[round(x, 1) for x in g['step_ms']]} (median {g_ms:.1f} over "
+        f"steps 2-{len(g['step_ms'])}) vs E's median {e_ms:.1f}; eval {g['eval_ms']:.1f} ms for "
         f"{g['eval_batches']} batches vs E's {e['eval_ms']:.1f}; host-device syncs in a sparse "
         f"step {g['sparse_step_syncs']} vs E's {e['sparse_step_syncs']} {card}")
-    log(f"[G] eval + 2 exports {g['eval_and_export_s']:.1f} s; export: {g['export_equal_tensors']} "
-        f"tensors bit-equal to A's export, {g['export_blocks']} trained blocks equal to the "
-        f"trainables; kernel launches {g['launches']} {card}")
+    log(f"[{tag}] eval + 2 exports {g['eval_and_export_s']:.1f} s; export: "
+        f"{g['export_equal_tensors']} tensors bit-equal to {src}'s export, {g['export_blocks']} "
+        f"trained {entries} equal to the trainables; kernel launches {g['launches']} {card}")
 
 
-def check_scan_run(g, e):
+def check_scan_run(g, e, tag="G"):
     """Run G's launches: every kernel of its path, one row quantization per
-    K4 call, no int4 kernel; and no more syncs a sparse step than E's."""
+    K4 call, no int4 kernel; and no more syncs a sparse step than E's. Run
+    I (tag "I", channel mode): the same without K1 and K5, which it must not
+    launch."""
     lg = g["launches"]
-    bad = [n for n in SCAN_KERNELS if lg[n] <= 0]
-    if bad or lg["q4_matmul"]:
-        raise AssertionError(f"run G launches {lg}: missing {bad}")
+    path = SCAN_KERNELS if tag == "G" else tuple(
+        n for n in SCAN_KERNELS if n not in ("block_grad", "block_correction"))
+    bad = [n for n in path if lg[n] <= 0]
+    if bad or lg["q4_matmul"] or (tag == "I" and (lg["block_grad"] or lg["block_correction"])):
+        raise AssertionError(f"run {tag} launches {lg}: missing {bad}, or a kernel off its path")
     if lg["row_quant"] != lg["q8mm_t"] + lg["q8mm_g"]:
-        raise AssertionError(f"run G: not one row quantization launch per K4 call: {lg}")
+        raise AssertionError(f"run {tag}: not one row quantization launch per K4 call: {lg}")
     if g["sparse_step_syncs"] > e["sparse_step_syncs"]:
-        raise AssertionError(f"run G syncs {g['sparse_step_syncs']} times a sparse step, run E "
-                             f"{e['sparse_step_syncs']}")
+        raise AssertionError(f"run {tag} syncs {g['sparse_step_syncs']} times a sparse step, run "
+                             f"E {e['sparse_step_syncs']}")
+
+
+def check_channel_run(h):
+    """Run H's launches as the JAX channel path runs: the warm-up is a
+    forward only (K3 forward; no K3 backward, no K2), the sparse steps and
+    the eval launch K3 forward and backward and K2, and no K1, K5, K4, row
+    quantization or K6 (the column products are matmuls)."""
+    warm = h["launches_warmup"]
+    rest = {n: c - warm[n] for n, c in h["launches"].items()}
+    off_path = ("block_grad",) + Q8_KERNELS + ("q4_matmul",)
+    bad = ([n for n in ("attn_fwd",) if warm[n] <= 0]
+           + [n for n in K3_KERNELS[1:] + ("masked_adam",) + off_path if warm[n]]
+           + [n for n in K3_KERNELS + ("masked_adam",) if rest[n] <= 0]
+           + [n for n in off_path if rest[n]])
+    if bad:
+        raise AssertionError(f"run H launches: warm-up {warm}, after it {rest}: wrong for {bad}")
 
 
 def main(argv=None):
@@ -2780,6 +2925,8 @@ def main(argv=None):
         check_small_generation()
         check_small_quant_generation()
         check_small_scan_reference()
+        check_small_reference(mode="channel")
+        check_small_scan_reference(mode="channel")
     check_small_reference(frozen_quant="int8", loss_impl="chunked")
     marks.append(("references", time.time()))
     if only_q8:
@@ -2857,6 +3004,32 @@ def main(argv=None):
         raise AssertionError("the chunked q8 loss did not launch K4 once per vocabulary chunk")
     torch.cuda.empty_cache()
     marks.append(("E", time.time()))
+    # H: channel mode (--channel_sparsity at the CLI's 30 attention and 30 MLP
+    # channels) as A, with its export; I: its continuation over the int8 scan
+    # state (--frozen_quant int8 --sparse_from_plan, H's export and channel
+    # plan), held against E, then I's decode legs over the trained state
+    h_dir = tempfile.mkdtemp(prefix="smoke_export_", dir=build_dir)
+    try:
+        run_h = run_main_path(model_cfg, "cuda", out_dir=h_dir, mode="channel", count_syncs=True)
+        report_run("H", "TinyLlama-1.1B bf16, --channel_sparsity (30 + 30 channels), bs 4 x "
+                   "seq 512, remat, attn auto (K3)", run_h, 3)
+        check_channel_run(run_h)
+        torch.cuda.empty_cache()
+        marks.append(("H", time.time()))
+        i_dir = tempfile.mkdtemp(prefix="smoke_export_", dir=build_dir)
+        try:
+            run_i = run_scan_continuation(os.path.join(h_dir, "final"),
+                                          os.path.join(h_dir, "final", "smt_plan.json"),
+                                          model_cfg, "cuda", out_dir=i_dir, count_syncs=True,
+                                          decode_legs=True)
+        finally:
+            shutil.rmtree(i_dir, ignore_errors=True)
+    finally:
+        shutil.rmtree(h_dir, ignore_errors=True)
+    report_scan_run(run_i, run_e, 3, tag="I", src="H")
+    check_scan_run(run_i, run_e, tag="I")
+    torch.cuda.empty_cache()
+    marks.append(("I", time.time()))
     # B: the recipe's max_seq_len 2048, bs 2
     run_b = run_main_path(model_cfg, "cuda", bs=2, seq=2048)
     report_run("B", "TinyLlama-1.1B bf16, bs 2 x seq 2048, remat, attn auto (K3)", run_b, 3)
@@ -2942,6 +3115,12 @@ def main(argv=None):
                              ms_timed_cases=k5_timed, ms_at_plan_n=at_plan_n("K5")),
                         entry("q4_matmul", "q4_matmul.cu", "q4_matmul.py:94",
                               run_f["F1"]["launches"]["q4_matmul"], k6_err, *k6_time)]
+    # every kernel's launches in the channel runs: H, I and I's decode legs
+    runs = {"H": run_h["launches"], "I": run_i["launches"],
+            **{tag: leg["launches"] for tag, leg in run_i["decode"].items()}}
+    for k in kernels:
+        k.setdefault("launches_by_run", {}).update(
+            {tag: counts[k["name"]] for tag, counts in runs.items()})
     log("[smoke] seconds by phase: " + ", ".join(
         f"{name} {t - prev:.1f}" for (name, t), (_, prev) in zip(marks, [("", t_start)] + marks)))
     log(f"[smoke] time_ms: {TIMER_COUNTS['timings']} timings, {TIMER_COUNTS['retries']} "

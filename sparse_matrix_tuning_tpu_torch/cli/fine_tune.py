@@ -9,15 +9,28 @@
       --downsample_mlp_blocks_ratio 0.0084 \
       --output_dir /path/to/out
 
+Channel mode: the warm-up steps only harvest |activation| saliency at the
+inputs of q/k/v/gate/up/down, then whole input columns of those linears
+train:
+
+  python -m sparse_matrix_tuning_tpu_torch.cli.fine_tune \
+      --model_name_or_path /path/to/TinyLlama-1.1B \
+      --data_path /path/to/commonsense_170k.json \
+      --channel_sparsity --full_ft_steps 100 \
+      --num_attention_channel 30 --num_mlp_channel 30 \
+      --output_dir /path/to/out
+
 Sparse-only continuation from a plan made elsewhere (smt_plan.json of an
-earlier run): the checkpoint is quantized to int8 while it loads and only
-the planned blocks train over it:
+earlier run, matrix or channel): the checkpoint is quantized to int8
+while it loads and only the planned blocks (or columns) train over it:
 
   python -m sparse_matrix_tuning_tpu_torch.cli.fine_tune \
       --model_name_or_path /path/to/TinyLlama-1.1B \
       --data_path /path/to/commonsense_170k.json \
       --matrix_sparsity --frozen_quant int8 \
       --sparse_from_plan /path/to/smt_plan.json --output_dir /path/to/out
+
+(with a channel plan, --channel_sparsity in place of --matrix_sparsity).
 
 model_name_or_path must be a local HF checkpoint dir. Runs on the card
 (--device cuda, the default, raises when there is none); --device cpu runs

@@ -10,8 +10,11 @@ paths this port implements:
                 with head_dim 64 or 128, "einsum" otherwise; "flash" runs
                 fullk (resolved per call in models/llama.py)
   frozen_quant  auto -> "none" (int8, the K4/K5 kernels, only on request,
-                until a measurement on the card says it pays)
-  head_quant    auto -> "int8" iff frozen_quant is int8, else "none"
+                until a measurement on the card says it pays; channel mode
+                takes int8 only over the scan state, --sparse_from_plan)
+  head_quant    auto -> "int8" iff the sparse phase's frozen base is int8
+                (frozen_quant int8; in channel mode only over the scan
+                state, --sparse_from_plan), else "none"
   scan_layers   auto -> "off"  (eager loop over layers)
   loss_impl     stays "auto": resolved per phase in train/steps.py
                 (_use_chunked_loss), chunked in the warm-up at a
@@ -145,7 +148,11 @@ class SMTConfig:
         if self.frozen_quant == "auto":
             self.frozen_quant = "none"
         if self.head_quant == "auto":
-            self.head_quant = "int8" if self.frozen_quant == "int8" else "none"
+            # as train/convert.resolve_frozen_quant resolves the base: the
+            # per-layer channel path stays unquantized
+            int8_base = self.frozen_quant == "int8" and (
+                not self.channel_sparsity or bool(self.sparse_from_plan))
+            self.head_quant = "int8" if int8_base else "none"
         if self.scan_layers == "auto":
             self.scan_layers = "off"
 
@@ -153,8 +160,6 @@ class SMTConfig:
         unported = []
         if self.scan_layers == "on":
             unported.append("scan_layers=on (the port loops over layers eagerly)")
-        if self.channel_sparsity:
-            unported.append("--channel_sparsity (channel mode)")
         if self.dtype == "fp16":
             unported.append("--dtype fp16 (dynamic loss scaling)")
         if self.resume_from:

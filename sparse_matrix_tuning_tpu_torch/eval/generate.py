@@ -191,9 +191,10 @@ def decode_params_from_scan(state, model_cfg: LlamaConfig, host_frozen=None,
     """Decode params straight from the int8 scan state (train/scan_phase.py)
     with no dense layer weight on the device: the frozen base stays int8
     (K4), or is requantized to int4 (frozen_quant="int4": K6, half the
-    weight bytes of every decode step), and the selected blocks get their
-    exact trained values through the same delta corrections as the
-    training forward (K5). consume=True frees each int8 module as its int4
+    weight bytes of every decode step), and the selected blocks (or
+    columns, in channel mode) get their exact trained values through the
+    same delta corrections as the training forward (K5; a thin matmul over
+    the columns). consume=True frees each int8 module as its int4
     twin is built (the state becomes decode-only). host_frozen: the
     host-offload dict, needed to restore an offloaded untied lm_head; decode
     keeps the exact head, as exports do.
@@ -201,10 +202,13 @@ def decode_params_from_scan(state, model_cfg: LlamaConfig, host_frozen=None,
     Returns the params with "layers_q8" = {"q", "t", "idx", "base"} (the
     JAX layout) and "layers": one dict per layer of views of those leaves
     and of params["layers_stacked"] ("params"), plus "corr", each planned
-    module's delta and K5 schedule (sparse_linear.dyn_correction): built
-    once here, constant over a decode. No Mosaic layout artifacts (padded
-    packs, transposed scale strips): K6 takes w4 and s4 as they are."""
-    from sparse_matrix_tuning_tpu_torch.ops.sparse_linear import dyn_correction
+    module's delta and K5 schedule (sparse_linear.dyn_correction), or in
+    channel mode its column delta and indices (sparse_linear.
+    chan_correction; None where the layer has no valid column): built once
+    here, constant over a decode. No Mosaic
+    layout artifacts (padded packs, transposed scale strips): K6 takes w4
+    and s4 as they are."""
+    from sparse_matrix_tuning_tpu_torch.ops.sparse_linear import chan_correction, dyn_correction
     from sparse_matrix_tuning_tpu_torch.train.scan_phase import requantize_scan_base_int4
 
     if "q" not in state:
@@ -228,6 +232,15 @@ def decode_params_from_scan(state, model_cfg: LlamaConfig, host_frozen=None,
                          "or 'int4' (packed)")
     t, idx = state.get("trainable", {}), state.get("idx", {})
     dtype = p["embed_tokens"].dtype
+
+    def correction(mod, l):
+        meta = {k: v[l] for k, v in idx[mod].items()}
+        if "ci" in meta:   # None where the layer has no valid column: the frozen linear
+            return (chan_correction(t[mod][l], base[mod][l], meta["ci"], meta["valid"], dtype)
+                    if bool(meta["valid"].any()) else None)
+        return dyn_correction(t[mod][l], base[mod][l], meta["rb"], meta["cb"], meta["valid"],
+                              dtype, dev)
+
     layers = []
     for l in range(model_cfg.num_hidden_layers):
         layers.append({
@@ -236,9 +249,7 @@ def decode_params_from_scan(state, model_cfg: LlamaConfig, host_frozen=None,
             "t": {mod: v[l] for mod, v in t.items()},
             "idx": {mod: {k: v[l] for k, v in meta.items()} for mod, meta in idx.items()},
             "base": {mod: v[l] for mod, v in base.items()},
-            "corr": {mod: dyn_correction(t[mod][l], base[mod][l], idx[mod]["rb"][l],
-                                         idx[mod]["cb"][l], idx[mod]["valid"][l], dtype, dev)
-                     for mod in t},
+            "corr": {mod: correction(mod, l) for mod in t},
         })
     p["layers_q8"] = {"q": q, "t": t, "idx": idx, "base": base, "layers": layers}
     return p

@@ -64,7 +64,8 @@ def scan_state_from_jax(state, device=None) -> Dict[str, Any]:
     moments "m" / "v" and counters "count" / "step", leaf for leaf, dtypes
     kept (int8, int32 and bool included), so both packages train and decode
     from one state (training also needs the port's "sched":
-    train/scan_phase.attach_schedules)."""
+    train/scan_phase.attach_schedules). Either mode: matrix blocks (L, n,
+    256, 256) with "rb" / "cb", or channel columns (L, O, n) with "ci"."""
     out = {k: params_from_jax(state[k], device=device)
            for k in ("params", "q", "q_head", "trainable", "base", "idx", "m", "v")
            if k in state}
@@ -74,6 +75,7 @@ def scan_state_from_jax(state, device=None) -> Dict[str, Any]:
 
 
 def plan_from_jax(plan) -> SMTPlan:
-    """A JAX `SMTPlan` (or its `to_json()` text) -> the port's SMTPlan."""
+    """A JAX `SMTPlan` (or its `to_json()` text), matrix or channel mode ->
+    the port's SMTPlan."""
     text = plan if isinstance(plan, str) else plan.to_json()
     return SMTPlan.from_json(text)

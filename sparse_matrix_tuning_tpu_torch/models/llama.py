@@ -12,7 +12,9 @@ the same thing on the same weights (models/from_jax.py).
 
 The six SMT target linears route through the `linear(x, w, module,
 layer)` dispatch hook; after conversion the planned ones compute through
-the block-sparse autograd Function (ops/sparse_linear.py). `forward_scan`
+the block- or column-sparse autograd Functions (ops/sparse_linear.py), and
+in the channel warm-up `forward(..., activation_taps=)` records their
+inputs' |activation| sums (_tapped). `forward_scan`
 runs the same decoder over the stacked layout of the scan state
 (train/scan_phase.py), an eager loop over layer views.
 """
@@ -309,7 +311,8 @@ def forward(params: Mapping[str, Any], input_ids: torch.Tensor, cfg: LlamaConfig
             remat: bool = True,
             stop_grad_below_layer: Optional[int] = None,
             attn_impl: str = "einsum",
-            return_hidden: bool = False) -> torch.Tensor:
+            return_hidden: bool = False,
+            activation_taps: Optional[dict] = None) -> torch.Tensor:
     """Run the decoder; returns logits (B, S, V) in fp32, or with
     return_hidden the final normed states (B, S, D) before the head (for
     the chunked-vocab loss and the int8 head).
@@ -322,10 +325,38 @@ def forward(params: Mapping[str, Any], input_ids: torch.Tensor, cfg: LlamaConfig
     blocks in `linear` still receive gradients). stop_grad_below_layer:
     detach the residual stream at the input of this layer, as the JAX
     twin's stop_gradient; autograd then never visits the frozen layers
-    below it."""
+    below it.
+
+    activation_taps: when given a dict, it receives each target linear's
+    masked |input| summed over the batch, (S, in_dim) fp32 under
+    "{layer}.{module}" (the channel-saliency statistic, _tapped); the
+    layers then run without remat."""
+    if activation_taps is not None:
+        b, s = input_ids.shape
+        mask = attention_mask if attention_mask is not None else torch.ones(
+            (b, s), dtype=torch.int32, device=input_ids.device)
+        linear = _tapped(linear, activation_taps, mask)
+        remat = False
     layers = ((params["layers"][str(i)], linear) for i in range(cfg.num_hidden_layers))
     return _run(params, layers, input_ids, cfg, attention_mask, remat,
                 stop_grad_below_layer, attn_impl, return_hidden)
+
+
+def _tapped(linear, taps: dict, attention_mask: torch.Tensor):
+    """The linear dispatch, recording sum_batch |x.float()| * mask per
+    target linear: (S, in_dim), the reference's accumulated activation
+    after its sum over dim 0 (smt_helper.py:169). q/k/v read one normed
+    input, as gate/up do: its tap is computed once and shared."""
+    m = attention_mask[..., None].float()
+    last = [None, None]   # the last input and its tap
+
+    def tapped(x, w, module, layer_idx):
+        if module in TARGET_MODULES:
+            if last[0] is not x:
+                last[0], last[1] = x, (x.float().abs() * m).sum(0)
+            taps[f"{layer_idx}.{module}"] = last[1]
+        return linear(x, w, module, layer_idx)
+    return tapped
 
 
 def _unbind_layers(tree):
@@ -591,8 +622,9 @@ def forward_with_cache(params: Mapping[str, Any], input_ids: torch.Tensor,
         # decode over the int8 / int4 frozen base of the scan state
         # (eval/generate.decode_params_from_scan): each layer's linears go
         # through the scan dispatch with that layer's views
-        from sparse_matrix_tuning_tpu_torch.train.scan_phase import make_scan_dispatch
-        linear_scan = make_scan_dispatch()
+        from sparse_matrix_tuning_tpu_torch.train.scan_phase import (
+            make_scan_dispatch, plan_mode_of)
+        linear_scan = make_scan_dispatch(plan_mode_of(params["layers_q8"].get("idx", {})))
         for i, ex in enumerate(params["layers_q8"]["layers"]):
             li = str(i)
 

@@ -44,6 +44,24 @@ per layer (`dyn_schedule`). JAX adds the entries one by one, rounding to
 the output dtype after each (its "oracle" chain, `_dyn_correction`); K5
 rounds once per out block. In fp32 the two differ by a few ulps of the
 output, far below the tests' tolerances.
+
+Channel mode (twins of the JAX `smt_channel_linear` and
+`smt_channel_linear_dyn`) trains whole input COLUMNS W[:, ci] of a
+linear, (O, n) fp32. `smt_channel_linear` computes through the dense
+weight that already holds the current columns, as `smt_linear` does;
+over the scan state's frozen base, `smt_channel_linear_dyn` computes
+
+    y         = base(x) + x[:, ci] @ delta^T
+    grad_x    = base_T(g) + (g @ delta) added into the columns ci
+    grad_cols = g^T @ x[:, ci], times valid
+    delta     = (cols - base_cols) * valid, in x's dtype
+
+Its products are thin (n columns) and stay plain matmuls, as they are XLA
+dot_generals in JAX; each has an fp32 output, as JAX asks for with
+preferred_element_type, and the fp32 sums are added before the cast to
+the output dtype. The column scatter of grad_x is `index_add_`: a padded
+entry duplicates a valid one, and its delta and so its g @ delta are 0,
+so it adds exact zeros.
 """
 
 from __future__ import annotations
@@ -353,21 +371,127 @@ def smt_linear_dyn(x, blocks, rb, cb, valid, frozen, base_blocks, correction=Non
 
 
 # ---------------------------------------------------------------------------
+# Channel sparsity
+# ---------------------------------------------------------------------------
+
+def _grad_cols(g2: torch.Tensor, x_sel: torch.Tensor) -> torch.Tensor:
+    """g^T @ x[:, ci] with an fp32 output: (O, n)."""
+    return torch.matmul(g2.t().float(), x_sel.float())
+
+
+class _SMTChannelLinear(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, cols, w, ci):
+        ctx.save_for_backward(x, w, ci)
+        ctx.cols_dtype = cols.dtype
+        return torch.matmul(x, w.t())
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, ci = ctx.saved_tensors
+        grad_x = torch.matmul(g, w) if ctx.needs_input_grad[0] else None
+        grad_cols = None
+        if ctx.needs_input_grad[1]:
+            x_sel = x.reshape(-1, x.shape[-1]).index_select(1, ci)
+            grad_cols = _grad_cols(g.reshape(-1, g.shape[-1]), x_sel).to(ctx.cols_dtype)
+        return grad_x, grad_cols, None, None
+
+
+def smt_channel_linear(x: torch.Tensor, cols: torch.Tensor, w: torch.Tensor,
+                       lp: LinearPlan, index: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y = x @ W.T with gradients routed to the selected input-channel
+    columns only.
+
+    cols: (out_dim, n_channels) trainable columns W[:, lp.channels] (fp32
+    master); w: (out_dim, in_dim) dense weight ALREADY containing the
+    current columns, frozen (no gradient). index: the plan's cached int64
+    channel tensor on x's device (built from lp when omitted)."""
+    if index is None:
+        index = torch.as_tensor(lp.channels, dtype=torch.int64, device=x.device)
+    return _SMTChannelLinear.apply(x, cols, w, index)
+
+
+def chan_delta(cols, base_cols, valid, dtype) -> torch.Tensor:
+    """(cols - base_cols) * valid in `dtype`: (O, n), 0 at padded entries."""
+    return ((cols - base_cols) * valid.to(cols.dtype)[None, :]).to(dtype)
+
+
+def _chan_forward(x2, frozen, delta, ci) -> torch.Tensor:
+    y = _base_matmul(x2, frozen)
+    corr = torch.matmul(x2.index_select(1, ci).float(), delta.float().t())   # (T, O) fp32
+    return corr.add_(y).to(y.dtype)
+
+
+class _SMTChannelLinearDyn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, cols, base_cols, ci, valid, frozen):
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        delta = chan_delta(cols, base_cols, valid, x.dtype)
+        y = _chan_forward(x2, frozen, delta, ci)
+        keys = tuple(sorted(frozen))
+        ctx.save_for_backward(x2, delta, ci, valid, *(frozen[k] for k in keys))
+        ctx.keys, ctx.x_shape, ctx.cols_dtype = keys, x.shape, cols.dtype
+        return y.reshape(*x.shape[:-1], y.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, delta, ci, valid, *frozen = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).contiguous()
+        grad_x = grad_cols = None
+        if ctx.needs_input_grad[0]:
+            gx = _base_matmul_T(g2, dict(zip(ctx.keys, frozen)))        # (T, I), a new tensor
+            gd = torch.matmul(g2.float(), delta.float())                 # (T, n) fp32
+            grad_x = gx.float().index_add_(1, ci, gd).to(gx.dtype).reshape(ctx.x_shape)
+        if ctx.needs_input_grad[1]:
+            grad_cols = _grad_cols(g2, x2.index_select(1, ci))
+            grad_cols = (grad_cols * valid.to(grad_cols.dtype)[None, :]).to(ctx.cols_dtype)
+        return grad_x, grad_cols, None, None, None, None
+
+
+def smt_channel_linear_dyn(x, cols, ci, valid, frozen, base_cols, correction=None):
+    """Channel-sparse linear over a frozen base with one layer's padded
+    channel indices (module notes): cols / base_cols (O, n), ci (n,) int,
+    valid (n,) bool; frozen {"w4", "s4"}, {"wq", "sw"} or {"w"}. Gradients
+    go to x and cols (a padded entry's is 0), as JAX's custom VJP gives
+    them. Reads no index on the host: a step makes no host-device sync.
+
+    correction: a decode's precomputed `chan_correction(...)` pair (the
+    delta in x's dtype, ci), constant over the decode; it has no
+    backward."""
+    if correction is not None:
+        if torch.is_grad_enabled() and (x.requires_grad or cols.requires_grad):
+            raise ValueError("smt_channel_linear_dyn: a precomputed decode correction has no "
+                             "backward")
+        return _chan_forward(x.reshape(-1, x.shape[-1]).contiguous(), frozen,
+                             *correction).reshape(*x.shape[:-1], -1)
+    return _SMTChannelLinearDyn.apply(x, cols, base_cols, ci, valid, frozen)
+
+
+@torch.no_grad()
+def chan_correction(cols, base_cols, ci, valid, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer's decode correction in channel mode: (delta in `dtype`,
+    ci), built once by eval/generate.decode_params_from_scan."""
+    return chan_delta(cols, base_cols, valid, dtype), ci
+
+
+# ---------------------------------------------------------------------------
 # Model dispatch
 # ---------------------------------------------------------------------------
 
 def make_sparse_linear_dispatch(plan, trainable: Mapping[str, torch.Tensor],
                                 impl: str = "auto", qweights=None):
     """The `linear(x, w, module, layer)` hook for models.llama.forward:
-    planned linears compute through smt_linear, everything else is a plain
-    dense matmul.
+    planned linears compute through smt_linear (matrix mode) or
+    smt_channel_linear (channel mode), everything else is a plain dense
+    matmul.
 
-    qweights (int8 frozen base): {"{layer}.{module}": {"wq", "sw"[,
-    "base"]}} for every layer linear; planned linears then run the
+    qweights (int8 frozen base, matrix mode): {"{layer}.{module}": {"wq",
+    "sw"[, "base"]}} for every layer linear; planned linears then run the
     block-corrected q8 path, unplanned frozen ones the plain q8 path, and
     `w` is not read (it may be the offloaded weight's placeholder)."""
-    if plan.mode != "matrix":
-        raise NotImplementedError(f"plan mode {plan.mode!r}: only matrix mode is ported")
+    if plan.mode == "channel" and qweights is not None:
+        raise ValueError("channel mode over an int8 base runs over the scan state "
+                         "(train/scan_phase.py), not this dispatch")
 
     def linear(x, w, module: str, layer_idx: int):
         ks = key_str(module, layer_idx)
@@ -377,6 +501,8 @@ def make_sparse_linear_dispatch(plan, trainable: Mapping[str, torch.Tensor],
             if qw is not None:
                 return frozen_q8_linear(x, qw["wq"], qw["sw"])
             return torch.matmul(x, w.t())
+        if plan.mode == "channel":
+            return smt_channel_linear(x, trainable[ks], w, lp, index=plan.channel_index(ks, x.device))
         index = plan.block_index(ks, x.device, torch.int32)
         if qw is not None:
             return smt_linear_q8(x, trainable[ks], qw["wq"], qw["sw"], qw["base"], lp, impl,

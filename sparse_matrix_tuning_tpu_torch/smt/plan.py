@@ -4,11 +4,16 @@ Twin of `sparse_matrix_tuning_tpu.smt.plan`: the same dataclasses, the
 same JSON (byte-identical, so the fingerprints agree across packages), and
 gather / scatter on torch tensors:
 
-  * gather:  dense weights -> (n_blocks, 256, 256) trainables (numpy
-             advanced-indexing semantics of w4[rb, :, cb, :]),
+  * gather:  dense weights -> the trainables: (n_blocks, 256, 256) in
+             matrix mode (numpy advanced-indexing semantics of
+             w4[rb, :, cb, :]), the (out_dim, n_channels) columns
+             W[:, channels] in channel mode,
   * scatter: trainables written back IN PLACE into the dense weights, once
              per optimizer step, under torch.no_grad() (the JAX twin's
              functional .at[].set into donated buffers).
+
+The index tensors of both modes are built once per plan and device, so a
+step copies nothing from the host.
 
 Keys are "{layer}.{module}" strings.
 """
@@ -93,8 +98,8 @@ class SMTPlan:
     """mode: 'matrix' (256x256 blocks) or 'channel' (input channels)."""
     mode: str
     linears: Dict[str, LinearPlan] = field(default_factory=dict)
-    # (key, device, kind) -> (rb, cb) index tensors or the int8 path's
-    # correction schedules, built once per plan
+    # (key, device, kind) -> (rb, cb) index tensors, the channel index or
+    # the int8 path's correction schedules, built once per plan
     _index_cache: Dict = field(default_factory=dict, repr=False, compare=False)
 
     # -- construction ---------------------------------------------------------
@@ -146,6 +151,17 @@ class SMTPlan:
             self._index_cache[cache_key] = idx
         return idx
 
+    def channel_index(self, ks: str, device) -> torch.Tensor:
+        """The selected input channels of linear `ks`, an int64 tensor on
+        `device`, built once per plan (channel mode)."""
+        device = torch.device(device)
+        cache_key = (ks, str(device), "channels")
+        idx = self._index_cache.get(cache_key)
+        if idx is None:
+            idx = torch.as_tensor(self.linears[ks].channels, dtype=torch.int64, device=device)
+            self._index_cache[cache_key] = idx
+        return idx
+
     def q8_schedules(self, ks: str, device):
         """LinearPlan.q8_schedules of linear `ks` on `device`, built once
         per plan."""
@@ -155,22 +171,20 @@ class SMTPlan:
             sched = self._index_cache[cache_key] = self.linears[ks].q8_schedules(device)
         return sched
 
-    def _check_matrix(self):
-        if self.mode != "matrix":
-            raise NotImplementedError(
-                f"plan mode {self.mode!r}: only matrix mode is ported")
-
     def gather(self, layer_params: Mapping[str, Mapping[str, torch.Tensor]],
                dtype=torch.float32) -> Dict[str, torch.Tensor]:
-        """(n_blocks, 256, 256) trainable per planned linear, cast to `dtype`
-        (fp32 master copies by default), as new tensors.
+        """The trainable per planned linear, cast to `dtype` (fp32 master
+        copies by default), as new tensors: (n_blocks, 256, 256) in matrix
+        mode, (out_dim, n_channels) in channel mode.
 
         layer_params: params["layers"], i.e. {str(layer): {module: (O, I)}}."""
-        self._check_matrix()
         out = {}
         for ks, lp in self.linears.items():
-            w = layer_params[str(lp.layer)][lp.module]
-            w4 = w.detach().reshape(lp.out_dim // BLOCK, BLOCK, lp.in_dim // BLOCK, BLOCK)
+            w = layer_params[str(lp.layer)][lp.module].detach()
+            if self.mode == "channel":
+                out[ks] = w.index_select(1, self.channel_index(ks, w.device)).to(dtype)
+                continue
+            w4 = w.reshape(lp.out_dim // BLOCK, BLOCK, lp.in_dim // BLOCK, BLOCK)
             rb, cb = self.block_index(ks, w.device)
             out[ks] = w4[rb, :, cb, :].to(dtype).contiguous()  # (n, 256, 256)
         return out
@@ -181,10 +195,12 @@ class SMTPlan:
         Returns layer_params (the same dicts and tensors). A weight that
         left the device (train/convert.py offload_frozen_to_host leaves a
         1-element placeholder) is skipped: nothing to keep current."""
-        self._check_matrix()
         for ks, lp in self.linears.items():
             w = layer_params[str(lp.layer)][lp.module]
             if w.dim() != 2:
+                continue
+            if self.mode == "channel":
+                w[:, self.channel_index(ks, w.device)] = trainable[ks].to(w.dtype)
                 continue
             w4 = w.view(lp.out_dim // BLOCK, BLOCK, lp.in_dim // BLOCK, BLOCK)
             rb, cb = self.block_index(ks, w.device)

@@ -1,15 +1,17 @@
 """The SMT conversion event: saliency stats -> selection -> SMTPlan ->
-sparse train state (matrix mode; PyTorch twin of
+sparse train state (matrix and channel mode; PyTorch twin of
 `sparse_matrix_tuning_tpu.train.convert`).
 
 Stats are reduced on the device from the accumulators and copied to the
-host as tiny (R/256, C/256) numpy matrices; selection (smt/select.py) is
-numpy with the reference's total-order tie-break, so the plan — and its
-fingerprint — equals the JAX package's on equal stats.
+host as tiny numpy arrays ((R/256, C/256) per linear in matrix mode, (C,)
+in channel mode); selection (smt/select.py) is numpy with the reference's
+total-order tie-break, so the plan — and its fingerprint — equals the JAX
+package's on equal stats.
 
 Quirk preserved: the reference omits calculate_strategy when selecting
-ATTENTION blocks, so attention always uses "mean_abs" while MLP uses the
-configured strategy (fine_tune.py:306-313 vs :319-327).
+ATTENTION blocks or channels, so attention always uses "mean_abs" while
+MLP uses the configured strategy (fine_tune.py:306-313 vs :319-327,
+:472-477 vs :493-498).
 
 With frozen_quant=int8 the conversion also quantizes every layer linear
 once from the fp32 master (build_qweights; the head too, build_q_head),
@@ -30,8 +32,8 @@ from sparse_matrix_tuning_tpu_torch.models.llama import (
 from sparse_matrix_tuning_tpu_torch.ops.quant import quantize_weight
 from sparse_matrix_tuning_tpu_torch.smt.plan import SMTPlan, parse_key
 from sparse_matrix_tuning_tpu_torch.smt.select import (
-    block_stats, block_stats_final, count_total_blocks, num_selected_blocks,
-    select_submatrices,
+    block_stats, block_stats_final, channel_stats, count_total_blocks, num_selected_blocks,
+    select_channels, select_submatrices,
 )
 
 ATTENTION_CALCULATE_STRATEGY = "mean_abs"  # reference default-arg quirk
@@ -51,11 +53,14 @@ def harvest_strategy(cfg: SMTConfig, module: str) -> str:
 LAYER_LINEARS = ATTN_TARGETS + ("o_proj",) + MLP_TARGETS
 
 
-def resolve_frozen_quant(cfg: SMTConfig, mode: str) -> str:
-    """The frozen base of the sparse phase: "int8" only on request and only
-    in matrix mode. "auto" is "none": whether int8 pays on the card is
-    decided by a measurement there (PERF.md), not assumed."""
-    if mode != "matrix":
+def resolve_frozen_quant(cfg: SMTConfig, mode: str, scan: bool = False) -> str:
+    """The frozen base of the sparse phase: "int8" only on request. Channel
+    mode takes it only over the scan state (scan=True), where
+    smt_channel_linear_dyn corrects the selected columns exactly; the
+    per-layer channel forward computes through the scatter-updated dense
+    weight. "auto" is "none": whether int8 pays on the card is decided by a
+    measurement there (PERF.md), not assumed."""
+    if mode not in ("matrix", "channel") or (mode == "channel" and not scan):
         return "none"
     return "none" if cfg.frozen_quant == "auto" else cfg.frozen_quant
 
@@ -150,32 +155,60 @@ def compute_matrix_selection(cfg: SMTConfig, acc: Dict[str, torch.Tensor],
     return selected
 
 
+def compute_channel_selection(cfg: SMTConfig, act_acc: Dict[str, torch.Tensor]) -> Dict:
+    """act_acc: (S, C) positional |activation| sums, or (C,) per-step
+    stats (already reduced with the per-module strategy), keyed
+    '{layer}.{module}'."""
+    def stats_of(strategy):
+        if cfg.saliency_accumulation == "per_step_stats":
+            return {ks: _to_numpy(a) for ks, a in act_acc.items()}
+        return {ks: _to_numpy(channel_stats(a, strategy)) for ks, a in act_acc.items()}
+
+    if cfg.no_limit_mixture:
+        merged = {parse_key(ks): s for ks, s in stats_of(cfg.calculate_strategy).items()}
+        return select_channels(merged, cfg.num_attention_channel + cfg.num_mlp_channel,
+                               cfg.selection_strategy)
+
+    selected: Dict = {}
+    if cfg.num_attention_channel > 0:
+        attn_stats, _ = _split_stats(stats_of(ATTENTION_CALCULATE_STRATEGY))
+        selected.update(select_channels(attn_stats, cfg.num_attention_channel,
+                                        cfg.selection_strategy))
+    if cfg.num_mlp_channel > 0:
+        _, mlp_stats = _split_stats(stats_of(cfg.calculate_strategy))
+        selected.update(select_channels(mlp_stats, cfg.num_mlp_channel,
+                                        cfg.selection_strategy))
+    return selected
+
+
 def build_plan(cfg: SMTConfig, warmup_state: Dict, all_2d_shapes) -> SMTPlan:
-    if not cfg.matrix_sparsity:
-        raise NotImplementedError("only matrix-mode selection is ported")
     master = warmup_state["master"]
     dims = {}
     for li, layer in master["layers"].items():
         for mod in ATTN_TARGETS + MLP_TARGETS:
             dims[(mod, int(li))] = tuple(layer[mod].shape)
-    selected = compute_matrix_selection(cfg, warmup_state["acc"], all_2d_shapes)
-    return SMTPlan.from_selection("matrix", selected, dims)
+    if cfg.matrix_sparsity:
+        selected = compute_matrix_selection(cfg, warmup_state["acc"], all_2d_shapes)
+        return SMTPlan.from_selection("matrix", selected, dims)
+    selected = compute_channel_selection(cfg, warmup_state["act_acc"])
+    return SMTPlan.from_selection("channel", selected, dims)
 
 
 def convert(cfg: SMTConfig, warmup_state: Dict, all_2d_shapes,
             model_cfg=None) -> Tuple[SMTPlan, Dict]:
     """Run selection and build the phase-2 state: dense weights in the
-    param dtype (new tensors) and fp32 trainable blocks gathered from the
-    fp32 master; with an int8 frozen base also state["q"], and with an int8
-    head (needs model_cfg) state["q_head"]. The caller drops the warm-up
-    state (master, moments, accumulators), as the reference deletes its
-    optimizer and grad dicts (fine_tune.py:352-358)."""
+    param dtype (new tensors) and fp32 trainable blocks (or columns)
+    gathered from the fp32 master; with an int8 frozen base (matrix mode)
+    also state["q"], and with an int8 head (needs model_cfg)
+    state["q_head"]. The caller drops the warm-up state (master, moments,
+    accumulators), as the reference deletes its optimizer and grad dicts
+    (fine_tune.py:352-358)."""
     from sparse_matrix_tuning_tpu_torch.train.steps import init_sparse_state
 
     plan = build_plan(cfg, warmup_state, all_2d_shapes)
     if not plan.linears:
         raise ValueError(
-            "SMT selection produced zero trainable blocks — the downsample "
+            "SMT selection produced zero trainable blocks/channels — the downsample "
             "ratios are too small for this model's block count (the "
             "denominator counts ALL 2-D params, fine_tune.py:231-241).")
     master = warmup_state["master"]

@@ -1,6 +1,6 @@
 """The stacked (scan-layout) state of the SMT sparse phase over a quantized
 frozen base, and the continuation training and decode over it: twin of
-`sparse_matrix_tuning_tpu.train.scan_phase` (matrix mode).
+`sparse_matrix_tuning_tpu.train.scan_phase` (matrix and channel mode).
 
 The JAX package runs its deep-model sparse phase as one `lax.scan` over
 layers, so its state is keyed per MODULE with stacked (L, ...) leaves:
@@ -10,23 +10,27 @@ layers, so its state is keyed per MODULE with stacked (L, ...) leaves:
   q[mod]         {"wq" (L, O, I) int8, "sw" (L, O) fp32}, or after
                  requantize_scan_base_int4 {"w4" (L, O, I/2) int8, "s4"
                  (L, O, I/128) fp32}
-  trainable[mod] (L, n_max, 256, 256) fp32 selected blocks
-  base[mod]      (L, n_max, 256, 256) fp32 dequantized frozen values there
-  idx[mod]       {"rb", "cb": (L, n_max) int32, "valid": (L, n_max) bool}
+  trainable[mod] (L, n_max, 256, 256) fp32 selected blocks; in channel
+                 mode (L, O, n_max) fp32 selected columns
+  base[mod]      the dequantized frozen values there, like trainable
+  idx[mod]       {"rb", "cb": (L, n_max) int32, "valid": (L, n_max) bool};
+                 in channel mode {"ci": (L, n_max) int32, "valid"}
   m, v           Adam moments like trainable; count, step: int32 scalars
-  sched[mod]     (port only) [DynSchedule of layer l], see attach_schedules
+  sched[mod]     (port only) [layer l's DynSchedule; in channel mode
+                 whether layer l has a valid column], see attach_schedules
 
 The port keeps that layout, so a JAX state carries across leaf for leaf
 (models/from_jax.scan_state_from_jax), and loops over layers eagerly with
 layer-l views (models/llama.forward_scan). Ported: quantize-on-load
 (build_scan_state_from_hf), the sparse step over that state
 (build_scan_sparse_step: the int8 base is never updated, each planned
-linear adds its delta through ops/sparse_linear.smt_linear_dyn), its eval
-loss, the exact export (merged_params_from_scan), and the int4
-requantization of decoding. The port adds one non-JAX entry, "sched": each
-planned module's per-layer DynSchedules (attach_schedules), built once when
-the trainer installs the sparse phase, so that no step syncs the host on the
-block coordinates. Channel mode, the
+linear adds its delta through ops/sparse_linear.smt_linear_dyn, or
+smt_channel_linear_dyn in channel mode), its eval loss, the exact export
+(merged_params_from_scan), and the int4 requantization of decoding. The
+port adds one non-JAX entry, "sched": each planned module's per-layer
+DynSchedules, or in channel mode which layers have a valid column
+(attach_schedules), built once when the trainer installs the sparse phase,
+so that no step syncs the host on the coordinates. The
 scan warm-up and the conversion of a warm-up into this state are not
 ported.
 """
@@ -46,46 +50,42 @@ from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig, forward_sca
 from sparse_matrix_tuning_tpu_torch.ops.quant import (
     dequantize_weight, dequantize_weight_int4, quantize_weight, quantize_weight_int4)
 from sparse_matrix_tuning_tpu_torch.ops.sparse_linear import (
-    _resolve_impl, dyn_schedule, frozen_q4_linear, frozen_q8_linear, smt_linear_dyn)
+    _resolve_impl, dyn_schedule, frozen_q4_linear, frozen_q8_linear, smt_channel_linear_dyn,
+    smt_linear_dyn)
 from sparse_matrix_tuning_tpu_torch.smt.optimizer import (
     AdamConfig, clip_by_global_norm, make_qk_lr_scale)
 from sparse_matrix_tuning_tpu_torch.smt.plan import BLOCK, SMTPlan
 from sparse_matrix_tuning_tpu_torch.train.convert import (
-    LAYER_LINEARS, build_q_head, offload_lm_head, resolve_head_quant)
-
-
-def _matrix_only(mode: str):
-    if mode != "matrix":
-        raise NotImplementedError(f"plan mode {mode!r}: the port's scan state is matrix mode "
-                                  "only (channel mode is not ported)")
+    LAYER_LINEARS, build_q_head, offload_lm_head, resolve_frozen_quant, resolve_head_quant)
 
 
 def stack_plan_indices(plan: SMTPlan, n_layers: int, device=None) -> Dict[str, Dict]:
-    """Per-module stacked block coordinates {"rb"/"cb": (L, n) int32,
-    "valid": (L, n) bool}, n the module's largest per-layer count. Layers
-    with fewer (or no) blocks are padded with their first entry (block
-    (0, 0) when the layer has none): inert, their deltas are masked by
-    `valid`."""
-    _matrix_only(plan.mode)
+    """Per-module stacked coordinates, n the module's largest per-layer
+    count. Matrix mode: {"rb"/"cb": (L, n) int32, "valid": (L, n) bool};
+    channel mode: {"ci": (L, n) int32, "valid": (L, n) bool}. Layers with
+    fewer (or no) entries are padded with their first entry (coordinate 0
+    when the layer has none): inert, their deltas are masked by `valid`."""
     out = {}
     for mod in sorted({lp.module for lp in plan.linears.values()}):
         per_layer = {lp.layer: lp for lp in plan.linears.values() if lp.module == mod}
-        n_max = max(len(lp.blocks) for lp in per_layer.values())
-        rb = np.zeros((n_layers, n_max), np.int32)
-        cb = np.zeros((n_layers, n_max), np.int32)
+        if plan.mode == "channel":
+            coords = {l: np.array(lp.channels, np.int32)[:, None]
+                      for l, lp in per_layer.items()}
+            names = ("ci",)
+        else:
+            coords = {l: np.stack([lp.row_blocks(), lp.col_blocks()], axis=1)
+                      for l, lp in per_layer.items()}
+            names = ("rb", "cb")
+        n_max = max(len(c) for c in coords.values())
+        stacked = np.zeros((len(names), n_layers, n_max), np.int32)
         valid = np.zeros((n_layers, n_max), bool)
-        for l in range(n_layers):
-            lp = per_layer.get(l)
-            if lp is None:
-                continue
-            k = len(lp.blocks)
-            rb[l, :k] = lp.row_blocks()
-            cb[l, :k] = lp.col_blocks()
+        for l, c in coords.items():
+            k = len(c)
+            stacked[:, l, :k] = c.T
+            stacked[:, l, k:] = c[0][:, None]
             valid[l, :k] = True
-            rb[l, k:] = rb[l, 0]
-            cb[l, k:] = cb[l, 0]
-        out[mod] = {name: torch.from_numpy(a).to(device)
-                    for name, a in (("rb", rb), ("cb", cb), ("valid", valid))}
+        out[mod] = {name: torch.from_numpy(a).to(device) for name, a in zip(names, stacked)}
+        out[mod]["valid"] = torch.from_numpy(valid).to(device)
     return out
 
 
@@ -95,9 +95,20 @@ def _gather_blocks(w: torch.Tensor, rb: torch.Tensor, cb: torch.Tensor) -> torch
     return w4[rb.long(), :, cb.long(), :].float()
 
 
+def _gather_cols(w: torch.Tensor, ci: torch.Tensor) -> torch.Tensor:
+    """(O, I) weight + (n,) channel indices -> (O, n) fp32 columns."""
+    return w.index_select(1, ci).float()
+
+
 def _plan_gather(plan_mode: str, w: torch.Tensor, meta_l: Dict[str, torch.Tensor]) -> torch.Tensor:
-    _matrix_only(plan_mode)
+    if plan_mode == "channel":
+        return _gather_cols(w, meta_l["ci"])
     return _gather_blocks(w, meta_l["rb"], meta_l["cb"])
+
+
+def plan_mode_of(idx: Dict[str, Dict]) -> str:
+    """The plan mode of a scan state's stacked coordinates (its "idx")."""
+    return "channel" if any("ci" in meta for meta in idx.values()) else "matrix"
 
 
 def build_scan_state_from_hf(cfg: SMTConfig, model_dir: str, plan: SMTPlan,
@@ -111,8 +122,7 @@ def build_scan_state_from_hf(cfg: SMTConfig, model_dir: str, plan: SMTPlan,
     stacked per module on the host, for an exact export (None unless
     keep_host)."""
     model_cfg = model_cfg or load_hf_config(model_dir)
-    _matrix_only(plan.mode)
-    if cfg.frozen_quant != "int8":
+    if resolve_frozen_quant(cfg, plan.mode, scan=True) != "int8":
         raise ValueError("quantize-on-load is the int8 path — set --frozen_quant int8; a bf16 "
                          "continuation can load normally and convert")
     device = torch.device(device)
@@ -224,10 +234,10 @@ def requantize_scan_base_int4(state: Dict, consume: bool = False):
 
     base4: Dict = {}
     for mod, meta in state.get("idx", {}).items():
-        _matrix_only("channel" if "ci" in meta else "matrix")
         w4, s4 = q4[mod]["w4"], q4[mod]["s4"]
         base4[mod] = torch.stack([
-            _plan_gather("matrix", dequantize_weight_int4(w4[l], s4[l], torch.float32),
+            _plan_gather("channel" if "ci" in meta else "matrix",
+                         dequantize_weight_int4(w4[l], s4[l], torch.float32),
                          {k: v[l] for k, v in meta.items()})
             for l in range(w4.shape[0])])
     return q4, base4
@@ -237,27 +247,44 @@ def make_scan_dispatch(mode: str = "matrix"):
     """The linear hook of models/llama.forward_scan and of the decode over
     layer-l views of the scan state: `linear_scan(x, w, module, ex)` with ex
     = {"q", "t", "idx", "base"[, "sched"][, "corr"]} of one layer. Planned
-    modules run smt_linear_dyn over their frozen base (int4, int8, or the
-    dense `w`; gradients to x and the blocks), with the layer's DynSchedule
-    from "sched" (training) or its precomputed correction from "corr"
+    modules run smt_linear_dyn (matrix mode) or smt_channel_linear_dyn
+    (channel mode) over their frozen base (int4, int8, or the dense `w`;
+    gradients to x and the trainables), with the layer's entry of "sched"
+    (training: attach_schedules) or its precomputed correction from "corr"
     (decode); other quantized modules the plain int4 or int8 linear,
-    everything else a dense matmul. Matrix mode."""
-    _matrix_only(mode)
+    everything else a dense matmul. In channel mode a layer without a
+    valid column of the module ("sched" False, "corr" None) runs the frozen
+    linear: its delta and its columns' grads are 0, as JAX computes them."""
+    if mode not in ("matrix", "channel"):
+        raise ValueError(f"unknown plan mode {mode!r}")
 
-    def linear_scan(x, w, module: str, ex):
-        qmod = ex.get("q", {}).get(module)
-        t = ex["t"].get(module)
-        if t is not None:
-            meta = ex["idx"][module]
-            frozen = dict(qmod) if qmod is not None else {"w": w}
-            return smt_linear_dyn(x, t, meta["rb"], meta["cb"], meta["valid"], frozen,
-                                  ex["base"][module], ex.get("corr", {}).get(module),
-                                  ex.get("sched", {}).get(module))
+    def frozen_linear(x, w, qmod):
         if qmod is not None:
             if "w4" in qmod:
                 return frozen_q4_linear(x, qmod["w4"], qmod["s4"])
             return frozen_q8_linear(x, qmod["wq"], qmod["sw"])
         return torch.matmul(x, w.t())
+
+    def linear_scan(x, w, module: str, ex):
+        qmod = ex.get("q", {}).get(module)
+        t = ex["t"].get(module)
+        if t is None:
+            return frozen_linear(x, w, qmod)
+        meta = ex["idx"][module]
+        frozen = dict(qmod) if qmod is not None else {"w": w}
+        if mode == "channel":
+            if "corr" in ex:   # decode
+                corr = ex["corr"][module]
+                live = corr is not None
+            else:
+                corr, live = None, ex.get("sched", {}).get(module, True)
+            if not live:
+                return frozen_linear(x, w, qmod)
+            return smt_channel_linear_dyn(x, t, meta["ci"], meta["valid"], frozen,
+                                          ex["base"][module], corr)
+        return smt_linear_dyn(x, t, meta["rb"], meta["cb"], meta["valid"], frozen,
+                              ex["base"][module], ex.get("corr", {}).get(module),
+                              ex.get("sched", {}).get(module))
     return linear_scan
 
 
@@ -266,16 +293,22 @@ def make_scan_dispatch(mode: str = "matrix"):
 # ---------------------------------------------------------------------------
 
 def attach_schedules(state: Dict) -> Dict:
-    """state["sched"] = {mod: [DynSchedule of layer l]}: the valid entries'
-    positions and K5's forward and grad_input schedules of every planned
-    (module, layer), on the trainables' device. Built once, before the
-    first step (it reads the block coordinates on the host: the trainer
-    calls it when it installs the sparse phase); the steps and the eval
-    read it. Returns state."""
-    state["sched"] = {
-        mod: [dyn_schedule(rb, cb, valid, state["trainable"][mod].device)
-              for rb, cb, valid in zip(meta["rb"], meta["cb"], meta["valid"])]
-        for mod, meta in state["idx"].items()}
+    """state["sched"] = {mod: [layer l's entry]}: in matrix mode the
+    DynSchedule of every planned (module, layer), the valid entries'
+    positions and K5's forward and grad_input schedules on the trainables'
+    device; in channel mode whether the layer has a valid column of the
+    module (make_scan_dispatch runs the frozen linear where it has none).
+    Built once, before the first step (it reads the coordinates on the
+    host: the trainer calls it when it installs the sparse phase); the
+    steps and the eval read it. Returns state."""
+    sched = {}
+    for mod, meta in state["idx"].items():
+        if "ci" in meta:
+            sched[mod] = meta["valid"].any(dim=1).tolist()
+        else:
+            sched[mod] = [dyn_schedule(rb, cb, valid, state["trainable"][mod].device)
+                          for rb, cb, valid in zip(meta["rb"], meta["cb"], meta["valid"])]
+    state["sched"] = sched
     return state
 
 
@@ -289,7 +322,7 @@ def _scan_loss(state: Dict, batch: Dict, trainable, cfg: SMTConfig,
                 "sched": state["sched"]}
     if "q" in state:
         layer_xs["q"] = state["q"]
-    kw = dict(layer_xs=layer_xs, linear_scan=make_scan_dispatch(),
+    kw = dict(layer_xs=layer_xs, linear_scan=make_scan_dispatch(plan_mode_of(state["idx"])),
               attention_mask=batch.get("attention_mask"), remat=cfg.sparse_remat,
               stop_grad_below_layer=lowest_layer, attn_impl=cfg.attn_impl)
     params = state["params"]
@@ -304,15 +337,15 @@ def build_scan_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan
     (state, {"loss", "grad_norm", "lr"}), the state updated in place (as
     steps.build_sparse_step). The grads of the stacked trainables are
     clipped on their global norm and Adam updates every entry (K2 once per
-    module on CUDA tensors). A padded entry's grad is 0 as smt_linear_dyn's
-    backward gives it (JAX masks by `valid` to the same effect), so only
-    the weight decay moves it. The qk LR boost is keyed by module name. No
-    scatter: the base stays int8 and the delta corrects it. The state
-    carries its "sched" (attach_schedules)."""
+    module on CUDA tensors), with the mode's betas. A padded entry's grad
+    is 0 as smt_linear_dyn's and smt_channel_linear_dyn's backwards give it
+    (JAX masks by `valid` to the same effect), so only the weight decay
+    moves it. The qk LR boost is keyed by module name. No scatter: the base
+    stays int8 and the delta corrects it. The state carries its "sched"
+    (attach_schedules)."""
     from sparse_matrix_tuning_tpu_torch.train.steps import (
-        accumulated_value_and_grad, block_adam)
-    _matrix_only(plan.mode)
-    adam_cfg = AdamConfig(betas=tuple(cfg.matrix_adam_betas), eps=cfg.adam_eps,
+        accumulated_value_and_grad, adam_betas, block_adam)
+    adam_cfg = AdamConfig(betas=tuple(adam_betas(cfg, plan.mode)), eps=cfg.adam_eps,
                           weight_decay=cfg.w_decay, grad_clip=cfg.grad_clip)
     adam = block_adam(adam_cfg, make_qk_lr_scale(cfg.qk_lr_times) if cfg.qk_scheduler else None)
     lowest_layer = min(lp.layer for lp in plan.linears.values())
@@ -343,7 +376,6 @@ def build_scan_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan
 
 def build_scan_eval_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan) -> Callable:
     """The eval loss: the sparse step's forward and loss, no gradient."""
-    _matrix_only(plan.mode)
 
     @torch.no_grad()
     def step(state, batch) -> torch.Tensor:
@@ -353,10 +385,13 @@ def build_scan_eval_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan) 
 
 
 def _scatter_trained_layer(w: torch.Tensor, meta_host: Dict, l: int) -> None:
-    """Layer l's valid trained blocks into its (O, I) host weight, in place,
-    in w's dtype."""
+    """Layer l's valid trained blocks (or columns) into its (O, I) host
+    weight, in place, in w's dtype."""
     j = torch.nonzero(meta_host["valid"][l]).reshape(-1)
     if not j.numel():
+        return
+    if "ci" in meta_host:
+        w[:, meta_host["ci"][l, j].long()] = meta_host["t"][l][:, j].to(w.dtype)
         return
     w4 = w.view(w.shape[0] // BLOCK, BLOCK, w.shape[1] // BLOCK, BLOCK)
     w4[meta_host["rb"][l, j].long(), :, meta_host["cb"][l, j].long(), :] = \
@@ -367,12 +402,11 @@ def _scatter_trained_layer(w: torch.Tensor, meta_host: Dict, l: int) -> None:
 def merged_params_from_scan(state: Dict, plan: SMTPlan, model_cfg: LlamaConfig,
                             host_frozen: Optional[Dict] = None) -> Dict:
     """The per-layer HF-layout params of the scan state on the host, with the
-    trained blocks scattered in: an exact export whatever the int8 compute
-    did (twin of the JAX merged_params_from_scan, one process). The frozen
-    and unplanned layer weights come from host_frozen (the checkpoint's, as
-    loaded) unchanged, or from the device stacks; only the valid blocks of
-    planned modules are written, into copies."""
-    _matrix_only(plan.mode)
+    trained blocks (or columns) scattered in: an exact export whatever the
+    int8 compute did (twin of the JAX merged_params_from_scan, one
+    process). The frozen and unplanned layer weights come from host_frozen
+    (the checkpoint's, as loaded) unchanged, or from the device stacks; only
+    the valid entries of planned modules are written, into copies."""
     stacked = state["params"]["layers_stacked"]
     meta_host = {mod: {**{k: v.to("cpu") for k, v in meta.items()},
                        "t": state["trainable"][mod].detach().to("cpu")}

@@ -5,10 +5,14 @@ Phase 1 (warm-up, reference fine_tune.py:710-773): full fine-tuning with
 fp32 master weights; every step also accumulates saliency of the six
 target linears from the UNCLIPPED gradients into on-device accumulators.
 
-Phase 2 (sparse): gradients exist only for the gathered blocks via the
-block-sparse autograd Function; Adam state is proportional to the selected
-fraction; the updated blocks are scattered once per step into the dense
-weights.
+In channel mode the warm-up does not train (reference fine_tune.py:708):
+each step is a forward that sums the target linears' |input| activations
+into the accumulators (build_channel_warmup_step).
+
+Phase 2 (sparse): gradients exist only for the gathered blocks (or
+columns) via the sparse autograd Functions; Adam state is proportional to
+the selected fraction; the updated blocks (or columns) are scattered once
+per step into the dense weights.
 
 A state is a plain dict of tensors. The steps update it IN PLACE (params,
 optimizer state, counters) where the JAX twin donated its buffers, and
@@ -155,6 +159,8 @@ def _grad_sum_accumulator_bytes(master, cfg: SMTConfig) -> int:
             if cfg.matrix_sparsity and _wants_saliency(cfg, mod) \
                     and not (shape[0] % 256 or shape[1] % 256):
                 total += shape[0] * shape[1] * 4
+            if cfg.channel_sparsity and _wants_channel(cfg, mod):
+                total += cfg.max_seq_len * shape[1] * 4
     return total
 
 
@@ -162,7 +168,8 @@ def resolve_saliency_accumulation(cfg: SMTConfig, master) -> str:
     """Resolve saliency_accumulation="auto": reference-exact grad_sum while
     the accumulators stay small, per_step_stats at scale (exact for the
     matrix mean_abs reducer — signed-mean accumulation,
-    select.block_stats_step). Mutates cfg so later consumers agree."""
+    select.block_stats_step — and for channel mean_abs / abs_mean / L1).
+    Mutates cfg so later consumers agree."""
     if cfg.saliency_accumulation == "auto":
         over = _grad_sum_accumulator_bytes(master, cfg) > SALIENCY_AUTO_GRAD_SUM_LIMIT
         cfg.saliency_accumulation = "per_step_stats" if over else "grad_sum"
@@ -179,7 +186,10 @@ def resolve_saliency_accumulation(cfg: SMTConfig, master) -> str:
 def init_warmup_state(master, cfg: SMTConfig, device=None) -> Dict:
     """fp32 master copies (leaf tensors requiring grad), zero Adam moments,
     step counters and the saliency accumulators, on `device` (default: the
-    params' device)."""
+    params' device). Channel mode keeps the master and moments too, as the
+    JAX twin does, though its warm-up never trains; its accumulators
+    ("act_acc") are (max_seq_len, in_dim) positional |activation| sums, or
+    (in_dim,) running per-channel stats under per_step_stats."""
     resolve_saliency_accumulation(cfg, master)
     if device is None:
         device = master["embed_tokens"].device
@@ -209,6 +219,16 @@ def init_warmup_state(master, cfg: SMTConfig, device=None) -> Dict:
                     shape = (shape[0] // 256, shape[1] // 256)
                 acc[f"{li}.{mod}"] = torch.zeros(shape, dtype=torch.float32, device=device)
         state["acc"] = acc
+    if cfg.channel_sparsity:
+        act = {}
+        for li, layer in master["layers"].items():
+            for mod in TARGET_MODULES:
+                if _wants_channel(cfg, mod):
+                    in_dim = layer[mod].shape[1]
+                    shape = ((in_dim,) if cfg.saliency_accumulation == "per_step_stats"
+                             else (cfg.max_seq_len, in_dim))
+                    act[f"{li}.{mod}"] = torch.zeros(shape, dtype=torch.float32, device=device)
+        state["act_acc"] = act
     return state
 
 
@@ -216,6 +236,12 @@ def _wants_saliency(cfg: SMTConfig, module: str) -> bool:
     if module in ATTN_TARGETS:
         return cfg.downsample_attention_blocks_ratio > 0 or cfg.no_limit_mixture
     return cfg.downsample_mlp_blocks_ratio > 0 or cfg.no_limit_mixture
+
+
+def _wants_channel(cfg: SMTConfig, module: str) -> bool:
+    if module in ATTN_TARGETS:
+        return cfg.num_attention_channel > 0 or cfg.no_limit_mixture
+    return cfg.num_mlp_channel > 0 or cfg.no_limit_mixture
 
 
 def _target_grad(grads: Dict[str, torch.Tensor], ks: str) -> torch.Tensor:
@@ -272,6 +298,37 @@ def build_warmup_step(cfg: SMTConfig, model_cfg: LlamaConfig,
     return step
 
 
+def build_channel_warmup_step(cfg: SMTConfig, model_cfg: LlamaConfig) -> Callable:
+    """The channel warm-up step: a forward only, which does not train
+    (reference fine_tune.py:708 `continue`), with the full-logits loss, and
+    the activation taps (models/llama._tapped) added into state["act_acc"]:
+    padded to max_seq_len rows, or reduced per step by select.channel_stats
+    under per_step_stats. Pad positions are excluded by the attention mask,
+    as in the JAX twin (the reference's hooks also sum them)."""
+    from sparse_matrix_tuning_tpu_torch.smt.select import channel_stats
+    from sparse_matrix_tuning_tpu_torch.train.convert import harvest_strategy
+    param_dtype = cfg.param_dtype
+
+    @torch.no_grad()
+    def step(state: Dict, batch: Dict) -> tuple:
+        params = _cast_tree(state["master"], param_dtype)
+        taps: Dict[str, torch.Tensor] = {}
+        logits = forward(params, batch["input_ids"], model_cfg,
+                         attention_mask=batch.get("attention_mask"),
+                         activation_taps=taps, attn_impl=cfg.attn_impl)
+        loss = causal_lm_loss(logits, batch["labels"])
+        for ks, acc in state["act_acc"].items():
+            tap = taps[ks]  # (S_batch, in_dim) batch-summed |activation|
+            if cfg.saliency_accumulation == "per_step_stats":
+                acc.add_(channel_stats(tap, harvest_strategy(cfg, ks.split(".", 1)[1])))
+            else:
+                acc[:tap.shape[0]].add_(tap)
+        state["step"].add_(1)
+        return state, {"loss": loss}
+
+    return step
+
+
 # ---------------------------------------------------------------------------
 # Sparse (post-conversion) step
 # ---------------------------------------------------------------------------
@@ -294,9 +351,7 @@ def init_sparse_state(params, trainable, step: int) -> Dict:
 
 def build_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan,
                       lr_sched: Callable) -> Callable:
-    if plan.mode != "matrix":
-        raise NotImplementedError(f"plan mode {plan.mode!r}: only matrix mode is ported")
-    adam_cfg = AdamConfig(betas=tuple(cfg.matrix_adam_betas), eps=cfg.adam_eps,
+    adam_cfg = AdamConfig(betas=tuple(adam_betas(cfg, plan.mode)), eps=cfg.adam_eps,
                           weight_decay=cfg.w_decay, grad_clip=cfg.grad_clip)
     lr_scale = make_qk_lr_scale(cfg.qk_lr_times) if cfg.qk_scheduler else None
     # autograd parity: no backward below the lowest trainable layer
@@ -325,9 +380,10 @@ def build_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan,
             del grads
             for p in trainable.values():
                 p.grad = None
-            # scatter-at-update: the dense weights absorb the new block values
-            # once per step, in place (weights offloaded to the host are
-            # skipped: the int8 path reads the trainable blocks directly)
+            # scatter-at-update: the dense weights absorb the new block (or
+            # column) values once per step, in place (weights offloaded to
+            # the host are skipped: the int8 path reads the trainable blocks
+            # directly)
             plan.scatter(params["layers"], trainable)
             state["step"].add_(1)
         return state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
@@ -335,10 +391,19 @@ def build_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan,
     return step
 
 
+def adam_betas(cfg: SMTConfig, mode: str):
+    """The sparse phase's Adam betas: the reference hardcodes (0.9, 0.95) on
+    the matrix path (fine_tune.py:361-363) and (0.95, 0.999) on the channel
+    path (:538-540)."""
+    return cfg.matrix_adam_betas if mode == "matrix" else cfg.channel_adam_betas
+
+
 def block_adam(adam_cfg: AdamConfig, lr_scale) -> Callable:
     """The sparse phases' Adam update, in place: adam(impl, grads, state,
-    trainable, lr) over state's "m", "v" and "count". K2 on impl "kernel",
-    with the scalars on the device (made once per device); else
+    trainable, lr) over state's "m", "v" and "count". K2 on impl "kernel"
+    (any contiguous fp32 leaf whose numel is a multiple of 4: blocks,
+    columns, or a module's stack of either; masked_adam raises on any
+    other), with the scalars on the device (made once per device); else
     smt/optimizer.adam_step."""
     consts: Dict[str, torch.Tensor] = {}  # device -> [b1, b2, eps, wd]
 

@@ -1,9 +1,12 @@
 """Two-phase SMT trainer — the orchestration layer (PyTorch twin of
-`sparse_matrix_tuning_tpu.train.trainer`, matrix mode on one device).
+`sparse_matrix_tuning_tpu.train.trainer`, matrix and channel mode on one
+device).
 
 Warm-up -> the one-shot conversion event -> sparse fine-tuning, with the
 eval/save cadences and throughput prints of reference
-deepspeed/fine_tune.py:72-864.
+deepspeed/fine_tune.py:72-864. In channel mode the warm-up steps only
+harvest activation saliency (steps.build_channel_warmup_step) and do not
+train.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ from sparse_matrix_tuning_tpu_torch.smt.optimizer import make_lr_schedule
 from sparse_matrix_tuning_tpu_torch.smt.plan import BLOCK, SMTPlan
 from sparse_matrix_tuning_tpu_torch.train import convert as convert_mod
 from sparse_matrix_tuning_tpu_torch.train.steps import (
-    build_eval_step, build_sparse_step, build_warmup_step, init_warmup_state,
+    build_channel_warmup_step, build_eval_step, build_sparse_step, build_warmup_step,
+    init_warmup_state,
 )
 from sparse_matrix_tuning_tpu_torch.utils.logging import print_rank_0
 from sparse_matrix_tuning_tpu_torch.utils.throughput import ThroughputReporter
@@ -47,6 +51,10 @@ class SMTTrainer:
         warmup_sched = make_lr_schedule(cfg.lr_scheduler_type, cfg.ft_learning_rate,
                                         cfg.lr_warmup_steps, self.total_steps)
         self._warmup_step = build_warmup_step(cfg, model_cfg, warmup_sched)
+        # channel mode: the steps before full_ft_steps harvest activations
+        # and do not train (JAX trainer.py:96-103)
+        self._channel_step = (build_channel_warmup_step(cfg, model_cfg)
+                              if cfg.channel_sparsity else None)
         self._sparse_step = None  # built at conversion
         self._eval_step = build_eval_step(cfg, model_cfg)
 
@@ -77,9 +85,7 @@ class SMTTrainer:
         from sparse_matrix_tuning_tpu_torch.train.scan_phase import build_scan_state_from_hf
 
         model_cfg = model_cfg or load_hf_config(model_dir)
-        if plan.mode == "channel":
-            raise NotImplementedError("sparse_scan_from_hf: channel mode is not ported")
-        if plan.mode != "matrix" or cfg.dtype == "fp16":
+        if plan.mode not in ("matrix", "channel") or cfg.dtype == "fp16":
             raise ValueError("sparse_scan_from_hf requires matrix or channel mode and dtype != "
                              "fp16 (the fp16 loss-scale state is created by the warm-up phase, "
                              "which this entry skips)")
@@ -99,7 +105,7 @@ class SMTTrainer:
 
     @property
     def is_smt(self) -> bool:
-        return self.cfg.matrix_sparsity
+        return self.cfg.matrix_sparsity or self.cfg.channel_sparsity
 
     def maybe_convert(self):
         if self.phase != "warmup" or not self.is_smt:
@@ -185,6 +191,10 @@ class SMTTrainer:
         batch = self._to_device(batch)
         if self.phase == "sparse":
             self.state, metrics = self._sparse_step(self.state, batch)
+        elif self.cfg.channel_sparsity:
+            # channel warm-up (maybe_convert left the phase at "warmup", so
+            # step < full_ft_steps): collect activations, do NOT train
+            self.state, metrics = self._channel_step(self.state, batch)
         else:
             self.state, metrics = self._warmup_step(self.state, batch)
         return metrics
@@ -285,7 +295,8 @@ class SMTTrainer:
     def merged_params(self):
         """Dense params with the current trainables merged (reference
         convert_matrix_sparsity_to_linear_layer, smt.py:416-457): in the
-        sparse phase the dense weights are already current; in warm-up the
+        sparse phase the dense weights are already current (blocks or
+        columns, scattered in every step); in warm-up the
         master, cast to the param dtype, is the truth. With the int8 host
         offload the frozen weights come back from the host store with the
         trained blocks scattered in (those tensors stay on the CPU): the

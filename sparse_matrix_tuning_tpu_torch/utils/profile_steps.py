@@ -14,7 +14,10 @@ synchronisations it makes. A second trainer over the int8 frozen
 base (--frozen_quant int8: K4, K5, int8 head, host offload) gives the same
 for its sparse step, with the share of device time in K4, K5 and K1, and
 so does the continuation over the int8 scan state (--sparse_from_plan)
-from that trainer's weights and plan.
+from that trainer's weights and plan. A third trainer in channel mode
+(--channel_sparsity, 30 attention and 30 MLP channels) gives its warm-up
+step (a forward that harvests activations), its sparse step and the
+continuation over the int8 scan state from its weights and channel plan.
 Decode: eval/generate.generate with the
 eval CLI's settings (beam-4, repetition penalty 1.1, bf16 cache, attention
 through K7) on 16 prompts left-padded to 256 tokens; a call with one new
@@ -193,9 +196,11 @@ OWN_KERNELS = {"K4 q8_matmul": "q8mm_kernel", "row_quant (K4's prologue)": "row_
                "K7 cached_attention": "cached_attn"}
 
 
-def profile_training(model_cfg, device, frozen_quant: str):
+def profile_training(model_cfg, device, frozen_quant: str, mode: str = "matrix"):
     """Warm-up and sparse step of one trainer (module docstring); the int8
-    trainer takes a short warm-up and profiles its sparse step only."""
+    trainer takes a short warm-up and profiles its sparse step only. The
+    int8 trainer and the channel one ("channel" mode) then profile the
+    continuation over the int8 scan state from their weights and plan."""
     from sparse_matrix_tuning_tpu_torch.config import SMTConfig
     from sparse_matrix_tuning_tpu_torch.models.llama import init_params, resolve_attn_impl
     from sparse_matrix_tuning_tpu_torch.train.trainer import SMTTrainer
@@ -203,7 +208,8 @@ def profile_training(model_cfg, device, frozen_quant: str):
     int8 = frozen_quant == "int8"
     full_ft_steps = 2 if int8 else FULL_FT_STEPS
     cfg = SMTConfig(data_path=["synthetic"], model_name_or_path="random-init",
-                    dtype="bf16", matrix_sparsity=True, full_ft_steps=full_ft_steps,
+                    dtype="bf16", matrix_sparsity=mode == "matrix",
+                    channel_sparsity=mode == "channel", full_ft_steps=full_ft_steps,
                     downsample_attention_blocks_ratio=0.0084,
                     downsample_mlp_blocks_ratio=0.0084, ft_learning_rate=9.865e-6,
                     smt_lr=9.865e-6, calculate_strategy="abs_mean",
@@ -222,24 +228,25 @@ def profile_training(model_cfg, device, frozen_quant: str):
                          total_steps=100, device=device)
     attn = resolve_attn_impl(cfg.attn_impl, model_cfg.head_dim, device)
     print(f"[profile] {torch.cuda.get_device_name(0)}, TinyLlama-1.1B geometry, "
-          f"bs {BS} x seq {SEQ}, bf16, remat, attention {attn}, frozen_quant {frozen_quant}",
-          flush=True)
-    tag = "int8 " if int8 else ""
+          f"bs {BS} x seq {SEQ}, bf16, remat, attention {attn}, frozen_quant {frozen_quant}, "
+          f"{mode} mode", flush=True)
+    tag = "int8 " if int8 else "channel " if mode == "channel" else ""
     if int8:
         for _ in range(full_ft_steps):
             trainer.train_step(batch())
     else:
         for _ in range(full_ft_steps - TIMED - 2):  # _profile_step takes the last TIMED + 2
             trainer.train_step(batch())
-        _profile_step(trainer, [batch() for _ in range(TIMED + 2)], "warmup_step")
+        _print_own(f"{tag}warmup_step", *_profile_step(
+            trainer, [batch() for _ in range(TIMED + 2)], f"{tag}warmup_step"))
     for _ in range(2):  # conversion + the first sparse step, then another
         trainer.train_step(batch())
     if trainer.phase != "sparse":
         raise RuntimeError("the trainer did not convert")
     _print_own(f"{tag}sparse_step",
                *_profile_step(trainer, [batch() for _ in range(TIMED + 2)], f"{tag}sparse_step"))
-    if int8:
-        profile_scan_continuation(trainer, model_cfg, device, batch)
+    if int8 or mode == "channel":
+        profile_scan_continuation(trainer, model_cfg, device, batch, f"{tag}scan_sparse_step")
 
 
 def _print_own(label, busy_ms, kernels):
@@ -250,26 +257,30 @@ def _print_own(label, busy_ms, kernels):
               f"{name} {ms:.2f} ({ms / busy_ms:.3f})" for name, ms in own.items()), flush=True)
 
 
-def profile_scan_continuation(trainer, model_cfg, device, batch):
-    """The continuation over the int8 scan state (--sparse_from_plan): the
-    int8 trainer's merged weights written as an HF checkpoint under build/
-    with its plan, quantized while loading by SMTTrainer.sparse_scan_from_hf,
-    and its sparse step profiled as the int8 trainer's was."""
+def profile_scan_continuation(trainer, model_cfg, device, batch, label):
+    """The continuation over the int8 scan state (--frozen_quant int8
+    --sparse_from_plan): the trainer's merged weights written as an HF
+    checkpoint under build/ with its plan, quantized while loading by
+    SMTTrainer.sparse_scan_from_hf, and its sparse step profiled as the
+    trainer's was."""
+    import dataclasses
+
     from sparse_matrix_tuning_tpu_torch.models.hf_io import save_hf_format
     from sparse_matrix_tuning_tpu_torch.train.trainer import SMTTrainer
 
     build = os.path.join(os.path.dirname(__file__), "..", "..", "build")
     os.makedirs(build, exist_ok=True)
     ckpt = tempfile.mkdtemp(prefix="profile_ckpt_", dir=build)
+    cfg = dataclasses.replace(trainer.cfg, frozen_quant="int8", head_quant="auto",
+                              sparse_from_plan=os.path.join(ckpt, "smt_plan.json"))
     try:
         save_hf_format(trainer.merged_params(), model_cfg, ckpt)
-        scan = SMTTrainer.sparse_scan_from_hf(trainer.cfg, ckpt, trainer.plan, total_steps=100,
+        scan = SMTTrainer.sparse_scan_from_hf(cfg, ckpt, trainer.plan, total_steps=100,
                                               model_cfg=model_cfg, device=device)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     scan.train_step(batch())
-    _print_own("scan_sparse_step",
-               *_profile_step(scan, [batch() for _ in range(TIMED + 2)], "scan_sparse_step"))
+    _print_own(label, *_profile_step(scan, [batch() for _ in range(TIMED + 2)], label))
 
 
 def main():
@@ -282,8 +293,8 @@ def main():
 
     model_cfg = LlamaConfig()  # TinyLlama-1.1B geometry
     device = torch.device("cuda")
-    for frozen_quant in ("none", "int8"):
-        profile_training(model_cfg, device, frozen_quant)
+    for frozen_quant, mode in (("none", "matrix"), ("int8", "matrix"), ("none", "channel")):
+        profile_training(model_cfg, device, frozen_quant, mode)
         torch.cuda.empty_cache()
     for frozen_quant, cache_dtype in (("none", "bfloat16"), ("none", "int8"),
                                       ("int4", "bfloat16"), ("int8", "bfloat16")):

@@ -1,6 +1,7 @@
 """The port's config and CLI: the JAX package's flag surface, the "auto"
 policies resolved to what the port implements, the fused attention and
-int8 options, a loud NotImplementedError for every option not yet ported,
+int8 options, channel mode, a loud NotImplementedError for every option
+not yet ported,
 and the fine-tune CLI end to end on a tiny HF checkpoint (whose safetensors
 the port reads by hand) on CPU, over the dense and the int8 frozen base."""
 import dataclasses
@@ -83,6 +84,17 @@ def test_int8_and_loss_options_construct(flags, want):
     dict(profile_dir="prof"), dict(do_gradient_distribution_analysis=True),
 ], ids=lambda kw: next(iter(kw)) + "=" + str(next(iter(kw.values()))))
 def test_unported_options_raise(kw):
+    if kw == dict(channel_sparsity=True):
+        # channel mode is ported (tests/test_torch_channel.py): the flag
+        # builds and parses as in JAX
+        flags = [f for f in RECIPE if f != "--matrix_sparsity"] + ["--channel_sparsity"]
+        mine, theirs = dataclasses.asdict(parse_args(flags)), dataclasses.asdict(
+            jax_parse_args(flags))
+        assert mine["channel_sparsity"] and not mine["matrix_sparsity"]
+        assert {k: v for k, v in mine.items() if k not in POLICIES} == \
+            {k: v for k, v in theirs.items() if k not in POLICIES}
+        assert SMTConfig(**kw).channel_sparsity
+        return
     with pytest.raises(NotImplementedError, match="not yet ported"):
         SMTConfig(**kw)
 

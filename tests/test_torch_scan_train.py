@@ -4,8 +4,9 @@ smt_linear_dyn's forward and gradients against the JAX custom VJP over an
 int8, an int4 and a dense base; quantize-on-load leaf for leaf, Adam state
 included; four scan sparse steps and the eval loss from one carried state;
 the export bit for bit; the trainer entry, the CLI, and K5's schedules
-built once. The plan pads its modules (uneven per-layer counts) and leaves
-a planned module out of one layer."""
+built once; a channel plan accepted by the trainer entry. The plan pads
+its modules (uneven per-layer counts) and leaves a planned module out of
+one layer."""
 import json
 
 import jax
@@ -30,7 +31,7 @@ from sparse_matrix_tuning_tpu_torch.models.hf_io import (
     load_hf_params, read_safetensor, safetensors_header, write_safetensors)
 from sparse_matrix_tuning_tpu_torch.ops import sparse_linear
 from sparse_matrix_tuning_tpu_torch.smt.optimizer import make_lr_schedule
-from sparse_matrix_tuning_tpu_torch.smt.plan import BLOCK
+from sparse_matrix_tuning_tpu_torch.smt.plan import BLOCK, SMTPlan
 from sparse_matrix_tuning_tpu_torch.train import scan_phase
 from sparse_matrix_tuning_tpu_torch.train.trainer import SMTTrainer
 
@@ -376,21 +377,31 @@ def test_trainer_sparse_scan_from_hf_trains_and_exports(ckpt, tmp_path):
 def test_trainer_entry_refusals(ckpt, mode):
     plan = plan_from_jax(_jax_plan())
     if mode == "channel":
-        plan.mode = "channel"
-        with pytest.raises(NotImplementedError, match="channel"):
-            SMTTrainer.sparse_scan_from_hf(_configs()[1], ckpt, plan, 4, PCFG, device="cpu")
+        # channel mode is ported: the entry builds a channel scan state
+        # (tests/test_torch_channel_scan.py holds it against JAX)
+        plan = SMTPlan.from_selection("channel", {("q_proj", 0): [3, 17], ("down_proj", 1): [5]},
+                                      {("q_proj", 0): SHAPES["q_proj"],
+                                       ("down_proj", 1): SHAPES["down_proj"]})
+        t = SMTTrainer.sparse_scan_from_hf(SMTConfig(**_cfg_kwargs(
+            matrix_sparsity=False, channel_sparsity=True, sparse_from_plan="smt_plan.json")),
+            ckpt, plan, 4, PCFG, device="cpu")
+        assert t.phase == "sparse" and t.plan.mode == "channel"
+        assert set(t.state["idx"]["q_proj"]) == {"ci", "valid"}
+        assert tuple(t.state["trainable"]["q_proj"].shape) == (2, 256, 2)
+        assert tuple(t.state["trainable"]["down_proj"].shape) == (2, 256, 1)
+        assert "q_head" in t.state and t.state["sched"] == {"q_proj": [True, False],
+                                                            "down_proj": [False, True]}
         return
     with pytest.raises(ValueError, match="--frozen_quant int8"):
         SMTTrainer.sparse_scan_from_hf(SMTConfig(**_cfg_kwargs(frozen_quant="none")), ckpt, plan,
                                        4, PCFG, device="cpu")
 
 
-def test_fine_tune_cli_sparse_from_plan(tmp_path):
-    """The CLI on a tiny HF checkpoint with a tokenizer: quantize-on-load,
-    sparse steps only, eval, the final export."""
+def _write_cli_ckpt(tmp_path):
+    """_write_ckpt's checkpoint with a tokenizer, and an alpaca JSON:
+    (checkpoint dir, data path) for the fine-tune CLI."""
     from tokenizers import Tokenizer, models, pre_tokenizers, trainers
     from transformers import PreTrainedTokenizerFast
-    from sparse_matrix_tuning_tpu_torch.cli.fine_tune import main
 
     d = tmp_path / "ckpt"
     _write_ckpt(d)
@@ -404,6 +415,15 @@ def test_fine_tune_cli_sparse_from_plan(tmp_path):
     data = tmp_path / "train.json"
     data.write_text(json.dumps([{"instruction": f"Repeat fox {i}",
                                  "output": "the quick brown fox"} for i in range(16)]))
+    return str(d), str(data)
+
+
+def test_fine_tune_cli_sparse_from_plan(tmp_path):
+    """The CLI on a tiny HF checkpoint with a tokenizer: quantize-on-load,
+    sparse steps only, eval, the final export."""
+    from sparse_matrix_tuning_tpu_torch.cli.fine_tune import main
+
+    d, data = _write_cli_ckpt(tmp_path)
     plan_path = tmp_path / "smt_plan.json"
     plan_path.write_text(plan_from_jax(_jax_plan()).to_json())
     out = tmp_path / "out"
