@@ -106,7 +106,24 @@ Phases, in order; any failure raises and the exit code is non-zero:
      trained columns), then two greedy decode legs over I's trained state
      (I8 the int8 base, K4; I4 the base requantized to int4, K6), 16
      prompts, 32 new tokens. Among the references, H's path and I's at
-     the tiny fp32 size, GPU against CPU.
+     the tiny fp32 size, GPU against CPU;
+ 10. run J (after I), channel mode with --frozen_quant int8 from a
+     warm-up at full depth, as A otherwise: at 22 layers the conversion
+     builds the int8 scan state (scan_phase.build_scan_sparse_state, its
+     stacks (L, 1) placeholders beside the host store, q and q_head), so
+     the sparse phase launches K4 t and g with one row quantization per
+     call, K3 and K2, no K1, K5 or K6; the export checked as A's against
+     merged_params_from_scan, ms/step, peak, syncs (no more than E's) and
+     the int8 greedy decode leg J8, beside run I's. Among the references,
+     J's path at the tiny fp32 size widened to 12 layers, GPU against CPU;
+ 11. runs R and R2 (after J), resume: R in matrix mode, bf16, --dropout
+     0.1, 2 warm-up + 3 sparse steps at full depth, straight and stopped
+     twice (after the warm-up checkpoint at step 2, inside the sparse
+     phase at step 4), each stop restored into a fresh SMTTrainer from
+     {output_dir}/ckpt; R2 the same in J's layout (channel int8 scan state),
+     stopped once at step 4. Losses, eval loss and every state leaf equal
+     the straight run's bit for bit; no K3 launch in a training step under
+     dropout.
 Before the references, K6 (the int4 unpack-matmul) runs at eight shapes
 (K6_SHAPES: the TinyLlama linears at the eval decode's 64 rows, 16 and a
 ragged 7, Llama-3-8B's gate) and on the layer views of a stack (K6s),
@@ -122,7 +139,8 @@ build, the row quantization and no-synchronisation checks, the K4 / K5
 checks and the tiny int8 reference; `--only q4` after
 the build, the K6 checks and the tiny quantized generation; `--only attn`
 after the build and the K3 / K7 checks; `--only sparse` after the build and
-the K1 / K2 / K5 checks; none of them prints a result.
+the K1 / K2 / K5 checks; `--only scan` runs the build, the tiny 12-layer
+channel int8 reference, J and R; none of them prints a result.
 """
 
 from __future__ import annotations
@@ -1528,7 +1546,7 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
                   full_ft_steps=3, sparse_steps=4, eval_batches=2,
                   ratios=(0.0084, 0.0084), attn_impl="auto", out_dir=None, log_fn=log,
                   keep_decode_params=False, frozen_quant="none", loss_impl="auto",
-                  count_syncs=False, mode="matrix"):
+                  count_syncs=False, mode="matrix", keep_state=False, decode_leg=False):
     """SMTTrainer.fit through warm-up -> conversion -> sparse -> eval ->
     final export, with per-phase step times and peak memory; mode "matrix"
     (the block ratios) or "channel" (--channel_sparsity at the CLI's 30
@@ -1538,16 +1556,24 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
     conversion-time weights, selected blocks or columns the trainables),
     the export against merged_params(), and, with frozen_quant="int8" (host
     offload and the int8 head follow), that no dense layer weight or head
-    is left on the device. Returns a summary, with trainer.decode_params()
+    is left on the device: in channel mode at 12 layers or more the
+    conversion builds the int8 scan state (scan_phase.resolve_scan_layers),
+    whose stacks must then be (L, 1) placeholders with the host store
+    holding them. Returns a summary, with trainer.decode_params()
     under "decode_params" if asked for, and with count_syncs the eval ms
     (eval_ms) and the host-device syncs of one more sparse step
-    (sparse_step_syncs), both after the checks."""
+    (sparse_step_syncs), both after the checks. keep_state: the
+    conversion runs at the last warm-up step's end, and each trainable
+    leaf's change over the sparse steps and its Adam m are kept on the host
+    (_scan_reference_faults reads them); decode_leg: run_scan_decode's int8
+    leg over the trained scan state, last."""
     import numpy as np
     import torch
     from sparse_matrix_tuning_tpu_torch.config import SMTConfig
     from sparse_matrix_tuning_tpu_torch.models.hf_io import load_hf_params
     from sparse_matrix_tuning_tpu_torch.models.llama import flatten_tree, init_params
     from sparse_matrix_tuning_tpu_torch.smt.plan import BLOCK
+    from sparse_matrix_tuning_tpu_torch.train.convert import LAYER_LINEARS
     from sparse_matrix_tuning_tpu_torch.train.steps import _use_chunked_loss
     from sparse_matrix_tuning_tpu_torch.train.trainer import SMTTrainer
 
@@ -1590,7 +1616,8 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
     log_fn(f"[main] {n_params:,} params, init + trainer {time.time() - t0:.1f} s, "
            f"saliency_accumulation={cfg.saliency_accumulation}")
 
-    summary = {"n_params": n_params, "step_ms": [], "phase": [], "loss": [], "peak": {}}
+    summary = {"n_params": n_params, "step_ms": [], "phase": [], "loss": [], "grad_norm": [],
+               "peak": {}}
     summary["loss_path"] = {
         phase: "chunked" if _use_chunked_loss(cfg, model_cfg, sparse=sparse,
                                               batch_tokens=bs * (seq - 1)) else "full"
@@ -1604,6 +1631,8 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
         summary["step_ms"].append((t_enter - marks["exit"]) * 1e3)
         summary["phase"].append(trainer.phase)
         summary["loss"].append(float(metrics["loss"]))
+        if trainer.phase == "sparse":
+            summary["grad_norm"].append(float(metrics["grad_norm"]))
         if step == full_ft_steps:
             summary["peak"]["warmup"] = peak_and_reset()
             summary["launches_warmup"] = launches()
@@ -1613,6 +1642,10 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
                               for li, layer in at_conversion["layers"].items()}
             snap["lm_head"] = at_conversion["lm_head"].to("cpu")
             del at_conversion
+            if keep_state:
+                trainer.maybe_convert()
+                snap["trainable"] = {k: t.detach().to("cpu", copy=True)
+                                     for k, t in trainer.state["trainable"].items()}
             sync()
             peak_and_reset()
         elif step == full_ft_steps + 1:
@@ -1646,11 +1679,18 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
         "trainable_params": plan.trainable_params, "fingerprint": plan.fingerprint()}
 
     # int8 frozen base with host offload: no dense (O, I) layer weight and
-    # no head is left on the device, only their 1-element placeholders
+    # no head is left on the device, only their 1-element placeholders (over
+    # the scan state: (L, 1) stacks, the host store holding every stack)
     summary["offloaded"] = None
+    summary["scan"] = trainer._scan
     if frozen_quant == "int8":
-        dense = [f"{li}.{m}" for li, layer in trainer.state["params"]["layers"].items()
-                 for m, w in layer.items() if w.dim() == 2]
+        if trainer._scan:
+            stacked = trainer.state["params"]["layers_stacked"]
+            dense = [m for m in LAYER_LINEARS if tuple(stacked[m].shape) != (
+                model_cfg.num_hidden_layers, 1) or m not in (trainer._host_frozen or {})]
+        else:
+            dense = [f"{li}.{m}" for li, layer in trainer.state["params"]["layers"].items()
+                     for m, w in layer.items() if w.dim() == 2]
         if dense or trainer.state["params"]["lm_head"].dim() == 2:
             raise AssertionError(f"dense weights left on the device after conversion: "
                                  f"{dense[:4]}, lm_head {trainer.state['params']['lm_head'].shape}")
@@ -1675,7 +1715,7 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
                     raise AssertionError(f"frozen weight {li}.{mod} changed")
             else:
                 mask = torch.zeros(before.shape, dtype=torch.bool)
-                trained = trainer.state["trainable"][ks].detach().to("cpu", w.dtype)
+                trained = trained_entries(trainer, ks).detach().to("cpu", w.dtype)
                 if plan.mode == "channel":
                     mask[:, list(lp.channels)] = True
                     if not torch.equal(w[:, plan.channel_index(ks, "cpu")], trained):
@@ -1723,11 +1763,29 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
                 raise AssertionError("exported smt_plan.json differs")
         export = exported
     summary["export_tensors_equal"] = export
+    if keep_state:
+        summary["change"] = {k: trainer.state["trainable"][k].detach().to("cpu") - t
+                             for k, t in snap["trainable"].items()}
+        summary["m"] = {k: t.to("cpu") for k, t in trainer.state["m"].items()}
     if keep_decode_params:
         summary["decode_params"] = trainer.decode_params()
     if count_syncs:
         summary.update(eval_and_syncs(trainer, train_ds, eval_ds, bs, seq))
+    if decode_leg:
+        summary["decode"] = run_scan_decode(trainer, model_cfg, tag="J", legs=("8",))
     return summary
+
+
+def trained_entries(trainer, ks):
+    """Linear ks's trained blocks (n, 256, 256) or columns (O, n), in its
+    plan's order, from the per-layer state or from the stacks of the scan
+    state (whose valid entries come first, in plan order)."""
+    trainable = trainer.state["trainable"]
+    if not trainer._scan:
+        return trainable[ks]
+    lp = trainer.plan.linears[ks]
+    t = trainable[lp.module][lp.layer]
+    return t[:, :lp.n_channels] if trainer.plan.mode == "channel" else t[:lp.n_blocks]
 
 
 def eval_and_syncs(trainer, train_ds, eval_ds, bs, seq):
@@ -2619,32 +2677,35 @@ def run_scan_continuation(model_dir, plan_path, model_cfg, device, *, dtype="bf1
     return summary
 
 
-# the decode legs over run I's channel scan state: (tag, frozen base, the
-# kernels each must launch, those it must not)
+# the decode legs over a channel scan state (run I's, J's): (leg suffix,
+# frozen base, the kernels each must launch, those it must not)
 SCAN_DECODE_LEGS = (
-    ("I8", "int8", ("q8mm_t", "row_quant", "cached_attn"),
+    ("8", "int8", ("q8mm_t", "row_quant", "cached_attn"),
      ("q4_matmul", "block_correction", "block_grad", "masked_adam")),
-    ("I4", "int4", ("q4_matmul", "cached_attn"),
+    ("4", "int4", ("q4_matmul", "cached_attn"),
      ("q8mm_t", "row_quant", "block_correction", "block_grad", "masked_adam")))
 
 
-def run_scan_decode(trainer, cfg, new_tokens=32):
-    """The decode legs of run I over its trained scan state, as the eval CLI
-    decodes a quantized base: eval/generate.decode_params_from_scan (each
-    planned module's column delta built once, the exact bf16 head back from
-    the host) through the harness, 16 prompts, greedy, bf16 cache,
+def run_scan_decode(trainer, cfg, new_tokens=32, tag="I", legs=("8", "4")):
+    """The decode legs of run I (or J) over its trained scan state, as the
+    eval CLI decodes a quantized base: eval/generate.decode_params_from_scan
+    (each planned module's column delta built once, the exact bf16 head
+    back from the host) through the harness, 16 prompts, greedy, bf16 cache,
     `new_tokens` new tokens; I8 over the int8 base (K4), then I4 over the
     base requantized to int4 (K6 at the decode rows), which consumes the
     int8 base. Each: conversion s, the launches of its path. Returns {leg:
-    summary}."""
+    summary}, the legs tagged tag + suffix."""
     import gc
 
     import torch
     from sparse_matrix_tuning_tpu_torch.eval.generate import decode_params_from_scan
 
     examples = synthetic_eval_examples(16, StandInTokenizer(cfg.vocab_size), seed=11)
-    legs = {}
-    for tag, fq, need, forbid in SCAN_DECODE_LEGS:
+    out = {}
+    for suffix, fq, need, forbid in SCAN_DECODE_LEGS:
+        if suffix not in legs:
+            continue
+        leg_tag = tag + suffix
         gc.collect()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2652,21 +2713,23 @@ def run_scan_decode(trainer, cfg, new_tokens=32):
                                          frozen_quant=fq, consume=fq == "int4")
         torch.cuda.synchronize()
         conv_s = time.perf_counter() - t0
-        leg = eval_leg(tag, f"run I's channel scan state, {fq} base, greedy, {new_tokens} new "
-                       f"tokens (decode params built in {conv_s:.2f} s)", params, cfg, examples,
-                       num_beams=1, max_new_tokens=new_tokens)
+        leg = eval_leg(leg_tag, f"run {tag}'s channel scan state, {fq} base, greedy, "
+                       f"{new_tokens} new tokens (decode params built in {conv_s:.2f} s)", params,
+                       cfg, examples, num_beams=1, max_new_tokens=new_tokens)
         bad = [n for n in need if leg["launches"][n] <= 0] + [n for n in forbid
                                                                if leg["launches"][n]]
         if bad:
-            raise AssertionError(f"run {tag} launches {leg['launches']}: wrong for {bad}")
+            raise AssertionError(f"run {leg_tag} launches {leg['launches']}: wrong for {bad}")
         leg["conversion_s"] = conv_s
-        legs[tag] = leg
+        out[leg_tag] = leg
         del params
-    agree = float((legs["I8"]["tokens"] == legs["I4"]["tokens"]).mean())
-    log(f"[I] decode legs: I8 {legs['I8']['decode_ms']:.2f} ms/step, I4 "
-        f"{legs['I4']['decode_ms']:.2f} ms/step; token agreement I4 vs I8 {agree:.4f} (random "
-        "weights, int4 against int8 noise)")
-    return legs
+    if len(out) == 2:
+        a, b = out[tag + "8"], out[tag + "4"]
+        log(f"[{tag}] decode legs: {tag}8 {a['decode_ms']:.2f} ms/step, {tag}4 "
+            f"{b['decode_ms']:.2f} ms/step; token agreement {tag}4 vs {tag}8 "
+            f"{float((a['tokens'] == b['tokens']).mean()):.4f} (random weights, int4 against "
+            "int8 noise)")
+    return out
 
 
 # What the tiny continuation's steps did, per module, as a share of the
@@ -2850,17 +2913,253 @@ def check_channel_run(h):
         raise AssertionError(f"run H launches: warm-up {warm}, after it {rest}: wrong for {bad}")
 
 
+def check_small_deep_channel_reference():
+    """Run J's path at the tiny fp32 size widened to 12 layers: channel
+    mode with --frozen_quant int8 from a warm-up, which converts into the
+    int8 scan state (scan_phase.resolve_scan_layers); the card's run (K3,
+    K4 with its row quantization, K2) against the port on the CPU (plain
+    versions): the same plan, every kernel of the path launched, and
+    _scan_reference_faults finds none (losses, eval loss and grad norms
+    within 1e-3, the int8 bound INT8_LOSS_RTOL; per module the trainables'
+    change and m within SCAN_CHANGE_RTOL / SCAN_M_RTOL). Without the q/k LR
+    boost: at 3x on q/k the grad norms part by 1.0e-3 at step 3 on an
+    NVIDIA H100 80GB HBM3 at 700 W, over the 1e-3 bound."""
+    import dataclasses
+
+    import numpy as np
+    from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
+
+    cfg = dataclasses.replace(LlamaConfig.tiny(vocab_size=512), num_hidden_layers=12)
+    kw = dict(dtype="fp32", bs=4, seq=64, full_ft_steps=2, sparse_steps=4, eval_batches=1,
+              log_fn=lambda m: None, frozen_quant="int8", mode="channel", keep_state=True)
+    gpu = run_main_path(cfg, "cuda", **kw)
+    cpu = run_main_path(cfg, "cpu", **kw)
+    if not (gpu["scan"] and cpu["scan"]):
+        raise AssertionError("tiny 12-layer channel int8 run: not over the scan state")
+    if gpu["plan"]["fingerprint"] != cpu["plan"]["fingerprint"]:
+        raise AssertionError("tiny 12-layer channel int8 run: GPU and CPU plans differ")
+    faults, worst = _scan_reference_faults(gpu, cpu)
+    if faults:
+        raise AssertionError("tiny 12-layer channel int8 run, GPU vs CPU: " + "; ".join(faults))
+    # fp32 attention walks each group whole: no partitions, no reduce
+    needed = tuple(n for n in K3_KERNELS if n != "attn_bwd_dkdv_reduce") + (
+        "masked_adam", "q8mm_t", "q8mm_g", "row_quant")
+    lg = gpu["launches"]
+    if not all(lg[n] > 0 for n in needed) or lg["block_grad"] or lg["block_correction"]:
+        raise AssertionError(f"tiny 12-layer channel int8 run launches: {lg}")
+    rel = float(np.max(np.abs(np.array(gpu["loss"]) - np.array(cpu["loss"]))
+                       / np.abs(np.array(cpu["loss"]))))
+    log(f"[reference] tiny fp32 channel run at 12 layers, --frozen_quant int8 from a warm-up "
+        f"(converted into the int8 scan state), GPU kernels vs CPU plain: losses {gpu['loss']} "
+        f"(worst rel diff {rel:.2e}), grad norms {gpu['grad_norm']}, eval loss "
+        f"{gpu['eval_loss']:.6f} vs {cpu['eval_loss']:.6f}, same plan; per module, (GPU - CPU) "
+        f"as a share of the CPU's norm: trainables' change {_shares(worst['change'])} (limit "
+        f"{SCAN_CHANGE_RTOL}), m {_shares(worst['m'])} (limit {SCAN_M_RTOL}); GPU launches {lg}")
+
+
+def check_deep_channel_run(j, e):
+    """Run J's launches and state: the warm-up a forward only (K3 forward;
+    no K3 backward, K2 or int8 kernel), the sparse phase over the int8 scan
+    state (K3, K2, K4 t and g with one row quantization per K4 call; no K1,
+    K5 or K6), and no more syncs a sparse step than E's."""
+    if not j["scan"] or not j["offloaded"]:
+        raise AssertionError(f"run J did not train over the offloaded int8 scan state: scan "
+                             f"{j['scan']}, host store {j['offloaded']}")
+    warm = j["launches_warmup"]
+    rest = {n: c - warm[n] for n, c in j["launches"].items()}
+    bad = ([n for n in ("attn_fwd",) if warm[n] <= 0]
+           + [n for n in K3_KERNELS[1:] + ("masked_adam",) + Q8_KERNELS + ("q4_matmul",)
+              if warm[n]]
+           + [n for n in K3_KERNELS + ("masked_adam",) + K4_KERNELS + ("row_quant",)
+              if rest[n] <= 0]
+           + [n for n in ("block_grad", "block_correction", "q4_matmul") if rest[n]])
+    if bad or rest["row_quant"] != rest["q8mm_t"] + rest["q8mm_g"]:
+        raise AssertionError(f"run J launches: warm-up {warm}, after it {rest}: wrong for {bad}")
+    if e is not None and j["sparse_step_syncs"] > e["sparse_step_syncs"]:
+        raise AssertionError(f"run J syncs {j['sparse_step_syncs']} times a sparse step, run E "
+                             f"{e['sparse_step_syncs']}")
+
+
+def report_deep_channel_run(j, i, n_warmup):
+    """Run J's sparse-phase numbers beside run I's (the same layout, loaded
+    from a checkpoint rather than converted from a warm-up)."""
+    gib = 1024 ** 3
+    card = f"({CARD['smi']})"
+    j_ms = statistics.median(j["step_ms"][n_warmup + 1:])
+    i_ms = statistics.median(i["step_ms"][1:])
+    leg, ileg = j["decode"]["J8"], i["decode"]["I8"]
+    log(f"[J] over the int8 scan state built from the warm-up: sparse ms/step median {j_ms:.1f} "
+        f"vs I's {i_ms:.1f}; later-step peak {j['peak']['later_sparse_steps'] / gib:.2f} GiB vs "
+        f"I's fit peak {i['peak_gib']:.2f}; eval {j['eval_ms']:.1f} ms for {j['eval_batches']} "
+        f"batches vs I's {i['eval_ms']:.1f}; host-device syncs in a sparse step "
+        f"{j['sparse_step_syncs']} vs I's {i['sparse_step_syncs']}; J8 greedy decode "
+        f"{leg['decode_ms']:.2f} ms/step vs I8 {ileg['decode_ms']:.2f} {card}")
+
+
+class Interrupted(Exception):
+    """Raised from fit's on_metrics: the run stops as if its process died."""
+
+
+def run_resume(model_cfg, *, mode="matrix", frozen_quant="none", dropout=0.1, full_ft_steps=2,
+               sparse_steps=3, stops=(2, 4), bs=4, seq=512, eval_batches=1):
+    """Run R: `cli.fine_tune --dropout 0.1 [--resume_from]` at run A's
+    geometry, bf16, remat, the recipe's rates: `full_ft_steps` warm-up and
+    `sparse_steps` sparse steps straight through, and the same run stopped
+    after each step of `stops` (killed during the next step, after the
+    checkpoint of --save_steps gcd(stops) was written) and restored from
+    {output_dir}/ckpt into a fresh SMTTrainer, which fit continues. The
+    losses, the eval loss and every leaf of the final state must equal the
+    straight run's bit for bit: K1's split sum and K3's dK/dV reduce run in
+    a fixed order, the dropout masks are seeded by (seed, step, layer), and
+    the channel path's index_add_ adds exact zeros at its padded entries
+    (its valid columns are distinct). Under dropout no K3 kernel may launch
+    in a step that takes gradients, as in JAX (channel mode's warm-up is a
+    forward only, without dropout). Returns a summary."""
+    import dataclasses
+    import gc
+    import math
+
+    import torch
+    from sparse_matrix_tuning_tpu_torch.config import SMTConfig
+    from sparse_matrix_tuning_tpu_torch.models.llama import flatten_tree, init_params
+    from sparse_matrix_tuning_tpu_torch.train.checkpoint import STATE_FILE, restore_checkpoint
+    from sparse_matrix_tuning_tpu_torch.train.trainer import SMTTrainer
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    mcfg = dataclasses.replace(model_cfg, attention_dropout=dropout)
+    n_steps = full_ft_steps + sparse_steps
+    train_ds = synthetic_sft(n_steps * bs, seq, mcfg.vocab_size, 1)
+    eval_ds = synthetic_sft(eval_batches * bs, seq, mcfg.vocab_size, 2)
+    tag = "R" if mode == "matrix" else "R2"
+
+    def config(out_dir):
+        return SMTConfig(
+            data_path=["synthetic"], model_name_or_path="random-init", dtype="bf16",
+            gradient_checkpointing=True, matrix_sparsity=mode == "matrix",
+            channel_sparsity=mode == "channel", full_ft_steps=full_ft_steps,
+            downsample_attention_blocks_ratio=0.0084, downsample_mlp_blocks_ratio=0.0084,
+            ft_learning_rate=9.865e-6, smt_lr=9.865e-6, calculate_strategy="abs_mean",
+            per_device_ft_batch_size=bs, per_device_eval_batch_size=bs, max_seq_len=seq,
+            seq_buckets=[seq], num_ft_epochs=1, eval_step=0, save_steps=math.gcd(*stops),
+            log_steps=10 ** 9, throughput_steps=10 ** 9, seed=1234, output_dir=out_dir,
+            frozen_quant=frozen_quant, dropout=dropout)
+
+    def segment(out_dir, resume, stop):
+        """A fresh trainer (restored from out_dir/ckpt if `resume`) and fit,
+        stopped once step `stop` is done: (losses, trainer, history,
+        training launches, restore s)."""
+        trainer = SMTTrainer(config(out_dir), mcfg,
+                             init_params(mcfg, seed=0, dtype=torch.bfloat16, device="cuda"),
+                             total_steps=n_steps, device="cuda")
+        restore_s = None
+        if resume:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            restore_checkpoint(os.path.join(out_dir, "ckpt"), trainer)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+        losses, seen = [], {}
+
+        def on_metrics(step, metrics):
+            if stop is not None and step > stop:
+                raise Interrupted
+            losses.append(float(metrics["loss"]))
+            if step == full_ft_steps:
+                seen["warmup"] = launches()
+            if step == n_steps:
+                seen["launches"] = launches()
+
+        reset_launches()
+        try:
+            history = trainer.fit(train_ds, eval_ds, pad_token_id=0, on_metrics=on_metrics)
+        except Interrupted:
+            trainer = history = None
+        free()
+        return losses, trainer, history, seen, restore_s
+
+    t0 = time.perf_counter()
+    losses, straight, history, seen, _ = segment(None, False, None)
+    train_launches = seen["launches"]
+    # the steps that take gradients: all of them in matrix mode; in channel
+    # mode the sparse ones (its warm-up is a forward that draws no mask, as
+    # in JAX, and keeps the fused attention)
+    grad_launches = train_launches if mode == "matrix" else {
+        n: c - seen["warmup"][n] for n, c in train_launches.items()}
+    straight_s = time.perf_counter() - t0
+    want = {k: v.detach().clone() for k, v in flatten_tree(
+        {k: v for k, v in straight.state.items() if k != "sched"}).items()}
+    want_eval = history["eval_loss"][-1]
+    scan, plan_fp = straight._scan, straight.plan.fingerprint()
+    del straight, history
+    free()
+
+    out_dir = tempfile.mkdtemp(prefix="smoke_resume_", dir=os.path.join(REPO, "build"))
+    got_losses, restores, ckpt_gib = [], [], []
+    t0 = time.perf_counter()
+    try:
+        prev = 0
+        for stop in tuple(stops) + (None,):
+            part, trainer, history, _, restore_s = segment(out_dir, bool(prev), stop)
+            got_losses += part
+            if restore_s is not None:
+                restores.append(round(restore_s, 2))
+            if stop is not None:
+                ckpt_gib.append(round(os.path.getsize(os.path.join(out_dir, "ckpt", STATE_FILE))
+                                      / 1024 ** 3, 3))
+            prev = stop
+        got = flatten_tree({k: v for k, v in trainer.state.items() if k != "sched"})
+        if set(got) != set(want):
+            raise AssertionError(f"run {tag}: the resumed state's leaves differ from the "
+                                 f"straight run's: {sorted(set(got) ^ set(want))[:6]}")
+        differ = [k for k, v in got.items() if not torch.equal(v, want[k])]
+        resumed_eval = history["eval_loss"][-1]
+        resumed_fp = trainer.plan.fingerprint()
+        del trainer, got
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    resumed_s = time.perf_counter() - t0
+    if got_losses != losses or differ or resumed_eval != want_eval or resumed_fp != plan_fp:
+        raise AssertionError(
+            f"run {tag}: the resumed run is not the straight run bit for bit: losses "
+            f"{got_losses} vs {losses}, eval {resumed_eval} vs {want_eval}, leaves differing "
+            f"{differ[:6]} ({len(differ)}), plans equal {resumed_fp == plan_fp}")
+    need = ("masked_adam",) + (("block_grad",) if mode == "matrix" else K4_KERNELS)
+    if not all(train_launches[n] > 0 for n in need):
+        raise AssertionError(f"run {tag}: launches in training {train_launches}")
+    if dropout > 0 and any(grad_launches[n] for n in K3_KERNELS):
+        raise AssertionError(f"run {tag}: K3 launched in a training step under dropout: "
+                             f"{grad_launches}")
+    summary = {"losses": losses, "eval_loss": want_eval, "scan": scan, "stops": list(stops),
+               "leaves": len(want), "launches": train_launches, "restore_s": restores,
+               "ckpt_gib": ckpt_gib, "straight_s": straight_s, "resumed_s": resumed_s}
+    log(f"[{tag}] TinyLlama-1.1B bf16, {mode} mode, "
+        f"--frozen_quant {frozen_quant}, --dropout "
+        f"{dropout}, bs {bs} x seq {seq}, {full_ft_steps} warm-up + {sparse_steps} sparse steps"
+        f"{' over the int8 scan state' if scan else ''}: straight losses {losses}, eval "
+        f"{want_eval:.6f}; stopped after steps {list(stops)} and resumed into fresh trainers: "
+        f"losses, eval loss and all {len(want)} state leaves bit for bit equal; checkpoint "
+        f"state.pt {ckpt_gib} GiB, restores {restores} s; straight {straight_s:.1f} s, "
+        f"interrupted and resumed {resumed_s:.1f} s; training launches {train_launches} "
+        f"({CARD['smi']})")
+    return summary
+
+
 def main(argv=None):
     """`--only q8` stops after the build, the row quantization, K4 / K5
     checks and the tiny int8 references; `--only q4` after the build, the K6 checks and the tiny
     quantized generation; `--only attn` after the build and the K3 / K7
     checks; `--only sparse` after the build and the K1 / K2 / K5 checks
-    (short first calls for a new kernel); none prints a result line. With
-    no arguments every phase runs."""
+    (short first calls for a new kernel); `--only scan` runs the build, the
+    tiny 12-layer channel int8 reference, run J and runs R and R2 (a short
+    call for the conversion into the scan state and resume); none prints a
+    result line. With no arguments every phase runs."""
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--only", "q8"], ["--only", "q4"], ["--only", "attn"],
-                    ["--only", "sparse"]):
-        raise SystemExit("usage: python3 chip_smoke.py [--only q8|q4|attn|sparse]")
+                    ["--only", "sparse"], ["--only", "scan"]):
+        raise SystemExit("usage: python3 chip_smoke.py [--only q8|q4|attn|sparse|scan]")
     only = argv[1] if argv else None
     only_q8 = only == "q8"
     t_start = time.time()
@@ -2900,6 +3199,25 @@ def main(argv=None):
             f"{name} {t - prev:.1f}" for (name, t), (_, prev)
             in zip(marks, [("", t_start)] + marks)))
         return
+    if only == "scan":
+        check_small_deep_channel_reference()
+        marks.append(("references", time.time()))
+        model_cfg = LlamaConfig(**TINYLLAMA)
+        run_j = run_main_path(model_cfg, "cuda", mode="channel", frozen_quant="int8",
+                              count_syncs=True, decode_leg=True)
+        report_run("J", "TinyLlama-1.1B bf16, --channel_sparsity --frozen_quant int8 from a "
+                   "warm-up, bs 4 x seq 512, remat, attn auto (K3)", run_j, 3)
+        check_deep_channel_run(run_j, None)
+        del run_j
+        torch.cuda.empty_cache()
+        marks.append(("J", time.time()))
+        run_resume(model_cfg)
+        run_resume(model_cfg, mode="channel", frozen_quant="int8", stops=(4,))
+        marks.append(("R", time.time()))
+        log("[smoke] --only scan: seconds by phase: " + ", ".join(
+            f"{name} {t - prev:.1f}" for (name, t), (_, prev)
+            in zip(marks, [("", t_start)] + marks)))
+        return
     if only == "q4":
         check_q4_matmul()
         marks.append(("kernels", time.time()))
@@ -2927,6 +3245,7 @@ def main(argv=None):
         check_small_scan_reference()
         check_small_reference(mode="channel")
         check_small_scan_reference(mode="channel")
+        check_small_deep_channel_reference()
     check_small_reference(frozen_quant="int8", loss_impl="chunked")
     marks.append(("references", time.time()))
     if only_q8:
@@ -3030,6 +3349,27 @@ def main(argv=None):
     check_scan_run(run_i, run_e, tag="I")
     torch.cuda.empty_cache()
     marks.append(("I", time.time()))
+    # J: channel mode with --frozen_quant int8 from a warm-up at full depth:
+    # the conversion builds the int8 scan state (K4 and its row quantization
+    # in the sparse phase), with its export and the int8 decode leg
+    j_dir = tempfile.mkdtemp(prefix="smoke_export_", dir=build_dir)
+    try:
+        run_j = run_main_path(model_cfg, "cuda", out_dir=j_dir, mode="channel",
+                              frozen_quant="int8", count_syncs=True, decode_leg=True)
+    finally:
+        shutil.rmtree(j_dir, ignore_errors=True)
+    report_run("J", "TinyLlama-1.1B bf16, --channel_sparsity --frozen_quant int8 from a warm-up "
+               "(30 + 30 channels), bs 4 x seq 512, remat, attn auto (K3)", run_j, 3)
+    check_deep_channel_run(run_j, run_e)
+    report_deep_channel_run(run_j, run_i, 3)
+    torch.cuda.empty_cache()
+    marks.append(("J", time.time()))
+    # R: resume under dropout, matrix mode over the per-layer state, stopped
+    # in the warm-up and in the sparse phase; R2: once in J's layout
+    run_r = run_resume(model_cfg)
+    run_r2 = run_resume(model_cfg, mode="channel", frozen_quant="int8", stops=(4,))
+    torch.cuda.empty_cache()
+    marks.append(("R", time.time()))
     # B: the recipe's max_seq_len 2048, bs 2
     run_b = run_main_path(model_cfg, "cuda", bs=2, seq=2048)
     report_run("B", "TinyLlama-1.1B bf16, bs 2 x seq 2048, remat, attn auto (K3)", run_b, 3)
@@ -3115,9 +3455,12 @@ def main(argv=None):
                              ms_timed_cases=k5_timed, ms_at_plan_n=at_plan_n("K5")),
                         entry("q4_matmul", "q4_matmul.cu", "q4_matmul.py:94",
                               run_f["F1"]["launches"]["q4_matmul"], k6_err, *k6_time)]
-    # every kernel's launches in the channel runs: H, I and I's decode legs
+    # every kernel's launches in the channel runs: H, I and I's decode legs,
+    # J and its decode leg; and in R and R2's training steps
     runs = {"H": run_h["launches"], "I": run_i["launches"],
-            **{tag: leg["launches"] for tag, leg in run_i["decode"].items()}}
+            **{tag: leg["launches"] for tag, leg in run_i["decode"].items()},
+            "J": run_j["launches"], "J8": run_j["decode"]["J8"]["launches"],
+            "R": run_r["launches"], "R2": run_r2["launches"]}
     for k in kernels:
         k.setdefault("launches_by_run", {}).update(
             {tag: counts[k["name"]] for tag, counts in runs.items()})

@@ -32,6 +32,13 @@ while it loads and only the planned blocks (or columns) train over it:
 
 (with a channel plan, --channel_sparsity in place of --matrix_sparsity).
 
+A run with an --output_dir keeps its whole train state in
+{output_dir}/ckpt at every --save_steps step and epoch end; --resume_from
+{output_dir}/ckpt continues it, with the same flags, from where it
+stopped (train/checkpoint.py). --dropout p sets the attention dropout of
+the training forwards (the einsum attention then runs in training; eval
+keeps the fused kernel).
+
 model_name_or_path must be a local HF checkpoint dir. Runs on the card
 (--device cuda, the default, raises when there is none); --device cpu runs
 the plain versions of the kernels on the CPU.
@@ -71,6 +78,11 @@ def main(argv=None):
     tokenizer = load_hf_tokenizer(cfg.model_name_or_path, cfg.max_seq_len,
                                   cfg.add_eot_token)
     model_cfg = load_hf_config(cfg.model_name_or_path)
+    if cfg.dropout > 0:
+        # reference configure_dropout (deepspeed_helpers.py:577-583): the
+        # Llama family exposes attention_dropout
+        import dataclasses
+        model_cfg = dataclasses.replace(model_cfg, attention_dropout=cfg.dropout)
     params = None
     if not cfg.sparse_from_plan:
         params = load_hf_params(cfg.model_name_or_path, model_cfg,
@@ -98,6 +110,11 @@ def main(argv=None):
     else:
         trainer = SMTTrainer(cfg, model_cfg, params, total_steps, device=device)
         del params
+    if cfg.resume_from:
+        from sparse_matrix_tuning_tpu_torch.train.checkpoint import restore_checkpoint
+        restore_checkpoint(cfg.resume_from, trainer)
+        print_rank_0(f"[resume] from {cfg.resume_from} at step {trainer.step} "
+                     f"phase {trainer.phase}")
     history = trainer.fit(train_ds, eval_ds, tokenizer.pad_token_id,
                           tokenizer=tokenizer)
     print_rank_0(f"training_loss_list: {history['train_loss'][-20:]}")

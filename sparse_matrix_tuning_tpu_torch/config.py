@@ -11,11 +11,15 @@ paths this port implements:
                 fullk (resolved per call in models/llama.py)
   frozen_quant  auto -> "none" (int8, the K4/K5 kernels, only on request,
                 until a measurement on the card says it pays; channel mode
-                takes int8 only over the scan state, --sparse_from_plan)
+                takes int8 only over the scan state)
   head_quant    auto -> "int8" iff the sparse phase's frozen base is int8
                 (frozen_quant int8; in channel mode only over the scan
-                state, --sparse_from_plan), else "none"
-  scan_layers   auto -> "off"  (eager loop over layers)
+                state), else "none"; it stays "auto" where that depends on
+                the model's depth (channel mode, int8, scan_layers auto),
+                for train/convert.resolve_head_quant to resolve
+  scan_layers   stays "auto": resolved by the trainer per mode and depth
+                (train/scan_phase.resolve_scan_layers); "on" converts the
+                eager warm-up into the stacked scan state
   loss_impl     stays "auto": resolved per phase in train/steps.py
                 (_use_chunked_loss), chunked in the warm-up at a
                 vocabulary >= 16384, full in the sparse phase while the
@@ -149,23 +153,21 @@ class SMTConfig:
             self.frozen_quant = "none"
         if self.head_quant == "auto":
             # as train/convert.resolve_frozen_quant resolves the base: the
-            # per-layer channel path stays unquantized
-            int8_base = self.frozen_quant == "int8" and (
-                not self.channel_sparsity or bool(self.sparse_from_plan))
-            self.head_quant = "int8" if int8_base else "none"
-        if self.scan_layers == "auto":
-            self.scan_layers = "off"
+            # per-layer channel path stays unquantized, the channel scan
+            # state (--sparse_from_plan, scan_layers on, or auto at depth)
+            # takes int8
+            if self.frozen_quant != "int8":
+                self.head_quant = "none"
+            elif not self.channel_sparsity or self.sparse_from_plan or self.scan_layers == "on":
+                self.head_quant = "int8"
+            elif self.scan_layers == "off":
+                self.head_quant = "none"
 
     def _refuse_unported(self):
         unported = []
-        if self.scan_layers == "on":
-            unported.append("scan_layers=on (the port loops over layers eagerly)")
         if self.dtype == "fp16":
-            unported.append("--dtype fp16 (dynamic loss scaling)")
-        if self.resume_from:
-            unported.append("--resume_from (checkpoint resume)")
-        if self.dropout > 0:
-            unported.append("--dropout > 0 (attention dropout)")
+            unported.append("--dtype fp16 (dynamic loss scaling; the K1, K3, K5 and K7 "
+                            "kernels take fp32 and bf16 only)")
         if self.mesh_shape:
             unported.append("--mesh_shape (multi-device training)")
         if self.profile_dir:

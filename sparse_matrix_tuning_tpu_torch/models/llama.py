@@ -16,7 +16,9 @@ the block- or column-sparse autograd Functions (ops/sparse_linear.py), and
 in the channel warm-up `forward(..., activation_taps=)` records their
 inputs' |activation| sums (_tapped). `forward_scan`
 runs the same decoder over the stacked layout of the scan state
-(train/scan_phase.py), an eager loop over layer views.
+(train/scan_phase.py), an eager loop over layer views. Attention dropout
+(_attn_dropout) draws each layer's mask from a generator seeded by (seed,
+step, layer) (dropout_layer_seed), in the einsum attention.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from __future__ import annotations
 import os
 import warnings
 from dataclasses import dataclass
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -219,9 +221,13 @@ def default_linear(x: torch.Tensor, w: torch.Tensor, module: str, layer: int) ->
     return torch.matmul(x, w.t())
 
 
-def _attention(q, k, v, mask_bias):
+def _attention(q, k, v, mask_bias, dropout_rate: float = 0.0,
+               dropout_rng: Optional[torch.Generator] = None,
+               keep: Optional[torch.Tensor] = None):
     """Masked einsum attention. q: (B,S,Hq,hd); k/v: (B,S,Hkv,hd); GQA via
-    head grouping; mask_bias: (B,1,S,S) additive fp32 bias (0 / min)."""
+    head grouping; mask_bias: (B,1,S,S) additive fp32 bias (0 / min).
+    Dropout on the probabilities (_attn_dropout) with a generator, or with
+    an explicit (B, Hkv, Hq/Hkv, S, S) keep mask."""
     b, s, hq, hd = q.shape
     hkv = k.shape[2]
     groups = hq // hkv
@@ -230,12 +236,48 @@ def _attention(q, k, v, mask_bias):
     scores = scores / float(np.sqrt(hd))
     scores = scores + mask_bias[:, :, None, :, :]
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    probs = _attn_dropout(probs, dropout_rate, dropout_rng, keep)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
     return out.reshape(b, s, hq * hd)
 
 
-def resolve_attn_impl(attn_impl: str, head_dim: int, device) -> str:
-    """The attention a forward runs (twin of the JAX resolve_attn_impl).
+def _attn_dropout(probs: torch.Tensor, rate: float, rng: Optional[torch.Generator] = None,
+                  keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention-prob dropout, the JAX twin's (reference configure_dropout
+    sets attention_dropout on Llama configs, deepspeed_helpers.py:577-583):
+    inverted scaling, zeros elsewhere, in probs' dtype. The keep mask is
+    drawn from `rng` (probability 1 - rate), or given; with neither, or at
+    rate 0, the probabilities pass unchanged. Torch's Philox bits are not
+    JAX's threefry bits, so the masks of the two packages differ; tests
+    hand JAX's mask in as `keep`."""
+    if rate <= 0.0 or (rng is None and keep is None):
+        return probs
+    if keep is None:
+        keep = torch.rand(probs.shape, generator=rng, device=probs.device) < (1.0 - rate)
+    return torch.where(keep, probs / (1.0 - rate), 0.0).to(probs.dtype)
+
+
+def dropout_layer_seed(key: Tuple[int, int], layer: int) -> int:
+    """The seed of layer `layer`'s dropout mask in the step of `key` =
+    (base seed, step), JAX's fold_in(fold_in(PRNGKey(base), step), layer)
+    as plain integers: derived, never carried, so every forward of a step
+    (the scan and the unrolled loop, a remat recompute, a resumed run)
+    draws the same masks."""
+    entropy = [int(key[0]) % 2 ** 32, int(key[1]) % 2 ** 32, int(layer)]
+    return int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0])
+
+
+def _dropout_rng(seed: Optional[int], device) -> Optional[torch.Generator]:
+    if seed is None:
+        return None
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return g
+
+
+def resolve_attn_impl(attn_impl: str, head_dim: int, device, dropout: bool = False) -> str:
+    """The attention a forward runs (twin of the JAX resolve_attn_impl and
+    of its decoder layer's fused_ok rule).
 
     "auto" is the JAX rule, fused kernel on the accelerator and einsum off
     it: "fullk" on CUDA tensors when the K3 kernels take the head dim
@@ -244,16 +286,21 @@ def resolve_attn_impl(attn_impl: str, head_dim: int, device) -> str:
     VMEM-resident K/V row capped it at 4096). Explicit "fullk" and "flash"
     (K3', the stock Pallas flash attention on the TPU, the same causal
     attention) both run K3 on any device, its plain versions on CPU
-    tensors; a head dim the kernels do not take raises."""
+    tensors; a head dim the kernels do not take raises.
+
+    dropout (a training forward with attention dropout): every choice
+    resolves to the einsum, which applies it, as JAX's fused kernels stand
+    aside under dropout (llama.py:318); K3 has no dropout, as JAX's kernel
+    has none. Eval draws no mask and keeps the fused kernel."""
     if attn_impl == "auto":
         cuda = torch.device(device).type == "cuda"
-        return "fullk" if cuda and head_dim in HEAD_DIMS else "einsum"
+        return "fullk" if cuda and head_dim in HEAD_DIMS and not dropout else "einsum"
     if attn_impl in ("fullk", "flash"):
         if head_dim not in HEAD_DIMS:
             raise ValueError(f"attn_impl={attn_impl!r}: the fused attention kernel "
                              f"takes head_dim in {HEAD_DIMS}, not {head_dim}; use "
                              "attn_impl='einsum'")
-        return "fullk"
+        return "einsum" if dropout else "fullk"
     if attn_impl == "einsum":
         return attn_impl
     raise ValueError(f"unknown attn_impl {attn_impl!r}")
@@ -272,7 +319,8 @@ def _lin(lp: Mapping[str, torch.Tensor], h: torch.Tensor, name: str, linear,
 
 def _decoder_layer(lp: Mapping[str, torch.Tensor], x: torch.Tensor, mask_bias,
                    cos, sin, cfg: LlamaConfig, linear, layer_idx: int,
-                   attn_impl: str = "einsum") -> torch.Tensor:
+                   attn_impl: str = "einsum", dropout_seed: Optional[int] = None
+                   ) -> torch.Tensor:
     b, s, _ = x.shape
     h = _rms_norm(x, lp["input_layernorm"], cfg.rms_norm_eps)
     q = _lin(lp, h, "q_proj", linear, layer_idx)
@@ -291,7 +339,10 @@ def _decoder_layer(lp: Mapping[str, torch.Tensor], x: torch.Tensor, mask_bias,
     if attn_impl == "fullk":
         attn = fullk_attention(q, k, v, 1.0 / float(np.sqrt(hd))).reshape(b, s, -1)
     else:
-        attn = _attention(q, k, v, mask_bias)
+        # the generator is made here from its seed, so a remat recompute
+        # draws the same mask
+        attn = _attention(q, k, v, mask_bias, cfg.attention_dropout,
+                          _dropout_rng(dropout_seed, q.device))
     x = x + _lin(lp, attn, "o_proj", linear, layer_idx)
 
     h = _rms_norm(x, lp["post_attention_layernorm"], cfg.rms_norm_eps)
@@ -312,7 +363,8 @@ def forward(params: Mapping[str, Any], input_ids: torch.Tensor, cfg: LlamaConfig
             stop_grad_below_layer: Optional[int] = None,
             attn_impl: str = "einsum",
             return_hidden: bool = False,
-            activation_taps: Optional[dict] = None) -> torch.Tensor:
+            activation_taps: Optional[dict] = None,
+            dropout_key: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Run the decoder; returns logits (B, S, V) in fp32, or with
     return_hidden the final normed states (B, S, D) before the head (for
     the chunked-vocab loss and the int8 head).
@@ -330,7 +382,14 @@ def forward(params: Mapping[str, Any], input_ids: torch.Tensor, cfg: LlamaConfig
     activation_taps: when given a dict, it receives each target linear's
     masked |input| summed over the batch, (S, in_dim) fp32 under
     "{layer}.{module}" (the channel-saliency statistic, _tapped); the
-    layers then run without remat."""
+    layers then run without remat.
+
+    dropout_key: (base seed, step) of a training step. With
+    cfg.attention_dropout > 0 each layer draws its mask from its own
+    generator, seeded by dropout_layer_seed(dropout_key, layer), and the
+    attention is the einsum (resolve_attn_impl). A forward that records
+    gradients at a rate > 0 without a key raises: dropout never turns off
+    silently. Eval (no gradient) draws no mask."""
     if activation_taps is not None:
         b, s = input_ids.shape
         mask = attention_mask if attention_mask is not None else torch.ones(
@@ -339,7 +398,7 @@ def forward(params: Mapping[str, Any], input_ids: torch.Tensor, cfg: LlamaConfig
         remat = False
     layers = ((params["layers"][str(i)], linear) for i in range(cfg.num_hidden_layers))
     return _run(params, layers, input_ids, cfg, attention_mask, remat,
-                stop_grad_below_layer, attn_impl, return_hidden)
+                stop_grad_below_layer, attn_impl, return_hidden, dropout_key)
 
 
 def _tapped(linear, taps: dict, attention_mask: torch.Tensor):
@@ -383,13 +442,16 @@ def forward_scan(params: Mapping[str, Any], input_ids: torch.Tensor, cfg: LlamaC
                  remat: bool = True,
                  stop_grad_below_layer: Optional[int] = None,
                  attn_impl: str = "einsum",
-                 return_hidden: bool = False) -> torch.Tensor:
+                 return_hidden: bool = False,
+                 dropout_key: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """forward() over the stacked (scan-layout) params, the twin of the JAX
     forward_scan as an eager loop: params["layers_stacked"] {name: (L,
     ...)} and layer_xs (a tree of (L, ...) tensors, or of length-L lists)
     are taken as layer views, and every linear of layer l runs
     `linear_scan(x, w, module, ex_l)` with ex_l layer l's slice of
-    layer_xs. Remat, stop_grad_below_layer and the rest as forward()."""
+    layer_xs. Remat, stop_grad_below_layer, dropout (keyed by the absolute
+    layer index, so the masks equal the unrolled forward's) and the rest
+    as forward()."""
     stacked = _unbind_layers(params["layers_stacked"])
     xs = _unbind_layers(layer_xs)
 
@@ -399,15 +461,21 @@ def forward_scan(params: Mapping[str, Any], input_ids: torch.Tensor, cfg: LlamaC
 
     layers = (layer(l) for l in range(cfg.num_hidden_layers))
     return _run(params, layers, input_ids, cfg, attention_mask, remat,
-                stop_grad_below_layer, attn_impl, return_hidden)
+                stop_grad_below_layer, attn_impl, return_hidden, dropout_key)
 
 
 def _run(params, layers, input_ids, cfg: LlamaConfig, attention_mask, remat,
-         stop_grad_below_layer, attn_impl, return_hidden):
+         stop_grad_below_layer, attn_impl, return_hidden, dropout_key=None):
     """The decoder around its layers: `layers` yields each layer's (params,
-    linear) in order."""
+    linear) in order; layer i's dropout mask is seeded by
+    dropout_layer_seed(dropout_key, i)."""
     b, s = input_ids.shape
-    attn_impl = resolve_attn_impl(attn_impl, cfg.head_dim, input_ids.device)
+    dropout = cfg.attention_dropout > 0 and dropout_key is not None
+    if cfg.attention_dropout > 0 and dropout_key is None and torch.is_grad_enabled():
+        raise ValueError(f"attention_dropout {cfg.attention_dropout} in a forward that records "
+                         "gradients, but no dropout_key: pass the step's (seed, step), or "
+                         "evaluate under torch.no_grad()")
+    attn_impl = resolve_attn_impl(attn_impl, cfg.head_dim, input_ids.device, dropout=dropout)
     if attention_mask is None:
         attention_mask = torch.ones((b, s), dtype=torch.int32, device=input_ids.device)
     positions = torch.clamp(torch.cumsum(attention_mask, dim=-1) - 1, min=0)
@@ -429,11 +497,12 @@ def _run(params, layers, input_ids, cfg: LlamaConfig, attention_mask, remat,
     for i, (lp, linear) in enumerate(layers):
         if stop_grad_below_layer is not None and i == stop_grad_below_layer:
             x = x.detach()
+        seed = dropout_layer_seed(dropout_key, i) if dropout else None
         if use_remat:
             x = checkpoint(_decoder_layer, lp, x, mask_bias, cos, sin, cfg,
-                           linear, i, attn_impl, use_reentrant=False)
+                           linear, i, attn_impl, seed, use_reentrant=False)
         else:
-            x = _decoder_layer(lp, x, mask_bias, cos, sin, cfg, linear, i, attn_impl)
+            x = _decoder_layer(lp, x, mask_bias, cos, sin, cfg, linear, i, attn_impl, seed)
 
     x = _rms_norm(x, params["norm"], cfg.rms_norm_eps)
     if return_hidden:

@@ -16,12 +16,14 @@ MLP uses the configured strategy (fine_tune.py:306-313 vs :319-327,
 With frozen_quant=int8 the conversion also quantizes every layer linear
 once from the fp32 master (build_qweights; the head too, build_q_head),
 and offload_frozen_to_host moves the then compute-dead dense weights to
-host memory, leaving 1-element placeholders on the device.
+host memory, leaving 1-element placeholders on the device. With scan=True
+the conversion builds the stacked scan state instead
+(train/scan_phase.build_scan_sparse_state).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -194,23 +196,39 @@ def build_plan(cfg: SMTConfig, warmup_state: Dict, all_2d_shapes) -> SMTPlan:
     return SMTPlan.from_selection("channel", selected, dims)
 
 
-def convert(cfg: SMTConfig, warmup_state: Dict, all_2d_shapes,
-            model_cfg=None) -> Tuple[SMTPlan, Dict]:
-    """Run selection and build the phase-2 state: dense weights in the
-    param dtype (new tensors) and fp32 trainable blocks (or columns)
-    gathered from the fp32 master; with an int8 frozen base (matrix mode)
-    also state["q"], and with an int8 head (needs model_cfg)
-    state["q_head"]. The caller drops the warm-up state (master, moments,
-    accumulators), as the reference deletes its optimizer and grad dicts
-    (fine_tune.py:352-358)."""
-    from sparse_matrix_tuning_tpu_torch.train.steps import init_sparse_state
-
+def convert(cfg: SMTConfig, warmup_state: Dict, all_2d_shapes, model_cfg=None,
+            scan: bool = False) -> Tuple[SMTPlan, Dict, Optional[Dict]]:
+    """Run selection and build the phase-2 state from it
+    (sparse_state_from_plan). Returns (plan, state, host_frozen). The caller
+    drops the warm-up state (master, moments, accumulators), as the
+    reference deletes its optimizer and grad dicts (fine_tune.py:352-358)."""
     plan = build_plan(cfg, warmup_state, all_2d_shapes)
     if not plan.linears:
         raise ValueError(
             "SMT selection produced zero trainable blocks/channels — the downsample "
             "ratios are too small for this model's block count (the "
             "denominator counts ALL 2-D params, fine_tune.py:231-241).")
+    return (plan,) + sparse_state_from_plan(cfg, warmup_state, plan, model_cfg, scan)
+
+
+def sparse_state_from_plan(cfg: SMTConfig, warmup_state: Dict, plan: SMTPlan, model_cfg=None,
+                           scan: bool = False) -> Tuple[Dict, Optional[Dict]]:
+    """The phase-2 state of `plan` from the warm-up's fp32 master, and its
+    host store: (state, host_frozen), host_frozen None unless the frozen
+    weights moved to the host.
+
+    scan=True: the stacked scan state (scan_phase.build_scan_sparse_state,
+    which needs model_cfg). Otherwise the per-layer state: dense weights in
+    the param dtype (new tensors) and fp32 trainable blocks (or columns)
+    gathered from the fp32 master; with an int8 frozen base (matrix mode)
+    also state["q"], with an int8 head (needs model_cfg) state["q_head"],
+    and with the host offload (frozen_offload_active) the quantized dense
+    weights in host_frozen (offload_frozen_to_host)."""
+    from sparse_matrix_tuning_tpu_torch.train.steps import init_sparse_state
+
+    if scan:
+        from sparse_matrix_tuning_tpu_torch.train.scan_phase import build_scan_sparse_state
+        return build_scan_sparse_state(cfg, warmup_state, plan, model_cfg)
     master = warmup_state["master"]
     with torch.no_grad():
         params = tree_map(lambda p: p.detach().to(cfg.param_dtype, copy=True), master)
@@ -225,15 +243,19 @@ def convert(cfg: SMTConfig, warmup_state: Dict, all_2d_shapes,
     # over a bf16 frozen base too (the head path is independent)
     if model_cfg is not None and resolve_head_quant(cfg, model_cfg, fq) == "int8":
         state["q_head"] = build_q_head(master, model_cfg)
-    return plan, state
+    if frozen_offload_active(cfg, plan.mode):
+        return offload_frozen_to_host(state)
+    return state, None
 
 
-def frozen_offload_active(cfg: SMTConfig, mode: str) -> bool:
+def frozen_offload_active(cfg: SMTConfig, mode: str, scan: bool = False) -> bool:
     """int8 frozen base: the dense layer weights are dead in sparse-phase
     compute (planned linears run through wq/sw/base with the exact block
-    correction, frozen ones through wq/sw), so they move to HOST memory and
-    the device holds only the int8 copy."""
-    return bool(cfg.frozen_host_offload) and resolve_frozen_quant(cfg, mode) == "int8"
+    or column correction, frozen ones through wq/sw), so they move to HOST
+    memory and the device holds only the int8 copy. scan: the layout whose
+    base is resolved (channel mode takes int8 only over the scan state)."""
+    return (bool(cfg.frozen_host_offload)
+            and resolve_frozen_quant(cfg, mode, scan=scan) == "int8")
 
 
 def _placeholder(w: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,9 @@ layers, so its state is keyed per MODULE with stacked (L, ...) leaves:
 
 The port keeps that layout, so a JAX state carries across leaf for leaf
 (models/from_jax.scan_state_from_jax), and loops over layers eagerly with
-layer-l views (models/llama.forward_scan). Ported: quantize-on-load
+layer-l views (models/llama.forward_scan). Ported: when the trainer takes
+this layout (resolve_scan_layers), the conversion of the eager warm-up's
+fp32 master into it (build_scan_sparse_state), quantize-on-load
 (build_scan_state_from_hf), the sparse step over that state
 (build_scan_sparse_step: the int8 base is never updated, each planned
 linear adds its delta through ops/sparse_linear.smt_linear_dyn, or
@@ -30,9 +32,9 @@ smt_channel_linear_dyn in channel mode), its eval loss, the exact export
 port adds one non-JAX entry, "sched": each planned module's per-layer
 DynSchedules, or in channel mode which layers have a valid column
 (attach_schedules), built once when the trainer installs the sparse phase,
-so that no step syncs the host on the coordinates. The
-scan warm-up and the conversion of a warm-up into this state are not
-ported.
+so that no step syncs the host on the coordinates. The scan warm-up is
+not ported: lax.scan exists to keep XLA's compile time independent of
+depth, and the eager warm-up selects the same plans.
 """
 
 from __future__ import annotations
@@ -56,7 +58,37 @@ from sparse_matrix_tuning_tpu_torch.smt.optimizer import (
     AdamConfig, clip_by_global_norm, make_qk_lr_scale)
 from sparse_matrix_tuning_tpu_torch.smt.plan import BLOCK, SMTPlan
 from sparse_matrix_tuning_tpu_torch.train.convert import (
-    LAYER_LINEARS, build_q_head, offload_lm_head, resolve_frozen_quant, resolve_head_quant)
+    LAYER_LINEARS, build_q_head, frozen_offload_active, offload_lm_head, resolve_frozen_quant,
+    resolve_head_quant)
+
+# the depth from which JAX's scan_layers "auto" takes the scan layout
+SCAN_AUTO_MIN_LAYERS = 12
+
+
+def resolve_scan_layers(cfg: SMTConfig, model_cfg: LlamaConfig, mode: str) -> bool:
+    """Whether the sparse phase runs over the stacked scan state (twin of
+    the JAX resolve_scan_layers, with the port's own "auto").
+
+    "off" is False. "on" is True in matrix and channel mode and raises
+    otherwise, as in JAX; the port then converts its eager warm-up into
+    the scan state (build_scan_sparse_state). "auto" is True only in
+    channel mode with frozen_quant "int8" at num_hidden_layers >= 12: the
+    one case where JAX's scan layout changes WHAT is computed, since it is
+    the only route by which JAX's channel mode takes an int8 base and an
+    int8 head (convert.resolve_frozen_quant). Matrix mode and the bf16
+    base stay on the per-layer path under "auto": there JAX's scan and
+    unrolled phases differ only by the order of one fp add, while the
+    padded stacks would cost TinyLlama's sparse step 4.6 GiB of peak and
+    5.6 ms of device time (PERF.md §7 item 6)."""
+    if cfg.scan_layers == "off":
+        return False
+    supported = mode in ("matrix", "channel")
+    if cfg.scan_layers == "on":
+        if not supported:
+            raise ValueError("scan_layers=on requires matrix or channel mode")
+        return True
+    return (mode == "channel" and cfg.frozen_quant == "int8"
+            and model_cfg.num_hidden_layers >= SCAN_AUTO_MIN_LAYERS)
 
 
 def stack_plan_indices(plan: SMTPlan, n_layers: int, device=None) -> Dict[str, Dict]:
@@ -111,6 +143,117 @@ def plan_mode_of(idx: Dict[str, Dict]) -> str:
     return "channel" if any("ci" in meta for meta in idx.values()) else "matrix"
 
 
+def _stack_linears(mods, n_layers: int, layer_weight: Callable, idx: Dict, plan_mode: str,
+                   device, *, dtype: torch.dtype, quantize: bool, reciprocal: bool = False,
+                   host: Optional[Dict] = None, host_dtype: Optional[torch.dtype] = None):
+    """The per-module stacks of the scan state, one layer weight at a time
+    (the transient is one layer linear and its fp32 quantization
+    temporaries): w = layer_weight(mod, l), on any device, moves to `device`
+    in `dtype`, the dtype it is quantized and gathered from. With
+    `quantize`, q[mod] stacks its int8 (wq, sw) (reciprocal: the scale as
+    JAX computes it under jit) and the base is gathered from the
+    dequantized weight; without, the base is a distinct copy of the
+    trainables. Planned modules (those of idx) gather their trainables in
+    fp32 from w. host: a dict that receives each module's layer weights as
+    layer_weight returns them (cast to host_dtype if given), stacked on the
+    CPU. Returns (q, trainable, base)."""
+    q, trainable, base = {}, {}, {}
+    for mod in mods:
+        meta = idx.get(mod)
+        hs, ts, bs = [], [], []
+        for l in range(n_layers):
+            w_src = layer_weight(mod, l).detach()
+            if host is not None:
+                hs.append(w_src.to("cpu", host_dtype or w_src.dtype))
+            w = w_src.to(device=device, dtype=dtype)
+            if quantize:
+                wq, sw = quantize_weight(w, reciprocal=reciprocal)
+                if l == 0:  # the stacks, filled layer by layer
+                    q[mod] = {"wq": torch.empty((n_layers, *wq.shape), dtype=wq.dtype,
+                                                device=device),
+                              "sw": torch.empty((n_layers, *sw.shape), dtype=sw.dtype,
+                                                device=device)}
+                q[mod]["wq"][l], q[mod]["sw"][l] = wq, sw
+            if meta is not None:
+                meta_l = {k: v[l] for k, v in meta.items()}
+                ts.append(_plan_gather(plan_mode, w, meta_l))
+                if quantize:
+                    bs.append(_plan_gather(plan_mode, dequantize_weight(wq, sw, torch.float32),
+                                           meta_l))
+            del w, w_src
+        if meta is not None:
+            trainable[mod] = torch.stack(ts)
+            base[mod] = torch.stack(bs) if quantize else trainable[mod].clone()
+        if host is not None:
+            host[mod] = torch.stack(hs)
+    return q, trainable, base
+
+
+def _scan_state(params: Dict, trainable: Dict, base: Dict, idx: Dict, q: Dict, step: int,
+                device) -> Dict:
+    """The scan state's leaves around its stacks: Adam moments and the
+    update count at zero, the step carried over."""
+    state = {"params": params, "trainable": trainable, "base": base, "idx": idx,
+             "m": {k: torch.zeros_like(t) for k, t in trainable.items()},
+             "v": {k: torch.zeros_like(t) for k, t in trainable.items()},
+             "count": torch.zeros((), dtype=torch.int32, device=device),
+             "step": torch.full((), int(step), dtype=torch.int32, device=device)}
+    if q:
+        state["q"] = q
+    return state
+
+
+@torch.no_grad()
+def build_scan_sparse_state(cfg: SMTConfig, warmup_state: Dict, plan: SMTPlan,
+                            model_cfg: LlamaConfig, device=None):
+    """The scan sparse state from the eager warm-up's per-layer fp32 master
+    (twin of the JAX build_scan_sparse_state, with its
+    offload_scan_frozen_to_host), on `device` (default: the master's).
+    Returns (state, host_frozen).
+
+    The layer leaves are stacked per module in the param dtype; the
+    trainable blocks (or columns) are gathered in fp32 from the fp32
+    master. Under the int8 base (resolve_frozen_quant with scan=True) q[mod]
+    is quantized from the fp32 master, as JAX quantizes layer_weight(mod,
+    l) (eagerly: the scale is amax / 127), and the base is the gather of its
+    dequantization; otherwise the base is a distinct copy of the
+    trainables. m, v and count start at zero, step is the warm-up's, and
+    q_head follows resolve_head_quant. With the host offload
+    (frozen_offload_active with scan=True) the dense stacks of the
+    quantized modules and an untied head go to host_frozen, in
+    build_scan_state_from_hf's layout ({mod: (L, O, I)}, "lm_head"),
+    leaving (L, 1) and 1-element placeholders; host_frozen is None
+    otherwise."""
+    master = warmup_state["master"]
+    layers = master["layers"]
+    device = torch.device(device) if device is not None else master["embed_tokens"].device
+    n_layers, dt = model_cfg.num_hidden_layers, cfg.param_dtype
+    idx = stack_plan_indices(plan, n_layers, device)
+    use_q8 = resolve_frozen_quant(cfg, plan.mode, scan=True) == "int8"
+    offload = frozen_offload_active(cfg, plan.mode, scan=True)
+    host = {} if offload else None
+    linears = [m for m in LAYER_LINEARS if m in layers["0"] and layers["0"][m].dim() == 2]
+    q, trainable, base = _stack_linears(
+        linears, n_layers, lambda mod, l: layers[str(l)][mod], idx, plan.mode, device,
+        dtype=torch.float32, quantize=use_q8, host=host, host_dtype=dt)
+    stacked = {}
+    for name in layers["0"]:
+        if offload and name in q:
+            stacked[name] = torch.zeros((n_layers, 1), dtype=dt, device=device)
+        else:
+            stacked[name] = torch.stack([layers[str(l)][name].detach().to(device, dt)
+                                         for l in range(n_layers)])
+    params = {k: v.detach().to(device, dt, copy=True) for k, v in master.items()
+              if k != "layers"}
+    params["layers_stacked"] = stacked
+    state = _scan_state(params, trainable, base, idx, q, int(warmup_state["step"]), device)
+    if resolve_head_quant(cfg, model_cfg, "int8" if use_q8 else "none") == "int8":
+        state["q_head"] = build_q_head(master, model_cfg)
+        if offload:
+            state["params"] = offload_lm_head(params, host)
+    return state, host
+
+
 def build_scan_state_from_hf(cfg: SMTConfig, model_dir: str, plan: SMTPlan,
                              model_cfg: Optional[LlamaConfig] = None, keep_host: bool = True,
                              device="cuda"):
@@ -148,34 +291,14 @@ def build_scan_state_from_hf(cfg: SMTConfig, model_dir: str, plan: SMTPlan,
     def to_device(tree):
         return read(tree).to(device=device, dtype=cfg.param_dtype)
 
-    q, trainable, base, host = {}, {}, {}, {}
-    stacked: Dict[str, torch.Tensor] = {}
-    for mod in LAYER_LINEARS:
-        if ("layers", "0", mod) not in where:
-            continue
-        meta = idx.get(mod)
-        hs, ts, bs = [], [], []
-        for l in range(n_layers):
-            w_host = read(("layers", str(l), mod))
-            if keep_host:
-                hs.append(w_host)
-            w = w_host.to(device=device, dtype=cfg.param_dtype)
-            wq, sw = quantize_weight(w, reciprocal=True)  # JAX quantizes here under jit
-            if l == 0:  # the stacks, filled layer by layer
-                q[mod] = {"wq": torch.empty((n_layers, *wq.shape), dtype=wq.dtype, device=device),
-                          "sw": torch.empty((n_layers, *sw.shape), dtype=sw.dtype, device=device)}
-            q[mod]["wq"][l], q[mod]["sw"][l] = wq, sw
-            if meta is not None:
-                meta_l = {k: v[l] for k, v in meta.items()}
-                ts.append(_plan_gather(plan.mode, w, meta_l))
-                bs.append(_plan_gather(plan.mode, dequantize_weight(wq, sw, torch.float32), meta_l))
-            del w, wq, sw
-        if meta is not None:
-            trainable[mod] = torch.stack(ts)
-            base[mod] = torch.stack(bs)
-        if keep_host:
-            host[mod] = torch.stack(hs)
-        stacked[mod] = torch.zeros((n_layers, 1), dtype=torch.bfloat16, device=device)
+    host = {} if keep_host else None
+    linears = [m for m in LAYER_LINEARS if ("layers", "0", m) in where]
+    # JAX quantizes the param-dtype weight here, under jit
+    q, trainable, base = _stack_linears(
+        linears, n_layers, lambda mod, l: read(("layers", str(l), mod)), idx, plan.mode, device,
+        dtype=cfg.param_dtype, quantize=True, reciprocal=True, host=host)
+    stacked: Dict[str, torch.Tensor] = {
+        mod: torch.zeros((n_layers, 1), dtype=torch.bfloat16, device=device) for mod in linears}
 
     # the other per-layer leaves (layernorms, qkv biases)
     others = sorted({tree[2] for tree in where if tree[0] == "layers" and tree[2] not in q})
@@ -193,15 +316,11 @@ def build_scan_state_from_hf(cfg: SMTConfig, model_dir: str, plan: SMTPlan,
         raise ValueError(f"checkpoint {model_dir} has no lm_head tensor but "
                          "tie_word_embeddings is False — malformed or mis-configured checkpoint")
 
-    state = {"params": params, "trainable": trainable, "base": base, "idx": idx,
-             "m": {k: torch.zeros_like(t) for k, t in trainable.items()},
-             "v": {k: torch.zeros_like(t) for k, t in trainable.items()},
-             "count": torch.zeros((), dtype=torch.int32, device=device),
-             "step": torch.zeros((), dtype=torch.int32, device=device), "q": q}
+    state = _scan_state(params, trainable, base, idx, q, 0, device)
     if resolve_head_quant(cfg, model_cfg, "int8") == "int8":
         state["q_head"] = build_q_head(params, model_cfg)
-        state["params"] = offload_lm_head(params, host)
-    return state, (host if keep_host else None)
+        state["params"] = offload_lm_head(params, {} if host is None else host)
+    return state, host
 
 
 @torch.no_grad()
@@ -313,7 +432,8 @@ def attach_schedules(state: Dict) -> Dict:
 
 
 def _scan_loss(state: Dict, batch: Dict, trainable, cfg: SMTConfig,
-               model_cfg: LlamaConfig, lowest_layer: Optional[int]) -> torch.Tensor:
+               model_cfg: LlamaConfig, lowest_layer: Optional[int],
+               dropout_key=None) -> torch.Tensor:
     """The JAX _scan_loss: forward_scan with the scan dispatch, then the
     loss path and head of steps.head_loss (sparse phase; the int8 head
     over hidden.float() on the dense path)."""
@@ -324,7 +444,8 @@ def _scan_loss(state: Dict, batch: Dict, trainable, cfg: SMTConfig,
         layer_xs["q"] = state["q"]
     kw = dict(layer_xs=layer_xs, linear_scan=make_scan_dispatch(plan_mode_of(state["idx"])),
               attention_mask=batch.get("attention_mask"), remat=cfg.sparse_remat,
-              stop_grad_below_layer=lowest_layer, attn_impl=cfg.attn_impl)
+              stop_grad_below_layer=lowest_layer, attn_impl=cfg.attn_impl,
+              dropout_key=dropout_key)
     params = state["params"]
     return head_loss(lambda hidden: forward_scan(params, batch["input_ids"], model_cfg,
                                                  return_hidden=hidden, **kw),
@@ -344,7 +465,7 @@ def build_scan_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan
     stays int8 and the delta corrects it. The state carries its "sched"
     (attach_schedules)."""
     from sparse_matrix_tuning_tpu_torch.train.steps import (
-        accumulated_value_and_grad, adam_betas, block_adam)
+        accumulated_value_and_grad, adam_betas, block_adam, dropout_key)
     adam_cfg = AdamConfig(betas=tuple(adam_betas(cfg, plan.mode)), eps=cfg.adam_eps,
                           weight_decay=cfg.w_decay, grad_clip=cfg.grad_clip)
     adam = block_adam(adam_cfg, make_qk_lr_scale(cfg.qk_lr_times) if cfg.qk_scheduler else None)
@@ -355,9 +476,10 @@ def build_scan_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan
         for t in trainable.values():
             t.requires_grad_(True)
         impl = _resolve_impl(cfg.sparse_impl, state["count"].device)
+        key = dropout_key(cfg, state, sparse=True)
 
         def loss_of(tr, mb):
-            return _scan_loss(state, mb, tr, cfg, model_cfg, lowest_layer)
+            return _scan_loss(state, mb, tr, cfg, model_cfg, lowest_layer, key)
 
         vag = accumulated_value_and_grad(loss_of, cfg.gradient_accumulation_steps)
         loss, grads = vag(trainable, batch)

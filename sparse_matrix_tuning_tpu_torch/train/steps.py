@@ -101,9 +101,20 @@ def _use_chunked_loss(cfg: SMTConfig, model_cfg: LlamaConfig, sparse: bool = Fal
     return model_cfg.vocab_size >= 16384  # "auto"
 
 
+def dropout_key(cfg: SMTConfig, state: Dict, sparse: bool):
+    """The (base seed, step) the step's dropout masks derive from
+    (models/llama.dropout_layer_seed), or None without --dropout: base seed
+    cfg.seed in the warm-up and cfg.seed + 1 in the sparse phase, as the
+    JAX steps key theirs (steps.py:284, :433; scan_phase.py:784). Reads the
+    step on the host, once a step, only under dropout."""
+    if cfg.dropout <= 0:
+        return None
+    return (cfg.seed + (1 if sparse else 0), int(state["step"]))
+
+
 def compute_loss(params, batch, cfg: SMTConfig, model_cfg: LlamaConfig,
                  linear=None, remat=True, stop_grad_below_layer=None,
-                 sparse=False, q_head=None):
+                 sparse=False, q_head=None, dropout_key=None):
     """Shared loss path of all steps: full logits + CE, or the chunked-vocab
     CE (ops/loss.py), by the _use_chunked_loss policy (sparse-phase steps
     pass sparse=True).
@@ -113,10 +124,12 @@ def compute_loss(params, batch, cfg: SMTConfig, model_cfg: LlamaConfig,
     loss forms (the head is frozen in the sparse phase: int8 forward,
     straight-through int8 grad_hidden, no weight gradient), dense via
     frozen_q8_linear over the full logits, chunked via
-    chunked_causal_lm_loss_q8."""
+    chunked_causal_lm_loss_q8. dropout_key: the training step's
+    (seed, step) under attention dropout (dropout_key()), None in eval."""
     kw = dict(attention_mask=batch.get("attention_mask"),
               linear=linear or default_linear, remat=remat,
-              stop_grad_below_layer=stop_grad_below_layer, attn_impl=cfg.attn_impl)
+              stop_grad_below_layer=stop_grad_below_layer, attn_impl=cfg.attn_impl,
+              dropout_key=dropout_key)
     return head_loss(lambda hidden: forward(params, batch["input_ids"], model_cfg,
                                             return_hidden=hidden, **kw),
                      params, batch, cfg, model_cfg, sparse, q_head)
@@ -259,11 +272,12 @@ def build_warmup_step(cfg: SMTConfig, model_cfg: LlamaConfig,
 
     def step(state: Dict, batch: Dict) -> tuple:
         master = state["master"]
+        key = dropout_key(cfg, state, sparse=False)
 
         def loss_of(flat_master, mb):
             params = _cast_tree(master, param_dtype)
             return compute_loss(params, mb, cfg, model_cfg,
-                                remat=cfg.gradient_checkpointing)
+                                remat=cfg.gradient_checkpointing, dropout_key=key)
 
         flat = flatten_tree(master)
         vag = accumulated_value_and_grad(loss_of, cfg.gradient_accumulation_steps)
@@ -363,13 +377,14 @@ def build_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan,
         trainable = state["trainable"]
         device = next(iter(trainable.values())).device
         impl = _resolve_impl(cfg.sparse_impl, device)
+        key = dropout_key(cfg, state, sparse=True)
 
         def loss_of(tr, mb):
             linear = make_sparse_linear_dispatch(plan, tr, impl, qweights=state.get("q"))
             return compute_loss(params, mb, cfg, model_cfg, linear=linear,
                                 remat=cfg.sparse_remat,
                                 stop_grad_below_layer=lowest_layer, sparse=True,
-                                q_head=state.get("q_head"))
+                                q_head=state.get("q_head"), dropout_key=key)
 
         vag = accumulated_value_and_grad(loss_of, cfg.gradient_accumulation_steps)
         loss, grads = vag(trainable, batch)

@@ -65,7 +65,7 @@ class SMTTrainer:
         self.device = torch.device(device)
         self.plan: Optional[SMTPlan] = None
         self._host_frozen: Optional[Dict[str, torch.Tensor]] = None
-        self._scan = False  # the stacked scan state (sparse_scan_from_hf)
+        self._scan = False  # the stacked scan state (scan_phase.resolve_scan_layers)
         self._padding_checked = False
         self.history: Dict[str, list] = {"train_loss": [], "eval_loss": [], "ppl": []}
         self.best_eval_loss = float("inf")
@@ -112,19 +112,22 @@ class SMTTrainer:
             return
         if self.step < self.cfg.full_ft_steps:
             return
+        from sparse_matrix_tuning_tpu_torch.train.scan_phase import resolve_scan_layers
         t0 = time.time()
-        self.plan, sparse_state = convert_mod.convert(
-            self.cfg, self.state, self._all_2d_shapes, model_cfg=self.model_cfg)
-        self.state = sparse_state  # drops the warm-up master, moments, accumulators
-        if convert_mod.frozen_offload_active(self.cfg, self.plan.mode):
-            self.state, self._host_frozen = convert_mod.offload_frozen_to_host(self.state)
+        self._scan = resolve_scan_layers(self.cfg, self.model_cfg,
+                                         "matrix" if self.cfg.matrix_sparsity else "channel")
+        # the new state drops the warm-up master, moments and accumulators
+        self.plan, self.state, self._host_frozen = convert_mod.convert(
+            self.cfg, self.state, self._all_2d_shapes, model_cfg=self.model_cfg,
+            scan=self._scan)
         self.install_sparse_phase()
 
         total = sum(p.numel() for p in flatten_tree(self.state["params"]).values())
         total += sum(w.numel() for w in (self._host_frozen or {}).values())
         sel = self.plan.trainable_params
         print_rank_0(
-            f"[smt] converted at step {self.step} in {time.time() - t0:.1f}s: "
+            f"[smt] converted at step {self.step} in {time.time() - t0:.1f}s"
+            f"{' into the scan state' if self._scan else ''}: "
             f"{len(self.plan.linears)} linears, {sel:,} trainable "
             f"({100.0 * sel / total:.3f}% of {total:,})")
 
@@ -230,13 +233,22 @@ class SMTTrainer:
                                   cfg.seq_buckets, cfg.seed, 0,
                                   shuffle=False, drop_last=False)
 
+        # resume: skip the epochs and batches already consumed (the batch
+        # order is deterministic in (seed, epoch), so the replay is exact)
+        per_epoch = max(steps_per_epoch, 1)
+        start_epoch = min(self.step // per_epoch, cfg.num_ft_epochs)
+        skip_in_epoch = self.step % per_epoch if start_epoch < cfg.num_ft_epochs else 0
+
         stop = False
-        for epoch in range(cfg.num_ft_epochs):
+        for epoch in range(start_epoch, cfg.num_ft_epochs):
             print_rank_0(f"Beginning of Epoch {epoch + 1}/{cfg.num_ft_epochs}, "
                          f"Total Micro Batches {steps_per_epoch}")
             mean_loss, n_steps = 0.0, 0
-            for batch in batch_iterator(train_ds, global_bs, pad_token_id,
-                                        cfg.seq_buckets, cfg.seed, epoch):
+            to_skip, skip_in_epoch = skip_in_epoch, 0
+            for bi, batch in enumerate(batch_iterator(train_ds, global_bs, pad_token_id,
+                                                      cfg.seq_buckets, cfg.seed, epoch)):
+                if bi < to_skip:
+                    continue
                 metrics = self.train_step(batch)
                 loss = float(metrics["loss"])
                 if not np.isfinite(loss):
@@ -272,6 +284,7 @@ class SMTTrainer:
 
                 if cfg.save_steps > 0 and step % cfg.save_steps == 0:
                     self._save(f"step_{step}", tokenizer)
+                    self._save_resumable()
 
                 if cfg.early_terminate and step > 0 and step % 3000 == 0:
                     stop = True
@@ -280,6 +293,7 @@ class SMTTrainer:
                 print_rank_0(f"epoch {epoch + 1}/{cfg.num_ft_epochs} with "
                              f"training loss: {mean_loss / n_steps}")
             self._save(f"epoch_{epoch + 1}", tokenizer)
+            self._save_resumable()
             if stop:
                 break
 
@@ -332,14 +346,14 @@ class SMTTrainer:
         return params
 
     def decode_params(self):
-        """Params for eval/generate.generate. The scan trainer decodes from its
-        int8 state, with no dense layer weight on the device
+        """Params for eval/generate.generate. The scan trainer over the int8
+        base decodes from its state, with no dense layer weight on the device
         (eval/generate.decode_params_from_scan); the others from the exact
         merged dense params, on the trainer's device (weights offloaded to
         the host come back)."""
         from sparse_matrix_tuning_tpu_torch.eval.generate import (
             decode_params_from_scan, prepare_decode_params)
-        if self.phase == "sparse" and self._scan:
+        if self.phase == "sparse" and self._scan and "q" in self.state:
             return decode_params_from_scan(self.state, self.model_cfg, self._host_frozen)
         merged = tree_map(lambda p: p.to(self.device), self.merged_params())
         return prepare_decode_params(merged, self.model_cfg)
@@ -353,6 +367,14 @@ class SMTTrainer:
                **{k: float(v) for k, v in metrics.items()}}
         with open(os.path.join(self.cfg.output_dir, "metrics.jsonl"), "a") as f:
             f.write(json.dumps(rec) + "\n")
+
+    def _save_resumable(self):
+        """The full train state at {output_dir}/ckpt, what --resume_from
+        reads (train/checkpoint.py; the HF-format saves are weights only)."""
+        if not self.cfg.output_dir:
+            return
+        from sparse_matrix_tuning_tpu_torch.train.checkpoint import save_checkpoint
+        save_checkpoint(os.path.join(self.cfg.output_dir, "ckpt"), self)
 
     def _save(self, tag: str, tokenizer=None):
         if not self.cfg.output_dir:

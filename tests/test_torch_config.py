@@ -42,10 +42,17 @@ def test_recipe_flags_parse_like_jax():
 
 
 def test_auto_policies_resolve_to_ported_paths():
+    """scan_layers stays "auto": the trainer resolves it per mode and depth
+    (train/scan_phase.resolve_scan_layers, tests/test_torch_scan_convert.py)."""
+    from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
+    from sparse_matrix_tuning_tpu_torch.train.scan_phase import resolve_scan_layers
     cfg = SMTConfig()
     assert (cfg.sparse_impl, cfg.attn_impl, cfg.frozen_quant, cfg.head_quant,
             cfg.scan_layers, cfg.loss_impl) == ("auto", "auto", "none", "none",
-                                                 "off", "auto")
+                                                 "auto", "auto")
+    assert not resolve_scan_layers(cfg, LlamaConfig(), "matrix")
+    assert resolve_scan_layers(SMTConfig(channel_sparsity=True, frozen_quant="int8"),
+                               LlamaConfig(), "channel")
     assert SMTConfig.from_json(cfg.to_json()).to_json() == cfg.to_json()
     assert {f.name for f in dataclasses.fields(SMTConfig)} == \
         {f.name for f in dataclasses.fields(JaxSMTConfig)}
@@ -77,6 +84,14 @@ def test_int8_and_loss_options_construct(flags, want):
     assert SMTConfig.from_json(cfg.to_json()).to_json() == cfg.to_json()
 
 
+# ported since the list was written, each with its tests: channel mode
+# (tests/test_torch_channel.py), scan_layers=on, --resume_from and --dropout
+# (tests/test_torch_scan_convert.py, test_torch_checkpoint.py,
+# test_torch_dropout.py): these build and parse as in JAX
+PORTED = {"channel_sparsity": ["--channel_sparsity"], "scan_layers": ["--scan_layers", "on"],
+          "resume_from": ["--resume_from", "ckpt"], "dropout": ["--dropout", "0.1"]}
+
+
 @pytest.mark.parametrize("kw", [
     dict(scan_layers="on"),
     dict(channel_sparsity=True), dict(dtype="fp16"), dict(resume_from="ckpt"),
@@ -84,16 +99,17 @@ def test_int8_and_loss_options_construct(flags, want):
     dict(profile_dir="prof"), dict(do_gradient_distribution_analysis=True),
 ], ids=lambda kw: next(iter(kw)) + "=" + str(next(iter(kw.values()))))
 def test_unported_options_raise(kw):
-    if kw == dict(channel_sparsity=True):
-        # channel mode is ported (tests/test_torch_channel.py): the flag
-        # builds and parses as in JAX
-        flags = [f for f in RECIPE if f != "--matrix_sparsity"] + ["--channel_sparsity"]
+    name, value = next(iter(kw.items()))
+    if name in PORTED:
+        flags = RECIPE + PORTED[name]
+        if name == "channel_sparsity":
+            flags = [f for f in flags if f != "--matrix_sparsity"]
         mine, theirs = dataclasses.asdict(parse_args(flags)), dataclasses.asdict(
             jax_parse_args(flags))
-        assert mine["channel_sparsity"] and not mine["matrix_sparsity"]
+        assert mine[name] == theirs[name] == value
         assert {k: v for k, v in mine.items() if k not in POLICIES} == \
             {k: v for k, v in theirs.items() if k not in POLICIES}
-        assert SMTConfig(**kw).channel_sparsity
+        assert getattr(SMTConfig(**kw), name) == value
         return
     with pytest.raises(NotImplementedError, match="not yet ported"):
         SMTConfig(**kw)

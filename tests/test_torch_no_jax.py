@@ -35,7 +35,7 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 need = {pkg.__name__ + m for m in (".ops.quant", ".ops.loss", ".ops.cuda.q8_matmul",
                                    ".ops.cuda.correction", ".ops.cuda.q4_matmul",
-                                   ".train.scan_phase")}
+                                   ".train.scan_phase", ".train.checkpoint")}
 sys.exit(1 if bad or len(names) < 20 or not need <= set(names) else 0)
 """
 
