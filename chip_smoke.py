@@ -184,6 +184,7 @@ K3_TIMED = 3
 # suite's 2e-6 because the order of the sums over up to 2048 keys and the
 # online-softmax rescaling differ from the plain version's.
 K3_TOL = {"bf16": ((2e-2, 1e-1), (4e-2, 4e-1)), "fp32": ((1e-5, 1e-5), (1e-4, 1e-4))}
+K3_TOL["fp16"] = K3_TOL["bf16"]  # the fp16 bodies are held to the bf16 bounds
 K3_KERNELS = ("attn_fwd", "attn_bwd_delta", "attn_bwd_dkdv", "attn_bwd_dkdv_reduce", "attn_bwd_dq")
 TRAIN_KERNELS = ("block_grad", "masked_adam") + K3_KERNELS
 # K7 shapes (b, t, hq, hkv, hd, s, cache_index, q dtype, cache dtype, what, timed)
@@ -255,6 +256,7 @@ K5_PLANS = [(128, 256), (64, 256), (64, 128), (64, 64)]
 # |diff| <= 2^-7 |want|, plus an absolute term for sums near zero. fp32: the
 # JAX suite's correction tolerance (tests/test_scan_ops.py:147).
 K5_TOL = {"bf16": (2.0 ** -7, 1e-4), "fp32": (1e-5, 1e-5)}
+K5_TOL["fp16"] = K5_TOL["bf16"]  # held to the bf16 bound
 Q8_KERNELS = K4_KERNELS + ("row_quant", "block_correction")
 # the row quantization in front of K4 (T, K, x dtype, fold the weight scales,
 # what, timed): bit for bit against the plain version
@@ -279,7 +281,11 @@ K6_SHAPES = [
     (7, 2048, 256, "fp32", "ragged T, fp32 out (an fp32 model's k/v)", False),
     (64, 4096, 14336, "bf16", "Llama-3-8B gate at the eval decode", True),
 ]
-K6_STACK = (3, 64, 2048, 2048)  # K6s: layers, T, I, O; K6 on the views of layers 1 and 2
+K6_STACK = (3, 64, 2048, 2048)
+# runs R and R2 (resume) at TinyLlama's width, depth cut to keep the whole
+# script near half its time limit: R (per-layer state) 8 layers, R2 12, the
+# least depth at which channel + int8 takes the scan state (J's layout)
+R_LAYERS, R2_LAYERS = 8, 12  # K6s: layers, T, I, O; K6 on the views of layers 1 and 2
 # tiny quantized generation, GPU against CPU: logits of each forward call
 # before the decodes part, relative to the call's largest |logit|. Flipped
 # int8 steps and bf16 roundings of K6 inputs, carried through the cache,
@@ -290,11 +296,20 @@ QUANT_DECODE_REL = 2.0 ** -3
 # H100 SXM data sheet: HBM bytes/s and dense peak operations/s by type
 # (bf16 on the tensor cores; fp32 outside them)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
+PEAK_OPS = {"bf16": 989e12, "fp16": 989e12, "fp32": 67e12, "int8": 1979e12}
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def torch_dtype(name):
+    import torch
+    return {"bf16": torch.bfloat16, "fp16": torch.float16, "fp32": torch.float32}[name]
+
+
+def elem_bytes(name):
+    return 4 if name == "fp32" else 2
 
 
 def bound(nbytes, ops, dtype):
@@ -608,7 +623,8 @@ def _k3_case(b, s, hq, hkv, hd, dtype, rng):
     import torch
     from sparse_matrix_tuning_tpu_torch.ops.cuda import attention as k3
 
-    dev, dt = torch.device("cuda"), {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype]
+    dev, dt = torch.device("cuda"), torch_dtype(dtype)
+    half = dtype != "fp32"  # the mma bodies, bf16 and fp16
 
     def rand(*shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dt)
@@ -634,9 +650,9 @@ def _k3_case(b, s, hq, hkv, hd, dtype, rng):
               ("dq", dq, dq_ref, (g_rtol, g_atol)), ("dk", dk, dk_ref, (g_rtol, g_atol)),
               ("dv", dv, dv_ref, (g_rtol, g_atol))]
     g = hq // hkv
-    plan = k3.plan_partitions(b, s, hq, hkv) if dtype == "bf16" else 1
+    plan = k3.plan_partitions(b, s, hq, hkv) if half else 1
     info = {"P": plan}
-    if dtype == "bf16" and g > 1:
+    if half and g > 1:
         # the partials at a P > 1 (the plan's, else 2), the reduce alone
         # against its plain version, the whole against the plain dK/dV;
         # a dropped q-head partition must be rejected; two launches equal
@@ -648,7 +664,7 @@ def _k3_case(b, s, hq, hkv, hd, dtype, rng):
         torch.cuda.synchronize()
         errs["reduce"] = max(float((x.float() - y.float()).abs().max())
                              for x, y in zip((dk_p, dv_p), red_ref))
-        # both round the same fp32 sum (in another order) to bf16 once
+        # both round the same fp32 sum (in another order) to bf16 (fp16) once
         if errs["reduce"] > 2.0 ** -7 * max(float(y.float().abs().max()) for y in red_ref):
             raise AssertionError(f"K3 attn_bwd_dkdv_reduce: max abs err {errs['reduce']:.3e}")
         checks += [(f"dk P={pf}", dk_p, dk_ref, (g_rtol, g_atol)),
@@ -765,7 +781,7 @@ def _k3_times(q, k, v, do, sm, o, lse, delta):
 def _k3_bounds(b, s, hq, hkv, hd, dtype, partitions=1):
     """{kernel: bound()} from the shapes: causal (query, key) pairs, each
     input read once and each output written once."""
-    e = 2 if dtype == "bf16" else 4
+    e = elem_bytes(dtype)
     pairs = b * hq * s * (s + 1) / 2
     qb, kvb, vec = b * s * hq * hd * e, b * s * hkv * hd * e, b * hq * s * 4
     out = {
@@ -1022,10 +1038,12 @@ def _k4_case(form, w, wq, sw, t, dtype, gen):
     from sparse_matrix_tuning_tpu_torch.ops.quant import row_quant
 
     o, k = w.shape
-    dt = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype]
+    dt = torch_dtype(dtype)
     t_form = form == "q8mm_t"
     act = torch.randn((t, k if t_form else o), generator=gen, device=w.device).to(dt)
-    wb, ab = w.to(torch.bfloat16), act.to(torch.bfloat16)
+    # the dense matmul that frozen_quant none runs: fp16 in an fp16 model, else bf16
+    lo = dt if dtype == "fp16" else torch.bfloat16
+    wb, ab = w.to(lo), act.to(lo)
     if t_form:
         aq, sa = row_quant(act)
         kernel = lambda: k4.q8mm_t(aq, sa, wq, sw, dt)
@@ -1148,73 +1166,83 @@ def _nan_diff(a, b):
     return float(torch.where(same, torch.zeros_like(a), (a - b).abs()).max())
 
 
-def check_row_quant():
-    """K4's prologue, the row quantization kernel, at RQ_SHAPES: xq and sx
-    equal to the plain version bit for bit (rows of zeros, ragged T, rows
-    on .5 ties, magnitudes 1e-2 to 10, rows holding a NaN or an inf, with
-    and without the fold of sw);
-    the planted fault (the scale as amax / 127, a division) rejected; times
-    beside the plain version and the bound (no single PyTorch call computes
-    it). Then row_quant, _quant_kv and the int8 / int4 matmuls on CUDA
-    tensors run under torch.cuda.set_sync_debug_mode("error"): no call
-    makes the host wait for the device. Returns (worst err, (ms, plain_ms,
-    bound, None) at the first shape)."""
+def _rq_case(t, k, dtype, fold, what, timed, gen, plant=False):
+    """One row quantization shape (RQ_SHAPES' fields): xq and sx equal to the
+    plain version bit for bit, NaN / inf rows included; with `plant` the
+    planted fault (at a main-path shape: at a few rows every scale may
+    round alike); timed if `timed`. Returns (err, (ms, plain_ms, bound,
+    None) or None)."""
     import torch
     from sparse_matrix_tuning_tpu_torch.ops.cuda import row_quant as rq
+    dt = torch_dtype(dtype)
+    x, sw = _rq_rows(t, k, dt, fold, gen)
+    before = sum(rq.LAUNCHES.values())
+    xq, sx = rq.row_quant(x, sw)
+    torch.cuda.synchronize()
+    if sum(rq.LAUNCHES.values()) != before + 1:
+        raise AssertionError("row_quant: not one launch per call")
+    xq_p, sx_p = rq.row_quant_plain(x, sw)
+    # bit for bit, a NaN scale against a NaN scale
+    err = max(_nan_diff(xq, xq_p), _nan_diff(sx, sx_p))
+    if not err == 0:
+        raise AssertionError(
+            f"row_quant T={t} K={k} {dtype} fold={fold}: {int((xq != xq_p).sum())} values and "
+            f"{int((sx != sx_p).sum())} scales differ from the plain version (max abs err "
+            f"{err:.3e})")
+    x32 = x.float() * (sw if fold else 1.0)
+    n_ties = int(((x32 / sx_p).abs().frac() == 0.5).sum())
+    n_nan, n_inf = int(torch.isnan(sx).sum()), int(torch.isinf(sx).sum())
+    if t > 5 and (n_nan != 1 or n_inf != 2 or (xq[[1, 2, 5]] != 0).any()):
+        raise AssertionError(f"row_quant: want the NaN row's scale NaN, the inf rows' inf and "
+                             f"their values 0; got {n_nan} NaN and {n_inf} inf scales")
+    info = f"{n_ties} values on .5 ties, {n_nan} NaN and {n_inf} inf rows"
+    if plant:
+        # the planted fault: the scale as a division by 127 (by a tensor:
+        # PyTorch's CUDA division by a Python scalar multiplies by its
+        # reciprocal)
+        amax = torch.clamp(x32.abs().amax(dim=-1, keepdim=True), min=1e-8)
+        sx_f = amax / torch.full_like(amax, 127.0)
+        if _nan_diff(sx_f, sx) == 0:
+            raise AssertionError("row_quant: the check passes a planted fault (amax / 127)")
+        info += (f"; planted fault (amax / 127) rejected: {int((sx_f != sx).sum())} of {t} "
+                 "scales differ")
+    log(f"[row_quant] T={t} K={k} {dtype} x{', sw folded' if fold else ''} ({what}): xq and "
+        f"sx equal to the plain version bit for bit (max abs err {err:.3e}); {info}")
+    if not timed:
+        return err, None
+    e = x.element_size()
+    nbytes = t * k * e + t * k + 4 * t + (4 * k if fold else 0)
+    bnd = bound(nbytes, (5 if fold else 4) * t * k, "fp32")
+    ms = time_ms(lambda: rq.row_quant(x, sw))
+    plain_ms = time_ms(lambda: rq.row_quant_plain(x, sw), reps=5)
+    ms2 = time_ms(lambda: rq.row_quant(x, sw))
+    log(f"[row_quant] time at T={t} K={k} {dtype}{' fold' if fold else ''}: kernel "
+        f"{ms:.4f} ms (repeat {ms2:.4f}, {nbytes / (min(ms, ms2) * 1e-3) / 1e9:.0f} GB/s "
+        f"of {nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms; bound {bnd[0]:.3e} ms "
+        f"({bnd[1]})")
+    return err, (ms, plain_ms, bnd, None)
 
+
+def check_row_quant():
+    """K4's prologue, the row quantization kernel, at RQ_SHAPES (_rq_case):
+    xq and sx equal to the plain version bit for bit (rows of zeros, ragged
+    T, rows on .5 ties, magnitudes 1e-2 to 10, rows holding a NaN or an
+    inf, with and without the fold of sw); the planted fault (the scale as
+    amax / 127, a division) rejected; times beside the plain version and
+    the bound (no single PyTorch call computes it). Then row_quant,
+    _quant_kv and the int8 / int4 matmuls on CUDA tensors run under
+    torch.cuda.set_sync_debug_mode("error"): no call makes the host wait
+    for the device. Returns (worst err, (ms, plain_ms, bound, None) at the
+    first shape)."""
+    import torch
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
     main = None
     worst = 0.0
     for t, k, dtype, fold, what, timed in RQ_SHAPES:
-        dt = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype]
-        x, sw = _rq_rows(t, k, dt, fold, gen)
-        before = rq.LAUNCHES
-        xq, sx = rq.row_quant(x, sw)
-        torch.cuda.synchronize()
-        if rq.LAUNCHES != before + 1:
-            raise AssertionError("row_quant: not one launch per call")
-        xq_p, sx_p = rq.row_quant_plain(x, sw)
-        # bit for bit, a NaN scale against a NaN scale
-        err = max(_nan_diff(xq, xq_p), _nan_diff(sx, sx_p))
-        if not err == 0:
-            raise AssertionError(
-                f"row_quant T={t} K={k} {dtype} fold={fold}: {int((xq != xq_p).sum())} values and "
-                f"{int((sx != sx_p).sum())} scales differ from the plain version (max abs err "
-                f"{err:.3e})")
+        err, timing = _rq_case(t, k, dtype, fold, what, timed, gen, plant=main is None)
         worst = max(worst, err)
-        x32 = x.float() * (sw if fold else 1.0)
-        n_ties = int(((x32 / sx_p).abs().frac() == 0.5).sum())
-        n_nan, n_inf = int(torch.isnan(sx).sum()), int(torch.isinf(sx).sum())
-        if t > 5 and (n_nan != 1 or n_inf != 2 or (xq[[1, 2, 5]] != 0).any()):
-            raise AssertionError(f"row_quant: want the NaN row's scale NaN, the inf rows' inf and "
-                                 f"their values 0; got {n_nan} NaN and {n_inf} inf scales")
-        info = f"{n_ties} values on .5 ties, {n_nan} NaN and {n_inf} inf rows"
-        if main is None:
-            # the planted fault: the scale as a division by 127 (by a tensor:
-            # PyTorch's CUDA division by a Python scalar multiplies by its
-            # reciprocal)
-            amax = torch.clamp(x32.abs().amax(dim=-1, keepdim=True), min=1e-8)
-            sx_f = amax / torch.full_like(amax, 127.0)
-            if _nan_diff(sx_f, sx) == 0:
-                raise AssertionError("row_quant: the check passes a planted fault (amax / 127)")
-            info += (f"; planted fault (amax / 127) rejected: {int((sx_f != sx).sum())} of {t} "
-                     "scales differ")
-        log(f"[row_quant] T={t} K={k} {dtype} x{', sw folded' if fold else ''} ({what}): xq and "
-            f"sx equal to the plain version bit for bit (max abs err {err:.3e}); {info}")
-        if timed:
-            e = x.element_size()
-            nbytes = t * k * e + t * k + 4 * t + (4 * k if fold else 0)
-            bnd = bound(nbytes, (5 if fold else 4) * t * k, "fp32")
-            ms = time_ms(lambda: rq.row_quant(x, sw))
-            plain_ms = time_ms(lambda: rq.row_quant_plain(x, sw), reps=5)
-            ms2 = time_ms(lambda: rq.row_quant(x, sw))
-            log(f"[row_quant] time at T={t} K={k} {dtype}{' fold' if fold else ''}: kernel "
-                f"{ms:.4f} ms (repeat {ms2:.4f}, {nbytes / (min(ms, ms2) * 1e-3) / 1e9:.0f} GB/s "
-                f"of {nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms; bound {bnd[0]:.3e} ms "
-                f"({bnd[1]})")
-            if main is None:
-                main = (ms, plain_ms, bnd, None)
+        main = main or timing
     check_no_sync()
     return worst, main
 
@@ -1285,7 +1313,7 @@ def check_block_correction():
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     worst, main, timed_ms = 0.0, None, {}
     for t, o, i, dtype, transpose, what, timed in K5_SHAPES:
-        dt = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype]
+        dt = torch_dtype(dtype)
         out0 = torch.from_numpy(rng.standard_normal((t, o), dtype=np.float32)).to(dev, dt)
         src = torch.from_numpy(rng.standard_normal((t, i), dtype=np.float32)).to(dev, dt)
         delta = torch.from_numpy(
@@ -1486,6 +1514,386 @@ def check_q4_matmul():
 
 
 # ---------------------------------------------------------------------------
+# the fp16 bodies (--dtype fp16)
+# ---------------------------------------------------------------------------
+
+# each fp16 body at run M's (and M8's) shapes: K1 on gate/up at T 2048 (O
+# 5632, I 2048) with n 24 and 4 blocks; K3 at b4 s512 hq32 hkv4, hd 64 and
+# 128 (the planned P = 4 > 1); the row quantization over gate/up's input and
+# the g form's fold over its output gradient; K4 t and g on gate/up; K5 at
+# run E's gate/up forward and grad_input plans
+FP16_K1 = [(2048, 5632, 2048, 24), (2048, 5632, 2048, 4)]
+FP16_K3 = [(4, 512, 32, 4, 64), (4, 512, 32, 4, 128)]
+FP16_RQ = [(2048, 2048, "fp16", False, "gate/up input (fp16), run M8", True),
+           (2048, 5632, "fp16", True, "the g form's fold over gate/up's fp16 output gradient",
+            True)]
+FP16_K4 = (2048, 2048, 5632)   # T, K, O: gate/up
+FP16_K5 = [(2048, 5632, 2048, True, "gate/up forward (run M8)"),
+           (2048, 2048, 5632, False, "gate/up grad_input (run M8)")]
+FP16_K3_KERNELS = tuple(f"{n}_fp16" for n in K3_KERNELS)
+FP16_TRAIN_KERNELS = ("block_grad_fp16", "masked_adam") + FP16_K3_KERNELS
+FP16_Q8_KERNELS = ("q8mm_t_fp16", "q8mm_g_fp16", "row_quant_fp16", "block_correction_fp16")
+# the tiny fp16 references' initial loss scale: raised so that the first
+# steps of both phases overflow in the backward and are skipped until the
+# scale has come down (on the CPU: 4 + 1 overflowed steps of 4 + 4 over the
+# dense base, 4 + 0 over the int8 base; the same flags at 0.97x and 1.03x
+# the scale, so no step sits on the edge of fp16's range)
+FP16_REF_LOSS_SCALE = 2.0 ** 24
+
+
+def _same_nonfinite(what, got, want):
+    """A planted inf or NaN: the kernel's output is non-finite exactly where
+    the plain version's is (and somewhere). Returns that count."""
+    import torch
+    g, w = ~torch.isfinite(got.float()), ~torch.isfinite(want.float())
+    if not w.any():
+        raise AssertionError(f"{what}: the planted input left the plain version finite")
+    if not torch.equal(g, w):
+        raise AssertionError(f"{what}: non-finite at {int((g & ~w).sum())} elements where the "
+                             f"plain version is finite, finite at {int((w & ~g).sum())} where it "
+                             "is not")
+    return int(w.sum())
+
+
+def _fp16_block_grad(rng, n_sm):
+    """K1's fp16 body at FP16_K1 through its plan and every forced plan,
+    against the plain version at the bf16 tolerance, two launches equal, a
+    planted inf in g and NaN in x; timed at each n."""
+    import numpy as np
+    import torch
+    from sparse_matrix_tuning_tpu_torch.ops.cuda import block_grad as k1
+    dev, worst, times = torch.device("cuda"), 0.0, {}
+    for t, o, i, n in FP16_K1:
+        g2 = torch.from_numpy(rng.standard_normal((t, o), dtype=np.float32)).to(dev, torch.half)
+        x2 = torch.from_numpy(rng.standard_normal((t, i), dtype=np.float32)).to(dev, torch.half)
+        rb_np, cb_np = _coords(rng, n, o // 256, i // 256)
+        rb, cb = torch.from_numpy(rb_np).to(dev), torch.from_numpy(cb_np).to(dev)
+        p = k1.plan(n, t, n_sm)
+        got, again = k1.block_grad(g2, x2, rb, cb), k1.block_grad(g2, x2, rb, cb)
+        torch.cuda.synchronize()
+        want = k1.block_grad_plain(g2, x2, rb, cb)
+        torch.testing.assert_close(got, want, rtol=K1_RTOL, atol=K1_ATOL)
+        if not torch.equal(got, again):
+            raise AssertionError(f"K1 fp16 n={n}: two launches differ")
+        err = float((got - want).abs().max())
+        for bm, splits in K1_PLANS:
+            f = k1._launch(g2, x2, rb, cb, bm, min(splits, -(-t // 64)))
+            torch.cuda.synchronize()
+            torch.testing.assert_close(f, want, rtol=K1_RTOL, atol=K1_ATOL)
+            err = max(err, float((f - want).abs().max()))
+        worst = max(worst, err)
+        g_bad, x_bad = g2.clone(), x2.clone()
+        g_bad[7, int(rb_np[0]) * 256 + 3] = float("inf")
+        x_bad[9, int(cb_np[1]) * 256 + 5] = float("nan")
+        bad = _same_nonfinite("K1 fp16", k1.block_grad(g_bad, x_bad, rb, cb),
+                              k1.block_grad_plain(g_bad, x_bad, rb, cb))
+
+        def lib():
+            g_rows = g2.reshape(t, -1, 256).index_select(1, rb.long()).transpose(0, 1)
+            x_cols = x2.reshape(t, -1, 256).index_select(1, cb.long()).transpose(0, 1)
+            return torch.bmm(g_rows.transpose(1, 2), x_cols)
+
+        ms = time_ms(lambda: k1.block_grad(g2, x2, rb, cb))
+        plain_ms = time_ms(lambda: k1.block_grad_plain(g2, x2, rb, cb))
+        lib_ms = time_ms(lib)
+        flop = 2.0 * n * t * 256 * 256
+        nbytes = (len(set(rb_np)) + len(set(cb_np))) * t * 256 * 2 + n * 256 * 256 * 4
+        times[n] = dict(ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, bound=bound(nbytes, flop, "fp16"))
+        log(f"[K1 block_grad fp16] T={t} (O,I)=({o},{i}) n={n}: max_abs_err {err:.3e} (plan "
+            f"{p.bm}x256/{p.splits}, and the {len(K1_PLANS)} forced plans); two launches equal; "
+            f"planted inf in g and NaN in x: {bad} non-finite where the plain version's are; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f}, library bmm on gathered fp16 panels "
+            f"{lib_ms:.4f}, bound {times[n]['bound'][0]:.3e} ms ({times[n]['bound'][1]})")
+    return worst, times
+
+
+def _fp16_attention_nonfinite(q, k, v, do, sm, o_ref, lse_ref):
+    """Planted non-finite inputs through the five fp16 K3 kernels: a NaN in
+    the last query row of q-head 0 (forward), an inf in the last row of dO
+    of q-head 1 (backward, the clean forward's o and lse): each output
+    non-finite exactly where the plain version's is. Returns the counts."""
+    from sparse_matrix_tuning_tpu_torch.ops.cuda import attention as k3
+    counts = {}
+    qb = q.clone()
+    qb[0, -1, 0, 0] = float("nan")
+    (o, lse), (o_p, lse_p) = k3.attn_fwd(qb, k, v, sm), k3.attn_fwd_plain(qb, k, v, sm)
+    counts["o"] = _same_nonfinite("K3 attn_fwd fp16 o", o, o_p)
+    counts["lse"] = _same_nonfinite("K3 attn_fwd fp16 lse", lse, lse_p)
+    dob = do.clone()
+    dob[0, -1, 1, 0] = float("inf")
+    delta_p = k3.attn_bwd_delta_plain(o_ref, dob)
+    counts["delta"] = _same_nonfinite("K3 attn_bwd_delta fp16", k3.attn_bwd_delta(o_ref, dob),
+                                      delta_p)
+    dk, dv = k3.attn_bwd_dkdv(q, k, v, dob, lse_ref, delta_p, sm)  # the planned P > 1 and reduce
+    dk_p, dv_p = k3.attn_bwd_dkdv_plain(q, k, v, dob, lse_ref, delta_p, sm)
+    counts["dk"] = _same_nonfinite("K3 attn_bwd_dkdv fp16 dk", dk, dk_p)
+    counts["dv"] = _same_nonfinite("K3 attn_bwd_dkdv fp16 dv", dv, dv_p)
+    counts["dq"] = _same_nonfinite("K3 attn_bwd_dq fp16", k3.attn_bwd_dq(q, k, v, dob, lse_ref,
+                                                                          delta_p, sm),
+                                   k3.attn_bwd_dq_plain(q, k, v, dob, lse_ref, delta_p, sm))
+    return counts
+
+
+def _fp16_attention(rng):
+    """K3's five fp16 kernels at FP16_K3 (_k3_case: against the plain
+    versions at the bf16 bounds, dK/dV over the planned partitions with the
+    reduce, a dropped partition rejected, two launches equal), the planted
+    non-finite inputs, and the times at the first shape beside SDPA fp16."""
+    import torch
+    worst, main = {n: 0.0 for n in K3_KERNELS}, None
+    for i, (b, s, hq, hkv, hd) in enumerate(FP16_K3):
+        errs, per_kernel, info, args = _k3_case(b, s, hq, hkv, hd, "fp16", rng)
+        for n, e in per_kernel.items():
+            worst[n] = max(worst[n], e)
+        q, k, v, do, sm, o_ref, lse_ref, _ = args
+        bad = _fp16_attention_nonfinite(q, k, v, do, sm, o_ref, lse_ref)
+        shape = f"b{b} s{s} hq{hq} hkv{hkv} hd{hd} fp16"
+        log(f"[K3 attention fp16] {shape}: planned P={info['P']}; max_abs_err " + ", ".join(
+            f"{n} {e:.3e}" for n, e in errs.items()) + "; planted fault rejected (a dropped "
+            f"partition), two launches equal; planted NaN in q / inf in dO, non-finite as the "
+            "plain version: " + ", ".join(f"{n} {c}" for n, c in bad.items()))
+        if i == 0:
+            t = _k3_times(*args)
+            bounds = _k3_bounds(b, s, hq, hkv, hd, "fp16", info["P"])
+            log(f"[K3 attention fp16] time at {shape}: " + "; ".join(
+                f"{n} {t[n][0]:.4f} ms (plain {t[n][1]:.4f}, bound {bounds[n][0]:.3e} "
+                f"{bounds[n][1]})" for n in K3_KERNELS if t[n][0] is not None) +
+                f"; torch SDPA fp16 fwd {t['sdpa_fwd']:.4f}, bwd {t['sdpa_bwd']:.4f}; dK/dV by "
+                "partitions: " + ", ".join(f"P={p} {ms:.4f}" for p, ms in t["dkdv_by_P"].items()))
+            main = {n: (*t[n], bounds[n], t["sdpa_fwd"] if n == "attn_fwd" else None)
+                    for n in K3_KERNELS if t[n][0] is not None}
+        del args
+        torch.cuda.empty_cache()
+    return worst, main
+
+
+def _fp16_q8(gen):
+    """K4's fp16 epilogue, both forms, on gate/up (_k4_case: bit for bit the
+    plain version, the planted fault), with a NaN row scale and an
+    overflowing weight (t) or row (g) scale planted: the same NaN and inf
+    bits as the plain version; timed beside torch._int_mm + the scale pass
+    and cuBLAS fp16."""
+    import torch
+    from sparse_matrix_tuning_tpu_torch.ops.cuda import q8_matmul as k4
+    from sparse_matrix_tuning_tpu_torch.ops.quant import quantize_weight, row_quant
+    t, k, o = FP16_K4
+    w = torch.randn((o, k), generator=gen, device="cuda") / k ** 0.5
+    wq, sw = quantize_weight(w)
+    out = {}
+    for form in K4_KERNELS:
+        err, info, (kernel, plain, lib, cublas) = _k4_case(form, w, wq, sw, t, "fp16", gen)
+        t_form = form == "q8mm_t"
+        act = torch.randn((t, k if t_form else o), generator=gen, device="cuda").half()
+        aq, sa = row_quant(act) if t_form else row_quant(act, sw)
+        sa_bad = sa.clone()
+        sa_bad[3] = float("nan")
+        if t_form:
+            sw_bad = sw.clone()
+            sw_bad[7] = 1e30   # overflows fp16: inf
+            got = k4.q8mm_t(aq, sa_bad, wq, sw_bad, torch.half)
+            want = k4.q8mm_t_plain(aq, sa_bad, wq, sw_bad, torch.half)
+        else:
+            sa_bad[4] = 1e30
+            got = k4.q8mm_g(aq, sa_bad, wq, torch.half)
+            want = k4.q8mm_g_plain(aq, sa_bad, wq, torch.half)
+        bad = _same_nonfinite(f"K4 {form} fp16", got, want)
+        if _nan_diff(got, want) != 0:
+            raise AssertionError(f"K4 {form} fp16: the planted non-finite outputs differ in bits")
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain, reps=5)
+        lib_ms = time_ms(lib)
+        cublas_ms = time_ms(cublas)
+        n_out, n_act = (o, k) if t_form else (k, o)
+        nbytes = t * n_act + o * k + 4 * t + (4 * o if t_form else 0) + t * n_out * 2
+        bnd = bound(nbytes, 2.0 * t * o * k, "int8")
+        log(f"[K4 {form} fp16] T={t} K={k} O={o} fp16 out: equal to the plain version bit for "
+            f"bit; {info}; planted NaN and overflowing scales: {bad} non-finite, bit for bit "
+            f"the plain version's; kernel {ms:.4f} ms, plain {plain_ms:.4f}, library "
+            f"torch._int_mm + scale pass {lib_ms:.4f}, cuBLAS fp16 of the unquantized operands "
+            f"{cublas_ms:.4f}; bound {bnd[0]:.3e} ms ({bnd[1]})")
+        out[form] = dict(err=err, ms=ms, plain_ms=plain_ms, bound=bnd, lib_ms=lib_ms,
+                         cublas_fp16_ms=cublas_ms)
+        del kernel, plain, lib, cublas
+    return out
+
+
+def _fp16_correction(rng, n_sm):
+    """K5's fp16 body at FP16_K5 through its plan and every tile shape,
+    against the plain version at the bf16 bound, two launches equal, a
+    planted inf in src; timed beside bmm + index_add_ in fp16."""
+    import numpy as np
+    import torch
+    from sparse_matrix_tuning_tpu_torch.ops.cuda import correction as k5
+    dev, worst, main = torch.device("cuda"), 0.0, {}
+    for t, o, i, transpose, what in FP16_K5:
+        out0 = torch.from_numpy(rng.standard_normal((t, o), dtype=np.float32)).to(dev, torch.half)
+        src = torch.from_numpy(rng.standard_normal((t, i), dtype=np.float32)).to(dev, torch.half)
+        delta = torch.from_numpy(rng.standard_normal((K5_N, 256, 256), dtype=np.float32)
+                                 * np.float32(0.02)).to(dev, torch.half)
+        io, ii = _coords(rng, K5_N, o // 256, i // 256)
+        sched = k5.correction_schedule(io, ii, dev)
+        p = k5.plan(sched.n_runs, t, n_sm)
+        got = k5.block_correction(out0.clone(), src, delta, sched, transpose)
+        again = k5.block_correction(out0.clone(), src, delta, sched, transpose)
+        torch.cuda.synchronize()
+        want = k5.block_correction_plain(out0.clone(), src, delta, io, ii, transpose)
+        ok, err = _k5_close(got, want, "fp16")
+        if not ok or not torch.equal(got, again) or not torch.isfinite(got).all():
+            raise AssertionError(f"K5 fp16 {what}: max abs err {err:.3e}, repeat equal "
+                                 f"{torch.equal(got, again)}")
+        for bm, bn in K5_PLANS:
+            f = k5._launch(out0.clone(), src, delta, sched, transpose, bm, bn)
+            torch.cuda.synchronize()
+            f_ok, f_err = _k5_close(f, want, "fp16")
+            if not f_ok:
+                raise AssertionError(f"K5 fp16 {what}: {bm} x {bn} tiles: max abs err {f_err:.3e}")
+            err = max(err, f_err)
+        worst = max(worst, err)
+        src_bad = src.clone()
+        src_bad[5, int(ii[0]) * 256 + 7] = float("inf")
+        bad = _same_nonfinite(f"K5 fp16 {what}",
+                              k5.block_correction(out0.clone(), src_bad, delta, sched, transpose),
+                              k5.block_correction_plain(out0.clone(), src_bad, delta, io, ii,
+                                                        transpose))
+        buf = out0.clone()
+        io_t, ii_t = torch.from_numpy(io).long().to(dev), torch.from_numpy(ii).long().to(dev)
+
+        def lib():
+            panels = src.reshape(t, -1, 256).index_select(1, ii_t).transpose(0, 1)
+            corr = torch.bmm(panels, delta.transpose(1, 2) if transpose else delta)
+            buf.view(t, -1, 256).index_add_(1, io_t, corr.transpose(0, 1))
+
+        ms = time_ms(lambda: k5.block_correction(buf, src, delta, sched, transpose))
+        plain_ms = time_ms(lambda: k5.block_correction_plain(buf, src, delta, io, ii, transpose),
+                           reps=5)
+        lib_ms = time_ms(lib)
+        nbytes = (2 * len(set(io)) + len(set(ii))) * t * 256 * 2 + K5_N * 65536 * 2
+        bnd = bound(nbytes, 2.0 * K5_N * t * 65536, "fp16")
+        log(f"[K5 block_correction fp16] T={t} out {o} src {i} n={K5_N} "
+            f"{'D^T' if transpose else 'D'} ({what}): max_abs_err {err:.3e} (plan {p.bm}x{p.bn}, "
+            f"and every tile shape); two launches equal; planted inf in src: {bad} non-finite "
+            f"where the plain version's are; kernel {ms:.4f} ms, plain {plain_ms:.4f}, library "
+            f"bmm + index_add_ fp16 {lib_ms:.4f}; bound {bnd[0]:.3e} ms ({bnd[1]})")
+        main[what] = dict(ms=ms, plain_ms=plain_ms, bound=bnd, lib_ms=lib_ms)
+        torch.cuda.empty_cache()
+    return worst, main
+
+
+def check_fp16_kernels():
+    """Every fp16 body at run M's and M8's shapes against its plain version
+    (K1, K3, K5 at their bf16 bounds; the row quantization and K4 bit for
+    bit), each with planted non-finite inputs, timed beside its plain
+    version, its library call and its bound (fp16 peak 989 TFLOP/s, 3.35
+    TB/s). Returns {kernel name: (max_abs_err, ms, plain_ms, bound, library
+    ms, extra fields)}."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(12)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    res = {}
+    k1_err, k1_t = _fp16_block_grad(rng, n_sm)
+    m = k1_t[FP16_K1[0][3]]
+    res["block_grad_fp16"] = (k1_err, m["ms"], m["plain_ms"], m["bound"], m["lib_ms"],
+                              {"ms_by_n": {n: v["ms"] for n, v in k1_t.items()}})
+    k3_err, k3_t = _fp16_attention(rng)
+    for n in K3_KERNELS:
+        res[f"{n}_fp16"] = (k3_err[n], *k3_t[n], {})
+    rq_err, rq_main = 0.0, None
+    for t, k, dtype, fold, what, timed in FP16_RQ:
+        err, timing = _rq_case(t, k, dtype, fold, what, timed, gen, plant=rq_main is None)
+        rq_err = max(rq_err, err)
+        rq_main = rq_main or timing
+    res["row_quant_fp16"] = (rq_err, *rq_main, {})
+    for form, r in _fp16_q8(gen).items():
+        res[f"{form}_fp16"] = (r["err"], r["ms"], r["plain_ms"], r["bound"], r["lib_ms"],
+                               {"cublas_fp16_ms": r["cublas_fp16_ms"]})
+    k5_err, k5_t = _fp16_correction(rng, n_sm)
+    first = k5_t[FP16_K5[0][4]]
+    res["block_correction_fp16"] = (k5_err, first["ms"], first["plain_ms"], first["bound"],
+                                    first["lib_ms"], {"ms_by_case": {w: v["ms"]
+                                                                     for w, v in k5_t.items()}})
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_small_fp16_reference(frozen_quant="none", scan_layers="auto"):
+    """Tiny fp16 two-phase runs with dynamic loss scaling from
+    FP16_REF_LOSS_SCALE, on the GPU (the fp16 bodies) against the CPU (plain
+    versions): the overflow flags and loss scales equal step for step, the
+    losses and the eval loss within rtol 1e-3, the same plan, and the GPU
+    run through the fp16 bodies only (no bf16 launch of K1 or K3). Both
+    sides take the fused attention ("fullk": K3 on the GPU, its plain
+    version on the CPU): the einsum attention rounds dP = dO V^T to fp16
+    and overflows at a scale where K3, which keeps dP in fp32, does not
+    (on the card: the int8 run's first sparse step, at 2^24)."""
+    import numpy as np
+    from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig.tiny(vocab_size=512)
+    kw = dict(dtype="fp16", bs=4, seq=64, full_ft_steps=4, sparse_steps=4, eval_batches=1,
+              ratios=(0.05, 0.05), log_fn=lambda m: None, frozen_quant=frozen_quant,
+              attn_impl="fullk",
+              cfg_extra={"init_loss_scale": FP16_REF_LOSS_SCALE, "scan_layers": scan_layers})
+    gpu = run_main_path(cfg, "cuda", **kw)
+    cpu = run_main_path(cfg, "cpu", **kw)
+    tag = f"frozen_quant {frozen_quant}, scan_layers {scan_layers}"
+    if gpu["overflow"] != cpu["overflow"] or gpu["loss_scale"] != cpu["loss_scale"]:
+        raise AssertionError(f"tiny fp16 run ({tag}): overflow flags / scales differ, GPU "
+                             f"{gpu['overflow']} {gpu['loss_scale']}, CPU {cpu['overflow']} "
+                             f"{cpu['loss_scale']}")
+    if not any(gpu["overflow"]) or all(gpu["overflow"]):
+        raise AssertionError(f"tiny fp16 run ({tag}): want some steps overflowed and some not, "
+                             f"got {gpu['overflow']}")
+    np.testing.assert_allclose(gpu["loss"] + [gpu["eval_loss"]], cpu["loss"] + [cpu["eval_loss"]],
+                               rtol=1e-3)
+    if gpu["plan"]["fingerprint"] != cpu["plan"]["fingerprint"]:
+        raise AssertionError(f"tiny fp16 run ({tag}): GPU and CPU plans differ")
+    la = gpu["launches"]
+    needed = ("block_grad_fp16", "masked_adam", "attn_fwd_fp16", "attn_bwd_delta_fp16",
+              "attn_bwd_dkdv_fp16", "attn_bwd_dq_fp16") + (
+        ("q8mm_t_fp16", "q8mm_g_fp16", "row_quant_fp16") if frozen_quant == "int8" else ())
+    if scan_layers != "on" and frozen_quant == "int8":
+        needed += ("block_correction_fp16",)
+    if not all(la[n] > 0 for n in needed) or any(la[n] for n in ("block_grad",) + K3_KERNELS):
+        raise AssertionError(f"tiny fp16 run ({tag}): launches {la}")
+    log(f"[reference] tiny fp16 run, {tag}, init loss scale {FP16_REF_LOSS_SCALE:.0f}, GPU fp16 "
+        f"bodies vs CPU plain: overflow {gpu['overflow']} and loss scales {gpu['loss_scale']} "
+        f"equal step for step; losses {gpu['loss']} vs {cpu['loss']}, eval loss "
+        f"{gpu['eval_loss']:.6f} vs {cpu['eval_loss']:.6f}; same plan; GPU launches {la}")
+
+
+def check_fp16_run(m, ref, tag, ref_tag, int8=False):
+    """Run M (M8: int8 base) against A (E): finite losses, the fp16 bodies
+    launched and the 16-bit ones of bf16 not (the int8 head keeps its fp32
+    K4 and row quantization: the hidden states go to it in fp32, as in
+    JAX), one row quantization a K4 call, and no more than one host sync a
+    sparse step above the bf16 run's."""
+    lm = m["launches"]
+    need = FP16_TRAIN_KERNELS + (FP16_Q8_KERNELS if int8 else ())
+    if not all(lm[n] > 0 for n in need) or any(lm[n] for n in ("block_grad",) + K3_KERNELS):
+        raise AssertionError(f"run {tag} launches: {lm}")
+    if int8:
+        if lm["block_correction"]:
+            raise AssertionError(f"run {tag}: K5's bf16 or fp32 body launched: {lm}")
+        if lm["row_quant"] + lm["row_quant_fp16"] != sum(lm[n] for n in (
+                "q8mm_t", "q8mm_g", "q8mm_t_fp16", "q8mm_g_fp16")):
+            raise AssertionError(f"run {tag}: not one row quantization launch per K4 call: {lm}")
+    elif any(lm[n] for n in Q8_KERNELS + FP16_Q8_KERNELS + ("q4_matmul",)):
+        raise AssertionError(f"run {tag} (fp16 base) launched an int8 or int4 kernel: {lm}")
+    if any(ref["launches"][n] for n in FP16_TRAIN_KERNELS[:1] + FP16_K3_KERNELS
+           + FP16_Q8_KERNELS):
+        raise AssertionError(f"run {ref_tag} (bf16) launched an fp16 body: {ref['launches']}")
+    if m["sparse_step_syncs"] > ref["sparse_step_syncs"] + 1:
+        raise AssertionError(f"run {tag}: {m['sparse_step_syncs']} host syncs a sparse step, "
+                             f"{ref_tag} {ref['sparse_step_syncs']}")
+    log(f"[{tag}] loss scale by step {m['loss_scale']}, overflow {m['overflow']}; host-device "
+        f"syncs a sparse step {m['sparse_step_syncs']} against {ref_tag}'s "
+        f"{ref['sparse_step_syncs']} ({CARD['smi']})")
+
+
+# ---------------------------------------------------------------------------
 # the main path
 # ---------------------------------------------------------------------------
 
@@ -1498,18 +1906,17 @@ def reset_launches():
     from sparse_matrix_tuning_tpu_torch.ops.cuda import q4_matmul as k6
     from sparse_matrix_tuning_tpu_torch.ops.cuda import q8_matmul as k4
     from sparse_matrix_tuning_tpu_torch.ops.cuda import row_quant as rq
-    k1.LAUNCHES = 0
     k2.LAUNCHES = 0
-    k5.LAUNCHES = 0
     k6.LAUNCHES = 0
-    rq.LAUNCHES = 0
-    for counts in (k3.LAUNCHES, k7.LAUNCHES, k4.LAUNCHES):
+    for counts in (k1.LAUNCHES, k3.LAUNCHES, k7.LAUNCHES, k4.LAUNCHES, rq.LAUNCHES,
+                   k5.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
 
 def launches():
-    """Every kernel's launch count since the last reset_launches()."""
+    """Every kernel's launch count since the last reset_launches(), the fp16
+    bodies under their own names ("..._fp16")."""
     from sparse_matrix_tuning_tpu_torch.ops.cuda import attention as k3
     from sparse_matrix_tuning_tpu_torch.ops.cuda import block_grad as k1
     from sparse_matrix_tuning_tpu_torch.ops.cuda import cached_attention as k7
@@ -1518,9 +1925,8 @@ def launches():
     from sparse_matrix_tuning_tpu_torch.ops.cuda import q4_matmul as k6
     from sparse_matrix_tuning_tpu_torch.ops.cuda import q8_matmul as k4
     from sparse_matrix_tuning_tpu_torch.ops.cuda import row_quant as rq
-    return {"block_grad": k1.LAUNCHES, "masked_adam": k2.LAUNCHES, **k3.LAUNCHES,
-            **k7.LAUNCHES, **k4.LAUNCHES, "row_quant": rq.LAUNCHES,
-            "block_correction": k5.LAUNCHES, "q4_matmul": k6.LAUNCHES}
+    return {**k1.LAUNCHES, "masked_adam": k2.LAUNCHES, **k3.LAUNCHES, **k7.LAUNCHES,
+            **k4.LAUNCHES, **rq.LAUNCHES, **k5.LAUNCHES, "q4_matmul": k6.LAUNCHES}
 
 
 def synthetic_sft(n, seq, vocab, seed):
@@ -1546,7 +1952,8 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
                   full_ft_steps=3, sparse_steps=4, eval_batches=2,
                   ratios=(0.0084, 0.0084), attn_impl="auto", out_dir=None, log_fn=log,
                   keep_decode_params=False, frozen_quant="none", loss_impl="auto",
-                  count_syncs=False, mode="matrix", keep_state=False, decode_leg=False):
+                  count_syncs=False, mode="matrix", keep_state=False, decode_leg=False,
+                  cfg_extra=None):
     """SMTTrainer.fit through warm-up -> conversion -> sparse -> eval ->
     final export, with per-phase step times and peak memory; mode "matrix"
     (the block ratios) or "channel" (--channel_sparsity at the CLI's 30
@@ -1566,7 +1973,10 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
     conversion runs at the last warm-up step's end, and each trainable
     leaf's change over the sparse steps and its Adam m are kept on the host
     (_scan_reference_faults reads them); decode_leg: run_scan_decode's int8
-    leg over the trained scan state, last."""
+    leg over the trained scan state, last. cfg_extra: more SMTConfig fields
+    (init_loss_scale, scan_layers). Under fp16 each step's loss scale and
+    overflow flag are kept ("loss_scale", "overflow"; a step whose loss
+    overflowed is skipped by fit and not among them)."""
     import numpy as np
     import torch
     from sparse_matrix_tuning_tpu_torch.config import SMTConfig
@@ -1591,7 +2001,7 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
         max_seq_len=seq, seq_buckets=[seq], num_ft_epochs=1, eval_step=0,
         save_steps=0, log_steps=1, throughput_steps=10 ** 9, seed=1234,
         attn_impl=attn_impl, output_dir=out_dir, frozen_quant=frozen_quant,
-        loss_impl=loss_impl)
+        loss_impl=loss_impl, **(cfg_extra or {}))
     n_steps = full_ft_steps + sparse_steps
     train_ds = synthetic_sft(n_steps * bs, seq, model_cfg.vocab_size, 1)
     eval_ds = synthetic_sft(eval_batches * bs, seq, model_cfg.vocab_size, 2)
@@ -1617,7 +2027,7 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
            f"saliency_accumulation={cfg.saliency_accumulation}")
 
     summary = {"n_params": n_params, "step_ms": [], "phase": [], "loss": [], "grad_norm": [],
-               "peak": {}}
+               "peak": {}, "loss_scale": [], "overflow": []}
     summary["loss_path"] = {
         phase: "chunked" if _use_chunked_loss(cfg, model_cfg, sparse=sparse,
                                               batch_tokens=bs * (seq - 1)) else "full"
@@ -1633,6 +2043,9 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
         summary["loss"].append(float(metrics["loss"]))
         if trainer.phase == "sparse":
             summary["grad_norm"].append(float(metrics["grad_norm"]))
+        if "loss_scale" in metrics:
+            summary["loss_scale"].append(float(metrics["loss_scale"]))
+            summary["overflow"].append(bool(metrics["overflow"]))
         if step == full_ft_steps:
             summary["peak"]["warmup"] = peak_and_reset()
             summary["launches_warmup"] = launches()
@@ -1769,6 +2182,9 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
         summary["m"] = {k: t.to("cpu") for k, t in trainer.state["m"].items()}
     if keep_decode_params:
         summary["decode_params"] = trainer.decode_params()
+        if count_syncs:  # the step it counts must not move the weights handed on
+            from sparse_matrix_tuning_tpu_torch.models.llama import tree_map
+            summary["decode_params"] = tree_map(torch.clone, summary["decode_params"])
     if count_syncs:
         summary.update(eval_and_syncs(trainer, train_ds, eval_ds, bs, seq))
     if decode_leg:
@@ -3135,7 +3551,7 @@ def run_resume(model_cfg, *, mode="matrix", frozen_quant="none", dropout=0.1, fu
     summary = {"losses": losses, "eval_loss": want_eval, "scan": scan, "stops": list(stops),
                "leaves": len(want), "launches": train_launches, "restore_s": restores,
                "ckpt_gib": ckpt_gib, "straight_s": straight_s, "resumed_s": resumed_s}
-    log(f"[{tag}] TinyLlama-1.1B bf16, {mode} mode, "
+    log(f"[{tag}] TinyLlama-1.1B width at {model_cfg.num_hidden_layers} layers, bf16, {mode} mode, "
         f"--frozen_quant {frozen_quant}, --dropout "
         f"{dropout}, bs {bs} x seq {seq}, {full_ft_steps} warm-up + {sparse_steps} sparse steps"
         f"{' over the int8 scan state' if scan else ''}: straight losses {losses}, eval "
@@ -3154,12 +3570,13 @@ def main(argv=None):
     checks; `--only sparse` after the build and the K1 / K2 / K5 checks
     (short first calls for a new kernel); `--only scan` runs the build, the
     tiny 12-layer channel int8 reference, run J and runs R and R2 (a short
-    call for the conversion into the scan state and resume); none prints a
-    result line. With no arguments every phase runs."""
+    call for the conversion into the scan state and resume); `--only fp16`
+    runs the build, the fp16 bodies' checks and the tiny fp16 references;
+    none prints a result line. With no arguments every phase runs."""
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--only", "q8"], ["--only", "q4"], ["--only", "attn"],
-                    ["--only", "sparse"], ["--only", "scan"]):
-        raise SystemExit("usage: python3 chip_smoke.py [--only q8|q4|attn|sparse|scan]")
+                    ["--only", "sparse"], ["--only", "scan"], ["--only", "fp16"]):
+        raise SystemExit("usage: python3 chip_smoke.py [--only q8|q4|attn|sparse|scan|fp16]")
     only = argv[1] if argv else None
     only_q8 = only == "q8"
     t_start = time.time()
@@ -3182,6 +3599,16 @@ def main(argv=None):
     _build.load()
     marks = [("build", time.time())]
 
+    if only == "fp16":
+        check_fp16_kernels()
+        marks.append(("kernels", time.time()))
+        for fq, sl in (("none", "auto"), ("int8", "auto"), ("none", "on")):
+            check_small_fp16_reference(fq, sl)
+        marks.append(("references", time.time()))
+        log("[smoke] --only fp16: seconds by phase: " + ", ".join(
+            f"{name} {t - prev:.1f}" for (name, t), (_, prev)
+            in zip(marks, [("", t_start)] + marks)))
+        return
     if only == "attn":
         check_attention()
         check_cached_attention()
@@ -3211,8 +3638,9 @@ def main(argv=None):
         del run_j
         torch.cuda.empty_cache()
         marks.append(("J", time.time()))
-        run_resume(model_cfg)
-        run_resume(model_cfg, mode="channel", frozen_quant="int8", stops=(4,))
+        run_resume(dataclasses.replace(model_cfg, num_hidden_layers=R_LAYERS))
+        run_resume(dataclasses.replace(model_cfg, num_hidden_layers=R2_LAYERS), mode="channel",
+                   frozen_quant="int8", stops=(4,))
         marks.append(("R", time.time()))
         log("[smoke] --only scan: seconds by phase: " + ", ".join(
             f"{name} {t - prev:.1f}" for (name, t), (_, prev)
@@ -3237,6 +3665,7 @@ def main(argv=None):
     k5_err, k5_time, k5_timed = check_block_correction()
     if not only_q8:
         k6_err, k6_time = check_q4_matmul()
+        fp16 = check_fp16_kernels()
     marks.append(("kernels", time.time()))
     if not only_q8:
         check_small_reference()
@@ -3246,6 +3675,8 @@ def main(argv=None):
         check_small_reference(mode="channel")
         check_small_scan_reference(mode="channel")
         check_small_deep_channel_reference()
+        for fq, sl in (("none", "auto"), ("int8", "auto"), ("none", "on")):
+            check_small_fp16_reference(fq, sl)
     check_small_reference(frozen_quant="int8", loss_impl="chunked")
     marks.append(("references", time.time()))
     if only_q8:
@@ -3261,7 +3692,8 @@ def main(argv=None):
     os.makedirs(build_dir, exist_ok=True)
     out_dir = tempfile.mkdtemp(prefix="smoke_export_", dir=build_dir)
     try:
-        run_a = run_main_path(model_cfg, "cuda", out_dir=out_dir, keep_decode_params=True)
+        run_a = run_main_path(model_cfg, "cuda", out_dir=out_dir, keep_decode_params=True,
+                              count_syncs=True)
         decode_params = run_a.pop("decode_params")
         report_run("A", "TinyLlama-1.1B bf16, bs 4 x seq 512, remat, attn auto (K3)", run_a, 3)
         torch.cuda.empty_cache()
@@ -3323,6 +3755,23 @@ def main(argv=None):
         raise AssertionError("the chunked q8 loss did not launch K4 once per vocabulary chunk")
     torch.cuda.empty_cache()
     marks.append(("E", time.time()))
+    # M: A in fp16 with dynamic loss scaling (from 2^16); M8: E in fp16, over
+    # the int8 base; each with its export checked against merged_params()
+    fp16_runs = {}
+    for tag, fq, ref, ref_tag in (("M", "none", run_a, "A"), ("M8", "int8", run_e, "E")):
+        m_dir = tempfile.mkdtemp(prefix="smoke_export_", dir=build_dir)
+        try:
+            fp16_runs[tag] = run_main_path(model_cfg, "cuda", dtype="fp16", out_dir=m_dir,
+                                           frozen_quant=fq, count_syncs=True)
+        finally:
+            shutil.rmtree(m_dir, ignore_errors=True)
+        report_run(tag, "TinyLlama-1.1B fp16 (dynamic loss scaling from 2^16)"
+                   + (" over the int8 frozen base" if fq == "int8" else "")
+                   + ", bs 4 x seq 512, remat, attn auto (K3)", fp16_runs[tag], 3)
+        check_fp16_run(fp16_runs[tag], ref, tag, ref_tag, int8=fq == "int8")
+        torch.cuda.empty_cache()
+    run_m, run_m8 = fp16_runs["M"], fp16_runs["M8"]
+    marks.append(("M", time.time()))
     # H: channel mode (--channel_sparsity at the CLI's 30 attention and 30 MLP
     # channels) as A, with its export; I: its continuation over the int8 scan
     # state (--frozen_quant int8 --sparse_from_plan, H's export and channel
@@ -3366,8 +3815,9 @@ def main(argv=None):
     marks.append(("J", time.time()))
     # R: resume under dropout, matrix mode over the per-layer state, stopped
     # in the warm-up and in the sparse phase; R2: once in J's layout
-    run_r = run_resume(model_cfg)
-    run_r2 = run_resume(model_cfg, mode="channel", frozen_quant="int8", stops=(4,))
+    run_r = run_resume(dataclasses.replace(model_cfg, num_hidden_layers=R_LAYERS))
+    run_r2 = run_resume(dataclasses.replace(model_cfg, num_hidden_layers=R2_LAYERS),
+                        mode="channel", frozen_quant="int8", stops=(4,))
     torch.cuda.empty_cache()
     marks.append(("R", time.time()))
     # B: the recipe's max_seq_len 2048, bs 2
@@ -3455,6 +3905,26 @@ def main(argv=None):
                              ms_timed_cases=k5_timed, ms_at_plan_n=at_plan_n("K5")),
                         entry("q4_matmul", "q4_matmul.cu", "q4_matmul.py:94",
                               run_f["F1"]["launches"]["q4_matmul"], k6_err, *k6_time)]
+    # the fp16 bodies, launched by runs M and M8 (K4's, the row
+    # quantization's and K5's by M8 only)
+    fp16_src = {"block_grad": ("block_grad.cu", "block_grad.py:56"),
+                "row_quant": ("row_quant.cu", ""),
+                "block_correction": ("correction.cu", "correction.py:69"),
+                "q8mm_t": ("q8_matmul.cu", "q8_matmul.py:104"),
+                "q8mm_g": ("q8_matmul.cu", "q8_matmul.py:133"),
+                **{n: ("attention.cu", "attention.py:154" if n == "attn_fwd"
+                       else "attention.py:188") for n in K3_KERNELS}}
+    for base, (src, replaces) in fp16_src.items():
+        name = f"{base}_fp16"
+        err, ms, plain_ms, bnd, lib_ms, extra = fp16[name]
+        main_run = run_m8 if base in ("row_quant", "block_correction", "q8mm_t", "q8mm_g") \
+            else run_m
+        e = dict(entry(name, src, replaces, main_run["launches"][name], err, ms, plain_ms, bnd,
+                       lib_ms), **extra,
+                 launches_by_run={"M": run_m["launches"][name], "M8": run_m8["launches"][name]})
+        if base == "row_quant":
+            e["replaces"] = "sparse_matrix_tuning_tpu/ops/quant.py:32"
+        kernels.append(e)
     # every kernel's launches in the channel runs: H, I and I's decode legs,
     # J and its decode leg; and in R and R2's training steps
     runs = {"H": run_h["launches"], "I": run_i["launches"],
@@ -3463,7 +3933,8 @@ def main(argv=None):
             "R": run_r["launches"], "R2": run_r2["launches"]}
     for k in kernels:
         k.setdefault("launches_by_run", {}).update(
-            {tag: counts[k["name"]] for tag, counts in runs.items()})
+            {tag: counts[k["name"]] for tag, counts in runs.items()
+             if not k["name"].endswith("_fp16")})
     log("[smoke] seconds by phase: " + ", ".join(
         f"{name} {t - prev:.1f}" for (name, t), (_, prev) in zip(marks, [("", t_start)] + marks)))
     log(f"[smoke] time_ms: {TIMER_COUNTS['timings']} timings, {TIMER_COUNTS['retries']} "

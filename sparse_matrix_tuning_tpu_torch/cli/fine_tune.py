@@ -39,6 +39,12 @@ stopped (train/checkpoint.py). --dropout p sets the attention dropout of
 the training forwards (the einsum attention then runs in training; eval
 keeps the fused kernel).
 
+--dtype fp16 trains in fp16 with dynamic loss scaling (from 2^16, doubled
+after 2000 good steps): a step whose loss or gradients overflow is skipped
+and the scale halved, with an "[fp16] overflow at step ..." line where the
+loss itself overflowed. It is refused with --sparse_from_plan, as in the
+JAX package (the scaler's state comes from the warm-up).
+
 model_name_or_path must be a local HF checkpoint dir. Runs on the card
 (--device cuda, the default, raises when there is none); --device cpu runs
 the plain versions of the kernels on the CPU.

@@ -165,9 +165,6 @@ class SMTConfig:
 
     def _refuse_unported(self):
         unported = []
-        if self.dtype == "fp16":
-            unported.append("--dtype fp16 (dynamic loss scaling; the K1, K3, K5 and K7 "
-                            "kernels take fp32 and bf16 only)")
         if self.mesh_shape:
             unported.append("--mesh_shape (multi-device training)")
         if self.profile_dir:

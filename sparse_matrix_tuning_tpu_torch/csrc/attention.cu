@@ -4,7 +4,7 @@
 //   o[b,i,h,:] = sum_{j<=i} softmax_j(q[b,i,h,:] . k[b,j,h/g,:] * sm) v[b,j,h/g,:]
 //   q, o: (B, S, Hq, hd); k, v: (B, S, Hkv, hd); g = Hq / Hkv, so q-head h
 //   reads kv-head h / g (the JAX grouping head = kv_head * g + group).
-//   lse, delta: (B, Hq, S) fp32. bf16 or fp32 inputs, hd in {64, 128}.
+//   lse, delta: (B, Hq, S) fp32. bf16, fp16 or fp32 inputs, hd in {64, 128}.
 //
 // Replaces the Pallas TPU kernels
 //   sparse_matrix_tuning_tpu/ops/pallas/attention.py _fullk_fwd_impl
@@ -55,6 +55,12 @@
 //   is padded or transposed in device memory. The attention mask is
 //   ignored, as in the JAX kernel: pad keys of a right-padded batch are
 //   masked by causality alone.
+//   fp16 (--dtype fp16): the same kernels (templates on the 16-bit type T)
+//   with mma.sync m16n8k16 f32.f16.f16.f32, fp32 accumulators; P and dS
+//   round to fp16 as JAX casts them (attention.py:83, :112, :120), to
+//   nearest even with overflow to inf. A NaN or inf in an input row reaches
+//   the outputs it feeds (the running max takes fmaxf, but the NaN score
+//   itself then makes its exp, l and O NaN).
 //   fp32: CUDA-core FMAs, 256 threads, four threads per row (unchanged).
 // Not yet: wgmma/TMA, warp specialisation.
 
@@ -69,6 +75,7 @@ constexpr int F32_BQ = 32;       // queries per tile (fp32 dkdv)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(f16 x) { return __half2float(x); }
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -96,11 +103,11 @@ __device__ __forceinline__ void load_vec_async(float* dst, const float* src, int
   }
 }
 
-// One 16 x HD accumulator (the warp's rows) times row_scale, cast and
-// written to positions pos + 0..7 (c[.][0..1]) and pos + 8..15 (c[.][2..3])
-// of a slice whose positions are row_stride elements apart.
-template <int HD>
-__device__ __forceinline__ void store_acc(bf16* dst, size_t row_stride, const float (&c)[HD / 8][4],
+// One 16 x HD accumulator (the warp's rows) times row_scale, cast to T (bf16
+// or fp16) and written to positions pos + 0..7 (c[.][0..1]) and pos + 8..15
+// (c[.][2..3]) of a slice whose positions are row_stride elements apart.
+template <int HD, typename T>
+__device__ __forceinline__ void store_acc(T* dst, size_t row_stride, const float (&c)[HD / 8][4],
                                           int pos, int S, float scale0, float scale1) {
   const int lane = threadIdx.x % 32;
   const int r = pos + lane / 4, col = 2 * (lane % 4);
@@ -108,10 +115,10 @@ __device__ __forceinline__ void store_acc(bf16* dst, size_t row_stride, const fl
   for (int nd = 0; nd < HD / 8; ++nd) {
     if (r < S)
       *reinterpret_cast<uint32_t*>(dst + (size_t)r * row_stride + nd * 8 + col) =
-          pack_bf16(c[nd][0] * scale0, c[nd][1] * scale0);
+          pack2<T>(c[nd][0] * scale0, c[nd][1] * scale0);
     if (r + 8 < S)
       *reinterpret_cast<uint32_t*>(dst + (size_t)(r + 8) * row_stride + nd * 8 + col) =
-          pack_bf16(c[nd][2] * scale1, c[nd][3] * scale1);
+          pack2<T>(c[nd][2] * scale1, c[nd][3] * scale1);
   }
 }
 
@@ -133,9 +140,9 @@ __device__ __forceinline__ void store_acc(float* dst, size_t row_stride, const f
 
 // c[n] (16 x 8 each, n < 2 * NP) = A (16 rows x HD, rows a_r0.. of tile
 // a, pitch LD) . B^T for the 16 * NP rows of tile bt (stored [n][hd]).
-template <int HD, int NP>
-__device__ __forceinline__ void product_nk(float (&c)[2 * NP][4], const bf16* a, int a_r0,
-                                           const bf16* bt) {
+template <int HD, int NP, typename T>
+__device__ __forceinline__ void product_nk(float (&c)[2 * NP][4], const T* a, int a_r0,
+                                           const T* bt) {
   constexpr int LD = HD + 8;
 #pragma unroll
   for (int n = 0; n < 2 * NP; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
@@ -147,40 +154,40 @@ __device__ __forceinline__ void product_nk(float (&c)[2 * NP][4], const bf16* a,
     for (int np = 0; np < NP; ++np) {
       uint32_t bf[4];
       ld_b_nk(bf, bt, LD, np * 16, d * 16);
-      mma_bf16(c[2 * np], af, bf[0], bf[1]);
-      mma_bf16(c[2 * np + 1], af, bf[2], bf[3]);
+      mma<T>(c[2 * np], af, bf[0], bf[1]);
+      mma<T>(c[2 * np + 1], af, bf[2], bf[3]);
     }
   }
 }
 
-// acc (16 x HD) += P (16 x 16 * KC, the accumulator tiles p) . the KC * 16
-// rows of tile bt (stored [k][hd]).
-template <int HD, int KC>
+// acc (16 x HD) += P (16 x 16 * KC, the accumulator tiles p, rounded to T) .
+// the KC * 16 rows of tile bt (stored [k][hd]).
+template <int HD, int KC, typename T>
 __device__ __forceinline__ void product_kn(float (&acc)[HD / 8][4], const float (&p)[2 * KC][4],
-                                           const bf16* bt) {
+                                           const T* bt) {
   constexpr int LD = HD + 8;
 #pragma unroll
   for (int kc = 0; kc < KC; ++kc) {
     uint32_t af[4];
-    acc_to_a(af, p[2 * kc], p[2 * kc + 1]);
+    acc_to_a<T>(af, p[2 * kc], p[2 * kc + 1]);
 #pragma unroll
     for (int np = 0; np < HD / 16; ++np) {
       uint32_t bf[4];
       ld_b_kn(bf, bt, LD, kc * 16, np * 16);
-      mma_bf16(acc[2 * np], af, bf[0], bf[1]);
-      mma_bf16(acc[2 * np + 1], af, bf[2], bf[3]);
+      mma<T>(acc[2 * np], af, bf[0], bf[1]);
+      mma<T>(acc[2 * np + 1], af, bf[2], bf[3]);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync
+// bf16 and fp16 (T): mma.sync
 // ---------------------------------------------------------------------------
 
 template <int HD>
-struct Bf16Smem {
-  static constexpr int LD = HD + 8;                        // bf16 row pitch
-  static constexpr size_t kTile = (size_t)T64 * LD * 2;    // 64 x hd bf16
+struct HalfSmem {
+  static constexpr int LD = HD + 8;                        // 16-bit row pitch
+  static constexpr size_t kTile = (size_t)T64 * LD * 2;    // 64 x hd, 16-bit
   static constexpr int BQ = HD == 64 ? 64 : 32;            // dkdv query tile
   static constexpr size_t kQTile = (size_t)BQ * LD * 2;
   // fwd: Q | K[2] V[2]
@@ -191,16 +198,15 @@ struct Bf16Smem {
   static constexpr size_t dkdv = 2 * kTile + 4 * kQTile + 4 * (size_t)BQ * 4;
 };
 
-template <int HD>
+template <int HD, typename T>
 __global__ void __launch_bounds__(NT_BF16)
-attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-              int S, int Hq, int Hkv, float sm) {
+attn_fwd_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+             T* __restrict__ o, float* __restrict__ lse, int S, int Hq, int Hkv, float sm) {
   constexpr int LD = HD + 8;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + T64 * LD;       // [2][64][LD]
-  bf16* Vs = Ks + 2 * T64 * LD;   // [2][64][LD]
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* Ks = Qs + T64 * LD;       // [2][64][LD]
+  T* Vs = Ks + 2 * T64 * LD;   // [2][64][LD]
 
   const int nq = (S + T64 - 1) / T64;
   const int qt = nq - 1 - blockIdx.z;  // the longest rows first
@@ -208,8 +214,8 @@ attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int hk = h / (Hq / Hkv);
   const int q0 = qt * T64;
   const size_t qrs = (size_t)Hq * HD, krs = (size_t)Hkv * HD;
-  const bf16* kb = k + ((size_t)b * S * Hkv + hk) * HD;
-  const bf16* vb = v + ((size_t)b * S * Hkv + hk) * HD;
+  const T* kb = k + ((size_t)b * S * Hkv + hk) * HD;
+  const T* vb = v + ((size_t)b * S * Hkv + hk) * HD;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row = q0 + warp * 16 + lane / 4;  // this thread's rows: row, row + 8
   const float sl2 = sm * LOG2E;
@@ -240,8 +246,8 @@ attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int d = 0; d < HD / 16; ++d) ld_a(qf[d], Qs, LD, warp * 16, d * 16);
     }
-    const bf16* Kt = Ks + st * T64 * LD;
-    const bf16* Vt = Vs + st * T64 * LD;
+    const T* Kt = Ks + st * T64 * LD;
+    const T* Vt = Vs + st * T64 * LD;
 
     // S = Q K^T, 16 rows x 64 keys a warp
     float s[8][4];
@@ -253,8 +259,8 @@ attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int np = 0; np < 4; ++np) {
         uint32_t bf[4];
         ld_b_nk(bf, Kt, LD, np * 16, d * 16);
-        mma_bf16(s[2 * np], qf[d], bf[0], bf[1]);
-        mma_bf16(s[2 * np + 1], qf[d], bf[2], bf[3]);
+        mma<T>(s[2 * np], qf[d], bf[0], bf[1]);
+        mma<T>(s[2 * np + 1], qf[d], bf[2], bf[3]);
       }
     }
     // online softmax in log2 units; only the diagonal tile (the last, and
@@ -301,7 +307,7 @@ attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       acc[n][2] *= alpha[1];
       acc[n][3] *= alpha[1];
     }
-    product_kn<HD, 4>(acc, s, Vt);  // O += P V, P cast to bf16
+    product_kn<HD, 4>(acc, s, Vt);  // O += P V, P cast to T
     __syncthreads();                // the stage is reloaded next
   }
 
@@ -316,18 +322,18 @@ attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int HD>
+template <int HD, typename T>
 __global__ void __launch_bounds__(NT_BF16)
-attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 bf16* __restrict__ dq, int S, int Hq, int Hkv, float sm) {
+attn_bwd_dq_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                const T* __restrict__ dout, const float* __restrict__ lse,
+                const float* __restrict__ delta, T* __restrict__ dq, int S, int Hq, int Hkv,
+                float sm) {
   constexpr int LD = HD + 8;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + T64 * LD;
-  bf16* Ks = dOs + T64 * LD;      // [2][64][LD]
-  bf16* Vs = Ks + 2 * T64 * LD;   // [2][64][LD]
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* dOs = Qs + T64 * LD;
+  T* Ks = dOs + T64 * LD;      // [2][64][LD]
+  T* Vs = Ks + 2 * T64 * LD;   // [2][64][LD]
 
   const int nq = (S + T64 - 1) / T64;
   const int qt = nq - 1 - blockIdx.z;
@@ -336,8 +342,8 @@ attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = qt * T64;
   const size_t qrs = (size_t)Hq * HD, krs = (size_t)Hkv * HD;
   const size_t qoff = ((size_t)b * S * Hq + h) * HD;
-  const bf16* kb = k + ((size_t)b * S * Hkv + hk) * HD;
-  const bf16* vb = v + ((size_t)b * S * Hkv + hk) * HD;
+  const T* kb = k + ((size_t)b * S * Hkv + hk) * HD;
+  const T* vb = v + ((size_t)b * S * Hkv + hk) * HD;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row = q0 + warp * 16 + lane / 4;
   const size_t vec = ((size_t)b * Hq + h) * S;
@@ -371,8 +377,8 @@ attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* Kt = Ks + st * T64 * LD;
-    const bf16* Vt = Vs + st * T64 * LD;
+    const T* Kt = Ks + st * T64 * LD;
+    const T* Vt = Vs + st * T64 * LD;
     float s[8][4], dp[8][4];
     product_nk<HD, 4>(s, Qs, warp * 16, Kt);    // S = Q K^T
     product_nk<HD, 4>(dp, dOs, warp * 16, Vt);  // dP = dO V^T
@@ -391,7 +397,7 @@ attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
         s[n][e] = p * (dp[n][e] - dl[r]) * sm;  // dS
       }
     }
-    product_kn<HD, 4>(acc, s, Kt);  // dQ += dS K, dS cast to bf16
+    product_kn<HD, 4>(acc, s, Kt);  // dQ += dS K, dS cast to T
     __syncthreads();
   }
   store_acc<HD>(dq + qoff, qrs, acc, q0 + warp * 16, S, 1.f, 1.f);
@@ -399,20 +405,19 @@ attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // grid (Hkv * P, B, key tiles): CTA (hk * P + part, b, kt) serves key tile kt
 // of kv-head hk for the q-heads hk * g + part * g / P .. + g / P - 1.
-template <int HD>
+template <int HD, typename T>
 __global__ void __launch_bounds__(NT_BF16)
-attn_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ ws,
-                   int B, int S, int Hq, int Hkv, int P, float sm) {
-  using L = Bf16Smem<HD>;
+attn_bwd_dkdv_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                  const T* __restrict__ dout, const float* __restrict__ lse,
+                  const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                  float* __restrict__ ws, int B, int S, int Hq, int Hkv, int P, float sm) {
+  using L = HalfSmem<HD>;
   constexpr int LD = HD + 8, BQ = L::BQ, NQ8 = BQ / 8;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + T64 * LD;
-  bf16* Qs = Vs + T64 * LD;        // [2][BQ][LD]
-  bf16* dOs = Qs + 2 * BQ * LD;    // [2][BQ][LD]
+  T* Ks = reinterpret_cast<T*>(smem);
+  T* Vs = Ks + T64 * LD;
+  T* Qs = Vs + T64 * LD;        // [2][BQ][LD]
+  T* dOs = Qs + 2 * BQ * LD;    // [2][BQ][LD]
   float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ * LD);  // [2][BQ]
   float* d_s = lse_s + 2 * BQ;                                 // [2][BQ]
 
@@ -461,8 +466,8 @@ attn_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* Qt = Qs + st * BQ * LD;
-    const bf16* dOt = dOs + st * BQ * LD;
+    const T* Qt = Qs + st * BQ * LD;
+    const T* dOt = dOs + st * BQ * LD;
     const float* lt = lse_s + st * BQ;
     const float* dt = d_s + st * BQ;
     const int q0 = (qt0 + i % per_head) * BQ;
@@ -521,7 +526,7 @@ attn_bwd_dkdv_reduce_kernel(const float* __restrict__ ws, T* __restrict__ dk,
   }
   T* out = (which ? dv : dk) + i;
   if constexpr (sizeof(T) == 2) {
-    uint2 u = make_uint2(pack_bf16(acc.x, acc.y), pack_bf16(acc.z, acc.w));
+    uint2 u = make_uint2(pack2<T>(acc.x, acc.y), pack2<T>(acc.z, acc.w));
     *reinterpret_cast<uint2*>(out) = u;
   } else {
     *reinterpret_cast<float4*>(out) = acc;
@@ -827,25 +832,61 @@ attn_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   }
 }
 
+// the mma bodies over T (bf16 or fp16)
+template <int HD, typename T>
+cudaError_t fwd_mma(const void* q, const void* k, const void* v, void* o, void* lse, int B,
+                    int S, int Hq, int Hkv, float sm, cudaStream_t s) {
+  const size_t bytes = HalfSmem<HD>::fwd;
+  const cudaError_t err = allow_smem(attn_fwd_mma<HD, T>, bytes);
+  if (err != cudaSuccess) return err;
+  attn_fwd_mma<HD, T><<<dim3(Hq, B, (S + T64 - 1) / T64), NT_BF16, bytes, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), static_cast<float*>(lse), S, Hq, Hkv, sm);
+  return cudaGetLastError();
+}
+
+template <int HD, typename T>
+cudaError_t dq_mma(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, void* dq, int B, int S, int Hq, int Hkv,
+                   float sm, cudaStream_t s) {
+  const size_t bytes = HalfSmem<HD>::dq;
+  const cudaError_t err = allow_smem(attn_bwd_dq_mma<HD, T>, bytes);
+  if (err != cudaSuccess) return err;
+  attn_bwd_dq_mma<HD, T><<<dim3(Hq, B, (S + T64 - 1) / T64), NT_BF16, bytes, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dq), S, Hq, Hkv, sm);
+  return cudaGetLastError();
+}
+
+template <int HD, typename T>
+cudaError_t dkdv_mma(const void* q, const void* k, const void* v, const void* dout,
+                     const void* lse, const void* delta, void* dk, void* dv, void* ws, int B,
+                     int S, int Hq, int Hkv, int P, float sm, cudaStream_t s) {
+  const size_t bytes = HalfSmem<HD>::dkdv;
+  const cudaError_t err = allow_smem(attn_bwd_dkdv_mma<HD, T>, bytes);
+  if (err != cudaSuccess) return err;
+  attn_bwd_dkdv_mma<HD, T><<<dim3(Hkv * P, B, (S + T64 - 1) / T64), NT_BF16, bytes, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
+      static_cast<float*>(ws), B, S, Hq, Hkv, P, sm);
+  return cudaGetLastError();
+}
+
 template <int HD>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                        int B, int S, int Hq, int Hkv, float sm, int dtype, cudaStream_t s) {
+  if (dtype == 1) return fwd_mma<HD, bf16>(q, k, v, o, lse, B, S, Hq, Hkv, sm, s);
+  if (dtype == 2) return fwd_mma<HD, f16>(q, k, v, o, lse, B, S, Hq, Hkv, sm, s);
   const int nq = (S + T64 - 1) / T64;
-  cudaError_t err;
-  if (dtype == 1) {
-    const size_t bytes = Bf16Smem<HD>::fwd;
-    if ((err = allow_smem(attn_fwd_bf16<HD>, bytes)) != cudaSuccess) return err;
-    attn_fwd_bf16<HD><<<dim3(Hq, B, nq), NT_BF16, bytes, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(o), static_cast<float*>(lse), S, Hq, Hkv, sm);
-  } else {
-    const size_t bytes = F32Smem<HD>::fwd;
-    if ((err = allow_smem(attn_fwd_f32<HD>, bytes)) != cudaSuccess) return err;
-    attn_fwd_f32<HD><<<dim3(nq, Hq, B), NT_F32, bytes, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), S,
-        Hq, Hkv, sm);
-  }
+  const size_t bytes = F32Smem<HD>::fwd;
+  const cudaError_t err = allow_smem(attn_fwd_f32<HD>, bytes);
+  if (err != cudaSuccess) return err;
+  attn_fwd_f32<HD><<<dim3(nq, Hq, B), NT_F32, bytes, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), S,
+      Hq, Hkv, sm);
   return cudaGetLastError();
 }
 
@@ -853,24 +894,17 @@ template <int HD>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int B, int S, int Hq,
                       int Hkv, float sm, int dtype, cudaStream_t s) {
+  if (dtype == 1) return dq_mma<HD, bf16>(q, k, v, dout, lse, delta, dq, B, S, Hq, Hkv, sm, s);
+  if (dtype == 2) return dq_mma<HD, f16>(q, k, v, dout, lse, delta, dq, B, S, Hq, Hkv, sm, s);
   const int nq = (S + T64 - 1) / T64;
-  cudaError_t err;
-  if (dtype == 1) {
-    const size_t bytes = Bf16Smem<HD>::dq;
-    if ((err = allow_smem(attn_bwd_dq_bf16<HD>, bytes)) != cudaSuccess) return err;
-    attn_bwd_dq_bf16<HD><<<dim3(Hq, B, nq), NT_BF16, bytes, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<bf16*>(dq), S, Hq, Hkv, sm);
-  } else {
-    const size_t bytes = F32Smem<HD>::dq;
-    if ((err = allow_smem(attn_bwd_dq_f32<HD>, bytes)) != cudaSuccess) return err;
-    attn_bwd_dq_f32<HD><<<dim3(nq, Hq, B), NT_F32, bytes, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<float*>(dq), S, Hq, Hkv, sm);
-  }
+  const size_t bytes = F32Smem<HD>::dq;
+  const cudaError_t err = allow_smem(attn_bwd_dq_f32<HD>, bytes);
+  if (err != cudaSuccess) return err;
+  attn_bwd_dq_f32<HD><<<dim3(nq, Hq, B), NT_F32, bytes, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq), S, Hq, Hkv, sm);
   return cudaGetLastError();
 }
 
@@ -879,36 +913,30 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v, const void*
                         const void* lse, const void* delta, void* dk, void* dv, void* ws,
                         int B, int S, int Hq, int Hkv, int P, float sm, int dtype,
                         cudaStream_t s) {
+  if (dtype == 1)
+    return dkdv_mma<HD, bf16>(q, k, v, dout, lse, delta, dk, dv, ws, B, S, Hq, Hkv, P, sm, s);
+  if (dtype == 2)
+    return dkdv_mma<HD, f16>(q, k, v, dout, lse, delta, dk, dv, ws, B, S, Hq, Hkv, P, sm, s);
   const int nk = (S + T64 - 1) / T64;
-  cudaError_t err;
-  if (dtype == 1) {
-    const size_t bytes = Bf16Smem<HD>::dkdv;
-    if ((err = allow_smem(attn_bwd_dkdv_bf16<HD>, bytes)) != cudaSuccess) return err;
-    attn_bwd_dkdv_bf16<HD><<<dim3(Hkv * P, B, nk), NT_BF16, bytes, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-        static_cast<float*>(ws), B, S, Hq, Hkv, P, sm);
-  } else {
-    const size_t bytes = F32Smem<HD>::dkdv;
-    if ((err = allow_smem(attn_bwd_dkdv_f32<HD>, bytes)) != cudaSuccess) return err;
-    attn_bwd_dkdv_f32<HD><<<dim3(nk, Hkv, B), NT_F32, bytes, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<float*>(dk), static_cast<float*>(dv), S, Hq, Hkv, sm);
-  }
+  const size_t bytes = F32Smem<HD>::dkdv;
+  const cudaError_t err = allow_smem(attn_bwd_dkdv_f32<HD>, bytes);
+  if (err != cudaSuccess) return err;
+  attn_bwd_dkdv_f32<HD><<<dim3(nk, Hkv, B), NT_F32, bytes, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), S, Hq, Hkv, sm);
   return cudaGetLastError();
 }
 
 bool bad_args(int B, int S, int Hq, int Hkv, int hd, int dtype) {
   return B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || (hd != 64 && hd != 128) ||
-         (dtype != 0 && dtype != 1);
+         dtype < 0 || dtype > 2;
 }
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16; hd in {64, 128}. Each returns
+// dtype: 0 = fp32, 1 = bf16, 2 = fp16; hd in {64, 128}. Each returns
 // cudaGetLastError() after its launch (or the error that refused it).
 extern "C" int smt_attn_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                             int B, int S, int Hq, int Hkv, int hd, float sm, int dtype,
@@ -929,6 +957,10 @@ extern "C" int smt_attn_bwd_delta(const void* o, const void* dout, void* delta, 
     attn_bwd_delta_kernel<bf16><<<grid, 128, 0, s>>>(
         static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
         static_cast<float*>(delta), S, Hq, hd, n_rows);
+  else if (dtype == 2)
+    attn_bwd_delta_kernel<f16><<<grid, 128, 0, s>>>(
+        static_cast<const f16*>(o), static_cast<const f16*>(dout),
+        static_cast<float*>(delta), S, Hq, hd, n_rows);
   else
     attn_bwd_delta_kernel<float><<<grid, 128, 0, s>>>(
         static_cast<const float*>(o), static_cast<const float*>(dout),
@@ -936,7 +968,7 @@ extern "C" int smt_attn_bwd_delta(const void* o, const void* dout, void* delta, 
   return (int)cudaGetLastError();
 }
 
-// P q-head partitions (bf16: 1 <= P <= Hq / Hkv, P dividing it; fp32: 1).
+// P q-head partitions (bf16 and fp16: 1 <= P <= Hq / Hkv, P dividing it; fp32: 1).
 // P == 1 writes dk, dv; P > 1 writes the fp32 workspace ws (2, P, B, S,
 // Hkv, hd) for smt_attn_bwd_dkdv_reduce.
 extern "C" int smt_attn_bwd_dkdv(const void* q, const void* k, const void* v,
@@ -955,10 +987,10 @@ extern "C" int smt_attn_bwd_dkdv(const void* q, const void* k, const void* v,
 }
 
 // dk, dv (n elements each, n a multiple of 4) = the P partials of ws summed
-// in partition order, in dtype (0 fp32, 1 bf16).
+// in partition order, in dtype (0 fp32, 1 bf16, 2 fp16).
 extern "C" int smt_attn_bwd_dkdv_reduce(const void* ws, void* dk, void* dv, int n, int P,
                                         int dtype, void* stream) {
-  if (n <= 0 || n % 4 != 0 || P < 1 || (dtype != 0 && dtype != 1))
+  if (n <= 0 || n % 4 != 0 || P < 1 || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t threads = (2 * (size_t)n) / 4;
@@ -966,6 +998,10 @@ extern "C" int smt_attn_bwd_dkdv_reduce(const void* ws, void* dk, void* dv, int 
   if (dtype == 1)
     attn_bwd_dkdv_reduce_kernel<bf16><<<grid, 256, 0, s>>>(
         static_cast<const float*>(ws), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+        (size_t)n, P);
+  else if (dtype == 2)
+    attn_bwd_dkdv_reduce_kernel<f16><<<grid, 256, 0, s>>>(
+        static_cast<const float*>(ws), static_cast<f16*>(dk), static_cast<f16*>(dv),
         (size_t)n, P);
   else
     attn_bwd_dkdv_reduce_kernel<float><<<grid, 256, 0, s>>>(

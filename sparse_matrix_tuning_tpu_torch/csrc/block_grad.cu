@@ -1,7 +1,7 @@
 // K1 block_grad: the selected-block weight gradient of SMT's sparse backward.
 //
 //   out[i][r][c] = sum_t g[t, rb[i]*256 + r] * x[t, cb[i]*256 + c]
-//   g: (T, O), x: (T, I) row-major, bf16 or fp32; rb/cb: (n,) int32 on the
+//   g: (T, O), x: (T, I) row-major, bf16, fp16 or fp32; rb/cb: (n,) int32 on the
 //   device; out: (n, 256, 256) fp32, the layout of plan.gather's blocks.
 //
 // Replaces the Pallas TPU kernel
@@ -40,6 +40,10 @@
 //     per-tile counter, which it resets for the next launch) adds the
 //     partials in split order 0, 1, ... and writes the block: one launch,
 //     no atomics on the data, the same bits from every launch.
+//   * fp16 (--dtype fp16): the bf16 design with wgmma ... f32.f16.f16 and
+//     TMA maps of CU_TENSOR_MAP_DATA_TYPE_FLOAT16 (one template, F16), at
+//     the same plans; fp32 accumulation. A NaN or inf in g or x reaches the
+//     blocks whose panels hold it, as in the plain version.
 //   * fp32 (--dtype fp32 runs only): CUDA-core FMA, 256 threads each holding
 //     a 4x4 part of a 64x64 tile, 16-byte vector loads staged in shared
 //     memory, every CTA looping over all of T.
@@ -57,9 +61,9 @@ using namespace hopper;
 
 constexpr int BLOCK = 256;  // SMT block edge
 
-// ---- bf16 -----------------------------------------------------------------
+// ---- bf16 and fp16 ----------------------------------------------------------
 constexpr int TK = 64;                   // tokens per stage, and per unit of a T split
-constexpr int BOX = 64 * TK * 2;         // one 64-column x 64-token bf16 TMA box, 8 KB
+constexpr int BOX = 64 * TK * 2;         // one 64-column x 64-token 16-bit TMA box, 8 KB
 constexpr int SMEM_BUDGET = 220 * 1024;  // the ring
 constexpr int SMEM_SLACK = 1024 + 256;   // 1024-byte alignment of the tiles, the mbarriers
 
@@ -77,8 +81,8 @@ struct Cfg {
 };
 
 // grid n * (256 / BM) * splits: CTA b takes split b % splits of tile
-// b / splits = (block i, row part h)
-template <int NWG>
+// b / splits = (block i, row part h); F16: fp16 operands, else bf16
+template <int NWG, bool F16>
 __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 block_grad_wgmma_kernel(const __grid_constant__ CUtensorMap tmG,
                         const __grid_constant__ CUtensorMap tmX, const int* __restrict__ rb,
@@ -156,8 +160,12 @@ block_grad_wgmma_kernel(const __grid_constant__ CUtensorMap tmG,
     const uint64_t db = gmma_desc(sB + stage * C::B_BYTES, BOX, 1024);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < TK / 16; ++kk)  // 16 tokens: 16 rows of 128 bytes, 2048 bytes
-      wgmma_bf16<256, 1, 1>(acc, da + 128 * kk, db + 128 * kk);
+    for (int kk = 0; kk < TK / 16; ++kk) {  // 16 tokens: 16 rows of 128 bytes, 2048 bytes
+      if constexpr (F16)
+        wgmma_f16<256, 1, 1>(acc, da + 128 * kk, db + 128 * kk);
+      else
+        wgmma_bf16<256, 1, 1>(acc, da + 128 * kk, db + 128 * kk);
+    }
     wgmma_commit();
     // one group stays in flight while the next stage is waited for; the
     // stage before is then read and released
@@ -222,12 +230,12 @@ block_grad_wgmma_kernel(const __grid_constant__ CUtensorMap tmG,
           make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
 }
 
-template <int NWG>
-int launch_bf16(const CUtensorMap& mg, const CUtensorMap& mx, const int* rb, const int* cb,
+template <int NWG, bool F16>
+int launch_half(const CUtensorMap& mg, const CUtensorMap& mx, const int* rb, const int* cb,
                 float* out, float* ws, unsigned* counters, int T, int n, int splits,
                 cudaStream_t s) {
   using C = Cfg<NWG>;
-  auto kern = block_grad_wgmma_kernel<NWG>;
+  auto kern = block_grad_wgmma_kernel<NWG, F16>;
   static bool smem_set[64] = {};
   const cudaError_t e = allow_smem(reinterpret_cast<const void*>(kern), C::SMEM, smem_set);
   if (e != cudaSuccess) return (int)e;
@@ -301,7 +309,7 @@ block_grad_f32_kernel(const float* __restrict__ g, const float* __restrict__ x,
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16. bf16: bm (64 or 128) rows of a block per CTA,
+// dtype: 0 = fp32, 1 = bf16, 2 = fp16. bf16 / fp16: bm (64 or 128) rows of a block per CTA,
 // T split over `splits` CTAs (1 to ceil(T / 64)); with splits > 1 a
 // workspace ws of splits * n * 256 * 256 fp32 (16-byte aligned) and
 // counters, one zeroed unsigned per (block, bm rows) tile (left zeroed).
@@ -315,19 +323,23 @@ extern "C" int smt_block_grad(const void* g, const void* x, const void* rb, cons
   const int* r = static_cast<const int*>(rb);
   const int* c = static_cast<const int*>(cb);
   float* o = static_cast<float*>(out);
-  if (dtype == 1) {
+  if (dtype == 1 || dtype == 2) {
     if (T <= 0 || splits < 1 || splits > (T + TK - 1) / TK ||
         (splits > 1 && (ws == nullptr || counters == nullptr)))
       return (int)cudaErrorInvalidValue;
     CUtensorMap mg, mx;
-    constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-    if (!make_map(&mg, BF16, 2, g, O, T, 64, TK) || !make_map(&mx, BF16, 2, x, I, T, 64, TK))
+    const CUtensorMapDataType dt =
+        dtype == 2 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    if (!make_map(&mg, dt, 2, g, O, T, 64, TK) || !make_map(&mx, dt, 2, x, I, T, 64, TK))
       return (int)cudaErrorInvalidValue;
     float* w = static_cast<float*>(ws);
     unsigned* k = static_cast<unsigned*>(counters);
-    if (bm == 128) return launch_bf16<2>(mg, mx, r, c, o, w, k, T, n, splits, s);
-    if (bm == 64) return launch_bf16<1>(mg, mx, r, c, o, w, k, T, n, splits, s);
-    return (int)cudaErrorInvalidValue;
+    if (bm != 64 && bm != 128) return (int)cudaErrorInvalidValue;
+    if (dtype == 2)
+      return bm == 128 ? launch_half<2, true>(mg, mx, r, c, o, w, k, T, n, splits, s)
+                       : launch_half<1, true>(mg, mx, r, c, o, w, k, T, n, splits, s);
+    return bm == 128 ? launch_half<2, false>(mg, mx, r, c, o, w, k, T, n, splits, s)
+                     : launch_half<1, false>(mg, mx, r, c, o, w, k, T, n, splits, s);
   }
   if (dtype == 0) {
     const dim3 grid((BLOCK / TILE) * (BLOCK / TILE), n);

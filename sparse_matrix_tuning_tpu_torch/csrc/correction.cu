@@ -3,7 +3,7 @@
 //
 //   out[:, o_j*256 : +256] += src[:, i_j*256 : +256] @ D_j      j = 0..n-1
 //   D_j = delta[j] (transpose == 0) or delta[j]^T (transpose == 1)
-//   out (T, O), src (T, I) row-major, bf16 or fp32; delta (n, 256, 256) in
+//   out (T, O), src (T, I) row-major, bf16, fp16 or fp32; delta (n, 256, 256) in
 //   src's type; fp32 accumulation, ONE rounding per touched out tile.
 //
 // Replaces the Pallas TPU kernel
@@ -43,12 +43,18 @@
 //     64-row tiles below that, and the 256 columns split over 2 or 4 CTAs
 //     where even the 64-row tiles leave most SMs idle (decode rows), so
 //     delta streams through more SMs.
+//   * fp16 (--dtype fp16 over the int8 base): the bf16 design with wgmma
+//     ... f32.f16.f16, FLOAT16 TMA maps and fp16 conversions of the out tile
+//     (one template, F16), at the bf16 tile plans; the one rounding of a
+//     tile is round to nearest even and overflows to inf, as the plain
+//     version's cast does.
 //   * fp32 (--dtype fp32 runs only): CUDA-core FMA, 256 threads each a 4 x 4
 //     part of a 64 x 64 tile, synchronous loads; rows past T masked.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
@@ -59,9 +65,9 @@ using namespace hopper;
 
 constexpr int BLOCK = 256;   // SMT block edge
 
-// ---- bf16 -----------------------------------------------------------------
+// ---- bf16 and fp16 ----------------------------------------------------------
 constexpr int KC = 64;                     // contraction elements per stage: one swizzle row
-constexpr int BOX = 64 * KC * 2;           // one 64 x 64 bf16 TMA box, 8 KB
+constexpr int BOX = 64 * KC * 2;           // one 64 x 64 16-bit TMA box, 8 KB
 constexpr int SMEM_BUDGET = 220 * 1024;    // the ring
 constexpr int SMEM_SLACK = 1024 + 256;     // 1024-byte alignment of the tiles, the mbarriers
 
@@ -79,9 +85,25 @@ struct Cfg {
   static_assert(STAGES >= 3, "the ring needs at least 3 stages");
 };
 
+// two 16-bit values of the out tile <-> fp32 (F16: fp16, else bf16); the
+// store rounds to nearest even, overflowing to inf
+template <bool F16>
+__device__ __forceinline__ float2 load2(const uint8_t* p) {
+  if constexpr (F16) return __half22float2(*reinterpret_cast<const __half2*>(p));
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+template <bool F16>
+__device__ __forceinline__ void store2(uint8_t* p, float a, float b) {
+  if constexpr (F16)
+    *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+  else
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
 // grid R * tiles_m * (256 / BN): CTA b takes column range b % (256 / BN),
-// row tile (b / (256 / BN)) % tiles_m of run b / ((256 / BN) * tiles_m)
-template <int NWG, int BN, bool TRANS>
+// row tile (b / (256 / BN)) % tiles_m of run b / ((256 / BN) * tiles_m);
+// F16: fp16 out, src and delta, else bf16
+template <int NWG, int BN, bool TRANS, bool F16>
 __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 correction_wgmma_kernel(const __grid_constant__ CUtensorMap tmS,
                         const __grid_constant__ CUtensorMap tmD,
@@ -179,7 +201,7 @@ correction_wgmma_kernel(const __grid_constant__ CUtensorMap tmS,
   for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o_at(j, h)));
+      const float2 v = load2<F16>(o_at(j, h));
       acc[4 * j + 2 * h] = v.x;
       acc[4 * j + 2 * h + 1] = v.y;
     }
@@ -194,8 +216,12 @@ correction_wgmma_kernel(const __grid_constant__ CUtensorMap tmS,
     const uint64_t db = gmma_desc(sB + stage * C::B_BYTES, TRANS ? 16 : BOX, 1024);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < KC / 16; ++kk)  // A: +32 bytes a k16; B: +32 bytes, or +16 rows
-      wgmma_bf16<BN, 0, TRANS ? 0 : 1>(acc, da + 2 * kk, db + (TRANS ? 2 : 128) * kk);
+    for (int kk = 0; kk < KC / 16; ++kk) {  // A: +32 bytes a k16; B: +32 bytes, or +16 rows
+      if constexpr (F16)
+        wgmma_f16<BN, 0, TRANS ? 0 : 1>(acc, da + 2 * kk, db + (TRANS ? 2 : 128) * kk);
+      else
+        wgmma_bf16<BN, 0, TRANS ? 0 : 1>(acc, da + 2 * kk, db + (TRANS ? 2 : 128) * kk);
+    }
     wgmma_commit();
     // one group stays in flight while the next stage is waited for; the
     // stage before is then read and released
@@ -217,8 +243,7 @@ correction_wgmma_kernel(const __grid_constant__ CUtensorMap tmS,
   for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<__nv_bfloat162*>(o_at(j, h)) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      store2<F16>(o_at(j, h), acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
   fence_proxy_async_smem();
   named_sync(1, C::NC);
   if (ct == 0) {
@@ -232,12 +257,12 @@ correction_wgmma_kernel(const __grid_constant__ CUtensorMap tmS,
   }
 }
 
-template <int NWG, int BN, bool TRANS>
-int launch_bf16(const CUtensorMap& ms, const CUtensorMap& md, const CUtensorMap& mo,
+template <int NWG, int BN, bool TRANS, bool F16>
+int launch_half(const CUtensorMap& ms, const CUtensorMap& md, const CUtensorMap& mo,
                 const int* ro, const int* rs, const int* rj, const int* ii, int T, int R,
                 cudaStream_t s) {
   using C = Cfg<NWG, BN>;
-  auto kern = correction_wgmma_kernel<NWG, BN, TRANS>;
+  auto kern = correction_wgmma_kernel<NWG, BN, TRANS, F16>;
   static bool smem_set[64] = {};
   const cudaError_t e = allow_smem(reinterpret_cast<const void*>(kern), C::SMEM, smem_set);
   if (e != cudaSuccess) return (int)e;
@@ -246,18 +271,18 @@ int launch_bf16(const CUtensorMap& ms, const CUtensorMap& md, const CUtensorMap&
   return (int)cudaGetLastError();
 }
 
-template <bool TRANS>
+template <bool TRANS, bool F16>
 int launch_plan(const CUtensorMap& ms, const CUtensorMap& md, const CUtensorMap& mo,
                 const int* ro, const int* rs, const int* rj, const int* ii, int T, int R, int bm,
                 int bn, cudaStream_t s) {
   if (bm == 128 && bn == 256)
-    return launch_bf16<2, 256, TRANS>(ms, md, mo, ro, rs, rj, ii, T, R, s);
+    return launch_half<2, 256, TRANS, F16>(ms, md, mo, ro, rs, rj, ii, T, R, s);
   if (bm == 64 && bn == 256)
-    return launch_bf16<1, 256, TRANS>(ms, md, mo, ro, rs, rj, ii, T, R, s);
+    return launch_half<1, 256, TRANS, F16>(ms, md, mo, ro, rs, rj, ii, T, R, s);
   if (bm == 64 && bn == 128)
-    return launch_bf16<1, 128, TRANS>(ms, md, mo, ro, rs, rj, ii, T, R, s);
+    return launch_half<1, 128, TRANS, F16>(ms, md, mo, ro, rs, rj, ii, T, R, s);
   if (bm == 64 && bn == 64)
-    return launch_bf16<1, 64, TRANS>(ms, md, mo, ro, rs, rj, ii, T, R, s);
+    return launch_half<1, 64, TRANS, F16>(ms, md, mo, ro, rs, rj, ii, T, R, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -344,8 +369,8 @@ correction_f32_kernel(float* __restrict__ out, const float* __restrict__ src,
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16. run_o (R,), run_start (R + 1,), run_j (n,),
-// idx_in (n,): int32 on the device. bf16: bm x bn tiles (the wrapper's
+// dtype: 0 = fp32, 1 = bf16, 2 = fp16. run_o (R,), run_start (R + 1,), run_j (n,),
+// idx_in (n,): int32 on the device. bf16 / fp16: bm x bn tiles (the wrapper's
 // plan: 128 x 256, or 64 x 256 / 128 / 64); fp32 ignores them. Returns
 // cudaGetLastError() after the launch.
 extern "C" int smt_block_correction(void* out, const void* src, const void* delta,
@@ -359,16 +384,19 @@ extern "C" int smt_block_correction(void* out, const void* src, const void* delt
   const int* rs = static_cast<const int*>(run_start);
   const int* rj = static_cast<const int*>(run_j);
   const int* ii = static_cast<const int*>(idx_in);
-  if (dtype == 1) {
+  if (dtype == 1 || dtype == 2) {
     CUtensorMap ms, md, mo;
-    constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-    if (n <= 0 || !make_map(&ms, BF16, 2, src, I, T, 64, 64) ||
-        !make_map(&md, BF16, 2, delta, BLOCK, n * BLOCK, 64, 64) ||
-        !make_map(&mo, BF16, 2, out, O, T, 64, 64))
+    const CUtensorMapDataType dt =
+        dtype == 2 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    if (n <= 0 || !make_map(&ms, dt, 2, src, I, T, 64, 64) ||
+        !make_map(&md, dt, 2, delta, BLOCK, n * BLOCK, 64, 64) ||
+        !make_map(&mo, dt, 2, out, O, T, 64, 64))
       return (int)cudaErrorInvalidValue;
-    if (transpose)
-      return launch_plan<true>(ms, md, mo, ro, rs, rj, ii, T, R, bm, bn, s);
-    return launch_plan<false>(ms, md, mo, ro, rs, rj, ii, T, R, bm, bn, s);
+    if (dtype == 2)
+      return transpose ? launch_plan<true, true>(ms, md, mo, ro, rs, rj, ii, T, R, bm, bn, s)
+                       : launch_plan<false, true>(ms, md, mo, ro, rs, rj, ii, T, R, bm, bn, s);
+    return transpose ? launch_plan<true, false>(ms, md, mo, ro, rs, rj, ii, T, R, bm, bn, s)
+                     : launch_plan<false, false>(ms, md, mo, ro, rs, rj, ii, T, R, bm, bn, s);
   }
   if (dtype == 0) {
     const dim3 grid(R * (BLOCK / QN), (T + TM32 - 1) / TM32);

@@ -6,9 +6,10 @@
 //   g form (grad_input):  out[t][i] = (sum_o gq[t][o] * wq[o][i]) * sg[t]
 //   xq (T, K) / gq (T, O) int8 row-quantized activations (csrc/row_quant.cu),
 //   sx / sg (T,) fp32; wq (O, K) int8 row-major (ONE copy serves both forms),
-//   sw (O,) fp32; out bf16 or fp32. The int32 sum is exact; the scales are
-//   applied to it in fp32 in the order (acc * sx) * sw, rounded once to the
-//   output type, so the result equals the plain version bit for bit.
+//   sw (O,) fp32; out bf16, fp16 or fp32. The int32 sum is exact; the scales
+//   are applied to it in fp32 in the order (acc * sx) * sw, rounded once to
+//   the output type (to nearest even; fp16 overflows to inf, as torch's and
+//   XLA's casts do), so the result equals the plain version bit for bit.
 //
 // Replaces the Pallas TPU kernels
 //   sparse_matrix_tuning_tpu/ops/pallas/q8_matmul.py q8mm_t_core (_kernel_t)
@@ -54,6 +55,7 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
@@ -143,6 +145,15 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float v0, float v1, boo
   } else {
     p[0] = __float2bfloat16_rn(v0);
     if (second) p[1] = __float2bfloat16_rn(v1);
+  }
+}
+
+__device__ __forceinline__ void store2(__half* p, float v0, float v1, bool pair, bool second) {
+  if (pair) {
+    *reinterpret_cast<__half2*>(p) = __floats2half2_rn(v0, v1);
+  } else {
+    p[0] = __float2half_rn(v0);
+    if (second) p[1] = __float2half_rn(v1);
   }
 }
 
@@ -366,6 +377,8 @@ int launch(const void* a, const void* w, const void* srow, const void* scol, voi
   const float* sc = static_cast<const float*>(scol);
   if (out_dtype == 1)
     return launch_form<G, __nv_bfloat16>(ma, mb, sr, sc, out, M, N, Kc, bm, bn, grid, s);
+  if (out_dtype == 2)
+    return launch_form<G, __half>(ma, mb, sr, sc, out, M, N, Kc, bm, bn, grid, s);
   if (out_dtype == 0)
     return launch_form<G, float>(ma, mb, sr, sc, out, M, N, Kc, bm, bn, grid, s);
   return (int)cudaErrorInvalidValue;
@@ -373,7 +386,7 @@ int launch(const void* a, const void* w, const void* srow, const void* scol, voi
 
 }  // namespace
 
-// out_dtype: 0 = fp32, 1 = bf16. The plan (bm x bn tiles, grid CTAs) comes
+// out_dtype: 0 = fp32, 1 = bf16, 2 = fp16. The plan (bm x bn tiles, grid CTAs) comes
 // from the wrapper. Both return cudaGetLastError() after the launch.
 
 // out (T, O) = ((xq (T, K) . wq (O, K)^T) * sx (T,)) * sw (O,); K % 16 == 0.

@@ -5,7 +5,7 @@
 //   sx[t]    = max(max_k |v[t][k]|, 1e-8) * fp32(1/127)
 //   xq[t][k] = clamp(rint(v[t][k] / sx[t]), -127, 127)   (IEEE division,
 //                                                          round half to even)
-//   x (T, K) bf16 or fp32, sw (K,) fp32, xq (T, K) int8, sx (T,) fp32.
+//   x (T, K) bf16, fp16 or fp32, sw (K,) fp32, xq (T, K) int8, sx (T,) fp32.
 //
 // Replaces what XLA fuses in front of the Pallas kernels q8mm_t_core /
 // q8mm_g_core: sparse_matrix_tuning_tpu/ops/quant.py row_quant, run by
@@ -23,12 +23,13 @@
 // where the row length allows; a first pass takes the row's amax (warp
 // shuffles, then one value per warp through shared memory) and keeps the
 // row in registers (1, 2 or 4 vectors a thread, as few as hold it: rows of
-// up to 8192 bf16 / 4096 fp32; longer rows are read again, from L1/L2);
+// up to 8192 bf16 or fp16 / 4096 fp32; longer rows are read again, from L1/L2);
 // the second pass
 // writes the int8 values, 8 or 4 bytes a thread a step.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
@@ -38,9 +39,11 @@ constexpr float kInv127 = static_cast<float>(1.0 / 127.0);  // as the plain vers
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }  // exact
 
 template <typename T> struct Vec;
 template <> struct Vec<__nv_bfloat16> { static constexpr int N = 8; };
+template <> struct Vec<__half> { static constexpr int N = 8; };
 template <> struct Vec<float> { static constexpr int N = 4; };
 
 template <typename T>
@@ -182,7 +185,8 @@ void launch(const void* x, const void* sw, void* xq, void* sx, int rows, int K, 
 }  // namespace
 
 // xq (T, K) int8, sx (T,) fp32 = row_quant(x (T, K)) or, with sw (K,) fp32
-// not null, row_quant(x * sw). dtype: 0 = fp32 x, 1 = bf16 x; xq 8-byte
+// not null, row_quant(x * sw). dtype: 0 = fp32 x, 1 = bf16 x, 2 = fp16 x (its
+// values widen to fp32 exactly, as bf16's do); xq 8-byte
 // aligned (16-byte vectors are used where x's alignment and K allow).
 // Returns cudaGetLastError() after the launch.
 extern "C" int smt_row_quant(const void* x, const void* sw, void* xq, void* sx, int T, int K,
@@ -192,6 +196,8 @@ extern "C" int smt_row_quant(const void* x, const void* sw, void* xq, void* sx, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     launch<__nv_bfloat16>(x, sw, xq, sx, T, K, s);
+  else if (dtype == 2)
+    launch<__half>(x, sw, xq, sx, T, K, s);
   else if (dtype == 0)
     launch<float>(x, sw, xq, sx, T, K, s);
   else

@@ -30,7 +30,8 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
 # C entry point -> argtypes; every entry point returns cudaGetLastError().
-# dtype codes: 0 fp32, 1 bf16
+# dtype codes: 0 fp32, 1 bf16, 2 fp16 (K1, K3, K4's out, the row
+# quantization's x, K5; K6 and K7 take 0 and 1)
 SIGNATURES = {
     # g2, x2, rb, cb, out, ws, counters, T, O, I, n, bm, splits, dtype, stream
     "smt_block_grad": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, P),

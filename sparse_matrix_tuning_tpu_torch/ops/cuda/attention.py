@@ -2,7 +2,7 @@
 (csrc/attention.cu), in the JAX layout.
 
     q, o: (B, S, Hq, hd); k, v: (B, S, Hkv, hd); lse, delta: (B, Hq, S) fp32
-    q-head h reads kv-head h // (Hq // Hkv); hd in {64, 128}; bf16 or fp32
+    q-head h reads kv-head h // (Hq // Hkv); hd in {64, 128}; bf16, fp16 or fp32
 
 Replaces the Pallas kernels `_fullk_fwd_impl` / `_fullk_bwd_impl` of
 ops/pallas/attention.py in the JAX package. Five kernels, each with a
@@ -13,6 +13,7 @@ wrapper of its name and a plain PyTorch version `<name>_plain`: `attn_fwd`
 `attn_bwd_dkdv_reduce` sums them in partition order) and `attn_bwd_dq`;
 `attn_bwd` runs them. A wrapper launches its kernel on CUDA tensors and
 raises on what it does not take; on CPU tensors it runs the plain version.
+LAUNCHES counts each kernel's fp16 body under its name + "_fp16".
 """
 
 from __future__ import annotations
@@ -22,15 +23,15 @@ import torch
 from sparse_matrix_tuning_tpu_torch.ops.cuda import _build
 
 HEAD_DIMS = (64, 128)
-# kernel launches in this process, per kernel
-LAUNCHES = {"attn_fwd": 0, "attn_bwd_delta": 0, "attn_bwd_dkdv": 0, "attn_bwd_dkdv_reduce": 0,
-            "attn_bwd_dq": 0}
+KERNELS = ("attn_fwd", "attn_bwd_delta", "attn_bwd_dkdv", "attn_bwd_dkdv_reduce", "attn_bwd_dq")
+# kernel launches in this process, per kernel; the fp16 bodies apart
+LAUNCHES = {**{n: 0 for n in KERNELS}, **{f"{n}_fp16": 0 for n in KERNELS}}
 KEY_TILE = 64       # keys per dK/dV CTA
 H100_SMS = 132
 
 
 def plan_partitions(b: int, s: int, hq: int, hkv: int, n_sm: int = H100_SMS) -> int:
-    """q-head partitions P of attn_bwd_dkdv for a bf16 launch: the smallest
+    """q-head partitions P of attn_bwd_dkdv for a bf16 or fp16 launch: the smallest
     divisor P of the group size g = hq / hkv that gives at least two CTAs
     per SM, (S / 64 key tiles) x hkv x b x P >= 2 * n_sm; g when none does."""
     g = hq // hkv
@@ -40,12 +41,17 @@ def plan_partitions(b: int, s: int, hq: int, hkv: int, n_sm: int = H100_SMS) -> 
             return p
     return g
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_HALF = (torch.bfloat16, torch.float16)  # the tensor-core bodies
+
+
+def _count(name: str, dtype: torch.dtype):
+    LAUNCHES[name + ("_fp16" if dtype == torch.float16 else "")] += 1
 
 
 def _causal_scores(q, k, sm_scale):
-    """fp32 scores (B, Hkv, g, S, S) of the same values (bf16 products are
-    exact in fp32) and the causal mask (S, S)."""
+    """fp32 scores (B, Hkv, g, S, S) of the same values (bf16 and fp16
+    products are exact in fp32) and the causal mask (S, S)."""
     b, s, hq, hd = q.shape
     hkv = k.shape[2]
     qf = q.reshape(b, s, hkv, hq // hkv, hd).float()
@@ -145,14 +151,14 @@ def attn_bwd_plain(q, k, v, o, lse, do, sm_scale: float):
 
 def check_args(q, k, v):
     """What the kernels take, on every device: q (B,S,Hq,hd), k/v
-    (B,S,Hkv,hd) of one float dtype, bf16 or fp32, hd in HEAD_DIMS, Hq a
-    multiple of Hkv."""
+    (B,S,Hkv,hd) of one float dtype, bf16, fp16 or fp32, hd in HEAD_DIMS, Hq
+    a multiple of Hkv."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
             or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
         raise ValueError(f"fullk attention: want q (B,S,Hq,hd), k/v (B,S,Hkv,hd), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"fullk attention: q/k/v must all be bf16 or all fp32, got "
+        raise TypeError(f"fullk attention: q/k/v must all be bf16 or all fp32, or all fp16, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
     if q.shape[3] not in HEAD_DIMS:
         raise ValueError(f"fullk attention: head_dim {q.shape[3]} not in {HEAD_DIMS}")
@@ -199,7 +205,7 @@ def attn_fwd(q, k, v, sm_scale: float):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         b, s, hq, k.shape[2], hd, float(sm_scale), _DTYPE_CODE[q.dtype], _stream(q)),
         "attn_fwd")
-    LAUNCHES["attn_fwd"] += 1
+    _count("attn_fwd", q.dtype)
     return o, lse
 
 
@@ -219,7 +225,7 @@ def attn_bwd_delta(o, do):
     """delta = rowsum(dO * O): (B, Hq, S) fp32."""
     if o.shape != do.shape or o.dtype != do.dtype or o.dim() != 4 \
             or o.dtype not in _DTYPE_CODE or o.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"attn_bwd_delta: want o, do alike (B,S,Hq,hd), bf16/fp32, hd "
+        raise ValueError(f"attn_bwd_delta: want o, do alike (B,S,Hq,hd), bf16/fp16/fp32, hd "
                          f"in {HEAD_DIMS}; got {tuple(o.shape)} {o.dtype}, "
                          f"{tuple(do.shape)} {do.dtype}")
     if _device_kind(o, "attn_bwd_delta") == "cpu":
@@ -230,7 +236,7 @@ def attn_bwd_delta(o, do):
     _build.check(_build.load().smt_attn_bwd_delta(
         o.data_ptr(), do.data_ptr(), delta.data_ptr(), b, s, hq, hd,
         _DTYPE_CODE[o.dtype], _stream(o)), "attn_bwd_delta")
-    LAUNCHES["attn_bwd_delta"] += 1
+    _count("attn_bwd_delta", o.dtype)
     return delta
 
 
@@ -239,9 +245,9 @@ def _check_partitions(q, k, partitions: int):
     if not (1 <= partitions <= g and g % partitions == 0):
         raise ValueError(f"attn_bwd_dkdv: {partitions} partitions do not divide the group of "
                          f"{g} q-heads")
-    if partitions > 1 and q.dtype != torch.bfloat16:
-        raise ValueError("attn_bwd_dkdv: partitions > 1 need bf16 inputs (the fp32 kernel "
-                         "walks the whole group)")
+    if partitions > 1 and q.dtype not in _HALF:
+        raise ValueError("attn_bwd_dkdv: partitions > 1 need bf16 or fp16 inputs (the fp32 "
+                         "kernel walks the whole group)")
 
 
 def _launch_dkdv(q, k, v, do, lse, delta, sm_scale, partitions, dk, dv, ws):
@@ -252,14 +258,14 @@ def _launch_dkdv(q, k, v, do, lse, delta, sm_scale, partitions, dk, dv, ws):
         dv.data_ptr() if dv is not None else None, ws.data_ptr() if ws is not None else None,
         b, s, hq, k.shape[2], hd, partitions, float(sm_scale), _DTYPE_CODE[q.dtype],
         _stream(q)), "attn_bwd_dkdv")
-    LAUNCHES["attn_bwd_dkdv"] += 1
+    _count("attn_bwd_dkdv", q.dtype)
 
 
 def _launch_reduce(ws, dk, dv):
     _build.check(_build.load().smt_attn_bwd_dkdv_reduce(
         ws.data_ptr(), dk.data_ptr(), dv.data_ptr(), dk.numel(), ws.shape[1],
         _DTYPE_CODE[dk.dtype], _stream(ws)), "attn_bwd_dkdv_reduce")
-    LAUNCHES["attn_bwd_dkdv_reduce"] += 1
+    _count("attn_bwd_dkdv_reduce", dk.dtype)
 
 
 def attn_bwd_dkdv_partials(q, k, v, do, lse, delta, sm_scale: float,
@@ -284,7 +290,7 @@ def attn_bwd_dkdv_reduce(ws: torch.Tensor, dtype: torch.dtype):
     if ws.dim() != 6 or ws.shape[0] != 2 or ws.dtype != torch.float32 \
             or dtype not in _DTYPE_CODE or ws.shape[5] not in HEAD_DIMS:
         raise ValueError(f"attn_bwd_dkdv_reduce: want an fp32 workspace (2, P, B, S, Hkv, hd), "
-                         f"hd in {HEAD_DIMS}, and a bf16/fp32 output; got {tuple(ws.shape)} "
+                         f"hd in {HEAD_DIMS}, and a bf16/fp16/fp32 output; got {tuple(ws.shape)} "
                          f"{ws.dtype} -> {dtype}")
     if _device_kind(ws, "attn_bwd_dkdv_reduce") == "cpu":
         return attn_bwd_dkdv_reduce_plain(ws, dtype)
@@ -297,12 +303,12 @@ def attn_bwd_dkdv_reduce(ws: torch.Tensor, dtype: torch.dtype):
 
 def attn_bwd_dkdv(q, k, v, do, lse, delta, sm_scale: float, partitions=None):
     """dk, dv in k's / v's dtype. partitions: the q-head partitions P of the
-    kernel, plan_partitions' choice when None (bf16; fp32 takes 1); P > 1
+    kernel, plan_partitions' choice when None (bf16, fp16; fp32 takes 1); P > 1
     launches attn_bwd_dkdv_reduce after it."""
     _check_bwd(q, k, v, do, lse, delta)
     if partitions is None:
         partitions = (plan_partitions(q.shape[0], q.shape[1], q.shape[2], k.shape[2])
-                      if q.dtype == torch.bfloat16 else 1)
+                      if q.dtype in _HALF else 1)
     _check_partitions(q, k, partitions)
     if _device_kind(q, "attn_bwd_dkdv") == "cpu":
         return attn_bwd_dkdv_plain(q, k, v, do, lse, delta, sm_scale)
@@ -329,7 +335,7 @@ def attn_bwd_dq(q, k, v, do, lse, delta, sm_scale: float):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), b, s, hq, k.shape[2], hd, float(sm_scale),
         _DTYPE_CODE[q.dtype], _stream(q)), "attn_bwd_dq")
-    LAUNCHES["attn_bwd_dq"] += 1
+    _count("attn_bwd_dq", q.dtype)
     return dq
 
 

@@ -7,10 +7,10 @@ Replaces the Pallas kernel ops/pallas/block_grad.py of the JAX package.
 does not take; on CPU tensors it runs `block_grad_plain`, the plain PyTorch
 version (the twin of the JAX `_block_grad_weight_xla` oracle).
 
-The bf16 kernel takes a launch plan (`plan`): 64 or 128 rows of a block
-per CTA and T split over CTAs in 64-token chunks, the splits' fp32 partials
-summed in the same launch in split order (`block_grad_split_model` is that
-order in plain PyTorch).
+The bf16 and fp16 kernels take a launch plan (`plan`): 64 or 128 rows of
+a block per CTA and T split over CTAs in 64-token chunks, the splits' fp32
+partials summed in the same launch in split order (`block_grad_split_model`
+is that order in plain PyTorch). LAUNCHES counts the fp16 body apart.
 """
 
 from __future__ import annotations
@@ -25,9 +25,10 @@ from sparse_matrix_tuning_tpu_torch.ops.cuda import _build
 BLOCK = 256
 CHUNK = 64             # tokens per pipeline stage; a split is whole chunks
 MIN_SPLIT_CHUNKS = 8   # a split streams at least 512 tokens
-LAUNCHES = 0  # kernel launches in this process
+# kernel launches in this process: bf16 and fp32, and the fp16 body
+LAUNCHES = {"block_grad": 0, "block_grad_fp16": 0}
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 class BlockGradPlan(NamedTuple):
@@ -69,7 +70,7 @@ def _sm_count(index: int) -> int:
 
 def block_grad_plain(g2: torch.Tensor, x2: torch.Tensor, rb: torch.Tensor,
                      cb: torch.Tensor) -> torch.Tensor:
-    """Gather the row/col panels, cast them to fp32 (exact for bf16), one
+    """Gather the row/col panels, cast them to fp32 (exact for bf16 and fp16), one
     batched matmul: (n, 256, 256) fp32."""
     t = g2.shape[0]
     g_rows = g2.reshape(t, -1, BLOCK).index_select(1, rb.long()).transpose(0, 1)
@@ -99,7 +100,7 @@ def _validate(g2, x2, rb, cb):
     if x2.device != g2.device or rb.device != g2.device or cb.device != g2.device:
         raise ValueError("block_grad: g2, x2, rb, cb must be on one device")
     if g2.dtype not in _DTYPE_CODE or x2.dtype != g2.dtype:
-        raise TypeError(f"block_grad: g2/x2 must both be bf16 or fp32, got "
+        raise TypeError(f"block_grad: g2/x2 must both be bf16, fp16 or fp32, got "
                         f"{g2.dtype}/{x2.dtype}")
     if g2.dim() != 2 or x2.dim() != 2 or g2.shape[0] != x2.shape[0]:
         raise ValueError(f"block_grad: want g2 (T, O), x2 (T, I), got "
@@ -108,7 +109,7 @@ def _validate(g2, x2, rb, cb):
         raise ValueError("block_grad: O and I must be multiples of 256")
     if not (g2.is_contiguous() and x2.is_contiguous()):
         raise ValueError("block_grad: g2 and x2 must be contiguous")
-    # TMA (bf16) and the 16-byte vector loads (fp32): 16-byte aligned bases;
+    # TMA (bf16, fp16) and the 16-byte vector loads (fp32): 16-byte aligned bases;
     # the row strides are multiples of 512 bytes
     if g2.data_ptr() % 16 or x2.data_ptr() % 16:
         raise ValueError("block_grad: g2 and x2 must be 16-byte aligned")
@@ -139,19 +140,18 @@ def _launch(g2, x2, rb, cb, bm: int, splits: int) -> torch.Tensor:
     """Allocate out (and the split workspace), launch with (bm, splits),
     count. The arguments as block_grad has checked them; chip_smoke.py also
     calls it with other plans, to time the plan against them."""
-    global LAUNCHES
     (t, o), n = g2.shape, rb.shape[0]
     out = torch.empty((n, BLOCK, BLOCK), dtype=torch.float32, device=g2.device)
     if n == 0:
         return out
     if t == 0:
         return out.zero_()
-    bf16 = g2.dtype == torch.bfloat16
-    if bf16 and (bm not in (64, 128) or not 1 <= splits <= -(-t // CHUNK)):
+    half = g2.dtype != torch.float32  # the wgmma bodies, bf16 and fp16
+    if half and (bm not in (64, 128) or not 1 <= splits <= -(-t // CHUNK)):
         raise ValueError(f"block_grad: want bm 64 or 128 and splits in [1, {-(-t // CHUNK)}], "
                          f"got {bm}, {splits}")
     ws = cnt = None
-    if bf16 and splits > 1:
+    if half and splits > 1:
         ws = torch.empty((splits, n, BLOCK, BLOCK), dtype=torch.float32, device=g2.device)
         cnt = _build.tile_counters(g2.device, n * (BLOCK // bm), "block_grad")
     err = _build.load().smt_block_grad(
@@ -160,5 +160,5 @@ def _launch(g2, x2, rb, cb, bm: int, splits: int) -> torch.Tensor:
         t, o, x2.shape[1], n, bm, splits, _DTYPE_CODE[g2.dtype],
         torch.cuda.current_stream(g2.device).cuda_stream)
     _build.check(err, "block_grad")
-    LAUNCHES += 1
+    LAUNCHES["block_grad_fp16" if g2.dtype == torch.float16 else "block_grad"] += 1
     return out

@@ -10,9 +10,9 @@ JAX package (ops/pallas/correction.py) and its sorting wrapper
 `block_correction`. `block_correction` launches the CUDA kernel on CUDA
 tensors and raises on what it does not take; on CPU tensors it runs
 `block_correction_plain`, which rounds once per out block as the kernel
-does. The bf16 kernel takes a launch plan (`plan`: token rows and out
-columns per CTA); `block_correction_order_model` is its summation order in
-plain PyTorch.
+does. The bf16 and fp16 kernels take a launch plan (`plan`: token rows
+and out columns per CTA); `block_correction_order_model` is their summation
+order in plain PyTorch. LAUNCHES counts the fp16 body apart.
 """
 
 from __future__ import annotations
@@ -28,9 +28,12 @@ from sparse_matrix_tuning_tpu_torch.ops.cuda import _build
 
 BLOCK = 256
 CHUNK = 64    # contraction elements per pipeline stage
-LAUNCHES = 0  # kernel launches in this process
+# kernel launches in this process: bf16 and fp32, and the fp16 body
+LAUNCHES = {"block_correction": 0, "block_correction_fp16": 0}
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the wgmma bodies' tile shapes (token rows, out columns per CTA), bf16 and fp16
+HALF_PLANS = ((128, 256), (64, 256), (64, 128), (64, 64))
 
 
 @dataclass(frozen=True)
@@ -125,7 +128,7 @@ def block_correction_plain(out2: torch.Tensor, src2: torch.Tensor, delta: torch.
 
 def block_correction_order_model(out2, src2, delta, idx_out, idx_in,
                                  transpose: bool = False) -> torch.Tensor:
-    """A plain model of the bf16 kernel's summation order, in place on
+    """A plain model of the bf16 and fp16 kernels' summation order, in place on
     out2: each out block's fp32 accumulator is seeded from its tile, then
     takes, for each j of its run in the caller's order and each 64-element
     chunk of the contraction in order, that chunk's fp32 product; one
@@ -156,7 +159,8 @@ def _validate(out2, src2, delta, sched):
         raise ValueError("block_correction: out, src, delta and the schedule must be "
                          "on one device")
     if out2.dtype not in _DTYPE_CODE or src2.dtype != out2.dtype or delta.dtype != out2.dtype:
-        raise TypeError(f"block_correction: out, src and delta must all be bf16 or fp32, "
+        raise TypeError(f"block_correction: out, src and delta must all be bf16, fp16 or "
+                        f"fp32, "
                         f"got {out2.dtype}/{src2.dtype}/{delta.dtype}")
     if out2.dim() != 2 or src2.dim() != 2 or out2.shape[0] != src2.shape[0]:
         raise ValueError(f"block_correction: want out (T, O), src (T, I), got "
@@ -171,7 +175,7 @@ def _validate(out2, src2, delta, sched):
         raise ValueError("block_correction: block coordinate out of range")
     if not (out2.is_contiguous() and src2.is_contiguous() and delta.is_contiguous()):
         raise ValueError("block_correction: out, src and delta must be contiguous")
-    # TMA (bf16) and the 16-byte vector loads (fp32): 16-byte aligned bases;
+    # TMA (bf16, fp16) and the 16-byte vector loads (fp32): 16-byte aligned bases;
     # the row strides are multiples of 512 bytes
     if out2.data_ptr() % 16 or src2.data_ptr() % 16 or delta.data_ptr() % 16:
         raise ValueError("block_correction: out, src and delta must be 16-byte aligned")
@@ -203,10 +207,8 @@ def _launch(out2, src2, delta, sched, transpose, bm: int, bn: int) -> torch.Tens
     """Launch with (bm, bn) tiles and count. The arguments as
     block_correction has checked them; chip_smoke.py also calls it with
     other plans, to time the plan against them."""
-    global LAUNCHES
-    if out2.dtype == torch.bfloat16 and (bm, bn) not in ((128, 256), (64, 256), (64, 128),
-                                                         (64, 64)):
-        raise ValueError(f"block_correction: no bf16 kernel for {bm} x {bn} tiles")
+    if out2.dtype != torch.float32 and (bm, bn) not in HALF_PLANS:
+        raise ValueError(f"block_correction: no {out2.dtype} kernel for {bm} x {bn} tiles")
     err = _build.load().smt_block_correction(
         out2.data_ptr(), src2.data_ptr(), delta.data_ptr(), sched.run_o.data_ptr(),
         sched.run_start.data_ptr(), sched.run_j.data_ptr(), sched.idx_in_dev.data_ptr(),
@@ -214,5 +216,5 @@ def _launch(out2, src2, delta, sched, transpose, bm: int, bn: int) -> torch.Tens
         int(bool(transpose)), _DTYPE_CODE[out2.dtype], bm, bn,
         torch.cuda.current_stream(out2.device).cuda_stream)
     _build.check(err, "block_correction")
-    LAUNCHES += 1
+    LAUNCHES["block_correction_fp16" if out2.dtype == torch.float16 else "block_correction"] += 1
     return out2

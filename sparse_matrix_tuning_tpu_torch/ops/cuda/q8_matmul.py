@@ -21,11 +21,12 @@ import torch
 
 from sparse_matrix_tuning_tpu_torch.ops.cuda import _build
 
-LAUNCHES = {"q8mm_t": 0, "q8mm_g": 0}  # kernel launches in this process
+# kernel launches in this process, per form; the fp16 epilogue apart
+LAUNCHES = {"q8mm_t": 0, "q8mm_g": 0, "q8mm_t_fp16": 0, "q8mm_g_fp16": 0}
 
 DECODE_ROWS = 64   # up to this many rows, the decode plan's 64-row tiles
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # an fp32 product of int8 values is exact while 127^2 * K < 2^24
 _EXACT_SLICE = 1024
 
@@ -113,7 +114,7 @@ def _validate(name, aq, srow, wq, sw, out_dtype, contract, n_out):
     if srow.dtype != torch.float32 or (sw is not None and sw.dtype != torch.float32):
         raise TypeError(f"{name}: scales must be fp32")
     if out_dtype not in _DTYPE_CODE:
-        raise TypeError(f"{name}: out dtype must be bf16 or fp32, got {out_dtype}")
+        raise TypeError(f"{name}: out dtype must be bf16, fp16 or fp32, got {out_dtype}")
     if aq.dim() != 2 or wq.dim() != 2 or aq.shape[1] != contract:
         raise ValueError(f"{name}: shapes {tuple(aq.shape)} and wq {tuple(wq.shape)} "
                          "do not contract")
@@ -146,7 +147,7 @@ def _launch(name, fn, ptrs, t, o, k, out_dtype, device):
     err = fn(*ptrs, out.data_ptr(), t, o, k, _DTYPE_CODE[out_dtype], p.bm, p.bn, p.grid,
              torch.cuda.current_stream(device).cuda_stream)
     _build.check(err, name)
-    LAUNCHES[name] += 1
+    LAUNCHES[name + ("_fp16" if out_dtype == torch.float16 else "")] += 1
     return out
 
 

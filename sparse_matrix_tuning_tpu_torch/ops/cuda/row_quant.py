@@ -6,12 +6,13 @@
     row_quant(x, sw):  the same over x * sw (the g form folds the weight's
                        per-output-channel scales into g first)
 
-x (T, K) bf16 or fp32 -> (xq int8 (T, K), sx fp32 (T, 1)). This is what
+x (T, K) bf16, fp16 or fp32 -> (xq int8 (T, K), sx fp32 (T, 1)). This is what
 XLA fuses in front of the JAX package's q8 kernels under jit
 (ops/quant.py row_quant, run by ops/pallas/q8_matmul.py
 q8_matmul_t_fused / q8_matmul_fused). `row_quant` launches the kernel on
 CUDA tensors and raises on what it does not take; on CPU tensors it runs
-`row_quant_plain`, whose values the kernel equals bit for bit.
+`row_quant_plain`, whose values the kernel equals bit for bit. LAUNCHES
+counts the launches over an fp16 x apart.
 """
 
 from __future__ import annotations
@@ -20,9 +21,10 @@ import torch
 
 from sparse_matrix_tuning_tpu_torch.ops.cuda import _build
 
-LAUNCHES = 0  # kernel launches in this process
+# kernel launches in this process: over bf16 and fp32 x, and over fp16 x
+LAUNCHES = {"row_quant": 0, "row_quant_fp16": 0}
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _RECIPROCALS = {}  # (device, divisor) -> the fp32 reciprocal of divisor, a 0-dim tensor
 
 
@@ -50,10 +52,10 @@ def row_quant_plain(x: torch.Tensor, sw: torch.Tensor | None = None):
 
 
 def _validate(x: torch.Tensor, sw: torch.Tensor | None):
-    """What the kernel takes, apart from the device: x (T, K) bf16/fp32
+    """What the kernel takes, apart from the device: x (T, K) bf16/fp16/fp32
     contiguous; sw (K,) fp32 contiguous on x's device."""
     if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"row_quant: x must be bf16 or fp32, got {x.dtype}")
+        raise TypeError(f"row_quant: x must be bf16, fp16 or fp32, got {x.dtype}")
     if x.dim() != 2 or x.shape[1] == 0:
         raise ValueError(f"row_quant: want x (T, K) with K > 0, got {tuple(x.shape)}")
     if not x.is_contiguous():
@@ -69,9 +71,8 @@ def _validate(x: torch.Tensor, sw: torch.Tensor | None):
 
 
 def row_quant(x: torch.Tensor, sw: torch.Tensor | None = None):
-    """x (T, K) bf16 or fp32 [, sw (K,) fp32] -> (xq int8 (T, K), sx fp32
+    """x (T, K) bf16, fp16 or fp32 [, sw (K,) fp32] -> (xq int8 (T, K), sx fp32
     (T, 1)) = row_quant_plain(x, sw), in one launch on a CUDA tensor."""
-    global LAUNCHES
     if x.device.type == "cpu":
         return row_quant_plain(x, sw)
     if x.device.type != "cuda":
@@ -89,5 +90,5 @@ def row_quant(x: torch.Tensor, sw: torch.Tensor | None = None):
         x.data_ptr(), None if sw is None else sw.data_ptr(), xq.data_ptr(), sx.data_ptr(), t, k,
         _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "row_quant")
-    LAUNCHES += 1
+    LAUNCHES["row_quant_fp16" if x.dtype == torch.float16 else "row_quant"] += 1
     return xq, sx

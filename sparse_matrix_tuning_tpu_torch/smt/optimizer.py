@@ -45,10 +45,13 @@ def global_norm(grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float):
+def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float,
+                        norm: Optional[torch.Tensor] = None):
     """Scale every fp32 grad by min(1, max_norm / max(norm, 1e-6)), in
-    place. Returns (grads, norm)."""
-    norm = global_norm(grads)
+    place; norm: global_norm(grads) when the caller has it already.
+    Returns (grads, norm)."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-6), max=1.0)
     for g in grads.values():
         g.mul_(scale)

@@ -13,8 +13,10 @@ per-layer state or the stacked scan state:
                    trainer rebuilds it (scan_phase.attach_schedules).
   frozen_host.pt   the host store of frozen weights (trainer._host_frozen),
                    when there is one
-  meta.json        phase, step, total_steps, best_eval_loss; in the sparse
-                   phase "resolved": the layout the state was built in
+  meta.json        phase, step, total_steps, best_eval_loss, dtype (a restore
+                   under another --dtype is refused: fp16 states carry the
+                   loss scaler's "loss_scale" and "good_steps"); in the
+                   sparse phase "resolved": the layout the state was built in
   config.json, plan.json
 
 torch.save rather than safetensors: the integer and boolean leaves and the
@@ -104,7 +106,7 @@ def save_checkpoint(path: str, trainer) -> None:
     elif os.path.exists(host_path):
         os.remove(host_path)
     meta = {"phase": trainer.phase, "step": trainer.step, "total_steps": trainer.total_steps,
-            "best_eval_loss": trainer.best_eval_loss}
+            "best_eval_loss": trainer.best_eval_loss, "dtype": trainer.cfg.dtype}
     if trainer.phase == "sparse" and trainer.plan is not None:
         # a restore under other flags then fails with the keys named
         meta["resolved"] = _resolved_layout(trainer)
@@ -167,9 +169,14 @@ def restore_checkpoint(path: str, trainer) -> None:
     the saved one (a ValueError names each key that differs), the trainer
     takes the plan, its scan flag and host store, and installs the sparse
     phase (the scan schedules are rebuilt, never loaded). Every leaf must
-    have the key, shape and dtype the trainer expects."""
+    have the key, shape and dtype the trainer expects, and the checkpoint's
+    --dtype must be the trainer's (a ValueError names both)."""
     with open(os.path.join(path, META_FILE)) as f:
         meta = json.load(f)
+    if meta.get("dtype", trainer.cfg.dtype) != trainer.cfg.dtype:
+        raise ValueError(f"checkpoint was saved with --dtype {meta['dtype']} but the trainer runs "
+                         f"--dtype {trainer.cfg.dtype}: its parameters and its loss-scaler state "
+                         f"(fp16 only) do not carry over; resume with --dtype {meta['dtype']}")
     plan = None
     if os.path.exists(os.path.join(path, PLAN_FILE)):
         with open(os.path.join(path, PLAN_FILE)) as f:

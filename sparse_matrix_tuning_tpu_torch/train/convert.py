@@ -233,7 +233,7 @@ def sparse_state_from_plan(cfg: SMTConfig, warmup_state: Dict, plan: SMTPlan, mo
     with torch.no_grad():
         params = tree_map(lambda p: p.detach().to(cfg.param_dtype, copy=True), master)
         trainable = plan.gather(master["layers"], dtype=torch.float32)
-    state = init_sparse_state(params, trainable, step=int(warmup_state["step"]))
+    state = init_sparse_state(params, trainable, step=int(warmup_state["step"]), cfg=cfg)
     fq = resolve_frozen_quant(cfg, plan.mode)
     if fq == "int8":
         # quantize from the fp32 master (best rounding); wq/sw/base are

@@ -190,14 +190,17 @@ def _stack_linears(mods, n_layers: int, layer_weight: Callable, idx: Dict, plan_
 
 
 def _scan_state(params: Dict, trainable: Dict, base: Dict, idx: Dict, q: Dict, step: int,
-                device) -> Dict:
+                device, cfg: SMTConfig) -> Dict:
     """The scan state's leaves around its stacks: Adam moments and the
-    update count at zero, the step carried over."""
+    update count at zero, the step carried over, and under fp16 a fresh
+    scaler (steps.loss_scaler, as steps.init_sparse_state)."""
+    from sparse_matrix_tuning_tpu_torch.train.steps import loss_scaler
     state = {"params": params, "trainable": trainable, "base": base, "idx": idx,
              "m": {k: torch.zeros_like(t) for k, t in trainable.items()},
              "v": {k: torch.zeros_like(t) for k, t in trainable.items()},
              "count": torch.zeros((), dtype=torch.int32, device=device),
-             "step": torch.full((), int(step), dtype=torch.int32, device=device)}
+             "step": torch.full((), int(step), dtype=torch.int32, device=device),
+             **loss_scaler(cfg, device)}
     if q:
         state["q"] = q
     return state
@@ -246,7 +249,8 @@ def build_scan_sparse_state(cfg: SMTConfig, warmup_state: Dict, plan: SMTPlan,
     params = {k: v.detach().to(device, dt, copy=True) for k, v in master.items()
               if k != "layers"}
     params["layers_stacked"] = stacked
-    state = _scan_state(params, trainable, base, idx, q, int(warmup_state["step"]), device)
+    state = _scan_state(params, trainable, base, idx, q, int(warmup_state["step"]), device,
+                        cfg)
     if resolve_head_quant(cfg, model_cfg, "int8" if use_q8 else "none") == "int8":
         state["q_head"] = build_q_head(master, model_cfg)
         if offload:
@@ -316,7 +320,7 @@ def build_scan_state_from_hf(cfg: SMTConfig, model_dir: str, plan: SMTPlan,
         raise ValueError(f"checkpoint {model_dir} has no lm_head tensor but "
                          "tie_word_embeddings is False — malformed or mis-configured checkpoint")
 
-    state = _scan_state(params, trainable, base, idx, q, 0, device)
+    state = _scan_state(params, trainable, base, idx, q, 0, device, cfg)
     if resolve_head_quant(cfg, model_cfg, "int8") == "int8":
         state["q_head"] = build_q_head(params, model_cfg)
         state["params"] = offload_lm_head(params, {} if host is None else host)
@@ -463,13 +467,16 @@ def build_scan_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan
     (JAX masks by `valid` to the same effect), so only the weight decay
     moves it. The qk LR boost is keyed by module name. No scatter: the base
     stays int8 and the delta corrects it. The state carries its "sched"
-    (attach_schedules)."""
+    (attach_schedules). Under fp16 the loss is scaled and an overflowed
+    step skipped, as steps.build_sparse_step does."""
     from sparse_matrix_tuning_tpu_torch.train.steps import (
-        accumulated_value_and_grad, adam_betas, block_adam, dropout_key)
+        _skipped, accumulated_value_and_grad, adam_betas, block_adam, dropout_key,
+        unscale_and_check)
     adam_cfg = AdamConfig(betas=tuple(adam_betas(cfg, plan.mode)), eps=cfg.adam_eps,
                           weight_decay=cfg.w_decay, grad_clip=cfg.grad_clip)
     adam = block_adam(adam_cfg, make_qk_lr_scale(cfg.qk_lr_times) if cfg.qk_scheduler else None)
     lowest_layer = min(lp.layer for lp in plan.linears.values())
+    use_ls = cfg.dtype == "fp16"
 
     def step(state: Dict, batch: Dict) -> tuple:
         trainable = state["trainable"]
@@ -479,19 +486,26 @@ def build_scan_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan
         key = dropout_key(cfg, state, sparse=True)
 
         def loss_of(tr, mb):
-            return _scan_loss(state, mb, tr, cfg, model_cfg, lowest_layer, key)
+            raw = _scan_loss(state, mb, tr, cfg, model_cfg, lowest_layer, key)
+            return raw * state["loss_scale"] if use_ls else raw
 
         vag = accumulated_value_and_grad(loss_of, cfg.gradient_accumulation_steps)
         loss, grads = vag(trainable, batch)
         with torch.no_grad():
-            grads, gnorm = clip_by_global_norm(grads, adam_cfg.grad_clip)
+            norm, ls_metrics = None, {}
+            if use_ls:
+                loss, grads, norm, ls_metrics, finite = unscale_and_check(loss, grads, state, cfg)
+                if not finite:  # skipped: the stacks, moments and count unchanged
+                    return _skipped(state, trainable, loss, norm, lr_sched(state["count"]),
+                                    ls_metrics)
+            grads, gnorm = clip_by_global_norm(grads, adam_cfg.grad_clip, norm=norm)
             lr = lr_sched(state["count"])
             adam(impl, grads, state, trainable, lr)
             del grads
             for p in trainable.values():
                 p.grad = None
             state["step"].add_(1)
-        return state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
+        return state, {"loss": loss, "grad_norm": gnorm, "lr": lr, **ls_metrics}
 
     return step
 

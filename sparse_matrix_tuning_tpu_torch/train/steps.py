@@ -14,6 +14,14 @@ columns) via the sparse autograd Functions; Adam state is proportional to
 the selected fraction; the updated blocks (or columns) are scattered once
 per step into the dense weights.
 
+--dtype fp16 trains with DeepSpeed-style dynamic loss scaling (the
+reference inherits it, deepspeed_helpers.py:76-87): the state carries
+"loss_scale" and "good_steps", the loss is scaled before its backward and
+the grads unscaled after it, and a step whose loss or grad norm is not
+finite changes nothing but the step counter and the scaler
+(unscale_and_check, update_loss_scale); that test is the one value an fp16
+step reads on the host.
+
 A state is a plain dict of tensors. The steps update it IN PLACE (params,
 optimizer state, counters) where the JAX twin donated its buffers, and
 return it with a dict of 0-dim metric tensors; nothing waits on the device.
@@ -36,7 +44,7 @@ from sparse_matrix_tuning_tpu_torch.ops.loss import (
 from sparse_matrix_tuning_tpu_torch.ops.sparse_linear import (
     _resolve_impl, frozen_q8_linear, make_sparse_linear_dispatch)
 from sparse_matrix_tuning_tpu_torch.smt.optimizer import (
-    AdamConfig, adam_step, clip_by_global_norm, full_ft_wd_mask,
+    AdamConfig, adam_step, clip_by_global_norm, full_ft_wd_mask, global_norm,
     make_qk_lr_scale,
 )
 from sparse_matrix_tuning_tpu_torch.smt.plan import SMTPlan
@@ -196,6 +204,57 @@ def resolve_saliency_accumulation(cfg: SMTConfig, master) -> str:
     return cfg.saliency_accumulation
 
 
+# --- fp16 dynamic loss scaling (DeepSpeed DynamicLossScaler semantics) ----
+
+def update_loss_scale(scale: torch.Tensor, good_steps: torch.Tensor, finite,
+                      window: int, min_scale: float = 1.0):
+    """The scale-update rule: halve (down to min_scale) and reset the good
+    count on overflow, double after `window` consecutive good steps
+    (reference fp16 block defaults, deepspeed_helpers.py:76-87). Tensors in,
+    tensors out, on the scale's device: no host sync."""
+    finite = torch.as_tensor(finite, device=scale.device)
+    good = torch.where(finite, good_steps + 1, torch.zeros_like(good_steps))
+    grew = good >= window
+    new_scale = torch.where(finite, torch.where(grew, scale * 2.0, scale),
+                            torch.clamp(scale * 0.5, min=min_scale))
+    return new_scale, torch.where(grew, torch.zeros_like(good), good)
+
+
+def loss_scaler(cfg: SMTConfig, device) -> Dict[str, torch.Tensor]:
+    """A fresh scaler's state leaves, {} unless cfg.dtype is fp16."""
+    if cfg.dtype != "fp16":
+        return {}
+    return {"loss_scale": torch.full((), float(cfg.init_loss_scale), dtype=torch.float32,
+                                     device=device),
+            "good_steps": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+@torch.no_grad()
+def unscale_and_check(loss: torch.Tensor, grads: Dict[str, torch.Tensor], state: Dict,
+                      cfg: SMTConfig):
+    """After a backward of the scaled loss: the loss and the fp32 grads
+    (in place) times 1 / loss_scale, their global norm, and the scaler
+    stepped in place on the device. Returns (loss, grads, norm, metrics,
+    finite): finite = isfinite(loss) & isfinite(norm) read on the host,
+    the one sync that loss scaling adds to a step, taken before the caller
+    updates anything in place; metrics = {"loss_scale": the scale the step
+    ran at, "overflow": not finite}. An overflowed step must then leave
+    every other leaf as it was (the JAX twin's select-on-overflow)."""
+    inv = torch.reciprocal(state["loss_scale"])
+    loss = loss * inv
+    for g in grads.values():
+        g.mul_(inv)
+    norm = global_norm(grads)
+    finite_t = torch.isfinite(loss) & torch.isfinite(norm)
+    ran_at = state["loss_scale"].clone()
+    scale, good = update_loss_scale(state["loss_scale"], state["good_steps"], finite_t,
+                                    cfg.loss_scale_window)
+    state["loss_scale"].copy_(scale)
+    state["good_steps"].copy_(good)
+    finite = bool(finite_t)
+    return loss, grads, norm, {"loss_scale": ran_at, "overflow": not finite}, finite
+
+
 def init_warmup_state(master, cfg: SMTConfig, device=None) -> Dict:
     """fp32 master copies (leaf tensors requiring grad), zero Adam moments,
     step counters and the saliency accumulators, on `device` (default: the
@@ -219,6 +278,7 @@ def init_warmup_state(master, cfg: SMTConfig, device=None) -> Dict:
                           state["master"])
     state["v"] = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=device),
                           state["master"])
+    state.update(loss_scaler(cfg, device))  # fp16: carried through the channel warm-up too
     if cfg.matrix_sparsity:
         acc = {}
         for li, layer in master["layers"].items():
@@ -269,6 +329,7 @@ def build_warmup_step(cfg: SMTConfig, model_cfg: LlamaConfig,
     param_dtype = cfg.param_dtype
     # --qk_scheduler boosts q/k_proj LR during warm-up too (fine_tune.py:160-163)
     lr_scale = make_qk_lr_scale(cfg.qk_lr_times) if cfg.qk_scheduler else None
+    use_ls = cfg.dtype == "fp16"  # dynamic loss scaling
 
     def step(state: Dict, batch: Dict) -> tuple:
         master = state["master"]
@@ -276,14 +337,21 @@ def build_warmup_step(cfg: SMTConfig, model_cfg: LlamaConfig,
 
         def loss_of(flat_master, mb):
             params = _cast_tree(master, param_dtype)
-            return compute_loss(params, mb, cfg, model_cfg,
-                                remat=cfg.gradient_checkpointing, dropout_key=key)
+            raw = compute_loss(params, mb, cfg, model_cfg,
+                               remat=cfg.gradient_checkpointing, dropout_key=key)
+            return raw * state["loss_scale"] if use_ls else raw
 
         flat = flatten_tree(master)
         vag = accumulated_value_and_grad(loss_of, cfg.gradient_accumulation_steps)
         loss, grads = vag(flat, batch)
 
         with torch.no_grad():
+            norm, ls_metrics = None, {}
+            if use_ls:
+                loss, grads, norm, ls_metrics, finite = unscale_and_check(loss, grads, state, cfg)
+                if not finite:  # skipped: master, moments, count and acc stay as they were
+                    return _skipped(state, flat, loss, norm, lr_sched(state["step"]),
+                                    ls_metrics)
             if "acc" in state:
                 # saliency accumulates the UNCLIPPED averaged grad, as the
                 # reference harvests before optimizer clipping (fine_tune.py:716)
@@ -297,7 +365,7 @@ def build_warmup_step(cfg: SMTConfig, model_cfg: LlamaConfig,
                     for ks, acc in state["acc"].items():
                         acc.add_(_target_grad(grads, ks))
 
-            grads, gnorm = clip_by_global_norm(grads, adam_cfg.grad_clip)
+            grads, gnorm = clip_by_global_norm(grads, adam_cfg.grad_clip, norm=norm)
             lr = lr_sched(state["step"])
             opt_state = {"m": flatten_tree(state["m"]), "v": flatten_tree(state["v"]),
                          "count": state["count"]}
@@ -307,9 +375,19 @@ def build_warmup_step(cfg: SMTConfig, model_cfg: LlamaConfig,
             for p in flat.values():
                 p.grad = None  # the fp32 grads are model-sized: free them now
             state["step"].add_(1)
-        return state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
+        return state, {"loss": loss, "grad_norm": gnorm, "lr": lr, **ls_metrics}
 
     return step
+
+
+def _skipped(state: Dict, leaves: Dict[str, torch.Tensor], loss, norm, lr, ls_metrics):
+    """An overflowed fp16 step: the grads of `leaves` are dropped and only
+    the step counter advances (unscale_and_check has stepped the scaler),
+    as the JAX twin's select keeps the old leaves and adds 1 to step."""
+    for p in leaves.values():
+        p.grad = None
+    state["step"].add_(1)
+    return state, {"loss": loss, "grad_norm": norm, "lr": lr, **ls_metrics}
 
 
 def build_channel_warmup_step(cfg: SMTConfig, model_cfg: LlamaConfig) -> Callable:
@@ -347,7 +425,10 @@ def build_channel_warmup_step(cfg: SMTConfig, model_cfg: LlamaConfig) -> Callabl
 # Sparse (post-conversion) step
 # ---------------------------------------------------------------------------
 
-def init_sparse_state(params, trainable, step: int) -> Dict:
+def init_sparse_state(params, trainable, step: int, cfg: Optional[SMTConfig] = None) -> Dict:
+    """Zero Adam moments over the trainables and the step carried over; under
+    fp16 a fresh scaler (the reference rebuilds the whole DeepSpeed engine at
+    conversion, fine_tune.py:379-384)."""
     device = next(iter(trainable.values())).device
     for t in trainable.values():
         t.requires_grad_(True)
@@ -360,6 +441,7 @@ def init_sparse_state(params, trainable, step: int) -> Dict:
               for k, p in trainable.items()},
         "count": torch.zeros((), dtype=torch.int32, device=device),
         "step": torch.full((), int(step), dtype=torch.int32, device=device),
+        **(loss_scaler(cfg, device) if cfg is not None else {}),
     }
 
 
@@ -371,6 +453,7 @@ def build_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan,
     # autograd parity: no backward below the lowest trainable layer
     lowest_layer = min(lp.layer for lp in plan.linears.values())
     adam = block_adam(adam_cfg, lr_scale)
+    use_ls = cfg.dtype == "fp16"
 
     def step(state: Dict, batch: Dict) -> tuple:
         params = state["params"]
@@ -381,15 +464,22 @@ def build_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan,
 
         def loss_of(tr, mb):
             linear = make_sparse_linear_dispatch(plan, tr, impl, qweights=state.get("q"))
-            return compute_loss(params, mb, cfg, model_cfg, linear=linear,
-                                remat=cfg.sparse_remat,
-                                stop_grad_below_layer=lowest_layer, sparse=True,
-                                q_head=state.get("q_head"), dropout_key=key)
+            raw = compute_loss(params, mb, cfg, model_cfg, linear=linear,
+                               remat=cfg.sparse_remat,
+                               stop_grad_below_layer=lowest_layer, sparse=True,
+                               q_head=state.get("q_head"), dropout_key=key)
+            return raw * state["loss_scale"] if use_ls else raw
 
         vag = accumulated_value_and_grad(loss_of, cfg.gradient_accumulation_steps)
         loss, grads = vag(trainable, batch)
         with torch.no_grad():
-            grads, gnorm = clip_by_global_norm(grads, adam_cfg.grad_clip)
+            norm, ls_metrics = None, {}
+            if use_ls:
+                loss, grads, norm, ls_metrics, finite = unscale_and_check(loss, grads, state, cfg)
+                if not finite:  # skipped: trainables, moments, count, dense weights unchanged
+                    return _skipped(state, trainable, loss, norm, lr_sched(state["count"]),
+                                    ls_metrics)
+            grads, gnorm = clip_by_global_norm(grads, adam_cfg.grad_clip, norm=norm)
             lr = lr_sched(state["count"])
             adam(impl, grads, state, trainable, lr)
             del grads
@@ -401,7 +491,7 @@ def build_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan,
             # directly)
             plan.scatter(params["layers"], trainable)
             state["step"].add_(1)
-        return state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
+        return state, {"loss": loss, "grad_norm": gnorm, "lr": lr, **ls_metrics}
 
     return step
 

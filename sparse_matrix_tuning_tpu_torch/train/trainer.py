@@ -252,6 +252,14 @@ class SMTTrainer:
                 metrics = self.train_step(batch)
                 loss = float(metrics["loss"])
                 if not np.isfinite(loss):
+                    if metrics.get("overflow"):
+                        # fp16 dynamic loss scaling: an overflowed step was
+                        # skipped and rescaled, not fatal (DeepSpeed
+                        # semantics); no eval, save or history for it
+                        print_rank_0(
+                            f"[fp16] overflow at step {self.step}, loss scale "
+                            f"-> {float(metrics['loss_scale']) / 2:.0f}")
+                        continue
                     # explicit NaN guard (the reference has no sanitizers)
                     raise FloatingPointError(
                         f"non-finite training loss at step {self.step} "

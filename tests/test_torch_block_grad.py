@@ -47,7 +47,7 @@ def test_block_grad_matches_jax(t, dtype):
     tp.assert_close(got, block_grad_weight(jg, jx, jlp.row_blocks(), jlp.col_blocks()),
                     rtol=tol, atol=tol * 10)
     tp.assert_close(got, _block_grad_weight_xla(jlp, jg, jx), rtol=tol, atol=tol * 10)
-    assert k1.LAUNCHES == 0  # the CPU path launches nothing
+    assert not any(k1.LAUNCHES.values())  # the CPU path launches nothing
 
 
 @pytest.mark.parametrize("blocks", [((0, 0), (0, 1), (1, 0)),

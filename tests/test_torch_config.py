@@ -85,11 +85,12 @@ def test_int8_and_loss_options_construct(flags, want):
 
 
 # ported since the list was written, each with its tests: channel mode
-# (tests/test_torch_channel.py), scan_layers=on, --resume_from and --dropout
-# (tests/test_torch_scan_convert.py, test_torch_checkpoint.py,
-# test_torch_dropout.py): these build and parse as in JAX
+# (tests/test_torch_channel.py), scan_layers=on, --resume_from, --dropout and
+# --dtype fp16 (tests/test_torch_scan_convert.py, test_torch_checkpoint.py,
+# test_torch_dropout.py, test_torch_fp16.py): these build and parse as in JAX
 PORTED = {"channel_sparsity": ["--channel_sparsity"], "scan_layers": ["--scan_layers", "on"],
-          "resume_from": ["--resume_from", "ckpt"], "dropout": ["--dropout", "0.1"]}
+          "resume_from": ["--resume_from", "ckpt"], "dropout": ["--dropout", "0.1"],
+          "dtype": ["--dtype", "fp16"]}
 
 
 @pytest.mark.parametrize("kw", [

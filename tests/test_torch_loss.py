@@ -64,6 +64,30 @@ def test_chunked_loss_and_grads_match_jax(v, chunk):
     tp.assert_close(w.grad, w2.grad, rtol=1e-4, atol=1e-6)
 
 
+def test_chunked_loss_fp16_scaled_matches_jax():
+    """--dtype fp16's warm-up at a large vocabulary: the chunked loss over
+    fp16 hidden states and head, times a loss scale, and its fp16 grads
+    against the JAX twin under jit. Both take fp32 logits from the fp16
+    products; JAX's scan adds each chunk's fp16 grad_h into an fp16 carry,
+    the port sums the chunks in fp32 and rounds once, so grad_h parts by at
+    most one fp16 half-ulp per chunk (4 chunks: 2^-9 of the largest
+    |grad|); grad_head is one product per chunk in both (one rounding)."""
+    hidden, head, labels = _inputs(200, seed=3)
+    scale = 2.0 ** 12
+    loss_j, (gh_j, gw_j) = jax.jit(jax.value_and_grad(
+        lambda h, w: jloss.chunked_causal_lm_loss(h, w, jnp.asarray(labels), 64) * scale,
+        argnums=(0, 1)))(tp.to_jax(hidden, "fp16"), tp.to_jax(head, "fp16"))
+    h = tp.to_torch(hidden, "fp16").requires_grad_()
+    w = tp.to_torch(head, "fp16").requires_grad_()
+    loss = ploss.chunked_causal_lm_loss(h, w, torch.from_numpy(labels), 64) * scale
+    loss.backward()
+    assert h.grad.dtype == w.grad.dtype == torch.float16
+    assert float(loss.detach()) == pytest.approx(float(loss_j), rel=1e-5)
+    tp.assert_close(h.grad, gh_j, rtol=0, atol=2.0 ** -9 * float(np.abs(tp.np32(gh_j)).max()))
+    tp.assert_close(w.grad, gw_j, rtol=2.0 ** -10, atol=2.0 ** -10 * float(
+        np.abs(tp.np32(gw_j)).max()))
+
+
 def test_chunked_loss_all_labels_ignored_is_zero():
     hidden, head, labels = _inputs(128)
     loss = ploss.chunked_causal_lm_loss(tp.to_torch(hidden), tp.to_torch(head),

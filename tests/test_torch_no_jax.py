@@ -62,7 +62,7 @@ def test_explicit_kernel_on_cpu_raises_without_running_plain(monkeypatch):
     linear = sparse_linear.make_sparse_linear_dispatch(plan, {"0.q_proj": blocks}, "kernel")
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         linear(torch.zeros(2, 256), w, "q_proj", 0)
-    assert k1.LAUNCHES == 0
+    assert not any(k1.LAUNCHES.values())
 
 
 def test_sparse_step_with_kernel_impl_on_cpu_raises(monkeypatch):
@@ -117,4 +117,4 @@ def test_int8_path_on_cpu_launches_no_row_quant_kernel():
     hidden = torch.randn(2, 5, 32, requires_grad=True)
     labels = torch.randint(0, 48, (2, 5))
     chunked_causal_lm_loss_q8(hidden, wq, sw, labels, vocab_chunk=16).backward()
-    assert rq.LAUNCHES == 0 and k4.LAUNCHES == {"q8mm_t": 0, "q8mm_g": 0}
+    assert not any(rq.LAUNCHES.values()) and not any(k4.LAUNCHES.values())

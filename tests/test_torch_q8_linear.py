@@ -133,6 +133,29 @@ def test_frozen_q8_linear_matches_jax(planned):
     assert float(x.grad.abs().max()) > 0  # straight-through, not round's zero gradient
 
 
+def test_frozen_q8_linear_fp16_equals_jitted_jax(planned):
+    """--dtype fp16 over the int8 base: the frozen int8 linear's fp16 output
+    and fp16 grad_x (the row quantization of x, and of g * sw in the g form,
+    then K4's plain forms with their fp16 epilogue) equal jax.jit of the
+    JAX linear bit for bit, as its jitted sparse step runs it."""
+    d = planned
+    _, wq_j, sw_j, _ = _jax_side(d)
+
+    @jax.jit
+    def jax_fwd_bwd(x, g):
+        y, vjp = jax.vjp(lambda x_: jsl.frozen_q8_linear(x_, wq_j, sw_j), x)
+        return y, vjp(g)[0]
+
+    y_j, gx_j = jax_fwd_bwd(tp.to_jax(d["x"], "fp16"), tp.to_jax(d["g"], "fp16"))
+    _, wq, sw, _ = _port_side(d)
+    x = tp.to_torch(d["x"], "fp16").requires_grad_()
+    y = psl.frozen_q8_linear(x, wq, sw)
+    y.backward(tp.to_torch(d["g"], "fp16"))
+    assert y.dtype == x.grad.dtype == torch.float16
+    np.testing.assert_array_equal(tp.np32(y), tp.np32(y_j))
+    np.testing.assert_array_equal(tp.np32(x.grad), tp.np32(gx_j))
+
+
 def test_dispatch_routes_q8(planned):
     """Planned linears take the block-corrected q8 path, unplanned quantized
     ones the plain q8 path (the dense weight, a placeholder, is not read),

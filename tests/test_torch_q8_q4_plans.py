@@ -81,11 +81,12 @@ def test_k4_validation_refusals():
     for args, err in cases:
         with pytest.raises(err):
             k4._validate("q8mm_t", *args, torch.bfloat16, args[2].shape[1], args[2].shape[0])
+    k4._validate("q8mm_t", *ok, torch.float16, 64, 32)  # the fp16 epilogue
     with pytest.raises(TypeError):
-        k4._validate("q8mm_t", *ok, torch.float16, 64, 32)
+        k4._validate("q8mm_t", *ok, torch.float64, 64, 32)
     with pytest.raises(ValueError):  # the g form: the weight's row length a multiple of 16
         k4._validate("q8mm_g", i8(8, 32), f32(8, 1), i8(32, 40), None, torch.bfloat16, 32, 40)
-    assert k4.LAUNCHES == {"q8mm_t": 0, "q8mm_g": 0}
+    assert not any(k4.LAUNCHES.values())
 
 
 def test_k6_plan_invariants_and_split_ranges():

@@ -33,7 +33,7 @@ def _int8(x) -> np.ndarray:
 # quantization: equal int8 values and scales
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "fp16"])
 @pytest.mark.parametrize("shape", [(16, 64), (3, 5, 96), (7, 256)])
 def test_row_quant_equals_jax(shape, dtype):
     x = tp.seeded_normal(shape, seed=1, scale=0.3)
@@ -107,7 +107,7 @@ def tile_data():
     return x, w
 
 
-@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("dtype", ["bf16", "fp32", "fp16"])
 def test_k4_plain_equals_pallas_kernel_interpret(tile_data, dtype):
     """K4's plain version against the JAX Pallas kernels in interpret mode:
     the int32 accumulation is exact and the epilogue is the same fp32
@@ -160,7 +160,7 @@ def test_k4_and_k5_wrappers_refuse_devices_without_a_kernel():
     sched = k5.correction_schedule([0], [0], "meta")
     with pytest.raises(ValueError, match="no kernel"):
         k5.block_correction(out, out, torch.empty((1, 256, 256), device="meta"), sched)
-    assert k4.LAUNCHES == {"q8mm_t": 0, "q8mm_g": 0} and k5.LAUNCHES == 0
+    assert not any(k4.LAUNCHES.values()) and not any(k5.LAUNCHES.values())
 
 
 # ---------------------------------------------------------------------------

@@ -42,7 +42,7 @@ def _ties(x, sw, sx):
     return int((np.abs(np.modf(v / sx)[0]) == 0.5).sum())
 
 
-@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("dtype", ["bf16", "fp32", "fp16"])
 @pytest.mark.parametrize("t,k", [(64, 256), (37, 100)])
 def test_fold_quantization_equals_jitted_jax(t, k, dtype):
     """The g form: row_quant(g * sw) equals jax.jit of the JAX twin's
@@ -58,7 +58,7 @@ def test_fold_quantization_equals_jitted_jax(t, k, dtype):
     assert _ties(x, sw, np.asarray(sx_j)) > 0
 
 
-@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("dtype", ["bf16", "fp32", "fp16"])
 def test_ties_round_half_to_even_as_jitted_jax(dtype):
     """row_quant over rows built on .5 ties: the same values as jax.jit."""
     x, _ = _rows(48, 128, dtype, seed=3, fold=False)
@@ -71,7 +71,7 @@ def test_ties_round_half_to_even_as_jitted_jax(dtype):
 
 
 @pytest.mark.parametrize("fold", [False, True])
-@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("dtype", ["bf16", "fp32", "fp16"])
 def test_nan_and_inf_rows_as_jitted_jax(dtype, fold):
     """A NaN in a row makes its scale NaN and an inf makes it inf, and the
     row's int8 values 0, as jax.jit of the JAX twin gives them (the card's
@@ -115,7 +115,7 @@ def test_row_quant_refusals():
         rq.row_quant(torch.empty((4, 32), dtype=torch.bfloat16, device="meta"))
     bad = [
         (torch.zeros((4, 32), dtype=torch.int8), None, TypeError),
-        (torch.zeros((4, 32), dtype=torch.float16), None, TypeError),
+        (torch.zeros((4, 32), dtype=torch.float64), None, TypeError),
         (torch.zeros((2, 4, 32)), None, ValueError),
         (torch.zeros((32, 4)).t(), None, ValueError),
         (torch.zeros((4, 32)), torch.ones(31), ValueError),
@@ -126,4 +126,5 @@ def test_row_quant_refusals():
         with pytest.raises(err):
             rq._validate(x, sw)
     rq._validate(torch.zeros((4, 32), dtype=torch.bfloat16), torch.ones(32))
-    assert rq.LAUNCHES == 0
+    rq._validate(torch.zeros((4, 32), dtype=torch.float16), torch.ones(32))
+    assert not any(rq.LAUNCHES.values())

@@ -17,11 +17,12 @@ from sparse_matrix_tuning_tpu_torch.ops.sparse_linear import (
 from sparse_matrix_tuning_tpu_torch.smt.plan import BLOCK, LinearPlan, SMTPlan
 
 BLOCKS = ((0, 1), (2, 0), (1, 1))
-# fp32: the JAX suite's fp32 block-grad tolerance; bf16: its bf16 one
-TOL = {"fp32": (1e-5, 1e-4), "bf16": (2e-2, 2e-1)}
+# fp32: the JAX suite's fp32 block-grad tolerance; bf16: its bf16 one, which
+# also holds fp16
+TOL = {"fp32": (1e-5, 1e-4), "bf16": (2e-2, 2e-1), "fp16": (2e-2, 2e-1)}
 
 
-@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "fp16"])
 def test_smt_linear_matches_jax_vjp(dtype):
     out_dim, in_dim = 3 * BLOCK, 2 * BLOCK
     w_np = tp.seeded_normal((out_dim, in_dim), 0, 0.05)

@@ -25,8 +25,10 @@ from sparse_matrix_tuning_tpu_torch.ops.cuda import correction as k5
 
 N_SM = 132
 BLOCK = 256
-K1_TOL = {"fp32": (1e-5, 1e-4), "bf16": (2e-2, 2e-1)}  # the JAX suite's (rtol, atol)
-K5_TOL = {"fp32": (1e-5, 1e-5), "bf16": (2.0 ** -7, 1e-4)}  # chip_smoke.py's K5_TOL
+# the JAX suite's (rtol, atol); fp16 held to the bf16 one
+K1_TOL = {"fp32": (1e-5, 1e-4), "bf16": (2e-2, 2e-1), "fp16": (2e-2, 2e-1)}
+# chip_smoke.py's K5_TOL: one rounding of the output apart (fp16: 2^-10)
+K5_TOL = {"fp32": (1e-5, 1e-5), "bf16": (2.0 ** -7, 1e-4), "fp16": (2.0 ** -10, 1e-4)}
 cdiv = lambda a, b: -(-a // b)
 
 # (T, n blocks) -> (bm, splits, grid). Run A: bs 4 x seq 512 = 2048 tokens
@@ -88,7 +90,7 @@ def _k1_case(t, dtype, seed):
     return jlp, g, x, rb, cb
 
 
-@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "fp16"])
 @pytest.mark.parametrize("t", [512, 700])
 @pytest.mark.parametrize("splits", [1, 2, 3, 5])
 def test_k1_split_order_model_matches_plain_and_jax(splits, t, dtype):
@@ -180,7 +182,7 @@ def _k5_close(got, want, dtype):
         float(np.abs(got - want).max())
 
 
-@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "fp16"])
 @pytest.mark.parametrize("t", [64, 37, 130])
 @pytest.mark.parametrize("transpose", [True, False], ids=["Dt", "D"])
 def test_k5_order_model_matches_plain_and_jax(transpose, t, dtype):
@@ -226,7 +228,8 @@ def test_k1_validation_refusals():
     ok = (bf(64, 512), bf(64, 256), i32(0, 1), i32(0, 0))
     k1._validate(*ok)
     cases = [
-        ((bf(64, 512).half(), bf(64, 256).half(), i32(0), i32(0)), TypeError),   # fp16
+        ((bf(64, 512).double(), bf(64, 256).double(), i32(0), i32(0)), TypeError),  # fp64
+        ((bf(64, 512).half(), bf(64, 256), i32(0), i32(0)), TypeError),          # fp16 + bf16
         ((bf(64, 512), bf(64, 256).float(), i32(0), i32(0)), TypeError),        # mixed
         ((bf(64, 500), bf(64, 256), i32(0), i32(0)), ValueError),                # O % 256
         ((bf(64, 512), bf(63, 256), i32(0), i32(0)), ValueError),                # T differs
@@ -242,7 +245,10 @@ def test_k1_validation_refusals():
     for bm, splits in ((96, 1), (128, 0), (128, 2), (64, 5)):  # T 64: one chunk
         with pytest.raises(ValueError, match="splits"):
             k1._launch(g2, x2, rb, cb, bm, splits)
-    assert k1.LAUNCHES == 0
+        with pytest.raises(ValueError, match="splits"):  # the fp16 body takes the same plans
+            k1._launch(g2.half(), x2.half(), rb, cb, bm, splits)
+    k1._validate(g2.half(), x2.half(), rb, cb)
+    assert not any(k1.LAUNCHES.values())
 
 
 def test_k5_validation_refusals():
@@ -252,7 +258,8 @@ def test_k5_validation_refusals():
     k5._validate(*ok, sched)
     cases = [
         ((bf(64, 512), bf(64, 512).float(), bf(2, 256, 256)), TypeError),        # mixed
-        ((bf(64, 512).half(), bf(64, 512).half(), bf(2, 256, 256).half()), TypeError),
+        ((bf(64, 512).half(), bf(64, 512).half(), bf(2, 256, 256)), TypeError),  # fp16 + bf16
+        ((bf(64, 512).double(), bf(64, 512).double(), bf(2, 256, 256).double()), TypeError),
         ((bf(64, 512), bf(63, 512), bf(2, 256, 256)), ValueError),               # T differs
         ((bf(64, 500), bf(64, 512), bf(2, 256, 256)), ValueError),               # O % 256
         ((bf(64, 512), bf(64, 512), bf(3, 256, 256)), ValueError),               # n differs
@@ -266,7 +273,10 @@ def test_k5_validation_refusals():
     for bm, bn in ((128, 128), (64, 32), (256, 256)):
         with pytest.raises(ValueError, match="tiles"):
             k5._launch(*ok, sched, True, bm, bn)
-    assert k5.LAUNCHES == 0
+        with pytest.raises(ValueError, match="tiles"):  # the fp16 body's tile shapes
+            k5._launch(*(t.half() for t in ok), sched, True, bm, bn)
+    k5._validate(*(t.half() for t in ok), sched)
+    assert not any(k5.LAUNCHES.values())
 
 
 def test_k1_k5_bf16_bodies_are_wgmma_fed_by_tma():

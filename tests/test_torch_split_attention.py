@@ -231,6 +231,32 @@ def test_dkdv_partials_and_reduce_equal_plain_and_jax(g, partitions):
         assert not torch.allclose(ws[0, 1:].sum(0), dk_ref, rtol=1e-3, atol=1e-3)
 
 
+@pytest.mark.parametrize("g,partitions", [(8, 2), (8, 8)])
+def test_dkdv_partials_fp16_equal_plain_and_jax(g, partitions):
+    """The fp16 path of dK/dV over q-head partitions (the fp16 kernel takes
+    the bf16 planner's P): the partials reduced into fp16 against the plain
+    fp16 backward and the JAX Pallas kernel's fp16 gradients (interpret
+    mode), at the bf16 gradient tolerance of tests/test_torch_attention.py."""
+    q, k, v, do = (torch.from_numpy(a).half() for a in _k3_inputs(g))
+    sm = 1.0 / math.sqrt(HD)
+    o, lse = k3.attn_fwd_plain(q, k, v, sm)
+    delta = k3.attn_bwd_delta_plain(o, do)
+    ws = k3.attn_bwd_dkdv_partials(q, k, v, do, lse, delta, sm, partitions)
+    dk, dv = k3.attn_bwd_dkdv_reduce(ws, torch.float16)
+    assert dk.dtype == dv.dtype == torch.float16
+    dk_ref, dv_ref = k3.attn_bwd_dkdv_plain(q, k, v, do, lse, delta, sm)
+    torch.testing.assert_close(dk, dk_ref, rtol=2.0 ** -10, atol=1e-3)
+    torch.testing.assert_close(dv, dv_ref, rtol=2.0 ** -10, atol=1e-3)
+    qj, kj, vj = (jnp.asarray(a, jnp.float16) for a in _k3_inputs(g)[:3])
+    w = _k3_inputs(g)[3]
+
+    def loss(k_, v_):
+        return jnp.sum(jax_fullk(qj, k_, v_, sm).astype(jnp.float32) * w)
+    jdk, jdv = jax.grad(loss, argnums=(0, 1))(kj, vj)
+    np.testing.assert_allclose(dk.float().numpy(), np.asarray(jdk, np.float32), 4e-2, 4e-1)
+    np.testing.assert_allclose(dv.float().numpy(), np.asarray(jdv, np.float32), 4e-2, 4e-1)
+
+
 def test_reduce_sums_in_partition_order_and_casts():
     ws = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 3, 1, 4, 2, 64))
                           .astype(np.float32))

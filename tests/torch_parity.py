@@ -17,8 +17,8 @@ from sparse_matrix_tuning_tpu_torch.models.from_jax import params_from_jax
 # the tier-1 suite runs many pytest workers; one intra-op thread each
 torch.set_num_threads(1)
 
-JAX_DTYPES = {"fp32": jnp.float32, "bf16": jnp.bfloat16}
-TORCH_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+JAX_DTYPES = {"fp32": jnp.float32, "bf16": jnp.bfloat16, "fp16": jnp.float16}
+TORCH_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "fp16": torch.float16}
 
 
 def seeded_normal(shape, seed: int, scale: float = 1.0) -> np.ndarray:
