@@ -123,7 +123,20 @@ Phases, in order; any failure raises and the exit code is non-zero:
      {output_dir}/ckpt; R2 the same in J's layout (channel int8 scan state),
      stopped once at step 4. Losses, eval loss and every state leaf equal
      the straight run's bit for bit; no K3 launch in a training step under
-     dropout.
+     dropout;
+ 12. data parallelism (after D; `--only dp` runs the build, A, D1 and
+     these): P0, two gloo ranks on cuda:0 against one process at the same
+     global batch, tiny fp32, dense and over --frozen_quant int8, rank 1's
+     rows thinned to 4 labels each (thin_rows), losses within P0_RTOL /
+     P0_INT8_RTOL and the dense pair's grad norms within P0_RTOL every
+     step, equal fingerprints; P, A's
+     path over two gloo ranks at A's global batch, losses within
+     P_VS_A_RTOL and warm-up grad norms within P_GNORM_RTOL of A's, the
+     ranks' master / m / v and trainables / m / v bit-equal, MB and ms
+     all-reduced per step, the blocks where P's plan leaves A's with their
+     scores (log_selection_margin); PE, the eval harness split by rank
+     stride over A's export, tokens equal D1's; PN, NCCL: one rank (two
+     on a two-card machine), bucketed sums exact, one step.
 Before the references, K6 (the int4 unpack-matmul) runs at eight shapes
 (K6_SHAPES: the TinyLlama linears at the eval decode's 64 rows, 16 and a
 ragged 7, Llama-3-8B's gate) and on the layer views of a stack (K6s),
@@ -1948,12 +1961,34 @@ def synthetic_sft(n, seq, vocab, seed):
     return SFTDataset(ids, labels)
 
 
+def thin_rows(batch, rows, keep=4):
+    """The global batch with all but the first `keep` valid labels of
+    `rows` masked: those rows then count a few tokens against the other
+    rows' full counts (P0's uneven ranks)."""
+    import numpy as np
+    from sparse_matrix_tuning_tpu_torch.data.sft import IGNORE_INDEX
+    labels = np.array(batch["labels"], copy=True)
+    for i in rows:
+        labels[i, np.flatnonzero(labels[i] != IGNORE_INDEX)[keep:]] = IGNORE_INDEX
+    return {**batch, "labels": labels}
+
+
+def block_scores(cfg, acc):
+    """Each target linear's 256 x 256 block scores as matrix selection
+    reads them (train/convert.compute_matrix_selection), on the host."""
+    from sparse_matrix_tuning_tpu_torch.smt.select import block_stats, block_stats_final
+    from sparse_matrix_tuning_tpu_torch.train.convert import _to_numpy, harvest_strategy
+    final = block_stats_final if cfg.saliency_accumulation == "per_step_stats" else block_stats
+    return {ks: _to_numpy(final(g, harvest_strategy(cfg, ks.split(".", 1)[1])))
+            for ks, g in acc.items()}
+
+
 def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
                   full_ft_steps=3, sparse_steps=4, eval_batches=2,
                   ratios=(0.0084, 0.0084), attn_impl="auto", out_dir=None, log_fn=log,
                   keep_decode_params=False, frozen_quant="none", loss_impl="auto",
                   count_syncs=False, mode="matrix", keep_state=False, decode_leg=False,
-                  cfg_extra=None):
+                  cfg_extra=None, mesh=None, thin=()):
     """SMTTrainer.fit through warm-up -> conversion -> sparse -> eval ->
     final export, with per-phase step times and peak memory; mode "matrix"
     (the block ratios) or "channel" (--channel_sparsity at the CLI's 30
@@ -1976,7 +2011,17 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
     leg over the trained scan state, last. cfg_extra: more SMTConfig fields
     (init_loss_scale, scan_layers). Under fp16 each step's loss scale and
     overflow flag are kept ("loss_scale", "overflow"; a step whose loss
-    overflowed is skipped by fit and not among them)."""
+    overflowed is skipped by fit and not among them). mesh: this process is
+    a data-parallel rank (parallel/mesh.py; bs is per rank, the data from
+    the global batch size): each step's all-reduced bytes and ms are kept
+    ("reduced_bytes", "reduce_ms"), the ranks' master, m and v must be bit
+    for bit equal after the warm-up and the trainables, m and v after fit
+    ("checksums" holds the leaves compared), and the per-layer int8 base
+    keeps its dense weights on the device, as JAX's rule has it. thin:
+    rows of every global training batch that keep only 4 valid labels
+    (thin_rows). The warm-up steps' grad norms are kept
+    ("warmup_grad_norm"), and in matrix mode the block scores selection
+    read ("block_scores") and the blocks it chose ("selected")."""
     import numpy as np
     import torch
     from sparse_matrix_tuning_tpu_torch.config import SMTConfig
@@ -2003,8 +2048,9 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
         attn_impl=attn_impl, output_dir=out_dir, frozen_quant=frozen_quant,
         loss_impl=loss_impl, **(cfg_extra or {}))
     n_steps = full_ft_steps + sparse_steps
-    train_ds = synthetic_sft(n_steps * bs, seq, model_cfg.vocab_size, 1)
-    eval_ds = synthetic_sft(eval_batches * bs, seq, model_cfg.vocab_size, 2)
+    global_bs = bs * (mesh.data if mesh is not None else 1)
+    train_ds = synthetic_sft(n_steps * global_bs, seq, model_cfg.vocab_size, 1)
+    eval_ds = synthetic_sft(eval_batches * global_bs, seq, model_cfg.vocab_size, 2)
 
     def sync():
         if cuda:
@@ -2020,14 +2066,26 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
     t0 = time.time()
     params = init_params(model_cfg, seed=0, dtype=cfg.param_dtype, device=device)
     n_params = sum(p.numel() for p in flatten_tree(params).values())
-    trainer = SMTTrainer(cfg, model_cfg, params, total_steps=n_steps, device=device)
+    trainer = SMTTrainer(cfg, model_cfg, params, total_steps=n_steps, device=device,
+                         **({"mesh": mesh} if mesh is not None else {}))
     del params
+    if thin:
+        step_of = trainer.train_step
+        trainer.train_step = lambda batch: step_of(thin_rows(batch, thin))
     sync()
     log_fn(f"[main] {n_params:,} params, init + trainer {time.time() - t0:.1f} s, "
            f"saliency_accumulation={cfg.saliency_accumulation}")
 
     summary = {"n_params": n_params, "step_ms": [], "phase": [], "loss": [], "grad_norm": [],
-               "peak": {}, "loss_scale": [], "overflow": []}
+               "warmup_grad_norm": [], "peak": {}, "loss_scale": [], "overflow": [],
+               "reduced_bytes": [], "reduce_ms": [], "checksums": 0}
+    reduced = {"bytes": 0, "seconds": 0.0}  # at the last step's end
+
+    def same_replicas(what, keys):
+        from sparse_matrix_tuning_tpu_torch.parallel.mesh import assert_same, leaf_checksums
+        leaves = flatten_tree({k: trainer.state[k] for k in keys})
+        assert_same(f"{what}: the leaf checksums", leaf_checksums(leaves), mesh)
+        summary["checksums"] += len(leaves)
     summary["loss_path"] = {
         phase: "chunked" if _use_chunked_loss(cfg, model_cfg, sparse=sparse,
                                               batch_tokens=bs * (seq - 1)) else "full"
@@ -2039,16 +2097,26 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
     def on_metrics(step, metrics):
         t_enter = time.perf_counter()
         summary["step_ms"].append((t_enter - marks["exit"]) * 1e3)
+        if mesh is not None:
+            summary["reduced_bytes"].append(mesh.stats["bytes"] - reduced["bytes"])
+            summary["reduce_ms"].append((REDUCE_S[0] - reduced["seconds"]) * 1e3)
+            reduced.update(bytes=mesh.stats["bytes"], seconds=REDUCE_S[0])
         summary["phase"].append(trainer.phase)
         summary["loss"].append(float(metrics["loss"]))
         if trainer.phase == "sparse":
             summary["grad_norm"].append(float(metrics["grad_norm"]))
+        elif "grad_norm" in metrics:
+            summary["warmup_grad_norm"].append(float(metrics["grad_norm"]))
         if "loss_scale" in metrics:
             summary["loss_scale"].append(float(metrics["loss_scale"]))
             summary["overflow"].append(bool(metrics["overflow"]))
         if step == full_ft_steps:
             summary["peak"]["warmup"] = peak_and_reset()
             summary["launches_warmup"] = launches()
+            if "acc" in trainer.state:
+                summary["block_scores"] = block_scores(cfg, trainer.state["acc"])
+            if mesh is not None:
+                same_replicas("after the warm-up", ("master", "m", "v"))
             # dense weights at conversion: the master cast to the param dtype
             at_conversion = trainer.merged_params()
             snap["params"] = {li: {m: w.to("cpu") for m, w in layer.items()}
@@ -2070,9 +2138,14 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
     peak_and_reset()
     sync()
     marks["exit"] = time.perf_counter()
+    if mesh is not None:
+        mesh.reset_stats()
+        REDUCE_S[0] = 0.0
     history = trainer.fit(train_ds, eval_ds, pad_token_id=0, on_metrics=on_metrics)
     sync()
     t_fit_end = time.perf_counter()
+    if mesh is not None:
+        same_replicas("after fit", ("trainable", "m", "v"))
     summary["launches"] = launches()
     summary["eval_and_export_s"] = t_fit_end - marks["exit"]
     summary["peak"]["eval_and_export"] = peak_and_reset()
@@ -2090,13 +2163,19 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
         lp.n_blocks for lp in plan.linears.values()), "channels": sum(
         lp.n_channels for lp in plan.linears.values()),
         "trainable_params": plan.trainable_params, "fingerprint": plan.fingerprint()}
+    summary["selected"] = sorted((f"{lp.layer}.{lp.module}", rb, cb)
+                                 for lp in plan.linears.values() for rb, cb in lp.blocks)
 
     # int8 frozen base with host offload: no dense (O, I) layer weight and
     # no head is left on the device, only their 1-element placeholders (over
     # the scan state: (L, 1) stacks, the host store holding every stack)
     summary["offloaded"] = None
     summary["scan"] = trainer._scan
-    if frozen_quant == "int8":
+    if frozen_quant == "int8" and mesh is not None and not trainer._scan:
+        if trainer._host_frozen is not None or "q" not in trainer.state:
+            raise AssertionError("a rank's per-layer int8 base offloaded its dense weights or "
+                                 "has no int8 base")
+    elif frozen_quant == "int8":
         if trainer._scan:
             stacked = trainer.state["params"]["layers_stacked"]
             dense = [m for m in LAYER_LINEARS if tuple(stacked[m].shape) != (
@@ -3563,6 +3642,372 @@ def run_resume(model_cfg, *, mode="matrix", frozen_quant="none", dropout=0.1, fu
     return summary
 
 
+# ---------------------------------------------------------------------------
+# data parallelism (--mesh_shape D,1,1): P, P0, PE over gloo ranks sharing
+# the card, PN over NCCL
+# ---------------------------------------------------------------------------
+
+# P against A at the same global batch (bs 2 x 2 ranks = A's bs 4): bf16 on
+# both, the ranks' products at half A's rows and the grads summed in
+# another order. Losses: the prediction written before the first run
+# (PERF.md, section 6; measured 9.0e-5). Warm-up grad norms (taken before
+# the clip, so a reduce that drops a rank or averages where it must sum
+# moves them by 30-50%, which Adam's update would hide from the losses):
+# stated before their first run.
+P_VS_A_RTOL = 1e-3
+P_GNORM_RTOL = 5e-2
+# P0 (tiny, fp32) against one process: JAX's own mesh bound
+# (tests/test_sharding.py:55) on the losses and every step's grad norm,
+# and the int8 bound on the losses over the int8 base (there a last-bit
+# difference flips an int8 rounding, and the sparse steps' grad norms
+# drift by ~1e-3 against one process: they are reported, not held).
+# Rank 1's rows (2 and 3 of each global batch of 4) keep 4 valid labels
+# each against rank 0's tens, so dividing by each rank's own count (DDP's
+# mean of per-rank means, B1 reverted) moves the dense pair's losses by
+# ~5e-3 and its grad norms by ~0.7, far outside the bound.
+P0_RTOL, P0_INT8_RTOL = 2e-4, 1e-3
+P0_KW = dict(dtype="fp32", seq=64, full_ft_steps=2, sparse_steps=4, eval_batches=1,
+             ratios=(0.05, 0.05), log_fn=lambda m: None, thin=(2, 3))
+PE_PROMPTS = 16
+DP_TIMEOUT_S = 600  # a collective that waits longer fails the rank
+REDUCE_S = [0.0]  # a rank's seconds in dist.all_reduce, between device syncs (_time_all_reduce)
+
+
+def _time_all_reduce():
+    """Wrap torch.distributed.all_reduce in this rank so that each call is
+    timed between two device syncs into REDUCE_S: the all-reduce's own
+    time, whatever the backend does asynchronously."""
+    import torch
+    import torch.distributed as dist
+    orig = dist.all_reduce
+
+    def timed(tensor, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(tensor, *args, **kw)
+        torch.cuda.synchronize()
+        REDUCE_S[0] += time.perf_counter() - t0
+        return out
+
+    dist.all_reduce = timed
+
+
+def _rank_setup():
+    import torch
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from sparse_matrix_tuning_tpu_torch.ops.cuda import _build
+    _build.load()  # built by the parent before the spawn
+
+
+def _gloo_takes_cuda(rank, world):
+    """Whether this torch's gloo backend takes CUDA tensors for all_reduce
+    and broadcast (with the right values), or the error it raised."""
+    import torch
+    import torch.distributed as dist
+    try:
+        t = torch.full((1024,), float(rank + 1), device="cuda")
+        dist.all_reduce(t)
+        b = torch.full((8,), float(rank), device="cuda", dtype=torch.bfloat16)
+        dist.broadcast(b, src=0)
+        ok = bool((t == world * (world + 1) / 2).all()) and bool((b == 0).all())
+        return {"ok": ok, "error": None if ok else "wrong values"}
+    except Exception as e:  # reported, not staged through the host
+        return {"ok": False, "error": f"{type(e).__name__}: {e}"}
+
+
+def _pe_job(mesh, export_dir):
+    """PE: the eval harness over A's export, the prompts split by rank
+    stride (run_dataset_eval with the mesh), D1's settings."""
+    import numpy as np
+    import torch
+    from sparse_matrix_tuning_tpu_torch.eval.generate import GenerationConfig
+    from sparse_matrix_tuning_tpu_torch.eval.harness import make_generate_fn, run_dataset_eval
+    from sparse_matrix_tuning_tpu_torch.models.hf_io import load_hf_params
+    from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
+    cfg = LlamaConfig(**TINYLLAMA)
+    params = load_hf_params(export_dir, cfg, dtype=torch.bfloat16, device=mesh.device)
+    tok = StandInTokenizer(cfg.vocab_size)
+    examples = synthetic_eval_examples(PE_PROMPTS, tok, seed=11)
+    gen = GenerationConfig(max_new_tokens=256, num_beams=4, repetition_penalty=1.1,
+                           eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id,
+                           cache_dtype="bfloat16")
+    fn = make_generate_fn(params, cfg, tok, gen, batch_size=16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_dataset_eval("boolq", examples, fn, mesh=mesh)
+    torch.cuda.synchronize()
+    return {"tokens": np.concatenate(tok.decoded), "launches": launches(),
+            "outputs": [p["raw_output"] for p in res["predictions"]],
+            "wall_s": time.perf_counter() - t0,
+            "peak_gib": torch.cuda.max_memory_allocated() / 1024 ** 3}
+
+
+def dp_rank(rank, world, port, jobs, out_dir):
+    """One gloo rank on cuda:0 (torch.multiprocessing spawn target): the
+    CUDA-tensor check, then each job of `jobs` over one (world, 1, 1) mesh:
+    ("P0", frozen_quant) the tiny fp32 pair, ("P", layers) TinyLlama as run
+    A at bs 2 a rank, ("PE", export_dir) the rank-split eval. Writes
+    {out_dir}/dp.{rank}.pt."""
+    import torch
+    import torch.distributed as dist
+    _rank_setup()
+    from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
+    from sparse_matrix_tuning_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    device = init_distributed(torch.device("cuda", 0), backend="gloo",
+                              init_method=f"tcp://localhost:{port}", rank=rank,
+                              world_size=world, timeout_s=DP_TIMEOUT_S)
+    out = {"backend": dist.get_backend(), "gloo_cuda": _gloo_takes_cuda(rank, world)}
+    if not out["gloo_cuda"]["ok"]:
+        raise RuntimeError(f"rank {rank}: gloo does not take CUDA tensors on this torch: "
+                           f"{out['gloo_cuda']['error']}")
+    mesh = make_mesh((world, 1, 1), device=device)
+    _time_all_reduce()
+    for tag, arg in jobs:
+        t0 = time.time()
+        if tag == "P0":
+            s = run_main_path(LlamaConfig.tiny(vocab_size=512), device, bs=2, mesh=mesh,
+                              frozen_quant=arg, **P0_KW)
+        elif tag == "P":
+            cfg = LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": arg})
+            s = run_main_path(cfg, device, bs=2, mesh=mesh,
+                              log_fn=(lambda m: log(f"[P rank {rank}] {m}")))
+        else:
+            s = _pe_job(mesh, arg)
+        s["seconds"] = time.time() - t0
+        out[f"{tag}:{arg}"] = s
+        torch.cuda.empty_cache()
+    torch.save(out, os.path.join(out_dir, f"dp.{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def pn_rank(rank, world, port, out_dir):
+    """PN: NCCL, one rank a card: init, a bucketed all-reduce (fp32 under
+    and over the cap, bf16, int32) whose sums must be exact, then one tiny
+    fp32 warm-up step at a global batch of 4 rows, held against the same
+    step in one process (world 1: bit for bit, the one rank's all-reduce
+    being the identity)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    _rank_setup()
+    from sparse_matrix_tuning_tpu_torch.config import SMTConfig
+    from sparse_matrix_tuning_tpu_torch.data.sft import batch_iterator
+    from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig, init_params
+    from sparse_matrix_tuning_tpu_torch.parallel import mesh as mesh_mod
+    from sparse_matrix_tuning_tpu_torch.parallel.mesh import (
+        all_reduce_, init_distributed, leaf_checksums, make_mesh)
+    from sparse_matrix_tuning_tpu_torch.train.trainer import SMTTrainer
+    t0 = time.time()
+    device = init_distributed(torch.device("cuda", rank), backend="nccl",
+                              init_method=f"tcp://localhost:{port}", rank=rank,
+                              world_size=world, timeout_s=DP_TIMEOUT_S)
+    mesh = make_mesh((world, 1, 1), device=device)
+    init_s = time.time() - t0
+    mesh_mod.BUCKET_MIB = 1  # this rank's process only: several buckets
+    want = world * (world + 1) // 2
+    ts = [torch.full((n,), rank + 1, dtype=dt, device=device) for n, dt in (
+        (1000, torch.float32), (300_000, torch.float32), (4096, torch.bfloat16),
+        (77, torch.int32), (5, torch.float32))]
+    all_reduce_(ts, mesh)
+    buckets = {"calls": mesh.stats["calls"], "bytes": mesh.stats["bytes"]}
+    if not all(bool((t == want).all()) for t in ts):
+        raise AssertionError(f"PN rank {rank}: NCCL bucket all-reduce sums are wrong")
+    tiny = LlamaConfig.tiny(vocab_size=512)
+    cfg = dict(data_path=["synthetic"], model_name_or_path="random-init", dtype="fp32",
+               matrix_sparsity=True, full_ft_steps=2, downsample_attention_blocks_ratio=0.05,
+               downsample_mlp_blocks_ratio=0.05, max_seq_len=64, seq_buckets=[64], seed=1234,
+               eval_step=0, save_steps=0)
+    batch = next(batch_iterator(synthetic_sft(4, 64, tiny.vocab_size, 1), 4, 0, [64], 1234, 0))
+
+    def one_step(m):
+        params = init_params(tiny, seed=0, dtype=torch.float32, device=device)
+        trainer = SMTTrainer(SMTConfig(**cfg, mesh_shape=[world, 1, 1] if m else None), tiny,
+                             params, total_steps=2, device=device,
+                             **({"mesh": m} if m else {}))
+        loss = float(trainer.train_step(batch)["loss"])
+        return loss, leaf_checksums({k: v for k, v in trainer.state["master"]["layers"]["0"]
+                                    .items()})
+
+    loss, sums = one_step(mesh)
+    out = {"backend": dist.get_backend(), "world": world, "init_s": init_s, "buckets": buckets,
+           "loss": loss}
+    if rank == 0:
+        ref_loss, ref_sums = one_step(None)
+        out["ref_loss"] = ref_loss
+        if world == 1 and (loss != ref_loss or sums != ref_sums):
+            raise AssertionError(f"PN: the one NCCL rank's step differs from one process's: "
+                                 f"loss {loss} vs {ref_loss}")
+        np.testing.assert_allclose(loss, ref_loss, rtol=P0_RTOL)
+    torch.save(out, os.path.join(out_dir, f"pn.{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _spawn(fn, world, *args):
+    import torch
+    import torch.multiprocessing as mp
+    from sparse_matrix_tuning_tpu_torch.parallel.mesh import free_port
+    out_dir = tempfile.mkdtemp(prefix="smoke_dp_", dir=os.path.join(REPO, "build"))
+    torch.cuda.empty_cache()
+    mp.spawn(fn, args=(world, free_port(), *args, out_dir), nprocs=world, join=True)
+    got = [torch.load(os.path.join(out_dir, f"{fn.__name__[:2]}.{r}.pt"), weights_only=False)
+           for r in range(world)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return got
+
+
+def log_selection_margin(run_a, run_p):
+    """Where P's plan leaves A's: each block that one selected and the
+    other did not, with its score in both runs, beside the score of the
+    last block A selected in that group (attention or MLP) and how far
+    P's scores sit from A's over A's selected blocks (a swap inside that
+    spread is a near-tie, not a wrong reduction)."""
+    import numpy as np
+    from sparse_matrix_tuning_tpu_torch.models.llama import ATTN_TARGETS
+    a_sel, p_sel = set(run_a["selected"]), set(run_p["selected"])
+    if a_sel == p_sel:
+        log(f"[P] selection: the same {len(a_sel)} blocks as A's")
+        return
+    sa, sp = run_a["block_scores"], run_p["block_scores"]
+
+    def group(ks):
+        return "attention" if ks.split(".", 1)[1] in ATTN_TARGETS else "mlp"
+
+    spread = np.array([abs(sp[k][r, c] - sa[k][r, c]) / sa[k][r, c] for k, r, c in a_sel])
+    lines = []
+    for k, r, c in sorted(a_sel ^ p_sel):
+        last = min(sa[kk][rr, cc] for kk, rr, cc in a_sel if group(kk) == group(k))
+        lines.append(f"{k} ({r},{c}) {'A only' if (k, r, c) in a_sel else 'P only'}: A "
+                     f"{sa[k][r, c]:.6e}, P {sp[k][r, c]:.6e}; A's last {group(k)} block "
+                     f"{last:.6e}, rel gap {abs(sa[k][r, c] - last) / last:.2e}")
+    log(f"[P] selection: {len(a_sel ^ p_sel) // 2} of {len(a_sel)} blocks swapped; P's "
+        f"scores of A's selected blocks sit within {np.median(spread):.2e} (median) / "
+        f"{spread.max():.2e} (max) of A's; " + "; ".join(lines))
+
+
+def run_data_parallel(run_a, d1, export_dir, p_layers):
+    """P0, P and PE in two gloo ranks on the one card (one spawn), held
+    against one process: P0 against its tiny references run here, P
+    against A, PE against D1. Then PN over NCCL. Returns the rank-0
+    summaries."""
+    import numpy as np
+    from sparse_matrix_tuning_tpu_torch.data.sft import batch_iterator
+    from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
+
+    tiny = LlamaConfig.tiny(vocab_size=512)
+    refs = {fq: run_main_path(tiny, "cuda", bs=4, frozen_quant=fq, **P0_KW)
+            for fq in ("none", "int8")}
+    first = thin_rows(next(batch_iterator(synthetic_sft(24, 64, 512, 1), 4, 0, [64], 1234, 0)),
+                      P0_KW["thin"])
+    valid = (first["labels"][:, 1:] != -100).sum(axis=1)
+    jobs = [("P0", "none"), ("P0", "int8"), ("P", p_layers), ("PE", export_dir)]
+    t0 = time.time()
+    ranks = _spawn(dp_rank, 2, jobs)
+    log(f"[dp] 2 ranks on cuda:0 over {ranks[0]['backend']} (NCCL refuses two ranks on one "
+        f"device); gloo takes CUDA tensors for all_reduce and broadcast: "
+        f"{[r['gloo_cuda'] for r in ranks]}; {time.time() - t0:.1f} s for the spawn and P0, P, "
+        f"PE ({CARD['smi']})")
+    for fq, rtol in (("none", P0_RTOL), ("int8", P0_INT8_RTOL)):
+        ref, got = refs[fq], [r[f"P0:{fq}"] for r in ranks]
+        fps = {g["plan"]["fingerprint"] for g in got} | {ref["plan"]["fingerprint"]}
+        if len(fps) != 1:
+            raise AssertionError(f"P0 {fq}: plan fingerprints differ: {fps}")
+        if got[0]["loss"] != got[1]["loss"]:
+            raise AssertionError(f"P0 {fq}: the ranks' losses differ")
+        # fp32 attention walks each group whole: no dK/dV reduce
+        needed = tuple(n for n in TRAIN_KERNELS if n != "attn_bwd_dkdv_reduce") + (
+            Q8_KERNELS if fq == "int8" else ())
+        for r, g in enumerate(got):
+            if not all(g["launches"][n] > 0 for n in needed):
+                raise AssertionError(f"P0 {fq} rank {r} did not launch every kernel: "
+                                     f"{g['launches']}")
+        norms, ref_norms = (np.array(r["warmup_grad_norm"] + r["grad_norm"]) for r in (got[0], ref))
+        np.testing.assert_allclose(got[0]["loss"] + [got[0]["eval_loss"]],
+                                   ref["loss"] + [ref["eval_loss"]], rtol=rtol)
+        if fq == "none":
+            np.testing.assert_allclose(norms, ref_norms, rtol=rtol)
+        worst = float(np.max(np.abs(np.array(got[0]["loss"]) - np.array(ref["loss"]))
+                             / np.abs(np.array(ref["loss"]))))
+        worst_norm = float(np.max(np.abs(norms - ref_norms) / ref_norms))
+        log(f"[P0] tiny fp32, frozen_quant {fq}: 2 ranks against one process at global batch "
+            f"4, valid tokens by row of the first batch {valid.tolist()} (rank 0 rows 0-1, "
+            f"rank 1 rows 2-3, thinned to 4 labels a row): losses {got[0]['loss']} vs "
+            f"{ref['loss']}, worst rel diff {worst:.2e}, grad norms {norms.tolist()} vs "
+            f"{ref_norms.tolist()}, worst rel diff {worst_norm:.2e} (bound {rtol} on "
+            f"{'both' if fq == 'none' else 'the losses; grad norms reported'}); "
+            f"eval {got[0]['eval_loss']:.6f} vs "
+            f"{ref['eval_loss']:.6f}; same plan {ref['plan']['fingerprint'][:16]}; "
+            f"{got[0]['checksums']} leaves bit-equal across ranks; rank 0 launches "
+            f"{got[0]['launches']}")
+
+    p = [r[f"P:{p_layers}"] for r in ranks]
+    if p[0]["loss"] != p[1]["loss"] or p[0]["plan"] != p[1]["plan"]:
+        raise AssertionError("P: the ranks' losses or plans differ")
+    for r, s in enumerate(p):
+        if not all(s["launches"][n] > 0 for n in TRAIN_KERNELS):
+            raise AssertionError(f"P rank {r} did not launch every kernel: {s['launches']}")
+    a_loss = run_a["loss"] + [run_a["eval_loss"]]
+    p_loss = p[0]["loss"] + [p[0]["eval_loss"]]
+    rel = np.abs(np.array(p_loss) - np.array(a_loss)) / np.abs(np.array(a_loss))
+    a_norm, p_norm = np.array(run_a["warmup_grad_norm"]), np.array(p[0]["warmup_grad_norm"])
+    rel_norm = np.abs(p_norm - a_norm) / a_norm
+    log(f"[P] TinyLlama-1.1B bf16, {p_layers} layers, 2 ranks x bs 2 x seq 512 (A's global "
+        f"batch), 3 warm-up + 4 sparse steps: losses {p_loss} vs A's {a_loss}, worst rel diff "
+        f"{float(rel.max()):.2e} (bound {P_VS_A_RTOL}); warm-up grad norms {p_norm.tolist()} "
+        f"vs A's {a_norm.tolist()}, worst rel diff {float(rel_norm.max()):.2e} (bound "
+        f"{P_GNORM_RTOL}); plan {p[0]['plan']['fingerprint'][:16]} on both ranks, A's "
+        f"{run_a['plan']['fingerprint'][:16]}; {p[0]['checksums']} leaves bit-equal across "
+        f"ranks (master, m, v after the warm-up; trainables, m, v after fit)")
+    log_selection_margin(run_a, p[0])
+    n_warm = 3
+    for r, s in enumerate(p):
+        ms = s["step_ms"]
+        log(f"[P] rank {r}: warm-up ms/step {[round(x, 1) for x in ms[:n_warm]]}, sparse "
+            f"{[round(x, 1) for x in ms[n_warm:]]} (A: {[round(x, 1) for x in run_a['step_ms']]}); "
+            f"all-reduced MB/step {[round(b / 1e6, 3) for b in s['reduced_bytes']]}, all-reduce "
+            f"ms/step {[round(x, 1) for x in s['reduce_ms']]}; peak GiB "
+            f"{ {k: round(v / 1024 ** 3, 2) for k, v in s['peak'].items() if v is not None} }; "
+            f"launches K1 {s['launches']['block_grad']}, K2 "
+            f"{s['launches']['masked_adam']}, K3 fwd {s['launches']['attn_fwd']}, dK/dV "
+            f"{s['launches']['attn_bwd_dkdv']}; {s['seconds']:.1f} s")
+    if rel.max() > P_VS_A_RTOL:
+        raise AssertionError(f"P: losses part from A's by {float(rel.max()):.2e} > {P_VS_A_RTOL}")
+    if len(p_norm) != len(a_norm) or rel_norm.max() > P_GNORM_RTOL:
+        raise AssertionError(f"P: warm-up grad norms {p_norm.tolist()} part from A's "
+                             f"{a_norm.tolist()} by more than {P_GNORM_RTOL}")
+
+    pe = [r[f"PE:{export_dir}"] for r in ranks]
+    for r, s in enumerate(pe):
+        want = d1["tokens"][r::2]
+        if s["tokens"].shape != want.shape or not (s["tokens"] == want).all():
+            raise AssertionError(f"PE rank {r}: tokens differ from D1's for its prompts")
+        if s["launches"]["cached_attn"] <= 0:
+            raise AssertionError(f"PE rank {r} did not launch K7: {s['launches']}")
+    d1_text = StandInTokenizer(TINYLLAMA["vocab_size"]).batch_decode(d1["tokens"])
+    if pe[0]["outputs"] != d1_text:
+        raise AssertionError("PE: rank 0's gathered completions differ from D1's")
+    log(f"[PE] the eval harness over A's export split by rank stride, {PE_PROMPTS} prompts, "
+        f"beam-4, 256 new tokens: each rank's tokens equal D1's for its prompts "
+        f"{[s['tokens'].shape for s in pe]}; rank 0 gathered all {len(pe[0]['outputs'])} "
+        f"completions in prompt order, equal to D1's; walls {[round(s['wall_s'], 2) for s in pe]} "
+        f"s (D1 {d1['wall_s']:.2f} s alone), peaks {[round(s['peak_gib'], 2) for s in pe]} GiB "
+        f"(D1 {d1['peak_gib']:.2f}); K7 launches {[s['launches']['cached_attn'] for s in pe]}")
+
+    import torch
+    n_cards = torch.cuda.device_count()
+    t0 = time.time()
+    pn = _spawn(pn_rank, min(n_cards, 2))
+    log(f"[PN] {'two NCCL ranks, one a card' if n_cards >= 2 else 'one NCCL rank (one card)'}: "
+        f"backend {pn[0]['backend']}, init {pn[0]['init_s']:.1f} s, bucket all-reduce "
+        f"{pn[0]['buckets']} with exact sums, one tiny fp32 step loss {pn[0]['loss']!r} vs one "
+        f"process {pn[0]['ref_loss']!r}; {time.time() - t0:.1f} s")
+    return {"P": p[0], "P0": ranks[0]["P0:none"], "P0 int8": ranks[0]["P0:int8"], "PE": pe[0],
+            "PN": pn[0]}
+
+
 def main(argv=None):
     """`--only q8` stops after the build, the row quantization, K4 / K5
     checks and the tiny int8 references; `--only q4` after the build, the K6 checks and the tiny
@@ -3572,11 +4017,13 @@ def main(argv=None):
     tiny 12-layer channel int8 reference, run J and runs R and R2 (a short
     call for the conversion into the scan state and resume); `--only fp16`
     runs the build, the fp16 bodies' checks and the tiny fp16 references;
+    `--only dp` the build, A with its export, D1, then P0, P, PE and PN;
     none prints a result line. With no arguments every phase runs."""
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--only", "q8"], ["--only", "q4"], ["--only", "attn"],
-                    ["--only", "sparse"], ["--only", "scan"], ["--only", "fp16"]):
-        raise SystemExit("usage: python3 chip_smoke.py [--only q8|q4|attn|sparse|scan|fp16]")
+                    ["--only", "sparse"], ["--only", "scan"], ["--only", "fp16"],
+                    ["--only", "dp"]):
+        raise SystemExit("usage: python3 chip_smoke.py [--only q8|q4|attn|sparse|scan|fp16|dp]")
     only = argv[1] if argv else None
     only_q8 = only == "q8"
     t_start = time.time()
@@ -3646,6 +4093,27 @@ def main(argv=None):
             f"{name} {t - prev:.1f}" for (name, t), (_, prev)
             in zip(marks, [("", t_start)] + marks)))
         return
+    if only == "dp":
+        model_cfg = LlamaConfig(**TINYLLAMA)
+        out_dir = tempfile.mkdtemp(prefix="smoke_export_", dir=os.path.join(REPO, "build"))
+        try:
+            run_a = run_main_path(model_cfg, "cuda", out_dir=out_dir, keep_decode_params=True)
+            report_run("A", "TinyLlama-1.1B bf16, bs 4 x seq 512, remat, attn auto (K3)", run_a, 3)
+            params = run_a.pop("decode_params")
+            d1 = eval_leg("D1", "bf16 cache, beam-4, K7", params, model_cfg,
+                          synthetic_eval_examples(PE_PROMPTS, StandInTokenizer(
+                              model_cfg.vocab_size), seed=11))
+            del params
+            marks.append(("A, D1", time.time()))
+            run_data_parallel(run_a, d1, os.path.join(out_dir, "final"),
+                              model_cfg.num_hidden_layers)
+            marks.append(("P0, P, PE, PN", time.time()))
+        finally:
+            shutil.rmtree(out_dir, ignore_errors=True)
+        log("[smoke] --only dp: seconds by phase: " + ", ".join(
+            f"{name} {t - prev:.1f}" for (name, t), (_, prev)
+            in zip(marks, [("", t_start)] + marks)))
+        return
     if only == "q4":
         check_q4_matmul()
         marks.append(("kernels", time.time()))
@@ -3704,6 +4172,11 @@ def main(argv=None):
         del decode_params
         torch.cuda.empty_cache()
         marks.append(("D", time.time()))
+        # P0, P, PE: data parallelism over two gloo ranks sharing the card
+        # (P held to A, PE to D1 over A's export); PN over NCCL
+        run_dp = run_data_parallel(run_a, run_d["D1"], os.path.join(out_dir, "final"),
+                                   model_cfg.num_hidden_layers)
+        marks.append(("P", time.time()))
         # F: the eval over the int4 / int8 frozen base, quantized while
         # loading A's export
         run_f = run_quantized_eval(os.path.join(out_dir, "final"), model_cfg, run_d["D1"])
@@ -3930,7 +4403,10 @@ def main(argv=None):
     runs = {"H": run_h["launches"], "I": run_i["launches"],
             **{tag: leg["launches"] for tag, leg in run_i["decode"].items()},
             "J": run_j["launches"], "J8": run_j["decode"]["J8"]["launches"],
-            "R": run_r["launches"], "R2": run_r2["launches"]}
+            "R": run_r["launches"], "R2": run_r2["launches"],
+            # rank 0 of the data-parallel runs (each rank launches its own)
+            "P": run_dp["P"]["launches"], "P0": run_dp["P0"]["launches"],
+            "P0 int8": run_dp["P0 int8"]["launches"], "PE": run_dp["PE"]["launches"]}
     for k in kernels:
         k.setdefault("launches_by_run", {}).update(
             {tag: counts[k["name"]] for tag, counts in runs.items()

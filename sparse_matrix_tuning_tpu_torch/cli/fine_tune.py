@@ -45,6 +45,16 @@ and the scale halved, with an "[fp16] overflow at step ..." line where the
 loss itself overflowed. It is refused with --sparse_from_plan, as in the
 JAX package (the scaler's state comes from the warm-up).
 
+Data parallelism over N processes, each a full replica on its own card
+(NCCL; gloo on the CPU), the global batch per_device_ft_batch_size * N *
+gradient_accumulation_steps:
+
+  torchrun --nproc_per_node N -m sparse_matrix_tuning_tpu_torch.cli.fine_tune \
+      --mesh_shape N,1,1 ... (the flags above)
+
+The fsdp and tensor axes (--mesh_shape 1,N,1 / 1,1,N) are not ported and
+raise; so does a torchrun world without --mesh_shape.
+
 model_name_or_path must be a local HF checkpoint dir. Runs on the card
 (--device cuda, the default, raises when there is none); --device cpu runs
 the plain versions of the kernels on the CPU.
@@ -79,7 +89,12 @@ def main(argv=None):
             f"{cfg.model_name_or_path}: model_name_or_path must be a local "
             "HF checkpoint directory")
 
-    device = torch.device(args.device)
+    device, mesh = torch.device(args.device), None
+    if cfg.mesh_shape:
+        from sparse_matrix_tuning_tpu_torch.parallel.mesh import init_distributed, make_mesh
+        device = init_distributed(None if args.device == "cuda" else device)
+        mesh = make_mesh(cfg.mesh_shape, device=device)
+        print_rank_0(f"[mesh] {tuple(mesh.shape)} over {torch.distributed.get_backend()}")
     print_rank_0(f"[device] {device}")
     tokenizer = load_hf_tokenizer(cfg.model_name_or_path, cfg.max_seq_len,
                                   cfg.add_eot_token)
@@ -99,10 +114,13 @@ def main(argv=None):
     print_rank_0(f"Training data size {len(train_ds)}, "
                  f"validation data set {len(eval_ds)}")
 
-    global_bs = cfg.per_device_ft_batch_size * cfg.gradient_accumulation_steps
+    # must match trainer.fit's batch: per-device x data x accumulation
+    global_bs = (cfg.per_device_ft_batch_size * (mesh.data if mesh else 1)
+                 * cfg.gradient_accumulation_steps)
     steps_per_epoch = num_batches(len(train_ds), global_bs)
     total_steps = cfg.num_ft_epochs * steps_per_epoch
 
+    on_mesh = {"mesh": mesh} if mesh is not None else {}
     if cfg.sparse_from_plan:
         # sparse-only continuation: warm-up and selection ran elsewhere and
         # produced this plan; the base checkpoint is quantized while it loads
@@ -112,9 +130,9 @@ def main(argv=None):
             plan = SMTPlan.from_json(f.read())
         trainer = SMTTrainer.sparse_scan_from_hf(cfg, cfg.model_name_or_path, plan,
                                                  total_steps, model_cfg=model_cfg,
-                                                 device=device)
+                                                 device=device, **on_mesh)
     else:
-        trainer = SMTTrainer(cfg, model_cfg, params, total_steps, device=device)
+        trainer = SMTTrainer(cfg, model_cfg, params, total_steps, device=device, **on_mesh)
         del params
     if cfg.resume_from:
         from sparse_matrix_tuning_tpu_torch.train.checkpoint import restore_checkpoint
@@ -126,6 +144,8 @@ def main(argv=None):
     print_rank_0(f"training_loss_list: {history['train_loss'][-20:]}")
     print_rank_0(f"eval_loss_list: {history['eval_loss']}")
     print_rank_0(f"ppl_list: {history['ppl']}")
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
     return history
 
 

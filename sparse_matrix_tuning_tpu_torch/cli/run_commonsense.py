@@ -16,6 +16,10 @@ the card; `--device cpu` runs the plain versions of the kernels on the CPU.
 `--frozen_quant int8|int4` quantizes the checkpoint while loading it and
 decodes over the int8 base (K4) or its int4 requantization (K6), with no
 dense layer weight on the device (load_decode_params).
+
+Under `torchrun --nproc_per_node N` each process loads the model on its
+own card, generates every N-th prompt, and rank 0 writes the gathered
+predictions and the summary (eval/harness.run_dataset_eval).
 """
 
 from __future__ import annotations
@@ -115,7 +119,13 @@ def main(argv=None):
                 "effect on greedy/beam decoding; pass --do_sample or drop them")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device; pass --device cpu to run on the CPU")
-    device = torch.device(args.device)
+    device, mesh = torch.device(args.device), None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        # the eval shards nothing: it splits the prompts over the processes
+        # whatever the training mesh was (JAX's harness strides by process)
+        from sparse_matrix_tuning_tpu_torch.parallel.mesh import init_distributed, make_mesh
+        device = init_distributed(None if args.device == "cuda" else device)
+        mesh = make_mesh(None, device=device)
     params, model_cfg = load_decode_params(args.model_name_or_path, args.frozen_quant,
                                            args.dtype, device)
     # reference tokenizer setup for eval (:228-235): left padding, long cap
@@ -139,15 +149,19 @@ def main(argv=None):
         print_rank_0(f"Handling dataset: {dataset}")
         with open(os.path.join(args.data_path, dataset, "test.json")) as f:
             examples = json.load(f)
-        res = run_dataset_eval(dataset, examples, generate_fn, output_dir=args.output_dir)
+        res = run_dataset_eval(dataset, examples, generate_fn, output_dir=args.output_dir,
+                               mesh=mesh)
         results[dataset] = res["accuracy"]
 
     if results:
         avg = sum(results.values()) / len(results)
         print_rank_0(f"Average accuracy over {len(results)} datasets: {avg * 100:.1f}%")
-        os.makedirs(args.output_dir, exist_ok=True)
-        with open(os.path.join(args.output_dir, "summary.json"), "w") as f:
-            json.dump({"per_dataset": results, "average": avg}, f, indent=2)
+        if mesh is None or mesh.is_main:
+            os.makedirs(args.output_dir, exist_ok=True)
+            with open(os.path.join(args.output_dir, "summary.json"), "w") as f:
+                json.dump({"per_dataset": results, "average": avg}, f, indent=2)
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
     return results
 
 

@@ -25,6 +25,9 @@ paths this port implements:
                 vocabulary >= 16384, full in the sparse phase while the
                 fp32 logits fit 2 GiB
 
+  mesh_shape    D,1,1 trains data-parallel over D processes (parallel/mesh.py);
+                the fsdp and tensor axes are refused
+
 Options whose implementation has not been ported raise NotImplementedError
 when the config is built; none of them silently runs another path.
 """
@@ -34,6 +37,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
@@ -164,9 +168,8 @@ class SMTConfig:
                 self.head_quant = "none"
 
     def _refuse_unported(self):
+        self._check_mesh()
         unported = []
-        if self.mesh_shape:
-            unported.append("--mesh_shape (multi-device training)")
         if self.profile_dir:
             unported.append("--profile_dir (device tracing)")
         if self.do_gradient_distribution_analysis:
@@ -175,6 +178,27 @@ class SMTConfig:
             raise NotImplementedError(
                 "not yet ported to sparse_matrix_tuning_tpu_torch: "
                 + "; ".join(unported))
+
+    def _check_mesh(self):
+        """--mesh_shape D,1,1 (data parallelism over D processes) is taken;
+        fsdp or tensor above 1 are refused by name when the config is built
+        (parallel/mesh.make_mesh holds the shape to the world size)."""
+        from sparse_matrix_tuning_tpu_torch.parallel.mesh import refuse_sharded_axes
+        if not self.mesh_shape:
+            self.mesh_shape = None
+            return
+        self.mesh_shape = parse_mesh_shape(self.mesh_shape)
+        refuse_sharded_axes(self.mesh_shape)
+
+    def check_world(self):
+        """Under torchrun (WORLD_SIZE) a world above 1 needs --mesh_shape:
+        JAX's default mesh there puts every device on fsdp, not ported."""
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        if not self.mesh_shape and world > 1:
+            raise NotImplementedError(
+                f"WORLD_SIZE {world} without --mesh_shape: JAX's default mesh (1, {world}, 1) "
+                f"is the fsdp axis, not yet ported; pass --mesh_shape {world},1,1 for "
+                "data parallelism")
 
     @property
     def sparse_remat(self) -> bool:
@@ -195,6 +219,16 @@ class SMTConfig:
         raw = json.loads(text)
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in raw.items() if k in known})
+
+
+def parse_mesh_shape(value) -> List[int]:
+    """[D, F, T] of "D,F,T", ["D", "F", "T"] (the JAX CLI's form) or ints."""
+    if isinstance(value, str):
+        value = [value]
+    parts = [p for v in value for p in str(v).replace(",", " ").split()]
+    if len(parts) != 3:
+        raise ValueError(f"--mesh_shape {value!r}: give data,fsdp,tensor, e.g. 2,1,1")
+    return [int(p) for p in parts]
 
 
 def _check_choice(name: str, value, choices):
@@ -274,7 +308,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    choices=["full", "chunked", "auto"])
     p.add_argument("--vocab_chunk", type=int, default=d.vocab_chunk)
     p.add_argument("--sparse_from_plan", type=str, default=None)
-    p.add_argument("--mesh_shape", type=int, nargs="*", default=None)
+    p.add_argument("--mesh_shape", type=str, nargs="*", default=None,
+                   help="data,fsdp,tensor (or three numbers): D,1,1 trains data-parallel over "
+                        "D processes (torchrun --nproc_per_node D)")
     p.add_argument("--seq_buckets", type=int, nargs="*", default=None)
     p.add_argument("--resume_from", type=str, default=None)
     p.add_argument("--profile_dir", type=str, default=None)
@@ -303,7 +339,9 @@ def config_from_args(ns: argparse.Namespace) -> SMTConfig:
     # store_true defaults (False) must not override dataclass defaults of True
     if "compute_fp32_loss" in kwargs and not ns.compute_fp32_loss:
         kwargs.pop("compute_fp32_loss")
-    return SMTConfig(**kwargs)
+    cfg = SMTConfig(**kwargs)
+    cfg.check_world()
+    return cfg
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> SMTConfig:

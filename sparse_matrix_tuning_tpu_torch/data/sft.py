@@ -156,5 +156,21 @@ def batch_iterator(dataset: SFTDataset, batch_size: int, pad_token_id: int,
         yield collate(examples, pad_token_id, _bucket_for(longest, buckets))
 
 
+def shard_batch(batch: Dict[str, np.ndarray], mesh, accum: int = 1) -> Dict[str, np.ndarray]:
+    """This rank's part of a global batch under data parallelism: every
+    rank builds the identical global batch (batch_iterator at the global
+    batch size, padded to the global bucket, as JAX's _globalize_batch
+    takes it) and keeps its rows (parallel/mesh.rank_rows), plus
+    "loss_denom", float32 (accum,): each global microbatch's count of
+    valid target tokens, which each rank's token-loss sum is divided by
+    (JAX's mean over the global batch, models/llama.py causal_lm_loss)."""
+    from sparse_matrix_tuning_tpu_torch.parallel.mesh import rank_rows
+    valid = np.asarray(batch["labels"])[:, 1:] != IGNORE_INDEX
+    counts = valid.reshape(accum, -1).sum(axis=1)
+    out = rank_rows(batch, mesh, accum)
+    out["loss_denom"] = np.maximum(counts, 1).astype(np.float32)
+    return out
+
+
 def num_batches(dataset_len: int, batch_size: int, drop_last: bool = True) -> int:
     return dataset_len // batch_size if drop_last else -(-dataset_len // batch_size)

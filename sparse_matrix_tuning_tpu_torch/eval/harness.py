@@ -1,5 +1,5 @@
 """Generation-eval harness: commonsense and math reasoning accuracy (twin of
-`sparse_matrix_tuning_tpu.eval.harness`, one process).
+`sparse_matrix_tuning_tpu.eval.harness`).
 
 Port of reference evaluation/run_commonsense_parallel.py:
   * prompt = i_prompt.format_map(example) (:270-276), data/prompts.EVAL_PROMPT;
@@ -8,9 +8,11 @@ Port of reference evaluation/run_commonsense_parallel.py:
     completion; option letter for AQuA);
   * accuracy = exact match against example["answer"].lower() (:296-311);
   * predictions dumped to {output_dir}/{dataset}/model_predictions.jsonl
-    (:316-322).
-The JAX harness also splits prompts across hosts and gathers the
-completions; that comes with the port's multi-GPU slice.
+    (:316-322);
+  * over a mesh of processes each rank generates every D-th prompt (JAX
+    harness.py:151-153) and the completions are gathered back into prompt
+    order as Python strings (dist.all_gather_object: none is truncated,
+    where JAX's fixed-width byte rows had to be wide enough); rank 0 writes.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from sparse_matrix_tuning_tpu_torch.data.prompts import EVAL_PROMPT
+from sparse_matrix_tuning_tpu_torch.utils.logging import print_rank_0
 
 COMMONSENSE_DATASETS = ("boolq", "piqa", "social_i_qa", "hellaswag",
                         "winogrande", "ARC-Challenge", "ARC-Easy", "openbookqa")
@@ -72,12 +75,21 @@ def build_prompts(examples: Sequence[dict]) -> List[str]:
 
 
 def run_dataset_eval(dataset: str, examples: Sequence[dict], generate_fn,
-                     output_dir: Optional[str] = None) -> Dict:
+                     output_dir: Optional[str] = None, mesh=None) -> Dict:
     """generate_fn(prompts: List[str]) -> List[str] completions.
 
     Returns {"dataset", "accuracy", "n", "predictions"} and, with
-    output_dir, dumps model_predictions.jsonl like the reference."""
-    outputs = list(generate_fn(build_prompts(examples)))
+    output_dir, dumps model_predictions.jsonl like the reference (rank 0
+    of a mesh, whose ranks split the prompts by stride)."""
+    prompts = build_prompts(examples)
+    if mesh is None:
+        outputs = list(generate_fn(prompts))
+    else:
+        from sparse_matrix_tuning_tpu_torch.parallel.mesh import gather_objects
+        local = list(generate_fn(prompts[mesh.rank::mesh.world]))
+        outputs = [None] * len(prompts)
+        for r, outs in enumerate(gather_objects(local, mesh)):
+            outputs[r::mesh.world] = outs
     correct = 0
     save_outputs = []
     for example, output in zip(examples, outputs):
@@ -91,14 +103,14 @@ def run_dataset_eval(dataset: str, examples: Sequence[dict], generate_fn,
         save_outputs.append(example)
 
     accuracy = correct / max(len(examples), 1)
-    if output_dir:
+    if output_dir and (mesh is None or mesh.is_main):
         ds_dir = os.path.join(output_dir, dataset)
         os.makedirs(ds_dir, exist_ok=True)
         with open(os.path.join(ds_dir, "model_predictions.jsonl"), "w") as f:
             for ex in save_outputs:
                 f.write(json.dumps(ex) + "\n")
 
-    print("Dataset: {}, accuracy {:.1f}%, number of test data: {}".format(
+    print_rank_0("Dataset: {}, accuracy {:.1f}%, number of test data: {}".format(
         dataset, accuracy * 100, len(examples)))
     return {"dataset": dataset, "accuracy": accuracy, "n": len(examples),
             "predictions": save_outputs}

@@ -223,7 +223,8 @@ def default_linear(x: torch.Tensor, w: torch.Tensor, module: str, layer: int) ->
 
 def _attention(q, k, v, mask_bias, dropout_rate: float = 0.0,
                dropout_rng: Optional[torch.Generator] = None,
-               keep: Optional[torch.Tensor] = None):
+               keep: Optional[torch.Tensor] = None,
+               dropout_rows: Optional[Tuple[int, int]] = None):
     """Masked einsum attention. q: (B,S,Hq,hd); k/v: (B,S,Hkv,hd); GQA via
     head grouping; mask_bias: (B,1,S,S) additive fp32 bias (0 / min).
     Dropout on the probabilities (_attn_dropout) with a generator, or with
@@ -236,24 +237,32 @@ def _attention(q, k, v, mask_bias, dropout_rate: float = 0.0,
     scores = scores / float(np.sqrt(hd))
     scores = scores + mask_bias[:, :, None, :, :]
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    probs = _attn_dropout(probs, dropout_rate, dropout_rng, keep)
+    probs = _attn_dropout(probs, dropout_rate, dropout_rng, keep, dropout_rows)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
     return out.reshape(b, s, hq * hd)
 
 
 def _attn_dropout(probs: torch.Tensor, rate: float, rng: Optional[torch.Generator] = None,
-                  keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  keep: Optional[torch.Tensor] = None,
+                  rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Attention-prob dropout, the JAX twin's (reference configure_dropout
     sets attention_dropout on Llama configs, deepspeed_helpers.py:577-583):
     inverted scaling, zeros elsewhere, in probs' dtype. The keep mask is
     drawn from `rng` (probability 1 - rate), or given; with neither, or at
     rate 0, the probabilities pass unchanged. Torch's Philox bits are not
     JAX's threefry bits, so the masks of the two packages differ; tests
-    hand JAX's mask in as `keep`."""
+    hand JAX's mask in as `keep`. rows = (first, total): the probabilities
+    are rows first.. of a batch of `total` rows (a data-parallel rank's
+    part of the global microbatch), whose whole mask is drawn and sliced,
+    so D ranks drop what one process drops at the same global batch."""
     if rate <= 0.0 or (rng is None and keep is None):
         return probs
     if keep is None:
-        keep = torch.rand(probs.shape, generator=rng, device=probs.device) < (1.0 - rate)
+        b = probs.shape[0]
+        shape = probs.shape if rows is None else (rows[1], *probs.shape[1:])
+        keep = torch.rand(shape, generator=rng, device=probs.device) < (1.0 - rate)
+        if rows is not None:
+            keep = keep[rows[0]:rows[0] + b]
     return torch.where(keep, probs / (1.0 - rate), 0.0).to(probs.dtype)
 
 
@@ -319,8 +328,8 @@ def _lin(lp: Mapping[str, torch.Tensor], h: torch.Tensor, name: str, linear,
 
 def _decoder_layer(lp: Mapping[str, torch.Tensor], x: torch.Tensor, mask_bias,
                    cos, sin, cfg: LlamaConfig, linear, layer_idx: int,
-                   attn_impl: str = "einsum", dropout_seed: Optional[int] = None
-                   ) -> torch.Tensor:
+                   attn_impl: str = "einsum", dropout_seed: Optional[int] = None,
+                   dropout_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     b, s, _ = x.shape
     h = _rms_norm(x, lp["input_layernorm"], cfg.rms_norm_eps)
     q = _lin(lp, h, "q_proj", linear, layer_idx)
@@ -342,7 +351,7 @@ def _decoder_layer(lp: Mapping[str, torch.Tensor], x: torch.Tensor, mask_bias,
         # the generator is made here from its seed, so a remat recompute
         # draws the same mask
         attn = _attention(q, k, v, mask_bias, cfg.attention_dropout,
-                          _dropout_rng(dropout_seed, q.device))
+                          _dropout_rng(dropout_seed, q.device), dropout_rows=dropout_rows)
     x = x + _lin(lp, attn, "o_proj", linear, layer_idx)
 
     h = _rms_norm(x, lp["post_attention_layernorm"], cfg.rms_norm_eps)
@@ -468,9 +477,13 @@ def _run(params, layers, input_ids, cfg: LlamaConfig, attention_mask, remat,
          stop_grad_below_layer, attn_impl, return_hidden, dropout_key=None):
     """The decoder around its layers: `layers` yields each layer's (params,
     linear) in order; layer i's dropout mask is seeded by
-    dropout_layer_seed(dropout_key, i)."""
+    dropout_layer_seed(dropout_key, i). A key of four, (seed, step, rank,
+    data size), marks the batch as a data-parallel rank's equal part of the
+    global microbatch: the mask is drawn for the whole and sliced."""
     b, s = input_ids.shape
     dropout = cfg.attention_dropout > 0 and dropout_key is not None
+    rows = (dropout_key[2] * b, dropout_key[3] * b) if dropout and len(dropout_key) == 4 \
+        else None
     if cfg.attention_dropout > 0 and dropout_key is None and torch.is_grad_enabled():
         raise ValueError(f"attention_dropout {cfg.attention_dropout} in a forward that records "
                          "gradients, but no dropout_key: pass the step's (seed, step), or "
@@ -500,9 +513,9 @@ def _run(params, layers, input_ids, cfg: LlamaConfig, attention_mask, remat,
         seed = dropout_layer_seed(dropout_key, i) if dropout else None
         if use_remat:
             x = checkpoint(_decoder_layer, lp, x, mask_bias, cos, sin, cfg,
-                           linear, i, attn_impl, seed, use_reentrant=False)
+                           linear, i, attn_impl, seed, rows, use_reentrant=False)
         else:
-            x = _decoder_layer(lp, x, mask_bias, cos, sin, cfg, linear, i, attn_impl, seed)
+            x = _decoder_layer(lp, x, mask_bias, cos, sin, cfg, linear, i, attn_impl, seed, rows)
 
     x = _rms_norm(x, params["norm"], cfg.rms_norm_eps)
     if return_hidden:
@@ -717,8 +730,11 @@ def forward_with_cache(params: Mapping[str, Any], input_ids: torch.Tensor,
 # Loss
 # ---------------------------------------------------------------------------
 
-def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """HF-style shifted cross-entropy, mean over non-ignored tokens, fp32."""
+def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+                   denom: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """HF-style shifted cross-entropy, mean over non-ignored tokens, fp32.
+    denom: the count to divide the token-loss sum by instead of these
+    labels' (data parallelism: the global microbatch's, data/sft.shard_batch)."""
     logits = logits[:, :-1, :].float()
     targets = labels[:, 1:].long()
     valid = targets != IGNORE_INDEX
@@ -726,5 +742,6 @@ def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logp = torch.log_softmax(logits, dim=-1)
     tok_loss = -torch.gather(logp, -1, safe[..., None])[..., 0]
     tok_loss = torch.where(valid, tok_loss, torch.zeros_like(tok_loss))
-    denom = torch.clamp(valid.sum(), min=1)
-    return tok_loss.sum() / denom
+    if denom is None:
+        denom = torch.clamp(valid.sum(), min=1)
+    return tok_loss.sum() / denom.reshape(())

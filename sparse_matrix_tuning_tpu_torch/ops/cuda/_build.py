@@ -7,12 +7,15 @@ build/torch_kernels/libsmt_kernels_<hash>.so, where <hash> covers the
 sources, their headers and the flags, so an edit rebuilds and an
 unchanged tree reuses the library. The kernels export a plain C interface
 (no PyTorch headers, so the build takes seconds); `load()` binds it with
-ctypes. Nothing here runs at import time.
+ctypes. Nothing here runs at import time. Processes that build at once
+(the ranks of a data-parallel job) take turns on an fcntl lock on
+BUILD_DIR/.lock: the first builds, the others find its library.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -95,12 +98,21 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu unless the library for these sources exists."""
-    global last_build_seconds
+    """Compile csrc/*.cu unless the library for these sources exists, one
+    process at a time."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if not out.exists():  # not built by the process we waited for
+            _compile(out)
+    return out
+
+
+def _compile(out: Path) -> None:
+    global last_build_seconds
     tag = f"{out.stem}.{os.getpid()}"
     t0 = time.time()
     jobs = []
@@ -130,8 +142,7 @@ def build() -> Path:
             obj.unlink(missing_ok=True)
     last_build_seconds = time.time() - t0
     (BUILD_DIR / f"{out.stem}.ptxas.txt").write_text("".join(logs))
-    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
-    return out
+    os.replace(tmp, out)  # atomic: a reader sees all or nothing
 
 
 def load() -> ctypes.CDLL:

@@ -22,6 +22,8 @@ the chunk multiple and masks the pad with -inf: the same sums.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from sparse_matrix_tuning_tpu_torch.ops.cuda.q8_matmul import q8mm_t
@@ -42,7 +44,7 @@ class _ChunkedLSELoss(torch.autograd.Function):
         return q8mm_t(xq, sx, wq[lo:hi], sw[lo:hi], torch.float32)
 
     @staticmethod
-    def forward(ctx, h2, labels, vocab_chunk, head, wq, sw, xq, sx):
+    def forward(ctx, h2, labels, vocab_chunk, head, wq, sw, xq, sx, denom=None):
         v = head.shape[0] if head is not None else wq.shape[0]
         t = labels.reshape(-1).long()
         valid = t != IGNORE_INDEX
@@ -62,7 +64,7 @@ class _ChunkedLSELoss(torch.autograd.Function):
             picked = logits.gather(1, local.clamp(0, hi - lo - 1)[:, None])[:, 0]
             tgt = torch.where(in_chunk, picked, tgt)
         lse = m + torch.log(se)
-        denom = torch.clamp(valid.sum(), min=1)
+        denom = torch.clamp(valid.sum(), min=1) if denom is None else denom.reshape(())
         loss = torch.where(valid, lse - tgt, torch.zeros_like(lse)).sum() / denom
         ctx.save_for_backward(h2, head, wq, sw, xq, sx, lse, tsafe, valid, denom)
         ctx.vocab_chunk = vocab_chunk
@@ -92,21 +94,25 @@ class _ChunkedLSELoss(torch.autograd.Function):
                     grad_head[lo:hi] = torch.matmul(glc.t(), h2)
             else:
                 grad_h += q8_matmul(gl, wq[lo:hi], sw[lo:hi])
-        return grad_h.to(h2.dtype), None, None, grad_head, None, None, None, None
+        return grad_h.to(h2.dtype), None, None, grad_head, None, None, None, None, None
 
 
 def chunked_causal_lm_loss(hidden: torch.Tensor, head: torch.Tensor,
-                           labels: torch.Tensor, vocab_chunk: int = 4096) -> torch.Tensor:
+                           labels: torch.Tensor, vocab_chunk: int = 4096,
+                           denom: Optional[torch.Tensor] = None) -> torch.Tensor:
     """hidden: (B, S, D) final decoder states (pre-head); head: (V, D);
-    labels: (B, S) with -100 ignore. Shifted CE, mean over valid tokens."""
+    labels: (B, S) with -100 ignore. Shifted CE, mean over valid tokens, or
+    the token-loss sum over `denom` (models/llama.causal_lm_loss)."""
     d = hidden.shape[-1]
     h = hidden[:, :-1, :].reshape(-1, d)               # (T, D)
-    return _ChunkedLSELoss.apply(h, labels[:, 1:], vocab_chunk, head, None, None, None, None)
+    return _ChunkedLSELoss.apply(h, labels[:, 1:], vocab_chunk, head, None, None, None, None,
+                                 denom)
 
 
 def chunked_causal_lm_loss_q8(hidden: torch.Tensor, head_wq: torch.Tensor,
                               head_sw: torch.Tensor, labels: torch.Tensor,
-                              vocab_chunk: int = 4096) -> torch.Tensor:
+                              vocab_chunk: int = 4096,
+                              denom: Optional[torch.Tensor] = None) -> torch.Tensor:
     """chunked_causal_lm_loss over an int8 frozen head (head_wq (V, D)
     int8, head_sw (V,) fp32, train/convert.py build_q_head). The hidden
     states are row-quantized ONCE (not per chunk) and the LSE stays fp32.
@@ -116,4 +122,5 @@ def chunked_causal_lm_loss_q8(hidden: torch.Tensor, head_wq: torch.Tensor,
     d = hidden.shape[-1]
     h = hidden[:, :-1, :].reshape(-1, d).float()       # (T, D)
     xq, sx = row_quant(h.detach())
-    return _ChunkedLSELoss.apply(h, labels[:, 1:], vocab_chunk, None, head_wq, head_sw, xq, sx)
+    return _ChunkedLSELoss.apply(h, labels[:, 1:], vocab_chunk, None, head_wq, head_sw, xq, sx,
+                                 denom)

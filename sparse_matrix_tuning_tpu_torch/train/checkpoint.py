@@ -15,13 +15,17 @@ per-layer state or the stacked scan state:
                    when there is one
   meta.json        phase, step, total_steps, best_eval_loss, dtype (a restore
                    under another --dtype is refused: fp16 states carry the
-                   loss scaler's "loss_scale" and "good_steps"); in the
-                   sparse phase "resolved": the layout the state was built in
+                   loss scaler's "loss_scale" and "good_steps"), mesh (a
+                   restore at another data size is refused: fit's batch
+                   skip counts global batches); in the sparse phase
+                   "resolved": the layout the state was built in
   config.json, plan.json
 
 torch.save rather than safetensors: the integer and boolean leaves and the
 bf16 host store load as they were saved. Resume needs no RNG state: the
 dropout masks are derived from (seed, step, layer) (models/llama.py).
+Under data parallelism rank 0 writes (trainer._save_resumable) and every
+rank restores the same files.
 """
 
 from __future__ import annotations
@@ -83,7 +87,7 @@ def _resolved_layout(trainer) -> Dict:
             "head_quant": "int8" if "q_head" in trainer.state else "none"}
 
 
-def _predicted_layout(cfg, model_cfg, plan: SMTPlan) -> Dict:
+def _predicted_layout(cfg, model_cfg, plan: SMTPlan, mesh=None) -> Dict:
     """The layout a warm-up trainer's conversion would build for `plan`,
     from the resolvers the trainer's maybe_convert uses."""
     from sparse_matrix_tuning_tpu_torch.train.convert import (
@@ -91,7 +95,8 @@ def _predicted_layout(cfg, model_cfg, plan: SMTPlan) -> Dict:
     from sparse_matrix_tuning_tpu_torch.train.scan_phase import resolve_scan_layers
     scan = resolve_scan_layers(cfg, model_cfg, plan.mode)
     fq = resolve_frozen_quant(cfg, plan.mode, scan=scan)
-    return {"scan": scan, "host_offload": frozen_offload_active(cfg, plan.mode, scan=scan),
+    return {"scan": scan,
+            "host_offload": frozen_offload_active(cfg, plan.mode, scan=scan, mesh=mesh),
             "frozen_quant": fq, "head_quant": resolve_head_quant(cfg, model_cfg, fq)}
 
 
@@ -106,7 +111,8 @@ def save_checkpoint(path: str, trainer) -> None:
     elif os.path.exists(host_path):
         os.remove(host_path)
     meta = {"phase": trainer.phase, "step": trainer.step, "total_steps": trainer.total_steps,
-            "best_eval_loss": trainer.best_eval_loss, "dtype": trainer.cfg.dtype}
+            "best_eval_loss": trainer.best_eval_loss, "dtype": trainer.cfg.dtype,
+            "mesh": _mesh_shape(trainer)}
     if trainer.phase == "sparse" and trainer.plan is not None:
         # a restore under other flags then fails with the keys named
         meta["resolved"] = _resolved_layout(trainer)
@@ -117,6 +123,10 @@ def save_checkpoint(path: str, trainer) -> None:
     elif os.path.exists(plan_path):
         os.remove(plan_path)
     _write_text(os.path.join(path, META_FILE), json.dumps(meta))
+
+
+def _mesh_shape(trainer) -> list:
+    return list(trainer.mesh.shape) if trainer.mesh is not None else [1, 1, 1]
 
 
 def _check_layout(saved: Optional[Dict], now: Dict) -> None:
@@ -177,6 +187,12 @@ def restore_checkpoint(path: str, trainer) -> None:
         raise ValueError(f"checkpoint was saved with --dtype {meta['dtype']} but the trainer runs "
                          f"--dtype {trainer.cfg.dtype}: its parameters and its loss-scaler state "
                          f"(fp16 only) do not carry over; resume with --dtype {meta['dtype']}")
+    saved_mesh, mesh = meta.get("mesh", [1, 1, 1]), _mesh_shape(trainer)
+    if saved_mesh[0] != mesh[0]:
+        raise ValueError(f"checkpoint was saved at --mesh_shape {','.join(map(str, saved_mesh))} "
+                         f"but the trainer runs {','.join(map(str, mesh))}: fit skips the "
+                         "global batches already taken, whose size counts the data axis; "
+                         f"resume with --mesh_shape {','.join(map(str, saved_mesh))}")
     plan = None
     if os.path.exists(os.path.join(path, PLAN_FILE)):
         with open(os.path.join(path, PLAN_FILE)) as f:
@@ -195,13 +211,14 @@ def restore_checkpoint(path: str, trainer) -> None:
         template = _tensors(trainer.state)
     elif trainer.phase == "warmup":
         from sparse_matrix_tuning_tpu_torch.train.convert import sparse_state_from_plan
-        now = _predicted_layout(trainer.cfg, trainer.model_cfg, plan)
+        now = _predicted_layout(trainer.cfg, trainer.model_cfg, plan, trainer.mesh)
         _check_layout(meta.get("resolved"), now)
         scan = now["scan"]
         # the state the conversion would build for this plan: its leaves'
         # keys, shapes and dtypes (the values come from the checkpoint)
         built, template_host = sparse_state_from_plan(trainer.cfg, trainer.state, plan,
-                                                      trainer.model_cfg, scan=scan)
+                                                      trainer.model_cfg, scan=scan,
+                                                      mesh=trainer.mesh)
         template = _tensors(built)
         del built
     else:
@@ -220,3 +237,5 @@ def restore_checkpoint(path: str, trainer) -> None:
     if sparse:
         trainer.plan, trainer._scan, trainer._host_frozen = plan, scan, host
         trainer.install_sparse_phase()
+    from sparse_matrix_tuning_tpu_torch.parallel.mesh import assert_same
+    assert_same("the restored step counter", trainer.step, trainer.mesh)

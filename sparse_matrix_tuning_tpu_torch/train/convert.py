@@ -183,7 +183,12 @@ def compute_channel_selection(cfg: SMTConfig, act_acc: Dict[str, torch.Tensor]) 
     return selected
 
 
-def build_plan(cfg: SMTConfig, warmup_state: Dict, all_2d_shapes) -> SMTPlan:
+def build_plan(cfg: SMTConfig, warmup_state: Dict, all_2d_shapes, mesh=None) -> SMTPlan:
+    """The plan of the warm-up's saliency. With a mesh the accumulators
+    hold the global batch's values on every rank (the steps reduce before
+    they accumulate, steps.py), and every rank must have selected the same
+    plan (JAX's _assert_cross_host_agreement, convert.py:227-236)."""
+    from sparse_matrix_tuning_tpu_torch.parallel.mesh import assert_same
     master = warmup_state["master"]
     dims = {}
     for li, layer in master["layers"].items():
@@ -191,28 +196,31 @@ def build_plan(cfg: SMTConfig, warmup_state: Dict, all_2d_shapes) -> SMTPlan:
             dims[(mod, int(li))] = tuple(layer[mod].shape)
     if cfg.matrix_sparsity:
         selected = compute_matrix_selection(cfg, warmup_state["acc"], all_2d_shapes)
-        return SMTPlan.from_selection("matrix", selected, dims)
-    selected = compute_channel_selection(cfg, warmup_state["act_acc"])
-    return SMTPlan.from_selection("channel", selected, dims)
+        plan = SMTPlan.from_selection("matrix", selected, dims)
+    else:
+        selected = compute_channel_selection(cfg, warmup_state["act_acc"])
+        plan = SMTPlan.from_selection("channel", selected, dims)
+    assert_same("the SMT plan's fingerprint", plan.fingerprint(), mesh)
+    return plan
 
 
 def convert(cfg: SMTConfig, warmup_state: Dict, all_2d_shapes, model_cfg=None,
-            scan: bool = False) -> Tuple[SMTPlan, Dict, Optional[Dict]]:
+            scan: bool = False, mesh=None) -> Tuple[SMTPlan, Dict, Optional[Dict]]:
     """Run selection and build the phase-2 state from it
     (sparse_state_from_plan). Returns (plan, state, host_frozen). The caller
     drops the warm-up state (master, moments, accumulators), as the
     reference deletes its optimizer and grad dicts (fine_tune.py:352-358)."""
-    plan = build_plan(cfg, warmup_state, all_2d_shapes)
+    plan = build_plan(cfg, warmup_state, all_2d_shapes, mesh)
     if not plan.linears:
         raise ValueError(
             "SMT selection produced zero trainable blocks/channels — the downsample "
             "ratios are too small for this model's block count (the "
             "denominator counts ALL 2-D params, fine_tune.py:231-241).")
-    return (plan,) + sparse_state_from_plan(cfg, warmup_state, plan, model_cfg, scan)
+    return (plan,) + sparse_state_from_plan(cfg, warmup_state, plan, model_cfg, scan, mesh)
 
 
 def sparse_state_from_plan(cfg: SMTConfig, warmup_state: Dict, plan: SMTPlan, model_cfg=None,
-                           scan: bool = False) -> Tuple[Dict, Optional[Dict]]:
+                           scan: bool = False, mesh=None) -> Tuple[Dict, Optional[Dict]]:
     """The phase-2 state of `plan` from the warm-up's fp32 master, and its
     host store: (state, host_frozen), host_frozen None unless the frozen
     weights moved to the host.
@@ -243,19 +251,23 @@ def sparse_state_from_plan(cfg: SMTConfig, warmup_state: Dict, plan: SMTPlan, mo
     # over a bf16 frozen base too (the head path is independent)
     if model_cfg is not None and resolve_head_quant(cfg, model_cfg, fq) == "int8":
         state["q_head"] = build_q_head(master, model_cfg)
-    if frozen_offload_active(cfg, plan.mode):
+    if frozen_offload_active(cfg, plan.mode, mesh=mesh):
         return offload_frozen_to_host(state)
     return state, None
 
 
-def frozen_offload_active(cfg: SMTConfig, mode: str, scan: bool = False) -> bool:
+def frozen_offload_active(cfg: SMTConfig, mode: str, scan: bool = False, mesh=None) -> bool:
     """int8 frozen base: the dense layer weights are dead in sparse-phase
     compute (planned linears run through wq/sw/base with the exact block
     or column correction, frozen ones through wq/sw), so they move to HOST
     memory and the device holds only the int8 copy. scan: the layout whose
-    base is resolved (channel mode takes int8 only over the scan state)."""
+    base is resolved (channel mode takes int8 only over the scan state).
+    On a mesh only the scan layout offloads, each rank its own replica;
+    the per-layer layout keeps its weights on the device (JAX's rule,
+    convert.py:329-348)."""
     return (bool(cfg.frozen_host_offload)
-            and resolve_frozen_quant(cfg, mode, scan=scan) == "int8")
+            and resolve_frozen_quant(cfg, mode, scan=scan) == "int8"
+            and (mesh is None or scan))
 
 
 def _placeholder(w: torch.Tensor) -> torch.Tensor:

@@ -457,7 +457,7 @@ def _scan_loss(state: Dict, batch: Dict, trainable, cfg: SMTConfig,
 
 
 def build_scan_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan,
-                           lr_sched: Callable) -> Callable:
+                           lr_sched: Callable, mesh=None) -> Callable:
     """Twin of the JAX build_scan_sparse_step: step(state, batch) ->
     (state, {"loss", "grad_norm", "lr"}), the state updated in place (as
     steps.build_sparse_step). The grads of the stacked trainables are
@@ -468,7 +468,9 @@ def build_scan_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan
     moves it. The qk LR boost is keyed by module name. No scatter: the base
     stays int8 and the delta corrects it. The state carries its "sched"
     (attach_schedules). Under fp16 the loss is scaled and an overflowed
-    step skipped, as steps.build_sparse_step does."""
+    step skipped, as steps.build_sparse_step does. With a mesh the stacked
+    trainables' grads are all-reduced as they are, padded entries
+    included (steps.accumulated_value_and_grad)."""
     from sparse_matrix_tuning_tpu_torch.train.steps import (
         _skipped, accumulated_value_and_grad, adam_betas, block_adam, dropout_key,
         unscale_and_check)
@@ -483,13 +485,13 @@ def build_scan_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan
         for t in trainable.values():
             t.requires_grad_(True)
         impl = _resolve_impl(cfg.sparse_impl, state["count"].device)
-        key = dropout_key(cfg, state, sparse=True)
+        key = dropout_key(cfg, state, sparse=True, mesh=mesh)
 
         def loss_of(tr, mb):
             raw = _scan_loss(state, mb, tr, cfg, model_cfg, lowest_layer, key)
             return raw * state["loss_scale"] if use_ls else raw
 
-        vag = accumulated_value_and_grad(loss_of, cfg.gradient_accumulation_steps)
+        vag = accumulated_value_and_grad(loss_of, cfg.gradient_accumulation_steps, mesh)
         loss, grads = vag(trainable, batch)
         with torch.no_grad():
             norm, ls_metrics = None, {}
@@ -511,7 +513,8 @@ def build_scan_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan
 
 
 def build_scan_eval_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan) -> Callable:
-    """The eval loss: the sparse step's forward and loss, no gradient."""
+    """The eval loss: the sparse step's forward and loss, no gradient (under
+    data parallelism this rank's part, steps.build_eval_step)."""
 
     @torch.no_grad()
     def step(state, batch) -> torch.Tensor:

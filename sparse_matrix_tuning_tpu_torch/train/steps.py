@@ -25,6 +25,15 @@ step reads on the host.
 A state is a plain dict of tensors. The steps update it IN PLACE (params,
 optimizer state, counters) where the JAX twin donated its buffers, and
 return it with a dict of 0-dim metric tensors; nothing waits on the device.
+
+Data parallelism (a `mesh`, parallel/mesh.py): each rank steps on its rows
+of the global batch with the global microbatch's valid-token count as the
+loss denominator (batch["loss_denom"], data/sft.shard_batch), and
+accumulated_value_and_grad SUMs the loss and the grads over the ranks
+after the last microbatch's backward: the warm-up's every dense grad, the
+sparse phase's selected blocks or columns, the scan state's stacks. Every
+rank then holds the global batch's loss and grads, so the overflow test,
+the clip norm, the saliency accumulators and the update agree bit for bit.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from sparse_matrix_tuning_tpu_torch.ops.loss import (
     chunked_causal_lm_loss, chunked_causal_lm_loss_q8)
 from sparse_matrix_tuning_tpu_torch.ops.sparse_linear import (
     _resolve_impl, frozen_q8_linear, make_sparse_linear_dispatch)
+from sparse_matrix_tuning_tpu_torch.parallel.mesh import all_reduce_
 from sparse_matrix_tuning_tpu_torch.smt.optimizer import (
     AdamConfig, adam_step, clip_by_global_norm, full_ft_wd_mask, global_norm,
     make_qk_lr_scale,
@@ -54,7 +64,7 @@ def _cast_tree(tree, dtype):
     return tree_map(lambda p: p.to(dtype), tree)
 
 
-def accumulated_value_and_grad(loss_of, accum_steps: int):
+def accumulated_value_and_grad(loss_of, accum_steps: int, mesh=None):
     """Microbatch gradient accumulation (the reference delegates this to the
     DeepSpeed engine). Returns vag(params, batch) -> (mean loss, grads):
     `params` is a flat {key: leaf tensor requiring grad}; the global batch's
@@ -62,7 +72,10 @@ def accumulated_value_and_grad(loss_of, accum_steps: int):
     into .grad, and loss and grads are scaled by 1/accum_steps at the end —
     the JAX twin's sum-then-scale order. Each microbatch loss is a mean over
     its own valid tokens and microbatches weigh equally (DeepSpeed
-    semantics)."""
+    semantics). With a mesh the batch is this rank's rows and each loss
+    its token-loss sum over the global microbatch's count: the loss and
+    the grads are SUM-reduced over the ranks (parallel/mesh.all_reduce_,
+    in buckets) after the last microbatch's backward."""
 
     def vag(params: Dict[str, torch.Tensor], batch):
         for p in params.values():
@@ -79,6 +92,8 @@ def accumulated_value_and_grad(loss_of, accum_steps: int):
             total = loss.detach() if total is None else total + loss.detach()
         grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for k, p in params.items()}
+        if mesh is not None:
+            all_reduce_([total, *grads.values()], mesh)
         if accum_steps > 1:
             inv = 1.0 / accum_steps
             total = total * inv
@@ -109,15 +124,18 @@ def _use_chunked_loss(cfg: SMTConfig, model_cfg: LlamaConfig, sparse: bool = Fal
     return model_cfg.vocab_size >= 16384  # "auto"
 
 
-def dropout_key(cfg: SMTConfig, state: Dict, sparse: bool):
+def dropout_key(cfg: SMTConfig, state: Dict, sparse: bool, mesh=None):
     """The (base seed, step) the step's dropout masks derive from
     (models/llama.dropout_layer_seed), or None without --dropout: base seed
     cfg.seed in the warm-up and cfg.seed + 1 in the sparse phase, as the
-    JAX steps key theirs (steps.py:284, :433; scan_phase.py:784). Reads the
-    step on the host, once a step, only under dropout."""
+    JAX steps key theirs (steps.py:284, :433; scan_phase.py:784). With a
+    mesh, (seed, step, rank, data size): the rank's rows of the global
+    microbatch's mask (models/llama._run). Reads the step on the host,
+    once a step, only under dropout."""
     if cfg.dropout <= 0:
         return None
-    return (cfg.seed + (1 if sparse else 0), int(state["step"]))
+    key = (cfg.seed + (1 if sparse else 0), int(state["step"]))
+    return key if mesh is None else key + (mesh.rank, mesh.data)
 
 
 def compute_loss(params, batch, cfg: SMTConfig, model_cfg: LlamaConfig,
@@ -149,18 +167,19 @@ def head_loss(run, params, batch, cfg: SMTConfig, model_cfg: LlamaConfig, sparse
     or, for the scan state, forward_scan): the loss path and the head as
     compute_loss describes them."""
     b, sq = batch["input_ids"].shape
+    denom = batch.get("loss_denom")  # data parallelism: the global count
     if _use_chunked_loss(cfg, model_cfg, sparse=sparse, batch_tokens=b * (sq - 1)):
         hidden = run(True)
         if q_head is not None:
             return chunked_causal_lm_loss_q8(hidden, q_head["wq"], q_head["sw"],
-                                             batch["labels"], cfg.vocab_chunk)
+                                             batch["labels"], cfg.vocab_chunk, denom)
         return chunked_causal_lm_loss(hidden, lm_head_weight(params, model_cfg),
-                                      batch["labels"], cfg.vocab_chunk)
+                                      batch["labels"], cfg.vocab_chunk, denom)
     if q_head is not None:
         # fp32 input -> fp32 logits straight from the int32 product
         logits = frozen_q8_linear(run(True).float(), q_head["wq"], q_head["sw"])
-        return causal_lm_loss(logits, batch["labels"])
-    return causal_lm_loss(run(False), batch["labels"])
+        return causal_lm_loss(logits, batch["labels"], denom)
+    return causal_lm_loss(run(False), batch["labels"], denom)
 
 
 # ---------------------------------------------------------------------------
@@ -323,7 +342,7 @@ def _target_grad(grads: Dict[str, torch.Tensor], ks: str) -> torch.Tensor:
 
 
 def build_warmup_step(cfg: SMTConfig, model_cfg: LlamaConfig,
-                      lr_sched: Callable) -> Callable:
+                      lr_sched: Callable, mesh=None) -> Callable:
     adam_cfg = AdamConfig(betas=tuple(cfg.warmup_adam_betas), eps=cfg.adam_eps,
                           weight_decay=cfg.w_decay, grad_clip=cfg.grad_clip)
     param_dtype = cfg.param_dtype
@@ -333,7 +352,7 @@ def build_warmup_step(cfg: SMTConfig, model_cfg: LlamaConfig,
 
     def step(state: Dict, batch: Dict) -> tuple:
         master = state["master"]
-        key = dropout_key(cfg, state, sparse=False)
+        key = dropout_key(cfg, state, sparse=False, mesh=mesh)
 
         def loss_of(flat_master, mb):
             params = _cast_tree(master, param_dtype)
@@ -342,7 +361,7 @@ def build_warmup_step(cfg: SMTConfig, model_cfg: LlamaConfig,
             return raw * state["loss_scale"] if use_ls else raw
 
         flat = flatten_tree(master)
-        vag = accumulated_value_and_grad(loss_of, cfg.gradient_accumulation_steps)
+        vag = accumulated_value_and_grad(loss_of, cfg.gradient_accumulation_steps, mesh)
         loss, grads = vag(flat, batch)
 
         with torch.no_grad():
@@ -390,13 +409,20 @@ def _skipped(state: Dict, leaves: Dict[str, torch.Tensor], loss, norm, lr, ls_me
     return state, {"loss": loss, "grad_norm": norm, "lr": lr, **ls_metrics}
 
 
-def build_channel_warmup_step(cfg: SMTConfig, model_cfg: LlamaConfig) -> Callable:
+def build_channel_warmup_step(cfg: SMTConfig, model_cfg: LlamaConfig, mesh=None) -> Callable:
     """The channel warm-up step: a forward only, which does not train
     (reference fine_tune.py:708 `continue`), with the full-logits loss, and
     the activation taps (models/llama._tapped) added into state["act_acc"]:
     padded to max_seq_len rows, or reduced per step by select.channel_stats
     under per_step_stats. Pad positions are excluded by the attention mask,
-    as in the JAX twin (the reference's hooks also sum them)."""
+    as in the JAX twin (the reference's hooks also sum them).
+
+    With a mesh each rank sums |x| over its own rows, and the loss and
+    the taps are SUM-reduced every step, before they are accumulated: every
+    rank's act_acc then holds the global batch's sums (as JAX's taps over
+    the global batch do), so a checkpoint that rank 0 writes mid warm-up
+    restores on every rank (and per_step_stats' L2 statistic, not linear
+    in the taps, reads the global ones)."""
     from sparse_matrix_tuning_tpu_torch.smt.select import channel_stats
     from sparse_matrix_tuning_tpu_torch.train.convert import harvest_strategy
     param_dtype = cfg.param_dtype
@@ -408,7 +434,9 @@ def build_channel_warmup_step(cfg: SMTConfig, model_cfg: LlamaConfig) -> Callabl
         logits = forward(params, batch["input_ids"], model_cfg,
                          attention_mask=batch.get("attention_mask"),
                          activation_taps=taps, attn_impl=cfg.attn_impl)
-        loss = causal_lm_loss(logits, batch["labels"])
+        loss = causal_lm_loss(logits, batch["labels"], batch.get("loss_denom"))
+        if mesh is not None:
+            all_reduce_([loss] + [taps[ks] for ks in state["act_acc"]], mesh)
         for ks, acc in state["act_acc"].items():
             tap = taps[ks]  # (S_batch, in_dim) batch-summed |activation|
             if cfg.saliency_accumulation == "per_step_stats":
@@ -446,7 +474,7 @@ def init_sparse_state(params, trainable, step: int, cfg: Optional[SMTConfig] = N
 
 
 def build_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan,
-                      lr_sched: Callable) -> Callable:
+                      lr_sched: Callable, mesh=None) -> Callable:
     adam_cfg = AdamConfig(betas=tuple(adam_betas(cfg, plan.mode)), eps=cfg.adam_eps,
                           weight_decay=cfg.w_decay, grad_clip=cfg.grad_clip)
     lr_scale = make_qk_lr_scale(cfg.qk_lr_times) if cfg.qk_scheduler else None
@@ -460,7 +488,7 @@ def build_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan,
         trainable = state["trainable"]
         device = next(iter(trainable.values())).device
         impl = _resolve_impl(cfg.sparse_impl, device)
-        key = dropout_key(cfg, state, sparse=True)
+        key = dropout_key(cfg, state, sparse=True, mesh=mesh)
 
         def loss_of(tr, mb):
             linear = make_sparse_linear_dispatch(plan, tr, impl, qweights=state.get("q"))
@@ -470,7 +498,7 @@ def build_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan,
                                q_head=state.get("q_head"), dropout_key=key)
             return raw * state["loss_scale"] if use_ls else raw
 
-        vag = accumulated_value_and_grad(loss_of, cfg.gradient_accumulation_steps)
+        vag = accumulated_value_and_grad(loss_of, cfg.gradient_accumulation_steps, mesh)
         loss, grads = vag(trainable, batch)
         with torch.no_grad():
             norm, ls_metrics = None, {}
@@ -559,7 +587,9 @@ def build_eval_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan=None) -> Callab
 
     plan: needed only when the dense weights were offloaded to the host
     (train/convert.py offload_frozen_to_host): eval then runs the same
-    q8-corrected sparse dispatch as the training forward."""
+    q8-corrected sparse dispatch as the training forward. Under data
+    parallelism the loss is this rank's part (the token-loss sum over the
+    global count, batch["loss_denom"]), which the trainer reduces."""
     param_dtype = cfg.param_dtype
 
     @torch.no_grad()

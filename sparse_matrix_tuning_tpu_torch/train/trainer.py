@@ -1,12 +1,18 @@
 """Two-phase SMT trainer — the orchestration layer (PyTorch twin of
-`sparse_matrix_tuning_tpu.train.trainer`, matrix and channel mode on one
-device).
+`sparse_matrix_tuning_tpu.train.trainer`, matrix and channel mode, on one
+device or data-parallel over a mesh of processes, parallel/mesh.py).
 
 Warm-up -> the one-shot conversion event -> sparse fine-tuning, with the
 eval/save cadences and throughput prints of reference
 deepspeed/fine_tune.py:72-864. In channel mode the warm-up steps only
 harvest activation saliency (steps.build_channel_warmup_step) and do not
 train.
+
+Under data parallelism (`mesh`, `--mesh_shape D,1,1`) every rank holds a
+full replica, takes the identical global batch of B * D * A rows and steps
+on its own rows (data/sft.shard_batch); the steps reduce the grads. Eval
+losses are reduced once per evaluate; rank 0 alone writes metrics, HF
+saves and checkpoints, between barriers.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 from sparse_matrix_tuning_tpu_torch.config import SMTConfig
 from sparse_matrix_tuning_tpu_torch.models.llama import (
     LlamaConfig, all_2d_param_shapes, flatten_tree, resolve_attn_impl, tree_map)
+from sparse_matrix_tuning_tpu_torch.parallel.mesh import all_reduce_, assert_same
 from sparse_matrix_tuning_tpu_torch.smt.optimizer import make_lr_schedule
 from sparse_matrix_tuning_tpu_torch.smt.plan import BLOCK, SMTPlan
 from sparse_matrix_tuning_tpu_torch.train import convert as convert_mod
@@ -37,29 +44,34 @@ class SMTTrainer:
     """Drives warm-up -> selection/conversion -> sparse fine-tuning.
 
     params: initial model params (any float dtype; copied to an fp32 master
-    on `device`, default the params' device). total_steps: optimizer-step
-    horizon for the LR schedule (num_ft_epochs * steps_per_epoch)."""
+    on `device`, default the mesh's or else the params' device).
+    total_steps: optimizer-step horizon for the LR schedule (num_ft_epochs *
+    steps_per_epoch). mesh: parallel/mesh.Mesh for data parallelism (every
+    rank builds its trainer from the same params and seed)."""
 
     def __init__(self, cfg: SMTConfig, model_cfg: LlamaConfig, params,
-                 total_steps: int, device=None):
-        self._init_common(cfg, model_cfg, total_steps,
-                          device if device is not None else params["embed_tokens"].device)
+                 total_steps: int, device=None, mesh=None):
+        if device is None:
+            device = mesh.device if mesh is not None else params["embed_tokens"].device
+        self._init_common(cfg, model_cfg, total_steps, device, mesh)
         self.phase = "warmup"
         self._all_2d_shapes = all_2d_param_shapes(params)
 
         self.state = init_warmup_state(params, cfg, device=self.device)
         warmup_sched = make_lr_schedule(cfg.lr_scheduler_type, cfg.ft_learning_rate,
                                         cfg.lr_warmup_steps, self.total_steps)
-        self._warmup_step = build_warmup_step(cfg, model_cfg, warmup_sched)
+        self._warmup_step = build_warmup_step(cfg, model_cfg, warmup_sched, mesh)
         # channel mode: the steps before full_ft_steps harvest activations
         # and do not train (JAX trainer.py:96-103)
-        self._channel_step = (build_channel_warmup_step(cfg, model_cfg)
+        self._channel_step = (build_channel_warmup_step(cfg, model_cfg, mesh)
                               if cfg.channel_sparsity else None)
         self._sparse_step = None  # built at conversion
         self._eval_step = build_eval_step(cfg, model_cfg)
 
-    def _init_common(self, cfg: SMTConfig, model_cfg: LlamaConfig, total_steps: int, device):
+    def _init_common(self, cfg: SMTConfig, model_cfg: LlamaConfig, total_steps: int, device,
+                     mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
         self.model_cfg = model_cfg
         self.total_steps = int(total_steps)
         self.device = torch.device(device)
@@ -74,7 +86,7 @@ class SMTTrainer:
     @classmethod
     def sparse_scan_from_hf(cls, cfg: SMTConfig, model_dir: str, plan: SMTPlan,
                             total_steps: int, model_cfg: Optional[LlamaConfig] = None,
-                            device="cuda") -> "SMTTrainer":
+                            device="cuda", mesh=None) -> "SMTTrainer":
         """A sparse-phase-only trainer over the int8 scan state, quantized
         while the local HF checkpoint loads (train/scan_phase.
         build_scan_state_from_hf): warm-up and selection ran elsewhere and
@@ -90,7 +102,7 @@ class SMTTrainer:
                              "fp16 (the fp16 loss-scale state is created by the warm-up phase, "
                              "which this entry skips)")
         self = cls.__new__(cls)
-        self._init_common(cfg, model_cfg, total_steps, device)
+        self._init_common(cfg, model_cfg, total_steps, device, mesh)
         self.plan, self._scan, self.phase = plan, True, "sparse"
         self.state, self._host_frozen = build_scan_state_from_hf(cfg, model_dir, plan,
                                                                  model_cfg, device=self.device)
@@ -114,12 +126,13 @@ class SMTTrainer:
             return
         from sparse_matrix_tuning_tpu_torch.train.scan_phase import resolve_scan_layers
         t0 = time.time()
+        assert_same("the step counter at conversion", self.step, self.mesh)
         self._scan = resolve_scan_layers(self.cfg, self.model_cfg,
                                          "matrix" if self.cfg.matrix_sparsity else "channel")
         # the new state drops the warm-up master, moments and accumulators
         self.plan, self.state, self._host_frozen = convert_mod.convert(
             self.cfg, self.state, self._all_2d_shapes, model_cfg=self.model_cfg,
-            scan=self._scan)
+            scan=self._scan, mesh=self.mesh)
         self.install_sparse_phase()
 
         total = sum(p.numel() for p in flatten_tree(self.state["params"]).values())
@@ -145,12 +158,12 @@ class SMTTrainer:
             from sparse_matrix_tuning_tpu_torch.train import scan_phase
             scan_phase.attach_schedules(self.state)
             self._sparse_step = scan_phase.build_scan_sparse_step(
-                self.cfg, self.model_cfg, self.plan, sparse_sched)
+                self.cfg, self.model_cfg, self.plan, sparse_sched, self.mesh)
             self._eval_step = scan_phase.build_scan_eval_step(self.cfg, self.model_cfg,
                                                               self.plan)
             return
         self._sparse_step = build_sparse_step(self.cfg, self.model_cfg, self.plan,
-                                              sparse_sched)
+                                              sparse_sched, self.mesh)
         if self._host_frozen is not None:
             # dense weights left the device: the eval loss must run the same
             # q8-corrected dispatch as the training forward
@@ -158,8 +171,16 @@ class SMTTrainer:
 
     # -- steps ------------------------------------------------------------------------
 
-    def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(np.asarray(v)).to(self.device, torch.int64)
+    def _to_device(self, batch: Dict[str, np.ndarray], accum: int = 1
+                   ) -> Dict[str, torch.Tensor]:
+        """The step's batch on the device: the global batch, or on a mesh
+        this rank's rows of its `accum` microbatches with their global
+        valid-token counts (data/sft.shard_batch)."""
+        if self.mesh is not None:
+            from sparse_matrix_tuning_tpu_torch.data.sft import shard_batch
+            batch = shard_batch(batch, self.mesh, accum)
+        return {k: torch.as_tensor(np.asarray(v)).to(
+                    self.device, torch.float32 if k == "loss_denom" else torch.int64)
                 for k, v in batch.items()}
 
     def _check_right_padding(self, batch: Dict[str, np.ndarray]):
@@ -191,7 +212,7 @@ class SMTTrainer:
         fine_tune.py:248-844). Returns 0-dim metric tensors."""
         self._check_right_padding(batch)
         self.maybe_convert()
-        batch = self._to_device(batch)
+        batch = self._to_device(batch, self.cfg.gradient_accumulation_steps)
         if self.phase == "sparse":
             self.state, metrics = self._sparse_step(self.state, batch)
         elif self.cfg.channel_sparsity:
@@ -203,11 +224,17 @@ class SMTTrainer:
         return metrics
 
     def evaluate(self, eval_batches: Iterable[Dict[str, np.ndarray]]):
-        """Mean eval loss + perplexity (reference helper.py:210-245)."""
+        """Mean eval loss + perplexity (reference helper.py:210-245): each
+        global batch's loss is token-weighted over the whole batch (on a
+        mesh the ranks' parts, summed in one all-reduce), and the batches
+        weigh equally, as JAX's evaluate."""
         losses = [self._eval_step(self.state, self._to_device(b)) for b in eval_batches]
         if not losses:
             return float("inf"), float("inf")
-        loss = float(torch.mean(torch.stack(losses)))
+        losses = torch.stack(losses)
+        if self.mesh is not None:
+            all_reduce_([losses], self.mesh)
+        loss = float(torch.mean(losses))
         return float(np.exp(min(loss, 80.0))), loss
 
     # -- full training loop ------------------------------------------------------------
@@ -217,8 +244,11 @@ class SMTTrainer:
         from sparse_matrix_tuning_tpu_torch.data.sft import batch_iterator, num_batches
 
         cfg = self.cfg
-        global_bs = cfg.per_device_ft_batch_size * cfg.gradient_accumulation_steps
-        eval_bs = cfg.per_device_eval_batch_size
+        n_dev = 1 if self.mesh is None else self.mesh.data
+        # effective batch = per-device x devices x accumulation (JAX
+        # trainer.py:379-385, reference fine_tune.py:96-102)
+        global_bs = cfg.per_device_ft_batch_size * n_dev * cfg.gradient_accumulation_steps
+        eval_bs = cfg.per_device_eval_batch_size * n_dev
         steps_per_epoch = num_batches(len(train_ds), global_bs)
 
         self.reporter = ThroughputReporter(
@@ -226,7 +256,7 @@ class SMTTrainer:
             num_layers=self.model_cfg.num_hidden_layers,
             hidden_size=self.model_cfg.hidden_size,
             vocab_size=self.model_cfg.vocab_size,
-            num_devices=1, every=cfg.throughput_steps)
+            num_devices=n_dev, every=cfg.throughput_steps)
 
         def eval_batches():
             return batch_iterator(eval_ds, eval_bs, pad_token_id,
@@ -249,6 +279,7 @@ class SMTTrainer:
                                                       cfg.seq_buckets, cfg.seed, epoch)):
                 if bi < to_skip:
                     continue
+                reduced_at = self.mesh.stats["bytes"] if self.mesh is not None else 0
                 metrics = self.train_step(batch)
                 loss = float(metrics["loss"])
                 if not np.isfinite(loss):
@@ -275,8 +306,10 @@ class SMTTrainer:
                 if rep:
                     print_rank_0({"throughput": rep})
                 if step % cfg.log_steps == 0:
+                    reduced = "" if self.mesh is None else \
+                        f" all-reduced {(self.mesh.stats['bytes'] - reduced_at) / 1e6:.1f} MB"
                     print_rank_0(f"step {step} loss {loss:.4f} lr "
-                                 f"{float(metrics.get('lr', 0)):.3e} phase {self.phase}")
+                                 f"{float(metrics.get('lr', 0)):.3e} phase {self.phase}{reduced}")
                 if on_metrics:
                     on_metrics(step, metrics)
 
@@ -367,8 +400,9 @@ class SMTTrainer:
         return prepare_decode_params(merged, self.model_cfg)
 
     def _log_metrics(self, step: int, metrics: Dict):
-        """One JSON line per step into {output_dir}/metrics.jsonl."""
-        if not self.cfg.output_dir:
+        """One JSON line per step into {output_dir}/metrics.jsonl (rank 0:
+        the metrics are the global batch's on every rank)."""
+        if not self.cfg.output_dir or (self.mesh is not None and not self.mesh.is_main):
             return
         os.makedirs(self.cfg.output_dir, exist_ok=True)
         rec = {"step": step, "phase": self.phase,
@@ -376,21 +410,34 @@ class SMTTrainer:
         with open(os.path.join(self.cfg.output_dir, "metrics.jsonl"), "a") as f:
             f.write(json.dumps(rec) + "\n")
 
+    def _on_rank_0(self, write):
+        """write() in rank 0 only, between barriers on a mesh: every rank has
+        reached the save, and none goes on before the files are complete."""
+        if self.mesh is None:
+            return write()
+        self.mesh.barrier()
+        if self.mesh.is_main:
+            write()
+        self.mesh.barrier()
+
     def _save_resumable(self):
         """The full train state at {output_dir}/ckpt, what --resume_from
         reads (train/checkpoint.py; the HF-format saves are weights only)."""
         if not self.cfg.output_dir:
             return
         from sparse_matrix_tuning_tpu_torch.train.checkpoint import save_checkpoint
-        save_checkpoint(os.path.join(self.cfg.output_dir, "ckpt"), self)
+        self._on_rank_0(lambda: save_checkpoint(os.path.join(self.cfg.output_dir, "ckpt"), self))
 
     def _save(self, tag: str, tokenizer=None):
         if not self.cfg.output_dir:
             return
         from sparse_matrix_tuning_tpu_torch.models.hf_io import save_hf_format
         out = os.path.join(self.cfg.output_dir, tag)
-        save_hf_format(self.merged_params(), self.model_cfg, out, tokenizer)
-        if self.plan is not None:
-            with open(os.path.join(out, "smt_plan.json"), "w") as f:
-                f.write(self.plan.to_json())
+
+        def write():
+            save_hf_format(self.merged_params(), self.model_cfg, out, tokenizer)
+            if self.plan is not None:
+                with open(os.path.join(out, "smt_plan.json"), "w") as f:
+                    f.write(self.plan.to_json())
+        self._on_rank_0(write)
         print_rank_0(f"[save] {out}")

@@ -10,8 +10,8 @@ import torch
 
 
 def print_rank_0(msg, rank: int | None = None):
-    """Print once per job. The port runs one process, which is rank 0
-    unless torch.distributed says otherwise."""
+    """Print once per job: in rank 0 of an initialised torch.distributed
+    group (data parallelism, parallel/mesh.py), else always."""
     if rank is None:
         dist = torch.distributed
         rank = dist.get_rank() if dist.is_available() and dist.is_initialized() else 0

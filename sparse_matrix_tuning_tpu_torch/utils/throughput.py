@@ -33,7 +33,9 @@ H100_BF16_PEAK_FLOPS = 989e12
 @dataclass
 class ThroughputReporter:
     """Rank-0, every-N-steps throughput print (reference print_throughput,
-    cadence fine_tune.py:779-783)."""
+    cadence fine_tune.py:779-783). batch_size is the global batch and
+    num_devices the data-parallel ranks it is split over: the per-device
+    rates divide by it."""
     batch_size: int
     seq_length: int
     num_layers: int

@@ -35,7 +35,8 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 need = {pkg.__name__ + m for m in (".ops.quant", ".ops.loss", ".ops.cuda.q8_matmul",
                                    ".ops.cuda.correction", ".ops.cuda.q4_matmul",
-                                   ".train.scan_phase", ".train.checkpoint")}
+                                   ".train.scan_phase", ".train.checkpoint",
+                                   ".parallel.mesh")}
 sys.exit(1 if bad or len(names) < 20 or not need <= set(names) else 0)
 """
 
@@ -118,3 +119,15 @@ def test_int8_path_on_cpu_launches_no_row_quant_kernel():
     labels = torch.randint(0, 48, (2, 5))
     chunked_causal_lm_loss_q8(hidden, wq, sw, labels, vocab_chunk=16).backward()
     assert not any(rq.LAUNCHES.values()) and not any(k4.LAUNCHES.values())
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py, which runs on the GPU machine, imports neither jax nor
+    the JAX package (its rank processes included: they are its functions)."""
+    import ast
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module or "" for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+    bad = [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "sparse_matrix_tuning_tpu")]
+    assert not bad, bad
+    assert "sparse_matrix_tuning_tpu_torch.parallel.mesh" in names

@@ -1,0 +1,157 @@
+"""Rank processes of the data-parallel tests (tests/test_torch_parallel*.py).
+
+The targets of torch.multiprocessing.spawn live in this module, which
+imports no JAX, so that a rank imports only torch and the port. Each rank
+joins a gloo group through a file:// store under the test's tmp_path
+(never a fixed port: the suite runs in parallel workers; a collective that
+waits longer than TIMEOUT_S fails the rank instead of hanging), builds a
+parallel/mesh.Mesh of (world, 1, 1), runs every scenario it is given on its
+rows of the global batches, and writes what it saw to
+{out_dir}/{name}.{rank}.pt. A scenario that raises writes its traceback
+instead, so that only its own test fails.
+
+run_scenario is shared with the tests' one-process (D=1) runs: the same
+code at mesh None.
+"""
+from __future__ import annotations
+
+import os
+import traceback
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from sparse_matrix_tuning_tpu_torch.config import SMTConfig
+from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig, flatten_tree
+from sparse_matrix_tuning_tpu_torch.parallel.mesh import (
+    init_distributed, leaf_checksums, make_mesh)
+from sparse_matrix_tuning_tpu_torch.smt.plan import SMTPlan
+from sparse_matrix_tuning_tpu_torch.train.trainer import SMTTrainer
+
+
+TIMEOUT_S = 120
+
+
+def spawn(target, world: int, tmp_path, *args):
+    """Run target(rank, world, store, *args) in `world` spawned processes."""
+    store = os.path.join(str(tmp_path), "store")
+    mp.spawn(target, args=(world, store, *args), nprocs=world, join=True)
+
+
+def _join(rank: int, world: int, store: str):
+    torch.set_num_threads(1)
+    device = init_distributed(torch.device("cpu"), init_method=f"file://{store}",
+                              rank=rank, world_size=world, timeout_s=TIMEOUT_S)
+    return make_mesh((world, 1, 1), device=device)
+
+
+def state_leaves(trainer):
+    return flatten_tree({k: v for k, v in trainer.state.items() if k != "sched"})
+
+
+def build_trainer(spec, mesh=None):
+    cfg = SMTConfig(**spec["cfg"], mesh_shape=list(mesh.shape) if mesh else None)
+    model_cfg = LlamaConfig(**spec["model"])
+    if "from_hf" in spec:
+        with open(spec["plan"]) as f:
+            plan = SMTPlan.from_json(f.read())
+        return SMTTrainer.sparse_scan_from_hf(cfg, spec["from_hf"], plan, spec["total_steps"],
+                                              model_cfg=model_cfg, device="cpu", mesh=mesh)
+    params = torch.load(spec["params"], weights_only=True)
+    return SMTTrainer(cfg, model_cfg, params, spec["total_steps"], device="cpu", mesh=mesh)
+
+
+def run_scenario(spec, mesh=None):
+    """Train on spec's global batches; returns the metrics of every step,
+    the plan's fingerprint, the eval loss, the state's leaf checksums and
+    the all-reduce's counters."""
+    trainer = build_trainer(spec, mesh)
+    batches = torch.load(spec["batches"], weights_only=False)
+    n_master = sum(t.numel() for t in flatten_tree(trainer.state.get("master", {})).values())
+    metrics = []
+    for b in batches:
+        before = dict(mesh.stats) if mesh is not None else {"bytes": 0}
+        m = {k: float(v) for k, v in trainer.train_step(b).items()}
+        if mesh is not None:
+            m["reduced_bytes"] = mesh.stats["bytes"] - before["bytes"]
+        metrics.append(m)
+    eval_loss = trainer.evaluate(torch.load(spec["eval_batches"], weights_only=False))[1]
+    return {"metrics": metrics, "fingerprint": trainer.plan.fingerprint(),
+            "n_master": n_master,
+            "n_trainable": sum(t.numel() for t in trainer.state["trainable"].values()),
+            "eval_loss": eval_loss, "checksums": leaf_checksums(state_leaves(trainer)),
+            "phase": trainer.phase, "scan": trainer._scan,
+            "host_frozen": trainer._host_frozen is not None, "int8": "q" in trainer.state,
+            "stats": dict(mesh.stats) if mesh is not None else None}
+
+
+def train_ranks(rank: int, world: int, store: str, specs, out_dir: str):
+    mesh = _join(rank, world, store)
+    for spec in specs:
+        try:
+            out = run_scenario(spec, mesh)
+        except Exception:  # recorded: the scenario's own test reports it
+            out = {"error": traceback.format_exc()}
+        torch.save(out, os.path.join(out_dir, f"{spec['name']}.{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def checkpoint_ranks(rank: int, world: int, store: str, spec, stop: int, out_dir: str):
+    """A straight run and the same stopped after step `stop`
+    (trainer._save_resumable: rank 0 writes between barriers) and resumed
+    in a fresh trainer on every rank: the losses and the leaf checksums
+    after every step (the warm-up's accumulators included), the plans'
+    fingerprints and the last leaves of both."""
+    from sparse_matrix_tuning_tpu_torch.train.checkpoint import restore_checkpoint
+    mesh = _join(rank, world, store)
+    batches = torch.load(spec["batches"], weights_only=False)
+
+    def steps(trainer, bs):
+        out = []
+        for b in bs:
+            loss = float(trainer.train_step(b)["loss"])
+            out.append((loss, leaf_checksums(state_leaves(trainer))))
+        return out
+
+    straight = build_trainer(spec, mesh)
+    s_steps = steps(straight, batches)
+    first = build_trainer(spec, mesh)
+    r_steps = steps(first, batches[:stop])
+    saved_phase = first.phase
+    first._save_resumable()
+    resumed = build_trainer(spec, mesh)
+    restore_checkpoint(os.path.join(spec["cfg"]["output_dir"], "ckpt"), resumed)
+    r_steps += steps(resumed, batches[stop:])
+    torch.save({"straight": [x[0] for x in s_steps], "resumed": [x[0] for x in r_steps],
+                "straight_sums": [x[1] for x in s_steps],
+                "resumed_sums": [x[1] for x in r_steps],
+                "saved_phase": saved_phase, "phase": resumed.phase,
+                "fingerprints": (straight.plan.fingerprint(), resumed.plan.fingerprint()),
+                "straight_leaves": {k: v.detach().clone() for k, v in
+                                    state_leaves(straight).items()},
+                "resumed_leaves": {k: v.detach().clone() for k, v in
+                                   state_leaves(resumed).items()}},
+               os.path.join(out_dir, f"ckpt.{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def cli_ranks(rank: int, world: int, store: str, module: str, argv, out_dir: str):
+    """A CLI's main(argv) as torchrun starts it: RANK, WORLD_SIZE and the
+    rendezvous in the environment (a file:// store in place of
+    MASTER_ADDR), the CLI initialising the group itself."""
+    import importlib
+    torch.set_num_threads(1)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+    from sparse_matrix_tuning_tpu_torch.parallel import mesh as mesh_mod
+    init = mesh_mod.init_distributed
+
+    def file_store_init(device=None, backend=None, init_method=None, **kw):
+        return init(device, backend, init_method or f"file://{store}", timeout_s=TIMEOUT_S,
+                    **kw)
+
+    mesh_mod.init_distributed = file_store_init
+    out = importlib.import_module(module).main(list(argv))
+    torch.save({"result": out if not isinstance(out, dict) or "train_loss" not in out
+                else {k: list(v) for k, v in out.items()}},
+               os.path.join(out_dir, f"cli.{rank}.pt"))
