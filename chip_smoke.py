@@ -136,7 +136,20 @@ Phases, in order; any failure raises and the exit code is non-zero:
      all-reduced per step, the blocks where P's plan leaves A's with their
      scores (log_selection_margin); PE, the eval harness split by rank
      stride over A's export, tokens equal D1's; PN, NCCL: one rank (two
-     on a two-card machine), bucketed sums exact, one step.
+     on a two-card machine), bucketed sums exact, one step;
+ 13. the fsdp axis (in the same spawn as P, a (1, 2, 1) mesh over the
+     same two gloo ranks; parallel/fsdp.py): F0, tiny fp32 dense and
+     int8 at (1, 2, 1) and dense at (2, 2, 1) over four gloo ranks,
+     against the same one-process references as P0 at P0's bounds, every
+     kernel launched on each rank; F, A's path at (1, 2, 1) at A's global
+     batch, held to A at P's bounds, with per rank the ms/step by phase,
+     the gathered, reduce-scattered and all-reduced bytes and calls a
+     step, the state's bytes here against the full leaves', the gathered
+     layers alive at once and the warm-up and sparse peaks beside P's,
+     each rank's warm-up peak at least FSDP_PEAK_GAIN_GIB under P's; FE,
+     rank 0's export equal to the gathered state on each rank; FN, the
+     fsdp collectives and fsdp.gather's forward and backward through
+     NCCL (PN's rank), exact.
 Before the references, K6 (the int4 unpack-matmul) runs at eight shapes
 (K6_SHAPES: the TinyLlama linears at the eval decode's 64 rows, 16 and a
 ragged 7, Llama-3-8B's gate) and on the layer views of a stack (K6s),
@@ -294,11 +307,12 @@ K6_SHAPES = [
     (7, 2048, 256, "fp32", "ragged T, fp32 out (an fp32 model's k/v)", False),
     (64, 4096, 14336, "bf16", "Llama-3-8B gate at the eval decode", True),
 ]
-K6_STACK = (3, 64, 2048, 2048)
+K6_STACK = (3, 64, 2048, 2048)  # K6s: layers, T, I, O; K6 on the views of layers 1 and 2
 # runs R and R2 (resume) at TinyLlama's width, depth cut to keep the whole
-# script near half its time limit: R (per-layer state) 8 layers, R2 12, the
-# least depth at which channel + int8 takes the scan state (J's layout)
-R_LAYERS, R2_LAYERS = 8, 12  # K6s: layers, T, I, O; K6 on the views of layers 1 and 2
+# script near half its time limit: R (per-layer state) 4 layers (8 until the
+# fsdp phases came), R2 12, the least depth at which channel + int8 takes
+# the scan state (J's layout)
+R_LAYERS, R2_LAYERS = 4, 12
 # tiny quantized generation, GPU against CPU: logits of each forward call
 # before the decodes part, relative to the call's largest |logit|. Flipped
 # int8 steps and bf16 roundings of K6 inputs, carried through the cache,
@@ -2017,7 +2031,15 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
     ("reduced_bytes", "reduce_ms"), the ranks' master, m and v must be bit
     for bit equal after the warm-up and the trainables, m and v after fit
     ("checksums" holds the leaves compared), and the per-layer int8 base
-    keeps its dense weights on the device, as JAX's rule has it. thin:
+    keeps its dense weights on the device, as JAX's rule has it. Over
+    the fsdp axis (a mesh with F > 1: bs is per rank, the global batch bs *
+    D * F) the ranks hold different shards: the replicas compared are the
+    ranks of one data group after the warm-up and the gathered trainables,
+    m and v after fit; each step's collective counters are kept
+    ("collectives": all-reduced, gathered and reduce-scattered bytes and
+    calls) and the state's bytes on this rank beside the full leaves'
+    ("state_bytes", after the trainer's build and after the conversion);
+    the merged weights and the export are the gathered state. thin:
     rows of every global training batch that keep only 4 valid labels
     (thin_rows). The warm-up steps' grad norms are kept
     ("warmup_grad_norm"), and in matrix mode the block scores selection
@@ -2048,7 +2070,7 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
         attn_impl=attn_impl, output_dir=out_dir, frozen_quant=frozen_quant,
         loss_impl=loss_impl, **(cfg_extra or {}))
     n_steps = full_ft_steps + sparse_steps
-    global_bs = bs * (mesh.data if mesh is not None else 1)
+    global_bs = bs * (mesh.batch_shards if mesh is not None else 1)
     train_ds = synthetic_sft(n_steps * global_bs, seq, model_cfg.vocab_size, 1)
     eval_ds = synthetic_sft(eval_batches * global_bs, seq, model_cfg.vocab_size, 2)
 
@@ -2078,12 +2100,26 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
 
     summary = {"n_params": n_params, "step_ms": [], "phase": [], "loss": [], "grad_norm": [],
                "warmup_grad_norm": [], "peak": {}, "loss_scale": [], "overflow": [],
-               "reduced_bytes": [], "reduce_ms": [], "checksums": 0}
-    reduced = {"bytes": 0, "seconds": 0.0}  # at the last step's end
+               "reduced_bytes": [], "reduce_ms": [], "checksums": 0, "collectives": [],
+               "state_bytes": {"build": state_bytes(trainer)}}
+    reduced = {"bytes": 0, "seconds": 0.0, "stats": {}}  # at the last step's end
+    sh = trainer.sharding
 
-    def same_replicas(what, keys):
-        from sparse_matrix_tuning_tpu_torch.parallel.mesh import assert_same, leaf_checksums
+    def same_replicas(what, keys, gathered=False):
+        """Bit-equal leaves on every rank (under fsdp: the ranks of a data
+        group, or with `gathered` the full leaves on every rank)."""
+        from sparse_matrix_tuning_tpu_torch.parallel.mesh import (
+            assert_same, gather_objects, leaf_checksums)
         leaves = flatten_tree({k: trainer.state[k] for k in keys})
+        if sh is not None and gathered:
+            leaves = {k: sh.full(k, t) for k, t in leaves.items()}
+        elif sh is not None:
+            sums = gather_objects(leaf_checksums(leaves), mesh)
+            f = mesh.fsdp
+            if any(sums[r] != sums[r % f] for r in range(mesh.world)):
+                raise AssertionError(f"{what}: the leaf checksums differ within a data group")
+            summary["checksums"] += len(leaves)
+            return
         assert_same(f"{what}: the leaf checksums", leaf_checksums(leaves), mesh)
         summary["checksums"] += len(leaves)
     summary["loss_path"] = {
@@ -2100,7 +2136,10 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
         if mesh is not None:
             summary["reduced_bytes"].append(mesh.stats["bytes"] - reduced["bytes"])
             summary["reduce_ms"].append((REDUCE_S[0] - reduced["seconds"]) * 1e3)
-            reduced.update(bytes=mesh.stats["bytes"], seconds=REDUCE_S[0])
+            summary["collectives"].append({k: v - reduced["stats"].get(k, 0)
+                                           for k, v in mesh.stats.items()})
+            reduced.update(bytes=mesh.stats["bytes"], seconds=REDUCE_S[0],
+                           stats=dict(mesh.stats))
         summary["phase"].append(trainer.phase)
         summary["loss"].append(float(metrics["loss"]))
         if trainer.phase == "sparse":
@@ -2114,7 +2153,10 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
             summary["peak"]["warmup"] = peak_and_reset()
             summary["launches_warmup"] = launches()
             if "acc" in trainer.state:
-                summary["block_scores"] = block_scores(cfg, trainer.state["acc"])
+                acc = trainer.state["acc"]
+                if sh is not None:
+                    acc = {ks: sh.full(f"acc/{ks}", g) for ks, g in acc.items()}
+                summary["block_scores"] = block_scores(cfg, acc)
             if mesh is not None:
                 same_replicas("after the warm-up", ("master", "m", "v"))
             # dense weights at conversion: the master cast to the param dtype
@@ -2131,6 +2173,7 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
             peak_and_reset()
         elif step == full_ft_steps + 1:
             summary["peak"]["conversion_and_first_sparse"] = peak_and_reset()
+            summary["state_bytes"]["sparse"] = state_bytes(trainer)
         elif step == n_steps:
             summary["peak"]["later_sparse_steps"] = peak_and_reset()
         marks["exit"] = time.perf_counter()
@@ -2145,7 +2188,7 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
     sync()
     t_fit_end = time.perf_counter()
     if mesh is not None:
-        same_replicas("after fit", ("trainable", "m", "v"))
+        same_replicas("after fit", ("trainable", "m", "v"), gathered=True)
     summary["launches"] = launches()
     summary["eval_and_export_s"] = t_fit_end - marks["exit"]
     summary["peak"]["eval_and_export"] = peak_and_reset()
@@ -2271,11 +2314,32 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
     return summary
 
 
+def state_bytes(trainer):
+    """The state's tensor bytes on this rank and those of the full leaves:
+    {"here", "full"} over every leaf, {"split_here", "split_full"} over
+    the fsdp-sharded ones (here = full without fsdp)."""
+    from sparse_matrix_tuning_tpu_torch.models.llama import flatten_tree
+    sh = trainer.sharding
+    out = dict.fromkeys(("here", "full", "split_here", "split_full"), 0)
+    for k, t in flatten_tree({k: v for k, v in trainer.state.items() if k != "sched"}).items():
+        here = t.numel() * t.element_size()
+        full = here if sh is None or sh.dim(k) is None else here * sh.f
+        out["here"] += here
+        out["full"] += full
+        if full != here:
+            out["split_here"] += here
+            out["split_full"] += full
+    return out
+
+
 def trained_entries(trainer, ks):
     """Linear ks's trained blocks (n, 256, 256) or columns (O, n), in its
-    plan's order, from the per-layer state or from the stacks of the scan
-    state (whose valid entries come first, in plan order)."""
+    plan's order, from the per-layer state (gathered under fsdp) or from
+    the stacks of the scan state (whose valid entries come first, in plan
+    order)."""
     trainable = trainer.state["trainable"]
+    if trainer.sharding is not None:
+        return trainer.sharding.full(f"trainable/{ks}", trainable[ks])
     if not trainer._scan:
         return trainable[ks]
     lp = trainer.plan.linears[ks]
@@ -3668,28 +3732,34 @@ P_GNORM_RTOL = 5e-2
 P0_RTOL, P0_INT8_RTOL = 2e-4, 1e-3
 P0_KW = dict(dtype="fp32", seq=64, full_ft_steps=2, sparse_steps=4, eval_batches=1,
              ratios=(0.05, 0.05), log_fn=lambda m: None, thin=(2, 3))
+# F's warm-up peak on a rank under P's: half of the fp32 master and two
+# moments (12.3 GiB at TinyLlama) leaves each of the two ranks
+FSDP_PEAK_GAIN_GIB = 5.0
 PE_PROMPTS = 16
 DP_TIMEOUT_S = 600  # a collective that waits longer fails the rank
-REDUCE_S = [0.0]  # a rank's seconds in dist.all_reduce, between device syncs (_time_all_reduce)
+REDUCE_S = [0.0]  # a rank's seconds in its collectives, between device syncs
 
 
-def _time_all_reduce():
-    """Wrap torch.distributed.all_reduce in this rank so that each call is
-    timed between two device syncs into REDUCE_S: the all-reduce's own
-    time, whatever the backend does asynchronously."""
+def _time_collectives():
+    """Wrap torch.distributed's all_reduce, all_gather_into_tensor and
+    reduce_scatter_tensor in this rank so that each call is timed between
+    two device syncs into REDUCE_S: the collective's own time, whatever the
+    backend does asynchronously."""
     import torch
     import torch.distributed as dist
-    orig = dist.all_reduce
 
-    def timed(tensor, *args, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = orig(tensor, *args, **kw)
-        torch.cuda.synchronize()
-        REDUCE_S[0] += time.perf_counter() - t0
-        return out
+    def timed(orig):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*args, **kw)
+            torch.cuda.synchronize()
+            REDUCE_S[0] += time.perf_counter() - t0
+            return out
+        return call
 
-    dist.all_reduce = timed
+    for name in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor"):
+        setattr(dist, name, timed(getattr(dist, name)))
 
 
 def _rank_setup():
@@ -3746,26 +3816,34 @@ def _pe_job(mesh, export_dir):
             "peak_gib": torch.cuda.max_memory_allocated() / 1024 ** 3}
 
 
-def dp_rank(rank, world, port, jobs, out_dir):
-    """One gloo rank on cuda:0 (torch.multiprocessing spawn target): the
-    CUDA-tensor check, then each job of `jobs` over one (world, 1, 1) mesh:
+def dp_rank(rank, world, port, jobs, out_dir, shape=None, backend="gloo"):
+    """One gloo rank on cuda:0 (torch.multiprocessing spawn target; with
+    backend "nccl" one NCCL rank on cuda:rank, no CUDA-tensor check): the
+    CUDA-tensor check, then each job of `jobs` over a (world, 1, 1) mesh:
     ("P0", frozen_quant) the tiny fp32 pair, ("P", layers) TinyLlama as run
-    A at bs 2 a rank, ("PE", export_dir) the rank-split eval. Writes
-    {out_dir}/dp.{rank}.pt."""
+    A at bs 2 a rank, ("PE", export_dir) the rank-split eval; and over a
+    (1, world, 1) mesh, the fsdp axis (or `shape` where given): ("F0",
+    frozen_quant) the tiny fp32 pair at bs 4 / world a rank, ("F", (layers,
+    export_dir)) TinyLlama as run A at A's global batch with the export
+    (FE). Writes {out_dir}/dp.{rank}.pt."""
     import torch
     import torch.distributed as dist
     _rank_setup()
     from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
+    from sparse_matrix_tuning_tpu_torch.parallel import fsdp as fsdp_mod
     from sparse_matrix_tuning_tpu_torch.parallel.mesh import init_distributed, make_mesh
-    device = init_distributed(torch.device("cuda", 0), backend="gloo",
-                              init_method=f"tcp://localhost:{port}", rank=rank,
+    device = init_distributed(torch.device("cuda", 0 if backend == "gloo" else rank),
+                              backend=backend, init_method=f"tcp://localhost:{port}", rank=rank,
                               world_size=world, timeout_s=DP_TIMEOUT_S)
-    out = {"backend": dist.get_backend(), "gloo_cuda": _gloo_takes_cuda(rank, world)}
-    if not out["gloo_cuda"]["ok"]:
-        raise RuntimeError(f"rank {rank}: gloo does not take CUDA tensors on this torch: "
-                           f"{out['gloo_cuda']['error']}")
-    mesh = make_mesh((world, 1, 1), device=device)
-    _time_all_reduce()
+    out = {"backend": dist.get_backend(), "gloo_cuda": None}
+    if backend == "gloo":
+        out["gloo_cuda"] = _gloo_takes_cuda(rank, world)
+        if not out["gloo_cuda"]["ok"]:
+            raise RuntimeError(f"rank {rank}: gloo does not take CUDA tensors on this torch: "
+                               f"{out['gloo_cuda']['error']}")
+    mesh = make_mesh((world, 1, 1), device=device) if shape is None else None
+    fmesh = make_mesh(shape or (1, world, 1), device=device)
+    _time_collectives()
     for tag, arg in jobs:
         t0 = time.time()
         if tag == "P0":
@@ -3775,10 +3853,20 @@ def dp_rank(rank, world, port, jobs, out_dir):
             cfg = LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": arg})
             s = run_main_path(cfg, device, bs=2, mesh=mesh,
                               log_fn=(lambda m: log(f"[P rank {rank}] {m}")))
+        elif tag == "F0":
+            fsdp_mod.LIVE.update(now=0, peak=0)
+            s = run_main_path(LlamaConfig.tiny(vocab_size=512), device, bs=4 // world,
+                              mesh=fmesh, frozen_quant=arg, **P0_KW)
+        elif tag == "F":
+            fsdp_mod.LIVE.update(now=0, peak=0)
+            cfg = LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": arg[0]})
+            s = run_main_path(cfg, device, bs=4 // world, mesh=fmesh, out_dir=arg[1],
+                              log_fn=(lambda m: log(f"[F rank {rank}] {m}")))
         else:
             s = _pe_job(mesh, arg)
         s["seconds"] = time.time() - t0
-        out[f"{tag}:{arg}"] = s
+        s["live_peak"] = fsdp_mod.LIVE["peak"]
+        out[tag if tag == "F" else f"{tag}:{arg}"] = s
         torch.cuda.empty_cache()
     torch.save(out, os.path.join(out_dir, f"dp.{rank}.pt"))
     dist.destroy_process_group()
@@ -3842,26 +3930,223 @@ def pn_rank(rank, world, port, out_dir):
             raise AssertionError(f"PN: the one NCCL rank's step differs from one process's: "
                                  f"loss {loss} vs {ref_loss}")
         np.testing.assert_allclose(loss, ref_loss, rtol=P0_RTOL)
+    out["fn"] = fn_collectives(rank, world, device)
     torch.save(out, os.path.join(out_dir, f"pn.{rank}.pt"))
     dist.destroy_process_group()
 
 
-def _spawn(fn, world, *args):
+def fn_collectives(rank, world, device):
+    """FN: the fsdp axis's collectives through NCCL at (1, world, 1):
+    all_gather_ and reduce_scatter_ of fp32, bf16 and int8 tensors (whose
+    results are exact: small integers), then fsdp.gather's forward and its
+    backward's reduce-scatter through autograd, each held exactly to what
+    the ranks' inputs make."""
+    import torch
+    from sparse_matrix_tuning_tpu_torch.parallel.fsdp import gather
+    from sparse_matrix_tuning_tpu_torch.parallel.mesh import (
+        all_gather_, make_mesh, reduce_scatter_)
+    mesh = make_mesh((1, world, 1), device=device)
+
+    def vals(r, n, dt):
+        return ((torch.arange(n, device=device) % 7) + 3 * r).to(dt)
+
+    cases = []
+    for dt, n in ((torch.float32, 4099), (torch.bfloat16, 1000), (torch.int8, 517)):
+        got = all_gather_(vals(rank, n, dt), mesh)
+        want = torch.cat([vals(r, n, dt) for r in range(world)])
+        full = torch.cat([vals(r + rank, n, dt) for r in range(world)])
+        mine = reduce_scatter_(full.clone(), mesh)
+        want_rs = sum(torch.cat([vals(r + q, n, dt) for r in range(world)]).float()
+                      for q in range(world))[rank * n:(rank + 1) * n].to(dt)
+        if not (torch.equal(got, want) and torch.equal(mine, want_rs)):
+            raise AssertionError(f"FN: {dt} all-gather or reduce-scatter is not exact")
+        cases.append(f"{str(dt).split('.')[-1]} x {n}")
+    shard = (vals(rank, 12, torch.float32).reshape(3, 4) + 1).requires_grad_(True)
+    w = torch.arange(3 * 4 * world, device=device, dtype=torch.float32).reshape(3, 4 * world)
+    (full,) = gather(mesh, [shard], [1])
+    want = torch.cat([vals(r, 12, torch.float32).reshape(3, 4) + 1 for r in range(world)], 1)
+    (full * w * (rank + 1)).sum().backward()
+    grad_want = w[:, rank * 4:(rank + 1) * 4] * sum(range(1, world + 1))
+    if not (torch.equal(full.detach(), want) and torch.equal(shard.grad, grad_want)):
+        raise AssertionError("FN: fsdp.gather forward or backward is not exact")
+    path = ("built from all_reduce (gloo)" if torch.distributed.get_backend() == "gloo" else
+            "all_gather_into_tensor / reduce_scatter_tensor (nccl)")
+    return {"mesh": mesh.shape, "cases": cases, "path": path, "stats": dict(mesh.stats)}
+
+
+def check_fsdp(ranks, refs, run_a, p, layers):
+    """F0 and F from the data-parallel spawn (two gloo ranks at (1, 2, 1))
+    and F0 at (2, 2, 1) from a spawn of four, held against one process
+    (hold_f0, hold_f): F with its export (FE) and each rank's warm-up peak
+    at least FSDP_PEAK_GAIN_GIB under P's. Returns rank 0's summaries."""
+    t0 = time.time()
+    quad = _spawn(dp_rank, 4, [("F0", "none")], after=((2, 2, 1),))
+    log(f"[F0] 4 gloo ranks on cuda:0 at (2, 2, 1): {time.time() - t0:.1f} s for the spawn")
+    for fq in ("none", "int8"):
+        hold_f0((1, 2, 1), fq, [r[f"F0:{fq}"] for r in ranks], refs)
+    hold_f0((2, 2, 1), "none", [r["F0:none"] for r in quad], refs)
+    f = [r["F"] for r in ranks]
+    hold_f("F", (1, 2, 1), "gloo", f, run_a, layers, p)
+    gib = 1024 ** 3
+    for r in range(2):
+        gain = (p[r]["peak"]["warmup"] - f[r]["peak"]["warmup"]) / gib
+        if gain < FSDP_PEAK_GAIN_GIB:
+            raise AssertionError(f"F rank {r}: warm-up peak {f[r]['peak']['warmup'] / gib:.2f} "
+                                 f"GiB is only {gain:.2f} GiB under P's (want "
+                                 f">= {FSDP_PEAK_GAIN_GIB})")
+    return {"F": f[0], "F0": ranks[0]["F0:none"], "F0 int8": ranks[0]["F0:int8"],
+            "F0 (2,2,1)": quad[0]["F0:none"]}
+
+
+def hold_f0(shape, fq, got, refs, tag="F0"):
+    """The tiny fp32 pair on an fsdp mesh against one process (P0's
+    bounds: losses and dense grad norms within 2e-4, int8 losses within
+    1e-3, the same fingerprint, every kernel launched on each rank)."""
+    import numpy as np
+    ref, rtol = refs[fq], (P0_RTOL if fq == "none" else P0_INT8_RTOL)
+    fps = {g["plan"]["fingerprint"] for g in got} | {ref["plan"]["fingerprint"]}
+    if len(fps) != 1:
+        raise AssertionError(f"{tag} {shape} {fq}: plan fingerprints differ: {fps}")
+    if any(g["loss"] != got[0]["loss"] for g in got):
+        raise AssertionError(f"{tag} {shape} {fq}: the ranks' losses differ")
+    needed = tuple(n for n in TRAIN_KERNELS if n != "attn_bwd_dkdv_reduce") + (
+        Q8_KERNELS if fq == "int8" else ())
+    for r, g in enumerate(got):
+        if not all(g["launches"][n] > 0 for n in needed):
+            raise AssertionError(f"{tag} {shape} {fq} rank {r} did not launch every kernel: "
+                                 f"{g['launches']}")
+    norms, ref_norms = (np.array(r["warmup_grad_norm"] + r["grad_norm"]) for r in (got[0], ref))
+    np.testing.assert_allclose(got[0]["loss"] + [got[0]["eval_loss"]],
+                               ref["loss"] + [ref["eval_loss"]], rtol=rtol)
+    if fq == "none":
+        np.testing.assert_allclose(norms, ref_norms, rtol=rtol)
+    worst = float(np.max(np.abs(np.array(got[0]["loss"]) - np.array(ref["loss"]))
+                         / np.abs(np.array(ref["loss"]))))
+    worst_norm = float(np.max(np.abs(norms - ref_norms) / ref_norms))
+    c = got[0]["collectives"]
+    log(f"[{tag}] tiny fp32 at {shape}, frozen_quant {fq}, {len(got)} ranks against one "
+        f"process at global batch 4 (rows 2-3 thinned): losses worst rel diff {worst:.2e}, "
+        f"grad norms {worst_norm:.2e} (bound {rtol} on "
+        f"{'both' if fq == 'none' else 'the losses; grad norms reported'}); eval "
+        f"{got[0]['eval_loss']:.6f} vs {ref['eval_loss']:.6f}; same plan "
+        f"{ref['plan']['fingerprint'][:16]}; {got[0]['checksums']} leaves compared; "
+        f"gathered MB/step {[round(x['gather_bytes'] / 1e6, 2) for x in c]}, reduce-"
+        f"scattered MB/step {[round(x['scatter_bytes'] / 1e6, 2) for x in c]}; gathered "
+        f"layers alive at once {max(g['live_peak'] for g in got)}; rank 0 launches "
+        f"{got[0]['launches']}")
+
+
+def hold_f(tag, shape, backend, f, run_a, layers, p=None):
+    """A's path on an fsdp mesh against A (P's bounds: losses within 1e-3,
+    warm-up grad norms within 5e-2; the ranks' losses and plans equal,
+    every kernel launched on each rank, the export read back on each rank
+    (FE)); per rank the ms/step, the collectives' bytes and calls a step,
+    the state's bytes and the peaks beside P's (where p is given) or A's."""
+    import numpy as np
+    if any(s["loss"] != f[0]["loss"] or s["plan"] != f[0]["plan"] for s in f):
+        raise AssertionError(f"{tag}: the ranks' losses or plans differ")
+    for r, s in enumerate(f):
+        if not all(s["launches"][n] > 0 for n in TRAIN_KERNELS):
+            raise AssertionError(f"{tag} rank {r} did not launch every kernel: {s['launches']}")
+        if not s["export_tensors_equal"]:
+            raise AssertionError(f"{tag}E rank {r}: the export was not read back")
+    a_loss = run_a["loss"] + [run_a["eval_loss"]]
+    f_loss = f[0]["loss"] + [f[0]["eval_loss"]]
+    rel = np.abs(np.array(f_loss) - np.array(a_loss)) / np.abs(np.array(a_loss))
+    a_norm, f_norm = np.array(run_a["warmup_grad_norm"]), np.array(f[0]["warmup_grad_norm"])
+    rel_norm = np.abs(f_norm - a_norm) / a_norm
+    gib = 1024 ** 3
+    path = ("all-gather and reduce-scatter built from gloo's all_reduce" if backend == "gloo"
+            else "NCCL all_gather_into_tensor and reduce_scatter_tensor")
+    log(f"[{tag}] TinyLlama-1.1B bf16, {layers} layers, fsdp {shape} over {len(f)} {backend} "
+        f"ranks ({path}) x bs {4 // len(f)} x seq 512 (A's global batch), 3 warm-up + 4 "
+        f"sparse steps: "
+        f"losses {f_loss} vs A's {a_loss}, worst rel diff {float(rel.max()):.2e} (bound "
+        f"{P_VS_A_RTOL}); warm-up grad norms {f_norm.tolist()} vs A's {a_norm.tolist()}, worst "
+        f"rel diff {float(rel_norm.max()):.2e} (bound {P_GNORM_RTOL}); plan "
+        f"{f[0]['plan']['fingerprint'][:16]} on every rank, A's "
+        f"{run_a['plan']['fingerprint'][:16]}; gathered trainables, m and v bit-equal across "
+        f"ranks ({CARD['smi']})")
+    log_selection_margin(run_a, f[0], tag=tag)
+    n_warm = 3
+    beside = ("P", p) if p is not None else ("A", [run_a] * len(f))
+    for r, s in enumerate(f):
+        ms, c = s["step_ms"], s["collectives"]
+        sb = s["state_bytes"]
+        log(f"[{tag}] rank {r}: warm-up ms/step {[round(x, 1) for x in ms[:n_warm]]}, sparse "
+            f"{[round(x, 1) for x in ms[n_warm:]]} ({beside[0]} rank 0: "
+            f"{[round(x, 1) for x in beside[1][0]['step_ms']]}); collective ms/step "
+            f"{[round(x, 1) for x in s['reduce_ms']]}; gathered MB / calls a step "
+            f"{[(round(x['gather_bytes'] / 1e6, 1), x['gather_calls']) for x in c]}; "
+            f"reduce-scattered MB / calls "
+            f"{[(round(x['scatter_bytes'] / 1e6, 1), x['scatter_calls']) for x in c]}; "
+            f"all-reduced MB / calls {[(round(x['bytes'] / 1e6, 1), x['calls']) for x in c]}")
+        log(f"[{tag}] rank {r}: state bytes here / full: warm-up "
+            f"{sb['build']['here'] / gib:.3f} / {sb['build']['full'] / gib:.3f} GiB (sharded "
+            f"leaves {sb['build']['split_here']:,} / {sb['build']['split_full']:,} B), sparse "
+            f"{sb['sparse']['here'] / gib:.3f} / {sb['sparse']['full'] / gib:.3f} GiB (sharded "
+            f"{sb['sparse']['split_here']:,} / {sb['sparse']['split_full']:,} B); peak GiB "
+            f"{ {k: round(v / gib, 2) for k, v in s['peak'].items() if v is not None} } beside "
+            f"{beside[0]} rank {r if p is not None else 0}'s "
+            f"{ {k: round(v / gib, 2) for k, v in beside[1][r]['peak'].items() if v is not None} }"
+            f"; gathered layers alive at once {s['live_peak']}; launches K1 "
+            f"{s['launches']['block_grad']}, K2 {s['launches']['masked_adam']}, K3 fwd "
+            f"{s['launches']['attn_fwd']}, dK/dV {s['launches']['attn_bwd_dkdv']}; "
+            f"{s['seconds']:.1f} s")
+    log(f"[{tag}E] rank 0's export ({f[0]['export_tensors_equal']} tensors) read back on each "
+        f"rank equals the gathered state bit for bit")
+    if rel.max() > P_VS_A_RTOL:
+        raise AssertionError(f"{tag}: losses part from A's by {float(rel.max()):.2e} > "
+                             f"{P_VS_A_RTOL}")
+    if len(f_norm) != len(a_norm) or rel_norm.max() > P_GNORM_RTOL:
+        raise AssertionError(f"{tag}: warm-up grad norms {f_norm.tolist()} part from A's "
+                             f"{a_norm.tolist()} by more than {P_GNORM_RTOL}")
+
+
+def run_fsdp_nccl(run_a, layers):
+    """`--only nccl` (two or more cards): the fsdp axis over NCCL, one rank
+    a card, at (1, N, 1) and, with four cards, (2, 2, 1): FN0, the tiny
+    fp32 pair against one process, and FN1, A's path against A, with its
+    export (hold_f0, hold_f)."""
+    import torch
+    from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
+    n = torch.cuda.device_count()
+    tiny = LlamaConfig.tiny(vocab_size=512)
+    refs = {fq: run_main_path(tiny, "cuda", bs=4, frozen_quant=fq, **P0_KW)
+            for fq in ("none", "int8")}
+    for shape in [(1, n, 1)] + ([(2, n // 2, 1)] if n >= 4 else []):
+        fe_dir = tempfile.mkdtemp(prefix="smoke_export_", dir=os.path.join(REPO, "build"))
+        t0 = time.time()
+        try:
+            ranks = _spawn(dp_rank, n, [("F0", "none"), ("F0", "int8"), ("F", (layers, fe_dir))],
+                           after=(shape, "nccl"))
+        finally:
+            shutil.rmtree(fe_dir, ignore_errors=True)
+        log(f"[FN1] {n} NCCL ranks, one a card, at {shape}: {time.time() - t0:.1f} s for the "
+            f"spawn and the runs")
+        for fq in ("none", "int8"):
+            hold_f0(shape, fq, [r[f"F0:{fq}"] for r in ranks], refs, tag="FN0")
+        hold_f("FN1", shape, "nccl", [r["F"] for r in ranks], run_a, layers)
+
+
+def _spawn(fn, world, *args, after=()):
+    """fn(rank, world, port, *args, out_dir, *after) in `world` processes;
+    returns what each rank saved."""
     import torch
     import torch.multiprocessing as mp
     from sparse_matrix_tuning_tpu_torch.parallel.mesh import free_port
     out_dir = tempfile.mkdtemp(prefix="smoke_dp_", dir=os.path.join(REPO, "build"))
     torch.cuda.empty_cache()
-    mp.spawn(fn, args=(world, free_port(), *args, out_dir), nprocs=world, join=True)
+    mp.spawn(fn, args=(world, free_port(), *args, out_dir, *after), nprocs=world, join=True)
     got = [torch.load(os.path.join(out_dir, f"{fn.__name__[:2]}.{r}.pt"), weights_only=False)
            for r in range(world)]
     shutil.rmtree(out_dir, ignore_errors=True)
     return got
 
 
-def log_selection_margin(run_a, run_p):
-    """Where P's plan leaves A's: each block that one selected and the
-    other did not, with its score in both runs, beside the score of the
+def log_selection_margin(run_a, run_p, tag="P"):
+    """Where P's (or F's, `tag`) plan leaves A's: each block that one
+    selected and the other did not, with its score in both runs, beside the score of the
     last block A selected in that group (attention or MLP) and how far
     P's scores sit from A's over A's selected blocks (a swap inside that
     spread is a near-tie, not a wrong reduction)."""
@@ -3869,7 +4154,7 @@ def log_selection_margin(run_a, run_p):
     from sparse_matrix_tuning_tpu_torch.models.llama import ATTN_TARGETS
     a_sel, p_sel = set(run_a["selected"]), set(run_p["selected"])
     if a_sel == p_sel:
-        log(f"[P] selection: the same {len(a_sel)} blocks as A's")
+        log(f"[{tag}] selection: the same {len(a_sel)} blocks as A's")
         return
     sa, sp = run_a["block_scores"], run_p["block_scores"]
 
@@ -3880,10 +4165,10 @@ def log_selection_margin(run_a, run_p):
     lines = []
     for k, r, c in sorted(a_sel ^ p_sel):
         last = min(sa[kk][rr, cc] for kk, rr, cc in a_sel if group(kk) == group(k))
-        lines.append(f"{k} ({r},{c}) {'A only' if (k, r, c) in a_sel else 'P only'}: A "
-                     f"{sa[k][r, c]:.6e}, P {sp[k][r, c]:.6e}; A's last {group(k)} block "
+        lines.append(f"{k} ({r},{c}) {'A only' if (k, r, c) in a_sel else tag + ' only'}: A "
+                     f"{sa[k][r, c]:.6e}, {tag} {sp[k][r, c]:.6e}; A's last {group(k)} block "
                      f"{last:.6e}, rel gap {abs(sa[k][r, c] - last) / last:.2e}")
-    log(f"[P] selection: {len(a_sel ^ p_sel) // 2} of {len(a_sel)} blocks swapped; P's "
+    log(f"[{tag}] selection: {len(a_sel ^ p_sel) // 2} of {len(a_sel)} blocks swapped; {tag}'s "
         f"scores of A's selected blocks sit within {np.median(spread):.2e} (median) / "
         f"{spread.max():.2e} (max) of A's; " + "; ".join(lines))
 
@@ -3903,13 +4188,18 @@ def run_data_parallel(run_a, d1, export_dir, p_layers):
     first = thin_rows(next(batch_iterator(synthetic_sft(24, 64, 512, 1), 4, 0, [64], 1234, 0)),
                       P0_KW["thin"])
     valid = (first["labels"][:, 1:] != -100).sum(axis=1)
-    jobs = [("P0", "none"), ("P0", "int8"), ("P", p_layers), ("PE", export_dir)]
+    fe_dir = tempfile.mkdtemp(prefix="smoke_export_", dir=os.path.join(REPO, "build"))
+    jobs = [("P0", "none"), ("P0", "int8"), ("P", p_layers), ("PE", export_dir),
+            ("F0", "none"), ("F0", "int8"), ("F", (p_layers, fe_dir))]
     t0 = time.time()
-    ranks = _spawn(dp_rank, 2, jobs)
+    try:
+        ranks = _spawn(dp_rank, 2, jobs)
+    finally:
+        shutil.rmtree(fe_dir, ignore_errors=True)
     log(f"[dp] 2 ranks on cuda:0 over {ranks[0]['backend']} (NCCL refuses two ranks on one "
         f"device); gloo takes CUDA tensors for all_reduce and broadcast: "
         f"{[r['gloo_cuda'] for r in ranks]}; {time.time() - t0:.1f} s for the spawn and P0, P, "
-        f"PE ({CARD['smi']})")
+        f"PE, F0, F ({CARD['smi']})")
     for fq, rtol in (("none", P0_RTOL), ("int8", P0_INT8_RTOL)):
         ref, got = refs[fq], [r[f"P0:{fq}"] for r in ranks]
         fps = {g["plan"]["fingerprint"] for g in got} | {ref["plan"]["fingerprint"]}
@@ -3996,6 +4286,8 @@ def run_data_parallel(run_a, d1, export_dir, p_layers):
         f"s (D1 {d1['wall_s']:.2f} s alone), peaks {[round(s['peak_gib'], 2) for s in pe]} GiB "
         f"(D1 {d1['peak_gib']:.2f}); K7 launches {[s['launches']['cached_attn'] for s in pe]}")
 
+    fsdp = check_fsdp(ranks, refs, run_a, p, p_layers)
+
     import torch
     n_cards = torch.cuda.device_count()
     t0 = time.time()
@@ -4004,8 +4296,11 @@ def run_data_parallel(run_a, d1, export_dir, p_layers):
         f"backend {pn[0]['backend']}, init {pn[0]['init_s']:.1f} s, bucket all-reduce "
         f"{pn[0]['buckets']} with exact sums, one tiny fp32 step loss {pn[0]['loss']!r} vs one "
         f"process {pn[0]['ref_loss']!r}; {time.time() - t0:.1f} s")
+    log(f"[FN] the fsdp collectives over NCCL at mesh {pn[0]['fn']['mesh']}: all_gather_ and "
+        f"reduce_scatter_ of {pn[0]['fn']['cases']} exact, fsdp.gather forward and backward "
+        f"exact; path {pn[0]['fn']['path']}, counters {pn[0]['fn']['stats']}")
     return {"P": p[0], "P0": ranks[0]["P0:none"], "P0 int8": ranks[0]["P0:int8"], "PE": pe[0],
-            "PN": pn[0]}
+            "PN": pn[0], **fsdp}
 
 
 def main(argv=None):
@@ -4017,13 +4312,16 @@ def main(argv=None):
     tiny 12-layer channel int8 reference, run J and runs R and R2 (a short
     call for the conversion into the scan state and resume); `--only fp16`
     runs the build, the fp16 bodies' checks and the tiny fp16 references;
-    `--only dp` the build, A with its export, D1, then P0, P, PE and PN;
-    none prints a result line. With no arguments every phase runs."""
+    `--only dp` the build, A with its export, D1, then P0, P, PE, F0, F, FE,
+    PN and FN; `--only nccl` (two or more cards) the build, A, then the
+    fsdp axis over NCCL, one rank a card (run_fsdp_nccl); none prints a
+    result line. With no arguments every phase runs, on one card."""
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--only", "q8"], ["--only", "q4"], ["--only", "attn"],
                     ["--only", "sparse"], ["--only", "scan"], ["--only", "fp16"],
-                    ["--only", "dp"]):
-        raise SystemExit("usage: python3 chip_smoke.py [--only q8|q4|attn|sparse|scan|fp16|dp]")
+                    ["--only", "dp"], ["--only", "nccl"]):
+        raise SystemExit("usage: python3 chip_smoke.py "
+                         "[--only q8|q4|attn|sparse|scan|fp16|dp|nccl]")
     only = argv[1] if argv else None
     only_q8 = only == "q8"
     t_start = time.time()
@@ -4107,10 +4405,23 @@ def main(argv=None):
             marks.append(("A, D1", time.time()))
             run_data_parallel(run_a, d1, os.path.join(out_dir, "final"),
                               model_cfg.num_hidden_layers)
-            marks.append(("P0, P, PE, PN", time.time()))
+            marks.append(("P0, P, PE, F0, F, FE, PN, FN", time.time()))
         finally:
             shutil.rmtree(out_dir, ignore_errors=True)
         log("[smoke] --only dp: seconds by phase: " + ", ".join(
+            f"{name} {t - prev:.1f}" for (name, t), (_, prev)
+            in zip(marks, [("", t_start)] + marks)))
+        return
+    if only == "nccl":
+        if torch.cuda.device_count() < 2:
+            raise SystemExit("--only nccl needs two or more cards (one NCCL rank a card)")
+        model_cfg = LlamaConfig(**TINYLLAMA)
+        run_a = run_main_path(model_cfg, "cuda")
+        report_run("A", "TinyLlama-1.1B bf16, bs 4 x seq 512, remat, attn auto (K3)", run_a, 3)
+        marks.append(("A", time.time()))
+        run_fsdp_nccl(run_a, model_cfg.num_hidden_layers)
+        marks.append(("FN0, FN1", time.time()))
+        log("[smoke] --only nccl: seconds by phase: " + ", ".join(
             f"{name} {t - prev:.1f}" for (name, t), (_, prev)
             in zip(marks, [("", t_start)] + marks)))
         return
@@ -4173,7 +4484,8 @@ def main(argv=None):
         torch.cuda.empty_cache()
         marks.append(("D", time.time()))
         # P0, P, PE: data parallelism over two gloo ranks sharing the card
-        # (P held to A, PE to D1 over A's export); PN over NCCL
+        # (P held to A, PE to D1 over A's export); F0, F, FE the fsdp axis;
+        # PN and FN over NCCL
         run_dp = run_data_parallel(run_a, run_d["D1"], os.path.join(out_dir, "final"),
                                    model_cfg.num_hidden_layers)
         marks.append(("P", time.time()))
@@ -4406,7 +4718,11 @@ def main(argv=None):
             "R": run_r["launches"], "R2": run_r2["launches"],
             # rank 0 of the data-parallel runs (each rank launches its own)
             "P": run_dp["P"]["launches"], "P0": run_dp["P0"]["launches"],
-            "P0 int8": run_dp["P0 int8"]["launches"], "PE": run_dp["PE"]["launches"]}
+            "P0 int8": run_dp["P0 int8"]["launches"], "PE": run_dp["PE"]["launches"],
+            # rank 0 of the fsdp runs
+            "F fsdp": run_dp["F"]["launches"], "F0": run_dp["F0"]["launches"],
+            "F0 int8": run_dp["F0 int8"]["launches"],
+            "F0 (2,2,1)": run_dp["F0 (2,2,1)"]["launches"]}
     for k in kernels:
         k.setdefault("launches_by_run", {}).update(
             {tag: counts[k["name"]] for tag, counts in runs.items()

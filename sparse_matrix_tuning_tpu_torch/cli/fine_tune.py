@@ -45,15 +45,21 @@ and the scale halved, with an "[fp16] overflow at step ..." line where the
 loss itself overflowed. It is refused with --sparse_from_plan, as in the
 JAX package (the scaler's state comes from the warm-up).
 
-Data parallelism over N processes, each a full replica on its own card
-(NCCL; gloo on the CPU), the global batch per_device_ft_batch_size * N *
-gradient_accumulation_steps:
+Over N = D * F processes, one card each (NCCL; gloo on the CPU), the
+global batch per_device_ft_batch_size * N * gradient_accumulation_steps:
+--mesh_shape N,1,1 is data parallelism, each rank a full replica;
+--mesh_shape D,F,1 with F > 1 adds the fsdp axis, each rank holding 1/F of
+the weights, the fp32 master, the Adam moments and the saliency
+accumulators, reading only its slices of the checkpoint
+(models/hf_io.load_hf_params_sharded); without --mesh_shape a torchrun
+world of N takes JAX's default mesh, 1,N,1:
 
   torchrun --nproc_per_node N -m sparse_matrix_tuning_tpu_torch.cli.fine_tune \
-      --mesh_shape N,1,1 ... (the flags above)
+      [--mesh_shape D,F,1] ... (the flags above)
 
-The fsdp and tensor axes (--mesh_shape 1,N,1 / 1,1,N) are not ported and
-raise; so does a torchrun world without --mesh_shape.
+The tensor axis (--mesh_shape 1,1,N) is not ported and raises; so do the
+scan layouts under fsdp (--scan_layers on, --sparse_from_plan, and
+--channel_sparsity --frozen_quant int8 at 12 layers or more).
 
 model_name_or_path must be a local HF checkpoint dir. Runs on the card
 (--device cuda, the default, raises when there is none); --device cpu runs
@@ -104,8 +110,12 @@ def main(argv=None):
         # Llama family exposes attention_dropout
         import dataclasses
         model_cfg = dataclasses.replace(model_cfg, attention_dropout=cfg.dropout)
-    params = None
-    if not cfg.sparse_from_plan:
+    params, param_dims = None, None  # --sparse_from_plan quantizes while it loads (below)
+    if not cfg.sparse_from_plan and mesh is not None and mesh.fsdp > 1:
+        from sparse_matrix_tuning_tpu_torch.models.hf_io import load_hf_params_sharded
+        params, param_dims = load_hf_params_sharded(cfg.model_name_or_path, mesh, model_cfg,
+                                                    dtype=cfg.param_dtype, device=device)
+    elif not cfg.sparse_from_plan:
         params = load_hf_params(cfg.model_name_or_path, model_cfg,
                                 dtype=cfg.param_dtype, device=device)
 
@@ -114,8 +124,8 @@ def main(argv=None):
     print_rank_0(f"Training data size {len(train_ds)}, "
                  f"validation data set {len(eval_ds)}")
 
-    # must match trainer.fit's batch: per-device x data x accumulation
-    global_bs = (cfg.per_device_ft_batch_size * (mesh.data if mesh else 1)
+    # must match trainer.fit's batch: per-device x data x fsdp x accumulation
+    global_bs = (cfg.per_device_ft_batch_size * (mesh.batch_shards if mesh else 1)
                  * cfg.gradient_accumulation_steps)
     steps_per_epoch = num_batches(len(train_ds), global_bs)
     total_steps = cfg.num_ft_epochs * steps_per_epoch
@@ -132,6 +142,8 @@ def main(argv=None):
                                                  total_steps, model_cfg=model_cfg,
                                                  device=device, **on_mesh)
     else:
+        if param_dims is not None:
+            on_mesh["param_dims"] = param_dims
         trainer = SMTTrainer(cfg, model_cfg, params, total_steps, device=device, **on_mesh)
         del params
     if cfg.resume_from:

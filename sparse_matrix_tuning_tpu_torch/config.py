@@ -25,8 +25,13 @@ paths this port implements:
                 vocabulary >= 16384, full in the sparse phase while the
                 fp32 logits fit 2 GiB
 
-  mesh_shape    D,1,1 trains data-parallel over D processes (parallel/mesh.py);
-                the fsdp and tensor axes are refused
+  mesh_shape    D,F,1 trains over D * F processes (parallel/mesh.py): data
+                parallelism over D, and over F > 1 the fsdp axis, each
+                rank holding 1/F of the state (parallel/fsdp.py); under
+                torchrun without it, (1, WORLD_SIZE, 1), JAX's default;
+                the tensor axis is refused, and so are the scan layouts
+                under fsdp (--scan_layers on, --sparse_from_plan; the
+                trainer refuses the "auto" scan of channel + int8 at depth)
 
 Options whose implementation has not been ported raise NotImplementedError
 when the config is built; none of them silently runs another path.
@@ -180,8 +185,9 @@ class SMTConfig:
                 + "; ".join(unported))
 
     def _check_mesh(self):
-        """--mesh_shape D,1,1 (data parallelism over D processes) is taken;
-        fsdp or tensor above 1 are refused by name when the config is built
+        """--mesh_shape D,F,1 (D * F processes) is taken; tensor above 1 is
+        refused by name when the config is built, and so are the scan
+        layouts under fsdp (F > 1): --scan_layers on and --sparse_from_plan
         (parallel/mesh.make_mesh holds the shape to the world size)."""
         from sparse_matrix_tuning_tpu_torch.parallel.mesh import refuse_sharded_axes
         if not self.mesh_shape:
@@ -189,16 +195,25 @@ class SMTConfig:
             return
         self.mesh_shape = parse_mesh_shape(self.mesh_shape)
         refuse_sharded_axes(self.mesh_shape)
+        if self.mesh_shape[1] > 1:
+            scan = [f for f, on in (("--scan_layers on", self.scan_layers == "on"),
+                                    ("--sparse_from_plan", bool(self.sparse_from_plan))) if on]
+            if scan:
+                raise NotImplementedError(
+                    f"{' and '.join(scan)} with fsdp {self.mesh_shape[1]} (mesh_shape "
+                    f"{tuple(self.mesh_shape)}): the scan state under fsdp (each process keeping "
+                    "its shards of the host store) is not yet ported to "
+                    "sparse_matrix_tuning_tpu_torch; use --mesh_shape "
+                    f"{self.mesh_shape[0] * self.mesh_shape[1]},1,1")
 
     def check_world(self):
-        """Under torchrun (WORLD_SIZE) a world above 1 needs --mesh_shape:
-        JAX's default mesh there puts every device on fsdp, not ported."""
+        """Under torchrun (WORLD_SIZE) a world above 1 without --mesh_shape
+        takes JAX's default mesh, every rank on fsdp: (1, WORLD_SIZE, 1),
+        with its refusals (_check_mesh)."""
         world = int(os.environ.get("WORLD_SIZE", "1"))
         if not self.mesh_shape and world > 1:
-            raise NotImplementedError(
-                f"WORLD_SIZE {world} without --mesh_shape: JAX's default mesh (1, {world}, 1) "
-                f"is the fsdp axis, not yet ported; pass --mesh_shape {world},1,1 for "
-                "data parallelism")
+            self.mesh_shape = [1, world, 1]
+            self._check_mesh()
 
     @property
     def sparse_remat(self) -> bool:
@@ -309,8 +324,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--vocab_chunk", type=int, default=d.vocab_chunk)
     p.add_argument("--sparse_from_plan", type=str, default=None)
     p.add_argument("--mesh_shape", type=str, nargs="*", default=None,
-                   help="data,fsdp,tensor (or three numbers): D,1,1 trains data-parallel over "
-                        "D processes (torchrun --nproc_per_node D)")
+                   help="data,fsdp,tensor (or three numbers): D,F,1 trains over D*F processes "
+                        "(torchrun --nproc_per_node D*F), data-parallel over D and sharded "
+                        "over F; under torchrun the default is 1,WORLD_SIZE,1")
     p.add_argument("--seq_buckets", type=int, nargs="*", default=None)
     p.add_argument("--resume_from", type=str, default=None)
     p.add_argument("--profile_dir", type=str, default=None)

@@ -157,10 +157,11 @@ def batch_iterator(dataset: SFTDataset, batch_size: int, pad_token_id: int,
 
 
 def shard_batch(batch: Dict[str, np.ndarray], mesh, accum: int = 1) -> Dict[str, np.ndarray]:
-    """This rank's part of a global batch under data parallelism: every
-    rank builds the identical global batch (batch_iterator at the global
-    batch size, padded to the global bucket, as JAX's _globalize_batch
-    takes it) and keeps its rows (parallel/mesh.rank_rows), plus
+    """This rank's part of a global batch on a mesh: every rank builds the
+    identical global batch (batch_iterator at the global batch size,
+    padded to the global bucket, as JAX's _globalize_batch takes it) and
+    keeps its rows, row slice `rank` of the D * F slices of each
+    microbatch (parallel/mesh.rank_rows), plus
     "loss_denom", float32 (accum,): each global microbatch's count of
     valid target tokens, which each rank's token-loss sum is divided by
     (JAX's mean over the global batch, models/llama.py causal_lm_loss)."""

@@ -16,6 +16,7 @@ import os
 import struct
 from typing import Any, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
@@ -59,6 +60,25 @@ def read_safetensor(path: str, base: int, info: Mapping[str, Any], name: str = "
         if f.readinto(buf) != len(buf):
             raise ValueError(f"{path}: truncated data for {name!r}")
     return torch.frombuffer(buf, dtype=dtype).reshape(shape)
+
+
+_WORDS = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
+
+
+def read_safetensor_slice(path: str, base: int, info: Mapping[str, Any], dim: int,
+                          index: int, parts: int) -> torch.Tensor:
+    """Slice `index` of `parts` equal slices along `dim` of one tensor of a
+    .safetensors file, as a CPU tensor: the file is mapped, and only the
+    slice's bytes are copied out."""
+    dtype = _ST_DTYPES[info["dtype"]]
+    shape = tuple(info["shape"])
+    begin, _ = info["data_offsets"]
+    words = _WORDS[torch.empty((), dtype=dtype).element_size()]
+    whole = np.memmap(path, dtype=words, mode="r", offset=base + begin, shape=shape)
+    n = shape[dim] // parts
+    part = np.ascontiguousarray(np.take(whole, np.arange(index * n, (index + 1) * n), axis=dim))
+    del whole
+    return torch.from_numpy(part).view(dtype)
 
 
 def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
@@ -199,6 +219,59 @@ def load_hf_params(model_dir: str, cfg: Optional[LlamaConfig] = None,
         # in-place optimizer updates never touch one tensor twice
         params["lm_head"] = params["embed_tokens"].clone()
     return params
+
+
+def load_hf_params_sharded(model_dir: str, mesh, cfg: Optional[LlamaConfig] = None,
+                           dtype=torch.bfloat16, device=None
+                           ) -> Tuple[Dict[str, Any], Dict[str, int]]:
+    """This rank's fsdp shards of a local HF checkpoint (the JAX package's
+    load_hf_params_sharded): each tensor that parallel/fsdp.shard_dim
+    splits over mesh.fsdp is read as this rank's slice only
+    (read_safetensor_slice), the others whole, so no rank holds the full
+    model. Returns (params of `dtype` tensors on `device`, {state path
+    "master/...": dim} of the sharded leaves), SMTTrainer's `params` and
+    `param_dims`. The slices equal those of load_hf_params' tensors. A
+    .bin checkpoint is read whole on the host and sliced."""
+    from sparse_matrix_tuning_tpu_torch.models.llama import tree_map
+    from sparse_matrix_tuning_tpu_torch.parallel.fsdp import Sharding, shard_dim
+    cfg = cfg or load_hf_config(model_dir)
+    sh = Sharding(mesh)
+    st_files = sorted(x for x in os.listdir(model_dir) if x.endswith(".safetensors"))
+    if not st_files:
+        params = sh.shard_tree(load_hf_params(model_dir, cfg, dtype=dtype, device="cpu"),
+                               "master")
+        return tree_map(lambda t: t.to(device), params), sh.dims
+    entries: Dict[str, tuple] = {}
+    for fname in st_files:
+        fpath = os.path.join(model_dir, fname)
+        base, header = safetensors_header(fpath)
+        entries.update({name: (fpath, base, info) for name, info in header.items()})
+
+    def read(tree_path, name):
+        fpath, base, info = entries[name]
+        key = "master/" + "/".join(tree_path)
+        d = shard_dim(key, tuple(info["shape"]), None, sh.f)
+        if d is None:
+            t = read_safetensor(fpath, base, info, name)
+        else:
+            sh.dims[key] = d
+            t = read_safetensor_slice(fpath, base, info, d, mesh.fsdp_index, sh.f)
+        return t.to(device=device, dtype=dtype)
+
+    params: Dict[str, Any] = {"layers": {}}
+    for name in entries:
+        path = _hf_to_tree_name(name)
+        if path is None or (path == ("lm_head",) and cfg.tie_word_embeddings):
+            continue
+        node = params
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = read(path, name)
+    if not cfg.tie_word_embeddings and "lm_head" not in params:
+        # tied implicitly by omission: the head is the embedding, sharded
+        # as a head
+        params["lm_head"] = read(("lm_head",), "model.embed_tokens.weight")
+    return params, sh.dims
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,7 @@ from __future__ import annotations
 import os
 import warnings
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -373,7 +374,8 @@ def forward(params: Mapping[str, Any], input_ids: torch.Tensor, cfg: LlamaConfig
             attn_impl: str = "einsum",
             return_hidden: bool = False,
             activation_taps: Optional[dict] = None,
-            dropout_key: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+            dropout_key: Optional[Tuple[int, int]] = None,
+            fsdp=None) -> torch.Tensor:
     """Run the decoder; returns logits (B, S, V) in fp32, or with
     return_hidden the final normed states (B, S, D) before the head (for
     the chunked-vocab loss and the int8 head).
@@ -398,16 +400,26 @@ def forward(params: Mapping[str, Any], input_ids: torch.Tensor, cfg: LlamaConfig
     generator, seeded by dropout_layer_seed(dropout_key, layer), and the
     attention is the einsum (resolve_attn_impl). A forward that records
     gradients at a rate > 0 without a key raises: dropout never turns off
-    silently. Eval (no gradient) draws no mask."""
+    silently. Eval (no gradient) draws no mask.
+
+    fsdp: a parallel/fsdp.LayerGather when `params` holds this rank's
+    shards (the fsdp axis): each layer's leaves are gathered inside its
+    checkpoint region, which every layer then runs in while gradients are
+    recorded (whatever `remat` says: the backward gathers again, the full
+    weights are never saved for it), and the embedding, final norm and
+    head where they are used."""
     if activation_taps is not None:
         b, s = input_ids.shape
         mask = attention_mask if attention_mask is not None else torch.ones(
             (b, s), dtype=torch.int32, device=input_ids.device)
         linear = _tapped(linear, activation_taps, mask)
         remat = False
-    layers = ((params["layers"][str(i)], linear) for i in range(cfg.num_hidden_layers))
+    if fsdp is None:
+        layers = ((params["layers"][str(i)], linear) for i in range(cfg.num_hidden_layers))
+    else:
+        layers = ((fsdp.layer(params, i), linear) for i in range(cfg.num_hidden_layers))
     return _run(params, layers, input_ids, cfg, attention_mask, remat,
-                stop_grad_below_layer, attn_impl, return_hidden, dropout_key)
+                stop_grad_below_layer, attn_impl, return_hidden, dropout_key, fsdp)
 
 
 def _tapped(linear, taps: dict, attention_mask: torch.Tensor):
@@ -473,13 +485,22 @@ def forward_scan(params: Mapping[str, Any], input_ids: torch.Tensor, cfg: LlamaC
                 stop_grad_below_layer, attn_impl, return_hidden, dropout_key)
 
 
+def _gathered_layer(fsdp, bundle, x, mask_bias, cos, sin, cfg, linear, layer_idx,
+                    attn_impl, dropout_seed, dropout_rows):
+    """A layer over its gathered leaves (forward's fsdp)."""
+    lp, linear = fsdp.open(bundle, linear)
+    return _decoder_layer(lp, x, mask_bias, cos, sin, cfg, linear, layer_idx, attn_impl,
+                          dropout_seed, dropout_rows)
+
+
 def _run(params, layers, input_ids, cfg: LlamaConfig, attention_mask, remat,
-         stop_grad_below_layer, attn_impl, return_hidden, dropout_key=None):
+         stop_grad_below_layer, attn_impl, return_hidden, dropout_key=None, fsdp=None):
     """The decoder around its layers: `layers` yields each layer's (params,
-    linear) in order; layer i's dropout mask is seeded by
-    dropout_layer_seed(dropout_key, i). A key of four, (seed, step, rank,
-    data size), marks the batch as a data-parallel rank's equal part of the
-    global microbatch: the mask is drawn for the whole and sliced."""
+    linear) in order (under fsdp its bundle of shards, forward()); layer
+    i's dropout mask is seeded by dropout_layer_seed(dropout_key, i). A key
+    of four, (seed, step, rank, row slices), marks the batch as a rank's
+    equal part of the global microbatch: the mask is drawn for the whole
+    and sliced."""
     b, s = input_ids.shape
     dropout = cfg.attention_dropout > 0 and dropout_key is not None
     rows = (dropout_key[2] * b, dropout_key[3] * b) if dropout and len(dropout_key) == 4 \
@@ -493,7 +514,9 @@ def _run(params, layers, input_ids, cfg: LlamaConfig, attention_mask, remat,
         attention_mask = torch.ones((b, s), dtype=torch.int32, device=input_ids.device)
     positions = torch.clamp(torch.cumsum(attention_mask, dim=-1) - 1, min=0)
 
-    x = F.embedding(input_ids, params["embed_tokens"])
+    top = (lambda name: params[name]) if fsdp is None else \
+        (lambda name: fsdp.top(params, name))
+    x = F.embedding(input_ids, top("embed_tokens"))
 
     mask_bias = None  # the fused kernel takes no mask
     if attn_impl == "einsum":
@@ -506,21 +529,23 @@ def _run(params, layers, input_ids, cfg: LlamaConfig, attention_mask, remat,
 
     cos, sin = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
-    use_remat = remat and torch.is_grad_enabled()
+    use_remat = (remat or fsdp is not None) and torch.is_grad_enabled()
+    run = _decoder_layer if fsdp is None else partial(_gathered_layer, fsdp)
     for i, (lp, linear) in enumerate(layers):
         if stop_grad_below_layer is not None and i == stop_grad_below_layer:
             x = x.detach()
         seed = dropout_layer_seed(dropout_key, i) if dropout else None
         if use_remat:
-            x = checkpoint(_decoder_layer, lp, x, mask_bias, cos, sin, cfg,
+            x = checkpoint(run, lp, x, mask_bias, cos, sin, cfg,
                            linear, i, attn_impl, seed, rows, use_reentrant=False)
         else:
-            x = _decoder_layer(lp, x, mask_bias, cos, sin, cfg, linear, i, attn_impl, seed, rows)
+            x = run(lp, x, mask_bias, cos, sin, cfg, linear, i, attn_impl, seed, rows)
 
-    x = _rms_norm(x, params["norm"], cfg.rms_norm_eps)
+    x = _rms_norm(x, top("norm"), cfg.rms_norm_eps)
     if return_hidden:
         return x
-    head = lm_head_weight(params, cfg)
+    head = lm_head_weight(params, cfg) if fsdp is None else \
+        fsdp.head(params, cfg.tie_word_embeddings)
     return torch.matmul(x, head.t()).float()
 
 

@@ -1,1 +1,2 @@
-"""Data-parallel training over processes (parallel/mesh.py)."""
+"""Training over processes: the mesh and its collectives (parallel/mesh.py),
+the fsdp axis (parallel/fsdp.py)."""

@@ -1,0 +1,548 @@
+"""The fsdp axis (`--mesh_shape D,F,1` with F > 1, and JAX's default mesh
+(1, W, 1)): each of the F ranks of an fsdp group holds 1/F of every state
+leaf that JAX shards over "fsdp" (`sparse_matrix_tuning_tpu.parallel.mesh`
+state_shardings), the ZeRO-3 layout, and the ranks compute what one
+process computes at the same global batch.
+
+  * shard_dim copies JAX's PartitionSpecs and its `_fit`: which dim of a
+    leaf is split, or None where the leaf stays whole (norms, counters,
+    the activation sums, a dim that F does not divide);
+  * Sharding.shard_tree keeps this rank's contiguous slice of each such
+    leaf (fsdp index f = rank % F takes slice f) and records its dim, keyed
+    by the leaf's "/"-joined state path ("master/layers/0/q_proj",
+    "trainable/0.q_proj", "q/0.o_proj/sw");
+  * gather (an autograd Function) all-gathers a layer's shards, cast to
+    the compute dtype first, while the layer runs; its backward
+    reduce-scatters their grads, in the shards' dtype, over the fsdp
+    group. models/llama.forward runs every layer inside a checkpoint
+    region under fsdp, so the backward gathers again instead of saving the
+    full weights: one layer's full weights exist at a time (LIVE counts
+    them), besides the embedding and the head, which are gathered where
+    they are used;
+  * the steps then sum a sharded leaf's grad over the data group and a
+    whole leaf's over the world (parallel/mesh.all_reduce_);
+  * block statistics of sharded accumulators combine their partial sums
+    over the fsdp group before any non-linearity (block_stats_sharded): a
+    256-block may straddle two shards;
+  * write_blocks / write_columns put the updated trainables into this
+    rank's shard of their weight: the trainables are sharded on their
+    block rows (or output rows), a col-parallel weight on its input
+    columns, so the step gathers the trainables first;
+  * full_tree gathers a tree leaf by leaf to the host (export, tests).
+
+Every function here that moves data is collective over the fsdp group:
+each of its ranks calls it in the same order.
+"""
+
+from __future__ import annotations
+
+import weakref
+from typing import Dict, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+from sparse_matrix_tuning_tpu_torch.parallel.mesh import Mesh, all_gather_, reduce_scatter_
+
+BLOCK = 256
+COL_PARALLEL = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj")
+ROW_PARALLEL = ("o_proj", "down_proj")
+PARAM_TOPS = ("embed_tokens", "norm", "layers", "lm_head")
+
+# gathered layers alive now and at most (gather's outputs, by weak reference)
+LIVE = {"now": 0, "peak": 0}
+
+
+def _weight_dim(module: str) -> Optional[int]:
+    """JAX's megatron layout with the fsdp axis on the other dim: column-
+    parallel weights split their input dim (1), row-parallel their output
+    dim (0)."""
+    if module in COL_PARALLEL:
+        return 1
+    if module in ROW_PARALLEL:
+        return 0
+    return None
+
+
+def _param_dim(sub: Sequence[str]) -> Optional[int]:
+    if sub[0] == "embed_tokens":
+        return 0
+    if sub[0] == "lm_head":
+        return 1
+    if sub[0] == "layers" and len(sub) == 3:
+        name = sub[2]
+        if name.endswith("layernorm") or name.endswith("_bias"):
+            return None
+        return _weight_dim(name)
+    return None
+
+
+def shard_dim(path: str, shape: Sequence[int], mode: Optional[str], fsdp: int
+              ) -> Optional[int]:
+    """The dim of the state leaf at `path` ("/"-joined) that JAX shards
+    over fsdp, or None (whole on every rank), for a leaf of `shape`:
+
+      master, params, and the warm-up's m / v: q/k/v/gate/up dim 1, o/down
+      dim 0, embed_tokens dim 0, lm_head dim 1, norms and biases whole;
+      trainable and the sparse phase's m / v: (n, 256, 256) blocks dim 1,
+      channel (O, n) columns dim 0 (mode "matrix" / "channel");
+      acc: its weight's dim; act_acc whole (JAX puts its columns on tensor);
+      q (the int8 base): wq its weight's, sw dim 0 for row-parallel weights
+      only (it indexes the output dim), base blocks dim 1; q_head: wq dim 1,
+      sw whole; counters and the loss scaler whole.
+
+    As JAX's _fit, a dim that fsdp does not divide, or that the leaf does
+    not have, stays whole."""
+    keys = path.split("/")
+    top = keys[0]
+    d: Optional[int] = None
+    if top in ("master", "params"):
+        d = _param_dim(keys[1:])
+    elif top in ("m", "v"):
+        d = _param_dim(keys[1:]) if keys[1] in PARAM_TOPS else \
+            (1 if mode == "matrix" else 0)
+    elif top == "trainable":
+        d = 1 if mode == "matrix" else 0
+    elif top == "acc":
+        d = _weight_dim(keys[1].split(".", 1)[1])
+    elif top == "q":
+        module, leaf = keys[1].split(".", 1)[1], keys[2]
+        d = {"wq": _weight_dim(module), "sw": 0 if module in ROW_PARALLEL else None,
+             "base": 1}[leaf]
+    elif top == "q_head":
+        d = 1 if keys[1] == "wq" else None
+    if d is None or d >= len(shape) or shape[d] % fsdp:
+        return None
+    return d
+
+
+class Sharding:
+    """This rank's view of a sharded state: the mesh and the dim of every
+    sharded leaf by state path (a path absent from `dims` is whole)."""
+
+    def __init__(self, mesh: Mesh, dims: Optional[Dict[str, int]] = None):
+        self.mesh = mesh
+        self.dims: Dict[str, int] = dict(dims or {})
+
+    @property
+    def f(self) -> int:
+        return self.mesh.fsdp
+
+    def dim(self, path: str) -> Optional[int]:
+        return self.dims.get(path)
+
+    def mine(self, t: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+        """This rank's contiguous slice of a full tensor along dim (None:
+        the tensor itself)."""
+        if dim is None:
+            return t
+        return t.chunk(self.f, dim)[self.mesh.fsdp_index].contiguous()
+
+    def shard(self, path: str, t: torch.Tensor, mode: Optional[str] = None) -> torch.Tensor:
+        """This rank's slice of the full leaf `t` at `path` by shard_dim,
+        recorded; a leaf kept whole is returned as it is."""
+        d = shard_dim(path, tuple(t.shape), mode, self.f)
+        if d is None:
+            self.dims.pop(path, None)
+            return t
+        self.dims[path] = d
+        return self.mine(t, d)
+
+    def shard_tree(self, tree, prefix: str, mode: Optional[str] = None):
+        """shard() of every leaf of a nested dict whose path is prefix/..."""
+        if isinstance(tree, Mapping):
+            return {k: self.shard_tree(v, f"{prefix}/{k}", mode) for k, v in tree.items()}
+        return self.shard(prefix, tree, mode)
+
+    def zeros(self, path: str, full_shape, dtype, device, mode: Optional[str] = None
+              ) -> torch.Tensor:
+        """This rank's shard of a zero leaf of `full_shape` at `path`,
+        recorded (made at the shard's size)."""
+        shape = list(full_shape)
+        d = shard_dim(path, shape, mode, self.f)
+        if d is None:
+            self.dims.pop(path, None)
+        else:
+            self.dims[path] = d
+            shape[d] //= self.f
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def alias(self, src: str, dst: str) -> None:
+        """Give the leaves under prefix dst the dims of those under src (the
+        warm-up's moments mirror the master)."""
+        for k, d in list(self.dims.items()):
+            if k.startswith(src + "/"):
+                self.dims[dst + k[len(src):]] = d
+
+    def keep(self, paths) -> None:
+        """Forget every leaf whose path is not among `paths` (the state's
+        after a conversion or restore)."""
+        paths = set(paths)
+        self.dims = {k: d for k, d in self.dims.items() if k in paths}
+
+    def full_shape(self, path: str, t: torch.Tensor) -> tuple:
+        d = self.dim(path)
+        shape = list(t.shape)
+        if d is not None:
+            shape[d] *= self.f
+        return tuple(shape)
+
+    def offset(self, path: str, t: torch.Tensor) -> int:
+        """Where this rank's slice starts along its dim (0 for a whole leaf)."""
+        d = self.dim(path)
+        return 0 if d is None else self.mesh.fsdp_index * t.shape[d]
+
+    def full(self, path: str, t: torch.Tensor) -> torch.Tensor:
+        """The full leaf at `path` on this rank's device (no autograd)."""
+        return self.full_many([path], [t])[0]
+
+    @torch.no_grad()
+    def full_many(self, paths: Sequence[str], ts: Sequence[torch.Tensor]) -> list:
+        """full() of several leaves, one all-gather a dtype."""
+        split = [i for i, p in enumerate(paths) if p in self.dims]
+        out = list(ts)
+        got = _gather_flat([ts[i].detach() for i in split],
+                           [self.dims[paths[i]] for i in split], self.mesh) if split else []
+        for i, t in zip(split, got):
+            out[i] = t
+        return out
+
+    def full_tree(self, tree, prefix: str, device="cpu", dtype=None):
+        """The full leaves of a tree on `device`, in `dtype` where given
+        (each shard cast before its gather), gathered one leaf at a time (at
+        most one full leaf on the card)."""
+        if isinstance(tree, Mapping):
+            return {k: self.full_tree(v, f"{prefix}/{k}", device, dtype)
+                    for k, v in tree.items()}
+        t = self.full(prefix, tree.detach().to(dtype or tree.dtype))
+        return t.to(device=device, copy=True)
+
+    def sharded_keys(self, prefix: str, flat: Mapping[str, torch.Tensor]) -> set:
+        """The keys of a flat {key: leaf} at prefix/key that are sharded."""
+        return {k for k in flat if f"{prefix}/{k}" in self.dims}
+
+
+# ---------------------------------------------------------------------------
+# all-gather / reduce-scatter of several leaves, one collective a dtype
+# ---------------------------------------------------------------------------
+
+def _by_dtype(ts: Sequence[torch.Tensor]) -> Dict[torch.dtype, list]:
+    groups: Dict[torch.dtype, list] = {}
+    for i, t in enumerate(ts):
+        groups.setdefault(t.dtype, []).append(i)
+    return groups
+
+
+def _gather_flat(shards: Sequence[torch.Tensor], dims: Sequence[int], mesh: Mesh) -> list:
+    """The full tensors of `shards` (each split along its dim), one
+    all_gather_ per dtype over their concatenation."""
+    f = mesh.fsdp
+    out = [None] * len(shards)
+    for idx in _by_dtype(shards).values():
+        flat = torch.cat([shards[i].reshape(-1) for i in idx]) if len(idx) > 1 else \
+            shards[idx[0]].reshape(-1)
+        full = all_gather_(flat, mesh).view(f, -1)
+        off = 0
+        for i in idx:
+            s = shards[i]
+            n = s.numel()
+            out[i] = torch.cat([full[j, off:off + n].view(s.shape) for j in range(f)], dims[i])
+            off += n
+    return out
+
+
+def _scatter_flat(fulls: Sequence[torch.Tensor], dims: Sequence[int], mesh: Mesh) -> list:
+    """This rank's slices of the fsdp group's sums of `fulls`, one
+    reduce_scatter_ per dtype."""
+    f = mesh.fsdp
+    out = [None] * len(fulls)
+    for idx in _by_dtype(fulls).values():
+        sizes = [fulls[i].numel() // f for i in idx]
+        buf = torch.empty((f, sum(sizes)), dtype=fulls[idx[0]].dtype,
+                          device=fulls[idx[0]].device)
+        off = 0
+        for i, n in zip(idx, sizes):
+            for j, c in enumerate(fulls[i].chunk(f, dims[i])):
+                buf[j, off:off + n].view(c.shape).copy_(c)
+            off += n
+        mine = reduce_scatter_(buf.view(-1), mesh)
+        off = 0
+        for i, n in zip(idx, sizes):
+            shape = list(fulls[i].shape)
+            shape[dims[i]] //= f
+            out[i] = mine[off:off + n].view(shape)
+            off += n
+    return out
+
+
+class _Gather(torch.autograd.Function):
+    """Full tensors of shards (cast to `cast` first where floating);
+    backward: the grads, in the shards' dtypes, reduce-scattered."""
+
+    @staticmethod
+    def forward(ctx, mesh, dims, cast, *shards):
+        ctx.mesh, ctx.dims = mesh, dims
+        ctx.dtypes = [s.dtype for s in shards]
+        ctx.set_materialize_grads(False)
+        parts = [s.to(cast) if cast is not None and s.is_floating_point() else s
+                 for s in shards]
+        return tuple(_gather_flat(parts, dims, mesh))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        need = [n and g is not None for n, g in zip(ctx.needs_input_grad[3:], grads)]
+        idx = [i for i, n in enumerate(need) if n]
+        got = _scatter_flat([grads[i].to(ctx.dtypes[i]) for i in idx],
+                            [ctx.dims[i] for i in idx], ctx.mesh) if idx else []
+        out = [None] * len(grads)
+        for i, g in zip(idx, got):
+            out[i] = g
+        return (None, None, None, *out)
+
+
+def gather(mesh: Mesh, shards: Sequence[torch.Tensor], dims: Sequence[int],
+           cast: Optional[torch.dtype] = None) -> list:
+    """The full tensors of `shards` (each split along dims[i] over the fsdp
+    group), through autograd: the grads reduce-scatter back (_Gather)."""
+    return list(_Gather.apply(mesh, tuple(dims), cast, *shards))
+
+
+def _count_live(tensors) -> None:
+    """LIVE["now"] counts one more gathered layer until every tensor of it
+    is freed."""
+    LIVE["now"] += 1
+    LIVE["peak"] = max(LIVE["peak"], LIVE["now"])
+    left = [len(tensors)]
+
+    def freed():
+        left[0] -= 1
+        if left[0] == 0:
+            LIVE["now"] -= 1
+
+    for t in tensors:
+        weakref.finalize(t, freed)
+
+
+class LayerGather:
+    """What models.llama.forward gathers under fsdp, from a params tree of
+    shards at state path `prefix` ("master" in the warm-up, "params" in
+    the sparse phase): `top` the embedding, final norm and head where they
+    are used, `layer` / `open` a layer's leaves inside its checkpoint
+    region. cast: the compute dtype of the params' floating leaves (the
+    warm-up's fp32 master). extras: {kind: {key: tensor}} of the sparse
+    phase ("trainable" and "q" of state), whose entries "{layer}.{module}"
+    are gathered with their layer; make_linear(trainable, q) then builds
+    the layer's linear dispatch from the full ones. The sparse phase's
+    params are in the compute dtype already: cast and extras never meet."""
+
+    def __init__(self, sharding: Sharding, prefix: str, cast=None, extras=None,
+                 make_linear=None):
+        if cast is not None and extras:
+            raise ValueError("LayerGather: cast applies to every gathered leaf; the sparse "
+                             "phase's extras keep their dtype")
+        self.sh, self.prefix, self.cast = sharding, prefix, cast
+        self.extras = extras or {}
+        self.make_linear = make_linear
+
+    def _whole(self, t):
+        return t.to(self.cast) if self.cast is not None and t.is_floating_point() else t
+
+    def top(self, params, name: str) -> torch.Tensor:
+        t = params[name]
+        d = self.sh.dim(f"{self.prefix}/{name}")
+        if d is None:
+            return self._whole(t)
+        return gather(self.sh.mesh, [t], [d], self.cast)[0]
+
+    def head(self, params, tied: bool) -> torch.Tensor:
+        return self.top(params, "embed_tokens" if tied else "lm_head")
+
+    def q_head(self, q_head):
+        """The int8 head {"wq", "sw"} with wq gathered."""
+        if q_head is None:
+            return None
+        return {k: self.sh.full(f"q_head/{k}", t) for k, t in q_head.items()}
+
+    def layer(self, params, i: int):
+        """Layer i's leaves: [(kind, key, shard, dim)], kind "params" (key
+        the module), "trainable" (key "{i}.{module}") or "q" (key
+        ("{i}.{module}", field))."""
+        li = str(i)
+        out = [("params", k, t, self.sh.dim(f"{self.prefix}/layers/{li}/{k}"))
+               for k, t in params["layers"][li].items()]
+        for ks, t in self.extras.get("trainable", {}).items():
+            if ks.split(".", 1)[0] == li:
+                out.append(("trainable", ks, t, self.sh.dim(f"trainable/{ks}")))
+        for ks, entry in self.extras.get("q", {}).items():
+            if ks.split(".", 1)[0] == li:
+                out += [("q", (ks, k), t, self.sh.dim(f"q/{ks}/{k}")) for k, t in entry.items()]
+        return out
+
+    def open(self, bundle, linear):
+        """(the layer's full params, its linear dispatch) from layer()'s
+        bundle: the sharded leaves in one gather, the whole ones as they are
+        (the params cast)."""
+        split = [e for e in bundle if e[3] is not None]
+        fulls = gather(self.sh.mesh, [e[2] for e in split], [e[3] for e in split],
+                       self.cast) if split else []
+        if split:
+            _count_live(fulls)
+        got = {(e[0], e[1]): t for e, t in zip(split, fulls)}
+        lp, tr, q = {}, {}, {}
+        for kind, key, t, d in bundle:
+            full = got[(kind, key)] if d is not None else t
+            if kind == "params":
+                lp[key] = self._whole(full) if d is None else full
+            elif kind == "trainable":
+                tr[key] = full
+            else:
+                q.setdefault(key[0], {})[key[1]] = full
+        if self.make_linear is not None:
+            linear = self.make_linear(tr, q)
+        return lp, linear
+
+
+# ---------------------------------------------------------------------------
+# block statistics of sharded accumulators (F5)
+# ---------------------------------------------------------------------------
+
+# the linear partial sum each reducer needs, before its non-linearity
+PARTIAL_KIND = {"mean_abs": "sum", "abs_mean": "abs", "L1": "abs", "L2": "sq"}
+
+
+def block_partials(t: torch.Tensor, dim: Optional[int], offset: int, full_shape,
+                   kind: str) -> torch.Tensor:
+    """(R/256, C/256) fp32 sums over each 256-block of the full (R, C)
+    tensor of what this rank's slice `t` holds of it (rows or columns from
+    `offset` along `dim`; dim None: the whole tensor) of x ("sum"), |x|
+    ("abs") or x^2 ("sq"). A block that straddles the slice's edge gets
+    the part that lies here."""
+    x = t.float()
+    x = x if kind == "sum" else x.abs() if kind == "abs" else x * x
+    r, c = full_shape
+    if dim is None:
+        return x.reshape(r // BLOCK, BLOCK, c // BLOCK, BLOCK).sum(dim=(1, 3))
+    if dim == 1:
+        part = x.reshape(r // BLOCK, BLOCK, x.shape[1]).sum(dim=1)        # (RB, n)
+        ids = (offset + torch.arange(x.shape[1], device=x.device)) // BLOCK
+        out = torch.zeros((r // BLOCK, c // BLOCK), dtype=torch.float32, device=x.device)
+        return out.index_add_(1, ids, part)
+    part = x.reshape(x.shape[0], c // BLOCK, BLOCK).sum(dim=2)            # (n, CB)
+    ids = (offset + torch.arange(x.shape[0], device=x.device)) // BLOCK
+    out = torch.zeros((r // BLOCK, c // BLOCK), dtype=torch.float32, device=x.device)
+    return out.index_add_(0, ids, part)
+
+
+def finish_block_stat(p: torch.Tensor, strategy: str, signed: bool = False) -> torch.Tensor:
+    """The reducer's statistic of combined partial sums: mean_abs |sum| /
+    65536 (signed: the sum / 65536, select.block_stats_step's accumulable
+    form), abs_mean sum|x| / 65536, L1 sum|x|, L2 sqrt(sum x^2)."""
+    n = float(BLOCK * BLOCK)
+    if strategy == "mean_abs":
+        return p / n if signed else (p / n).abs()
+    if strategy == "abs_mean":
+        return p / n
+    if strategy == "L1":
+        return p
+    if strategy == "L2":
+        return torch.sqrt(p)
+    raise ValueError(f"unknown calculate_strategy {strategy!r}")
+
+
+def block_stats_sharded(items: Mapping[str, tuple], strategy_of, mesh: Mesh,
+                        signed: bool = False) -> Dict[str, torch.Tensor]:
+    """{key: (R/256, C/256) statistic} of sharded (R, C) tensors: items
+    {key: (slice, dim, offset, full_shape)}, strategy_of(key) the reducer.
+    The sharded ones' partial sums are SUM-reduced over the fsdp group in
+    one bucketed all-reduce, then finished (finish_block_stat): the
+    non-linearity comes after the combination, as on the full tensor."""
+    from sparse_matrix_tuning_tpu_torch.parallel.mesh import all_reduce_
+    parts = {k: block_partials(t, d, off, shape, PARTIAL_KIND[strategy_of(k)])
+             for k, (t, d, off, shape) in items.items()}
+    all_reduce_([parts[k] for k, v in items.items() if v[1] is not None], mesh, "fsdp")
+    return {k: finish_block_stat(p, strategy_of(k), signed) for k, p in parts.items()}
+
+
+# ---------------------------------------------------------------------------
+# trainables into this rank's weight shard (F6)
+# ---------------------------------------------------------------------------
+
+def _in_window(along: np.ndarray, lo: int, hi: int) -> np.ndarray:
+    return np.nonzero((along >= lo) & (along < hi))[0]
+
+
+def block_window(rb: np.ndarray, cb: np.ndarray, dim: Optional[int], offset: int, n: int,
+                 device):
+    """Where the blocks at (rb, cb) land in a weight slice of n rows (dim
+    0) or columns (dim 1) from offset: (the blocks' indices, their row and
+    column block in the block-aligned window around the slice, as tensors
+    on `device`, the window's first block lo, its length in blocks), or
+    None when no block touches the slice. Built once per plan and slice
+    (smt/plan.py caches it)."""
+    if dim is None:
+        dim, offset = 0, 0
+    lo, hi = offset // BLOCK, -(-(offset + n) // BLOCK)
+    sel = _in_window(rb if dim == 0 else cb, lo, hi)
+    if not len(sel):
+        return None
+    return (torch.as_tensor(sel, device=device),
+            torch.as_tensor(rb[sel] - (lo if dim == 0 else 0), device=device),
+            torch.as_tensor(cb[sel] - (lo if dim == 1 else 0), device=device), lo, hi - lo)
+
+
+@torch.no_grad()
+def write_blocks(w: torch.Tensor, dim: Optional[int], offset: int, blocks: torch.Tensor,
+                 window) -> None:
+    """Write full (n, 256, 256) blocks into this rank's slice w of their
+    (R, C) weight (rows, dim 0, or columns, dim 1, from offset), in place:
+    the parts of each block that lie in the slice, placed by
+    block_window's `window`. Where the slice is not block-aligned, a
+    block-aligned window around it takes the blocks and its middle is
+    copied back."""
+    if window is None:
+        return
+    sel, r, c, lo, n_blocks = window
+    if dim is None:
+        dim, offset = 0, 0
+    n = w.shape[dim]
+    start = offset - lo * BLOCK
+    aligned = start == 0 and n == n_blocks * BLOCK
+    if aligned:
+        win = w
+    else:
+        shape = list(w.shape)
+        shape[dim] = n_blocks * BLOCK
+        win = torch.empty(shape, dtype=w.dtype, device=w.device)
+        win.narrow(dim, start, n).copy_(w)
+    w4 = win.view(win.shape[0] // BLOCK, BLOCK, win.shape[1] // BLOCK, BLOCK)
+    w4[r, :, c, :] = blocks.index_select(0, sel).to(w.dtype)
+    if not aligned:
+        w.copy_(win.narrow(dim, start, n))
+
+
+def column_window(channels: np.ndarray, dim: Optional[int], offset: int, n: int, device):
+    """Where the columns `channels` land in a weight slice (columns 0.. of
+    the full (O, n_ch) columns, and the slice's columns, as tensors), or
+    None when none does; dim 0 and whole slices take every column."""
+    if dim == 1:
+        sel = _in_window(channels, offset, offset + n)
+        if not len(sel):
+            return None
+        return (torch.as_tensor(sel, device=device),
+                torch.as_tensor(channels[sel] - offset, device=device))
+    idx = torch.as_tensor(channels, device=device)
+    return torch.arange(len(channels), device=device), idx
+
+
+@torch.no_grad()
+def write_columns(w: torch.Tensor, dim: Optional[int], offset: int, cols: torch.Tensor,
+                  window) -> None:
+    """Write full (O, n_ch) columns into this rank's slice w of their (O,
+    I) weight, in place, placed by column_window's `window`: a row slice
+    (dim 0) takes its rows of every column, a column slice its columns."""
+    if window is None:
+        return
+    sel, at = window
+    if dim == 0:
+        cols = cols[offset:offset + w.shape[0]]
+    w[:, at] = cols.index_select(1, sel).to(w.dtype)

@@ -15,6 +15,14 @@ gather / scatter on torch tensors:
 The index tensors of both modes are built once per plan and device, so a
 step copies nothing from the host.
 
+Over fsdp shards (a parallel/fsdp.Sharding) gather reads each planned
+weight whole (an all-gather, one weight at a time) and keeps this rank's
+shard of the trainable; scatter gathers the updated trainables and writes
+into each weight shard the part that lies in it (parallel/fsdp.py
+write_blocks / write_columns): JAX shards a trainable on its block rows
+(or output rows) and a column-parallel weight on its input columns, so
+the updated blocks do not lie in the rank's own weight shard.
+
 Keys are "{layer}.{module}" strings.
 """
 
@@ -172,29 +180,40 @@ class SMTPlan:
         return sched
 
     def gather(self, layer_params: Mapping[str, Mapping[str, torch.Tensor]],
-               dtype=torch.float32) -> Dict[str, torch.Tensor]:
+               dtype=torch.float32, sharding=None, prefix: str = "master"
+               ) -> Dict[str, torch.Tensor]:
         """The trainable per planned linear, cast to `dtype` (fp32 master
         copies by default), as new tensors: (n_blocks, 256, 256) in matrix
         mode, (out_dim, n_channels) in channel mode.
 
-        layer_params: params["layers"], i.e. {str(layer): {module: (O, I)}}."""
+        layer_params: params["layers"], i.e. {str(layer): {module: (O, I)}}.
+        sharding: layer_params holds fsdp shards at state path
+        `prefix`/layers/...; each trainable is this rank's shard, recorded at
+        "trainable/{key}" (module notes)."""
         out = {}
         for ks, lp in self.linears.items():
             w = layer_params[str(lp.layer)][lp.module].detach()
+            if sharding is not None:
+                w = sharding.full(f"{prefix}/layers/{lp.layer}/{lp.module}", w)
             if self.mode == "channel":
-                out[ks] = w.index_select(1, self.channel_index(ks, w.device)).to(dtype)
-                continue
-            w4 = w.reshape(lp.out_dim // BLOCK, BLOCK, lp.in_dim // BLOCK, BLOCK)
-            rb, cb = self.block_index(ks, w.device)
-            out[ks] = w4[rb, :, cb, :].to(dtype).contiguous()  # (n, 256, 256)
+                t = w.index_select(1, self.channel_index(ks, w.device)).to(dtype)
+            else:
+                w4 = w.reshape(lp.out_dim // BLOCK, BLOCK, lp.in_dim // BLOCK, BLOCK)
+                rb, cb = self.block_index(ks, w.device)
+                t = w4[rb, :, cb, :].to(dtype).contiguous()  # (n, 256, 256)
+            out[ks] = t if sharding is None else sharding.shard(f"trainable/{ks}", t, self.mode)
         return out
 
     @torch.no_grad()
-    def scatter(self, layer_params, trainable: Mapping[str, torch.Tensor]):
+    def scatter(self, layer_params, trainable: Mapping[str, torch.Tensor], sharding=None):
         """Write trainable values back into the dense weights, in place.
         Returns layer_params (the same dicts and tensors). A weight that
         left the device (train/convert.py offload_frozen_to_host leaves a
-        1-element placeholder) is skipped: nothing to keep current."""
+        1-element placeholder) is skipped: nothing to keep current.
+        sharding: the weights (state path "params/layers/...") and the
+        trainables are fsdp shards (module notes)."""
+        if sharding is not None:
+            return self._scatter_sharded(layer_params, trainable, sharding)
         for ks, lp in self.linears.items():
             w = layer_params[str(lp.layer)][lp.module]
             if w.dim() != 2:
@@ -205,6 +224,33 @@ class SMTPlan:
             w4 = w.view(lp.out_dim // BLOCK, BLOCK, lp.in_dim // BLOCK, BLOCK)
             rb, cb = self.block_index(ks, w.device)
             w4[rb, :, cb, :] = trainable[ks].to(w.dtype)
+        return layer_params
+
+    def _scatter_sharded(self, layer_params, trainable, sharding):
+        from sparse_matrix_tuning_tpu_torch.parallel.fsdp import (
+            block_window, column_window, write_blocks, write_columns)
+        keys = list(self.linears)
+        full = sharding.full_many([f"trainable/{ks}" for ks in keys],
+                                  [trainable[ks] for ks in keys])
+        for ks, t in zip(keys, full):
+            lp = self.linears[ks]
+            path = f"params/layers/{lp.layer}/{lp.module}"
+            w = layer_params[str(lp.layer)][lp.module]
+            d, off = sharding.dim(path), sharding.offset(path, w)
+            n = w.shape[0 if d is None else d]
+            cache_key = (ks, str(w.device), "window", d, off, n)
+            win = self._index_cache.get(cache_key)
+            if self.mode == "channel":
+                if cache_key not in self._index_cache:
+                    win = self._index_cache[cache_key] = column_window(
+                        np.asarray(lp.channels, np.int64), d, off, n, w.device)
+                write_columns(w, d, off, t, win)
+            else:
+                if cache_key not in self._index_cache:
+                    win = self._index_cache[cache_key] = block_window(
+                        lp.row_blocks().astype(np.int64), lp.col_blocks().astype(np.int64), d,
+                        off, n, w.device)
+                write_blocks(w, d, off, t, win)
         return layer_params
 
     # -- (de)serialization --------------------------------------------------------

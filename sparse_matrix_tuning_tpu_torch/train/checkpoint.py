@@ -13,19 +13,26 @@ per-layer state or the stacked scan state:
                    trainer rebuilds it (scan_phase.attach_schedules).
   frozen_host.pt   the host store of frozen weights (trainer._host_frozen),
                    when there is one
+  state.fsdp{f}.pt in place of state.pt under fsdp (F > 1): the shards of
+                   fsdp index f, written by the rank of data index 0 that
+                   holds them (the data group's ranks hold equal shards),
+                   read by every rank of fsdp index f; an Orbax save of
+                   sharded arrays is a collective in the JAX package too
   meta.json        phase, step, total_steps, best_eval_loss, dtype (a restore
                    under another --dtype is refused: fp16 states carry the
                    loss scaler's "loss_scale" and "good_steps"), mesh (a
-                   restore at another data size is refused: fit's batch
-                   skip counts global batches); in the sparse phase
-                   "resolved": the layout the state was built in
+                   restore at another (data, fsdp) is refused by name: fit's
+                   batch skip counts global batches, and the shards are
+                   the saving mesh's); in the sparse phase "resolved": the
+                   layout the state was built in
   config.json, plan.json
 
 torch.save rather than safetensors: the integer and boolean leaves and the
 bf16 host store load as they were saved. Resume needs no RNG state: the
 dropout masks are derived from (seed, step, layer) (models/llama.py).
-Under data parallelism rank 0 writes (trainer._save_resumable) and every
-rank restores the same files.
+Over data alone rank 0 writes (trainer._save_resumable) and every rank
+restores the same files; under fsdp every rank calls save_checkpoint and
+rank 0 writes the meta, config and plan.
 """
 
 from __future__ import annotations
@@ -100,11 +107,23 @@ def _predicted_layout(cfg, model_cfg, plan: SMTPlan, mesh=None) -> Dict:
             "frozen_quant": fq, "head_quant": resolve_head_quant(cfg, model_cfg, fq)}
 
 
+def _state_file(trainer) -> str:
+    if trainer.sharding is None:
+        return STATE_FILE
+    return f"state.fsdp{trainer.mesh.fsdp_index}.pt"
+
+
 def save_checkpoint(path: str, trainer) -> None:
-    """Write the trainer's state, host store, plan and meta into `path`."""
+    """Write the trainer's state, host store, plan and meta into `path`.
+    Under fsdp every rank calls it: the ranks of data index 0 write their
+    shards, rank 0 the rest."""
     os.makedirs(path, exist_ok=True)
-    _save({k: v.detach() for k, v in _tensors(trainer.state).items()},
-          os.path.join(path, STATE_FILE))
+    mesh = trainer.mesh
+    if trainer.sharding is None or mesh.data_index == 0:
+        _save({k: v.detach() for k, v in _tensors(trainer.state).items()},
+              os.path.join(path, _state_file(trainer)))
+    if mesh is not None and not mesh.is_main:
+        return
     host_path = os.path.join(path, HOST_FILE)
     if trainer._host_frozen is not None:
         _save(trainer._host_frozen, host_path)
@@ -188,11 +207,12 @@ def restore_checkpoint(path: str, trainer) -> None:
                          f"--dtype {trainer.cfg.dtype}: its parameters and its loss-scaler state "
                          f"(fp16 only) do not carry over; resume with --dtype {meta['dtype']}")
     saved_mesh, mesh = meta.get("mesh", [1, 1, 1]), _mesh_shape(trainer)
-    if saved_mesh[0] != mesh[0]:
+    if saved_mesh[:2] != mesh[:2]:
         raise ValueError(f"checkpoint was saved at --mesh_shape {','.join(map(str, saved_mesh))} "
                          f"but the trainer runs {','.join(map(str, mesh))}: fit skips the "
-                         "global batches already taken, whose size counts the data axis; "
-                         f"resume with --mesh_shape {','.join(map(str, saved_mesh))}")
+                         "global batches already taken, whose size counts the data and fsdp "
+                         "axes, and each rank reads the shards of its fsdp index; resume with "
+                         f"--mesh_shape {','.join(map(str, saved_mesh))}")
     plan = None
     if os.path.exists(os.path.join(path, PLAN_FILE)):
         with open(os.path.join(path, PLAN_FILE)) as f:
@@ -218,13 +238,14 @@ def restore_checkpoint(path: str, trainer) -> None:
         # keys, shapes and dtypes (the values come from the checkpoint)
         built, template_host = sparse_state_from_plan(trainer.cfg, trainer.state, plan,
                                                       trainer.model_cfg, scan=scan,
-                                                      mesh=trainer.mesh)
+                                                      mesh=trainer.mesh,
+                                                      sharding=trainer.sharding)
         template = _tensors(built)
         del built
     else:
         _check_layout(meta.get("resolved"), _resolved_layout(trainer))
         template = _tensors(trainer.state)
-    flat = torch.load(os.path.join(path, STATE_FILE), weights_only=True,
+    flat = torch.load(os.path.join(path, _state_file(trainer)), weights_only=True,
                       map_location=trainer.device)
     _check_leaves("state", flat, template)
     _check_leaves("host store", host or {}, template_host or {})

@@ -13,6 +13,12 @@ ATTENTION blocks or channels, so attention always uses "mean_abs" while
 MLP uses the configured strategy (fine_tune.py:306-313 vs :319-327,
 :472-477 vs :493-498).
 
+Under fsdp (a parallel/fsdp.Sharding) the block statistics come from the
+accumulators' shards, their partial sums combined over the fsdp group
+before any non-linearity (a 256-block may straddle two shards), and the
+sparse state is built one weight at a time from the gathered master and
+kept as this rank's shards, the int8 base quantized from the full weight.
+
 With frozen_quant=int8 the conversion also quantizes every layer linear
 once from the fp32 master (build_qweights; the head too, build_q_head),
 and offload_frozen_to_host moves the then compute-dead dense weights to
@@ -78,22 +84,32 @@ def resolve_head_quant(cfg: SMTConfig, model_cfg, frozen_quant: str) -> str:
 
 
 @torch.no_grad()
-def build_q_head(params, model_cfg) -> Dict:
+def build_q_head(params, model_cfg, sharding=None) -> Dict:
     """Quantize the (frozen) lm-head weight once: {"wq" int8 (V, D), "sw"
     fp32 (V,)}. Tied models quantize the embedding matrix (the embedding
-    LOOKUP keeps reading the unquantized copy)."""
-    wq, sw = quantize_weight(lm_head_weight(params, model_cfg).detach())
-    return {"wq": wq, "sw": sw}
+    LOOKUP keeps reading the unquantized copy). sharding: params are the
+    master's fsdp shards; the head is gathered, quantized and sharded."""
+    head = lm_head_weight(params, model_cfg).detach()
+    if sharding is None:
+        wq, sw = quantize_weight(head)
+        return {"wq": wq, "sw": sw}
+    name = "embed_tokens" if model_cfg.tie_word_embeddings else "lm_head"
+    wq, sw = quantize_weight(sharding.full(f"master/{name}", head))
+    return {"wq": sharding.shard("q_head/wq", wq), "sw": sharding.shard("q_head/sw", sw)}
 
 
 @torch.no_grad()
-def build_qweights(layer_params, plan: SMTPlan) -> Dict:
+def build_qweights(layer_params, plan: SMTPlan, sharding=None) -> Dict:
     """Quantize every frozen layer linear once: {'{layer}.{module}':
     {"wq" int8 (O, I), "sw" fp32 (O,)[, "base" fp32 (n, 256, 256)]}}.
 
     "base" (planned linears only) holds the dequantized frozen values of
     the selected blocks, so the sparse linear can apply the exact
-    correction delta = blocks - base (ops/sparse_linear.py)."""
+    correction delta = blocks - base (ops/sparse_linear.py).
+
+    sharding: layer_params are the master's fsdp shards; each weight is
+    gathered, quantized whole (a row's scale spans every shard of a
+    column-parallel weight) and its leaves kept as this rank's shards."""
     q: Dict = {}
     for li, layer in layer_params.items():
         for mod in LAYER_LINEARS:
@@ -101,6 +117,8 @@ def build_qweights(layer_params, plan: SMTPlan) -> Dict:
             if w is None or w.dim() != 2:
                 continue
             ks = f"{li}.{mod}"
+            if sharding is not None:
+                w = sharding.full(f"master/layers/{li}/{mod}", w)
             wq, sw = quantize_weight(w.detach())
             entry = {"wq": wq, "sw": sw}
             lp = plan.linears.get(ks)
@@ -109,6 +127,8 @@ def build_qweights(layer_params, plan: SMTPlan) -> Dict:
                 wq4 = wq.reshape(lp.out_dim // 256, 256, lp.in_dim // 256, 256)
                 sw_rows = sw.reshape(lp.out_dim // 256, 256)[rb]  # (n, 256)
                 entry["base"] = (wq4[rb, :, cb, :].float() * sw_rows[:, :, None]).contiguous()
+            if sharding is not None:
+                entry = {k: sharding.shard(f"q/{ks}/{k}", t) for k, t in entry.items()}
             q[ks] = entry
     return q
 
@@ -129,17 +149,27 @@ def _split_stats(flat_stats: Dict[str, np.ndarray]) -> Tuple[Dict, Dict]:
 
 
 def compute_matrix_selection(cfg: SMTConfig, acc: Dict[str, torch.Tensor],
-                             all_2d_shapes) -> Dict:
-    """acc: grad-sum (or per-step-stat) accumulators keyed '{layer}.{module}'."""
+                             all_2d_shapes, sharding=None) -> Dict:
+    """acc: grad-sum (or per-step-stat) accumulators keyed '{layer}.{module}'
+    (under fsdp this rank's shards: per-step statistics are gathered whole,
+    grad sums reduced by fsdp.block_stats_sharded)."""
     total_blocks = count_total_blocks(all_2d_shapes)
     n_attn = num_selected_blocks(cfg.downsample_attention_blocks_ratio, total_blocks)
     n_mlp = num_selected_blocks(cfg.downsample_mlp_blocks_ratio, total_blocks)
 
     def stats_of(strategy):
         if cfg.saliency_accumulation == "per_step_stats":
+            whole = acc if sharding is None else {
+                ks: sharding.full(f"acc/{ks}", g) for ks, g in acc.items()}
             return {ks: _to_numpy(block_stats_final(
                         g, harvest_strategy(cfg, parse_key(ks)[0])))
-                    for ks, g in acc.items()}
+                    for ks, g in whole.items()}
+        if sharding is not None:
+            from sparse_matrix_tuning_tpu_torch.parallel.fsdp import block_stats_sharded
+            items = {ks: (g, sharding.dim(f"acc/{ks}"), sharding.offset(f"acc/{ks}", g),
+                          sharding.full_shape(f"acc/{ks}", g)) for ks, g in acc.items()}
+            return {ks: _to_numpy(t) for ks, t in block_stats_sharded(
+                items, lambda ks: strategy, sharding.mesh).items()}
         return {ks: _to_numpy(block_stats(g, strategy)) for ks, g in acc.items()}
 
     if cfg.no_limit_mixture:
@@ -183,19 +213,23 @@ def compute_channel_selection(cfg: SMTConfig, act_acc: Dict[str, torch.Tensor]) 
     return selected
 
 
-def build_plan(cfg: SMTConfig, warmup_state: Dict, all_2d_shapes, mesh=None) -> SMTPlan:
+def build_plan(cfg: SMTConfig, warmup_state: Dict, all_2d_shapes, mesh=None,
+               sharding=None) -> SMTPlan:
     """The plan of the warm-up's saliency. With a mesh the accumulators
     hold the global batch's values on every rank (the steps reduce before
-    they accumulate, steps.py), and every rank must have selected the same
-    plan (JAX's _assert_cross_host_agreement, convert.py:227-236)."""
+    they accumulate, steps.py; under fsdp each rank its shards), and every
+    rank must have selected the same plan (JAX's
+    _assert_cross_host_agreement, convert.py:227-236)."""
     from sparse_matrix_tuning_tpu_torch.parallel.mesh import assert_same
     master = warmup_state["master"]
     dims = {}
     for li, layer in master["layers"].items():
         for mod in ATTN_TARGETS + MLP_TARGETS:
-            dims[(mod, int(li))] = tuple(layer[mod].shape)
+            w = layer[mod]
+            dims[(mod, int(li))] = tuple(w.shape) if sharding is None else \
+                sharding.full_shape(f"master/layers/{li}/{mod}", w)
     if cfg.matrix_sparsity:
-        selected = compute_matrix_selection(cfg, warmup_state["acc"], all_2d_shapes)
+        selected = compute_matrix_selection(cfg, warmup_state["acc"], all_2d_shapes, sharding)
         plan = SMTPlan.from_selection("matrix", selected, dims)
     else:
         selected = compute_channel_selection(cfg, warmup_state["act_acc"])
@@ -205,22 +239,25 @@ def build_plan(cfg: SMTConfig, warmup_state: Dict, all_2d_shapes, mesh=None) -> 
 
 
 def convert(cfg: SMTConfig, warmup_state: Dict, all_2d_shapes, model_cfg=None,
-            scan: bool = False, mesh=None) -> Tuple[SMTPlan, Dict, Optional[Dict]]:
+            scan: bool = False, mesh=None, sharding=None
+            ) -> Tuple[SMTPlan, Dict, Optional[Dict]]:
     """Run selection and build the phase-2 state from it
     (sparse_state_from_plan). Returns (plan, state, host_frozen). The caller
     drops the warm-up state (master, moments, accumulators), as the
     reference deletes its optimizer and grad dicts (fine_tune.py:352-358)."""
-    plan = build_plan(cfg, warmup_state, all_2d_shapes, mesh)
+    plan = build_plan(cfg, warmup_state, all_2d_shapes, mesh, sharding)
     if not plan.linears:
         raise ValueError(
             "SMT selection produced zero trainable blocks/channels — the downsample "
             "ratios are too small for this model's block count (the "
             "denominator counts ALL 2-D params, fine_tune.py:231-241).")
-    return (plan,) + sparse_state_from_plan(cfg, warmup_state, plan, model_cfg, scan, mesh)
+    return (plan,) + sparse_state_from_plan(cfg, warmup_state, plan, model_cfg, scan, mesh,
+                                            sharding)
 
 
 def sparse_state_from_plan(cfg: SMTConfig, warmup_state: Dict, plan: SMTPlan, model_cfg=None,
-                           scan: bool = False, mesh=None) -> Tuple[Dict, Optional[Dict]]:
+                           scan: bool = False, mesh=None, sharding=None
+                           ) -> Tuple[Dict, Optional[Dict]]:
     """The phase-2 state of `plan` from the warm-up's fp32 master, and its
     host store: (state, host_frozen), host_frozen None unless the frozen
     weights moved to the host.
@@ -231,26 +268,34 @@ def sparse_state_from_plan(cfg: SMTConfig, warmup_state: Dict, plan: SMTPlan, mo
     gathered from the fp32 master; with an int8 frozen base (matrix mode)
     also state["q"], with an int8 head (needs model_cfg) state["q_head"],
     and with the host offload (frozen_offload_active) the quantized dense
-    weights in host_frozen (offload_frozen_to_host)."""
+    weights in host_frozen (offload_frozen_to_host).
+
+    sharding (the fsdp axis, the per-layer layout only): the master is
+    this rank's shards; the dense weights keep the master's dims (state
+    path "params/..."), the trainables, their moments and the int8 leaves
+    are this rank's shards (module notes), recorded in `sharding`."""
     from sparse_matrix_tuning_tpu_torch.train.steps import init_sparse_state
 
     if scan:
         from sparse_matrix_tuning_tpu_torch.train.scan_phase import build_scan_sparse_state
         return build_scan_sparse_state(cfg, warmup_state, plan, model_cfg)
     master = warmup_state["master"]
+    if sharding is not None:
+        sharding.alias("master", "params")
     with torch.no_grad():
         params = tree_map(lambda p: p.detach().to(cfg.param_dtype, copy=True), master)
-        trainable = plan.gather(master["layers"], dtype=torch.float32)
-    state = init_sparse_state(params, trainable, step=int(warmup_state["step"]), cfg=cfg)
+        trainable = plan.gather(master["layers"], dtype=torch.float32, sharding=sharding)
+    state = init_sparse_state(params, trainable, step=int(warmup_state["step"]), cfg=cfg,
+                              sharding=sharding)
     fq = resolve_frozen_quant(cfg, plan.mode)
     if fq == "int8":
         # quantize from the fp32 master (best rounding); wq/sw/base are
         # frozen constants that ride along in the state
-        state["q"] = build_qweights(master["layers"], plan)
+        state["q"] = build_qweights(master["layers"], plan, sharding)
     # NOT nested under fq == "int8": an explicit --head_quant int8 works
     # over a bf16 frozen base too (the head path is independent)
     if model_cfg is not None and resolve_head_quant(cfg, model_cfg, fq) == "int8":
-        state["q_head"] = build_q_head(master, model_cfg)
+        state["q_head"] = build_q_head(master, model_cfg, sharding)
     if frozen_offload_active(cfg, plan.mode, mesh=mesh):
         return offload_frozen_to_host(state)
     return state, None

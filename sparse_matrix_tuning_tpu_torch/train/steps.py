@@ -34,10 +34,20 @@ after the last microbatch's backward: the warm-up's every dense grad, the
 sparse phase's selected blocks or columns, the scan state's stacks. Every
 rank then holds the global batch's loss and grads, so the overflow test,
 the clip norm, the saliency accumulators and the update agree bit for bit.
+
+The fsdp axis (a mesh with F > 1 and the state's parallel/fsdp.Sharding):
+the master, moments, accumulators, trainables and frozen base are this
+rank's shards, the forward gathers each layer where it runs
+(fsdp.LayerGather) and the backward reduce-scatters its grads over the
+fsdp group, so a sharded leaf's grad is summed over the data group after
+the last microbatch and a whole leaf's (the norms) over the world; the
+clip norm sums the shards' squares over the fsdp group and counts a whole
+leaf's once; Adam, K2 among it, runs on the shards.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, Dict, Optional
 
 import torch
@@ -52,6 +62,7 @@ from sparse_matrix_tuning_tpu_torch.ops.loss import (
     chunked_causal_lm_loss, chunked_causal_lm_loss_q8)
 from sparse_matrix_tuning_tpu_torch.ops.sparse_linear import (
     _resolve_impl, frozen_q8_linear, make_sparse_linear_dispatch)
+from sparse_matrix_tuning_tpu_torch.parallel.fsdp import LayerGather, block_stats_sharded
 from sparse_matrix_tuning_tpu_torch.parallel.mesh import all_reduce_
 from sparse_matrix_tuning_tpu_torch.smt.optimizer import (
     AdamConfig, adam_step, clip_by_global_norm, full_ft_wd_mask, global_norm,
@@ -64,7 +75,7 @@ def _cast_tree(tree, dtype):
     return tree_map(lambda p: p.to(dtype), tree)
 
 
-def accumulated_value_and_grad(loss_of, accum_steps: int, mesh=None):
+def accumulated_value_and_grad(loss_of, accum_steps: int, mesh=None, sharded=()):
     """Microbatch gradient accumulation (the reference delegates this to the
     DeepSpeed engine). Returns vag(params, batch) -> (mean loss, grads):
     `params` is a flat {key: leaf tensor requiring grad}; the global batch's
@@ -75,7 +86,10 @@ def accumulated_value_and_grad(loss_of, accum_steps: int, mesh=None):
     semantics). With a mesh the batch is this rank's rows and each loss
     its token-loss sum over the global microbatch's count: the loss and
     the grads are SUM-reduced over the ranks (parallel/mesh.all_reduce_,
-    in buckets) after the last microbatch's backward."""
+    in buckets) after the last microbatch's backward. Under fsdp the
+    grads of the `sharded` keys are reduce-scattered shards already
+    (fsdp.gather's backward): they are summed over the data group, the
+    loss and the other grads over the world."""
 
     def vag(params: Dict[str, torch.Tensor], batch):
         for p in params.values():
@@ -93,7 +107,8 @@ def accumulated_value_and_grad(loss_of, accum_steps: int, mesh=None):
         grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for k, p in params.items()}
         if mesh is not None:
-            all_reduce_([total, *grads.values()], mesh)
+            all_reduce_([g for k, g in grads.items() if k in sharded], mesh, "data")
+            all_reduce_([total] + [g for k, g in grads.items() if k not in sharded], mesh)
         if accum_steps > 1:
             inv = 1.0 / accum_steps
             total = total * inv
@@ -129,18 +144,18 @@ def dropout_key(cfg: SMTConfig, state: Dict, sparse: bool, mesh=None):
     (models/llama.dropout_layer_seed), or None without --dropout: base seed
     cfg.seed in the warm-up and cfg.seed + 1 in the sparse phase, as the
     JAX steps key theirs (steps.py:284, :433; scan_phase.py:784). With a
-    mesh, (seed, step, rank, data size): the rank's rows of the global
-    microbatch's mask (models/llama._run). Reads the step on the host,
+    mesh, (seed, step, rank, D * F row slices): the rank's rows of the
+    global microbatch's mask (models/llama._run). Reads the step on the host,
     once a step, only under dropout."""
     if cfg.dropout <= 0:
         return None
     key = (cfg.seed + (1 if sparse else 0), int(state["step"]))
-    return key if mesh is None else key + (mesh.rank, mesh.data)
+    return key if mesh is None else key + (mesh.rank, mesh.batch_shards)
 
 
 def compute_loss(params, batch, cfg: SMTConfig, model_cfg: LlamaConfig,
                  linear=None, remat=True, stop_grad_below_layer=None,
-                 sparse=False, q_head=None, dropout_key=None):
+                 sparse=False, q_head=None, dropout_key=None, fsdp=None):
     """Shared loss path of all steps: full logits + CE, or the chunked-vocab
     CE (ops/loss.py), by the _use_chunked_loss policy (sparse-phase steps
     pass sparse=True).
@@ -151,30 +166,35 @@ def compute_loss(params, batch, cfg: SMTConfig, model_cfg: LlamaConfig,
     straight-through int8 grad_hidden, no weight gradient), dense via
     frozen_q8_linear over the full logits, chunked via
     chunked_causal_lm_loss_q8. dropout_key: the training step's
-    (seed, step) under attention dropout (dropout_key()), None in eval."""
+    (seed, step) under attention dropout (dropout_key()), None in eval.
+    fsdp: the fsdp.LayerGather of a params tree of shards (forward's)."""
     kw = dict(attention_mask=batch.get("attention_mask"),
               linear=linear or default_linear, remat=remat,
               stop_grad_below_layer=stop_grad_below_layer, attn_impl=cfg.attn_impl,
-              dropout_key=dropout_key)
+              dropout_key=dropout_key, fsdp=fsdp)
     return head_loss(lambda hidden: forward(params, batch["input_ids"], model_cfg,
                                             return_hidden=hidden, **kw),
-                     params, batch, cfg, model_cfg, sparse, q_head)
+                     params, batch, cfg, model_cfg, sparse, q_head, fsdp)
 
 
 def head_loss(run, params, batch, cfg: SMTConfig, model_cfg: LlamaConfig, sparse: bool,
-              q_head=None):
+              q_head=None, fsdp=None):
     """The loss of compute_loss over a decoder `run(return_hidden)` (forward
     or, for the scan state, forward_scan): the loss path and the head as
-    compute_loss describes them."""
+    compute_loss describes them; under fsdp the head (or the int8 head's
+    wq) is gathered here."""
     b, sq = batch["input_ids"].shape
     denom = batch.get("loss_denom")  # data parallelism: the global count
+    if fsdp is not None:
+        q_head = fsdp.q_head(q_head)
     if _use_chunked_loss(cfg, model_cfg, sparse=sparse, batch_tokens=b * (sq - 1)):
         hidden = run(True)
         if q_head is not None:
             return chunked_causal_lm_loss_q8(hidden, q_head["wq"], q_head["sw"],
                                              batch["labels"], cfg.vocab_chunk, denom)
-        return chunked_causal_lm_loss(hidden, lm_head_weight(params, model_cfg),
-                                      batch["labels"], cfg.vocab_chunk, denom)
+        head = lm_head_weight(params, model_cfg) if fsdp is None else \
+            fsdp.head(params, model_cfg.tie_word_embeddings)
+        return chunked_causal_lm_loss(hidden, head, batch["labels"], cfg.vocab_chunk, denom)
     if q_head is not None:
         # fp32 input -> fp32 logits straight from the int32 product
         logits = frozen_q8_linear(run(True).float(), q_head["wq"], q_head["sw"])
@@ -191,11 +211,12 @@ def head_loss(run, params, batch, cfg: SMTConfig, model_cfg: LlamaConfig, sparse
 SALIENCY_AUTO_GRAD_SUM_LIMIT = 2 * 1024 ** 3
 
 
-def _grad_sum_accumulator_bytes(master, cfg: SMTConfig) -> int:
+def _grad_sum_accumulator_bytes(master, cfg: SMTConfig, shape_of=None) -> int:
     total = 0
-    for layer in master["layers"].values():
+    for li, layer in master["layers"].items():
         for mod in TARGET_MODULES:
-            shape = tuple(layer[mod].shape)
+            shape = tuple(layer[mod].shape) if shape_of is None else \
+                shape_of(f"layers/{li}/{mod}", layer[mod])
             if cfg.matrix_sparsity and _wants_saliency(cfg, mod) \
                     and not (shape[0] % 256 or shape[1] % 256):
                 total += shape[0] * shape[1] * 4
@@ -204,14 +225,16 @@ def _grad_sum_accumulator_bytes(master, cfg: SMTConfig) -> int:
     return total
 
 
-def resolve_saliency_accumulation(cfg: SMTConfig, master) -> str:
+def resolve_saliency_accumulation(cfg: SMTConfig, master, shape_of=None) -> str:
     """Resolve saliency_accumulation="auto": reference-exact grad_sum while
     the accumulators stay small, per_step_stats at scale (exact for the
     matrix mean_abs reducer — signed-mean accumulation,
     select.block_stats_step — and for channel mean_abs / abs_mean / L1).
+    The bytes are the full accumulators', on a mesh too, as JAX counts
+    them (shape_of(path, leaf): a sharded master leaf's full shape).
     Mutates cfg so later consumers agree."""
     if cfg.saliency_accumulation == "auto":
-        over = _grad_sum_accumulator_bytes(master, cfg) > SALIENCY_AUTO_GRAD_SUM_LIMIT
+        over = _grad_sum_accumulator_bytes(master, cfg, shape_of) > SALIENCY_AUTO_GRAD_SUM_LIMIT
         cfg.saliency_accumulation = "per_step_stats" if over else "grad_sum"
         if over:
             from sparse_matrix_tuning_tpu_torch.utils.logging import print_rank_0
@@ -248,9 +271,22 @@ def loss_scaler(cfg: SMTConfig, device) -> Dict[str, torch.Tensor]:
             "good_steps": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def sharded_global_norm(grads: Dict[str, torch.Tensor], mesh=None, sharded=()) -> torch.Tensor:
+    """global_norm of grads of which the `sharded` keys are this rank's
+    fsdp shards: their squares summed over the fsdp group, a whole leaf's
+    counted once. Equal on every rank; global_norm without fsdp."""
+    if mesh is None or mesh.fsdp == 1 or not sharded:
+        return global_norm(grads)
+    parts = [torch.sum(torch.square(g.float())) for k, g in grads.items() if k in sharded]
+    split = torch.sum(torch.stack(parts))
+    all_reduce_([split], mesh, "fsdp")
+    whole = [torch.sum(torch.square(g.float())) for k, g in grads.items() if k not in sharded]
+    return torch.sqrt(split + (torch.sum(torch.stack(whole)) if whole else 0.0))
+
+
 @torch.no_grad()
 def unscale_and_check(loss: torch.Tensor, grads: Dict[str, torch.Tensor], state: Dict,
-                      cfg: SMTConfig):
+                      cfg: SMTConfig, norm_of=global_norm):
     """After a backward of the scaled loss: the loss and the fp32 grads
     (in place) times 1 / loss_scale, their global norm, and the scaler
     stepped in place on the device. Returns (loss, grads, norm, metrics,
@@ -258,12 +294,14 @@ def unscale_and_check(loss: torch.Tensor, grads: Dict[str, torch.Tensor], state:
     the one sync that loss scaling adds to a step, taken before the caller
     updates anything in place; metrics = {"loss_scale": the scale the step
     ran at, "overflow": not finite}. An overflowed step must then leave
-    every other leaf as it was (the JAX twin's select-on-overflow)."""
+    every other leaf as it was (the JAX twin's select-on-overflow).
+    norm_of: the global norm of the grads (under fsdp over the shards of
+    every rank, so one rank's inf makes every rank skip)."""
     inv = torch.reciprocal(state["loss_scale"])
     loss = loss * inv
     for g in grads.values():
         g.mul_(inv)
-    norm = global_norm(grads)
+    norm = norm_of(grads)
     finite_t = torch.isfinite(loss) & torch.isfinite(norm)
     ran_at = state["loss_scale"].clone()
     scale, good = update_loss_scale(state["loss_scale"], state["good_steps"], finite_t,
@@ -274,16 +312,28 @@ def unscale_and_check(loss: torch.Tensor, grads: Dict[str, torch.Tensor], state:
     return loss, grads, norm, {"loss_scale": ran_at, "overflow": not finite}, finite
 
 
-def init_warmup_state(master, cfg: SMTConfig, device=None) -> Dict:
+def init_warmup_state(master, cfg: SMTConfig, device=None, sharding=None) -> Dict:
     """fp32 master copies (leaf tensors requiring grad), zero Adam moments,
     step counters and the saliency accumulators, on `device` (default: the
     params' device). Channel mode keeps the master and moments too, as the
     JAX twin does, though its warm-up never trains; its accumulators
     ("act_acc") are (max_seq_len, in_dim) positional |activation| sums, or
-    (in_dim,) running per-channel stats under per_step_stats."""
-    resolve_saliency_accumulation(cfg, master)
+    (in_dim,) running per-channel stats under per_step_stats.
+
+    sharding (the fsdp axis): `master` holds this rank's shards at state
+    path "master/..." (fsdp.Sharding.shard_tree); the moments take their
+    dims and the accumulators are made at their shards' sizes."""
+    def full_shape(sub, t):
+        return tuple(t.shape) if sharding is None else sharding.full_shape(f"master/{sub}", t)
+
+    resolve_saliency_accumulation(cfg, master, full_shape)
     if device is None:
         device = master["embed_tokens"].device
+
+    def zeros(path, shape):
+        if sharding is None:
+            return torch.zeros(shape, dtype=torch.float32, device=device)
+        return sharding.zeros(path, shape, torch.float32, device)
 
     def to_master(p):
         return p.detach().to(device=device, dtype=torch.float32, copy=True).requires_grad_(True)
@@ -297,26 +347,29 @@ def init_warmup_state(master, cfg: SMTConfig, device=None) -> Dict:
                           state["master"])
     state["v"] = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=device),
                           state["master"])
+    if sharding is not None:
+        sharding.alias("master", "m")
+        sharding.alias("master", "v")
     state.update(loss_scaler(cfg, device))  # fp16: carried through the channel warm-up too
     if cfg.matrix_sparsity:
         acc = {}
         for li, layer in master["layers"].items():
             for mod in TARGET_MODULES:
-                shape = tuple(layer[mod].shape)
+                shape = full_shape(f"layers/{li}/{mod}", layer[mod])
                 if not _wants_saliency(cfg, mod):
                     continue
                 if shape[0] % 256 or shape[1] % 256:
                     continue  # excluded from selection (reference would crash)
                 if cfg.saliency_accumulation == "per_step_stats":
                     shape = (shape[0] // 256, shape[1] // 256)
-                acc[f"{li}.{mod}"] = torch.zeros(shape, dtype=torch.float32, device=device)
+                acc[f"{li}.{mod}"] = zeros(f"acc/{li}.{mod}", shape)
         state["acc"] = acc
     if cfg.channel_sparsity:
         act = {}
         for li, layer in master["layers"].items():
             for mod in TARGET_MODULES:
                 if _wants_channel(cfg, mod):
-                    in_dim = layer[mod].shape[1]
+                    in_dim = full_shape(f"layers/{li}/{mod}", layer[mod])[1]
                     shape = ((in_dim,) if cfg.saliency_accumulation == "per_step_stats"
                              else (cfg.max_seq_len, in_dim))
                     act[f"{li}.{mod}"] = torch.zeros(shape, dtype=torch.float32, device=device)
@@ -342,7 +395,9 @@ def _target_grad(grads: Dict[str, torch.Tensor], ks: str) -> torch.Tensor:
 
 
 def build_warmup_step(cfg: SMTConfig, model_cfg: LlamaConfig,
-                      lr_sched: Callable, mesh=None) -> Callable:
+                      lr_sched: Callable, mesh=None, sharding=None) -> Callable:
+    """The warm-up step. sharding (the fsdp axis): the state is this
+    rank's shards (module notes)."""
     adam_cfg = AdamConfig(betas=tuple(cfg.warmup_adam_betas), eps=cfg.adam_eps,
                           weight_decay=cfg.w_decay, grad_clip=cfg.grad_clip)
     param_dtype = cfg.param_dtype
@@ -353,36 +408,32 @@ def build_warmup_step(cfg: SMTConfig, model_cfg: LlamaConfig,
     def step(state: Dict, batch: Dict) -> tuple:
         master = state["master"]
         key = dropout_key(cfg, state, sparse=False, mesh=mesh)
+        gather = None if sharding is None else LayerGather(sharding, "master", cast=param_dtype)
 
         def loss_of(flat_master, mb):
-            params = _cast_tree(master, param_dtype)
+            params = _cast_tree(master, param_dtype) if gather is None else master
             raw = compute_loss(params, mb, cfg, model_cfg,
-                               remat=cfg.gradient_checkpointing, dropout_key=key)
+                               remat=cfg.gradient_checkpointing, dropout_key=key, fsdp=gather)
             return raw * state["loss_scale"] if use_ls else raw
 
         flat = flatten_tree(master)
-        vag = accumulated_value_and_grad(loss_of, cfg.gradient_accumulation_steps, mesh)
+        sharded = () if sharding is None else sharding.sharded_keys("master", flat)
+        vag = accumulated_value_and_grad(loss_of, cfg.gradient_accumulation_steps, mesh, sharded)
         loss, grads = vag(flat, batch)
 
         with torch.no_grad():
-            norm, ls_metrics = None, {}
+            norm_of = partial(sharded_global_norm, mesh=mesh, sharded=sharded)
+            ls_metrics = {}
             if use_ls:
-                loss, grads, norm, ls_metrics, finite = unscale_and_check(loss, grads, state, cfg)
+                loss, grads, norm, ls_metrics, finite = unscale_and_check(loss, grads, state, cfg,
+                                                                          norm_of)
                 if not finite:  # skipped: master, moments, count and acc stay as they were
                     return _skipped(state, flat, loss, norm, lr_sched(state["step"]),
                                     ls_metrics)
+            else:
+                norm = norm_of(grads)
             if "acc" in state:
-                # saliency accumulates the UNCLIPPED averaged grad, as the
-                # reference harvests before optimizer clipping (fine_tune.py:716)
-                if cfg.saliency_accumulation == "per_step_stats":
-                    from sparse_matrix_tuning_tpu_torch.smt.select import block_stats_step
-                    from sparse_matrix_tuning_tpu_torch.train.convert import harvest_strategy
-                    for ks, acc in state["acc"].items():
-                        strat = harvest_strategy(cfg, ks.split(".", 1)[1])
-                        acc.add_(block_stats_step(_target_grad(grads, ks), strat))
-                else:
-                    for ks, acc in state["acc"].items():
-                        acc.add_(_target_grad(grads, ks))
+                _harvest(cfg, state["acc"], grads, mesh, sharding)
 
             grads, gnorm = clip_by_global_norm(grads, adam_cfg.grad_clip, norm=norm)
             lr = lr_sched(state["step"])
@@ -399,6 +450,36 @@ def build_warmup_step(cfg: SMTConfig, model_cfg: LlamaConfig,
     return step
 
 
+def _harvest(cfg: SMTConfig, accs: Dict[str, torch.Tensor], grads, mesh=None, sharding=None):
+    """Saliency accumulates the UNCLIPPED averaged grad, as the reference
+    harvests before optimizer clipping (fine_tune.py:716): the grad itself
+    (grad_sum) or select.block_stats_step's per-step statistic. Under fsdp
+    the statistic's partial sums over the grad's shards are combined over
+    the fsdp group first (fsdp.block_stats_sharded), and each rank keeps
+    its accumulator's shard."""
+    from sparse_matrix_tuning_tpu_torch.train.convert import harvest_strategy
+    if cfg.saliency_accumulation != "per_step_stats":
+        for ks, acc in accs.items():
+            acc.add_(_target_grad(grads, ks))
+        return
+    if sharding is None:
+        from sparse_matrix_tuning_tpu_torch.smt.select import block_stats_step
+        for ks, acc in accs.items():
+            acc.add_(block_stats_step(_target_grad(grads, ks), harvest_strategy(cfg, ks.split(
+                ".", 1)[1])))
+        return
+    items = {}
+    for ks in accs:
+        li, mod = ks.split(".", 1)
+        path, g = f"master/layers/{li}/{mod}", grads[f"layers/{li}/{mod}"]
+        items[ks] = (g, sharding.dim(path), sharding.offset(path, g),
+                     sharding.full_shape(path, g))
+    stats = block_stats_sharded(items, lambda ks: harvest_strategy(cfg, ks.split(".", 1)[1]),
+                                mesh, signed=True)
+    for ks, acc in accs.items():
+        acc.add_(sharding.mine(stats[ks], sharding.dim(f"acc/{ks}")))
+
+
 def _skipped(state: Dict, leaves: Dict[str, torch.Tensor], loss, norm, lr, ls_metrics):
     """An overflowed fp16 step: the grads of `leaves` are dropped and only
     the step counter advances (unscale_and_check has stepped the scaler),
@@ -409,7 +490,8 @@ def _skipped(state: Dict, leaves: Dict[str, torch.Tensor], loss, norm, lr, ls_me
     return state, {"loss": loss, "grad_norm": norm, "lr": lr, **ls_metrics}
 
 
-def build_channel_warmup_step(cfg: SMTConfig, model_cfg: LlamaConfig, mesh=None) -> Callable:
+def build_channel_warmup_step(cfg: SMTConfig, model_cfg: LlamaConfig, mesh=None,
+                              sharding=None) -> Callable:
     """The channel warm-up step: a forward only, which does not train
     (reference fine_tune.py:708 `continue`), with the full-logits loss, and
     the activation taps (models/llama._tapped) added into state["act_acc"]:
@@ -422,18 +504,20 @@ def build_channel_warmup_step(cfg: SMTConfig, model_cfg: LlamaConfig, mesh=None)
     rank's act_acc then holds the global batch's sums (as JAX's taps over
     the global batch do), so a checkpoint that rank 0 writes mid warm-up
     restores on every rank (and per_step_stats' L2 statistic, not linear
-    in the taps, reads the global ones)."""
+    in the taps, reads the global ones). Under fsdp the forward gathers
+    each layer of the master's shards; the taps stay whole."""
     from sparse_matrix_tuning_tpu_torch.smt.select import channel_stats
     from sparse_matrix_tuning_tpu_torch.train.convert import harvest_strategy
     param_dtype = cfg.param_dtype
 
     @torch.no_grad()
     def step(state: Dict, batch: Dict) -> tuple:
-        params = _cast_tree(state["master"], param_dtype)
+        gather = None if sharding is None else LayerGather(sharding, "master", cast=param_dtype)
+        params = _cast_tree(state["master"], param_dtype) if gather is None else state["master"]
         taps: Dict[str, torch.Tensor] = {}
         logits = forward(params, batch["input_ids"], model_cfg,
                          attention_mask=batch.get("attention_mask"),
-                         activation_taps=taps, attn_impl=cfg.attn_impl)
+                         activation_taps=taps, attn_impl=cfg.attn_impl, fsdp=gather)
         loss = causal_lm_loss(logits, batch["labels"], batch.get("loss_denom"))
         if mesh is not None:
             all_reduce_([loss] + [taps[ks] for ks in state["act_acc"]], mesh)
@@ -453,10 +537,15 @@ def build_channel_warmup_step(cfg: SMTConfig, model_cfg: LlamaConfig, mesh=None)
 # Sparse (post-conversion) step
 # ---------------------------------------------------------------------------
 
-def init_sparse_state(params, trainable, step: int, cfg: Optional[SMTConfig] = None) -> Dict:
+def init_sparse_state(params, trainable, step: int, cfg: Optional[SMTConfig] = None,
+                      sharding=None) -> Dict:
     """Zero Adam moments over the trainables and the step carried over; under
     fp16 a fresh scaler (the reference rebuilds the whole DeepSpeed engine at
-    conversion, fine_tune.py:379-384)."""
+    conversion, fine_tune.py:379-384). sharding: the moments take the
+    trainables' shard dims."""
+    if sharding is not None:
+        sharding.alias("trainable", "m")
+        sharding.alias("trainable", "v")
     device = next(iter(trainable.values())).device
     for t in trainable.values():
         t.requires_grad_(True)
@@ -474,7 +563,12 @@ def init_sparse_state(params, trainable, step: int, cfg: Optional[SMTConfig] = N
 
 
 def build_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan,
-                      lr_sched: Callable, mesh=None) -> Callable:
+                      lr_sched: Callable, mesh=None, sharding=None) -> Callable:
+    """The sparse step. sharding (the fsdp axis): the dense weights, the
+    trainables, their moments and the int8 base are this rank's shards;
+    the forward gathers each layer's (K1 computes full block grads, which
+    gather's backward reduce-scatters), K2 runs on the shards, and the
+    updated trainables are gathered for plan.scatter (module notes)."""
     adam_cfg = AdamConfig(betas=tuple(adam_betas(cfg, plan.mode)), eps=cfg.adam_eps,
                           weight_decay=cfg.w_decay, grad_clip=cfg.grad_clip)
     lr_scale = make_qk_lr_scale(cfg.qk_lr_times) if cfg.qk_scheduler else None
@@ -491,22 +585,35 @@ def build_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan,
         key = dropout_key(cfg, state, sparse=True, mesh=mesh)
 
         def loss_of(tr, mb):
-            linear = make_sparse_linear_dispatch(plan, tr, impl, qweights=state.get("q"))
+            gather, linear = None, None
+            if sharding is None:
+                linear = make_sparse_linear_dispatch(plan, tr, impl, qweights=state.get("q"))
+            else:
+                q = state.get("q")
+                gather = LayerGather(
+                    sharding, "params", extras={"trainable": tr, "q": q or {}},
+                    make_linear=lambda t, qw: make_sparse_linear_dispatch(
+                        plan, t, impl, qweights=qw if q is not None else None))
             raw = compute_loss(params, mb, cfg, model_cfg, linear=linear,
                                remat=cfg.sparse_remat,
                                stop_grad_below_layer=lowest_layer, sparse=True,
-                               q_head=state.get("q_head"), dropout_key=key)
+                               q_head=state.get("q_head"), dropout_key=key, fsdp=gather)
             return raw * state["loss_scale"] if use_ls else raw
 
-        vag = accumulated_value_and_grad(loss_of, cfg.gradient_accumulation_steps, mesh)
+        sharded = () if sharding is None else sharding.sharded_keys("trainable", trainable)
+        vag = accumulated_value_and_grad(loss_of, cfg.gradient_accumulation_steps, mesh, sharded)
         loss, grads = vag(trainable, batch)
         with torch.no_grad():
-            norm, ls_metrics = None, {}
+            norm_of = partial(sharded_global_norm, mesh=mesh, sharded=sharded)
+            ls_metrics = {}
             if use_ls:
-                loss, grads, norm, ls_metrics, finite = unscale_and_check(loss, grads, state, cfg)
+                loss, grads, norm, ls_metrics, finite = unscale_and_check(loss, grads, state, cfg,
+                                                                          norm_of)
                 if not finite:  # skipped: trainables, moments, count, dense weights unchanged
                     return _skipped(state, trainable, loss, norm, lr_sched(state["count"]),
                                     ls_metrics)
+            else:
+                norm = norm_of(grads)
             grads, gnorm = clip_by_global_norm(grads, adam_cfg.grad_clip, norm=norm)
             lr = lr_sched(state["count"])
             adam(impl, grads, state, trainable, lr)
@@ -517,7 +624,7 @@ def build_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan,
             # column) values once per step, in place (weights offloaded to
             # the host are skipped: the int8 path reads the trainable blocks
             # directly)
-            plan.scatter(params["layers"], trainable)
+            plan.scatter(params["layers"], trainable, sharding)
             state["step"].add_(1)
         return state, {"loss": loss, "grad_norm": gnorm, "lr": lr, **ls_metrics}
 
@@ -580,7 +687,8 @@ def _fused_block_adam_update(grads, opt_state, trainable, lr, adam_cfg,
 # Eval loss
 # ---------------------------------------------------------------------------
 
-def build_eval_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan=None) -> Callable:
+def build_eval_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan=None,
+                    sharding=None) -> Callable:
     """Forward-only loss (reference helpers/helper.py:210-245). In the
     sparse phase the dense weights already contain the current block values
     (scatter-at-update), so eval is a plain dense forward.
@@ -589,12 +697,20 @@ def build_eval_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan=None) -> Callab
     (train/convert.py offload_frozen_to_host): eval then runs the same
     q8-corrected sparse dispatch as the training forward. Under data
     parallelism the loss is this rank's part (the token-loss sum over the
-    global count, batch["loss_denom"]), which the trainer reduces."""
+    global count, batch["loss_denom"]), which the trainer reduces. Under
+    fsdp the forward gathers each layer of the shards (the master's in the
+    warm-up, the dense weights' after it)."""
     param_dtype = cfg.param_dtype
 
     @torch.no_grad()
     def step(state, batch) -> torch.Tensor:
         linear = None
+        if sharding is not None:
+            warm = "master" in state
+            return compute_loss(state["master" if warm else "params"], batch, cfg, model_cfg,
+                                remat=False, sparse=not warm, q_head=state.get("q_head"),
+                                fsdp=LayerGather(sharding, "master" if warm else "params",
+                                                 cast=param_dtype if warm else None))
         if "master" in state:
             params = _cast_tree(state["master"], param_dtype)
         else:

@@ -8,11 +8,17 @@ deepspeed/fine_tune.py:72-864. In channel mode the warm-up steps only
 harvest activation saliency (steps.build_channel_warmup_step) and do not
 train.
 
-Under data parallelism (`mesh`, `--mesh_shape D,1,1`) every rank holds a
-full replica, takes the identical global batch of B * D * A rows and steps
-on its own rows (data/sft.shard_batch); the steps reduce the grads. Eval
-losses are reduced once per evaluate; rank 0 alone writes metrics, HF
-saves and checkpoints, between barriers.
+On a mesh (`mesh`, `--mesh_shape D,F,1`) every rank takes the identical
+global batch of B * D * F * A rows and steps on its own rows
+(data/sft.shard_batch); the steps reduce the grads. Over data alone (F 1)
+every rank holds a full replica. Over fsdp (F > 1) every rank holds its
+shards of the state (parallel/fsdp.py; `self.sharding` records their
+dims): the trainer shards the params it is given (or takes shards made by
+models/hf_io.load_hf_params_sharded with their dims), and the HF export
+gathers leaf by leaf to the host. The scan layouts are refused under
+fsdp. Eval losses are reduced once per evaluate; rank 0 alone writes
+metrics and HF saves, between barriers; checkpoints are written as
+train/checkpoint.py says.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 from sparse_matrix_tuning_tpu_torch.config import SMTConfig
 from sparse_matrix_tuning_tpu_torch.models.llama import (
     LlamaConfig, all_2d_param_shapes, flatten_tree, resolve_attn_impl, tree_map)
+from sparse_matrix_tuning_tpu_torch.parallel.fsdp import Sharding
 from sparse_matrix_tuning_tpu_torch.parallel.mesh import all_reduce_, assert_same
 from sparse_matrix_tuning_tpu_torch.smt.optimizer import make_lr_schedule
 from sparse_matrix_tuning_tpu_torch.smt.plan import BLOCK, SMTPlan
@@ -40,38 +47,69 @@ from sparse_matrix_tuning_tpu_torch.utils.logging import print_rank_0
 from sparse_matrix_tuning_tpu_torch.utils.throughput import ThroughputReporter
 
 
+def _refuse_scan_under_fsdp(cfg: SMTConfig, model_cfg: LlamaConfig, mesh) -> None:
+    """Under fsdp the scan layouts are refused by name: --scan_layers on,
+    and the "auto" scan of channel + int8 at depth (running the per-layer
+    path there would compute something other than JAX's scan)."""
+    from sparse_matrix_tuning_tpu_torch.train.scan_phase import resolve_scan_layers
+    if resolve_scan_layers(cfg, model_cfg, "matrix" if cfg.matrix_sparsity else "channel"):
+        why = ("--scan_layers on" if cfg.scan_layers == "on" else
+               f"--channel_sparsity --frozen_quant int8 at {model_cfg.num_hidden_layers} layers "
+               "(scan_layers auto)")
+        raise NotImplementedError(
+            f"{why} on mesh {tuple(mesh.shape)}: the scan state under fsdp (each process "
+            "keeping its shards of the host store) is not yet ported to "
+            f"sparse_matrix_tuning_tpu_torch; use --mesh_shape {mesh.batch_shards},1,1")
+
+
 class SMTTrainer:
     """Drives warm-up -> selection/conversion -> sparse fine-tuning.
 
     params: initial model params (any float dtype; copied to an fp32 master
     on `device`, default the mesh's or else the params' device).
     total_steps: optimizer-step horizon for the LR schedule (num_ft_epochs *
-    steps_per_epoch). mesh: parallel/mesh.Mesh for data parallelism (every
-    rank builds its trainer from the same params and seed)."""
+    steps_per_epoch). mesh: parallel/mesh.Mesh (every rank builds its
+    trainer from the same params and seed). param_dims: `params` are
+    already this rank's fsdp shards, sharded on these dims by state path
+    "master/..." (models/hf_io.load_hf_params_sharded); without it a mesh
+    with F > 1 shards the full params here."""
 
     def __init__(self, cfg: SMTConfig, model_cfg: LlamaConfig, params,
-                 total_steps: int, device=None, mesh=None):
+                 total_steps: int, device=None, mesh=None, param_dims=None):
         if device is None:
             device = mesh.device if mesh is not None else params["embed_tokens"].device
         self._init_common(cfg, model_cfg, total_steps, device, mesh)
         self.phase = "warmup"
-        self._all_2d_shapes = all_2d_param_shapes(params)
+        sh = self.sharding
+        if sh is not None:
+            if self.is_smt:
+                _refuse_scan_under_fsdp(cfg, model_cfg, mesh)
+            if param_dims is None:
+                params = sh.shard_tree(params, "master")
+            else:
+                sh.dims.update(param_dims)
+            self._all_2d_shapes = [sh.full_shape(f"master/{k}", p)
+                                   for k, p in flatten_tree(params).items() if p.dim() == 2]
+        else:
+            self._all_2d_shapes = all_2d_param_shapes(params)
 
-        self.state = init_warmup_state(params, cfg, device=self.device)
+        self.state = init_warmup_state(params, cfg, device=self.device, sharding=sh)
         warmup_sched = make_lr_schedule(cfg.lr_scheduler_type, cfg.ft_learning_rate,
                                         cfg.lr_warmup_steps, self.total_steps)
-        self._warmup_step = build_warmup_step(cfg, model_cfg, warmup_sched, mesh)
+        self._warmup_step = build_warmup_step(cfg, model_cfg, warmup_sched, mesh, sh)
         # channel mode: the steps before full_ft_steps harvest activations
         # and do not train (JAX trainer.py:96-103)
-        self._channel_step = (build_channel_warmup_step(cfg, model_cfg, mesh)
+        self._channel_step = (build_channel_warmup_step(cfg, model_cfg, mesh, sh)
                               if cfg.channel_sparsity else None)
         self._sparse_step = None  # built at conversion
-        self._eval_step = build_eval_step(cfg, model_cfg)
+        self._eval_step = build_eval_step(cfg, model_cfg, sharding=sh)
 
     def _init_common(self, cfg: SMTConfig, model_cfg: LlamaConfig, total_steps: int, device,
                      mesh=None):
         self.cfg = cfg
         self.mesh = mesh
+        # the fsdp axis: the dims of this rank's shards by state path
+        self.sharding = Sharding(mesh) if mesh is not None and mesh.fsdp > 1 else None
         self.model_cfg = model_cfg
         self.total_steps = int(total_steps)
         self.device = torch.device(device)
@@ -97,6 +135,11 @@ class SMTTrainer:
         from sparse_matrix_tuning_tpu_torch.train.scan_phase import build_scan_state_from_hf
 
         model_cfg = model_cfg or load_hf_config(model_dir)
+        if mesh is not None and mesh.fsdp > 1:
+            raise NotImplementedError(
+                f"sparse_scan_from_hf (--sparse_from_plan) on mesh {tuple(mesh.shape)}: the scan "
+                "state under fsdp (each process keeping its shards of the host store) is not "
+                f"yet ported; use --mesh_shape {mesh.batch_shards},1,1")
         if plan.mode not in ("matrix", "channel") or cfg.dtype == "fp16":
             raise ValueError("sparse_scan_from_hf requires matrix or channel mode and dtype != "
                              "fp16 (the fp16 loss-scale state is created by the warm-up phase, "
@@ -132,10 +175,12 @@ class SMTTrainer:
         # the new state drops the warm-up master, moments and accumulators
         self.plan, self.state, self._host_frozen = convert_mod.convert(
             self.cfg, self.state, self._all_2d_shapes, model_cfg=self.model_cfg,
-            scan=self._scan, mesh=self.mesh)
+            scan=self._scan, mesh=self.mesh, sharding=self.sharding)
         self.install_sparse_phase()
 
-        total = sum(p.numel() for p in flatten_tree(self.state["params"]).values())
+        sh = self.sharding
+        total = sum(p.numel() if sh is None else torch.Size(sh.full_shape(f"params/{k}", p))
+                    .numel() for k, p in flatten_tree(self.state["params"]).items())
         total += sum(w.numel() for w in (self._host_frozen or {}).values())
         sel = self.plan.trainable_params
         print_rank_0(
@@ -149,6 +194,9 @@ class SMTTrainer:
         remaining horizon at smt_lr (reference fine_tune.py:366-372, with
         the group-lr-overrides-constructor-lr quirk, smt.py:506-519)."""
         self.phase = "sparse"
+        if self.sharding is not None:  # the warm-up leaves went
+            self.sharding.keep(f"{k}/{p}" for k, v in self.state.items() if isinstance(v, dict)
+                               for p in flatten_tree(v))
         conversion_step = self.step - int(self.state["count"])
         sparse_sched = make_lr_schedule(
             self.cfg.lr_scheduler_type, self.cfg.smt_lr,
@@ -163,7 +211,9 @@ class SMTTrainer:
                                                               self.plan)
             return
         self._sparse_step = build_sparse_step(self.cfg, self.model_cfg, self.plan,
-                                              sparse_sched, self.mesh)
+                                              sparse_sched, self.mesh, self.sharding)
+        if self.sharding is not None:
+            self._eval_step = build_eval_step(self.cfg, self.model_cfg, sharding=self.sharding)
         if self._host_frozen is not None:
             # dense weights left the device: the eval loss must run the same
             # q8-corrected dispatch as the training forward
@@ -244,9 +294,10 @@ class SMTTrainer:
         from sparse_matrix_tuning_tpu_torch.data.sft import batch_iterator, num_batches
 
         cfg = self.cfg
-        n_dev = 1 if self.mesh is None else self.mesh.data
+        n_dev = 1 if self.mesh is None else self.mesh.batch_shards
         # effective batch = per-device x devices x accumulation (JAX
-        # trainer.py:379-385, reference fine_tune.py:96-102)
+        # trainer.py:379-385, reference fine_tune.py:96-102); the devices
+        # are the batch's row slices, D * F
         global_bs = cfg.per_device_ft_batch_size * n_dev * cfg.gradient_accumulation_steps
         eval_bs = cfg.per_device_eval_batch_size * n_dev
         steps_per_epoch = num_batches(len(train_ds), global_bs)
@@ -355,7 +406,14 @@ class SMTTrainer:
         master, cast to the param dtype, is the truth. With the int8 host
         offload the frozen weights come back from the host store with the
         trained blocks scattered in (those tensors stay on the CPU): the
-        export is exact, whatever the int8 compute path did."""
+        export is exact, whatever the int8 compute path did. Under fsdp
+        the shards are gathered leaf by leaf into host tensors: collective,
+        every rank calls it."""
+        if self.sharding is not None:
+            warm = self.phase != "sparse"
+            return self.sharding.full_tree(self.state["master" if warm else "params"],
+                                           "master" if warm else "params",
+                                           dtype=self.cfg.param_dtype if warm else None)
         if self.phase == "sparse":
             if self._scan:
                 from sparse_matrix_tuning_tpu_torch.train.scan_phase import (
@@ -410,32 +468,38 @@ class SMTTrainer:
         with open(os.path.join(self.cfg.output_dir, "metrics.jsonl"), "a") as f:
             f.write(json.dumps(rec) + "\n")
 
-    def _on_rank_0(self, write):
-        """write() in rank 0 only, between barriers on a mesh: every rank has
-        reached the save, and none goes on before the files are complete."""
+    def _on_rank_0(self, write, every=False):
+        """write() in rank 0 only (every=True: on every rank), between
+        barriers on a mesh: every rank has reached the save, and none goes
+        on before the files are complete."""
         if self.mesh is None:
             return write()
         self.mesh.barrier()
-        if self.mesh.is_main:
+        if self.mesh.is_main or every:
             write()
         self.mesh.barrier()
 
     def _save_resumable(self):
         """The full train state at {output_dir}/ckpt, what --resume_from
-        reads (train/checkpoint.py; the HF-format saves are weights only)."""
+        reads (train/checkpoint.py; the HF-format saves are weights only).
+        Under fsdp every rank takes part (its shards)."""
         if not self.cfg.output_dir:
             return
         from sparse_matrix_tuning_tpu_torch.train.checkpoint import save_checkpoint
-        self._on_rank_0(lambda: save_checkpoint(os.path.join(self.cfg.output_dir, "ckpt"), self))
+        self._on_rank_0(lambda: save_checkpoint(os.path.join(self.cfg.output_dir, "ckpt"), self),
+                        every=self.sharding is not None)
 
     def _save(self, tag: str, tokenizer=None):
         if not self.cfg.output_dir:
             return
         from sparse_matrix_tuning_tpu_torch.models.hf_io import save_hf_format
         out = os.path.join(self.cfg.output_dir, tag)
+        # under fsdp every rank gathers (collective), rank 0 writes
+        merged = self.merged_params() if self.sharding is not None else None
 
         def write():
-            save_hf_format(self.merged_params(), self.model_cfg, out, tokenizer)
+            save_hf_format(merged if merged is not None else self.merged_params(),
+                           self.model_cfg, out, tokenizer)
             if self.plan is not None:
                 with open(os.path.join(out, "smt_plan.json"), "w") as f:
                     f.write(self.plan.to_json())

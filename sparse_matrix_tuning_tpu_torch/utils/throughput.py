@@ -34,8 +34,8 @@ H100_BF16_PEAK_FLOPS = 989e12
 class ThroughputReporter:
     """Rank-0, every-N-steps throughput print (reference print_throughput,
     cadence fine_tune.py:779-783). batch_size is the global batch and
-    num_devices the data-parallel ranks it is split over: the per-device
-    rates divide by it."""
+    num_devices the ranks whose rows it is split over, D * F on a mesh
+    (JAX counts the mesh's devices): the per-device rates divide by it."""
     batch_size: int
     seq_length: int
     num_layers: int

@@ -87,10 +87,11 @@ def test_int8_and_loss_options_construct(flags, want):
 # ported since the list was written, each with its tests: channel mode
 # (tests/test_torch_channel.py), scan_layers=on, --resume_from, --dropout and
 # --dtype fp16 (tests/test_torch_scan_convert.py, test_torch_checkpoint.py,
-# test_torch_dropout.py, test_torch_fp16.py): these build and parse as in JAX
+# test_torch_dropout.py, test_torch_fp16.py) and the fsdp axis
+# (tests/test_torch_fsdp.py): these build and parse as in JAX
 PORTED = {"channel_sparsity": ["--channel_sparsity"], "scan_layers": ["--scan_layers", "on"],
           "resume_from": ["--resume_from", "ckpt"], "dropout": ["--dropout", "0.1"],
-          "dtype": ["--dtype", "fp16"]}
+          "dtype": ["--dtype", "fp16"], "mesh_shape": ["--mesh_shape", "1", "2", "1"]}
 
 
 @pytest.mark.parametrize("kw", [

@@ -280,15 +280,26 @@ def test_shard_batch_carries_global_microbatch_counts():
 
 
 @pytest.mark.parametrize("shape,err,match", [
-    ((1, 2, 1), NotImplementedError, "fsdp 2 not yet ported"),
+    ((1, 2, 1), None, "--scan_layers on and --sparse_from_plan with fsdp 2"),
     ((1, 1, 2), NotImplementedError, "tensor 2 not yet ported"),
-    ((2, 2, 1), NotImplementedError, "fsdp 2"),
+    ((2, 2, 1), None, "with fsdp 2 .* use --mesh_shape 4,1,1"),
 ])
 def test_sharded_axes_refused(shape, err, match):
-    with pytest.raises(err, match=match):
-        refuse_sharded_axes(shape)
-    with pytest.raises(err, match=match):
-        SMTConfig(mesh_shape=list(shape))
+    """The tensor axis is refused; the fsdp axis is taken, but not with a
+    scan layout (the "auto" scan at depth is the trainer's refusal,
+    tests/test_torch_fsdp_io.py)."""
+    if err is not None:
+        with pytest.raises(err, match=match):
+            refuse_sharded_axes(shape)
+        with pytest.raises(err, match=match):
+            SMTConfig(mesh_shape=list(shape))
+        return
+    refuse_sharded_axes(shape)
+    assert SMTConfig(mesh_shape=list(shape)).mesh_shape == list(shape)
+    with pytest.raises(NotImplementedError, match=match):
+        SMTConfig(mesh_shape=list(shape), scan_layers="on", sparse_from_plan="plan.json")
+    with pytest.raises(NotImplementedError, match="--sparse_from_plan with"):
+        SMTConfig(mesh_shape=list(shape), sparse_from_plan="plan.json")
 
 
 def test_config_mesh_refusals(monkeypatch):
@@ -298,8 +309,9 @@ def test_config_mesh_refusals(monkeypatch):
         SMTConfig(mesh_shape="2,1")
     monkeypatch.setenv("WORLD_SIZE", "2")
     flags = ["--data_path", "x", "--model_name_or_path", "m"]
-    with pytest.raises(NotImplementedError, match="--mesh_shape 2,1,1"):
-        parse_args(flags)
+    assert parse_args(flags).mesh_shape == [1, 2, 1]  # JAX's default mesh: every rank on fsdp
+    with pytest.raises(NotImplementedError, match="--scan_layers on with fsdp 2"):
+        parse_args(flags + ["--scan_layers", "on"])
     # the shape against the world is make_mesh's check, at the launch
     assert parse_args(flags + ["--mesh_shape", "4,1,1"]).mesh_shape == [4, 1, 1]
     assert parse_args(flags + ["--mesh_shape", "2", "1", "1"]).mesh_shape == [2, 1, 1]
@@ -311,8 +323,12 @@ def test_make_mesh_checks_the_world():
         make_mesh((2, 1, 1), world=4)
     with pytest.raises(ValueError, match="!= world size 2"):
         make_mesh([4, 1, 1], world=2)
-    with pytest.raises(NotImplementedError, match="fsdp 4"):
-        make_mesh((1, 4, 1), world=4)
+    with pytest.raises(NotImplementedError, match="tensor 4"):
+        make_mesh((1, 1, 4), world=4)
+    with pytest.raises(RuntimeError, match="needs the process group"):
+        make_mesh((1, 4, 1), world=4)  # the fsdp axis passes the checks
+    with pytest.raises(RuntimeError, match="needs the process group"):
+        make_mesh(None, world=4)  # (1, 4, 1)
 
 
 def test_all_reduce_buckets_by_dtype_and_cap(monkeypatch):

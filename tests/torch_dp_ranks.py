@@ -1,11 +1,13 @@
-"""Rank processes of the data-parallel tests (tests/test_torch_parallel*.py).
+"""Rank processes of the multi-process tests (tests/test_torch_parallel*.py,
+tests/test_torch_fsdp.py).
 
 The targets of torch.multiprocessing.spawn live in this module, which
 imports no JAX, so that a rank imports only torch and the port. Each rank
 joins a gloo group through a file:// store under the test's tmp_path
 (never a fixed port: the suite runs in parallel workers; a collective that
 waits longer than TIMEOUT_S fails the rank instead of hanging), builds a
-parallel/mesh.Mesh of (world, 1, 1), runs every scenario it is given on its
+parallel/mesh.Mesh of (world, 1, 1) or of the (data, fsdp, 1) shape it is
+given, runs every scenario it is given on its
 rows of the global batches, and writes what it saw to
 {out_dir}/{name}.{rank}.pt. A scenario that raises writes its traceback
 instead, so that only its own test fails.
@@ -25,7 +27,7 @@ import torch.multiprocessing as mp
 from sparse_matrix_tuning_tpu_torch.config import SMTConfig
 from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig, flatten_tree
 from sparse_matrix_tuning_tpu_torch.parallel.mesh import (
-    init_distributed, leaf_checksums, make_mesh)
+    Mesh, init_distributed, leaf_checksums, make_mesh)
 from sparse_matrix_tuning_tpu_torch.smt.plan import SMTPlan
 from sparse_matrix_tuning_tpu_torch.train.trainer import SMTTrainer
 
@@ -39,11 +41,11 @@ def spawn(target, world: int, tmp_path, *args):
     mp.spawn(target, args=(world, store, *args), nprocs=world, join=True)
 
 
-def _join(rank: int, world: int, store: str):
+def _join(rank: int, world: int, store: str, shape=None):
     torch.set_num_threads(1)
     device = init_distributed(torch.device("cpu"), init_method=f"file://{store}",
                               rank=rank, world_size=world, timeout_s=TIMEOUT_S)
-    return make_mesh((world, 1, 1), device=device)
+    return make_mesh(shape or (world, 1, 1), device=device)
 
 
 def state_leaves(trainer):
@@ -62,13 +64,41 @@ def build_trainer(spec, mesh=None):
     return SMTTrainer(cfg, model_cfg, params, spec["total_steps"], device="cpu", mesh=mesh)
 
 
+def full_state(trainer):
+    """The sparse state's params, trainables and moments, whole, on the
+    host (gathered under fsdp)."""
+    sh = trainer.sharding
+    out = {}
+    for top in ("params", "trainable", "m", "v"):
+        for k, t in flatten_tree(trainer.state[top]).items():
+            path = f"{top}/{k}"
+            out[path] = (t if sh is None else sh.full(path, t)).detach().to("cpu", copy=True)
+    return out
+
+
+def shard_bytes(trainer):
+    """{state path: (dim, bytes here, the full leaf's bytes)} of the
+    state's tensors (under fsdp; {} without)."""
+    sh = trainer.sharding
+    if sh is None:
+        return {}
+    return {k: (sh.dim(k), t.numel() * t.element_size(),
+                int(torch.Size(sh.full_shape(k, t)).numel()) * t.element_size())
+            for k, t in state_leaves(trainer).items()}
+
+
 def run_scenario(spec, mesh=None):
     """Train on spec's global batches; returns the metrics of every step,
-    the plan's fingerprint, the eval loss, the state's leaf checksums and
-    the all-reduce's counters."""
+    the plan's fingerprint, the eval loss, the state's leaf checksums, the
+    all-reduce's counters, the whole final state (full_state) and, under
+    fsdp, the bytes of the shards after the warm-up and at the end
+    (shard_bytes) and the most gathered layers alive at once."""
+    from sparse_matrix_tuning_tpu_torch.parallel import fsdp
     trainer = build_trainer(spec, mesh)
     batches = torch.load(spec["batches"], weights_only=False)
     n_master = sum(t.numel() for t in flatten_tree(trainer.state.get("master", {})).values())
+    warm_bytes = shard_bytes(trainer)
+    fsdp.LIVE.update(now=0, peak=0)
     metrics = []
     for b in batches:
         before = dict(mesh.stats) if mesh is not None else {"bytes": 0}
@@ -78,6 +108,8 @@ def run_scenario(spec, mesh=None):
         metrics.append(m)
     eval_loss = trainer.evaluate(torch.load(spec["eval_batches"], weights_only=False))[1]
     return {"metrics": metrics, "fingerprint": trainer.plan.fingerprint(),
+            "full": full_state(trainer), "shard_bytes": (warm_bytes, shard_bytes(trainer)),
+            "live_peak": fsdp.LIVE["peak"],
             "n_master": n_master,
             "n_trainable": sum(t.numel() for t in trainer.state["trainable"].values()),
             "eval_loss": eval_loss, "checksums": leaf_checksums(state_leaves(trainer)),
@@ -86,8 +118,8 @@ def run_scenario(spec, mesh=None):
             "stats": dict(mesh.stats) if mesh is not None else None}
 
 
-def train_ranks(rank: int, world: int, store: str, specs, out_dir: str):
-    mesh = _join(rank, world, store)
+def train_ranks(rank: int, world: int, store: str, specs, out_dir: str, shape=None):
+    mesh = _join(rank, world, store, shape)
     for spec in specs:
         try:
             out = run_scenario(spec, mesh)
@@ -97,14 +129,17 @@ def train_ranks(rank: int, world: int, store: str, specs, out_dir: str):
     dist.destroy_process_group()
 
 
-def checkpoint_ranks(rank: int, world: int, store: str, spec, stop: int, out_dir: str):
+def checkpoint_ranks(rank: int, world: int, store: str, spec, stop: int, out_dir: str,
+                     shape=None, refuse_at=None):
     """A straight run and the same stopped after step `stop`
-    (trainer._save_resumable: rank 0 writes between barriers) and resumed
-    in a fresh trainer on every rank: the losses and the leaf checksums
-    after every step (the warm-up's accumulators included), the plans'
-    fingerprints and the last leaves of both."""
+    (trainer._save_resumable: rank 0 writes between barriers; under fsdp
+    each rank its shards) and resumed in a fresh trainer on every rank: the
+    losses and the leaf checksums after every step (the warm-up's
+    accumulators included), the plans' fingerprints and the last leaves of
+    both; with refuse_at, the error of a restore into a trainer on a mesh
+    of that shape (over the same ranks)."""
     from sparse_matrix_tuning_tpu_torch.train.checkpoint import restore_checkpoint
-    mesh = _join(rank, world, store)
+    mesh = _join(rank, world, store, shape)
     batches = torch.load(spec["batches"], weights_only=False)
 
     def steps(trainer, bs):
@@ -123,7 +158,15 @@ def checkpoint_ranks(rank: int, world: int, store: str, spec, stop: int, out_dir
     resumed = build_trainer(spec, mesh)
     restore_checkpoint(os.path.join(spec["cfg"]["output_dir"], "ckpt"), resumed)
     r_steps += steps(resumed, batches[stop:])
-    torch.save({"straight": [x[0] for x in s_steps], "resumed": [x[0] for x in r_steps],
+    refusal = None
+    if refuse_at is not None:
+        other = Mesh(tuple(refuse_at), mesh.rank, mesh.device, cpu_group=mesh.cpu_group)
+        try:
+            restore_checkpoint(os.path.join(spec["cfg"]["output_dir"], "ckpt"),
+                               build_trainer(spec, other))
+        except ValueError as e:
+            refusal = str(e)
+    torch.save({"refusal": refusal, "straight": [x[0] for x in s_steps], "resumed": [x[0] for x in r_steps],
                 "straight_sums": [x[1] for x in s_steps],
                 "resumed_sums": [x[1] for x in r_steps],
                 "saved_phase": saved_phase, "phase": resumed.phase,
