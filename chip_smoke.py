@@ -1997,6 +1997,24 @@ def block_scores(cfg, acc):
             for ks, g in acc.items()}
 
 
+_SEEDED = {}  # repr(model config) -> its seed-0 fp32 params on the host
+
+
+def seeded_params(model_cfg, dtype, device):
+    """init_params(model_cfg, seed=0, dtype=dtype, device=device), drawn once
+    a process and configuration: the fp32 numpy draw (~17 s at TinyLlama's
+    1.1 B parameters, every run's start before) stays on the host (~11 GB
+    over the script's configurations), and each call gets a copy cast to
+    `dtype` on `device`, bit for bit what init_params gives (the same fp32
+    numbers, the same rounding)."""
+    import torch
+    from sparse_matrix_tuning_tpu_torch.models.llama import init_params, tree_map
+    key = repr(model_cfg)
+    if key not in _SEEDED:
+        _SEEDED[key] = init_params(model_cfg, seed=0, dtype=torch.float32, device="cpu")
+    return tree_map(lambda t: t.to(device=device, dtype=dtype, copy=True), _SEEDED[key])
+
+
 def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
                   full_ft_steps=3, sparse_steps=4, eval_batches=2,
                   ratios=(0.0084, 0.0084), attn_impl="auto", out_dir=None, log_fn=log,
@@ -2048,7 +2066,7 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
     import torch
     from sparse_matrix_tuning_tpu_torch.config import SMTConfig
     from sparse_matrix_tuning_tpu_torch.models.hf_io import load_hf_params
-    from sparse_matrix_tuning_tpu_torch.models.llama import flatten_tree, init_params
+    from sparse_matrix_tuning_tpu_torch.models.llama import flatten_tree
     from sparse_matrix_tuning_tpu_torch.smt.plan import BLOCK
     from sparse_matrix_tuning_tpu_torch.train.convert import LAYER_LINEARS
     from sparse_matrix_tuning_tpu_torch.train.steps import _use_chunked_loss
@@ -2086,7 +2104,7 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
         return peak
 
     t0 = time.time()
-    params = init_params(model_cfg, seed=0, dtype=cfg.param_dtype, device=device)
+    params = seeded_params(model_cfg, cfg.param_dtype, device)
     n_params = sum(p.numel() for p in flatten_tree(params).values())
     trainer = SMTTrainer(cfg, model_cfg, params, total_steps=n_steps, device=device,
                          **({"mesh": mesh} if mesh is not None else {}))
@@ -2105,14 +2123,16 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
     reduced = {"bytes": 0, "seconds": 0.0, "stats": {}}  # at the last step's end
     sh = trainer.sharding
 
-    def same_replicas(what, keys, gathered=False):
+    def same_replicas(what, keys, gathered=False, whole=None):
         """Bit-equal leaves on every rank (under fsdp: the ranks of a data
-        group, or with `gathered` the full leaves on every rank)."""
+        group, or with `gathered` the full leaves on every rank, taken from
+        `whole`, the whole state, where given)."""
         from sparse_matrix_tuning_tpu_torch.parallel.mesh import (
             assert_same, gather_objects, leaf_checksums)
         leaves = flatten_tree({k: trainer.state[k] for k in keys})
         if sh is not None and gathered:
-            leaves = {k: sh.full(k, t) for k, t in leaves.items()}
+            leaves = flatten_tree({k: whole[k] for k in keys}) if whole is not None else \
+                {k: sh.full(k, t) for k, t in leaves.items()}
         elif sh is not None:
             sums = gather_objects(leaf_checksums(leaves), mesh)
             f = mesh.fsdp
@@ -2187,8 +2207,12 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
     history = trainer.fit(train_ds, eval_ds, pad_token_id=0, on_metrics=on_metrics)
     sync()
     t_fit_end = time.perf_counter()
+    whole = None
+    if sh is not None and trainer._scan:   # the whole scan state, gathered once on every rank
+        whole = {k: sh.full_tree(v, k, device=device) for k, v in trainer.state.items()
+                 if isinstance(v, dict) and k != "sched"}
     if mesh is not None:
-        same_replicas("after fit", ("trainable", "m", "v"), gathered=True)
+        same_replicas("after fit", ("trainable", "m", "v"), gathered=True, whole=whole)
     summary["launches"] = launches()
     summary["eval_and_export_s"] = t_fit_end - marks["exit"]
     summary["peak"]["eval_and_export"] = peak_and_reset()
@@ -2237,6 +2261,7 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
     # selected blocks, the trainables (in the param dtype) inside them
     merged = trainer.merged_params()
     after = merged["layers"]
+    stacks = whole["trainable"] if whole is not None else None
     if not torch.equal(merged["lm_head"].to("cpu"), snap["lm_head"]):
         raise AssertionError("the merged lm_head differs from the conversion-time head")
     checked, changed_in_blocks, block_elems = 0, 0, 0
@@ -2250,7 +2275,7 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
                     raise AssertionError(f"frozen weight {li}.{mod} changed")
             else:
                 mask = torch.zeros(before.shape, dtype=torch.bool)
-                trained = trained_entries(trainer, ks).detach().to("cpu", w.dtype)
+                trained = trained_entries(trainer, ks, stacks).detach().to("cpu", w.dtype)
                 if plan.mode == "channel":
                     mask[:, list(lp.channels)] = True
                     if not torch.equal(w[:, plan.channel_index(ks, "cpu")], trained):
@@ -2298,6 +2323,9 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
                 raise AssertionError("exported smt_plan.json differs")
         export = exported
     summary["export_tensors_equal"] = export
+    if whole is not None:
+        summary["fse_tensors"] = one_process_export_equal(trainer, merged, whole)
+    del whole
     if keep_state:
         summary["change"] = {k: trainer.state["trainable"][k].detach().to("cpu") - t
                              for k, t in snap["trainable"].items()}
@@ -2317,33 +2345,70 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
 def state_bytes(trainer):
     """The state's tensor bytes on this rank and those of the full leaves:
     {"here", "full"} over every leaf, {"split_here", "split_full"} over
-    the fsdp-sharded ones (here = full without fsdp)."""
+    the fsdp-sharded ones (here = full without fsdp), and {"host_here",
+    "host_full"} over the host store of frozen weights (the scan state's
+    under fsdp: this rank's slices)."""
     from sparse_matrix_tuning_tpu_torch.models.llama import flatten_tree
     sh = trainer.sharding
-    out = dict.fromkeys(("here", "full", "split_here", "split_full"), 0)
-    for k, t in flatten_tree({k: v for k, v in trainer.state.items() if k != "sched"}).items():
+    out = dict.fromkeys(("here", "full", "split_here", "split_full", "host_here", "host_full"),
+                        0)
+
+    def full_of(k, t):
         here = t.numel() * t.element_size()
-        full = here if sh is None or sh.dim(k) is None else here * sh.f
+        return here, (here if sh is None or sh.dim(k) is None else here * sh.f)
+
+    for k, t in flatten_tree({k: v for k, v in trainer.state.items() if k != "sched"}).items():
+        here, full = full_of(k, t)
         out["here"] += here
         out["full"] += full
         if full != here:
             out["split_here"] += here
             out["split_full"] += full
+    for k, t in (trainer._host_frozen or {}).items():
+        here, full = full_of(f"host/{k}", t)
+        out["host_here"] += here
+        out["host_full"] += full
     return out
 
 
-def trained_entries(trainer, ks):
+def one_process_export_equal(trainer, merged, whole):
+    """FSE: the scan state's export under fsdp (merged_params, gathered
+    layer by layer from the ranks' slices) against what one process exports
+    from the same state: `whole`, the whole state every rank gathered, and
+    the host store gathered here, through merged_params_from_scan without a
+    sharding; every tensor must be equal bit for bit. Returns the number of
+    tensors compared."""
+    import torch
+    from sparse_matrix_tuning_tpu_torch.models.llama import flatten_tree
+    from sparse_matrix_tuning_tpu_torch.train.scan_phase import merged_params_from_scan
+    sh, device = trainer.sharding, trainer.device
+    host = {k: sh.full(f"host/{k}", w.to(device)).to("cpu")
+            for k, w in (trainer._host_frozen or {}).items()}
+    one = flatten_tree(merged_params_from_scan(whole, trainer.plan, trainer.model_cfg,
+                                               host or None))
+    got = flatten_tree(merged)
+    if set(one) != set(got):
+        raise AssertionError(f"FSE: export keys differ: {sorted(set(one) ^ set(got))[:6]}")
+    for k, t in one.items():
+        if not torch.equal(got[k].to("cpu"), t.to("cpu")):
+            raise AssertionError(f"FSE: the fsdp export's {k} differs from one process's export "
+                                 "of the gathered state")
+    del host
+    return len(one)
+
+
+def trained_entries(trainer, ks, stacks=None):
     """Linear ks's trained blocks (n, 256, 256) or columns (O, n), in its
     plan's order, from the per-layer state (gathered under fsdp) or from
     the stacks of the scan state (whose valid entries come first, in plan
-    order)."""
+    order; under fsdp `stacks`, the whole stacks gathered once)."""
     trainable = trainer.state["trainable"]
-    if trainer.sharding is not None:
-        return trainer.sharding.full(f"trainable/{ks}", trainable[ks])
     if not trainer._scan:
+        if trainer.sharding is not None:
+            return trainer.sharding.full(f"trainable/{ks}", trainable[ks])
         return trainable[ks]
     lp = trainer.plan.linears[ks]
-    t = trainable[lp.module][lp.layer]
+    t = (stacks or trainable)[lp.module][lp.layer]
     return t[:, :lp.n_channels] if trainer.plan.mode == "channel" else t[:lp.n_blocks]
 
 
@@ -3580,7 +3645,7 @@ def run_resume(model_cfg, *, mode="matrix", frozen_quant="none", dropout=0.1, fu
 
     import torch
     from sparse_matrix_tuning_tpu_torch.config import SMTConfig
-    from sparse_matrix_tuning_tpu_torch.models.llama import flatten_tree, init_params
+    from sparse_matrix_tuning_tpu_torch.models.llama import flatten_tree
     from sparse_matrix_tuning_tpu_torch.train.checkpoint import STATE_FILE, restore_checkpoint
     from sparse_matrix_tuning_tpu_torch.train.trainer import SMTTrainer
 
@@ -3611,7 +3676,7 @@ def run_resume(model_cfg, *, mode="matrix", frozen_quant="none", dropout=0.1, fu
         stopped once step `stop` is done: (losses, trainer, history,
         training launches, restore s)."""
         trainer = SMTTrainer(config(out_dir), mcfg,
-                             init_params(mcfg, seed=0, dtype=torch.bfloat16, device="cuda"),
+                             seeded_params(mcfg, torch.bfloat16, "cuda"),
                              total_steps=n_steps, device="cuda")
         restore_s = None
         if resume:
@@ -3862,14 +3927,204 @@ def dp_rank(rank, world, port, jobs, out_dir, shape=None, backend="gloo"):
             cfg = LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": arg[0]})
             s = run_main_path(cfg, device, bs=4 // world, mesh=fmesh, out_dir=arg[1],
                               log_fn=(lambda m: log(f"[F rank {rank}] {m}")))
+        elif tag == "FS0":
+            fsdp_mod.LIVE.update(now=0, peak=0)
+            s = fs0_run(arg, device, 4 // world, fmesh)
+        elif tag == "FS":
+            fsdp_mod.LIVE.update(now=0, peak=0)
+            s = fs_run(arg, device, 4 // world, fmesh,
+                       log_fn=(lambda m: log(f"[FS rank {rank}] {m}")))
         else:
             s = _pe_job(mesh, arg)
         s["seconds"] = time.time() - t0
         s["live_peak"] = fsdp_mod.LIVE["peak"]
-        out[tag if tag == "F" else f"{tag}:{arg}"] = s
+        out[_job_key(tag, arg)] = s
         torch.cuda.empty_cache()
     torch.save(out, os.path.join(out_dir, f"dp.{rank}.pt"))
     dist.destroy_process_group()
+
+
+def _job_key(tag, arg):
+    """Where dp_rank keeps a job's summary: "F", "FS:{mode}", or
+    "{tag}:{arg}"."""
+    if tag == "F":
+        return "F"
+    return f"FS:{arg[1]}" if tag == "FS" else f"{tag}:{arg}"
+
+
+# FS0: the tiny fp32 scan layouts, "dense" and "int8" --scan_layers on in
+# matrix mode over the fp32 and the int8 base (2 layers), "channel"
+# channel + int8 at 12 layers (the "auto" scan); P0's settings
+FS0_RUNS = ("dense", "int8", "channel")
+# the kernels each must launch on every rank (fp32 attention walks each
+# group whole: no dK/dV reduce; channel mode runs no K1 or K5)
+FS0_KERNELS = {
+    "dense": tuple(n for n in TRAIN_KERNELS if n != "attn_bwd_dkdv_reduce"),
+    "int8": tuple(n for n in TRAIN_KERNELS if n != "attn_bwd_dkdv_reduce") + Q8_KERNELS,
+    "channel": ("masked_adam", "attn_fwd", "attn_bwd_delta", "attn_bwd_dkdv", "attn_bwd_dq")
+    + K4_KERNELS + ("row_quant",)}
+
+
+def fs0_run(name, device, bs, mesh=None):
+    """FS0 case `name` (FS0_RUNS) through run_main_path, in one process or
+    as a rank of `mesh` (bs a rank)."""
+    import dataclasses
+    from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
+    tiny = LlamaConfig.tiny(vocab_size=512)
+    kw = dict(bs=bs, **({"mesh": mesh} if mesh is not None else {}), **P0_KW)
+    if name == "channel":
+        return run_main_path(dataclasses.replace(tiny, num_hidden_layers=12), device,
+                             mode="channel", frozen_quant="int8", **kw)
+    return run_main_path(tiny, device, frozen_quant="int8" if name == "int8" else "none",
+                         cfg_extra={"scan_layers": "on"}, **kw)
+
+
+def fs_run(arg, device, bs, mesh=None, log_fn=log):
+    """FS: (layers, mode, export dir): TinyLlama over the int8 base in the
+    scan layout, --scan_layers on in matrix mode (E's settings otherwise),
+    or channel + int8 at depth under "auto" (J's), with the export."""
+    from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
+    layers, mode, export_dir = arg
+    cfg = LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": layers})
+    return run_main_path(cfg, device, bs=bs, out_dir=export_dir, mode=mode, frozen_quant="int8",
+                         cfg_extra={"scan_layers": "on"} if mode == "matrix" else None,
+                         log_fn=log_fn, **({"mesh": mesh} if mesh is not None else {}))
+
+
+def hold_fs0(shape, name, got, ref, tag="FS0"):
+    """FS0 case `name` on an fsdp mesh against one process (P0's bounds:
+    losses and dense grad norms within 2e-4, int8 losses within 1e-3; the
+    same fingerprint; every kernel of the case launched on each rank; one
+    gathered layer alive at a time; each rank holding 1/F of every sharded
+    leaf and of the host store)."""
+    import numpy as np
+    int8 = name != "dense"
+    rtol = P0_INT8_RTOL if int8 else P0_RTOL
+    fps = {g["plan"]["fingerprint"] for g in got} | {ref["plan"]["fingerprint"]}
+    if len(fps) != 1:
+        raise AssertionError(f"{tag} {shape} {name}: plan fingerprints differ: {fps}")
+    if any(g["loss"] != got[0]["loss"] for g in got):
+        raise AssertionError(f"{tag} {shape} {name}: the ranks' losses differ")
+    f = shape[1]
+    for r, g in enumerate(got):
+        if not g["scan"] or not all(g["launches"][n] > 0 for n in FS0_KERNELS[name]):
+            raise AssertionError(f"{tag} {shape} {name} rank {r}: scan {g['scan']}, launches "
+                                 f"{g['launches']}")
+        sb = g["state_bytes"]["sparse"]
+        if sb["split_here"] * f != sb["split_full"] or sb["host_here"] * f != sb["host_full"]:
+            raise AssertionError(f"{tag} {shape} {name} rank {r}: not 1/{f} of the sharded "
+                                 f"leaves or of the host store: {sb}")
+        if g["live_peak"] != 1:
+            raise AssertionError(f"{tag} {shape} {name} rank {r}: {g['live_peak']} gathered "
+                                 "layers alive at once")
+    norms, ref_norms = (np.array(r["warmup_grad_norm"] + r["grad_norm"]) for r in (got[0], ref))
+    np.testing.assert_allclose(got[0]["loss"] + [got[0]["eval_loss"]],
+                               ref["loss"] + [ref["eval_loss"]], rtol=rtol)
+    if not int8:
+        np.testing.assert_allclose(norms, ref_norms, rtol=rtol)
+    worst = float(np.max(np.abs(np.array(got[0]["loss"]) - np.array(ref["loss"]))
+                         / np.abs(np.array(ref["loss"]))))
+    worst_norm = float(np.max(np.abs(norms - ref_norms) / ref_norms))
+    c = got[0]["collectives"]
+    sb = got[0]["state_bytes"]["sparse"]
+    log(f"[{tag}] tiny fp32 scan layout {name} at {shape}, {len(got)} ranks against one process "
+        f"at global batch 4 (rows 2-3 thinned): losses worst rel diff {worst:.2e}, grad norms "
+        f"{worst_norm:.2e} (bound {rtol} on {'the losses; grad norms reported' if int8 else 'both'}"
+        f"); eval {got[0]['eval_loss']:.6f} vs {ref['eval_loss']:.6f}; same plan "
+        f"{ref['plan']['fingerprint'][:16]}; state a rank {sb['here']:,} of {sb['full']:,} B "
+        f"(sharded {sb['split_here']:,} / {sb['split_full']:,}), host store "
+        f"{sb['host_here']:,} / {sb['host_full']:,} B; gathered MB/step "
+        f"{[round(x['gather_bytes'] / 1e6, 2) for x in c]}, reduce-scattered MB/step "
+        f"{[round(x['scatter_bytes'] / 1e6, 2) for x in c]}; rank 0 launches {got[0]['launches']}")
+
+
+def hold_fs(tag, shape, backend, fs, ref, ref_tag, layers, g=None):
+    """FS: TinyLlama's scan layouts on an fsdp mesh against the one-process
+    run `ref` of the same path (J for channel + int8; E for --scan_layers on
+    in matrix mode, whose warm-up is the same and whose sparse phase runs
+    the int8 base in the per-layer layout): F's bounds (losses within 1e-3,
+    warm-up grad norms within 5e-2); the ranks' losses and plans equal;
+    every kernel of the path launched on each rank; each rank's sharded
+    leaves and host store exactly 1/F of the whole; the export read back
+    (FE's check) and equal to one process's export of the gathered state
+    (FSE); with g, each rank's sparse-phase peak under G's (the one-process
+    int8 scan state). Logs per rank ms/step, the collectives' bytes, calls
+    and ms, the state's bytes and the peaks."""
+    import numpy as np
+    gib = 1024 ** 3
+    mode = fs[0]["plan"]["mode"]
+    needed = SCAN_KERNELS if mode == "matrix" else \
+        K3_KERNELS + ("masked_adam",) + K4_KERNELS + ("row_quant",)
+    never = () if mode == "matrix" else ("block_grad", "block_correction", "q4_matmul")
+    if any(s["loss"] != fs[0]["loss"] or s["plan"] != fs[0]["plan"] for s in fs):
+        raise AssertionError(f"{tag} {mode}: the ranks' losses or plans differ")
+    f = shape[1]
+    for r, s in enumerate(fs):
+        sb = s["state_bytes"]["sparse"]
+        bad = [n for n in needed if s["launches"][n] <= 0] + [n for n in never
+                                                             if s["launches"][n]]
+        if not s["scan"] or not s["offloaded"] or bad:
+            raise AssertionError(f"{tag} {mode} rank {r}: scan {s['scan']}, host store "
+                                 f"{s['offloaded']}, launches wrong for {bad}: {s['launches']}")
+        if sb["split_here"] * f != sb["split_full"] or sb["host_here"] * f != sb["host_full"] \
+                or not sb["host_here"]:
+            raise AssertionError(f"{tag} {mode} rank {r}: not 1/{f} of the sharded leaves or of "
+                                 f"the host store: {sb}")
+        if not s["export_tensors_equal"] or not s.get("fse_tensors"):
+            raise AssertionError(f"{tag}E {mode} rank {r}: the export was not checked")
+        if s["live_peak"] != 1:
+            raise AssertionError(f"{tag} {mode} rank {r}: {s['live_peak']} gathered layers "
+                                 "alive at once")
+    r_loss = ref["loss"] + [ref["eval_loss"]]
+    f_loss = fs[0]["loss"] + [fs[0]["eval_loss"]]
+    rel = np.abs(np.array(f_loss) - np.array(r_loss)) / np.abs(np.array(r_loss))
+    r_norm, f_norm = np.array(ref["warmup_grad_norm"]), np.array(fs[0]["warmup_grad_norm"])
+    rel_norm = np.abs(f_norm - r_norm) / r_norm if len(r_norm) else np.zeros(1)
+    path = ("all-gather and reduce-scatter built from gloo's all_reduce" if backend == "gloo"
+            else "NCCL all_gather_into_tensor and reduce_scatter_tensor")
+    what = ("--scan_layers on, matrix" if mode == "matrix" else
+            "channel + int8 at depth (scan_layers auto)")
+    log(f"[{tag}] TinyLlama-1.1B bf16 {what} over the int8 base, "
+        f"{layers} layers, fsdp {shape} over "
+        f"{len(fs)} {backend} ranks ({path}) x bs {4 // len(fs)} x seq 512: losses {f_loss} vs "
+        f"{ref_tag}'s {r_loss}, worst rel diff {float(rel.max()):.2e} (bound {P_VS_A_RTOL}); "
+        f"warm-up grad norms worst rel diff {float(rel_norm.max()):.2e} (bound {P_GNORM_RTOL}); "
+        f"plan {fs[0]['plan']['fingerprint'][:16]} on every rank, {ref_tag}'s "
+        f"{ref['plan']['fingerprint'][:16]} ({CARD['smi']})")
+    n_warm = 3
+    for r, s in enumerate(fs):
+        ms, c, sb = s["step_ms"], s["collectives"], s["state_bytes"]
+        log(f"[{tag}] {mode} rank {r}: warm-up ms/step {[round(x, 1) for x in ms[:n_warm]]}, "
+            f"sparse {[round(x, 1) for x in ms[n_warm:]]} ({ref_tag}: "
+            f"{[round(x, 1) for x in ref['step_ms']]}); collective ms/step "
+            f"{[round(x, 1) for x in s['reduce_ms']]}; gathered MB / calls a step "
+            f"{[(round(x['gather_bytes'] / 1e6, 1), x['gather_calls']) for x in c]}; "
+            f"reduce-scattered MB / calls "
+            f"{[(round(x['scatter_bytes'] / 1e6, 1), x['scatter_calls']) for x in c]}; "
+            f"all-reduced MB / calls {[(round(x['bytes'] / 1e6, 1), x['calls']) for x in c]}")
+        log(f"[{tag}] {mode} rank {r}: scan state bytes here / full "
+            f"{sb['sparse']['here'] / gib:.3f} / {sb['sparse']['full'] / gib:.3f} GiB (sharded "
+            f"leaves {sb['sparse']['split_here']:,} / {sb['sparse']['split_full']:,} B), host "
+            f"store {sb['sparse']['host_here'] / gib:.3f} / {sb['sparse']['host_full'] / gib:.3f}"
+            f" GiB; peak GiB {({k: round(v / gib, 2) for k, v in s['peak'].items() if v})} beside "
+            f"{ref_tag}'s {({k: round(v / gib, 2) for k, v in ref['peak'].items() if v})}"
+            + (f" and G's fit peak {g['peak_gib']:.2f}" if g is not None else "")
+            + f"; launches {s['launches']}; {s['seconds']:.1f} s")
+    log(f"[{tag}E] {mode}: rank 0's export ({fs[0]['export_tensors_equal']} tensors) read back "
+        f"on each rank equals the gathered state, and its {fs[0]['fse_tensors']} tensors equal "
+        "one process's export of the gathered state and host store bit for bit")
+    if rel.max() > P_VS_A_RTOL:
+        raise AssertionError(f"{tag} {mode}: losses part from {ref_tag}'s by "
+                             f"{float(rel.max()):.2e} > {P_VS_A_RTOL}")
+    if len(f_norm) != len(r_norm) or rel_norm.max() > P_GNORM_RTOL:
+        raise AssertionError(f"{tag} {mode}: warm-up grad norms {f_norm.tolist()} part from "
+                             f"{ref_tag}'s {r_norm.tolist()} by more than {P_GNORM_RTOL}")
+    if g is not None:
+        for r, s in enumerate(fs):
+            if s["peak"]["later_sparse_steps"] >= g["peak_gib"] * gib:
+                raise AssertionError(f"{tag} {mode} rank {r}: sparse-phase peak "
+                                     f"{s['peak']['later_sparse_steps'] / gib:.2f} GiB not under "
+                                     f"G's {g['peak_gib']:.2f}")
 
 
 def pn_rank(rank, world, port, out_dir):
@@ -3980,11 +4235,16 @@ def check_fsdp(ranks, refs, run_a, p, layers):
     (hold_f0, hold_f): F with its export (FE) and each rank's warm-up peak
     at least FSDP_PEAK_GAIN_GIB under P's. Returns rank 0's summaries."""
     t0 = time.time()
-    quad = _spawn(dp_rank, 4, [("F0", "none")], after=((2, 2, 1),))
-    log(f"[F0] 4 gloo ranks on cuda:0 at (2, 2, 1): {time.time() - t0:.1f} s for the spawn")
+    quad = _spawn(dp_rank, 4, [("F0", "none")] + [("FS0", n) for n in FS0_RUNS],
+                  after=((2, 2, 1),))
+    log(f"[F0] 4 gloo ranks on cuda:0 at (2, 2, 1), F0 and FS0: {time.time() - t0:.1f} s for "
+        "the spawn")
     for fq in ("none", "int8"):
         hold_f0((1, 2, 1), fq, [r[f"F0:{fq}"] for r in ranks], refs)
     hold_f0((2, 2, 1), "none", [r["F0:none"] for r in quad], refs)
+    for shape, got in (((1, 2, 1), ranks), ((2, 2, 1), quad)):
+        for n in FS0_RUNS:
+            hold_fs0(shape, n, [r[f"FS0:{n}"] for r in got], refs[f"FS0:{n}"])
     f = [r["F"] for r in ranks]
     hold_f("F", (1, 2, 1), "gloo", f, run_a, layers, p)
     gib = 1024 ** 3
@@ -3995,7 +4255,12 @@ def check_fsdp(ranks, refs, run_a, p, layers):
                                  f"GiB is only {gain:.2f} GiB under P's (want "
                                  f">= {FSDP_PEAK_GAIN_GIB})")
     return {"F": f[0], "F0": ranks[0]["F0:none"], "F0 int8": ranks[0]["F0:int8"],
-            "F0 (2,2,1)": quad[0]["F0:none"]}
+            "F0 (2,2,1)": quad[0]["F0:none"],
+            **{f"FS0 {n}": ranks[0][f"FS0:{n}"] for n in FS0_RUNS},
+            **{f"FS0 {n} (2,2,1)": quad[0][f"FS0:{n}"] for n in FS0_RUNS},
+            # every rank's FS summary, held to E, G and J when they have run (hold_fs)
+            "FS": {m: [r[f"FS:{m}"] for r in ranks] for m in ("matrix", "channel")
+                   if f"FS:{m}" in ranks[0]}}
 
 
 def hold_f0(shape, fq, got, refs, tag="F0"):
@@ -4107,7 +4372,8 @@ def run_fsdp_nccl(run_a, layers):
     """`--only nccl` (two or more cards): the fsdp axis over NCCL, one rank
     a card, at (1, N, 1) and, with four cards, (2, 2, 1): FN0, the tiny
     fp32 pair against one process, and FN1, A's path against A, with its
-    export (hold_f0, hold_f)."""
+    export (hold_f0, hold_f); then FSN, the scan layouts at (1, N, 1)
+    against E and J (run_fsdp_scan)."""
     import torch
     from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
     n = torch.cuda.device_count()
@@ -4127,6 +4393,39 @@ def run_fsdp_nccl(run_a, layers):
         for fq in ("none", "int8"):
             hold_f0(shape, fq, [r[f"F0:{fq}"] for r in ranks], refs, tag="FN0")
         hold_f("FN1", shape, "nccl", [r["F"] for r in ranks], run_a, layers)
+    # FSN: the scan layouts over NCCL at (1, N, 1), held to E and J run here
+    run_e = run_main_path(LlamaConfig(**TINYLLAMA), "cuda", frozen_quant="int8")
+    run_j = run_main_path(LlamaConfig(**TINYLLAMA), "cuda", mode="channel", frozen_quant="int8")
+    run_fsdp_scan(run_e, run_j, layers, world=n, backend="nccl", tag="FSN")
+
+
+def run_fsdp_scan(run_e, run_j, layers, world=2, backend="gloo", tag="FS"):
+    """`--only fs` (two gloo ranks on the one card) and `--only nccl` (FSN,
+    one NCCL rank a card): FS at (1, world, 1), held to E and J run in
+    this process (hold_fs); over gloo FS0 too, at (1, 2, 1) in the same
+    spawn and at (2, 2, 1) over four ranks (hold_fs0)."""
+    gloo = backend == "gloo"
+    shape = (1, world, 1)
+    refs = {n: fs0_run(n, "cuda", 4) for n in FS0_RUNS} if gloo else {}
+    dirs = [tempfile.mkdtemp(prefix="smoke_export_", dir=os.path.join(REPO, "build"))
+            for _ in range(2)]
+    jobs = ([("FS0", n) for n in FS0_RUNS] if gloo else []) + \
+        [("FS", (layers, m, d)) for m, d in zip(("matrix", "channel"), dirs)]
+    t0 = time.time()
+    try:
+        ranks = _spawn(dp_rank, world, jobs, after=(shape, backend))
+    finally:
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    log(f"[{tag}] {world} {backend} ranks at {shape}: {time.time() - t0:.1f} s for the spawn "
+        f"and its jobs")
+    if gloo:
+        quad = _spawn(dp_rank, 4, [("FS0", n) for n in FS0_RUNS], after=((2, 2, 1),))
+        for sh, got in ((shape, ranks), ((2, 2, 1), quad)):
+            for n in FS0_RUNS:
+                hold_fs0(sh, n, [r[f"FS0:{n}"] for r in got], refs[n])
+    hold_fs(tag, shape, backend, [r["FS:matrix"] for r in ranks], run_e, "E", layers)
+    hold_fs(tag, shape, backend, [r["FS:channel"] for r in ranks], run_j, "J", layers)
 
 
 def _spawn(fn, world, *args, after=()):
@@ -4173,7 +4472,7 @@ def log_selection_margin(run_a, run_p, tag="P"):
         f"{spread.max():.2e} (max) of A's; " + "; ".join(lines))
 
 
-def run_data_parallel(run_a, d1, export_dir, p_layers):
+def run_data_parallel(run_a, d1, export_dir, p_layers, fs=True):
     """P0, P and PE in two gloo ranks on the one card (one spawn), held
     against one process: P0 against its tiny references run here, P
     against A, PE against D1. Then PN over NCCL. Returns the rank-0
@@ -4185,21 +4484,28 @@ def run_data_parallel(run_a, d1, export_dir, p_layers):
     tiny = LlamaConfig.tiny(vocab_size=512)
     refs = {fq: run_main_path(tiny, "cuda", bs=4, frozen_quant=fq, **P0_KW)
             for fq in ("none", "int8")}
+    refs.update({f"FS0:{n}": fs0_run(n, "cuda", 4) for n in FS0_RUNS})
     first = thin_rows(next(batch_iterator(synthetic_sft(24, 64, 512, 1), 4, 0, [64], 1234, 0)),
                       P0_KW["thin"])
     valid = (first["labels"][:, 1:] != -100).sum(axis=1)
-    fe_dir = tempfile.mkdtemp(prefix="smoke_export_", dir=os.path.join(REPO, "build"))
+    dirs = [tempfile.mkdtemp(prefix="smoke_export_", dir=os.path.join(REPO, "build"))
+            for _ in range(3)]
     jobs = [("P0", "none"), ("P0", "int8"), ("P", p_layers), ("PE", export_dir),
-            ("F0", "none"), ("F0", "int8"), ("F", (p_layers, fe_dir))]
+            ("F0", "none"), ("F0", "int8"), ("F", (p_layers, dirs[0]))] + \
+        [("FS0", n) for n in FS0_RUNS] + \
+        ([("FS", (p_layers, "matrix", dirs[1])), ("FS", (p_layers, "channel", dirs[2]))]
+         if fs else [])
     t0 = time.time()
     try:
         ranks = _spawn(dp_rank, 2, jobs)
     finally:
-        shutil.rmtree(fe_dir, ignore_errors=True)
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
     log(f"[dp] 2 ranks on cuda:0 over {ranks[0]['backend']} (NCCL refuses two ranks on one "
         f"device); gloo takes CUDA tensors for all_reduce and broadcast: "
         f"{[r['gloo_cuda'] for r in ranks]}; {time.time() - t0:.1f} s for the spawn and P0, P, "
-        f"PE, F0, F ({CARD['smi']})")
+        f"PE, F0, F, FS0, FS ({CARD['smi']}); seconds by job on rank 0: "
+        f"{ {k: round(v['seconds'], 1) for k, v in ranks[0].items() if isinstance(v, dict) and 'seconds' in v} }")
     for fq, rtol in (("none", P0_RTOL), ("int8", P0_INT8_RTOL)):
         ref, got = refs[fq], [r[f"P0:{fq}"] for r in ranks]
         fps = {g["plan"]["fingerprint"] for g in got} | {ref["plan"]["fingerprint"]}
@@ -4313,15 +4619,16 @@ def main(argv=None):
     call for the conversion into the scan state and resume); `--only fp16`
     runs the build, the fp16 bodies' checks and the tiny fp16 references;
     `--only dp` the build, A with its export, D1, then P0, P, PE, F0, F, FE,
-    PN and FN; `--only nccl` (two or more cards) the build, A, then the
-    fsdp axis over NCCL, one rank a card (run_fsdp_nccl); none prints a
-    result line. With no arguments every phase runs, on one card."""
+    FS0, PN and FN (FS needs E, G and J: `--only fs`); `--only fs` the build, E and J, then FS0, FS and FSE
+    (run_fsdp_scan); `--only nccl` (two or more cards) the build, A, then the
+    fsdp axis over NCCL, one rank a card (run_fsdp_nccl, FSN among it); none
+    prints a result line. With no arguments every phase runs, on one card."""
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--only", "q8"], ["--only", "q4"], ["--only", "attn"],
                     ["--only", "sparse"], ["--only", "scan"], ["--only", "fp16"],
-                    ["--only", "dp"], ["--only", "nccl"]):
+                    ["--only", "dp"], ["--only", "fs"], ["--only", "nccl"]):
         raise SystemExit("usage: python3 chip_smoke.py "
-                         "[--only q8|q4|attn|sparse|scan|fp16|dp|nccl]")
+                         "[--only q8|q4|attn|sparse|scan|fp16|dp|fs|nccl]")
     only = argv[1] if argv else None
     only_q8 = only == "q8"
     t_start = time.time()
@@ -4404,11 +4711,27 @@ def main(argv=None):
             del params
             marks.append(("A, D1", time.time()))
             run_data_parallel(run_a, d1, os.path.join(out_dir, "final"),
-                              model_cfg.num_hidden_layers)
-            marks.append(("P0, P, PE, F0, F, FE, PN, FN", time.time()))
+                              model_cfg.num_hidden_layers, fs=False)
+            marks.append(("P0, P, PE, F0, F, FE, FS0, PN, FN", time.time()))
         finally:
             shutil.rmtree(out_dir, ignore_errors=True)
         log("[smoke] --only dp: seconds by phase: " + ", ".join(
+            f"{name} {t - prev:.1f}" for (name, t), (_, prev)
+            in zip(marks, [("", t_start)] + marks)))
+        return
+    if only == "fs":
+        model_cfg = LlamaConfig(**TINYLLAMA)
+        run_e = run_main_path(model_cfg, "cuda", frozen_quant="int8")
+        report_run("E", "TinyLlama-1.1B bf16 over the int8 frozen base, bs 4 x seq 512, remat, "
+                   "attn auto (K3)", run_e, 3)
+        run_j = run_main_path(model_cfg, "cuda", mode="channel", frozen_quant="int8")
+        report_run("J", "TinyLlama-1.1B bf16, --channel_sparsity --frozen_quant int8 from a "
+                   "warm-up, bs 4 x seq 512, remat, attn auto (K3)", run_j, 3)
+        torch.cuda.empty_cache()
+        marks.append(("E, J", time.time()))
+        run_fsdp_scan(run_e, run_j, model_cfg.num_hidden_layers)
+        marks.append(("FS0, FS, FSE", time.time()))
+        log("[smoke] --only fs: seconds by phase: " + ", ".join(
             f"{name} {t - prev:.1f}" for (name, t), (_, prev)
             in zip(marks, [("", t_start)] + marks)))
         return
@@ -4598,6 +4921,13 @@ def main(argv=None):
     report_deep_channel_run(run_j, run_i, 3)
     torch.cuda.empty_cache()
     marks.append(("J", time.time()))
+    # FS: the scan layouts under fsdp, run in the data-parallel spawn, held
+    # now that their one-process twins have run: --scan_layers on (matrix,
+    # int8 base) to E with its peak under G's, channel + int8 at depth to J
+    hold_fs("FS", (1, 2, 1), "gloo", run_dp["FS"]["matrix"], run_e, "E",
+            model_cfg.num_hidden_layers, g=run_g)
+    hold_fs("FS", (1, 2, 1), "gloo", run_dp["FS"]["channel"], run_j, "J",
+            model_cfg.num_hidden_layers)
     # R: resume under dropout, matrix mode over the per-layer state, stopped
     # in the warm-up and in the sparse phase; R2: once in J's layout
     run_r = run_resume(dataclasses.replace(model_cfg, num_hidden_layers=R_LAYERS))
@@ -4722,7 +5052,9 @@ def main(argv=None):
             # rank 0 of the fsdp runs
             "F fsdp": run_dp["F"]["launches"], "F0": run_dp["F0"]["launches"],
             "F0 int8": run_dp["F0 int8"]["launches"],
-            "F0 (2,2,1)": run_dp["F0 (2,2,1)"]["launches"]}
+            "F0 (2,2,1)": run_dp["F0 (2,2,1)"]["launches"],
+            **{f"FS {m}": ranks[0]["launches"] for m, ranks in run_dp["FS"].items()},
+            **{k: run_dp[k]["launches"] for k in run_dp if k.startswith("FS0 ")}}
     for k in kernels:
         k.setdefault("launches_by_run", {}).update(
             {tag: counts[k["name"]] for tag, counts in runs.items()

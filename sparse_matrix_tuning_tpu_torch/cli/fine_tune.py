@@ -57,9 +57,12 @@ world of N takes JAX's default mesh, 1,N,1:
   torchrun --nproc_per_node N -m sparse_matrix_tuning_tpu_torch.cli.fine_tune \
       [--mesh_shape D,F,1] ... (the flags above)
 
-The tensor axis (--mesh_shape 1,1,N) is not ported and raises; so do the
-scan layouts under fsdp (--scan_layers on, --sparse_from_plan, and
---channel_sparsity --frozen_quant int8 at 12 layers or more).
+The scan layouts train under fsdp too (--scan_layers on, and
+--channel_sparsity --frozen_quant int8 at 12 layers or more): each rank
+keeps its slices of the stacked state and of the host store of frozen
+weights. The tensor axis (--mesh_shape 1,1,N) is not ported and raises;
+--sparse_from_plan with fsdp above 1 raises too: the JAX package's entry
+runs on one device.
 
 model_name_or_path must be a local HF checkpoint dir. Runs on the card
 (--device cuda, the default, raises when there is none); --device cpu runs

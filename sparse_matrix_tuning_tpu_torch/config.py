@@ -185,26 +185,24 @@ class SMTConfig:
                 + "; ".join(unported))
 
     def _check_mesh(self):
-        """--mesh_shape D,F,1 (D * F processes) is taken; tensor above 1 is
-        refused by name when the config is built, and so are the scan
-        layouts under fsdp (F > 1): --scan_layers on and --sparse_from_plan
-        (parallel/mesh.make_mesh holds the shape to the world size)."""
+        """--mesh_shape D,F,1 (D * F processes) is taken, the scan layouts
+        under fsdp too; tensor above 1 is refused by name when the config is
+        built, and so is --sparse_from_plan with F > 1: the JAX package's
+        entry (SMTTrainer.sparse_scan_from_hf) runs on one device, so it has
+        no sharded form (parallel/mesh.make_mesh holds the shape to the
+        world size)."""
         from sparse_matrix_tuning_tpu_torch.parallel.mesh import refuse_sharded_axes
         if not self.mesh_shape:
             self.mesh_shape = None
             return
         self.mesh_shape = parse_mesh_shape(self.mesh_shape)
         refuse_sharded_axes(self.mesh_shape)
-        if self.mesh_shape[1] > 1:
-            scan = [f for f, on in (("--scan_layers on", self.scan_layers == "on"),
-                                    ("--sparse_from_plan", bool(self.sparse_from_plan))) if on]
-            if scan:
-                raise NotImplementedError(
-                    f"{' and '.join(scan)} with fsdp {self.mesh_shape[1]} (mesh_shape "
-                    f"{tuple(self.mesh_shape)}): the scan state under fsdp (each process keeping "
-                    "its shards of the host store) is not yet ported to "
-                    "sparse_matrix_tuning_tpu_torch; use --mesh_shape "
-                    f"{self.mesh_shape[0] * self.mesh_shape[1]},1,1")
+        if self.mesh_shape[1] > 1 and self.sparse_from_plan:
+            raise NotImplementedError(
+                f"--sparse_from_plan with fsdp {self.mesh_shape[1]} (mesh_shape "
+                f"{tuple(self.mesh_shape)}): the JAX package's entry (SMTTrainer."
+                "sparse_scan_from_hf) runs on one device, so it has no sharded form; use "
+                f"--mesh_shape {self.mesh_shape[0] * self.mesh_shape[1]},1,1")
 
     def check_world(self):
         """Under torchrun (WORLD_SIZE) a world above 1 without --mesh_shape

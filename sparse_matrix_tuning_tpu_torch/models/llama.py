@@ -464,7 +464,8 @@ def forward_scan(params: Mapping[str, Any], input_ids: torch.Tensor, cfg: LlamaC
                  stop_grad_below_layer: Optional[int] = None,
                  attn_impl: str = "einsum",
                  return_hidden: bool = False,
-                 dropout_key: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                 dropout_key: Optional[Tuple[int, int]] = None,
+                 fsdp=None) -> torch.Tensor:
     """forward() over the stacked (scan-layout) params, the twin of the JAX
     forward_scan as an eager loop: params["layers_stacked"] {name: (L,
     ...)} and layer_xs (a tree of (L, ...) tensors, or of length-L lists)
@@ -472,17 +473,24 @@ def forward_scan(params: Mapping[str, Any], input_ids: torch.Tensor, cfg: LlamaC
     `linear_scan(x, w, module, ex_l)` with ex_l layer l's slice of
     layer_xs. Remat, stop_grad_below_layer, dropout (keyed by the absolute
     layer index, so the masks equal the unrolled forward's) and the rest
-    as forward()."""
+    as forward().
+
+    fsdp: a parallel/fsdp.LayerGather (with linear_scan) when the stacks
+    hold this rank's shards: layer l's views of them are gathered inside
+    the layer's checkpoint region (LayerGather.scan_layer / open), as
+    forward() gathers a layer of the per-layer state."""
     stacked = _unbind_layers(params["layers_stacked"])
     xs = _unbind_layers(layer_xs)
 
     def layer(l):
         ex = _layer(xs, l)
+        if fsdp is not None:
+            return fsdp.scan_layer(_layer(stacked, l), ex), None
         return _layer(stacked, l), lambda h, w, module, idx: linear_scan(h, w, module, ex)
 
     layers = (layer(l) for l in range(cfg.num_hidden_layers))
     return _run(params, layers, input_ids, cfg, attention_mask, remat,
-                stop_grad_below_layer, attn_impl, return_hidden, dropout_key)
+                stop_grad_below_layer, attn_impl, return_hidden, dropout_key, fsdp)
 
 
 def _gathered_layer(fsdp, bundle, x, mask_bias, cos, sin, cfg, linear, layer_idx,

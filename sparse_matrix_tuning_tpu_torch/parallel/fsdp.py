@@ -28,7 +28,15 @@ process computes at the same global batch.
     rank's shard of their weight: the trainables are sharded on their
     block rows (or output rows), a col-parallel weight on its input
     columns, so the step gathers the trainables first;
-  * full_tree gathers a tree leaf by leaf to the host (export, tests).
+  * full_tree gathers a tree leaf by leaf to the host (export, tests);
+  * the scan state (train/scan_phase.py): its stacked (L, ...) leaves
+    split the dim of their layer leaf plus one (shard_dim), the
+    conversion keeps each layer's slice (layer_part) of what it computes
+    from the whole layer, and LayerGather.scan_layer gathers layer l's
+    views of the stacks inside its checkpoint region. The host store of
+    the frozen weights that left the device (JAX's HostShards) holds this
+    rank's slices at state paths host/{key}; full_layer rebuilds one
+    layer of it, wherever it lies, for the export.
 
 Every function here that moves data is collective over the fsdp group:
 each of its ranks calls it in the same order.
@@ -47,7 +55,7 @@ from sparse_matrix_tuning_tpu_torch.parallel.mesh import Mesh, all_gather_, redu
 BLOCK = 256
 COL_PARALLEL = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj")
 ROW_PARALLEL = ("o_proj", "down_proj")
-PARAM_TOPS = ("embed_tokens", "norm", "layers", "lm_head")
+PARAM_TOPS = ("embed_tokens", "norm", "layers", "layers_stacked", "lm_head")
 
 # gathered layers alive now and at most (gather's outputs, by weak reference)
 LIVE = {"now": 0, "peak": 0}
@@ -69,12 +77,18 @@ def _param_dim(sub: Sequence[str]) -> Optional[int]:
         return 0
     if sub[0] == "lm_head":
         return 1
-    if sub[0] == "layers" and len(sub) == 3:
-        name = sub[2]
+    stacked = sub[0] == "layers_stacked" and len(sub) == 2
+    if (sub[0] == "layers" and len(sub) == 3) or stacked:
+        name = sub[-1]
         if name.endswith("layernorm") or name.endswith("_bias"):
             return None
-        return _weight_dim(name)
+        return _plus(_weight_dim(name), stacked)
     return None
+
+
+def _plus(d: Optional[int], stacked: bool) -> Optional[int]:
+    """The dim of a layer leaf in its (L, ...) stack: one further."""
+    return None if d is None else d + int(stacked)
 
 
 def shard_dim(path: str, shape: Sequence[int], mode: Optional[str], fsdp: int
@@ -91,26 +105,39 @@ def shard_dim(path: str, shape: Sequence[int], mode: Optional[str], fsdp: int
       only (it indexes the output dim), base blocks dim 1; q_head: wq dim 1,
       sw whole; counters and the loss scaler whole.
 
+    The scan state's stacked leaves (keyed by module, not "{layer}.{module}")
+    take the dim of their layer leaf plus one: params/layers_stacked/{mod}
+    (the (L, 1) placeholders and the norms stay whole), trainable, base, m
+    and v ((L, n, 256, 256) dim 2, channel (L, O, n) dim 1), q/{mod}/wq and
+    q/{mod}/sw; idx and the schedules stay whole. host/{key}, the host store
+    of the frozen weights that left the device (HostShards), as the leaf it
+    holds: a stacked weight, or the lm_head (dim 1).
+
     As JAX's _fit, a dim that fsdp does not divide, or that the leaf does
     not have, stays whole."""
     keys = path.split("/")
     top = keys[0]
+    blocks = 1 if mode == "matrix" else 0
     d: Optional[int] = None
     if top in ("master", "params"):
         d = _param_dim(keys[1:])
-    elif top in ("m", "v"):
-        d = _param_dim(keys[1:]) if keys[1] in PARAM_TOPS else \
-            (1 if mode == "matrix" else 0)
-    elif top == "trainable":
-        d = 1 if mode == "matrix" else 0
+    elif top in ("m", "v", "trainable", "base"):
+        if keys[1] in PARAM_TOPS:   # the warm-up's moments
+            d = _param_dim(keys[1:])
+        else:
+            d = _plus(blocks, "." not in keys[1])
     elif top == "acc":
         d = _weight_dim(keys[1].split(".", 1)[1])
     elif top == "q":
-        module, leaf = keys[1].split(".", 1)[1], keys[2]
-        d = {"wq": _weight_dim(module), "sw": 0 if module in ROW_PARALLEL else None,
+        stacked = "." not in keys[1]
+        module, leaf = keys[1].split(".", 1)[-1], keys[2]
+        d = {"wq": _plus(_weight_dim(module), stacked),
+             "sw": _plus(0 if module in ROW_PARALLEL else None, stacked),
              "base": 1}[leaf]
     elif top == "q_head":
         d = 1 if keys[1] == "wq" else None
+    elif top == "host":
+        d = 1 if keys[1] == "lm_head" else _plus(_weight_dim(keys[1]), True)
     if d is None or d >= len(shape) or shape[d] % fsdp:
         return None
     return d
@@ -154,6 +181,28 @@ class Sharding:
             return {k: self.shard_tree(v, f"{prefix}/{k}", mode) for k, v in tree.items()}
         return self.shard(prefix, tree, mode)
 
+    def layer_part(self, path: str, t: torch.Tensor, n_layers: int,
+                   mode: Optional[str] = None) -> torch.Tensor:
+        """This rank's slice of `t`, one layer of the (n_layers, ...) stack
+        at `path`, by the stack's shard_dim (recorded): a stack of the
+        layers' slices is this rank's slice of the stack."""
+        d = shard_dim(path, (n_layers, *t.shape), mode, self.f)
+        if d is None:
+            self.dims.pop(path, None)
+            return t
+        self.dims[path] = d
+        return self.mine(t, d - 1)
+
+    def full_layer(self, path: str, t: torch.Tensor, l: int) -> torch.Tensor:
+        """Layer l of the full stack at `path` from this rank's slice `t` of
+        it, wherever t lies (the host store: moved to the mesh's device for
+        the collective); on the mesh's device. Collective for a sharded
+        stack, as JAX's host_frozen_global of a HostShards."""
+        d = self.dim(path)
+        if d is None:
+            return t[l]
+        return _gather_flat([t[l].to(self.mesh.device)], [d - 1], self.mesh)[0]
+
     def zeros(self, path: str, full_shape, dtype, device, mode: Optional[str] = None
               ) -> torch.Tensor:
         """This rank's shard of a zero leaf of `full_shape` at `path`,
@@ -167,9 +216,16 @@ class Sharding:
             shape[d] //= self.f
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    def alias(self, src: str, dst: str) -> None:
+    def alias(self, src: str, dst: str, exact: bool = False) -> None:
         """Give the leaves under prefix dst the dims of those under src (the
-        warm-up's moments mirror the master)."""
+        warm-up's moments mirror the master); exact: the leaf dst that of
+        the leaf src, or whole where src is."""
+        if exact:
+            if src in self.dims:
+                self.dims[dst] = self.dims[src]
+            else:
+                self.dims.pop(dst, None)
+            return
         for k, d in list(self.dims.items()):
             if k.startswith(src + "/"):
                 self.dims[dst + k[len(src):]] = d
@@ -323,6 +379,20 @@ def _count_live(tensors) -> None:
         weakref.finalize(t, freed)
 
 
+# the scan dispatch's tree (models/llama.forward_scan's layer_xs) by the
+# state key of its sharded leaves; its "idx" and "sched" stay whole
+STATE_OF_EX = {"t": "trainable", "base": "base", "q": "q"}
+
+
+def _leaves(tree, prefix=()):
+    """(key path, leaf) of a nested dict, depth first."""
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
 class LayerGather:
     """What models.llama.forward gathers under fsdp, from a params tree of
     shards at state path `prefix` ("master" in the warm-up, "params" in
@@ -333,16 +403,22 @@ class LayerGather:
     phase ("trainable" and "q" of state), whose entries "{layer}.{module}"
     are gathered with their layer; make_linear(trainable, q) then builds
     the layer's linear dispatch from the full ones. The sparse phase's
-    params are in the compute dtype already: cast and extras never meet."""
+    params are in the compute dtype already: cast and extras never meet.
+
+    The scan state (models/llama.forward_scan): `scan_layer` takes layer
+    l's views of the stacks, and `open` gathers the sharded ones and hands
+    the full layer's tree to linear_scan(x, w, module, ex), the scan
+    dispatch."""
 
     def __init__(self, sharding: Sharding, prefix: str, cast=None, extras=None,
-                 make_linear=None):
-        if cast is not None and extras:
+                 make_linear=None, linear_scan=None):
+        if cast is not None and (extras or linear_scan is not None):
             raise ValueError("LayerGather: cast applies to every gathered leaf; the sparse "
                              "phase's extras keep their dtype")
         self.sh, self.prefix, self.cast = sharding, prefix, cast
         self.extras = extras or {}
         self.make_linear = make_linear
+        self.linear_scan = linear_scan
 
     def _whole(self, t):
         return t.to(self.cast) if self.cast is not None and t.is_floating_point() else t
@@ -364,40 +440,80 @@ class LayerGather:
         return {k: self.sh.full(f"q_head/{k}", t) for k, t in q_head.items()}
 
     def layer(self, params, i: int):
-        """Layer i's leaves: [(kind, key, shard, dim)], kind "params" (key
-        the module), "trainable" (key "{i}.{module}") or "q" (key
+        """Layer i's leaves: [(kind, key, shard, dim, None)], kind "params"
+        (key the module), "trainable" (key "{i}.{module}") or "q" (key
         ("{i}.{module}", field))."""
         li = str(i)
-        out = [("params", k, t, self.sh.dim(f"{self.prefix}/layers/{li}/{k}"))
+        out = [("params", k, t, self.sh.dim(f"{self.prefix}/layers/{li}/{k}"), None)
                for k, t in params["layers"][li].items()]
         for ks, t in self.extras.get("trainable", {}).items():
             if ks.split(".", 1)[0] == li:
-                out.append(("trainable", ks, t, self.sh.dim(f"trainable/{ks}")))
+                out.append(("trainable", ks, t, self.sh.dim(f"trainable/{ks}"), None))
         for ks, entry in self.extras.get("q", {}).items():
             if ks.split(".", 1)[0] == li:
-                out += [("q", (ks, k), t, self.sh.dim(f"q/{ks}/{k}")) for k, t in entry.items()]
+                out += [("q", (ks, k), t, self.sh.dim(f"q/{ks}/{k}"), None)
+                        for k, t in entry.items()]
+        return out
+
+    def scan_layer(self, stacked_l, ex_l):
+        """Layer l of the scan state: [(kind, key, view, dim, n)] of its views
+        of params["layers_stacked"] (kind "params", key the name) and of the
+        dispatch's tree ex_l (kind "ex", key the path into it), each view's
+        dim one less than its stack's (STATE_OF_EX; a non-tensor leaf, a
+        schedule, is whole). A planned module's blocks and their base in
+        matrix mode are cut to the layer's valid entries, which come first
+        (scan_phase.stack_plan_indices): the view holds k of its n padded
+        entries, gathered, and open() pads them back to n with zeros, which
+        nothing reads (its DynSchedule keeps the k; the padded entries'
+        grads are 0). Most of a stack is padding (TinyLlama: 4,290 stacked
+        blocks for 280), so this cuts a step's gathered bytes."""
+        def dim(path):
+            d = self.sh.dim(path)
+            return None if d is None else d - 1
+        out = [("params", k, t, dim(f"{self.prefix}/layers_stacked/{k}"), None)
+               for k, t in stacked_l.items()]
+        for key, t in _leaves(ex_l):
+            state = STATE_OF_EX.get(key[0])
+            d = dim("/".join((state,) + key[1:])) \
+                if state is not None and isinstance(t, torch.Tensor) else None
+            keep = getattr(ex_l.get("sched", {}).get(key[-1]), "keep", None)
+            n = None
+            if d is not None and key[0] in ("t", "base") and keep is not None \
+                    and keep.numel() < t.shape[0]:
+                n, t = t.shape[0], t[:keep.numel()]
+            out.append(("ex", key, t, d, n))
         return out
 
     def open(self, bundle, linear):
-        """(the layer's full params, its linear dispatch) from layer()'s
-        bundle: the sharded leaves in one gather, the whole ones as they are
-        (the params cast)."""
+        """(the layer's full params, its linear dispatch) from layer()'s or
+        scan_layer()'s bundle: the sharded leaves in one gather, the whole
+        ones as they are (the params cast), the cut ones padded back."""
         split = [e for e in bundle if e[3] is not None]
         fulls = gather(self.sh.mesh, [e[2] for e in split], [e[3] for e in split],
                        self.cast) if split else []
         if split:
             _count_live(fulls)
         got = {(e[0], e[1]): t for e, t in zip(split, fulls)}
-        lp, tr, q = {}, {}, {}
-        for kind, key, t, d in bundle:
+        lp, tr, q, ex = {}, {}, {}, {}
+        for kind, key, t, d, n in bundle:
             full = got[(kind, key)] if d is not None else t
+            if n is not None:
+                full = torch.cat([full, full.new_zeros((n - full.shape[0], *full.shape[1:]))])
             if kind == "params":
                 lp[key] = self._whole(full) if d is None else full
             elif kind == "trainable":
                 tr[key] = full
-            else:
+            elif kind == "q":
                 q.setdefault(key[0], {})[key[1]] = full
-        if self.make_linear is not None:
+            else:
+                node = ex
+                for k in key[:-1]:
+                    node = node.setdefault(k, {})
+                node[key[-1]] = full
+        if self.linear_scan is not None:
+            scan = self.linear_scan
+            linear = lambda x, w, module, idx: scan(x, w, module, ex)  # noqa: E731
+        elif self.make_linear is not None:
             linear = self.make_linear(tr, q)
         return lp, linear
 

@@ -17,7 +17,9 @@ per-layer state or the stacked scan state:
                    fsdp index f, written by the rank of data index 0 that
                    holds them (the data group's ranks hold equal shards),
                    read by every rank of fsdp index f; an Orbax save of
-                   sharded arrays is a collective in the JAX package too
+                   sharded arrays is a collective in the JAX package too;
+                   frozen_host.fsdp{f}.pt likewise, the slices of the scan
+                   state's host store
   meta.json        phase, step, total_steps, best_eval_loss, dtype (a restore
                    under another --dtype is refused: fp16 states carry the
                    loss scaler's "loss_scale" and "good_steps"), mesh (a
@@ -107,10 +109,12 @@ def _predicted_layout(cfg, model_cfg, plan: SMTPlan, mesh=None) -> Dict:
             "frozen_quant": fq, "head_quant": resolve_head_quant(cfg, model_cfg, fq)}
 
 
-def _state_file(trainer) -> str:
+def _state_file(trainer, name: str = STATE_FILE) -> str:
+    """state.pt or frozen_host.pt, or under fsdp this rank's shards' file."""
     if trainer.sharding is None:
-        return STATE_FILE
-    return f"state.fsdp{trainer.mesh.fsdp_index}.pt"
+        return name
+    stem, ext = os.path.splitext(name)
+    return f"{stem}.fsdp{trainer.mesh.fsdp_index}{ext}"
 
 
 def save_checkpoint(path: str, trainer) -> None:
@@ -122,13 +126,13 @@ def save_checkpoint(path: str, trainer) -> None:
     if trainer.sharding is None or mesh.data_index == 0:
         _save({k: v.detach() for k, v in _tensors(trainer.state).items()},
               os.path.join(path, _state_file(trainer)))
+        host_path = os.path.join(path, _state_file(trainer, HOST_FILE))
+        if trainer._host_frozen is not None:
+            _save(trainer._host_frozen, host_path)
+        elif os.path.exists(host_path):
+            os.remove(host_path)
     if mesh is not None and not mesh.is_main:
         return
-    host_path = os.path.join(path, HOST_FILE)
-    if trainer._host_frozen is not None:
-        _save(trainer._host_frozen, host_path)
-    elif os.path.exists(host_path):
-        os.remove(host_path)
     meta = {"phase": trainer.phase, "step": trainer.step, "total_steps": trainer.total_steps,
             "best_eval_loss": trainer.best_eval_loss, "dtype": trainer.cfg.dtype,
             "mesh": _mesh_shape(trainer)}
@@ -217,7 +221,7 @@ def restore_checkpoint(path: str, trainer) -> None:
     if os.path.exists(os.path.join(path, PLAN_FILE)):
         with open(os.path.join(path, PLAN_FILE)) as f:
             plan = SMTPlan.from_json(f.read())
-    host_path = os.path.join(path, HOST_FILE)
+    host_path = os.path.join(path, _state_file(trainer, HOST_FILE))
     host = (torch.load(host_path, weights_only=True, map_location="cpu")
             if os.path.exists(host_path) else None)
 

@@ -17,7 +17,9 @@ Under fsdp (a parallel/fsdp.Sharding) the block statistics come from the
 accumulators' shards, their partial sums combined over the fsdp group
 before any non-linearity (a 256-block may straddle two shards), and the
 sparse state is built one weight at a time from the gathered master and
-kept as this rank's shards, the int8 base quantized from the full weight.
+kept as this rank's shards, the int8 base quantized from the full weight;
+the scan state's stacks and its host store too
+(scan_phase.build_scan_sparse_state).
 
 With frozen_quant=int8 the conversion also quantizes every layer linear
 once from the fp32 master (build_qweights; the head too, build_q_head),
@@ -270,15 +272,16 @@ def sparse_state_from_plan(cfg: SMTConfig, warmup_state: Dict, plan: SMTPlan, mo
     and with the host offload (frozen_offload_active) the quantized dense
     weights in host_frozen (offload_frozen_to_host).
 
-    sharding (the fsdp axis, the per-layer layout only): the master is
-    this rank's shards; the dense weights keep the master's dims (state
-    path "params/..."), the trainables, their moments and the int8 leaves
-    are this rank's shards (module notes), recorded in `sharding`."""
+    sharding (the fsdp axis): the master is this rank's shards; the dense
+    weights keep the master's dims (state path "params/..."), the
+    trainables, their moments and the int8 leaves are this rank's shards
+    (module notes), recorded in `sharding`; over the scan state so are its
+    stacks and its host store (build_scan_sparse_state)."""
     from sparse_matrix_tuning_tpu_torch.train.steps import init_sparse_state
 
     if scan:
         from sparse_matrix_tuning_tpu_torch.train.scan_phase import build_scan_sparse_state
-        return build_scan_sparse_state(cfg, warmup_state, plan, model_cfg)
+        return build_scan_sparse_state(cfg, warmup_state, plan, model_cfg, sharding=sharding)
     master = warmup_state["master"]
     if sharding is not None:
         sharding.alias("master", "params")
@@ -307,9 +310,9 @@ def frozen_offload_active(cfg: SMTConfig, mode: str, scan: bool = False, mesh=No
     or column correction, frozen ones through wq/sw), so they move to HOST
     memory and the device holds only the int8 copy. scan: the layout whose
     base is resolved (channel mode takes int8 only over the scan state).
-    On a mesh only the scan layout offloads, each rank its own replica;
-    the per-layer layout keeps its weights on the device (JAX's rule,
-    convert.py:329-348)."""
+    On a mesh only the scan layout offloads, each rank its own replica,
+    or under fsdp its slices (JAX's HostShards); the per-layer layout keeps
+    its weights on the device (JAX's rule, convert.py:329-348)."""
     return (bool(cfg.frozen_host_offload)
             and resolve_frozen_quant(cfg, mode, scan=scan) == "int8"
             and (mesh is None or scan))

@@ -35,11 +35,21 @@ DynSchedules, or in channel mode which layers have a valid column
 so that no step syncs the host on the coordinates. The scan warm-up is
 not ported: lax.scan exists to keep XLA's compile time independent of
 depth, and the eager warm-up selects the same plans.
+
+Under fsdp (a parallel/fsdp.Sharding, `--mesh_shape D,F,1` with F > 1)
+every stacked leaf JAX shards over fsdp is this rank's slice (shard_dim),
+and so is the host store (each rank keeps its slices of the offloaded
+stacks and head, as JAX's HostShards): the conversion builds them from
+the whole layer, forward_scan gathers a layer's slices where it runs, the
+step reduce-scatters the trainables' grads into their slices, and
+merged_params_from_scan gathers one layer at a time for the export.
+Quantize-on-load (--sparse_from_plan) stays on one device, as JAX's.
 """
 
 from __future__ import annotations
 
 import os
+from functools import partial
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -145,45 +155,61 @@ def plan_mode_of(idx: Dict[str, Dict]) -> str:
 
 def _stack_linears(mods, n_layers: int, layer_weight: Callable, idx: Dict, plan_mode: str,
                    device, *, dtype: torch.dtype, quantize: bool, reciprocal: bool = False,
-                   host: Optional[Dict] = None, host_dtype: Optional[torch.dtype] = None):
+                   host: Optional[Dict] = None, host_dtype: Optional[torch.dtype] = None,
+                   sharding=None):
     """The per-module stacks of the scan state, one layer weight at a time
     (the transient is one layer linear and its fp32 quantization
-    temporaries): w = layer_weight(mod, l), on any device, moves to `device`
-    in `dtype`, the dtype it is quantized and gathered from. With
-    `quantize`, q[mod] stacks its int8 (wq, sw) (reciprocal: the scale as
-    JAX computes it under jit) and the base is gathered from the
+    temporaries): w = layer_weight(mod, l), the whole weight on any device,
+    moves to `device` in `dtype`, the dtype it is quantized and gathered
+    from. With `quantize`, q[mod] stacks its int8 (wq, sw) (reciprocal: the
+    scale as JAX computes it under jit) and the base is gathered from the
     dequantized weight; without, the base is a distinct copy of the
     trainables. Planned modules (those of idx) gather their trainables in
     fp32 from w. host: a dict that receives each module's layer weights as
     layer_weight returns them (cast to host_dtype if given), stacked on the
-    CPU. Returns (q, trainable, base)."""
+    CPU. A module that needs none of these is not read. sharding (the fsdp
+    axis): every stack keeps this rank's slice of each layer's leaves
+    (Sharding.layer_part, at state paths q/{mod}/wq, trainable/{mod},
+    host/{mod}, ...), taken from the whole layer: a row's scale spans the
+    slices of a column-parallel weight, and a block or column may lie in
+    another rank's. Returns (q, trainable, base)."""
+    def part(path, t):
+        return t if sharding is None else sharding.layer_part(path, t, n_layers, plan_mode)
+
     q, trainable, base = {}, {}, {}
     for mod in mods:
         meta = idx.get(mod)
+        if not (quantize or meta is not None or host is not None):
+            continue
         hs, ts, bs = [], [], []
         for l in range(n_layers):
             w_src = layer_weight(mod, l).detach()
             if host is not None:
-                hs.append(w_src.to("cpu", host_dtype or w_src.dtype))
+                hs.append(part(f"host/{mod}", w_src.to("cpu", host_dtype or w_src.dtype)))
             w = w_src.to(device=device, dtype=dtype)
             if quantize:
                 wq, sw = quantize_weight(w, reciprocal=reciprocal)
+                mine = {"wq": part(f"q/{mod}/wq", wq), "sw": part(f"q/{mod}/sw", sw)}
                 if l == 0:  # the stacks, filled layer by layer
-                    q[mod] = {"wq": torch.empty((n_layers, *wq.shape), dtype=wq.dtype,
-                                                device=device),
-                              "sw": torch.empty((n_layers, *sw.shape), dtype=sw.dtype,
-                                                device=device)}
-                q[mod]["wq"][l], q[mod]["sw"][l] = wq, sw
+                    q[mod] = {k: torch.empty((n_layers, *t.shape), dtype=t.dtype, device=device)
+                              for k, t in mine.items()}
+                for k, t in mine.items():
+                    q[mod][k][l] = t
             if meta is not None:
                 meta_l = {k: v[l] for k, v in meta.items()}
-                ts.append(_plan_gather(plan_mode, w, meta_l))
+                ts.append(part(f"trainable/{mod}", _plan_gather(plan_mode, w, meta_l)))
                 if quantize:
-                    bs.append(_plan_gather(plan_mode, dequantize_weight(wq, sw, torch.float32),
-                                           meta_l))
+                    bs.append(part(f"base/{mod}", _plan_gather(
+                        plan_mode, dequantize_weight(wq, sw, torch.float32), meta_l)))
             del w, w_src
         if meta is not None:
             trainable[mod] = torch.stack(ts)
-            base[mod] = torch.stack(bs) if quantize else trainable[mod].clone()
+            if quantize:
+                base[mod] = torch.stack(bs)
+            else:
+                base[mod] = trainable[mod].clone()
+                if sharding is not None:
+                    sharding.alias(f"trainable/{mod}", f"base/{mod}", exact=True)
         if host is not None:
             host[mod] = torch.stack(hs)
     return q, trainable, base
@@ -208,7 +234,7 @@ def _scan_state(params: Dict, trainable: Dict, base: Dict, idx: Dict, q: Dict, s
 
 @torch.no_grad()
 def build_scan_sparse_state(cfg: SMTConfig, warmup_state: Dict, plan: SMTPlan,
-                            model_cfg: LlamaConfig, device=None):
+                            model_cfg: LlamaConfig, device=None, sharding=None):
     """The scan sparse state from the eager warm-up's per-layer fp32 master
     (twin of the JAX build_scan_sparse_state, with its
     offload_scan_frozen_to_host), on `device` (default: the master's).
@@ -226,7 +252,16 @@ def build_scan_sparse_state(cfg: SMTConfig, warmup_state: Dict, plan: SMTPlan,
     quantized modules and an untied head go to host_frozen, in
     build_scan_state_from_hf's layout ({mod: (L, O, I)}, "lm_head"),
     leaving (L, 1) and 1-element placeholders; host_frozen is None
-    otherwise."""
+    otherwise.
+
+    sharding (the fsdp axis): the master is this rank's shards. Each layer
+    weight the conversion reads is gathered whole (a one-layer transient,
+    collective), quantized and its blocks or columns gathered as one
+    process does, and every stacked leaf, and the host store, keeps this
+    rank's slice (_stack_linears; dims recorded in `sharding`, the host
+    store's at host/{key}): each equals its slice of the one-process
+    conversion bit for bit. The stacks of the master's own leaves are its
+    shards cast (the cast is elementwise)."""
     master = warmup_state["master"]
     layers = master["layers"]
     device = torch.device(device) if device is not None else master["embed_tokens"].device
@@ -236,25 +271,46 @@ def build_scan_sparse_state(cfg: SMTConfig, warmup_state: Dict, plan: SMTPlan,
     offload = frozen_offload_active(cfg, plan.mode, scan=True)
     host = {} if offload else None
     linears = [m for m in LAYER_LINEARS if m in layers["0"] and layers["0"][m].dim() == 2]
+
+    def layer_weight(mod, l):
+        w = layers[str(l)][mod]
+        return w if sharding is None else sharding.full(f"master/layers/{l}/{mod}", w)
+
     q, trainable, base = _stack_linears(
-        linears, n_layers, lambda mod, l: layers[str(l)][mod], idx, plan.mode, device,
-        dtype=torch.float32, quantize=use_q8, host=host, host_dtype=dt)
+        linears, n_layers, layer_weight, idx, plan.mode, device,
+        dtype=torch.float32, quantize=use_q8, host=host, host_dtype=dt, sharding=sharding)
     stacked = {}
     for name in layers["0"]:
-        if offload and name in q:
+        placeholder = offload and name in q
+        if placeholder:
             stacked[name] = torch.zeros((n_layers, 1), dtype=dt, device=device)
         else:
             stacked[name] = torch.stack([layers[str(l)][name].detach().to(device, dt)
                                          for l in range(n_layers)])
+        if sharding is not None:   # the master's shards stacked: dim + 1, or whole
+            d = sharding.dim(f"master/layers/0/{name}")
+            path = f"params/layers_stacked/{name}"
+            if d is None or placeholder:
+                sharding.dims.pop(path, None)
+            else:
+                sharding.dims[path] = d + 1
     params = {k: v.detach().to(device, dt, copy=True) for k, v in master.items()
               if k != "layers"}
     params["layers_stacked"] = stacked
+    if sharding is not None:
+        sharding.alias("master", "params")
     state = _scan_state(params, trainable, base, idx, q, int(warmup_state["step"]), device,
                         cfg)
+    if sharding is not None:
+        sharding.alias("trainable", "m")
+        sharding.alias("trainable", "v")
     if resolve_head_quant(cfg, model_cfg, "int8" if use_q8 else "none") == "int8":
-        state["q_head"] = build_q_head(master, model_cfg)
+        state["q_head"] = build_q_head(master, model_cfg, sharding)
         if offload:
             state["params"] = offload_lm_head(params, host)
+            if sharding is not None:   # the placeholder is whole
+                sharding.alias("params/lm_head", "host/lm_head", exact=True)
+                sharding.dims.pop("params/lm_head", None)
     return state, host
 
 
@@ -423,12 +479,18 @@ def attach_schedules(state: Dict) -> Dict:
     module (make_scan_dispatch runs the frozen linear where it has none).
     Built once, before the first step (it reads the coordinates on the
     host: the trainer calls it when it installs the sparse phase); the
-    steps and the eval read it. Returns state."""
+    steps and the eval read it. A matrix layer's valid entries must come
+    first, as stack_plan_indices (and JAX's) lays them out. Returns
+    state."""
     sched = {}
     for mod, meta in state["idx"].items():
         if "ci" in meta:
             sched[mod] = meta["valid"].any(dim=1).tolist()
         else:
+            valid = meta["valid"].to("cpu")
+            if not bool((valid[:, :-1] >= valid[:, 1:]).all()):  # fsdp.LayerGather relies on it
+                raise ValueError(f"{mod}: a layer's valid entries must come first "
+                                 "(stack_plan_indices)")
             sched[mod] = [dyn_schedule(rb, cb, valid, state["trainable"][mod].device)
                           for rb, cb, valid in zip(meta["rb"], meta["cb"], meta["valid"])]
     state["sched"] = sched
@@ -437,27 +499,35 @@ def attach_schedules(state: Dict) -> Dict:
 
 def _scan_loss(state: Dict, batch: Dict, trainable, cfg: SMTConfig,
                model_cfg: LlamaConfig, lowest_layer: Optional[int],
-               dropout_key=None) -> torch.Tensor:
+               dropout_key=None, sharding=None) -> torch.Tensor:
     """The JAX _scan_loss: forward_scan with the scan dispatch, then the
     loss path and head of steps.head_loss (sparse phase; the int8 head
-    over hidden.float() on the dense path)."""
+    over hidden.float() on the dense path). sharding: the state holds this
+    rank's fsdp shards; each layer of the stacks is gathered where it runs
+    (fsdp.LayerGather.scan_layer), the head where it is used."""
     from sparse_matrix_tuning_tpu_torch.train.steps import head_loss
     layer_xs = {"t": trainable, "idx": state["idx"], "base": state["base"],
                 "sched": state["sched"]}
     if "q" in state:
         layer_xs["q"] = state["q"]
-    kw = dict(layer_xs=layer_xs, linear_scan=make_scan_dispatch(plan_mode_of(state["idx"])),
+    linear_scan = make_scan_dispatch(plan_mode_of(state["idx"]))
+    gather = None
+    if sharding is not None:
+        from sparse_matrix_tuning_tpu_torch.parallel.fsdp import LayerGather
+        gather = LayerGather(sharding, "params", linear_scan=linear_scan)
+    kw = dict(layer_xs=layer_xs, linear_scan=linear_scan,
               attention_mask=batch.get("attention_mask"), remat=cfg.sparse_remat,
               stop_grad_below_layer=lowest_layer, attn_impl=cfg.attn_impl,
-              dropout_key=dropout_key)
+              dropout_key=dropout_key, fsdp=gather)
     params = state["params"]
     return head_loss(lambda hidden: forward_scan(params, batch["input_ids"], model_cfg,
                                                  return_hidden=hidden, **kw),
-                     params, batch, cfg, model_cfg, sparse=True, q_head=state.get("q_head"))
+                     params, batch, cfg, model_cfg, sparse=True, q_head=state.get("q_head"),
+                     fsdp=gather)
 
 
 def build_scan_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan,
-                           lr_sched: Callable, mesh=None) -> Callable:
+                           lr_sched: Callable, mesh=None, sharding=None) -> Callable:
     """Twin of the JAX build_scan_sparse_step: step(state, batch) ->
     (state, {"loss", "grad_norm", "lr"}), the state updated in place (as
     steps.build_sparse_step). The grads of the stacked trainables are
@@ -470,10 +540,15 @@ def build_scan_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan
     (attach_schedules). Under fp16 the loss is scaled and an overflowed
     step skipped, as steps.build_sparse_step does. With a mesh the stacked
     trainables' grads are all-reduced as they are, padded entries
-    included (steps.accumulated_value_and_grad)."""
+    included (steps.accumulated_value_and_grad). sharding (the fsdp axis):
+    the stacks are this rank's shards; each layer's are gathered in its
+    forward and its trainables' grads reduce-scattered in its backward,
+    then summed over the data group (whole leaves over the world); the
+    clip norm sums the shards' squares over fsdp (steps.
+    sharded_global_norm); K2 runs on the shards."""
     from sparse_matrix_tuning_tpu_torch.train.steps import (
         _skipped, accumulated_value_and_grad, adam_betas, block_adam, dropout_key,
-        unscale_and_check)
+        sharded_global_norm, unscale_and_check)
     adam_cfg = AdamConfig(betas=tuple(adam_betas(cfg, plan.mode)), eps=cfg.adam_eps,
                           weight_decay=cfg.w_decay, grad_clip=cfg.grad_clip)
     adam = block_adam(adam_cfg, make_qk_lr_scale(cfg.qk_lr_times) if cfg.qk_scheduler else None)
@@ -488,18 +563,23 @@ def build_scan_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan
         key = dropout_key(cfg, state, sparse=True, mesh=mesh)
 
         def loss_of(tr, mb):
-            raw = _scan_loss(state, mb, tr, cfg, model_cfg, lowest_layer, key)
+            raw = _scan_loss(state, mb, tr, cfg, model_cfg, lowest_layer, key, sharding)
             return raw * state["loss_scale"] if use_ls else raw
 
-        vag = accumulated_value_and_grad(loss_of, cfg.gradient_accumulation_steps, mesh)
+        sharded = () if sharding is None else sharding.sharded_keys("trainable", trainable)
+        vag = accumulated_value_and_grad(loss_of, cfg.gradient_accumulation_steps, mesh, sharded)
         loss, grads = vag(trainable, batch)
         with torch.no_grad():
-            norm, ls_metrics = None, {}
+            norm_of = partial(sharded_global_norm, mesh=mesh, sharded=sharded)
+            ls_metrics = {}
             if use_ls:
-                loss, grads, norm, ls_metrics, finite = unscale_and_check(loss, grads, state, cfg)
+                loss, grads, norm, ls_metrics, finite = unscale_and_check(loss, grads, state, cfg,
+                                                                          norm_of)
                 if not finite:  # skipped: the stacks, moments and count unchanged
                     return _skipped(state, trainable, loss, norm, lr_sched(state["count"]),
                                     ls_metrics)
+            else:
+                norm = norm_of(grads)
             grads, gnorm = clip_by_global_norm(grads, adam_cfg.grad_clip, norm=norm)
             lr = lr_sched(state["count"])
             adam(impl, grads, state, trainable, lr)
@@ -512,13 +592,16 @@ def build_scan_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan
     return step
 
 
-def build_scan_eval_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan) -> Callable:
+def build_scan_eval_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan,
+                         sharding=None) -> Callable:
     """The eval loss: the sparse step's forward and loss, no gradient (under
-    data parallelism this rank's part, steps.build_eval_step)."""
+    data parallelism this rank's part, steps.build_eval_step; under fsdp
+    over the gathered layers)."""
 
     @torch.no_grad()
     def step(state, batch) -> torch.Tensor:
-        return _scan_loss(state, batch, state["trainable"], cfg, model_cfg, lowest_layer=None)
+        return _scan_loss(state, batch, state["trainable"], cfg, model_cfg, lowest_layer=None,
+                          sharding=sharding)
 
     return step
 
@@ -539,29 +622,44 @@ def _scatter_trained_layer(w: torch.Tensor, meta_host: Dict, l: int) -> None:
 
 @torch.no_grad()
 def merged_params_from_scan(state: Dict, plan: SMTPlan, model_cfg: LlamaConfig,
-                            host_frozen: Optional[Dict] = None) -> Dict:
+                            host_frozen: Optional[Dict] = None, sharding=None) -> Dict:
     """The per-layer HF-layout params of the scan state on the host, with the
     trained blocks (or columns) scattered in: an exact export whatever the
-    int8 compute did (twin of the JAX merged_params_from_scan, one
-    process). The frozen and unplanned layer weights come from host_frozen
-    (the checkpoint's, as loaded) unchanged, or from the device stacks; only
-    the valid entries of planned modules are written, into copies."""
+    int8 compute did (twin of the JAX merged_params_from_scan). The frozen
+    and unplanned layer weights come from host_frozen (the checkpoint's, as
+    loaded) unchanged, or from the device stacks; only the valid entries of
+    planned modules are written, into copies. sharding (the fsdp axis): the
+    state and the host store are this rank's slices; each layer weight is
+    gathered whole one at a time (Sharding.full_layer, as JAX's
+    host_frozen_global of a HostShards), the trainables and the other leaves
+    once each. Collective: every rank of the fsdp group calls it, and every
+    rank returns the whole."""
+    def full(path, t):
+        if sharding is None:
+            return t.to("cpu")
+        return sharding.full(path, t.to(sharding.mesh.device)).to("cpu")
+
+    def layer_of(path, t, l):
+        return t[l] if sharding is None else sharding.full_layer(path, t, l)
+
     stacked = state["params"]["layers_stacked"]
     meta_host = {mod: {**{k: v.to("cpu") for k, v in meta.items()},
-                       "t": state["trainable"][mod].detach().to("cpu")}
+                       "t": full(f"trainable/{mod}", state["trainable"][mod].detach())}
                  for mod, meta in state["idx"].items()}
     layers: Dict[str, Dict] = {str(l): {} for l in range(model_cfg.num_hidden_layers)}
     for mod, src in stacked.items():
         entry = host_frozen.get(mod) if host_frozen is not None else None
+        path = f"host/{mod}" if entry is not None else f"params/layers_stacked/{mod}"
         planned = mod in meta_host
         for l in range(model_cfg.num_hidden_layers):
-            w = (entry if entry is not None else src)[l]
+            w = layer_of(path, entry if entry is not None else src, l)
             if planned and w.dim() == 2:
                 w = w.to("cpu", copy=True)   # the scatter must not touch the store
                 _scatter_trained_layer(w, meta_host[mod], l)
             layers[str(l)][mod] = w.to("cpu")
-    params = {k: v.to("cpu") for k, v in state["params"].items() if k != "layers_stacked"}
+    params = {k: full(f"params/{k}", v) for k, v in state["params"].items()
+              if k != "layers_stacked"}
     if host_frozen is not None and "lm_head" in host_frozen:
-        params["lm_head"] = host_frozen["lm_head"]
+        params["lm_head"] = full("host/lm_head", host_frozen["lm_head"])
     params["layers"] = layers
     return params

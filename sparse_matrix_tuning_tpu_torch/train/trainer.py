@@ -15,10 +15,12 @@ every rank holds a full replica. Over fsdp (F > 1) every rank holds its
 shards of the state (parallel/fsdp.py; `self.sharding` records their
 dims): the trainer shards the params it is given (or takes shards made by
 models/hf_io.load_hf_params_sharded with their dims), and the HF export
-gathers leaf by leaf to the host. The scan layouts are refused under
-fsdp. Eval losses are reduced once per evaluate; rank 0 alone writes
-metrics and HF saves, between barriers; checkpoints are written as
-train/checkpoint.py says.
+gathers leaf by leaf to the host. The scan layouts (--scan_layers on, and
+channel + int8 at depth) convert the sharded warm-up into a sharded scan
+state, whose host store of frozen weights holds this rank's slices
+(train/scan_phase.build_scan_sparse_state). Eval losses are reduced once
+per evaluate; rank 0 alone writes metrics and HF saves, between barriers;
+checkpoints are written as train/checkpoint.py says.
 """
 
 from __future__ import annotations
@@ -47,21 +49,6 @@ from sparse_matrix_tuning_tpu_torch.utils.logging import print_rank_0
 from sparse_matrix_tuning_tpu_torch.utils.throughput import ThroughputReporter
 
 
-def _refuse_scan_under_fsdp(cfg: SMTConfig, model_cfg: LlamaConfig, mesh) -> None:
-    """Under fsdp the scan layouts are refused by name: --scan_layers on,
-    and the "auto" scan of channel + int8 at depth (running the per-layer
-    path there would compute something other than JAX's scan)."""
-    from sparse_matrix_tuning_tpu_torch.train.scan_phase import resolve_scan_layers
-    if resolve_scan_layers(cfg, model_cfg, "matrix" if cfg.matrix_sparsity else "channel"):
-        why = ("--scan_layers on" if cfg.scan_layers == "on" else
-               f"--channel_sparsity --frozen_quant int8 at {model_cfg.num_hidden_layers} layers "
-               "(scan_layers auto)")
-        raise NotImplementedError(
-            f"{why} on mesh {tuple(mesh.shape)}: the scan state under fsdp (each process "
-            "keeping its shards of the host store) is not yet ported to "
-            f"sparse_matrix_tuning_tpu_torch; use --mesh_shape {mesh.batch_shards},1,1")
-
-
 class SMTTrainer:
     """Drives warm-up -> selection/conversion -> sparse fine-tuning.
 
@@ -82,8 +69,6 @@ class SMTTrainer:
         self.phase = "warmup"
         sh = self.sharding
         if sh is not None:
-            if self.is_smt:
-                _refuse_scan_under_fsdp(cfg, model_cfg, mesh)
             if param_dims is None:
                 params = sh.shard_tree(params, "master")
             else:
@@ -137,9 +122,9 @@ class SMTTrainer:
         model_cfg = model_cfg or load_hf_config(model_dir)
         if mesh is not None and mesh.fsdp > 1:
             raise NotImplementedError(
-                f"sparse_scan_from_hf (--sparse_from_plan) on mesh {tuple(mesh.shape)}: the scan "
-                "state under fsdp (each process keeping its shards of the host store) is not "
-                f"yet ported; use --mesh_shape {mesh.batch_shards},1,1")
+                f"sparse_scan_from_hf (--sparse_from_plan) on mesh {tuple(mesh.shape)}: the JAX "
+                "package's entry runs on one device (it sets no mesh), so it has no sharded form; "
+                f"use --mesh_shape {mesh.batch_shards},1,1")
         if plan.mode not in ("matrix", "channel") or cfg.dtype == "fp16":
             raise ValueError("sparse_scan_from_hf requires matrix or channel mode and dtype != "
                              "fp16 (the fp16 loss-scale state is created by the warm-up phase, "
@@ -181,7 +166,8 @@ class SMTTrainer:
         sh = self.sharding
         total = sum(p.numel() if sh is None else torch.Size(sh.full_shape(f"params/{k}", p))
                     .numel() for k, p in flatten_tree(self.state["params"]).items())
-        total += sum(w.numel() for w in (self._host_frozen or {}).values())
+        total += sum(w.numel() if sh is None else torch.Size(sh.full_shape(f"host/{k}", w))
+                     .numel() for k, w in (self._host_frozen or {}).items())
         sel = self.plan.trainable_params
         print_rank_0(
             f"[smt] converted at step {self.step} in {time.time() - t0:.1f}s"
@@ -195,8 +181,9 @@ class SMTTrainer:
         the group-lr-overrides-constructor-lr quirk, smt.py:506-519)."""
         self.phase = "sparse"
         if self.sharding is not None:  # the warm-up leaves went
-            self.sharding.keep(f"{k}/{p}" for k, v in self.state.items() if isinstance(v, dict)
-                               for p in flatten_tree(v))
+            self.sharding.keep([f"{k}/{p}" for k, v in self.state.items() if isinstance(v, dict)
+                                for p in flatten_tree(v)]
+                               + [f"host/{k}" for k in self._host_frozen or {}])
         conversion_step = self.step - int(self.state["count"])
         sparse_sched = make_lr_schedule(
             self.cfg.lr_scheduler_type, self.cfg.smt_lr,
@@ -206,9 +193,9 @@ class SMTTrainer:
             from sparse_matrix_tuning_tpu_torch.train import scan_phase
             scan_phase.attach_schedules(self.state)
             self._sparse_step = scan_phase.build_scan_sparse_step(
-                self.cfg, self.model_cfg, self.plan, sparse_sched, self.mesh)
+                self.cfg, self.model_cfg, self.plan, sparse_sched, self.mesh, self.sharding)
             self._eval_step = scan_phase.build_scan_eval_step(self.cfg, self.model_cfg,
-                                                              self.plan)
+                                                              self.plan, self.sharding)
             return
         self._sparse_step = build_sparse_step(self.cfg, self.model_cfg, self.plan,
                                               sparse_sched, self.mesh, self.sharding)
@@ -407,9 +394,9 @@ class SMTTrainer:
         offload the frozen weights come back from the host store with the
         trained blocks scattered in (those tensors stay on the CPU): the
         export is exact, whatever the int8 compute path did. Under fsdp
-        the shards are gathered leaf by leaf into host tensors: collective,
-        every rank calls it."""
-        if self.sharding is not None:
+        the shards are gathered leaf by leaf into host tensors (the scan
+        state's layer by layer): collective, every rank calls it."""
+        if self.sharding is not None and not (self.phase == "sparse" and self._scan):
             warm = self.phase != "sparse"
             return self.sharding.full_tree(self.state["master" if warm else "params"],
                                            "master" if warm else "params",
@@ -419,7 +406,7 @@ class SMTTrainer:
                 from sparse_matrix_tuning_tpu_torch.train.scan_phase import (
                     merged_params_from_scan)
                 return merged_params_from_scan(self.state, self.plan, self.model_cfg,
-                                               self._host_frozen)
+                                               self._host_frozen, self.sharding)
             if self._host_frozen is not None:
                 return self._merged_from_host()
             return self.state["params"]
@@ -449,11 +436,18 @@ class SMTTrainer:
         base decodes from its state, with no dense layer weight on the device
         (eval/generate.decode_params_from_scan); the others from the exact
         merged dense params, on the trainer's device (weights offloaded to
-        the host come back)."""
+        the host come back). Under fsdp every rank gathers the whole state
+        (collective)."""
         from sparse_matrix_tuning_tpu_torch.eval.generate import (
             decode_params_from_scan, prepare_decode_params)
         if self.phase == "sparse" and self._scan and "q" in self.state:
-            return decode_params_from_scan(self.state, self.model_cfg, self._host_frozen)
+            state, host, sh = self.state, self._host_frozen, self.sharding
+            if sh is not None:
+                state = {k: sh.full_tree(v, k, device=self.device)
+                         if isinstance(v, dict) and k != "sched" else v for k, v in state.items()}
+                host = host and {k: sh.full(f"host/{k}", w.to(self.device))
+                                 for k, w in host.items() if k == "lm_head"}
+            return decode_params_from_scan(state, self.model_cfg, host)
         merged = tree_map(lambda p: p.to(self.device), self.merged_params())
         return prepare_decode_params(merged, self.model_cfg)
 

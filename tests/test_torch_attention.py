@@ -13,12 +13,20 @@ import torch
 import torch_parity as tp
 
 from sparse_matrix_tuning_tpu.ops.pallas.attention import fullk_attention as jax_fullk
+from sparse_matrix_tuning_tpu.parallel.mesh import set_compute_mesh
 from sparse_matrix_tuning_tpu_torch.config import SMTConfig
 from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig, init_params
 from sparse_matrix_tuning_tpu_torch.ops.attention import fullk_attention
 from sparse_matrix_tuning_tpu_torch.ops.cuda import _build
 from sparse_matrix_tuning_tpu_torch.ops.cuda import attention as k3
 from sparse_matrix_tuning_tpu_torch.train.trainer import SMTTrainer
+
+@pytest.fixture(scope="module", autouse=True)
+def single_device_jax():
+    """JAX's compute mesh reset before this module runs: a JAX SMTTrainer
+    built on a mesh earlier in this process leaves it set (trainer.py:68)."""
+    set_compute_mesh(None)
+
 
 # fp16 is held to the bf16 bounds (it keeps 3 more mantissa bits)
 FWD_TOL = {"fp32": (2e-6, 1e-5), "bf16": (2e-2, 1e-1), "fp16": (2e-2, 1e-1)}

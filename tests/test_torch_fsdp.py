@@ -34,6 +34,7 @@ from test_torch_parallel import (
 from sparse_matrix_tuning_tpu.config import SMTConfig as JaxSMTConfig
 from sparse_matrix_tuning_tpu.models.llama import init_params as jax_init_params
 from sparse_matrix_tuning_tpu.parallel.mesh import make_mesh as jax_make_mesh
+from sparse_matrix_tuning_tpu.parallel.mesh import set_compute_mesh
 from sparse_matrix_tuning_tpu.train.trainer import SMTTrainer as JaxSMTTrainer
 
 # mesh -> {name: (config kwargs, batches kwargs, bound against JAX or None)}
@@ -68,15 +69,18 @@ def _id(case):
 def _jax_run(spec, shape, bs, eval_path):
     jparams = jax_init_params(jax.random.PRNGKey(0), JAX_CFG)  # a fresh copy: donated
     n = int(np.prod(shape))
-    jt = JaxSMTTrainer(JaxSMTConfig(**spec["cfg"]), JAX_CFG, jparams,
-                       total_steps=spec["total_steps"],
-                       mesh=jax_make_mesh(shape, jax.devices()[:n]))
-    metrics = [jt.train_step(b) for b in bs]
-    return {"loss": [float(m["loss"]) for m in metrics],
-            "flags": [(float(m.get("loss_scale", -1.0)), bool(m.get("overflow", False)))
-                      for m in metrics],
-            "fingerprint": jt.plan.fingerprint(),
-            "eval_loss": jt.evaluate(torch.load(eval_path, weights_only=False))[1]}
+    try:
+        jt = JaxSMTTrainer(JaxSMTConfig(**spec["cfg"]), JAX_CFG, jparams,
+                           total_steps=spec["total_steps"],
+                           mesh=jax_make_mesh(shape, jax.devices()[:n]))
+        metrics = [jt.train_step(b) for b in bs]
+        return {"loss": [float(m["loss"]) for m in metrics],
+                "flags": [(float(m.get("loss_scale", -1.0)), bool(m.get("overflow", False)))
+                          for m in metrics],
+                "fingerprint": jt.plan.fingerprint(),
+                "eval_loss": jt.evaluate(torch.load(eval_path, weights_only=False))[1]}
+    finally:  # the JAX trainer leaves its compute mesh set (trainer.py:68)
+        set_compute_mesh(None)
 
 
 @pytest.fixture(scope="module")

@@ -10,8 +10,11 @@ which imports no JAX).
     (load_hf_params_sharded) and trains to an export equal to the
     one-process CLI's at the same global batch;
   * load_hf_params_sharded's slices equal load_hf_params' tensors and the
-    JAX package's sharded load, shard for shard.
+    JAX package's sharded load, shard for shard;
+  * the scan layouts run under fsdp (the "auto" scan at 12 layers, the CLI
+    with --scan_layers on); --sparse_from_plan is refused on an fsdp mesh.
 """
+import dataclasses
 import json
 
 import jax
@@ -22,7 +25,7 @@ import torch
 import torch_dp_ranks as ranks
 import torch_parity as tp
 from test_torch_fsdp import assert_state_close
-from test_torch_parallel import D1_RTOL, MODEL, N_WARMUP, _cfg, batches
+from test_torch_parallel import D1_RTOL, D1_RTOL_INT8, MODEL, N_WARMUP, _cfg, batches
 from test_cli import tiny_hf_dir  # noqa: F401
 from test_torch_parallel_eval import _fine_tune_args, tiny_hf  # noqa: F401
 
@@ -124,31 +127,66 @@ def test_sharded_load_is_slices_of_the_full_load(f, tiny_hf_dir):  # noqa: F811
 
 
 @pytest.mark.parametrize("what", ["auto at depth", "scan_layers on", "sparse_from_plan"])
-def test_scan_layouts_refused_under_fsdp(what):
-    """The scan state under fsdp is a later slice: the trainer refuses
-    --scan_layers on and the "auto" scan of channel + int8 at 12 layers
-    (whose per-layer path would compute something other than JAX's scan)
-    by name, and the continuation's entry refuses any fsdp mesh; the config
-    refuses the flags it can see (tests/test_torch_parallel.py)."""
-    import dataclasses
+def test_scan_layouts_refused_under_fsdp(what, tiny_hf, tmp_path):  # noqa: F811
+    """The scan layouts run under fsdp: the "auto" scan of channel + int8
+    at 12 layers over two gloo ranks at (1, 2, 1) against one process (the
+    int8 scan state, its host store of slices), and `cli.fine_tune
+    --scan_layers on` under torchrun's environment without --mesh_shape
+    (JAX's default (1, 2, 1)) against the one-process CLI. The
+    continuation's entry (--sparse_from_plan) stays refused on any fsdp
+    mesh: JAX's runs on one device (tests/test_torch_parallel.py has the
+    config's refusal)."""
     from sparse_matrix_tuning_tpu_torch.config import SMTConfig
     from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
     from sparse_matrix_tuning_tpu_torch.parallel.mesh import Mesh
     from sparse_matrix_tuning_tpu_torch.smt.plan import SMTPlan
     from sparse_matrix_tuning_tpu_torch.train.trainer import SMTTrainer
-    mesh = Mesh((1, 2, 1), 0, torch.device("cpu"))
-    deep = LlamaConfig(**{**MODEL, "num_hidden_layers": 12})
     if what == "sparse_from_plan":
-        with pytest.raises(NotImplementedError, match=r"sparse_scan_from_hf.*\(1, 2, 1\)"):
+        mesh = Mesh((1, 2, 1), 0, torch.device("cpu"))
+        deep = LlamaConfig(**{**MODEL, "num_hidden_layers": 12})
+        with pytest.raises(NotImplementedError,
+                           match=r"sparse_scan_from_hf.*\(1, 2, 1\).*runs on one device"):
             SMTTrainer.sparse_scan_from_hf(SMTConfig(**_cfg("channel")), "unused",
                                            SMTPlan("channel"), 4, model_cfg=deep, mesh=mesh)
         return
-    cfg = SMTConfig(**_cfg("channel", frozen_quant="int8"))
     if what == "scan_layers on":
-        cfg = dataclasses.replace(cfg, scan_layers="on")
-        deep = LlamaConfig(**MODEL)
-    match = ("--scan_layers on" if what == "scan_layers on" else
-             r"--channel_sparsity --frozen_quant int8 at 12 layers \(scan_layers auto\)") + \
-        r" on mesh \(1, 2, 1\).*--mesh_shape 2,1,1"
-    with pytest.raises(NotImplementedError, match=match):
-        SMTTrainer(cfg, deep, {}, 4, device="cpu", mesh=mesh)
+        from sparse_matrix_tuning_tpu_torch.cli.fine_tune import main
+        from sparse_matrix_tuning_tpu_torch.models.hf_io import read_safetensors
+        argv = _fine_tune_args(tiny_hf, tmp_path / "f2", 2) + ["--scan_layers", "on"]
+        ranks.spawn(ranks.cli_ranks, 2, tmp_path, "sparse_matrix_tuning_tpu_torch.cli.fine_tune",
+                    argv, str(tmp_path))
+        got = [torch.load(tmp_path / f"cli.{r}.pt", weights_only=False)["result"]
+               for r in range(2)]
+        want = main(_fine_tune_args(tiny_hf, tmp_path / "d1", 4) + ["--scan_layers", "on"])
+        assert got[0] == got[1] and len(got[0]["train_loss"]) == 3
+        np.testing.assert_allclose(got[0]["train_loss"], want["train_loss"], rtol=D1_RTOL, atol=0)
+        np.testing.assert_allclose(got[0]["eval_loss"], want["eval_loss"], rtol=D1_RTOL, atol=0)
+        f2, d1 = tmp_path / "f2" / "final", tmp_path / "d1" / "final"
+        assert (f2 / "smt_plan.json").read_text() == (d1 / "smt_plan.json").read_text()
+        a, b = (read_safetensors(str(p / "model.safetensors")) for p in (f2, d1))
+        assert set(a) == set(b)
+        for k in b:
+            assert_state_close(k, a[k], b[k], adam_bound=2 * 3 * 1e-3)
+        return
+    jcfg = JaxLlamaConfig.tiny(vocab_size=256)
+    params = tp.port_params(jax_init_params(jax.random.PRNGKey(0),
+                                            dataclasses.replace(jcfg, num_hidden_layers=12)))
+    torch.save(params, tmp_path / "params.pt")
+    torch.save(batches(N_WARMUP + 2), tmp_path / "batches.pt")
+    torch.save(batches(1, seed=9), tmp_path / "eval.pt")
+    spec = {"name": "auto", "cfg": _cfg("channel", frozen_quant="int8"),
+            "model": {**MODEL, "num_hidden_layers": 12}, "total_steps": N_WARMUP + 2,
+            "params": str(tmp_path / "params.pt"), "batches": str(tmp_path / "batches.pt"),
+            "eval_batches": str(tmp_path / "eval.pt")}
+    ranks.spawn(ranks.train_ranks, 2, tmp_path, [spec], str(tmp_path), SHAPE)
+    got = [torch.load(tmp_path / f"auto.{r}.pt", weights_only=False) for r in range(2)]
+    one = ranks.run_scenario(spec)
+    for r, g in enumerate(got):
+        assert "error" not in g, f"rank {r}: {g['error']}"
+        assert (g["scan"], g["int8"], g["host_frozen"], g["phase"]) == (True, True, True, "sparse")
+        assert g["fingerprint"] == one["fingerprint"] and g["metrics"] == got[0]["metrics"]
+        host = {k: v for k, v in g["shard_bytes"][1].items() if k.startswith("host/")}
+        assert host and all(d is not None and 2 * here == full
+                            for d, here, full in host.values()), host
+    np.testing.assert_allclose([m["loss"] for m in got[0]["metrics"]],
+                               [m["loss"] for m in one["metrics"]], rtol=D1_RTOL_INT8, atol=0)

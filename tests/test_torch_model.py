@@ -12,6 +12,7 @@ import torch
 import torch_parity as tp
 
 from sparse_matrix_tuning_tpu.models import llama as jllama
+from sparse_matrix_tuning_tpu.parallel.mesh import make_mesh, set_compute_mesh
 from sparse_matrix_tuning_tpu_torch.models import llama
 
 JAX_CFG = jllama.LlamaConfig.tiny()
@@ -19,10 +20,19 @@ CFG = llama.LlamaConfig.tiny()
 TOL = 2e-4
 
 
-@pytest.fixture(scope="module")
-def weights():
+def _weights():
+    """The JAX weights and the port's copy, with JAX's compute mesh reset
+    first: a JAX SMTTrainer built on a mesh earlier in this process (the
+    multi-process tests' references) leaves it set (trainer.py:68), and
+    JAX's fullk forward reads it (models/llama.py:235-238)."""
+    set_compute_mesh(None)
     jp = jllama.init_params(jax.random.PRNGKey(0), JAX_CFG)
     return jp, tp.port_params(jp)
+
+
+@pytest.fixture(scope="module")
+def weights():
+    return _weights()
 
 
 def _inputs(seed=0, b=2, s=12):
@@ -126,6 +136,19 @@ def test_fullk_forward_matches_jax_fullk_and_einsum(weights):
     einsum = jllama.forward(jp, jnp.asarray(ids), JAX_CFG, attention_mask=jnp.asarray(mask))
     tp.assert_close(got[0], einsum[0], TOL, TOL)
     tp.assert_close(got[1, :9], einsum[1, :9], TOL, TOL)
+
+
+def test_fullk_parity_after_a_jax_mesh_was_left_set():
+    """The fullk parity above, after a (1, 4, 1) compute mesh was left set
+    in this process, as a JAX trainer on that mesh leaves it: the module's
+    weights fixture resets it (with the mesh left set, JAX's fullk falls
+    back to the einsum for batch 2 on 4 devices and the pad rows differ)."""
+    set_compute_mesh(make_mesh((1, 4, 1), jax.devices()[:4]))
+    jax.clear_caches()  # the mesh is read when the JAX forward is traced
+    try:
+        test_fullk_forward_matches_jax_fullk_and_einsum(_weights())
+    finally:
+        set_compute_mesh(None)
 
 
 @pytest.mark.parametrize("impl,head_dim,device,want", [

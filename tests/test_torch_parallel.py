@@ -35,6 +35,7 @@ from sparse_matrix_tuning_tpu.config import SMTConfig as JaxSMTConfig
 from sparse_matrix_tuning_tpu.models.llama import LlamaConfig as JaxLlamaConfig
 from sparse_matrix_tuning_tpu.models.llama import init_params as jax_init_params
 from sparse_matrix_tuning_tpu.parallel.mesh import make_mesh as jax_make_mesh
+from sparse_matrix_tuning_tpu.parallel.mesh import set_compute_mesh
 from sparse_matrix_tuning_tpu.train.trainer import SMTTrainer as JaxSMTTrainer
 from sparse_matrix_tuning_tpu_torch.config import SMTConfig, parse_args
 from sparse_matrix_tuning_tpu_torch.data.sft import shard_batch
@@ -154,16 +155,19 @@ def runs(tmp_path_factory):
         if SCENARIOS[name][3]:
             # a fresh copy: the JAX trainer donates its params
             jparams = jax_init_params(jax.random.PRNGKey(0), JAX_CFG)
-            jt = JaxSMTTrainer(JaxSMTConfig(**spec["cfg"]), JAX_CFG, jparams,
-                               total_steps=spec["total_steps"],
-                               mesh=jax_make_mesh((D, 1, 1), jax.devices()[:D]))
-            metrics = [jt.train_step(b) for b in jax_batches[name]]
-            jax_run = {"loss": [float(m["loss"]) for m in metrics],
-                       "flags": [(float(m.get("loss_scale", -1.0)), bool(m.get("overflow", False)))
-                                 for m in metrics],
-                       "fingerprint": jt.plan.fingerprint(),
-                       "eval_loss": jt.evaluate(torch.load(tmp / "eval.pt",
-                                                           weights_only=False))[1]}
+            try:
+                jt = JaxSMTTrainer(JaxSMTConfig(**spec["cfg"]), JAX_CFG, jparams,
+                                   total_steps=spec["total_steps"],
+                                   mesh=jax_make_mesh((D, 1, 1), jax.devices()[:D]))
+                metrics = [jt.train_step(b) for b in jax_batches[name]]
+                jax_run = {"loss": [float(m["loss"]) for m in metrics],
+                           "flags": [(float(m.get("loss_scale", -1.0)),
+                                      bool(m.get("overflow", False))) for m in metrics],
+                           "fingerprint": jt.plan.fingerprint(),
+                           "eval_loss": jt.evaluate(torch.load(tmp / "eval.pt",
+                                                               weights_only=False))[1]}
+            finally:  # the JAX trainer leaves its compute mesh set (trainer.py:68)
+                set_compute_mesh(None)
         out[name] = {"ranks": got, "d1": one, "jax": jax_run}
     return out
 
@@ -280,14 +284,14 @@ def test_shard_batch_carries_global_microbatch_counts():
 
 
 @pytest.mark.parametrize("shape,err,match", [
-    ((1, 2, 1), None, "--scan_layers on and --sparse_from_plan with fsdp 2"),
+    ((1, 2, 1), None, "--sparse_from_plan with fsdp 2 .* runs on one device"),
     ((1, 1, 2), NotImplementedError, "tensor 2 not yet ported"),
     ((2, 2, 1), None, "with fsdp 2 .* use --mesh_shape 4,1,1"),
 ])
 def test_sharded_axes_refused(shape, err, match):
-    """The tensor axis is refused; the fsdp axis is taken, but not with a
-    scan layout (the "auto" scan at depth is the trainer's refusal,
-    tests/test_torch_fsdp_io.py)."""
+    """The tensor axis is refused; the fsdp axis is taken, with the scan
+    layouts too, but not with --sparse_from_plan, whose JAX entry runs on
+    one device (tests/test_torch_fsdp_io.py runs the scan layouts)."""
     if err is not None:
         with pytest.raises(err, match=match):
             refuse_sharded_axes(shape)
@@ -296,6 +300,7 @@ def test_sharded_axes_refused(shape, err, match):
         return
     refuse_sharded_axes(shape)
     assert SMTConfig(mesh_shape=list(shape)).mesh_shape == list(shape)
+    assert SMTConfig(mesh_shape=list(shape), scan_layers="on").scan_layers == "on"
     with pytest.raises(NotImplementedError, match=match):
         SMTConfig(mesh_shape=list(shape), scan_layers="on", sparse_from_plan="plan.json")
     with pytest.raises(NotImplementedError, match="--sparse_from_plan with"):
@@ -310,8 +315,10 @@ def test_config_mesh_refusals(monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "2")
     flags = ["--data_path", "x", "--model_name_or_path", "m"]
     assert parse_args(flags).mesh_shape == [1, 2, 1]  # JAX's default mesh: every rank on fsdp
-    with pytest.raises(NotImplementedError, match="--scan_layers on with fsdp 2"):
-        parse_args(flags + ["--scan_layers", "on"])
+    scan = parse_args(flags + ["--scan_layers", "on"])  # the scan layouts train under fsdp
+    assert (scan.mesh_shape, scan.scan_layers) == ([1, 2, 1], "on")
+    with pytest.raises(NotImplementedError, match="--sparse_from_plan with fsdp 2"):
+        parse_args(flags + ["--sparse_from_plan", "plan.json"])
     # the shape against the world is make_mesh's check, at the launch
     assert parse_args(flags + ["--mesh_shape", "4,1,1"]).mesh_shape == [4, 1, 1]
     assert parse_args(flags + ["--mesh_shape", "2", "1", "1"]).mesh_shape == [2, 1, 1]

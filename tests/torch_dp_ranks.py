@@ -78,13 +78,16 @@ def full_state(trainer):
 
 def shard_bytes(trainer):
     """{state path: (dim, bytes here, the full leaf's bytes)} of the
-    state's tensors (under fsdp; {} without)."""
+    state's tensors and of the host store ("host/{key}") (under fsdp; {}
+    without)."""
     sh = trainer.sharding
     if sh is None:
         return {}
+    leaves = {**state_leaves(trainer),
+              **{f"host/{k}": t for k, t in (trainer._host_frozen or {}).items()}}
     return {k: (sh.dim(k), t.numel() * t.element_size(),
                 int(torch.Size(sh.full_shape(k, t)).numel()) * t.element_size())
-            for k, t in state_leaves(trainer).items()}
+            for k, t in leaves.items()}
 
 
 def run_scenario(spec, mesh=None):
@@ -92,7 +95,11 @@ def run_scenario(spec, mesh=None):
     the plan's fingerprint, the eval loss, the state's leaf checksums, the
     all-reduce's counters, the whole final state (full_state) and, under
     fsdp, the bytes of the shards after the warm-up and at the end
-    (shard_bytes) and the most gathered layers alive at once."""
+    (shard_bytes) and the most gathered layers alive at once; with
+    spec["export"] the merged params of the HF export (trainer.
+    merged_params, collective under fsdp), flat, and over the int8 scan
+    state the decode params' head and int8 layers (trainer.decode_params,
+    collective too)."""
     from sparse_matrix_tuning_tpu_torch.parallel import fsdp
     trainer = build_trainer(spec, mesh)
     batches = torch.load(spec["batches"], weights_only=False)
@@ -107,7 +114,13 @@ def run_scenario(spec, mesh=None):
             m["reduced_bytes"] = mesh.stats["bytes"] - before["bytes"]
         metrics.append(m)
     eval_loss = trainer.evaluate(torch.load(spec["eval_batches"], weights_only=False))[1]
-    return {"metrics": metrics, "fingerprint": trainer.plan.fingerprint(),
+    export = flatten_tree(trainer.merged_params()) if spec.get("export") else None
+    decode = None
+    if spec.get("export") and trainer._scan and "q" in trainer.state:
+        p = trainer.decode_params()   # collective under fsdp
+        decode = flatten_tree({"lm_head": p["lm_head"], "q": p["layers_q8"]["q"],
+                               "t": p["layers_q8"]["t"], "base": p["layers_q8"]["base"]})
+    return {"metrics": metrics, "export": export, "decode": decode, "fingerprint": trainer.plan.fingerprint(),
             "full": full_state(trainer), "shard_bytes": (warm_bytes, shard_bytes(trainer)),
             "live_peak": fsdp.LIVE["peak"],
             "n_master": n_master,
@@ -166,7 +179,11 @@ def checkpoint_ranks(rank: int, world: int, store: str, spec, stop: int, out_dir
                                build_trainer(spec, other))
         except ValueError as e:
             refusal = str(e)
+    hosts = [t._host_frozen or {} for t in (straight, resumed)]
     torch.save({"refusal": refusal, "straight": [x[0] for x in s_steps], "resumed": [x[0] for x in r_steps],
+                "host_equal": hosts[0].keys() == hosts[1].keys() and all(
+                    torch.equal(hosts[0][k], hosts[1][k]) for k in hosts[0]),
+                "host_keys": sorted(hosts[0]),
                 "straight_sums": [x[1] for x in s_steps],
                 "resumed_sums": [x[1] for x in r_steps],
                 "saved_phase": saved_phase, "phase": resumed.phase,
