@@ -149,7 +149,22 @@ Phases, in order; any failure raises and the exit code is non-zero:
      each rank's warm-up peak at least FSDP_PEAK_GAIN_GIB under P's; FE,
      rank 0's export equal to the gathered state on each rank; FN, the
      fsdp collectives and fsdp.gather's forward and backward through
-     NCCL (PN's rank), exact.
+     NCCL (PN's rank), exact;
+ 14. the tensor axis (in the same spawns as P and F0; `--only tp` runs
+     the build, A and these; parallel/tensor.py): T0, the tiny pair in
+     fp32 and fp16 at (1, 1, 2) over the two gloo ranks and at (1, 2, 2)
+     over four, against one process (fp32 at P0's bounds; fp16 losses
+     within P0_INT8_RTOL, the same loss scales and overflow flags), K1,
+     K2 and K3 launched on every rank, each rank 1/T of every tensor-split
+     leaf; T, A's path at (1, 1, 2) at A's global batch (every TinyLlama
+     layer, K3 on each rank's 16 query and 2 kv heads), held to A at P's
+     bounds, with per rank the ms/step, the tensor all-reduces' and
+     all-gathers' bytes and calls a step, the state's bytes against A's
+     whole state, the peaks beside P's, F's and A's, the launches and the
+     blocks where T's plan leaves A's; TE, T's export equal to one
+     process's export of the gathered state (the plan's one-process
+     scatter of the gathered trainables); TN (`--only nccl` on four
+     cards), T0 and T over NCCL at (1, 2, 2).
 Before the references, K6 (the int4 unpack-matmul) runs at eight shapes
 (K6_SHAPES: the TinyLlama linears at the eval decode's 64 rows, 16 and a
 ragged 7, Llama-3-8B's gate) and on the layer views of a stack (K6s),
@@ -166,7 +181,8 @@ checks and the tiny int8 reference; `--only q4` after
 the build, the K6 checks and the tiny quantized generation; `--only attn`
 after the build and the K3 / K7 checks; `--only sparse` after the build and
 the K1 / K2 / K5 checks; `--only scan` runs the build, the tiny 12-layer
-channel int8 reference, J and R; none of them prints a result.
+channel int8 reference, J and R; `--only tp` the build, A, T0, T and TE;
+none of them prints a result.
 """
 
 from __future__ import annotations
@@ -2135,7 +2151,7 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
                 {k: sh.full(k, t) for k, t in leaves.items()}
         elif sh is not None:
             sums = gather_objects(leaf_checksums(leaves), mesh)
-            f = mesh.fsdp
+            f = mesh.fsdp * mesh.tensor   # the ranks of data index 0 hold each slice once
             if any(sums[r] != sums[r % f] for r in range(mesh.world)):
                 raise AssertionError(f"{what}: the leaf checksums differ within a data group")
             summary["checksums"] += len(leaves)
@@ -2184,6 +2200,9 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
             snap["params"] = {li: {m: w.to("cpu") for m, w in layer.items()}
                               for li, layer in at_conversion["layers"].items()}
             snap["lm_head"] = at_conversion["lm_head"].to("cpu")
+            if mesh is not None and mesh.tensor > 1:   # TE's reference: the rest as well
+                snap["top"] = {k: w.to("cpu") for k, w in at_conversion.items()
+                               if k != "layers"}
             del at_conversion
             if keep_state:
                 trainer.maybe_convert()
@@ -2325,6 +2344,8 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
     summary["export_tensors_equal"] = export
     if whole is not None:
         summary["fse_tensors"] = one_process_export_equal(trainer, merged, whole)
+    if mesh is not None and mesh.tensor > 1:
+        summary["te_tensors"] = tensor_export_equal(trainer, merged, snap)
     del whole
     if keep_state:
         summary["change"] = {k: trainer.state["trainable"][k].detach().to("cpu") - t
@@ -2345,17 +2366,21 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
 def state_bytes(trainer):
     """The state's tensor bytes on this rank and those of the full leaves:
     {"here", "full"} over every leaf, {"split_here", "split_full"} over
-    the fsdp-sharded ones (here = full without fsdp), and {"host_here",
-    "host_full"} over the host store of frozen weights (the scan state's
-    under fsdp: this rank's slices)."""
+    the sharded ones (fsdp or tensor; here = full without either),
+    {"tsplit_here", "tsplit_full"} over the tensor-split ones ("tslice":
+    their tensor slices gathered over fsdp, 1/T of the whole), and
+    {"host_here", "host_full"} over the host store of frozen weights (the
+    scan state's under fsdp: this rank's slices)."""
+    import numpy as np
     from sparse_matrix_tuning_tpu_torch.models.llama import flatten_tree
     sh = trainer.sharding
-    out = dict.fromkeys(("here", "full", "split_here", "split_full", "host_here", "host_full"),
-                        0)
+    out = dict.fromkeys(("here", "full", "split_here", "split_full", "tsplit_here",
+                         "tsplit_full", "tslice", "host_here", "host_full"), 0)
 
     def full_of(k, t):
         here = t.numel() * t.element_size()
-        return here, (here if sh is None or sh.dim(k) is None else here * sh.f)
+        return here, (here if sh is None else
+                      int(np.prod(sh.full_shape(k, t), dtype=np.int64)) * t.element_size())
 
     for k, t in flatten_tree({k: v for k, v in trainer.state.items() if k != "sched"}).items():
         here, full = full_of(k, t)
@@ -2364,6 +2389,11 @@ def state_bytes(trainer):
         if full != here:
             out["split_here"] += here
             out["split_full"] += full
+        if sh is not None and sh.tdim(k) is not None:
+            out["tsplit_here"] += here
+            out["tsplit_full"] += full
+            # the rank's tensor slice, gathered over fsdp: 1/T of the leaf
+            out["tslice"] += here * (sh.f if sh.dim(k) is not None else 1)
     for k, t in (trainer._host_frozen or {}).items():
         here, full = full_of(f"host/{k}", t)
         out["host_here"] += here
@@ -2394,6 +2424,31 @@ def one_process_export_equal(trainer, merged, whole):
             raise AssertionError(f"FSE: the fsdp export's {k} differs from one process's export "
                                  "of the gathered state")
     del host
+    return len(one)
+
+
+def tensor_export_equal(trainer, merged, snap):
+    """TE: the export under the tensor axis (merged_params: the dense
+    weights gathered over both axes, whose blocks each rank wrote into its
+    two-axis slice) against what one process exports from the same
+    training: the weights gathered at conversion (snap, taken before any
+    sparse step) with the final trainables, gathered, scattered in by the
+    plan's one-process scatter; every tensor must be equal bit for bit.
+    Returns the number of tensors compared."""
+    import torch
+    from sparse_matrix_tuning_tpu_torch.models.llama import flatten_tree
+    sh = trainer.sharding
+    layers = {li: {m: w.to(trainer.device, copy=True) for m, w in layer.items()}
+              for li, layer in snap["params"].items()}
+    trainable = {k: sh.full(f"trainable/{k}", t) for k, t in trainer.state["trainable"].items()}
+    trainer.plan.scatter(layers, trainable)
+    got, one = flatten_tree(merged), flatten_tree({**snap["top"], "layers": layers})
+    if set(one) != set(got):
+        raise AssertionError(f"TE: export keys differ: {sorted(set(one) ^ set(got))[:6]}")
+    for k, t in one.items():
+        if not torch.equal(got[k].to("cpu"), t.to("cpu")):
+            raise AssertionError(f"TE: the tensor-parallel export's {k} differs from one "
+                                 "process's export of the gathered state")
     return len(one)
 
 
@@ -3890,7 +3945,10 @@ def dp_rank(rank, world, port, jobs, out_dir, shape=None, backend="gloo"):
     (1, world, 1) mesh, the fsdp axis (or `shape` where given): ("F0",
     frozen_quant) the tiny fp32 pair at bs 4 / world a rank, ("F", (layers,
     export_dir)) TinyLlama as run A at A's global batch with the export
-    (FE). Writes {out_dir}/dp.{rank}.pt."""
+    (FE); and over a (1, world / 2, 2) mesh, the tensor axis: ("T0", dtype)
+    the tiny pair in fp32 or fp16, ("T", (layers, export_dir)) TinyLlama as
+    run A at A's global batch with the export (TE). Writes
+    {out_dir}/dp.{rank}.pt."""
     import torch
     import torch.distributed as dist
     _rank_setup()
@@ -3908,6 +3966,9 @@ def dp_rank(rank, world, port, jobs, out_dir, shape=None, backend="gloo"):
                                f"{out['gloo_cuda']['error']}")
     mesh = make_mesh((world, 1, 1), device=device) if shape is None else None
     fmesh = make_mesh(shape or (1, world, 1), device=device)
+    # the tensor axis: (1, world / 2, 2)
+    tmesh = make_mesh((1, world // 2, 2), device=device) \
+        if any(tag in ("T0", "T") for tag, _ in jobs) else None
     _time_collectives()
     for tag, arg in jobs:
         t0 = time.time()
@@ -3927,6 +3988,13 @@ def dp_rank(rank, world, port, jobs, out_dir, shape=None, backend="gloo"):
             cfg = LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": arg[0]})
             s = run_main_path(cfg, device, bs=4 // world, mesh=fmesh, out_dir=arg[1],
                               log_fn=(lambda m: log(f"[F rank {rank}] {m}")))
+        elif tag == "T0":
+            s = run_main_path(LlamaConfig.tiny(vocab_size=512), device,
+                              bs=4 // tmesh.batch_shards, mesh=tmesh, **{**P0_KW, "dtype": arg})
+        elif tag == "T":
+            cfg = LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": arg[0]})
+            s = run_main_path(cfg, device, bs=4 // tmesh.batch_shards, mesh=tmesh,
+                              out_dir=arg[1], log_fn=(lambda m: log(f"[T rank {rank}] {m}")))
         elif tag == "FS0":
             fsdp_mod.LIVE.update(now=0, peak=0)
             s = fs0_run(arg, device, 4 // world, fmesh)
@@ -3945,10 +4013,10 @@ def dp_rank(rank, world, port, jobs, out_dir, shape=None, backend="gloo"):
 
 
 def _job_key(tag, arg):
-    """Where dp_rank keeps a job's summary: "F", "FS:{mode}", or
+    """Where dp_rank keeps a job's summary: "F", "T", "FS:{mode}", or
     "{tag}:{arg}"."""
-    if tag == "F":
-        return "F"
+    if tag in ("F", "T"):
+        return tag
     return f"FS:{arg[1]}" if tag == "FS" else f"{tag}:{arg}"
 
 
@@ -4229,16 +4297,18 @@ def fn_collectives(rank, world, device):
     return {"mesh": mesh.shape, "cases": cases, "path": path, "stats": dict(mesh.stats)}
 
 
-def check_fsdp(ranks, refs, run_a, p, layers):
+def check_fsdp(ranks, refs, run_a, p, layers, t_layers):
     """F0 and F from the data-parallel spawn (two gloo ranks at (1, 2, 1))
     and F0 at (2, 2, 1) from a spawn of four, held against one process
     (hold_f0, hold_f): F with its export (FE) and each rank's warm-up peak
-    at least FSDP_PEAK_GAIN_GIB under P's. Returns rank 0's summaries."""
+    at least FSDP_PEAK_GAIN_GIB under P's; T0 and T (the tensor axis, at
+    (1, 1, 2) in the pair and T0 at (1, 2, 2) in the four; hold_t0,
+    hold_t). Returns rank 0's summaries."""
     t0 = time.time()
-    quad = _spawn(dp_rank, 4, [("F0", "none")] + [("FS0", n) for n in FS0_RUNS],
-                  after=((2, 2, 1),))
-    log(f"[F0] 4 gloo ranks on cuda:0 at (2, 2, 1), F0 and FS0: {time.time() - t0:.1f} s for "
-        "the spawn")
+    quad = _spawn(dp_rank, 4, [("F0", "none")] + [("FS0", n) for n in FS0_RUNS]
+                  + [("T0", d) for d in T0_DTYPES], after=((2, 2, 1),))
+    log(f"[F0] 4 gloo ranks on cuda:0 at (2, 2, 1), F0 and FS0, and T0 at (1, 2, 2): "
+        f"{time.time() - t0:.1f} s for the spawn")
     for fq in ("none", "int8"):
         hold_f0((1, 2, 1), fq, [r[f"F0:{fq}"] for r in ranks], refs)
     hold_f0((2, 2, 1), "none", [r["F0:none"] for r in quad], refs)
@@ -4247,6 +4317,11 @@ def check_fsdp(ranks, refs, run_a, p, layers):
             hold_fs0(shape, n, [r[f"FS0:{n}"] for r in got], refs[f"FS0:{n}"])
     f = [r["F"] for r in ranks]
     hold_f("F", (1, 2, 1), "gloo", f, run_a, layers, p)
+    # T0 and T: the tensor axis, at (1, 1, 2) in the pair and (1, 2, 2) in the quad
+    for shape, got in (((1, 1, 2), ranks), ((1, 2, 2), quad)):
+        for d in T0_DTYPES:
+            hold_t0(shape, d, [r[f"T0:{d}"] for r in got], refs)
+    hold_t("T", (1, 1, 2), "gloo", [r["T"] for r in ranks], run_a, t_layers, p, f)
     gib = 1024 ** 3
     for r in range(2):
         gain = (p[r]["peak"]["warmup"] - f[r]["peak"]["warmup"]) / gib
@@ -4255,7 +4330,9 @@ def check_fsdp(ranks, refs, run_a, p, layers):
                                  f"GiB is only {gain:.2f} GiB under P's (want "
                                  f">= {FSDP_PEAK_GAIN_GIB})")
     return {"F": f[0], "F0": ranks[0]["F0:none"], "F0 int8": ranks[0]["F0:int8"],
-            "F0 (2,2,1)": quad[0]["F0:none"],
+            "F0 (2,2,1)": quad[0]["F0:none"], "T": ranks[0]["T"],
+            **{f"T0 {d}": ranks[0][f"T0:{d}"] for d in T0_DTYPES},
+            **{f"T0 {d} (1,2,2)": quad[0][f"T0:{d}"] for d in T0_DTYPES},
             **{f"FS0 {n}": ranks[0][f"FS0:{n}"] for n in FS0_RUNS},
             **{f"FS0 {n} (2,2,1)": quad[0][f"FS0:{n}"] for n in FS0_RUNS},
             # every rank's FS summary, held to E, G and J when they have run (hold_fs)
@@ -4368,12 +4445,175 @@ def hold_f(tag, shape, backend, f, run_a, layers, p=None):
                              f"{a_norm.tolist()} by more than {P_GNORM_RTOL}")
 
 
+# T0: the tiny pair on a tensor mesh, fp32 (P0's bounds) and fp16 (the
+# int8 bound on the losses, the same overflow flags and scales)
+T0_DTYPES = ("fp32", "fp16")
+
+
+def hold_t0(shape, dtype, got, refs, tag="T0"):
+    """The tiny pair on a tensor mesh against one process: the same plan;
+    the ranks' losses equal; fp32 losses and grad norms within P0_RTOL,
+    fp16 losses within P0_INT8_RTOL with the same loss scales and overflow
+    flags; K1, K2 and K3 (their fp16 bodies under fp16) launched on every
+    rank; each rank's tensor-split leaves exactly 1/T of the whole."""
+    import numpy as np
+    fp16 = dtype == "fp16"
+    ref, rtol = refs["fp16" if fp16 else "none"], (P0_INT8_RTOL if fp16 else P0_RTOL)
+    fps = {g["plan"]["fingerprint"] for g in got} | {ref["plan"]["fingerprint"]}
+    if len(fps) != 1:
+        raise AssertionError(f"{tag} {shape} {dtype}: plan fingerprints differ: {fps}")
+    if any(g["loss"] != got[0]["loss"] for g in got):
+        raise AssertionError(f"{tag} {shape} {dtype}: the ranks' losses differ")
+    kernels = FP16_TRAIN_KERNELS if fp16 else TRAIN_KERNELS
+    needed = tuple(n for n in kernels if "dkdv_reduce" not in n)
+    t = shape[2]
+    for r, g in enumerate(got):
+        if not all(g["launches"][n] > 0 for n in needed):
+            raise AssertionError(f"{tag} {shape} {dtype} rank {r} did not launch every kernel: "
+                                 f"{g['launches']}")
+        for phase in ("build", "sparse"):
+            sb = g["state_bytes"][phase]
+            if not sb["tsplit_here"] or sb["tslice"] * t != sb["tsplit_full"] \
+                    or sb["full"] != ref["state_bytes"][phase]["full"]:
+                raise AssertionError(f"{tag} {shape} {dtype} rank {r}: not 1/{t} of the tensor-"
+                                     f"split leaves, or not the whole state: {sb}")
+    if fp16 and (got[0]["loss_scale"], got[0]["overflow"]) != (ref["loss_scale"],
+                                                                ref["overflow"]):
+        raise AssertionError(f"{tag} {shape} fp16: loss scales or overflow flags differ: "
+                             f"{got[0]['loss_scale']} {got[0]['overflow']} vs "
+                             f"{ref['loss_scale']} {ref['overflow']}")
+    norms, ref_norms = (np.array(x["warmup_grad_norm"] + x["grad_norm"]) for x in (got[0], ref))
+    np.testing.assert_allclose(got[0]["loss"] + [got[0]["eval_loss"]],
+                               ref["loss"] + [ref["eval_loss"]], rtol=rtol)
+    if not fp16:
+        np.testing.assert_allclose(norms, ref_norms, rtol=rtol)
+    worst = float(np.max(np.abs(np.array(got[0]["loss"]) - np.array(ref["loss"]))
+                         / np.abs(np.array(ref["loss"]))))
+    finite = np.isfinite(norms) & np.isfinite(ref_norms)
+    worst_norm = float(np.max(np.abs(norms - ref_norms)[finite] / ref_norms[finite]))
+    c = got[0]["collectives"]
+    log(f"[{tag}] tiny {dtype} at {shape}, {len(got)} ranks against one process at global "
+        f"batch 4 (rows 2-3 thinned): losses worst rel diff {worst:.2e}, grad norms "
+        f"{worst_norm:.2e} (bound {rtol} on {'the losses; grad norms reported' if fp16 else 'both'}"
+        f"); eval {got[0]['eval_loss']:.6f} vs {ref['eval_loss']:.6f}; same plan "
+        f"{ref['plan']['fingerprint'][:16]}; tensor MB / calls a step "
+        f"{[(round(x['tensor_bytes'] / 1e6, 2), x['tensor_calls']) for x in c]}; TE "
+        f"{got[0].get('te_tensors')} tensors; rank 0 launches {got[0]['launches']}")
+
+
+def hold_t(tag, shape, backend, t, run_a, layers, p=None, f=None):
+    """A's path on a tensor mesh against A (P's bounds: losses within 1e-3,
+    warm-up grad norms within 5e-2; the ranks' losses and plans equal; K1,
+    K2 and K3 launched on every rank; each rank's tensor-split leaves
+    exactly 1/T of the whole, the whole as A's; the export read back (TE's
+    first half) and equal to one process's export of the gathered state
+    (TE)); per rank the ms/step, the collectives' bytes and calls a step,
+    the state's bytes and the peaks beside P's and F's (where given) and
+    A's."""
+    import numpy as np
+    if any(x["loss"] != t[0]["loss"] or x["plan"] != t[0]["plan"] for x in t):
+        raise AssertionError(f"{tag}: the ranks' losses or plans differ")
+    n_t = shape[2]
+    for r, x in enumerate(t):
+        if not all(x["launches"][n] > 0 for n in TRAIN_KERNELS):
+            raise AssertionError(f"{tag} rank {r} did not launch every kernel: {x['launches']}")
+        if not x["export_tensors_equal"] or not x.get("te_tensors"):
+            raise AssertionError(f"{tag}E rank {r}: the export was not checked")
+        for phase in ("build", "sparse"):
+            sb = x["state_bytes"][phase]
+            if not sb["tsplit_here"] or sb["tslice"] * n_t != sb["tsplit_full"] \
+                    or sb["full"] != run_a["state_bytes"][phase]["full"]:
+                raise AssertionError(f"{tag} rank {r}: not 1/{n_t} of the tensor-split leaves, "
+                                     f"or not A's whole state: {sb} vs A's "
+                                     f"{run_a['state_bytes'][phase]}")
+    a_loss = run_a["loss"] + [run_a["eval_loss"]]
+    t_loss = t[0]["loss"] + [t[0]["eval_loss"]]
+    rel = np.abs(np.array(t_loss) - np.array(a_loss)) / np.abs(np.array(a_loss))
+    a_norm, t_norm = np.array(run_a["warmup_grad_norm"]), np.array(t[0]["warmup_grad_norm"])
+    rel_norm = np.abs(t_norm - a_norm) / a_norm
+    gib = 1024 ** 3
+    log(f"[{tag}] TinyLlama-1.1B bf16, {layers} layers, tensor {shape} over {len(t)} {backend} "
+        f"ranks x bs {4 // (shape[0] * shape[1])} x seq 512 (A's global batch), 3 warm-up + 4 "
+        f"sparse steps: losses {t_loss} vs A's {a_loss}, worst rel diff {float(rel.max()):.2e} "
+        f"(bound {P_VS_A_RTOL}); warm-up grad norms {t_norm.tolist()} vs A's {a_norm.tolist()}, "
+        f"worst rel diff {float(rel_norm.max()):.2e} (bound {P_GNORM_RTOL}); plan "
+        f"{t[0]['plan']['fingerprint'][:16]} on every rank, A's "
+        f"{run_a['plan']['fingerprint'][:16]} ({CARD['smi']})")
+    log_selection_margin(run_a, t[0], tag=tag)
+    n_warm = 3
+    for r, x in enumerate(t):
+        ms, c, sb = x["step_ms"], x["collectives"], x["state_bytes"]
+        log(f"[{tag}] rank {r}: warm-up ms/step {[round(v, 1) for v in ms[:n_warm]]}, sparse "
+            f"{[round(v, 1) for v in ms[n_warm:]]} (A: {[round(v, 1) for v in run_a['step_ms']]}"
+            f"); collective ms/step {[round(v, 1) for v in x['reduce_ms']]}; tensor all-reduced "
+            f"and gathered MB / calls a step "
+            f"{[(round(v['tensor_bytes'] / 1e6, 1), v['tensor_calls']) for v in c]}; fsdp "
+            f"gathered MB / calls {[(round(v['gather_bytes'] / 1e6, 1), v['gather_calls']) for v in c]}"
+            f"; reduce-scattered MB / calls "
+            f"{[(round(v['scatter_bytes'] / 1e6, 1), v['scatter_calls']) for v in c]}; grads "
+            f"all-reduced MB / calls {[(round(v['bytes'] / 1e6, 1), v['calls']) for v in c]}")
+        beside = {"A": run_a["peak"]}
+        if p is not None:
+            beside["P rank 0"] = p[0]["peak"]
+        if f is not None:
+            beside["F rank 0"] = f[0]["peak"]
+        log(f"[{tag}] rank {r}: state bytes here / full: warm-up "
+            f"{sb['build']['here'] / gib:.3f} / {sb['build']['full'] / gib:.3f} GiB "
+            f"(tensor-split leaves {sb['build']['tsplit_here']:,} / "
+            f"{sb['build']['tsplit_full']:,} B), sparse {sb['sparse']['here'] / gib:.3f} / "
+            f"{sb['sparse']['full'] / gib:.3f} GiB (tensor-split "
+            f"{sb['sparse']['tsplit_here']:,} / {sb['sparse']['tsplit_full']:,} B); peak GiB "
+            f"{ {k: round(v / gib, 2) for k, v in x['peak'].items() if v is not None} } beside "
+            + "; ".join(f"{who}'s { {k: round(v / gib, 2) for k, v in pk.items() if v is not None} }"
+                        for who, pk in beside.items())
+            + f"; launches K1 {x['launches']['block_grad']}, K2 {x['launches']['masked_adam']}, "
+            f"K3 fwd {x['launches']['attn_fwd']}, dK/dV {x['launches']['attn_bwd_dkdv']}; "
+            f"{x['seconds']:.1f} s")
+    log(f"[{tag}E] rank 0's export ({t[0]['export_tensors_equal']} tensors) read back on each "
+        f"rank equals the gathered state, and its {t[0]['te_tensors']} tensors equal one "
+        "process's export (the weights gathered at conversion, the final trainables gathered "
+        "and scattered in by the plan's one-process scatter) bit for bit")
+    if rel.max() > P_VS_A_RTOL:
+        raise AssertionError(f"{tag}: losses part from A's by {float(rel.max()):.2e} > "
+                             f"{P_VS_A_RTOL}")
+    if len(t_norm) != len(a_norm) or rel_norm.max() > P_GNORM_RTOL:
+        raise AssertionError(f"{tag}: warm-up grad norms {t_norm.tolist()} part from A's "
+                             f"{a_norm.tolist()} by more than {P_GNORM_RTOL}")
+
+
+def run_tensor(run_a, layers, refs=None):
+    """`--only tp`: the tensor axis over gloo ranks sharing the card, held
+    against A run here: T0 (the tiny pair, fp32 and fp16) at (1, 1, 2) in
+    the spawn of T (A's path at (1, 1, 2) with TE), and at (1, 2, 2) over
+    four ranks. Returns rank 0's summaries."""
+    from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
+    tiny = LlamaConfig.tiny(vocab_size=512)
+    refs = refs or {"none": run_main_path(tiny, "cuda", bs=4, **P0_KW),
+                    "fp16": run_main_path(tiny, "cuda", bs=4, **{**P0_KW, "dtype": "fp16"})}
+    t_dir = tempfile.mkdtemp(prefix="smoke_export_", dir=os.path.join(REPO, "build"))
+    t0 = time.time()
+    try:
+        pair = _spawn(dp_rank, 2, [("T0", d) for d in T0_DTYPES] + [("T", (layers, t_dir))],
+                      after=((1, 2, 1),))
+    finally:
+        shutil.rmtree(t_dir, ignore_errors=True)
+    log(f"[T] 2 gloo ranks on cuda:0 at (1, 1, 2), T0 and T: {time.time() - t0:.1f} s")
+    quad = _spawn(dp_rank, 4, [("T0", d) for d in T0_DTYPES], after=((2, 2, 1),))
+    for shape, got in (((1, 1, 2), pair), ((1, 2, 2), quad)):
+        for d in T0_DTYPES:
+            hold_t0(shape, d, [r[f"T0:{d}"] for r in got], refs)
+    hold_t("T", (1, 1, 2), "gloo", [r["T"] for r in pair], run_a, layers)
+    return {"T": pair[0]["T"], **{f"T0 {d}": pair[0][f"T0:{d}"] for d in T0_DTYPES},
+            **{f"T0 {d} (1,2,2)": quad[0][f"T0:{d}"] for d in T0_DTYPES}}
+
+
 def run_fsdp_nccl(run_a, layers):
     """`--only nccl` (two or more cards): the fsdp axis over NCCL, one rank
     a card, at (1, N, 1) and, with four cards, (2, 2, 1): FN0, the tiny
     fp32 pair against one process, and FN1, A's path against A, with its
-    export (hold_f0, hold_f); then FSN, the scan layouts at (1, N, 1)
-    against E and J (run_fsdp_scan)."""
+    export (hold_f0, hold_f); with four cards TN, the tensor axis at (1, N
+    / 2, 2) (TN0 the tiny pair, TN A's path; hold_t0, hold_t); then FSN,
+    the scan layouts at (1, N, 1) against E and J (run_fsdp_scan)."""
     import torch
     from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
     n = torch.cuda.device_count()
@@ -4393,10 +4633,39 @@ def run_fsdp_nccl(run_a, layers):
         for fq in ("none", "int8"):
             hold_f0(shape, fq, [r[f"F0:{fq}"] for r in ranks], refs, tag="FN0")
         hold_f("FN1", shape, "nccl", [r["F"] for r in ranks], run_a, layers)
+    if n >= 4:
+        run_tensor_nccl(run_a, layers, refs)
     # FSN: the scan layouts over NCCL at (1, N, 1), held to E and J run here
     run_e = run_main_path(LlamaConfig(**TINYLLAMA), "cuda", frozen_quant="int8")
     run_j = run_main_path(LlamaConfig(**TINYLLAMA), "cuda", mode="channel", frozen_quant="int8")
     run_fsdp_scan(run_e, run_j, layers, world=n, backend="nccl", tag="FSN")
+
+
+def run_tensor_nccl(run_a, layers, refs):
+    """TN (`--only nccl`, four cards or more): the tensor
+    axis over NCCL, one rank a card, at (1, N / 2, 2): TN0, the tiny pair
+    in fp32 and fp16 against one process, and TN, A's path against A with
+    its export (hold_t0, hold_t)."""
+    import torch
+    from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
+    n = torch.cuda.device_count()
+    tiny = LlamaConfig.tiny(vocab_size=512)
+    refs = dict(refs)
+    for key, dtype in (("none", "fp32"), ("fp16", "fp16")):
+        if key not in refs:
+            refs[key] = run_main_path(tiny, "cuda", bs=4, **{**P0_KW, "dtype": dtype})
+    shape = (1, n // 2, 2)
+    t_dir = tempfile.mkdtemp(prefix="smoke_export_", dir=os.path.join(REPO, "build"))
+    t0 = time.time()
+    try:
+        ranks = _spawn(dp_rank, n, [("T0", d) for d in T0_DTYPES] + [("T", (layers, t_dir))],
+                       after=((1, n, 1), "nccl"))
+    finally:
+        shutil.rmtree(t_dir, ignore_errors=True)
+    log(f"[TN] {n} NCCL ranks, one a card, at {shape}: {time.time() - t0:.1f} s")
+    for d in T0_DTYPES:
+        hold_t0(shape, d, [r[f"T0:{d}"] for r in ranks], refs, tag="TN0")
+    hold_t("TN", shape, "nccl", [r["T"] for r in ranks], run_a, layers)
 
 
 def run_fsdp_scan(run_e, run_j, layers, world=2, backend="gloo", tag="FS"):
@@ -4472,11 +4741,13 @@ def log_selection_margin(run_a, run_p, tag="P"):
         f"{spread.max():.2e} (max) of A's; " + "; ".join(lines))
 
 
-def run_data_parallel(run_a, d1, export_dir, p_layers, fs=True):
+def run_data_parallel(run_a, d1, export_dir, p_layers, fs=True, t_layers=None):
     """P0, P and PE in two gloo ranks on the one card (one spawn), held
     against one process: P0 against its tiny references run here, P
-    against A, PE against D1. Then PN over NCCL. Returns the rank-0
-    summaries."""
+    against A, PE against D1; in the same spawn the fsdp axis (F0, F, FS0,
+    FS) and the tensor axis (T0, T at t_layers, A's depth by default;
+    check_fsdp). Then PN over NCCL. Returns the rank-0 summaries."""
+    t_layers = p_layers if t_layers is None else t_layers
     import numpy as np
     from sparse_matrix_tuning_tpu_torch.data.sft import batch_iterator
     from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
@@ -4484,17 +4755,18 @@ def run_data_parallel(run_a, d1, export_dir, p_layers, fs=True):
     tiny = LlamaConfig.tiny(vocab_size=512)
     refs = {fq: run_main_path(tiny, "cuda", bs=4, frozen_quant=fq, **P0_KW)
             for fq in ("none", "int8")}
+    refs["fp16"] = run_main_path(tiny, "cuda", bs=4, **{**P0_KW, "dtype": "fp16"})
     refs.update({f"FS0:{n}": fs0_run(n, "cuda", 4) for n in FS0_RUNS})
     first = thin_rows(next(batch_iterator(synthetic_sft(24, 64, 512, 1), 4, 0, [64], 1234, 0)),
                       P0_KW["thin"])
     valid = (first["labels"][:, 1:] != -100).sum(axis=1)
     dirs = [tempfile.mkdtemp(prefix="smoke_export_", dir=os.path.join(REPO, "build"))
-            for _ in range(3)]
+            for _ in range(4)]
     jobs = [("P0", "none"), ("P0", "int8"), ("P", p_layers), ("PE", export_dir),
             ("F0", "none"), ("F0", "int8"), ("F", (p_layers, dirs[0]))] + \
         [("FS0", n) for n in FS0_RUNS] + \
         ([("FS", (p_layers, "matrix", dirs[1])), ("FS", (p_layers, "channel", dirs[2]))]
-         if fs else [])
+         if fs else []) + [("T0", d) for d in T0_DTYPES] + [("T", (t_layers, dirs[3]))]
     t0 = time.time()
     try:
         ranks = _spawn(dp_rank, 2, jobs)
@@ -4504,7 +4776,7 @@ def run_data_parallel(run_a, d1, export_dir, p_layers, fs=True):
     log(f"[dp] 2 ranks on cuda:0 over {ranks[0]['backend']} (NCCL refuses two ranks on one "
         f"device); gloo takes CUDA tensors for all_reduce and broadcast: "
         f"{[r['gloo_cuda'] for r in ranks]}; {time.time() - t0:.1f} s for the spawn and P0, P, "
-        f"PE, F0, F, FS0, FS ({CARD['smi']}); seconds by job on rank 0: "
+        f"PE, F0, F, FS0, FS, T0, T ({CARD['smi']}); seconds by job on rank 0: "
         f"{ {k: round(v['seconds'], 1) for k, v in ranks[0].items() if isinstance(v, dict) and 'seconds' in v} }")
     for fq, rtol in (("none", P0_RTOL), ("int8", P0_INT8_RTOL)):
         ref, got = refs[fq], [r[f"P0:{fq}"] for r in ranks]
@@ -4592,7 +4864,7 @@ def run_data_parallel(run_a, d1, export_dir, p_layers, fs=True):
         f"s (D1 {d1['wall_s']:.2f} s alone), peaks {[round(s['peak_gib'], 2) for s in pe]} GiB "
         f"(D1 {d1['peak_gib']:.2f}); K7 launches {[s['launches']['cached_attn'] for s in pe]}")
 
-    fsdp = check_fsdp(ranks, refs, run_a, p, p_layers)
+    fsdp = check_fsdp(ranks, refs, run_a, p, p_layers, t_layers)
 
     import torch
     n_cards = torch.cuda.device_count()
@@ -4619,16 +4891,18 @@ def main(argv=None):
     call for the conversion into the scan state and resume); `--only fp16`
     runs the build, the fp16 bodies' checks and the tiny fp16 references;
     `--only dp` the build, A with its export, D1, then P0, P, PE, F0, F, FE,
-    FS0, PN and FN (FS needs E, G and J: `--only fs`); `--only fs` the build, E and J, then FS0, FS and FSE
-    (run_fsdp_scan); `--only nccl` (two or more cards) the build, A, then the
-    fsdp axis over NCCL, one rank a card (run_fsdp_nccl, FSN among it); none
-    prints a result line. With no arguments every phase runs, on one card."""
+    FS0, T0, T, TE, PN and FN (FS needs E, G and J: `--only fs`); `--only fs` the build, E and J, then FS0, FS and FSE
+    (run_fsdp_scan); `--only tp` the build, A, then the tensor axis: T0, T
+    and TE (run_tensor); `--only nccl` (two or more cards) the build, A,
+    then the fsdp axis over NCCL, one rank a card (run_fsdp_nccl, FSN and,
+    on four cards, TN among it); none prints a result line. With no
+    arguments every phase runs, on one card."""
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--only", "q8"], ["--only", "q4"], ["--only", "attn"],
                     ["--only", "sparse"], ["--only", "scan"], ["--only", "fp16"],
-                    ["--only", "dp"], ["--only", "fs"], ["--only", "nccl"]):
+                    ["--only", "dp"], ["--only", "fs"], ["--only", "nccl"], ["--only", "tp"]):
         raise SystemExit("usage: python3 chip_smoke.py "
-                         "[--only q8|q4|attn|sparse|scan|fp16|dp|fs|nccl]")
+                         "[--only q8|q4|attn|sparse|scan|fp16|dp|fs|nccl|tp]")
     only = argv[1] if argv else None
     only_q8 = only == "q8"
     t_start = time.time()
@@ -4732,6 +5006,18 @@ def main(argv=None):
         run_fsdp_scan(run_e, run_j, model_cfg.num_hidden_layers)
         marks.append(("FS0, FS, FSE", time.time()))
         log("[smoke] --only fs: seconds by phase: " + ", ".join(
+            f"{name} {t - prev:.1f}" for (name, t), (_, prev)
+            in zip(marks, [("", t_start)] + marks)))
+        return
+    if only == "tp":
+        model_cfg = LlamaConfig(**TINYLLAMA)
+        run_a = run_main_path(model_cfg, "cuda")
+        report_run("A", "TinyLlama-1.1B bf16, bs 4 x seq 512, remat, attn auto (K3)", run_a, 3)
+        torch.cuda.empty_cache()
+        marks.append(("A", time.time()))
+        run_tensor(run_a, model_cfg.num_hidden_layers)
+        marks.append(("T0, T, TE", time.time()))
+        log("[smoke] --only tp: seconds by phase: " + ", ".join(
             f"{name} {t - prev:.1f}" for (name, t), (_, prev)
             in zip(marks, [("", t_start)] + marks)))
         return
@@ -5054,7 +5340,9 @@ def main(argv=None):
             "F0 int8": run_dp["F0 int8"]["launches"],
             "F0 (2,2,1)": run_dp["F0 (2,2,1)"]["launches"],
             **{f"FS {m}": ranks[0]["launches"] for m, ranks in run_dp["FS"].items()},
-            **{k: run_dp[k]["launches"] for k in run_dp if k.startswith("FS0 ")}}
+            **{k: run_dp[k]["launches"] for k in run_dp if k.startswith(("FS0 ", "T0 "))},
+            # rank 0 of the tensor runs (each rank launches on its heads and windows)
+            "T tensor": run_dp["T"]["launches"]}
     for k in kernels:
         k.setdefault("launches_by_run", {}).update(
             {tag: counts[k["name"]] for tag, counts in runs.items()

@@ -60,9 +60,21 @@ world of N takes JAX's default mesh, 1,N,1:
 The scan layouts train under fsdp too (--scan_layers on, and
 --channel_sparsity --frozen_quant int8 at 12 layers or more): each rank
 keeps its slices of the stacked state and of the host store of frozen
-weights. The tensor axis (--mesh_shape 1,1,N) is not ported and raises;
---sparse_from_plan with fsdp above 1 raises too: the JAX package's entry
-runs on one device.
+weights. --sparse_from_plan with fsdp above 1 raises: the JAX package's
+entry runs on one device.
+
+--mesh_shape D,F,T with T > 1 adds the tensor axis (Megatron's column-
+and row-parallel linears, each rank attending over its hq/T query and
+hkv/T kv heads, a vocabulary-parallel head and loss) over D * F * T
+processes, for matrix mode over the dense base in the per-layer layout:
+
+  torchrun --nproc_per_node 2 -m sparse_matrix_tuning_tpu_torch.cli.fine_tune \
+      --matrix_sparsity --mesh_shape 1,1,2 ... (the flags above)
+
+T must divide the head counts, the intermediate width and the vocabulary
+of an untied Llama. --frozen_quant int8 (and --head_quant int8),
+--channel_sparsity, --scan_layers on, --dropout and --sparse_from_plan
+raise NotImplementedError by name under it.
 
 model_name_or_path must be a local HF checkpoint dir. Runs on the card
 (--device cuda, the default, raises when there is none); --device cpu runs
@@ -113,10 +125,12 @@ def main(argv=None):
         # Llama family exposes attention_dropout
         import dataclasses
         model_cfg = dataclasses.replace(model_cfg, attention_dropout=cfg.dropout)
-    params, param_dims = None, None  # --sparse_from_plan quantizes while it loads (below)
-    if not cfg.sparse_from_plan and mesh is not None and mesh.fsdp > 1:
+    params, param_sharding = None, None  # --sparse_from_plan quantizes while it loads (below)
+    if not cfg.sparse_from_plan and mesh is not None and (mesh.fsdp > 1 or mesh.tensor > 1):
+        from sparse_matrix_tuning_tpu_torch.parallel.mesh import refuse_tensor_model
+        refuse_tensor_model(model_cfg, mesh.tensor)
         from sparse_matrix_tuning_tpu_torch.models.hf_io import load_hf_params_sharded
-        params, param_dims = load_hf_params_sharded(cfg.model_name_or_path, mesh, model_cfg,
+        params, param_sharding = load_hf_params_sharded(cfg.model_name_or_path, mesh, model_cfg,
                                                     dtype=cfg.param_dtype, device=device)
     elif not cfg.sparse_from_plan:
         params = load_hf_params(cfg.model_name_or_path, model_cfg,
@@ -145,8 +159,8 @@ def main(argv=None):
                                                  total_steps, model_cfg=model_cfg,
                                                  device=device, **on_mesh)
     else:
-        if param_dims is not None:
-            on_mesh["param_dims"] = param_dims
+        if param_sharding is not None:
+            on_mesh["param_sharding"] = param_sharding
         trainer = SMTTrainer(cfg, model_cfg, params, total_steps, device=device, **on_mesh)
         del params
     if cfg.resume_from:

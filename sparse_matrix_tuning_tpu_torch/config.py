@@ -185,18 +185,21 @@ class SMTConfig:
                 + "; ".join(unported))
 
     def _check_mesh(self):
-        """--mesh_shape D,F,1 (D * F processes) is taken, the scan layouts
-        under fsdp too; tensor above 1 is refused by name when the config is
-        built, and so is --sparse_from_plan with F > 1: the JAX package's
-        entry (SMTTrainer.sparse_scan_from_hf) runs on one device, so it has
-        no sharded form (parallel/mesh.make_mesh holds the shape to the
-        world size)."""
+        """--mesh_shape D,F,T (D * F * T processes) is taken: the scan
+        layouts under fsdp; the tensor axis (T > 1) in matrix mode over the
+        dense base in the per-layer layout, what it does not run refused by
+        name when the config is built (parallel/mesh.refuse_sharded_axes;
+        the model's widths at the trainer, refuse_tensor_model); so is
+        --sparse_from_plan with F > 1: the JAX package's entry
+        (SMTTrainer.sparse_scan_from_hf) runs on one device, so it has no
+        sharded form (parallel/mesh.make_mesh holds the shape to the world
+        size)."""
         from sparse_matrix_tuning_tpu_torch.parallel.mesh import refuse_sharded_axes
         if not self.mesh_shape:
             self.mesh_shape = None
             return
         self.mesh_shape = parse_mesh_shape(self.mesh_shape)
-        refuse_sharded_axes(self.mesh_shape)
+        refuse_sharded_axes(self.mesh_shape, self)
         if self.mesh_shape[1] > 1 and self.sparse_from_plan:
             raise NotImplementedError(
                 f"--sparse_from_plan with fsdp {self.mesh_shape[1]} (mesh_shape "
@@ -322,9 +325,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--vocab_chunk", type=int, default=d.vocab_chunk)
     p.add_argument("--sparse_from_plan", type=str, default=None)
     p.add_argument("--mesh_shape", type=str, nargs="*", default=None,
-                   help="data,fsdp,tensor (or three numbers): D,F,1 trains over D*F processes "
-                        "(torchrun --nproc_per_node D*F), data-parallel over D and sharded "
-                        "over F; under torchrun the default is 1,WORLD_SIZE,1")
+                   help="data,fsdp,tensor (or three numbers): D,F,T trains over D*F*T "
+                        "processes (torchrun --nproc_per_node D*F*T), data-parallel over D, "
+                        "sharded over F and tensor-parallel over T (matrix mode over the "
+                        "dense base); under torchrun the default is 1,WORLD_SIZE,1")
     p.add_argument("--seq_buckets", type=int, nargs="*", default=None)
     p.add_argument("--resume_from", type=str, default=None)
     p.add_argument("--profile_dir", type=str, default=None)

@@ -65,18 +65,22 @@ def read_safetensor(path: str, base: int, info: Mapping[str, Any], name: str = "
 _WORDS = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
 
 
-def read_safetensor_slice(path: str, base: int, info: Mapping[str, Any], dim: int,
-                          index: int, parts: int) -> torch.Tensor:
-    """Slice `index` of `parts` equal slices along `dim` of one tensor of a
-    .safetensors file, as a CPU tensor: the file is mapped, and only the
-    slice's bytes are copied out."""
+def read_safetensor_block(path: str, base: int, info: Mapping[str, Any],
+                          cuts: Mapping[int, Tuple[int, int]]) -> torch.Tensor:
+    """The block of one tensor of a .safetensors file that takes, along
+    each dim d of `cuts`, slice index of `parts` equal slices (cuts {d:
+    (index, parts)}; the fsdp and tensor axes cut different dims), as a CPU
+    tensor: the file is mapped, and only the block's bytes are copied out."""
     dtype = _ST_DTYPES[info["dtype"]]
     shape = tuple(info["shape"])
     begin, _ = info["data_offsets"]
     words = _WORDS[torch.empty((), dtype=dtype).element_size()]
     whole = np.memmap(path, dtype=words, mode="r", offset=base + begin, shape=shape)
-    n = shape[dim] // parts
-    part = np.ascontiguousarray(np.take(whole, np.arange(index * n, (index + 1) * n), axis=dim))
+    index = [slice(None)] * len(shape)
+    for d, (i, parts) in cuts.items():
+        n = shape[d] // parts
+        index[d] = slice(i * n, (i + 1) * n)
+    part = np.array(whole[tuple(index)], copy=True, order="C")
     del whole
     return torch.from_numpy(part).view(dtype)
 
@@ -222,25 +226,27 @@ def load_hf_params(model_dir: str, cfg: Optional[LlamaConfig] = None,
 
 
 def load_hf_params_sharded(model_dir: str, mesh, cfg: Optional[LlamaConfig] = None,
-                           dtype=torch.bfloat16, device=None
-                           ) -> Tuple[Dict[str, Any], Dict[str, int]]:
-    """This rank's fsdp shards of a local HF checkpoint (the JAX package's
+                           dtype=torch.bfloat16, device=None) -> Tuple[Dict[str, Any], Any]:
+    """This rank's shards of a local HF checkpoint (the JAX package's
     load_hf_params_sharded): each tensor that parallel/fsdp.shard_dim
-    splits over mesh.fsdp is read as this rank's slice only
-    (read_safetensor_slice), the others whole, so no rank holds the full
-    model. Returns (params of `dtype` tensors on `device`, {state path
-    "master/...": dim} of the sharded leaves), SMTTrainer's `params` and
-    `param_dims`. The slices equal those of load_hf_params' tensors. A
-    .bin checkpoint is read whole on the host and sliced."""
+    splits over mesh.fsdp, or tensor_dim over mesh.tensor, is read as this
+    rank's block only (read_safetensor_block: tensor rows by fsdp columns,
+    or the reverse), the others whole, so no rank holds the full model.
+    Returns (params of `dtype` tensors on `device`, the parallel/fsdp.
+    Sharding whose dims and tdims name the split leaves' fsdp and tensor
+    dims by state path "master/..."), SMTTrainer's `params` and
+    `param_sharding`. The blocks equal
+    those of load_hf_params' tensors. A .bin checkpoint is read whole on
+    the host and sliced."""
     from sparse_matrix_tuning_tpu_torch.models.llama import tree_map
-    from sparse_matrix_tuning_tpu_torch.parallel.fsdp import Sharding, shard_dim
+    from sparse_matrix_tuning_tpu_torch.parallel.fsdp import Sharding
     cfg = cfg or load_hf_config(model_dir)
     sh = Sharding(mesh)
     st_files = sorted(x for x in os.listdir(model_dir) if x.endswith(".safetensors"))
     if not st_files:
         params = sh.shard_tree(load_hf_params(model_dir, cfg, dtype=dtype, device="cpu"),
                                "master")
-        return tree_map(lambda t: t.to(device), params), sh.dims
+        return tree_map(lambda t: t.to(device), params), sh
     entries: Dict[str, tuple] = {}
     for fname in st_files:
         fpath = os.path.join(model_dir, fname)
@@ -250,12 +256,15 @@ def load_hf_params_sharded(model_dir: str, mesh, cfg: Optional[LlamaConfig] = No
     def read(tree_path, name):
         fpath, base, info = entries[name]
         key = "master/" + "/".join(tree_path)
-        d = shard_dim(key, tuple(info["shape"]), None, sh.f)
-        if d is None:
-            t = read_safetensor(fpath, base, info, name)
-        else:
-            sh.dims[key] = d
-            t = read_safetensor_slice(fpath, base, info, d, mesh.fsdp_index, sh.f)
+        shape = tuple(info["shape"])
+        d, td = sh.split_dims(key, shape)
+        cuts = {}
+        if d is not None:
+            sh.dims[key], cuts[d] = d, (mesh.fsdp_index, sh.f)
+        if td is not None:
+            sh.tdims[key], cuts[td] = td, (mesh.tensor_index, sh.t)
+        t = read_safetensor_block(fpath, base, info, cuts) if cuts else \
+            read_safetensor(fpath, base, info, name)
         return t.to(device=device, dtype=dtype)
 
     params: Dict[str, Any] = {"layers": {}}
@@ -271,7 +280,7 @@ def load_hf_params_sharded(model_dir: str, mesh, cfg: Optional[LlamaConfig] = No
         # tied implicitly by omission: the head is the embedding, sharded
         # as a head
         params["lm_head"] = read(("lm_head",), "model.embed_tokens.weight")
-    return params, sh.dims
+    return params, sh
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,14 @@ runs the same decoder over the stacked layout of the scan state
 (train/scan_phase.py), an eager loop over layer views. Attention dropout
 (_attn_dropout) draws each layer's mask from a generator seeded by (seed,
 step, layer) (dropout_layer_seed), in the einsum attention.
+
+Under the tensor axis (parallel/tensor.py) a layer runs on its tensor
+slices of the weights: q/k/v/gate/up column-parallel (this rank's hq/T
+query and hkv/T kv heads, RoPE and attention, K3 among them, on those),
+o/down row-parallel with their partial outputs summed over the tensor
+group; the embedding lookup on this rank's hidden columns, gathered; the
+head's logits on this rank's vocabulary rows (the loss is vocabulary-
+parallel, ops/loss.py).
 """
 
 from __future__ import annotations
@@ -330,16 +338,27 @@ def _lin(lp: Mapping[str, torch.Tensor], h: torch.Tensor, name: str, linear,
 def _decoder_layer(lp: Mapping[str, torch.Tensor], x: torch.Tensor, mask_bias,
                    cos, sin, cfg: LlamaConfig, linear, layer_idx: int,
                    attn_impl: str = "einsum", dropout_seed: Optional[int] = None,
-                   dropout_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                   dropout_rows: Optional[Tuple[int, int]] = None,
+                   tensor=None) -> torch.Tensor:
+    """One decoder layer. tensor: the mesh of the tensor axis, when lp
+    holds this rank's tensor slices (module notes)."""
     b, s, _ = x.shape
-    h = _rms_norm(x, lp["input_layernorm"], cfg.rms_norm_eps)
+    hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    enter, leave = (lambda t: t), (lambda t: t)
+    if tensor is not None:
+        from sparse_matrix_tuning_tpu_torch.parallel.tensor import (
+            from_tensor_region, to_tensor_region)
+        hq, hkv = hq // tensor.tensor, hkv // tensor.tensor
+        enter = partial(to_tensor_region, mesh=tensor)
+        leave = partial(from_tensor_region, mesh=tensor)
+    h = enter(_rms_norm(x, lp["input_layernorm"], cfg.rms_norm_eps))
     q = _lin(lp, h, "q_proj", linear, layer_idx)
     k = _lin(lp, h, "k_proj", linear, layer_idx)
     v = _lin(lp, h, "v_proj", linear, layer_idx)
     hd = cfg.head_dim
-    q = q.reshape(b, s, cfg.num_attention_heads, hd)
-    k = k.reshape(b, s, cfg.num_key_value_heads, hd)
-    v = v.reshape(b, s, cfg.num_key_value_heads, hd)
+    q = q.reshape(b, s, hq, hd)
+    k = k.reshape(b, s, hkv, hd)
+    v = v.reshape(b, s, hkv, hd)
     q = _apply_rope(q, cos, sin)
     k = _apply_rope(k, cos, sin)
     # INVARIANT (fullk): the fused kernel ignores mask_bias and is exact only
@@ -353,12 +372,12 @@ def _decoder_layer(lp: Mapping[str, torch.Tensor], x: torch.Tensor, mask_bias,
         # draws the same mask
         attn = _attention(q, k, v, mask_bias, cfg.attention_dropout,
                           _dropout_rng(dropout_seed, q.device), dropout_rows=dropout_rows)
-    x = x + _lin(lp, attn, "o_proj", linear, layer_idx)
+    x = x + leave(_lin(lp, attn, "o_proj", linear, layer_idx))
 
-    h = _rms_norm(x, lp["post_attention_layernorm"], cfg.rms_norm_eps)
+    h = enter(_rms_norm(x, lp["post_attention_layernorm"], cfg.rms_norm_eps))
     gate = _lin(lp, h, "gate_proj", linear, layer_idx)
     up = _lin(lp, h, "up_proj", linear, layer_idx)
-    x = x + _lin(lp, F.silu(gate) * up, "down_proj", linear, layer_idx)
+    x = x + leave(_lin(lp, F.silu(gate) * up, "down_proj", linear, layer_idx))
     return x
 
 
@@ -407,7 +426,9 @@ def forward(params: Mapping[str, Any], input_ids: torch.Tensor, cfg: LlamaConfig
     checkpoint region, which every layer then runs in while gradients are
     recorded (whatever `remat` says: the backward gathers again, the full
     weights are never saved for it), and the embedding, final norm and
-    head where they are used."""
+    head where they are used. Under the tensor axis (fsdp.tensor, the
+    mesh) the layers compute on their tensor slices (module notes) and the
+    logits are this rank's vocabulary rows (B, S, V/T)."""
     if activation_taps is not None:
         b, s = input_ids.shape
         mask = attention_mask if attention_mask is not None else torch.ones(
@@ -495,10 +516,11 @@ def forward_scan(params: Mapping[str, Any], input_ids: torch.Tensor, cfg: LlamaC
 
 def _gathered_layer(fsdp, bundle, x, mask_bias, cos, sin, cfg, linear, layer_idx,
                     attn_impl, dropout_seed, dropout_rows):
-    """A layer over its gathered leaves (forward's fsdp)."""
+    """A layer over its gathered leaves (forward's fsdp), on its tensor
+    slices under the tensor axis."""
     lp, linear = fsdp.open(bundle, linear)
     return _decoder_layer(lp, x, mask_bias, cos, sin, cfg, linear, layer_idx, attn_impl,
-                          dropout_seed, dropout_rows)
+                          dropout_seed, dropout_rows, getattr(fsdp, "tensor", None))
 
 
 def _run(params, layers, input_ids, cfg: LlamaConfig, attention_mask, remat,
@@ -524,7 +546,11 @@ def _run(params, layers, input_ids, cfg: LlamaConfig, attention_mask, remat,
 
     top = (lambda name: params[name]) if fsdp is None else \
         (lambda name: fsdp.top(params, name))
+    tensor = getattr(fsdp, "tensor", None)
     x = F.embedding(input_ids, top("embed_tokens"))
+    if tensor is not None:  # this rank's hidden columns of the embedding
+        from sparse_matrix_tuning_tpu_torch.parallel.tensor import gather_from_tensor
+        x = gather_from_tensor(x, tensor)
 
     mask_bias = None  # the fused kernel takes no mask
     if attn_impl == "einsum":
@@ -554,6 +580,9 @@ def _run(params, layers, input_ids, cfg: LlamaConfig, attention_mask, remat,
         return x
     head = lm_head_weight(params, cfg) if fsdp is None else \
         fsdp.head(params, cfg.tie_word_embeddings)
+    if tensor is not None:  # this rank's vocabulary rows of the logits
+        from sparse_matrix_tuning_tpu_torch.parallel.tensor import to_tensor_region
+        x = to_tensor_region(x, tensor)
     return torch.matmul(x, head.t()).float()
 
 

@@ -18,6 +18,22 @@ Two heads share the one core (`_ChunkedLSELoss`):
 
 The last chunk is simply shorter where the JAX twin pads the vocabulary to
 the chunk multiple and masks the pad with -inf: the same sums.
+
+grad_hidden is summed as the JAX twin's autodiff sums it: its scan's
+transpose walks the chunks in reverse and carries the sum in the hidden
+states' dtype (fp16, bf16 or fp32), each chunk's term an fp32 product
+(the fp32 cotangent times the head chunk) cast to that dtype before it is
+added. The port does the same, so an fp16 or bf16 warm-up sums its
+grad_hidden as JAX does (tests/test_torch_tensor.py pins it against
+jax.grad of the JAX function).
+
+Under the tensor axis (parallel/tensor.py) the head holds this rank's V/T
+vocabulary rows: each rank walks its own chunks, then the running max is
+MAX-reduced over the tensor group, the rescaled sums of exps and the
+target logits (zero off the rank's rows) SUM-reduced, and the backward's
+grad_hidden is this rank's part, summed over the group by the
+to_tensor_region its caller put in front of the hidden states.
+vocab_parallel_causal_lm_loss is the full-logits form over the same split.
 """
 
 from __future__ import annotations
@@ -28,14 +44,26 @@ import torch
 
 from sparse_matrix_tuning_tpu_torch.ops.cuda.q8_matmul import q8mm_t
 from sparse_matrix_tuning_tpu_torch.ops.quant import q8_matmul, row_quant
+from sparse_matrix_tuning_tpu_torch.parallel.tensor import (
+    from_tensor_region, tensor_all_reduce)
 
 IGNORE_INDEX = -100
+
+
+def _combine_over_tensor(m, se, tgt, mesh):
+    """The running max, sum of exps and target logit of the whole
+    vocabulary from each rank's over its rows: MAX of the maxes, SUM of the
+    sums rescaled to it, SUM of the target logits (zero off a rank's rows)."""
+    m_all = tensor_all_reduce(m, mesh, "max")
+    st = tensor_all_reduce(torch.stack([se * torch.exp(m - m_all), tgt]), mesh, "sum")
+    return m_all, st[0], st[1]
 
 
 class _ChunkedLSELoss(torch.autograd.Function):
     """loss(h2 (T, D), labels (T,)) over an exact head (V, D) or, when
     head is None, the int8 head (wq, sw) with h2 already quantized to
-    (xq, sx)."""
+    (xq, sx). tensor: the mesh when the head holds this rank's vocabulary
+    rows from offset (module notes)."""
 
     @staticmethod
     def _chunk_logits(h2, head, wq, sw, xq, sx, lo, hi):
@@ -44,7 +72,8 @@ class _ChunkedLSELoss(torch.autograd.Function):
         return q8mm_t(xq, sx, wq[lo:hi], sw[lo:hi], torch.float32)
 
     @staticmethod
-    def forward(ctx, h2, labels, vocab_chunk, head, wq, sw, xq, sx, denom=None):
+    def forward(ctx, h2, labels, vocab_chunk, head, wq, sw, xq, sx, denom=None, tensor=None,
+                offset=0):
         v = head.shape[0] if head is not None else wq.shape[0]
         t = labels.reshape(-1).long()
         valid = t != IGNORE_INDEX
@@ -59,15 +88,17 @@ class _ChunkedLSELoss(torch.autograd.Function):
             new_m = torch.maximum(m, logits.amax(dim=-1))
             se = se * torch.exp(m - new_m) + torch.exp(logits - new_m[:, None]).sum(dim=-1)
             m = new_m
-            local = tsafe - lo                      # target logit, if in this chunk
+            local = tsafe - (offset + lo)           # target logit, if in this chunk
             in_chunk = (local >= 0) & (local < hi - lo)
             picked = logits.gather(1, local.clamp(0, hi - lo - 1)[:, None])[:, 0]
             tgt = torch.where(in_chunk, picked, tgt)
+        if tensor is not None:
+            m, se, tgt = _combine_over_tensor(m, se, tgt, tensor)
         lse = m + torch.log(se)
         denom = torch.clamp(valid.sum(), min=1) if denom is None else denom.reshape(())
         loss = torch.where(valid, lse - tgt, torch.zeros_like(lse)).sum() / denom
         ctx.save_for_backward(h2, head, wq, sw, xq, sx, lse, tsafe, valid, denom)
-        ctx.vocab_chunk = vocab_chunk
+        ctx.vocab_chunk, ctx.offset = vocab_chunk, offset
         return loss
 
     @staticmethod
@@ -75,38 +106,69 @@ class _ChunkedLSELoss(torch.autograd.Function):
         h2, head, wq, sw, xq, sx, lse, tsafe, valid, denom = ctx.saved_tensors
         v = head.shape[0] if head is not None else wq.shape[0]
         coef = gout.float() * valid.float() / denom     # d loss / d token loss
-        grad_h = torch.zeros(h2.shape, dtype=torch.float32, device=h2.device)
+        # summed in h2's dtype over the chunks in reverse, each chunk's fp32
+        # term cast first, as the JAX scan's transpose sums it (module notes)
+        grad_h = torch.zeros(h2.shape, dtype=h2.dtype, device=h2.device)
         want_head = head is not None and ctx.needs_input_grad[3]
         grad_head = torch.empty_like(head) if want_head else None
-        for lo in range(0, v, ctx.vocab_chunk):
+        for lo in reversed(range(0, v, ctx.vocab_chunk)):
             hi = min(lo + ctx.vocab_chunk, v)
             logits = _ChunkedLSELoss._chunk_logits(h2, head, wq, sw, xq, sx, lo, hi)
             gl = torch.exp(logits - lse[:, None])        # softmax over the whole vocab
-            local = tsafe - lo
+            local = tsafe - (ctx.offset + lo)
             in_chunk = (local >= 0) & (local < hi - lo)
             gl.scatter_add_(1, local.clamp(0, hi - lo - 1)[:, None],
                             -in_chunk.float()[:, None])
             gl *= coef[:, None]
             if head is not None:
-                glc = gl.to(h2.dtype)
-                grad_h += torch.matmul(glc, head[lo:hi]).float()
+                grad_h += torch.matmul(gl, head[lo:hi].float()).to(h2.dtype)
                 if want_head:
-                    grad_head[lo:hi] = torch.matmul(glc.t(), h2)
+                    grad_head[lo:hi] = torch.matmul(gl.to(h2.dtype).t(), h2)
             else:
-                grad_h += q8_matmul(gl, wq[lo:hi], sw[lo:hi])
-        return grad_h.to(h2.dtype), None, None, grad_head, None, None, None, None, None
+                grad_h += q8_matmul(gl, wq[lo:hi], sw[lo:hi]).to(h2.dtype)
+        return grad_h, None, None, grad_head, None, None, None, None, None, None, None
 
 
 def chunked_causal_lm_loss(hidden: torch.Tensor, head: torch.Tensor,
                            labels: torch.Tensor, vocab_chunk: int = 4096,
-                           denom: Optional[torch.Tensor] = None) -> torch.Tensor:
+                           denom: Optional[torch.Tensor] = None, tensor=None) -> torch.Tensor:
     """hidden: (B, S, D) final decoder states (pre-head); head: (V, D);
     labels: (B, S) with -100 ignore. Shifted CE, mean over valid tokens, or
-    the token-loss sum over `denom` (models/llama.causal_lm_loss)."""
+    the token-loss sum over `denom` (models/llama.causal_lm_loss).
+    tensor: the mesh when head is this rank's (V/T, D) vocabulary rows and
+    hidden the output of to_tensor_region (module notes)."""
     d = hidden.shape[-1]
     h = hidden[:, :-1, :].reshape(-1, d)               # (T, D)
+    offset = 0 if tensor is None else tensor.tensor_index * head.shape[0]
     return _ChunkedLSELoss.apply(h, labels[:, 1:], vocab_chunk, head, None, None, None, None,
-                                 denom)
+                                 denom, tensor, offset)
+
+
+def vocab_parallel_causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor, mesh,
+                                  denom: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """models/llama.causal_lm_loss over this rank's vocabulary rows of the
+    logits (B, S, V/T) under the tensor axis: the log-sum-exp from the MAX
+    of the ranks' maxes (no grad: it cancels) and the SUM of their sums of
+    exps, the target logit SUMmed (zero off the rank's rows); both sums
+    through from_tensor_region, whose backward is the identity (the loss is
+    whole on every rank). The grad of the local logits is then the local
+    part of softmax - onehot."""
+    logits = logits[:, :-1, :].float()
+    targets = labels[:, 1:].long()
+    valid = targets != IGNORE_INDEX
+    safe = torch.where(valid, targets, torch.zeros_like(targets))
+    n = logits.shape[-1]
+    local = safe - mesh.tensor_index * n
+    here = (local >= 0) & (local < n)
+    m = tensor_all_reduce(logits.detach().amax(dim=-1), mesh, "max")
+    se = torch.exp(logits - m[..., None]).sum(dim=-1)
+    picked = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    st = from_tensor_region(torch.stack([se, torch.where(here, picked, torch.zeros_like(picked))]),
+                            mesh)
+    tok_loss = torch.where(valid, m + torch.log(st[0]) - st[1], torch.zeros_like(m))
+    if denom is None:
+        denom = torch.clamp(valid.sum(), min=1)
+    return tok_loss.sum() / denom.reshape(())
 
 
 def chunked_causal_lm_loss_q8(hidden: torch.Tensor, head_wq: torch.Tensor,
@@ -123,4 +185,4 @@ def chunked_causal_lm_loss_q8(hidden: torch.Tensor, head_wq: torch.Tensor,
     h = hidden[:, :-1, :].reshape(-1, d).float()       # (T, D)
     xq, sx = row_quant(h.detach())
     return _ChunkedLSELoss.apply(h, labels[:, 1:], vocab_chunk, None, head_wq, head_sw, xq, sx,
-                                 denom)
+                                 denom, None, 0)

@@ -45,6 +45,17 @@ the output dtype after each (its "oracle" chain, `_dyn_correction`); K5
 rounds once per out block. In fp32 the two differ by a few ulps of the
 output, far below the tests' tolerances.
 
+Under the tensor axis (parallel/tensor.py) a planned linear holds this
+rank's tensor slice of its weight: a column-parallel one its output rows,
+a row-parallel one its input columns (`smt_linear(tensor=)`). The plan's
+global (row, column) blocks are mapped into the block-aligned window
+around the slice (parallel/fsdp.block_window); a block straddling the
+slice's edge gets a zero-padded 256-row (or 256-column) panel, so K1's
+256x256 contract is unchanged, and the grads of the blocks this rank
+touches are its parts of them: summed over the tensor group (the
+windows are disjoint, so the sum is their concatenation), they are the
+blocks' grads, which the step does once per step (train/steps.py).
+
 Channel mode (twins of the JAX `smt_channel_linear` and
 `smt_channel_linear_dyn`) trains whole input COLUMNS W[:, ci] of a
 linear, (O, n) fp32. `smt_channel_linear` computes through the dense
@@ -102,39 +113,75 @@ def _grad_blocks(g, x, rb, cb, impl: str, dtype) -> torch.Tensor:
     return fn(g2, x2, rb, cb).to(dtype)
 
 
+def _panel(t: torch.Tensor, start: int, n: int) -> torch.Tensor:
+    """t (T, m) placed at columns start.. of a zeroed (T, n) panel (t
+    itself where it fills the panel)."""
+    if start == 0 and t.shape[1] == n:
+        return t.contiguous()
+    out = t.new_zeros((t.shape[0], n))
+    out[:, start:start + t.shape[1]] = t
+    return out
+
+
 class _SMTLinear(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, blocks, w, rb, cb, impl: str):
-        ctx.save_for_backward(x, w, rb, cb)
-        ctx.impl = impl
-        ctx.blocks_dtype = blocks.dtype
+    def forward(ctx, x, blocks, w, rb, cb, impl: str, sel=None, panels=(None, None)):
+        ctx.save_for_backward(x, w, rb, cb, sel)
+        ctx.impl, ctx.panels = impl, panels
+        ctx.blocks_shape, ctx.blocks_dtype = blocks.shape, blocks.dtype
         return torch.matmul(x, w.t())
 
     @staticmethod
     def backward(ctx, g):
-        x, w, rb, cb = ctx.saved_tensors
+        x, w, rb, cb, sel = ctx.saved_tensors
         grad_x = torch.matmul(g, w) if ctx.needs_input_grad[0] else None
         grad_blocks = None
         if ctx.needs_input_grad[1]:
-            grad_blocks = _grad_blocks(g, x, rb, cb, ctx.impl, ctx.blocks_dtype)
-        return grad_x, grad_blocks, None, None, None, None
+            if rb is None:   # no block touches this rank's slice
+                grad_blocks = g.new_zeros(ctx.blocks_shape, dtype=ctx.blocks_dtype)
+            else:
+                rows, cols = ctx.panels
+                if rows is not None:   # column-parallel: this rank's output rows
+                    g = _panel(g.reshape(-1, g.shape[-1]), *rows)
+                if cols is not None:   # row-parallel: its input columns
+                    x = _panel(x.reshape(-1, x.shape[-1]), *cols)
+                grad_blocks = _grad_blocks(g, x, rb, cb, ctx.impl, ctx.blocks_dtype)
+                if sel is not None:
+                    grad_blocks = grad_blocks.new_zeros(ctx.blocks_shape).index_copy_(
+                        0, sel, grad_blocks)
+        return grad_x, grad_blocks, None, None, None, None, None, None
 
 
 def smt_linear(x: torch.Tensor, blocks: torch.Tensor, w: torch.Tensor,
                lp: LinearPlan, impl: str = "oracle",
-               index: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+               index: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               tensor=None) -> torch.Tensor:
     """y = x @ W.T with gradients routed to the selected blocks only.
 
     x: (..., in_dim); blocks: (n_blocks, 256, 256) trainable (fp32 master);
     w: (out_dim, in_dim) dense weight ALREADY containing the current block
     values, frozen (no gradient). index: the plan's cached (rb, cb) int32
-    tensors on x's device (built from lp when omitted)."""
+    tensors on x's device (built from lp when omitted).
+
+    tensor: under the tensor axis (module notes), SMTPlan.tensor_window's
+    (window, first) of this rank; w is then the rank's slice of the weight,
+    whose first (row, column) of the full weight is `first`, and the block
+    grads are the rank's parts (zero for the blocks it does not touch)."""
     impl = _resolve_impl(impl, x.device)
-    if index is None:
-        index = (torch.as_tensor(lp.row_blocks(), device=x.device),
-                 torch.as_tensor(lp.col_blocks(), device=x.device))
-    rb, cb = index
-    return _SMTLinear.apply(x, blocks, w, rb, cb, impl)
+    if tensor is None:
+        if index is None:
+            index = (torch.as_tensor(lp.row_blocks(), device=x.device),
+                     torch.as_tensor(lp.col_blocks(), device=x.device))
+        return _SMTLinear.apply(x, blocks, w, *index, impl)
+    window, first = tensor
+    if window is None:
+        return _SMTLinear.apply(x, blocks, w, None, None, impl)
+    sel, rb, cb, (r_lo, r_n), (c_lo, c_n) = window
+    panels = (None if r_n is None else (first[0] - r_lo * 256, r_n * 256),
+              None if c_n is None else (first[1] - c_lo * 256, c_n * 256))
+    if len(sel) == blocks.shape[0]:   # the window takes every block, in order
+        sel = None
+    return _SMTLinear.apply(x, blocks, w, rb, cb, impl, sel, panels)
 
 
 # ---------------------------------------------------------------------------
@@ -479,7 +526,7 @@ def chan_correction(cols, base_cols, ci, valid, dtype) -> Tuple[torch.Tensor, to
 # ---------------------------------------------------------------------------
 
 def make_sparse_linear_dispatch(plan, trainable: Mapping[str, torch.Tensor],
-                                impl: str = "auto", qweights=None):
+                                impl: str = "auto", qweights=None, tensor=None):
     """The `linear(x, w, module, layer)` hook for models.llama.forward:
     planned linears compute through smt_linear (matrix mode) or
     smt_channel_linear (channel mode), everything else is a plain dense
@@ -488,7 +535,11 @@ def make_sparse_linear_dispatch(plan, trainable: Mapping[str, torch.Tensor],
     qweights (int8 frozen base, matrix mode): {"{layer}.{module}": {"wq",
     "sw"[, "base"]}} for every layer linear; planned linears then run the
     block-corrected q8 path, unplanned frozen ones the plain q8 path, and
-    `w` is not read (it may be the offloaded weight's placeholder)."""
+    `w` is not read (it may be the offloaded weight's placeholder).
+
+    tensor (the tensor axis, matrix mode over the dense base): the mesh;
+    `w` is then this rank's tensor slice and planned linears compute
+    through smt_linear's tensor window."""
     if plan.mode == "channel" and qweights is not None:
         raise ValueError("channel mode over an int8 base runs over the scan state "
                          "(train/scan_phase.py), not this dispatch")
@@ -503,6 +554,9 @@ def make_sparse_linear_dispatch(plan, trainable: Mapping[str, torch.Tensor],
             return torch.matmul(x, w.t())
         if plan.mode == "channel":
             return smt_channel_linear(x, trainable[ks], w, lp, index=plan.channel_index(ks, x.device))
+        if tensor is not None:
+            return smt_linear(x, trainable[ks], w, lp, impl, tensor=plan.tensor_window(
+                ks, x.device, tensor.tensor_index, tensor.tensor))
         index = plan.block_index(ks, x.device, torch.int32)
         if qw is not None:
             return smt_linear_q8(x, trainable[ks], qw["wq"], qw["sw"], qw["base"], lp, impl,

@@ -38,8 +38,20 @@ process computes at the same global batch.
     rank's slices at state paths host/{key}; full_layer rebuilds one
     layer of it, wherever it lies, for the export.
 
-Every function here that moves data is collective over the fsdp group:
-each of its ranks calls it in the same order.
+The tensor axis (T > 1, parallel/tensor.py) adds a second split:
+tensor_dim copies the tensor half of JAX's state_shardings (q/k/v/gate/up
+on their output rows, o/down on their input columns, the embedding on its
+hidden columns, the head on its vocabulary rows, the accumulators as their
+weights; the trainables and their moments stay whole over tensor), and
+Sharding records both dims of a leaf. LayerGather still gathers over the
+fsdp group only, so each rank computes on its tensor slices; full, full_many
+and full_tree gather over both axes (export, eval generation, tests);
+block statistics and write_blocks work on the two-axis window of a slice,
+where a 256-block may straddle both kinds of shard.
+
+Every function here that moves data is collective over the fsdp group (and,
+where a leaf is split over tensor, over the tensor group): each of its
+ranks calls it in the same order.
 """
 
 from __future__ import annotations
@@ -138,42 +150,142 @@ def shard_dim(path: str, shape: Sequence[int], mode: Optional[str], fsdp: int
         d = 1 if keys[1] == "wq" else None
     elif top == "host":
         d = 1 if keys[1] == "lm_head" else _plus(_weight_dim(keys[1]), True)
-    if d is None or d >= len(shape) or shape[d] % fsdp:
+    return _fit(d, shape, fsdp)
+
+
+def _fit(d: Optional[int], shape: Sequence[int], size: int) -> Optional[int]:
+    """JAX's _fit: a dim the axis does not divide, or that the leaf does not
+    have, stays whole."""
+    if d is None or d >= len(shape) or shape[d] % size:
         return None
     return d
 
 
-class Sharding:
-    """This rank's view of a sharded state: the mesh and the dim of every
-    sharded leaf by state path (a path absent from `dims` is whole)."""
+def _tensor_weight_dim(module: str) -> Optional[int]:
+    """The megatron half of JAX's layout: column-parallel weights split
+    their output rows (0), row-parallel their input columns (1)."""
+    if module in COL_PARALLEL:
+        return 0
+    if module in ROW_PARALLEL:
+        return 1
+    return None
 
-    def __init__(self, mesh: Mesh, dims: Optional[Dict[str, int]] = None):
+
+def _tensor_param_dim(sub: Sequence[str]) -> Optional[int]:
+    if sub[0] == "embed_tokens":
+        return 1
+    if sub[0] == "lm_head":
+        return 0
+    stacked = sub[0] == "layers_stacked" and len(sub) == 2
+    if (sub[0] == "layers" and len(sub) == 3) or stacked:
+        name = sub[-1]
+        if name.endswith("layernorm") or name.endswith("_bias"):
+            return None
+        return _plus(_tensor_weight_dim(name), stacked)
+    return None
+
+
+def tensor_dim(path: str, shape: Sequence[int], mode: Optional[str], tensor: int
+               ) -> Optional[int]:
+    """The dim of the state leaf at `path` that JAX shards over "tensor", or
+    None, for a leaf of `shape` (the tensor half of state_shardings, as
+    shard_dim is its fsdp half):
+
+      master, params, the warm-up's m / v: q/k/v/gate/up dim 0, o/down dim
+      1, embed_tokens dim 1, lm_head dim 0, norms and biases whole;
+      trainable, base and the sparse phase's m / v: whole (trainable_pspec
+      names fsdp only); acc: its weight's dim; act_acc its columns (the
+      last dim); q: wq its weight's, sw dim 0 for column-parallel weights
+      (it indexes the output rows); q_head: wq and sw dim 0. The scan
+      state's stacked leaves take the dim of their layer leaf plus one.
+
+    As JAX's _fit, a dim that tensor does not divide stays whole."""
+    keys = path.split("/")
+    top = keys[0]
+    d: Optional[int] = None
+    if top in ("master", "params"):
+        d = _tensor_param_dim(keys[1:])
+    elif top in ("m", "v") and keys[1] in PARAM_TOPS:
+        d = _tensor_param_dim(keys[1:])
+    elif top == "acc":
+        d = _tensor_weight_dim(keys[1].split(".", 1)[1]) if "." in keys[1] else \
+            _plus(_tensor_weight_dim(keys[1]), True)
+    elif top == "act_acc":
+        d = len(shape) - 1
+    elif top == "q":
+        stacked = "." not in keys[1]
+        module, leaf = keys[1].split(".", 1)[-1], keys[2]
+        d = {"wq": _plus(_tensor_weight_dim(module), stacked),
+             "sw": _plus(0 if module in COL_PARALLEL else None, stacked),
+             "base": None}[leaf]
+    elif top == "q_head":
+        d = 0
+    elif top == "host":
+        d = 0 if keys[1] == "lm_head" else _plus(_tensor_weight_dim(keys[1]), True)
+    return _fit(d, shape, tensor)
+
+
+class Sharding:
+    """This rank's view of a sharded state: the mesh and the dims of every
+    split leaf by state path, `dims` over fsdp and `tdims` over tensor (a
+    path absent from both is whole)."""
+
+    def __init__(self, mesh: Mesh, dims: Optional[Dict[str, int]] = None,
+                 tdims: Optional[Dict[str, int]] = None):
         self.mesh = mesh
         self.dims: Dict[str, int] = dict(dims or {})
+        self.tdims: Dict[str, int] = dict(tdims or {})
 
     @property
     def f(self) -> int:
         return self.mesh.fsdp
 
+    @property
+    def t(self) -> int:
+        return self.mesh.tensor
+
     def dim(self, path: str) -> Optional[int]:
         return self.dims.get(path)
 
+    def tdim(self, path: str) -> Optional[int]:
+        return self.tdims.get(path)
+
     def mine(self, t: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
-        """This rank's contiguous slice of a full tensor along dim (None:
-        the tensor itself)."""
+        """This rank's contiguous fsdp slice of a full tensor along dim
+        (None: the tensor itself)."""
         if dim is None:
             return t
         return t.chunk(self.f, dim)[self.mesh.fsdp_index].contiguous()
 
+    def local(self, path: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the full leaf `t` at `path` by its recorded
+        dims (fsdp and tensor)."""
+        d, td = self.dim(path), self.tdim(path)
+        if td is not None:
+            t = t.chunk(self.t, td)[self.mesh.tensor_index]
+        return self.mine(t, d) if d is not None else t.contiguous()
+
+    def _record(self, path: str, d: Optional[int], td: Optional[int]) -> None:
+        for table, v in ((self.dims, d), (self.tdims, td)):
+            if v is None:
+                table.pop(path, None)
+            else:
+                table[path] = v
+
+    def split_dims(self, path: str, shape, mode: Optional[str] = None):
+        """(fsdp dim, tensor dim) of a full leaf of `shape` at `path`, each
+        None where its axis has one rank."""
+        return (shard_dim(path, shape, mode, self.f) if self.f > 1 else None,
+                tensor_dim(path, shape, mode, self.t) if self.t > 1 else None)
+
     def shard(self, path: str, t: torch.Tensor, mode: Optional[str] = None) -> torch.Tensor:
-        """This rank's slice of the full leaf `t` at `path` by shard_dim,
-        recorded; a leaf kept whole is returned as it is."""
-        d = shard_dim(path, tuple(t.shape), mode, self.f)
-        if d is None:
-            self.dims.pop(path, None)
+        """This rank's slice of the full leaf `t` at `path` by shard_dim and
+        tensor_dim, recorded; a leaf kept whole is returned as it is."""
+        d, td = self.split_dims(path, tuple(t.shape), mode)
+        self._record(path, d, td)
+        if d is None and td is None:
             return t
-        self.dims[path] = d
-        return self.mine(t, d)
+        return self.local(path, t)
 
     def shard_tree(self, tree, prefix: str, mode: Optional[str] = None):
         """shard() of every leaf of a nested dict whose path is prefix/..."""
@@ -185,7 +297,8 @@ class Sharding:
                    mode: Optional[str] = None) -> torch.Tensor:
         """This rank's slice of `t`, one layer of the (n_layers, ...) stack
         at `path`, by the stack's shard_dim (recorded): a stack of the
-        layers' slices is this rank's slice of the stack."""
+        layers' slices is this rank's slice of the stack (the scan layouts,
+        fsdp only)."""
         d = shard_dim(path, (n_layers, *t.shape), mode, self.f)
         if d is None:
             self.dims.pop(path, None)
@@ -208,45 +321,71 @@ class Sharding:
         """This rank's shard of a zero leaf of `full_shape` at `path`,
         recorded (made at the shard's size)."""
         shape = list(full_shape)
-        d = shard_dim(path, shape, mode, self.f)
-        if d is None:
-            self.dims.pop(path, None)
-        else:
-            self.dims[path] = d
+        d, td = self.split_dims(path, shape, mode)
+        self._record(path, d, td)
+        if d is not None:
             shape[d] //= self.f
+        if td is not None:
+            shape[td] //= self.t
         return torch.zeros(shape, dtype=dtype, device=device)
 
     def alias(self, src: str, dst: str, exact: bool = False) -> None:
         """Give the leaves under prefix dst the dims of those under src (the
         warm-up's moments mirror the master); exact: the leaf dst that of
         the leaf src, or whole where src is."""
-        if exact:
-            if src in self.dims:
-                self.dims[dst] = self.dims[src]
-            else:
-                self.dims.pop(dst, None)
-            return
-        for k, d in list(self.dims.items()):
-            if k.startswith(src + "/"):
-                self.dims[dst + k[len(src):]] = d
+        for table in (self.dims, self.tdims):
+            if exact:
+                if src in table:
+                    table[dst] = table[src]
+                else:
+                    table.pop(dst, None)
+                continue
+            for k, d in list(table.items()):
+                if k.startswith(src + "/"):
+                    table[dst + k[len(src):]] = d
 
     def keep(self, paths) -> None:
         """Forget every leaf whose path is not among `paths` (the state's
         after a conversion or restore)."""
         paths = set(paths)
         self.dims = {k: d for k, d in self.dims.items() if k in paths}
+        self.tdims = {k: d for k, d in self.tdims.items() if k in paths}
 
     def full_shape(self, path: str, t: torch.Tensor) -> tuple:
-        d = self.dim(path)
         shape = list(t.shape)
+        d, td = self.dim(path), self.tdim(path)
         if d is not None:
             shape[d] *= self.f
+        if td is not None:
+            shape[td] *= self.t
         return tuple(shape)
 
     def offset(self, path: str, t: torch.Tensor) -> int:
-        """Where this rank's slice starts along its dim (0 for a whole leaf)."""
+        """Where this rank's fsdp slice starts along its dim (0 for a leaf
+        whole over fsdp)."""
         d = self.dim(path)
         return 0 if d is None else self.mesh.fsdp_index * t.shape[d]
+
+    def window(self, path: str, t: torch.Tensor):
+        """((first row, rows), (first column, columns)) of this rank's
+        slice `t` of the full 2-D leaf at `path`, over both axes."""
+        out = [[0, n] for n in t.shape]
+        for d, index in ((self.dim(path), self.mesh.fsdp_index),
+                         (self.tdim(path), self.mesh.tensor_index)):
+            if d is not None:
+                out[d][0] = index * t.shape[d]
+        return tuple(tuple(x) for x in out)
+
+    def split_axes(self, path: str) -> tuple:
+        """The axes ("fsdp", "tensor") the leaf at `path` is split over."""
+        return tuple(a for a, table in (("fsdp", self.dims), ("tensor", self.tdims))
+                     if path in table)
+
+    def stat_item(self, path: str, t: torch.Tensor) -> tuple:
+        """block_stats_sharded's item of this rank's slice t of the 2-D leaf
+        at `path`."""
+        rows, cols = self.window(path, t)
+        return t, rows, cols, self.full_shape(path, t), self.split_axes(path)
 
     def full(self, path: str, t: torch.Tensor) -> torch.Tensor:
         """The full leaf at `path` on this rank's device (no autograd)."""
@@ -254,13 +393,16 @@ class Sharding:
 
     @torch.no_grad()
     def full_many(self, paths: Sequence[str], ts: Sequence[torch.Tensor]) -> list:
-        """full() of several leaves, one all-gather a dtype."""
-        split = [i for i, p in enumerate(paths) if p in self.dims]
+        """full() of several leaves, one all-gather a dtype and axis (fsdp,
+        then tensor)."""
         out = list(ts)
-        got = _gather_flat([ts[i].detach() for i in split],
-                           [self.dims[paths[i]] for i in split], self.mesh) if split else []
-        for i, t in zip(split, got):
-            out[i] = t
+        for table, over in ((self.dims, "fsdp"), (self.tdims, "tensor")):
+            split = [i for i, p in enumerate(paths) if p in table]
+            got = _gather_flat([out[i].detach() for i in split],
+                               [table[paths[i]] for i in split], self.mesh, over) \
+                if split else []
+            for i, t in zip(split, got):
+                out[i] = t
         return out
 
     def full_tree(self, tree, prefix: str, device="cpu", dtype=None):
@@ -274,8 +416,14 @@ class Sharding:
         return t.to(device=device, copy=True)
 
     def sharded_keys(self, prefix: str, flat: Mapping[str, torch.Tensor]) -> set:
-        """The keys of a flat {key: leaf} at prefix/key that are sharded."""
+        """The keys of a flat {key: leaf} at prefix/key that are split over
+        fsdp."""
         return {k for k in flat if f"{prefix}/{k}" in self.dims}
+
+    def tensor_keys(self, prefix: str, flat: Mapping[str, torch.Tensor]) -> set:
+        """The keys of a flat {key: leaf} at prefix/key that are split over
+        tensor."""
+        return {k for k in flat if f"{prefix}/{k}" in self.tdims}
 
 
 # ---------------------------------------------------------------------------
@@ -289,15 +437,16 @@ def _by_dtype(ts: Sequence[torch.Tensor]) -> Dict[torch.dtype, list]:
     return groups
 
 
-def _gather_flat(shards: Sequence[torch.Tensor], dims: Sequence[int], mesh: Mesh) -> list:
-    """The full tensors of `shards` (each split along its dim), one
-    all_gather_ per dtype over their concatenation."""
-    f = mesh.fsdp
+def _gather_flat(shards: Sequence[torch.Tensor], dims: Sequence[int], mesh: Mesh,
+                 over: str = "fsdp") -> list:
+    """The full tensors of `shards` (each split along its dim over the
+    group `over`), one all_gather_ per dtype over their concatenation."""
+    f = mesh.axis(over)[0]
     out = [None] * len(shards)
     for idx in _by_dtype(shards).values():
         flat = torch.cat([shards[i].reshape(-1) for i in idx]) if len(idx) > 1 else \
             shards[idx[0]].reshape(-1)
-        full = all_gather_(flat, mesh).view(f, -1)
+        full = all_gather_(flat, mesh, over).view(f, -1)
         off = 0
         for i in idx:
             s = shards[i]
@@ -419,6 +568,8 @@ class LayerGather:
         self.extras = extras or {}
         self.make_linear = make_linear
         self.linear_scan = linear_scan
+        # the tensor axis: the layers compute on their tensor slices
+        self.tensor = sharding.mesh if sharding.t > 1 else None
 
     def _whole(self, t):
         return t.to(self.cast) if self.cast is not None and t.is_floating_point() else t
@@ -526,27 +677,35 @@ class LayerGather:
 PARTIAL_KIND = {"mean_abs": "sum", "abs_mean": "abs", "L1": "abs", "L2": "sq"}
 
 
-def block_partials(t: torch.Tensor, dim: Optional[int], offset: int, full_shape,
-                   kind: str) -> torch.Tensor:
+def _block_sums(x: torch.Tensor, dim: int, offset: int, n_blocks: int) -> torch.Tensor:
+    """Sums of x along `dim` by the 256-block (of n_blocks) each of its
+    entries falls in, its first entry at `offset` of the full dim."""
+    n = x.shape[dim]
+    shape = list(x.shape)
+    shape[dim] = n_blocks
+    if offset % BLOCK == 0 and n % BLOCK == 0:   # aligned: a reshape
+        split = list(x.shape)
+        split[dim:dim + 1] = [n // BLOCK, BLOCK]
+        part = x.reshape(split).sum(dim=dim + 1)
+        if n == n_blocks * BLOCK:
+            return part
+        out = part.new_zeros(shape)
+        out.narrow(dim, offset // BLOCK, n // BLOCK).copy_(part)
+        return out
+    ids = (offset + torch.arange(n, device=x.device)) // BLOCK
+    return torch.zeros(shape, dtype=x.dtype, device=x.device).index_add_(dim, ids, x)
+
+
+def block_partials(t: torch.Tensor, rows, cols, full_shape, kind: str) -> torch.Tensor:
     """(R/256, C/256) fp32 sums over each 256-block of the full (R, C)
-    tensor of what this rank's slice `t` holds of it (rows or columns from
-    `offset` along `dim`; dim None: the whole tensor) of x ("sum"), |x|
-    ("abs") or x^2 ("sq"). A block that straddles the slice's edge gets
-    the part that lies here."""
+    tensor of what this rank's slice `t` holds of it, rows rows = (first,
+    n) and columns cols = (first, n) of it, of x ("sum"), |x| ("abs") or
+    x^2 ("sq"). A block that straddles either edge of the slice (an fsdp
+    shard's, a tensor shard's) gets the part that lies here."""
     x = t.float()
     x = x if kind == "sum" else x.abs() if kind == "abs" else x * x
     r, c = full_shape
-    if dim is None:
-        return x.reshape(r // BLOCK, BLOCK, c // BLOCK, BLOCK).sum(dim=(1, 3))
-    if dim == 1:
-        part = x.reshape(r // BLOCK, BLOCK, x.shape[1]).sum(dim=1)        # (RB, n)
-        ids = (offset + torch.arange(x.shape[1], device=x.device)) // BLOCK
-        out = torch.zeros((r // BLOCK, c // BLOCK), dtype=torch.float32, device=x.device)
-        return out.index_add_(1, ids, part)
-    part = x.reshape(x.shape[0], c // BLOCK, BLOCK).sum(dim=2)            # (n, CB)
-    ids = (offset + torch.arange(x.shape[0], device=x.device)) // BLOCK
-    out = torch.zeros((r // BLOCK, c // BLOCK), dtype=torch.float32, device=x.device)
-    return out.index_add_(0, ids, part)
+    return _block_sums(_block_sums(x, 1, cols[0], c // BLOCK), 0, rows[0], r // BLOCK)
 
 
 def finish_block_stat(p: torch.Tensor, strategy: str, signed: bool = False) -> torch.Tensor:
@@ -568,14 +727,18 @@ def finish_block_stat(p: torch.Tensor, strategy: str, signed: bool = False) -> t
 def block_stats_sharded(items: Mapping[str, tuple], strategy_of, mesh: Mesh,
                         signed: bool = False) -> Dict[str, torch.Tensor]:
     """{key: (R/256, C/256) statistic} of sharded (R, C) tensors: items
-    {key: (slice, dim, offset, full_shape)}, strategy_of(key) the reducer.
-    The sharded ones' partial sums are SUM-reduced over the fsdp group in
-    one bucketed all-reduce, then finished (finish_block_stat): the
-    non-linearity comes after the combination, as on the full tensor."""
+    {key: (slice, rows, cols, full_shape, axes)} (Sharding.stat_item: the
+    slice's (first, n) rows and columns and the axes it is split over),
+    strategy_of(key) the reducer. The partial sums are SUM-reduced over the
+    fsdp group and the tensor group, each over the slices split on that
+    axis, in one bucketed all-reduce an axis, then finished
+    (finish_block_stat): the non-linearity comes after the combination, as
+    on the full tensor."""
     from sparse_matrix_tuning_tpu_torch.parallel.mesh import all_reduce_
-    parts = {k: block_partials(t, d, off, shape, PARTIAL_KIND[strategy_of(k)])
-             for k, (t, d, off, shape) in items.items()}
-    all_reduce_([parts[k] for k, v in items.items() if v[1] is not None], mesh, "fsdp")
+    parts = {k: block_partials(t, rows, cols, shape, PARTIAL_KIND[strategy_of(k)])
+             for k, (t, rows, cols, shape, _) in items.items()}
+    for over in ("fsdp", "tensor"):
+        all_reduce_([parts[k] for k, v in items.items() if over in v[4]], mesh, over)
     return {k: finish_block_stat(p, strategy_of(k), signed) for k, p in parts.items()}
 
 
@@ -583,57 +746,58 @@ def block_stats_sharded(items: Mapping[str, tuple], strategy_of, mesh: Mesh,
 # trainables into this rank's weight shard (F6)
 # ---------------------------------------------------------------------------
 
-def _in_window(along: np.ndarray, lo: int, hi: int) -> np.ndarray:
-    return np.nonzero((along >= lo) & (along < hi))[0]
-
-
-def block_window(rb: np.ndarray, cb: np.ndarray, dim: Optional[int], offset: int, n: int,
-                 device):
-    """Where the blocks at (rb, cb) land in a weight slice of n rows (dim
-    0) or columns (dim 1) from offset: (the blocks' indices, their row and
-    column block in the block-aligned window around the slice, as tensors
-    on `device`, the window's first block lo, its length in blocks), or
-    None when no block touches the slice. Built once per plan and slice
-    (smt/plan.py caches it)."""
-    if dim is None:
-        dim, offset = 0, 0
-    lo, hi = offset // BLOCK, -(-(offset + n) // BLOCK)
-    sel = _in_window(rb if dim == 0 else cb, lo, hi)
+def block_window(rb: np.ndarray, cb: np.ndarray, rows, cols, device):
+    """Where the blocks at (rb, cb) land in a weight slice of rows rows =
+    (first, n) and columns cols = (first, n) of the weight (None: every
+    row, or every column, the window then starting at block 0): (the
+    blocks' indices, their row and column block in the block-aligned
+    window around the slice, as tensors on `device`, (first row block,
+    row blocks), (first column block, column blocks)), or None when no
+    block touches the slice. Built once per plan and slice (smt/plan.py
+    caches it)."""
+    def span(extent):   # the blocks (lo, hi) the extent touches; (0, None): all
+        if extent is None:
+            return 0, None
+        return extent[0] // BLOCK, -(-(extent[0] + extent[1]) // BLOCK)
+    (r_lo, r_hi), (c_lo, c_hi) = span(rows), span(cols)
+    keep = np.ones(len(rb), bool)
+    if r_hi is not None:
+        keep &= (rb >= r_lo) & (rb < r_hi)
+    if c_hi is not None:
+        keep &= (cb >= c_lo) & (cb < c_hi)
+    sel = np.nonzero(keep)[0]
     if not len(sel):
         return None
-    return (torch.as_tensor(sel, device=device),
-            torch.as_tensor(rb[sel] - (lo if dim == 0 else 0), device=device),
-            torch.as_tensor(cb[sel] - (lo if dim == 1 else 0), device=device), lo, hi - lo)
+    return (torch.as_tensor(sel, device=device), torch.as_tensor(rb[sel] - r_lo, device=device),
+            torch.as_tensor(cb[sel] - c_lo, device=device),
+            (r_lo, None if r_hi is None else r_hi - r_lo),
+            (c_lo, None if c_hi is None else c_hi - c_lo))
 
 
 @torch.no_grad()
-def write_blocks(w: torch.Tensor, dim: Optional[int], offset: int, blocks: torch.Tensor,
-                 window) -> None:
+def write_blocks(w: torch.Tensor, first, blocks: torch.Tensor, window) -> None:
     """Write full (n, 256, 256) blocks into this rank's slice w of their
-    (R, C) weight (rows, dim 0, or columns, dim 1, from offset), in place:
-    the parts of each block that lie in the slice, placed by
-    block_window's `window`. Where the slice is not block-aligned, a
-    block-aligned window around it takes the blocks and its middle is
-    copied back."""
+    (R, C) weight, whose first row and column of the weight are first =
+    (row, column), in place: the parts of each block that lie in the
+    slice, placed by block_window's `window`. Where the slice is not
+    block-aligned on a dim, a block-aligned window around it takes the
+    blocks and the slice's part is copied back."""
     if window is None:
         return
-    sel, r, c, lo, n_blocks = window
-    if dim is None:
-        dim, offset = 0, 0
-    n = w.shape[dim]
-    start = offset - lo * BLOCK
-    aligned = start == 0 and n == n_blocks * BLOCK
+    sel, r, c, (r_lo, r_n), (c_lo, c_n) = window
+    starts = (first[0] - r_lo * BLOCK, first[1] - c_lo * BLOCK)
+    spans = (w.shape[0] if r_n is None else r_n * BLOCK,
+             w.shape[1] if c_n is None else c_n * BLOCK)
+    aligned = starts == (0, 0) and tuple(w.shape) == spans
     if aligned:
         win = w
     else:
-        shape = list(w.shape)
-        shape[dim] = n_blocks * BLOCK
-        win = torch.empty(shape, dtype=w.dtype, device=w.device)
-        win.narrow(dim, start, n).copy_(w)
+        win = torch.empty(spans, dtype=w.dtype, device=w.device)
+        win[starts[0]:starts[0] + w.shape[0], starts[1]:starts[1] + w.shape[1]].copy_(w)
     w4 = win.view(win.shape[0] // BLOCK, BLOCK, win.shape[1] // BLOCK, BLOCK)
     w4[r, :, c, :] = blocks.index_select(0, sel).to(w.dtype)
     if not aligned:
-        w.copy_(win.narrow(dim, start, n))
+        w.copy_(win[starts[0]:starts[0] + w.shape[0], starts[1]:starts[1] + w.shape[1]])
 
 
 def column_window(channels: np.ndarray, dim: Optional[int], offset: int, n: int, device):
@@ -641,7 +805,7 @@ def column_window(channels: np.ndarray, dim: Optional[int], offset: int, n: int,
     the full (O, n_ch) columns, and the slice's columns, as tensors), or
     None when none does; dim 0 and whole slices take every column."""
     if dim == 1:
-        sel = _in_window(channels, offset, offset + n)
+        sel = np.nonzero((channels >= offset) & (channels < offset + n))[0]
         if not len(sel):
             return None
         return (torch.as_tensor(sel, device=device),

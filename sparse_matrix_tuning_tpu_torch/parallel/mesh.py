@@ -1,23 +1,27 @@
 """The process mesh of multi-process training (counterpart of
-`sparse_matrix_tuning_tpu.parallel.mesh`, its `data` and `fsdp` axes).
+`sparse_matrix_tuning_tpu.parallel.mesh`, its data, fsdp and tensor axes).
 
 The JAX package lays a (data, fsdp, tensor) mesh over its devices and
 GSPMD inserts the collectives. Here each process of a `torchrun` (or
 `torch.multiprocessing`) job drives one device, and the steps call the
 collectives themselves. JAX reshapes its devices row-major into (D, F, T),
-so rank r sits at data index r // F and fsdp index r % F:
+so rank r = (d * F + f) * T + t sits at data index d, fsdp index f and
+tensor index t:
 
   * every process builds the identical global batch and keeps its rows
-    (rank_rows): JAX splits the batch over ("data", "fsdp"), so rank r
-    owns row slice r of the D*F slices of every microbatch;
+    (rank_rows): JAX splits the batch over ("data", "fsdp") only, so the
+    rank of batch index d * F + f owns row slice d * F + f of the D*F
+    slices of every microbatch, and the T ranks of a tensor group see the
+    same rows;
   * a microbatch's loss is this rank's token-loss sum over the global
     microbatch's count of valid tokens (data/sft.shard_batch), so the SUM
-    over ranks of the losses and grads is the global batch's, which is
-    what JAX computes;
+    over the batch group (the D*F ranks of one tensor index) of the losses
+    and grads is the global batch's, which is what JAX computes;
   * all_reduce_ sums the grads and the loss in place, in buckets of one
-    dtype, over the whole world, the data group or the fsdp group, after
-    the last microbatch's backward and before anything reads them (the
-    fp16 overflow test, the clip norm, the saliency accumulators);
+    dtype, over the whole world or one axis group ("data", "fsdp",
+    "tensor", "batch"), after the last microbatch's backward and before
+    anything reads them (the fp16 overflow test, the clip norm, the
+    saliency accumulators);
   * over fsdp (F > 1, parallel/fsdp.py) each rank holds 1/F of the leaves
     JAX shards: all_gather_ gathers a layer's shards while it runs, and
     reduce_scatter_ sums its grads over the fsdp group and keeps this
@@ -31,10 +35,12 @@ so rank r sits at data index r // F and fsdp index r % F:
     one NVIDIA H100 80GB HBM3 (700 W) they ran a TinyLlama warm-up step
     twice as fast as gloo's own all-gather and reduce-scatter over host
     copies of the CUDA tensors (PERF.md, PR 14);
+  * over tensor (T > 1, parallel/tensor.py) the layers are Megatron's
+    column- and row-parallel linears and the head is split over the
+    vocabulary: the activations' all-reduces and the embedding's
+    all-gather run over the tensor group (counted in "tensor_*");
   * assert_same checks that the ranks agree (the plan's fingerprint, the
     step).
-
-The tensor axis is not ported: make_mesh refuses it by name.
 """
 
 from __future__ import annotations
@@ -55,14 +61,18 @@ BUCKET_MIB = 64  # the all-reduce's bucket cap
 
 @dataclass
 class Mesh:
-    """A (data, fsdp, tensor) mesh of processes, one device each, with
-    tensor 1. `group` runs the collectives over the whole world (None: the
-    default group), `data_group` over the ranks of this rank's fsdp index,
-    `fsdp_group` over the ranks of its data index (None where the axis
-    spans the world); `cpu_group` is a gloo group for object gathers and
-    barriers. `stats` counts what the collectives moved: all-reduced bytes
-    and calls, and the all-gathers' ("gather_*", the gathered tensors'
-    bytes) and reduce-scatters' ("scatter_*", the summed tensors' bytes)."""
+    """A (data, fsdp, tensor) mesh of processes, one device each. `group`
+    runs the collectives over the whole world (None: the default group),
+    `data_group` over the D ranks of this rank's (fsdp, tensor) index,
+    `fsdp_group` over the F ranks of its (data, tensor) index,
+    `tensor_group` over the T ranks of its (data, fsdp) index and
+    `batch_group` over the D*F ranks of its tensor index (each None where
+    it spans the world); `cpu_group` is a gloo group for object gathers
+    and barriers. `stats` counts what the collectives moved: all-reduced
+    bytes and calls, the all-gathers' ("gather_*", the gathered tensors'
+    bytes) and reduce-scatters' ("scatter_*", the summed tensors' bytes)
+    over fsdp, and the tensor group's all-reduces and all-gathers
+    ("tensor_*", the reduced or gathered tensors' bytes)."""
     shape: Tuple[int, int, int]
     rank: int
     device: torch.device
@@ -70,6 +80,8 @@ class Mesh:
     cpu_group: Any = None
     data_group: Any = None
     fsdp_group: Any = None
+    tensor_group: Any = None
+    batch_group: Any = None
     stats: Dict[str, int] = field(default_factory=lambda: dict.fromkeys(STAT_KEYS, 0))
 
     @property
@@ -79,6 +91,10 @@ class Mesh:
     @property
     def fsdp(self) -> int:
         return self.shape[1]
+
+    @property
+    def tensor(self) -> int:
+        return self.shape[2]
 
     @property
     def world(self) -> int:
@@ -91,12 +107,21 @@ class Mesh:
         return self.shape[0] * self.shape[1]
 
     @property
+    def batch_index(self) -> int:
+        """Which of the batch_shards row slices this rank owns: d * F + f."""
+        return self.rank // self.shape[2]
+
+    @property
     def data_index(self) -> int:
-        return self.rank // self.shape[1]
+        return self.batch_index // self.shape[1]
 
     @property
     def fsdp_index(self) -> int:
-        return self.rank % self.shape[1]
+        return self.batch_index % self.shape[1]
+
+    @property
+    def tensor_index(self) -> int:
+        return self.rank % self.shape[2]
 
     @property
     def is_main(self) -> bool:
@@ -109,13 +134,16 @@ class Mesh:
         self.stats.update(dict.fromkeys(STAT_KEYS, 0))
 
     def axis(self, over: str):
-        """(size, group) of the collectives over "world", "data" or "fsdp"."""
+        """(size, group) of the collectives over "world", "data", "fsdp",
+        "tensor" or "batch" (data x fsdp)."""
         return {"world": (self.world, self.group), "data": (self.data, self.data_group),
-                "fsdp": (self.fsdp, self.fsdp_group)}[over]
+                "fsdp": (self.fsdp, self.fsdp_group),
+                "tensor": (self.tensor, self.tensor_group),
+                "batch": (self.batch_shards, self.batch_group)}[over]
 
 
 STAT_KEYS = ("bytes", "calls", "gather_bytes", "gather_calls", "scatter_bytes",
-             "scatter_calls")
+             "scatter_calls", "tensor_bytes", "tensor_calls")
 
 
 def free_port() -> int:
@@ -163,9 +191,8 @@ def make_mesh(mesh_shape: Optional[Sequence[int]], world: Optional[int] = None,
     """The Mesh of the initialised process group: mesh_shape (data, fsdp,
     tensor) must multiply to the world size, as JAX's make_mesh requires
     of its devices, and None puts every rank on fsdp, (1, world, 1), JAX's
-    default; tensor above 1 is refused. Collective over the ranks: every
-    rank makes the data and fsdp groups in the same order (and the gloo
-    group where the backend is not gloo)."""
+    default. Collective over the ranks: every rank makes the axis groups
+    in the same order (and the gloo group where the backend is not gloo)."""
     world = (dist.get_world_size() if dist.is_initialized() else 1) if world is None else world
     shape = tuple(int(s) for s in (mesh_shape or (1, world, 1)))
     if len(shape) != len(AXES):
@@ -173,7 +200,6 @@ def make_mesh(mesh_shape: Optional[Sequence[int]], world: Optional[int] = None,
     if int(np.prod(shape)) != world:
         raise ValueError(f"mesh_shape {shape} != world size {world} (their product must "
                          "equal the number of processes)")
-    refuse_sharded_axes(shape)
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs the process group: call init_distributed first")
     cpu_group = None if dist.get_backend() == "gloo" else dist.new_group(backend="gloo")
@@ -181,34 +207,90 @@ def make_mesh(mesh_shape: Optional[Sequence[int]], world: Optional[int] = None,
         device = (torch.device("cuda", torch.cuda.current_device())
                   if dist.get_backend() == "nccl" else torch.device("cpu"))
     mesh = Mesh(shape, dist.get_rank(), torch.device(device), cpu_group=cpu_group)
-    d, f = shape[0], shape[1]
-    if d > 1 and f > 1:  # one group per data index, then one per fsdp index
-        for i in range(d):
-            g = dist.new_group([i * f + j for j in range(f)])
-            if i == mesh.data_index:
-                mesh.fsdp_group = g
-        for j in range(f):
-            g = dist.new_group([i * f + j for i in range(d)])
-            if j == mesh.fsdp_index:
-                mesh.data_group = g
+    for axis, members in axis_groups(shape).items():
+        if 1 < len(members[0]) < world:  # an axis of 1 or the whole world needs no group
+            for ranks in members:
+                g = dist.new_group(ranks)
+                if mesh.rank in ranks:
+                    setattr(mesh, f"{axis}_group", g)
     return mesh
 
 
-def refuse_sharded_axes(shape: Sequence[int]) -> None:
-    if int(shape[2]) > 1:
+def axis_groups(shape: Sequence[int]) -> Dict[str, list]:
+    """{axis: the rank lists of its groups} of a (D, F, T) mesh, rank
+    (d * F + f) * T + t: "fsdp" a group per (d, t), "data" per (f, t),
+    "tensor" per (d, f), "batch" (data x fsdp) per t; in a fixed order,
+    so that every rank creates them alike."""
+    d, f, t = (int(s) for s in shape)
+    rank = lambda i, j, k: (i * f + j) * t + k  # noqa: E731
+    return {"fsdp": [[rank(i, j, k) for j in range(f)] for i in range(d) for k in range(t)],
+            "data": [[rank(i, j, k) for i in range(d)] for j in range(f) for k in range(t)],
+            "tensor": [[rank(i, j, k) for k in range(t)] for i in range(d) for j in range(f)],
+            "batch": [[rank(i, j, k) for i in range(d) for j in range(f)] for k in range(t)]}
+
+
+def refuse_sharded_axes(shape: Sequence[int], cfg=None) -> None:
+    """Refuse, by name, what the tensor axis (tensor above 1) does not yet
+    run: the options of `cfg` (an SMTConfig) outside matrix mode over the
+    dense base in the per-layer layout. The data and fsdp axes take
+    everything (--sparse_from_plan aside: config._check_mesh)."""
+    t = int(shape[2])
+    if t == 1 or cfg is None:
+        return
+    refused = []
+    if cfg.frozen_quant == "int8":
+        refused.append("--frozen_quant int8 (a row-parallel linear's row quantization needs "
+                       "the amax of a row that lies across the tensor ranks)")
+    elif cfg.head_quant == "int8":
+        refused.append("--head_quant int8 (the int8 head)")
+    if cfg.channel_sparsity:
+        refused.append("--channel_sparsity (JAX puts the activation sums' columns on tensor)")
+    if cfg.scan_layers == "on":
+        refused.append("--scan_layers on (the scan layouts)")
+    if cfg.dropout > 0:
+        refused.append("--dropout")
+    if cfg.sparse_from_plan:
+        refused.append("--sparse_from_plan (its JAX entry runs on one device)")
+    if refused:
         raise NotImplementedError(
-            f"mesh_shape {tuple(shape)}: tensor {int(shape[2])} not yet ported to "
-            "sparse_matrix_tuning_tpu_torch (the tensor axis is a later slice); the data and "
-            f"fsdp axes are ported, e.g. --mesh_shape 1,{int(np.prod(shape))},1")
+            f"mesh_shape {tuple(shape)}: " + "; ".join(refused) + f" with tensor {t} not yet "
+            "ported to sparse_matrix_tuning_tpu_torch; the tensor axis runs matrix mode over "
+            "the dense base in the per-layer layout")
+
+
+def refuse_tensor_model(model_cfg, t: int, params=None) -> None:
+    """Refuse, by name, a model the tensor axis does not split: a tied head
+    (the embedding and the head are split on different dims), q/k/v
+    biases, or a T that does not divide the head counts, the intermediate
+    width and the vocabulary (where JAX's _fit would keep the weight whole
+    and its einsum attention run; the port names it instead)."""
+    if t == 1:
+        return
+    c = model_cfg
+    sizes = {"num_attention_heads": c.num_attention_heads,
+             "num_key_value_heads": c.num_key_value_heads,
+             "intermediate_size": c.intermediate_size, "vocab_size": c.vocab_size}
+    refused = [f"{k} {v}" for k, v in sizes.items() if v % t]
+    if c.tie_word_embeddings:
+        refused.append("tie_word_embeddings (a tied head)")
+    if params is not None and any(k.endswith("_bias") for layer in params["layers"].values()
+                                  for k in layer):
+        refused.append("q/k/v biases")
+    if refused:
+        raise NotImplementedError(
+            f"tensor {t}: " + ", ".join(refused) + " not yet ported to "
+            "sparse_matrix_tuning_tpu_torch under the tensor axis: T must divide the head "
+            "counts, the intermediate width and the vocabulary of an untied Llama")
 
 
 def rank_rows(batch: Dict[str, Any], mesh: Mesh, accum: int = 1) -> Dict[str, Any]:
     """This rank's rows of a global batch of accum * D * F * B rows (numpy
     or torch): of each of the `accum` contiguous microbatches, row slice
-    `rank` of its D * F contiguous slices of B rows (JAX's batch split over
-    ("data", "fsdp"), row-major), so that the local batch splits into the
-    same microbatches (steps.accumulated_value_and_grad)."""
-    n_sh, r = mesh.batch_shards, mesh.rank
+    batch_index of its D * F contiguous slices of B rows (JAX's batch split
+    over ("data", "fsdp"), row-major; a tensor group shares its rows), so
+    that the local batch splits into the same microbatches
+    (steps.accumulated_value_and_grad)."""
+    n_sh, r = mesh.batch_shards, mesh.batch_index
     out = {}
     for k, v in batch.items():
         n = v.shape[0]
@@ -221,8 +303,9 @@ def rank_rows(batch: Dict[str, Any], mesh: Mesh, accum: int = 1) -> Dict[str, An
 
 
 def all_reduce_(tensors: Iterable[torch.Tensor], mesh: Mesh, over: str = "world") -> None:
-    """SUM each tensor over the ranks of `over` ("world", "data" or
-    "fsdp"; nothing where the data or fsdp axis is 1), in place: packed into
+    """SUM each tensor over the ranks of `over` ("world", or an axis group:
+    "data", "fsdp", "tensor", "batch"; nothing where it has one rank), in
+    place: packed into
     contiguous buckets of one dtype (and device) of at most BUCKET_MIB MiB
     (a larger tensor is a bucket of its own, reduced where it lies), one
     dist.all_reduce a bucket, the sums copied back. A tensor listed twice
@@ -266,21 +349,30 @@ def _gloo(group) -> bool:
     return dist.get_backend(group) == "gloo"
 
 
-def all_gather_(shard: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The fsdp group's 1-D shards, in fsdp order: a new (F * n,) tensor.
-    NCCL: all_gather_into_tensor. Gloo: built from all_reduce (module
-    notes), chosen by the backend."""
-    f, group = mesh.axis("fsdp")
+def _count(mesh: Mesh, over: str, kind: str, t: torch.Tensor) -> None:
+    """Count one collective of `kind` ("gather" or "scatter") over `over`:
+    the fsdp axis's under gather_* / scatter_*, the tensor axis's under
+    tensor_*."""
+    key = "tensor" if over == "tensor" else kind
+    mesh.stats[f"{key}_bytes"] += t.numel() * t.element_size()
+    mesh.stats[f"{key}_calls"] += 1
+
+
+def all_gather_(shard: torch.Tensor, mesh: Mesh, over: str = "fsdp") -> torch.Tensor:
+    """The 1-D shards of the group `over` ("fsdp" or "tensor"), in its
+    order: a new (n_ranks * n,) tensor. NCCL: all_gather_into_tensor. Gloo:
+    built from all_reduce (module notes), chosen by the backend."""
+    f, group = mesh.axis(over)
+    index = mesh.fsdp_index if over == "fsdp" else mesh.tensor_index
     n = shard.numel()
     if _gloo(group):
         out = torch.zeros(f * n, dtype=shard.dtype, device=shard.device)
-        out[mesh.fsdp_index * n:(mesh.fsdp_index + 1) * n] = shard.reshape(-1)
+        out[index * n:(index + 1) * n] = shard.reshape(-1)
         dist.all_reduce(out, group=group)
     else:
         out = torch.empty(f * n, dtype=shard.dtype, device=shard.device)
         dist.all_gather_into_tensor(out, shard.reshape(-1).contiguous(), group=group)
-    mesh.stats["gather_bytes"] += out.numel() * out.element_size()
-    mesh.stats["gather_calls"] += 1
+    _count(mesh, over, "gather", out)
     return out
 
 
@@ -297,8 +389,7 @@ def reduce_scatter_(full: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     else:
         out = torch.empty(n, dtype=full.dtype, device=full.device)
         dist.reduce_scatter_tensor(out, full.contiguous(), group=group)
-    mesh.stats["scatter_bytes"] += full.numel() * full.element_size()
-    mesh.stats["scatter_calls"] += 1
+    _count(mesh, "fsdp", "scatter", full)
     return out
 
 

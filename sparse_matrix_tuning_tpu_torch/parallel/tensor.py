@@ -1,0 +1,108 @@
+"""The tensor axis (`--mesh_shape D,F,T` with T > 1): Megatron's layout,
+with the collectives that GSPMD inserts for the JAX package placed by hand.
+
+JAX shards q/k/v/gate/up on their output rows over "tensor" (column-
+parallel), o/down on their input columns (row-parallel), the embedding on
+its hidden columns and the head on its vocabulary rows
+(`sparse_matrix_tuning_tpu.parallel.mesh` param_pspecs); the T ranks of a
+tensor group see the same batch rows. So a decoder layer on rank t
+
+    h = rmsnorm(x)                    x and h whole on every rank
+    q, k, v = to_tensor_region(h) @ W_qkv[t].T      its hq/T, hkv/T heads
+    x = x + from_tensor_region(attn @ W_o[:, t].T)
+    h = rmsnorm(x)
+    x = x + from_tensor_region((silu(h W_gate[t].T) * h W_up[t].T) @ W_down[:, t].T)
+
+and the embedding lookup gives this rank's D/T columns, gathered over the
+group (gather_from_tensor), while the head's logits are this rank's V/T
+vocabulary rows (ops/loss.py: the vocabulary-parallel cross-entropy).
+
+  * to_tensor_region: identity forward, all-reduce backward (each rank's
+    partial grad of a whole input to its column-parallel linears);
+  * from_tensor_region: all-reduce forward (the row-parallel partial
+    sums), identity backward (its grad is whole on every rank);
+  * gather_from_tensor: all-gather forward along the last dim, this
+    rank's slice of the (whole) grad backward;
+  * tensor_all_reduce: a plain SUM or MAX over the group (the loss's).
+
+Each is collective over the tensor group (every rank calls it in the
+same order; a remat recompute calls them again) and counts its bytes and
+calls in mesh.stats["tensor_*"]. On gloo (the CPU, ranks sharing one card)
+all-gathers are built from all_reduce, as the fsdp axis's
+(parallel/mesh.all_gather_).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from sparse_matrix_tuning_tpu_torch.parallel.mesh import Mesh, all_gather_
+
+
+def _all_reduce(t: torch.Tensor, mesh: Mesh, op: str = "sum") -> torch.Tensor:
+    """SUM or MAX of t over the tensor group, in place; returns t."""
+    reduce_op = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
+    dist.all_reduce(t, op=reduce_op, group=mesh.tensor_group)
+    mesh.stats["tensor_bytes"] += t.numel() * t.element_size()
+    mesh.stats["tensor_calls"] += 1
+    return t
+
+
+def tensor_all_reduce(t: torch.Tensor, mesh: Mesh, op: str = "sum") -> torch.Tensor:
+    """A new tensor: t's SUM ("sum") or MAX ("max") over the tensor group
+    (no autograd: the caller decides what its backward is)."""
+    return _all_reduce(t.detach().contiguous().clone(), mesh, op)
+
+
+class _ToTensorRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous().clone(), ctx.mesh), None
+
+
+class _FromTensorRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return _all_reduce(x.contiguous().clone(), mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromTensor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        t = mesh.tensor
+        full = all_gather_(x.contiguous(), mesh, "tensor").view(t, *x.shape)
+        return torch.cat(full.unbind(0), dim=-1) if t > 1 else full[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        n = g.shape[-1] // mesh.tensor
+        return g.narrow(-1, mesh.tensor_index * n, n).contiguous(), None
+
+
+def to_tensor_region(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """x, whole on every rank, as the input of column-parallel linears (or
+    of the vocabulary-parallel head): its grad is summed over the group."""
+    return _ToTensorRegion.apply(x, mesh)
+
+
+def from_tensor_region(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum over the group of the row-parallel partial outputs x."""
+    return _FromTensorRegion.apply(x, mesh)
+
+
+def gather_from_tensor(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The group's slices x (..., n) concatenated along the last dim, in
+    tensor order: (..., T * n)."""
+    return _GatherFromTensor.apply(x, mesh)

@@ -159,6 +159,31 @@ class SMTPlan:
             self._index_cache[cache_key] = idx
         return idx
 
+    def tensor_window(self, ks: str, device, index: int, parts: int):
+        """(window, first) of linear `ks` on tensor rank `index` of `parts`
+        (the tensor axis, ops/sparse_linear.smt_linear(tensor=)): the slice
+        is the rank's output rows of a column-parallel module, its input
+        columns of a row-parallel one; window is fsdp.block_window of
+        the plan's blocks and the slice, int32, built once per plan."""
+        cache_key = (ks, str(torch.device(device)), "tensor", index, parts)
+        got = self._index_cache.get(cache_key)
+        if got is None:
+            from sparse_matrix_tuning_tpu_torch.parallel.fsdp import (
+                COL_PARALLEL, block_window)
+            lp = self.linears[ks]
+            if lp.module in COL_PARALLEL:
+                n = lp.out_dim // parts
+                rows, cols, first = (index * n, n), None, (index * n, 0)
+            else:
+                n = lp.in_dim // parts
+                rows, cols, first = None, (index * n, n), (0, index * n)
+            win = block_window(lp.row_blocks().astype(np.int64),
+                                  lp.col_blocks().astype(np.int64), rows, cols, device)
+            if win is not None:
+                win = (win[0], win[1].to(torch.int32), win[2].to(torch.int32), *win[3:])
+            got = self._index_cache[cache_key] = (win, first)
+        return got
+
     def channel_index(self, ks: str, device) -> torch.Tensor:
         """The selected input channels of linear `ks`, an int64 tensor on
         `device`, built once per plan (channel mode)."""
@@ -236,21 +261,24 @@ class SMTPlan:
             lp = self.linears[ks]
             path = f"params/layers/{lp.layer}/{lp.module}"
             w = layer_params[str(lp.layer)][lp.module]
-            d, off = sharding.dim(path), sharding.offset(path, w)
-            n = w.shape[0 if d is None else d]
-            cache_key = (ks, str(w.device), "window", d, off, n)
-            win = self._index_cache.get(cache_key)
             if self.mode == "channel":
+                d, off = sharding.dim(path), sharding.offset(path, w)
+                n = w.shape[0 if d is None else d]
+                cache_key = (ks, str(w.device), "window", d, off, n)
                 if cache_key not in self._index_cache:
-                    win = self._index_cache[cache_key] = column_window(
+                    self._index_cache[cache_key] = column_window(
                         np.asarray(lp.channels, np.int64), d, off, n, w.device)
-                write_columns(w, d, off, t, win)
-            else:
-                if cache_key not in self._index_cache:
-                    win = self._index_cache[cache_key] = block_window(
-                        lp.row_blocks().astype(np.int64), lp.col_blocks().astype(np.int64), d,
-                        off, n, w.device)
-                write_blocks(w, d, off, t, win)
+                write_columns(w, d, off, t, self._index_cache[cache_key])
+                continue
+            # the slice's rows and columns over both axes (fsdp, tensor)
+            rows, cols = sharding.window(path, w)
+            split = (sharding.dim(path), sharding.tdim(path))
+            cache_key = (ks, str(w.device), "window2", rows, cols)
+            if cache_key not in self._index_cache:
+                self._index_cache[cache_key] = block_window(
+                    lp.row_blocks().astype(np.int64), lp.col_blocks().astype(np.int64),
+                    rows if 0 in split else None, cols if 1 in split else None, w.device)
+            write_blocks(w, (rows[0], cols[0]), t, self._index_cache[cache_key])
         return layer_params
 
     # -- (de)serialization --------------------------------------------------------

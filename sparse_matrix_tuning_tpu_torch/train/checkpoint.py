@@ -19,13 +19,16 @@ per-layer state or the stacked scan state:
                    read by every rank of fsdp index f; an Orbax save of
                    sharded arrays is a collective in the JAX package too;
                    frozen_host.fsdp{f}.pt likewise, the slices of the scan
-                   state's host store
+                   state's host store; under the tensor axis (T > 1)
+                   state.fsdp{f}.tensor{t}.pt, the shards of the ranks at
+                   (fsdp f, tensor t)
   meta.json        phase, step, total_steps, best_eval_loss, dtype (a restore
                    under another --dtype is refused: fp16 states carry the
                    loss scaler's "loss_scale" and "good_steps"), mesh (a
-                   restore at another (data, fsdp) is refused by name: fit's
-                   batch skip counts global batches, and the shards are
-                   the saving mesh's); in the sparse phase "resolved": the
+                   restore at another (data, fsdp, tensor) is refused by
+                   name: fit's batch skip counts global batches, and the
+                   shards are the saving mesh's); in the sparse phase
+                   "resolved": the
                    layout the state was built in
   config.json, plan.json
 
@@ -110,11 +113,15 @@ def _predicted_layout(cfg, model_cfg, plan: SMTPlan, mesh=None) -> Dict:
 
 
 def _state_file(trainer, name: str = STATE_FILE) -> str:
-    """state.pt or frozen_host.pt, or under fsdp this rank's shards' file."""
+    """state.pt or frozen_host.pt, or under fsdp / tensor this rank's
+    shards' file (state.fsdp{f}.pt at tensor 1, as before the tensor axis,
+    state.fsdp{f}.tensor{t}.pt above)."""
     if trainer.sharding is None:
         return name
     stem, ext = os.path.splitext(name)
-    return f"{stem}.fsdp{trainer.mesh.fsdp_index}{ext}"
+    mesh = trainer.mesh
+    tensor = f".tensor{mesh.tensor_index}" if mesh.tensor > 1 else ""
+    return f"{stem}.fsdp{mesh.fsdp_index}{tensor}{ext}"
 
 
 def save_checkpoint(path: str, trainer) -> None:
@@ -211,12 +218,12 @@ def restore_checkpoint(path: str, trainer) -> None:
                          f"--dtype {trainer.cfg.dtype}: its parameters and its loss-scaler state "
                          f"(fp16 only) do not carry over; resume with --dtype {meta['dtype']}")
     saved_mesh, mesh = meta.get("mesh", [1, 1, 1]), _mesh_shape(trainer)
-    if saved_mesh[:2] != mesh[:2]:
+    if list(saved_mesh) != list(mesh):
         raise ValueError(f"checkpoint was saved at --mesh_shape {','.join(map(str, saved_mesh))} "
                          f"but the trainer runs {','.join(map(str, mesh))}: fit skips the "
                          "global batches already taken, whose size counts the data and fsdp "
-                         "axes, and each rank reads the shards of its fsdp index; resume with "
-                         f"--mesh_shape {','.join(map(str, saved_mesh))}")
+                         "axes, and each rank reads the shards of its fsdp and tensor index; "
+                         f"resume with --mesh_shape {','.join(map(str, saved_mesh))}")
     plan = None
     if os.path.exists(os.path.join(path, PLAN_FILE)):
         with open(os.path.join(path, PLAN_FILE)) as f:

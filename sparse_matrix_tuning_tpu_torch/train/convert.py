@@ -13,9 +13,10 @@ ATTENTION blocks or channels, so attention always uses "mean_abs" while
 MLP uses the configured strategy (fine_tune.py:306-313 vs :319-327,
 :472-477 vs :493-498).
 
-Under fsdp (a parallel/fsdp.Sharding) the block statistics come from the
-accumulators' shards, their partial sums combined over the fsdp group
-before any non-linearity (a 256-block may straddle two shards), and the
+Under fsdp and tensor (a parallel/fsdp.Sharding) the block statistics come
+from the accumulators' shards, their partial sums combined over the fsdp
+and tensor groups before any non-linearity (a 256-block may straddle two
+shards of either axis), and the
 sparse state is built one weight at a time from the gathered master and
 kept as this rank's shards, the int8 base quantized from the full weight;
 the scan state's stacks and its host store too
@@ -153,8 +154,9 @@ def _split_stats(flat_stats: Dict[str, np.ndarray]) -> Tuple[Dict, Dict]:
 def compute_matrix_selection(cfg: SMTConfig, acc: Dict[str, torch.Tensor],
                              all_2d_shapes, sharding=None) -> Dict:
     """acc: grad-sum (or per-step-stat) accumulators keyed '{layer}.{module}'
-    (under fsdp this rank's shards: per-step statistics are gathered whole,
-    grad sums reduced by fsdp.block_stats_sharded)."""
+    (under fsdp and tensor this rank's shards: per-step statistics are
+    gathered whole, grad sums reduced by fsdp.block_stats_sharded over both
+    axes, a block straddling either kind of shard)."""
     total_blocks = count_total_blocks(all_2d_shapes)
     n_attn = num_selected_blocks(cfg.downsample_attention_blocks_ratio, total_blocks)
     n_mlp = num_selected_blocks(cfg.downsample_mlp_blocks_ratio, total_blocks)
@@ -168,8 +170,7 @@ def compute_matrix_selection(cfg: SMTConfig, acc: Dict[str, torch.Tensor],
                     for ks, g in whole.items()}
         if sharding is not None:
             from sparse_matrix_tuning_tpu_torch.parallel.fsdp import block_stats_sharded
-            items = {ks: (g, sharding.dim(f"acc/{ks}"), sharding.offset(f"acc/{ks}", g),
-                          sharding.full_shape(f"acc/{ks}", g)) for ks, g in acc.items()}
+            items = {ks: sharding.stat_item(f"acc/{ks}", g) for ks, g in acc.items()}
             return {ks: _to_numpy(t) for ks, t in block_stats_sharded(
                 items, lambda ks: strategy, sharding.mesh).items()}
         return {ks: _to_numpy(block_stats(g, strategy)) for ks, g in acc.items()}

@@ -43,6 +43,17 @@ fsdp group, so a sharded leaf's grad is summed over the data group after
 the last microbatch and a whole leaf's (the norms) over the world; the
 clip norm sums the shards' squares over the fsdp group and counts a whole
 leaf's once; Adam, K2 among it, runs on the shards.
+
+The tensor axis (a mesh with T > 1; parallel/tensor.py): the forward runs
+each layer on its tensor slices and the loss over this rank's vocabulary
+rows (head_loss); the ranks of a tensor group see the same rows, so the
+loss and the grads of leaves whole over fsdp are summed over the batch
+group (the D*F ranks of one tensor index), not the world; the sparse
+phase's block grads are each rank's parts of the blocks (ops/
+sparse_linear.smt_linear(tensor=)), summed over the tensor group as well;
+the clip norm sums the squares of a tensor-split leaf over the tensor
+group and counts a leaf whole over tensor once, so it (and fp16's
+overflow test) is equal on every rank.
 """
 
 from __future__ import annotations
@@ -59,11 +70,12 @@ from sparse_matrix_tuning_tpu_torch.models.llama import (
 )
 from sparse_matrix_tuning_tpu_torch.ops.cuda.masked_adam import masked_adam
 from sparse_matrix_tuning_tpu_torch.ops.loss import (
-    chunked_causal_lm_loss, chunked_causal_lm_loss_q8)
+    chunked_causal_lm_loss, chunked_causal_lm_loss_q8, vocab_parallel_causal_lm_loss)
 from sparse_matrix_tuning_tpu_torch.ops.sparse_linear import (
     _resolve_impl, frozen_q8_linear, make_sparse_linear_dispatch)
 from sparse_matrix_tuning_tpu_torch.parallel.fsdp import LayerGather, block_stats_sharded
 from sparse_matrix_tuning_tpu_torch.parallel.mesh import all_reduce_
+from sparse_matrix_tuning_tpu_torch.parallel.tensor import to_tensor_region
 from sparse_matrix_tuning_tpu_torch.smt.optimizer import (
     AdamConfig, adam_step, clip_by_global_norm, full_ft_wd_mask, global_norm,
     make_qk_lr_scale,
@@ -75,7 +87,8 @@ def _cast_tree(tree, dtype):
     return tree_map(lambda p: p.to(dtype), tree)
 
 
-def accumulated_value_and_grad(loss_of, accum_steps: int, mesh=None, sharded=()):
+def accumulated_value_and_grad(loss_of, accum_steps: int, mesh=None, sharded=(),
+                               tensor_parts=()):
     """Microbatch gradient accumulation (the reference delegates this to the
     DeepSpeed engine). Returns vag(params, batch) -> (mean loss, grads):
     `params` is a flat {key: leaf tensor requiring grad}; the global batch's
@@ -89,7 +102,10 @@ def accumulated_value_and_grad(loss_of, accum_steps: int, mesh=None, sharded=())
     in buckets) after the last microbatch's backward. Under fsdp the
     grads of the `sharded` keys are reduce-scattered shards already
     (fsdp.gather's backward): they are summed over the data group, the
-    loss and the other grads over the world."""
+    loss and the other grads over the batch group (the world without a
+    tensor axis). The grads of the `tensor_parts` keys are each tensor rank's
+    parts (the tensor axis's block grads): summed over the tensor group
+    as well."""
 
     def vag(params: Dict[str, torch.Tensor], batch):
         for p in params.values():
@@ -107,8 +123,14 @@ def accumulated_value_and_grad(loss_of, accum_steps: int, mesh=None, sharded=())
         grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for k, p in params.items()}
         if mesh is not None:
-            all_reduce_([g for k, g in grads.items() if k in sharded], mesh, "data")
-            all_reduce_([total] + [g for k, g in grads.items() if k not in sharded], mesh)
+            split = [g for k, g in grads.items() if k in sharded]
+            parts = tensor_parts
+            whole = [g for k, g in grads.items() if k not in sharded and k not in parts]
+            all_reduce_(split, mesh, "data")
+            all_reduce_([g for k, g in grads.items() if k in sharded and k in parts], mesh,
+                        "tensor")
+            all_reduce_([total] + whole, mesh, "batch")
+            all_reduce_([g for k, g in grads.items() if k not in sharded and k in parts], mesh)
         if accum_steps > 1:
             inv = 1.0 / accum_steps
             total = total * inv
@@ -150,7 +172,7 @@ def dropout_key(cfg: SMTConfig, state: Dict, sparse: bool, mesh=None):
     if cfg.dropout <= 0:
         return None
     key = (cfg.seed + (1 if sparse else 0), int(state["step"]))
-    return key if mesh is None else key + (mesh.rank, mesh.batch_shards)
+    return key if mesh is None else key + (mesh.batch_index, mesh.batch_shards)
 
 
 def compute_loss(params, batch, cfg: SMTConfig, model_cfg: LlamaConfig,
@@ -182,9 +204,12 @@ def head_loss(run, params, batch, cfg: SMTConfig, model_cfg: LlamaConfig, sparse
     """The loss of compute_loss over a decoder `run(return_hidden)` (forward
     or, for the scan state, forward_scan): the loss path and the head as
     compute_loss describes them; under fsdp the head (or the int8 head's
-    wq) is gathered here."""
+    wq) is gathered here; under the tensor axis (fsdp.tensor) the head is
+    this rank's vocabulary rows and both loss forms are vocabulary-parallel
+    (ops/loss.py)."""
     b, sq = batch["input_ids"].shape
     denom = batch.get("loss_denom")  # data parallelism: the global count
+    tensor = getattr(fsdp, "tensor", None)
     if fsdp is not None:
         q_head = fsdp.q_head(q_head)
     if _use_chunked_loss(cfg, model_cfg, sparse=sparse, batch_tokens=b * (sq - 1)):
@@ -194,11 +219,16 @@ def head_loss(run, params, batch, cfg: SMTConfig, model_cfg: LlamaConfig, sparse
                                              batch["labels"], cfg.vocab_chunk, denom)
         head = lm_head_weight(params, model_cfg) if fsdp is None else \
             fsdp.head(params, model_cfg.tie_word_embeddings)
-        return chunked_causal_lm_loss(hidden, head, batch["labels"], cfg.vocab_chunk, denom)
+        if tensor is not None:
+            hidden = to_tensor_region(hidden, tensor)
+        return chunked_causal_lm_loss(hidden, head, batch["labels"], cfg.vocab_chunk, denom,
+                                      tensor)
     if q_head is not None:
         # fp32 input -> fp32 logits straight from the int32 product
         logits = frozen_q8_linear(run(True).float(), q_head["wq"], q_head["sw"])
         return causal_lm_loss(logits, batch["labels"], denom)
+    if tensor is not None:
+        return vocab_parallel_causal_lm_loss(run(False), batch["labels"], tensor, denom)
     return causal_lm_loss(run(False), batch["labels"], denom)
 
 
@@ -271,17 +301,27 @@ def loss_scaler(cfg: SMTConfig, device) -> Dict[str, torch.Tensor]:
             "good_steps": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def sharded_global_norm(grads: Dict[str, torch.Tensor], mesh=None, sharded=()) -> torch.Tensor:
+def sharded_global_norm(grads: Dict[str, torch.Tensor], mesh=None, sharded=(),
+                        tensor_split=()) -> torch.Tensor:
     """global_norm of grads of which the `sharded` keys are this rank's
-    fsdp shards: their squares summed over the fsdp group, a whole leaf's
-    counted once. Equal on every rank; global_norm without fsdp."""
-    if mesh is None or mesh.fsdp == 1 or not sharded:
+    fsdp shards and the `tensor_split` keys its tensor slices: their
+    squares summed over the fsdp group, the tensor group, or both, a leaf
+    whole over an axis counted once over it. Equal on every rank;
+    global_norm without fsdp or tensor."""
+    if mesh is None or (mesh.fsdp == 1 and mesh.tensor == 1) or not (sharded or tensor_split):
         return global_norm(grads)
-    parts = [torch.sum(torch.square(g.float())) for k, g in grads.items() if k in sharded]
-    split = torch.sum(torch.stack(parts))
-    all_reduce_([split], mesh, "fsdp")
-    whole = [torch.sum(torch.square(g.float())) for k, g in grads.items() if k not in sharded]
-    return torch.sqrt(split + (torch.sum(torch.stack(whole)) if whole else 0.0))
+    sums = {kind: [] for kind in ("both", "fsdp", "tensor", "whole")}
+    for k, g in grads.items():
+        kind = ("both" if k in tensor_split else "fsdp") if k in sharded else \
+            ("tensor" if k in tensor_split else "whole")
+        sums[kind].append(torch.sum(torch.square(g.float())))
+    zero = next(iter(grads.values())).new_zeros((), dtype=torch.float32)
+    s = {kind: torch.sum(torch.stack(v)) if v else zero for kind, v in sums.items()}
+    over_f = torch.stack([s["both"], s["fsdp"]])
+    all_reduce_([over_f], mesh, "fsdp")
+    over_t = torch.stack([over_f[0], s["tensor"]])
+    all_reduce_([over_t], mesh, "tensor")
+    return torch.sqrt(over_t[0] + over_t[1] + over_f[1] + s["whole"])
 
 
 @torch.no_grad()
@@ -418,11 +458,13 @@ def build_warmup_step(cfg: SMTConfig, model_cfg: LlamaConfig,
 
         flat = flatten_tree(master)
         sharded = () if sharding is None else sharding.sharded_keys("master", flat)
+        tsplit = () if sharding is None else sharding.tensor_keys("master", flat)
         vag = accumulated_value_and_grad(loss_of, cfg.gradient_accumulation_steps, mesh, sharded)
         loss, grads = vag(flat, batch)
 
         with torch.no_grad():
-            norm_of = partial(sharded_global_norm, mesh=mesh, sharded=sharded)
+            norm_of = partial(sharded_global_norm, mesh=mesh, sharded=sharded,
+                              tensor_split=tsplit)
             ls_metrics = {}
             if use_ls:
                 loss, grads, norm, ls_metrics, finite = unscale_and_check(loss, grads, state, cfg,
@@ -455,8 +497,8 @@ def _harvest(cfg: SMTConfig, accs: Dict[str, torch.Tensor], grads, mesh=None, sh
     harvests before optimizer clipping (fine_tune.py:716): the grad itself
     (grad_sum) or select.block_stats_step's per-step statistic. Under fsdp
     the statistic's partial sums over the grad's shards are combined over
-    the fsdp group first (fsdp.block_stats_sharded), and each rank keeps
-    its accumulator's shard."""
+    the fsdp and tensor groups first (fsdp.block_stats_sharded), and each
+    rank keeps its accumulator's shard."""
     from sparse_matrix_tuning_tpu_torch.train.convert import harvest_strategy
     if cfg.saliency_accumulation != "per_step_stats":
         for ks, acc in accs.items():
@@ -471,13 +513,11 @@ def _harvest(cfg: SMTConfig, accs: Dict[str, torch.Tensor], grads, mesh=None, sh
     items = {}
     for ks in accs:
         li, mod = ks.split(".", 1)
-        path, g = f"master/layers/{li}/{mod}", grads[f"layers/{li}/{mod}"]
-        items[ks] = (g, sharding.dim(path), sharding.offset(path, g),
-                     sharding.full_shape(path, g))
+        items[ks] = sharding.stat_item(f"master/layers/{li}/{mod}", grads[f"layers/{li}/{mod}"])
     stats = block_stats_sharded(items, lambda ks: harvest_strategy(cfg, ks.split(".", 1)[1]),
                                 mesh, signed=True)
     for ks, acc in accs.items():
-        acc.add_(sharding.mine(stats[ks], sharding.dim(f"acc/{ks}")))
+        acc.add_(sharding.local(f"acc/{ks}", stats[ks]))
 
 
 def _skipped(state: Dict, leaves: Dict[str, torch.Tensor], loss, norm, lr, ls_metrics):
@@ -576,6 +616,7 @@ def build_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan,
     lowest_layer = min(lp.layer for lp in plan.linears.values())
     adam = block_adam(adam_cfg, lr_scale)
     use_ls = cfg.dtype == "fp16"
+    tensor = mesh if mesh is not None and mesh.tensor > 1 else None
 
     def step(state: Dict, batch: Dict) -> tuple:
         params = state["params"]
@@ -593,7 +634,8 @@ def build_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan,
                 gather = LayerGather(
                     sharding, "params", extras={"trainable": tr, "q": q or {}},
                     make_linear=lambda t, qw: make_sparse_linear_dispatch(
-                        plan, t, impl, qweights=qw if q is not None else None))
+                        plan, t, impl, qweights=qw if q is not None else None,
+                        tensor=tensor))
             raw = compute_loss(params, mb, cfg, model_cfg, linear=linear,
                                remat=cfg.sparse_remat,
                                stop_grad_below_layer=lowest_layer, sparse=True,
@@ -601,7 +643,10 @@ def build_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan,
             return raw * state["loss_scale"] if use_ls else raw
 
         sharded = () if sharding is None else sharding.sharded_keys("trainable", trainable)
-        vag = accumulated_value_and_grad(loss_of, cfg.gradient_accumulation_steps, mesh, sharded)
+        # the tensor axis: each rank's K1 gives its parts of the blocks
+        parts = set(trainable) if tensor is not None else ()
+        vag = accumulated_value_and_grad(loss_of, cfg.gradient_accumulation_steps, mesh, sharded,
+                                         parts)
         loss, grads = vag(trainable, batch)
         with torch.no_grad():
             norm_of = partial(sharded_global_norm, mesh=mesh, sharded=sharded)

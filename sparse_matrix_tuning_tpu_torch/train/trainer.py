@@ -8,14 +8,16 @@ deepspeed/fine_tune.py:72-864. In channel mode the warm-up steps only
 harvest activation saliency (steps.build_channel_warmup_step) and do not
 train.
 
-On a mesh (`mesh`, `--mesh_shape D,F,1`) every rank takes the identical
+On a mesh (`mesh`, `--mesh_shape D,F,T`) every rank takes the identical
 global batch of B * D * F * A rows and steps on its own rows
-(data/sft.shard_batch); the steps reduce the grads. Over data alone (F 1)
-every rank holds a full replica. Over fsdp (F > 1) every rank holds its
-shards of the state (parallel/fsdp.py; `self.sharding` records their
-dims): the trainer shards the params it is given (or takes shards made by
-models/hf_io.load_hf_params_sharded with their dims), and the HF export
-gathers leaf by leaf to the host. The scan layouts (--scan_layers on, and
+(data/sft.shard_batch; the T ranks of a tensor group share theirs); the
+steps reduce the grads. Over data alone (F 1, T 1) every rank holds a
+full replica. Over fsdp (F > 1) or tensor (T > 1, matrix mode over the
+dense base in the per-layer layout; parallel/tensor.py) every rank holds
+its shards of the state (parallel/fsdp.py; `self.sharding` records their
+dims over both axes): the trainer shards the params it is given (or takes
+shards made by models/hf_io.load_hf_params_sharded with their dims), and
+the HF export and eval generation gather leaf by leaf over both axes. The scan layouts (--scan_layers on, and
 channel + int8 at depth) convert the sharded warm-up into a sharded scan
 state, whose host store of frozen weights holds this rank's slices
 (train/scan_phase.build_scan_sparse_state). Eval losses are reduced once
@@ -56,23 +58,28 @@ class SMTTrainer:
     on `device`, default the mesh's or else the params' device).
     total_steps: optimizer-step horizon for the LR schedule (num_ft_epochs *
     steps_per_epoch). mesh: parallel/mesh.Mesh (every rank builds its
-    trainer from the same params and seed). param_dims: `params` are
-    already this rank's fsdp shards, sharded on these dims by state path
+    trainer from the same params and seed). param_sharding: `params` are
+    already this rank's shards, split on the fsdp dims (`dims`) and the
+    tensor dims (`tdims`) of this parallel/fsdp.Sharding by state path
     "master/..." (models/hf_io.load_hf_params_sharded); without it a mesh
-    with F > 1 shards the full params here."""
+    with F or T above 1 shards the full params here."""
 
     def __init__(self, cfg: SMTConfig, model_cfg: LlamaConfig, params,
-                 total_steps: int, device=None, mesh=None, param_dims=None):
+                 total_steps: int, device=None, mesh=None, param_sharding=None):
         if device is None:
             device = mesh.device if mesh is not None else params["embed_tokens"].device
         self._init_common(cfg, model_cfg, total_steps, device, mesh)
         self.phase = "warmup"
         sh = self.sharding
+        if mesh is not None:
+            from sparse_matrix_tuning_tpu_torch.parallel.mesh import refuse_tensor_model
+            refuse_tensor_model(model_cfg, mesh.tensor, params)
         if sh is not None:
-            if param_dims is None:
+            if param_sharding is None:
                 params = sh.shard_tree(params, "master")
             else:
-                sh.dims.update(param_dims)
+                sh.dims.update(param_sharding.dims)
+                sh.tdims.update(param_sharding.tdims)
             self._all_2d_shapes = [sh.full_shape(f"master/{k}", p)
                                    for k, p in flatten_tree(params).items() if p.dim() == 2]
         else:
@@ -93,8 +100,12 @@ class SMTTrainer:
                      mesh=None):
         self.cfg = cfg
         self.mesh = mesh
-        # the fsdp axis: the dims of this rank's shards by state path
-        self.sharding = Sharding(mesh) if mesh is not None and mesh.fsdp > 1 else None
+        if mesh is not None:   # the config may name no mesh_shape (a mesh built in code)
+            from sparse_matrix_tuning_tpu_torch.parallel.mesh import refuse_sharded_axes
+            refuse_sharded_axes(mesh.shape, cfg)
+        # the fsdp and tensor axes: the dims of this rank's shards by state path
+        self.sharding = Sharding(mesh) if mesh is not None and (
+            mesh.fsdp > 1 or mesh.tensor > 1) else None
         self.model_cfg = model_cfg
         self.total_steps = int(total_steps)
         self.device = torch.device(device)
@@ -120,7 +131,7 @@ class SMTTrainer:
         from sparse_matrix_tuning_tpu_torch.train.scan_phase import build_scan_state_from_hf
 
         model_cfg = model_cfg or load_hf_config(model_dir)
-        if mesh is not None and mesh.fsdp > 1:
+        if mesh is not None and (mesh.fsdp > 1 or mesh.tensor > 1):
             raise NotImplementedError(
                 f"sparse_scan_from_hf (--sparse_from_plan) on mesh {tuple(mesh.shape)}: the JAX "
                 "package's entry runs on one device (it sets no mesh), so it has no sharded form; "
@@ -263,14 +274,15 @@ class SMTTrainer:
     def evaluate(self, eval_batches: Iterable[Dict[str, np.ndarray]]):
         """Mean eval loss + perplexity (reference helper.py:210-245): each
         global batch's loss is token-weighted over the whole batch (on a
-        mesh the ranks' parts, summed in one all-reduce), and the batches
+        mesh the ranks' parts, summed in one all-reduce over the batch
+        group: a tensor group's ranks hold the same part), and the batches
         weigh equally, as JAX's evaluate."""
         losses = [self._eval_step(self.state, self._to_device(b)) for b in eval_batches]
         if not losses:
             return float("inf"), float("inf")
         losses = torch.stack(losses)
         if self.mesh is not None:
-            all_reduce_([losses], self.mesh)
+            all_reduce_([losses], self.mesh, "batch")
         loss = float(torch.mean(losses))
         return float(np.exp(min(loss, 80.0))), loss
 

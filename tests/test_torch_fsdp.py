@@ -319,7 +319,11 @@ def test_block_stats_from_straddling_shards(f, dim, strategy):
     full = torch.from_numpy(tp.seeded_normal((768, 768), 5 + f + dim))
     shards = full.chunk(f, dim)
     n = shards[0].shape[dim]
-    total = sum(block_partials(s, dim, i * n, full.shape, PARTIAL_KIND[strategy])
+
+    def window(i):  # the shard's (first, n) rows and columns
+        return [(i * n, n) if d == dim else (0, 768) for d in (0, 1)]
+
+    total = sum(block_partials(s, *window(i), full.shape, PARTIAL_KIND[strategy])
                 for i, s in enumerate(shards))
     np.testing.assert_allclose(finish_block_stat(total, strategy).numpy(),
                                block_stats(full, strategy).numpy(), rtol=1e-5, atol=1e-7)
@@ -351,9 +355,10 @@ def test_scatter_into_shards(f, dim):
             shard = shard.clone()
             n = shard.shape[dim]
             if mode == "matrix":
-                write_blocks(shard, dim, i * n, t, block_window(
-                    lp.row_blocks().astype(np.int64), lp.col_blocks().astype(np.int64), dim,
-                    i * n, n, "cpu"))
+                extent = (i * n, n)
+                write_blocks(shard, (i * n, 0) if dim == 0 else (0, i * n), t, block_window(
+                    lp.row_blocks().astype(np.int64), lp.col_blocks().astype(np.int64),
+                    extent if dim == 0 else None, extent if dim == 1 else None, "cpu"))
             else:
                 write_columns(shard, dim, i * n, t, column_window(
                     np.asarray(cols, np.int64), dim, i * n, n, "cpu"))

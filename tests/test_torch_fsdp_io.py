@@ -111,13 +111,13 @@ def test_sharded_load_is_slices_of_the_full_load(f, tiny_hf_dir):  # noqa: F811
                 for path, a in jax.tree_util.tree_flatten_with_path(jax_tree)[0]}
     split = 0
     for i in range(f):
-        params, dims = load_hf_params_sharded(d, Mesh((1, f, 1), i, torch.device("cpu")), cfg,
-                                              dtype=torch.float32)
+        params, sh = load_hf_params_sharded(d, Mesh((1, f, 1), i, torch.device("cpu")), cfg,
+                                            dtype=torch.float32)
         mine = flatten_tree(params)
         assert set(mine) == set(full) == set(jax_flat)
         device = jmesh.devices[0, i, 0]
         for k, t in mine.items():
-            dim = dims.get(f"master/{k}")
+            dim = sh.dim(f"master/{k}")
             want = full[k] if dim is None else full[k].chunk(f, dim)[i]
             assert torch.equal(t, want), k
             shard = [s for s in jax_flat[k].addressable_shards if s.device == device][0]

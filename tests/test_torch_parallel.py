@@ -289,14 +289,19 @@ def test_shard_batch_carries_global_microbatch_counts():
     ((2, 2, 1), None, "with fsdp 2 .* use --mesh_shape 4,1,1"),
 ])
 def test_sharded_axes_refused(shape, err, match):
-    """The tensor axis is refused; the fsdp axis is taken, with the scan
-    layouts too, but not with --sparse_from_plan, whose JAX entry runs on
-    one device (tests/test_torch_fsdp_io.py runs the scan layouts)."""
+    """The tensor axis is taken in matrix mode over the dense base, what it
+    does not run refused by name (tests/test_torch_tensor.py has each case);
+    the fsdp axis is taken, with the scan layouts too, but not with
+    --sparse_from_plan, whose JAX entry runs on one device
+    (tests/test_torch_fsdp_io.py runs the scan layouts)."""
     if err is not None:
+        int8 = SMTConfig(frozen_quant="int8")
         with pytest.raises(err, match=match):
-            refuse_sharded_axes(shape)
+            refuse_sharded_axes(shape, int8)
         with pytest.raises(err, match=match):
-            SMTConfig(mesh_shape=list(shape))
+            SMTConfig(mesh_shape=list(shape), frozen_quant="int8")
+        refuse_sharded_axes(shape, SMTConfig())
+        assert SMTConfig(mesh_shape=list(shape)).mesh_shape == list(shape)
         return
     refuse_sharded_axes(shape)
     assert SMTConfig(mesh_shape=list(shape)).mesh_shape == list(shape)
@@ -330,8 +335,8 @@ def test_make_mesh_checks_the_world():
         make_mesh((2, 1, 1), world=4)
     with pytest.raises(ValueError, match="!= world size 2"):
         make_mesh([4, 1, 1], world=2)
-    with pytest.raises(NotImplementedError, match="tensor 4"):
-        make_mesh((1, 1, 4), world=4)
+    with pytest.raises(RuntimeError, match="needs the process group"):
+        make_mesh((1, 1, 4), world=4)  # the tensor axis passes the checks
     with pytest.raises(RuntimeError, match="needs the process group"):
         make_mesh((1, 4, 1), world=4)  # the fsdp axis passes the checks
     with pytest.raises(RuntimeError, match="needs the process group"):

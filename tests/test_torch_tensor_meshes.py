@@ -1,0 +1,308 @@
+"""The tensor axis (`--mesh_shape D,F,T`, parallel/tensor.py) over gloo
+ranks on the CPU, spawned once per mesh shape by torch.multiprocessing
+(tests/torch_dp_ranks.py, which imports no JAX), against the JAX
+SMTTrainer on the same mesh over conftest's virtual CPU devices (its
+attention the einsum there: JAX refuses its fused kernel on an all-axes>1
+CPU mesh) and against the port in one process at the same global batch.
+Tiny Llama (hidden 256: q_proj's 256-row block straddles the two tensor
+shards), fp32 unless said, inputs from numpy seeds
+(tests/test_torch_parallel.py's scenarios and bounds).
+
+  (1, 1, 2)  matrix (with greedy decoding from the gathered weights),
+             chunked (the chunked vocabulary-parallel loss with K3's plain
+             version on each rank's heads), fp16, per_step (the per-step
+             block statistics of the grads' two-axis slices, as TinyLlama
+             resolves "auto"), and a planted inf in one tensor rank's grad
+             slice
+  (1, 2, 2)  matrix, accum
+  (2, 2, 2)  matrix
+
+Every rank's state bytes are those of JAX's shard for its device (its
+state_shardings placement, after the warm-up's build and at the end);
+the leaves whole over tensor are bit-equal across a tensor group. Resume
+at (1, 1, 2) bit for bit, and the CLI at (1, 2, 2) under torchrun's
+environment against the one-process CLI.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+import torch_dp_ranks as ranks
+import torch_parity as tp
+from test_torch_fsdp import assert_state_close
+from test_torch_parallel import (
+    D1_RTOL, FP16_RTOL, JAX_CFG, JAX_RTOL, MODEL, N, N_WARMUP, _cfg, batches)
+from test_torch_parallel_eval import _fine_tune_args, tiny_hf  # noqa: F401
+
+from sparse_matrix_tuning_tpu.config import SMTConfig as JaxSMTConfig
+from sparse_matrix_tuning_tpu.models.llama import init_params as jax_init_params
+from sparse_matrix_tuning_tpu.parallel.mesh import make_mesh as jax_make_mesh
+from sparse_matrix_tuning_tpu.parallel.mesh import set_compute_mesh, state_shardings
+from sparse_matrix_tuning_tpu.train.trainer import SMTTrainer as JaxSMTTrainer
+
+# mesh -> {name: (config kwargs, batches kwargs, bound against JAX or None)}
+MESHES = {
+    (1, 1, 2): {
+        "matrix": (_cfg(), {}, None),
+        "chunked": (_cfg(loss_impl="chunked", vocab_chunk=48, attn_impl="fullk"), {}, None),
+        "fp16": (_cfg(dtype="fp16"), dict(masked_rows=(0, 1)), None),
+        "per_step": (_cfg(saliency_accumulation="per_step_stats"), {}, None),
+    },
+    (1, 2, 2): {
+        "matrix": (_cfg(per_device_ft_batch_size=1), {}, JAX_RTOL),
+        "accum": (_cfg(per_device_ft_batch_size=1, gradient_accumulation_steps=2),
+                  dict(pads=(32, 8, 20, 32)), None),
+    },
+    (2, 2, 2): {
+        "matrix": (_cfg(per_device_ft_batch_size=1), {}, JAX_RTOL),
+    },
+}
+CASES = [(shape, name) for shape, sc in MESHES.items() for name in sc]
+JAX_CASES = [c for c in CASES if MESHES[c[0]][c[1]][2] is not None]
+
+
+def _id(case):
+    return f"{''.join(map(str, case[0]))}-{case[1]}"
+
+
+def _shard_shapes(state, mesh, mode, placed):
+    """{path: {device index in the mesh: shard shape}} of JAX's state:
+    its arrays' addressable shards where `placed` (the warm-up state as the
+    trainer placed it), else the state_shardings placement of its leaves
+    (the sparse state, whose step outputs GSPMD lays out as it likes)."""
+    flat = jax.tree_util.tree_flatten_with_path(state)[0]
+    sh = None if placed else jax.tree_util.tree_flatten(state_shardings(state, mesh, mode))[0]
+    index = {d.id: i for i, d in enumerate(mesh.devices.flat)}
+    out = {}
+    for n, (path, a) in enumerate(flat):
+        key = "/".join(getattr(p, "key", str(p)) for p in path)
+        if placed:
+            out[key] = {index[s.device.id]: tuple(s.data.shape) for s in a.addressable_shards}
+        else:
+            shape = tuple(sh[n].shard_shape(a.shape))
+            out[key] = {i: shape for i in index.values()}
+    return out
+
+
+def _jax_run(spec, shape, bs, eval_path):
+    jparams = jax_init_params(jax.random.PRNGKey(0), JAX_CFG)
+    n = int(np.prod(shape))
+    mesh = jax_make_mesh(shape, jax.devices()[:n])
+    try:
+        jt = JaxSMTTrainer(JaxSMTConfig(**spec["cfg"]), JAX_CFG, jparams,
+                           total_steps=spec["total_steps"], mesh=mesh)
+        warm = _shard_shapes(jt.state, mesh, None, placed=True)
+        metrics = [jt.train_step(b) for b in bs]
+        return {"loss": [float(m["loss"]) for m in metrics],
+                "fingerprint": jt.plan.fingerprint(),
+                "eval_loss": jt.evaluate(torch.load(eval_path, weights_only=False))[1],
+                "shards": (warm, _shard_shapes(jt.state, mesh, "matrix", placed=False))}
+    finally:  # the JAX trainer leaves its compute mesh set (trainer.py:68)
+        set_compute_mesh(None)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Every case on its mesh (one spawn per mesh, the (1, 1, 2) one with
+    the overflow probe), in one process, and on JAX's mesh."""
+    tmp = tmp_path_factory.mktemp("tensor")
+    params = tp.port_params(jax_init_params(jax.random.PRNGKey(0), JAX_CFG))
+    torch.save(params, tmp / "params.pt")
+    torch.save(batches(2, pads=(32, 20, 12, 6), seed=9), tmp / "eval.pt")
+    out = {}
+    for shape, scenarios in MESHES.items():
+        specs, bs_of = [], {}
+        tag = "".join(map(str, shape))
+        for name, (cfg, bkw, _) in scenarios.items():
+            bs_of[name] = batches(N, **bkw)
+            torch.save(bs_of[name], tmp / f"{tag}_{name}.pt")
+            specs.append({"name": f"{tag}_{name}", "cfg": dict(cfg), "model": MODEL,
+                          "total_steps": N, "params": str(tmp / "params.pt"),
+                          "batches": str(tmp / f"{tag}_{name}.pt"),
+                          "eval_batches": str(tmp / "eval.pt"), "export": True,
+                          "generate": name == "matrix" and shape == (1, 1, 2)})
+        probe = [{"name": "overflow", "probe": "overflow"}] if shape == (1, 1, 2) else []
+        world = int(np.prod(shape))
+        ranks.spawn(ranks.train_ranks, world, tmp, specs + probe, str(tmp), shape)
+        for spec, name in zip(specs, scenarios):
+            got = [torch.load(tmp / f"{spec['name']}.{r}.pt", weights_only=False)
+                   for r in range(world)]
+            out[(shape, name)] = {"ranks": got, "d1": ranks.run_scenario(spec), "jax": (
+                _jax_run(spec, shape, bs_of[name], tmp / "eval.pt")
+                if (shape, name) in JAX_CASES else None)}
+        if probe:
+            out["overflow"] = [torch.load(tmp / f"overflow.{r}.pt", weights_only=False)
+                               for r in range(world)]
+    return out
+
+
+def _ranks(runs, case):
+    for r, got in enumerate(runs[case]["ranks"]):
+        assert "error" not in got, f"rank {r}: {got['error']}"
+    return runs[case]["ranks"]
+
+
+def _losses(run):
+    return [m["loss"] for m in run["metrics"]]
+
+
+@pytest.mark.parametrize("case", JAX_CASES, ids=_id)
+def test_tensor_ranks_match_jax_mesh(runs, case):
+    """Losses within 1e-4 every step and the eval loss, the same plan
+    fingerprint, against JAX's SMTTrainer on the same mesh."""
+    r0, want = _ranks(runs, case)[0], runs[case]["jax"]
+    assert r0["fingerprint"] == want["fingerprint"]
+    np.testing.assert_allclose(_losses(r0), want["loss"], rtol=JAX_RTOL, atol=0)
+    np.testing.assert_allclose(r0["eval_loss"], want["eval_loss"], rtol=JAX_RTOL)
+
+
+@pytest.mark.parametrize("case", JAX_CASES, ids=_id)
+def test_each_rank_holds_jax_shard_of_its_device(runs, case):
+    """Each rank's leaves have the shapes of JAX's shards for the device at
+    its place in the mesh: the warm-up state as JAX's trainer placed it,
+    the sparse state as its state_shardings place it; at least one leaf
+    split over both axes."""
+    got, (warm, sparse) = _ranks(runs, case), runs[case]["jax"]["shards"]
+    for r, g in enumerate(got):
+        for phase, mine, jax_shards in zip(("warm-up", "sparse"), g["shapes"], (warm, sparse)):
+            common = set(mine) & set(jax_shards)
+            assert set(mine) - common <= {"loss_scale", "good_steps"}, (phase, set(mine) - common)
+            for k in common:
+                assert mine[k] == jax_shards[k][r], (r, phase, k, mine[k], jax_shards[k][r])
+        assert any(k.startswith("params/layers") for k in g["tdims"])
+
+
+# Against one process the tensor axis reorders fp32 sums the data and fsdp
+# axes leave alone (a row-parallel product summed over the group, the
+# loss's log-sum-exp over vocabulary slices): losses and grad norms agree
+# within D1_RTOL through the first sparse step (measured worst 4.0e-7).
+# Adam's first sparse update is lr * sign(g), so an element whose grad sits
+# at roundoff level may step the other way (2 * smt_lr apart): 98 of
+# q_proj's 65,536 block entries did at (1, 1, 2), which moves the next
+# losses by 1.2e-5 and the sparse grad norms (of the two trained blocks
+# alone) by 2.0e-4; from there the losses are held to the JAX bound
+# (JAX_RTOL) and the norms to TP_NORM_RTOL, and the state by the fsdp
+# tests' rule with a larger share of such entries (TP_STATE_OFF_SHARE;
+# measured 0.15%).
+TP_NORM_RTOL, TP_STATE_OFF_SHARE = 1e-3, 5e-3
+
+
+@pytest.mark.parametrize("case", CASES, ids=_id)
+def test_tensor_ranks_match_one_process(runs, case):
+    """Losses, grad norms, eval loss and the whole final state (gathered)
+    against the port in one process (fp32: the bounds above; fp16: the
+    fp16 bound with the same overflow flags); every rank reports the same;
+    the export equals the gathered state; the leaves whole over tensor are
+    bit-equal across each tensor group, the split ones differ."""
+    got, one = _ranks(runs, case), runs[case]["d1"]
+    r0 = got[0]
+    fp16 = MESHES[case[0]][case[1]][0]["dtype"] == "fp16"
+    assert r0["fingerprint"] == one["fingerprint"] and r0["phase"] == "sparse"
+    for r in got[1:]:
+        np.testing.assert_equal(r["metrics"], r0["metrics"])
+        assert r["eval_loss"] == r0["eval_loss"]
+    flags = [bool(m.get("overflow", 0.0)) for m in r0["metrics"]]
+    assert flags == [bool(m.get("overflow", 0.0)) for m in one["metrics"]]
+    norms = [(a.get("grad_norm", 0.0) if not f else 1.0, b.get("grad_norm", 0.0) if not f
+              else 1.0) for a, b, f in zip(r0["metrics"], one["metrics"], flags)]
+    first = N_WARMUP + 1
+    for sl, rtol, norm_rtol in (
+            (slice(0, first), D1_RTOL, D1_RTOL), (slice(first, None), JAX_RTOL, TP_NORM_RTOL)):
+        rtol, norm_rtol = (FP16_RTOL[0], FP16_RTOL[0]) if fp16 else (rtol, norm_rtol)
+        np.testing.assert_allclose(_losses(r0)[sl], _losses(one)[sl], rtol=rtol, atol=0)
+        np.testing.assert_allclose(*zip(*norms[sl]), rtol=norm_rtol)
+    np.testing.assert_allclose(r0["eval_loss"], one["eval_loss"],
+                               rtol=FP16_RTOL[0] if fp16 else JAX_RTOL)
+    cfg = MESHES[case[0]][case[1]][0]
+    adam_bound = 2 * (cfg["ft_learning_rate"] * cfg["full_ft_steps"]
+                      + cfg["smt_lr"] * (N - cfg["full_ft_steps"]))
+    assert set(r0["full"]) == set(one["full"])
+    for k, v in one["full"].items():
+        for r in got:
+            assert torch.equal(r["full"][k], r0["full"][k]), k
+        if not fp16:
+            a, b = tp.np32(r0["full"][k]), tp.np32(v)
+            off = ~np.isclose(a, b, rtol=1e-4, atol=1e-4)
+            assert off.mean() <= TP_STATE_OFF_SHARE, (k, int(off.sum()), a.size)
+            assert np.all(np.abs(a - b)[off] <= adam_bound), k
+    for k, v in r0["export"].items():
+        assert torch.equal(v, r0["full"][f"params/{k}"]), k
+    t = case[0][2]
+    for r, g in enumerate(got):
+        peer = got[r - r % t + (r + 1) % t]   # the next rank of its tensor group
+        split = set(g["tdims"])
+        assert split and split == set(peer["tdims"])
+        for k, sums in g["checksums"].items():
+            assert (sums == peer["checksums"][k]) != (k in split), (r, k)
+
+
+def test_greedy_decode_from_gathered_weights(runs):
+    """After the (1, 1, 2) run every rank decodes from the weights gathered
+    over both axes (trainer.decode_params) the tokens one process decodes."""
+    got, one = _ranks(runs, ((1, 1, 2), "matrix")), runs[((1, 1, 2), "matrix")]["d1"]
+    for g in got:
+        np.testing.assert_array_equal(g["tokens"], one["tokens"])
+
+
+def test_fp16_overflow_of_one_tensor_rank_skips_all(runs):
+    """An inf in one tensor rank's slice of a tensor-split grad makes the
+    clip norm inf on every rank of the group, so every rank skips the step
+    and halves its scale alike; without it the norm counts each slice
+    once (sqrt(2 * 12 * 4 + 5))."""
+    got = runs["overflow"]
+    for g in got:
+        assert "error" not in g, g["error"]
+        assert (g["finite"], g["norm"], g["scale"], g["good"]) == (False, float("inf"), 512.0, 0)
+        np.testing.assert_allclose(g["clean_norm"], np.sqrt(2 * 12 * 4 + 5), rtol=1e-6)
+
+
+@pytest.mark.parametrize("stop", [1, N_WARMUP + 1], ids=["warmup", "sparse"])
+def test_tensor_checkpoint_resumes_bit_for_bit(tmp_path, stop):
+    """At (1, 1, 2) a run stopped in the warm-up or the sparse phase (each
+    rank writes state.fsdp0.tensor{t}.pt) and restored into fresh trainers
+    equals the straight run bit for bit: losses and every leaf's checksum
+    after every step; a restore on another mesh is refused by name."""
+    params = tp.port_params(jax_init_params(jax.random.PRNGKey(0), JAX_CFG))
+    torch.save(params, tmp_path / "params.pt")
+    torch.save(batches(N_WARMUP + 3), tmp_path / "batches.pt")
+    cfg = _cfg(output_dir=str(tmp_path / "out"))
+    spec = {"cfg": cfg, "model": MODEL, "total_steps": N_WARMUP + 3,
+            "params": str(tmp_path / "params.pt"), "batches": str(tmp_path / "batches.pt")}
+    ranks.spawn(ranks.checkpoint_ranks, 2, tmp_path, spec, stop, str(tmp_path), (1, 1, 2),
+                (1, 2, 1))
+    got = [torch.load(tmp_path / f"ckpt.{r}.pt", weights_only=False) for r in range(2)]
+    files = sorted(p.name for p in (tmp_path / "out" / "ckpt").glob("state*.pt"))
+    assert files == ["state.fsdp0.tensor0.pt", "state.fsdp0.tensor1.pt"]
+    for r, g in enumerate(got):
+        assert g["phase"] == "sparse" and g["resumed"] == g["straight"], r
+        for i, (a, b) in enumerate(zip(g["resumed_sums"], g["straight_sums"])):
+            differ = sorted(k for k in a if a[k] != b.get(k))
+            assert set(a) == set(b) and not differ, f"rank {r} step {i + 1}: {differ}"
+        for k, v in g["straight_leaves"].items():
+            assert torch.equal(g["resumed_leaves"][k], v), k
+        assert g["refusal"] is not None and "--mesh_shape 1,1,2" in g["refusal"], g["refusal"]
+    assert got[0]["straight"] == got[1]["straight"]
+
+
+def test_fine_tune_cli_at_1_2_2_matches_one_process(tiny_hf, tmp_path):  # noqa: F811
+    """`cli.fine_tune --mesh_shape 1,2,2 --device cpu` as torchrun starts it
+    (four ranks, each reading its two-dim blocks of the checkpoint): its
+    losses, eval losses, plan and HF export are one process's at the same
+    global batch."""
+    from sparse_matrix_tuning_tpu_torch.cli.fine_tune import main
+    from sparse_matrix_tuning_tpu_torch.models.hf_io import read_safetensors
+    argv = _fine_tune_args(tiny_hf, tmp_path / "t4", 2) + ["--mesh_shape", "1,2,2"]
+    ranks.spawn(ranks.cli_ranks, 4, tmp_path, "sparse_matrix_tuning_tpu_torch.cli.fine_tune",
+                argv, str(tmp_path))
+    got = [torch.load(tmp_path / f"cli.{r}.pt", weights_only=False)["result"] for r in range(4)]
+    want = main(_fine_tune_args(tiny_hf, tmp_path / "d1", 4))
+    assert all(g == got[0] for g in got) and len(got[0]["train_loss"]) == 3
+    np.testing.assert_allclose(got[0]["train_loss"], want["train_loss"], rtol=D1_RTOL, atol=0)
+    np.testing.assert_allclose(got[0]["eval_loss"], want["eval_loss"], rtol=D1_RTOL, atol=0)
+    t4, d1 = tmp_path / "t4" / "final", tmp_path / "d1" / "final"
+    assert (t4 / "smt_plan.json").read_text() == (d1 / "smt_plan.json").read_text()
+    a, b = (read_safetensors(str(p / "model.safetensors")) for p in (t4, d1))
+    assert set(a) == set(b)
+    for k in b:
+        assert_state_close(k, a[k], b[k], adam_bound=2 * 3 * 1e-3)

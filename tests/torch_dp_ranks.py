@@ -7,8 +7,8 @@ joins a gloo group through a file:// store under the test's tmp_path
 (never a fixed port: the suite runs in parallel workers; a collective that
 waits longer than TIMEOUT_S fails the rank instead of hanging), builds a
 parallel/mesh.Mesh of (world, 1, 1) or of the (data, fsdp, 1) shape it is
-given, runs every scenario it is given on its
-rows of the global batches, and writes what it saw to
+given (or of the (data, fsdp, tensor) shape), runs every scenario it is
+given on its rows of the global batches, and writes what it saw to
 {out_dir}/{name}.{rank}.pt. A scenario that raises writes its traceback
 instead, so that only its own test fails.
 
@@ -105,6 +105,7 @@ def run_scenario(spec, mesh=None):
     batches = torch.load(spec["batches"], weights_only=False)
     n_master = sum(t.numel() for t in flatten_tree(trainer.state.get("master", {})).values())
     warm_bytes = shard_bytes(trainer)
+    warm_shapes = {k: tuple(t.shape) for k, t in state_leaves(trainer).items()}
     fsdp.LIVE.update(now=0, peak=0)
     metrics = []
     for b in batches:
@@ -120,6 +121,13 @@ def run_scenario(spec, mesh=None):
         p = trainer.decode_params()   # collective under fsdp
         decode = flatten_tree({"lm_head": p["lm_head"], "q": p["layers_q8"]["q"],
                                "t": p["layers_q8"]["t"], "base": p["layers_q8"]["base"]})
+    tokens = None
+    if spec.get("generate"):  # greedy decode from the gathered weights (collective)
+        from sparse_matrix_tuning_tpu_torch.eval.generate import GenerationConfig, generate
+        ids = torch.tensor([[0, 0, 5, 9, 17, 3], [0, 11, 4, 4, 8, 30]])
+        tokens = generate(trainer.decode_params(), trainer.model_cfg, ids, (ids > 0).int(),
+                          GenerationConfig(max_new_tokens=6, eos_token_id=-1), device="cpu")
+    sh = trainer.sharding
     return {"metrics": metrics, "export": export, "decode": decode, "fingerprint": trainer.plan.fingerprint(),
             "full": full_state(trainer), "shard_bytes": (warm_bytes, shard_bytes(trainer)),
             "live_peak": fsdp.LIVE["peak"],
@@ -128,14 +136,36 @@ def run_scenario(spec, mesh=None):
             "eval_loss": eval_loss, "checksums": leaf_checksums(state_leaves(trainer)),
             "phase": trainer.phase, "scan": trainer._scan,
             "host_frozen": trainer._host_frozen is not None, "int8": "q" in trainer.state,
-            "stats": dict(mesh.stats) if mesh is not None else None}
+            "stats": dict(mesh.stats) if mesh is not None else None, "tokens": tokens,
+            "tdims": sorted(sh.tdims) if sh is not None else [],
+            "shapes": (warm_shapes, {k: tuple(t.shape) for k, t in state_leaves(trainer).items()})}
+
+
+def overflow_probe(mesh):
+    """A planted inf in one tensor rank's slice of a tensor-split grad: the
+    clip norm (steps.sharded_global_norm) is inf and unscale_and_check
+    skips the step on every rank, stepping every rank's scaler alike."""
+    from functools import partial
+    from sparse_matrix_tuning_tpu_torch.train.steps import sharded_global_norm, unscale_and_check
+    grads = {"split": torch.full((4, 3), 2.0), "whole": torch.ones(5)}
+    if mesh.tensor_index == mesh.tensor - 1:
+        grads["split"][1, 2] = float("inf")
+    state = {"loss_scale": torch.tensor(1024.0), "good_steps": torch.tensor(7, dtype=torch.int32)}
+    cfg = SMTConfig(**{"data_path": ["x"], "model_name_or_path": "m", "dtype": "fp16"})
+    norm_of = partial(sharded_global_norm, mesh=mesh, sharded=(), tensor_split={"split"})
+    _, _, norm, metrics, finite = unscale_and_check(torch.tensor(3.0), grads, state, cfg, norm_of)
+    clean = sharded_global_norm({"split": torch.full((4, 3), 2.0), "whole": torch.ones(5)},
+                                mesh, (), {"split"})
+    return {"finite": finite, "norm": float(norm), "scale": float(state["loss_scale"]),
+            "good": int(state["good_steps"]), "clean_norm": float(clean)}
 
 
 def train_ranks(rank: int, world: int, store: str, specs, out_dir: str, shape=None):
     mesh = _join(rank, world, store, shape)
     for spec in specs:
         try:
-            out = run_scenario(spec, mesh)
+            out = overflow_probe(mesh) if spec.get("probe") == "overflow" else \
+                run_scenario(spec, mesh)
         except Exception:  # recorded: the scenario's own test reports it
             out = {"error": traceback.format_exc()}
         torch.save(out, os.path.join(out_dir, f"{spec['name']}.{rank}.pt"))
