@@ -164,7 +164,31 @@ Phases, in order; any failure raises and the exit code is non-zero:
      blocks where T's plan leaves A's; TE, T's export equal to one
      process's export of the gathered state (the plan's one-process
      scatter of the gathered trainables); TN (`--only nccl` on four
-     cards), T0 and T over NCCL at (1, 2, 2).
+     cards), T0 and T over NCCL at (1, 2, 2);
+ 15. the int8 base and head under the tensor axis (--frozen_quant int8 on
+     a tensor mesh, in the same spawns as T0 and T; `--only tp` runs E as
+     well): TQ0, the tiny int8 pair in fp32 and fp16 at (1, 1, 2) and (1,
+     2, 2) against one process (losses within P0_INT8_RTOL, the same loss
+     scales and overflow flags), every kernel of the int8 path launched
+     on every rank, the split row quantization's row_amax and
+     row_quant_amax among them, 1/T of every tensor-split leaf; TQ, E's
+     path at (1, 1, 2) over the two gloo ranks (bs 4 a rank, 22 layers),
+     held to E at P's bounds, with per rank the ms/step, the tensor
+     collectives' MB and calls a step (activations and amax apart), the
+     int8 base and head bytes beside E's, the peaks beside T's and E's and
+     the launches, one row quantization (fused or split) a K4 call; TQE,
+     its export (merged_params, not written to disk: a TinyLlama run with
+     an output dir writes ~7 GB, two HF saves and a checkpoint, and T's TE
+     writes and reads back the files through the same code) equal to one
+     process's export of the gathered state; TQN
+     (`--only nccl` on four cards), TQ0 and TQ over NCCL at (1, 2, 2). The
+     row quantization check holds the split entries at every RQ_SHAPES
+     shape and at the shapes TQ gives each rank (RQ_TQ_SHAPES: o / down's
+     x, q, k/v and gate/up's g * sw, the int8 head's chunk cut at the
+     ranks' boundary): equal to their plain twins and, over the two
+     ranks' columns with the MAX of their amaxes, to the whole row's
+     quantization bit for bit, NaN and inf rows included; a planted
+     rank-local amax rejected; timed at TQ's main shape.
 Before the references, K6 (the int4 unpack-matmul) runs at eight shapes
 (K6_SHAPES: the TinyLlama linears at the eval decode's 64 rows, 16 and a
 ragged 7, Llama-3-8B's gate) and on the layer views of a stack (K6s),
@@ -181,8 +205,8 @@ checks and the tiny int8 reference; `--only q4` after
 the build, the K6 checks and the tiny quantized generation; `--only attn`
 after the build and the K3 / K7 checks; `--only sparse` after the build and
 the K1 / K2 / K5 checks; `--only scan` runs the build, the tiny 12-layer
-channel int8 reference, J and R; `--only tp` the build, A, T0, T and TE;
-none of them prints a result.
+channel int8 reference, J and R; `--only tp` the build, A, E, T0, TQ0, T,
+TE, TQ and TQE; none of them prints a result.
 """
 
 from __future__ import annotations
@@ -309,6 +333,21 @@ RQ_SHAPES = [
     (37, 2048, "bf16", False, "ragged decode rows", False),
     (64, 4096, "fp32", True, "fp32 fold over a head chunk", False),
     (9, 100, "bf16", True, "a row length off the 16-byte vectors", False),
+]
+# the split row quantization (row_amax, the MAX of the ranks' amaxes,
+# row_quant_amax) at the shapes TQ gives it on each rank at (1, 1, 2): the
+# whole row (T, K, x dtype, fold the weight scales) cut after `cut` columns
+# into the two ranks' parts (what, timed: on the first part, TQ's main
+# shape)
+RQ_TQ_SHAPES = [
+    (2048, 5632, "bf16", True, 2816, "gate/up's g * sw, column-parallel backward: TQ's main "
+     "shape", True),
+    (2048, 5632, "bf16", False, 2816, "down_proj's input, row-parallel forward", False),
+    (2048, 2048, "bf16", False, 1024, "o_proj's input, row-parallel forward", False),
+    (2048, 2048, "bf16", True, 1024, "q's g * sw, column-parallel backward", False),
+    (2048, 256, "bf16", True, 128, "k/v's g * sw, column-parallel backward", False),
+    (2044, 4096, "fp32", True, 3712, "the int8 head's g * sw over the chunk [12288, 16384), "
+     "cut at rank 1's first row 16000", False),
 ]
 # K6 shapes (T, I, O, out dtype, what, timed): out (T, O) = x (T, I) bf16 . the
 # int4 weight (O, I/2 packed, one fp32 scale per 128 columns)
@@ -1251,8 +1290,9 @@ def _rq_case(t, k, dtype, fold, what, timed, gen, plant=False):
                  "scales differ")
     log(f"[row_quant] T={t} K={k} {dtype} x{', sw folded' if fold else ''} ({what}): xq and "
         f"sx equal to the plain version bit for bit (max abs err {err:.3e}); {info}")
+    split_err = _rq_split_case(x, sw, xq, sx, f"T={t} K={k} {dtype} fold={fold}", plant)
     if not timed:
-        return err, None
+        return err, split_err, None
     e = x.element_size()
     nbytes = t * k * e + t * k + 4 * t + (4 * k if fold else 0)
     bnd = bound(nbytes, (5 if fold else 4) * t * k, "fp32")
@@ -1263,7 +1303,95 @@ def _rq_case(t, k, dtype, fold, what, timed, gen, plant=False):
         f"{ms:.4f} ms (repeat {ms2:.4f}, {nbytes / (min(ms, ms2) * 1e-3) / 1e9:.0f} GB/s "
         f"of {nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms; bound {bnd[0]:.3e} ms "
         f"({bnd[1]})")
-    return err, (ms, plain_ms, bnd, None)
+    return err, split_err, {"row_quant": (ms, plain_ms, bnd, None)}
+
+
+def _rq_tq_case(t, k, dtype, fold, cut, what, timed, gen):
+    """The split row quantization at one RQ_TQ_SHAPES shape: the whole row's
+    plain quantization held against the two ranks' parts (_rq_split_case,
+    the planted rank-local amax rejected); if `timed`, row_amax and
+    row_quant_amax timed on the first part (the rank's columns), beside
+    their plain twins and the bound. Returns (err, {entry: (ms, plain_ms,
+    bound, None)} or None)."""
+    import torch
+    from sparse_matrix_tuning_tpu_torch.ops.cuda import row_quant as rq
+    x, sw = _rq_rows(t, k, torch_dtype(dtype), fold, gen)
+    xq, sx = rq.row_quant_plain(x, sw)
+    shape = f"T={t} K={k} {dtype}{' fold' if fold else ''} cut at {cut} ({what})"
+    err = _rq_split_case(x, sw, xq, sx, shape, True, cut)
+    if not timed:
+        return err, None
+    # the rank's part: the amax pass (x read, 4 B a row written) and the
+    # quantization with a given amax (x and the amax read, xq and sx written)
+    xp = x[:, :cut].contiguous()
+    swp = None if sw is None else sw[:cut].contiguous()
+    amax = rq.row_amax(xp, swp)
+    e, fold_b = x.element_size(), 4 * cut if fold else 0
+    split = {}
+    for name, fn, plain, nb, ops in (
+            ("row_amax", lambda: rq.row_amax(xp, swp), lambda: rq.row_amax_plain(xp, swp),
+             t * cut * e + 4 * t + fold_b, (3 if fold else 2) * t * cut),
+            ("row_quant_amax", lambda: rq.row_quant_amax(xp, amax, swp),
+             lambda: rq.row_quant_amax_plain(xp, amax, swp),
+             t * cut * e + 4 * t + t * cut + 4 * t + fold_b, (4 if fold else 3) * t * cut)):
+        b = bound(nb, ops, "fp32")
+        k_ms = min(time_ms(fn), time_ms(fn))
+        p_ms = time_ms(plain, reps=5)
+        split[name] = (k_ms, p_ms, b, None)
+        log(f"[{name}] time at a rank's T={t} K={cut} {dtype}{' fold' if fold else ''}: kernel "
+            f"{k_ms:.4f} ms ({nb / (k_ms * 1e-3) / 1e9:.0f} GB/s of {nb / 1e6:.1f} MB), plain "
+            f"{p_ms:.4f} ms; bound {b[0]:.3e} ms ({b[1]})")
+    return err, split
+
+
+def _rq_split_case(x, sw, xq_ref, sx_ref, what, plant, cut=None):
+    """The row quantization split at the amax (the tensor axis, where a row
+    lies across the ranks): row_amax and row_quant_amax equal their plain
+    twins bit for bit; row_quant_amax with the row's own amax equals the
+    fused launch's xq and sx; the columns cut in two after `cut` (default
+    half), each part quantized with the MAX of the parts' amaxes (their
+    int32 bit patterns, as parallel/tensor.tensor_amax reduces them),
+    concatenate to the fused values, NaN and inf rows included. With
+    `plant`, the planted fault (a rank-local amax: each part quantized with
+    its own) must be rejected. Returns the largest difference (0)."""
+    import torch
+    from sparse_matrix_tuning_tpu_torch.ops.cuda import row_quant as rq
+    before = dict(rq.LAUNCHES)
+    amax = rq.row_amax(x, sw)
+    got_q, got_s = rq.row_quant_amax(x, amax, sw)
+    torch.cuda.synchronize()
+    fp16 = "_fp16" if x.dtype == torch.float16 else ""
+    for name in ("row_amax", "row_quant_amax"):
+        if rq.LAUNCHES[name + fp16] != before[name + fp16] + 1:
+            raise AssertionError(f"{name}: not one launch per call")
+    err = max(_nan_diff(amax, rq.row_amax_plain(x, sw)),
+              *(_nan_diff(a, b) for a, b in zip((got_q, got_s),
+                                                rq.row_quant_amax_plain(x, amax, sw))),
+              _nan_diff(got_q, xq_ref), _nan_diff(got_s, sx_ref))
+    k = x.shape[1]
+    half = k // 2 if cut is None else cut
+    parts = [(slice(0, half), None if sw is None else sw[:half].contiguous()),
+             (slice(half, k), None if sw is None else sw[half:].contiguous())]
+    xs = [x[:, c].contiguous() for c, _ in parts]
+    amaxes = [rq.row_amax(xp, swp) for xp, (_, swp) in zip(xs, parts)]
+    whole = torch.maximum(*(a.view(torch.int32) for a in amaxes)).view(torch.float32)
+    split = [rq.row_quant_amax(xp, whole, swp) for xp, (_, swp) in zip(xs, parts)]
+    err = max(err, _nan_diff(torch.cat([q for q, _ in split], 1), xq_ref),
+              *(_nan_diff(s_, sx_ref) for _, s_ in split))
+    if not err == 0:
+        raise AssertionError(f"row_amax / row_quant_amax {what}: differ from the plain twins or "
+                             f"from the fused launch (max abs err {err:.3e})")
+    info = ""
+    if plant:
+        local = [rq.row_quant_amax(xp, a, swp) for xp, a, (_, swp) in zip(xs, amaxes, parts)]
+        if _nan_diff(torch.cat([q for q, _ in local], 1), xq_ref) == 0:
+            raise AssertionError("row_quant_amax: the check passes a planted rank-local amax")
+        info = (f"; planted rank-local amax rejected: "
+                f"{int((torch.cat([q for q, _ in local], 1) != xq_ref).sum())} values differ")
+    log(f"[row_amax / row_quant_amax] {what}: equal to the plain twins, to the whole row's "
+        f"quantization with the row's own amax, and over columns [0, {half}) and [{half}, {k}) "
+        f"with the MAX of their amaxes, bit for bit{info}")
+    return err
 
 
 def check_row_quant():
@@ -1272,22 +1400,33 @@ def check_row_quant():
     T, rows on .5 ties, magnitudes 1e-2 to 10, rows holding a NaN or an
     inf, with and without the fold of sw); the planted fault (the scale as
     amax / 127, a division) rejected; times beside the plain version and
-    the bound (no single PyTorch call computes it). Then row_quant,
-    _quant_kv and the int8 / int4 matmuls on CUDA tensors run under
+    the bound (no single PyTorch call computes it); at each shape the split
+    entries row_amax and row_quant_amax too (_rq_split_case: bit for bit
+    against their plain twins and the fused launch, over two column halves
+    with the MAX of their amaxes, a planted rank-local amax rejected); the
+    split entries again at the shapes TQ gives them (RQ_TQ_SHAPES,
+    _rq_tq_case), timed at TQ's main shape. Then row_quant, _quant_kv and
+    the int8 / int4 matmuls on CUDA tensors run under
     torch.cuda.set_sync_debug_mode("error"): no call makes the host wait
-    for the device. Returns (worst err, (ms, plain_ms, bound, None) at the
-    first shape)."""
+    for the device. Returns (worst err, worst err of the split entries,
+    {entry: (ms, plain_ms, bound, None)}: row_quant at the first timed
+    RQ_SHAPES shape, the split entries at TQ's main shape)."""
     import torch
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
     main = None
-    worst = 0.0
+    worst, worst_split = 0.0, 0.0
     for t, k, dtype, fold, what, timed in RQ_SHAPES:
-        err, timing = _rq_case(t, k, dtype, fold, what, timed, gen, plant=main is None)
-        worst = max(worst, err)
+        err, split_err, timing = _rq_case(t, k, dtype, fold, what, timed, gen,
+                                          plant=main is None)
+        worst, worst_split = max(worst, err), max(worst_split, split_err)
         main = main or timing
+    for shape in RQ_TQ_SHAPES:
+        split_err, timing = _rq_tq_case(*shape, gen)
+        worst_split = max(worst_split, split_err)
+        main.update(timing or {})
     check_no_sync()
-    return worst, main
+    return worst, worst_split, main
 
 
 def check_no_sync():
@@ -1570,6 +1709,9 @@ FP16_K3 = [(4, 512, 32, 4, 64), (4, 512, 32, 4, 128)]
 FP16_RQ = [(2048, 2048, "fp16", False, "gate/up input (fp16), run M8", True),
            (2048, 5632, "fp16", True, "the g form's fold over gate/up's fp16 output gradient",
             True)]
+# the split entries' fp16 bodies at TQ's main shape in fp16 (RQ_TQ_SHAPES)
+FP16_RQ_TQ = (2048, 5632, "fp16", True, 2816, "gate/up's fp16 g * sw, column-parallel backward",
+              True)
 FP16_K4 = (2048, 2048, 5632)   # T, K, O: gate/up
 FP16_K5 = [(2048, 5632, 2048, True, "gate/up forward (run M8)"),
            (2048, 2048, 5632, False, "gate/up grad_input (run M8)")]
@@ -1843,12 +1985,18 @@ def check_fp16_kernels():
     k3_err, k3_t = _fp16_attention(rng)
     for n in K3_KERNELS:
         res[f"{n}_fp16"] = (k3_err[n], *k3_t[n], {})
-    rq_err, rq_main = 0.0, None
+    rq_err, split_err, rq_main = 0.0, 0.0, None
     for t, k, dtype, fold, what, timed in FP16_RQ:
-        err, timing = _rq_case(t, k, dtype, fold, what, timed, gen, plant=rq_main is None)
-        rq_err = max(rq_err, err)
+        err, s_err, timing = _rq_case(t, k, dtype, fold, what, timed, gen,
+                                      plant=rq_main is None)
+        rq_err, split_err = max(rq_err, err), max(split_err, s_err)
         rq_main = rq_main or timing
-    res["row_quant_fp16"] = (rq_err, *rq_main, {})
+    s_err, timing = _rq_tq_case(*FP16_RQ_TQ, gen)
+    split_err = max(split_err, s_err)
+    rq_main.update(timing)
+    for name, e in (("row_quant", rq_err), ("row_amax", split_err),
+                    ("row_quant_amax", split_err)):
+        res[f"{name}_fp16"] = (e, *rq_main[name], {})
     for form, r in _fp16_q8(gen).items():
         res[f"{form}_fp16"] = (r["err"], r["ms"], r["plain_ms"], r["bound"], r["lib_ms"],
                                {"cublas_fp16_ms": r["cublas_fp16_ms"]})
@@ -2368,14 +2516,16 @@ def state_bytes(trainer):
     {"here", "full"} over every leaf, {"split_here", "split_full"} over
     the sharded ones (fsdp or tensor; here = full without either),
     {"tsplit_here", "tsplit_full"} over the tensor-split ones ("tslice":
-    their tensor slices gathered over fsdp, 1/T of the whole), and
+    their tensor slices gathered over fsdp, 1/T of the whole),
     {"host_here", "host_full"} over the host store of frozen weights (the
-    scan state's under fsdp: this rank's slices)."""
+    scan state's under fsdp: this rank's slices), and {"q_here", "q_full"}
+    over the int8 base and head (the q and q_head leaves)."""
     import numpy as np
     from sparse_matrix_tuning_tpu_torch.models.llama import flatten_tree
     sh = trainer.sharding
     out = dict.fromkeys(("here", "full", "split_here", "split_full", "tsplit_here",
-                         "tsplit_full", "tslice", "host_here", "host_full"), 0)
+                         "tsplit_full", "tslice", "host_here", "host_full", "q_here",
+                         "q_full"), 0)
 
     def full_of(k, t):
         here = t.numel() * t.element_size()
@@ -2389,6 +2539,9 @@ def state_bytes(trainer):
         if full != here:
             out["split_here"] += here
             out["split_full"] += full
+        if k.split("/")[0] in ("q", "q_head"):
+            out["q_here"] += here
+            out["q_full"] += full
         if sh is not None and sh.tdim(k) is not None:
             out["tsplit_here"] += here
             out["tsplit_full"] += full
@@ -3947,7 +4100,9 @@ def dp_rank(rank, world, port, jobs, out_dir, shape=None, backend="gloo"):
     export_dir)) TinyLlama as run A at A's global batch with the export
     (FE); and over a (1, world / 2, 2) mesh, the tensor axis: ("T0", dtype)
     the tiny pair in fp32 or fp16, ("T", (layers, export_dir)) TinyLlama as
-    run A at A's global batch with the export (TE). Writes
+    run A at A's global batch with the export (TE), and the same over the
+    int8 base ("TQ0", dtype; "TQ", layers: --frozen_quant int8, as run E,
+    its export checked as merged_params and not written: hold_t). Writes
     {out_dir}/dp.{rank}.pt."""
     import torch
     import torch.distributed as dist
@@ -3968,7 +4123,7 @@ def dp_rank(rank, world, port, jobs, out_dir, shape=None, backend="gloo"):
     fmesh = make_mesh(shape or (1, world, 1), device=device)
     # the tensor axis: (1, world / 2, 2)
     tmesh = make_mesh((1, world // 2, 2), device=device) \
-        if any(tag in ("T0", "T") for tag, _ in jobs) else None
+        if any(tag in ("T0", "T", "TQ0", "TQ") for tag, _ in jobs) else None
     _time_collectives()
     for tag, arg in jobs:
         t0 = time.time()
@@ -3995,6 +4150,15 @@ def dp_rank(rank, world, port, jobs, out_dir, shape=None, backend="gloo"):
             cfg = LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": arg[0]})
             s = run_main_path(cfg, device, bs=4 // tmesh.batch_shards, mesh=tmesh,
                               out_dir=arg[1], log_fn=(lambda m: log(f"[T rank {rank}] {m}")))
+        elif tag == "TQ0":
+            s = run_main_path(LlamaConfig.tiny(vocab_size=512), device,
+                              bs=4 // tmesh.batch_shards, mesh=tmesh, frozen_quant="int8",
+                              **{**P0_KW, "dtype": arg})
+        elif tag == "TQ":
+            cfg = LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": arg})
+            s = run_main_path(cfg, device, bs=4 // tmesh.batch_shards, mesh=tmesh,
+                              frozen_quant="int8",
+                              log_fn=(lambda m: log(f"[TQ rank {rank}] {m}")))
         elif tag == "FS0":
             fsdp_mod.LIVE.update(now=0, peak=0)
             s = fs0_run(arg, device, 4 // world, fmesh)
@@ -4013,9 +4177,9 @@ def dp_rank(rank, world, port, jobs, out_dir, shape=None, backend="gloo"):
 
 
 def _job_key(tag, arg):
-    """Where dp_rank keeps a job's summary: "F", "T", "FS:{mode}", or
+    """Where dp_rank keeps a job's summary: "F", "T", "TQ", "FS:{mode}", or
     "{tag}:{arg}"."""
-    if tag in ("F", "T"):
+    if tag in ("F", "T", "TQ"):
         return tag
     return f"FS:{arg[1]}" if tag == "FS" else f"{tag}:{arg}"
 
@@ -4301,13 +4465,15 @@ def check_fsdp(ranks, refs, run_a, p, layers, t_layers):
     """F0 and F from the data-parallel spawn (two gloo ranks at (1, 2, 1))
     and F0 at (2, 2, 1) from a spawn of four, held against one process
     (hold_f0, hold_f): F with its export (FE) and each rank's warm-up peak
-    at least FSDP_PEAK_GAIN_GIB under P's; T0 and T (the tensor axis, at
-    (1, 1, 2) in the pair and T0 at (1, 2, 2) in the four; hold_t0,
-    hold_t). Returns rank 0's summaries."""
+    at least FSDP_PEAK_GAIN_GIB under P's; T0, TQ0 and T (the tensor axis,
+    at (1, 1, 2) in the pair and T0 and TQ0 at (1, 2, 2) in the four;
+    hold_t0, hold_t). Returns rank 0's summaries (and every
+    rank's T and TQ: TQ is held once E has run)."""
     t0 = time.time()
     quad = _spawn(dp_rank, 4, [("F0", "none")] + [("FS0", n) for n in FS0_RUNS]
-                  + [("T0", d) for d in T0_DTYPES], after=((2, 2, 1),))
-    log(f"[F0] 4 gloo ranks on cuda:0 at (2, 2, 1), F0 and FS0, and T0 at (1, 2, 2): "
+                  + [("T0", d) for d in T0_DTYPES] + [("TQ0", d) for d in T0_DTYPES],
+                  after=((2, 2, 1),))
+    log(f"[F0] 4 gloo ranks on cuda:0 at (2, 2, 1), F0 and FS0, and T0 and TQ0 at (1, 2, 2): "
         f"{time.time() - t0:.1f} s for the spawn")
     for fq in ("none", "int8"):
         hold_f0((1, 2, 1), fq, [r[f"F0:{fq}"] for r in ranks], refs)
@@ -4321,7 +4487,9 @@ def check_fsdp(ranks, refs, run_a, p, layers, t_layers):
     for shape, got in (((1, 1, 2), ranks), ((1, 2, 2), quad)):
         for d in T0_DTYPES:
             hold_t0(shape, d, [r[f"T0:{d}"] for r in got], refs)
-    hold_t("T", (1, 1, 2), "gloo", [r["T"] for r in ranks], run_a, t_layers, p, f)
+            hold_t0(shape, d, [r[f"TQ0:{d}"] for r in got], refs, tag="TQ0", fq="int8")
+    hold_t("T", (1, 1, 2), "gloo", [r["T"] for r in ranks], run_a, t_layers,
+           {"P rank 0": p[0], "F rank 0": f[0]})
     gib = 1024 ** 3
     for r in range(2):
         gain = (p[r]["peak"]["warmup"] - f[r]["peak"]["warmup"]) / gib
@@ -4330,9 +4498,11 @@ def check_fsdp(ranks, refs, run_a, p, layers, t_layers):
                                  f"GiB is only {gain:.2f} GiB under P's (want "
                                  f">= {FSDP_PEAK_GAIN_GIB})")
     return {"F": f[0], "F0": ranks[0]["F0:none"], "F0 int8": ranks[0]["F0:int8"],
-            "F0 (2,2,1)": quad[0]["F0:none"], "T": ranks[0]["T"],
-            **{f"T0 {d}": ranks[0][f"T0:{d}"] for d in T0_DTYPES},
-            **{f"T0 {d} (1,2,2)": quad[0][f"T0:{d}"] for d in T0_DTYPES},
+            "F0 (2,2,1)": quad[0]["F0:none"], "T": ranks[0]["T"], "TQ": ranks[0].get("TQ"),
+            "TQ ranks": [r.get("TQ") for r in ranks], "T ranks": [r["T"] for r in ranks],
+            **{f"{k} {d}": ranks[0][f"{k}:{d}"] for d in T0_DTYPES for k in ("T0", "TQ0")},
+            **{f"{k} {d} (1,2,2)": quad[0][f"{k}:{d}"] for d in T0_DTYPES
+               for k in ("T0", "TQ0")},
             **{f"FS0 {n}": ranks[0][f"FS0:{n}"] for n in FS0_RUNS},
             **{f"FS0 {n} (2,2,1)": quad[0][f"FS0:{n}"] for n in FS0_RUNS},
             # every rank's FS summary, held to E, G and J when they have run (hold_fs)
@@ -4448,163 +4618,239 @@ def hold_f(tag, shape, backend, f, run_a, layers, p=None):
 # T0: the tiny pair on a tensor mesh, fp32 (P0's bounds) and fp16 (the
 # int8 bound on the losses, the same overflow flags and scales)
 T0_DTYPES = ("fp32", "fp16")
+# the split row quantization's two entries (ops/cuda/row_quant.py), which
+# the int8 base under the tensor axis launches on every rank
+RQ_SPLIT_KERNELS = ("row_amax", "row_quant_amax")
+TQ_KERNELS = TRAIN_KERNELS + Q8_KERNELS + RQ_SPLIT_KERNELS
 
 
-def hold_t0(shape, dtype, got, refs, tag="T0"):
-    """The tiny pair on a tensor mesh against one process: the same plan;
-    the ranks' losses equal; fp32 losses and grad norms within P0_RTOL,
-    fp16 losses within P0_INT8_RTOL with the same loss scales and overflow
-    flags; K1, K2 and K3 (their fp16 bodies under fp16) launched on every
-    rank; each rank's tensor-split leaves exactly 1/T of the whole."""
+def _fp16_names(names):
+    return tuple(n if n == "masked_adam" else f"{n}_fp16" for n in names)
+
+
+def _tensor_state_held(tag, x, ref, n_t, int8):
+    """Each rank's tensor-split leaves exactly 1/n_t of the whole, and its
+    whole state the reference's, over the build and the sparse phase; over
+    the int8 base (where one process leaves its dense weights for the host
+    after the conversion) the sparse phase's int8 base and head instead:
+    the reference's bytes in all, fewer on the rank."""
+    for phase in ("build", "sparse"):
+        sb, want = x["state_bytes"][phase], ref["state_bytes"][phase]
+        whole = (sb["q_here"] < sb["q_full"] == want["q_full"] if int8 and phase == "sparse"
+                 else sb["full"] == want["full"])
+        if not sb["tsplit_here"] or sb["tslice"] * n_t != sb["tsplit_full"] or not whole:
+            raise AssertionError(f"{tag}: not 1/{n_t} of the tensor-split leaves, or not the "
+                                 f"reference's whole state in the {phase} phase: {sb} vs {want}")
+
+
+def _one_row_quant_a_k4_call(tag, lx):
+    """One row quantization, fused or split, a K4 call (E's rule), and each
+    split one an amax launch and a quantize launch."""
+    if lx["row_quant"] + lx["row_quant_amax"] != lx["q8mm_t"] + lx["q8mm_g"] \
+            or lx["row_amax"] != lx["row_quant_amax"]:
+        raise AssertionError(f"{tag}: not one row quantization a K4 call: {lx}")
+
+
+def hold_t0(shape, dtype, got, refs, tag="T0", fq="none"):
+    """The tiny pair on a tensor mesh against one process, over the dense
+    base or (fq "int8": TQ0) the int8 base and head: the same plan; the
+    ranks' losses equal; fp32 losses and grad norms over the dense base
+    within P0_RTOL, else the losses within P0_INT8_RTOL (grad norms
+    reported: an int8 rounding flips), fp16 with the same loss scales and
+    overflow flags; K1, K2 and K3 launched on every rank, over the int8
+    base K4 (t and g), the row quantization's three entries and K5 too
+    (their fp16 bodies under fp16); each rank's state held by
+    _tensor_state_held."""
     import numpy as np
-    fp16 = dtype == "fp16"
-    ref, rtol = refs["fp16" if fp16 else "none"], (P0_INT8_RTOL if fp16 else P0_RTOL)
+    fp16, int8 = dtype == "fp16", fq == "int8"
+    ref = refs[{(False, False): "none", (True, False): "fp16", (False, True): "int8",
+                (True, True): "int8 fp16"}[fp16, int8]]
+    rtol = P0_INT8_RTOL if fp16 or int8 else P0_RTOL
+    what = f"{tag} {shape} {dtype}"
     fps = {g["plan"]["fingerprint"] for g in got} | {ref["plan"]["fingerprint"]}
     if len(fps) != 1:
-        raise AssertionError(f"{tag} {shape} {dtype}: plan fingerprints differ: {fps}")
+        raise AssertionError(f"{what}: plan fingerprints differ: {fps}")
     if any(g["loss"] != got[0]["loss"] for g in got):
-        raise AssertionError(f"{tag} {shape} {dtype}: the ranks' losses differ")
-    kernels = FP16_TRAIN_KERNELS if fp16 else TRAIN_KERNELS
-    needed = tuple(n for n in kernels if "dkdv_reduce" not in n)
-    t = shape[2]
+        raise AssertionError(f"{what}: the ranks' losses differ")
+    names = tuple(n for n in (TQ_KERNELS if int8 else TRAIN_KERNELS) if "dkdv_reduce" not in n)
+    needed = _fp16_names(names) if fp16 else names
     for r, g in enumerate(got):
         if not all(g["launches"][n] > 0 for n in needed):
-            raise AssertionError(f"{tag} {shape} {dtype} rank {r} did not launch every kernel: "
-                                 f"{g['launches']}")
-        for phase in ("build", "sparse"):
-            sb = g["state_bytes"][phase]
-            if not sb["tsplit_here"] or sb["tslice"] * t != sb["tsplit_full"] \
-                    or sb["full"] != ref["state_bytes"][phase]["full"]:
-                raise AssertionError(f"{tag} {shape} {dtype} rank {r}: not 1/{t} of the tensor-"
-                                     f"split leaves, or not the whole state: {sb}")
+            raise AssertionError(f"{what} rank {r} did not launch every kernel: {g['launches']}")
+        _tensor_state_held(f"{what} rank {r}", g, ref, shape[2], int8)
     if fp16 and (got[0]["loss_scale"], got[0]["overflow"]) != (ref["loss_scale"],
                                                                 ref["overflow"]):
-        raise AssertionError(f"{tag} {shape} fp16: loss scales or overflow flags differ: "
+        raise AssertionError(f"{what}: loss scales or overflow flags differ: "
                              f"{got[0]['loss_scale']} {got[0]['overflow']} vs "
                              f"{ref['loss_scale']} {ref['overflow']}")
     norms, ref_norms = (np.array(x["warmup_grad_norm"] + x["grad_norm"]) for x in (got[0], ref))
     np.testing.assert_allclose(got[0]["loss"] + [got[0]["eval_loss"]],
                                ref["loss"] + [ref["eval_loss"]], rtol=rtol)
-    if not fp16:
+    if rtol == P0_RTOL:
         np.testing.assert_allclose(norms, ref_norms, rtol=rtol)
     worst = float(np.max(np.abs(np.array(got[0]["loss"]) - np.array(ref["loss"]))
                          / np.abs(np.array(ref["loss"]))))
     finite = np.isfinite(norms) & np.isfinite(ref_norms)
     worst_norm = float(np.max(np.abs(norms - ref_norms)[finite] / ref_norms[finite]))
     c = got[0]["collectives"]
-    log(f"[{tag}] tiny {dtype} at {shape}, {len(got)} ranks against one process at global "
-        f"batch 4 (rows 2-3 thinned): losses worst rel diff {worst:.2e}, grad norms "
-        f"{worst_norm:.2e} (bound {rtol} on {'the losses; grad norms reported' if fp16 else 'both'}"
-        f"); eval {got[0]['eval_loss']:.6f} vs {ref['eval_loss']:.6f}; same plan "
-        f"{ref['plan']['fingerprint'][:16]}; tensor MB / calls a step "
-        f"{[(round(x['tensor_bytes'] / 1e6, 2), x['tensor_calls']) for x in c]}; TE "
-        f"{got[0].get('te_tensors')} tensors; rank 0 launches {got[0]['launches']}")
+    extra = ""
+    if int8:
+        sb = got[0]["state_bytes"]["sparse"]
+        extra = (f"; amax MB / calls a step "
+                 f"{[(round(x['tensor_amax_bytes'] / 1e6, 3), x['tensor_amax_calls']) for x in c]}"
+                 f"; rank 0 q bytes {sb['q_here']:,} of {sb['q_full']:,}")
+    log(f"[{tag}] tiny {dtype}{' --frozen_quant int8' if int8 else ''} at {shape}, {len(got)} "
+        f"ranks against one process at global batch 4 (rows 2-3 thinned): losses worst rel diff "
+        f"{worst:.2e}, grad norms {worst_norm:.2e} (bound {rtol} on "
+        f"{'both' if rtol == P0_RTOL else 'the losses; grad norms reported'}); eval "
+        f"{got[0]['eval_loss']:.6f} vs {ref['eval_loss']:.6f}; same plan "
+        f"{ref['plan']['fingerprint'][:16]}"
+        + (f"; loss scales {got[0]['loss_scale']} and overflow flags {got[0]['overflow']} as "
+           "one process's" if fp16 else "")
+        + f"; tensor MB / calls a step "
+        f"{[(round(x['tensor_bytes'] / 1e6, 2), x['tensor_calls']) for x in c]}{extra}; TE "
+        f"{got[0].get('te_tensors')} tensors; rank 0 launches "
+        f"{ {n: got[0]['launches'][n] for n in needed} }")
 
 
-def hold_t(tag, shape, backend, t, run_a, layers, p=None, f=None):
-    """A's path on a tensor mesh against A (P's bounds: losses within 1e-3,
-    warm-up grad norms within 5e-2; the ranks' losses and plans equal; K1,
-    K2 and K3 launched on every rank; each rank's tensor-split leaves
-    exactly 1/T of the whole, the whole as A's; the export read back (TE's
-    first half) and equal to one process's export of the gathered state
-    (TE)); per rank the ms/step, the collectives' bytes and calls a step,
-    the state's bytes and the peaks beside P's and F's (where given) and
-    A's."""
+def hold_t(tag, shape, backend, t, ref, layers, beside=None, fq="none"):
+    """A's path (or, fq "int8": E's, TQ) on a tensor mesh against A (or E)
+    run in one process (P's bounds: losses within 1e-3, warm-up grad norms
+    within 5e-2; the ranks' losses and plans equal; K1, K2 and K3 launched
+    on every rank, over the int8 base K4 t and g, the row quantization's
+    three entries and K5 too, with one row quantization a K4 call; each
+    rank's state held by _tensor_state_held; the export equal to one
+    process's export of the gathered state (TE: read back from the files;
+    TQE: merged_params, which the export writes)); per rank the ms/step,
+    the collectives' bytes and calls a step (over the int8 base the amax
+    all-reduces apart), the state's bytes and the peaks beside the runs of
+    `beside` ({name: rank 0's summary}) and the reference's."""
     import numpy as np
+    int8 = fq == "int8"
+    name = "E" if int8 else "A"
     if any(x["loss"] != t[0]["loss"] or x["plan"] != t[0]["plan"] for x in t):
         raise AssertionError(f"{tag}: the ranks' losses or plans differ")
-    n_t = shape[2]
     for r, x in enumerate(t):
-        if not all(x["launches"][n] > 0 for n in TRAIN_KERNELS):
-            raise AssertionError(f"{tag} rank {r} did not launch every kernel: {x['launches']}")
-        if not x["export_tensors_equal"] or not x.get("te_tensors"):
+        lx = x["launches"]
+        if not all(lx[n] > 0 for n in (TQ_KERNELS if int8 else TRAIN_KERNELS)):
+            raise AssertionError(f"{tag} rank {r} did not launch every kernel: {lx}")
+        if int8:
+            _one_row_quant_a_k4_call(f"{tag} rank {r}", lx)
+        if not x.get("te_tensors") or not (int8 or x["export_tensors_equal"]):
             raise AssertionError(f"{tag}E rank {r}: the export was not checked")
-        for phase in ("build", "sparse"):
-            sb = x["state_bytes"][phase]
-            if not sb["tsplit_here"] or sb["tslice"] * n_t != sb["tsplit_full"] \
-                    or sb["full"] != run_a["state_bytes"][phase]["full"]:
-                raise AssertionError(f"{tag} rank {r}: not 1/{n_t} of the tensor-split leaves, "
-                                     f"or not A's whole state: {sb} vs A's "
-                                     f"{run_a['state_bytes'][phase]}")
-    a_loss = run_a["loss"] + [run_a["eval_loss"]]
+        _tensor_state_held(f"{tag} rank {r}", x, ref, shape[2], int8)
+    r_loss = ref["loss"] + [ref["eval_loss"]]
     t_loss = t[0]["loss"] + [t[0]["eval_loss"]]
-    rel = np.abs(np.array(t_loss) - np.array(a_loss)) / np.abs(np.array(a_loss))
-    a_norm, t_norm = np.array(run_a["warmup_grad_norm"]), np.array(t[0]["warmup_grad_norm"])
-    rel_norm = np.abs(t_norm - a_norm) / a_norm
+    rel = np.abs(np.array(t_loss) - np.array(r_loss)) / np.abs(np.array(r_loss))
+    r_norm, t_norm = np.array(ref["warmup_grad_norm"]), np.array(t[0]["warmup_grad_norm"])
+    rel_norm = np.abs(t_norm - r_norm) / r_norm
     gib = 1024 ** 3
-    log(f"[{tag}] TinyLlama-1.1B bf16, {layers} layers, tensor {shape} over {len(t)} {backend} "
-        f"ranks x bs {4 // (shape[0] * shape[1])} x seq 512 (A's global batch), 3 warm-up + 4 "
-        f"sparse steps: losses {t_loss} vs A's {a_loss}, worst rel diff {float(rel.max()):.2e} "
-        f"(bound {P_VS_A_RTOL}); warm-up grad norms {t_norm.tolist()} vs A's {a_norm.tolist()}, "
-        f"worst rel diff {float(rel_norm.max()):.2e} (bound {P_GNORM_RTOL}); plan "
-        f"{t[0]['plan']['fingerprint'][:16]} on every rank, A's "
-        f"{run_a['plan']['fingerprint'][:16]} ({CARD['smi']})")
-    log_selection_margin(run_a, t[0], tag=tag)
+    log(f"[{tag}] TinyLlama-1.1B bf16{' --frozen_quant int8 (int8 base and head)' if int8 else ''}"
+        f", {layers} layers, tensor {shape} over {len(t)} {backend} ranks x bs "
+        f"{4 // (shape[0] * shape[1])} x seq 512 ({name}'s global batch), 3 warm-up + 4 sparse "
+        f"steps: losses {t_loss} vs {name}'s {r_loss}, worst rel diff {float(rel.max()):.2e} "
+        f"(bound {P_VS_A_RTOL}); warm-up grad norms {t_norm.tolist()} vs {name}'s "
+        f"{r_norm.tolist()}, worst rel diff {float(rel_norm.max()):.2e} (bound {P_GNORM_RTOL}); "
+        f"sparse grad norms {t[0]['grad_norm']} vs {name}'s {ref['grad_norm']}; plan "
+        f"{t[0]['plan']['fingerprint'][:16]} on every rank, {name}'s "
+        f"{ref['plan']['fingerprint'][:16]} ({CARD['smi']})")
+    log_selection_margin(ref, t[0], tag=tag)
     n_warm = 3
+    peaks = {name: ref["peak"], **{k: v["peak"] for k, v in (beside or {}).items()}}
     for r, x in enumerate(t):
         ms, c, sb = x["step_ms"], x["collectives"], x["state_bytes"]
+        amax = (f"; amax MB / calls a step "
+                f"{[(round(v['tensor_amax_bytes'] / 1e6, 3), v['tensor_amax_calls']) for v in c]}"
+                if int8 else "")
         log(f"[{tag}] rank {r}: warm-up ms/step {[round(v, 1) for v in ms[:n_warm]]}, sparse "
-            f"{[round(v, 1) for v in ms[n_warm:]]} (A: {[round(v, 1) for v in run_a['step_ms']]}"
-            f"); collective ms/step {[round(v, 1) for v in x['reduce_ms']]}; tensor all-reduced "
+            f"{[round(v, 1) for v in ms[n_warm:]]} ({name}: "
+            f"{[round(v, 1) for v in ref['step_ms']]}"
+            + "".join(f"; {k}: {[round(v, 1) for v in s['step_ms']]}"
+                      for k, s in (beside or {}).items())
+            + f"); collective ms/step {[round(v, 1) for v in x['reduce_ms']]}; tensor all-reduced "
             f"and gathered MB / calls a step "
-            f"{[(round(v['tensor_bytes'] / 1e6, 1), v['tensor_calls']) for v in c]}; fsdp "
+            f"{[(round(v['tensor_bytes'] / 1e6, 1), v['tensor_calls']) for v in c]}{amax}; fsdp "
             f"gathered MB / calls {[(round(v['gather_bytes'] / 1e6, 1), v['gather_calls']) for v in c]}"
             f"; reduce-scattered MB / calls "
             f"{[(round(v['scatter_bytes'] / 1e6, 1), v['scatter_calls']) for v in c]}; grads "
             f"all-reduced MB / calls {[(round(v['bytes'] / 1e6, 1), v['calls']) for v in c]}")
-        beside = {"A": run_a["peak"]}
-        if p is not None:
-            beside["P rank 0"] = p[0]["peak"]
-        if f is not None:
-            beside["F rank 0"] = f[0]["peak"]
+        q = (f"; int8 base and head bytes here {sb['sparse']['q_here']:,} of "
+             f"{sb['sparse']['q_full']:,} ({name} holds {ref['state_bytes']['sparse']['q_full']:,})"
+             if int8 else "")
         log(f"[{tag}] rank {r}: state bytes here / full: warm-up "
             f"{sb['build']['here'] / gib:.3f} / {sb['build']['full'] / gib:.3f} GiB "
             f"(tensor-split leaves {sb['build']['tsplit_here']:,} / "
             f"{sb['build']['tsplit_full']:,} B), sparse {sb['sparse']['here'] / gib:.3f} / "
             f"{sb['sparse']['full'] / gib:.3f} GiB (tensor-split "
-            f"{sb['sparse']['tsplit_here']:,} / {sb['sparse']['tsplit_full']:,} B); peak GiB "
+            f"{sb['sparse']['tsplit_here']:,} / {sb['sparse']['tsplit_full']:,} B){q}; peak GiB "
             f"{ {k: round(v / gib, 2) for k, v in x['peak'].items() if v is not None} } beside "
             + "; ".join(f"{who}'s { {k: round(v / gib, 2) for k, v in pk.items() if v is not None} }"
-                        for who, pk in beside.items())
-            + f"; launches K1 {x['launches']['block_grad']}, K2 {x['launches']['masked_adam']}, "
-            f"K3 fwd {x['launches']['attn_fwd']}, dK/dV {x['launches']['attn_bwd_dkdv']}; "
-            f"{x['seconds']:.1f} s")
-    log(f"[{tag}E] rank 0's export ({t[0]['export_tensors_equal']} tensors) read back on each "
-        f"rank equals the gathered state, and its {t[0]['te_tensors']} tensors equal one "
-        "process's export (the weights gathered at conversion, the final trainables gathered "
-        "and scattered in by the plan's one-process scatter) bit for bit")
+                        for who, pk in peaks.items())
+            + "; launches " + ", ".join(f"{n} {x['launches'][n]}" for n in (
+                ("q8mm_t", "q8mm_g", "row_quant") + RQ_SPLIT_KERNELS + ("block_correction",)
+                if int8 else ()) + ("block_grad", "masked_adam", "attn_fwd", "attn_bwd_dkdv"))
+            + f"; {x['seconds']:.1f} s")
+    if int8:
+        log(f"[{tag}E] the export's {t[0]['te_tensors']} tensors (merged_params, gathered over "
+            "both axes) equal one process's export (the weights gathered at conversion, the "
+            "final trainables gathered and scattered in by the plan's one-process scatter) bit "
+            "for bit on every rank")
+    else:
+        log(f"[{tag}E] rank 0's export ({t[0]['export_tensors_equal']} tensors) read back on "
+            f"each rank equals the gathered state, and its {t[0]['te_tensors']} tensors equal one "
+            "process's export (the weights gathered at conversion, the final trainables gathered "
+            "and scattered in by the plan's one-process scatter) bit for bit")
     if rel.max() > P_VS_A_RTOL:
-        raise AssertionError(f"{tag}: losses part from A's by {float(rel.max()):.2e} > "
+        raise AssertionError(f"{tag}: losses part from {name}'s by {float(rel.max()):.2e} > "
                              f"{P_VS_A_RTOL}")
-    if len(t_norm) != len(a_norm) or rel_norm.max() > P_GNORM_RTOL:
-        raise AssertionError(f"{tag}: warm-up grad norms {t_norm.tolist()} part from A's "
-                             f"{a_norm.tolist()} by more than {P_GNORM_RTOL}")
+    if len(t_norm) != len(r_norm) or rel_norm.max() > P_GNORM_RTOL:
+        raise AssertionError(f"{tag}: warm-up grad norms {t_norm.tolist()} part from {name}'s "
+                             f"{r_norm.tolist()} by more than {P_GNORM_RTOL}")
 
 
-def run_tensor(run_a, layers, refs=None):
-    """`--only tp`: the tensor axis over gloo ranks sharing the card, held
-    against A run here: T0 (the tiny pair, fp32 and fp16) at (1, 1, 2) in
-    the spawn of T (A's path at (1, 1, 2) with TE), and at (1, 2, 2) over
-    four ranks. Returns rank 0's summaries."""
+def tensor_refs(refs=None):
+    """The one-process tiny references of T0 and TQ0 (fp32 and fp16, over
+    the dense and the int8 base), those not in `refs` run here."""
     from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
     tiny = LlamaConfig.tiny(vocab_size=512)
-    refs = refs or {"none": run_main_path(tiny, "cuda", bs=4, **P0_KW),
-                    "fp16": run_main_path(tiny, "cuda", bs=4, **{**P0_KW, "dtype": "fp16"})}
+    refs = dict(refs or {})
+    for key, fq, dtype in (("none", "none", "fp32"), ("fp16", "none", "fp16"),
+                           ("int8", "int8", "fp32"), ("int8 fp16", "int8", "fp16")):
+        if key not in refs:
+            refs[key] = run_main_path(tiny, "cuda", bs=4, frozen_quant=fq,
+                                      **{**P0_KW, "dtype": dtype})
+    return refs
+
+
+def run_tensor(run_a, run_e, layers):
+    """`--only tp`: the tensor axis over gloo ranks sharing the card, held
+    against A and E run here: T0 and TQ0 (the tiny pair, fp32 and fp16,
+    over the dense and the int8 base) at (1, 1, 2) in the spawn of T and
+    TQ (A's and E's paths at (1, 1, 2) with TE and TQE), and at (1, 2, 2)
+    over four ranks. Returns rank 0's summaries."""
+    refs = tensor_refs()
     t_dir = tempfile.mkdtemp(prefix="smoke_export_", dir=os.path.join(REPO, "build"))
     t0 = time.time()
     try:
-        pair = _spawn(dp_rank, 2, [("T0", d) for d in T0_DTYPES] + [("T", (layers, t_dir))],
-                      after=((1, 2, 1),))
+        pair = _spawn(dp_rank, 2, [("T0", d) for d in T0_DTYPES] + [("TQ0", d) for d in T0_DTYPES]
+                      + [("T", (layers, t_dir)), ("TQ", layers)], after=((1, 2, 1),))
     finally:
         shutil.rmtree(t_dir, ignore_errors=True)
-    log(f"[T] 2 gloo ranks on cuda:0 at (1, 1, 2), T0 and T: {time.time() - t0:.1f} s")
-    quad = _spawn(dp_rank, 4, [("T0", d) for d in T0_DTYPES], after=((2, 2, 1),))
+    log(f"[T] 2 gloo ranks on cuda:0 at (1, 1, 2), T0, TQ0, T and TQ: {time.time() - t0:.1f} s")
+    quad = _spawn(dp_rank, 4, [("T0", d) for d in T0_DTYPES] + [("TQ0", d) for d in T0_DTYPES],
+                  after=((2, 2, 1),))
     for shape, got in (((1, 1, 2), pair), ((1, 2, 2), quad)):
         for d in T0_DTYPES:
             hold_t0(shape, d, [r[f"T0:{d}"] for r in got], refs)
-    hold_t("T", (1, 1, 2), "gloo", [r["T"] for r in pair], run_a, layers)
-    return {"T": pair[0]["T"], **{f"T0 {d}": pair[0][f"T0:{d}"] for d in T0_DTYPES},
-            **{f"T0 {d} (1,2,2)": quad[0][f"T0:{d}"] for d in T0_DTYPES}}
+            hold_t0(shape, d, [r[f"TQ0:{d}"] for r in got], refs, tag="TQ0", fq="int8")
+    t = [r["T"] for r in pair]
+    hold_t("T", (1, 1, 2), "gloo", t, run_a, layers)
+    hold_t("TQ", (1, 1, 2), "gloo", [r["TQ"] for r in pair], run_e, layers, {"T rank 0": t[0]},
+           fq="int8")
+    return {"T": pair[0]["T"], "TQ": pair[0]["TQ"],
+            **{f"{k} {d}": pair[0][f"{k}:{d}"] for d in T0_DTYPES for k in ("T0", "TQ0")},
+            **{f"{k} {d} (1,2,2)": quad[0][f"{k}:{d}"] for d in T0_DTYPES
+               for k in ("T0", "TQ0")}}
 
 
 def run_fsdp_nccl(run_a, layers):
@@ -4612,8 +4858,9 @@ def run_fsdp_nccl(run_a, layers):
     a card, at (1, N, 1) and, with four cards, (2, 2, 1): FN0, the tiny
     fp32 pair against one process, and FN1, A's path against A, with its
     export (hold_f0, hold_f); with four cards TN, the tensor axis at (1, N
-    / 2, 2) (TN0 the tiny pair, TN A's path; hold_t0, hold_t); then FSN,
-    the scan layouts at (1, N, 1) against E and J (run_fsdp_scan)."""
+    / 2, 2) (TN0 the tiny pair, TN A's path; TQN0 and TQN the same over the
+    int8 base against E; run_tensor_nccl); then FSN, the scan layouts at
+    (1, N, 1) against E and J (run_fsdp_scan)."""
     import torch
     from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
     n = torch.cuda.device_count()
@@ -4633,39 +4880,40 @@ def run_fsdp_nccl(run_a, layers):
         for fq in ("none", "int8"):
             hold_f0(shape, fq, [r[f"F0:{fq}"] for r in ranks], refs, tag="FN0")
         hold_f("FN1", shape, "nccl", [r["F"] for r in ranks], run_a, layers)
-    if n >= 4:
-        run_tensor_nccl(run_a, layers, refs)
-    # FSN: the scan layouts over NCCL at (1, N, 1), held to E and J run here
     run_e = run_main_path(LlamaConfig(**TINYLLAMA), "cuda", frozen_quant="int8")
+    if n >= 4:
+        run_tensor_nccl(run_a, run_e, layers, refs)
+    # FSN: the scan layouts over NCCL at (1, N, 1), held to E and J run here
     run_j = run_main_path(LlamaConfig(**TINYLLAMA), "cuda", mode="channel", frozen_quant="int8")
     run_fsdp_scan(run_e, run_j, layers, world=n, backend="nccl", tag="FSN")
 
 
-def run_tensor_nccl(run_a, layers, refs):
-    """TN (`--only nccl`, four cards or more): the tensor
-    axis over NCCL, one rank a card, at (1, N / 2, 2): TN0, the tiny pair
-    in fp32 and fp16 against one process, and TN, A's path against A with
-    its export (hold_t0, hold_t)."""
+def run_tensor_nccl(run_a, run_e, layers, refs):
+    """TN and TQN (`--only nccl`, four cards or more): the tensor axis over
+    NCCL, one rank a card, at (1, N / 2, 2): TN0 and TQN0, the tiny pair in
+    fp32 and fp16 over the dense and the int8 base against one process,
+    and TN and TQN, A's and E's paths against A and E with their exports
+    (hold_t0, hold_t)."""
     import torch
-    from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
     n = torch.cuda.device_count()
-    tiny = LlamaConfig.tiny(vocab_size=512)
-    refs = dict(refs)
-    for key, dtype in (("none", "fp32"), ("fp16", "fp16")):
-        if key not in refs:
-            refs[key] = run_main_path(tiny, "cuda", bs=4, **{**P0_KW, "dtype": dtype})
+    refs = tensor_refs(refs)
     shape = (1, n // 2, 2)
     t_dir = tempfile.mkdtemp(prefix="smoke_export_", dir=os.path.join(REPO, "build"))
     t0 = time.time()
     try:
-        ranks = _spawn(dp_rank, n, [("T0", d) for d in T0_DTYPES] + [("T", (layers, t_dir))],
-                       after=((1, n, 1), "nccl"))
+        ranks = _spawn(dp_rank, n, [("T0", d) for d in T0_DTYPES]
+                       + [("TQ0", d) for d in T0_DTYPES]
+                       + [("T", (layers, t_dir)), ("TQ", layers)], after=((1, n, 1), "nccl"))
     finally:
         shutil.rmtree(t_dir, ignore_errors=True)
     log(f"[TN] {n} NCCL ranks, one a card, at {shape}: {time.time() - t0:.1f} s")
     for d in T0_DTYPES:
         hold_t0(shape, d, [r[f"T0:{d}"] for r in ranks], refs, tag="TN0")
-    hold_t("TN", shape, "nccl", [r["T"] for r in ranks], run_a, layers)
+        hold_t0(shape, d, [r[f"TQ0:{d}"] for r in ranks], refs, tag="TQN0", fq="int8")
+    t = [r["T"] for r in ranks]
+    hold_t("TN", shape, "nccl", t, run_a, layers)
+    hold_t("TQN", shape, "nccl", [r["TQ"] for r in ranks], run_e, layers, {"T rank 0": t[0]},
+           fq="int8")
 
 
 def run_fsdp_scan(run_e, run_j, layers, world=2, backend="gloo", tag="FS"):
@@ -4741,12 +4989,14 @@ def log_selection_margin(run_a, run_p, tag="P"):
         f"{spread.max():.2e} (max) of A's; " + "; ".join(lines))
 
 
-def run_data_parallel(run_a, d1, export_dir, p_layers, fs=True, t_layers=None):
+def run_data_parallel(run_a, d1, export_dir, p_layers, fs=True, t_layers=None, tq=True):
     """P0, P and PE in two gloo ranks on the one card (one spawn), held
     against one process: P0 against its tiny references run here, P
     against A, PE against D1; in the same spawn the fsdp axis (F0, F, FS0,
-    FS) and the tensor axis (T0, T at t_layers, A's depth by default;
-    check_fsdp). Then PN over NCCL. Returns the rank-0 summaries."""
+    FS) and the tensor axis (T0, T, TQ0 and TQ at t_layers, A's depth by
+    default; check_fsdp; TQ is held to E once E has run). Then PN over
+    NCCL. Returns the rank-0 summaries, and every rank's TQ summary under
+    "TQ ranks"."""
     t_layers = p_layers if t_layers is None else t_layers
     import numpy as np
     from sparse_matrix_tuning_tpu_torch.data.sft import batch_iterator
@@ -4755,7 +5005,7 @@ def run_data_parallel(run_a, d1, export_dir, p_layers, fs=True, t_layers=None):
     tiny = LlamaConfig.tiny(vocab_size=512)
     refs = {fq: run_main_path(tiny, "cuda", bs=4, frozen_quant=fq, **P0_KW)
             for fq in ("none", "int8")}
-    refs["fp16"] = run_main_path(tiny, "cuda", bs=4, **{**P0_KW, "dtype": "fp16"})
+    refs = tensor_refs(refs)
     refs.update({f"FS0:{n}": fs0_run(n, "cuda", 4) for n in FS0_RUNS})
     first = thin_rows(next(batch_iterator(synthetic_sft(24, 64, 512, 1), 4, 0, [64], 1234, 0)),
                       P0_KW["thin"])
@@ -4766,7 +5016,8 @@ def run_data_parallel(run_a, d1, export_dir, p_layers, fs=True, t_layers=None):
             ("F0", "none"), ("F0", "int8"), ("F", (p_layers, dirs[0]))] + \
         [("FS0", n) for n in FS0_RUNS] + \
         ([("FS", (p_layers, "matrix", dirs[1])), ("FS", (p_layers, "channel", dirs[2]))]
-         if fs else []) + [("T0", d) for d in T0_DTYPES] + [("T", (t_layers, dirs[3]))]
+         if fs else []) + [("T0", d) for d in T0_DTYPES] + [("T", (t_layers, dirs[3]))] + \
+        [("TQ0", d) for d in T0_DTYPES] + ([("TQ", t_layers)] if tq else [])
     t0 = time.time()
     try:
         ranks = _spawn(dp_rank, 2, jobs)
@@ -4891,9 +5142,11 @@ def main(argv=None):
     call for the conversion into the scan state and resume); `--only fp16`
     runs the build, the fp16 bodies' checks and the tiny fp16 references;
     `--only dp` the build, A with its export, D1, then P0, P, PE, F0, F, FE,
-    FS0, T0, T, TE, PN and FN (FS needs E, G and J: `--only fs`); `--only fs` the build, E and J, then FS0, FS and FSE
-    (run_fsdp_scan); `--only tp` the build, A, then the tensor axis: T0, T
-    and TE (run_tensor); `--only nccl` (two or more cards) the build, A,
+    FS0, T0, T, TE, TQ0, PN and FN (FS needs E, G and J: `--only fs`; TQ
+    needs E: `--only tp`); `--only fs` the build, E and J, then FS0, FS and FSE
+    (run_fsdp_scan); `--only tp` the build, A and E, then the tensor axis:
+    T0, TQ0, T, TE, TQ and TQE (run_tensor); `--only nccl` (two or more
+    cards) the build, A,
     then the fsdp axis over NCCL, one rank a card (run_fsdp_nccl, FSN and,
     on four cards, TN among it); none prints a result line. With no
     arguments every phase runs, on one card."""
@@ -4985,8 +5238,8 @@ def main(argv=None):
             del params
             marks.append(("A, D1", time.time()))
             run_data_parallel(run_a, d1, os.path.join(out_dir, "final"),
-                              model_cfg.num_hidden_layers, fs=False)
-            marks.append(("P0, P, PE, F0, F, FE, FS0, PN, FN", time.time()))
+                              model_cfg.num_hidden_layers, fs=False, tq=False)
+            marks.append(("P0, P, PE, F0, F, FE, FS0, T0, T, TE, TQ0, PN, FN", time.time()))
         finally:
             shutil.rmtree(out_dir, ignore_errors=True)
         log("[smoke] --only dp: seconds by phase: " + ", ".join(
@@ -5014,9 +5267,13 @@ def main(argv=None):
         run_a = run_main_path(model_cfg, "cuda")
         report_run("A", "TinyLlama-1.1B bf16, bs 4 x seq 512, remat, attn auto (K3)", run_a, 3)
         torch.cuda.empty_cache()
-        marks.append(("A", time.time()))
-        run_tensor(run_a, model_cfg.num_hidden_layers)
-        marks.append(("T0, T, TE", time.time()))
+        run_e = run_main_path(model_cfg, "cuda", frozen_quant="int8")
+        report_run("E", "TinyLlama-1.1B bf16 over the int8 frozen base, bs 4 x seq 512, remat, "
+                   "attn auto (K3)", run_e, 3)
+        torch.cuda.empty_cache()
+        marks.append(("A, E", time.time()))
+        run_tensor(run_a, run_e, model_cfg.num_hidden_layers)
+        marks.append(("T0, TQ0, T, TE, TQ, TQE", time.time()))
         log("[smoke] --only tp: seconds by phase: " + ", ".join(
             f"{name} {t - prev:.1f}" for (name, t), (_, prev)
             in zip(marks, [("", t_start)] + marks)))
@@ -5048,7 +5305,7 @@ def main(argv=None):
         k2_err, k2_time = check_masked_adam()
         k3_err, k3_time = check_attention()
         k7_err, k7_time = check_cached_attention()
-    rq_err, rq_time = check_row_quant()
+    rq_err, rq_split_err, rq_time = check_row_quant()
     k4_err, k4_time = check_q8_matmul()
     k5_err, k5_time, k5_timed = check_block_correction()
     if not only_q8:
@@ -5127,6 +5384,10 @@ def main(argv=None):
     report_run("E", "TinyLlama-1.1B bf16 over the int8 frozen base, bs 4 x seq 512, remat, "
                "attn auto (K3)", run_e, 3)
     compare_int8_run(run_a, run_e, 3)
+    # TQ: E's path under the tensor axis, run in the data-parallel spawn,
+    # held now that E has run
+    hold_t("TQ", (1, 1, 2), "gloo", run_dp["TQ ranks"], run_e, model_cfg.num_hidden_layers,
+           {"T rank 0": run_dp["T"]}, fq="int8")
     report_scan_run(run_g, run_e, 3)
     check_scan_run(run_g, run_e)
     torch.cuda.empty_cache()
@@ -5291,7 +5552,7 @@ def main(argv=None):
                         launches_by_run={"E": run_e["launches"][name], "G": lg[name]})
                    for name, line in (("q8mm_t", 104), ("q8mm_g", 133))
                    ] + [dict(entry("row_quant", "row_quant.cu", "",
-                                   run_e["launches"]["row_quant"], rq_err, *rq_time),
+                                   run_e["launches"]["row_quant"], rq_err, *rq_time["row_quant"]),
                              # not a Pallas kernel: the row quantization XLA fuses in
                              # front of q8mm_t_core / q8mm_g_core (q8_matmul.py:159-177)
                              replaces="sparse_matrix_tuning_tpu/ops/quant.py:32",
@@ -5306,10 +5567,17 @@ def main(argv=None):
                              ms_timed_cases=k5_timed, ms_at_plan_n=at_plan_n("K5")),
                         entry("q4_matmul", "q4_matmul.cu", "q4_matmul.py:94",
                               run_f["F1"]["launches"]["q4_matmul"], k6_err, *k6_time)]
+    # the split row quantization's entries, launched by TQ, the int8 base
+    # under the tensor axis (rank 0; every rank launches its own)
+    for name in RQ_SPLIT_KERNELS:
+        kernels.append(dict(entry(name, "row_quant.cu", "", run_dp["TQ"]["launches"][name],
+                                  rq_split_err, *rq_time[name]),
+                            replaces="sparse_matrix_tuning_tpu/ops/quant.py:32"))
     # the fp16 bodies, launched by runs M and M8 (K4's, the row
     # quantization's and K5's by M8 only)
     fp16_src = {"block_grad": ("block_grad.cu", "block_grad.py:56"),
                 "row_quant": ("row_quant.cu", ""),
+                **{n: ("row_quant.cu", "") for n in RQ_SPLIT_KERNELS},
                 "block_correction": ("correction.cu", "correction.py:69"),
                 "q8mm_t": ("q8_matmul.cu", "q8_matmul.py:104"),
                 "q8mm_g": ("q8_matmul.cu", "q8_matmul.py:133"),
@@ -5318,12 +5586,15 @@ def main(argv=None):
     for base, (src, replaces) in fp16_src.items():
         name = f"{base}_fp16"
         err, ms, plain_ms, bnd, lib_ms, extra = fp16[name]
-        main_run = run_m8 if base in ("row_quant", "block_correction", "q8mm_t", "q8mm_g") \
-            else run_m
+        # the split entries' fp16 bodies run on the tensor axis only: TQ0's
+        # fp16 pair (rank 0)
+        main_run = run_dp["TQ0 fp16"] if base in RQ_SPLIT_KERNELS else run_m8 \
+            if base in ("row_quant", "block_correction", "q8mm_t", "q8mm_g") else run_m
         e = dict(entry(name, src, replaces, main_run["launches"][name], err, ms, plain_ms, bnd,
                        lib_ms), **extra,
-                 launches_by_run={"M": run_m["launches"][name], "M8": run_m8["launches"][name]})
-        if base == "row_quant":
+                 launches_by_run={"M": run_m["launches"][name], "M8": run_m8["launches"][name],
+                                  "TQ0 fp16": run_dp["TQ0 fp16"]["launches"][name]})
+        if base in ("row_quant",) + RQ_SPLIT_KERNELS:
             e["replaces"] = "sparse_matrix_tuning_tpu/ops/quant.py:32"
         kernels.append(e)
     # every kernel's launches in the channel runs: H, I and I's decode legs,
@@ -5340,9 +5611,10 @@ def main(argv=None):
             "F0 int8": run_dp["F0 int8"]["launches"],
             "F0 (2,2,1)": run_dp["F0 (2,2,1)"]["launches"],
             **{f"FS {m}": ranks[0]["launches"] for m, ranks in run_dp["FS"].items()},
-            **{k: run_dp[k]["launches"] for k in run_dp if k.startswith(("FS0 ", "T0 "))},
+            **{k: run_dp[k]["launches"] for k in run_dp
+               if k.startswith(("FS0 ", "T0 ", "TQ0 "))},
             # rank 0 of the tensor runs (each rank launches on its heads and windows)
-            "T tensor": run_dp["T"]["launches"]}
+            "T tensor": run_dp["T"]["launches"], "TQ tensor": run_dp["TQ"]["launches"]}
     for k in kernels:
         k.setdefault("launches_by_run", {}).update(
             {tag: counts[k["name"]] for tag, counts in runs.items()

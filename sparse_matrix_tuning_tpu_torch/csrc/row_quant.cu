@@ -26,6 +26,15 @@
 // up to 8192 bf16 or fp16 / 4096 fp32; longer rows are read again, from L1/L2);
 // the second pass
 // writes the int8 values, 8 or 4 bytes a thread a step.
+//
+// Under the tensor axis a row may lie across ranks (a row-parallel
+// linear's input, the g * sw of a column-parallel one's grad), and its
+// scale needs the amax of the whole row. Two more entry points split the
+// launch at that point: smt_row_amax writes each row's amax (the first
+// pass alone, before the clamp), and smt_row_quant_amax takes an amax per
+// row (the MAX of the ranks' amaxes) and runs the second pass with the
+// scale made from it as above. With a row's own amax the two give the
+// fused launch's values bit for bit (max is exact and carries a NaN).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -65,10 +74,14 @@ __device__ __forceinline__ int8_t quant(float v, float s) {
   return q != q ? int8_t(0) : static_cast<int8_t>(fminf(fmaxf(q, -127.f), 127.f));
 }
 
-template <typename T, bool FOLD, int HELD>
+// MODE: FUSED amax and quantize; AMAX the row's amax into amax_io alone;
+// GIVEN quantize with the amax read from amax_io
+enum Mode { FUSED = 0, AMAX = 1, GIVEN = 2 };
+
+template <typename T, bool FOLD, int HELD, int MODE>
 __global__ void __launch_bounds__(NT)
 row_quant_kernel(const T* __restrict__ x, const float* __restrict__ sw, int8_t* __restrict__ xq,
-                 float* __restrict__ sx, int K) {
+                 float* __restrict__ sx, float* __restrict__ amax_io, int K) {
   constexpr int V = Vec<T>::N;
   __shared__ float warp_max[NT / 32];
   __shared__ float s_scale;
@@ -79,10 +92,12 @@ row_quant_kernel(const T* __restrict__ x, const float* __restrict__ sw, int8_t* 
 
   // the vector path keeps up to HELD vectors a thread in registers between
   // the passes (rows up to NT * V * HELD elements)
-  const bool held = vec && K <= NT * V * HELD;
+  const bool held = MODE != GIVEN && vec && K <= NT * V * HELD;
   float f[HELD][V];
   float amax = 0.f;
-  if (vec) {
+  if (MODE == GIVEN) {
+    // the amax comes from the caller
+  } else if (vec) {
 #pragma unroll
     for (int h = 0; h < HELD; ++h) {
       const int c = (h * NT + tid) * V;
@@ -108,18 +123,31 @@ row_quant_kernel(const T* __restrict__ x, const float* __restrict__ sw, int8_t* 
       amax = nan_max(amax, fabsf(v));
     }
   }
+  if (MODE != GIVEN) {
 #pragma unroll
-  for (int off = 16; off > 0; off /= 2) amax = nan_max(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  if (tid % 32 == 0) warp_max[tid / 32] = amax;
-  __syncthreads();
-  if (tid == 0) {
-    float m = warp_max[0];
-#pragma unroll
-    for (int w = 1; w < NT / 32; ++w) m = nan_max(m, warp_max[w]);
-    const float s = __fmul_rn(nan_max(m, 1e-8f), kInv127);
-    s_scale = s;
-    sx[blockIdx.x] = s;
+    for (int off = 16; off > 0; off /= 2)
+      amax = nan_max(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    if (tid % 32 == 0) warp_max[tid / 32] = amax;
+    __syncthreads();
   }
+  if (tid == 0) {
+    float m;
+    if (MODE == GIVEN) {
+      m = amax_io[blockIdx.x];
+    } else {
+      m = warp_max[0];
+#pragma unroll
+      for (int w = 1; w < NT / 32; ++w) m = nan_max(m, warp_max[w]);
+    }
+    if (MODE == AMAX) {
+      amax_io[blockIdx.x] = m;
+    } else {
+      const float s = __fmul_rn(nan_max(m, 1e-8f), kInv127);
+      s_scale = s;
+      sx[blockIdx.x] = s;
+    }
+  }
+  if (MODE == AMAX) return;
   __syncthreads();
   const float s = s_scale;
 
@@ -156,30 +184,49 @@ row_quant_kernel(const T* __restrict__ x, const float* __restrict__ sw, int8_t* 
   }
 }
 
-template <typename T, int HELD>
-void launch_held(const T* xp, const float* swp, int8_t* qp, float* sp, int rows, int K,
-                 cudaStream_t s) {
+template <typename T, int HELD, int MODE>
+void launch_held(const T* xp, const float* swp, int8_t* qp, float* sp, float* ap, int rows,
+                 int K, cudaStream_t s) {
   if (swp)
-    row_quant_kernel<T, true, HELD><<<rows, NT, 0, s>>>(xp, swp, qp, sp, K);
+    row_quant_kernel<T, true, HELD, MODE><<<rows, NT, 0, s>>>(xp, swp, qp, sp, ap, K);
   else
-    row_quant_kernel<T, false, HELD><<<rows, NT, 0, s>>>(xp, nullptr, qp, sp, K);
+    row_quant_kernel<T, false, HELD, MODE><<<rows, NT, 0, s>>>(xp, nullptr, qp, sp, ap, K);
 }
 
 // the fewest registers that hold the row (fewer registers, more rows in
-// flight): 1, 2 or 4 vectors a thread
-template <typename T>
-void launch(const void* x, const void* sw, void* xq, void* sx, int rows, int K, cudaStream_t s) {
+// flight): 1, 2 or 4 vectors a thread; GIVEN holds nothing (one pass)
+template <typename T, int MODE>
+void launch(const void* x, const void* sw, void* xq, void* sx, void* amax, int rows, int K,
+            cudaStream_t s) {
   const T* xp = static_cast<const T*>(x);
   const float* swp = static_cast<const float*>(sw);
   int8_t* qp = static_cast<int8_t*>(xq);
   float* sp = static_cast<float*>(sx);
+  float* ap = static_cast<float*>(amax);
   constexpr int ROW = NT * Vec<T>::N;  // elements one vector a thread covers
-  if (K <= ROW)
-    launch_held<T, 1>(xp, swp, qp, sp, rows, K, s);
+  if (MODE == GIVEN || K <= ROW)
+    launch_held<T, 1, MODE>(xp, swp, qp, sp, ap, rows, K, s);
   else if (K <= 2 * ROW)
-    launch_held<T, 2>(xp, swp, qp, sp, rows, K, s);
+    launch_held<T, 2, MODE>(xp, swp, qp, sp, ap, rows, K, s);
   else
-    launch_held<T, 4>(xp, swp, qp, sp, rows, K, s);
+    launch_held<T, 4, MODE>(xp, swp, qp, sp, ap, rows, K, s);
+}
+
+template <int MODE>
+int dispatch(const void* x, const void* sw, void* xq, void* sx, void* amax, int T, int K,
+             int dtype, void* stream) {
+  if (T < 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  if (T == 0) return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    launch<__nv_bfloat16, MODE>(x, sw, xq, sx, amax, T, K, s);
+  else if (dtype == 2)
+    launch<__half, MODE>(x, sw, xq, sx, amax, T, K, s);
+  else if (dtype == 0)
+    launch<float, MODE>(x, sw, xq, sx, amax, T, K, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -191,16 +238,19 @@ void launch(const void* x, const void* sw, void* xq, void* sx, int rows, int K, 
 // Returns cudaGetLastError() after the launch.
 extern "C" int smt_row_quant(const void* x, const void* sw, void* xq, void* sx, int T, int K,
                              int dtype, void* stream) {
-  if (T < 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  if (T == 0) return (int)cudaGetLastError();
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    launch<__nv_bfloat16>(x, sw, xq, sx, T, K, s);
-  else if (dtype == 2)
-    launch<__half>(x, sw, xq, sx, T, K, s);
-  else if (dtype == 0)
-    launch<float>(x, sw, xq, sx, T, K, s);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return dispatch<FUSED>(x, sw, xq, sx, nullptr, T, K, dtype, stream);
+}
+
+// amax (T,) fp32 = max_k |x[t][k]| (or |x[t][k] * sw[k]|), NaN carried, not
+// clamped: the first pass of smt_row_quant alone.
+extern "C" int smt_row_amax(const void* x, const void* sw, void* amax, int T, int K, int dtype,
+                            void* stream) {
+  return dispatch<AMAX>(x, sw, nullptr, nullptr, amax, T, K, dtype, stream);
+}
+
+// xq, sx as smt_row_quant, with the scale made from the given amax (T,)
+// fp32 in place of the row's own: its second pass alone.
+extern "C" int smt_row_quant_amax(const void* x, const void* sw, const void* amax, void* xq,
+                                  void* sx, int T, int K, int dtype, void* stream) {
+  return dispatch<GIVEN>(x, sw, xq, sx, const_cast<void*>(amax), T, K, dtype, stream);
 }

@@ -58,6 +58,10 @@ SIGNATURES = {
     "smt_cached_attn_combine": (P, P, P, P, I, I, I, I, P),
     # x, sw (or null), xq, sx, T, K, x dtype, stream
     "smt_row_quant": (P, P, P, P, I, I, I, P),
+    # x, sw (or null), amax, T, K, x dtype, stream
+    "smt_row_amax": (P, P, P, I, I, I, P),
+    # x, sw (or null), amax, xq, sx, T, K, x dtype, stream
+    "smt_row_quant_amax": (P, P, P, P, P, I, I, I, P),
     # xq, sx, wq, sw, out, T, O, K, out dtype, bm, bn, grid, stream
     "smt_q8mm_t": (P, P, P, P, P, I, I, I, I, I, I, I, P),
     # gq, sg, wq, out, T, O, K, out dtype, bm, bn, grid, stream

@@ -28,24 +28,34 @@ grad_hidden as JAX does (tests/test_torch_tensor.py pins it against
 jax.grad of the JAX function).
 
 Under the tensor axis (parallel/tensor.py) the head holds this rank's V/T
-vocabulary rows: each rank walks its own chunks, then the running max is
-MAX-reduced over the tensor group, the rescaled sums of exps and the
-target logits (zero off the rank's rows) SUM-reduced, and the backward's
-grad_hidden is this rank's part, summed over the group by the
-to_tensor_region its caller put in front of the hidden states.
-vocab_parallel_causal_lm_loss is the full-logits form over the same split.
+vocabulary rows: each rank walks the global chunk grid [c * chunk, (c +
+1) * chunk) cut to its rows (a chunk that straddles two ranks is a piece
+on each), then the running max is MAX-reduced over the tensor group, the
+rescaled sums of exps and the target logits (zero off the rank's rows)
+SUM-reduced, and the backward's grad_hidden is this rank's part, summed
+over the group by a to_tensor_region in front of the hidden states
+(the caller's for the exact head, chunked_causal_lm_loss_q8's own for
+the int8 head). The int8 head's backward row-quantizes g * sw per global
+chunk, as the JAX twin does over its padded vocabulary: the amax of a
+straddling chunk is MAX-reduced over the group (one all-reduce of a
+(T, straddling chunks) amax serves them all; none where every rank
+boundary falls on the grid), so each rank quantizes its piece as one
+process quantizes the chunk. vocab_parallel_causal_lm_loss is the
+full-logits form over the same split.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
 
 from sparse_matrix_tuning_tpu_torch.ops.cuda.q8_matmul import q8mm_t
+from sparse_matrix_tuning_tpu_torch.ops.cuda.row_quant import row_amax
 from sparse_matrix_tuning_tpu_torch.ops.quant import q8_matmul, row_quant
 from sparse_matrix_tuning_tpu_torch.parallel.tensor import (
-    from_tensor_region, tensor_all_reduce)
+    from_tensor_region, tensor_all_reduce, tensor_amax, to_tensor_region)
 
 IGNORE_INDEX = -100
 
@@ -57,6 +67,19 @@ def _combine_over_tensor(m, se, tgt, mesh):
     m_all = tensor_all_reduce(m, mesh, "max")
     st = tensor_all_reduce(torch.stack([se * torch.exp(m - m_all), tgt]), mesh, "sum")
     return m_all, st[0], st[1]
+
+
+def _chunk_pieces(v: int, vocab_chunk: int, offset: int = 0, parts: int = 1):
+    """The global chunk grid of a vocabulary of v * parts rows cut to the
+    rows [offset, offset + v) of one rank: [(lo, hi, chunk)] in local rows,
+    and the chunks that straddle a rank boundary (the same on every rank)."""
+    total = v * parts
+    pieces = [(max(c, offset) - offset, min(c + vocab_chunk, total, offset + v) - offset,
+               c // vocab_chunk) for c in range(0, total, vocab_chunk)
+              if c < offset + v and c + vocab_chunk > offset]
+    straddle = [c // vocab_chunk for c in range(0, total, vocab_chunk)
+                if any(c < k * v < min(c + vocab_chunk, total) for k in range(1, parts))]
+    return pieces, straddle
 
 
 class _ChunkedLSELoss(torch.autograd.Function):
@@ -82,8 +105,9 @@ class _ChunkedLSELoss(torch.autograd.Function):
         m = torch.full((tt,), float("-inf"), dtype=torch.float32, device=h2.device)
         se = torch.zeros((tt,), dtype=torch.float32, device=h2.device)
         tgt = torch.zeros((tt,), dtype=torch.float32, device=h2.device)
-        for lo in range(0, v, vocab_chunk):
-            hi = min(lo + vocab_chunk, v)
+        pieces, straddle = _chunk_pieces(v, vocab_chunk, offset,
+                                        1 if tensor is None else tensor.tensor)
+        for lo, hi, _ in pieces:
             logits = _ChunkedLSELoss._chunk_logits(h2, head, wq, sw, xq, sx, lo, hi)
             new_m = torch.maximum(m, logits.amax(dim=-1))
             se = se * torch.exp(m - new_m) + torch.exp(logits - new_m[:, None]).sum(dim=-1)
@@ -98,34 +122,51 @@ class _ChunkedLSELoss(torch.autograd.Function):
         denom = torch.clamp(valid.sum(), min=1) if denom is None else denom.reshape(())
         loss = torch.where(valid, lse - tgt, torch.zeros_like(lse)).sum() / denom
         ctx.save_for_backward(h2, head, wq, sw, xq, sx, lse, tsafe, valid, denom)
-        ctx.vocab_chunk, ctx.offset = vocab_chunk, offset
+        ctx.pieces, ctx.straddle, ctx.offset, ctx.tensor = pieces, straddle, offset, tensor
         return loss
+
+    @staticmethod
+    def _chunk_grad(ctx, h2, head, wq, sw, xq, sx, lse, tsafe, coef, lo, hi):
+        """(softmax - onehot) * coef of the rows lo:hi, fp32 (T, hi - lo)."""
+        gl = torch.exp(_ChunkedLSELoss._chunk_logits(h2, head, wq, sw, xq, sx, lo, hi)
+                       - lse[:, None])        # softmax over the whole vocab
+        local = tsafe - (ctx.offset + lo)
+        in_chunk = (local >= 0) & (local < hi - lo)
+        gl.scatter_add_(1, local.clamp(0, hi - lo - 1)[:, None], -in_chunk.float()[:, None])
+        gl *= coef[:, None]
+        return gl
 
     @staticmethod
     def backward(ctx, gout):
         h2, head, wq, sw, xq, sx, lse, tsafe, valid, denom = ctx.saved_tensors
-        v = head.shape[0] if head is not None else wq.shape[0]
         coef = gout.float() * valid.float() / denom     # d loss / d token loss
+        grad_of = partial(_ChunkedLSELoss._chunk_grad, ctx, h2, head, wq, sw, xq, sx, lse,
+                          tsafe, coef)
+        # the int8 head: the whole-chunk amax of g * sw for the chunks that
+        # straddle a rank boundary, one MAX all-reduce (module notes)
+        held, amax = {}, {}
+        if head is None and ctx.straddle:
+            cols = torch.zeros((h2.shape[0], len(ctx.straddle)), dtype=torch.float32,
+                               device=h2.device)
+            for lo, hi, c in ctx.pieces:
+                if c in ctx.straddle:
+                    held[c] = grad_of(lo, hi)
+                    cols[:, ctx.straddle.index(c)] = row_amax(held[c], sw[lo:hi])[:, 0]
+            cols = tensor_amax(cols, ctx.tensor)
+            amax = {c: cols[:, j:j + 1].contiguous() for j, c in enumerate(ctx.straddle)}
         # summed in h2's dtype over the chunks in reverse, each chunk's fp32
         # term cast first, as the JAX scan's transpose sums it (module notes)
         grad_h = torch.zeros(h2.shape, dtype=h2.dtype, device=h2.device)
         want_head = head is not None and ctx.needs_input_grad[3]
         grad_head = torch.empty_like(head) if want_head else None
-        for lo in reversed(range(0, v, ctx.vocab_chunk)):
-            hi = min(lo + ctx.vocab_chunk, v)
-            logits = _ChunkedLSELoss._chunk_logits(h2, head, wq, sw, xq, sx, lo, hi)
-            gl = torch.exp(logits - lse[:, None])        # softmax over the whole vocab
-            local = tsafe - (ctx.offset + lo)
-            in_chunk = (local >= 0) & (local < hi - lo)
-            gl.scatter_add_(1, local.clamp(0, hi - lo - 1)[:, None],
-                            -in_chunk.float()[:, None])
-            gl *= coef[:, None]
+        for lo, hi, c in reversed(ctx.pieces):
+            gl = held.pop(c) if c in held else grad_of(lo, hi)
             if head is not None:
                 grad_h += torch.matmul(gl, head[lo:hi].float()).to(h2.dtype)
                 if want_head:
                     grad_head[lo:hi] = torch.matmul(gl.to(h2.dtype).t(), h2)
             else:
-                grad_h += q8_matmul(gl, wq[lo:hi], sw[lo:hi]).to(h2.dtype)
+                grad_h += q8_matmul(gl, wq[lo:hi], sw[lo:hi], amax=amax.get(c)).to(h2.dtype)
         return grad_h, None, None, grad_head, None, None, None, None, None, None, None
 
 
@@ -174,15 +215,22 @@ def vocab_parallel_causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor, me
 def chunked_causal_lm_loss_q8(hidden: torch.Tensor, head_wq: torch.Tensor,
                               head_sw: torch.Tensor, labels: torch.Tensor,
                               vocab_chunk: int = 4096,
-                              denom: Optional[torch.Tensor] = None) -> torch.Tensor:
+                              denom: Optional[torch.Tensor] = None, tensor=None) -> torch.Tensor:
     """chunked_causal_lm_loss over an int8 frozen head (head_wq (V, D)
     int8, head_sw (V,) fp32, train/convert.py build_q_head). The hidden
     states are row-quantized ONCE (not per chunk) and the LSE stays fp32.
     Logit values are bitwise what the dense-path frozen_q8_linear head
     gives, so the chunked and dense q8 losses agree to fp32 reduction
-    order."""
+    order. tensor: the mesh when head_wq / head_sw are this rank's (V/T,
+    D) / (V/T,) vocabulary rows: the fp32 hidden states pass through
+    to_tensor_region here, so the ranks' grad parts are summed in fp32, as
+    JAX sums its fp32 product before the cast (module notes)."""
     d = hidden.shape[-1]
     h = hidden[:, :-1, :].reshape(-1, d).float()       # (T, D)
+    offset = 0
+    if tensor is not None:
+        h = to_tensor_region(h, tensor)
+        offset = tensor.tensor_index * head_wq.shape[0]
     xq, sx = row_quant(h.detach())
     return _ChunkedLSELoss.apply(h, labels[:, 1:], vocab_chunk, None, head_wq, head_sw, xq, sx,
-                                 denom, None, 0)
+                                 denom, tensor, offset)

@@ -17,6 +17,19 @@ Scales:
 Row quantization is its own kernel in front of K4 (ops/cuda/row_quant.py),
 as XLA fuses it into one pass in front of the JAX package's kernel: a
 row's scale needs the whole row before any tile of it can be quantized.
+
+Under the tensor axis (parallel/tensor.py) a row may lie across the ranks
+of the tensor group: the input of a row-parallel linear (o/down) in its
+forward, and the g * sw of a column-parallel one (q/k/v/gate/up, the int8
+head's vocabulary rows) in its backward. JAX computes those products
+under GSPMD over the whole row, so its scale is the whole row's. There
+(`tensor=` the mesh) the launch is split: each rank's row amax, their MAX
+over the group (parallel/tensor.tensor_amax, exact), and the quantization
+with it, so each rank's int8 values and scales are its slice of one
+process's bit for bit. Each rank's K4 product is then a partial sum,
+which the Megatron boundaries sum over the group in the output dtype
+(JAX sums the int32 partials before the scale: the gap is that
+rounding).
 """
 
 from __future__ import annotations
@@ -28,10 +41,13 @@ import torch
 from sparse_matrix_tuning_tpu_torch.ops.cuda.q4_matmul import GROUP, q4mm_t, unpack_planes
 from sparse_matrix_tuning_tpu_torch.ops.cuda.q8_matmul import q8mm_g, q8mm_t
 from sparse_matrix_tuning_tpu_torch.ops.cuda.row_quant import reciprocal as _reciprocal
+from sparse_matrix_tuning_tpu_torch.ops.cuda.row_quant import row_amax, row_quant_amax
 from sparse_matrix_tuning_tpu_torch.ops.cuda.row_quant import row_quant as _row_quant_2d
+from sparse_matrix_tuning_tpu_torch.parallel.tensor import tensor_amax
 
 
-def row_quant(x: torch.Tensor, sw: torch.Tensor | None = None):
+def row_quant(x: torch.Tensor, sw: torch.Tensor | None = None, tensor=None,
+              amax: torch.Tensor | None = None):
     """Per-row symmetric int8 quantization over the last dim (of x * sw
     when sw is given: the g form's fold of the weight scales).
 
@@ -40,9 +56,23 @@ def row_quant(x: torch.Tensor, sw: torch.Tensor | None = None):
     compiles the JAX package's division by 127 inside its jitted trainer
     and eval steps; x / sx stays a division, as it does there. On a CUDA
     tensor one kernel launch computes both (ops/cuda/row_quant.py); on
-    the CPU its plain version."""
+    the CPU its plain version.
+
+    tensor: the mesh, when the row lies across its tensor group (module
+    notes): the scale is that of the whole row (collective over the
+    group). amax: the whole rows' amaxes (rows, 1) fp32, already reduced
+    (the int8 head's chunks, ops/loss.py); not with tensor, which takes
+    them itself."""
+    if tensor is not None and amax is not None:
+        raise ValueError("row_quant: give the whole rows' amax or the tensor mesh, not both")
     k = x.shape[-1]
-    xq, sx = _row_quant_2d(x.reshape(-1, k).contiguous(), sw)
+    x2 = x.reshape(-1, k).contiguous()
+    if tensor is not None:
+        amax = tensor_amax(row_amax(x2, sw), tensor)
+    if amax is None:
+        xq, sx = _row_quant_2d(x2, sw)
+    else:
+        xq, sx = row_quant_amax(x2, amax, sw)
     return xq.reshape(x.shape), sx.reshape(*x.shape[:-1], 1)
 
 
@@ -74,25 +104,31 @@ def dequantize_weight(wq: torch.Tensor, sw: torch.Tensor, dtype=torch.bfloat16):
     return (wq.float() * sw[:, None]).to(dtype)
 
 
-def q8_matmul_t(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor) -> torch.Tensor:
+def q8_matmul_t(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
+                tensor=None) -> torch.Tensor:
     """y = x @ dequant(Wq).T with dynamic per-row activation quantization.
 
     x: (..., I) bf16 or fp32; wq: (O, I) int8; sw: (O,) fp32. Returns
-    (..., O) in x.dtype."""
+    (..., O) in x.dtype. tensor: the mesh of a row-parallel linear, x and
+    wq this rank's columns (module notes): y is this rank's partial sum."""
     x2 = x.reshape(-1, x.shape[-1])
-    xq, sx = row_quant(x2)
+    xq, sx = row_quant(x2, tensor=tensor)
     y = q8mm_t(xq, sx, wq, sw, out_dtype=x.dtype)
     return y.reshape(*x.shape[:-1], wq.shape[0])
 
 
-def q8_matmul(g: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor) -> torch.Tensor:
+def q8_matmul(g: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
+              tensor=None, amax: torch.Tensor | None = None) -> torch.Tensor:
     """grad_x = g @ dequant(Wq) (contraction over the OUT dim).
 
     Folds the per-out-channel scale into g before row quantization, so the
     int8 contraction is exact w.r.t. the folded values. g: (..., O);
-    returns (..., I) in g.dtype."""
+    returns (..., I) in g.dtype. tensor: the mesh of a column-parallel
+    linear, g, wq and sw this rank's output rows (module notes): the
+    result is this rank's partial sum. amax: the rows' amaxes of g * sw
+    over the whole row, already reduced (row_quant)."""
     g2 = g.reshape(-1, g.shape[-1])
-    gq, sg = row_quant(g2, sw)
+    gq, sg = row_quant(g2, sw, tensor=tensor, amax=amax)
     y = q8mm_g(gq, sg, wq, out_dtype=g.dtype)
     return y.reshape(*g.shape[:-1], wq.shape[1])
 

@@ -56,6 +56,18 @@ touches are its parts of them: summed over the tensor group (the
 windows are disjoint, so the sum is their concatenation), they are the
 blocks' grads, which the step does once per step (train/steps.py).
 
+Over the int8 base under the tensor axis (`smt_linear_q8(tensor=)`,
+`frozen_q8_linear(tensor=, split=)`) wq and sw are the rank's slices
+(a row-parallel sw whole) and base whole. K5 corrects only the window's
+blocks, each (blocks - base)[sel], through zero-padded panels where a
+block straddles the slice: a column-parallel linear adds its forward
+correction into a panel of output rows and reads g from one in its
+backward, a row-parallel one reads x from a panel of input columns and
+adds its grad_x correction into one. A row that lies across the ranks (a
+row-parallel x, a column-parallel g * sw) is row-quantized with the whole
+row's amax (ops/quant.py). A rank whose window holds no block joins every
+collective all the same.
+
 Channel mode (twins of the JAX `smt_channel_linear` and
 `smt_channel_linear_dyn`) trains whole input COLUMNS W[:, ci] of a
 linear, (O, n) fp32. `smt_channel_linear` computes through the dense
@@ -87,6 +99,7 @@ from sparse_matrix_tuning_tpu_torch.ops.cuda.correction import (
     CorrectionSchedule, block_correction, correction_schedule)
 from sparse_matrix_tuning_tpu_torch.ops.quant import (
     dequantize_weight_int4, q4_matmul_t, q8_matmul, q8_matmul_t)
+from sparse_matrix_tuning_tpu_torch.parallel.fsdp import COL_PARALLEL
 from sparse_matrix_tuning_tpu_torch.smt.plan import LinearPlan, key_str
 
 
@@ -188,48 +201,115 @@ def smt_linear(x: torch.Tensor, blocks: torch.Tensor, w: torch.Tensor,
 # Matrix sparsity over an int8 frozen base
 # ---------------------------------------------------------------------------
 
+def _split(module: str) -> str:
+    """Which dim of a layer linear the tensor axis splits: "out" for the
+    column-parallel ones (their output rows), "in" for the row-parallel
+    ones (their input columns)."""
+    return "out" if module in COL_PARALLEL else "in"
+
+
 class _SMTLinearQ8(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, blocks, wq, sw, base, rb, cb, fwd_sched, bwd_sched, impl: str):
+    def forward(ctx, x, blocks, wq, sw, base, rb, cb, fwd_sched, bwd_sched, impl: str,
+                tp=None):
+        # tp (the tensor axis): (mesh, split, sel, panel), module notes
+        mesh, split, sel, panel = tp if tp is not None else (None, None, None, None)
         x2 = x.reshape(-1, x.shape[-1]).contiguous()
-        y2 = q8_matmul_t(x2, wq, sw)                      # (T, O), a new tensor
-        delta = (blocks - base).to(x.dtype)               # (n, 256, 256)
-        # y[:, rb] += x[:, cb] @ delta.T, in place
-        block_correction(y2, x2, delta, fwd_sched, transpose=True)
-        ctx.save_for_backward(x, wq, sw, delta, rb, cb)
-        ctx.bwd_sched = bwd_sched
-        ctx.impl = impl
-        ctx.blocks_dtype = blocks.dtype
-        return y2.reshape(*x.shape[:-1], wq.shape[0])
+        # (T, O), a new tensor; a row-parallel input's rows lie across the ranks
+        y2 = q8_matmul_t(x2, wq, sw, tensor=mesh if split == "in" else None)
+        delta = None
+        if rb is not None:
+            # y[:, rb] += x[:, cb] @ delta.T, in place (into the window's panel)
+            delta = _window_delta(blocks, base, sel, x.dtype)
+            if split == "out":
+                out = _panel(y2, *panel)
+                block_correction(out, x2, delta, fwd_sched, transpose=True)
+                y2 = out[:, panel[0]:panel[0] + y2.shape[1]].contiguous()
+            else:
+                src = x2 if split is None else _panel(x2, *panel)
+                block_correction(y2, src, delta, fwd_sched, transpose=True)
+        ctx.save_for_backward(x2, wq, sw, delta, rb, cb, sel)
+        ctx.bwd_sched, ctx.impl, ctx.tp = bwd_sched, impl, (mesh, split, panel)
+        ctx.x_shape, ctx.blocks_shape, ctx.blocks_dtype = x.shape, blocks.shape, blocks.dtype
+        return y2.reshape(*x.shape[:-1], y2.shape[1])
 
     @staticmethod
     def backward(ctx, g):
-        x, wq, sw, delta, rb, cb = ctx.saved_tensors
+        x2, wq, sw, delta, rb, cb, sel = ctx.saved_tensors
+        mesh, split, panel = ctx.tp
+        g2 = g.reshape(-1, g.shape[-1]).contiguous()
         grad_x = grad_blocks = None
         if ctx.needs_input_grad[0]:
-            g2 = g.reshape(-1, g.shape[-1]).contiguous()
-            gx2 = q8_matmul(g2, wq, sw)                   # (T, I), a new tensor
-            # grad_x[:, cb] += g[:, rb] @ delta, in place
-            block_correction(gx2, g2, delta, ctx.bwd_sched)
-            grad_x = gx2.reshape(x.shape)
+            # (T, I), a new tensor; a column-parallel g * sw row lies across the ranks
+            gx2 = q8_matmul(g2, wq, sw, tensor=mesh if split == "out" else None)
+            if rb is not None:
+                # grad_x[:, cb] += g[:, rb] @ delta, in place (into the window's panel)
+                if split == "in":
+                    out = _panel(gx2, *panel)
+                    block_correction(out, g2, delta, ctx.bwd_sched)
+                    gx2 = out[:, panel[0]:panel[0] + gx2.shape[1]].contiguous()
+                else:
+                    src = g2 if split is None else _panel(g2, *panel)
+                    block_correction(gx2, src, delta, ctx.bwd_sched)
+            grad_x = gx2.reshape(ctx.x_shape)
         if ctx.needs_input_grad[1]:
-            grad_blocks = _grad_blocks(g, x, rb, cb, ctx.impl, ctx.blocks_dtype)
-        return grad_x, grad_blocks, None, None, None, None, None, None, None, None
+            if rb is None:   # no block touches this rank's slice
+                grad_blocks = g.new_zeros(ctx.blocks_shape, dtype=ctx.blocks_dtype)
+            else:
+                gg = _panel(g2, *panel) if split == "out" else g2
+                xx = _panel(x2, *panel) if split == "in" else x2
+                grad_blocks = _grad_blocks(gg, xx, rb, cb, ctx.impl, ctx.blocks_dtype)
+                if sel is not None:
+                    grad_blocks = grad_blocks.new_zeros(ctx.blocks_shape).index_copy_(
+                        0, sel, grad_blocks)
+        return grad_x, grad_blocks, None, None, None, None, None, None, None, None, None
+
+
+def _window_delta(blocks, base, sel, dtype) -> torch.Tensor:
+    """(blocks - base) of the blocks `sel` (every block where None), in
+    `dtype`."""
+    if sel is not None:
+        blocks, base = blocks.index_select(0, sel), base.index_select(0, sel)
+    return (blocks - base).to(dtype)
 
 
 def smt_linear_q8(x: torch.Tensor, blocks: torch.Tensor, wq: torch.Tensor,
                   sw: torch.Tensor, base_blocks: torch.Tensor, lp: LinearPlan,
                   impl: str = "auto",
                   index: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                  schedules: Optional[Tuple[CorrectionSchedule, CorrectionSchedule]] = None
-                  ) -> torch.Tensor:
+                  schedules: Optional[Tuple[CorrectionSchedule, CorrectionSchedule]] = None,
+                  tensor=None) -> torch.Tensor:
     """Block-sparse linear over an int8 frozen base (module notes).
 
     wq (O, I) int8, sw (O,) fp32, base_blocks (n, 256, 256) fp32: the
     dequantized frozen values of the selected blocks; all three frozen (no
     gradient). index / schedules: the plan's cached (rb, cb) int32 tensors
-    and K5 schedules on x's device (built from lp when omitted)."""
+    and K5 schedules on x's device (built from lp when omitted).
+
+    tensor: under the tensor axis, (mesh, window, first) with window and
+    first SMTPlan.tensor_window's of this rank, and schedules
+    SMTPlan.tensor_q8_schedules' (None where the window is): wq and sw are
+    then the rank's slices (sw whole for a row-parallel linear), base_blocks
+    whole. K5 corrects the window's blocks through zero-padded panels where
+    a block straddles the slice, as smt_linear's K1 does; the output (a
+    row-parallel linear's partial sum) and the block grads are the rank's
+    parts, and the row quantization of a row that lies across the ranks
+    takes the whole row's amax (ops/quant.py)."""
     impl = _resolve_impl(impl, x.device)
+    if tensor is not None:
+        mesh, window, first = tensor
+        split = _split(lp.module)
+        if window is None:
+            tp = (mesh, split, None, None)
+            return _SMTLinearQ8.apply(x, blocks, wq, sw, base_blocks, None, None, None, None,
+                                      impl, tp)
+        sel, rb, cb, (r_lo, r_n), (c_lo, c_n) = window
+        panel = (first[0] - r_lo * 256, r_n * 256) if split == "out" else \
+            (first[1] - c_lo * 256, c_n * 256)
+        if len(sel) == blocks.shape[0]:   # the window takes every block, in order
+            sel = None
+        return _SMTLinearQ8.apply(x, blocks, wq, sw, base_blocks, rb, cb, *schedules, impl,
+                                  (mesh, split, sel, panel))
     if index is None:
         index = (torch.as_tensor(lp.row_blocks(), device=x.device),
                  torch.as_tensor(lp.col_blocks(), device=x.device))
@@ -240,22 +320,34 @@ def smt_linear_q8(x: torch.Tensor, blocks: torch.Tensor, wq: torch.Tensor,
 
 class _FrozenQ8Linear(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, wq, sw):
+    def forward(ctx, x, wq, sw, mesh=None, split=None):
         ctx.save_for_backward(wq, sw)
-        return q8_matmul_t(x, wq, sw)
+        ctx.mesh, ctx.split = mesh, split
+        return q8_matmul_t(x, wq, sw, tensor=mesh if split == "in" else None)
 
     @staticmethod
     def backward(ctx, g):
         wq, sw = ctx.saved_tensors
-        return (q8_matmul(g, wq, sw) if ctx.needs_input_grad[0] else None), None, None
+        grad_x = None
+        if ctx.needs_input_grad[0]:
+            grad_x = q8_matmul(g, wq, sw, tensor=ctx.mesh if ctx.split == "out" else None)
+        return grad_x, None, None, None, None
 
 
-def frozen_q8_linear(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor) -> torch.Tensor:
+def frozen_q8_linear(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, tensor=None,
+                     split: Optional[str] = None) -> torch.Tensor:
     """y = x @ dequant(Wq).T for a fully-frozen linear (no selected blocks,
     e.g. o_proj, or the lm-head): int8 forward, int8 grad_input, no weight
     gradient. Straight-through: autograd through round/clip would give zero
-    input gradients."""
-    return _FrozenQ8Linear.apply(x, wq, sw)
+    input gradients.
+
+    tensor (the mesh) and split: under the tensor axis, wq and sw are this
+    rank's output rows (split "out": a column-parallel linear, or the int8
+    head's vocabulary rows; the backward's g * sw rows lie across the ranks)
+    or its input columns (split "in": a row-parallel linear, x the rank's
+    columns; the forward's rows lie across the ranks). The result is the
+    rank's output slice or partial sum, as the dense linear's is."""
+    return _FrozenQ8Linear.apply(x, wq, sw, tensor, split)
 
 
 class _FrozenQ4Linear(torch.autograd.Function):
@@ -537,9 +629,10 @@ def make_sparse_linear_dispatch(plan, trainable: Mapping[str, torch.Tensor],
     block-corrected q8 path, unplanned frozen ones the plain q8 path, and
     `w` is not read (it may be the offloaded weight's placeholder).
 
-    tensor (the tensor axis, matrix mode over the dense base): the mesh;
-    `w` is then this rank's tensor slice and planned linears compute
-    through smt_linear's tensor window."""
+    tensor (the tensor axis, matrix mode): the mesh; `w` (and the q leaves)
+    are then this rank's tensor slices, planned linears compute through
+    smt_linear's (or, over the int8 base, smt_linear_q8's) tensor window,
+    and unplanned int8 ones through frozen_q8_linear's tensor form."""
     if plan.mode == "channel" and qweights is not None:
         raise ValueError("channel mode over an int8 base runs over the scan state "
                          "(train/scan_phase.py), not this dispatch")
@@ -550,13 +643,19 @@ def make_sparse_linear_dispatch(plan, trainable: Mapping[str, torch.Tensor],
         qw = qweights.get(ks) if qweights is not None else None
         if lp is None:
             if qw is not None:
-                return frozen_q8_linear(x, qw["wq"], qw["sw"])
+                return frozen_q8_linear(x, qw["wq"], qw["sw"], tensor,
+                                        None if tensor is None else _split(module))
             return torch.matmul(x, w.t())
         if plan.mode == "channel":
             return smt_channel_linear(x, trainable[ks], w, lp, index=plan.channel_index(ks, x.device))
         if tensor is not None:
-            return smt_linear(x, trainable[ks], w, lp, impl, tensor=plan.tensor_window(
-                ks, x.device, tensor.tensor_index, tensor.tensor))
+            rank = (x.device, tensor.tensor_index, tensor.tensor)
+            window = plan.tensor_window(ks, *rank)
+            if qw is not None:   # the int8 base first: `w` is not what it computes over
+                return smt_linear_q8(x, trainable[ks], qw["wq"], qw["sw"], qw["base"], lp, impl,
+                                     schedules=plan.tensor_q8_schedules(ks, *rank),
+                                     tensor=(tensor, *window))
+            return smt_linear(x, trainable[ks], w, lp, impl, tensor=window)
         index = plan.block_index(ks, x.device, torch.int32)
         if qw is not None:
             return smt_linear_q8(x, trainable[ks], qw["wq"], qw["sw"], qw["base"], lp, impl,

@@ -585,10 +585,13 @@ class LayerGather:
         return self.top(params, "embed_tokens" if tied else "lm_head")
 
     def q_head(self, q_head):
-        """The int8 head {"wq", "sw"} with wq gathered."""
+        """The int8 head {"wq", "sw"} with wq gathered over fsdp: under the
+        tensor axis both stay this rank's vocabulary rows."""
         if q_head is None:
             return None
-        return {k: self.sh.full(f"q_head/{k}", t) for k, t in q_head.items()}
+        dims = {k: self.sh.dim(f"q_head/{k}") for k in q_head}
+        return {k: t if dims[k] is None else _gather_flat([t.detach()], [dims[k]], self.sh.mesh)[0]
+                for k, t in q_head.items()}
 
     def layer(self, params, i: int):
         """Layer i's leaves: [(kind, key, shard, dim, None)], kind "params"

@@ -72,7 +72,8 @@ class Mesh:
     bytes and calls, the all-gathers' ("gather_*", the gathered tensors'
     bytes) and reduce-scatters' ("scatter_*", the summed tensors' bytes)
     over fsdp, and the tensor group's all-reduces and all-gathers
-    ("tensor_*", the reduced or gathered tensors' bytes)."""
+    ("tensor_*", the reduced or gathered tensors' bytes), the int8 row
+    quantization's amax MAX-reduces over tensor apart ("tensor_amax_*")."""
     shape: Tuple[int, int, int]
     rank: int
     device: torch.device
@@ -143,7 +144,8 @@ class Mesh:
 
 
 STAT_KEYS = ("bytes", "calls", "gather_bytes", "gather_calls", "scatter_bytes",
-             "scatter_calls", "tensor_bytes", "tensor_calls")
+             "scatter_calls", "tensor_bytes", "tensor_calls", "tensor_amax_bytes",
+             "tensor_amax_calls")
 
 
 def free_port() -> int:
@@ -231,18 +233,14 @@ def axis_groups(shape: Sequence[int]) -> Dict[str, list]:
 
 def refuse_sharded_axes(shape: Sequence[int], cfg=None) -> None:
     """Refuse, by name, what the tensor axis (tensor above 1) does not yet
-    run: the options of `cfg` (an SMTConfig) outside matrix mode over the
-    dense base in the per-layer layout. The data and fsdp axes take
-    everything (--sparse_from_plan aside: config._check_mesh)."""
+    run: the options of `cfg` (an SMTConfig) outside matrix mode, over the
+    dense or the int8 base (and head), in the per-layer layout. The data
+    and fsdp axes take everything (--sparse_from_plan aside:
+    config._check_mesh)."""
     t = int(shape[2])
     if t == 1 or cfg is None:
         return
     refused = []
-    if cfg.frozen_quant == "int8":
-        refused.append("--frozen_quant int8 (a row-parallel linear's row quantization needs "
-                       "the amax of a row that lies across the tensor ranks)")
-    elif cfg.head_quant == "int8":
-        refused.append("--head_quant int8 (the int8 head)")
     if cfg.channel_sparsity:
         refused.append("--channel_sparsity (JAX puts the activation sums' columns on tensor)")
     if cfg.scan_layers == "on":
@@ -255,7 +253,7 @@ def refuse_sharded_axes(shape: Sequence[int], cfg=None) -> None:
         raise NotImplementedError(
             f"mesh_shape {tuple(shape)}: " + "; ".join(refused) + f" with tensor {t} not yet "
             "ported to sparse_matrix_tuning_tpu_torch; the tensor axis runs matrix mode over "
-            "the dense base in the per-layer layout")
+            "the dense or the int8 base in the per-layer layout")
 
 
 def refuse_tensor_model(model_cfg, t: int, params=None) -> None:

@@ -23,7 +23,10 @@ vocabulary rows (ops/loss.py: the vocabulary-parallel cross-entropy).
     sums), identity backward (its grad is whole on every rank);
   * gather_from_tensor: all-gather forward along the last dim, this
     rank's slice of the (whole) grad backward;
-  * tensor_all_reduce: a plain SUM or MAX over the group (the loss's).
+  * tensor_all_reduce: a plain SUM or MAX over the group (the loss's);
+  * tensor_amax: the MAX over the group of the row amaxes of an int8 row
+    quantization (ops/quant.row_quant(tensor=)), exact and carrying a
+    NaN, counted apart in mesh.stats["tensor_amax_*"].
 
 Each is collective over the tensor group (every rank calls it in the
 same order; a remat recompute calls them again) and counts its bytes and
@@ -40,12 +43,14 @@ import torch.distributed as dist
 from sparse_matrix_tuning_tpu_torch.parallel.mesh import Mesh, all_gather_
 
 
-def _all_reduce(t: torch.Tensor, mesh: Mesh, op: str = "sum") -> torch.Tensor:
-    """SUM or MAX of t over the tensor group, in place; returns t."""
+def _all_reduce(t: torch.Tensor, mesh: Mesh, op: str = "sum", stat: str = "tensor"
+                ) -> torch.Tensor:
+    """SUM or MAX of t over the tensor group, in place, counted in
+    mesh.stats[stat + "_bytes" / "_calls"]; returns t."""
     reduce_op = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
     dist.all_reduce(t, op=reduce_op, group=mesh.tensor_group)
-    mesh.stats["tensor_bytes"] += t.numel() * t.element_size()
-    mesh.stats["tensor_calls"] += 1
+    mesh.stats[f"{stat}_bytes"] += t.numel() * t.element_size()
+    mesh.stats[f"{stat}_calls"] += 1
     return t
 
 
@@ -53,6 +58,17 @@ def tensor_all_reduce(t: torch.Tensor, mesh: Mesh, op: str = "sum") -> torch.Ten
     """A new tensor: t's SUM ("sum") or MAX ("max") over the tensor group
     (no autograd: the caller decides what its backward is)."""
     return _all_reduce(t.detach().contiguous().clone(), mesh, op)
+
+
+def tensor_amax(amax: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The MAX over the tensor group of each rank's amax (fp32, >= 0 or a
+    NaN, as |x| gives them), a new tensor: reduced as the int32 bit
+    patterns, which order non-negative floats as their values do and put
+    every NaN above inf, so a NaN on any rank reaches every rank (a float
+    MAX need not carry it: NCCL's fmaxf drops it). Exact: each rank then
+    quantizes with the amax of the whole row."""
+    bits = amax.detach().contiguous().view(torch.int32).clone()
+    return _all_reduce(bits, mesh, "max", "tensor_amax").view(torch.float32)
 
 
 class _ToTensorRegion(torch.autograd.Function):

@@ -184,6 +184,22 @@ class SMTPlan:
             got = self._index_cache[cache_key] = (win, first)
         return got
 
+    def tensor_q8_schedules(self, ks: str, device, index: int, parts: int):
+        """The int8 path's K5 schedules (LinearPlan.q8_schedules) over the
+        blocks of tensor_window(ks, device, index, parts), at their window
+        coordinates: (forward, grad_input), or None where no block touches
+        the rank's slice; built once per plan, linear, device and rank."""
+        cache_key = (ks, str(torch.device(device)), "tensor_q8", index, parts)
+        if cache_key not in self._index_cache:
+            from sparse_matrix_tuning_tpu_torch.ops.cuda.correction import correction_schedule
+            win = self.tensor_window(ks, device, index, parts)[0]
+            sched = None
+            if win is not None:
+                rb, cb = win[1].cpu().numpy(), win[2].cpu().numpy()
+                sched = (correction_schedule(rb, cb, device), correction_schedule(cb, rb, device))
+            self._index_cache[cache_key] = sched
+        return self._index_cache[cache_key]
+
     def channel_index(self, ks: str, device) -> torch.Tensor:
         """The selected input channels of linear `ks`, an int64 tensor on
         `device`, built once per plan (channel mode)."""

@@ -204,9 +204,9 @@ def head_loss(run, params, batch, cfg: SMTConfig, model_cfg: LlamaConfig, sparse
     """The loss of compute_loss over a decoder `run(return_hidden)` (forward
     or, for the scan state, forward_scan): the loss path and the head as
     compute_loss describes them; under fsdp the head (or the int8 head's
-    wq) is gathered here; under the tensor axis (fsdp.tensor) the head is
-    this rank's vocabulary rows and both loss forms are vocabulary-parallel
-    (ops/loss.py)."""
+    wq) is gathered here (over fsdp only); under the tensor axis
+    (fsdp.tensor) the head, exact or int8, is this rank's vocabulary rows
+    and both loss forms are vocabulary-parallel (ops/loss.py)."""
     b, sq = batch["input_ids"].shape
     denom = batch.get("loss_denom")  # data parallelism: the global count
     tensor = getattr(fsdp, "tensor", None)
@@ -216,7 +216,7 @@ def head_loss(run, params, batch, cfg: SMTConfig, model_cfg: LlamaConfig, sparse
         hidden = run(True)
         if q_head is not None:
             return chunked_causal_lm_loss_q8(hidden, q_head["wq"], q_head["sw"],
-                                             batch["labels"], cfg.vocab_chunk, denom)
+                                             batch["labels"], cfg.vocab_chunk, denom, tensor)
         head = lm_head_weight(params, model_cfg) if fsdp is None else \
             fsdp.head(params, model_cfg.tie_word_embeddings)
         if tensor is not None:
@@ -225,8 +225,14 @@ def head_loss(run, params, batch, cfg: SMTConfig, model_cfg: LlamaConfig, sparse
                                       tensor)
     if q_head is not None:
         # fp32 input -> fp32 logits straight from the int32 product
-        logits = frozen_q8_linear(run(True).float(), q_head["wq"], q_head["sw"])
-        return causal_lm_loss(logits, batch["labels"], denom)
+        h = run(True).float()
+        if tensor is None:
+            return causal_lm_loss(frozen_q8_linear(h, q_head["wq"], q_head["sw"]),
+                                  batch["labels"], denom)
+        # the rank's vocabulary rows: the grad's g * sw rows lie across the ranks
+        logits = frozen_q8_linear(to_tensor_region(h, tensor), q_head["wq"], q_head["sw"],
+                                  tensor, "out")
+        return vocab_parallel_causal_lm_loss(logits, batch["labels"], tensor, denom)
     if tensor is not None:
         return vocab_parallel_causal_lm_loss(run(False), batch["labels"], tensor, denom)
     return causal_lm_loss(run(False), batch["labels"], denom)

@@ -289,19 +289,22 @@ def test_shard_batch_carries_global_microbatch_counts():
     ((2, 2, 1), None, "with fsdp 2 .* use --mesh_shape 4,1,1"),
 ])
 def test_sharded_axes_refused(shape, err, match):
-    """The tensor axis is taken in matrix mode over the dense base, what it
-    does not run refused by name (tests/test_torch_tensor.py has each case);
+    """The tensor axis is taken in matrix mode over the dense or the int8
+    base, what it does not run refused by name (channel mode here;
+    tests/test_torch_tensor.py has each case);
     the fsdp axis is taken, with the scan layouts too, but not with
     --sparse_from_plan, whose JAX entry runs on one device
     (tests/test_torch_fsdp_io.py runs the scan layouts)."""
     if err is not None:
-        int8 = SMTConfig(frozen_quant="int8")
+        channel = SMTConfig(channel_sparsity=True)
         with pytest.raises(err, match=match):
-            refuse_sharded_axes(shape, int8)
+            refuse_sharded_axes(shape, channel)
         with pytest.raises(err, match=match):
-            SMTConfig(mesh_shape=list(shape), frozen_quant="int8")
+            SMTConfig(mesh_shape=list(shape), channel_sparsity=True)
         refuse_sharded_axes(shape, SMTConfig())
+        refuse_sharded_axes(shape, SMTConfig(frozen_quant="int8"))
         assert SMTConfig(mesh_shape=list(shape)).mesh_shape == list(shape)
+        assert SMTConfig(mesh_shape=list(shape), frozen_quant="int8").mesh_shape == list(shape)
         return
     refuse_sharded_axes(shape)
     assert SMTConfig(mesh_shape=list(shape)).mesh_shape == list(shape)

@@ -195,33 +195,59 @@ def test_slice_block_grads_sum_to_the_blocks(module, t):
 # the vocabulary-parallel cross-entropy, T ranks as threads
 # ---------------------------------------------------------------------------
 
+_RANK = threading.local()   # the tensor rank of the thread running it
+
+
 class _ThreadGroup:
     """The tensor group's all-reduce over T threads, one a rank: every rank
     stacks its value, waits for the others, and takes the SUM (in rank
-    order) or MAX of the stack."""
+    order) or MAX of the stack. With world, the same stands in for
+    torch.distributed's all_reduce, all_gather_object and barrier over a
+    (1, 1, T) world (the trainer's collectives)."""
 
     def __init__(self, t):
         self.slots = [None] * t
         self.barrier = threading.Barrier(t, timeout=60)
 
-    def all_reduce(self, x, mesh, op="sum"):
-        self.slots[mesh.tensor_index] = x.clone()
+    def all_reduce(self, x, mesh=None, op="sum", stat="tensor"):
+        self.slots[_RANK.r] = x.clone()
         self.barrier.wait()
         stack = torch.stack(self.slots)
         out = stack.sum(0) if op == "sum" else stack.amax(0)
         self.barrier.wait()
         return x.copy_(out)
 
+    def dist_all_reduce(self, x, op=torch.distributed.ReduceOp.SUM, group=None, async_op=False):
+        self.all_reduce(x, op="max" if op == torch.distributed.ReduceOp.MAX else "sum")
 
-def _on_threads(t, monkeypatch, fn):
+    def all_gather_object(self, out, value, group=None):
+        self.slots[_RANK.r] = value
+        self.barrier.wait()
+        out[:] = list(self.slots)
+        self.barrier.wait()
+
+    def dist_barrier(self, group=None):
+        self.barrier.wait()
+
+
+def _on_threads(t, monkeypatch, fn, world=False):
     """fn(mesh) on T threads, one a tensor rank of a (1, 1, T) mesh, with
-    parallel/tensor's all-reduce over the threads; returns their results."""
+    parallel/tensor's all-reduce over the threads (with world, every
+    torch.distributed collective the trainer calls); returns their
+    results."""
     from sparse_matrix_tuning_tpu_torch.parallel import tensor as tensor_mod
     group = _ThreadGroup(t)
     monkeypatch.setattr(tensor_mod, "_all_reduce", group.all_reduce)
+    if world:
+        dist = torch.distributed
+        for name, f in (("all_reduce", group.dist_all_reduce), ("barrier", group.dist_barrier),
+                        ("all_gather_object", group.all_gather_object),
+                        ("get_backend", lambda group=None: "gloo")):
+            monkeypatch.setattr(dist, name, f)
     out, errors = [None] * t, []
 
     def run(r):
+        _RANK.r = r
         try:
             out[r] = fn(Mesh((1, 1, t), r, torch.device("cpu")))
         except BaseException as e:  # reported below, in the test's thread
@@ -402,8 +428,8 @@ def test_sharded_load_reads_two_dim_blocks(shape, tiny_hf_dir):  # noqa: F811
 
 
 REFUSED = {
-    "frozen_quant int8": (dict(frozen_quant="int8"), "--frozen_quant int8"),
-    "head_quant int8": (dict(head_quant="int8"), "--head_quant int8"),
+    "frozen_quant int8": (dict(frozen_quant="int8"), None),
+    "head_quant int8": (dict(head_quant="int8"), None),
     "channel": (dict(channel_sparsity=True, matrix_sparsity=False), "--channel_sparsity"),
     "scan_layers on": (dict(scan_layers="on"), "--scan_layers on"),
     "dropout": (dict(dropout=0.1), "--dropout"),
@@ -413,13 +439,17 @@ REFUSED = {
 
 @pytest.mark.parametrize("name", list(REFUSED))
 def test_config_refuses_what_tensor_does_not_run(name):
-    """Each option outside matrix mode over the dense base in the per-layer
-    layout raises NotImplementedError naming the flag and the mesh; the
-    same config without it builds."""
+    """Each option outside matrix mode over the dense or the int8 base in
+    the per-layer layout raises NotImplementedError naming the flag and the
+    mesh; the same config without it builds. The int8 base and head
+    (flag None) build."""
     from sparse_matrix_tuning_tpu_torch.config import SMTConfig
     kw, flag = REFUSED[name]
-    with pytest.raises(NotImplementedError, match=rf"\(1, 2, 2\).*{flag}.*tensor 2"):
-        SMTConfig(**{**_cfg(), **kw, "mesh_shape": [1, 2, 2]})
+    if flag is None:
+        assert SMTConfig(**{**_cfg(), **kw, "mesh_shape": [1, 2, 2]}).mesh_shape == [1, 2, 2]
+    else:
+        with pytest.raises(NotImplementedError, match=rf"\(1, 2, 2\).*{flag}.*tensor 2"):
+            SMTConfig(**{**_cfg(), **kw, "mesh_shape": [1, 2, 2]})
     assert SMTConfig(**{**_cfg(), "mesh_shape": [1, 2, 2]}).mesh_shape == [1, 2, 2]
 
 
@@ -450,11 +480,48 @@ def test_trainer_refuses_models_tensor_does_not_split(change, match):
                    mesh=mesh)
 
 
+def _k4_calls_on_threads(cfg, model, monkeypatch):
+    """A (1, 1, 2) trainer on each of two thread ranks through its
+    conversion and one sparse step (parallel/tensor's and torch.
+    distributed's collectives over the threads): each rank's calls of K4's
+    wrappers (ops/quant's q8mm_t / q8mm_g) and K5's (ops/sparse_linear's
+    block_correction), their plain versions on the CPU, in that step, the
+    state's int8 leaves and the step's loss."""
+    from sparse_matrix_tuning_tpu_torch.config import SMTConfig
+    from sparse_matrix_tuning_tpu_torch.models.llama import init_params
+    from sparse_matrix_tuning_tpu_torch.ops import quant, sparse_linear
+    from sparse_matrix_tuning_tpu_torch.train.trainer import SMTTrainer
+    from test_torch_parallel import batches
+    calls = [{"q8mm_t": 0, "q8mm_g": 0, "block_correction": 0} for _ in range(2)]
+    for mod, name in ((quant, "q8mm_t"), (quant, "q8mm_g"), (sparse_linear, "block_correction")):
+        def counted(*a, _f=getattr(mod, name), _n=name, **kw):
+            calls[_RANK.r][_n] += 1
+            return _f(*a, **kw)
+        monkeypatch.setattr(mod, name, counted)
+    bs = batches(cfg["full_ft_steps"] + 1)
+
+    def rank(mesh):
+        trainer = SMTTrainer(SMTConfig(**cfg), model, init_params(model, seed=0),
+                             len(bs), device="cpu", mesh=mesh)
+        for b in bs[:-1]:
+            trainer.train_step(b)
+        before = dict(calls[mesh.tensor_index])
+        loss = float(trainer.train_step(bs[-1])["loss"])
+        return ({k: calls[mesh.tensor_index][k] - before[k] for k in before},
+                sorted(k for k in ("q", "q_head") if k in trainer.state), loss)
+
+    return _on_threads(2, monkeypatch, rank, world=True)
+
+
 @pytest.mark.parametrize("name", list(REFUSED))
-def test_trainer_refuses_what_tensor_does_not_run(name):
+def test_trainer_refuses_what_tensor_does_not_run(name, monkeypatch):
     """A config that names no mesh_shape, handed to the trainer with a
     tensor mesh built in code, meets the same refusals by name (before
-    any collective)."""
+    any collective). The int8 base and head (flag None) build and train:
+    on two thread ranks at (1, 1, 2) the sparse step calls K4 on every
+    rank, the base's forward and grad_input forms and K5 on the planned
+    linears under --frozen_quant int8, the head's K4 under --head_quant
+    int8 (over the dense base: no K5), and the ranks' losses agree."""
     from sparse_matrix_tuning_tpu_torch.config import SMTConfig
     from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig, init_params
     from sparse_matrix_tuning_tpu_torch.train.trainer import SMTTrainer
@@ -462,6 +529,15 @@ def test_trainer_refuses_what_tensor_does_not_run(name):
     model = LlamaConfig(**{**MODEL, "num_attention_heads": 4, "num_key_value_heads": 2})
     cfg = SMTConfig(**{**_cfg(), **kw})
     assert cfg.mesh_shape is None
+    if flag is None:
+        got = _k4_calls_on_threads({**_cfg(), **kw}, model, monkeypatch)
+        base = "frozen_quant" in kw
+        for calls, leaves, loss in got:
+            assert calls["q8mm_t"] > 0 and calls["q8mm_g"] > 0, calls
+            assert (calls["block_correction"] > 0) == base, calls
+            assert leaves == (["q", "q_head"] if base else ["q_head"])
+            assert loss == got[0][2]
+        return
     mesh = Mesh((1, 1, 2), 0, torch.device("cpu"))
     with pytest.raises(NotImplementedError, match=rf"\(1, 1, 2\).*{flag}.*tensor 2"):
         SMTTrainer(cfg, model, init_params(model, seed=0), 4, device="cpu", mesh=mesh)

@@ -160,20 +160,47 @@ def overflow_probe(mesh):
             "good": int(state["good_steps"]), "clean_norm": float(clean)}
 
 
+def run_cli(spec, mesh):
+    """spec["module"]'s main(spec["argv"]) as torchrun starts it, in the
+    process group the ranks joined (the CLI takes it, makes its own mesh and
+    ends the group: the last spec of a spawn)."""
+    import importlib
+    # torchrun's environment; the group is joined already, so the CLI's
+    # init_distributed takes it (MASTER_ADDR only names the env:// method)
+    os.environ.update(RANK=str(mesh.rank), WORLD_SIZE=str(mesh.world),
+                      LOCAL_RANK=str(mesh.rank), MASTER_ADDR="localhost")
+    out = importlib.import_module(spec["module"]).main(list(spec["argv"]))
+    return {"result": {k: list(v) for k, v in out.items()}}
+
+
 def train_ranks(rank: int, world: int, store: str, specs, out_dir: str, shape=None):
+    """Each spec on this rank: a training scenario (run_scenario), or by
+    spec["probe"] the overflow probe, a checkpoint scenario (spec["stop"])
+    or a CLI run (run_cli, last)."""
     mesh = _join(rank, world, store, shape)
     for spec in specs:
         try:
-            out = overflow_probe(mesh) if spec.get("probe") == "overflow" else \
-                run_scenario(spec, mesh)
+            probe = spec.get("probe")
+            out = overflow_probe(mesh) if probe == "overflow" else \
+                checkpoint_scenario(spec, spec["stop"], mesh) if probe == "checkpoint" else \
+                run_cli(spec, mesh) if probe == "cli" else run_scenario(spec, mesh)
         except Exception:  # recorded: the scenario's own test reports it
             out = {"error": traceback.format_exc()}
         torch.save(out, os.path.join(out_dir, f"{spec['name']}.{rank}.pt"))
-    dist.destroy_process_group()
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def checkpoint_ranks(rank: int, world: int, store: str, spec, stop: int, out_dir: str,
                      shape=None, refuse_at=None):
+    """checkpoint_scenario on every rank, written to {out_dir}/ckpt.{rank}.pt."""
+    mesh = _join(rank, world, store, shape)
+    torch.save(checkpoint_scenario(spec, stop, mesh, refuse_at),
+               os.path.join(out_dir, f"ckpt.{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def checkpoint_scenario(spec, stop: int, mesh, refuse_at=None):
     """A straight run and the same stopped after step `stop`
     (trainer._save_resumable: rank 0 writes between barriers; under fsdp
     each rank its shards) and resumed in a fresh trainer on every rank: the
@@ -182,7 +209,6 @@ def checkpoint_ranks(rank: int, world: int, store: str, spec, stop: int, out_dir
     both; with refuse_at, the error of a restore into a trainer on a mesh
     of that shape (over the same ranks)."""
     from sparse_matrix_tuning_tpu_torch.train.checkpoint import restore_checkpoint
-    mesh = _join(rank, world, store, shape)
     batches = torch.load(spec["batches"], weights_only=False)
 
     def steps(trainer, bs):
@@ -210,20 +236,17 @@ def checkpoint_ranks(rank: int, world: int, store: str, spec, stop: int, out_dir
         except ValueError as e:
             refusal = str(e)
     hosts = [t._host_frozen or {} for t in (straight, resumed)]
-    torch.save({"refusal": refusal, "straight": [x[0] for x in s_steps], "resumed": [x[0] for x in r_steps],
-                "host_equal": hosts[0].keys() == hosts[1].keys() and all(
-                    torch.equal(hosts[0][k], hosts[1][k]) for k in hosts[0]),
-                "host_keys": sorted(hosts[0]),
-                "straight_sums": [x[1] for x in s_steps],
-                "resumed_sums": [x[1] for x in r_steps],
-                "saved_phase": saved_phase, "phase": resumed.phase,
-                "fingerprints": (straight.plan.fingerprint(), resumed.plan.fingerprint()),
-                "straight_leaves": {k: v.detach().clone() for k, v in
-                                    state_leaves(straight).items()},
-                "resumed_leaves": {k: v.detach().clone() for k, v in
-                                   state_leaves(resumed).items()}},
-               os.path.join(out_dir, f"ckpt.{rank}.pt"))
-    dist.destroy_process_group()
+    return {"refusal": refusal, "straight": [x[0] for x in s_steps],
+            "resumed": [x[0] for x in r_steps],
+            "host_equal": hosts[0].keys() == hosts[1].keys() and all(
+                torch.equal(hosts[0][k], hosts[1][k]) for k in hosts[0]),
+            "host_keys": sorted(hosts[0]),
+            "straight_sums": [x[1] for x in s_steps],
+            "resumed_sums": [x[1] for x in r_steps],
+            "saved_phase": saved_phase, "phase": resumed.phase,
+            "fingerprints": (straight.plan.fingerprint(), resumed.plan.fingerprint()),
+            "straight_leaves": {k: v.detach().clone() for k, v in state_leaves(straight).items()},
+            "resumed_leaves": {k: v.detach().clone() for k, v in state_leaves(resumed).items()}}
 
 
 def cli_ranks(rank: int, world: int, store: str, module: str, argv, out_dir: str):
