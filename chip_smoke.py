@@ -188,7 +188,26 @@ Phases, in order; any failure raises and the exit code is non-zero:
      ranks' boundary): equal to their plain twins and, over the two
      ranks' columns with the MAX of their amaxes, to the whole row's
      quantization bit for bit, NaN and inf rows included; a planted
-     rank-local amax rejected; timed at TQ's main shape.
+     rank-local amax rejected; timed at TQ's main shape;
+ 16. the scan layouts under the tensor axis (--scan_layers on on a tensor
+     mesh, in the same spawns as T0 and T; `--only tp` runs them too):
+     TS0, the tiny pair in fp32 and fp16 over the dense and the int8 base
+     at (1, 1, 2) and (1, 2, 2) against one process's --scan_layers on run
+     (P0's bounds, P0_INT8_RTOL over int8 and fp16, the same loss scales
+     and overflow flags), K1, K2, K3 and K5 (smt_linear_dyn on each rank's
+     window of valid entries) launched on every rank, over int8 K4 and the
+     row quantization's three entries too, 1/T of every tensor-split leaf,
+     the export against one process's export of the gathered state; TS,
+     E's path with --scan_layers on at (1, 1, 2) over the two gloo ranks
+     (bs 4 a rank, every TinyLlama layer), held to E at P's bounds, with
+     per rank the ms/step, the tensor collectives' MB and calls a step
+     (activations, amax and the block grads' sum apart; the sum at most
+     the plan's valid blocks' bytes), the stacked int8 base, head, host
+     store and padded stacks' bytes beside the whole state's, the peaks
+     beside E's, TQ's and G's, and the launches; TSE, its export
+     (merged_params, gathered layer by layer over both axes, not written)
+     equal to one process's export of the gathered state and host store;
+     TSN (`--only nccl` on four cards), TS0 and TS over NCCL at (1, 2, 2).
 Before the references, K6 (the int4 unpack-matmul) runs at eight shapes
 (K6_SHAPES: the TinyLlama linears at the eval decode's 64 rows, 16 and a
 ragged 7, Llama-3-8B's gate) and on the layer views of a stack (K6s),
@@ -205,8 +224,8 @@ checks and the tiny int8 reference; `--only q4` after
 the build, the K6 checks and the tiny quantized generation; `--only attn`
 after the build and the K3 / K7 checks; `--only sparse` after the build and
 the K1 / K2 / K5 checks; `--only scan` runs the build, the tiny 12-layer
-channel int8 reference, J and R; `--only tp` the build, A, E, T0, TQ0, T,
-TE, TQ and TQE; none of them prints a result.
+channel int8 reference, J and R; `--only tp` the build, A, E, T0, TQ0, TS0,
+T, TE, TQ, TQE, TS and TSE; none of them prints a result.
 """
 
 from __future__ import annotations
@@ -2492,7 +2511,7 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
     summary["export_tensors_equal"] = export
     if whole is not None:
         summary["fse_tensors"] = one_process_export_equal(trainer, merged, whole)
-    if mesh is not None and mesh.tensor > 1:
+    if mesh is not None and mesh.tensor > 1 and not trainer._scan:   # the scan state: FSE's
         summary["te_tensors"] = tensor_export_equal(trainer, merged, snap)
     del whole
     if keep_state:
@@ -2518,14 +2537,17 @@ def state_bytes(trainer):
     {"tsplit_here", "tsplit_full"} over the tensor-split ones ("tslice":
     their tensor slices gathered over fsdp, 1/T of the whole),
     {"host_here", "host_full"} over the host store of frozen weights (the
-    scan state's under fsdp: this rank's slices), and {"q_here", "q_full"}
-    over the int8 base and head (the q and q_head leaves)."""
+    scan state's under fsdp and tensor: this rank's slices), {"q_here",
+    "q_full"} over the int8 base and head (the q and q_head leaves), of
+    which {"qhead_here", "qhead_full"} the head's, and {"pad_here",
+    "pad_full"} over the scan state's padded stacks (trainable, base, m,
+    v)."""
     import numpy as np
     from sparse_matrix_tuning_tpu_torch.models.llama import flatten_tree
     sh = trainer.sharding
     out = dict.fromkeys(("here", "full", "split_here", "split_full", "tsplit_here",
                          "tsplit_full", "tslice", "host_here", "host_full", "q_here",
-                         "q_full"), 0)
+                         "q_full", "qhead_here", "qhead_full", "pad_here", "pad_full"), 0)
 
     def full_of(k, t):
         here = t.numel() * t.element_size()
@@ -2539,9 +2561,16 @@ def state_bytes(trainer):
         if full != here:
             out["split_here"] += here
             out["split_full"] += full
-        if k.split("/")[0] in ("q", "q_head"):
+        top = k.split("/")[0]
+        if top in ("q", "q_head"):
             out["q_here"] += here
             out["q_full"] += full
+        if top == "q_head":
+            out["qhead_here"] += here
+            out["qhead_full"] += full
+        if trainer._scan and top in ("trainable", "base", "m", "v"):
+            out["pad_here"] += here
+            out["pad_full"] += full
         if sh is not None and sh.tdim(k) is not None:
             out["tsplit_here"] += here
             out["tsplit_full"] += full
@@ -4100,10 +4129,13 @@ def dp_rank(rank, world, port, jobs, out_dir, shape=None, backend="gloo"):
     export_dir)) TinyLlama as run A at A's global batch with the export
     (FE); and over a (1, world / 2, 2) mesh, the tensor axis: ("T0", dtype)
     the tiny pair in fp32 or fp16, ("T", (layers, export_dir)) TinyLlama as
-    run A at A's global batch with the export (TE), and the same over the
+    run A at A's global batch with the export (TE), the same over the
     int8 base ("TQ0", dtype; "TQ", layers: --frozen_quant int8, as run E,
-    its export checked as merged_params and not written: hold_t). Writes
-    {out_dir}/dp.{rank}.pt."""
+    its export checked as merged_params and not written: hold_t), and over
+    the scan state ("TS0", TS0_CASES' "{frozen_quant} {dtype}": the tiny
+    pair with --scan_layers on; "TS", layers: run E with --scan_layers on,
+    its export checked against one process's export of the gathered state,
+    not written: hold_ts). Writes {out_dir}/dp.{rank}.pt."""
     import torch
     import torch.distributed as dist
     _rank_setup()
@@ -4123,7 +4155,7 @@ def dp_rank(rank, world, port, jobs, out_dir, shape=None, backend="gloo"):
     fmesh = make_mesh(shape or (1, world, 1), device=device)
     # the tensor axis: (1, world / 2, 2)
     tmesh = make_mesh((1, world // 2, 2), device=device) \
-        if any(tag in ("T0", "T", "TQ0", "TQ") for tag, _ in jobs) else None
+        if any(tag in ("T0", "T", "TQ0", "TQ", "TS0", "TS") for tag, _ in jobs) else None
     _time_collectives()
     for tag, arg in jobs:
         t0 = time.time()
@@ -4159,6 +4191,16 @@ def dp_rank(rank, world, port, jobs, out_dir, shape=None, backend="gloo"):
             s = run_main_path(cfg, device, bs=4 // tmesh.batch_shards, mesh=tmesh,
                               frozen_quant="int8",
                               log_fn=(lambda m: log(f"[TQ rank {rank}] {m}")))
+        elif tag == "TS0":
+            fq, dt = arg.split()
+            s = run_main_path(LlamaConfig.tiny(vocab_size=512), device,
+                              bs=4 // tmesh.batch_shards, mesh=tmesh, frozen_quant=fq,
+                              cfg_extra={"scan_layers": "on"}, **{**P0_KW, "dtype": dt})
+        elif tag == "TS":
+            cfg = LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": arg})
+            s = run_main_path(cfg, device, bs=4 // tmesh.batch_shards, mesh=tmesh,
+                              frozen_quant="int8", cfg_extra={"scan_layers": "on"},
+                              log_fn=(lambda m: log(f"[TS rank {rank}] {m}")))
         elif tag == "FS0":
             fsdp_mod.LIVE.update(now=0, peak=0)
             s = fs0_run(arg, device, 4 // world, fmesh)
@@ -4177,9 +4219,9 @@ def dp_rank(rank, world, port, jobs, out_dir, shape=None, backend="gloo"):
 
 
 def _job_key(tag, arg):
-    """Where dp_rank keeps a job's summary: "F", "T", "TQ", "FS:{mode}", or
-    "{tag}:{arg}"."""
-    if tag in ("F", "T", "TQ"):
+    """Where dp_rank keeps a job's summary: "F", "T", "TQ", "TS",
+    "FS:{mode}", or "{tag}:{arg}"."""
+    if tag in ("F", "T", "TQ", "TS"):
         return tag
     return f"FS:{arg[1]}" if tag == "FS" else f"{tag}:{arg}"
 
@@ -4467,14 +4509,15 @@ def check_fsdp(ranks, refs, run_a, p, layers, t_layers):
     (hold_f0, hold_f): F with its export (FE) and each rank's warm-up peak
     at least FSDP_PEAK_GAIN_GIB under P's; T0, TQ0 and T (the tensor axis,
     at (1, 1, 2) in the pair and T0 and TQ0 at (1, 2, 2) in the four;
-    hold_t0, hold_t). Returns rank 0's summaries (and every
-    rank's T and TQ: TQ is held once E has run)."""
+    hold_t0, hold_t; TS0, the same over the scan state, hold_ts0).
+    Returns rank 0's summaries (and every rank's T, TQ and TS: TQ and TS
+    are held once E has run)."""
     t0 = time.time()
     quad = _spawn(dp_rank, 4, [("F0", "none")] + [("FS0", n) for n in FS0_RUNS]
-                  + [("T0", d) for d in T0_DTYPES] + [("TQ0", d) for d in T0_DTYPES],
-                  after=((2, 2, 1),))
-    log(f"[F0] 4 gloo ranks on cuda:0 at (2, 2, 1), F0 and FS0, and T0 and TQ0 at (1, 2, 2): "
-        f"{time.time() - t0:.1f} s for the spawn")
+                  + [("T0", d) for d in T0_DTYPES] + [("TQ0", d) for d in T0_DTYPES]
+                  + [("TS0", c) for c in TS0_CASES], after=((2, 2, 1),))
+    log(f"[F0] 4 gloo ranks on cuda:0 at (2, 2, 1), F0 and FS0, and T0, TQ0 and TS0 at (1, 2, "
+        f"2): {time.time() - t0:.1f} s for the spawn")
     for fq in ("none", "int8"):
         hold_f0((1, 2, 1), fq, [r[f"F0:{fq}"] for r in ranks], refs)
     hold_f0((2, 2, 1), "none", [r["F0:none"] for r in quad], refs)
@@ -4488,6 +4531,7 @@ def check_fsdp(ranks, refs, run_a, p, layers, t_layers):
         for d in T0_DTYPES:
             hold_t0(shape, d, [r[f"T0:{d}"] for r in got], refs)
             hold_t0(shape, d, [r[f"TQ0:{d}"] for r in got], refs, tag="TQ0", fq="int8")
+        hold_ts0(shape, got, refs)
     hold_t("T", (1, 1, 2), "gloo", [r["T"] for r in ranks], run_a, t_layers,
            {"P rank 0": p[0], "F rank 0": f[0]})
     gib = 1024 ** 3
@@ -4500,6 +4544,7 @@ def check_fsdp(ranks, refs, run_a, p, layers, t_layers):
     return {"F": f[0], "F0": ranks[0]["F0:none"], "F0 int8": ranks[0]["F0:int8"],
             "F0 (2,2,1)": quad[0]["F0:none"], "T": ranks[0]["T"], "TQ": ranks[0].get("TQ"),
             "TQ ranks": [r.get("TQ") for r in ranks], "T ranks": [r["T"] for r in ranks],
+            "TS ranks": [r.get("TS") for r in ranks],
             **{f"{k} {d}": ranks[0][f"{k}:{d}"] for d in T0_DTYPES for k in ("T0", "TQ0")},
             **{f"{k} {d} (1,2,2)": quad[0][f"{k}:{d}"] for d in T0_DTYPES
                for k in ("T0", "TQ0")},
@@ -4622,6 +4667,11 @@ T0_DTYPES = ("fp32", "fp16")
 # the int8 base under the tensor axis launches on every rank
 RQ_SPLIT_KERNELS = ("row_amax", "row_quant_amax")
 TQ_KERNELS = TRAIN_KERNELS + Q8_KERNELS + RQ_SPLIT_KERNELS
+# TS0: the tiny pair over the scan state under the tensor axis (--scan_layers
+# on), "{frozen_quant} {dtype}"; over the dense base the scan state's
+# smt_linear_dyn corrects through K5 as well
+TS0_CASES = ("none fp32", "none fp16", "int8 fp32", "int8 fp16")
+TS_DENSE_KERNELS = TRAIN_KERNELS + ("block_correction",)
 
 
 def _fp16_names(names):
@@ -4651,20 +4701,22 @@ def _one_row_quant_a_k4_call(tag, lx):
         raise AssertionError(f"{tag}: not one row quantization a K4 call: {lx}")
 
 
-def hold_t0(shape, dtype, got, refs, tag="T0", fq="none"):
+def hold_t0(shape, dtype, got, refs, tag="T0", fq="none", scan=False):
     """The tiny pair on a tensor mesh against one process, over the dense
-    base or (fq "int8": TQ0) the int8 base and head: the same plan; the
-    ranks' losses equal; fp32 losses and grad norms over the dense base
-    within P0_RTOL, else the losses within P0_INT8_RTOL (grad norms
-    reported: an int8 rounding flips), fp16 with the same loss scales and
-    overflow flags; K1, K2 and K3 launched on every rank, over the int8
-    base K4 (t and g), the row quantization's three entries and K5 too
-    (their fp16 bodies under fp16); each rank's state held by
-    _tensor_state_held."""
+    base or (fq "int8": TQ0) the int8 base and head, in the per-layer
+    layout or (scan: TS0, --scan_layers on) over the scan state: the same
+    plan; the ranks' losses equal; fp32 losses and grad norms over the
+    dense base within P0_RTOL, else the losses within P0_INT8_RTOL (grad
+    norms reported: an int8 rounding flips), fp16 with the same loss
+    scales and overflow flags; K1, K2 and K3 launched on every rank, over
+    the int8 base K4 (t and g), the row quantization's three entries and
+    K5 too (their fp16 bodies under fp16), over the scan state K5 over
+    either base; each rank's state held by _tensor_state_held."""
     import numpy as np
     fp16, int8 = dtype == "fp16", fq == "int8"
-    ref = refs[{(False, False): "none", (True, False): "fp16", (False, True): "int8",
-                (True, True): "int8 fp16"}[fp16, int8]]
+    ref = refs[("scan " if scan else "") + {
+        (False, False): "none", (True, False): "fp16", (False, True): "int8",
+        (True, True): "int8 fp16"}[fp16, int8]]
     rtol = P0_INT8_RTOL if fp16 or int8 else P0_RTOL
     what = f"{tag} {shape} {dtype}"
     fps = {g["plan"]["fingerprint"] for g in got} | {ref["plan"]["fingerprint"]}
@@ -4672,11 +4724,15 @@ def hold_t0(shape, dtype, got, refs, tag="T0", fq="none"):
         raise AssertionError(f"{what}: plan fingerprints differ: {fps}")
     if any(g["loss"] != got[0]["loss"] for g in got):
         raise AssertionError(f"{what}: the ranks' losses differ")
-    names = tuple(n for n in (TQ_KERNELS if int8 else TRAIN_KERNELS) if "dkdv_reduce" not in n)
+    names = tuple(n for n in (TQ_KERNELS if int8 else TS_DENSE_KERNELS if scan else
+                              TRAIN_KERNELS) if "dkdv_reduce" not in n)
     needed = _fp16_names(names) if fp16 else names
     for r, g in enumerate(got):
-        if not all(g["launches"][n] > 0 for n in needed):
-            raise AssertionError(f"{what} rank {r} did not launch every kernel: {g['launches']}")
+        if not all(g["launches"][n] > 0 for n in needed) or g["scan"] != scan \
+                or (scan and not g.get("fse_tensors")):
+            raise AssertionError(f"{what} rank {r}: scan {g['scan']}, TSE "
+                                 f"{g.get('fse_tensors')}, or not every kernel launched: "
+                                 f"{g['launches']}")
         _tensor_state_held(f"{what} rank {r}", g, ref, shape[2], int8)
     if fp16 and (got[0]["loss_scale"], got[0]["overflow"]) != (ref["loss_scale"],
                                                                 ref["overflow"]):
@@ -4699,7 +4755,8 @@ def hold_t0(shape, dtype, got, refs, tag="T0", fq="none"):
         extra = (f"; amax MB / calls a step "
                  f"{[(round(x['tensor_amax_bytes'] / 1e6, 3), x['tensor_amax_calls']) for x in c]}"
                  f"; rank 0 q bytes {sb['q_here']:,} of {sb['q_full']:,}")
-    log(f"[{tag}] tiny {dtype}{' --frozen_quant int8' if int8 else ''} at {shape}, {len(got)} "
+    log(f"[{tag}] tiny {dtype}{' --frozen_quant int8' if int8 else ''}"
+        f"{' --scan_layers on' if scan else ''} at {shape}, {len(got)} "
         f"ranks against one process at global batch 4 (rows 2-3 thinned): losses worst rel diff "
         f"{worst:.2e}, grad norms {worst_norm:.2e} (bound {rtol} on "
         f"{'both' if rtol == P0_RTOL else 'the losses; grad norms reported'}); eval "
@@ -4708,8 +4765,11 @@ def hold_t0(shape, dtype, got, refs, tag="T0", fq="none"):
         + (f"; loss scales {got[0]['loss_scale']} and overflow flags {got[0]['overflow']} as "
            "one process's" if fp16 else "")
         + f"; tensor MB / calls a step "
-        f"{[(round(x['tensor_bytes'] / 1e6, 2), x['tensor_calls']) for x in c]}{extra}; TE "
-        f"{got[0].get('te_tensors')} tensors; rank 0 launches "
+        f"{[(round(x['tensor_bytes'] / 1e6, 2), x['tensor_calls']) for x in c]}{extra}"
+        + (f"; block-grad parts summed MB / calls a step "
+           f"{[(round(x['grad_parts_bytes'] / 1e6, 3), x['grad_parts_calls']) for x in c]}; "
+           f"TSE {got[0].get('fse_tensors')} tensors" if scan else
+           f"; TE {got[0].get('te_tensors')} tensors") + "; rank 0 launches "
         f"{ {n: got[0]['launches'][n] for n in needed} }")
 
 
@@ -4809,45 +4869,167 @@ def hold_t(tag, shape, backend, t, ref, layers, beside=None, fq="none"):
 
 
 def tensor_refs(refs=None):
-    """The one-process tiny references of T0 and TQ0 (fp32 and fp16, over
-    the dense and the int8 base), those not in `refs` run here."""
+    """The one-process tiny references of T0, TQ0 and TS0 (fp32 and fp16,
+    over the dense and the int8 base, per layer and, keys "scan ...",
+    --scan_layers on), those not in `refs` run here."""
     from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
     tiny = LlamaConfig.tiny(vocab_size=512)
     refs = dict(refs or {})
-    for key, fq, dtype in (("none", "none", "fp32"), ("fp16", "none", "fp16"),
-                           ("int8", "int8", "fp32"), ("int8 fp16", "int8", "fp16")):
-        if key not in refs:
-            refs[key] = run_main_path(tiny, "cuda", bs=4, frozen_quant=fq,
-                                      **{**P0_KW, "dtype": dtype})
+    for scan in ("", "scan "):
+        for key, fq, dtype in (("none", "none", "fp32"), ("fp16", "none", "fp16"),
+                               ("int8", "int8", "fp32"), ("int8 fp16", "int8", "fp16")):
+            if scan + key not in refs:
+                refs[scan + key] = run_main_path(
+                    tiny, "cuda", bs=4, frozen_quant=fq, **{**P0_KW, "dtype": dtype},
+                    **({"cfg_extra": {"scan_layers": "on"}} if scan else {}))
     return refs
+
+
+def hold_ts0(shape, got, refs, tag="TS0"):
+    """TS0: every TS0_CASES pair on a tensor mesh, over the scan state,
+    against one process (hold_t0 with scan)."""
+    for case in TS0_CASES:
+        fq, dt = case.split()
+        hold_t0(shape, dt, [r[f"TS0:{case}"] for r in got], refs, tag=tag, fq=fq, scan=True)
+
+
+def hold_ts(tag, shape, backend, ts, ref, layers, beside=None):
+    """TS: E's path with --scan_layers on over the int8 scan state on a
+    tensor mesh, against E run in one process (P's bounds: losses within
+    1e-3, warm-up grad norms within 5e-2; the ranks' losses and plans
+    equal); on every rank the scan state with its host store, K1, K2, K3,
+    K4 t and g, the row quantization's three entries and K5 launched, one
+    row quantization a K4 call, 1/T of every tensor-split stack and q leaf
+    and 1/(F T) of the host store, the padded stacks whole over tensor
+    (1/F over fsdp), the block grads summed over the tensor group at the
+    valid entries only (at most the plan's blocks' bytes a sparse step),
+    and TSE: the export (merged_params, gathered layer by layer over both
+    axes, not written) equal to one process's export of the gathered
+    state and host store. Logs per rank the ms/step, the tensor
+    collectives' MB and calls a step (activations, amax and block grads
+    apart), the state's bytes against the whole state's, and the peaks
+    beside E's and the runs of `beside` ({name: summary}: rank 0's TQ;
+    G's fit peak), then raises for what failed."""
+    import numpy as np
+    gib = 1024 ** 3
+    _, f, t = shape
+    valid_bytes = ts[0]["plan"]["blocks"] * 256 * 256 * 4
+    n_warm = 3
+    failed = []
+    if any(x["loss"] != ts[0]["loss"] or x["plan"] != ts[0]["plan"] for x in ts):
+        failed.append("the ranks' losses or plans differ")
+    for r, x in enumerate(ts):
+        lx, sb = x["launches"], x["state_bytes"]["sparse"]
+        bad = [n for n in TQ_KERNELS if lx[n] <= 0]
+        if not x["scan"] or not x["offloaded"] or bad:
+            failed.append(f"rank {r}: scan {x['scan']}, host store {x['offloaded']}, not "
+                          f"launched: {bad}")
+        try:
+            _one_row_quant_a_k4_call(f"{tag} rank {r}", lx)
+        except AssertionError as e:
+            failed.append(str(e))
+        if not x.get("fse_tensors"):
+            failed.append(f"rank {r}: the export was not checked ({tag}E)")
+        if not sb["tsplit_here"] or sb["tslice"] * t != sb["tsplit_full"] \
+                or not sb["host_here"] or sb["host_here"] * f * t != sb["host_full"] \
+                or not sb["pad_here"] or sb["pad_here"] * f != sb["pad_full"]:
+            failed.append(f"rank {r}: not 1/{t} of the tensor-split leaves, 1/{f * t} of the "
+                          f"host store and 1/{f} of the padded stacks: {sb}")
+        parts = [c["grad_parts_bytes"] for c in x["collectives"][n_warm:]]
+        if not all(0 < b <= valid_bytes for b in parts):
+            failed.append(f"rank {r}: block-grad sums of {parts} B a sparse step, not within "
+                          f"the valid entries' {valid_bytes:,} B")
+    r_loss = ref["loss"] + [ref["eval_loss"]]
+    t_loss = ts[0]["loss"] + [ts[0]["eval_loss"]]
+    rel = np.abs(np.array(t_loss) - np.array(r_loss)) / np.abs(np.array(r_loss))
+    r_norm, t_norm = np.array(ref["warmup_grad_norm"]), np.array(ts[0]["warmup_grad_norm"])
+    rel_norm = np.abs(t_norm - r_norm) / r_norm
+    log(f"[{tag}] TinyLlama-1.1B bf16 --scan_layers on --frozen_quant int8 (the int8 scan "
+        f"state, host store, int8 head), {layers} layers, tensor {shape} over {len(ts)} "
+        f"{backend} ranks x bs {4 // (f * shape[0])} x seq 512 (E's global batch), 3 warm-up + "
+        f"4 sparse steps: losses {t_loss} vs E's {r_loss}, worst rel diff "
+        f"{float(rel.max()):.2e} (bound {P_VS_A_RTOL}); warm-up grad norms worst rel diff "
+        f"{float(rel_norm.max()):.2e} (bound {P_GNORM_RTOL}); sparse grad norms "
+        f"{ts[0]['grad_norm']} vs E's {ref['grad_norm']}; plan "
+        f"{ts[0]['plan']['fingerprint'][:16]} on every rank, E's "
+        f"{ref['plan']['fingerprint'][:16]}, {ts[0]['plan']['blocks']} blocks "
+        f"({valid_bytes:,} B of block grads) ({CARD['smi']})")
+    peaks = {"E": ref["peak"], **{k: v["peak"] for k, v in (beside or {}).items()
+                                  if "peak" in v}}
+    for r, x in enumerate(ts):
+        ms, c, sb = x["step_ms"], x["collectives"], x["state_bytes"]["sparse"]
+
+        def per_step(key):
+            pre = f"{key}_" if key else ""
+            return [(round(v[f"{pre}bytes"] / 1e6, 3), v[f"{pre}calls"]) for v in c]
+        log(f"[{tag}] rank {r}: warm-up ms/step {[round(v, 1) for v in ms[:n_warm]]}, sparse "
+            f"{[round(v, 1) for v in ms[n_warm:]]} (E: {[round(v, 1) for v in ref['step_ms']]}"
+            + "".join(f"; {k}: {[round(v, 1) for v in s['step_ms']]}"
+                      for k, s in (beside or {}).items() if "step_ms" in s)
+            + f"); collective ms/step {[round(v, 1) for v in x['reduce_ms']]}; tensor MB / calls "
+            f"a step: activations {per_step('tensor')}, amax {per_step('tensor_amax')}, block "
+            f"grads {per_step('grad_parts')}; all-reduced in all {per_step('')}; fsdp gathered "
+            f"{per_step('gather')}, reduce-scattered {per_step('scatter')}")
+        log(f"[{tag}] rank {r}: bytes here / whole: stacked int8 base (q) "
+            f"{sb['q_here'] - sb['qhead_here']:,} / {sb['q_full'] - sb['qhead_full']:,}, int8 "
+            f"head {sb['qhead_here']:,} / {sb['qhead_full']:,}, host store {sb['host_here']:,} / "
+            f"{sb['host_full']:,}, padded stacks (trainable, base, m, v) {sb['pad_here']:,} / "
+            f"{sb['pad_full']:,}, tensor-split leaves {sb['tsplit_here']:,} / "
+            f"{sb['tsplit_full']:,}, state {sb['here'] / gib:.3f} / {sb['full'] / gib:.3f} GiB; "
+            f"peak GiB { {k: round(v / gib, 2) for k, v in x['peak'].items() if v is not None} } "
+            "beside " + "; ".join(
+                f"{who}'s { {k: round(v / gib, 2) for k, v in pk.items() if v is not None} }"
+                for who, pk in peaks.items())
+            + "".join(f"; {k}'s fit peak {v['peak_gib']:.2f}" for k, v in (beside or {}).items()
+                      if "peak_gib" in v)
+            + "; launches " + ", ".join(f"{n} {x['launches'][n]}" for n in (
+                ("q8mm_t", "q8mm_g", "row_quant") + RQ_SPLIT_KERNELS
+                + ("block_correction", "block_grad", "masked_adam", "attn_fwd", "attn_bwd_dkdv")))
+            + f"; {x['seconds']:.1f} s")
+    if rel.max() > P_VS_A_RTOL:
+        failed.append(f"losses part from E's by {float(rel.max()):.2e} > {P_VS_A_RTOL}")
+    if len(t_norm) != len(r_norm) or rel_norm.max() > P_GNORM_RTOL:
+        failed.append(f"warm-up grad norms {t_norm.tolist()} part from E's {r_norm.tolist()} by "
+                      f"more than {P_GNORM_RTOL}")
+    if failed:
+        raise AssertionError(f"{tag}: " + "; ".join(failed))
+    log(f"[{tag}E] the export's {ts[0]['fse_tensors']} tensors (merged_params_from_scan, each "
+        "layer gathered over both axes, the host store's slices among them) equal one "
+        "process's export of the gathered state and host store bit for bit on every rank")
 
 
 def run_tensor(run_a, run_e, layers):
     """`--only tp`: the tensor axis over gloo ranks sharing the card, held
-    against A and E run here: T0 and TQ0 (the tiny pair, fp32 and fp16,
-    over the dense and the int8 base) at (1, 1, 2) in the spawn of T and
-    TQ (A's and E's paths at (1, 1, 2) with TE and TQE), and at (1, 2, 2)
-    over four ranks. Returns rank 0's summaries."""
+    against A and E run here: T0, TQ0 and TS0 (the tiny pair, fp32 and
+    fp16, over the dense and the int8 base, per layer and over the scan
+    state) at (1, 1, 2) in the spawn of T, TQ and TS (A's, E's and E's
+    with --scan_layers on at (1, 1, 2) with TE, TQE and TSE), and at (1,
+    2, 2) over four ranks. Returns rank 0's summaries."""
     refs = tensor_refs()
     t_dir = tempfile.mkdtemp(prefix="smoke_export_", dir=os.path.join(REPO, "build"))
     t0 = time.time()
+    tiny = [("T0", d) for d in T0_DTYPES] + [("TQ0", d) for d in T0_DTYPES] + \
+        [("TS0", c) for c in TS0_CASES]
     try:
-        pair = _spawn(dp_rank, 2, [("T0", d) for d in T0_DTYPES] + [("TQ0", d) for d in T0_DTYPES]
-                      + [("T", (layers, t_dir)), ("TQ", layers)], after=((1, 2, 1),))
+        pair = _spawn(dp_rank, 2, tiny + [("T", (layers, t_dir)), ("TQ", layers), ("TS", layers)],
+                      after=((1, 2, 1),))
     finally:
         shutil.rmtree(t_dir, ignore_errors=True)
-    log(f"[T] 2 gloo ranks on cuda:0 at (1, 1, 2), T0, TQ0, T and TQ: {time.time() - t0:.1f} s")
-    quad = _spawn(dp_rank, 4, [("T0", d) for d in T0_DTYPES] + [("TQ0", d) for d in T0_DTYPES],
-                  after=((2, 2, 1),))
+    log(f"[T] 2 gloo ranks on cuda:0 at (1, 1, 2), T0, TQ0, TS0, T, TQ and TS: "
+        f"{time.time() - t0:.1f} s")
+    quad = _spawn(dp_rank, 4, tiny, after=((2, 2, 1),))
     for shape, got in (((1, 1, 2), pair), ((1, 2, 2), quad)):
         for d in T0_DTYPES:
             hold_t0(shape, d, [r[f"T0:{d}"] for r in got], refs)
             hold_t0(shape, d, [r[f"TQ0:{d}"] for r in got], refs, tag="TQ0", fq="int8")
+        hold_ts0(shape, got, refs)
     t = [r["T"] for r in pair]
     hold_t("T", (1, 1, 2), "gloo", t, run_a, layers)
     hold_t("TQ", (1, 1, 2), "gloo", [r["TQ"] for r in pair], run_e, layers, {"T rank 0": t[0]},
            fq="int8")
-    return {"T": pair[0]["T"], "TQ": pair[0]["TQ"],
+    hold_ts("TS", (1, 1, 2), "gloo", [r["TS"] for r in pair], run_e, layers,
+            {"TQ rank 0": pair[0]["TQ"]})
+    return {"T": pair[0]["T"], "TQ": pair[0]["TQ"], "TS": pair[0]["TS"],
             **{f"{k} {d}": pair[0][f"{k}:{d}"] for d in T0_DTYPES for k in ("T0", "TQ0")},
             **{f"{k} {d} (1,2,2)": quad[0][f"{k}:{d}"] for d in T0_DTYPES
                for k in ("T0", "TQ0")}}
@@ -4889,11 +5071,12 @@ def run_fsdp_nccl(run_a, layers):
 
 
 def run_tensor_nccl(run_a, run_e, layers, refs):
-    """TN and TQN (`--only nccl`, four cards or more): the tensor axis over
-    NCCL, one rank a card, at (1, N / 2, 2): TN0 and TQN0, the tiny pair in
-    fp32 and fp16 over the dense and the int8 base against one process,
-    and TN and TQN, A's and E's paths against A and E with their exports
-    (hold_t0, hold_t)."""
+    """TN, TQN and TSN (`--only nccl`, four cards or more): the tensor axis
+    over NCCL, one rank a card, at (1, N / 2, 2): TN0, TQN0 and TSN0, the
+    tiny pair in fp32 and fp16 over the dense and the int8 base, per layer
+    and over the scan state, against one process, and TN, TQN and TSN,
+    A's, E's and E's with --scan_layers on against A and E with their
+    exports (hold_t0, hold_ts0, hold_t, hold_ts)."""
     import torch
     n = torch.cuda.device_count()
     refs = tensor_refs(refs)
@@ -4902,18 +5085,22 @@ def run_tensor_nccl(run_a, run_e, layers, refs):
     t0 = time.time()
     try:
         ranks = _spawn(dp_rank, n, [("T0", d) for d in T0_DTYPES]
-                       + [("TQ0", d) for d in T0_DTYPES]
-                       + [("T", (layers, t_dir)), ("TQ", layers)], after=((1, n, 1), "nccl"))
+                       + [("TQ0", d) for d in T0_DTYPES] + [("TS0", c) for c in TS0_CASES]
+                       + [("T", (layers, t_dir)), ("TQ", layers), ("TS", layers)],
+                       after=((1, n, 1), "nccl"))
     finally:
         shutil.rmtree(t_dir, ignore_errors=True)
     log(f"[TN] {n} NCCL ranks, one a card, at {shape}: {time.time() - t0:.1f} s")
     for d in T0_DTYPES:
         hold_t0(shape, d, [r[f"T0:{d}"] for r in ranks], refs, tag="TN0")
         hold_t0(shape, d, [r[f"TQ0:{d}"] for r in ranks], refs, tag="TQN0", fq="int8")
+    hold_ts0(shape, ranks, refs, tag="TSN0")
     t = [r["T"] for r in ranks]
     hold_t("TN", shape, "nccl", t, run_a, layers)
     hold_t("TQN", shape, "nccl", [r["TQ"] for r in ranks], run_e, layers, {"T rank 0": t[0]},
            fq="int8")
+    hold_ts("TSN", shape, "nccl", [r["TS"] for r in ranks], run_e, layers,
+            {"TQN rank 0": ranks[0]["TQ"]})
 
 
 def run_fsdp_scan(run_e, run_j, layers, world=2, backend="gloo", tag="FS"):
@@ -4994,9 +5181,9 @@ def run_data_parallel(run_a, d1, export_dir, p_layers, fs=True, t_layers=None, t
     against one process: P0 against its tiny references run here, P
     against A, PE against D1; in the same spawn the fsdp axis (F0, F, FS0,
     FS) and the tensor axis (T0, T, TQ0 and TQ at t_layers, A's depth by
-    default; check_fsdp; TQ is held to E once E has run). Then PN over
-    NCCL. Returns the rank-0 summaries, and every rank's TQ summary under
-    "TQ ranks"."""
+    default, TS0 and TS, TS at A's depth; check_fsdp; TQ and TS are held
+    to E once E has run). Then PN over NCCL. Returns the rank-0 summaries,
+    and every rank's TQ and TS summaries under "TQ ranks" and "TS ranks"."""
     t_layers = p_layers if t_layers is None else t_layers
     import numpy as np
     from sparse_matrix_tuning_tpu_torch.data.sft import batch_iterator
@@ -5017,7 +5204,8 @@ def run_data_parallel(run_a, d1, export_dir, p_layers, fs=True, t_layers=None, t
         [("FS0", n) for n in FS0_RUNS] + \
         ([("FS", (p_layers, "matrix", dirs[1])), ("FS", (p_layers, "channel", dirs[2]))]
          if fs else []) + [("T0", d) for d in T0_DTYPES] + [("T", (t_layers, dirs[3]))] + \
-        [("TQ0", d) for d in T0_DTYPES] + ([("TQ", t_layers)] if tq else [])
+        [("TQ0", d) for d in T0_DTYPES] + ([("TQ", t_layers)] if tq else []) + \
+        [("TS0", c) for c in TS0_CASES] + ([("TS", p_layers)] if tq else [])
     t0 = time.time()
     try:
         ranks = _spawn(dp_rank, 2, jobs)
@@ -5027,7 +5215,8 @@ def run_data_parallel(run_a, d1, export_dir, p_layers, fs=True, t_layers=None, t
     log(f"[dp] 2 ranks on cuda:0 over {ranks[0]['backend']} (NCCL refuses two ranks on one "
         f"device); gloo takes CUDA tensors for all_reduce and broadcast: "
         f"{[r['gloo_cuda'] for r in ranks]}; {time.time() - t0:.1f} s for the spawn and P0, P, "
-        f"PE, F0, F, FS0, FS, T0, T ({CARD['smi']}); seconds by job on rank 0: "
+        f"PE, F0, F, FS0, FS, T0, T, TQ0, TQ, TS0, TS ({CARD['smi']}); seconds by job on "
+        f"rank 0: "
         f"{ {k: round(v['seconds'], 1) for k, v in ranks[0].items() if isinstance(v, dict) and 'seconds' in v} }")
     for fq, rtol in (("none", P0_RTOL), ("int8", P0_INT8_RTOL)):
         ref, got = refs[fq], [r[f"P0:{fq}"] for r in ranks]
@@ -5145,7 +5334,7 @@ def main(argv=None):
     FS0, T0, T, TE, TQ0, PN and FN (FS needs E, G and J: `--only fs`; TQ
     needs E: `--only tp`); `--only fs` the build, E and J, then FS0, FS and FSE
     (run_fsdp_scan); `--only tp` the build, A and E, then the tensor axis:
-    T0, TQ0, T, TE, TQ and TQE (run_tensor); `--only nccl` (two or more
+    T0, TQ0, TS0, T, TE, TQ, TQE, TS and TSE (run_tensor); `--only nccl` (two or more
     cards) the build, A,
     then the fsdp axis over NCCL, one rank a card (run_fsdp_nccl, FSN and,
     on four cards, TN among it); none prints a result line. With no
@@ -5273,7 +5462,7 @@ def main(argv=None):
         torch.cuda.empty_cache()
         marks.append(("A, E", time.time()))
         run_tensor(run_a, run_e, model_cfg.num_hidden_layers)
-        marks.append(("T0, TQ0, T, TE, TQ, TQE", time.time()))
+        marks.append(("T0, TQ0, TS0, T, TE, TQ, TQE, TS, TSE", time.time()))
         log("[smoke] --only tp: seconds by phase: " + ", ".join(
             f"{name} {t - prev:.1f}" for (name, t), (_, prev)
             in zip(marks, [("", t_start)] + marks)))
@@ -5388,6 +5577,9 @@ def main(argv=None):
     # held now that E has run
     hold_t("TQ", (1, 1, 2), "gloo", run_dp["TQ ranks"], run_e, model_cfg.num_hidden_layers,
            {"T rank 0": run_dp["T"]}, fq="int8")
+    # TS: E's path over the int8 scan state under the tensor axis, beside TQ and G
+    hold_ts("TS", (1, 1, 2), "gloo", run_dp["TS ranks"], run_e, model_cfg.num_hidden_layers,
+            {"TQ rank 0": run_dp["TQ"], "G": run_g})
     report_scan_run(run_g, run_e, 3)
     check_scan_run(run_g, run_e)
     torch.cuda.empty_cache()

@@ -67,7 +67,9 @@ entry runs on one device.
 and row-parallel linears, each rank attending over its hq/T query and
 hkv/T kv heads, a vocabulary-parallel head and loss) over D * F * T
 processes, for matrix mode over the dense or the int8 base (--frozen_quant
-int8, the int8 head with it) in the per-layer layout:
+int8, the int8 head with it), in the per-layer layout or, with
+--scan_layers on, the scan layout (each rank its slices of the stacks and
+of the host store):
 
   torchrun --nproc_per_node 2 -m sparse_matrix_tuning_tpu_torch.cli.fine_tune \
       --matrix_sparsity --mesh_shape 1,1,2 ... (the flags above)
@@ -75,9 +77,8 @@ int8, the int8 head with it) in the per-layer layout:
 T must divide the head counts, the intermediate width and the vocabulary
 of an untied Llama. Over the int8 base each rank holds its slices of
 the int8 weights and head and quantizes a row that lies across the ranks
-with the whole row's amax. --channel_sparsity, --scan_layers on,
---dropout and --sparse_from_plan raise NotImplementedError by name
-under it.
+with the whole row's amax. --channel_sparsity, --dropout and
+--sparse_from_plan raise NotImplementedError by name under it.
 
 model_name_or_path must be a local HF checkpoint dir. Runs on the card
 (--device cuda, the default, raises when there is none); --device cpu runs

@@ -45,6 +45,21 @@ the output dtype after each (its "oracle" chain, `_dyn_correction`); K5
 rounds once per out block. In fp32 the two differ by a few ulps of the
 output, far below the tests' tolerances.
 
+Under the tensor axis (`smt_linear_dyn(tensor=)`) the frozen base is this
+rank's slice of the layer's weight (a column-parallel one its output rows,
+a row-parallel one its input columns; int8: wq and sw as
+`smt_linear_q8(tensor=)` takes them), and the layer's schedule is the
+rank's window (`dyn_schedule(tensor=)`): the valid entries whose row
+block (column-parallel) or column block (row-parallel) meets the slice,
+picked by `valid` first (a padded entry may share a valid one's
+coordinates), at their coordinates in the block-aligned window around
+it. K5 and K1 run on them through zero-padded panels where a block
+straddles the slice, as `smt_linear_q8(tensor=)` runs them, and the block
+grads land at the entries' positions in the padded stack: each rank's
+parts of the valid entries, zero elsewhere, which the step sums over the
+tensor group. A rank whose window holds no entry launches neither and
+joins the base product's collectives all the same.
+
 Under the tensor axis (parallel/tensor.py) a planned linear holds this
 rank's tensor slice of its weight: a column-parallel one its output rows,
 a row-parallel one its input columns (`smt_linear(tensor=)`). The plan's
@@ -91,6 +106,7 @@ from __future__ import annotations
 
 from typing import Mapping, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from sparse_matrix_tuning_tpu_torch.ops.cuda.block_grad import (
@@ -99,8 +115,8 @@ from sparse_matrix_tuning_tpu_torch.ops.cuda.correction import (
     CorrectionSchedule, block_correction, correction_schedule)
 from sparse_matrix_tuning_tpu_torch.ops.quant import (
     dequantize_weight_int4, q4_matmul_t, q8_matmul, q8_matmul_t)
-from sparse_matrix_tuning_tpu_torch.parallel.fsdp import COL_PARALLEL
-from sparse_matrix_tuning_tpu_torch.smt.plan import LinearPlan, key_str
+from sparse_matrix_tuning_tpu_torch.parallel.fsdp import COL_PARALLEL, block_window
+from sparse_matrix_tuning_tpu_torch.smt.plan import BLOCK, LinearPlan, key_str
 
 
 def _resolve_impl(impl: str, device) -> str:
@@ -134,6 +150,21 @@ def _panel(t: torch.Tensor, start: int, n: int) -> torch.Tensor:
     out = t.new_zeros((t.shape[0], n))
     out[:, start:start + t.shape[1]] = t
     return out
+
+
+def _windowed_correction(out2, src2, delta, sched: CorrectionSchedule, transpose: bool,
+                         panel, into_panel: bool) -> torch.Tensor:
+    """block_correction of out2 (a new tensor) by src2 and delta; with a
+    tensor window's panel, through it: into a zero-padded panel of out2's
+    columns (into_panel, then cut back) or from one of src2's. Returns
+    the corrected out2."""
+    if panel is None or not delta.shape[0]:
+        return block_correction(out2, src2, delta, sched, transpose)
+    if into_panel:
+        out = _panel(out2, *panel)
+        block_correction(out, src2, delta, sched, transpose)
+        return out[:, panel[0]:panel[0] + out2.shape[1]].contiguous()
+    return block_correction(out2, _panel(src2, *panel), delta, sched, transpose)
 
 
 class _SMTLinear(torch.autograd.Function):
@@ -219,15 +250,9 @@ class _SMTLinearQ8(torch.autograd.Function):
         y2 = q8_matmul_t(x2, wq, sw, tensor=mesh if split == "in" else None)
         delta = None
         if rb is not None:
-            # y[:, rb] += x[:, cb] @ delta.T, in place (into the window's panel)
+            # y[:, rb] += x[:, cb] @ delta.T (into the window's panel of y, or from x's)
             delta = _window_delta(blocks, base, sel, x.dtype)
-            if split == "out":
-                out = _panel(y2, *panel)
-                block_correction(out, x2, delta, fwd_sched, transpose=True)
-                y2 = out[:, panel[0]:panel[0] + y2.shape[1]].contiguous()
-            else:
-                src = x2 if split is None else _panel(x2, *panel)
-                block_correction(y2, src, delta, fwd_sched, transpose=True)
+            y2 = _windowed_correction(y2, x2, delta, fwd_sched, True, panel, split == "out")
         ctx.save_for_backward(x2, wq, sw, delta, rb, cb, sel)
         ctx.bwd_sched, ctx.impl, ctx.tp = bwd_sched, impl, (mesh, split, panel)
         ctx.x_shape, ctx.blocks_shape, ctx.blocks_dtype = x.shape, blocks.shape, blocks.dtype
@@ -243,14 +268,9 @@ class _SMTLinearQ8(torch.autograd.Function):
             # (T, I), a new tensor; a column-parallel g * sw row lies across the ranks
             gx2 = q8_matmul(g2, wq, sw, tensor=mesh if split == "out" else None)
             if rb is not None:
-                # grad_x[:, cb] += g[:, rb] @ delta, in place (into the window's panel)
-                if split == "in":
-                    out = _panel(gx2, *panel)
-                    block_correction(out, g2, delta, ctx.bwd_sched)
-                    gx2 = out[:, panel[0]:panel[0] + gx2.shape[1]].contiguous()
-                else:
-                    src = g2 if split is None else _panel(g2, *panel)
-                    block_correction(gx2, src, delta, ctx.bwd_sched)
+                # grad_x[:, cb] += g[:, rb] @ delta (into the window's panel of grad_x, or from g's)
+                gx2 = _windowed_correction(gx2, g2, delta, ctx.bwd_sched, False, panel,
+                                           split == "in")
             grad_x = gx2.reshape(ctx.x_shape)
         if ctx.needs_input_grad[1]:
             if rb is None:   # no block touches this rank's slice
@@ -377,37 +397,48 @@ def frozen_q4_linear(x: torch.Tensor, w4: torch.Tensor, s4: torch.Tensor) -> tor
 # The stacked scan state: smt_linear_dyn
 # ---------------------------------------------------------------------------
 
-def _base_matmul(x: torch.Tensor, frozen: Mapping[str, torch.Tensor]) -> torch.Tensor:
+def _base_matmul(x: torch.Tensor, frozen: Mapping[str, torch.Tensor], tensor=None
+                 ) -> torch.Tensor:
     """The frozen base's product: {"w4", "s4"} int4, {"wq", "sw"} int8,
-    {"w"} dense."""
+    {"w"} dense. tensor: the mesh where x's rows lie across the tensor
+    group (a row-parallel int8 linear: the whole row's amax)."""
     if "w4" in frozen:
         return q4_matmul_t(x, frozen["w4"], frozen["s4"])
     if "wq" in frozen:
-        return q8_matmul_t(x, frozen["wq"], frozen["sw"])
+        return q8_matmul_t(x, frozen["wq"], frozen["sw"], tensor=tensor)
     return torch.matmul(x, frozen["w"].t())
 
 
-def _base_matmul_T(g: torch.Tensor, frozen: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """grad_x of the frozen base: K4's g form over int8; over int4 (a decode
-    base) and a dense base, a matmul with the (dequantized) weight."""
+def _base_matmul_T(g: torch.Tensor, frozen: Mapping[str, torch.Tensor], tensor=None
+                   ) -> torch.Tensor:
+    """grad_x of the frozen base: K4's g form over int8 (tensor: the mesh
+    where g * sw's rows lie across the group, a column-parallel linear);
+    over int4 (a decode base) and a dense base, a matmul with the
+    (dequantized) weight."""
     if "w4" in frozen:
         return torch.matmul(g, dequantize_weight_int4(frozen["w4"], frozen["s4"], g.dtype))
     if "wq" in frozen:
-        return q8_matmul(g, frozen["wq"], frozen["sw"])
+        return q8_matmul(g, frozen["wq"], frozen["sw"], tensor=tensor)
     return torch.matmul(g, frozen["w"])
 
 
 class DynSchedule(NamedTuple):
     """What one layer's padded block coordinates give the kernels, built once
-    (a host sync) and reused every step: the positions of the valid entries
-    and their coordinates on the device, K5's forward schedule (out = rb,
-    in = cb) and its grad_input schedule (out = cb, in = rb)."""
+    (a host sync) and reused every step: the positions of the entries the
+    kernels run on and their coordinates on the device, K5's forward
+    schedule (out = rb, in = cb) and its grad_input schedule (out = cb, in =
+    rb). Under the tensor axis (dyn_schedule(tensor=)) the entries are the
+    valid ones in the rank's window, at window coordinates, and `panel` /
+    `split` place the window around the rank's slice."""
     n: int                 # padded count
-    keep: torch.Tensor     # (k,) int64, the valid entries' positions
+    keep: torch.Tensor     # (k,) int64, the entries' positions in the padded stack
     rb: torch.Tensor       # (k,) int32
     cb: torch.Tensor       # (k,) int32
     fwd: CorrectionSchedule
     bwd: CorrectionSchedule
+    n_valid: int           # the layer's valid entries, which come first
+    panel: Optional[Tuple[int, int]] = None   # the window's (first column, width) of the slice
+    split: Optional[str] = None               # "out" (column-parallel) or "in" (row-parallel)
 
 
 def _valid_coords(rb, cb, valid):
@@ -416,18 +447,42 @@ def _valid_coords(rb, cb, valid):
     return keep, rb.to("cpu")[keep], cb.to("cpu")[keep]
 
 
-def dyn_schedule(rb, cb, valid, device) -> DynSchedule:
-    """The DynSchedule of one layer's (n,) rb / cb / valid on `device`."""
+def dyn_schedule(rb, cb, valid, device, tensor=None) -> DynSchedule:
+    """The DynSchedule of one layer's (n,) rb / cb / valid on `device`.
+
+    tensor: (split, first, width) of this rank's slice of the layer's
+    weight under the tensor axis: split "out", its output rows first ..
+    first + width (a column-parallel linear), or "in", its input columns (a
+    row-parallel one). The schedule then holds the valid entries whose row
+    (or column) block meets the slice (fsdp.block_window over the valid
+    coordinates: a padded entry never enters a window), at their
+    coordinates in the block-aligned window around it, and the window's
+    panel."""
     keep, rbk, cbk = _valid_coords(rb, cb, valid)
+    n_valid, panel, split = int(keep.numel()), None, None
+    if tensor is not None:
+        split, first, width = tensor
+        extent = (first, width)
+        win = block_window(rbk.numpy().astype(np.int64), cbk.numpy().astype(np.int64),
+                           extent if split == "out" else None,
+                           extent if split == "in" else None, "cpu")
+        if win is None:
+            keep, rbk, cbk = keep[:0], rbk[:0], cbk[:0]
+        else:
+            sel, rbk, cbk, (r_lo, r_n), (c_lo, c_n) = win
+            keep = keep[sel]
+            lo, n = (r_lo, r_n) if split == "out" else (c_lo, c_n)
+            panel = (first - lo * BLOCK, n * BLOCK)
     return DynSchedule(int(valid.shape[0]), keep.to(device),
                        rbk.to(device, torch.int32), cbk.to(device, torch.int32),
                        correction_schedule(rbk.numpy(), cbk.numpy(), device),
-                       correction_schedule(cbk.numpy(), rbk.numpy(), device))
+                       correction_schedule(cbk.numpy(), rbk.numpy(), device),
+                       n_valid, panel, split)
 
 
 def _dyn_delta(blocks, base_blocks, keep, dtype) -> torch.Tensor:
-    """(blocks - base) of the valid entries, in `dtype`, contiguous: the
-    padded entries' deltas are 0 and are left out."""
+    """(blocks - base) of the entries at `keep`, in `dtype`, contiguous:
+    the padded entries' deltas are 0 and are left out."""
     if not keep.numel():   # no launch for a layer without blocks of this module
         return blocks.new_empty((0, *blocks.shape[1:]), dtype=dtype)
     return (blocks.index_select(0, keep) - base_blocks.index_select(0, keep)).to(dtype)
@@ -452,13 +507,17 @@ def _dyn_forward(x2, frozen, delta, sched) -> torch.Tensor:
 
 class _SMTLinearDyn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, blocks, base_blocks, frozen, sched: DynSchedule):
+    def forward(ctx, x, blocks, base_blocks, frozen, sched: DynSchedule, mesh=None):
         x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        split, panel = sched.split, sched.panel
         delta = _dyn_delta(blocks, base_blocks, sched.keep, x.dtype)
-        y = _dyn_forward(x2, frozen, delta, sched.fwd)
+        # a new tensor; a row-parallel input's rows lie across the ranks
+        y = _base_matmul(x2, frozen, mesh if split == "in" else None)
+        # y[:, rb] += x[:, cb] @ delta^T (into the window's panel of y, or from x's)
+        y = _windowed_correction(y, x2, delta, sched.fwd, True, panel, split == "out")
         keys = tuple(sorted(frozen))
         ctx.save_for_backward(x2, delta, *(frozen[k] for k in keys))
-        ctx.keys, ctx.sched, ctx.x_shape = keys, sched, x.shape
+        ctx.keys, ctx.sched, ctx.x_shape, ctx.mesh = keys, sched, x.shape, mesh
         ctx.blocks_dtype = blocks.dtype
         return y.reshape(*x.shape[:-1], y.shape[-1])
 
@@ -466,27 +525,32 @@ class _SMTLinearDyn(torch.autograd.Function):
     def backward(ctx, g):
         x2, delta, *frozen = ctx.saved_tensors
         sched = ctx.sched
+        split, panel = sched.split, sched.panel
         g2 = g.reshape(-1, g.shape[-1]).contiguous()
         grad_x = grad_blocks = None
         if ctx.needs_input_grad[0]:
-            gx2 = _base_matmul_T(g2, dict(zip(ctx.keys, frozen)))   # a new tensor
-            # grad_x[:, cb] += g[:, rb] @ delta, in place
-            block_correction(gx2, g2, delta, sched.bwd)
+            # a new tensor; a column-parallel g * sw row lies across the ranks
+            gx2 = _base_matmul_T(g2, dict(zip(ctx.keys, frozen)),
+                                 ctx.mesh if split == "out" else None)
+            # grad_x[:, cb] += g[:, rb] @ delta (into the window's panel of grad_x, or from g's)
+            gx2 = _windowed_correction(gx2, g2, delta, sched.bwd, False, panel, split == "in")
             grad_x = gx2.reshape(ctx.x_shape)
         if ctx.needs_input_grad[1] and sched.keep.numel():
-            # K1 over the valid entries only; the padded ones' grads are 0
-            # (and None, autograd's zero, where no entry is valid)
-            gb = block_grad(g2, x2, sched.rb, sched.cb).to(ctx.blocks_dtype)
-            if gb.shape[0] == sched.n:   # every entry valid: keep is 0..n-1
+            # K1 over the (windowed) valid entries only; the padded ones'
+            # grads are 0 (and None, autograd's zero, where it runs on none)
+            gg = _panel(g2, *panel) if split == "out" else g2
+            xx = _panel(x2, *panel) if split == "in" else x2
+            gb = block_grad(gg, xx, sched.rb, sched.cb).to(ctx.blocks_dtype)
+            if gb.shape[0] == sched.n:   # every entry: keep is 0..n-1
                 grad_blocks = gb
             else:
                 grad_blocks = gb.new_zeros((sched.n, *gb.shape[1:])).index_copy_(
                     0, sched.keep, gb)
-        return grad_x, grad_blocks, None, None, None
+        return grad_x, grad_blocks, None, None, None, None
 
 
 def smt_linear_dyn(x, blocks, rb, cb, valid, frozen, base_blocks, correction=None,
-                   schedule: Optional[DynSchedule] = None):
+                   schedule: Optional[DynSchedule] = None, tensor=None):
     """Block-sparse linear over a frozen base with one layer's padded block
     coordinates (module notes): blocks / base_blocks (n, 256, 256), rb / cb
     (n,) int, valid (n,) bool; frozen {"w4", "s4"}, {"wq", "sw"} or {"w"}.
@@ -497,7 +561,16 @@ def smt_linear_dyn(x, blocks, rb, cb, valid, frozen, base_blocks, correction=Non
     schedule: the layer's DynSchedule (built here when omitted, which costs
     a host sync: a training step passes the one its state holds).
     correction: a decode's precomputed `dyn_correction(...)` pair, in
-    place of the schedule; it has no backward."""
+    place of the schedule; it has no backward.
+
+    tensor (the mesh): under the tensor axis (module notes), frozen is this
+    rank's slice of the layer's weight and schedule its window
+    (dyn_schedule(tensor=), which attach_schedules builds); the output (a
+    row-parallel linear's partial sum) and the block grads are the rank's
+    parts."""
+    if tensor is not None and (schedule is None or schedule.split is None):
+        raise ValueError("smt_linear_dyn(tensor=): pass the rank's windowed DynSchedule "
+                         "(dyn_schedule(tensor=), scan_phase.attach_schedules)")
     if correction is not None:
         if torch.is_grad_enabled() and (x.requires_grad or blocks.requires_grad):
             raise ValueError("smt_linear_dyn: a precomputed decode correction has no "
@@ -506,7 +579,7 @@ def smt_linear_dyn(x, blocks, rb, cb, valid, frozen, base_blocks, correction=Non
                             *correction).reshape(*x.shape[:-1], -1)
     if schedule is None:
         schedule = dyn_schedule(rb, cb, valid, x.device)
-    return _SMTLinearDyn.apply(x, blocks, base_blocks, frozen, schedule)
+    return _SMTLinearDyn.apply(x, blocks, base_blocks, frozen, schedule, tensor)
 
 
 # ---------------------------------------------------------------------------

@@ -47,7 +47,12 @@ Sharding records both dims of a leaf. LayerGather still gathers over the
 fsdp group only, so each rank computes on its tensor slices; full, full_many
 and full_tree gather over both axes (export, eval generation, tests);
 block statistics and write_blocks work on the two-axis window of a slice,
-where a 256-block may straddle both kinds of shard.
+where a 256-block may straddle both kinds of shard. The scan state's
+stacks split over tensor as their layer leaves do (a stacked weight, q/wq,
+a column-parallel q/sw and the host store; the trainables, their base and
+moments stay whole): layer_part keeps a layer's slice over both axes,
+full_layer gathers one over both, and LayerGather.scan_layer gathers a
+layer's views over fsdp only.
 
 Every function here that moves data is collective over the fsdp group (and,
 where a leaf is split over tensor, over the tensor group): each of its
@@ -296,25 +301,33 @@ class Sharding:
     def layer_part(self, path: str, t: torch.Tensor, n_layers: int,
                    mode: Optional[str] = None) -> torch.Tensor:
         """This rank's slice of `t`, one layer of the (n_layers, ...) stack
-        at `path`, by the stack's shard_dim (recorded): a stack of the
-        layers' slices is this rank's slice of the stack (the scan layouts,
-        fsdp only)."""
-        d = shard_dim(path, (n_layers, *t.shape), mode, self.f)
-        if d is None:
-            self.dims.pop(path, None)
+        at `path`, by the stack's shard_dim and tensor_dim (recorded), as a
+        tensor of its own: a stack of the layers' slices is this rank's
+        slice of the stack (the scan layouts)."""
+        d, td = self.split_dims(path, (n_layers, *t.shape), mode)
+        self._record(path, d, td)
+        if d is None and td is None:
             return t
-        self.dims[path] = d
-        return self.mine(t, d - 1)
+        if td is not None:
+            t = t.chunk(self.t, td - 1)[self.mesh.tensor_index]
+        if d is not None:
+            t = t.chunk(self.f, d - 1)[self.mesh.fsdp_index]
+        return t.clone(memory_format=torch.contiguous_format)
 
     def full_layer(self, path: str, t: torch.Tensor, l: int) -> torch.Tensor:
         """Layer l of the full stack at `path` from this rank's slice `t` of
         it, wherever t lies (the host store: moved to the mesh's device for
-        the collective); on the mesh's device. Collective for a sharded
-        stack, as JAX's host_frozen_global of a HostShards."""
-        d = self.dim(path)
-        if d is None:
+        the collectives); on the mesh's device where the stack is split.
+        Collective over the fsdp and the tensor group for a stack split
+        over them, as JAX's host_frozen_global of a HostShards."""
+        d, td = self.dim(path), self.tdim(path)
+        if d is None and td is None:
             return t[l]
-        return _gather_flat([t[l].to(self.mesh.device)], [d - 1], self.mesh)[0]
+        x = t[l].to(self.mesh.device)
+        for dim, over in ((d, "fsdp"), (td, "tensor")):
+            if dim is not None:
+                x = _gather_flat([x], [dim - 1], self.mesh, over)[0]
+        return x
 
     def zeros(self, path: str, full_shape, dtype, device, mode: Optional[str] = None
               ) -> torch.Tensor:
@@ -613,14 +626,16 @@ class LayerGather:
         """Layer l of the scan state: [(kind, key, view, dim, n)] of its views
         of params["layers_stacked"] (kind "params", key the name) and of the
         dispatch's tree ex_l (kind "ex", key the path into it), each view's
-        dim one less than its stack's (STATE_OF_EX; a non-tensor leaf, a
-        schedule, is whole). A planned module's blocks and their base in
-        matrix mode are cut to the layer's valid entries, which come first
+        dim one less than its stack's fsdp dim (STATE_OF_EX; a non-tensor
+        leaf, a schedule, is whole; a tensor slice stays the rank's). A
+        planned module's blocks and their base in matrix mode are cut to
+        the layer's valid entries, which come first
         (scan_phase.stack_plan_indices): the view holds k of its n padded
         entries, gathered, and open() pads them back to n with zeros, which
-        nothing reads (its DynSchedule keeps the k; the padded entries'
-        grads are 0). Most of a stack is padding (TinyLlama: 4,290 stacked
-        blocks for 280), so this cuts a step's gathered bytes."""
+        nothing reads (its DynSchedule runs on valid entries only; the
+        padded entries' grads are 0). Most of a stack is padding
+        (TinyLlama: 4,290 stacked blocks for 280), so this cuts a step's
+        gathered bytes."""
         def dim(path):
             d = self.sh.dim(path)
             return None if d is None else d - 1
@@ -630,11 +645,11 @@ class LayerGather:
             state = STATE_OF_EX.get(key[0])
             d = dim("/".join((state,) + key[1:])) \
                 if state is not None and isinstance(t, torch.Tensor) else None
-            keep = getattr(ex_l.get("sched", {}).get(key[-1]), "keep", None)
+            k = getattr(ex_l.get("sched", {}).get(key[-1]), "n_valid", None)
             n = None
-            if d is not None and key[0] in ("t", "base") and keep is not None \
-                    and keep.numel() < t.shape[0]:
-                n, t = t.shape[0], t[:keep.numel()]
+            if d is not None and key[0] in ("t", "base") and k is not None \
+                    and k < t.shape[0]:
+                n, t = t.shape[0], t[:k]
             out.append(("ex", key, t, d, n))
         return out
 

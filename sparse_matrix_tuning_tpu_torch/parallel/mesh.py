@@ -73,7 +73,9 @@ class Mesh:
     bytes) and reduce-scatters' ("scatter_*", the summed tensors' bytes)
     over fsdp, and the tensor group's all-reduces and all-gathers
     ("tensor_*", the reduced or gathered tensors' bytes), the int8 row
-    quantization's amax MAX-reduces over tensor apart ("tensor_amax_*")."""
+    quantization's amax MAX-reduces over tensor apart ("tensor_amax_*"),
+    and, among the all-reduced, the sums of the tensor ranks' block-grad
+    parts ("grad_parts_*", train/steps._sum_parts)."""
     shape: Tuple[int, int, int]
     rank: int
     device: torch.device
@@ -145,7 +147,7 @@ class Mesh:
 
 STAT_KEYS = ("bytes", "calls", "gather_bytes", "gather_calls", "scatter_bytes",
              "scatter_calls", "tensor_bytes", "tensor_calls", "tensor_amax_bytes",
-             "tensor_amax_calls")
+             "tensor_amax_calls", "grad_parts_bytes", "grad_parts_calls")
 
 
 def free_port() -> int:
@@ -234,8 +236,8 @@ def axis_groups(shape: Sequence[int]) -> Dict[str, list]:
 def refuse_sharded_axes(shape: Sequence[int], cfg=None) -> None:
     """Refuse, by name, what the tensor axis (tensor above 1) does not yet
     run: the options of `cfg` (an SMTConfig) outside matrix mode, over the
-    dense or the int8 base (and head), in the per-layer layout. The data
-    and fsdp axes take everything (--sparse_from_plan aside:
+    dense or the int8 base (and head), in the per-layer or the scan layout.
+    The data and fsdp axes take everything (--sparse_from_plan aside:
     config._check_mesh)."""
     t = int(shape[2])
     if t == 1 or cfg is None:
@@ -243,8 +245,6 @@ def refuse_sharded_axes(shape: Sequence[int], cfg=None) -> None:
     refused = []
     if cfg.channel_sparsity:
         refused.append("--channel_sparsity (JAX puts the activation sums' columns on tensor)")
-    if cfg.scan_layers == "on":
-        refused.append("--scan_layers on (the scan layouts)")
     if cfg.dropout > 0:
         refused.append("--dropout")
     if cfg.sparse_from_plan:
@@ -253,7 +253,7 @@ def refuse_sharded_axes(shape: Sequence[int], cfg=None) -> None:
         raise NotImplementedError(
             f"mesh_shape {tuple(shape)}: " + "; ".join(refused) + f" with tensor {t} not yet "
             "ported to sparse_matrix_tuning_tpu_torch; the tensor axis runs matrix mode over "
-            "the dense or the int8 base in the per-layer layout")
+            "the dense or the int8 base, in the per-layer or the scan layout")
 
 
 def refuse_tensor_model(model_cfg, t: int, params=None) -> None:
@@ -300,14 +300,17 @@ def rank_rows(batch: Dict[str, Any], mesh: Mesh, accum: int = 1) -> Dict[str, An
     return out
 
 
-def all_reduce_(tensors: Iterable[torch.Tensor], mesh: Mesh, over: str = "world") -> None:
+def all_reduce_(tensors: Iterable[torch.Tensor], mesh: Mesh, over: str = "world",
+                stat: Optional[str] = None) -> None:
     """SUM each tensor over the ranks of `over` ("world", or an axis group:
     "data", "fsdp", "tensor", "batch"; nothing where it has one rank), in
     place: packed into
     contiguous buckets of one dtype (and device) of at most BUCKET_MIB MiB
     (a larger tensor is a bucket of its own, reduced where it lies), one
     dist.all_reduce a bucket, the sums copied back. A tensor listed twice
-    (the shared activation taps of q/k/v) is reduced once."""
+    (the shared activation taps of q/k/v) is reduced once. Counted in
+    mesh.stats["bytes" / "calls"], and with stat in its own
+    "{stat}_bytes" / "_calls" too."""
     size, group = mesh.axis(over)
     if size == 1 and over != "world":
         return
@@ -320,15 +323,15 @@ def all_reduce_(tensors: Iterable[torch.Tensor], mesh: Mesh, over: str = "world"
         for t in ts:
             nbytes = t.numel() * t.element_size()
             if bucket and nbytes_in + nbytes > cap:
-                _reduce_bucket(bucket, mesh, group)
+                _reduce_bucket(bucket, mesh, group, stat)
                 bucket, nbytes_in = [], 0
             bucket.append(t)
             nbytes_in += nbytes
         if bucket:
-            _reduce_bucket(bucket, mesh, group)
+            _reduce_bucket(bucket, mesh, group, stat)
 
 
-def _reduce_bucket(ts, mesh: Mesh, group) -> None:
+def _reduce_bucket(ts, mesh: Mesh, group, stat: Optional[str] = None) -> None:
     if len(ts) == 1 and ts[0].is_contiguous():
         flat = ts[0]
         dist.all_reduce(flat, group=group)
@@ -339,8 +342,9 @@ def _reduce_bucket(ts, mesh: Mesh, group) -> None:
         for t in ts:
             t.copy_(flat[off:off + t.numel()].view(t.shape))
             off += t.numel()
-    mesh.stats["bytes"] += flat.numel() * flat.element_size()
-    mesh.stats["calls"] += 1
+    for key in ("",) if stat is None else ("", f"{stat}_"):
+        mesh.stats[f"{key}bytes"] += flat.numel() * flat.element_size()
+        mesh.stats[f"{key}calls"] += 1
 
 
 def _gloo(group) -> bool:

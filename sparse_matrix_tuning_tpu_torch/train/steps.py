@@ -50,7 +50,8 @@ rows (head_loss); the ranks of a tensor group see the same rows, so the
 loss and the grads of leaves whole over fsdp are summed over the batch
 group (the D*F ranks of one tensor index), not the world; the sparse
 phase's block grads are each rank's parts of the blocks (ops/
-sparse_linear.smt_linear(tensor=)), summed over the tensor group as well;
+sparse_linear.smt_linear(tensor=); over the scan state smt_linear_dyn's,
+summed at the valid entries only), summed over the tensor group as well;
 the clip norm sums the squares of a tensor-split leaf over the tensor
 group and counts a leaf whole over tensor once, so it (and fp16's
 overflow test) is equal on every rank.
@@ -59,7 +60,7 @@ overflow test) is equal on every rank.
 from __future__ import annotations
 
 from functools import partial
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Mapping, Optional
 
 import torch
 
@@ -88,7 +89,7 @@ def _cast_tree(tree, dtype):
 
 
 def accumulated_value_and_grad(loss_of, accum_steps: int, mesh=None, sharded=(),
-                               tensor_parts=()):
+                               tensor_parts: Optional[Mapping] = None):
     """Microbatch gradient accumulation (the reference delegates this to the
     DeepSpeed engine). Returns vag(params, batch) -> (mean loss, grads):
     `params` is a flat {key: leaf tensor requiring grad}; the global batch's
@@ -105,7 +106,11 @@ def accumulated_value_and_grad(loss_of, accum_steps: int, mesh=None, sharded=(),
     loss and the other grads over the batch group (the world without a
     tensor axis). The grads of the `tensor_parts` keys are each tensor rank's
     parts (the tensor axis's block grads): summed over the tensor group
-    as well."""
+    as well. Its value for a key, where not None, names by their positions
+    in the grad's first two dims flattened (int64, on its device) the only
+    entries that hold parts (the scan state's valid entries): the others
+    are 0 on every rank, so only those rows are summed, with the same
+    result (_sum_parts); None sums the grad whole."""
 
     def vag(params: Dict[str, torch.Tensor], batch):
         for p in params.values():
@@ -124,13 +129,14 @@ def accumulated_value_and_grad(loss_of, accum_steps: int, mesh=None, sharded=(),
                  for k, p in params.items()}
         if mesh is not None:
             split = [g for k, g in grads.items() if k in sharded]
-            parts = tensor_parts
+            parts = tensor_parts or {}
             whole = [g for k, g in grads.items() if k not in sharded and k not in parts]
             all_reduce_(split, mesh, "data")
-            all_reduce_([g for k, g in grads.items() if k in sharded and k in parts], mesh,
-                        "tensor")
+            _sum_parts({k: g for k, g in grads.items() if k in sharded and k in parts}, parts,
+                       mesh, "tensor")
             all_reduce_([total] + whole, mesh, "batch")
-            all_reduce_([g for k, g in grads.items() if k not in sharded and k in parts], mesh)
+            _sum_parts({k: g for k, g in grads.items() if k not in sharded and k in parts},
+                       parts, mesh, "world")
         if accum_steps > 1:
             inv = 1.0 / accum_steps
             total = total * inv
@@ -138,6 +144,18 @@ def accumulated_value_and_grad(loss_of, accum_steps: int, mesh=None, sharded=(),
         return total, grads
 
     return vag
+
+
+def _sum_parts(grads: Dict[str, torch.Tensor], rows, mesh, over: str) -> None:
+    """all_reduce_ over `over` of the tensor ranks' block-grad parts, in
+    place, counted in mesh.stats["grad_parts_*"]: of a key with rows only
+    those entries (picked, summed in the same buckets, written back)."""
+    picked = {k: g if rows.get(k) is None else g.view(-1, *g.shape[2:]).index_select(0, rows[k])
+              for k, g in grads.items()}
+    all_reduce_(list(picked.values()), mesh, over, stat="grad_parts")
+    for k, p in picked.items():
+        if rows.get(k) is not None:
+            grads[k].view(-1, *grads[k].shape[2:]).index_copy_(0, rows[k], p)
 
 
 # fp32 logits budget for the "auto" loss policy in the sparse phase: what
@@ -650,7 +668,7 @@ def build_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan,
 
         sharded = () if sharding is None else sharding.sharded_keys("trainable", trainable)
         # the tensor axis: each rank's K1 gives its parts of the blocks
-        parts = set(trainable) if tensor is not None else ()
+        parts = dict.fromkeys(trainable) if tensor is not None else None
         vag = accumulated_value_and_grad(loss_of, cfg.gradient_accumulation_steps, mesh, sharded,
                                          parts)
         loss, grads = vag(trainable, batch)

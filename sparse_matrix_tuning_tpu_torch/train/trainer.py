@@ -13,15 +13,14 @@ global batch of B * D * F * A rows and steps on its own rows
 (data/sft.shard_batch; the T ranks of a tensor group share theirs); the
 steps reduce the grads. Over data alone (F 1, T 1) every rank holds a
 full replica. Over fsdp (F > 1) or tensor (T > 1, matrix mode over the
-dense or the int8 base in the per-layer layout; parallel/tensor.py) every
-rank holds
+dense or the int8 base; parallel/tensor.py) every rank holds
 its shards of the state (parallel/fsdp.py; `self.sharding` records their
 dims over both axes): the trainer shards the params it is given (or takes
 shards made by models/hf_io.load_hf_params_sharded with their dims), and
 the HF export and eval generation gather leaf by leaf over both axes. The scan layouts (--scan_layers on, and
 channel + int8 at depth) convert the sharded warm-up into a sharded scan
-state, whose host store of frozen weights holds this rank's slices
-(train/scan_phase.build_scan_sparse_state). Eval losses are reduced once
+state, whose host store of frozen weights holds this rank's slices over
+both axes (train/scan_phase.build_scan_sparse_state). Eval losses are reduced once
 per evaluate; rank 0 alone writes metrics and HF saves, between barriers;
 checkpoints are written as train/checkpoint.py says.
 """
@@ -203,7 +202,7 @@ class SMTTrainer:
             max(self.total_steps - conversion_step, 1))
         if self._scan:
             from sparse_matrix_tuning_tpu_torch.train import scan_phase
-            scan_phase.attach_schedules(self.state)
+            scan_phase.attach_schedules(self.state, self.sharding)
             self._sparse_step = scan_phase.build_scan_sparse_step(
                 self.cfg, self.model_cfg, self.plan, sparse_sched, self.mesh, self.sharding)
             self._eval_step = scan_phase.build_scan_eval_step(self.cfg, self.model_cfg,
@@ -407,8 +406,9 @@ class SMTTrainer:
         offload the frozen weights come back from the host store with the
         trained blocks scattered in (those tensors stay on the CPU): the
         export is exact, whatever the int8 compute path did. Under fsdp
-        the shards are gathered leaf by leaf into host tensors (the scan
-        state's layer by layer): collective, every rank calls it."""
+        or tensor the shards are gathered leaf by leaf into host tensors
+        (the scan state's layer by layer, over both axes): collective,
+        every rank calls it."""
         if self.sharding is not None and not (self.phase == "sparse" and self._scan):
             warm = self.phase != "sparse"
             return self.sharding.full_tree(self.state["master" if warm else "params"],
@@ -449,8 +449,8 @@ class SMTTrainer:
         base decodes from its state, with no dense layer weight on the device
         (eval/generate.decode_params_from_scan); the others from the exact
         merged dense params, on the trainer's device (weights offloaded to
-        the host come back). Under fsdp every rank gathers the whole state
-        (collective)."""
+        the host come back). Under fsdp or tensor every rank gathers the
+        whole state over both axes (collective)."""
         from sparse_matrix_tuning_tpu_torch.eval.generate import (
             decode_params_from_scan, prepare_decode_params)
         if self.phase == "sparse" and self._scan and "q" in self.state:

@@ -75,7 +75,7 @@ def _id(case):
 
 
 def _int8(case):
-    return case[1].endswith("int8")
+    return "int8" in case[1]
 
 
 @contextlib.contextmanager
@@ -89,6 +89,27 @@ def jax_mesh(shape):
         set_compute_mesh(None)
 
 
+def _jax_shards(jt, mesh):
+    """{path: shard shape} of the JAX trainer's final state as its
+    state_shardings place it (every device alike), and of its host store
+    ("host/{key}") as a HostShards holds it on a mesh of processes: by the
+    sharding of the stack (or head) it left (in one process JAX keeps the
+    whole array, every shard being addressable)."""
+    from sparse_matrix_tuning_tpu.parallel.mesh import state_shardings
+
+    def shapes(tree, rename=lambda k: k):
+        flat = jax.tree_util.tree_flatten_with_path(tree)[0]
+        sh = jax.tree_util.tree_flatten(state_shardings(tree, mesh, jt.plan.mode))[0]
+        return {rename("/".join(getattr(p, "key", str(p)) for p in path)):
+                tuple(sh[n].shard_shape(a.shape)) for n, (path, a) in enumerate(flat)}
+
+    host = dict(jt._host_frozen or {})
+    head = {"lm_head": host.pop("lm_head")} if "lm_head" in host else {}
+    left = {"params": {"layers_stacked": host, **head}}
+    return {**shapes(dict(jt.state)),
+            **shapes(left, lambda k: "host/" + k.rsplit("/", 1)[-1])}
+
+
 def _jax_run(spec, shape, bs, eval_path, layers):
     jcfg = dataclasses.replace(JAX_CFG, num_hidden_layers=layers)
     jparams = jax_init_params(jax.random.PRNGKey(0), jcfg)  # a fresh copy: donated
@@ -97,12 +118,15 @@ def _jax_run(spec, shape, bs, eval_path, layers):
                            total_steps=spec["total_steps"], mesh=mesh)
         losses = [float(jt.train_step(b)["loss"]) for b in bs]
         return {"loss": losses, "fingerprint": jt.plan.fingerprint(),
-                "eval_loss": jt.evaluate(torch.load(eval_path, weights_only=False))[1]}
+                "eval_loss": jt.evaluate(torch.load(eval_path, weights_only=False))[1],
+                "shards": _jax_shards(jt, mesh)}
 
 
-def scan_runs(tmp, meshes):
+def scan_runs(tmp, meshes, jax_cases=None, extras=None):
     """Every case on its mesh (one spawn per mesh), in one process, and on
-    JAX's mesh."""
+    JAX's mesh (only the (shape, name) cases of `jax_cases` where given).
+    extras: {shape: [spec]} more specs for that mesh's spawn (torch_dp_ranks.
+    train_ranks' probes), whose ranks' results land under their names."""
     torch.save(batches(2, pads=(32, 20, 12, 6), seed=9), tmp / "eval.pt")
     for layers in {c[1] for sc in meshes.values() for c in sc.values()}:
         jcfg = dataclasses.replace(JAX_CFG, num_hidden_layers=layers)
@@ -121,14 +145,19 @@ def scan_runs(tmp, meshes):
                           "batches": str(tmp / f"{tag}_{name}.pt"),
                           "eval_batches": str(tmp / "eval.pt")})
         world = int(np.prod(shape))
-        ranks.spawn(ranks.train_ranks, world, tmp, specs, str(tmp), shape)
+        more = (extras or {}).get(shape, [])
+        ranks.spawn(ranks.train_ranks, world, tmp, specs + more, str(tmp), shape)
+        for spec in more:
+            out[spec["name"]] = [torch.load(tmp / f"{spec['name']}.{r}.pt", weights_only=False)
+                                 for r in range(world)]
         for spec, name in zip(specs, scenarios):
             got = [torch.load(tmp / f"{spec['name']}.{r}.pt", weights_only=False)
                    for r in range(world)]
+            with_jax = jax_cases is None or (shape, name) in jax_cases
             out[(shape, name)] = {
                 "ranks": got, "d1": ranks.run_scenario(spec), "cfg": scenarios[name][0],
-                "jax": _jax_run(spec, shape, bs_of[name], tmp / "eval.pt",
-                                scenarios[name][1])}
+                "jax": _jax_run(spec, shape, bs_of[name], tmp / "eval.pt", scenarios[name][1])
+                if with_jax else None}
     return out
 
 
@@ -173,14 +202,19 @@ def check_jax_mesh(runs, case):
     np.testing.assert_allclose(r0["eval_loss"], want["eval_loss"], rtol=rtol)
 
 
-def check_one_process(runs, case):
+def check_one_process(runs, case, bounds=None):
     """Losses, grad norms, eval loss, the whole final state (gathered) and
     the export against the port in one process; every rank reports the
     same and exports the same; over the int8 base every rank's decode
-    params hold the whole int8 state and the exported head."""
+    params hold the whole int8 state and the exported head. bounds: in
+    place of the fsdp rule (D1_RTOL, over the int8 base D1_RTOL_INT8 on the
+    losses), a mesh's own: (steps(fp16, int8) -> [(slice, loss rtol, grad
+    norm rtol)], the eval rtol, state_rule(what, got, want, adam_bound) or
+    None), the overflow flags then equal one process's."""
     got, one = _ranks(runs, case), runs[case]["d1"]
     r0 = got[0]
     int8 = _int8(case)
+    fp16 = runs[case]["cfg"].get("dtype") == "fp16"
     rtol = D1_RTOL_INT8 if int8 else D1_RTOL
     assert (r0["scan"], r0["int8"], r0["host_frozen"]) == (True, int8, int8)
     assert (one["scan"], one["int8"], one["host_frozen"]) == (True, int8, int8)
@@ -188,11 +222,22 @@ def check_one_process(runs, case):
     for r in got[1:]:
         np.testing.assert_equal(r["metrics"], r0["metrics"])
         assert r["eval_loss"] == r0["eval_loss"] and r["fingerprint"] == r0["fingerprint"]
-    np.testing.assert_allclose(_losses(r0), _losses(one), rtol=rtol, atol=0)
-    if not int8:  # over the int8 base an int8 rounding flips: the norms drift ~1e-3
-        np.testing.assert_allclose([m["grad_norm"] for m in r0["metrics"][N_WARMUP:]],
-                                   [m["grad_norm"] for m in one["metrics"][N_WARMUP:]],
-                                   rtol=rtol)
+    state_rule = None if int8 else assert_state_close
+    if bounds is None:
+        np.testing.assert_allclose(_losses(r0), _losses(one), rtol=rtol, atol=0)
+        if not int8:  # over the int8 base an int8 rounding flips: the norms drift ~1e-3
+            np.testing.assert_allclose([m["grad_norm"] for m in r0["metrics"][N_WARMUP:]],
+                                       [m["grad_norm"] for m in one["metrics"][N_WARMUP:]],
+                                       rtol=rtol)
+    else:
+        steps, rtol, state_rule = bounds
+        flags = [bool(m.get("overflow", 0.0)) for m in r0["metrics"]]
+        assert flags == [bool(m.get("overflow", 0.0)) for m in one["metrics"]]
+        norms = [(a.get("grad_norm", 0.0), b.get("grad_norm", 0.0)) if not f else (1.0, 1.0)
+                 for a, b, f in zip(r0["metrics"], one["metrics"], flags)]
+        for sl, loss_rtol, norm_rtol in steps(fp16, int8):
+            np.testing.assert_allclose(_losses(r0)[sl], _losses(one)[sl], rtol=loss_rtol, atol=0)
+            np.testing.assert_allclose(*zip(*norms[sl]), rtol=norm_rtol)
     np.testing.assert_allclose(r0["eval_loss"], one["eval_loss"], rtol=rtol)
     cfg = runs[case]["cfg"]
     adam_bound = 2 * (cfg["ft_learning_rate"] * cfg["full_ft_steps"]
@@ -209,28 +254,36 @@ def check_one_process(runs, case):
         for k, v in one[what].items():
             for r in got:
                 assert torch.equal(r[what][k], r0[what][k]), (what, k)
-            if not int8:  # test_torch_fsdp.py's rule for the final state
-                assert_state_close(f"{what}/{k}", r0[what][k], v, adam_bound)
+            if state_rule is not None and not fp16:  # fsdp: test_torch_fsdp.py's rule
+                state_rule(f"{what}/{k}", r0[what][k], v, adam_bound)
 
 
 def check_share(runs, case):
     """Every leaf shard_dim splits, the stacks and the host store among
-    them, holds exactly 1/F of its full bytes on every rank at the end;
-    the rest are whole; at most one layer's gathered leaves were alive at
-    a time."""
-    f = case[0][1]
-    want = {"params/layers_stacked", "trainable", "base", "m", "v"}
-    if _int8(case):   # the dense stacks left for the host store's slices
-        want = (want - {"params/layers_stacked"}) | {"q", "host"}
+    them, holds exactly 1/F of its full bytes on every rank at the end,
+    and 1/T more where tensor_dim splits it too (the stacked weights, q and
+    the host store; the trainables, their base and moments stay whole over
+    tensor); the rest are whole; under fsdp at most one layer's gathered
+    leaves were alive at a time (none gathered without it)."""
+    _, f, t = case[0]
+    stacks = {"q", "host"} if _int8(case) else {"params/layers_stacked"}
+    # over the int8 base the dense stacks left for the host store's slices
+    want = stacks | {"trainable", "base", "m", "v"} if f > 1 else set()
+    want_t = stacks if t > 1 else set()
+
+    def tops(keys):
+        return {k.split("/")[0] if not k.startswith("params/layers_stacked") else
+                "params/layers_stacked" for k in keys}
+
     for r, got in enumerate(_ranks(runs, case)):
-        table = got["shard_bytes"][1]
+        table, tdims = got["shard_bytes"][1], got["shard_tdims"]
         split = {k for k, v in table.items() if v[0] is not None}
         for k, (d, here, full) in table.items():
-            assert here * (f if d is not None else 1) == full, (r, k)
-        tops = {k.split("/")[0] if not k.startswith("params/layers_stacked") else
-                "params/layers_stacked" for k in split}
-        assert tops >= want, (r, tops)
-        assert got["live_peak"] == 1, got["live_peak"]
+            assert here * (f if d is not None else 1) * (t if k in tdims else 1) == full, (r, k)
+        assert tops(split) >= want, (r, tops(split))
+        assert tops(tdims) >= want_t and not tops(tdims) & {"trainable", "base", "m", "v"}, \
+            (r, tops(tdims))
+        assert got["live_peak"] == (1 if f > 1 else 0), got["live_peak"]
 
 
 def _scan_state_of_shapes(mode, n_layers=3, d=256, f=512, v=256, offload=False):

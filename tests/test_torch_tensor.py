@@ -431,7 +431,8 @@ REFUSED = {
     "frozen_quant int8": (dict(frozen_quant="int8"), None),
     "head_quant int8": (dict(head_quant="int8"), None),
     "channel": (dict(channel_sparsity=True, matrix_sparsity=False), "--channel_sparsity"),
-    "scan_layers on": (dict(scan_layers="on"), "--scan_layers on"),
+    "scan_layers on": (dict(scan_layers="on"), None),
+    "scan_layers on int8": (dict(scan_layers="on", frozen_quant="int8"), None),
     "dropout": (dict(dropout=0.1), "--dropout"),
     "sparse_from_plan": (dict(sparse_from_plan="plan.json"), "--sparse_from_plan"),
 }
@@ -439,10 +440,10 @@ REFUSED = {
 
 @pytest.mark.parametrize("name", list(REFUSED))
 def test_config_refuses_what_tensor_does_not_run(name):
-    """Each option outside matrix mode over the dense or the int8 base in
-    the per-layer layout raises NotImplementedError naming the flag and the
-    mesh; the same config without it builds. The int8 base and head
-    (flag None) build."""
+    """Each option outside matrix mode over the dense or the int8 base
+    raises NotImplementedError naming the flag and the mesh; the same
+    config without it builds. The int8 base and head and the scan layout
+    over either base (flag None) build."""
     from sparse_matrix_tuning_tpu_torch.config import SMTConfig
     kw, flag = REFUSED[name]
     if flag is None:
@@ -486,7 +487,8 @@ def _k4_calls_on_threads(cfg, model, monkeypatch):
     distributed's collectives over the threads): each rank's calls of K4's
     wrappers (ops/quant's q8mm_t / q8mm_g) and K5's (ops/sparse_linear's
     block_correction), their plain versions on the CPU, in that step, the
-    state's int8 leaves and the step's loss."""
+    state's int8 leaves, the step's loss and whether it ran over the scan
+    state."""
     from sparse_matrix_tuning_tpu_torch.config import SMTConfig
     from sparse_matrix_tuning_tpu_torch.models.llama import init_params
     from sparse_matrix_tuning_tpu_torch.ops import quant, sparse_linear
@@ -508,7 +510,7 @@ def _k4_calls_on_threads(cfg, model, monkeypatch):
         before = dict(calls[mesh.tensor_index])
         loss = float(trainer.train_step(bs[-1])["loss"])
         return ({k: calls[mesh.tensor_index][k] - before[k] for k in before},
-                sorted(k for k in ("q", "q_head") if k in trainer.state), loss)
+                sorted(k for k in ("q", "q_head") if k in trainer.state), loss, trainer._scan)
 
     return _on_threads(2, monkeypatch, rank, world=True)
 
@@ -517,11 +519,14 @@ def _k4_calls_on_threads(cfg, model, monkeypatch):
 def test_trainer_refuses_what_tensor_does_not_run(name, monkeypatch):
     """A config that names no mesh_shape, handed to the trainer with a
     tensor mesh built in code, meets the same refusals by name (before
-    any collective). The int8 base and head (flag None) build and train:
-    on two thread ranks at (1, 1, 2) the sparse step calls K4 on every
-    rank, the base's forward and grad_input forms and K5 on the planned
-    linears under --frozen_quant int8, the head's K4 under --head_quant
-    int8 (over the dense base: no K5), and the ranks' losses agree."""
+    any collective). The int8 base and head and the scan layout (flag
+    None) build and train: on two thread ranks at (1, 1, 2) the sparse
+    step calls K4 on every rank, the base's forward and grad_input forms
+    and K5 on the planned linears under --frozen_quant int8, the head's K4
+    under --head_quant int8 (over the dense base in the per-layer layout:
+    no K5); over the scan state (--scan_layers on) K5 on the planned
+    linears over either base (smt_linear_dyn), K4 only over the int8 one;
+    and the ranks' losses agree."""
     from sparse_matrix_tuning_tpu_torch.config import SMTConfig
     from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig, init_params
     from sparse_matrix_tuning_tpu_torch.train.trainer import SMTTrainer
@@ -531,12 +536,13 @@ def test_trainer_refuses_what_tensor_does_not_run(name, monkeypatch):
     assert cfg.mesh_shape is None
     if flag is None:
         got = _k4_calls_on_threads({**_cfg(), **kw}, model, monkeypatch)
-        base = "frozen_quant" in kw
-        for calls, leaves, loss in got:
-            assert calls["q8mm_t"] > 0 and calls["q8mm_g"] > 0, calls
-            assert (calls["block_correction"] > 0) == base, calls
-            assert leaves == (["q", "q_head"] if base else ["q_head"])
-            assert loss == got[0][2]
+        base, scan = "frozen_quant" in kw, "scan_layers" in kw
+        int8 = base or "head_quant" in kw
+        for calls, leaves, loss, scanned in got:
+            assert (calls["q8mm_t"] > 0 and calls["q8mm_g"] > 0) == int8, calls
+            assert (calls["block_correction"] > 0) == (base or scan), calls
+            assert leaves == (["q"] if base else []) + (["q_head"] if int8 else [])
+            assert loss == got[0][2] and scanned == scan
         return
     mesh = Mesh((1, 1, 2), 0, torch.device("cpu"))
     with pytest.raises(NotImplementedError, match=rf"\(1, 1, 2\).*{flag}.*tensor 2"):

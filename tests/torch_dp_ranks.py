@@ -90,12 +90,23 @@ def shard_bytes(trainer):
             for k, t in leaves.items()}
 
 
+def shard_tdims(trainer):
+    """{state path: tensor dim} of the state's leaves and of the host store
+    ("host/{key}") split over tensor ({} without a sharding)."""
+    sh = trainer.sharding
+    if sh is None:
+        return {}
+    keys = list(state_leaves(trainer)) + [f"host/{k}" for k in (trainer._host_frozen or {})]
+    return {k: sh.tdim(k) for k in keys if sh.tdim(k) is not None}
+
+
 def run_scenario(spec, mesh=None):
     """Train on spec's global batches; returns the metrics of every step,
     the plan's fingerprint, the eval loss, the state's leaf checksums, the
     all-reduce's counters, the whole final state (full_state) and, under
     fsdp, the bytes of the shards after the warm-up and at the end
-    (shard_bytes) and the most gathered layers alive at once; with
+    (shard_bytes, with the tensor dims of the final ones in shard_tdims)
+    and the most gathered layers alive at once; with
     spec["export"] the merged params of the HF export (trainer.
     merged_params, collective under fsdp), flat, and over the int8 scan
     state the decode params' head and int8 layers (trainer.decode_params,
@@ -138,6 +149,9 @@ def run_scenario(spec, mesh=None):
             "host_frozen": trainer._host_frozen is not None, "int8": "q" in trainer.state,
             "stats": dict(mesh.stats) if mesh is not None else None, "tokens": tokens,
             "tdims": sorted(sh.tdims) if sh is not None else [],
+            "shard_tdims": shard_tdims(trainer),
+            "host_shapes": {f"host/{k}": tuple(t.shape)
+                            for k, t in (trainer._host_frozen or {}).items()},
             "shapes": (warm_shapes, {k: tuple(t.shape) for k, t in state_leaves(trainer).items()})}
 
 
