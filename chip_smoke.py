@@ -156,8 +156,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
      over four, against one process (fp32 at P0's bounds; fp16 losses
      within P0_INT8_RTOL, the same loss scales and overflow flags), K1,
      K2 and K3 launched on every rank, each rank 1/T of every tensor-split
-     leaf; T, A's path at (1, 1, 2) at A's global batch (every TinyLlama
-     layer, K3 on each rank's 16 query and 2 kv heads), held to A at P's
+     leaf; T, A's path at (1, 1, 2) at A's global batch (TinyLlama's
+     widths, K3 on each rank's 16 query and 2 kv heads; every layer under
+     `--only tp`, T_LAYERS in the whole script, T, TQ and TS each held to
+     A or E run at the same depth), held to A at P's
      bounds, with per rank the ms/step, the tensor all-reduces' and
      all-gathers' bytes and calls a step, the state's bytes against A's
      whole state, the peaks beside P's, F's and A's, the launches and the
@@ -172,7 +174,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
      scales and overflow flags), every kernel of the int8 path launched
      on every rank, the split row quantization's row_amax and
      row_quant_amax among them, 1/T of every tensor-split leaf; TQ, E's
-     path at (1, 1, 2) over the two gloo ranks (bs 4 a rank, 22 layers),
+     path at (1, 1, 2) over the two gloo ranks (bs 4 a rank, T's depth),
      held to E at P's bounds, with per rank the ms/step, the tensor
      collectives' MB and calls a step (activations and amax apart), the
      int8 base and head bytes beside E's, the peaks beside T's and E's and
@@ -199,15 +201,31 @@ Phases, in order; any failure raises and the exit code is non-zero:
      row quantization's three entries too, 1/T of every tensor-split leaf,
      the export against one process's export of the gathered state; TS,
      E's path with --scan_layers on at (1, 1, 2) over the two gloo ranks
-     (bs 4 a rank, every TinyLlama layer), held to E at P's bounds, with
+     (bs 4 a rank, T's depth), held to E at P's bounds, with
      per rank the ms/step, the tensor collectives' MB and calls a step
      (activations, amax and the block grads' sum apart; the sum at most
      the plan's valid blocks' bytes), the stacked int8 base, head, host
      store and padded stacks' bytes beside the whole state's, the peaks
-     beside E's, TQ's and G's, and the launches; TSE, its export
+     beside E's and TQ's, and the launches; TSE, its export
      (merged_params, gathered layer by layer over both axes, not written)
      equal to one process's export of the gathered state and host store;
-     TSN (`--only nccl` on four cards), TS0 and TS over NCCL at (1, 2, 2).
+     TSN (`--only nccl` on four cards), TS0 and TS over NCCL at (1, 2, 2);
+ 17. channel mode under the tensor axis (--channel_sparsity on a tensor
+     mesh, in the same spawns; `--only tp` runs them too): TC0, the tiny
+     pair in fp32 and fp16 in channel mode per layer and with
+     --scan_layers on over the dense and the int8 base, at (1, 1, 2) and
+     (1, 2, 2) against one process (P0's bounds, P0_INT8_RTOL over int8
+     and fp16, the same plan, loss scales and overflow flags), K2 and K3
+     (over int8 K4 and the row quantization's three entries) launched on
+     every rank and K1 and K5 not; TC, H's path at (1, 1, 2) over the two
+     gloo ranks (bs 4 a rank, every TinyLlama layer), held to H, and TCJ,
+     J's path (channel + int8 at depth, converted into the int8 scan state
+     with its host store), held to J, each with per rank the ms/step, the
+     tensor MB and calls a step (activations, amax, taps and column grads
+     apart), act_acc, stacked, host store and column bytes beside the
+     reference's, the peaks and the launches; TCE, their exports (not
+     written) equal to one process's export of the gathered state; TCN
+     (`--only nccl` on four cards), TC0, TC and TCJ over NCCL at (1, 2, 2).
 Before the references, K6 (the int4 unpack-matmul) runs at eight shapes
 (K6_SHAPES: the TinyLlama linears at the eval decode's 64 rows, 16 and a
 ragged 7, Llama-3-8B's gate) and on the layer views of a stack (K6s),
@@ -224,8 +242,9 @@ checks and the tiny int8 reference; `--only q4` after
 the build, the K6 checks and the tiny quantized generation; `--only attn`
 after the build and the K3 / K7 checks; `--only sparse` after the build and
 the K1 / K2 / K5 checks; `--only scan` runs the build, the tiny 12-layer
-channel int8 reference, J and R; `--only tp` the build, A, E, T0, TQ0, TS0,
-T, TE, TQ, TQE, TS and TSE; none of them prints a result.
+channel int8 reference, J and R; `--only tp` the build, A, E, H, J, T0,
+TQ0, TS0, TC0, T, TE, TQ, TQE, TS, TSE, TC, TCJ and TCE; none of them
+prints a result.
 """
 
 from __future__ import annotations
@@ -387,6 +406,10 @@ K6_STACK = (3, 64, 2048, 2048)  # K6s: layers, T, I, O; K6 on the views of layer
 # fsdp phases came), R2 12, the least depth at which channel + int8 takes
 # the scan state (J's layout)
 R_LAYERS, R2_LAYERS = 4, 12
+# the whole script's depth of T, TQ and TS (held to A and E run at that
+# depth): cut from TinyLlama's 22 to keep the script inside its time limit
+# beside TC and TCJ, which run every layer; `--only tp` runs all 22
+T_LAYERS = 4
 # tiny quantized generation, GPU against CPU: logits of each forward call
 # before the decodes part, relative to the call's largest |logit|. Flipped
 # int8 steps and bf16 roundings of K6 inputs, carried through the cache,
@@ -2418,6 +2441,8 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
         "trainable_params": plan.trainable_params, "fingerprint": plan.fingerprint()}
     summary["selected"] = sorted((f"{lp.layer}.{lp.module}", rb, cb)
                                  for lp in plan.linears.values() for rb, cb in lp.blocks)
+    summary["channels"] = sorted((f"{lp.layer}.{lp.module}", c)
+                                 for lp in plan.linears.values() for c in lp.channels)
 
     # int8 frozen base with host offload: no dense (O, I) layer weight and
     # no head is left on the device, only their 1-element placeholders (over
@@ -2539,15 +2564,17 @@ def state_bytes(trainer):
     {"host_here", "host_full"} over the host store of frozen weights (the
     scan state's under fsdp and tensor: this rank's slices), {"q_here",
     "q_full"} over the int8 base and head (the q and q_head leaves), of
-    which {"qhead_here", "qhead_full"} the head's, and {"pad_here",
+    which {"qhead_here", "qhead_full"} the head's, {"pad_here",
     "pad_full"} over the scan state's padded stacks (trainable, base, m,
-    v)."""
+    v), {"act_here", "act_full"} over channel mode's activation sums
+    (act_acc) and {"train_here", "train_full"} over the trainables."""
     import numpy as np
     from sparse_matrix_tuning_tpu_torch.models.llama import flatten_tree
     sh = trainer.sharding
     out = dict.fromkeys(("here", "full", "split_here", "split_full", "tsplit_here",
                          "tsplit_full", "tslice", "host_here", "host_full", "q_here",
-                         "q_full", "qhead_here", "qhead_full", "pad_here", "pad_full"), 0)
+                         "q_full", "qhead_here", "qhead_full", "pad_here", "pad_full",
+                         "act_here", "act_full", "train_here", "train_full"), 0)
 
     def full_of(k, t):
         here = t.numel() * t.element_size()
@@ -2571,6 +2598,10 @@ def state_bytes(trainer):
         if trainer._scan and top in ("trainable", "base", "m", "v"):
             out["pad_here"] += here
             out["pad_full"] += full
+        kind = {"act_acc": "act", "trainable": "train"}.get(top)
+        if kind is not None:
+            out[f"{kind}_here"] += here
+            out[f"{kind}_full"] += full
         if sh is not None and sh.tdim(k) is not None:
             out["tsplit_here"] += here
             out["tsplit_full"] += full
@@ -4135,7 +4166,10 @@ def dp_rank(rank, world, port, jobs, out_dir, shape=None, backend="gloo"):
     the scan state ("TS0", TS0_CASES' "{frozen_quant} {dtype}": the tiny
     pair with --scan_layers on; "TS", layers: run E with --scan_layers on,
     its export checked against one process's export of the gathered state,
-    not written: hold_ts). Writes {out_dir}/dp.{rank}.pt."""
+    not written: hold_ts), and in channel mode ("TC0", TC0_CASES: the tiny
+    pair per layer and over the scan state; "TC", layers: run H; "TCJ",
+    layers: run J; their exports checked, not written: hold_tc). Writes
+    {out_dir}/dp.{rank}.pt."""
     import torch
     import torch.distributed as dist
     _rank_setup()
@@ -4155,7 +4189,8 @@ def dp_rank(rank, world, port, jobs, out_dir, shape=None, backend="gloo"):
     fmesh = make_mesh(shape or (1, world, 1), device=device)
     # the tensor axis: (1, world / 2, 2)
     tmesh = make_mesh((1, world // 2, 2), device=device) \
-        if any(tag in ("T0", "T", "TQ0", "TQ", "TS0", "TS") for tag, _ in jobs) else None
+        if any(tag in ("T0", "T", "TQ0", "TQ", "TS0", "TS", "TC0", "TC", "TCJ")
+               for tag, _ in jobs) else None
     _time_collectives()
     for tag, arg in jobs:
         t0 = time.time()
@@ -4201,6 +4236,13 @@ def dp_rank(rank, world, port, jobs, out_dir, shape=None, backend="gloo"):
             s = run_main_path(cfg, device, bs=4 // tmesh.batch_shards, mesh=tmesh,
                               frozen_quant="int8", cfg_extra={"scan_layers": "on"},
                               log_fn=(lambda m: log(f"[TS rank {rank}] {m}")))
+        elif tag == "TC0":
+            s = tc0_run(arg, device, 4 // tmesh.batch_shards, tmesh)
+        elif tag in ("TC", "TCJ"):
+            cfg = LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": arg})
+            s = run_main_path(cfg, device, bs=4 // tmesh.batch_shards, mesh=tmesh, mode="channel",
+                              frozen_quant="int8" if tag == "TCJ" else "none",
+                              log_fn=(lambda m: log(f"[{tag} rank {rank}] {m}")))
         elif tag == "FS0":
             fsdp_mod.LIVE.update(now=0, peak=0)
             s = fs0_run(arg, device, 4 // world, fmesh)
@@ -4219,9 +4261,9 @@ def dp_rank(rank, world, port, jobs, out_dir, shape=None, backend="gloo"):
 
 
 def _job_key(tag, arg):
-    """Where dp_rank keeps a job's summary: "F", "T", "TQ", "TS",
-    "FS:{mode}", or "{tag}:{arg}"."""
-    if tag in ("F", "T", "TQ", "TS"):
+    """Where dp_rank keeps a job's summary: "F", "T", "TQ", "TS", "TC",
+    "TCJ", "FS:{mode}", or "{tag}:{arg}"."""
+    if tag in ("F", "T", "TQ", "TS", "TC", "TCJ"):
         return tag
     return f"FS:{arg[1]}" if tag == "FS" else f"{tag}:{arg}"
 
@@ -4503,21 +4545,22 @@ def fn_collectives(rank, world, device):
     return {"mesh": mesh.shape, "cases": cases, "path": path, "stats": dict(mesh.stats)}
 
 
-def check_fsdp(ranks, refs, run_a, p, layers, t_layers):
+def check_fsdp(ranks, refs, run_a, p, layers, t_layers, t_refs):
     """F0 and F from the data-parallel spawn (two gloo ranks at (1, 2, 1))
     and F0 at (2, 2, 1) from a spawn of four, held against one process
     (hold_f0, hold_f): F with its export (FE) and each rank's warm-up peak
     at least FSDP_PEAK_GAIN_GIB under P's; T0, TQ0 and T (the tensor axis,
     at (1, 1, 2) in the pair and T0 and TQ0 at (1, 2, 2) in the four;
-    hold_t0, hold_t; TS0, the same over the scan state, hold_ts0).
-    Returns rank 0's summaries (and every rank's T, TQ and TS: TQ and TS
-    are held once E has run)."""
+    hold_t0, hold_t; TS0, the same over the scan state, and TC0, in
+    channel mode: hold_tensor_tiny); T, TQ and TS at t_layers against
+    t_refs' "A" and "E" (one process at that depth; "E" None: no TQ or
+    TS ran). Returns rank 0's summaries (and every rank's TC and TCJ: TC
+    is held once H has run, TCJ once J has)."""
     t0 = time.time()
     quad = _spawn(dp_rank, 4, [("F0", "none")] + [("FS0", n) for n in FS0_RUNS]
-                  + [("T0", d) for d in T0_DTYPES] + [("TQ0", d) for d in T0_DTYPES]
-                  + [("TS0", c) for c in TS0_CASES], after=((2, 2, 1),))
-    log(f"[F0] 4 gloo ranks on cuda:0 at (2, 2, 1), F0 and FS0, and T0, TQ0 and TS0 at (1, 2, "
-        f"2): {time.time() - t0:.1f} s for the spawn")
+                  + tensor_tiny_jobs(), after=((2, 2, 1),))
+    log(f"[F0] 4 gloo ranks on cuda:0 at (2, 2, 1), F0 and FS0, and T0, TQ0, TS0 and TC0 at "
+        f"(1, 2, 2): {time.time() - t0:.1f} s for the spawn")
     for fq in ("none", "int8"):
         hold_f0((1, 2, 1), fq, [r[f"F0:{fq}"] for r in ranks], refs)
     hold_f0((2, 2, 1), "none", [r["F0:none"] for r in quad], refs)
@@ -4528,12 +4571,14 @@ def check_fsdp(ranks, refs, run_a, p, layers, t_layers):
     hold_f("F", (1, 2, 1), "gloo", f, run_a, layers, p)
     # T0 and T: the tensor axis, at (1, 1, 2) in the pair and (1, 2, 2) in the quad
     for shape, got in (((1, 1, 2), ranks), ((1, 2, 2), quad)):
-        for d in T0_DTYPES:
-            hold_t0(shape, d, [r[f"T0:{d}"] for r in got], refs)
-            hold_t0(shape, d, [r[f"TQ0:{d}"] for r in got], refs, tag="TQ0", fq="int8")
-        hold_ts0(shape, got, refs)
-    hold_t("T", (1, 1, 2), "gloo", [r["T"] for r in ranks], run_a, t_layers,
+        hold_tensor_tiny(shape, got, refs)
+    hold_t("T", (1, 1, 2), "gloo", [r["T"] for r in ranks], t_refs["A"], t_layers,
            {"P rank 0": p[0], "F rank 0": f[0]})
+    if t_refs["E"] is not None:
+        hold_t("TQ", (1, 1, 2), "gloo", [r["TQ"] for r in ranks], t_refs["E"], t_layers,
+               {"T rank 0": ranks[0]["T"]}, fq="int8")
+        hold_ts("TS", (1, 1, 2), "gloo", [r["TS"] for r in ranks], t_refs["E"], t_layers,
+                {"TQ rank 0": ranks[0]["TQ"]})
     gib = 1024 ** 3
     for r in range(2):
         gain = (p[r]["peak"]["warmup"] - f[r]["peak"]["warmup"]) / gib
@@ -4543,8 +4588,9 @@ def check_fsdp(ranks, refs, run_a, p, layers, t_layers):
                                  f">= {FSDP_PEAK_GAIN_GIB})")
     return {"F": f[0], "F0": ranks[0]["F0:none"], "F0 int8": ranks[0]["F0:int8"],
             "F0 (2,2,1)": quad[0]["F0:none"], "T": ranks[0]["T"], "TQ": ranks[0].get("TQ"),
-            "TQ ranks": [r.get("TQ") for r in ranks], "T ranks": [r["T"] for r in ranks],
-            "TS ranks": [r.get("TS") for r in ranks],
+            "TS": ranks[0].get("TS"), "TC ranks": [r.get("TC") for r in ranks],
+            "TCJ ranks": [r.get("TCJ") for r in ranks],
+            **{f"TC0 {c}": ranks[0][f"TC0:{c}"] for c in TC0_CASES},
             **{f"{k} {d}": ranks[0][f"{k}:{d}"] for d in T0_DTYPES for k in ("T0", "TQ0")},
             **{f"{k} {d} (1,2,2)": quad[0][f"{k}:{d}"] for d in T0_DTYPES
                for k in ("T0", "TQ0")},
@@ -4672,6 +4718,15 @@ TQ_KERNELS = TRAIN_KERNELS + Q8_KERNELS + RQ_SPLIT_KERNELS
 # smt_linear_dyn corrects through K5 as well
 TS0_CASES = ("none fp32", "none fp16", "int8 fp32", "int8 fp16")
 TS_DENSE_KERNELS = TRAIN_KERNELS + ("block_correction",)
+# TC0: the tiny pair in channel mode under the tensor axis, "{layout}
+# {dtype}": per layer ("layer"), --scan_layers on over the fp32 ("scan")
+# and the int8 base ("int8"); P0's settings
+TC0_CASES = tuple(f"{lay} {dt}" for lay in ("layer", "scan", "int8") for dt in T0_DTYPES)
+# what channel mode launches on every rank (the columns' products are
+# matmuls: no K1 or K5); over the int8 scan state K4 and the row
+# quantization's three entries as well
+TC_KERNELS = ("masked_adam",) + K3_KERNELS
+TCJ_KERNELS = TC_KERNELS + K4_KERNELS + ("row_quant",) + RQ_SPLIT_KERNELS
 
 
 def _fp16_names(names):
@@ -4701,38 +4756,48 @@ def _one_row_quant_a_k4_call(tag, lx):
         raise AssertionError(f"{tag}: not one row quantization a K4 call: {lx}")
 
 
-def hold_t0(shape, dtype, got, refs, tag="T0", fq="none", scan=False):
+def hold_t0(shape, dtype, got, refs, tag="T0", fq="none", scan=False, mode="matrix"):
     """The tiny pair on a tensor mesh against one process, over the dense
     base or (fq "int8": TQ0) the int8 base and head, in the per-layer
-    layout or (scan: TS0, --scan_layers on) over the scan state: the same
-    plan; the ranks' losses equal; fp32 losses and grad norms over the
-    dense base within P0_RTOL, else the losses within P0_INT8_RTOL (grad
-    norms reported: an int8 rounding flips), fp16 with the same loss
-    scales and overflow flags; K1, K2 and K3 launched on every rank, over
-    the int8 base K4 (t and g), the row quantization's three entries and
-    K5 too (their fp16 bodies under fp16), over the scan state K5 over
-    either base; each rank's state held by _tensor_state_held."""
+    layout or (scan: TS0, --scan_layers on) over the scan state, in matrix
+    or (TC0) channel mode: the same plan; the ranks' losses equal; fp32
+    losses and grad norms over the dense base within P0_RTOL, else the
+    losses within P0_INT8_RTOL (grad norms reported: an int8 rounding
+    flips), fp16 with the same loss scales and overflow flags; K1, K2 and
+    K3 launched on every rank, over the int8 base K4 (t and g), the row
+    quantization's three entries and K5 too (their fp16 bodies under
+    fp16), over the scan state K5 over either base; in channel mode K2
+    and K3 (over int8 K4 and the row quantization's entries) and no K1 or
+    K5; each rank's state held by _tensor_state_held."""
     import numpy as np
-    fp16, int8 = dtype == "fp16", fq == "int8"
-    ref = refs[("scan " if scan else "") + {
-        (False, False): "none", (True, False): "fp16", (False, True): "int8",
-        (True, True): "int8 fp16"}[fp16, int8]]
+    fp16, int8, channel = dtype == "fp16", fq == "int8", mode == "channel"
+    if channel:
+        ref = refs[f"channel {'int8' if int8 else 'scan' if scan else 'layer'} {dtype}"]
+    else:
+        ref = refs[("scan " if scan else "") + {
+            (False, False): "none", (True, False): "fp16", (False, True): "int8",
+            (True, True): "int8 fp16"}[fp16, int8]]
     rtol = P0_INT8_RTOL if fp16 or int8 else P0_RTOL
-    what = f"{tag} {shape} {dtype}"
+    what = f"{tag} {shape} {dtype}{' scan' if scan else ''}{' int8' if int8 else ''}"
     fps = {g["plan"]["fingerprint"] for g in got} | {ref["plan"]["fingerprint"]}
     if len(fps) != 1:
         raise AssertionError(f"{what}: plan fingerprints differ: {fps}")
     if any(g["loss"] != got[0]["loss"] for g in got):
         raise AssertionError(f"{what}: the ranks' losses differ")
-    names = tuple(n for n in (TQ_KERNELS if int8 else TS_DENSE_KERNELS if scan else
-                              TRAIN_KERNELS) if "dkdv_reduce" not in n)
+    if channel:
+        names = TCJ_KERNELS if int8 else TC_KERNELS
+    else:
+        names = TQ_KERNELS if int8 else TS_DENSE_KERNELS if scan else TRAIN_KERNELS
+    names = tuple(n for n in names if "dkdv_reduce" not in n)
     needed = _fp16_names(names) if fp16 else names
+    off = ("block_grad", "block_correction") if channel else ()
     for r, g in enumerate(got):
         if not all(g["launches"][n] > 0 for n in needed) or g["scan"] != scan \
-                or (scan and not g.get("fse_tensors")):
+                or (scan and not g.get("fse_tensors")) \
+                or any(g["launches"][n] + g["launches"][f"{n}_fp16"] for n in off):
             raise AssertionError(f"{what} rank {r}: scan {g['scan']}, TSE "
-                                 f"{g.get('fse_tensors')}, or not every kernel launched: "
-                                 f"{g['launches']}")
+                                 f"{g.get('fse_tensors')}, or not every kernel of the path "
+                                 f"launched (or K1 / K5 in channel mode): {g['launches']}")
         _tensor_state_held(f"{what} rank {r}", g, ref, shape[2], int8)
     if fp16 and (got[0]["loss_scale"], got[0]["overflow"]) != (ref["loss_scale"],
                                                                 ref["overflow"]):
@@ -4755,7 +4820,8 @@ def hold_t0(shape, dtype, got, refs, tag="T0", fq="none", scan=False):
         extra = (f"; amax MB / calls a step "
                  f"{[(round(x['tensor_amax_bytes'] / 1e6, 3), x['tensor_amax_calls']) for x in c]}"
                  f"; rank 0 q bytes {sb['q_here']:,} of {sb['q_full']:,}")
-    log(f"[{tag}] tiny {dtype}{' --frozen_quant int8' if int8 else ''}"
+    log(f"[{tag}] tiny {dtype}{' --channel_sparsity' if channel else ''}"
+        f"{' --frozen_quant int8' if int8 else ''}"
         f"{' --scan_layers on' if scan else ''} at {shape}, {len(got)} "
         f"ranks against one process at global batch 4 (rows 2-3 thinned): losses worst rel diff "
         f"{worst:.2e}, grad norms {worst_norm:.2e} (bound {rtol} on "
@@ -4766,9 +4832,10 @@ def hold_t0(shape, dtype, got, refs, tag="T0", fq="none", scan=False):
            "one process's" if fp16 else "")
         + f"; tensor MB / calls a step "
         f"{[(round(x['tensor_bytes'] / 1e6, 2), x['tensor_calls']) for x in c]}{extra}"
-        + (f"; block-grad parts summed MB / calls a step "
-           f"{[(round(x['grad_parts_bytes'] / 1e6, 3), x['grad_parts_calls']) for x in c]}; "
-           f"TSE {got[0].get('fse_tensors')} tensors" if scan else
+        + (f"; {'column' if channel else 'block'}-grad parts summed MB / calls a step "
+           f"{[(round(x['grad_parts_bytes'] / 1e6, 3), x['grad_parts_calls']) for x in c]}"
+           if scan or channel else "")
+        + (f"; TSE {got[0].get('fse_tensors')} tensors" if scan else
            f"; TE {got[0].get('te_tensors')} tensors") + "; rank 0 launches "
         f"{ {n: got[0]['launches'][n] for n in needed} }")
 
@@ -4869,9 +4936,10 @@ def hold_t(tag, shape, backend, t, ref, layers, beside=None, fq="none"):
 
 
 def tensor_refs(refs=None):
-    """The one-process tiny references of T0, TQ0 and TS0 (fp32 and fp16,
+    """The one-process tiny references of T0, TQ0, TS0 (fp32 and fp16,
     over the dense and the int8 base, per layer and, keys "scan ...",
-    --scan_layers on), those not in `refs` run here."""
+    --scan_layers on) and TC0 (keys "channel {TC0_CASES}"), those not in
+    `refs` run here."""
     from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
     tiny = LlamaConfig.tiny(vocab_size=512)
     refs = dict(refs or {})
@@ -4882,7 +4950,34 @@ def tensor_refs(refs=None):
                 refs[scan + key] = run_main_path(
                     tiny, "cuda", bs=4, frozen_quant=fq, **{**P0_KW, "dtype": dtype},
                     **({"cfg_extra": {"scan_layers": "on"}} if scan else {}))
+    for case in TC0_CASES:
+        if f"channel {case}" not in refs:
+            refs[f"channel {case}"] = tc0_run(case, "cuda", 4)
     return refs
+
+
+def tc0_run(case, device, bs, mesh=None):
+    """TC0 case `case` ("{layout} {dtype}", TC0_CASES): the tiny pair in
+    channel mode per layer or with --scan_layers on over the fp32 or the
+    int8 base, P0's settings, in one process or as a rank of `mesh` (bs a
+    rank)."""
+    from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
+    layout, dtype = case.split()
+    return run_main_path(LlamaConfig.tiny(vocab_size=512), device, bs=bs, mode="channel",
+                         frozen_quant="int8" if layout == "int8" else "none",
+                         cfg_extra=None if layout == "layer" else {"scan_layers": "on"},
+                         **({"mesh": mesh} if mesh is not None else {}),
+                         **{**P0_KW, "dtype": dtype})
+
+
+def hold_tc0(shape, got, refs, tag="TC0"):
+    """TC0: every TC0_CASES pair in channel mode on a tensor mesh against
+    one process (hold_t0 in channel mode)."""
+    for case in TC0_CASES:
+        layout, dtype = case.split()
+        hold_t0(shape, dtype, [r[f"TC0:{case}"] for r in got], refs, tag=tag,
+                fq="int8" if layout == "int8" else "none", scan=layout != "layer",
+                mode="channel")
 
 
 def hold_ts0(shape, got, refs, tag="TS0"):
@@ -4998,38 +5093,177 @@ def hold_ts(tag, shape, backend, ts, ref, layers, beside=None):
         "process's export of the gathered state and host store bit for bit on every rank")
 
 
-def run_tensor(run_a, run_e, layers):
+def _gib(peaks):
+    """{phase: peak GiB} of a run's peaks in bytes (None where not measured)."""
+    return {k: round(v / 1024 ** 3, 2) for k, v in peaks.items() if v is not None}
+
+
+def hold_tc(tag, shape, backend, tc, ref, ref_tag, layers, beside=None):
+    """TC (H's path: channel mode per layer over the dense base) or TCJ
+    (J's: channel + int8 at depth, converted into the int8 scan state with
+    its host store) on a tensor mesh against H or J run in one process
+    (P's bound on the losses, 1e-3; the channel warm-up trains nothing, so
+    it has no grad norms; the ranks' losses and plans equal): on every rank
+    the reference's layout, K2 and K3 launched (TCJ: K4 t and g and the
+    row quantization's three entries too, one a K4 call) and no K1 or K5;
+    act_acc's (S, C) sums at 1/T a rank and the reference's bytes in all;
+    1/T of every tensor-split leaf (TCJ: 1/(F T) of the host store); the
+    columns whole over tensor, their grads summed whole over the tensor
+    group (at most the columns' bytes a sparse step); TCE: the export
+    (merged_params, not written) equal to one process's export of the
+    gathered state (per layer: the weights gathered at conversion with the
+    final columns scattered in; TCJ: the whole scan state and host store).
+    Logs per rank the ms/step, the tensor MB and calls a step (activations,
+    amax, taps and column grads apart), the act_acc, stacked, host store and
+    column bytes beside the reference's, the peaks beside the reference's
+    and `beside`'s ({name: summary}), the launches, and how many of the
+    reference's channels the plan selected too (a near-tie of bf16
+    activation sums may part them); then raises for what failed."""
+    import numpy as np
+    gib = 1024 ** 3
+    _, f, t = shape
+    scan = ref["scan"]   # J trains over the int8 scan state, H per layer
+    names = TCJ_KERNELS if scan else TC_KERNELS
+    n_warm = 3
+    failed = []
+    if any(x["loss"] != tc[0]["loss"] or x["plan"] != tc[0]["plan"] for x in tc):
+        failed.append("the ranks' losses or plans differ")
+    for r, x in enumerate(tc):
+        lx, sb, wb = x["launches"], x["state_bytes"]["sparse"], x["state_bytes"]["build"]
+        bad = [n for n in names if lx[n] <= 0] + [n for n in ("block_grad", "block_correction")
+                                                  if lx[n]]
+        if x["scan"] != scan or (scan and not x["offloaded"]) or bad:
+            failed.append(f"rank {r}: scan {x['scan']}, host store {x['offloaded']}, launched "
+                          f"wrongly: {bad}")
+        if scan:
+            try:
+                _one_row_quant_a_k4_call(f"{tag} rank {r}", lx)
+            except AssertionError as e:
+                failed.append(str(e))
+        if not x.get("fse_tensors" if scan else "te_tensors"):
+            failed.append(f"rank {r}: the export was not checked ({tag}E)")
+        want_act = ref["state_bytes"]["build"]["act_full"]
+        if not wb["act_here"] or wb["act_here"] * t != wb["act_full"] or wb["act_full"] != want_act:
+            failed.append(f"rank {r}: act_acc {wb['act_here']:,} of {wb['act_full']:,} B, not "
+                          f"1/{t} of the reference's {want_act:,}")
+        if not sb["tsplit_here"] or sb["tslice"] * t != sb["tsplit_full"] \
+                or (scan and (not sb["host_here"] or sb["host_here"] * f * t != sb["host_full"])) \
+                or sb["train_here"] * f != sb["train_full"]:
+            failed.append(f"rank {r}: not 1/{t} of the tensor-split leaves, 1/{f * t} of the "
+                          f"host store, or the columns not whole over tensor: {sb}")
+        parts = [c["grad_parts_bytes"] for c in x["collectives"][n_warm:]]
+        if not all(0 < b <= sb["train_full"] for b in parts):
+            failed.append(f"rank {r}: column-grad sums of {parts} B a sparse step, not within "
+                          f"the columns' {sb['train_full']:,} B")
+    r_loss = ref["loss"] + [ref["eval_loss"]]
+    t_loss = tc[0]["loss"] + [tc[0]["eval_loss"]]
+    rel = np.abs(np.array(t_loss) - np.array(r_loss)) / np.abs(np.array(r_loss))
+    mine, theirs = set(map(tuple, tc[0]["channels"])), set(map(tuple, ref["channels"]))
+    log(f"[{tag}] TinyLlama-1.1B bf16 --channel_sparsity (30 + 30 channels)"
+        + (" --frozen_quant int8 (the int8 scan state, host store, int8 head)" if scan else "")
+        + f", {layers} layers, tensor {shape} over {len(tc)} {backend} ranks x bs "
+        f"{4 // (f * shape[0])} x seq 512 ({ref_tag}'s global batch), 3 warm-up + 4 sparse "
+        f"steps: losses {t_loss} vs {ref_tag}'s {r_loss}, worst rel diff {float(rel.max()):.2e} "
+        f"(bound {P_VS_A_RTOL}); sparse grad norms {tc[0]['grad_norm']} vs {ref_tag}'s "
+        f"{ref['grad_norm']}; plan {tc[0]['plan']['fingerprint'][:16]} on every rank, "
+        f"{ref_tag}'s {ref['plan']['fingerprint'][:16]}: {len(mine & theirs)} of "
+        f"{len(theirs)} channels in both ({CARD['smi']})")
+    peaks = {ref_tag: ref["peak"], **{k: v["peak"] for k, v in (beside or {}).items()}}
+    rb = ref["state_bytes"]
+    for r, x in enumerate(tc):
+        ms, c = x["step_ms"], x["collectives"]
+        sb, wb = x["state_bytes"]["sparse"], x["state_bytes"]["build"]
+
+        def per_step(key):
+            pre = f"{key}_" if key else ""
+            return [(round(v[f"{pre}bytes"] / 1e6, 3), v[f"{pre}calls"]) for v in c]
+        log(f"[{tag}] rank {r}: warm-up ms/step {[round(v, 1) for v in ms[:n_warm]]}, sparse "
+            f"{[round(v, 1) for v in ms[n_warm:]]} ({ref_tag}: "
+            f"{[round(v, 1) for v in ref['step_ms']]}"
+            + "".join(f"; {k}: {[round(v, 1) for v in s['step_ms']]}"
+                      for k, s in (beside or {}).items())
+            + f"); collective ms/step {[round(v, 1) for v in x['reduce_ms']]}; tensor MB / calls "
+            f"a step: activations {per_step('tensor')}, amax {per_step('tensor_amax')}, taps "
+            f"{per_step('taps')}, column grads {per_step('grad_parts')}; all-reduced in all "
+            f"{per_step('')}; fsdp gathered {per_step('gather')}, reduce-scattered "
+            f"{per_step('scatter')}")
+        log(f"[{tag}] rank {r}: bytes here / whole ({ref_tag} holds): act_acc "
+            f"{wb['act_here']:,} / {wb['act_full']:,} ({rb['build']['act_full']:,}), columns "
+            f"(trainable) {sb['train_here']:,} / {sb['train_full']:,} "
+            f"({rb['sparse']['train_full']:,}), stacked int8 base (q) "
+            f"{sb['q_here'] - sb['qhead_here']:,} / {sb['q_full'] - sb['qhead_full']:,}, int8 "
+            f"head {sb['qhead_here']:,} / {sb['qhead_full']:,}, host store {sb['host_here']:,} / "
+            f"{sb['host_full']:,} ({rb['sparse']['host_full']:,}), tensor-split leaves "
+            f"{sb['tsplit_here']:,} / {sb['tsplit_full']:,}, state {sb['here'] / gib:.3f} / "
+            f"{sb['full'] / gib:.3f} GiB ({rb['sparse']['here'] / gib:.3f}); peak GiB "
+            f"{_gib(x['peak'])} beside "
+            + "; ".join(f"{who}'s {_gib(pk)}" for who, pk in peaks.items())
+            + "; launches " + ", ".join(f"{n} {x['launches'][n]}" for n in (
+                ("q8mm_t", "q8mm_g", "row_quant") + RQ_SPLIT_KERNELS
+                + ("block_grad", "block_correction", "masked_adam", "attn_fwd", "attn_bwd_dkdv")))
+            + f"; {x['seconds']:.1f} s")
+    if rel.max() > P_VS_A_RTOL:
+        failed.append(f"losses part from {ref_tag}'s by {float(rel.max()):.2e} > {P_VS_A_RTOL}")
+    if failed:
+        raise AssertionError(f"{tag}: " + "; ".join(failed))
+    log(f"[{tag}E] the export's {tc[0]['fse_tensors' if scan else 'te_tensors']} tensors "
+        "(merged_params, gathered over both axes) equal one process's export of the gathered "
+        "state bit for bit on every rank")
+
+
+def tensor_tiny_jobs():
+    """The tiny pairs of the tensor axis: T0, TQ0, TS0 and TC0."""
+    return [("T0", d) for d in T0_DTYPES] + [("TQ0", d) for d in T0_DTYPES] + \
+        [("TS0", c) for c in TS0_CASES] + [("TC0", c) for c in TC0_CASES]
+
+
+def hold_tensor_tiny(shape, got, refs, n=""):
+    """T0, TQ0, TS0 and TC0 of a spawn at `shape` against one process (the
+    tags with `n`: "N" over NCCL)."""
+    for d in T0_DTYPES:
+        hold_t0(shape, d, [r[f"T0:{d}"] for r in got], refs, tag=f"T{n}0")
+        hold_t0(shape, d, [r[f"TQ0:{d}"] for r in got], refs, tag=f"TQ{n}0", fq="int8")
+    hold_ts0(shape, got, refs, tag=f"TS{n}0")
+    hold_tc0(shape, got, refs, tag=f"TC{n}0")
+
+
+def run_tensor(run_a, run_e, run_h, run_j, layers):
     """`--only tp`: the tensor axis over gloo ranks sharing the card, held
-    against A and E run here: T0, TQ0 and TS0 (the tiny pair, fp32 and
-    fp16, over the dense and the int8 base, per layer and over the scan
-    state) at (1, 1, 2) in the spawn of T, TQ and TS (A's, E's and E's
-    with --scan_layers on at (1, 1, 2) with TE, TQE and TSE), and at (1,
-    2, 2) over four ranks. Returns rank 0's summaries."""
+    against A, E, H and J run here: T0, TQ0, TS0 and TC0 (the tiny pair,
+    fp32 and fp16, over the dense and the int8 base, per layer and over the
+    scan state, in matrix and channel mode) at (1, 1, 2) in the spawn of T,
+    TQ, TS, TC and TCJ (A's, E's, E's with --scan_layers on, H's and J's
+    at (1, 1, 2) with TE, TQE, TSE and TCE), and at (1, 2, 2) over four
+    ranks. Returns rank 0's summaries."""
     refs = tensor_refs()
     t_dir = tempfile.mkdtemp(prefix="smoke_export_", dir=os.path.join(REPO, "build"))
     t0 = time.time()
-    tiny = [("T0", d) for d in T0_DTYPES] + [("TQ0", d) for d in T0_DTYPES] + \
-        [("TS0", c) for c in TS0_CASES]
+    tiny = tensor_tiny_jobs()
     try:
-        pair = _spawn(dp_rank, 2, tiny + [("T", (layers, t_dir)), ("TQ", layers), ("TS", layers)],
+        pair = _spawn(dp_rank, 2, tiny + [("T", (layers, t_dir)), ("TQ", layers), ("TS", layers),
+                                          ("TC", layers), ("TCJ", layers)],
                       after=((1, 2, 1),))
     finally:
         shutil.rmtree(t_dir, ignore_errors=True)
-    log(f"[T] 2 gloo ranks on cuda:0 at (1, 1, 2), T0, TQ0, TS0, T, TQ and TS: "
-        f"{time.time() - t0:.1f} s")
+    seconds = {k: round(v["seconds"], 1) for k, v in pair[0].items()
+               if isinstance(v, dict) and "seconds" in v}
+    log(f"[T] 2 gloo ranks on cuda:0 at (1, 1, 2), T0, TQ0, TS0, TC0, T, TQ, TS, TC and TCJ: "
+        f"{time.time() - t0:.1f} s; seconds by job on rank 0: {seconds}")
     quad = _spawn(dp_rank, 4, tiny, after=((2, 2, 1),))
     for shape, got in (((1, 1, 2), pair), ((1, 2, 2), quad)):
-        for d in T0_DTYPES:
-            hold_t0(shape, d, [r[f"T0:{d}"] for r in got], refs)
-            hold_t0(shape, d, [r[f"TQ0:{d}"] for r in got], refs, tag="TQ0", fq="int8")
-        hold_ts0(shape, got, refs)
+        hold_tensor_tiny(shape, got, refs)
     t = [r["T"] for r in pair]
     hold_t("T", (1, 1, 2), "gloo", t, run_a, layers)
     hold_t("TQ", (1, 1, 2), "gloo", [r["TQ"] for r in pair], run_e, layers, {"T rank 0": t[0]},
            fq="int8")
     hold_ts("TS", (1, 1, 2), "gloo", [r["TS"] for r in pair], run_e, layers,
             {"TQ rank 0": pair[0]["TQ"]})
-    return {"T": pair[0]["T"], "TQ": pair[0]["TQ"], "TS": pair[0]["TS"],
+    hold_tc("TC", (1, 1, 2), "gloo", [r["TC"] for r in pair], run_h, "H", layers,
+            {"T rank 0": t[0]})
+    hold_tc("TCJ", (1, 1, 2), "gloo", [r["TCJ"] for r in pair], run_j, "J", layers,
+            {"TS rank 0": pair[0]["TS"]})
+    return {"T": pair[0]["T"], "TQ": pair[0]["TQ"], "TS": pair[0]["TS"], "TC": pair[0]["TC"],
+            "TCJ": pair[0]["TCJ"],
             **{f"{k} {d}": pair[0][f"{k}:{d}"] for d in T0_DTYPES for k in ("T0", "TQ0")},
             **{f"{k} {d} (1,2,2)": quad[0][f"{k}:{d}"] for d in T0_DTYPES
                for k in ("T0", "TQ0")}}
@@ -5041,8 +5275,9 @@ def run_fsdp_nccl(run_a, layers):
     fp32 pair against one process, and FN1, A's path against A, with its
     export (hold_f0, hold_f); with four cards TN, the tensor axis at (1, N
     / 2, 2) (TN0 the tiny pair, TN A's path; TQN0 and TQN the same over the
-    int8 base against E; run_tensor_nccl); then FSN, the scan layouts at
-    (1, N, 1) against E and J (run_fsdp_scan)."""
+    int8 base against E; TSN0 and TSN over the scan state; TCN0, TCN and
+    TCJN in channel mode against H and J; run_tensor_nccl); then FSN, the
+    scan layouts at (1, N, 1) against E and J (run_fsdp_scan)."""
     import torch
     from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
     n = torch.cuda.device_count()
@@ -5063,20 +5298,22 @@ def run_fsdp_nccl(run_a, layers):
             hold_f0(shape, fq, [r[f"F0:{fq}"] for r in ranks], refs, tag="FN0")
         hold_f("FN1", shape, "nccl", [r["F"] for r in ranks], run_a, layers)
     run_e = run_main_path(LlamaConfig(**TINYLLAMA), "cuda", frozen_quant="int8")
-    if n >= 4:
-        run_tensor_nccl(run_a, run_e, layers, refs)
-    # FSN: the scan layouts over NCCL at (1, N, 1), held to E and J run here
     run_j = run_main_path(LlamaConfig(**TINYLLAMA), "cuda", mode="channel", frozen_quant="int8")
+    if n >= 4:
+        run_h = run_main_path(LlamaConfig(**TINYLLAMA), "cuda", mode="channel")
+        run_tensor_nccl(run_a, run_e, run_h, run_j, layers, refs)
+    # FSN: the scan layouts over NCCL at (1, N, 1), held to E and J run here
     run_fsdp_scan(run_e, run_j, layers, world=n, backend="nccl", tag="FSN")
 
 
-def run_tensor_nccl(run_a, run_e, layers, refs):
-    """TN, TQN and TSN (`--only nccl`, four cards or more): the tensor axis
-    over NCCL, one rank a card, at (1, N / 2, 2): TN0, TQN0 and TSN0, the
-    tiny pair in fp32 and fp16 over the dense and the int8 base, per layer
-    and over the scan state, against one process, and TN, TQN and TSN,
-    A's, E's and E's with --scan_layers on against A and E with their
-    exports (hold_t0, hold_ts0, hold_t, hold_ts)."""
+def run_tensor_nccl(run_a, run_e, run_h, run_j, layers, refs):
+    """TN, TQN, TSN and TCN (`--only nccl`, four cards or more): the tensor
+    axis over NCCL, one rank a card, at (1, N / 2, 2): TN0, TQN0, TSN0 and
+    TCN0, the tiny pair in fp32 and fp16 over the dense and the int8 base,
+    per layer and over the scan state, in matrix and channel mode, against
+    one process, and TN, TQN, TSN, TCN and TCJN, A's, E's, E's with
+    --scan_layers on, H's and J's against A, E, H and J with their exports
+    (hold_tensor_tiny, hold_t, hold_ts, hold_tc)."""
     import torch
     n = torch.cuda.device_count()
     refs = tensor_refs(refs)
@@ -5084,23 +5321,24 @@ def run_tensor_nccl(run_a, run_e, layers, refs):
     t_dir = tempfile.mkdtemp(prefix="smoke_export_", dir=os.path.join(REPO, "build"))
     t0 = time.time()
     try:
-        ranks = _spawn(dp_rank, n, [("T0", d) for d in T0_DTYPES]
-                       + [("TQ0", d) for d in T0_DTYPES] + [("TS0", c) for c in TS0_CASES]
-                       + [("T", (layers, t_dir)), ("TQ", layers), ("TS", layers)],
+        ranks = _spawn(dp_rank, n, tensor_tiny_jobs()
+                       + [("T", (layers, t_dir)), ("TQ", layers), ("TS", layers), ("TC", layers),
+                          ("TCJ", layers)],
                        after=((1, n, 1), "nccl"))
     finally:
         shutil.rmtree(t_dir, ignore_errors=True)
     log(f"[TN] {n} NCCL ranks, one a card, at {shape}: {time.time() - t0:.1f} s")
-    for d in T0_DTYPES:
-        hold_t0(shape, d, [r[f"T0:{d}"] for r in ranks], refs, tag="TN0")
-        hold_t0(shape, d, [r[f"TQ0:{d}"] for r in ranks], refs, tag="TQN0", fq="int8")
-    hold_ts0(shape, ranks, refs, tag="TSN0")
+    hold_tensor_tiny(shape, ranks, refs, n="N")
     t = [r["T"] for r in ranks]
     hold_t("TN", shape, "nccl", t, run_a, layers)
     hold_t("TQN", shape, "nccl", [r["TQ"] for r in ranks], run_e, layers, {"T rank 0": t[0]},
            fq="int8")
     hold_ts("TSN", shape, "nccl", [r["TS"] for r in ranks], run_e, layers,
             {"TQN rank 0": ranks[0]["TQ"]})
+    hold_tc("TCN", shape, "nccl", [r["TC"] for r in ranks], run_h, "H", layers,
+            {"TN rank 0": t[0]})
+    hold_tc("TCJN", shape, "nccl", [r["TCJ"] for r in ranks], run_j, "J", layers,
+            {"TSN rank 0": ranks[0]["TS"]})
 
 
 def run_fsdp_scan(run_e, run_j, layers, world=2, backend="gloo", tag="FS"):
@@ -5180,10 +5418,12 @@ def run_data_parallel(run_a, d1, export_dir, p_layers, fs=True, t_layers=None, t
     """P0, P and PE in two gloo ranks on the one card (one spawn), held
     against one process: P0 against its tiny references run here, P
     against A, PE against D1; in the same spawn the fsdp axis (F0, F, FS0,
-    FS) and the tensor axis (T0, T, TQ0 and TQ at t_layers, A's depth by
-    default, TS0 and TS, TS at A's depth; check_fsdp; TQ and TS are held
-    to E once E has run). Then PN over NCCL. Returns the rank-0 summaries,
-    and every rank's TQ and TS summaries under "TQ ranks" and "TS ranks"."""
+    FS) and the tensor axis (T0, TQ0, TS0 and TC0; T and, with tq, TQ and
+    TS at t_layers, A's depth by default, held to A, or to A and E run
+    here at that depth; TC and TCJ at A's depth, held to H and J once they
+    have run; check_fsdp). Then PN over NCCL. Returns the rank-0
+    summaries, and every rank's TC and TCJ summaries under "TC ranks" and
+    "TCJ ranks"."""
     t_layers = p_layers if t_layers is None else t_layers
     import numpy as np
     from sparse_matrix_tuning_tpu_torch.data.sft import batch_iterator
@@ -5194,6 +5434,10 @@ def run_data_parallel(run_a, d1, export_dir, p_layers, fs=True, t_layers=None, t
             for fq in ("none", "int8")}
     refs = tensor_refs(refs)
     refs.update({f"FS0:{n}": fs0_run(n, "cuda", 4) for n in FS0_RUNS})
+    # T, TQ and TS at t_layers: their one-process references at that depth
+    cut = LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": t_layers})
+    t_refs = {"A": run_a if t_layers == p_layers else run_main_path(cut, "cuda"),
+              "E": run_main_path(cut, "cuda", frozen_quant="int8") if tq else None}
     first = thin_rows(next(batch_iterator(synthetic_sft(24, 64, 512, 1), 4, 0, [64], 1234, 0)),
                       P0_KW["thin"])
     valid = (first["labels"][:, 1:] != -100).sum(axis=1)
@@ -5205,7 +5449,9 @@ def run_data_parallel(run_a, d1, export_dir, p_layers, fs=True, t_layers=None, t
         ([("FS", (p_layers, "matrix", dirs[1])), ("FS", (p_layers, "channel", dirs[2]))]
          if fs else []) + [("T0", d) for d in T0_DTYPES] + [("T", (t_layers, dirs[3]))] + \
         [("TQ0", d) for d in T0_DTYPES] + ([("TQ", t_layers)] if tq else []) + \
-        [("TS0", c) for c in TS0_CASES] + ([("TS", p_layers)] if tq else [])
+        [("TS0", c) for c in TS0_CASES] + ([("TS", t_layers)] if tq else []) + \
+        [("TC0", c) for c in TC0_CASES] + \
+        ([("TC", p_layers), ("TCJ", p_layers)] if tq else [])
     t0 = time.time()
     try:
         ranks = _spawn(dp_rank, 2, jobs)
@@ -5215,7 +5461,8 @@ def run_data_parallel(run_a, d1, export_dir, p_layers, fs=True, t_layers=None, t
     log(f"[dp] 2 ranks on cuda:0 over {ranks[0]['backend']} (NCCL refuses two ranks on one "
         f"device); gloo takes CUDA tensors for all_reduce and broadcast: "
         f"{[r['gloo_cuda'] for r in ranks]}; {time.time() - t0:.1f} s for the spawn and P0, P, "
-        f"PE, F0, F, FS0, FS, T0, T, TQ0, TQ, TS0, TS ({CARD['smi']}); seconds by job on "
+        f"PE, F0, F, FS0, FS, T0, T, TQ0, TQ, TS0, TS, TC0, TC, TCJ ({CARD['smi']}); seconds "
+        f"by job on "
         f"rank 0: "
         f"{ {k: round(v['seconds'], 1) for k, v in ranks[0].items() if isinstance(v, dict) and 'seconds' in v} }")
     for fq, rtol in (("none", P0_RTOL), ("int8", P0_INT8_RTOL)):
@@ -5304,7 +5551,7 @@ def run_data_parallel(run_a, d1, export_dir, p_layers, fs=True, t_layers=None, t
         f"s (D1 {d1['wall_s']:.2f} s alone), peaks {[round(s['peak_gib'], 2) for s in pe]} GiB "
         f"(D1 {d1['peak_gib']:.2f}); K7 launches {[s['launches']['cached_attn'] for s in pe]}")
 
-    fsdp = check_fsdp(ranks, refs, run_a, p, p_layers, t_layers)
+    fsdp = check_fsdp(ranks, refs, run_a, p, p_layers, t_layers, t_refs)
 
     import torch
     n_cards = torch.cuda.device_count()
@@ -5333,8 +5580,9 @@ def main(argv=None):
     `--only dp` the build, A with its export, D1, then P0, P, PE, F0, F, FE,
     FS0, T0, T, TE, TQ0, PN and FN (FS needs E, G and J: `--only fs`; TQ
     needs E: `--only tp`); `--only fs` the build, E and J, then FS0, FS and FSE
-    (run_fsdp_scan); `--only tp` the build, A and E, then the tensor axis:
-    T0, TQ0, TS0, T, TE, TQ, TQE, TS and TSE (run_tensor); `--only nccl` (two or more
+    (run_fsdp_scan); `--only tp` the build, A, E, H and J, then the tensor
+    axis: T0, TQ0, TS0, TC0, T, TE, TQ, TQE, TS, TSE, TC, TCJ and TCE
+    (run_tensor); `--only nccl` (two or more
     cards) the build, A,
     then the fsdp axis over NCCL, one rank a card (run_fsdp_nccl, FSN and,
     on four cards, TN among it); none prints a result line. With no
@@ -5460,9 +5708,19 @@ def main(argv=None):
         report_run("E", "TinyLlama-1.1B bf16 over the int8 frozen base, bs 4 x seq 512, remat, "
                    "attn auto (K3)", run_e, 3)
         torch.cuda.empty_cache()
-        marks.append(("A, E", time.time()))
-        run_tensor(run_a, run_e, model_cfg.num_hidden_layers)
-        marks.append(("T0, TQ0, TS0, T, TE, TQ, TQE, TS, TSE", time.time()))
+        run_h = run_main_path(model_cfg, "cuda", mode="channel")
+        report_run("H", "TinyLlama-1.1B bf16, --channel_sparsity (30 + 30 channels), bs 4 x "
+                   "seq 512, remat, attn auto (K3)", run_h, 3)
+        check_channel_run(run_h)
+        torch.cuda.empty_cache()
+        run_j = run_main_path(model_cfg, "cuda", mode="channel", frozen_quant="int8")
+        report_run("J", "TinyLlama-1.1B bf16, --channel_sparsity --frozen_quant int8 from a "
+                   "warm-up, bs 4 x seq 512, remat, attn auto (K3)", run_j, 3)
+        check_deep_channel_run(run_j, None)
+        torch.cuda.empty_cache()
+        marks.append(("A, E, H, J", time.time()))
+        run_tensor(run_a, run_e, run_h, run_j, model_cfg.num_hidden_layers)
+        marks.append(("T0, TQ0, TS0, TC0, T, TE, TQ, TQE, TS, TSE, TC, TCJ, TCE", time.time()))
         log("[smoke] --only tp: seconds by phase: " + ", ".join(
             f"{name} {t - prev:.1f}" for (name, t), (_, prev)
             in zip(marks, [("", t_start)] + marks)))
@@ -5542,7 +5800,7 @@ def main(argv=None):
         # (P held to A, PE to D1 over A's export); F0, F, FE the fsdp axis;
         # PN and FN over NCCL
         run_dp = run_data_parallel(run_a, run_d["D1"], os.path.join(out_dir, "final"),
-                                   model_cfg.num_hidden_layers)
+                                   model_cfg.num_hidden_layers, t_layers=T_LAYERS)
         marks.append(("P", time.time()))
         # F: the eval over the int4 / int8 frozen base, quantized while
         # loading A's export
@@ -5573,13 +5831,6 @@ def main(argv=None):
     report_run("E", "TinyLlama-1.1B bf16 over the int8 frozen base, bs 4 x seq 512, remat, "
                "attn auto (K3)", run_e, 3)
     compare_int8_run(run_a, run_e, 3)
-    # TQ: E's path under the tensor axis, run in the data-parallel spawn,
-    # held now that E has run
-    hold_t("TQ", (1, 1, 2), "gloo", run_dp["TQ ranks"], run_e, model_cfg.num_hidden_layers,
-           {"T rank 0": run_dp["T"]}, fq="int8")
-    # TS: E's path over the int8 scan state under the tensor axis, beside TQ and G
-    hold_ts("TS", (1, 1, 2), "gloo", run_dp["TS ranks"], run_e, model_cfg.num_hidden_layers,
-            {"TQ rank 0": run_dp["TQ"], "G": run_g})
     report_scan_run(run_g, run_e, 3)
     check_scan_run(run_g, run_e)
     torch.cuda.empty_cache()
@@ -5667,6 +5918,12 @@ def main(argv=None):
             model_cfg.num_hidden_layers, g=run_g)
     hold_fs("FS", (1, 2, 1), "gloo", run_dp["FS"]["channel"], run_j, "J",
             model_cfg.num_hidden_layers)
+    # TC and TCJ: channel mode under the tensor axis, run in the
+    # data-parallel spawn, held now that H and J have run (TCE with them)
+    hold_tc("TC", (1, 1, 2), "gloo", run_dp["TC ranks"], run_h, "H",
+            model_cfg.num_hidden_layers, {"T rank 0": run_dp["T"]})
+    hold_tc("TCJ", (1, 1, 2), "gloo", run_dp["TCJ ranks"], run_j, "J",
+            model_cfg.num_hidden_layers, {"TS rank 0": run_dp["TS"]})
     # R: resume under dropout, matrix mode over the per-layer state, stopped
     # in the warm-up and in the sparse phase; R2: once in J's layout
     run_r = run_resume(dataclasses.replace(model_cfg, num_hidden_layers=R_LAYERS))
@@ -5804,9 +6061,12 @@ def main(argv=None):
             "F0 (2,2,1)": run_dp["F0 (2,2,1)"]["launches"],
             **{f"FS {m}": ranks[0]["launches"] for m, ranks in run_dp["FS"].items()},
             **{k: run_dp[k]["launches"] for k in run_dp
-               if k.startswith(("FS0 ", "T0 ", "TQ0 "))},
+               if k.startswith(("FS0 ", "T0 ", "TQ0 ", "TC0 "))},
             # rank 0 of the tensor runs (each rank launches on its heads and windows)
-            "T tensor": run_dp["T"]["launches"], "TQ tensor": run_dp["TQ"]["launches"]}
+            "T tensor": run_dp["T"]["launches"], "TQ tensor": run_dp["TQ"]["launches"],
+            "TS tensor": run_dp["TS"]["launches"],
+            "TC tensor": run_dp["TC ranks"][0]["launches"],
+            "TCJ tensor": run_dp["TCJ ranks"][0]["launches"]}
     for k in kernels:
         k.setdefault("launches_by_run", {}).update(
             {tag: counts[k["name"]] for tag, counts in runs.items()

@@ -66,9 +66,10 @@ entry runs on one device.
 --mesh_shape D,F,T with T > 1 adds the tensor axis (Megatron's column-
 and row-parallel linears, each rank attending over its hq/T query and
 hkv/T kv heads, a vocabulary-parallel head and loss) over D * F * T
-processes, for matrix mode over the dense or the int8 base (--frozen_quant
-int8, the int8 head with it), in the per-layer layout or, with
---scan_layers on, the scan layout (each rank its slices of the stacks and
+processes, for matrix or channel mode over the dense or the int8 base
+(--frozen_quant int8, the int8 head with it), in the per-layer layout or,
+with --scan_layers on (and --channel_sparsity --frozen_quant int8 at 12
+layers or more), the scan layout (each rank its slices of the stacks and
 of the host store):
 
   torchrun --nproc_per_node 2 -m sparse_matrix_tuning_tpu_torch.cli.fine_tune \
@@ -77,8 +78,10 @@ of the host store):
 T must divide the head counts, the intermediate width and the vocabulary
 of an untied Llama. Over the int8 base each rank holds its slices of
 the int8 weights and head and quantizes a row that lies across the ranks
-with the whole row's amax. --channel_sparsity, --dropout and
---sparse_from_plan raise NotImplementedError by name under it.
+with the whole row's amax. In channel mode each rank sums the activations
+of its columns of every target linear's input and the ranks select from
+the gathered statistics. --dropout and --sparse_from_plan raise
+NotImplementedError by name under it.
 
 model_name_or_path must be a local HF checkpoint dir. Runs on the card
 (--device cuda, the default, raises when there is none); --device cpu runs

@@ -30,10 +30,10 @@ paths this port implements:
                 rank holding 1/F of the state (parallel/fsdp.py); under
                 torchrun without it, (1, WORLD_SIZE, 1), JAX's default;
                 D,F,T with T > 1 adds the tensor axis (parallel/tensor.py)
-                in matrix mode over the dense or the int8 base, in the
-                per-layer or the scan layout; --sparse_from_plan is refused
-                with F > 1, and under the tensor axis so are channel mode
-                and dropout (parallel/mesh.refuse_sharded_axes)
+                in matrix and channel mode over the dense or the int8
+                base, in the per-layer or the scan layout; --sparse_from_plan
+                is refused with F > 1, and under the tensor axis so is
+                dropout (parallel/mesh.refuse_sharded_axes)
 
 Options whose implementation has not been ported raise NotImplementedError
 when the config is built; none of them silently runs another path.
@@ -188,10 +188,11 @@ class SMTConfig:
 
     def _check_mesh(self):
         """--mesh_shape D,F,T (D * F * T processes) is taken: the scan
-        layouts under fsdp; the tensor axis (T > 1) in matrix mode over the
-        dense or the int8 base (--frozen_quant int8, --head_quant int8) in
-        the per-layer and the scan layout (--scan_layers on), what it does
-        not run refused by
+        layouts under fsdp; the tensor axis (T > 1) in matrix and channel
+        mode over the dense or the int8 base (--frozen_quant int8,
+        --head_quant int8) in the per-layer and the scan layout
+        (--scan_layers on, channel + int8 at depth), what it does not run
+        refused by
         name when the config is built (parallel/mesh.refuse_sharded_axes;
         the model's widths at the trainer, refuse_tensor_model); so is
         --sparse_from_plan with F > 1: the JAX package's entry
@@ -331,10 +332,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh_shape", type=str, nargs="*", default=None,
                    help="data,fsdp,tensor (or three numbers): D,F,T trains over D*F*T "
                         "processes (torchrun --nproc_per_node D*F*T), data-parallel over D, "
-                        "sharded over F and tensor-parallel over T (matrix mode over the "
-                        "dense or the int8 base, --scan_layers on too); under torchrun the "
-                        "default is "
-                        "1,WORLD_SIZE,1")
+                        "sharded over F and tensor-parallel over T (matrix or channel mode "
+                        "over the dense or the int8 base, --scan_layers on too); under "
+                        "torchrun the default is 1,WORLD_SIZE,1")
     p.add_argument("--seq_buckets", type=int, nargs="*", default=None)
     p.add_argument("--resume_from", type=str, default=None)
     p.add_argument("--profile_dir", type=str, default=None)

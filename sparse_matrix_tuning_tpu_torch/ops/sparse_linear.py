@@ -100,6 +100,17 @@ preferred_element_type, and the fp32 sums are added before the cast to
 the output dtype. The column scatter of grad_x is `index_add_`: a padded
 entry duplicates a valid one, and its delta and so its g @ delta are 0,
 so it adds exact zeros.
+
+Under the tensor axis (`tensor=`, a ChannelWindow built once on the host)
+a channel linear computes on the rank's slice of its weight: a column-
+parallel rank (its output rows, x whole) corrects and grads its rows of
+the columns, a row-parallel rank (its input columns, x its columns, g
+whole) the valid entries whose column lies in its slice, picked by
+`valid` first (a padded entry repeats a valid one's column, which would
+count twice). The columns' grads are the rank's parts, zero elsewhere,
+summed over the tensor group by the step; over an int8 base the row
+that lies across the ranks takes the whole row's amax, as the block
+linears'.
 """
 
 from __future__ import annotations
@@ -115,7 +126,8 @@ from sparse_matrix_tuning_tpu_torch.ops.cuda.correction import (
     CorrectionSchedule, block_correction, correction_schedule)
 from sparse_matrix_tuning_tpu_torch.ops.quant import (
     dequantize_weight_int4, q4_matmul_t, q8_matmul, q8_matmul_t)
-from sparse_matrix_tuning_tpu_torch.parallel.fsdp import COL_PARALLEL, block_window
+from sparse_matrix_tuning_tpu_torch.parallel.fsdp import (
+    COL_PARALLEL, block_window, column_window)
 from sparse_matrix_tuning_tpu_torch.smt.plan import BLOCK, LinearPlan, key_str
 
 
@@ -586,16 +598,71 @@ def smt_linear_dyn(x, blocks, rb, cb, valid, frozen, base_blocks, correction=Non
 # Channel sparsity
 # ---------------------------------------------------------------------------
 
+class ChannelWindow(NamedTuple):
+    """A channel linear's tensor slice under the tensor axis: split "out"
+    (a column-parallel linear: its output rows first .. first + width) or
+    "in" (a row-parallel one: its input columns), and for "in" the entries
+    whose column lies in the slice, picked among the valid ones: their
+    positions among the (n,) columns (`sel`) and their columns in the
+    slice (`loc`), int64 on the device. Built once, on the host
+    (SMTPlan.channel_tensor_window, scan_phase.attach_schedules)."""
+    split: str
+    first: int
+    width: int
+    sel: Optional[torch.Tensor] = None
+    loc: Optional[torch.Tensor] = None
+
+
+def channel_window(ci, valid, device, tensor) -> ChannelWindow:
+    """The ChannelWindow of the (n,) input channels ci (valid: (n,) bool,
+    or None where every entry is valid) on `device`, for tensor = (split,
+    first, width) of the rank's slice of the weight. A padded entry
+    repeats a valid one's channel: the valid entries are picked before
+    the window (fsdp.column_window), so the owner adds each column
+    once."""
+    split, first, width = tensor
+    if split == "out":
+        return ChannelWindow(split, first, width)
+    ci = np.asarray(ci, np.int64).reshape(-1)
+    pos = np.nonzero(np.ones(len(ci), bool) if valid is None else np.asarray(valid, bool))[0]
+    got = column_window(ci[pos], (first, width), "cpu")
+    sel, loc = (np.zeros(0, np.int64),) * 2 if got is None else \
+        (pos[got[0].numpy()], got[1].numpy())
+    return ChannelWindow(split, first, width, torch.as_tensor(sel, device=device),
+                         torch.as_tensor(loc, device=device))
+
+
 def _grad_cols(g2: torch.Tensor, x_sel: torch.Tensor) -> torch.Tensor:
     """g^T @ x[:, ci] with an fp32 output: (O, n)."""
     return torch.matmul(g2.t().float(), x_sel.float())
 
 
+def _window_grad_cols(g2, x2, ci, window: Optional[ChannelWindow], shape, valid=None):
+    """The columns' grads g^T @ x[:, ci], fp32 (O, n), times valid where
+    given. Under the tensor axis (window) the rank's part of them, zero
+    elsewhere: a column-parallel window's rows (g2 holds its output rows,
+    x2 is whole), a row-parallel one's entries (x2 holds its input
+    columns, ci their columns there, g2 is whole)."""
+    if window is not None and window.split == "in":
+        out = g2.new_zeros(shape, dtype=torch.float32)
+        if window.sel.numel():
+            out.index_copy_(1, window.sel, _grad_cols(g2, x2.index_select(1, ci)))
+        return out
+    gc = _grad_cols(g2, x2.index_select(1, ci))
+    if valid is not None:
+        gc = gc * valid.to(gc.dtype)[None, :]
+    if window is None:
+        return gc
+    out = gc.new_zeros(shape)
+    out[window.first:window.first + window.width] = gc
+    return out
+
+
 class _SMTChannelLinear(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, cols, w, ci):
+    def forward(ctx, x, cols, w, ci, window=None):
         ctx.save_for_backward(x, w, ci)
-        ctx.cols_dtype = cols.dtype
+        ctx.cols_dtype, ctx.cols_shape, ctx.window = cols.dtype, cols.shape, window
         return torch.matmul(x, w.t())
 
     @staticmethod
@@ -604,23 +671,32 @@ class _SMTChannelLinear(torch.autograd.Function):
         grad_x = torch.matmul(g, w) if ctx.needs_input_grad[0] else None
         grad_cols = None
         if ctx.needs_input_grad[1]:
-            x_sel = x.reshape(-1, x.shape[-1]).index_select(1, ci)
-            grad_cols = _grad_cols(g.reshape(-1, g.shape[-1]), x_sel).to(ctx.cols_dtype)
-        return grad_x, grad_cols, None, None
+            window = ctx.window
+            ci = ci if window is None or window.split == "out" else window.loc
+            grad_cols = _window_grad_cols(g.reshape(-1, g.shape[-1]), x.reshape(-1, x.shape[-1]),
+                                          ci, window, ctx.cols_shape).to(ctx.cols_dtype)
+        return grad_x, grad_cols, None, None, None
 
 
 def smt_channel_linear(x: torch.Tensor, cols: torch.Tensor, w: torch.Tensor,
-                       lp: LinearPlan, index: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       lp: LinearPlan, index: Optional[torch.Tensor] = None,
+                       tensor: Optional[ChannelWindow] = None) -> torch.Tensor:
     """y = x @ W.T with gradients routed to the selected input-channel
     columns only.
 
     cols: (out_dim, n_channels) trainable columns W[:, lp.channels] (fp32
     master); w: (out_dim, in_dim) dense weight ALREADY containing the
     current columns, frozen (no gradient). index: the plan's cached int64
-    channel tensor on x's device (built from lp when omitted)."""
+    channel tensor on x's device (built from lp when omitted).
+
+    tensor: under the tensor axis, SMTPlan.channel_tensor_window's
+    ChannelWindow of this rank; w is then the rank's slice of the weight
+    (its output rows, or its input columns and x the rank's columns), and
+    the columns' grads are the rank's parts (module notes), which the step
+    sums over the tensor group."""
     if index is None:
         index = torch.as_tensor(lp.channels, dtype=torch.int64, device=x.device)
-    return _SMTChannelLinear.apply(x, cols, w, index)
+    return _SMTChannelLinear.apply(x, cols, w, index, tensor)
 
 
 def chan_delta(cols, base_cols, valid, dtype) -> torch.Tensor:
@@ -628,39 +704,66 @@ def chan_delta(cols, base_cols, valid, dtype) -> torch.Tensor:
     return ((cols - base_cols) * valid.to(cols.dtype)[None, :]).to(dtype)
 
 
-def _chan_forward(x2, frozen, delta, ci) -> torch.Tensor:
-    y = _base_matmul(x2, frozen)
+def _chan_forward(x2, frozen, delta, ci, tensor=None) -> torch.Tensor:
+    y = _base_matmul(x2, frozen, tensor)
+    if not delta.shape[1]:   # a row-parallel window without an entry
+        return y
     corr = torch.matmul(x2.index_select(1, ci).float(), delta.float().t())   # (T, O) fp32
     return corr.add_(y).to(y.dtype)
 
 
+def _chan_window_delta(cols, base_cols, ci, valid, window: Optional[ChannelWindow],
+                       dtype):
+    """(the delta this rank's slice corrects by, the columns of x it reads):
+    every entry's (O, n) delta and ci; a column-parallel window's rows of
+    it; a row-parallel window's entries, at their columns in the slice."""
+    if window is None:
+        return chan_delta(cols, base_cols, valid, dtype), ci
+    if window.split == "out":
+        rows = slice(window.first, window.first + window.width)
+        return chan_delta(cols[rows], base_cols[rows], valid, dtype), ci
+    sel = window.sel
+    return (chan_delta(cols.index_select(1, sel), base_cols.index_select(1, sel),
+                       valid.index_select(0, sel), dtype), window.loc)
+
+
 class _SMTChannelLinearDyn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, cols, base_cols, ci, valid, frozen):
+    def forward(ctx, x, cols, base_cols, ci, valid, frozen, window=None, mesh=None):
         x2 = x.reshape(-1, x.shape[-1]).contiguous()
-        delta = chan_delta(cols, base_cols, valid, x.dtype)
-        y = _chan_forward(x2, frozen, delta, ci)
+        split = None if window is None else window.split
+        delta, ci_x = _chan_window_delta(cols, base_cols, ci, valid, window, x.dtype)
+        # a row-parallel input's rows lie across the ranks
+        y = _chan_forward(x2, frozen, delta, ci_x, mesh if split == "in" else None)
         keys = tuple(sorted(frozen))
-        ctx.save_for_backward(x2, delta, ci, valid, *(frozen[k] for k in keys))
+        ctx.save_for_backward(x2, delta, ci_x, valid, *(frozen[k] for k in keys))
         ctx.keys, ctx.x_shape, ctx.cols_dtype = keys, x.shape, cols.dtype
+        ctx.cols_shape, ctx.window, ctx.mesh = cols.shape, window, mesh
         return y.reshape(*x.shape[:-1], y.shape[-1])
 
     @staticmethod
     def backward(ctx, g):
         x2, delta, ci, valid, *frozen = ctx.saved_tensors
+        window = ctx.window
+        split = None if window is None else window.split
         g2 = g.reshape(-1, g.shape[-1]).contiguous()
         grad_x = grad_cols = None
         if ctx.needs_input_grad[0]:
-            gx = _base_matmul_T(g2, dict(zip(ctx.keys, frozen)))        # (T, I), a new tensor
-            gd = torch.matmul(g2.float(), delta.float())                 # (T, n) fp32
-            grad_x = gx.float().index_add_(1, ci, gd).to(gx.dtype).reshape(ctx.x_shape)
+            # (T, I), a new tensor; a column-parallel g * sw row lies across the ranks
+            gx = _base_matmul_T(g2, dict(zip(ctx.keys, frozen)),
+                                ctx.mesh if split == "out" else None)
+            if delta.shape[1]:
+                gd = torch.matmul(g2.float(), delta.float())             # (T, n) fp32
+                gx = gx.float().index_add_(1, ci, gd).to(gx.dtype)
+            grad_x = gx.reshape(ctx.x_shape)
         if ctx.needs_input_grad[1]:
-            grad_cols = _grad_cols(g2, x2.index_select(1, ci))
-            grad_cols = (grad_cols * valid.to(grad_cols.dtype)[None, :]).to(ctx.cols_dtype)
-        return grad_x, grad_cols, None, None, None, None
+            grad_cols = _window_grad_cols(g2, x2, ci, window, ctx.cols_shape,
+                                          valid).to(ctx.cols_dtype)
+        return grad_x, grad_cols, None, None, None, None, None, None
 
 
-def smt_channel_linear_dyn(x, cols, ci, valid, frozen, base_cols, correction=None):
+def smt_channel_linear_dyn(x, cols, ci, valid, frozen, base_cols, correction=None,
+                           window: Optional[ChannelWindow] = None, tensor=None):
     """Channel-sparse linear over a frozen base with one layer's padded
     channel indices (module notes): cols / base_cols (O, n), ci (n,) int,
     valid (n,) bool; frozen {"w4", "s4"}, {"wq", "sw"} or {"w"}. Gradients
@@ -669,14 +772,27 @@ def smt_channel_linear_dyn(x, cols, ci, valid, frozen, base_cols, correction=Non
 
     correction: a decode's precomputed `chan_correction(...)` pair (the
     delta in x's dtype, ci), constant over the decode; it has no
-    backward."""
+    backward.
+
+    tensor (the mesh) and window (the layer's ChannelWindow of this rank,
+    scan_phase.attach_schedules): under the tensor axis, frozen is the
+    rank's slice of the layer's weight (int8: wq and sw as
+    smt_linear_q8(tensor=) takes them, the whole row's amax where a row
+    lies across the ranks); a column-parallel rank corrects its output
+    rows, a row-parallel one the entries in its input columns (none, where
+    its window holds none: it joins the base product's collectives all
+    the same); the output (a row-parallel linear's partial sum) and the
+    columns' grads are the rank's parts."""
+    if tensor is not None and window is None:
+        raise ValueError("smt_channel_linear_dyn(tensor=): pass the layer's ChannelWindow "
+                         "(scan_phase.attach_schedules)")
     if correction is not None:
         if torch.is_grad_enabled() and (x.requires_grad or cols.requires_grad):
             raise ValueError("smt_channel_linear_dyn: a precomputed decode correction has no "
                              "backward")
         return _chan_forward(x.reshape(-1, x.shape[-1]).contiguous(), frozen,
                              *correction).reshape(*x.shape[:-1], -1)
-    return _SMTChannelLinearDyn.apply(x, cols, base_cols, ci, valid, frozen)
+    return _SMTChannelLinearDyn.apply(x, cols, base_cols, ci, valid, frozen, window, tensor)
 
 
 @torch.no_grad()
@@ -702,10 +818,11 @@ def make_sparse_linear_dispatch(plan, trainable: Mapping[str, torch.Tensor],
     block-corrected q8 path, unplanned frozen ones the plain q8 path, and
     `w` is not read (it may be the offloaded weight's placeholder).
 
-    tensor (the tensor axis, matrix mode): the mesh; `w` (and the q leaves)
-    are then this rank's tensor slices, planned linears compute through
+    tensor (the tensor axis): the mesh; `w` (and the q leaves) are then
+    this rank's tensor slices, planned linears compute through
     smt_linear's (or, over the int8 base, smt_linear_q8's) tensor window,
-    and unplanned int8 ones through frozen_q8_linear's tensor form."""
+    in channel mode smt_channel_linear's, and unplanned int8 ones through
+    frozen_q8_linear's tensor form."""
     if plan.mode == "channel" and qweights is not None:
         raise ValueError("channel mode over an int8 base runs over the scan state "
                          "(train/scan_phase.py), not this dispatch")
@@ -720,7 +837,10 @@ def make_sparse_linear_dispatch(plan, trainable: Mapping[str, torch.Tensor],
                                         None if tensor is None else _split(module))
             return torch.matmul(x, w.t())
         if plan.mode == "channel":
-            return smt_channel_linear(x, trainable[ks], w, lp, index=plan.channel_index(ks, x.device))
+            window = None if tensor is None else plan.channel_tensor_window(
+                ks, x.device, tensor.tensor_index, tensor.tensor)
+            return smt_channel_linear(x, trainable[ks], w, lp,
+                                      index=plan.channel_index(ks, x.device), tensor=window)
         if tensor is not None:
             rank = (x.device, tensor.tensor_index, tensor.tensor)
             window = plan.tensor_window(ks, *rank)

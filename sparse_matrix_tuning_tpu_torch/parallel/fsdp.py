@@ -46,13 +46,13 @@ weights; the trainables and their moments stay whole over tensor), and
 Sharding records both dims of a leaf. LayerGather still gathers over the
 fsdp group only, so each rank computes on its tensor slices; full, full_many
 and full_tree gather over both axes (export, eval generation, tests);
-block statistics and write_blocks work on the two-axis window of a slice,
-where a 256-block may straddle both kinds of shard. The scan state's
-stacks split over tensor as their layer leaves do (a stacked weight, q/wq,
-a column-parallel q/sw and the host store; the trainables, their base and
-moments stay whole): layer_part keeps a layer's slice over both axes,
-full_layer gathers one over both, and LayerGather.scan_layer gathers a
-layer's views over fsdp only.
+block statistics, write_blocks and write_columns work on the two-axis
+window of a slice, where a 256-block may straddle both kinds of shard. The
+scan state's stacks split over tensor as their layer leaves do (a stacked
+weight, q/wq, a column-parallel q/sw and the host store; the trainables,
+their base and moments stay whole): layer_part keeps a layer's slice over
+both axes, full_layer gathers one over both, and LayerGather.scan_layer
+gathers a layer's views over fsdp only.
 
 Every function here that moves data is collective over the fsdp group (and,
 where a leaf is split over tensor, over the tensor group): each of its
@@ -200,9 +200,11 @@ def tensor_dim(path: str, shape: Sequence[int], mode: Optional[str], tensor: int
       1, embed_tokens dim 1, lm_head dim 0, norms and biases whole;
       trainable, base and the sparse phase's m / v: whole (trainable_pspec
       names fsdp only); acc: its weight's dim; act_acc its columns (the
-      last dim); q: wq its weight's, sw dim 0 for column-parallel weights
-      (it indexes the output rows); q_head: wq and sw dim 0. The scan
-      state's stacked leaves take the dim of their layer leaf plus one.
+      last dim) where it has two dims or more, the (C,) per-step stats
+      whole (JAX's P(None, "tensor") cut to the leaf's rank); q: wq its
+      weight's, sw dim 0 for column-parallel weights (it indexes the
+      output rows); q_head: wq and sw dim 0. The scan state's stacked
+      leaves take the dim of their layer leaf plus one.
 
     As JAX's _fit, a dim that tensor does not divide stays whole."""
     keys = path.split("/")
@@ -215,7 +217,7 @@ def tensor_dim(path: str, shape: Sequence[int], mode: Optional[str], tensor: int
     elif top == "acc":
         d = _tensor_weight_dim(keys[1].split(".", 1)[1]) if "." in keys[1] else \
             _plus(_tensor_weight_dim(keys[1]), True)
-    elif top == "act_acc":
+    elif top == "act_acc" and len(shape) > 1:
         d = len(shape) - 1
     elif top == "q":
         stacked = "." not in keys[1]
@@ -818,29 +820,30 @@ def write_blocks(w: torch.Tensor, first, blocks: torch.Tensor, window) -> None:
         w.copy_(win[starts[0]:starts[0] + w.shape[0], starts[1]:starts[1] + w.shape[1]])
 
 
-def column_window(channels: np.ndarray, dim: Optional[int], offset: int, n: int, device):
-    """Where the columns `channels` land in a weight slice (columns 0.. of
-    the full (O, n_ch) columns, and the slice's columns, as tensors), or
-    None when none does; dim 0 and whole slices take every column."""
-    if dim == 1:
-        sel = np.nonzero((channels >= offset) & (channels < offset + n))[0]
-        if not len(sel):
-            return None
-        return (torch.as_tensor(sel, device=device),
-                torch.as_tensor(channels[sel] - offset, device=device))
-    idx = torch.as_tensor(channels, device=device)
-    return torch.arange(len(channels), device=device), idx
+def column_window(channels: np.ndarray, cols, device):
+    """Where the input columns `channels` land in a weight slice whose
+    columns are cols = (first, n) of the weight (None: every column): (the
+    channels' positions among them, their columns in the slice), int64
+    tensors on `device`, or None when none does. Built once per plan and
+    slice (smt/plan.py caches it)."""
+    if cols is None:
+        return (torch.arange(len(channels), device=device),
+                torch.as_tensor(channels, dtype=torch.int64, device=device))
+    first, n = cols
+    sel = np.nonzero((channels >= first) & (channels < first + n))[0]
+    if not len(sel):
+        return None
+    return (torch.as_tensor(sel, device=device),
+            torch.as_tensor(channels[sel] - first, dtype=torch.int64, device=device))
 
 
 @torch.no_grad()
-def write_columns(w: torch.Tensor, dim: Optional[int], offset: int, cols: torch.Tensor,
-                  window) -> None:
+def write_columns(w: torch.Tensor, first_row: int, cols: torch.Tensor, window) -> None:
     """Write full (O, n_ch) columns into this rank's slice w of their (O,
-    I) weight, in place, placed by column_window's `window`: a row slice
-    (dim 0) takes its rows of every column, a column slice its columns."""
+    I) weight, in place: the slice's rows first_row.. (an output-row split
+    over fsdp or tensor) of the columns that lie in its input columns,
+    placed by column_window's `window` (Sharding.window gives both)."""
     if window is None:
         return
     sel, at = window
-    if dim == 0:
-        cols = cols[offset:offset + w.shape[0]]
-    w[:, at] = cols.index_select(1, sel).to(w.dtype)
+    w[:, at] = cols[first_row:first_row + w.shape[0]].index_select(1, sel).to(w.dtype)

@@ -75,7 +75,9 @@ class Mesh:
     ("tensor_*", the reduced or gathered tensors' bytes), the int8 row
     quantization's amax MAX-reduces over tensor apart ("tensor_amax_*"),
     and, among the all-reduced, the sums of the tensor ranks' block-grad
-    parts ("grad_parts_*", train/steps._sum_parts)."""
+    (or column-grad) parts ("grad_parts_*", train/steps._sum_parts) and
+    the channel warm-up's activation taps with its loss ("taps_*",
+    steps.build_channel_warmup_step)."""
     shape: Tuple[int, int, int]
     rank: int
     device: torch.device
@@ -147,7 +149,8 @@ class Mesh:
 
 STAT_KEYS = ("bytes", "calls", "gather_bytes", "gather_calls", "scatter_bytes",
              "scatter_calls", "tensor_bytes", "tensor_calls", "tensor_amax_bytes",
-             "tensor_amax_calls", "grad_parts_bytes", "grad_parts_calls")
+             "tensor_amax_calls", "grad_parts_bytes", "grad_parts_calls", "taps_bytes",
+             "taps_calls")
 
 
 def free_port() -> int:
@@ -235,16 +238,15 @@ def axis_groups(shape: Sequence[int]) -> Dict[str, list]:
 
 def refuse_sharded_axes(shape: Sequence[int], cfg=None) -> None:
     """Refuse, by name, what the tensor axis (tensor above 1) does not yet
-    run: the options of `cfg` (an SMTConfig) outside matrix mode, over the
-    dense or the int8 base (and head), in the per-layer or the scan layout.
-    The data and fsdp axes take everything (--sparse_from_plan aside:
+    run: of the options of `cfg` (an SMTConfig), dropout and
+    --sparse_from_plan; matrix and channel mode over the dense or the int8
+    base (and head), in the per-layer or the scan layout, are taken. The
+    data and fsdp axes take everything (--sparse_from_plan aside:
     config._check_mesh)."""
     t = int(shape[2])
     if t == 1 or cfg is None:
         return
     refused = []
-    if cfg.channel_sparsity:
-        refused.append("--channel_sparsity (JAX puts the activation sums' columns on tensor)")
     if cfg.dropout > 0:
         refused.append("--dropout")
     if cfg.sparse_from_plan:
@@ -252,8 +254,8 @@ def refuse_sharded_axes(shape: Sequence[int], cfg=None) -> None:
     if refused:
         raise NotImplementedError(
             f"mesh_shape {tuple(shape)}: " + "; ".join(refused) + f" with tensor {t} not yet "
-            "ported to sparse_matrix_tuning_tpu_torch; the tensor axis runs matrix mode over "
-            "the dense or the int8 base, in the per-layer or the scan layout")
+            "ported to sparse_matrix_tuning_tpu_torch; the tensor axis runs matrix and channel "
+            "mode over the dense or the int8 base, in the per-layer or the scan layout")
 
 
 def refuse_tensor_model(model_cfg, t: int, params=None) -> None:

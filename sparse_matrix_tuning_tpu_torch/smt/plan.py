@@ -200,6 +200,22 @@ class SMTPlan:
             self._index_cache[cache_key] = sched
         return self._index_cache[cache_key]
 
+    def channel_tensor_window(self, ks: str, device, index: int, parts: int):
+        """The ChannelWindow (ops/sparse_linear.channel_window) of channel
+        linear `ks` on tensor rank `index` of `parts`: the rank's output
+        rows of a column-parallel module, its input columns (and the
+        channels in them) of a row-parallel one; built once per plan."""
+        cache_key = (ks, str(torch.device(device)), "channel_tensor", index, parts)
+        got = self._index_cache.get(cache_key)
+        if got is None:
+            from sparse_matrix_tuning_tpu_torch.ops.sparse_linear import _split, channel_window
+            lp = self.linears[ks]
+            split = _split(lp.module)
+            n = (lp.out_dim if split == "out" else lp.in_dim) // parts
+            got = self._index_cache[cache_key] = channel_window(
+                lp.channels, None, device, (split, index * n, n))
+        return got
+
     def channel_index(self, ks: str, device) -> torch.Tensor:
         """The selected input channels of linear `ks`, an int64 tensor on
         `device`, built once per plan (channel mode)."""
@@ -277,18 +293,17 @@ class SMTPlan:
             lp = self.linears[ks]
             path = f"params/layers/{lp.layer}/{lp.module}"
             w = layer_params[str(lp.layer)][lp.module]
-            if self.mode == "channel":
-                d, off = sharding.dim(path), sharding.offset(path, w)
-                n = w.shape[0 if d is None else d]
-                cache_key = (ks, str(w.device), "window", d, off, n)
-                if cache_key not in self._index_cache:
-                    self._index_cache[cache_key] = column_window(
-                        np.asarray(lp.channels, np.int64), d, off, n, w.device)
-                write_columns(w, d, off, t, self._index_cache[cache_key])
-                continue
             # the slice's rows and columns over both axes (fsdp, tensor)
             rows, cols = sharding.window(path, w)
             split = (sharding.dim(path), sharding.tdim(path))
+            if self.mode == "channel":
+                cache_key = (ks, str(w.device), "columns2", cols)
+                if cache_key not in self._index_cache:
+                    self._index_cache[cache_key] = column_window(
+                        np.asarray(lp.channels, np.int64), cols if 1 in split else None,
+                        w.device)
+                write_columns(w, rows[0], t, self._index_cache[cache_key])
+                continue
             cache_key = (ks, str(w.device), "window2", rows, cols)
             if cache_key not in self._index_cache:
                 self._index_cache[cache_key] = block_window(

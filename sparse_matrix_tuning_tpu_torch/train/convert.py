@@ -16,7 +16,8 @@ MLP uses the configured strategy (fine_tune.py:306-313 vs :319-327,
 Under fsdp and tensor (a parallel/fsdp.Sharding) the block statistics come
 from the accumulators' shards, their partial sums combined over the fsdp
 and tensor groups before any non-linearity (a 256-block may straddle two
-shards of either axis), and the
+shards of either axis); the channel statistics of each rank's columns
+are gathered over the tensor group; and the
 sparse state is built one weight at a time from the gathered master and
 kept as this rank's shards, the int8 base quantized from the full weight;
 the scan state's stacks and its host store too
@@ -190,14 +191,25 @@ def compute_matrix_selection(cfg: SMTConfig, acc: Dict[str, torch.Tensor],
     return selected
 
 
-def compute_channel_selection(cfg: SMTConfig, act_acc: Dict[str, torch.Tensor]) -> Dict:
+def compute_channel_selection(cfg: SMTConfig, act_acc: Dict[str, torch.Tensor],
+                              sharding=None) -> Dict:
     """act_acc: (S, C) positional |activation| sums, or (C,) per-step
     stats (already reduced with the per-module strategy), keyed
-    '{layer}.{module}'."""
+    '{layer}.{module}'. sharding (the tensor axis): the (S, C) sums are
+    this rank's C/T columns; their per-column statistics are gathered
+    over the tensor group (one all-gather a strategy) before selection,
+    which is the selection over the whole sums."""
+    from sparse_matrix_tuning_tpu_torch.train.steps import gather_tensor_columns
+
     def stats_of(strategy):
         if cfg.saliency_accumulation == "per_step_stats":
             return {ks: _to_numpy(a) for ks, a in act_acc.items()}
-        return {ks: _to_numpy(channel_stats(a, strategy)) for ks, a in act_acc.items()}
+        stats = {ks: channel_stats(a, strategy) for ks, a in act_acc.items()}
+        split = [] if sharding is None else [ks for ks in stats
+                                            if sharding.tdim(f"act_acc/{ks}") is not None]
+        if split:
+            stats.update(gather_tensor_columns({ks: stats[ks] for ks in split}, sharding.mesh))
+        return {ks: _to_numpy(t) for ks, t in stats.items()}
 
     if cfg.no_limit_mixture:
         merged = {parse_key(ks): s for ks, s in stats_of(cfg.calculate_strategy).items()}
@@ -235,7 +247,7 @@ def build_plan(cfg: SMTConfig, warmup_state: Dict, all_2d_shapes, mesh=None,
         selected = compute_matrix_selection(cfg, warmup_state["acc"], all_2d_shapes, sharding)
         plan = SMTPlan.from_selection("matrix", selected, dims)
     else:
-        selected = compute_channel_selection(cfg, warmup_state["act_acc"])
+        selected = compute_channel_selection(cfg, warmup_state["act_acc"], sharding)
         plan = SMTPlan.from_selection("channel", selected, dims)
     assert_same("the SMT plan's fingerprint", plan.fingerprint(), mesh)
     return plan

@@ -45,15 +45,19 @@ step reduce-scatters the trainables' grads into their slices, and
 merged_params_from_scan gathers one layer at a time for the export.
 Quantize-on-load (--sparse_from_plan) stays on one device, as JAX's.
 
-Under the tensor axis (`--mesh_shape D,F,T` with T > 1, matrix mode) the
-stacks split over tensor as JAX's state_shardings split them: a stacked
-weight, q/{mod}/wq, a column-parallel q/{mod}/sw and the host store on
-their layer leaf's tensor dim plus one, the trainables, their base and
-moments whole. Each planned (module, layer) runs smt_linear_dyn on the
-rank's window of its valid entries (attach_schedules builds the windows
-once), and the step sums the ranks' block grads over the tensor group at
-the valid entries only: most of a stack is padding, whose grads are 0 on
-every rank (TinyLlama: 280 of 4,290 stacked blocks, 73.4 of 1,124.6 MB).
+Under the tensor axis (`--mesh_shape D,F,T` with T > 1) the stacks split
+over tensor as JAX's state_shardings split them: a stacked weight,
+q/{mod}/wq, a column-parallel q/{mod}/sw and the host store on their
+layer leaf's tensor dim plus one, the trainables, their base and moments
+whole. In matrix mode each planned (module, layer) runs smt_linear_dyn on
+the rank's window of its valid entries (attach_schedules builds the
+windows once), and the step sums the ranks' block grads over the tensor
+group at the valid entries only: most of a stack is padding, whose grads
+are 0 on every rank (TinyLlama: 280 of 4,290 stacked blocks, 73.4 of
+1,124.6 MB). In channel mode each (module, layer) with a valid column
+runs smt_channel_linear_dyn on the rank's ChannelWindow (its output rows,
+or the valid columns in its input columns), and the column stacks' grads
+are summed whole.
 """
 
 from __future__ import annotations
@@ -72,8 +76,8 @@ from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig, forward_sca
 from sparse_matrix_tuning_tpu_torch.ops.quant import (
     dequantize_weight, dequantize_weight_int4, quantize_weight, quantize_weight_int4)
 from sparse_matrix_tuning_tpu_torch.ops.sparse_linear import (
-    _resolve_impl, _split, dyn_schedule, frozen_q4_linear, frozen_q8_linear,
-    smt_channel_linear_dyn, smt_linear_dyn)
+    ChannelWindow, _resolve_impl, _split, channel_window, dyn_schedule, frozen_q4_linear,
+    frozen_q8_linear, smt_channel_linear_dyn, smt_linear_dyn)
 from sparse_matrix_tuning_tpu_torch.smt.optimizer import (
     AdamConfig, clip_by_global_norm, make_qk_lr_scale)
 from sparse_matrix_tuning_tpu_torch.smt.plan import BLOCK, SMTPlan
@@ -444,14 +448,15 @@ def make_scan_dispatch(mode: str = "matrix", tensor=None):
     valid column of the module ("sched" False, "corr" None) runs the frozen
     linear: its delta and its columns' grads are 0, as JAX computes them.
 
-    tensor (the mesh; matrix mode, training): `w` and the q leaves are this
-    rank's tensor slices, a planned module runs smt_linear_dyn(tensor=) on
-    its layer's windowed DynSchedule, an unplanned int8 one the tensor form
-    of frozen_q8_linear."""
+    tensor (the mesh; training): `w` and the q leaves are this rank's
+    tensor slices, a planned module runs smt_linear_dyn(tensor=) on its
+    layer's windowed DynSchedule (channel mode: smt_channel_linear_dyn on
+    its layer's ChannelWindow, "sched"), an unplanned int8 one the tensor
+    form of frozen_q8_linear. Whether a channel layer runs the frozen
+    linear is decided by the whole layer's valid columns, the same on
+    every rank, so every rank issues the same collectives."""
     if mode not in ("matrix", "channel"):
         raise ValueError(f"unknown plan mode {mode!r}")
-    if tensor is not None and mode != "matrix":
-        raise ValueError("make_scan_dispatch: the tensor axis runs matrix mode only")
 
     def frozen_linear(x, w, qmod, module):
         if qmod is not None:
@@ -477,7 +482,9 @@ def make_scan_dispatch(mode: str = "matrix", tensor=None):
             if not live:
                 return frozen_linear(x, w, qmod, module)
             return smt_channel_linear_dyn(x, t, meta["ci"], meta["valid"], frozen,
-                                          ex["base"][module], corr)
+                                          ex["base"][module], corr,
+                                          live if isinstance(live, ChannelWindow) else None,
+                                          tensor)
         return smt_linear_dyn(x, t, meta["rb"], meta["cb"], meta["valid"], frozen,
                               ex["base"][module], ex.get("corr", {}).get(module),
                               ex.get("sched", {}).get(module), tensor)
@@ -500,11 +507,19 @@ def attach_schedules(state: Dict, sharding=None) -> Dict:
     first, as stack_plan_indices (and JAX's) lays them out. sharding: under
     the tensor axis each DynSchedule is this rank's window of the layer's
     valid entries (dyn_schedule(tensor=)) around its slice of the module's
-    weight. Returns state."""
+    weight, and in channel mode a layer with a valid column holds this
+    rank's ChannelWindow (ops/sparse_linear.channel_window: a
+    row-parallel module's valid entries in its input columns) in place of
+    True. Returns state."""
     sched = {}
     for mod, meta in state["idx"].items():
         if "ci" in meta:
-            sched[mod] = meta["valid"].any(dim=1).tolist()
+            live = meta["valid"].any(dim=1).tolist()
+            window = _tensor_slice(state, sharding, mod)
+            sched[mod] = live if window is None else [
+                channel_window(ci.to("cpu").numpy(), valid.to("cpu").numpy(),
+                               state["trainable"][mod].device, window) if on else False
+                for ci, valid, on in zip(meta["ci"], meta["valid"], live)]
         else:
             valid = meta["valid"].to("cpu")
             if not bool((valid[:, :-1] >= valid[:, 1:]).all()):  # fsdp.LayerGather relies on it
@@ -536,12 +551,15 @@ def _tensor_slice(state: Dict, sharding, mod: str):
     return split, sharding.mesh.tensor_index * width, width
 
 
-def valid_rows(state: Dict) -> Dict[str, torch.Tensor]:
+def valid_rows(state: Dict) -> Dict[str, Optional[torch.Tensor]]:
     """{mod: the positions of the valid entries in its (L * n) flattened
-    stack} (int64, on the trainables' device; one host sync): the only
-    entries whose grads the tensor group sums (build_scan_sparse_step)."""
-    return {mod: torch.nonzero(meta["valid"].reshape(-1)).reshape(-1).to(
-                state["trainable"][mod].device)
+    stack of blocks} (int64, on the trainables' device; one host sync):
+    the only entries whose grads the tensor group sums
+    (build_scan_sparse_step). A channel stack (L, O, n) is summed whole
+    (None): its first two dims are not its entries, and its bytes are
+    few (TinyLlama at 30 + 30 channels: at most 22 x 921,600 B)."""
+    return {mod: None if "ci" in meta else torch.nonzero(meta["valid"].reshape(-1)).reshape(
+                -1).to(state["trainable"][mod].device)
             for mod, meta in state["idx"].items()}
 
 
@@ -600,8 +618,9 @@ def build_scan_sparse_step(cfg: SMTConfig, model_cfg: LlamaConfig, plan: SMTPlan
     block grads are each rank's parts of its windows' valid entries,
     summed over the tensor group at the valid entries only (valid_rows):
     the padded ones are 0 on every rank, so the sum equals the whole
-    stacks' bit for bit; the trainables stay whole over tensor, so the
-    clip norm and fp16's overflow test see the same grads on every rank."""
+    stacks' bit for bit (channel mode's column stacks are summed whole);
+    the trainables stay whole over tensor, so the clip norm and fp16's
+    overflow test see the same grads on every rank."""
     from sparse_matrix_tuning_tpu_torch.train.steps import (
         _skipped, accumulated_value_and_grad, adam_betas, block_adam, dropout_key,
         sharded_global_norm, unscale_and_check)

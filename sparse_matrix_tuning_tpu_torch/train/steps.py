@@ -54,7 +54,10 @@ sparse_linear.smt_linear(tensor=); over the scan state smt_linear_dyn's,
 summed at the valid entries only), summed over the tensor group as well;
 the clip norm sums the squares of a tensor-split leaf over the tensor
 group and counts a leaf whole over tensor once, so it (and fp16's
-overflow test) is equal on every rank.
+overflow test) is equal on every rank. In channel mode the warm-up keeps
+each rank's columns of the activation sums (build_channel_warmup_step),
+and the columns' grads are each rank's parts (ops/sparse_linear.
+smt_channel_linear(tensor=)), summed over the tensor group whole.
 """
 
 from __future__ import annotations
@@ -75,7 +78,7 @@ from sparse_matrix_tuning_tpu_torch.ops.loss import (
 from sparse_matrix_tuning_tpu_torch.ops.sparse_linear import (
     _resolve_impl, frozen_q8_linear, make_sparse_linear_dispatch)
 from sparse_matrix_tuning_tpu_torch.parallel.fsdp import LayerGather, block_stats_sharded
-from sparse_matrix_tuning_tpu_torch.parallel.mesh import all_reduce_
+from sparse_matrix_tuning_tpu_torch.parallel.mesh import all_gather_, all_reduce_
 from sparse_matrix_tuning_tpu_torch.parallel.tensor import to_tensor_region
 from sparse_matrix_tuning_tpu_torch.smt.optimizer import (
     AdamConfig, adam_step, clip_by_global_norm, full_ft_wd_mask, global_norm,
@@ -386,7 +389,9 @@ def init_warmup_state(master, cfg: SMTConfig, device=None, sharding=None) -> Dic
 
     sharding (the fsdp axis): `master` holds this rank's shards at state
     path "master/..." (fsdp.Sharding.shard_tree); the moments take their
-    dims and the accumulators are made at their shards' sizes."""
+    dims and the accumulators are made at their shards' sizes (under the
+    tensor axis act_acc's (S, C) sums hold the rank's C/T columns, its
+    (C,) per-step stats stay whole)."""
     def full_shape(sub, t):
         return tuple(t.shape) if sharding is None else sharding.full_shape(f"master/{sub}", t)
 
@@ -436,7 +441,7 @@ def init_warmup_state(master, cfg: SMTConfig, device=None, sharding=None) -> Dic
                     in_dim = full_shape(f"layers/{li}/{mod}", layer[mod])[1]
                     shape = ((in_dim,) if cfg.saliency_accumulation == "per_step_stats"
                              else (cfg.max_seq_len, in_dim))
-                    act[f"{li}.{mod}"] = torch.zeros(shape, dtype=torch.float32, device=device)
+                    act[f"{li}.{mod}"] = zeros(f"act_acc/{li}.{mod}", shape)
         state["act_acc"] = act
     return state
 
@@ -564,15 +569,28 @@ def build_channel_warmup_step(cfg: SMTConfig, model_cfg: LlamaConfig, mesh=None,
     as in the JAX twin (the reference's hooks also sum them).
 
     With a mesh each rank sums |x| over its own rows, and the loss and
-    the taps are SUM-reduced every step, before they are accumulated: every
-    rank's act_acc then holds the global batch's sums (as JAX's taps over
-    the global batch do), so a checkpoint that rank 0 writes mid warm-up
-    restores on every rank (and per_step_stats' L2 statistic, not linear
-    in the taps, reads the global ones). Under fsdp the forward gathers
-    each layer of the master's shards; the taps stay whole."""
+    the taps are SUM-reduced over the batch group every step, before they
+    are accumulated: every rank's act_acc then holds the global batch's
+    sums (as JAX's taps over the global batch do), so a checkpoint that
+    rank 0 writes mid warm-up restores on every rank (and per_step_stats'
+    L2 statistic, not linear in the taps, reads the global ones). Under
+    fsdp the forward gathers each layer of the master's shards; the taps
+    stay whole.
+
+    Under the tensor axis the loss is vocabulary-parallel (the logits are
+    the rank's vocabulary rows) and each rank keeps its C/T columns of
+    every tap, as JAX splits act_acc: a row-parallel linear's input is the
+    rank's columns already, a column-parallel one's is whole and is cut,
+    once per shared input (q/k/v, gate/up), so the reduce stays one a
+    tap. Under per_step_stats the statistics of the rank's columns are
+    gathered over the tensor group (one all-gather a step) into the whole
+    (C,) leaf, which every rank holds."""
+    from sparse_matrix_tuning_tpu_torch.parallel.fsdp import COL_PARALLEL
     from sparse_matrix_tuning_tpu_torch.smt.select import channel_stats
     from sparse_matrix_tuning_tpu_torch.train.convert import harvest_strategy
     param_dtype = cfg.param_dtype
+    tensor = mesh if mesh is not None and mesh.tensor > 1 else None
+    per_step = cfg.saliency_accumulation == "per_step_stats"
 
     @torch.no_grad()
     def step(state: Dict, batch: Dict) -> tuple:
@@ -582,19 +600,52 @@ def build_channel_warmup_step(cfg: SMTConfig, model_cfg: LlamaConfig, mesh=None,
         logits = forward(params, batch["input_ids"], model_cfg,
                          attention_mask=batch.get("attention_mask"),
                          activation_taps=taps, attn_impl=cfg.attn_impl, fsdp=gather)
-        loss = causal_lm_loss(logits, batch["labels"], batch.get("loss_denom"))
+        if tensor is None:
+            loss = causal_lm_loss(logits, batch["labels"], batch.get("loss_denom"))
+        else:
+            loss = vocab_parallel_causal_lm_loss(logits, batch["labels"], tensor,
+                                                 batch.get("loss_denom"))
+            cut: Dict[int, tuple] = {}   # id of a shared tap -> (the tap, its cut)
+            for ks in state["act_acc"]:
+                tap = taps[ks]
+                if ks.split(".", 1)[1] in COL_PARALLEL:
+                    if id(tap) not in cut:
+                        cut[id(tap)] = (tap, tap.chunk(tensor.tensor, -1)[
+                            tensor.tensor_index].contiguous())
+                    taps[ks] = cut[id(tap)][1]
         if mesh is not None:
-            all_reduce_([loss] + [taps[ks] for ks in state["act_acc"]], mesh)
+            all_reduce_([loss] + [taps[ks] for ks in state["act_acc"]], mesh, "batch",
+                        stat="taps")
+        if per_step:
+            stats = {ks: channel_stats(taps[ks], harvest_strategy(cfg, ks.split(".", 1)[1]))
+                     for ks in state["act_acc"]}
+            if tensor is not None:
+                stats = gather_tensor_columns(stats, tensor)
         for ks, acc in state["act_acc"].items():
             tap = taps[ks]  # (S_batch, in_dim) batch-summed |activation|
-            if cfg.saliency_accumulation == "per_step_stats":
-                acc.add_(channel_stats(tap, harvest_strategy(cfg, ks.split(".", 1)[1])))
+            if per_step:
+                acc.add_(stats[ks])
             else:
                 acc[:tap.shape[0]].add_(tap)
         state["step"].add_(1)
         return state, {"loss": loss}
 
     return step
+
+
+def gather_tensor_columns(parts: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """{key: (C,)} of {key: (C/T,)}, each rank's columns of a per-column
+    statistic, in one all-gather over the tensor group (every rank calls it
+    with the same keys in the same order)."""
+    keys = list(parts)
+    flat = torch.cat([parts[k].reshape(-1) for k in keys])
+    full = all_gather_(flat, mesh, "tensor").view(mesh.tensor, -1)
+    out, off = {}, 0
+    for k in keys:
+        n = parts[k].numel()
+        out[k] = full[:, off:off + n].reshape(-1)
+        off += n
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,8 @@ On a mesh (`mesh`, `--mesh_shape D,F,T`) every rank takes the identical
 global batch of B * D * F * A rows and steps on its own rows
 (data/sft.shard_batch; the T ranks of a tensor group share theirs); the
 steps reduce the grads. Over data alone (F 1, T 1) every rank holds a
-full replica. Over fsdp (F > 1) or tensor (T > 1, matrix mode over the
-dense or the int8 base; parallel/tensor.py) every rank holds
+full replica. Over fsdp (F > 1) or tensor (T > 1, matrix or channel mode
+over the dense or the int8 base; parallel/tensor.py) every rank holds
 its shards of the state (parallel/fsdp.py; `self.sharding` records their
 dims over both axes): the trainer shards the params it is given (or takes
 shards made by models/hf_io.load_hf_params_sharded with their dims), and

@@ -246,8 +246,9 @@ def _state_of_shapes(mode, n_layers=1, d=256, f=512, v=256, acc_blocks=False):
                  for m in mods}
     q = {f"0.{m}": {"wq": z(layer[m].shape), "sw": z(layer[m].shape[0]),
                     "base": z((3, 256, 256))} for m in ("q_proj", "o_proj", "down_proj")}
+    # act_acc: grad_sum's (S, C) sums and per_step_stats' (C,) stats
     warm = {"master": tree, "m": tree, "v": tree, "acc": acc, "count": z(()),
-            "act_acc": {"0.q_proj": z((32, d))}}
+            "act_acc": {"0.q_proj": z((32, d)), "0.down_proj": z(f)}}
     sparse = {"params": tree, "trainable": trainable, "m": trainable, "v": trainable,
               "q": q, "q_head": {"wq": z((v, d)), "sw": z(v)}, "step": z(())}
     return warm, sparse
@@ -360,6 +361,6 @@ def test_scatter_into_shards(f, dim):
                     lp.row_blocks().astype(np.int64), lp.col_blocks().astype(np.int64),
                     extent if dim == 0 else None, extent if dim == 1 else None, "cpu"))
             else:
-                write_columns(shard, dim, i * n, t, column_window(
-                    np.asarray(cols, np.int64), dim, i * n, n, "cpu"))
+                write_columns(shard, i * n if dim == 0 else 0, t, column_window(
+                    np.asarray(cols, np.int64), (i * n, n) if dim == 1 else None, "cpu"))
             assert torch.equal(shard, goal), (mode, i)

@@ -116,10 +116,15 @@ def _jax_run(spec, shape, bs, eval_path, layers):
     with jax_mesh(shape) as mesh:
         jt = JaxSMTTrainer(JaxSMTConfig(**spec["cfg"]), jcfg, jparams,
                            total_steps=spec["total_steps"], mesh=mesh)
+        # the warm-up state as the trainer placed it: {path: {device index: shard shape}}
+        index = {d.id: i for i, d in enumerate(mesh.devices.flat)}
+        warm = {"/".join(getattr(p, "key", str(p)) for p in path):
+                {index[x.device.id]: tuple(x.data.shape) for x in a.addressable_shards}
+                for path, a in jax.tree_util.tree_flatten_with_path(jt.state)[0]}
         losses = [float(jt.train_step(b)["loss"]) for b in bs]
         return {"loss": losses, "fingerprint": jt.plan.fingerprint(),
                 "eval_loss": jt.evaluate(torch.load(eval_path, weights_only=False))[1],
-                "shards": _jax_shards(jt, mesh)}
+                "shards": _jax_shards(jt, mesh), "warm_shards": warm}
 
 
 def scan_runs(tmp, meshes, jax_cases=None, extras=None):
@@ -191,18 +196,19 @@ def test_scan_rank_holds_its_share(runs, case):
     check_share(runs, case)
 
 
-def check_jax_mesh(runs, case):
+def check_jax_mesh(runs, case, scan=True):
     """Every step's loss and the eval loss against JAX's SMTTrainer on the
-    same mesh (its scan state, sharded by GSPMD), the same plan."""
+    same mesh (its scan state, sharded by GSPMD; scan False: its
+    per-layer state), the same plan."""
     r0, want = _ranks(runs, case)[0], runs[case]["jax"]
     rtol = JAX_RTOL_INT8 if _int8(case) else JAX_RTOL
-    assert r0["scan"] and r0["phase"] == "sparse"
+    assert r0["scan"] == scan and r0["phase"] == "sparse"
     assert r0["fingerprint"] == want["fingerprint"]
     np.testing.assert_allclose(_losses(r0), want["loss"], rtol=rtol, atol=0)
     np.testing.assert_allclose(r0["eval_loss"], want["eval_loss"], rtol=rtol)
 
 
-def check_one_process(runs, case, bounds=None):
+def check_one_process(runs, case, bounds=None, scan=True):
     """Losses, grad norms, eval loss, the whole final state (gathered) and
     the export against the port in one process; every rank reports the
     same and exports the same; over the int8 base every rank's decode
@@ -210,14 +216,15 @@ def check_one_process(runs, case, bounds=None):
     place of the fsdp rule (D1_RTOL, over the int8 base D1_RTOL_INT8 on the
     losses), a mesh's own: (steps(fp16, int8) -> [(slice, loss rtol, grad
     norm rtol)], the eval rtol, state_rule(what, got, want, adam_bound) or
-    None), the overflow flags then equal one process's."""
+    None), the overflow flags then equal one process's. scan: whether the
+    case trains over the scan state (False: the per-layer state)."""
     got, one = _ranks(runs, case), runs[case]["d1"]
     r0 = got[0]
     int8 = _int8(case)
     fp16 = runs[case]["cfg"].get("dtype") == "fp16"
     rtol = D1_RTOL_INT8 if int8 else D1_RTOL
-    assert (r0["scan"], r0["int8"], r0["host_frozen"]) == (True, int8, int8)
-    assert (one["scan"], one["int8"], one["host_frozen"]) == (True, int8, int8)
+    assert (r0["scan"], r0["int8"], r0["host_frozen"]) == (scan, int8, int8)
+    assert (one["scan"], one["int8"], one["host_frozen"]) == (scan, int8, int8)
     assert r0["fingerprint"] == one["fingerprint"]
     for r in got[1:]:
         np.testing.assert_equal(r["metrics"], r0["metrics"])
@@ -258,17 +265,20 @@ def check_one_process(runs, case, bounds=None):
                 state_rule(f"{what}/{k}", r0[what][k], v, adam_bound)
 
 
-def check_share(runs, case):
+def check_share(runs, case, scan=True):
     """Every leaf shard_dim splits, the stacks and the host store among
     them, holds exactly 1/F of its full bytes on every rank at the end,
     and 1/T more where tensor_dim splits it too (the stacked weights, q and
     the host store; the trainables, their base and moments stay whole over
     tensor); the rest are whole; under fsdp at most one layer's gathered
-    leaves were alive at a time (none gathered without it)."""
+    leaves were alive at a time (none gathered without it). scan False:
+    the per-layer state (its layer weights in place of the stacks, no
+    base)."""
     _, f, t = case[0]
-    stacks = {"q", "host"} if _int8(case) else {"params/layers_stacked"}
+    stacks = {"q", "host"} if _int8(case) else {"params/layers_stacked"} if scan else \
+        {"params"}
     # over the int8 base the dense stacks left for the host store's slices
-    want = stacks | {"trainable", "base", "m", "v"} if f > 1 else set()
+    want = stacks | {"trainable", "m", "v"} | ({"base"} if scan else set()) if f > 1 else set()
     want_t = stacks if t > 1 else set()
 
     def tops(keys):

@@ -289,20 +289,21 @@ def test_shard_batch_carries_global_microbatch_counts():
     ((2, 2, 1), None, "with fsdp 2 .* use --mesh_shape 4,1,1"),
 ])
 def test_sharded_axes_refused(shape, err, match):
-    """The tensor axis is taken in matrix mode over the dense or the int8
-    base, what it does not run refused by name (channel mode here;
+    """The tensor axis is taken in matrix and channel mode over the dense
+    or the int8 base, what it does not run refused by name (dropout here;
     tests/test_torch_tensor.py has each case);
     the fsdp axis is taken, with the scan layouts too, but not with
     --sparse_from_plan, whose JAX entry runs on one device
     (tests/test_torch_fsdp_io.py runs the scan layouts)."""
     if err is not None:
-        channel = SMTConfig(channel_sparsity=True)
+        dropout = SMTConfig(dropout=0.1)
         with pytest.raises(err, match=match):
-            refuse_sharded_axes(shape, channel)
+            refuse_sharded_axes(shape, dropout)
         with pytest.raises(err, match=match):
-            SMTConfig(mesh_shape=list(shape), channel_sparsity=True)
+            SMTConfig(mesh_shape=list(shape), dropout=0.1)
         refuse_sharded_axes(shape, SMTConfig())
         refuse_sharded_axes(shape, SMTConfig(frozen_quant="int8"))
+        refuse_sharded_axes(shape, SMTConfig(channel_sparsity=True))
         assert SMTConfig(mesh_shape=list(shape)).mesh_shape == list(shape)
         assert SMTConfig(mesh_shape=list(shape), frozen_quant="int8").mesh_shape == list(shape)
         return

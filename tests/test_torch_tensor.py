@@ -430,7 +430,7 @@ def test_sharded_load_reads_two_dim_blocks(shape, tiny_hf_dir):  # noqa: F811
 REFUSED = {
     "frozen_quant int8": (dict(frozen_quant="int8"), None),
     "head_quant int8": (dict(head_quant="int8"), None),
-    "channel": (dict(channel_sparsity=True, matrix_sparsity=False), "--channel_sparsity"),
+    "channel": (dict(channel_sparsity=True, matrix_sparsity=False), None),
     "scan_layers on": (dict(scan_layers="on"), None),
     "scan_layers on int8": (dict(scan_layers="on", frozen_quant="int8"), None),
     "dropout": (dict(dropout=0.1), "--dropout"),
@@ -440,10 +440,10 @@ REFUSED = {
 
 @pytest.mark.parametrize("name", list(REFUSED))
 def test_config_refuses_what_tensor_does_not_run(name):
-    """Each option outside matrix mode over the dense or the int8 base
-    raises NotImplementedError naming the flag and the mesh; the same
-    config without it builds. The int8 base and head and the scan layout
-    over either base (flag None) build."""
+    """Each option the tensor axis does not run raises NotImplementedError
+    naming the flag and the mesh; the same config without it builds. The
+    int8 base and head, the scan layout over either base and channel mode
+    (flag None) build."""
     from sparse_matrix_tuning_tpu_torch.config import SMTConfig
     kw, flag = REFUSED[name]
     if flag is None:
@@ -519,14 +519,15 @@ def _k4_calls_on_threads(cfg, model, monkeypatch):
 def test_trainer_refuses_what_tensor_does_not_run(name, monkeypatch):
     """A config that names no mesh_shape, handed to the trainer with a
     tensor mesh built in code, meets the same refusals by name (before
-    any collective). The int8 base and head and the scan layout (flag
-    None) build and train: on two thread ranks at (1, 1, 2) the sparse
-    step calls K4 on every rank, the base's forward and grad_input forms
-    and K5 on the planned linears under --frozen_quant int8, the head's K4
-    under --head_quant int8 (over the dense base in the per-layer layout:
-    no K5); over the scan state (--scan_layers on) K5 on the planned
-    linears over either base (smt_linear_dyn), K4 only over the int8 one;
-    and the ranks' losses agree."""
+    any collective). The int8 base and head, the scan layout and channel
+    mode (flag None) build and train: on two thread ranks at (1, 1, 2) the
+    sparse step calls K4 on every rank, the base's forward and grad_input
+    forms and K5 on the planned linears under --frozen_quant int8, the
+    head's K4 under --head_quant int8 (over the dense base in the
+    per-layer layout: no K5); over the scan state (--scan_layers on) K5
+    on the planned linears over either base (smt_linear_dyn), K4 only over
+    the int8 one; channel mode per layer neither K4 nor K5; and the ranks'
+    losses agree."""
     from sparse_matrix_tuning_tpu_torch.config import SMTConfig
     from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig, init_params
     from sparse_matrix_tuning_tpu_torch.train.trainer import SMTTrainer
