@@ -225,7 +225,30 @@ Phases, in order; any failure raises and the exit code is non-zero:
      apart), act_acc, stacked, host store and column bytes beside the
      reference's, the peaks and the launches; TCE, their exports (not
      written) equal to one process's export of the gathered state; TCN
-     (`--only nccl` on four cards), TC0, TC and TCJ over NCCL at (1, 2, 2).
+     (`--only nccl` on four cards), TC0, TC and TCJ over NCCL at (1, 2, 2);
+ 18. Qwen2.5-1.5B's widths (QWEN: q/k/v biases, a tied head, head dim 128,
+     12 query and 2 kv heads), written from a seed as a local qwen2
+     checkpoint and read by the qwen2 loader (models/hf_io; on a mesh
+     each rank its blocks): Q, one process, matrix mode, bf16, bs 4 x seq
+     512, through warm-up, conversion, sparse steps, eval and the export,
+     K1, K2 and K3 (hd 128, group 6) launched, at T_LAYERS layers in the
+     whole script (before the data-parallel spawn) and 28 under `--only
+     tp`, then K1 against its plain version at Q's whole linears and QT's
+     rank panels (gate/up's 4,480 rows and down's 4,480 columns in
+     4,608-wide panels, k/v's 128 rows in one block) with Q's selected
+     blocks, timed at down_proj (check_block_grad_qwen); QT0, the tiny tied, biased pair at (1, 1, 2) and (1, 2, 2) over
+     QT0_CASES (fp32, fp16 and int8; per layer and scan; matrix and
+     channel; with and without --dropout) against one process at P0's
+     bounds; QT, Q's path at (1, 1, 2) over the two gloo ranks held to Q
+     at P's bounds with the same plan, each rank half of the embedding's
+     columns, the biases whole and no lm_head, K3 on 6 query and 1 kv head
+     a rank, the tied head's gathered bytes a step and the selected blocks
+     that straddle the shards (gate/up's 4,480 rows, down's 4,480 columns,
+     k/v's 128 rows) logged; QTE, QT's export read back, equal to one
+     process's export of the gathered state bit for bit, with Q's tensors
+     (names, shapes, dtypes); QTD (`--only tp`), Q and QT under --dropout
+     0.1 (QD the one-process run); QTN (`--only nccl`, four cards), QT0 and
+     QT over NCCL at (1, 2, 2).
 Before the references, K6 (the int4 unpack-matmul) runs at eight shapes
 (K6_SHAPES: the TinyLlama linears at the eval decode's 64 rows, 16 and a
 ragged 7, Llama-3-8B's gate) and on the layer views of a stack (K6s),
@@ -243,8 +266,8 @@ the build, the K6 checks and the tiny quantized generation; `--only attn`
 after the build and the K3 / K7 checks; `--only sparse` after the build and
 the K1 / K2 / K5 checks; `--only scan` runs the build, the tiny 12-layer
 channel int8 reference, J and R; `--only tp` the build, A, E, H, J, T0,
-TQ0, TS0, TC0, T, TE, TQ, TQE, TS, TSE, TC, TCJ and TCE; none of them
-prints a result.
+TQ0, TS0, TC0, T, TE, TQ, TQE, TS, TSE, TC, TCJ and TCE, then Q, QD, QT0,
+QT, QTE and QTD at 28 layers; none of them prints a result.
 """
 
 from __future__ import annotations
@@ -266,6 +289,13 @@ TINYLLAMA = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
                  num_hidden_layers=22, num_attention_heads=32,
                  num_key_value_heads=4, rms_norm_eps=1e-5, rope_theta=10000.0,
                  tie_word_embeddings=False)
+# Qwen2.5-1.5B (Qwen/Qwen2.5-1.5B config.json): model_type qwen2, q/k/v
+# biases, a tied head; its checkpoint is written from a seed (write_qwen)
+QWEN = dict(vocab_size=151936, hidden_size=1536, intermediate_size=8960,
+            num_hidden_layers=28, num_attention_heads=12, num_key_value_heads=2,
+            max_position_embeddings=32768, rms_norm_eps=1e-6, rope_theta=1000000.0,
+            tie_word_embeddings=True)
+QWEN_BIAS_STD = 0.1   # the seeded q/k/v biases, N(0, 0.1)
 K1_SHAPES = [(2048, 5632, 2048), (700, 5632, 2048), (2048, 2048, 5632), (700, 2048, 5632)]
 K1_N = 24
 K1_RTOL, K1_ATOL = 2e-2, 2e-1       # the JAX suite's bf16 block-grad tolerance
@@ -279,10 +309,12 @@ K3_SHAPES = [
     (4, 512, 32, 4, 64, "bf16", "TinyLlama, the main path"),
     (2, 2048, 32, 4, 64, "bf16", "TinyLlama at the recipe's length"),
     (1, 2048, 32, 8, 128, "bf16", "Llama-3-8B attention geometry"),
+    (4, 512, 12, 2, 128, "bf16", "Qwen2.5-1.5B, run Q"),
+    (4, 512, 6, 1, 128, "bf16", "Qwen2.5-1.5B, a rank's heads at tensor 2 (QT)"),
     (2, 1000, 32, 4, 64, "bf16", "ragged"),
     (2, 700, 8, 2, 64, "fp32", "fp32"),
 ]
-K3_TIMED = 3
+K3_TIMED = 5
 # (fwd rtol, atol), (grads rtol, atol). bf16: the JAX suite's
 # (tests/test_attention_kernel.py:40, 67). fp32: looser than the CPU
 # suite's 2e-6 because the order of the sums over up to 2048 keys and the
@@ -544,6 +576,16 @@ def _coords(rng, n, n_row, n_col):
     return rb, cb
 
 
+def _k1_library(g2, x2, rb, cb):
+    """K1's function in PyTorch calls: bmm of the gathered row and column
+    panels, in the inputs' dtype."""
+    import torch
+    t = g2.shape[0]
+    g_rows = g2.reshape(t, -1, 256).index_select(1, rb.long()).transpose(0, 1)
+    x_cols = x2.reshape(t, -1, 256).index_select(1, cb.long()).transpose(0, 1)
+    return torch.bmm(g_rows.transpose(1, 2), x_cols)
+
+
 def check_block_grad():
     """K1 at K1_SHAPES (bf16) and one fp32 shape, n = 24 coordinates with
     repeats, through the wrapper (its plan), against the plain version at
@@ -601,9 +643,7 @@ def check_block_grad():
             f"{float((fault - want).abs().max()):.3e}")
         if timing is None:  # the main shape: T=2048, (5632, 2048)
             def lib():
-                g_rows = g2.reshape(t, -1, 256).index_select(1, rb.long()).transpose(0, 1)
-                x_cols = x2.reshape(t, -1, 256).index_select(1, cb.long()).transpose(0, 1)
-                return torch.bmm(g_rows.transpose(1, 2), x_cols)
+                return _k1_library(g2, x2, rb, cb)
             ms = time_ms(lambda: k1.block_grad(g2, x2, rb, cb))
             plain_ms = time_ms(lambda: k1.block_grad_plain(g2, x2, rb, cb))
             lib_ms = time_ms(lib)
@@ -636,6 +676,108 @@ def check_block_grad():
         f"kernel {timing['tflops']:.1f} TFLOP/s; bound {timing['bound'][0]:.3e} ms "
         f"({timing['bound'][1]}); by plan (tile/splits): " + ", ".join(
             f"{k} {v:.4f}" for k, v in timing["by_plan"].items()))
+    return worst, timing
+
+
+def check_block_grad_qwen(run_q, model_cfg, parts=2, tokens=2048):
+    """K1 (bf16) at the inputs Q and QT give it at Qwen2.5-1.5B's widths:
+    for each linear module, the layer of Q's plan with the most selected
+    blocks, at those blocks (K1_N seeded ones where Q selected none), on
+    Q's whole (T, O) and (T, I) and on each of `parts` ranks' block-aligned
+    panels as the per-layer tensor path builds them (fsdp.block_window,
+    the rank's slice placed in its zeroed panel: gate/up's 4,480 rows in
+    4,608, down's 4,480 columns, k/v's 128 rows in one block), against the
+    plain version at K1_RTOL / K1_ATOL, through the wrapper's plan and
+    every forced plan of K1_PLANS, two launches equal. Timed at Q's
+    down_proj beside the plain version, the library and the bound.
+    Returns (max_abs_err, timing)."""
+    import numpy as np
+    import torch
+    from sparse_matrix_tuning_tpu_torch.ops.cuda import block_grad as k1
+    from sparse_matrix_tuning_tpu_torch.parallel.fsdp import COL_PARALLEL, block_window
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    d, f = model_cfg.hidden_size, model_cfg.intermediate_size
+    kv = model_cfg.num_key_value_heads * model_cfg.head_dim
+    dims = {"q_proj": (d, d), "k_proj": (kv, d), "v_proj": (kv, d), "o_proj": (d, d),
+            "gate_proj": (f, d), "up_proj": (f, d), "down_proj": (d, f)}
+    worst, timing, cases = 0.0, None, []
+
+    def hold(what, g2, x2, rb, cb):
+        got, again = k1.block_grad(g2, x2, rb, cb), k1.block_grad(g2, x2, rb, cb)
+        torch.cuda.synchronize()
+        want = k1.block_grad_plain(g2, x2, rb, cb)
+        torch.testing.assert_close(got, want, rtol=K1_RTOL, atol=K1_ATOL)
+        if not torch.equal(got, again):
+            raise AssertionError(f"K1 {what}: two launches differ")
+        err = float((got - want).abs().max())
+        for bm, splits in K1_PLANS:
+            forced = k1._launch(g2, x2, rb, cb, bm, min(splits, -(-tokens // 64)))
+            torch.cuda.synchronize()
+            torch.testing.assert_close(forced, want, rtol=K1_RTOL, atol=K1_ATOL)
+            err = max(err, float((forced - want).abs().max()))
+        p = k1.plan(rb.shape[0], tokens, n_sm)
+        cases.append(f"{what} (T,O,I)=({tokens},{g2.shape[1]},{x2.shape[1]}) n={rb.shape[0]} "
+                     f"plan {p.bm}x256/{p.splits} err {err:.2e}")
+        return err
+
+    for mod, (o, i) in dims.items():
+        chosen = {}
+        for key, r, c in run_q["selected"]:
+            if key.split(".", 1)[1] == mod:
+                chosen.setdefault(key, []).append((r, c))
+        if chosen:
+            blocks = max(chosen.values(), key=len)
+            rb_np = np.array([r for r, _ in blocks], np.int64)
+            cb_np = np.array([c for _, c in blocks], np.int64)
+        else:   # one of them on the block that straddles the ranks' edge
+            rb_np, cb_np = (a.astype(np.int64) for a in _coords(rng, K1_N, o // 256, i // 256))
+            (rb_np if mod in COL_PARALLEL else cb_np)[-1] = \
+                ((o if mod in COL_PARALLEL else i) // parts) // 256
+        g2 = torch.randn((tokens, o), generator=gen, device=dev).to(torch.bfloat16)
+        x2 = torch.randn((tokens, i), generator=gen, device=dev).to(torch.bfloat16)
+        rb = torch.from_numpy(rb_np.astype(np.int32)).to(dev)
+        cb = torch.from_numpy(cb_np.astype(np.int32)).to(dev)
+        tag = f"{mod} ({'Q' if chosen else 'seeded'} blocks)"
+        worst = max(worst, hold(f"Q {tag}", g2, x2, rb, cb))
+        col = mod in COL_PARALLEL
+        width = (o if col else i) // parts
+        for t in range(parts):
+            first = (t * width, width)
+            win = block_window(rb_np, cb_np, first if col else None, None if col else first, dev)
+            if win is None:
+                continue
+            _, wrb, wcb, (r_lo, r_n), (c_lo, c_n) = win
+            lo, n = (r_lo, r_n) if col else (c_lo, c_n)
+            src = g2 if col else x2
+            panel = src.new_zeros((tokens, n * 256))
+            panel[:, t * width - lo * 256:(t + 1) * width - lo * 256] = \
+                src[:, t * width:(t + 1) * width]
+            gp, xp = (panel, x2) if col else (g2, panel)
+            worst = max(worst, hold(f"QT rank {t} {tag}", gp, xp, wrb.to(torch.int32),
+                                    wcb.to(torch.int32)))
+        if mod == "down_proj":
+            def lib():
+                return _k1_library(g2, x2, rb, cb)
+            n = len(rb_np)
+            nbytes = (len(set(rb_np)) + len(set(cb_np))) * tokens * 256 * 2 + n * 256 * 256 * 4
+            timing = dict(ms=time_ms(lambda: k1.block_grad(g2, x2, rb, cb)),
+                          plain_ms=time_ms(lambda: k1.block_grad_plain(g2, x2, rb, cb)),
+                          lib_ms=time_ms(lib), shape=f"T={tokens} (O,I)=({o},{i}) n={n} bf16",
+                          bound=bound(nbytes, 2.0 * n * tokens * 256 * 256, "bf16"))
+        del g2, x2
+    torch.cuda.empty_cache()
+    log(f"[K1 block_grad] Qwen2.5-1.5B, Q's whole linears and QT's rank panels at tensor "
+        f"{parts}: max_abs_err {worst:.3e} over {len(cases)} cases (and the {len(K1_PLANS)} "
+        f"forced plans each; two launches equal): " + "; ".join(cases))
+    log(f"[K1 block_grad] Qwen2.5-1.5B time at {timing['shape']}: kernel {timing['ms']:.4f} ms, "
+        f"plain {timing['plain_ms']:.4f} ms, library bmm on gathered bf16 panels "
+        f"{timing['lib_ms']:.4f} ms; bound {timing['bound'][0]:.3e} ms ({timing['bound'][1]}) "
+        f"({CARD['smi']})")
     return worst, timing
 
 
@@ -1816,9 +1958,7 @@ def _fp16_block_grad(rng, n_sm):
                               k1.block_grad_plain(g_bad, x_bad, rb, cb))
 
         def lib():
-            g_rows = g2.reshape(t, -1, 256).index_select(1, rb.long()).transpose(0, 1)
-            x_cols = x2.reshape(t, -1, 256).index_select(1, cb.long()).transpose(0, 1)
-            return torch.bmm(g_rows.transpose(1, 2), x_cols)
+            return _k1_library(g2, x2, rb, cb)
 
         ms = time_ms(lambda: k1.block_grad(g2, x2, rb, cb))
         plain_ms = time_ms(lambda: k1.block_grad_plain(g2, x2, rb, cb))
@@ -2226,7 +2366,7 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
                   ratios=(0.0084, 0.0084), attn_impl="auto", out_dir=None, log_fn=log,
                   keep_decode_params=False, frozen_quant="none", loss_impl="auto",
                   count_syncs=False, mode="matrix", keep_state=False, decode_leg=False,
-                  cfg_extra=None, mesh=None, thin=()):
+                  cfg_extra=None, mesh=None, thin=(), hf_dir=None):
     """SMTTrainer.fit through warm-up -> conversion -> sparse -> eval ->
     final export, with per-phase step times and peak memory; mode "matrix"
     (the block ratios) or "channel" (--channel_sparsity at the CLI's 30
@@ -2267,12 +2407,19 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
     rows of every global training batch that keep only 4 valid labels
     (thin_rows). The warm-up steps' grad norms are kept
     ("warmup_grad_norm"), and in matrix mode the block scores selection
-    read ("block_scores") and the blocks it chose ("selected")."""
+    read ("block_scores") and the blocks it chose ("selected"). hf_dir: the
+    params are read from this local HF checkpoint (write_qwen's: the qwen2
+    loader, models/hf_io.load_hf_params, or on a mesh that splits them
+    load_hf_params_sharded, each rank reading its blocks), model_cfg its
+    config. With cfg_extra's dropout the model's attention dropout is set
+    from it, as the CLI sets it."""
+    import dataclasses
     import numpy as np
     import torch
     from sparse_matrix_tuning_tpu_torch.config import SMTConfig
-    from sparse_matrix_tuning_tpu_torch.models.hf_io import load_hf_params
-    from sparse_matrix_tuning_tpu_torch.models.llama import flatten_tree
+    from sparse_matrix_tuning_tpu_torch.models.hf_io import (
+        load_hf_config, load_hf_params, load_hf_params_sharded)
+    from sparse_matrix_tuning_tpu_torch.models.llama import flatten_tree, lm_head_weight
     from sparse_matrix_tuning_tpu_torch.smt.plan import BLOCK
     from sparse_matrix_tuning_tpu_torch.train.convert import LAYER_LINEARS
     from sparse_matrix_tuning_tpu_torch.train.steps import _use_chunked_loss
@@ -2293,6 +2440,11 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
         save_steps=0, log_steps=1, throughput_steps=10 ** 9, seed=1234,
         attn_impl=attn_impl, output_dir=out_dir, frozen_quant=frozen_quant,
         loss_impl=loss_impl, **(cfg_extra or {}))
+    if hf_dir is not None:
+        if load_hf_config(hf_dir) != model_cfg:
+            raise AssertionError(f"{hf_dir}: its config differs from {model_cfg}")
+    if cfg.dropout > 0:   # the CLI's configure_dropout
+        model_cfg = dataclasses.replace(model_cfg, attention_dropout=cfg.dropout)
     n_steps = full_ft_steps + sparse_steps
     global_bs = bs * (mesh.batch_shards if mesh is not None else 1)
     train_ds = synthetic_sft(n_steps * global_bs, seq, model_cfg.vocab_size, 1)
@@ -2310,10 +2462,18 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
         return peak
 
     t0 = time.time()
-    params = seeded_params(model_cfg, cfg.param_dtype, device)
-    n_params = sum(p.numel() for p in flatten_tree(params).values())
+    psh = None
+    if hf_dir is None:
+        params = seeded_params(model_cfg, cfg.param_dtype, device)
+    elif mesh is not None and (mesh.fsdp > 1 or mesh.tensor > 1):
+        params, psh = load_hf_params_sharded(hf_dir, mesh, model_cfg, dtype=cfg.param_dtype,
+                                             device=device)
+    else:
+        params = load_hf_params(hf_dir, model_cfg, dtype=cfg.param_dtype, device=device)
+    n_params = sum(p.numel() if psh is None else int(np.prod(psh.full_shape(f"master/{k}", p)))
+                   for k, p in flatten_tree(params).items())
     trainer = SMTTrainer(cfg, model_cfg, params, total_steps=n_steps, device=device,
-                         **({"mesh": mesh} if mesh is not None else {}))
+                         **({"mesh": mesh} if mesh is not None else {}), param_sharding=psh)
     del params
     if thin:
         step_of = trainer.train_step
@@ -2325,7 +2485,11 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
     summary = {"n_params": n_params, "step_ms": [], "phase": [], "loss": [], "grad_norm": [],
                "warmup_grad_norm": [], "peak": {}, "loss_scale": [], "overflow": [],
                "reduced_bytes": [], "reduce_ms": [], "checksums": 0, "collectives": [],
-               "state_bytes": {"build": state_bytes(trainer)}}
+               "state_bytes": {"build": state_bytes(trainer)},
+               # the head's, the embedding's and the biases' master shape and bytes here
+               "leaf_bytes": {k: (tuple(t.shape), t.numel() * t.element_size())
+                              for k, t in flatten_tree(trainer.state["master"]).items()
+                              if k in ("embed_tokens", "lm_head") or k.endswith("_bias")}}
     reduced = {"bytes": 0, "seconds": 0.0, "stats": {}}  # at the last step's end
     sh = trainer.sharding
 
@@ -2389,7 +2553,7 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
             at_conversion = trainer.merged_params()
             snap["params"] = {li: {m: w.to("cpu") for m, w in layer.items()}
                               for li, layer in at_conversion["layers"].items()}
-            snap["lm_head"] = at_conversion["lm_head"].to("cpu")
+            snap["lm_head"] = lm_head_weight(at_conversion, model_cfg).to("cpu")
             if mesh is not None and mesh.tensor > 1:   # TE's reference: the rest as well
                 snap["top"] = {k: w.to("cpu") for k, w in at_conversion.items()
                                if k != "layers"}
@@ -2461,9 +2625,10 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
         else:
             dense = [f"{li}.{m}" for li, layer in trainer.state["params"]["layers"].items()
                      for m, w in layer.items() if w.dim() == 2]
-        if dense or trainer.state["params"]["lm_head"].dim() == 2:
+        head = trainer.state["params"].get("lm_head")   # a tied head is the embedding
+        if dense or (head is not None and head.dim() == 2):
             raise AssertionError(f"dense weights left on the device after conversion: "
-                                 f"{dense[:4]}, lm_head {trainer.state['params']['lm_head'].shape}")
+                                 f"{dense[:4]}, lm_head {None if head is None else head.shape}")
         if "q" not in trainer.state or "q_head" not in trainer.state:
             raise AssertionError("the int8 run has no int8 base or no int8 head in its state")
         summary["offloaded"] = len(trainer._host_frozen)
@@ -2473,7 +2638,7 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
     merged = trainer.merged_params()
     after = merged["layers"]
     stacks = whole["trainable"] if whole is not None else None
-    if not torch.equal(merged["lm_head"].to("cpu"), snap["lm_head"]):
+    if not torch.equal(lm_head_weight(merged, model_cfg).to("cpu"), snap["lm_head"]):
         raise AssertionError("the merged lm_head differs from the conversion-time head")
     checked, changed_in_blocks, block_elems = 0, 0, 0
     for li, layer in snap["params"].items():
@@ -2508,6 +2673,8 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
             checked += 1
     summary["frozen_checked"] = checked
     summary["selected_elems_changed"] = (changed_in_blocks, block_elems)
+    summary["export_shapes"] = {k: (tuple(t.shape), str(t.dtype))
+                                for k, t in flatten_tree(merged).items()}
 
     # export: the final safetensors read back equal merged_params() bitwise
     export = None
@@ -4168,8 +4335,11 @@ def dp_rank(rank, world, port, jobs, out_dir, shape=None, backend="gloo"):
     its export checked against one process's export of the gathered state,
     not written: hold_ts), and in channel mode ("TC0", TC0_CASES: the tiny
     pair per layer and over the scan state; "TC", layers: run H; "TCJ",
-    layers: run J; their exports checked, not written: hold_tc). Writes
-    {out_dir}/dp.{rank}.pt."""
+    layers: run J; their exports checked, not written: hold_tc), and the
+    Qwen jobs ("QT0", (QT0_CASES' case, the tiny qwen2 checkpoint): the tiny
+    tied, biased pair; "QT", (layers, checkpoint, export dir): Q's path with
+    its export; "QTD", (layers, checkpoint): the same under --dropout 0.1;
+    hold_qwen). Writes {out_dir}/dp.{rank}.pt."""
     import torch
     import torch.distributed as dist
     _rank_setup()
@@ -4189,8 +4359,8 @@ def dp_rank(rank, world, port, jobs, out_dir, shape=None, backend="gloo"):
     fmesh = make_mesh(shape or (1, world, 1), device=device)
     # the tensor axis: (1, world / 2, 2)
     tmesh = make_mesh((1, world // 2, 2), device=device) \
-        if any(tag in ("T0", "T", "TQ0", "TQ", "TS0", "TS", "TC0", "TC", "TCJ")
-               for tag, _ in jobs) else None
+        if any(tag in ("T0", "T", "TQ0", "TQ", "TS0", "TS", "TC0", "TC", "TCJ", "QT0", "QT",
+                       "QTD") for tag, _ in jobs) else None
     _time_collectives()
     for tag, arg in jobs:
         t0 = time.time()
@@ -4243,6 +4413,13 @@ def dp_rank(rank, world, port, jobs, out_dir, shape=None, backend="gloo"):
             s = run_main_path(cfg, device, bs=4 // tmesh.batch_shards, mesh=tmesh, mode="channel",
                               frozen_quant="int8" if tag == "TCJ" else "none",
                               log_fn=(lambda m: log(f"[{tag} rank {rank}] {m}")))
+        elif tag == "QT0":
+            s = qt0_run(arg[0], device, 4 // tmesh.batch_shards, arg[1], tmesh)
+        elif tag in ("QT", "QTD"):
+            s = run_main_path(qwen_cfg(arg[0]), device, bs=4 // tmesh.batch_shards, mesh=tmesh,
+                              hf_dir=arg[1], out_dir=arg[2] if tag == "QT" else None,
+                              cfg_extra={"dropout": 0.1} if tag == "QTD" else None,
+                              log_fn=(lambda m: log(f"[{tag} rank {rank}] {m}")))
         elif tag == "FS0":
             fsdp_mod.LIVE.update(now=0, peak=0)
             s = fs0_run(arg, device, 4 // world, fmesh)
@@ -4262,9 +4439,11 @@ def dp_rank(rank, world, port, jobs, out_dir, shape=None, backend="gloo"):
 
 def _job_key(tag, arg):
     """Where dp_rank keeps a job's summary: "F", "T", "TQ", "TS", "TC",
-    "TCJ", "FS:{mode}", or "{tag}:{arg}"."""
-    if tag in ("F", "T", "TQ", "TS", "TC", "TCJ"):
+    "TCJ", "QT", "QTD", "FS:{mode}", "QT0:{case}", or "{tag}:{arg}"."""
+    if tag in ("F", "T", "TQ", "TS", "TC", "TCJ", "QT", "QTD"):
         return tag
+    if tag == "QT0":
+        return f"QT0:{arg[0]}"
     return f"FS:{arg[1]}" if tag == "FS" else f"{tag}:{arg}"
 
 
@@ -4545,7 +4724,7 @@ def fn_collectives(rank, world, device):
     return {"mesh": mesh.shape, "cases": cases, "path": path, "stats": dict(mesh.stats)}
 
 
-def check_fsdp(ranks, refs, run_a, p, layers, t_layers, t_refs):
+def check_fsdp(ranks, refs, run_a, p, layers, t_layers, t_refs, q=None):
     """F0 and F from the data-parallel spawn (two gloo ranks at (1, 2, 1))
     and F0 at (2, 2, 1) from a spawn of four, held against one process
     (hold_f0, hold_f): F with its export (FE) and each rank's warm-up peak
@@ -4554,11 +4733,13 @@ def check_fsdp(ranks, refs, run_a, p, layers, t_layers, t_refs):
     hold_t0, hold_t; TS0, the same over the scan state, and TC0, in
     channel mode: hold_tensor_tiny); T, TQ and TS at t_layers against
     t_refs' "A" and "E" (one process at that depth; "E" None: no TQ or
-    TS ran). Returns rank 0's summaries (and every rank's TC and TCJ: TC
-    is held once H has run, TCJ once J has)."""
+    TS ran); with q (prepare_qwen's), QT0 in the four too, and QT0 and
+    QT (hold_qwen). Returns rank 0's summaries (and every rank's TC and
+    TCJ: TC is held once H has run, TCJ once J has)."""
     t0 = time.time()
     quad = _spawn(dp_rank, 4, [("F0", "none")] + [("FS0", n) for n in FS0_RUNS]
-                  + tensor_tiny_jobs(), after=((2, 2, 1),))
+                  + tensor_tiny_jobs() + (qt0_jobs(q) if q else []),
+                  after=((2, 2, 1),))
     log(f"[F0] 4 gloo ranks on cuda:0 at (2, 2, 1), F0 and FS0, and T0, TQ0, TS0 and TC0 at "
         f"(1, 2, 2): {time.time() - t0:.1f} s for the spawn")
     for fq in ("none", "int8"):
@@ -4579,6 +4760,10 @@ def check_fsdp(ranks, refs, run_a, p, layers, t_layers, t_refs):
                {"T rank 0": ranks[0]["T"]}, fq="int8")
         hold_ts("TS", (1, 1, 2), "gloo", [r["TS"] for r in ranks], t_refs["E"], t_layers,
                 {"TQ rank 0": ranks[0]["TQ"]})
+    qwen = {}
+    if q is not None:
+        qwen = {"Q": q["Q"], "QT": hold_qwen(q, ranks, quad), "K1 qwen": q["K1"],
+                **{f"QT0 {c}": ranks[0][f"QT0:{c}"] for c in QT0_CASES}}
     gib = 1024 ** 3
     for r in range(2):
         gain = (p[r]["peak"]["warmup"] - f[r]["peak"]["warmup"]) / gib
@@ -4598,7 +4783,7 @@ def check_fsdp(ranks, refs, run_a, p, layers, t_layers, t_refs):
             **{f"FS0 {n} (2,2,1)": quad[0][f"FS0:{n}"] for n in FS0_RUNS},
             # every rank's FS summary, held to E, G and J when they have run (hold_fs)
             "FS": {m: [r[f"FS:{m}"] for r in ranks] for m in ("matrix", "channel")
-                   if f"FS:{m}" in ranks[0]}}
+                   if f"FS:{m}" in ranks[0]}, **qwen}
 
 
 def hold_f0(shape, fq, got, refs, tag="F0"):
@@ -4756,7 +4941,8 @@ def _one_row_quant_a_k4_call(tag, lx):
         raise AssertionError(f"{tag}: not one row quantization a K4 call: {lx}")
 
 
-def hold_t0(shape, dtype, got, refs, tag="T0", fq="none", scan=False, mode="matrix"):
+def hold_t0(shape, dtype, got, refs, tag="T0", fq="none", scan=False, mode="matrix", ref=None,
+            dropout=False):
     """The tiny pair on a tensor mesh against one process, over the dense
     base or (fq "int8": TQ0) the int8 base and head, in the per-layer
     layout or (scan: TS0, --scan_layers on) over the scan state, in matrix
@@ -4768,17 +4954,21 @@ def hold_t0(shape, dtype, got, refs, tag="T0", fq="none", scan=False, mode="matr
     quantization's three entries and K5 too (their fp16 bodies under
     fp16), over the scan state K5 over either base; in channel mode K2
     and K3 (over int8 K4 and the row quantization's entries) and no K1 or
-    K5; each rank's state held by _tensor_state_held."""
+    K5; each rank's state held by _tensor_state_held. ref: the one-process
+    run to hold them to (else the one of `refs` the case names); dropout:
+    the training forwards ran the einsum attention (no K3 backward; the
+    eval's K3 forward stays)."""
     import numpy as np
     fp16, int8, channel = dtype == "fp16", fq == "int8", mode == "channel"
-    if channel:
+    if ref is None and channel:
         ref = refs[f"channel {'int8' if int8 else 'scan' if scan else 'layer'} {dtype}"]
-    else:
+    elif ref is None:
         ref = refs[("scan " if scan else "") + {
             (False, False): "none", (True, False): "fp16", (False, True): "int8",
             (True, True): "int8 fp16"}[fp16, int8]]
     rtol = P0_INT8_RTOL if fp16 or int8 else P0_RTOL
-    what = f"{tag} {shape} {dtype}{' scan' if scan else ''}{' int8' if int8 else ''}"
+    what = (f"{tag} {shape} {mode} {dtype}{' scan' if scan else ''}{' int8' if int8 else ''}"
+            f"{' dropout' if dropout else ''}")
     fps = {g["plan"]["fingerprint"] for g in got} | {ref["plan"]["fingerprint"]}
     if len(fps) != 1:
         raise AssertionError(f"{what}: plan fingerprints differ: {fps}")
@@ -4788,7 +4978,8 @@ def hold_t0(shape, dtype, got, refs, tag="T0", fq="none", scan=False, mode="matr
         names = TCJ_KERNELS if int8 else TC_KERNELS
     else:
         names = TQ_KERNELS if int8 else TS_DENSE_KERNELS if scan else TRAIN_KERNELS
-    names = tuple(n for n in names if "dkdv_reduce" not in n)
+    names = tuple(n for n in names if "dkdv_reduce" not in n
+                  and not (dropout and n.startswith("attn_bwd")))
     needed = _fp16_names(names) if fp16 else names
     off = ("block_grad", "block_correction") if channel else ()
     for r, g in enumerate(got):
@@ -4822,7 +5013,8 @@ def hold_t0(shape, dtype, got, refs, tag="T0", fq="none", scan=False, mode="matr
                  f"; rank 0 q bytes {sb['q_here']:,} of {sb['q_full']:,}")
     log(f"[{tag}] tiny {dtype}{' --channel_sparsity' if channel else ''}"
         f"{' --frozen_quant int8' if int8 else ''}"
-        f"{' --scan_layers on' if scan else ''} at {shape}, {len(got)} "
+        f"{' --scan_layers on' if scan else ''}{' --dropout 0.1' if dropout else ''} at {shape}, "
+        f"{len(got)} "
         f"ranks against one process at global batch 4 (rows 2-3 thinned): losses worst rel diff "
         f"{worst:.2e}, grad norms {worst_norm:.2e} (bound {rtol} on "
         f"{'both' if rtol == P0_RTOL else 'the losses; grad norms reported'}); eval "
@@ -4840,7 +5032,8 @@ def hold_t0(shape, dtype, got, refs, tag="T0", fq="none", scan=False, mode="matr
         f"{ {n: got[0]['launches'][n] for n in needed} }")
 
 
-def hold_t(tag, shape, backend, t, ref, layers, beside=None, fq="none"):
+def hold_t(tag, shape, backend, t, ref, layers, beside=None, fq="none", model="TinyLlama-1.1B",
+           name=None, dropout=False, files=True):
     """A's path (or, fq "int8": E's, TQ) on a tensor mesh against A (or E)
     run in one process (P's bounds: losses within 1e-3, warm-up grad norms
     within 5e-2; the ranks' losses and plans equal; K1, K2 and K3 launched
@@ -4851,19 +5044,27 @@ def hold_t(tag, shape, backend, t, ref, layers, beside=None, fq="none"):
     TQE: merged_params, which the export writes)); per rank the ms/step,
     the collectives' bytes and calls a step (over the int8 base the amax
     all-reduces apart), the state's bytes and the peaks beside the runs of
-    `beside` ({name: rank 0's summary}) and the reference's."""
+    `beside` ({name: rank 0's summary}) and the reference's. model, name:
+    the model's and the reference run's names in the log (name: "E" or
+    "A" by default); dropout: the training forwards ran the einsum
+    attention (no K3 backward launched); files: the run wrote its export
+    (else merged_params is held, as over the int8 base). Returns
+    log_selection_margin's numbers for rank 0's plan against the
+    reference's."""
     import numpy as np
     int8 = fq == "int8"
-    name = "E" if int8 else "A"
+    name = name or ("E" if int8 else "A")
     if any(x["loss"] != t[0]["loss"] or x["plan"] != t[0]["plan"] for x in t):
         raise AssertionError(f"{tag}: the ranks' losses or plans differ")
+    needed = tuple(n for n in (TQ_KERNELS if int8 else TRAIN_KERNELS)
+                   if not (dropout and n.startswith("attn_bwd")))
     for r, x in enumerate(t):
         lx = x["launches"]
-        if not all(lx[n] > 0 for n in (TQ_KERNELS if int8 else TRAIN_KERNELS)):
+        if not all(lx[n] > 0 for n in needed):
             raise AssertionError(f"{tag} rank {r} did not launch every kernel: {lx}")
         if int8:
             _one_row_quant_a_k4_call(f"{tag} rank {r}", lx)
-        if not x.get("te_tensors") or not (int8 or x["export_tensors_equal"]):
+        if not x.get("te_tensors") or not (int8 or not files or x["export_tensors_equal"]):
             raise AssertionError(f"{tag}E rank {r}: the export was not checked")
         _tensor_state_held(f"{tag} rank {r}", x, ref, shape[2], int8)
     r_loss = ref["loss"] + [ref["eval_loss"]]
@@ -4872,8 +5073,9 @@ def hold_t(tag, shape, backend, t, ref, layers, beside=None, fq="none"):
     r_norm, t_norm = np.array(ref["warmup_grad_norm"]), np.array(t[0]["warmup_grad_norm"])
     rel_norm = np.abs(t_norm - r_norm) / r_norm
     gib = 1024 ** 3
-    log(f"[{tag}] TinyLlama-1.1B bf16{' --frozen_quant int8 (int8 base and head)' if int8 else ''}"
-        f", {layers} layers, tensor {shape} over {len(t)} {backend} ranks x bs "
+    log(f"[{tag}] {model} bf16{' --frozen_quant int8 (int8 base and head)' if int8 else ''}"
+        f"{' --dropout 0.1' if dropout else ''}, {layers} layers, tensor {shape} over {len(t)} "
+        f"{backend} ranks x bs "
         f"{4 // (shape[0] * shape[1])} x seq 512 ({name}'s global batch), 3 warm-up + 4 sparse "
         f"steps: losses {t_loss} vs {name}'s {r_loss}, worst rel diff {float(rel.max()):.2e} "
         f"(bound {P_VS_A_RTOL}); warm-up grad norms {t_norm.tolist()} vs {name}'s "
@@ -4881,7 +5083,7 @@ def hold_t(tag, shape, backend, t, ref, layers, beside=None, fq="none"):
         f"sparse grad norms {t[0]['grad_norm']} vs {name}'s {ref['grad_norm']}; plan "
         f"{t[0]['plan']['fingerprint'][:16]} on every rank, {name}'s "
         f"{ref['plan']['fingerprint'][:16]} ({CARD['smi']})")
-    log_selection_margin(ref, t[0], tag=tag)
+    margin = log_selection_margin(ref, t[0], tag=tag, ref=name)
     n_warm = 3
     peaks = {name: ref["peak"], **{k: v["peak"] for k, v in (beside or {}).items()}}
     for r, x in enumerate(t):
@@ -4917,7 +5119,7 @@ def hold_t(tag, shape, backend, t, ref, layers, beside=None, fq="none"):
                 ("q8mm_t", "q8mm_g", "row_quant") + RQ_SPLIT_KERNELS + ("block_correction",)
                 if int8 else ()) + ("block_grad", "masked_adam", "attn_fwd", "attn_bwd_dkdv"))
             + f"; {x['seconds']:.1f} s")
-    if int8:
+    if int8 or not files:
         log(f"[{tag}E] the export's {t[0]['te_tensors']} tensors (merged_params, gathered over "
             "both axes) equal one process's export (the weights gathered at conversion, the "
             "final trainables gathered and scattered in by the plan's one-process scatter) bit "
@@ -4933,6 +5135,7 @@ def hold_t(tag, shape, backend, t, ref, layers, beside=None, fq="none"):
     if len(t_norm) != len(r_norm) or rel_norm.max() > P_GNORM_RTOL:
         raise AssertionError(f"{tag}: warm-up grad norms {t_norm.tolist()} part from {name}'s "
                              f"{r_norm.tolist()} by more than {P_GNORM_RTOL}")
+    return margin
 
 
 def tensor_refs(refs=None):
@@ -5227,6 +5430,234 @@ def hold_tensor_tiny(shape, got, refs, n=""):
     hold_tc0(shape, got, refs, tag=f"TC{n}0")
 
 
+# ---------------------------------------------------------------------------
+# Qwen2.5-1.5B: q/k/v biases and a tied head, in one process and under the
+# tensor axis
+# ---------------------------------------------------------------------------
+
+# QT0: the tiny tied, biased pair (write_qwen at LlamaConfig.tiny's widths)
+# on a tensor mesh, "{mode} {layout} {base} {dtype}[ dropout]": every value
+# of each dimension (fp32, fp16 and int8; per layer and scan; matrix and
+# channel; with and without --dropout) in at least one case
+QT0_CASES = ("matrix layer dense fp32", "matrix layer dense fp32 dropout",
+             "matrix layer dense fp16", "matrix layer int8 fp32",
+             "matrix scan dense fp32 dropout", "matrix scan int8 fp32",
+             "channel layer dense fp32 dropout", "channel scan int8 fp32")
+
+
+def qwen_cfg(layers):
+    from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
+    return LlamaConfig(**{**QWEN, "num_hidden_layers": layers})
+
+
+def tiny_qwen_cfg():
+    import dataclasses
+    from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
+    return dataclasses.replace(LlamaConfig.tiny(vocab_size=512), tie_word_embeddings=True)
+
+
+def write_qwen(model_cfg, path):
+    """A local qwen2 checkpoint of `model_cfg` (a tied head) at `path`:
+    init_params' seed-0 weights in bf16 with seeded N(0, QWEN_BIAS_STD)
+    q/k/v biases, model.safetensors written by models/hf_io.save_hf_format
+    and config.json with model_type qwen2, read back by load_hf_config as
+    `model_cfg`. Returns the seconds it took."""
+    import numpy as np
+    import torch
+    from sparse_matrix_tuning_tpu_torch.models.hf_io import load_hf_config, save_hf_format
+    from sparse_matrix_tuning_tpu_torch.models.llama import init_params
+    t0 = time.time()
+    params = init_params(model_cfg, seed=0, dtype=torch.bfloat16, device="cpu")
+    rng = np.random.default_rng(7)
+    kv = model_cfg.num_key_value_heads * model_cfg.head_dim
+    for layer in params["layers"].values():
+        for m, n in (("q_proj", model_cfg.hidden_size), ("k_proj", kv), ("v_proj", kv)):
+            b = rng.standard_normal(n, dtype=np.float32) * np.float32(QWEN_BIAS_STD)
+            layer[f"{m}_bias"] = torch.from_numpy(b).to(torch.bfloat16)
+    save_hf_format(params, model_cfg, path)
+    hf = {**model_cfg.to_hf(), "model_type": "qwen2", "architectures": ["Qwen2ForCausalLM"]}
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf, f, indent=2)
+    if load_hf_config(path) != model_cfg:
+        raise AssertionError(f"{path}: the qwen2 config does not read back as {model_cfg}")
+    return time.time() - t0
+
+
+def qt0_run(case, device, bs, hf_dir, mesh=None):
+    """QT0 case `case` (QT0_CASES) through run_main_path from the tiny
+    qwen2 checkpoint at hf_dir, P0's settings, in one process or as a rank
+    of `mesh` (bs a rank)."""
+    mode, layout, base, dtype = case.split()[:4]
+    extra = {"scan_layers": "on"} if layout == "scan" else {}
+    if case.endswith("dropout"):
+        extra["dropout"] = 0.1
+    return run_main_path(tiny_qwen_cfg(), device, bs=bs, mode=mode,
+                         frozen_quant="int8" if base == "int8" else "none",
+                         cfg_extra=extra or None, hf_dir=hf_dir,
+                         **({"mesh": mesh} if mesh is not None else {}),
+                         **{**P0_KW, "dtype": dtype})
+
+
+def hold_qt0(shape, got, refs, tag="QT0"):
+    """QT0: every QT0_CASES pair on a tensor mesh against one process
+    (hold_t0 with the case's reference), and each rank's tied, biased
+    layout (qwen_layout)."""
+    for case in QT0_CASES:
+        mode, layout, base, dtype = case.split()[:4]
+        ranks = [r[f"QT0:{case}"] for r in got]
+        hold_t0(shape, dtype, ranks, None, tag=tag, fq="int8" if base == "int8" else "none",
+                scan=layout == "scan", mode=mode, ref=refs[case],
+                dropout=case.endswith("dropout"))
+        qwen_layout(f"{tag} {shape} {case}", shape, ranks, tiny_qwen_cfg())
+
+
+def qwen_layout(what, shape, ranks, model_cfg):
+    """Each rank's warm-up state holds the embedding's V/F rows of its D/T
+    hidden columns (exactly 1/(F T) of its bytes), every q/k/v bias whole
+    and no lm_head leaf. Returns rank 0's embedding bytes and the whole's."""
+    f, t = shape[1], shape[2]
+    v, d = model_cfg.vocab_size, model_cfg.hidden_size
+    kv = model_cfg.num_key_value_heads * model_cfg.head_dim
+    for r, x in enumerate(ranks):
+        leaves = x["leaf_bytes"]
+        biases = {k: s for k, (s, _) in leaves.items() if k.endswith("_bias")}
+        want = {f"layers/{li}/{m}_bias": (n,) for li in range(model_cfg.num_hidden_layers)
+                for m, n in (("q_proj", d), ("k_proj", kv), ("v_proj", kv))}
+        if "lm_head" in leaves or leaves["embed_tokens"][0] != (v // f, d // t) \
+                or biases != want:
+            raise AssertionError(f"{what} rank {r}: the embedding is not its (V/F, D/T) block, "
+                                 f"a bias is not whole, or there is an lm_head: "
+                                 f"{ {k: s for k, (s, _) in leaves.items() if 'bias' not in k} }, "
+                                 f"biases {biases == want}")
+    return ranks[0]["leaf_bytes"]["embed_tokens"][1], v * d * 4
+
+
+def qwen_windows(x, model_cfg, t=2):
+    """Of a run's selected blocks, those that straddle a tensor shard's
+    edge at tensor t: gate/up on their output rows, down on its input
+    columns (intermediate / t), k/v on their rows (kv rows / t), q on its
+    rows and o on its columns (hidden / t): {module: (shard edge, blocks
+    straddling it, blocks selected)}."""
+    edges = {"gate_proj": (model_cfg.intermediate_size // t, 1),
+             "up_proj": (model_cfg.intermediate_size // t, 1),
+             "down_proj": (model_cfg.intermediate_size // t, 2),
+             "k_proj": (model_cfg.num_key_value_heads * model_cfg.head_dim // t, 1),
+             "v_proj": (model_cfg.num_key_value_heads * model_cfg.head_dim // t, 1),
+             "q_proj": (model_cfg.hidden_size // t, 1)}
+    out = {}
+    for mod, (edge, which) in edges.items():
+        blocks = [sel for sel in x["selected"] if sel[0].split(".", 1)[1] == mod]
+        cut = [sel for sel in blocks if sel[which] * 256 < edge < (sel[which] + 1) * 256]
+        out[mod] = (edge, len(cut), len(blocks))
+    return out
+
+
+def hold_qt(tag, shape, backend, qt, q, layers, dropout=False):
+    """QT (or, dropout: QTD): Q's path on a tensor mesh against Q run in
+    one process, by hold_t (P's bounds: losses within 1e-3, warm-up grad
+    norms within 5e-2; the ranks' losses and plans equal; K1, K2 and K3 (on
+    each rank's hq 6 / hkv 1 heads; under dropout no K3 backward) launched
+    on every rank; the export against one process's export of the
+    gathered state, QTE), Q's plan (a block swapped only on a near-tie of
+    bf16 arithmetic: its rel gap to Q's last selected block of its group
+    within the spread of the ranks' scores over Q's selected blocks,
+    log_selection_margin's numbers), each rank's tied, biased
+    layout (qwen_layout), the export's tensors Q's (names, shapes and
+    dtypes: no lm_head, the biases), and per rank the tied head's gathered
+    bytes and calls a step and the selected blocks that straddle the ranks'
+    shards."""
+    model_cfg = qwen_cfg(layers)
+    margin = hold_t(tag, shape, backend, qt, q, layers, model="Qwen2.5-1.5B",
+                    name="QD" if dropout else "Q", dropout=dropout, files=not dropout)
+    if margin is not None:
+        spread, gaps = margin
+        far = {k: g for k, g in gaps.items() if g > spread}
+        if far:
+            raise AssertionError(f"{tag}: blocks {far} leave the one-process plan by more than "
+                                 f"the scores' spread {spread:.2e}: not a near-tie")
+    here, whole = qwen_layout(tag, shape, qt, model_cfg)
+    for r, x in enumerate(qt):
+        if x["export_shapes"] != q["export_shapes"] or "lm_head" in x["export_shapes"]:
+            raise AssertionError(f"{tag}E rank {r}: the export's tensors are not Q's")
+        c = x["collectives"]
+        log(f"[{tag}] rank {r}: tied head gathered MB / calls a step "
+            f"{[(round(v['tied_bytes'] / 1e6, 1), v['tied_calls']) for v in c]} (each a "
+            f"{model_cfg.vocab_size} x {model_cfg.hidden_size} gather over the tensor group); "
+            f"grad parts summed over the tensor group (the warm-up's: the q/k/v bias grads), "
+            f"MB / calls a step "
+            f"{[(round(v['grad_parts_bytes'] / 1e6, 4), v['grad_parts_calls']) for v in c]}")
+    log(f"[{tag}] layout: each rank's fp32 master embedding {here:,} B of {whole:,} "
+        f"(its {model_cfg.hidden_size // shape[2]} hidden columns), the "
+        f"{3 * layers} q/k/v biases whole, no lm_head; the export's "
+        f"{len(q['export_shapes'])} tensors (no lm_head) have Q's names, shapes and dtypes")
+    log(f"[{tag}] selected blocks straddling the tensor shards (module: shard edge, "
+        f"straddling, selected): {qwen_windows(qt[0], model_cfg, shape[2])}")
+
+
+def prepare_qwen(layers, dropout=False):
+    """Q (and, dropout: QD, Q under --dropout 0.1) in this process from a
+    qwen2 checkpoint of Qwen2.5-1.5B's widths at `layers` (write_qwen), K1
+    at Q's and QT's shapes and blocks (check_block_grad_qwen), and the
+    one-process references of QT0 from the tiny one: {"layers", "dir",
+    "tiny_dir", "export_dir" (QT's, empty), "Q", "QD", "K1", "refs",
+    "dirs"}. The caller removes "dirs"."""
+    import torch
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    dirs = [tempfile.mkdtemp(prefix="smoke_qwen_", dir=build) for _ in range(4)]
+    q = {"layers": layers, "dir": dirs[0], "tiny_dir": dirs[1], "export_dir": dirs[2],
+         "dirs": dirs, "QD": None}
+    t0 = time.time()
+    write_s = write_qwen(qwen_cfg(layers), q["dir"])
+    write_qwen(tiny_qwen_cfg(), q["tiny_dir"])
+    size = sum(os.path.getsize(os.path.join(q["dir"], n)) for n in os.listdir(q["dir"]))
+    log(f"[Q] wrote a qwen2 checkpoint of Qwen2.5-1.5B's widths at {layers} layers (tied head, "
+        f"seeded q/k/v biases N(0, {QWEN_BIAS_STD})): {size / 1e9:.3f} GB in {write_s:.1f} s")
+    q["Q"] = run_main_path(qwen_cfg(layers), "cuda", hf_dir=q["dir"], out_dir=dirs[3])
+    report_run("Q", f"Qwen2.5-1.5B bf16 ({layers} layers, qwen2 checkpoint: q/k/v biases, tied "
+               "head), bs 4 x seq 512, remat, attn auto (K3 at hd 128, group 6)", q["Q"], 3)
+    if not all(q["Q"]["launches"][n] > 0 for n in TRAIN_KERNELS):
+        raise AssertionError(f"run Q did not launch every kernel: {q['Q']['launches']}")
+    qwen_layout("Q", (1, 1, 1), [q["Q"]], qwen_cfg(layers))
+    shutil.rmtree(dirs[3], ignore_errors=True)
+    torch.cuda.empty_cache()
+    q["K1"] = check_block_grad_qwen(q["Q"], qwen_cfg(layers))
+    if dropout:
+        q["QD"] = run_main_path(qwen_cfg(layers), "cuda", hf_dir=q["dir"],
+                                cfg_extra={"dropout": 0.1})
+        report_run("QD", f"Qwen2.5-1.5B bf16 ({layers} layers) --dropout 0.1, bs 4 x seq 512, "
+                   "remat, attn auto (the einsum in training, K3 in eval)", q["QD"], 3)
+        torch.cuda.empty_cache()
+    q["refs"] = {c: qt0_run(c, "cuda", 4, q["tiny_dir"]) for c in QT0_CASES}
+    log(f"[Q] Q{', QD' if dropout else ''} and the QT0 references: {time.time() - t0:.1f} s")
+    return q
+
+
+def qt0_jobs(q):
+    """The tiny tied, biased pairs of QT0, from prepare_qwen's checkpoint."""
+    return [("QT0", (c, q["tiny_dir"])) for c in QT0_CASES]
+
+
+def qwen_jobs(q):
+    """A spawn's Qwen jobs: QT0, QT and, where QD ran, QTD."""
+    return qt0_jobs(q) + [("QT", (q["layers"], q["dir"], q["export_dir"]))] + (
+        [("QTD", (q["layers"], q["dir"]))] if q["QD"] is not None else [])
+
+
+def hold_qwen(q, pair, quad=None, shape=(1, 1, 2), backend="gloo", n=""):
+    """QT0 (at `shape` from `pair`, at (1, 2, 2) from `quad` where given),
+    QT with QTE, and QTD where it ran, against Q, QD and the references of
+    prepare_qwen. Returns rank 0's QT summary."""
+    hold_qt0(shape, pair, q["refs"], tag=f"QT{n}0")
+    if quad is not None:
+        hold_qt0((1, 2, 2), quad, q["refs"], tag=f"QT{n}0")
+    hold_qt(f"QT{n}", shape, backend, [r["QT"] for r in pair], q["Q"], q["layers"])
+    if q["QD"] is not None:
+        hold_qt(f"QT{n}D", shape, backend, [r["QTD"] for r in pair], q["QD"], q["layers"],
+                dropout=True)
+    return pair[0]["QT"]
+
+
 def run_tensor(run_a, run_e, run_h, run_j, layers):
     """`--only tp`: the tensor axis over gloo ranks sharing the card, held
     against A, E, H and J run here: T0, TQ0, TS0 and TC0 (the tiny pair,
@@ -5234,24 +5665,30 @@ def run_tensor(run_a, run_e, run_h, run_j, layers):
     scan state, in matrix and channel mode) at (1, 1, 2) in the spawn of T,
     TQ, TS, TC and TCJ (A's, E's, E's with --scan_layers on, H's and J's
     at (1, 1, 2) with TE, TQE, TSE and TCE), and at (1, 2, 2) over four
-    ranks. Returns rank 0's summaries."""
+    ranks. Then Qwen2.5-1.5B at its 28 layers: Q and QD in this process,
+    QT, QTE and QTD in the spawn of T, QT0 in both spawns (prepare_qwen,
+    hold_qwen). Returns rank 0's summaries."""
     refs = tensor_refs()
+    q = prepare_qwen(QWEN["num_hidden_layers"], dropout=True)
     t_dir = tempfile.mkdtemp(prefix="smoke_export_", dir=os.path.join(REPO, "build"))
     t0 = time.time()
     tiny = tensor_tiny_jobs()
     try:
         pair = _spawn(dp_rank, 2, tiny + [("T", (layers, t_dir)), ("TQ", layers), ("TS", layers),
-                                          ("TC", layers), ("TCJ", layers)],
+                                          ("TC", layers), ("TCJ", layers)] + qwen_jobs(q),
                       after=((1, 2, 1),))
+        quad = _spawn(dp_rank, 4, tiny + qt0_jobs(q), after=((2, 2, 1),))
     finally:
-        shutil.rmtree(t_dir, ignore_errors=True)
+        for d in [t_dir] + q["dirs"]:
+            shutil.rmtree(d, ignore_errors=True)
     seconds = {k: round(v["seconds"], 1) for k, v in pair[0].items()
                if isinstance(v, dict) and "seconds" in v}
-    log(f"[T] 2 gloo ranks on cuda:0 at (1, 1, 2), T0, TQ0, TS0, TC0, T, TQ, TS, TC and TCJ: "
-        f"{time.time() - t0:.1f} s; seconds by job on rank 0: {seconds}")
-    quad = _spawn(dp_rank, 4, tiny, after=((2, 2, 1),))
+    log(f"[T] 2 gloo ranks on cuda:0 at (1, 1, 2), T0, TQ0, TS0, TC0, QT0, T, TQ, TS, TC, TCJ, "
+        f"QT and QTD, and 4 at (1, 2, 2), T0, TQ0, TS0, TC0 and QT0: {time.time() - t0:.1f} s; "
+        f"seconds by job on rank 0: {seconds}")
     for shape, got in (((1, 1, 2), pair), ((1, 2, 2), quad)):
         hold_tensor_tiny(shape, got, refs)
+    hold_qwen(q, pair, quad)
     t = [r["T"] for r in pair]
     hold_t("T", (1, 1, 2), "gloo", t, run_a, layers)
     hold_t("TQ", (1, 1, 2), "gloo", [r["TQ"] for r in pair], run_e, layers, {"T rank 0": t[0]},
@@ -5339,6 +5776,26 @@ def run_tensor_nccl(run_a, run_e, run_h, run_j, layers, refs):
             {"TN rank 0": t[0]})
     hold_tc("TCJN", shape, "nccl", [r["TCJ"] for r in ranks], run_j, "J", layers,
             {"TSN rank 0": ranks[0]["TS"]})
+    run_qwen_nccl()
+
+
+def run_qwen_nccl():
+    """QTN (`--only nccl`, four cards or more): Q's path
+    at Qwen2.5-1.5B's 28 layers and the tiny QT0 pairs over NCCL, one rank
+    a card, at (1, N / 2, 2), against Q and the references run here
+    (prepare_qwen, hold_qwen)."""
+    import torch
+    n = torch.cuda.device_count()
+    shape = (1, n // 2, 2)
+    q = prepare_qwen(QWEN["num_hidden_layers"])
+    t0 = time.time()
+    try:
+        ranks = _spawn(dp_rank, n, qwen_jobs(q), after=((1, n, 1), "nccl"))
+    finally:
+        for d in q["dirs"]:
+            shutil.rmtree(d, ignore_errors=True)
+    log(f"[QTN] {n} NCCL ranks, one a card, at {shape}, QT0 and QT: {time.time() - t0:.1f} s")
+    hold_qwen(q, ranks, shape=shape, backend="nccl", n="N")
 
 
 def run_fsdp_scan(run_e, run_j, layers, world=2, backend="gloo", tag="FS"):
@@ -5385,43 +5842,50 @@ def _spawn(fn, world, *args, after=()):
     return got
 
 
-def log_selection_margin(run_a, run_p, tag="P"):
+def log_selection_margin(run_a, run_p, tag="P", ref="A"):
     """Where P's (or F's, `tag`) plan leaves A's: each block that one
     selected and the other did not, with its score in both runs, beside the score of the
     last block A selected in that group (attention or MLP) and how far
     P's scores sit from A's over A's selected blocks (a swap inside that
-    spread is a near-tie, not a wrong reduction)."""
+    spread is a near-tie, not a wrong reduction). Returns (that spread's
+    max, {swapped block: its rel gap to A's last block of its group}), or
+    None where the plans are equal."""
     import numpy as np
     from sparse_matrix_tuning_tpu_torch.models.llama import ATTN_TARGETS
     a_sel, p_sel = set(run_a["selected"]), set(run_p["selected"])
     if a_sel == p_sel:
-        log(f"[{tag}] selection: the same {len(a_sel)} blocks as A's")
-        return
+        log(f"[{tag}] selection: the same {len(a_sel)} blocks as {ref}'s")
+        return None
     sa, sp = run_a["block_scores"], run_p["block_scores"]
 
     def group(ks):
         return "attention" if ks.split(".", 1)[1] in ATTN_TARGETS else "mlp"
 
     spread = np.array([abs(sp[k][r, c] - sa[k][r, c]) / sa[k][r, c] for k, r, c in a_sel])
-    lines = []
+    lines, gaps = [], {}
     for k, r, c in sorted(a_sel ^ p_sel):
         last = min(sa[kk][rr, cc] for kk, rr, cc in a_sel if group(kk) == group(k))
-        lines.append(f"{k} ({r},{c}) {'A only' if (k, r, c) in a_sel else tag + ' only'}: A "
-                     f"{sa[k][r, c]:.6e}, {tag} {sp[k][r, c]:.6e}; A's last {group(k)} block "
-                     f"{last:.6e}, rel gap {abs(sa[k][r, c] - last) / last:.2e}")
+        gaps[(k, r, c)] = abs(sa[k][r, c] - last) / last
+        lines.append(f"{k} ({r},{c}) {ref + ' only' if (k, r, c) in a_sel else tag + ' only'}: "
+                     f"{ref} {sa[k][r, c]:.6e}, {tag} {sp[k][r, c]:.6e}; {ref}'s last "
+                     f"{group(k)} block {last:.6e}, rel gap {gaps[(k, r, c)]:.2e}")
     log(f"[{tag}] selection: {len(a_sel ^ p_sel) // 2} of {len(a_sel)} blocks swapped; {tag}'s "
-        f"scores of A's selected blocks sit within {np.median(spread):.2e} (median) / "
-        f"{spread.max():.2e} (max) of A's; " + "; ".join(lines))
+        f"scores of {ref}'s selected blocks sit within {np.median(spread):.2e} (median) / "
+        f"{spread.max():.2e} (max) of {ref}'s; " + "; ".join(lines))
+    return float(spread.max()), gaps
 
 
-def run_data_parallel(run_a, d1, export_dir, p_layers, fs=True, t_layers=None, tq=True):
+def run_data_parallel(run_a, d1, export_dir, p_layers, fs=True, t_layers=None, tq=True,
+                      qwen_layers=None):
     """P0, P and PE in two gloo ranks on the one card (one spawn), held
     against one process: P0 against its tiny references run here, P
     against A, PE against D1; in the same spawn the fsdp axis (F0, F, FS0,
     FS) and the tensor axis (T0, TQ0, TS0 and TC0; T and, with tq, TQ and
     TS at t_layers, A's depth by default, held to A, or to A and E run
     here at that depth; TC and TCJ at A's depth, held to H and J once they
-    have run; check_fsdp). Then PN over NCCL. Returns the rank-0
+    have run; check_fsdp). With qwen_layers, Q at that depth in this
+    process and QT with QTE in the same spawn, QT0 in both spawns
+    (prepare_qwen, hold_qwen). Then PN over NCCL. Returns the rank-0
     summaries, and every rank's TC and TCJ summaries under "TC ranks" and
     "TCJ ranks"."""
     t_layers = p_layers if t_layers is None else t_layers
@@ -5438,6 +5902,7 @@ def run_data_parallel(run_a, d1, export_dir, p_layers, fs=True, t_layers=None, t
     cut = LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": t_layers})
     t_refs = {"A": run_a if t_layers == p_layers else run_main_path(cut, "cuda"),
               "E": run_main_path(cut, "cuda", frozen_quant="int8") if tq else None}
+    q = prepare_qwen(qwen_layers) if qwen_layers else None
     first = thin_rows(next(batch_iterator(synthetic_sft(24, 64, 512, 1), 4, 0, [64], 1234, 0)),
                       P0_KW["thin"])
     valid = (first["labels"][:, 1:] != -100).sum(axis=1)
@@ -5451,17 +5916,20 @@ def run_data_parallel(run_a, d1, export_dir, p_layers, fs=True, t_layers=None, t
         [("TQ0", d) for d in T0_DTYPES] + ([("TQ", t_layers)] if tq else []) + \
         [("TS0", c) for c in TS0_CASES] + ([("TS", t_layers)] if tq else []) + \
         [("TC0", c) for c in TC0_CASES] + \
-        ([("TC", p_layers), ("TCJ", p_layers)] if tq else [])
+        ([("TC", p_layers), ("TCJ", p_layers)] if tq else []) + (qwen_jobs(q) if q else [])
     t0 = time.time()
     try:
         ranks = _spawn(dp_rank, 2, jobs)
     finally:
         for d in dirs:
             shutil.rmtree(d, ignore_errors=True)
+        if q:   # QT0 at (1, 2, 2) reads the tiny checkpoint in check_fsdp's spawn
+            shutil.rmtree(q["dir"], ignore_errors=True)
     log(f"[dp] 2 ranks on cuda:0 over {ranks[0]['backend']} (NCCL refuses two ranks on one "
         f"device); gloo takes CUDA tensors for all_reduce and broadcast: "
         f"{[r['gloo_cuda'] for r in ranks]}; {time.time() - t0:.1f} s for the spawn and P0, P, "
-        f"PE, F0, F, FS0, FS, T0, T, TQ0, TQ, TS0, TS, TC0, TC, TCJ ({CARD['smi']}); seconds "
+        f"PE, F0, F, FS0, FS, T0, T, TQ0, TQ, TS0, TS, TC0, TC, TCJ, QT0, QT ({CARD['smi']}); "
+        f"seconds "
         f"by job on "
         f"rank 0: "
         f"{ {k: round(v['seconds'], 1) for k, v in ranks[0].items() if isinstance(v, dict) and 'seconds' in v} }")
@@ -5551,7 +6019,11 @@ def run_data_parallel(run_a, d1, export_dir, p_layers, fs=True, t_layers=None, t
         f"s (D1 {d1['wall_s']:.2f} s alone), peaks {[round(s['peak_gib'], 2) for s in pe]} GiB "
         f"(D1 {d1['peak_gib']:.2f}); K7 launches {[s['launches']['cached_attn'] for s in pe]}")
 
-    fsdp = check_fsdp(ranks, refs, run_a, p, p_layers, t_layers, t_refs)
+    try:
+        fsdp = check_fsdp(ranks, refs, run_a, p, p_layers, t_layers, t_refs, q)
+    finally:
+        for d in (q or {}).get("dirs", ()):
+            shutil.rmtree(d, ignore_errors=True)
 
     import torch
     n_cards = torch.cuda.device_count()
@@ -5582,11 +6054,11 @@ def main(argv=None):
     needs E: `--only tp`); `--only fs` the build, E and J, then FS0, FS and FSE
     (run_fsdp_scan); `--only tp` the build, A, E, H and J, then the tensor
     axis: T0, TQ0, TS0, TC0, T, TE, TQ, TQE, TS, TSE, TC, TCJ and TCE
-    (run_tensor); `--only nccl` (two or more
-    cards) the build, A,
+    (run_tensor), then Q, QD, QT0, QT, QTE and QTD at Qwen2.5-1.5B's 28
+    layers; `--only nccl` (two or more cards) the build, A,
     then the fsdp axis over NCCL, one rank a card (run_fsdp_nccl, FSN and,
-    on four cards, TN among it); none prints a result line. With no
-    arguments every phase runs, on one card."""
+    on four cards, TN and QTN among it); none prints a result line. With
+    no arguments every phase runs, on one card."""
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--only", "q8"], ["--only", "q4"], ["--only", "attn"],
                     ["--only", "sparse"], ["--only", "scan"], ["--only", "fp16"],
@@ -5720,7 +6192,8 @@ def main(argv=None):
         torch.cuda.empty_cache()
         marks.append(("A, E, H, J", time.time()))
         run_tensor(run_a, run_e, run_h, run_j, model_cfg.num_hidden_layers)
-        marks.append(("T0, TQ0, TS0, TC0, T, TE, TQ, TQE, TS, TSE, TC, TCJ, TCE", time.time()))
+        marks.append(("T0, TQ0, TS0, TC0, T, TE, TQ, TQE, TS, TSE, TC, TCJ, TCE, Q, QD, QT0, "
+                      "QT, QTE, QTD", time.time()))
         log("[smoke] --only tp: seconds by phase: " + ", ".join(
             f"{name} {t - prev:.1f}" for (name, t), (_, prev)
             in zip(marks, [("", t_start)] + marks)))
@@ -5800,8 +6273,9 @@ def main(argv=None):
         # (P held to A, PE to D1 over A's export); F0, F, FE the fsdp axis;
         # PN and FN over NCCL
         run_dp = run_data_parallel(run_a, run_d["D1"], os.path.join(out_dir, "final"),
-                                   model_cfg.num_hidden_layers, t_layers=T_LAYERS)
-        marks.append(("P", time.time()))
+                                   model_cfg.num_hidden_layers, t_layers=T_LAYERS,
+                                   qwen_layers=T_LAYERS)
+        marks.append(("P (with Q, QT0, QT, QTE)", time.time()))
         # F: the eval over the int4 / int8 frozen base, quantized while
         # loading A's export
         run_f = run_quantized_eval(os.path.join(out_dir, "final"), model_cfg, run_d["D1"])
@@ -5977,11 +6451,15 @@ def main(argv=None):
                 if r["kernel"].startswith(kernel)}
 
     lg = run_g["launches"]
+    k1_qwen_err, k1_qwen = run_dp["K1 qwen"]
     kernels = [
         dict(entry("block_grad", "block_grad.cu", "block_grad.py:56",
-                   run_a["launches"]["block_grad"], k1_err, k1_time["ms"], k1_time["plain_ms"],
-                   k1_time["bound"], k1_time["lib_ms"]),
+                   run_a["launches"]["block_grad"], max(k1_err, k1_qwen_err), k1_time["ms"],
+                   k1_time["plain_ms"], k1_time["bound"], k1_time["lib_ms"]),
              ms_by_plan=k1_time["by_plan"], ms_at_plan_n=at_plan_n("K1"),
+             at_qwen={"shape": k1_qwen["shape"], "max_abs_err": k1_qwen_err,
+                      "ms": k1_qwen["ms"], "plain_ms": k1_qwen["plain_ms"],
+                      "bound_ms": k1_qwen["bound"][0], "library_ms": k1_qwen["lib_ms"]},
              plan_n=sparse_times["n"]["all"],
              launches_by_run={"A": run_a["launches"]["block_grad"], "G": lg["block_grad"]}),
         dict(entry("masked_adam", "masked_adam.cu", "masked_adam.py:35",
@@ -6061,12 +6539,14 @@ def main(argv=None):
             "F0 (2,2,1)": run_dp["F0 (2,2,1)"]["launches"],
             **{f"FS {m}": ranks[0]["launches"] for m, ranks in run_dp["FS"].items()},
             **{k: run_dp[k]["launches"] for k in run_dp
-               if k.startswith(("FS0 ", "T0 ", "TQ0 ", "TC0 "))},
+               if k.startswith(("FS0 ", "T0 ", "TQ0 ", "TC0 ", "QT0 "))},
             # rank 0 of the tensor runs (each rank launches on its heads and windows)
             "T tensor": run_dp["T"]["launches"], "TQ tensor": run_dp["TQ"]["launches"],
             "TS tensor": run_dp["TS"]["launches"],
             "TC tensor": run_dp["TC ranks"][0]["launches"],
-            "TCJ tensor": run_dp["TCJ ranks"][0]["launches"]}
+            "TCJ tensor": run_dp["TCJ ranks"][0]["launches"],
+            # Qwen2.5-1.5B's widths: Q in one process, QT rank 0 (hq 6 / hkv 1 a rank)
+            "Q": run_dp["Q"]["launches"], "QT tensor": run_dp["QT"]["launches"]}
     for k in kernels:
         k.setdefault("launches_by_run", {}).update(
             {tag: counts[k["name"]] for tag, counts in runs.items()

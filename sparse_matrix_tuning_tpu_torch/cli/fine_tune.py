@@ -75,13 +75,14 @@ of the host store):
   torchrun --nproc_per_node 2 -m sparse_matrix_tuning_tpu_torch.cli.fine_tune \
       --matrix_sparsity --mesh_shape 1,1,2 ... (the flags above)
 
-T must divide the head counts, the intermediate width and the vocabulary
-of an untied Llama. Over the int8 base each rank holds its slices of
-the int8 weights and head and quantizes a row that lies across the ranks
-with the whole row's amax. In channel mode each rank sums the activations
-of its columns of every target linear's input and the ranks select from
-the gathered statistics. --dropout and --sparse_from_plan raise
-NotImplementedError by name under it.
+T must divide the head counts, the intermediate width and the vocabulary;
+a tied head and q/k/v biases (Qwen2/2.5) are taken, and so is --dropout.
+Over the int8 base each rank holds its slices of the int8 weights and
+head and quantizes a row that lies across the ranks with the whole row's
+amax. In channel mode each rank sums the activations of its columns of
+every target linear's input and the ranks select from the gathered
+statistics. --sparse_from_plan raises NotImplementedError by name under
+it.
 
 model_name_or_path must be a local HF checkpoint dir. Runs on the card
 (--device cuda, the default, raises when there is none); --device cpu runs

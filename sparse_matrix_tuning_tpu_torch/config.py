@@ -191,10 +191,11 @@ class SMTConfig:
         layouts under fsdp; the tensor axis (T > 1) in matrix and channel
         mode over the dense or the int8 base (--frozen_quant int8,
         --head_quant int8) in the per-layer and the scan layout
-        (--scan_layers on, channel + int8 at depth), what it does not run
-        refused by
-        name when the config is built (parallel/mesh.refuse_sharded_axes;
-        the model's widths at the trainer, refuse_tensor_model); so is
+        (--scan_layers on, channel + int8 at depth), with or without
+        --dropout, q/k/v biases and a tied head; what it does not run
+        (--sparse_from_plan) is refused by name when the config is built
+        (parallel/mesh.refuse_sharded_axes; a T that does not divide the
+        model's widths at the trainer, refuse_tensor_model); so is
         --sparse_from_plan with F > 1: the JAX package's entry
         (SMTTrainer.sparse_scan_from_hf) runs on one device, so it has no
         sharded form (parallel/mesh.make_mesh holds the shape to the world

@@ -24,9 +24,11 @@ Under the tensor axis (parallel/tensor.py) a layer runs on its tensor
 slices of the weights: q/k/v/gate/up column-parallel (this rank's hq/T
 query and hkv/T kv heads, RoPE and attention, K3 among them, on those),
 o/down row-parallel with their partial outputs summed over the tensor
-group; the embedding lookup on this rank's hidden columns, gathered; the
-head's logits on this rank's vocabulary rows (the loss is vocabulary-
-parallel, ops/loss.py).
+group, a q/k/v bias whole with the rank's rows added; the embedding
+lookup on this rank's hidden columns, gathered; the head's logits on this
+rank's vocabulary rows (the loss is vocabulary-parallel, ops/loss.py; a
+tied head is the embedding's rows, parallel/tensor.tied_head_rows); a
+dropout mask drawn whole and cut to the rank's kv heads.
 """
 
 from __future__ import annotations
@@ -233,7 +235,8 @@ def default_linear(x: torch.Tensor, w: torch.Tensor, module: str, layer: int) ->
 def _attention(q, k, v, mask_bias, dropout_rate: float = 0.0,
                dropout_rng: Optional[torch.Generator] = None,
                keep: Optional[torch.Tensor] = None,
-               dropout_rows: Optional[Tuple[int, int]] = None):
+               dropout_rows: Optional[Tuple[int, int]] = None,
+               dropout_heads: Optional[Tuple[int, int]] = None):
     """Masked einsum attention. q: (B,S,Hq,hd); k/v: (B,S,Hkv,hd); GQA via
     head grouping; mask_bias: (B,1,S,S) additive fp32 bias (0 / min).
     Dropout on the probabilities (_attn_dropout) with a generator, or with
@@ -246,14 +249,15 @@ def _attention(q, k, v, mask_bias, dropout_rate: float = 0.0,
     scores = scores / float(np.sqrt(hd))
     scores = scores + mask_bias[:, :, None, :, :]
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    probs = _attn_dropout(probs, dropout_rate, dropout_rng, keep, dropout_rows)
+    probs = _attn_dropout(probs, dropout_rate, dropout_rng, keep, dropout_rows, dropout_heads)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
     return out.reshape(b, s, hq * hd)
 
 
 def _attn_dropout(probs: torch.Tensor, rate: float, rng: Optional[torch.Generator] = None,
                   keep: Optional[torch.Tensor] = None,
-                  rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                  rows: Optional[Tuple[int, int]] = None,
+                  heads: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Attention-prob dropout, the JAX twin's (reference configure_dropout
     sets attention_dropout on Llama configs, deepspeed_helpers.py:577-583):
     inverted scaling, zeros elsewhere, in probs' dtype. The keep mask is
@@ -263,15 +267,21 @@ def _attn_dropout(probs: torch.Tensor, rate: float, rng: Optional[torch.Generato
     hand JAX's mask in as `keep`. rows = (first, total): the probabilities
     are rows first.. of a batch of `total` rows (a data-parallel rank's
     part of the global microbatch), whose whole mask is drawn and sliced,
-    so D ranks drop what one process drops at the same global batch."""
+    so D ranks drop what one process drops at the same global batch.
+    heads = (first, total): the probabilities are kv heads first.. of
+    `total` (a tensor rank's heads with their query groups, contiguous in
+    dim 1), cut from the whole mask the same way."""
     if rate <= 0.0 or (rng is None and keep is None):
         return probs
     if keep is None:
-        b = probs.shape[0]
-        shape = probs.shape if rows is None else (rows[1], *probs.shape[1:])
+        b, h = probs.shape[:2]
+        shape = (b if rows is None else rows[1], h if heads is None else heads[1],
+                 *probs.shape[2:])
         keep = torch.rand(shape, generator=rng, device=probs.device) < (1.0 - rate)
         if rows is not None:
             keep = keep[rows[0]:rows[0] + b]
+        if heads is not None:
+            keep = keep[:, heads[0]:heads[0] + h]
     return torch.where(keep, probs / (1.0 - rate), 0.0).to(probs.dtype)
 
 
@@ -325,12 +335,19 @@ def resolve_attn_impl(attn_impl: str, head_dim: int, device, dropout: bool = Fal
 
 
 def _lin(lp: Mapping[str, torch.Tensor], h: torch.Tensor, name: str, linear,
-         layer_idx: int) -> torch.Tensor:
+         layer_idx: int, tensor=None) -> torch.Tensor:
     """Linear via the dispatch hook, plus bias when the checkpoint has one
-    (Qwen2-style QKV biases; never SMT-selected, frozen after conversion)."""
+    (Qwen2-style QKV biases; never SMT-selected, frozen after conversion).
+    tensor: the mesh of a column-parallel linear's output rows, y this
+    rank's; the bias stays whole on every rank (JAX's P()) and its rows
+    of y are added, so its grad is nonzero on those rows only (the warm-up
+    sums it over the tensor group, train/steps.py)."""
     y = linear(h, lp[name], name, layer_idx)
     bias = lp.get(f"{name}_bias")
     if bias is not None:
+        if tensor is not None:
+            n = y.shape[-1]
+            bias = bias.narrow(0, tensor.tensor_index * n, n)
         y = y + bias.to(y.dtype)
     return y
 
@@ -345,16 +362,18 @@ def _decoder_layer(lp: Mapping[str, torch.Tensor], x: torch.Tensor, mask_bias,
     b, s, _ = x.shape
     hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
     enter, leave = (lambda t: t), (lambda t: t)
+    heads = None   # this rank's kv heads of the whole (dropout's mask)
     if tensor is not None:
         from sparse_matrix_tuning_tpu_torch.parallel.tensor import (
             from_tensor_region, to_tensor_region)
+        heads = (tensor.tensor_index * (hkv // tensor.tensor), hkv)
         hq, hkv = hq // tensor.tensor, hkv // tensor.tensor
         enter = partial(to_tensor_region, mesh=tensor)
         leave = partial(from_tensor_region, mesh=tensor)
     h = enter(_rms_norm(x, lp["input_layernorm"], cfg.rms_norm_eps))
-    q = _lin(lp, h, "q_proj", linear, layer_idx)
-    k = _lin(lp, h, "k_proj", linear, layer_idx)
-    v = _lin(lp, h, "v_proj", linear, layer_idx)
+    q = _lin(lp, h, "q_proj", linear, layer_idx, tensor)
+    k = _lin(lp, h, "k_proj", linear, layer_idx, tensor)
+    v = _lin(lp, h, "v_proj", linear, layer_idx, tensor)
     hd = cfg.head_dim
     q = q.reshape(b, s, hq, hd)
     k = k.reshape(b, s, hkv, hd)
@@ -371,12 +390,13 @@ def _decoder_layer(lp: Mapping[str, torch.Tensor], x: torch.Tensor, mask_bias,
         # the generator is made here from its seed, so a remat recompute
         # draws the same mask
         attn = _attention(q, k, v, mask_bias, cfg.attention_dropout,
-                          _dropout_rng(dropout_seed, q.device), dropout_rows=dropout_rows)
+                          _dropout_rng(dropout_seed, q.device), dropout_rows=dropout_rows,
+                          dropout_heads=heads)
     x = x + leave(_lin(lp, attn, "o_proj", linear, layer_idx))
 
     h = enter(_rms_norm(x, lp["post_attention_layernorm"], cfg.rms_norm_eps))
-    gate = _lin(lp, h, "gate_proj", linear, layer_idx)
-    up = _lin(lp, h, "up_proj", linear, layer_idx)
+    gate = _lin(lp, h, "gate_proj", linear, layer_idx, tensor)
+    up = _lin(lp, h, "up_proj", linear, layer_idx, tensor)
     x = x + leave(_lin(lp, F.silu(gate) * up, "down_proj", linear, layer_idx))
     return x
 
@@ -530,7 +550,9 @@ def _run(params, layers, input_ids, cfg: LlamaConfig, attention_mask, remat,
     i's dropout mask is seeded by dropout_layer_seed(dropout_key, i). A key
     of four, (seed, step, rank, row slices), marks the batch as a rank's
     equal part of the global microbatch: the mask is drawn for the whole
-    and sliced."""
+    and sliced (under the tensor axis its kv heads too, _decoder_layer).
+    A tied head under the tensor axis is the rank's vocabulary rows of the
+    embedding (fsdp.LayerGather.head)."""
     b, s = input_ids.shape
     dropout = cfg.attention_dropout > 0 and dropout_key is not None
     rows = (dropout_key[2] * b, dropout_key[3] * b) if dropout and len(dropout_key) == 4 \

@@ -86,15 +86,21 @@ def _over(x: torch.Tensor, divisor: float, reciprocal: bool) -> torch.Tensor:
     return x / divisor
 
 
-def quantize_weight(w: torch.Tensor, reciprocal: bool = False):
+def quantize_weight(w: torch.Tensor, reciprocal: bool = False, tensor=None):
     """Per-output-channel symmetric int8 for an (out, in) weight.
 
     Returns (wq int8 (O, I), sw fp32 (O,)). reciprocal: the scale as JAX
     computes it under jit (quantize-on-load, train/scan_phase.py), amax
     times fp32(1/127), instead of eagerly, amax / 127 (the two differ in
-    the last bit of some scales)."""
+    the last bit of some scales). tensor: the mesh, when w is this rank's
+    input columns of rows that lie across its tensor group (a tied head's
+    embedding): the amax is MAX-reduced over the group first
+    (parallel/tensor.tensor_amax, exact), so wq is this rank's columns and
+    sw the whole rows' scales of one process's quantization, bit for bit."""
     w32 = w.float()
     amax = w32.abs().amax(dim=1)
+    if tensor is not None:
+        amax = tensor_amax(amax, tensor)
     sw = _over(torch.clamp(amax, min=1e-8), 127.0, reciprocal)
     wq = torch.clamp(torch.round(w32 / sw[:, None]), -127, 127).to(torch.int8)
     return wq, sw

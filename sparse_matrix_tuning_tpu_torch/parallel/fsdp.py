@@ -42,7 +42,9 @@ The tensor axis (T > 1, parallel/tensor.py) adds a second split:
 tensor_dim copies the tensor half of JAX's state_shardings (q/k/v/gate/up
 on their output rows, o/down on their input columns, the embedding on its
 hidden columns, the head on its vocabulary rows, the accumulators as their
-weights; the trainables and their moments stay whole over tensor), and
+weights; q/k/v biases, the trainables and their moments stay whole over
+tensor; a tied model has no head leaf: LayerGather.head cuts its rows
+from the embedding's columns where it is used), and
 Sharding records both dims of a leaf. LayerGather still gathers over the
 fsdp group only, so each rank computes on its tensor slices; full, full_many
 and full_tree gather over both axes (export, eval generation, tests);
@@ -402,19 +404,22 @@ class Sharding:
         rows, cols = self.window(path, t)
         return t, rows, cols, self.full_shape(path, t), self.split_axes(path)
 
-    def full(self, path: str, t: torch.Tensor) -> torch.Tensor:
-        """The full leaf at `path` on this rank's device (no autograd)."""
-        return self.full_many([path], [t])[0]
+    def full(self, path: str, t: torch.Tensor, over=("fsdp", "tensor")) -> torch.Tensor:
+        """The full leaf at `path` on this rank's device (no autograd);
+        gathered over the axes of `over` only, where given (a two-axis
+        leaf's fsdp rows, or its tensor slices)."""
+        return self.full_many([path], [t], over)[0]
 
     @torch.no_grad()
-    def full_many(self, paths: Sequence[str], ts: Sequence[torch.Tensor]) -> list:
+    def full_many(self, paths: Sequence[str], ts: Sequence[torch.Tensor],
+                  over=("fsdp", "tensor")) -> list:
         """full() of several leaves, one all-gather a dtype and axis (fsdp,
         then tensor)."""
         out = list(ts)
-        for table, over in ((self.dims, "fsdp"), (self.tdims, "tensor")):
-            split = [i for i, p in enumerate(paths) if p in table]
+        for table, axis in ((self.dims, "fsdp"), (self.tdims, "tensor")):
+            split = [i for i, p in enumerate(paths) if p in table] if axis in over else []
             got = _gather_flat([out[i].detach() for i in split],
-                               [table[paths[i]] for i in split], self.mesh, over) \
+                               [table[paths[i]] for i in split], self.mesh, axis) \
                 if split else []
             for i, t in zip(split, got):
                 out[i] = t
@@ -597,6 +602,12 @@ class LayerGather:
         return gather(self.sh.mesh, [t], [d], self.cast)[0]
 
     def head(self, params, tied: bool) -> torch.Tensor:
+        """The head where it is used: under the tensor axis this rank's
+        vocabulary rows, a tied head's cut from the embedding's hidden
+        columns (parallel/tensor.tied_head_rows)."""
+        if tied and self.tensor is not None:
+            from sparse_matrix_tuning_tpu_torch.parallel.tensor import tied_head_rows
+            return tied_head_rows(self.top(params, "embed_tokens"), self.tensor)
         return self.top(params, "embed_tokens" if tied else "lm_head")
 
     def q_head(self, q_head):

@@ -77,7 +77,9 @@ class Mesh:
     and, among the all-reduced, the sums of the tensor ranks' block-grad
     (or column-grad) parts ("grad_parts_*", train/steps._sum_parts) and
     the channel warm-up's activation taps with its loss ("taps_*",
-    steps.build_channel_warmup_step)."""
+    steps.build_channel_warmup_step), and, among the tensor group's
+    all-gathers, a tied head's ("tied_*", parallel/tensor.tied_head_rows;
+    the gathered tensors' bytes)."""
     shape: Tuple[int, int, int]
     rank: int
     device: torch.device
@@ -150,7 +152,7 @@ class Mesh:
 STAT_KEYS = ("bytes", "calls", "gather_bytes", "gather_calls", "scatter_bytes",
              "scatter_calls", "tensor_bytes", "tensor_calls", "tensor_amax_bytes",
              "tensor_amax_calls", "grad_parts_bytes", "grad_parts_calls", "taps_bytes",
-             "taps_calls")
+             "taps_calls", "tied_bytes", "tied_calls")
 
 
 def free_port() -> int:
@@ -238,32 +240,28 @@ def axis_groups(shape: Sequence[int]) -> Dict[str, list]:
 
 def refuse_sharded_axes(shape: Sequence[int], cfg=None) -> None:
     """Refuse, by name, what the tensor axis (tensor above 1) does not yet
-    run: of the options of `cfg` (an SMTConfig), dropout and
-    --sparse_from_plan; matrix and channel mode over the dense or the int8
-    base (and head), in the per-layer or the scan layout, are taken. The
+    run: of the options of `cfg` (an SMTConfig), --sparse_from_plan. Matrix
+    and channel mode over the dense or the int8 base (and head), in the
+    per-layer or the scan layout, with or without --dropout, are taken. The
     data and fsdp axes take everything (--sparse_from_plan aside:
     config._check_mesh)."""
     t = int(shape[2])
     if t == 1 or cfg is None:
         return
-    refused = []
-    if cfg.dropout > 0:
-        refused.append("--dropout")
     if cfg.sparse_from_plan:
-        refused.append("--sparse_from_plan (its JAX entry runs on one device)")
-    if refused:
         raise NotImplementedError(
-            f"mesh_shape {tuple(shape)}: " + "; ".join(refused) + f" with tensor {t} not yet "
-            "ported to sparse_matrix_tuning_tpu_torch; the tensor axis runs matrix and channel "
-            "mode over the dense or the int8 base, in the per-layer or the scan layout")
+            f"mesh_shape {tuple(shape)}: --sparse_from_plan (its JAX entry runs on one device) "
+            f"with tensor {t} not yet ported to sparse_matrix_tuning_tpu_torch; the tensor axis "
+            "runs matrix and channel mode over the dense or the int8 base, in the per-layer or "
+            "the scan layout, with or without --dropout")
 
 
-def refuse_tensor_model(model_cfg, t: int, params=None) -> None:
-    """Refuse, by name, a model the tensor axis does not split: a tied head
-    (the embedding and the head are split on different dims), q/k/v
-    biases, or a T that does not divide the head counts, the intermediate
-    width and the vocabulary (where JAX's _fit would keep the weight whole
-    and its einsum attention run; the port names it instead)."""
+def refuse_tensor_model(model_cfg, t: int) -> None:
+    """Refuse, by name, a model the tensor axis does not split: a T that
+    does not divide the head counts, the intermediate width and the
+    vocabulary (where JAX's _fit would keep the weight whole and its einsum
+    attention run; the port names it instead). A tied head and q/k/v
+    biases (Qwen2/2.5) are taken."""
     if t == 1:
         return
     c = model_cfg
@@ -271,16 +269,11 @@ def refuse_tensor_model(model_cfg, t: int, params=None) -> None:
              "num_key_value_heads": c.num_key_value_heads,
              "intermediate_size": c.intermediate_size, "vocab_size": c.vocab_size}
     refused = [f"{k} {v}" for k, v in sizes.items() if v % t]
-    if c.tie_word_embeddings:
-        refused.append("tie_word_embeddings (a tied head)")
-    if params is not None and any(k.endswith("_bias") for layer in params["layers"].values()
-                                  for k in layer):
-        refused.append("q/k/v biases")
     if refused:
         raise NotImplementedError(
             f"tensor {t}: " + ", ".join(refused) + " not yet ported to "
             "sparse_matrix_tuning_tpu_torch under the tensor axis: T must divide the head "
-            "counts, the intermediate width and the vocabulary of an untied Llama")
+            "counts, the intermediate width and the vocabulary")
 
 
 def rank_rows(batch: Dict[str, Any], mesh: Mesh, accum: int = 1) -> Dict[str, Any]:

@@ -26,7 +26,17 @@ vocabulary rows (ops/loss.py: the vocabulary-parallel cross-entropy).
   * tensor_all_reduce: a plain SUM or MAX over the group (the loss's);
   * tensor_amax: the MAX over the group of the row amaxes of an int8 row
     quantization (ops/quant.row_quant(tensor=)), exact and carrying a
-    NaN, counted apart in mesh.stats["tensor_amax_*"].
+    NaN, counted apart in mesh.stats["tensor_amax_*"];
+  * tied_head_rows: a tied model's head, this rank's V/T vocabulary rows
+    of the embedding, which the rank holds on its D/T hidden columns (JAX's
+    P("fsdp", "tensor") layout, kept): an all-gather of the columns
+    forward, an all-gather of the rows' grads backward, each rank keeping
+    its columns. Both gathers are exact (gloo's sums one rank's value and
+    zeros), so the head grad reaches the embedding's columns with no sum
+    in between, and autograd adds it to the lookup's grad once, as one
+    process adds its two grads of the one embedding. A reduce-scatter
+    would move the same bytes but sum in an order of its own. Counted in
+    "tensor_*" and apart in "tied_*".
 
 Each is collective over the tensor group (every rank calls it in the
 same order; a remat recompute calls them again) and counts its bytes and
@@ -105,6 +115,36 @@ class _GatherFromTensor(torch.autograd.Function):
         mesh = ctx.mesh
         n = g.shape[-1] // mesh.tensor
         return g.narrow(-1, mesh.tensor_index * n, n).contiguous(), None
+
+
+class _TiedHeadRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, emb, mesh):
+        ctx.mesh = mesh
+        return _tied_gather(emb, mesh, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _tied_gather(g, ctx.mesh, 1), None
+
+
+def _tied_gather(x: torch.Tensor, mesh: Mesh, keep: int) -> torch.Tensor:
+    """The ranks' slices of x gathered over the tensor group, each cut to
+    this rank's share of dim `keep` and joined along the other dim:
+    (V, D/T) columns -> (V/T, D) rows for keep 0, and back for keep 1."""
+    t, i = mesh.tensor, mesh.tensor_index
+    full = all_gather_(x.contiguous(), mesh, "tensor").view(t, *x.shape)
+    mesh.stats["tied_bytes"] += full.numel() * full.element_size()
+    mesh.stats["tied_calls"] += 1
+    n = x.shape[keep] // t
+    return torch.cat([p.narrow(keep, i * n, n) for p in full.unbind(0)], dim=1 - keep)
+
+
+def tied_head_rows(emb: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """A tied model's head on this rank, (V/T, D): its vocabulary rows of
+    the embedding, whose (V, D/T) hidden columns `emb` this rank holds
+    (module notes)."""
+    return _TiedHeadRows.apply(emb, mesh)
 
 
 def to_tensor_region(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:

@@ -92,13 +92,25 @@ def build_q_head(params, model_cfg, sharding=None) -> Dict:
     """Quantize the (frozen) lm-head weight once: {"wq" int8 (V, D), "sw"
     fp32 (V,)}. Tied models quantize the embedding matrix (the embedding
     LOOKUP keeps reading the unquantized copy). sharding: params are the
-    master's fsdp shards; the head is gathered, quantized and sharded."""
+    master's fsdp shards; the head is gathered, quantized and sharded. A
+    tied head under the tensor axis, whose embedding lies on its hidden
+    columns over tensor, is gathered over fsdp only and each rank
+    quantizes its columns with the whole rows' amax (quantize_weight's
+    tensor=); the int8 columns are gathered over tensor (a quarter of the
+    fp32 embedding's bytes) and kept on the head's layout, its vocabulary
+    rows (JAX's q_head P("tensor", "fsdp"))."""
     head = lm_head_weight(params, model_cfg).detach()
     if sharding is None:
         wq, sw = quantize_weight(head)
         return {"wq": wq, "sw": sw}
     name = "embed_tokens" if model_cfg.tie_word_embeddings else "lm_head"
-    wq, sw = quantize_weight(sharding.full(f"master/{name}", head))
+    path = f"master/{name}"
+    if sharding.tdim(path) == 1:   # the tied head's columns
+        cols = sharding.full(path, head, over=("fsdp",))
+        wq, sw = quantize_weight(cols, tensor=sharding.mesh)
+        wq = sharding.full(path, wq, over=("tensor",))
+    else:
+        wq, sw = quantize_weight(sharding.full(path, head))
     return {"wq": sharding.shard("q_head/wq", wq), "sw": sharding.shard("q_head/sw", sw)}
 
 

@@ -54,7 +54,11 @@ sparse_linear.smt_linear(tensor=); over the scan state smt_linear_dyn's,
 summed at the valid entries only), summed over the tensor group as well;
 the clip norm sums the squares of a tensor-split leaf over the tensor
 group and counts a leaf whole over tensor once, so it (and fp16's
-overflow test) is equal on every rank. In channel mode the warm-up keeps
+overflow test) is equal on every rank. A q/k/v bias is whole on every
+rank and each rank's grad holds its rows only: the warm-up sums it over
+the tensor group with the block-grad parts (a whole leaf then, as JAX's
+P() bias). Dropout masks are drawn whole and cut to the rank's rows and
+kv heads (models/llama._attn_dropout). In channel mode the warm-up keeps
 each rank's columns of the activation sums (build_channel_warmup_step),
 and the columns' grads are each rank's parts (ops/sparse_linear.
 smt_channel_linear(tensor=)), summed over the tensor group whole.
@@ -473,6 +477,7 @@ def build_warmup_step(cfg: SMTConfig, model_cfg: LlamaConfig,
     # --qk_scheduler boosts q/k_proj LR during warm-up too (fine_tune.py:160-163)
     lr_scale = make_qk_lr_scale(cfg.qk_lr_times) if cfg.qk_scheduler else None
     use_ls = cfg.dtype == "fp16"  # dynamic loss scaling
+    tensor = mesh is not None and mesh.tensor > 1
 
     def step(state: Dict, batch: Dict) -> tuple:
         master = state["master"]
@@ -488,7 +493,11 @@ def build_warmup_step(cfg: SMTConfig, model_cfg: LlamaConfig,
         flat = flatten_tree(master)
         sharded = () if sharding is None else sharding.sharded_keys("master", flat)
         tsplit = () if sharding is None else sharding.tensor_keys("master", flat)
-        vag = accumulated_value_and_grad(loss_of, cfg.gradient_accumulation_steps, mesh, sharded)
+        # a q/k/v bias is whole on every rank, its grad each rank's rows
+        # (models/llama._lin): summed over the tensor group too
+        biases = dict.fromkeys(k for k in flat if k.endswith("_bias")) if tensor else None
+        vag = accumulated_value_and_grad(loss_of, cfg.gradient_accumulation_steps, mesh, sharded,
+                                         biases)
         loss, grads = vag(flat, batch)
 
         with torch.no_grad():

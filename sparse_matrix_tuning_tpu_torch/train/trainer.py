@@ -73,7 +73,7 @@ class SMTTrainer:
         sh = self.sharding
         if mesh is not None:
             from sparse_matrix_tuning_tpu_torch.parallel.mesh import refuse_tensor_model
-            refuse_tensor_model(model_cfg, mesh.tensor, params)
+            refuse_tensor_model(model_cfg, mesh.tensor)
         if sh is not None:
             if param_sharding is None:
                 params = sh.shard_tree(params, "master")

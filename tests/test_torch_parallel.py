@@ -290,18 +290,19 @@ def test_shard_batch_carries_global_microbatch_counts():
 ])
 def test_sharded_axes_refused(shape, err, match):
     """The tensor axis is taken in matrix and channel mode over the dense
-    or the int8 base, what it does not run refused by name (dropout here;
-    tests/test_torch_tensor.py has each case);
+    or the int8 base, with dropout too, what it does not run refused by
+    name (--sparse_from_plan; tests/test_torch_tensor.py has each case);
     the fsdp axis is taken, with the scan layouts too, but not with
     --sparse_from_plan, whose JAX entry runs on one device
     (tests/test_torch_fsdp_io.py runs the scan layouts)."""
     if err is not None:
-        dropout = SMTConfig(dropout=0.1)
+        unported = SMTConfig(scan_layers="on", sparse_from_plan="plan.json")
         with pytest.raises(err, match=match):
-            refuse_sharded_axes(shape, dropout)
+            refuse_sharded_axes(shape, unported)
         with pytest.raises(err, match=match):
-            SMTConfig(mesh_shape=list(shape), dropout=0.1)
+            SMTConfig(mesh_shape=list(shape), scan_layers="on", sparse_from_plan="plan.json")
         refuse_sharded_axes(shape, SMTConfig())
+        refuse_sharded_axes(shape, SMTConfig(dropout=0.1))
         refuse_sharded_axes(shape, SMTConfig(frozen_quant="int8"))
         refuse_sharded_axes(shape, SMTConfig(channel_sparsity=True))
         assert SMTConfig(mesh_shape=list(shape)).mesh_shape == list(shape)

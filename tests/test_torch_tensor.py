@@ -192,69 +192,90 @@ def test_slice_block_grads_sum_to_the_blocks(module, t):
 
 
 # ---------------------------------------------------------------------------
-# the vocabulary-parallel cross-entropy, T ranks as threads
+# ranks as threads; the vocabulary-parallel cross-entropy
 # ---------------------------------------------------------------------------
 
-_RANK = threading.local()   # the tensor rank of the thread running it
+_RANK = threading.local()   # the global rank of the thread running it
 
 
-class _ThreadGroup:
-    """The tensor group's all-reduce over T threads, one a rank: every rank
-    stacks its value, waits for the others, and takes the SUM (in rank
-    order) or MAX of the stack. With world, the same stands in for
-    torch.distributed's all_reduce, all_gather_object and barrier over a
-    (1, 1, T) world (the trainer's collectives)."""
+class _Groups:
+    """torch.distributed's collectives over the threads of a (D, F, T)
+    world, one a rank: a group is named by the tuple of its ranks (None:
+    the world). all_reduce stacks the members' values in rank order and
+    takes the SUM or MAX; all_gather_object and barrier likewise."""
 
-    def __init__(self, t):
-        self.slots = [None] * t
-        self.barrier = threading.Barrier(t, timeout=60)
+    def __init__(self, world):
+        self.world = tuple(range(world))
+        self.lock = threading.Lock()
+        self.groups = {}
 
-    def all_reduce(self, x, mesh=None, op="sum", stat="tensor"):
-        self.slots[_RANK.r] = x.clone()
-        self.barrier.wait()
-        stack = torch.stack(self.slots)
-        out = stack.sum(0) if op == "sum" else stack.amax(0)
-        self.barrier.wait()
-        return x.copy_(out)
+    def _group(self, group):
+        ranks = group or self.world
+        with self.lock:
+            if ranks not in self.groups:
+                self.groups[ranks] = (threading.Barrier(len(ranks), timeout=120), {})
+        return ranks, self.groups[ranks]
 
-    def dist_all_reduce(self, x, op=torch.distributed.ReduceOp.SUM, group=None, async_op=False):
-        self.all_reduce(x, op="max" if op == torch.distributed.ReduceOp.MAX else "sum")
+    def all_reduce(self, x, op=torch.distributed.ReduceOp.SUM, group=None, async_op=False):
+        ranks, (barrier, slots) = self._group(group)
+        slots[_RANK.r] = x.clone()
+        barrier.wait()
+        stack = torch.stack([slots[r] for r in ranks])
+        out = stack.amax(0) if op == torch.distributed.ReduceOp.MAX else stack.sum(0)
+        barrier.wait()
+        x.copy_(out)
 
     def all_gather_object(self, out, value, group=None):
-        self.slots[_RANK.r] = value
-        self.barrier.wait()
-        out[:] = list(self.slots)
-        self.barrier.wait()
+        ranks, (barrier, slots) = self._group(group)
+        slots[_RANK.r] = value
+        barrier.wait()
+        out[:] = [slots[r] for r in ranks]
+        barrier.wait()
 
-    def dist_barrier(self, group=None):
-        self.barrier.wait()
+    def barrier(self, group=None):
+        self._group(group)[1][0].wait()
+
+    def abort(self):
+        with self.lock:
+            for barrier, _ in self.groups.values():
+                barrier.abort()
 
 
-def _on_threads(t, monkeypatch, fn, world=False):
-    """fn(mesh) on T threads, one a tensor rank of a (1, 1, T) mesh, with
-    parallel/tensor's all-reduce over the threads (with world, every
-    torch.distributed collective the trainer calls); returns their
-    results."""
-    from sparse_matrix_tuning_tpu_torch.parallel import tensor as tensor_mod
-    group = _ThreadGroup(t)
-    monkeypatch.setattr(tensor_mod, "_all_reduce", group.all_reduce)
-    if world:
-        dist = torch.distributed
-        for name, f in (("all_reduce", group.dist_all_reduce), ("barrier", group.dist_barrier),
-                        ("all_gather_object", group.all_gather_object),
-                        ("get_backend", lambda group=None: "gloo")):
-            monkeypatch.setattr(dist, name, f)
-    out, errors = [None] * t, []
+def _thread_mesh(shape, r):
+    """Rank r's Mesh of `shape`, its axis groups named by their ranks (as
+    parallel/mesh.make_mesh makes them: none for an axis of one rank or of
+    the whole world)."""
+    mesh = Mesh(tuple(shape), r, torch.device("cpu"))
+    world = int(np.prod(shape))
+    for axis, members in axis_groups(shape).items():
+        if 1 < len(members[0]) < world:
+            setattr(mesh, f"{axis}_group", next(tuple(g) for g in members if r in g))
+    return mesh
+
+
+def _on_threads(shape, monkeypatch, fn):
+    """fn(mesh) on one thread a rank of a `shape` mesh (an int T: (1, 1,
+    T)), with every torch.distributed collective the port calls replaced
+    by one over the threads of its group; their results in rank order."""
+    shape = (1, 1, shape) if isinstance(shape, int) else tuple(shape)
+    world = int(np.prod(shape))
+    groups = _Groups(world)
+    dist = torch.distributed
+    for name, f in (("all_reduce", groups.all_reduce), ("barrier", groups.barrier),
+                    ("all_gather_object", groups.all_gather_object),
+                    ("get_backend", lambda group=None: "gloo")):
+        monkeypatch.setattr(dist, name, f)
+    out, errors = [None] * world, []
 
     def run(r):
         _RANK.r = r
         try:
-            out[r] = fn(Mesh((1, 1, t), r, torch.device("cpu")))
+            out[r] = fn(_thread_mesh(shape, r))
         except BaseException as e:  # reported below, in the test's thread
             errors.append(e)
-            group.barrier.abort()
+            groups.abort()
 
-    threads = [threading.Thread(target=run, args=(r,)) for r in range(t)]
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(world)]
     for th in threads:
         th.start()
     for th in threads:
@@ -433,7 +454,7 @@ REFUSED = {
     "channel": (dict(channel_sparsity=True, matrix_sparsity=False), None),
     "scan_layers on": (dict(scan_layers="on"), None),
     "scan_layers on int8": (dict(scan_layers="on", frozen_quant="int8"), None),
-    "dropout": (dict(dropout=0.1), "--dropout"),
+    "dropout": (dict(dropout=0.1), None),
     "sparse_from_plan": (dict(sparse_from_plan="plan.json"), "--sparse_from_plan"),
 }
 
@@ -442,8 +463,8 @@ REFUSED = {
 def test_config_refuses_what_tensor_does_not_run(name):
     """Each option the tensor axis does not run raises NotImplementedError
     naming the flag and the mesh; the same config without it builds. The
-    int8 base and head, the scan layout over either base and channel mode
-    (flag None) build."""
+    int8 base and head, the scan layout over either base, channel mode and
+    dropout (flag None) build."""
     from sparse_matrix_tuning_tpu_torch.config import SMTConfig
     kw, flag = REFUSED[name]
     if flag is None:
@@ -459,26 +480,40 @@ def test_config_refuses_what_tensor_does_not_run(name):
     (dict(num_attention_heads=1, num_key_value_heads=1), "num_attention_heads 1"),
     (dict(intermediate_size=769), "intermediate_size 769"),
     (dict(vocab_size=255), "vocab_size 255"),
-    (dict(tie_word_embeddings=True), "tie_word_embeddings"),
-    ("bias", "q/k/v biases"),
+    (dict(tie_word_embeddings=True), None),
+    ("bias", None),
 ], ids=["hkv", "hq-hkv", "intermediate", "vocab", "tied", "bias"])
-def test_trainer_refuses_models_tensor_does_not_split(change, match):
+def test_trainer_refuses_models_tensor_does_not_split(change, match, monkeypatch):
     """A model whose head counts, intermediate width or vocabulary T does
-    not divide, a tied head and q/k/v biases raise NotImplementedError by
-    name when the trainer is built on a tensor mesh (before any collective)."""
+    not divide raises NotImplementedError by name when the trainer is built
+    on a tensor mesh (before any collective). A tied head and q/k/v biases
+    (match None) build and take a warm-up step on two thread ranks at (1, 1,
+    2), their losses equal (tests/test_torch_tensor_qwen.py holds them to
+    one process)."""
     from sparse_matrix_tuning_tpu_torch.config import SMTConfig
     from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig, init_params
     from sparse_matrix_tuning_tpu_torch.train.trainer import SMTTrainer
+    from test_torch_parallel import batches
     model = LlamaConfig(**{**MODEL, "num_attention_heads": 4, "num_key_value_heads": 2})
     params = init_params(model, seed=0)
     if change == "bias":
-        params["layers"]["0"]["q_proj_bias"] = torch.zeros(256)
+        params["layers"]["0"]["q_proj_bias"] = torch.linspace(-1, 1, 256)
     else:
         model = LlamaConfig(**{**MODEL, **change})
-    mesh = Mesh((1, 1, 2), 0, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match=match):
-        SMTTrainer(SMTConfig(**_cfg(), mesh_shape=[1, 1, 2]), model, params, 4, device="cpu",
-                   mesh=mesh)
+        params = init_params(model, seed=0)
+    cfg = SMTConfig(**_cfg(), mesh_shape=[1, 1, 2])
+    if match is not None:
+        mesh = Mesh((1, 1, 2), 0, torch.device("cpu"))
+        with pytest.raises(NotImplementedError, match=match):
+            SMTTrainer(cfg, model, params, 4, device="cpu", mesh=mesh)
+        return
+
+    def rank(mesh):
+        trainer = SMTTrainer(cfg, model, params, 4, device="cpu", mesh=mesh)
+        return float(trainer.train_step(batches(1)[0])["loss"])
+
+    losses = _on_threads(2, monkeypatch, rank)
+    assert np.isfinite(losses[0]) and losses[0] == losses[1]
 
 
 def _k4_calls_on_threads(cfg, model, monkeypatch):
@@ -512,7 +547,7 @@ def _k4_calls_on_threads(cfg, model, monkeypatch):
         return ({k: calls[mesh.tensor_index][k] - before[k] for k in before},
                 sorted(k for k in ("q", "q_head") if k in trainer.state), loss, trainer._scan)
 
-    return _on_threads(2, monkeypatch, rank, world=True)
+    return _on_threads(2, monkeypatch, rank)
 
 
 @pytest.mark.parametrize("name", list(REFUSED))
@@ -526,13 +561,15 @@ def test_trainer_refuses_what_tensor_does_not_run(name, monkeypatch):
     head's K4 under --head_quant int8 (over the dense base in the
     per-layer layout: no K5); over the scan state (--scan_layers on) K5
     on the planned linears over either base (smt_linear_dyn), K4 only over
-    the int8 one; channel mode per layer neither K4 nor K5; and the ranks'
-    losses agree."""
+    the int8 one; channel mode per layer and dropout neither K4 nor K5; and
+    the ranks' losses agree."""
     from sparse_matrix_tuning_tpu_torch.config import SMTConfig
     from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig, init_params
     from sparse_matrix_tuning_tpu_torch.train.trainer import SMTTrainer
     kw, flag = REFUSED[name]
-    model = LlamaConfig(**{**MODEL, "num_attention_heads": 4, "num_key_value_heads": 2})
+    # the CLI sets the model's attention dropout from --dropout
+    model = LlamaConfig(**{**MODEL, "num_attention_heads": 4, "num_key_value_heads": 2,
+                           "attention_dropout": kw.get("dropout", 0.0)})
     cfg = SMTConfig(**{**_cfg(), **kw})
     assert cfg.mesh_shape is None
     if flag is None:

@@ -385,7 +385,7 @@ def test_channel_stacks_tensor_sum_equals_whole_sum(monkeypatch):
         _sum_parts(mine, rows, mesh, "tensor")
         return g, mine["down_proj"], mesh.stats["grad_parts_bytes"]
 
-    got = _on_threads(2, monkeypatch, rank, world=True)
+    got = _on_threads(2, monkeypatch, rank)
     whole = got[0][0] + got[1][0]
     for _, summed, moved in got:
         assert torch.equal(summed, whole) and moved == 3 * 64 * 3 * 4

@@ -304,7 +304,7 @@ def test_valid_only_tensor_sum_equals_whole_stack_sum(over, monkeypatch):
         _sum_parts(whole, {"q_proj": None}, mesh, over)
         return picked["q_proj"], whole["q_proj"], moved, mesh.stats["grad_parts_bytes"] - moved
 
-    got = _on_threads(2, monkeypatch, rank, world=True)
+    got = _on_threads(2, monkeypatch, rank)
     for picked, whole, moved, moved_whole in got:
         assert torch.equal(picked, whole)
         assert (moved, moved_whole) == (5 * 128 * 256 * 4, 12 * 128 * 256 * 4)

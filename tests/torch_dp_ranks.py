@@ -25,7 +25,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from sparse_matrix_tuning_tpu_torch.config import SMTConfig
-from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig, flatten_tree
+from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig, flatten_tree, lm_head_weight
 from sparse_matrix_tuning_tpu_torch.parallel.mesh import (
     Mesh, init_distributed, leaf_checksums, make_mesh)
 from sparse_matrix_tuning_tpu_torch.smt.plan import SMTPlan
@@ -130,7 +130,8 @@ def run_scenario(spec, mesh=None):
     decode = None
     if spec.get("export") and trainer._scan and "q" in trainer.state:
         p = trainer.decode_params()   # collective under fsdp
-        decode = flatten_tree({"lm_head": p["lm_head"], "q": p["layers_q8"]["q"],
+        decode = flatten_tree({"lm_head": lm_head_weight(p, trainer.model_cfg),
+                               "q": p["layers_q8"]["q"],
                                "t": p["layers_q8"]["t"], "base": p["layers_q8"]["base"]})
     tokens = None
     if spec.get("generate"):  # greedy decode from the gathered weights (collective)
