@@ -149,7 +149,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
      each rank's warm-up peak at least FSDP_PEAK_GAIN_GIB under P's; FE,
      rank 0's export equal to the gathered state on each rank; FN, the
      fsdp collectives and fsdp.gather's forward and backward through
-     NCCL (PN's rank), exact;
+     NCCL (PN's rank), exact; FS, the scan layouts under fsdp at (1, 2,
+     1), at FS_LAYERS in the whole script (matrix --scan_layers on
+     --frozen_quant int8 held to E, its sparse peak a rank under one
+     process's run of the same path, channel + int8 at depth held to J,
+     each run here at that depth) and at 22 layers under `--only fs`;
  14. the tensor axis (in the same spawns as P and F0; `--only tp` runs
      the build, A and these; parallel/tensor.py): T0, the tiny pair in
      fp32 and fp16 at (1, 1, 2) over the two gloo ranks and at (1, 2, 2)
@@ -248,7 +252,27 @@ Phases, in order; any failure raises and the exit code is non-zero:
      process's export of the gathered state bit for bit, with Q's tensors
      (names, shapes, dtypes); QTD (`--only tp`), Q and QT under --dropout
      0.1 (QD the one-process run); QTN (`--only nccl`, four cards), QT0 and
-     QT over NCCL at (1, 2, 2).
+     QT over NCCL at (1, 2, 2);
+ 19. N, the host's data path (before A): over one epoch of A's training
+     set at A's global batch and bucket, the C++ collator
+     (data/native.native_batch_iterator, which fit trains from through
+     PrefetchLoader's thread) against the numpy collator
+     (data/sft.batch_iterator) bit for bit on every array, each timed in
+     ms a batch; every run through fit logs how long fit waited on the
+     loader's queue before each step (LoaderClock wraps the prefetcher
+     here, the package counts nothing);
+ 20. PF (after the data-parallel spawn): A's path at T_LAYERS under
+     --profile_dir (steps PF_START .. PF_START + PF_STEPS - 1: the last
+     warm-up step and two sparse steps) and
+     --do_gradient_distribution_analysis with an output_dir under build/:
+     the same losses, eval loss, plan and launches as A at that depth, bit
+     for bit; the Chrome trace exists, parses and holds K1, K2 and K3
+     kernel events under their launch names (PF_TRACE_NAMES), K2's as many
+     as it launches a sparse step times the sparse steps traced; both
+     histogram PNGs (attention, MLP) decode; the traced steps' ms beside
+     the untraced ones and A's, the trace's stop and export timed; PN1
+     (`--only nccl`), A's path at (N, 1, 1) over NCCL, a card a rank,
+     every rank collating the global batch, held to A as P is.
 Before the references, K6 (the int4 unpack-matmul) runs at eight shapes
 (K6_SHAPES: the TinyLlama linears at the eval decode's 64 rows, 16 and a
 ragged 7, Llama-3-8B's gate) and on the layer views of a stack (K6s),
@@ -267,7 +291,8 @@ after the build and the K3 / K7 checks; `--only sparse` after the build and
 the K1 / K2 / K5 checks; `--only scan` runs the build, the tiny 12-layer
 channel int8 reference, J and R; `--only tp` the build, A, E, H, J, T0,
 TQ0, TS0, TC0, T, TE, TQ, TQE, TS, TSE, TC, TCJ and TCE, then Q, QD, QT0,
-QT, QTE and QTD at 28 layers; none of them prints a result.
+QT, QTE and QTD at 28 layers; `--only host` the build, N, A at T_LAYERS and
+PF; none of them prints a result.
 """
 
 from __future__ import annotations
@@ -442,6 +467,24 @@ R_LAYERS, R2_LAYERS = 4, 12
 # depth): cut from TinyLlama's 22 to keep the script inside its time limit
 # beside TC and TCJ, which run every layer; `--only tp` runs all 22
 T_LAYERS = 4
+# the whole script's depth of FS (the scan layouts under fsdp), held to E
+# and J run at that depth: matrix at T_LAYERS, channel + int8 at the least
+# depth at which it takes the scan state (R2_LAYERS); cut from 22 to keep
+# the script inside its time limit on a slow host (1,208.3 s with 22 on
+# one H100, PERF.md); `--only fs` runs all 22
+FS_LAYERS = {"matrix": T_LAYERS, "channel": R2_LAYERS}
+# PF: A's path at T_LAYERS traced over steps 2..4 of its 3 warm-up + 4
+# sparse steps (the last warm-up step and two sparse steps)
+PF_START, PF_STEPS = 2, 3
+# the traced kernels' launch names (their __global__ functions, bf16
+# bodies) by launch counter
+PF_TRACE_NAMES = {"block_grad": "block_grad_wgmma_kernel", "masked_adam": "masked_adam_kernel",
+                  "attn_fwd": "attn_fwd_mma", "attn_bwd_delta": "attn_bwd_delta_kernel",
+                  "attn_bwd_dkdv": "attn_bwd_dkdv_mma",
+                  "attn_bwd_dkdv_reduce": "attn_bwd_dkdv_reduce_kernel",
+                  "attn_bwd_dq": "attn_bwd_dq_mma"}
+# N: epochs of A's training set each collator is timed over
+N_EPOCHS = 20
 # tiny quantized generation, GPU against CPU: logits of each forward call
 # before the decodes part, relative to the call's largest |logit|. Flipped
 # int8 steps and bf16 roundings of K6 inputs, carried through the cache,
@@ -2361,6 +2404,40 @@ def seeded_params(model_cfg, dtype, device):
     return tree_map(lambda t: t.to(device=device, dtype=dtype, copy=True), _SEEDED[key])
 
 
+class LoaderClock:
+    """For the length of a `with`, data/native.PrefetchLoader as fit
+    takes it yields through a clock: `waits` holds how long each next()
+    waited on the loader's queue (ms, in fit's order, skipped batches
+    too). The package itself counts nothing."""
+
+    def __enter__(self):
+        from sparse_matrix_tuning_tpu_torch.data import native
+        self.real, self.waits = native.PrefetchLoader, []
+        waits = self.waits
+
+        class Timed(self.real):
+            def __iter__(self):
+                it = super().__iter__()
+                try:
+                    while True:
+                        t0 = time.perf_counter()
+                        try:
+                            batch = next(it)
+                        except StopIteration:
+                            return
+                        waits.append((time.perf_counter() - t0) * 1e3)
+                        yield batch
+                finally:
+                    it.close()   # releases the loader's thread
+
+        native.PrefetchLoader = Timed
+        return self
+
+    def __exit__(self, *exc):
+        from sparse_matrix_tuning_tpu_torch.data import native
+        native.PrefetchLoader = self.real
+
+
 def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
                   full_ft_steps=3, sparse_steps=4, eval_batches=2,
                   ratios=(0.0084, 0.0084), attn_impl="auto", out_dir=None, log_fn=log,
@@ -2412,7 +2489,9 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
     loader, models/hf_io.load_hf_params, or on a mesh that splits them
     load_hf_params_sharded, each rank reading its blocks), model_cfg its
     config. With cfg_extra's dropout the model's attention dropout is set
-    from it, as the CLI sets it."""
+    from it, as the CLI sets it. fit takes its training batches from the
+    C++ collator's prefetch thread; "loader_wait_ms" holds how long it
+    waited on the loader before each step (LoaderClock)."""
     import dataclasses
     import numpy as np
     import torch
@@ -2577,9 +2656,11 @@ def run_main_path(model_cfg, device, *, dtype="bf16", bs=4, seq=512,
     if mesh is not None:
         mesh.reset_stats()
         REDUCE_S[0] = 0.0
-    history = trainer.fit(train_ds, eval_ds, pad_token_id=0, on_metrics=on_metrics)
+    with LoaderClock() as clock:
+        history = trainer.fit(train_ds, eval_ds, pad_token_id=0, on_metrics=on_metrics)
     sync()
     t_fit_end = time.perf_counter()
+    summary["loader_wait_ms"] = clock.waits
     whole = None
     if sh is not None and trainer._scan:   # the whole scan state, gathered once on every rank
         whole = {k: sh.full_tree(v, k, device=device) for k, v in trainer.state.items()
@@ -2933,9 +3014,146 @@ def report_run(tag, what, s, n_warmup):
         + (f"; {s['offloaded']} dense weights offloaded to the host, none left on the device"
            if s["offloaded"] is not None else ""))
     log(f"[{tag}] kernel launches: {s['launches']} (warm-up: {s['launches_warmup']})")
+    wait = s["loader_wait_ms"]
+    log(f"[{tag}] fit's wait on the C++ collator's prefetch queue, ms before each step: "
+        f"warm-up {[round(x, 3) for x in wait[:n_warmup]]}, sparse "
+        f"{[round(x, 3) for x in wait[n_warmup:]]}")
     if "sparse_step_syncs" in s:
         log(f"[{tag}] eval {s['eval_ms']:.1f} ms for {s['eval_batches']} batches; host-device "
             f"syncs in a sparse step {s['sparse_step_syncs']} ({CARD['smi']})")
+
+
+def check_collator(model_cfg, bs=4, seq=512, n_steps=7):
+    """N: one epoch of A's training set (synthetic_sft, seed 1; A's global
+    batch and its one bucket) through the C++ collator and the numpy one,
+    bit for bit on every array; each timed over N_EPOCHS epochs, the
+    median epoch's ms a batch (the C++ library built before)."""
+    import numpy as np
+    from sparse_matrix_tuning_tpu_torch.data import native
+    from sparse_matrix_tuning_tpu_torch.data.sft import batch_iterator
+    found = native.library_path().exists()
+    t0 = time.perf_counter()
+    lib = native.build()
+    built = "found" if found else f"built by g++ in {time.perf_counter() - t0:.2f} s"
+    ds = synthetic_sft(n_steps * bs, seq, model_cfg.vocab_size, 1)
+    arena = native.TokenArena.from_dataset(ds)
+    kw = dict(batch_size=bs, pad_token_id=0, buckets=[seq], seed=1234, epoch=0)
+    got = list(native.native_batch_iterator(arena, **kw))
+    want = list(batch_iterator(ds, **kw))
+    if len(got) != len(want) or len(got) != n_steps:
+        raise AssertionError(f"N: {len(got)} native batches against {len(want)} numpy ones")
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k in w:
+            if g[k].dtype != w[k].dtype or g[k].shape != w[k].shape or \
+                    not np.array_equal(g[k], w[k]):
+                raise AssertionError(f"N: batch {i} {k} differs from batch_iterator's")
+
+    def ms_a_batch(make):
+        per_epoch = []
+        for _ in range(N_EPOCHS):
+            t = time.perf_counter()
+            n = sum(1 for _ in make())
+            per_epoch.append((time.perf_counter() - t) * 1e3 / n)
+        return statistics.median(per_epoch)
+    native_ms = ms_a_batch(lambda: native.native_batch_iterator(arena, **kw))
+    numpy_ms = ms_a_batch(lambda: batch_iterator(ds, **kw))
+    log(f"[N] the C++ collator ({os.path.relpath(lib, REPO)}, {built}) "
+        f"over one epoch of A's training set, {n_steps} batches of {bs} x {seq}: bit for bit "
+        f"batch_iterator's on every array; ms a batch, median of {N_EPOCHS} epochs: C++ "
+        f"{native_ms:.4f}, numpy {numpy_ms:.4f} ({CARD['smi']})")
+    return {"native_ms": native_ms, "numpy_ms": numpy_ms, "batches": n_steps}
+
+
+def run_profiled(ref, layers):
+    """PF: A's path at `layers` under --profile_dir (steps PF_START ..
+    PF_START + PF_STEPS - 1) and --do_gradient_distribution_analysis, an
+    output_dir under build/, held to `ref`, A's run at that depth in this
+    process: losses, eval loss, plan and launches bit for bit (the
+    profiler and the collator change no arithmetic); one trace, which
+    parses and holds K1, K2 and K3 kernel events under their launch names
+    (PF_TRACE_NAMES), K2's as many as it launches a sparse step times the
+    sparse steps traced (no step outside the window leaked in); the two
+    histogram PNGs (attention, MLP) decode. Logs the profiler's overhead:
+    the traced steps' ms beside the untraced ones and ref's, and the
+    trace's stop and export."""
+    import re
+    from PIL import Image
+    from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
+    from sparse_matrix_tuning_tpu_torch.train.trainer import SMTTrainer
+    cfg = LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": layers})
+    n_warm, n_sparse = 3, 4
+    root = tempfile.mkdtemp(prefix="smoke_pf_", dir=os.path.join(REPO, "build"))
+    prof, out = os.path.join(root, "prof"), os.path.join(root, "out")
+    stops, real_stop = [], SMTTrainer._stop_profile
+
+    def timed_stop(self):
+        t0, tracing = time.perf_counter(), self._profiler is not None
+        real_stop(self)
+        if tracing:
+            stops.append(time.perf_counter() - t0)
+    SMTTrainer._stop_profile = timed_stop
+    try:
+        pf = run_main_path(cfg, "cuda", out_dir=out, full_ft_steps=n_warm,
+                           sparse_steps=n_sparse,
+                           cfg_extra=dict(profile_dir=prof, profile_start=PF_START,
+                                          profile_steps=PF_STEPS,
+                                          do_gradient_distribution_analysis=True))
+        traces = sorted(os.listdir(prof))
+        want = f"trace_steps_{PF_START}_{PF_START + PF_STEPS}.json"
+        if traces != [want]:
+            raise AssertionError(f"PF: traces {traces}, not [{want}]")
+        trace_mb = os.path.getsize(os.path.join(prof, want)) / 1e6
+        with open(os.path.join(prof, want)) as f:
+            events = json.load(f)["traceEvents"]
+        pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+        sizes = []
+        for name in pngs:
+            with Image.open(os.path.join(out, name)) as img:
+                img.load()
+                sizes.append(img.size)
+    finally:
+        SMTTrainer._stop_profile = real_stop
+        shutil.rmtree(root, ignore_errors=True)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    counts = {k: sum(1 for e in kernels if re.search(rf"\b{fn}\b", e.get("name", "")))
+              for k, fn in PF_TRACE_NAMES.items()}
+    traced = range(PF_START, PF_START + PF_STEPS)
+    sparse_traced = sum(1 for i in traced if i >= n_warm)
+    k2_sparse = ref["launches"]["masked_adam"] - ref["launches_warmup"]["masked_adam"]
+    k2_step = k2_sparse // n_sparse
+    if pf["loss"] != ref["loss"] or pf["eval_loss"] != ref["eval_loss"] or \
+            pf["plan"] != ref["plan"] or pf["launches"] != ref["launches"]:
+        raise AssertionError(f"PF: losses {pf['loss']} + eval {pf['eval_loss']}, plan "
+                             f"{pf['plan']['fingerprint'][:16]}, launches {pf['launches']} "
+                             f"against A at {layers} layers: {ref['loss']} + eval "
+                             f"{ref['eval_loss']}, {ref['plan']['fingerprint'][:16]}, "
+                             f"{ref['launches']}")
+    if not kernels or not all(counts.values()):
+        raise AssertionError(f"PF: kernel events of the trace by launch name {counts} "
+                             f"({len(kernels)} kernel events)")
+    if k2_sparse % n_sparse or counts["masked_adam"] != k2_step * sparse_traced:
+        raise AssertionError(f"PF: {counts['masked_adam']} K2 events in the trace, not "
+                             f"{k2_step} a sparse step x {sparse_traced} sparse steps traced")
+    if len(pngs) != 2 or not all(m in "".join(pngs) for m in ("q_proj", "down_proj")) or \
+            not all(w > 0 and h > 0 for w, h in sizes):
+        raise AssertionError(f"PF: histograms {pngs} of sizes {sizes}")
+    ms, ref_ms = pf["step_ms"], ref["step_ms"]
+    untraced = [i for i in range(len(ms)) if i not in traced]
+    log(f"[PF] A's path at {layers} layers under --profile_dir (steps {PF_START}.."
+        f"{PF_START + PF_STEPS - 1}, {sparse_traced} of them sparse) and "
+        f"--do_gradient_distribution_analysis: losses, eval loss, plan "
+        f"{pf['plan']['fingerprint'][:16]} and launches bit for bit A's at {layers} layers; "
+        f"trace {want} {trace_mb:.1f} MB, {len(events)} events, {len(kernels)} kernel events, "
+        f"by launch name {counts} (K2 {k2_step} a sparse step); histograms {pngs} {sizes} "
+        f"({CARD['smi']})")
+    log(f"[PF] ms/step, traced steps {[round(ms[i], 1) for i in traced]} (A at {layers} "
+        f"layers {[round(ref_ms[i], 1) for i in traced]}), untraced "
+        f"{[round(ms[i], 1) for i in untraced]} (A {[round(ref_ms[i], 1) for i in untraced]}); "
+        f"step {PF_START + PF_STEPS} includes the trace's stop and export, "
+        f"{[round(x, 2) for x in stops]} s; eval + exports {pf['eval_and_export_s']:.1f} s "
+        f"(A {ref['eval_and_export_s']:.1f} s without an output_dir)")
+    pf.update(trace_counts=counts, trace_mb=trace_mb, stop_s=stops)
+    return pf
 
 
 # ---------------------------------------------------------------------------
@@ -4321,7 +4539,7 @@ def dp_rank(rank, world, port, jobs, out_dir, shape=None, backend="gloo"):
     backend "nccl" one NCCL rank on cuda:rank, no CUDA-tensor check): the
     CUDA-tensor check, then each job of `jobs` over a (world, 1, 1) mesh:
     ("P0", frozen_quant) the tiny fp32 pair, ("P", layers) TinyLlama as run
-    A at bs 2 a rank, ("PE", export_dir) the rank-split eval; and over a
+    A at A's global batch (bs 4 / world a rank), ("PE", export_dir) the rank-split eval; and over a
     (1, world, 1) mesh, the fsdp axis (or `shape` where given): ("F0",
     frozen_quant) the tiny fp32 pair at bs 4 / world a rank, ("F", (layers,
     export_dir)) TinyLlama as run A at A's global batch with the export
@@ -4369,7 +4587,7 @@ def dp_rank(rank, world, port, jobs, out_dir, shape=None, backend="gloo"):
                               frozen_quant=arg, **P0_KW)
         elif tag == "P":
             cfg = LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": arg})
-            s = run_main_path(cfg, device, bs=2, mesh=mesh,
+            s = run_main_path(cfg, device, bs=4 // world, mesh=mesh,
                               log_fn=(lambda m: log(f"[P rank {rank}] {m}")))
         elif tag == "F0":
             fsdp_mod.LIVE.update(now=0, peak=0)
@@ -4533,7 +4751,7 @@ def hold_fs0(shape, name, got, ref, tag="FS0"):
         f"{[round(x['scatter_bytes'] / 1e6, 2) for x in c]}; rank 0 launches {got[0]['launches']}")
 
 
-def hold_fs(tag, shape, backend, fs, ref, ref_tag, layers, g=None):
+def hold_fs(tag, shape, backend, fs, ref, ref_tag, layers, peak=None):
     """FS: TinyLlama's scan layouts on an fsdp mesh against the one-process
     run `ref` of the same path (J for channel + int8; E for --scan_layers on
     in matrix mode, whose warm-up is the same and whose sparse phase runs
@@ -4542,8 +4760,8 @@ def hold_fs(tag, shape, backend, fs, ref, ref_tag, layers, g=None):
     every kernel of the path launched on each rank; each rank's sharded
     leaves and host store exactly 1/F of the whole; the export read back
     (FE's check) and equal to one process's export of the gathered state
-    (FSE); with g, each rank's sparse-phase peak under G's (the one-process
-    int8 scan state). Logs per rank ms/step, the collectives' bytes, calls
+    (FSE); with peak, (what, bytes), each rank's sparse-phase peak under
+    it (one process's run of the same path). Logs per rank ms/step, the collectives' bytes, calls
     and ms, the state's bytes and the peaks."""
     import numpy as np
     gib = 1024 ** 3
@@ -4603,7 +4821,7 @@ def hold_fs(tag, shape, backend, fs, ref, ref_tag, layers, g=None):
             f"store {sb['sparse']['host_here'] / gib:.3f} / {sb['sparse']['host_full'] / gib:.3f}"
             f" GiB; peak GiB {({k: round(v / gib, 2) for k, v in s['peak'].items() if v})} beside "
             f"{ref_tag}'s {({k: round(v / gib, 2) for k, v in ref['peak'].items() if v})}"
-            + (f" and G's fit peak {g['peak_gib']:.2f}" if g is not None else "")
+            + (f" and {peak[0]} sparse peak {peak[1] / gib:.2f}" if peak is not None else "")
             + f"; launches {s['launches']}; {s['seconds']:.1f} s")
     log(f"[{tag}E] {mode}: rank 0's export ({fs[0]['export_tensors_equal']} tensors) read back "
         f"on each rank equals the gathered state, and its {fs[0]['fse_tensors']} tensors equal "
@@ -4614,12 +4832,12 @@ def hold_fs(tag, shape, backend, fs, ref, ref_tag, layers, g=None):
     if len(f_norm) != len(r_norm) or rel_norm.max() > P_GNORM_RTOL:
         raise AssertionError(f"{tag} {mode}: warm-up grad norms {f_norm.tolist()} part from "
                              f"{ref_tag}'s {r_norm.tolist()} by more than {P_GNORM_RTOL}")
-    if g is not None:
+    if peak is not None:
         for r, s in enumerate(fs):
-            if s["peak"]["later_sparse_steps"] >= g["peak_gib"] * gib:
+            if s["peak"]["later_sparse_steps"] >= peak[1]:
                 raise AssertionError(f"{tag} {mode} rank {r}: sparse-phase peak "
                                      f"{s['peak']['later_sparse_steps'] / gib:.2f} GiB not under "
-                                     f"G's {g['peak_gib']:.2f}")
+                                     f"{peak[0]} {peak[1] / gib:.2f}")
 
 
 def pn_rank(rank, world, port, out_dir):
@@ -5743,6 +5961,22 @@ def run_fsdp_nccl(run_a, layers):
     run_fsdp_scan(run_e, run_j, layers, world=n, backend="nccl", tag="FSN")
 
 
+def run_data_nccl(run_a, layers):
+    """PN1 (`--only nccl`, two or more cards): A's path over the data axis
+    at (N, 1, 1) over NCCL, one rank a card, at A's global batch (bs 4 / N
+    a rank): every rank collates the global batch in C++ and keeps its
+    rows; held to A as P is (hold_p)."""
+    import torch
+    n = torch.cuda.device_count()
+    t0 = time.time()
+    ranks = _spawn(dp_rank, n, [("P", layers)], after=(None, "nccl"))
+    log(f"[PN1] {n} NCCL ranks, one a card, at ({n}, 1, 1): {time.time() - t0:.1f} s for the "
+        f"spawn and the run")
+    p = [r[f"P:{layers}"] for r in ranks]
+    log_selection_margin(run_a, p[0], tag="PN1")
+    hold_p("PN1", (n, 1, 1), "nccl", p, run_a, layers)
+
+
 def run_tensor_nccl(run_a, run_e, run_h, run_j, layers, refs):
     """TN, TQN, TSN and TCN (`--only nccl`, four cards or more): the tensor
     axis over NCCL, one rank a card, at (1, N / 2, 2): TN0, TQN0, TSN0 and
@@ -5875,8 +6109,54 @@ def log_selection_margin(run_a, run_p, tag="P", ref="A"):
     return float(spread.max()), gaps
 
 
+def hold_p(tag, shape, backend, p, run_a, layers):
+    """P (and PN1 over NCCL): A's path over the data axis at A's global
+    batch, each rank's summary in `p`, held to A: the ranks' losses and
+    plans equal, every training kernel launched on each rank, losses within
+    P_VS_A_RTOL and warm-up grad norms within P_GNORM_RTOL of A's; per rank
+    ms/step, all-reduced MB and ms a step, peaks, launches and fit's wait on
+    the collator's queue."""
+    import numpy as np
+    if any(x["loss"] != p[0]["loss"] or x["plan"] != p[0]["plan"] for x in p):
+        raise AssertionError(f"{tag}: the ranks' losses or plans differ")
+    for r, s in enumerate(p):
+        if not all(s["launches"][n] > 0 for n in TRAIN_KERNELS):
+            raise AssertionError(f"{tag} rank {r} did not launch every kernel: {s['launches']}")
+    a_loss = run_a["loss"] + [run_a["eval_loss"]]
+    p_loss = p[0]["loss"] + [p[0]["eval_loss"]]
+    rel = np.abs(np.array(p_loss) - np.array(a_loss)) / np.abs(np.array(a_loss))
+    a_norm, p_norm = np.array(run_a["warmup_grad_norm"]), np.array(p[0]["warmup_grad_norm"])
+    rel_norm = np.abs(p_norm - a_norm) / a_norm
+    log(f"[{tag}] TinyLlama-1.1B bf16, {layers} layers, {len(p)} {backend} ranks at {shape} x "
+        f"bs {4 // len(p)} x seq 512 (A's global batch), 3 warm-up + 4 sparse steps: losses "
+        f"{p_loss} vs A's {a_loss}, worst rel diff {float(rel.max()):.2e} (bound "
+        f"{P_VS_A_RTOL}); warm-up grad norms {p_norm.tolist()} vs A's {a_norm.tolist()}, "
+        f"worst rel diff {float(rel_norm.max()):.2e} (bound {P_GNORM_RTOL}); plan "
+        f"{p[0]['plan']['fingerprint'][:16]} on every rank, A's "
+        f"{run_a['plan']['fingerprint'][:16]}; {p[0]['checksums']} leaves bit-equal across "
+        f"ranks (master, m, v after the warm-up; trainables, m, v after fit)")
+    n_warm = 3
+    for r, s in enumerate(p):
+        ms = s["step_ms"]
+        log(f"[{tag}] rank {r}: warm-up ms/step {[round(x, 1) for x in ms[:n_warm]]}, sparse "
+            f"{[round(x, 1) for x in ms[n_warm:]]} (A: {[round(x, 1) for x in run_a['step_ms']]}); "
+            f"all-reduced MB/step {[round(b / 1e6, 3) for b in s['reduced_bytes']]}, all-reduce "
+            f"ms/step {[round(x, 1) for x in s['reduce_ms']]}; peak GiB "
+            f"{ {k: round(v / 1024 ** 3, 2) for k, v in s['peak'].items() if v is not None} }; "
+            f"launches K1 {s['launches']['block_grad']}, K2 "
+            f"{s['launches']['masked_adam']}, K3 fwd {s['launches']['attn_fwd']}, dK/dV "
+            f"{s['launches']['attn_bwd_dkdv']}; wait on the collator's queue ms/step "
+            f"{[round(x, 3) for x in s['loader_wait_ms']]}; {s['seconds']:.1f} s")
+    if rel.max() > P_VS_A_RTOL:
+        raise AssertionError(f"{tag}: losses part from A's by {float(rel.max()):.2e} > "
+                             f"{P_VS_A_RTOL}")
+    if len(p_norm) != len(a_norm) or rel_norm.max() > P_GNORM_RTOL:
+        raise AssertionError(f"{tag}: warm-up grad norms {p_norm.tolist()} part from A's "
+                             f"{a_norm.tolist()} by more than {P_GNORM_RTOL}")
+
+
 def run_data_parallel(run_a, d1, export_dir, p_layers, fs=True, t_layers=None, tq=True,
-                      qwen_layers=None):
+                      qwen_layers=None, fs_layers=None):
     """P0, P and PE in two gloo ranks on the one card (one spawn), held
     against one process: P0 against its tiny references run here, P
     against A, PE against D1; in the same spawn the fsdp axis (F0, F, FS0,
@@ -5886,9 +6166,11 @@ def run_data_parallel(run_a, d1, export_dir, p_layers, fs=True, t_layers=None, t
     have run; check_fsdp). With qwen_layers, Q at that depth in this
     process and QT with QTE in the same spawn, QT0 in both spawns
     (prepare_qwen, hold_qwen). Then PN over NCCL. Returns the rank-0
-    summaries, and every rank's TC and TCJ summaries under "TC ranks" and
-    "TCJ ranks"."""
+    summaries, every rank's TC and TCJ summaries under "TC ranks" and
+    "TCJ ranks", and A's and E's runs at t_layers under "A cut" and "E
+    cut". fs_layers: FS's depth by mode (p_layers by default)."""
     t_layers = p_layers if t_layers is None else t_layers
+    fs_layers = fs_layers or {"matrix": p_layers, "channel": p_layers}
     import numpy as np
     from sparse_matrix_tuning_tpu_torch.data.sft import batch_iterator
     from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
@@ -5911,8 +6193,9 @@ def run_data_parallel(run_a, d1, export_dir, p_layers, fs=True, t_layers=None, t
     jobs = [("P0", "none"), ("P0", "int8"), ("P", p_layers), ("PE", export_dir),
             ("F0", "none"), ("F0", "int8"), ("F", (p_layers, dirs[0]))] + \
         [("FS0", n) for n in FS0_RUNS] + \
-        ([("FS", (p_layers, "matrix", dirs[1])), ("FS", (p_layers, "channel", dirs[2]))]
-         if fs else []) + [("T0", d) for d in T0_DTYPES] + [("T", (t_layers, dirs[3]))] + \
+        ([("FS", (fs_layers["matrix"], "matrix", dirs[1])),
+          ("FS", (fs_layers["channel"], "channel", dirs[2]))] if fs else []) + \
+        [("T0", d) for d in T0_DTYPES] + [("T", (t_layers, dirs[3]))] + \
         [("TQ0", d) for d in T0_DTYPES] + ([("TQ", t_layers)] if tq else []) + \
         [("TS0", c) for c in TS0_CASES] + ([("TS", t_layers)] if tq else []) + \
         [("TC0", c) for c in TC0_CASES] + \
@@ -5967,40 +6250,8 @@ def run_data_parallel(run_a, d1, export_dir, p_layers, fs=True, t_layers=None, t
             f"{got[0]['launches']}")
 
     p = [r[f"P:{p_layers}"] for r in ranks]
-    if p[0]["loss"] != p[1]["loss"] or p[0]["plan"] != p[1]["plan"]:
-        raise AssertionError("P: the ranks' losses or plans differ")
-    for r, s in enumerate(p):
-        if not all(s["launches"][n] > 0 for n in TRAIN_KERNELS):
-            raise AssertionError(f"P rank {r} did not launch every kernel: {s['launches']}")
-    a_loss = run_a["loss"] + [run_a["eval_loss"]]
-    p_loss = p[0]["loss"] + [p[0]["eval_loss"]]
-    rel = np.abs(np.array(p_loss) - np.array(a_loss)) / np.abs(np.array(a_loss))
-    a_norm, p_norm = np.array(run_a["warmup_grad_norm"]), np.array(p[0]["warmup_grad_norm"])
-    rel_norm = np.abs(p_norm - a_norm) / a_norm
-    log(f"[P] TinyLlama-1.1B bf16, {p_layers} layers, 2 ranks x bs 2 x seq 512 (A's global "
-        f"batch), 3 warm-up + 4 sparse steps: losses {p_loss} vs A's {a_loss}, worst rel diff "
-        f"{float(rel.max()):.2e} (bound {P_VS_A_RTOL}); warm-up grad norms {p_norm.tolist()} "
-        f"vs A's {a_norm.tolist()}, worst rel diff {float(rel_norm.max()):.2e} (bound "
-        f"{P_GNORM_RTOL}); plan {p[0]['plan']['fingerprint'][:16]} on both ranks, A's "
-        f"{run_a['plan']['fingerprint'][:16]}; {p[0]['checksums']} leaves bit-equal across "
-        f"ranks (master, m, v after the warm-up; trainables, m, v after fit)")
     log_selection_margin(run_a, p[0])
-    n_warm = 3
-    for r, s in enumerate(p):
-        ms = s["step_ms"]
-        log(f"[P] rank {r}: warm-up ms/step {[round(x, 1) for x in ms[:n_warm]]}, sparse "
-            f"{[round(x, 1) for x in ms[n_warm:]]} (A: {[round(x, 1) for x in run_a['step_ms']]}); "
-            f"all-reduced MB/step {[round(b / 1e6, 3) for b in s['reduced_bytes']]}, all-reduce "
-            f"ms/step {[round(x, 1) for x in s['reduce_ms']]}; peak GiB "
-            f"{ {k: round(v / 1024 ** 3, 2) for k, v in s['peak'].items() if v is not None} }; "
-            f"launches K1 {s['launches']['block_grad']}, K2 "
-            f"{s['launches']['masked_adam']}, K3 fwd {s['launches']['attn_fwd']}, dK/dV "
-            f"{s['launches']['attn_bwd_dkdv']}; {s['seconds']:.1f} s")
-    if rel.max() > P_VS_A_RTOL:
-        raise AssertionError(f"P: losses part from A's by {float(rel.max()):.2e} > {P_VS_A_RTOL}")
-    if len(p_norm) != len(a_norm) or rel_norm.max() > P_GNORM_RTOL:
-        raise AssertionError(f"P: warm-up grad norms {p_norm.tolist()} part from A's "
-                             f"{a_norm.tolist()} by more than {P_GNORM_RTOL}")
+    hold_p("P", (2, 1, 1), "gloo", p, run_a, p_layers)
 
     pe = [r[f"PE:{export_dir}"] for r in ranks]
     for r, s in enumerate(pe):
@@ -6037,7 +6288,7 @@ def run_data_parallel(run_a, d1, export_dir, p_layers, fs=True, t_layers=None, t
         f"reduce_scatter_ of {pn[0]['fn']['cases']} exact, fsdp.gather forward and backward "
         f"exact; path {pn[0]['fn']['path']}, counters {pn[0]['fn']['stats']}")
     return {"P": p[0], "P0": ranks[0]["P0:none"], "P0 int8": ranks[0]["P0:int8"], "PE": pe[0],
-            "PN": pn[0], **fsdp}
+            "PN": pn[0], "A cut": t_refs["A"], "E cut": t_refs["E"], **fsdp}
 
 
 def main(argv=None):
@@ -6055,16 +6306,19 @@ def main(argv=None):
     (run_fsdp_scan); `--only tp` the build, A, E, H and J, then the tensor
     axis: T0, TQ0, TS0, TC0, T, TE, TQ, TQE, TS, TSE, TC, TCJ and TCE
     (run_tensor), then Q, QD, QT0, QT, QTE and QTD at Qwen2.5-1.5B's 28
-    layers; `--only nccl` (two or more cards) the build, A,
-    then the fsdp axis over NCCL, one rank a card (run_fsdp_nccl, FSN and,
-    on four cards, TN and QTN among it); none prints a result line. With
-    no arguments every phase runs, on one card."""
+    layers; `--only nccl` (two or more cards) the build, A, PN1 (the data
+    axis at (N, 1, 1), run_data_nccl), then the fsdp axis over NCCL, one
+    rank a card (run_fsdp_nccl, FSN and, on four cards, TN and QTN among
+    it); `--only host` the build, N (check_collator), A at T_LAYERS and PF
+    (run_profiled); none prints a result line. With no arguments every
+    phase runs, on one card."""
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--only", "q8"], ["--only", "q4"], ["--only", "attn"],
                     ["--only", "sparse"], ["--only", "scan"], ["--only", "fp16"],
-                    ["--only", "dp"], ["--only", "fs"], ["--only", "nccl"], ["--only", "tp"]):
+                    ["--only", "dp"], ["--only", "fs"], ["--only", "nccl"], ["--only", "tp"],
+                    ["--only", "host"]):
         raise SystemExit("usage: python3 chip_smoke.py "
-                         "[--only q8|q4|attn|sparse|scan|fp16|dp|fs|nccl|tp]")
+                         "[--only q8|q4|attn|sparse|scan|fp16|dp|fs|nccl|tp|host]")
     only = argv[1] if argv else None
     only_q8 = only == "q8"
     t_start = time.time()
@@ -6205,9 +6459,26 @@ def main(argv=None):
         run_a = run_main_path(model_cfg, "cuda")
         report_run("A", "TinyLlama-1.1B bf16, bs 4 x seq 512, remat, attn auto (K3)", run_a, 3)
         marks.append(("A", time.time()))
+        run_data_nccl(run_a, model_cfg.num_hidden_layers)
+        marks.append(("PN1", time.time()))
         run_fsdp_nccl(run_a, model_cfg.num_hidden_layers)
         marks.append(("FN0, FN1", time.time()))
         log("[smoke] --only nccl: seconds by phase: " + ", ".join(
+            f"{name} {t - prev:.1f}" for (name, t), (_, prev)
+            in zip(marks, [("", t_start)] + marks)))
+        return
+    if only == "host":
+        model_cfg = LlamaConfig(**TINYLLAMA)
+        check_collator(model_cfg)
+        marks.append(("N", time.time()))
+        cut = LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": T_LAYERS})
+        run_a = run_main_path(cut, "cuda")
+        report_run("A", f"TinyLlama-1.1B width, {T_LAYERS} layers, bf16, bs 4 x seq 512, remat, "
+                   "attn auto (K3)", run_a, 3)
+        marks.append(("A", time.time()))
+        run_profiled(run_a, T_LAYERS)
+        marks.append(("PF", time.time()))
+        log("[smoke] --only host: seconds by phase: " + ", ".join(
             f"{name} {t - prev:.1f}" for (name, t), (_, prev)
             in zip(marks, [("", t_start)] + marks)))
         return
@@ -6250,9 +6521,12 @@ def main(argv=None):
             in zip(marks, [("", t_start)] + marks)))
         return
 
+    # N: the C++ collator that fit trains from, against the numpy one
+    model_cfg = LlamaConfig(**TINYLLAMA)
+    check_collator(model_cfg)
+    marks.append(("N", time.time()))
     # A: the main path, attn_impl "auto" (K3), with the final export; its
     # fine-tuned weights are run D's
-    model_cfg = LlamaConfig(**TINYLLAMA)
     build_dir = os.path.join(REPO, "build")
     os.makedirs(build_dir, exist_ok=True)
     out_dir = tempfile.mkdtemp(prefix="smoke_export_", dir=build_dir)
@@ -6274,8 +6548,13 @@ def main(argv=None):
         # PN and FN over NCCL
         run_dp = run_data_parallel(run_a, run_d["D1"], os.path.join(out_dir, "final"),
                                    model_cfg.num_hidden_layers, t_layers=T_LAYERS,
-                                   qwen_layers=T_LAYERS)
+                                   qwen_layers=T_LAYERS, fs_layers=FS_LAYERS)
         marks.append(("P (with Q, QT0, QT, QTE)", time.time()))
+        # PF: A's path at T_LAYERS traced and its saliency drawn, held to
+        # A's run at that depth (made for T in run_data_parallel)
+        run_pf = run_profiled(run_dp["A cut"], T_LAYERS)
+        torch.cuda.empty_cache()
+        marks.append(("PF", time.time()))
         # F: the eval over the int4 / int8 frozen base, quantized while
         # loading A's export
         run_f = run_quantized_eval(os.path.join(out_dir, "final"), model_cfg, run_d["D1"])
@@ -6385,13 +6664,20 @@ def main(argv=None):
     report_deep_channel_run(run_j, run_i, 3)
     torch.cuda.empty_cache()
     marks.append(("J", time.time()))
-    # FS: the scan layouts under fsdp, run in the data-parallel spawn, held
-    # now that their one-process twins have run: --scan_layers on (matrix,
-    # int8 base) to E with its peak under G's, channel + int8 at depth to J
-    hold_fs("FS", (1, 2, 1), "gloo", run_dp["FS"]["matrix"], run_e, "E",
-            model_cfg.num_hidden_layers, g=run_g)
-    hold_fs("FS", (1, 2, 1), "gloo", run_dp["FS"]["channel"], run_j, "J",
-            model_cfg.num_hidden_layers)
+    # FS: the scan layouts under fsdp at FS_LAYERS, run in the data-parallel
+    # spawn, held to one process's runs at that depth: --scan_layers on
+    # (matrix, int8 base) to E with its sparse peak a rank under one
+    # process's of the same path, channel + int8 at depth to J
+    fs_one = fs_run((FS_LAYERS["matrix"], "matrix", None), "cuda", 4)   # E cut: T_LAYERS
+    hold_fs("FS", (1, 2, 1), "gloo", run_dp["FS"]["matrix"], run_dp["E cut"], "E",
+            FS_LAYERS["matrix"], peak=("one process's", fs_one["peak"]["later_sparse_steps"]))
+    del fs_one
+    j_cfg = LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": FS_LAYERS["channel"]})
+    run_j_fs = run_main_path(j_cfg, "cuda", mode="channel", frozen_quant="int8")
+    hold_fs("FS", (1, 2, 1), "gloo", run_dp["FS"]["channel"], run_j_fs, "J",
+            FS_LAYERS["channel"])
+    del run_j_fs
+    torch.cuda.empty_cache()
     # TC and TCJ: channel mode under the tensor axis, run in the
     # data-parallel spawn, held now that H and J have run (TCE with them)
     hold_tc("TC", (1, 1, 2), "gloo", run_dp["TC ranks"], run_h, "H",
@@ -6546,11 +6832,15 @@ def main(argv=None):
             "TC tensor": run_dp["TC ranks"][0]["launches"],
             "TCJ tensor": run_dp["TCJ ranks"][0]["launches"],
             # Qwen2.5-1.5B's widths: Q in one process, QT rank 0 (hq 6 / hkv 1 a rank)
-            "Q": run_dp["Q"]["launches"], "QT tensor": run_dp["QT"]["launches"]}
+            "Q": run_dp["Q"]["launches"], "QT tensor": run_dp["QT"]["launches"],
+            # A's path at T_LAYERS under --profile_dir
+            "PF": run_pf["launches"]}
     for k in kernels:
         k.setdefault("launches_by_run", {}).update(
             {tag: counts[k["name"]] for tag, counts in runs.items()
              if not k["name"].endswith("_fp16")})
+        if k["name"] in run_pf["trace_counts"]:   # its kernel events in PF's trace
+            k["pf_trace_events"] = run_pf["trace_counts"][k["name"]]
     log("[smoke] seconds by phase: " + ", ".join(
         f"{name} {t - prev:.1f}" for (name, t), (_, prev) in zip(marks, [("", t_start)] + marks)))
     log(f"[smoke] time_ms: {TIMER_COUNTS['timings']} timings, {TIMER_COUNTS['retries']} "

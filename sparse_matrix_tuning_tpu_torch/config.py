@@ -156,7 +156,7 @@ class SMTConfig:
         _check_choice("head_quant", self.head_quant, ("none", "int8", "auto"))
         _check_choice("scan_layers", self.scan_layers, ("off", "on", "auto"))
         _check_choice("loss_impl", self.loss_impl, ("full", "chunked", "auto"))
-        self._refuse_unported()
+        self._check_mesh()
         # resolve the "auto" policies to what this port implements
         # (attn_impl and loss_impl stay "auto": models/llama.py resolves the
         # one per call, train/steps.py the other per phase)
@@ -173,18 +173,6 @@ class SMTConfig:
                 self.head_quant = "int8"
             elif self.scan_layers == "off":
                 self.head_quant = "none"
-
-    def _refuse_unported(self):
-        self._check_mesh()
-        unported = []
-        if self.profile_dir:
-            unported.append("--profile_dir (device tracing)")
-        if self.do_gradient_distribution_analysis:
-            unported.append("--do_gradient_distribution_analysis")
-        if unported:
-            raise NotImplementedError(
-                "not yet ported to sparse_matrix_tuning_tpu_torch: "
-                + "; ".join(unported))
 
     def _check_mesh(self):
         """--mesh_shape D,F,T (D * F * T processes) is taken: the scan

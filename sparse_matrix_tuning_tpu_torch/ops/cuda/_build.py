@@ -101,18 +101,24 @@ def library_path() -> Path:
     return BUILD_DIR / f"libsmt_kernels_{h.hexdigest()[:16]}.so"
 
 
+def build_once(out: Path, compile_fn) -> Path:
+    """`out`, made by compile_fn(out) unless it exists, one process at a
+    time: an fcntl lock on out's directory's .lock (also the C++ collator's
+    build, data/native.py)."""
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out.parent / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if not out.exists():  # not built by the process we waited for
+            compile_fn(out)
+    return out
+
+
 def build() -> Path:
     """Compile csrc/*.cu unless the library for these sources exists, one
     process at a time."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / ".lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
-        if not out.exists():  # not built by the process we waited for
-            _compile(out)
-    return out
+    return build_once(library_path(), _compile)
 
 
 def _compile(out: Path) -> None:

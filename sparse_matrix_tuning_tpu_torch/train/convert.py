@@ -165,11 +165,16 @@ def _split_stats(flat_stats: Dict[str, np.ndarray]) -> Tuple[Dict, Dict]:
 
 
 def compute_matrix_selection(cfg: SMTConfig, acc: Dict[str, torch.Tensor],
-                             all_2d_shapes, sharding=None) -> Dict:
+                             all_2d_shapes, sharding=None, mesh=None) -> Dict:
     """acc: grad-sum (or per-step-stat) accumulators keyed '{layer}.{module}'
     (under fsdp and tensor this rank's shards: per-step statistics are
     gathered whole, grad sums reduced by fsdp.block_stats_sharded over both
-    axes, a block straddling either kind of shard)."""
+    axes, a block straddling either kind of shard). With
+    --do_gradient_distribution_analysis and an output_dir the statistics
+    selection reads are drawn as JAX's maybe_analyze draws them
+    (convert.py:158-177): merged under no_limit_mixture, else attention's
+    and the MLP's apart; on a mesh every rank holds them whole and equal,
+    and rank 0 writes."""
     total_blocks = count_total_blocks(all_2d_shapes)
     n_attn = num_selected_blocks(cfg.downsample_attention_blocks_ratio, total_blocks)
     n_mlp = num_selected_blocks(cfg.downsample_mlp_blocks_ratio, total_blocks)
@@ -188,17 +193,30 @@ def compute_matrix_selection(cfg: SMTConfig, acc: Dict[str, torch.Tensor],
                 items, lambda ks: strategy, sharding.mesh).items()}
         return {ks: _to_numpy(block_stats(g, strategy)) for ks, g in acc.items()}
 
+    def maybe_analyze(stats):
+        if cfg.do_gradient_distribution_analysis and cfg.output_dir and (
+                mesh is None or mesh.is_main):
+            from sparse_matrix_tuning_tpu_torch.utils import analysis
+            # in JAX's order, which names the file: its accumulators are a
+            # pytree, whose dict comes back from jit sorted by key string
+            order = sorted(stats, key=lambda k: f"{k[1]}.{k[0]}")
+            analysis.analyze_gradient_distribution({k: stats[k] for k in order},
+                                                   cfg.output_dir)
+
     if cfg.no_limit_mixture:
         stats = stats_of(cfg.calculate_strategy)
         merged = {parse_key(ks): s for ks, s in stats.items()}
+        maybe_analyze(merged)
         return select_submatrices(merged, n_attn + n_mlp, cfg.selection_strategy)
 
     selected: Dict = {}
     if n_attn > 0:
         attn_stats, _ = _split_stats(stats_of(ATTENTION_CALCULATE_STRATEGY))
+        maybe_analyze(attn_stats)
         selected.update(select_submatrices(attn_stats, n_attn, cfg.selection_strategy))
     if n_mlp > 0:
         _, mlp_stats = _split_stats(stats_of(cfg.calculate_strategy))
+        maybe_analyze(mlp_stats)
         selected.update(select_submatrices(mlp_stats, n_mlp, cfg.selection_strategy))
     return selected
 
@@ -256,7 +274,8 @@ def build_plan(cfg: SMTConfig, warmup_state: Dict, all_2d_shapes, mesh=None,
             dims[(mod, int(li))] = tuple(w.shape) if sharding is None else \
                 sharding.full_shape(f"master/layers/{li}/{mod}", w)
     if cfg.matrix_sparsity:
-        selected = compute_matrix_selection(cfg, warmup_state["acc"], all_2d_shapes, sharding)
+        selected = compute_matrix_selection(cfg, warmup_state["acc"], all_2d_shapes, sharding,
+                                            mesh)
         plan = SMTPlan.from_selection("matrix", selected, dims)
     else:
         selected = compute_channel_selection(cfg, warmup_state["act_acc"], sharding)

@@ -6,7 +6,9 @@ Warm-up -> the one-shot conversion event -> sparse fine-tuning, with the
 eval/save cadences and throughput prints of reference
 deepspeed/fine_tune.py:72-864. In channel mode the warm-up steps only
 harvest activation saliency (steps.build_channel_warmup_step) and do not
-train.
+train. `fit` takes its training batches from the C++ collator through a
+prefetch thread (data/native.py), its eval batches from
+data/sft.batch_iterator, and traces steps under --profile_dir.
 
 On a mesh (`mesh`, `--mesh_shape D,F,T`) every rank takes the identical
 global batch of B * D * F * A rows and steps on its own rows
@@ -116,6 +118,7 @@ class SMTTrainer:
         self.history: Dict[str, list] = {"train_loss": [], "eval_loss": [], "ppl": []}
         self.best_eval_loss = float("inf")
         self.reporter: Optional[ThroughputReporter] = None
+        self._profiler = None   # the torch.profiler of --profile_dir, while it traces
 
     @classmethod
     def sparse_scan_from_hf(cls, cfg: SMTConfig, model_dir: str, plan: SMTPlan,
@@ -290,6 +293,7 @@ class SMTTrainer:
 
     def fit(self, train_ds, eval_ds, pad_token_id: int,
             tokenizer=None, on_metrics=None) -> Dict[str, list]:
+        from sparse_matrix_tuning_tpu_torch.data import native
         from sparse_matrix_tuning_tpu_torch.data.sft import batch_iterator, num_batches
 
         cfg = self.cfg
@@ -313,6 +317,16 @@ class SMTTrainer:
                                   cfg.seq_buckets, cfg.seed, 0,
                                   shuffle=False, drop_last=False)
 
+        # training batches: the C++ collator in a background prefetch thread
+        # (JAX trainer.py:400-411, without its numpy fallback: a failed
+        # build raises through the loader); every rank collates the global
+        # batch
+        arena = native.TokenArena.from_dataset(train_ds)
+
+        def train_batches(epoch):
+            return native.PrefetchLoader(lambda: native.native_batch_iterator(
+                arena, global_bs, pad_token_id, cfg.seq_buckets, cfg.seed, epoch))
+
         # resume: skip the epochs and batches already consumed (the batch
         # order is deterministic in (seed, epoch), so the replay is exact)
         per_epoch = max(steps_per_epoch, 1)
@@ -325,10 +339,10 @@ class SMTTrainer:
                          f"Total Micro Batches {steps_per_epoch}")
             mean_loss, n_steps = 0.0, 0
             to_skip, skip_in_epoch = skip_in_epoch, 0
-            for bi, batch in enumerate(batch_iterator(train_ds, global_bs, pad_token_id,
-                                                      cfg.seq_buckets, cfg.seed, epoch)):
+            for bi, batch in enumerate(train_batches(epoch)):
                 if bi < to_skip:
                     continue
+                self._maybe_profile()
                 reduced_at = self.mesh.stats["bytes"] if self.mesh is not None else 0
                 metrics = self.train_step(batch)
                 loss = float(metrics["loss"])
@@ -387,6 +401,7 @@ class SMTTrainer:
             self._save_resumable()
             if stop:
                 break
+        self._stop_profile()   # a run that ended inside the window
 
         ppl, eval_loss = self.evaluate(eval_batches())
         self.history["eval_loss"].append(eval_loss)
@@ -463,6 +478,40 @@ class SMTTrainer:
             return decode_params_from_scan(state, self.model_cfg, host)
         merged = tree_map(lambda p: p.to(self.device), self.merged_params())
         return prepare_decode_params(merged, self.model_cfg)
+
+    def _maybe_profile(self):
+        """--profile_dir: a torch.profiler trace (CPU and, on a CUDA
+        device, the kernels) of steps profile_start .. profile_start +
+        profile_steps - 1, on rank 0 (JAX trainer.py:560-575)."""
+        cfg = self.cfg
+        if not cfg.profile_dir or (self.mesh is not None and not self.mesh.is_main):
+            return
+        if self._profiler is None and self.step == cfg.profile_start:
+            from torch.profiler import ProfilerActivity
+            activities = [ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
+            self._profiler = torch.profiler.profile(activities=activities)
+            self._profiler.start()
+            print_rank_0(f"[profile] tracing steps {cfg.profile_start}.."
+                         f"{cfg.profile_start + cfg.profile_steps} -> {cfg.profile_dir}")
+        elif self._profiler is not None and \
+                self.step >= cfg.profile_start + cfg.profile_steps:
+            self._stop_profile()
+
+    def _stop_profile(self):
+        """Stop the trace once the traced steps' kernels are done, and write
+        it into profile_dir as a Chrome trace."""
+        if self._profiler is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._profiler.stop()
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        path = os.path.join(self.cfg.profile_dir,
+                            f"trace_steps_{self.cfg.profile_start}_{self.step}.json")
+        self._profiler.export_chrome_trace(path)
+        self._profiler = None
+        print_rank_0(f"[profile] wrote {path}")
 
     def _log_metrics(self, step: int, metrics: Dict):
         """One JSON line per step into {output_dir}/metrics.jsonl (rank 0:

@@ -1,7 +1,7 @@
 """The port's config and CLI: the JAX package's flag surface, the "auto"
 policies resolved to what the port implements, the fused attention and
-int8 options, channel mode, a loud NotImplementedError for every option
-not yet ported,
+int8 options, channel mode, the options of the former refusal list
+building and parsing as in JAX,
 and the fine-tune CLI end to end on a tiny HF checkpoint (whose safetensors
 the port reads by hand) on CPU, over the dense and the int8 frozen base."""
 import dataclasses
@@ -87,11 +87,15 @@ def test_int8_and_loss_options_construct(flags, want):
 # ported since the list was written, each with its tests: channel mode
 # (tests/test_torch_channel.py), scan_layers=on, --resume_from, --dropout and
 # --dtype fp16 (tests/test_torch_scan_convert.py, test_torch_checkpoint.py,
-# test_torch_dropout.py, test_torch_fp16.py) and the fsdp axis
-# (tests/test_torch_fsdp.py): these build and parse as in JAX
+# test_torch_dropout.py, test_torch_fp16.py), the fsdp axis
+# (tests/test_torch_fsdp.py), --profile_dir and
+# --do_gradient_distribution_analysis (tests/test_torch_profile_analysis.py):
+# these build and parse as in JAX
 PORTED = {"channel_sparsity": ["--channel_sparsity"], "scan_layers": ["--scan_layers", "on"],
           "resume_from": ["--resume_from", "ckpt"], "dropout": ["--dropout", "0.1"],
-          "dtype": ["--dtype", "fp16"], "mesh_shape": ["--mesh_shape", "1", "2", "1"]}
+          "dtype": ["--dtype", "fp16"], "mesh_shape": ["--mesh_shape", "1", "2", "1"],
+          "profile_dir": ["--profile_dir", "prof"],
+          "do_gradient_distribution_analysis": ["--do_gradient_distribution_analysis"]}
 
 
 @pytest.mark.parametrize("kw", [
@@ -101,20 +105,18 @@ PORTED = {"channel_sparsity": ["--channel_sparsity"], "scan_layers": ["--scan_la
     dict(profile_dir="prof"), dict(do_gradient_distribution_analysis=True),
 ], ids=lambda kw: next(iter(kw)) + "=" + str(next(iter(kw.values()))))
 def test_unported_options_raise(kw):
+    """Every option of the list is ported now: it builds, and its flags
+    parse as JAX parses them."""
     name, value = next(iter(kw.items()))
-    if name in PORTED:
-        flags = RECIPE + PORTED[name]
-        if name == "channel_sparsity":
-            flags = [f for f in flags if f != "--matrix_sparsity"]
-        mine, theirs = dataclasses.asdict(parse_args(flags)), dataclasses.asdict(
-            jax_parse_args(flags))
-        assert mine[name] == theirs[name] == value
-        assert {k: v for k, v in mine.items() if k not in POLICIES} == \
-            {k: v for k, v in theirs.items() if k not in POLICIES}
-        assert getattr(SMTConfig(**kw), name) == value
-        return
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        SMTConfig(**kw)
+    flags = RECIPE + PORTED[name]
+    if name == "channel_sparsity":
+        flags = [f for f in flags if f != "--matrix_sparsity"]
+    mine, theirs = dataclasses.asdict(parse_args(flags)), dataclasses.asdict(
+        jax_parse_args(flags))
+    assert mine[name] == theirs[name] == value
+    assert {k: v for k, v in mine.items() if k not in POLICIES} == \
+        {k: v for k, v in theirs.items() if k not in POLICIES}
+    assert getattr(SMTConfig(**kw), name) == value
 
 
 def test_sparse_from_plan_parses_and_dispatches(tiny_hf, tmp_path, monkeypatch):
