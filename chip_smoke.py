@@ -272,7 +272,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
      histogram PNGs (attention, MLP) decode; the traced steps' ms beside
      the untraced ones and A's, the trace's stop and export timed; PN1
      (`--only nccl`), A's path at (N, 1, 1) over NCCL, a card a rank,
-     every rank collating the global batch, held to A as P is.
+     every rank collating the global batch, held to A as P is;
+ 21. a tensor axis that cuts the attention heads, at QH_SHAPE (1, 1, 4),
+     four gloo ranks on cuda:0 in the four-rank spawn of F0 (`--only tp`:
+     of T0's (1, 2, 2)): QH0, the tiny fp32 pairs kv_cut (4 q / 2 kv
+     heads of 64: half a kv head a rank) and q_cut (6 q / 2 kv heads of
+     128: 1.5 q heads a rank) against one process at P0's bounds, K1, K2
+     and K3 launched on every rank, K3 on each rank's whole kv group;
+     QH, Q's path (2 kv heads: k/v's 256 rows, 64 a rank) held to Q as QT
+     is (P's bounds, Q's plan up to near-ties, the tied, biased layout,
+     the export held through merged_params), at T_LAYERS in the whole
+     script and 28 layers under `--only tp`, with per rank the q/k/v
+     gathers' and their grads' sums' MB and calls a step apart from the
+     other tensor collectives, K3's heads and launches, state bytes and
+     peaks beside QT's; QHN (`--only nccl`, four cards), QH over NCCL at
+     (1, 1, 4) in QTN's spawn.
 Before the references, K6 (the int4 unpack-matmul) runs at eight shapes
 (K6_SHAPES: the TinyLlama linears at the eval decode's 64 rows, 16 and a
 ragged 7, Llama-3-8B's gate) and on the layer views of a stack (K6s),
@@ -291,8 +305,8 @@ after the build and the K3 / K7 checks; `--only sparse` after the build and
 the K1 / K2 / K5 checks; `--only scan` runs the build, the tiny 12-layer
 channel int8 reference, J and R; `--only tp` the build, A, E, H, J, T0,
 TQ0, TS0, TC0, T, TE, TQ, TQE, TS, TSE, TC, TCJ and TCE, then Q, QD, QT0,
-QT, QTE and QTD at 28 layers; `--only host` the build, N, A at T_LAYERS and
-PF; none of them prints a result.
+QT, QTE, QTD, QH0 and QH at 28 layers; `--only host` the build, N, A at
+T_LAYERS and PF; none of them prints a result.
 """
 
 from __future__ import annotations
@@ -4579,6 +4593,9 @@ def dp_rank(rank, world, port, jobs, out_dir, shape=None, backend="gloo"):
     tmesh = make_mesh((1, world // 2, 2), device=device) \
         if any(tag in ("T0", "T", "TQ0", "TQ", "TS0", "TS", "TC0", "TC", "TCJ", "QT0", "QT",
                        "QTD") for tag, _ in jobs) else None
+    # the tensor axis over every rank, (1, 1, world): where T cuts the heads
+    hmesh = make_mesh((1, 1, world), device=device) \
+        if any(tag in ("QH0", "QH") for tag, _ in jobs) else None
     _time_collectives()
     for tag, arg in jobs:
         t0 = time.time()
@@ -4638,6 +4655,13 @@ def dp_rank(rank, world, port, jobs, out_dir, shape=None, backend="gloo"):
                               hf_dir=arg[1], out_dir=arg[2] if tag == "QT" else None,
                               cfg_extra={"dropout": 0.1} if tag == "QTD" else None,
                               log_fn=(lambda m: log(f"[{tag} rank {rank}] {m}")))
+        elif tag == "QH0":
+            s = run_main_path(qh0_cfg(arg), device, bs=4, mesh=hmesh, **P0_KW)
+            s["cut_heads"] = _cut_heads_of(qh0_cfg(arg), hmesh)
+        elif tag == "QH":
+            s = run_main_path(qwen_cfg(arg[0]), device, bs=4, mesh=hmesh, hf_dir=arg[1],
+                              log_fn=(lambda m: log(f"[QH rank {rank}] {m}")))
+            s["cut_heads"] = _cut_heads_of(qwen_cfg(arg[0]), hmesh)
         elif tag == "FS0":
             fsdp_mod.LIVE.update(now=0, peak=0)
             s = fs0_run(arg, device, 4 // world, fmesh)
@@ -4655,10 +4679,22 @@ def dp_rank(rank, world, port, jobs, out_dir, shape=None, backend="gloo"):
     dist.destroy_process_group()
 
 
+def _cut_heads_of(model_cfg, mesh):
+    """This rank's attention where T cuts the heads (models/llama.cut_heads):
+    {"first", "kv", "hq", "col"}: its whole kv groups' first kv head and
+    count, the q heads K3 runs on them, where its o_proj columns begin."""
+    from sparse_matrix_tuning_tpu_torch.models.llama import cut_heads
+    cut = cut_heads(model_cfg, mesh)
+    if cut is None:
+        raise AssertionError(f"{mesh.shape}: T divides the heads of {model_cfg}")
+    g = model_cfg.num_attention_heads // model_cfg.num_key_value_heads
+    return {"first": cut[0], "kv": cut[1], "hq": cut[1] * g, "col": cut[2]}
+
+
 def _job_key(tag, arg):
     """Where dp_rank keeps a job's summary: "F", "T", "TQ", "TS", "TC",
-    "TCJ", "QT", "QTD", "FS:{mode}", "QT0:{case}", or "{tag}:{arg}"."""
-    if tag in ("F", "T", "TQ", "TS", "TC", "TCJ", "QT", "QTD"):
+    "TCJ", "QT", "QTD", "QH", "FS:{mode}", "QT0:{case}", or "{tag}:{arg}"."""
+    if tag in ("F", "T", "TQ", "TS", "TC", "TCJ", "QT", "QTD", "QH"):
         return tag
     if tag == "QT0":
         return f"QT0:{arg[0]}"
@@ -4952,14 +4988,17 @@ def check_fsdp(ranks, refs, run_a, p, layers, t_layers, t_refs, q=None):
     channel mode: hold_tensor_tiny); T, TQ and TS at t_layers against
     t_refs' "A" and "E" (one process at that depth; "E" None: no TQ or
     TS ran); with q (prepare_qwen's), QT0 in the four too, and QT0 and
-    QT (hold_qwen). Returns rank 0's summaries (and every rank's TC and
-    TCJ: TC is held once H has run, TCJ once J has)."""
+    QT (hold_qwen), and in the four at QH_SHAPE QH0 and QH (hold_qh0,
+    hold_qh). Returns rank 0's summaries (and every rank's TC and TCJ: TC
+    is held once H has run, TCJ once J has)."""
     t0 = time.time()
     quad = _spawn(dp_rank, 4, [("F0", "none")] + [("FS0", n) for n in FS0_RUNS]
-                  + tensor_tiny_jobs() + (qt0_jobs(q) if q else []),
+                  + tensor_tiny_jobs() + (qt0_jobs(q) + qh_jobs(q) if q else []),
                   after=((2, 2, 1),))
     log(f"[F0] 4 gloo ranks on cuda:0 at (2, 2, 1), F0 and FS0, and T0, TQ0, TS0 and TC0 at "
-        f"(1, 2, 2): {time.time() - t0:.1f} s for the spawn")
+        f"(1, 2, 2){', QT0 and, at ' + str(QH_SHAPE) + ', QH0 and QH' if q else ''}: "
+        f"{time.time() - t0:.1f} s for the spawn; seconds by job on rank 0: "
+        f"{ {k: round(v['seconds'], 1) for k, v in quad[0].items() if isinstance(v, dict) and 'seconds' in v} }")
     for fq in ("none", "int8"):
         hold_f0((1, 2, 1), fq, [r[f"F0:{fq}"] for r in ranks], refs)
     hold_f0((2, 2, 1), "none", [r["F0:none"] for r in quad], refs)
@@ -4982,6 +5021,11 @@ def check_fsdp(ranks, refs, run_a, p, layers, t_layers, t_refs, q=None):
     if q is not None:
         qwen = {"Q": q["Q"], "QT": hold_qwen(q, ranks, quad), "K1 qwen": q["K1"],
                 **{f"QT0 {c}": ranks[0][f"QT0:{c}"] for c in QT0_CASES}}
+        hold_qh0(quad, refs)
+        hold_qh("QH", [r["QH"] for r in quad], q["Q"], q["layers"],
+                beside={"QT rank 0": qwen["QT"]})
+        qwen.update({"QH": quad[0]["QH"],
+                     **{f"QH0 {n}": quad[0][f"QH0:{n}"] for n in QH0_MODELS}})
     gib = 1024 ** 3
     for r in range(2):
         gain = (p[r]["peak"]["warmup"] - f[r]["peak"]["warmup"]) / gib
@@ -5663,9 +5707,25 @@ QT0_CASES = ("matrix layer dense fp32", "matrix layer dense fp32 dropout",
              "channel layer dense fp32 dropout", "channel scan int8 fp32")
 
 
+# QH0 / QH: a tensor axis that cuts the attention heads, at (1, 1, 4): QH0
+# the tiny fp32 pairs of tests/test_torch_tensor_cut_heads.py, kv_cut
+# (LlamaConfig.tiny: 4 q / 2 kv heads of 64, half a kv head a rank) and
+# q_cut (hidden 768, 6 q / 2 kv heads of 128: 1.5 q heads and half a kv
+# head a rank); QH Q's path (12 q / 2 kv heads of 128: half a kv head a rank)
+QH_SHAPE = (1, 1, 4)
+QH0_MODELS = {"kv_cut": {}, "q_cut": dict(hidden_size=768, intermediate_size=1024,
+                                          num_attention_heads=6, num_key_value_heads=2)}
+
+
 def qwen_cfg(layers):
     from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
     return LlamaConfig(**{**QWEN, "num_hidden_layers": layers})
+
+
+def qh0_cfg(name):
+    import dataclasses
+    from sparse_matrix_tuning_tpu_torch.models.llama import LlamaConfig
+    return dataclasses.replace(LlamaConfig.tiny(vocab_size=512), **QH0_MODELS[name])
 
 
 def tiny_qwen_cfg():
@@ -5770,23 +5830,26 @@ def qwen_windows(x, model_cfg, t=2):
     return out
 
 
-def hold_qt(tag, shape, backend, qt, q, layers, dropout=False):
+def hold_qt(tag, shape, backend, qt, q, layers, dropout=False, files=True, beside=None):
     """QT (or, dropout: QTD): Q's path on a tensor mesh against Q run in
     one process, by hold_t (P's bounds: losses within 1e-3, warm-up grad
     norms within 5e-2; the ranks' losses and plans equal; K1, K2 and K3 (on
     each rank's hq 6 / hkv 1 heads; under dropout no K3 backward) launched
     on every rank; the export against one process's export of the
     gathered state, QTE), Q's plan (a block swapped only on a near-tie of
-    bf16 arithmetic: its rel gap to Q's last selected block of its group
-    within the spread of the ranks' scores over Q's selected blocks,
+    bf16 arithmetic: its distance to Q's last selected block of its group,
+    relative to its own score in Q, within the spread of the ranks' scores
+    over Q's selected blocks, each relative to its own score in Q:
     log_selection_margin's numbers), each rank's tied, biased
     layout (qwen_layout), the export's tensors Q's (names, shapes and
     dtypes: no lm_head, the biases), and per rank the tied head's gathered
     bytes and calls a step and the selected blocks that straddle the ranks'
-    shards."""
+    shards. files False: the run wrote no export (merged_params is held);
+    beside: {name: rank 0's summary} whose ms/step and peaks are logged
+    beside each rank's."""
     model_cfg = qwen_cfg(layers)
-    margin = hold_t(tag, shape, backend, qt, q, layers, model="Qwen2.5-1.5B",
-                    name="QD" if dropout else "Q", dropout=dropout, files=not dropout)
+    margin = hold_t(tag, shape, backend, qt, q, layers, beside, model="Qwen2.5-1.5B",
+                    name="QD" if dropout else "Q", dropout=dropout, files=files and not dropout)
     if margin is not None:
         spread, gaps = margin
         far = {k: g for k, g in gaps.items() if g > spread}
@@ -5810,6 +5873,59 @@ def hold_qt(tag, shape, backend, qt, q, layers, dropout=False):
         f"{len(q['export_shapes'])} tensors (no lm_head) have Q's names, shapes and dtypes")
     log(f"[{tag}] selected blocks straddling the tensor shards (module: shard edge, "
         f"straddling, selected): {qwen_windows(qt[0], model_cfg, shape[2])}")
+
+
+def hold_qh0(got, refs, tag="QH0"):
+    """QH0: the tiny fp32 pairs whose heads T = 4 cuts (QH0_MODELS) at
+    QH_SHAPE against one process at P0's bounds (hold_t0: the same plan,
+    K1, K2 and K3 launched on every rank, 1/T of every tensor-split leaf),
+    K3 on each rank's whole kv groups; the heads' gathers logged apart."""
+    for name in QH0_MODELS:
+        ranks = [r[f"QH0:{name}"] for r in got]
+        hold_t0(QH_SHAPE, "fp32", ranks, None, tag=f"{tag} {name}", ref=refs[f"QH0:{name}"])
+        _heads_held(f"{tag} {name}", ranks, qh0_cfg(name))
+
+
+def _heads_held(tag, ranks, model_cfg):
+    """Every training step of every rank gathered q/k/v over the tensor
+    group ("heads_*": a gather and, in a training step, the grads' sum for
+    each layer); logs each rank's kv groups, K3's q / kv heads on them and
+    the heads' MB / calls a step beside all tensor collectives'."""
+    hd = model_cfg.head_dim
+    for r, x in enumerate(ranks):
+        c, cut = x["collectives"], x["cut_heads"]
+        if any(v["heads_calls"] < 2 * model_cfg.num_hidden_layers for v in c):
+            raise AssertionError(f"{tag} rank {r}: a step gathered q/k/v fewer than twice a "
+                                 f"layer: {[v['heads_calls'] for v in c]}")
+        log(f"[{tag}] rank {r}: kv heads {cut['first']}..{cut['first'] + cut['kv'] - 1} of "
+            f"{model_cfg.num_key_value_heads} with their {cut['hq']} q heads (K3 at hq "
+            f"{cut['hq']} hkv {cut['kv']} hd {hd}), its o_proj columns from {cut['col']} of "
+            f"their {cut['hq'] * hd}; q/k/v gathered and their grads summed MB / calls a step "
+            f"{[(round(v['heads_bytes'] / 1e6, 2), v['heads_calls']) for v in c]} of the tensor "
+            f"collectives' {[(round(v['tensor_bytes'] / 1e6, 2), v['tensor_calls']) for v in c]};"
+            f" K3 launches fwd {x['launches']['attn_fwd']}, dK/dV "
+            f"{x['launches']['attn_bwd_dkdv']}")
+
+
+def hold_qh(tag, qh, q, layers, backend="gloo", beside=None):
+    """QH (QHN over NCCL): Q's path at QH_SHAPE, where T = 4 cuts Qwen2.5-
+    1.5B's 2 kv heads (k/v's 256 rows, 64 a rank), held to Q as QT is
+    (hold_qt: P's bounds, Q's plan up to near-ties, each rank's tied,
+    biased layout; the export held through merged_params, not written),
+    with the heads' gathers apart (_heads_held) and each rank's state
+    bytes and peaks beside `beside`'s (QT rank 0)."""
+    _heads_held(tag, qh, qwen_cfg(layers))
+    hold_qt(tag, QH_SHAPE, backend, qh, q, layers, files=False, beside=beside)
+
+
+def qh_jobs(q):
+    """QH0's tiny pairs and QH, Q's path at QH_SHAPE (a spawn of four)."""
+    return [("QH0", n) for n in QH0_MODELS] + [("QH", (q["layers"], q["dir"]))]
+
+
+def qh0_refs():
+    """QH0's one-process references, "QH0:{name}"."""
+    return {f"QH0:{n}": run_main_path(qh0_cfg(n), "cuda", bs=4, **P0_KW) for n in QH0_MODELS}
 
 
 def prepare_qwen(layers, dropout=False):
@@ -5887,6 +6003,7 @@ def run_tensor(run_a, run_e, run_h, run_j, layers):
     QT, QTE and QTD in the spawn of T, QT0 in both spawns (prepare_qwen,
     hold_qwen). Returns rank 0's summaries."""
     refs = tensor_refs()
+    refs.update(qh0_refs())
     q = prepare_qwen(QWEN["num_hidden_layers"], dropout=True)
     t_dir = tempfile.mkdtemp(prefix="smoke_export_", dir=os.path.join(REPO, "build"))
     t0 = time.time()
@@ -5895,18 +6012,23 @@ def run_tensor(run_a, run_e, run_h, run_j, layers):
         pair = _spawn(dp_rank, 2, tiny + [("T", (layers, t_dir)), ("TQ", layers), ("TS", layers),
                                           ("TC", layers), ("TCJ", layers)] + qwen_jobs(q),
                       after=((1, 2, 1),))
-        quad = _spawn(dp_rank, 4, tiny + qt0_jobs(q), after=((2, 2, 1),))
+        t_quad = time.time()
+        quad = _spawn(dp_rank, 4, tiny + qt0_jobs(q) + qh_jobs(q), after=((2, 2, 1),))
     finally:
         for d in [t_dir] + q["dirs"]:
             shutil.rmtree(d, ignore_errors=True)
     seconds = {k: round(v["seconds"], 1) for k, v in pair[0].items()
                if isinstance(v, dict) and "seconds" in v}
+    quad_seconds = {k: round(v["seconds"], 1) for k, v in quad[0].items()
+                    if isinstance(v, dict) and "seconds" in v}
     log(f"[T] 2 gloo ranks on cuda:0 at (1, 1, 2), T0, TQ0, TS0, TC0, QT0, T, TQ, TS, TC, TCJ, "
-        f"QT and QTD, and 4 at (1, 2, 2), T0, TQ0, TS0, TC0 and QT0: {time.time() - t0:.1f} s; "
-        f"seconds by job on rank 0: {seconds}")
+        f"QT and QTD, and 4 at (1, 2, 2), T0, TQ0, TS0, TC0 and QT0, and at {QH_SHAPE} QH0 and "
+        f"QH: {time.time() - t0:.1f} s (the four's spawn {time.time() - t_quad:.1f} s); seconds "
+        f"by job on rank 0: {seconds}; of the four: {quad_seconds}")
     for shape, got in (((1, 1, 2), pair), ((1, 2, 2), quad)):
         hold_tensor_tiny(shape, got, refs)
     hold_qwen(q, pair, quad)
+    hold_qh0(quad, refs)
     t = [r["T"] for r in pair]
     hold_t("T", (1, 1, 2), "gloo", t, run_a, layers)
     hold_t("TQ", (1, 1, 2), "gloo", [r["TQ"] for r in pair], run_e, layers, {"T rank 0": t[0]},
@@ -5917,8 +6039,9 @@ def run_tensor(run_a, run_e, run_h, run_j, layers):
             {"T rank 0": t[0]})
     hold_tc("TCJ", (1, 1, 2), "gloo", [r["TCJ"] for r in pair], run_j, "J", layers,
             {"TS rank 0": pair[0]["TS"]})
+    hold_qh("QH", [r["QH"] for r in quad], q["Q"], q["layers"], beside={"QT rank 0": pair[0]["QT"]})
     return {"T": pair[0]["T"], "TQ": pair[0]["TQ"], "TS": pair[0]["TS"], "TC": pair[0]["TC"],
-            "TCJ": pair[0]["TCJ"],
+            "TCJ": pair[0]["TCJ"], "QH": quad[0]["QH"],
             **{f"{k} {d}": pair[0][f"{k}:{d}"] for d in T0_DTYPES for k in ("T0", "TQ0")},
             **{f"{k} {d} (1,2,2)": quad[0][f"{k}:{d}"] for d in T0_DTYPES
                for k in ("T0", "TQ0")}}
@@ -6017,19 +6140,25 @@ def run_qwen_nccl():
     """QTN (`--only nccl`, four cards or more): Q's path
     at Qwen2.5-1.5B's 28 layers and the tiny QT0 pairs over NCCL, one rank
     a card, at (1, N / 2, 2), against Q and the references run here
-    (prepare_qwen, hold_qwen)."""
+    (prepare_qwen, hold_qwen); on four cards in the same spawn QHN, Q's
+    path at QH_SHAPE, where T cuts the heads (hold_qh)."""
     import torch
     n = torch.cuda.device_count()
     shape = (1, n // 2, 2)
     q = prepare_qwen(QWEN["num_hidden_layers"])
+    qh = [("QH", (q["layers"], q["dir"]))] if n == QH_SHAPE[2] else []
     t0 = time.time()
     try:
-        ranks = _spawn(dp_rank, n, qwen_jobs(q), after=((1, n, 1), "nccl"))
+        ranks = _spawn(dp_rank, n, qwen_jobs(q) + qh, after=((1, n, 1), "nccl"))
     finally:
         for d in q["dirs"]:
             shutil.rmtree(d, ignore_errors=True)
-    log(f"[QTN] {n} NCCL ranks, one a card, at {shape}, QT0 and QT: {time.time() - t0:.1f} s")
+    log(f"[QTN] {n} NCCL ranks, one a card, at {shape}, QT0 and QT"
+        f"{f', QH at {QH_SHAPE}' if qh else ''}: {time.time() - t0:.1f} s")
     hold_qwen(q, ranks, shape=shape, backend="nccl", n="N")
+    if qh:
+        hold_qh("QHN", [r["QH"] for r in ranks], q["Q"], q["layers"], backend="nccl",
+                beside={"QTN rank 0": ranks[0]["QT"]})
 
 
 def run_fsdp_scan(run_e, run_j, layers, world=2, backend="gloo", tag="FS"):
@@ -6080,10 +6209,11 @@ def log_selection_margin(run_a, run_p, tag="P", ref="A"):
     """Where P's (or F's, `tag`) plan leaves A's: each block that one
     selected and the other did not, with its score in both runs, beside the score of the
     last block A selected in that group (attention or MLP) and how far
-    P's scores sit from A's over A's selected blocks (a swap inside that
-    spread is a near-tie, not a wrong reduction). Returns (that spread's
-    max, {swapped block: its rel gap to A's last block of its group}), or
-    None where the plans are equal."""
+    P's scores sit from A's over A's selected blocks, each relative to its
+    own score in A (a swap inside that spread is a near-tie, not a wrong
+    reduction). Returns (that spread's max, {swapped block: its distance
+    to A's last block of its group relative to its own score in A, the
+    spread's unit}), or None where the plans are equal."""
     import numpy as np
     from sparse_matrix_tuning_tpu_torch.models.llama import ATTN_TARGETS
     a_sel, p_sel = set(run_a["selected"]), set(run_p["selected"])
@@ -6099,10 +6229,10 @@ def log_selection_margin(run_a, run_p, tag="P", ref="A"):
     lines, gaps = [], {}
     for k, r, c in sorted(a_sel ^ p_sel):
         last = min(sa[kk][rr, cc] for kk, rr, cc in a_sel if group(kk) == group(k))
-        gaps[(k, r, c)] = abs(sa[k][r, c] - last) / last
+        gaps[(k, r, c)] = abs(sa[k][r, c] - last) / sa[k][r, c]
         lines.append(f"{k} ({r},{c}) {ref + ' only' if (k, r, c) in a_sel else tag + ' only'}: "
                      f"{ref} {sa[k][r, c]:.6e}, {tag} {sp[k][r, c]:.6e}; {ref}'s last "
-                     f"{group(k)} block {last:.6e}, rel gap {gaps[(k, r, c)]:.2e}")
+                     f"{group(k)} block {last:.6e}, gap {gaps[(k, r, c)]:.2e} of its score")
     log(f"[{tag}] selection: {len(a_sel ^ p_sel) // 2} of {len(a_sel)} blocks swapped; {tag}'s "
         f"scores of {ref}'s selected blocks sit within {np.median(spread):.2e} (median) / "
         f"{spread.max():.2e} (max) of {ref}'s; " + "; ".join(lines))
@@ -6165,7 +6295,8 @@ def run_data_parallel(run_a, d1, export_dir, p_layers, fs=True, t_layers=None, t
     here at that depth; TC and TCJ at A's depth, held to H and J once they
     have run; check_fsdp). With qwen_layers, Q at that depth in this
     process and QT with QTE in the same spawn, QT0 in both spawns
-    (prepare_qwen, hold_qwen). Then PN over NCCL. Returns the rank-0
+    (prepare_qwen, hold_qwen), and QH0 and QH at QH_SHAPE in check_fsdp's
+    spawn of four (hold_qh0, hold_qh). Then PN over NCCL. Returns the rank-0
     summaries, every rank's TC and TCJ summaries under "TC ranks" and
     "TCJ ranks", and A's and E's runs at t_layers under "A cut" and "E
     cut". fs_layers: FS's depth by mode (p_layers by default)."""
@@ -6180,6 +6311,8 @@ def run_data_parallel(run_a, d1, export_dir, p_layers, fs=True, t_layers=None, t
             for fq in ("none", "int8")}
     refs = tensor_refs(refs)
     refs.update({f"FS0:{n}": fs0_run(n, "cuda", 4) for n in FS0_RUNS})
+    if qwen_layers:
+        refs.update(qh0_refs())
     # T, TQ and TS at t_layers: their one-process references at that depth
     cut = LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": t_layers})
     t_refs = {"A": run_a if t_layers == p_layers else run_main_path(cut, "cuda"),
@@ -6206,8 +6339,7 @@ def run_data_parallel(run_a, d1, export_dir, p_layers, fs=True, t_layers=None, t
     finally:
         for d in dirs:
             shutil.rmtree(d, ignore_errors=True)
-        if q:   # QT0 at (1, 2, 2) reads the tiny checkpoint in check_fsdp's spawn
-            shutil.rmtree(q["dir"], ignore_errors=True)
+    # QT0 at (1, 2, 2) and QH at QH_SHAPE read q's checkpoints in check_fsdp's spawn
     log(f"[dp] 2 ranks on cuda:0 over {ranks[0]['backend']} (NCCL refuses two ranks on one "
         f"device); gloo takes CUDA tensors for all_reduce and broadcast: "
         f"{[r['gloo_cuda'] for r in ranks]}; {time.time() - t0:.1f} s for the spawn and P0, P, "
@@ -6305,11 +6437,11 @@ def main(argv=None):
     needs E: `--only tp`); `--only fs` the build, E and J, then FS0, FS and FSE
     (run_fsdp_scan); `--only tp` the build, A, E, H and J, then the tensor
     axis: T0, TQ0, TS0, TC0, T, TE, TQ, TQE, TS, TSE, TC, TCJ and TCE
-    (run_tensor), then Q, QD, QT0, QT, QTE and QTD at Qwen2.5-1.5B's 28
-    layers; `--only nccl` (two or more cards) the build, A, PN1 (the data
-    axis at (N, 1, 1), run_data_nccl), then the fsdp axis over NCCL, one
-    rank a card (run_fsdp_nccl, FSN and, on four cards, TN and QTN among
-    it); `--only host` the build, N (check_collator), A at T_LAYERS and PF
+    (run_tensor), then Q, QD, QT0, QT, QTE, QTD, QH0 and QH at
+    Qwen2.5-1.5B's 28 layers; `--only nccl` (two or more cards) the build,
+    A, PN1 (the data axis at (N, 1, 1), run_data_nccl), then the fsdp axis
+    over NCCL, one rank a card (run_fsdp_nccl, FSN and, on four cards, TN,
+    QTN and QHN among it); `--only host` the build, N (check_collator), A at T_LAYERS and PF
     (run_profiled); none prints a result line. With no arguments every
     phase runs, on one card."""
     argv = sys.argv[1:] if argv is None else argv
@@ -6447,7 +6579,7 @@ def main(argv=None):
         marks.append(("A, E, H, J", time.time()))
         run_tensor(run_a, run_e, run_h, run_j, model_cfg.num_hidden_layers)
         marks.append(("T0, TQ0, TS0, TC0, T, TE, TQ, TQE, TS, TSE, TC, TCJ, TCE, Q, QD, QT0, "
-                      "QT, QTE, QTD", time.time()))
+                      "QT, QTE, QTD, QH0, QH", time.time()))
         log("[smoke] --only tp: seconds by phase: " + ", ".join(
             f"{name} {t - prev:.1f}" for (name, t), (_, prev)
             in zip(marks, [("", t_start)] + marks)))
@@ -6825,7 +6957,7 @@ def main(argv=None):
             "F0 (2,2,1)": run_dp["F0 (2,2,1)"]["launches"],
             **{f"FS {m}": ranks[0]["launches"] for m, ranks in run_dp["FS"].items()},
             **{k: run_dp[k]["launches"] for k in run_dp
-               if k.startswith(("FS0 ", "T0 ", "TQ0 ", "TC0 ", "QT0 "))},
+               if k.startswith(("FS0 ", "T0 ", "TQ0 ", "TC0 ", "QT0 ", "QH0 "))},
             # rank 0 of the tensor runs (each rank launches on its heads and windows)
             "T tensor": run_dp["T"]["launches"], "TQ tensor": run_dp["TQ"]["launches"],
             "TS tensor": run_dp["TS"]["launches"],
@@ -6833,6 +6965,7 @@ def main(argv=None):
             "TCJ tensor": run_dp["TCJ ranks"][0]["launches"],
             # Qwen2.5-1.5B's widths: Q in one process, QT rank 0 (hq 6 / hkv 1 a rank)
             "Q": run_dp["Q"]["launches"], "QT tensor": run_dp["QT"]["launches"],
+            "QH tensor": run_dp["QH"]["launches"],
             # A's path at T_LAYERS under --profile_dir
             "PF": run_pf["launches"]}
     for k in kernels:

@@ -22,7 +22,10 @@ step, layer) (dropout_layer_seed), in the einsum attention.
 
 Under the tensor axis (parallel/tensor.py) a layer runs on its tensor
 slices of the weights: q/k/v/gate/up column-parallel (this rank's hq/T
-query and hkv/T kv heads, RoPE and attention, K3 among them, on those),
+query and hkv/T kv heads, RoPE and attention, K3 among them, on those;
+where T does not divide both head counts the ranks' q/k/v rows are
+gathered, and RoPE and attention run on the whole kv groups that the
+rank's o_proj columns meet, cut_heads),
 o/down row-parallel with their partial outputs summed over the tensor
 group, a q/k/v bias whole with the rank's rows added; the embedding
 lookup on this rank's hidden columns, gathered; the head's logits on this
@@ -352,32 +355,68 @@ def _lin(lp: Mapping[str, torch.Tensor], h: torch.Tensor, name: str, linear,
     return y
 
 
+def cut_heads(cfg: LlamaConfig, tensor) -> Optional[Tuple[int, int, int]]:
+    """Where the tensor axis cuts the attention heads (T does not divide
+    both head counts), this rank's attention: (first kv head, kv heads,
+    first column) of the whole kv groups, with all their query heads,
+    whose query heads meet the rank's hq * hd / T o_proj input columns,
+    and where those columns begin in the groups' output; None where T
+    divides both (each rank's rows are whole heads, whole groups)."""
+    hq, hkv, hd, t = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim, tensor.tensor
+    if hq % t == 0 and hkv % t == 0:
+        return None
+    g, n = hq // hkv, hq * hd // t
+    c0 = tensor.tensor_index * n
+    first = c0 // hd // g
+    last = -(-(c0 + n) // (hd * g))   # one past the last group the columns meet
+    return first, last - first, c0 - first * g * hd
+
+
 def _decoder_layer(lp: Mapping[str, torch.Tensor], x: torch.Tensor, mask_bias,
                    cos, sin, cfg: LlamaConfig, linear, layer_idx: int,
                    attn_impl: str = "einsum", dropout_seed: Optional[int] = None,
                    dropout_rows: Optional[Tuple[int, int]] = None,
                    tensor=None) -> torch.Tensor:
     """One decoder layer. tensor: the mesh of the tensor axis, when lp
-    holds this rank's tensor slices (module notes)."""
+    holds this rank's tensor slices (module notes). Where T cuts the heads
+    (cut_heads) the ranks' q/k/v rows are gathered (parallel/tensor.
+    gather_heads), RoPE and attention run on the whole kv groups that the
+    rank's o_proj columns meet, and the rank keeps those columns."""
     b, s, _ = x.shape
-    hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    hq, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     enter, leave = (lambda t: t), (lambda t: t)
     heads = None   # this rank's kv heads of the whole (dropout's mask)
+    cut = None
     if tensor is not None:
         from sparse_matrix_tuning_tpu_torch.parallel.tensor import (
             from_tensor_region, to_tensor_region)
-        heads = (tensor.tensor_index * (hkv // tensor.tensor), hkv)
-        hq, hkv = hq // tensor.tensor, hkv // tensor.tensor
+        cut = cut_heads(cfg, tensor)
+        if cut is None:
+            heads = (tensor.tensor_index * (hkv // tensor.tensor), hkv)
+            hq, hkv = hq // tensor.tensor, hkv // tensor.tensor
         enter = partial(to_tensor_region, mesh=tensor)
         leave = partial(from_tensor_region, mesh=tensor)
     h = enter(_rms_norm(x, lp["input_layernorm"], cfg.rms_norm_eps))
     q = _lin(lp, h, "q_proj", linear, layer_idx, tensor)
     k = _lin(lp, h, "k_proj", linear, layer_idx, tensor)
     v = _lin(lp, h, "v_proj", linear, layer_idx, tensor)
-    hd = cfg.head_dim
-    q = q.reshape(b, s, hq, hd)
-    k = k.reshape(b, s, hkv, hd)
-    v = v.reshape(b, s, hkv, hd)
+    if cut is not None:
+        from sparse_matrix_tuning_tpu_torch.parallel.tensor import gather_heads
+        # one gather of the rows [q | k | v] (their biases added once, by
+        # _lin), then the whole kv groups the rank's columns meet
+        nq, nkv = q.shape[-1], k.shape[-1]
+        full = gather_heads(torch.cat([q, k, v], dim=-1), tensor).view(
+            b, s, tensor.tensor, nq + 2 * nkv)
+        q, k, v = (p.reshape(b, s, -1, hd) for p in full.split([nq, nkv, nkv], dim=-1))
+        first, n_kv, _ = cut
+        g = hq // hkv
+        q, k = q[:, :, first * g:(first + n_kv) * g], k[:, :, first:first + n_kv]
+        v = v[:, :, first:first + n_kv].contiguous()
+        heads = (first, hkv)
+    else:
+        q = q.reshape(b, s, hq, hd)
+        k = k.reshape(b, s, hkv, hd)
+        v = v.reshape(b, s, hkv, hd)
     q = _apply_rope(q, cos, sin)
     k = _apply_rope(k, cos, sin)
     # INVARIANT (fullk): the fused kernel ignores mask_bias and is exact only
@@ -392,6 +431,8 @@ def _decoder_layer(lp: Mapping[str, torch.Tensor], x: torch.Tensor, mask_bias,
         attn = _attention(q, k, v, mask_bias, cfg.attention_dropout,
                           _dropout_rng(dropout_seed, q.device), dropout_rows=dropout_rows,
                           dropout_heads=heads)
+    if cut is not None:
+        attn = attn.narrow(-1, cut[2], cfg.num_attention_heads * hd // tensor.tensor).contiguous()
     x = x + leave(_lin(lp, attn, "o_proj", linear, layer_idx))
 
     h = enter(_rms_norm(x, lp["post_attention_layernorm"], cfg.rms_norm_eps))

@@ -79,7 +79,10 @@ class Mesh:
     the channel warm-up's activation taps with its loss ("taps_*",
     steps.build_channel_warmup_step), and, among the tensor group's
     all-gathers, a tied head's ("tied_*", parallel/tensor.tied_head_rows;
-    the gathered tensors' bytes)."""
+    the gathered tensors' bytes) and, where T cuts the attention heads, the
+    q/k/v activations' all-gathers and their grads' reduce-scatters
+    ("heads_*", parallel/tensor.gather_heads; the gathered and the summed
+    tensors' bytes)."""
     shape: Tuple[int, int, int]
     rank: int
     device: torch.device
@@ -152,7 +155,7 @@ class Mesh:
 STAT_KEYS = ("bytes", "calls", "gather_bytes", "gather_calls", "scatter_bytes",
              "scatter_calls", "tensor_bytes", "tensor_calls", "tensor_amax_bytes",
              "tensor_amax_calls", "grad_parts_bytes", "grad_parts_calls", "taps_bytes",
-             "taps_calls", "tied_bytes", "tied_calls")
+             "taps_calls", "tied_bytes", "tied_calls", "heads_bytes", "heads_calls")
 
 
 def free_port() -> int:
@@ -257,23 +260,28 @@ def refuse_sharded_axes(shape: Sequence[int], cfg=None) -> None:
 
 
 def refuse_tensor_model(model_cfg, t: int) -> None:
-    """Refuse, by name, a model the tensor axis does not split: a T that
-    does not divide the head counts, the intermediate width and the
-    vocabulary (where JAX's _fit would keep the weight whole and its einsum
-    attention run; the port names it instead). A tied head and q/k/v
-    biases (Qwen2/2.5) are taken."""
+    """Refuse, by name, a model with a leaf dim that JAX splits over
+    "tensor" and T does not divide: q's and k/v's rows (hq * hd, hkv *
+    hd), the intermediate width, the hidden width and the vocabulary. JAX's
+    _fit keeps such a leaf whole; the port names it instead. A T that cuts
+    the attention heads (divides those dims, not the head counts) is
+    taken: the layers gather q/k/v for attention (models/llama.cut_heads),
+    as are a tied head and q/k/v biases (Qwen2/2.5)."""
     if t == 1:
         return
     c = model_cfg
-    sizes = {"num_attention_heads": c.num_attention_heads,
-             "num_key_value_heads": c.num_key_value_heads,
-             "intermediate_size": c.intermediate_size, "vocab_size": c.vocab_size}
-    refused = [f"{k} {v}" for k, v in sizes.items() if v % t]
+    hd = c.head_dim
+    dims = {"q_proj rows": c.num_attention_heads * hd,
+            "k_proj/v_proj rows": c.num_key_value_heads * hd,
+            "intermediate_size": c.intermediate_size, "hidden_size": c.hidden_size,
+            "vocab_size": c.vocab_size}
+    refused = [f"{k} {v}" for k, v in dims.items() if v % t]
     if refused:
         raise NotImplementedError(
             f"tensor {t}: " + ", ".join(refused) + " not yet ported to "
-            "sparse_matrix_tuning_tpu_torch under the tensor axis: T must divide the head "
-            "counts, the intermediate width and the vocabulary")
+            "sparse_matrix_tuning_tpu_torch under the tensor axis: JAX keeps a leaf dim that "
+            "T does not divide whole (its state_shardings' _fit); T must divide every dim "
+            "the tensor axis splits")
 
 
 def rank_rows(batch: Dict[str, Any], mesh: Mesh, accum: int = 1) -> Dict[str, Any]:
@@ -373,20 +381,21 @@ def all_gather_(shard: torch.Tensor, mesh: Mesh, over: str = "fsdp") -> torch.Te
     return out
 
 
-def reduce_scatter_(full: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Sum a 1-D (F * n,) tensor over the fsdp group and return this rank's
-    n-slice of the sum (a new tensor). NCCL: reduce_scatter_tensor. Gloo:
-    all_reduce of the whole (in place: `full` is the caller's scratch),
-    then the slice (module notes)."""
-    f, group = mesh.axis("fsdp")
+def reduce_scatter_(full: torch.Tensor, mesh: Mesh, over: str = "fsdp") -> torch.Tensor:
+    """Sum a 1-D (F * n,) tensor over the group `over` ("fsdp" or
+    "tensor") and return this rank's n-slice of the sum (a new tensor).
+    NCCL: reduce_scatter_tensor. Gloo: all_reduce of the whole (in place:
+    `full` is the caller's scratch), then the slice (module notes)."""
+    f, group = mesh.axis(over)
+    index = mesh.fsdp_index if over == "fsdp" else mesh.tensor_index
     n = full.numel() // f
     if _gloo(group):
         dist.all_reduce(full, group=group)
-        out = full[mesh.fsdp_index * n:(mesh.fsdp_index + 1) * n].clone()
+        out = full[index * n:(index + 1) * n].clone()
     else:
         out = torch.empty(n, dtype=full.dtype, device=full.device)
         dist.reduce_scatter_tensor(out, full.contiguous(), group=group)
-    _count(mesh, "fsdp", "scatter", full)
+    _count(mesh, over, "scatter", full)
     return out
 
 

@@ -36,7 +36,14 @@ vocabulary rows (ops/loss.py: the vocabulary-parallel cross-entropy).
     in between, and autograd adds it to the lookup's grad once, as one
     process adds its two grads of the one embedding. A reduce-scatter
     would move the same bytes but sum in an order of its own. Counted in
-    "tensor_*" and apart in "tied_*".
+    "tensor_*" and apart in "tied_*";
+  * gather_heads: where T does not divide the head counts (a rank's rows
+    of q/k/v cut a head, or a query group), the ranks' column-parallel
+    rows gathered along the last dim forward, and backward the grads of
+    the whole summed over the group, each rank keeping its rows (laid out
+    rank-major for parallel/mesh.reduce_scatter_): each rank's attention
+    feeds its own o_proj columns, so the whole's grad is the sum of the
+    ranks' parts. Counted in "tensor_*" and apart in "heads_*".
 
 Each is collective over the tensor group (every rank calls it in the
 same order; a remat recompute calls them again) and counts its bytes and
@@ -50,7 +57,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from sparse_matrix_tuning_tpu_torch.parallel.mesh import Mesh, all_gather_
+from sparse_matrix_tuning_tpu_torch.parallel.mesh import Mesh, all_gather_, reduce_scatter_
 
 
 def _all_reduce(t: torch.Tensor, mesh: Mesh, op: str = "sum", stat: str = "tensor"
@@ -102,19 +109,46 @@ class _FromTensorRegion(torch.autograd.Function):
         return g, None
 
 
+def _gather_last(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The tensor group's x (..., n) concatenated along the last dim."""
+    full = all_gather_(x.contiguous(), mesh, "tensor").view(mesh.tensor, *x.shape)
+    return torch.cat(full.unbind(0), dim=-1) if mesh.tensor > 1 else full[0]
+
+
 class _GatherFromTensor(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
         ctx.mesh = mesh
-        t = mesh.tensor
-        full = all_gather_(x.contiguous(), mesh, "tensor").view(t, *x.shape)
-        return torch.cat(full.unbind(0), dim=-1) if t > 1 else full[0]
+        return _gather_last(x, mesh)
 
     @staticmethod
     def backward(ctx, g):
         mesh = ctx.mesh
         n = g.shape[-1] // mesh.tensor
         return g.narrow(-1, mesh.tensor_index * n, n).contiguous(), None
+
+
+class _GatherHeads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        full = _gather_last(x, mesh)
+        _count_heads(mesh, full)
+        return full
+
+    @staticmethod
+    def backward(ctx, g):
+        # the rows of each rank laid out rank-major, summed and scattered
+        mesh = ctx.mesh
+        n = g.shape[-1] // mesh.tensor
+        whole = g.reshape(-1, mesh.tensor, n).transpose(0, 1).contiguous()
+        _count_heads(mesh, whole)
+        return reduce_scatter_(whole.view(-1), mesh, "tensor").view(*g.shape[:-1], n), None
+
+
+def _count_heads(mesh: Mesh, t: torch.Tensor) -> None:
+    mesh.stats["heads_bytes"] += t.numel() * t.element_size()
+    mesh.stats["heads_calls"] += 1
 
 
 class _TiedHeadRows(torch.autograd.Function):
@@ -138,6 +172,14 @@ def _tied_gather(x: torch.Tensor, mesh: Mesh, keep: int) -> torch.Tensor:
     mesh.stats["tied_calls"] += 1
     n = x.shape[keep] // t
     return torch.cat([p.narrow(keep, i * n, n) for p in full.unbind(0)], dim=1 - keep)
+
+
+def gather_heads(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The group's column-parallel rows x (..., n) of an activation whose
+    heads T cuts, concatenated along the last dim in tensor order (..., T *
+    n); backward, this rank's rows of the group's summed grads (module
+    notes)."""
+    return _GatherHeads.apply(x, mesh)
 
 
 def tied_head_rows(emb: torch.Tensor, mesh: Mesh) -> torch.Tensor:

@@ -13,11 +13,18 @@ given on its rows of the global batches, and writes what it saw to
 instead, so that only its own test fails.
 
 run_scenario is shared with the tests' one-process (D=1) runs: the same
-code at mesh None.
+code at mesh None, at the ranks' one intra-op thread.
+
+Each rank dies with the process that spawned it (a pytest worker lost
+mid-spawn leaves no rank waiting out its collectives), and each spawn
+prints its wall to stderr.
 """
 from __future__ import annotations
 
 import os
+import signal
+import sys
+import time
 import traceback
 
 import torch
@@ -38,10 +45,26 @@ TIMEOUT_S = 120
 def spawn(target, world: int, tmp_path, *args):
     """Run target(rank, world, store, *args) in `world` spawned processes."""
     store = os.path.join(str(tmp_path), "store")
-    mp.spawn(target, args=(world, store, *args), nprocs=world, join=True)
+    t0 = time.monotonic()
+    try:
+        mp.spawn(target, args=(world, store, *args), nprocs=world, join=True)
+    finally:
+        print(f"[spawn] {getattr(target, '__name__', target)} x{world}: "
+              f"{time.monotonic() - t0:.1f} s", file=sys.stderr, flush=True)
+
+
+def _die_with_parent() -> None:
+    """Linux: SIGKILL this process when the process that spawned it dies
+    (prctl PR_SET_PDEATHSIG)."""
+    try:
+        import ctypes
+        ctypes.CDLL(None, use_errno=True).prctl(1, int(signal.SIGKILL), 0, 0, 0)
+    except (OSError, AttributeError):
+        pass
 
 
 def _join(rank: int, world: int, store: str, shape=None):
+    _die_with_parent()
     torch.set_num_threads(1)
     device = init_distributed(torch.device("cpu"), init_method=f"file://{store}",
                               rank=rank, world_size=world, timeout_s=TIMEOUT_S)
@@ -111,6 +134,17 @@ def run_scenario(spec, mesh=None):
     merged_params, collective under fsdp), flat, and over the int8 scan
     state the decode params' head and int8 layers (trainer.decode_params,
     collective too)."""
+    if mesh is not None:
+        return _scenario(spec, mesh)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)   # the reference: at the ranks' thread count
+    try:
+        return _scenario(spec, None)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _scenario(spec, mesh):
     from sparse_matrix_tuning_tpu_torch.parallel import fsdp
     trainer = build_trainer(spec, mesh)
     batches = torch.load(spec["batches"], weights_only=False)
@@ -269,6 +303,7 @@ def cli_ranks(rank: int, world: int, store: str, module: str, argv, out_dir: str
     rendezvous in the environment (a file:// store in place of
     MASTER_ADDR), the CLI initialising the group itself."""
     import importlib
+    _die_with_parent()
     torch.set_num_threads(1)
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
     from sparse_matrix_tuning_tpu_torch.parallel import mesh as mesh_mod
